@@ -1,0 +1,608 @@
+#!/usr/bin/env python3
+"""Smoke test of the PyTorch/CUDA port (dynamo_tpu_torch) on one NVIDIA GPU.
+
+    python3 chip_smoke.py
+
+Builds the port's CUDA kernels from csrc/, holds each against its plain
+PyTorch version at the llama-8b shapes the main path gives it, then
+serves concurrent requests through `TorchEngine` with the llama-8b preset
+at full width (random bf16 weights made on the card from a seed) and
+checks the streams.  Any failed phase ends the script with a non-zero
+exit code.  It imports nothing of JAX or of the JAX package.
+
+Output: one line per phase; a `{"kernels": [...]}` JSON line with each
+kernel's launches on the main path, error against its plain version
+(`max_abs_err`, and `max_rel_err`, the figure the tolerance holds), its
+device time (`ms`, by CUDA-graph replay), the plain version's time, the
+one-call PyTorch yardstick's time (`library_ms`,
+scaled_dot_product_attention on the same context gathered into a dense
+tensor beforehand; the port never calls it) and the least time the card
+could take (`bound_ms`); the card's name and power limit; and, last,
+`{"ok": true, "device": {...}}`.
+
+Bounds use the H100 SXM data sheet (3.35 TB/s HBM3, 989 TFLOP/s dense
+bf16); a card run below its 700 W limit is slower, so its limit is
+printed beside every number.
+"""
+
+from __future__ import annotations
+
+import asyncio
+import dataclasses
+import json
+import subprocess
+import sys
+import time
+
+import numpy as np
+import torch
+
+HBM_BYTES_PER_S = 3.35e12
+BF16_FLOPS_PER_S = 989e12
+# Tolerance of a kernel against its plain version, per output row (one
+# token's one head, hd values): the relative L2 error ||out - ref|| /
+# ||ref||.  The plain version runs with round_scaled_q=True, so it rounds
+# q * 1/sqrt(hd) to bf16 as the kernels do; what remains is the kernel's
+# bf16 rounding of the softmax weights before P.V, its summation order
+# and both outputs' bf16 rounding (2^-9 relative each).  A row's output
+# shrinks like 1/sqrt(context) with random inputs, so an absolute bound
+# would be loose on long rows; a relative one is not.  REL_TOL lies
+# between the largest error of the sound kernels and the smallest error
+# of planted faults (a context block read from another sequence, one
+# position past a row's end), which every run measures again and
+# requires to exceed it.
+REL_TOL = 1e-2
+# whole-model agreement of the kernel path with the plain path: 32 bf16
+# layers of random weights amplify per-layer rounding, so the bound is on
+# direction (cosine) and on the argmax, unless the plain path's own top-2
+# gap is smaller than the largest logit difference (a near-tie)
+MIN_COSINE = 0.999
+
+
+def log(msg: str) -> None:
+    print(msg, flush=True)
+
+
+def gpu_line() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60)
+    return out.stdout.strip().splitlines()[0]
+
+
+def row_rel_err(out: torch.Tensor, ref: torch.Tensor) -> float:
+    """Largest relative L2 error ||out - ref|| / ||ref|| over the rows of
+    the last dimension whose reference is not all zero."""
+    out, ref = out.float(), ref.float()
+    den = ref.norm(dim=-1)
+    live = den > 0
+    return ((out - ref).norm(dim=-1)[live] / den[live]).max().item()
+
+
+def hold_to_plain(name: str, out, ref, faults: dict) -> tuple:
+    """(max_abs_err, max_rel_err) of a kernel's output against its plain
+    version; exits unless the relative error is inside REL_TOL and every
+    planted fault (name -> the plain version's output on faulty inputs)
+    errs by more than REL_TOL, so the bound would catch it."""
+    err = (out.float() - ref.float()).abs().max().item()
+    rel = row_rel_err(out, ref)
+    seen = {f: row_rel_err(o, ref) for f, o in faults.items()}
+    log(f"{name}: max row relative error {rel:.3e} (limit {REL_TOL}), "
+        f"max_abs_err {err:.3e}; planted faults' max row relative error: "
+        + "; ".join(f"{f} {e:.3e}" for f, e in seen.items()))
+    if min(seen.values()) <= REL_TOL:
+        raise SystemExit(f"{name}: a planted fault passes the tolerance")
+    if not rel <= REL_TOL:
+        raise SystemExit(f"{name} disagrees with its plain version")
+    return err, rel
+
+
+def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
+    """Mean time of one call, by CUDA events around `iters` calls issued
+    from the host (for the plain versions, which cannot be captured in a
+    CUDA graph: the packed one synchronizes on torch.nonzero)."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def graph_time_ms(fn, calls: int = 20, replays: int = 5) -> float:
+    """Device time of one call without host overhead: `calls` calls
+    captured in one CUDA graph, CUDA events around `replays` replays.
+    (A host loop of a kernel whose launch takes less device time than its
+    Python wrapper takes on the host would measure the wrapper.)"""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(calls):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / (replays * calls)
+
+
+def bound(nbytes: float, flops: float):
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / BF16_FLOPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def sdpa(q, k, v, mask):
+    """One scaled_dot_product_attention call with GQA heads (k/v keep
+    their kv heads), as a thunk for the timers."""
+    f = torch.nn.functional.scaled_dot_product_attention
+    return lambda: f(q, k, v, attn_mask=mask, enable_gqa=True)
+
+
+# ---------------------------------------------------------------------------
+# phase 2: build
+# ---------------------------------------------------------------------------
+
+
+def build_kernels() -> None:
+    from dynamo_tpu_torch.ops import _build
+    from dynamo_tpu_torch.ops.cuda_packed_prefill import KERNEL as K3
+    from dynamo_tpu_torch.ops.cuda_paged_attention import KERNEL as K1
+
+    t0 = time.perf_counter()
+    logs = _build.compile_sources([K1, K3])
+    dt = time.perf_counter() - t0
+    for name, text in logs.items():
+        for line in text.splitlines():
+            if "registers" in line or "spill" in line or "smem" in line:
+                log(f"  nvcc {name}: {line.strip()}")
+    log(f"build: {K1}.cu and {K3}.cu for sm_90a in {dt:.1f} s")
+
+
+# ---------------------------------------------------------------------------
+# phase 3: K1 against its plain version
+# ---------------------------------------------------------------------------
+
+
+def _random_cache(gen, L, nkv, nb, bs, hd, device):
+    k = torch.randn(L, nkv, nb, bs, hd, generator=gen, device=device)
+    v = torch.randn(L, nkv, nb, bs, hd, generator=gen, device=device)
+    # block 0 is the garbage block: junk that must never reach a result
+    k[:, :, 0] *= 50.0
+    v[:, :, 0] *= 50.0
+    return k.to(torch.bfloat16), v.to(torch.bfloat16)
+
+
+def check_decode_kernel(cfg, device) -> dict:
+    from dynamo_tpu_torch.ops.cuda_paged_attention import paged_decode
+    from dynamo_tpu_torch.ops.paged_attention import (
+        paged_attention_decode_ref,
+    )
+
+    nh, nkv, hd, bs = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, 128
+    kv_lens = [1, 127, 128, 129, 2048, 700, 1500, 2047]
+    B, mb, L, layer = len(kv_lens), 2048 // bs, 2, 1
+    need = [-(-n // bs) for n in kv_lens]
+    nb = 1 + sum(need)
+    rng = np.random.default_rng(1)
+    perm = rng.permutation(nb - 1) + 1
+    tables = np.zeros((B, mb), np.int32)  # padded entries -> block 0
+    off = 0
+    for b, n in enumerate(need):
+        tables[b, :n] = perm[off:off + n]
+        off += n
+    gen = torch.Generator(device=device).manual_seed(1)
+    kc, vc = _random_cache(gen, L, nkv, nb, bs, hd, device)
+    q = torch.randn(B, nh, hd, generator=gen, device=device).to(torch.bfloat16)
+    tables_t = torch.from_numpy(tables).to(device)
+    lens_t = torch.tensor(kv_lens, dtype=torch.int32, device=device)
+
+    def plain(tables=tables_t, lens=lens_t):
+        return paged_attention_decode_ref(q, kc, vc, layer, tables, lens,
+                                          round_scaled_q=True)
+
+    out = paged_decode(q, kc, vc, layer, tables_t, lens_t)
+    torch.cuda.synchronize()
+    log(f"K1 paged_decode vs plain: B={B} nh={nh} nkv={nkv} hd={hd} bs={bs} "
+        f"kv_lens={kv_lens}")
+    # planted faults: the 2048-position row reads its 9th block from the
+    # 1500-position row; the 2047-position row sees one position more
+    wrong = tables_t.clone()
+    wrong[kv_lens.index(2048), 8] = tables_t[kv_lens.index(1500), 0]
+    longer = lens_t.clone()
+    longer[kv_lens.index(2047)] += 1
+    err, rel = hold_to_plain("K1", out, plain(), {
+        "foreign block": plain(tables=wrong),
+        "one position past kv_len": plain(lens=longer)})
+
+    ms = graph_time_ms(
+        lambda: paged_decode(q, kc, vc, layer, tables_t, lens_t))
+    plain_ms = time_ms(plain, iters=5)
+    # yardstick: SDPA over each row's context gathered densely beforehand,
+    # padded to the table width (B x mb*bs positions) and masked
+    S = mb * bs
+    kd = kc[layer][:, tables_t.long()].reshape(nkv, B, S, hd).transpose(0, 1)
+    vd = vc[layer][:, tables_t.long()].reshape(nkv, B, S, hd).transpose(0, 1)
+    mask = (torch.arange(S, device=device)[None, :]
+            < lens_t[:, None]).reshape(B, 1, 1, S)
+    lib = sdpa(q.reshape(B, nh, 1, hd), kd.contiguous(), vd.contiguous(),
+               mask)
+    library_ms = graph_time_ms(lib)
+    total = sum(kv_lens)
+    nbytes = (2 * total * nkv * hd * 2 + 2 * q.numel() * 2
+              + tables.nbytes + 4 * B)
+    flops = 4 * nh * hd * total
+    bound_ms, bound_by = bound(nbytes, flops)
+    # what SDPA's padded input alone takes to read at the memory rate
+    sdpa_bytes_ms = 2 * B * S * nkv * hd * 2 / HBM_BYTES_PER_S * 1e3
+    log(f"K1 times: kernel {ms:.4f} ms (graph replay), plain "
+        f"{plain_ms:.4f} ms (host loop), sdpa {library_ms:.4f} ms (graph "
+        f"replay; it reads the padded {B}x{S} positions, {sdpa_bytes_ms:.4f}"
+        f" ms at the memory rate, against {total} real ones), bound "
+        f"{bound_ms:.4f} ms ({bound_by})")
+    return {"name": "paged_decode", "route": "cuda",
+            "source": "dynamo_tpu_torch/csrc/paged_decode.cu",
+            "replaces": "dynamo_tpu/ops/pallas_paged_attention.py:300",
+            "max_abs_err": err, "max_rel_err": rel, "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by, "library_ms": library_ms}
+
+
+# ---------------------------------------------------------------------------
+# phase 4: K3 against its plain version
+# ---------------------------------------------------------------------------
+
+
+def check_prefill_kernel(cfg, device) -> dict:
+    from dynamo_tpu_torch.ops.cuda_packed_prefill import packed_prefill
+    from dynamo_tpu_torch.ops.packed_prefill import (
+        packed_prefill_attention_ref,
+    )
+
+    nh, nkv, hd, bs = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, 128
+    T, mb, L, layer = 2048, 2048 // bs, 2, 1
+    # segment rows: row 1 is empty (an interleaved empty row); the stream
+    # starts with row 2, so the first active (tile, segment) pair is not
+    # (0, 0); row 2 starts at a prefix offset of 300 cached positions;
+    # 1800 + 100 + 110 + 37 = 2047 real tokens and one padded; no
+    # boundary is a multiple of the 16-token tile
+    lens = [1800, 0, 100, 110, 37]
+    ctx0 = [0, 0, 300, 0, 0]
+    order = [2, 0, 3, 4]
+    S = len(lens)
+    seg_ids = np.zeros(T, np.int32)
+    positions = np.zeros(T, np.int32)
+    valid = np.zeros(T, bool)
+    off = 0
+    for s in order:
+        n = lens[s]
+        seg_ids[off:off + n] = s
+        positions[off:off + n] = ctx0[s] + np.arange(n)
+        valid[off:off + n] = True
+        off += n
+    need = [-(-(c + n) // bs) if n else 0 for c, n in zip(ctx0, lens)]
+    nb = 1 + sum(need)
+    rng = np.random.default_rng(2)
+    perm = rng.permutation(nb - 1) + 1
+    tables = np.zeros((S, mb), np.int32)
+    o = 0
+    for s, n in enumerate(need):
+        tables[s, :n] = perm[o:o + n]
+        o += n
+    gen = torch.Generator(device=device).manual_seed(2)
+    kc, vc = _random_cache(gen, L, nkv, nb, bs, hd, device)
+    q = torch.randn(T, nh, hd, generator=gen, device=device).to(torch.bfloat16)
+    args = [torch.from_numpy(a).to(device)
+            for a in (tables, seg_ids, positions, valid)]
+
+    def plain(tables_t=args[0], positions_t=args[2]):
+        return packed_prefill_attention_ref(q, kc, vc, layer, tables_t,
+                                            args[1], positions_t, args[3],
+                                            round_scaled_q=True)
+
+    out = packed_prefill(q, kc, vc, layer, *args)
+    torch.cuda.synchronize()
+    tail_zero = bool((out[~args[3]] == 0).all())
+    log(f"K3 packed_prefill vs plain: T={T} rows={lens} prefix={ctx0} "
+        f"stream order={order}, padded tail exactly 0: {tail_zero}")
+    if not tail_zero:
+        raise SystemExit("K3: the padded tail is not 0")
+    # planted faults: row 0 (1800 tokens) reads its 8th block from row 3;
+    # row 0's last token sees one position past its causal frontier
+    wrong = args[0].clone()
+    wrong[0, 7] = args[0][3, 0]
+    further = args[2].clone()
+    further[int(np.flatnonzero((seg_ids == 0) & valid)[-1])] += 1
+    err, rel = hold_to_plain("K3", out, plain(), {
+        "foreign block": plain(tables_t=wrong),
+        "one position past the causal frontier": plain(positions_t=further)})
+
+    ms = graph_time_ms(lambda: packed_prefill(q, kc, vc, layer, *args))
+    plain_ms = time_ms(plain, iters=3, warmup=1)
+    # yardstick: one SDPA call over every row's context gathered densely
+    # beforehand, with the segment-causal mask
+    cols = [(s, c) for s in range(S) for c in range(ctx0[s] + lens[s])]
+    col_seg = torch.tensor([s for s, _ in cols], device=device)
+    col_pos = torch.tensor([c for _, c in cols], device=device)
+    col_blk = torch.from_numpy(tables).to(device)[col_seg, col_pos // bs].long()
+    kd = kc[layer][:, col_blk, col_pos % bs].unsqueeze(0).contiguous()
+    vd = vc[layer][:, col_blk, col_pos % bs].unsqueeze(0).contiguous()
+    seg_t, pos_t, val_t = args[1].long(), args[2].long(), args[3]
+    mask = ((seg_t[:, None] == col_seg[None, :])
+            & (col_pos[None, :] <= pos_t[:, None]) & val_t[:, None])
+    mask[~val_t, 0] = True  # padded rows attend somewhere (output unused)
+    lib = sdpa(q.transpose(0, 1).unsqueeze(0), kd, vd, mask)
+    library_ms = graph_time_ms(lib)
+    ctx = positions[valid].astype(np.int64) + 1
+    kv_pos = sum(c + n for c, n in zip(ctx0, lens))
+    nbytes = 2 * kv_pos * nkv * hd * 2 + 2 * q.numel() * 2 + tables.nbytes \
+        + 9 * T
+    flops = 4 * nh * hd * int(ctx.sum())
+    bound_ms, bound_by = bound(nbytes, flops)
+    log(f"K3 times: kernel {ms:.4f} ms (graph replay, tile plan "
+        f"included), plain {plain_ms:.4f} ms (host loop), sdpa "
+        f"{library_ms:.4f} ms (graph replay), bound {bound_ms:.4f} ms "
+        f"({bound_by})")
+    return {"name": "packed_prefill", "route": "cuda",
+            "source": "dynamo_tpu_torch/csrc/packed_prefill.cu",
+            "replaces": "dynamo_tpu/ops/pallas_packed_prefill.py:195",
+            "max_abs_err": err, "max_rel_err": rel, "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by, "library_ms": library_ms}
+
+
+# ---------------------------------------------------------------------------
+# phase 5: the engine at full width
+# ---------------------------------------------------------------------------
+
+
+def _requests(vocab: int):
+    from dynamo_tpu_torch.protocols import (
+        PreprocessedRequest,
+        SamplingOptions,
+        StopConditions,
+    )
+
+    rng = np.random.default_rng(5)
+    prompts = [rng.integers(0, vocab, n).tolist() for n in (1800, 500, 100, 37)]
+    # shares its first 1024 tokens (8 blocks) with the first prompt
+    prompts.append(prompts[0][:1024] + rng.integers(0, vocab, 200).tolist())
+    reqs = []
+    for i, p in enumerate(prompts):
+        sampled = i == 2
+        reqs.append(PreprocessedRequest(
+            token_ids=p, request_id=f"smoke-{i}",
+            sampling=(SamplingOptions(temperature=0.8, top_p=0.9, seed=1234)
+                      if sampled else SamplingOptions(temperature=0.0)),
+            stop=StopConditions(max_tokens=32, ignore_eos=True)))
+    return reqs
+
+
+async def _serve(engine, reqs):
+    """Send every request at once; per request (tokens, finish reason,
+    time to first token, time of the last token)."""
+    t0 = time.perf_counter()
+
+    async def one(req):
+        toks, finish, first = [], None, None
+        async for out in engine.generate(req):
+            if out.token_ids and first is None:
+                first = time.perf_counter() - t0
+            toks.extend(out.token_ids)
+            finish = out.finish_reason
+        return toks, finish, first, time.perf_counter() - t0
+
+    return await asyncio.gather(*(one(r) for r in reqs))
+
+
+def _compare_logits(params, cfg, device) -> None:
+    """One 512-token prompt's last-token logits, and the next decode
+    step's, through the kernel path and the plain path on the card."""
+    from dynamo_tpu_torch.models import llama
+
+    plain_cfg = dataclasses.replace(cfg, attn_impl="torch",
+                                    packed_attn_impl="torch")
+    rng = np.random.default_rng(7)
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, 512)
+                            .astype(np.int32)).to(device)
+    pos = torch.arange(512, dtype=torch.int32, device=device)
+    seg = torch.zeros(512, dtype=torch.int32, device=device)
+    valid = torch.ones(512, dtype=torch.bool, device=device)
+    tables = torch.tensor([[1, 2, 3, 4, 5]], dtype=torch.int32, device=device)
+    last = torch.tensor([511], dtype=torch.int32, device=device)
+    res = {}
+    for name, c in (("kernel", cfg), ("plain", plain_cfg)):
+        kv = tuple(torch.zeros(s, dtype=cfg.dtype, device=device)
+                   for s in llama.kv_cache_shapes(cfg, 8, 128))
+        pre, _ = llama.prefill_packed(params, c, kv, toks, pos, seg, tables,
+                                      last, valid)
+        nxt = torch.tensor([7], dtype=torch.int32, device=device)
+        dec, _ = llama.decode(params, c, kv, nxt,
+                              torch.tensor([512], dtype=torch.int32,
+                                           device=device),
+                              tables, torch.tensor([512], dtype=torch.int32,
+                                                   device=device))
+        res[name] = (pre[0].float(), dec[0].float())
+    for i, what in enumerate(("prefill", "decode")):
+        a, b = res["kernel"][i], res["plain"][i]
+        cos = torch.nn.functional.cosine_similarity(a, b, dim=0).item()
+        diff = (a - b).abs().max().item()
+        top2 = torch.topk(b, 2).values
+        gap = (top2[0] - top2[1]).item()
+        same = int(a.argmax()) == int(b.argmax())
+        ok = cos >= MIN_COSINE and (same or gap <= diff)
+        log(f"logits {what}, kernel path vs plain path (512-token prompt): "
+            f"cosine={cos:.6f} (>= {MIN_COSINE}) top1 equal={same} "
+            f"max_abs_diff={diff:.4f} plain top-2 gap={gap:.4f} "
+            f"{'ok' if ok else 'FAILED'}")
+        if not ok:
+            raise SystemExit(f"kernel path and plain path disagree ({what})")
+
+
+def check_engine(device, card: str) -> dict:
+    from dynamo_tpu_torch.engine import EngineConfig, TorchEngine
+    from dynamo_tpu_torch.ops.cuda_packed_prefill import packed_prefill
+    from dynamo_tpu_torch.ops.cuda_paged_attention import paged_decode
+
+    cfg = EngineConfig(model="llama-8b", block_size=128, num_blocks=512,
+                       max_blocks_per_seq=16, max_num_seqs=4,
+                       max_batch_tokens=2048, max_prefill_seqs=4, seed=0)
+    t0 = time.perf_counter()
+    engine = TorchEngine(cfg, device=device)
+    torch.cuda.synchronize()
+    mc = engine.model_cfg
+    log(f"engine: llama-8b d={mc.d_model} layers={mc.n_layers} "
+        f"heads={mc.n_heads}/{mc.n_kv_heads} vocab={mc.vocab_size}, random "
+        f"bf16 weights in {time.perf_counter() - t0:.1f} s, "
+        f"{cfg.num_blocks} KV blocks of {cfg.block_size}, "
+        f"{torch.cuda.memory_allocated() / 2**30:.1f} GiB allocated")
+    reqs = _requests(mc.vocab_size)
+
+    async def run():
+        try:
+            # the main path's run: counts set to 0 just before, read just
+            # after, before any other launch
+            paged_decode.launches = 0
+            packed_prefill.launches = 0
+            first = await _serve(engine, reqs)
+            counts = {"paged_decode": paged_decode.launches,
+                      "packed_prefill": packed_prefill.launches}
+            stats = dict(engine.metrics)
+            await engine.clear_kv_blocks()
+            second = await _serve(engine, reqs)
+            await engine.clear_kv_blocks()
+            with torch.profiler.profile(activities=[
+                    torch.profiler.ProfilerActivity.CPU,
+                    torch.profiler.ProfilerActivity.CUDA]) as prof:
+                t0 = time.perf_counter()
+                await _serve(engine, reqs)
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+            return first, counts, stats, second, (prof, wall)
+        finally:
+            await engine.close()
+
+    first, launches, stats, second, (prof, wall) = asyncio.run(run())
+    for i, (toks, finish, ttft, _) in enumerate(first):
+        log(f"  request {i}: prompt {len(reqs[i].token_ids)} tokens, "
+            f"{len(toks)} out, finish={finish}, ttft={ttft:.3f} s")
+    bad = [i for i, r in enumerate(first) if r[1] != "length"
+           or len(r[0]) != 32]
+    if bad:
+        raise SystemExit(f"requests {bad} did not finish with 32 tokens")
+    L = mc.n_layers
+    need_dec = L * stats["decode_steps"]
+    need_pre = L * stats["prefill_steps"]
+    log(f"engine launches in the first run: paged_decode "
+        f"{launches['paged_decode']} (>= {need_dec} = "
+        f"{L} layers x {stats['decode_steps']} decode steps), packed_prefill "
+        f"{launches['packed_prefill']} (>= {need_pre} = {L} x "
+        f"{stats['prefill_steps']} prefill dispatches)")
+    if launches["paged_decode"] < need_dec \
+            or launches["packed_prefill"] < need_pre or not need_dec:
+        raise SystemExit("the engine did not run through both kernels")
+    if stats["cache_hit_tokens"] < 1024:
+        raise SystemExit(f"prefix hit not taken: {stats['cache_hit_tokens']}")
+    log(f"prefix cache: {stats['cache_hit_tokens']} tokens reused "
+        "(request 4 shares 1024 tokens with request 0)")
+    greedy = [i for i, r in enumerate(reqs) if r.sampling.temperature <= 0]
+    same = all(first[i][0] == second[i][0] for i in greedy)
+    log(f"second run, same requests after clearing the prefix cache: greedy "
+        f"streams {greedy} identical: {same}; sampled stream identical: "
+        f"{first[2][0] == second[2][0]}")
+    if not same:
+        raise SystemExit("greedy streams are not reproducible")
+    for name, res in (("first (cold)", first), ("second (warm)", second)):
+        ttft = [r[2] for r in res]
+        t_first = min(ttft)
+        t_end = max(r[3] for r in res)
+        dec_tokens = sum(len(r[0]) - 1 for r in res)
+        log(f"serving, {name} run ({card}): ttft s per request "
+            f"{[round(t, 4) for t in ttft]}, decode {dec_tokens} tokens in "
+            f"{t_end - t_first:.3f} s = "
+            f"{dec_tokens / (t_end - t_first):.1f} tokens/s aggregate "
+            f"(max_num_seqs={cfg.max_num_seqs}, eager, no CUDA graphs)")
+    _device_breakdown(prof, wall)
+    _compare_logits(engine.params, mc, device)
+    return launches
+
+
+def _device_breakdown(prof, wall: float) -> None:
+    """Where a third, profiled run's device time goes: kernel time by
+    family and the device's busy share of the run's wall time (one
+    stream, so kernel times do not overlap; the profiler's own host
+    overhead lengthens the wall, so the busy share is a lower bound)."""
+    kernels = [e for e in prof.events()
+               if str(e.device_type).endswith("CUDA")]
+    if not kernels:
+        log("device breakdown: not measured (the profiler saw no kernels)")
+        return
+    fams = {"K1 paged_decode": ("paged_decode",),
+            "K3 packed_prefill": ("packed_prefill",),
+            "matmul": ("gemm", "cutlass", "xmma", "nvjet", "sm90"),
+            "index/scatter": ("index", "scatter", "gather")}
+    by = {k: 0.0 for k in (*fams, "other")}
+    names = {}
+    for e in kernels:
+        us = e.time_range.end - e.time_range.start
+        names[e.name] = names.get(e.name, 0.0) + us
+        fam = next((f for f, keys in fams.items()
+                    if any(k in e.name.lower() for k in keys)), "other")
+        by[fam] += us
+    busy = sum(by.values()) / 1e6
+    log(f"device breakdown, profiled run: wall {wall:.3f} s, kernels "
+        f"{busy:.3f} s busy ({100 * busy / wall:.1f}%), "
+        f"{len(kernels)} kernel launches; by family (ms): "
+        + ", ".join(f"{k} {v / 1e3:.1f}" for k, v in by.items()))
+    top = sorted(names.items(), key=lambda kv: -kv[1])[:6]
+    log("top kernels (ms): " + "; ".join(
+        f"{n[:60]} {us / 1e3:.1f}" for n, us in top))
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda is not available; nothing to run",
+              file=sys.stderr)
+        return 1
+    from dynamo_tpu_torch.models.llama import PRESETS
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    card = gpu_line()
+    log(f"card: {card}; torch {torch.__version__} cuda {torch.version.cuda}; "
+        f"allow_tf32 matmul={torch.backends.cuda.matmul.allow_tf32} "
+        f"cudnn={torch.backends.cudnn.allow_tf32}")
+    device = torch.device("cuda", 0)
+    cfg = PRESETS["llama-8b"]
+    build_kernels()
+    kernels = [check_decode_kernel(cfg, device),
+               check_prefill_kernel(cfg, device)]
+    launches = check_engine(device, card)
+    for k in kernels:
+        k["launches"] = launches[k["name"]]
+    print(json.dumps({"kernels": kernels}), flush=True)
+    print(card, flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

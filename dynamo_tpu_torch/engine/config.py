@@ -1,0 +1,134 @@
+"""Engine configuration.
+
+The counterpart of dynamo_tpu/engine/config.py, keeping the JAX field
+names and defaults of everything this slice of the port serves.  Fields
+of JAX-engine features the port does not have yet are kept with their
+JAX defaults so a shared launcher config reads the same, and setting one
+to anything else raises: a silently ignored knob would let a deployment
+believe it runs a feature it does not (ROADMAP.md lists what is left).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from dataclasses import dataclass
+from typing import Optional, Tuple
+
+from ..models.llama import PRESETS, LlamaConfig
+from ..ops.packed_prefill import PACKED_IMPLS
+from ..ops.paged_attention import DECODE_IMPLS
+
+# field -> (default, the feature it belongs to)
+_UNPORTED = {
+    "model_path": ("", "checkpoint loading"),
+    "kv_cache_dtype": ("bf16", "int8 KV cache"),
+    "kv_hbm_gb": (0.0, "KV memory budgets (int8 KV sizing)"),
+    "dp": (1, "data parallelism"),
+    "tp": (1, "tensor parallelism"),
+    "sp": (1, "sequence-parallel ring prefill"),
+    "spec_decode": ("off", "speculative decoding"),
+    "lora_max_adapters": (0, "LoRA serving"),
+    "role": ("both", "disaggregated prefill/decode"),
+    "host_cache_blocks": (0, "KVBM host tier (G2)"),
+    "disk_cache_dir": (None, "KVBM disk tier (G3)"),
+    "disk_cache_blocks": (0, "KVBM disk tier (G3)"),
+    "object_store_dir": (None, "KVBM object tier (G4)"),
+    "sampling_epilogue": ("off", "the fused sampling epilogue"),
+}
+
+
+@dataclass
+class EngineConfig:
+    model: str = "tiny"  # preset name (models.llama.PRESETS)
+    model_config: Optional[LlamaConfig] = None
+
+    # paged KV cache (block 0 is the garbage block)
+    block_size: int = 128         # tokens per block == PLH hashing block size
+    num_blocks: int = 128         # physical blocks
+    max_blocks_per_seq: int = 64  # max context = block_size * this
+    enable_prefix_caching: bool = True
+
+    # batching
+    max_num_seqs: int = 8
+    # the smallest entry floors the per-step prefill budget and the packed
+    # stream's padded length, as in the JAX engine
+    prefill_buckets: Tuple[int, ...] = (32, 64, 128, 256, 512, 1024, 2048)
+    # per-step token budget: one packed prefill dispatch is capped to
+    # max_batch_tokens minus one token per decoding slot
+    max_batch_tokens: int = 2048
+    # prefilling sequences packed into one dispatch
+    max_prefill_seqs: int = 4
+    # chunk budget for one packed prefill dispatch (0 = max_batch_tokens)
+    prefill_chunk_tokens: int = 0
+    # attention impl overrides ("" = keep the model config's): decode
+    # "auto" | "torch" (ops/paged_attention.py), packed prefill "auto" |
+    # "torch" (ops/packed_prefill.py)
+    attn_impl: str = ""
+    packed_attn_impl: str = ""
+
+    # None = the model config's eos ids
+    eos_token_id: Optional[int] = None
+    seed: int = 0
+
+    # JAX-engine features not ported yet (see _UNPORTED)
+    model_path: str = ""
+    kv_cache_dtype: str = "bf16"
+    kv_hbm_gb: float = 0.0
+    dp: int = 1
+    tp: int = 1
+    sp: int = 1
+    spec_decode: str = "off"
+    lora_max_adapters: int = 0
+    role: str = "both"
+    host_cache_blocks: int = 0
+    disk_cache_dir: Optional[str] = None
+    disk_cache_blocks: int = 0
+    object_store_dir: Optional[str] = None
+    sampling_epilogue: str = "off"
+
+    def __post_init__(self):
+        for name, (default, feature) in _UNPORTED.items():
+            value = getattr(self, name)
+            if value != default:
+                raise NotImplementedError(
+                    f"EngineConfig.{name}={value!r}: {feature} is not ported "
+                    f"to dynamo_tpu_torch yet (default {default!r})")
+        if self.attn_impl and self.attn_impl not in DECODE_IMPLS:
+            raise ValueError(f"attn_impl must be one of "
+                             f"{' | '.join(DECODE_IMPLS)}, got "
+                             f"{self.attn_impl!r}")
+        if self.packed_attn_impl and \
+                self.packed_attn_impl not in PACKED_IMPLS:
+            raise ValueError(f"packed_attn_impl must be one of "
+                             f"{' | '.join(PACKED_IMPLS)}, got "
+                             f"{self.packed_attn_impl!r}")
+
+    def resolve_model(self) -> LlamaConfig:
+        """The model config with the engine's attention-impl overrides."""
+        if self.model_config is not None:
+            cfg = self.model_config
+        elif self.model in PRESETS:
+            cfg = PRESETS[self.model]
+        else:
+            raise ValueError(f"unknown model preset {self.model!r}; have "
+                             f"{sorted(PRESETS)}")
+        over = {}
+        if self.attn_impl:
+            over["attn_impl"] = self.attn_impl
+        if self.packed_attn_impl:
+            over["packed_attn_impl"] = self.packed_attn_impl
+        return dataclasses.replace(cfg, **over) if over else cfg
+
+    @property
+    def max_context(self) -> int:
+        return self.block_size * self.max_blocks_per_seq
+
+    @property
+    def chunk_budget(self) -> int:
+        """Effective per-step prefill token budget."""
+        return self.prefill_chunk_tokens or self.max_batch_tokens
+
+    def resolve_eos_ids(self) -> Tuple[int, ...]:
+        if self.eos_token_id is not None:
+            return (self.eos_token_id,)
+        return self.resolve_model().eos_token_ids

@@ -1,0 +1,516 @@
+"""The PyTorch engine core: continuous batching over a paged KV cache.
+
+The counterpart of dynamo_tpu/engine/core.py (`JaxEngine`), with the
+same request contract (`generate(PreprocessedRequest, token=None)` ->
+async stream of `LLMEngineOutput`) and the same scheduling of the main
+path.  Each scheduler step runs on a worker thread, as `_sched_step`
+does there:
+
+  * cancellations are reaped and waiting requests admitted through the
+    block allocator, reusing prefix-cache hits (engine/block_allocator.py);
+  * ONE budget-capped packed prefill dispatch runs the prefilling slots'
+    chunks as a single padding-free stream (engine/prefill.py plans it,
+    models/llama.py prefill_packed runs it, kernel K3 attends);
+  * ONE batched decode step runs every slot past prefill (models/llama.py
+    decode, kernel K1 attends);
+  * sampled tokens stream back, blocks are committed to the prefix cache
+    once their K/V is materialized, and stop conditions finish requests.
+
+Not here yet (ROADMAP.md): overlap scheduling, fused decode bursts and
+CUDA graphs (the step is lockstep and eager: launch, wait, emit), the
+fused sampling epilogue and penalties, KV events and forward-pass
+metrics, KVBM tiers, disaggregation, speculative and guided decoding,
+LoRA, and the worker process around the engine.
+"""
+
+from __future__ import annotations
+
+import asyncio
+import logging
+import threading
+import time
+import zlib
+from dataclasses import dataclass
+from typing import Any, AsyncIterator, Dict, List, Optional, Sequence
+
+import numpy as np
+import torch
+
+from ..device import DeviceLike, resolve_device
+from ..models import llama
+from ..protocols import LLMEngineOutput, PreprocessedRequest
+from ..tokens import TokenBlockSequence, request_salt
+from .block_allocator import BlockAllocator
+from .config import EngineConfig
+from .prefill import _pow2, plan_packed_prefill
+from .sampler import greedy_tokens, sample_tokens
+
+logger = logging.getLogger(__name__)
+
+_CANCELLED = object()
+
+
+async def _next_or_cancel(q: asyncio.Queue,
+                          cancel: Optional[asyncio.Event]) -> Any:
+    """The next queue item, or _CANCELLED if `cancel` fires first (a copy
+    of the runtime's next_or_cancel).  Pending futures are cleaned up."""
+    if cancel is None:
+        return await q.get()
+    if cancel.is_set():
+        return _CANCELLED
+    get = asyncio.ensure_future(q.get())
+    cw = asyncio.ensure_future(cancel.wait())
+    try:
+        done, _ = await asyncio.wait({get, cw},
+                                     return_when=asyncio.FIRST_COMPLETED)
+    finally:
+        for f in (get, cw):
+            if not f.done():
+                f.cancel()
+    if get in done:
+        return get.result()
+    return _CANCELLED
+
+
+@dataclass
+class _Slot:
+    index: int
+    request: PreprocessedRequest
+    seq: TokenBlockSequence
+    out_q: asyncio.Queue
+    block_table: np.ndarray  # [max_blocks_per_seq] int32
+    ctx_len: int = 0         # tokens materialized in the cache
+    prompt_len: int = 0      # fixed at admit (seq grows as tokens append)
+    prefill_pos: int = 0     # next prompt position to compute
+    last_token: int = 0
+    generated: int = 0
+    committed_blocks: int = 0
+    sampling_seed: int = 0
+    generator: Optional[torch.Generator] = None  # sampled requests only
+    finished: bool = False
+    cancel_requested: bool = False
+    cached_tokens: int = 0   # prefix-cache reuse (for metrics)
+    enqueued_t: float = 0.0
+    first_token_t: float = 0.0
+
+    @property
+    def prefilling(self) -> bool:
+        return self.prefill_pos < self.prompt_len
+
+
+class TorchEngine:
+    def __init__(self, config: EngineConfig, params=None,
+                 device: DeviceLike = "cuda"):
+        """`params`: the port's parameter tree on `device` (for example
+        from models/convert.py params_from_numpy); None makes random
+        weights from config.seed on the device."""
+        self.config = config
+        self.device = resolve_device(device)
+        self.model_cfg = config.resolve_model()
+        self.eos_ids = frozenset(config.resolve_eos_ids())
+        if params is None:
+            gen = torch.Generator(device=self.device)
+            gen.manual_seed(config.seed)
+            params = llama.init_params(self.model_cfg, gen, self.device)
+        self.params = params
+        self.kv = tuple(
+            torch.zeros(shape, dtype=self.model_cfg.dtype, device=self.device)
+            for shape in llama.kv_cache_shapes(
+                self.model_cfg, config.num_blocks, config.block_size))
+        self.allocator = BlockAllocator(config.num_blocks,
+                                        config.enable_prefix_caching)
+        self.waiting: List[_Slot] = []
+        self._qlock = threading.Lock()      # guards `waiting` across threads
+        self._step_lock = threading.Lock()  # held for each _sched_step run
+        self._slots: List[Optional[_Slot]] = [None] * config.max_num_seqs
+        self._wake = asyncio.Event()
+        self._task: Optional[asyncio.Task] = None
+        self._loop_ref: Optional[asyncio.AbstractEventLoop] = None
+        self._closed = False
+        self.metrics: Dict[str, Any] = {
+            "steps": 0, "prefill_steps": 0, "decode_steps": 0,
+            "prefill_tokens": 0, "decode_tokens": 0, "cache_hit_tokens": 0,
+            "preemptions": 0, "step_time_s": 0.0, "requests": 0,
+            "prompt_tokens": 0,
+        }
+
+    # -- lifecycle ----------------------------------------------------------
+    def start(self) -> None:
+        if self._task is None:
+            self._loop_ref = asyncio.get_running_loop()
+            self._task = asyncio.create_task(self._loop())
+
+    async def close(self) -> None:
+        self._closed = True
+        self._wake.set()
+        task, self._task = self._task, None
+        if task is not None:
+            task.cancel()
+            await asyncio.gather(task, return_exceptions=True)
+        # a step already running in its thread is not stopped by the
+        # cancel: wait it out before tearing the streams down
+        await asyncio.to_thread(self._step_lock.acquire)
+        self._step_lock.release()
+        self._fail_all_streams()
+
+    def _fail_all_streams(
+        self,
+        error: str = "worker engine error: engine loop failed or shut down",
+    ) -> None:
+        """Terminate every in-flight stream (shutdown or loop crash)."""
+        err = LLMEngineOutput(finish_reason="error", error=error)
+        with self._qlock:
+            stuck = list(self.waiting) + [
+                s for s in self._slots if s is not None]
+            self.waiting.clear()
+        for slot in stuck:
+            if not slot.finished:
+                slot.finished = True
+                slot.cancel_requested = True
+                slot.out_q.put_nowait(err)
+
+    def kv_usage(self) -> float:
+        return self.allocator.usage()
+
+    async def clear_kv_blocks(self) -> int:
+        """Drop every unreferenced prefix-cache block (between steps)."""
+        def clear() -> int:
+            with self._step_lock:
+                return len(self.allocator.clear_cached())
+
+        return await asyncio.to_thread(clear)
+
+    # -- request entry ------------------------------------------------------
+    async def generate(self, request: PreprocessedRequest,
+                       token=None) -> AsyncIterator[LLMEngineOutput]:
+        """Stream the request's tokens.  `token` is an optional
+        cancellation token exposing `stopped_event` (asyncio.Event)."""
+        self.start()
+        if self._task is not None and self._task.done():
+            yield LLMEngineOutput(
+                finish_reason="error",
+                error="worker engine error: engine loop crashed")
+            return
+        unsupported = self._unsupported(request)
+        if unsupported:
+            yield LLMEngineOutput(finish_reason="error", error=unsupported)
+            return
+        if len(request.token_ids) >= self.config.max_context:
+            yield LLMEngineOutput(
+                finish_reason="error",
+                error=f"prompt is {len(request.token_ids)} tokens; engine "
+                      f"max_context is {self.config.max_context}")
+            return
+        self.metrics["requests"] += 1
+        self.metrics["prompt_tokens"] += len(request.token_ids)
+        s = request.sampling
+        seed = (s.seed if s.seed is not None
+                # stable across processes (unlike hash(): PYTHONHASHSEED)
+                else zlib.crc32(request.request_id.encode()) & 0x7FFFFFFF)
+        generator = None
+        if s.temperature > 0.0:
+            generator = torch.Generator(device=self.device)
+            generator.manual_seed(seed)
+        slot = _Slot(
+            index=-1, request=request,
+            seq=TokenBlockSequence(request.token_ids, self.config.block_size,
+                                   salt=request_salt(request.lora_name,
+                                                     request.media_hashes)),
+            out_q=asyncio.Queue(),
+            block_table=np.zeros(self.config.max_blocks_per_seq, np.int32),
+            sampling_seed=seed, generator=generator,
+            enqueued_t=time.monotonic(),
+        )
+        with self._qlock:
+            self.waiting.append(slot)
+        self._wake.set()
+        try:
+            while True:
+                item = await _next_or_cancel(
+                    slot.out_q,
+                    token.stopped_event if token is not None else None)
+                if item is _CANCELLED:
+                    slot.cancel_requested = True
+                    self._wake.set()
+                    yield LLMEngineOutput(finish_reason="cancelled")
+                    return
+                yield item
+                if item.finish_reason is not None:
+                    return
+        finally:
+            if not slot.finished:
+                # actual teardown happens on the scheduler thread
+                slot.cancel_requested = True
+                self._wake.set()
+
+    @staticmethod
+    def _unsupported(request: PreprocessedRequest) -> Optional[str]:
+        """An error for request features the port does not serve yet
+        (serving them without the feature would be silently wrong)."""
+        if request.lora_name:
+            return (f"lora adapter {request.lora_name!r} requested but "
+                    "dynamo_tpu_torch has no LoRA serving yet")
+        if request.sampling.guided_json is not None:
+            return "guided decoding is not ported to dynamo_tpu_torch yet"
+        if request.multimodal:
+            return "multimodal inputs are not ported to dynamo_tpu_torch yet"
+        return None
+
+    # -- scheduler ------------------------------------------------------------
+    async def _loop(self) -> None:
+        try:
+            while not self._closed:
+                busy = any(s is not None for s in self._slots)
+                if not busy and not self.waiting:
+                    self._wake.clear()
+                    await self._wake.wait()
+                    continue
+                t0 = time.monotonic()
+                await asyncio.to_thread(self._sched_step)
+                self.metrics["step_time_s"] = time.monotonic() - t0
+                self.metrics["steps"] += 1
+                await asyncio.sleep(0)  # yield to the event loop
+        except Exception:
+            logger.exception("engine loop crashed")
+            self._fail_all_streams()
+            raise
+
+    def _sched_step(self) -> None:
+        """One scheduler iteration, on the worker thread: admit, at most
+        one packed prefill dispatch, then a decode step for every slot
+        past prefill, so a long prompt never stalls active decodes for
+        more than one chunk's compute."""
+        with self._step_lock:
+            if self._closed:
+                return
+            self._process_cancellations()
+            self._admit_waiting()
+            self._prefill_step()
+            if any(s is not None and not s.prefilling for s in self._slots):
+                self._decode_step()
+
+    def _process_cancellations(self) -> None:
+        with self._qlock:
+            for slot in list(self.waiting):
+                if slot.cancel_requested:
+                    self.waiting.remove(slot)
+                    slot.finished = True
+        for i, slot in enumerate(self._slots):
+            if slot is not None and slot.cancel_requested:
+                slot.finished = True
+                self._slots[i] = None
+                self.allocator.free(self._seq_id(slot))
+
+    @staticmethod
+    def _seq_id(slot: _Slot) -> str:
+        return slot.request.request_id
+
+    def _admit_waiting(self) -> None:
+        """Move waiting requests into free slots (block allocation plus
+        prefix-cache lookup; no model compute)."""
+        c = self.config
+        while True:
+            with self._qlock:
+                if not self.waiting:
+                    return
+                free_idx = next(
+                    (i for i, s in enumerate(self._slots) if s is None), None)
+                if free_idx is None:
+                    return
+                slot = self.waiting[0]
+                prompt_len = len(slot.seq)
+                # never reuse the whole prompt: the last token must be
+                # computed to produce first-token logits
+                cap_blocks = max(0, (prompt_len - 1) // c.block_size)
+                res = self.allocator.allocate(
+                    self._seq_id(slot), slot.seq.block_hashes[:cap_blocks],
+                    slot.seq.num_blocks)
+                if res is None:
+                    return  # capacity: stay in queue (FIFO)
+                self.waiting.pop(0)
+            slot.index = free_idx
+            self._slots[free_idx] = slot
+            slot.block_table[:len(res.block_ids)] = res.block_ids
+            slot.committed_blocks = res.cached_blocks
+            cached = res.cached_blocks * c.block_size
+            slot.cached_tokens = cached
+            self.metrics["cache_hit_tokens"] += cached
+            slot.ctx_len = cached
+            slot.prompt_len = prompt_len
+            slot.prefill_pos = cached
+
+    def _to_device(self, a: np.ndarray) -> torch.Tensor:
+        return torch.from_numpy(a).to(self.device)
+
+    def _sample(self, logits: torch.Tensor, slots: Sequence[_Slot]
+                ) -> List[int]:
+        """Next token per row of `logits` for `slots` (one row each)."""
+        temps = [s.request.sampling.temperature for s in slots]
+        if all(t <= 0.0 for t in temps):
+            return greedy_tokens(logits).tolist()
+        dev = logits.device
+        return sample_tokens(
+            logits,
+            torch.tensor(temps, dtype=torch.float32, device=dev),
+            torch.tensor([s.request.sampling.top_k for s in slots],
+                         device=dev),
+            torch.tensor([s.request.sampling.top_p for s in slots],
+                         dtype=torch.float32, device=dev),
+            [s.generator for s in slots],
+        ).tolist()
+
+    def _prefill_step(self) -> None:
+        """One packed prefill dispatch for up to max_prefill_seqs
+        prefilling slots (earliest-enqueued first), its token count capped
+        by the chunk budget minus one token per decoding slot."""
+        c = self.config
+        pslots = sorted(
+            (s for s in self._slots if s is not None and s.prefilling),
+            key=lambda s: s.enqueued_t,
+        )[:c.max_prefill_seqs]
+        if not pslots:
+            return
+        decoding = sum(1 for s in self._slots
+                       if s is not None and not s.prefilling)
+        budget = max(c.chunk_budget - decoding, c.prefill_buckets[0])
+        plan = plan_packed_prefill(
+            pslots, budget, block_size=c.block_size,
+            max_blocks_per_seq=c.max_blocks_per_seq,
+            min_bucket=c.prefill_buckets[0], with_lora=False)
+        if plan is None:
+            return
+        a = {k: self._to_device(v) for k, v in plan.arrays.items()
+             if k in ("toks", "positions", "seg_ids", "tables", "last_idx",
+                      "valid")}
+        logits, _ = llama.prefill_packed(
+            self.params, self.model_cfg, self.kv, a["toks"], a["positions"],
+            a["seg_ids"], a["tables"], a["last_idx"], a["valid"])
+        self.metrics["prefill_steps"] += 1
+        # the first token is sampled only for segments whose prompt
+        # completes in this chunk (intermediate chunks discard theirs)
+        done = [i for i, (s, ch) in enumerate(zip(plan.slots, plan.chunks))
+                if s.prefill_pos + ch >= s.prompt_len]
+        firsts = {}
+        if done:
+            rows = torch.tensor(done, device=logits.device)
+            toks = self._sample(logits[rows], [plan.slots[i] for i in done])
+            firsts = dict(zip(done, toks))
+        for i, (slot, chunk) in enumerate(zip(plan.slots, plan.chunks)):
+            self._finish_prefill_chunk(slot, chunk, firsts.get(i, -1))
+
+    def _finish_prefill_chunk(self, slot: _Slot, chunk: int,
+                              first: int) -> None:
+        """Advance a slot past a computed chunk; `first` is the sampled
+        first token when the prompt completes with it (else -1)."""
+        self.metrics["prefill_tokens"] += chunk
+        slot.prefill_pos += chunk
+        slot.ctx_len = slot.prefill_pos
+        # registration is deferred to materialization, so commit tracks
+        # prefill progress chunk by chunk
+        self._commit_full_blocks(slot)
+        if slot.prefilling:
+            return  # more chunks to go; decode runs in between
+        slot.first_token_t = time.monotonic()
+        self._push_token(slot, first)
+
+    def _decode_step(self) -> None:
+        """One decode step for every slot past prefill: each needs a
+        block for its next position (preempted when none is left)."""
+        c = self.config
+        active = [s for s in self._slots if s is not None and not s.prefilling]
+        for slot in active:
+            nblocks = int(np.count_nonzero(slot.block_table))
+            if slot.ctx_len < nblocks * c.block_size:
+                continue
+            if nblocks >= c.max_blocks_per_seq:
+                # _finish_reason ends every sequence at max_context - 1
+                raise RuntimeError(f"{self._seq_id(slot)}: block table full")
+            grow = self.allocator.append_block(self._seq_id(slot))
+            if grow.block_id is None:
+                self._preempt(slot)
+                continue
+            slot.block_table[nblocks] = grow.block_id
+        active = [s for s in self._slots if s is not None and not s.prefilling]
+        if not active:
+            return
+        B = len(active)
+        width = min(_pow2(max(int(np.count_nonzero(s.block_table))
+                              for s in active)), c.max_blocks_per_seq)
+        tokens = np.zeros(B, np.int32)
+        ctx_lens = np.zeros(B, np.int32)
+        tables = np.zeros((B, width), np.int32)
+        for b, s in enumerate(active):
+            tokens[b] = s.last_token
+            ctx_lens[b] = s.ctx_len
+            tables[b] = s.block_table[:width]
+        ctx_t = self._to_device(ctx_lens)
+        logits, _ = llama.decode(self.params, self.model_cfg, self.kv,
+                                 self._to_device(tokens), ctx_t,
+                                 self._to_device(tables), ctx_t)
+        self.metrics["decode_steps"] += 1
+        for s, tok in zip(active, self._sample(logits, active)):
+            s.ctx_len += 1
+            self.metrics["decode_tokens"] += 1
+            self._push_token(s, tok)
+
+    def _commit_full_blocks(self, slot: _Slot) -> None:
+        """Register newly completed full blocks under their PLH, once every
+        one of their tokens' K/V is in the cache (covered by ctx_len): the
+        sampled token that completes a block has its K/V written on the
+        NEXT decode step, so that block commits one step later."""
+        materialized = slot.ctx_len // self.config.block_size
+        limit = min(slot.seq.num_full_blocks, materialized)
+        while slot.committed_blocks < limit:
+            idx = slot.committed_blocks
+            self.allocator.commit_block(self._seq_id(slot), idx,
+                                        slot.seq.block_hashes[idx])
+            slot.committed_blocks += 1
+
+    def _push_token(self, slot: _Slot, tok: int) -> None:
+        """Append a generated token, stream it, handle finish."""
+        slot.seq.append(tok)
+        slot.last_token = tok
+        slot.generated += 1
+        self._commit_full_blocks(slot)
+        finish = self._finish_reason(slot, tok)
+        metrics = None
+        if finish:
+            metrics = {"kv_usage": self.kv_usage(),
+                       "cached_tokens": slot.cached_tokens,
+                       "ttft_s": slot.first_token_t - slot.enqueued_t}
+        out = LLMEngineOutput(token_ids=[tok], finish_reason=finish,
+                              metrics=metrics)
+        if self._loop_ref is not None:
+            self._loop_ref.call_soon_threadsafe(slot.out_q.put_nowait, out)
+        if finish is not None:
+            slot.finished = True
+            if slot.index >= 0:
+                self._slots[slot.index] = None
+            self.allocator.free(self._seq_id(slot))
+
+    def _preempt(self, slot: _Slot) -> None:
+        """KV out of blocks: drop the slot's blocks and re-enqueue it
+        first, to be replayed from its full token sequence."""
+        self.metrics["preemptions"] += 1
+        self._slots[slot.index] = None
+        self.allocator.free(self._seq_id(slot))
+        slot.index = -1
+        slot.ctx_len = 0
+        slot.prefill_pos = 0
+        slot.prompt_len = 0
+        slot.committed_blocks = 0
+        slot.block_table[:] = 0
+        with self._qlock:
+            self.waiting.insert(0, slot)
+
+    def _finish_reason(self, slot: _Slot, tok: int) -> Optional[str]:
+        st = slot.request.stop
+        if not st.ignore_eos and tok in self.eos_ids:
+            return "stop"
+        if tok in (st.stop_token_ids or []):
+            return "stop"
+        if slot.generated >= st.max_tokens:
+            return "length"
+        if slot.ctx_len + 1 >= self.config.max_context:
+            return "length"
+        return None

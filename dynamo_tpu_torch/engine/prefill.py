@@ -1,0 +1,129 @@
+"""A copy of dynamo_tpu/engine/prefill.py (numpy only).
+
+Chunked-prefill packing planner: host-side logic that turns the set of
+prefilling slots plus a per-step token budget into ONE packed prefill
+dispatch (ops/packed_prefill.py).
+
+This replaces the per-bucket padded programs' shape zoo with a single
+family of packed shapes: the stream length buckets pow2 up to the chunk
+budget, the segment-row count pow2 up to max_prefill_seqs, and the table
+width pow2 up to max_blocks_per_seq — every admission wave with the same
+(bucket, rows, width) triple hits the same compiled program, and every
+token in the stream is a real prompt token (the padding the batched path
+multiplied per row now exists only in the pow2 tail).
+
+Budget split is a water-fill: slots are served smallest-need first so
+short prompts finish in one chunk and their leftover budget extends the
+long prompts' chunks — donation is free now because a longer chunk no
+longer re-buckets every co-scheduled row (the constraint that forced the
+old equal-share split)."""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Dict, List, Optional
+
+import numpy as np
+
+
+def _pow2(n: int, lo: int = 1) -> int:
+    b = lo
+    while b < n:
+        b *= 2
+    return b
+
+
+@dataclass
+class PackedPlan:
+    """One packed dispatch: `slots[i]` contributes `chunks[i]` tokens as
+    segment row i; `arrays` are the jit inputs (numpy, host-built)."""
+
+    slots: List          # engine _Slot objects, segment-row order
+    chunks: List[int]    # tokens taken from each slot this dispatch
+    arrays: Dict[str, np.ndarray]
+    tokens: int          # total real tokens in the stream
+    bucket: int          # padded stream length
+
+
+def waterfill(needs: List[int], budget: int) -> List[int]:
+    """Split `budget` tokens across `needs`, smallest need first, so
+    fully-served slots donate their leftover share to the rest."""
+    n = len(needs)
+    chunks = [0] * n
+    remaining = budget
+    left = n
+    for i in sorted(range(n), key=lambda j: needs[j]):
+        share = remaining // left if left else 0
+        take = min(needs[i], share)
+        chunks[i] = take
+        remaining -= take
+        left -= 1
+    return chunks
+
+
+def plan_packed_prefill(
+    pslots: List,
+    budget: int,
+    *,
+    block_size: int,
+    max_blocks_per_seq: int,
+    min_bucket: int,
+    with_lora: bool,
+) -> Optional[PackedPlan]:
+    """Build the packed arrays for one prefill dispatch, or None when no
+    slot can take even one token of the budget."""
+    needs = [s.prompt_len - s.prefill_pos for s in pslots]
+    chunks = waterfill(needs, max(budget, 1))
+    used = [(s, c) for s, c in zip(pslots, chunks) if c > 0]
+    if not used:
+        return None
+    n = len(used)
+    total = sum(c for _, c in used)
+    bucket = _pow2(total, lo=min_bucket)
+    S = _pow2(n)
+    mbp = min(
+        _pow2(max(-(-(s.prefill_pos + c) // block_size) for s, c in used)),
+        max_blocks_per_seq,
+    )
+
+    toks = np.zeros(bucket, np.int32)
+    positions = np.zeros(bucket, np.int32)
+    seg_ids = np.zeros(bucket, np.int32)
+    valid = np.zeros(bucket, bool)
+    tables = np.zeros((S, mbp), np.int32)
+    last_idx = np.zeros(S, np.int32)
+    seeds = np.zeros(S, np.int32)
+    temps = np.zeros(S, np.float32)
+    top_ks = np.zeros(S, np.int32)
+    top_ps = np.ones(S, np.float32)
+    lidx = np.zeros(bucket, np.int32) if with_lora else None
+
+    off = 0
+    for i, (slot, chunk) in enumerate(used):
+        pos = slot.prefill_pos
+        toks[off:off + chunk] = slot.seq.tokens[pos:pos + chunk]
+        positions[off:off + chunk] = pos + np.arange(chunk, dtype=np.int32)
+        seg_ids[off:off + chunk] = i
+        valid[off:off + chunk] = True
+        tables[i] = slot.block_table[:mbp]
+        last_idx[i] = off + chunk - 1
+        s = slot.request.sampling
+        seeds[i] = slot.sampling_seed
+        temps[i] = s.temperature
+        top_ks[i] = s.top_k
+        top_ps[i] = s.top_p
+        if lidx is not None:
+            lidx[off:off + chunk] = slot.lora_idx
+        off += chunk
+
+    arrays = {
+        "toks": toks, "positions": positions, "seg_ids": seg_ids,
+        "tables": tables, "last_idx": last_idx, "valid": valid,
+        "seeds": seeds, "temps": temps, "top_ks": top_ks, "top_ps": top_ps,
+    }
+    if lidx is not None:
+        arrays["lidx"] = lidx
+    return PackedPlan(
+        slots=[s for s, _ in used], chunks=[c for _, c in used],
+        arrays=arrays, tokens=total, bucket=bucket,
+    )

@@ -1,0 +1,299 @@
+"""Llama-family decoder over a paged KV cache, in PyTorch.
+
+The counterpart of dynamo_tpu/models/llama.py (dense families): plain
+functions over a parameter dict with the JAX package's tree and names
+({"embedding", "final_norm", "lm_head", "layers": [...]}, weights stored
+[in, out] so `x @ w` reads the same), so weights carry across through
+models/convert.py unchanged.  The large products stay `torch.matmul`, as
+the JAX package leaves them to XLA; attention goes through the paged ops
+(ops/paged_attention.py, ops/packed_prefill.py), whose dispatch launches
+the hand-written CUDA kernels on CUDA tensors.
+
+Weights are bf16 by default; norms are fp32 and activations are computed
+in fp32 around the norms and rotary embedding, as in the JAX package.
+The KV cache is a (k, v) tuple in the port's layout
+[L, nkv, num_blocks, block_size, hd] and is updated IN PLACE: the
+functions still return it, so call sites read like the JAX ones.
+The MoE paths are not ported yet and raise.
+"""
+
+from __future__ import annotations
+
+import math
+from dataclasses import dataclass
+from typing import Any, Dict, Optional, Tuple
+
+import torch
+
+from ..ops.packed_prefill import packed_prefill_attention, write_packed_kv
+from ..ops.paged_attention import paged_attention_decode, write_token_kv
+
+Params = Dict[str, Any]
+KVCache = Tuple[torch.Tensor, torch.Tensor]
+
+
+@dataclass(frozen=True)
+class LlamaConfig:
+    name: str = "tiny"
+    vocab_size: int = 32000
+    d_model: int = 512
+    n_layers: int = 4
+    n_heads: int = 8
+    n_kv_heads: int = 4
+    head_dim: int = 64
+    ffn_dim: int = 1408
+    rope_theta: float = 500000.0
+    rms_eps: float = 1e-5
+    qk_norm: bool = False  # Qwen3-style per-head q/k RMSNorm
+    tie_embeddings: bool = False
+    max_context: int = 8192
+    dtype: torch.dtype = torch.bfloat16
+    # decode attention: "auto" (kernel K1 on CUDA tensors, the plain
+    # version on CPU tensors) | "torch" (the plain version anywhere)
+    attn_impl: str = "auto"
+    # packed-prefill attention: "auto" (kernel K3 / plain) | "torch"
+    packed_attn_impl: str = "auto"
+    eos_token_ids: Tuple[int, ...] = (2,)
+    # MoE (Mixtral family) is a later slice of the port
+    n_experts: int = 0
+
+    def __post_init__(self):
+        if self.n_experts > 0:
+            raise NotImplementedError(
+                "MoE (n_experts > 0) is not ported to dynamo_tpu_torch yet")
+
+    @property
+    def q_dim(self) -> int:
+        return self.n_heads * self.head_dim
+
+    @property
+    def kv_dim(self) -> int:
+        return self.n_kv_heads * self.head_dim
+
+
+def kv_cache_shapes(cfg: LlamaConfig, num_blocks: int,
+                    block_size: int) -> tuple:
+    """(k, v) cache shapes in the port's head-major layout with head_dim
+    innermost (ops/paged_attention.py)."""
+    shape = (cfg.n_layers, cfg.n_kv_heads, num_blocks, block_size,
+             cfg.head_dim)
+    return shape, shape
+
+
+# the dense presets of the JAX package, with torch dtypes
+PRESETS: Dict[str, LlamaConfig] = {
+    "tiny": LlamaConfig(),
+    "tiny-gqa": LlamaConfig(name="tiny-gqa", n_heads=8, n_kv_heads=2),
+    "llama-1b": LlamaConfig(
+        name="llama-1b", vocab_size=128256, d_model=2048, n_layers=16,
+        n_heads=32, n_kv_heads=8, head_dim=64, ffn_dim=8192,
+        max_context=131072,
+    ),
+    "llama-3b": LlamaConfig(
+        name="llama-3b", vocab_size=128256, d_model=3072, n_layers=28,
+        n_heads=24, n_kv_heads=8, head_dim=128, ffn_dim=8192,
+        max_context=131072,
+    ),
+    "llama-8b": LlamaConfig(
+        name="llama-8b", vocab_size=128256, d_model=4096, n_layers=32,
+        n_heads=32, n_kv_heads=8, head_dim=128, ffn_dim=14336,
+        max_context=131072,
+    ),
+}
+
+
+# ---------------------------------------------------------------------------
+# init
+# ---------------------------------------------------------------------------
+
+
+def init_params(cfg: LlamaConfig, generator: torch.Generator,
+                device: Optional[torch.device] = None) -> Params:
+    """Random-init parameters with the JAX package's shapes and scales
+    (normal * 1/sqrt(fan_in), embedding * 0.02, norms 1).  The draws come
+    from `generator` (on `device`, default the generator's), so they are
+    not the JAX package's values: tests that compare the two convert the
+    JAX parameters instead (models/convert.py)."""
+    dev = torch.device(device) if device is not None else generator.device
+
+    def dense(shape, scale=None):
+        scale = scale if scale is not None else 1.0 / math.sqrt(shape[0])
+        w = torch.randn(shape, generator=generator, device=dev,
+                        dtype=torch.float32)
+        return (w * scale).to(cfg.dtype)
+
+    def ones(n):
+        return {"norm": torch.ones(n, dtype=torch.float32, device=dev)}
+
+    params: Params = {"embedding": dense((cfg.vocab_size, cfg.d_model),
+                                         scale=0.02),
+                      "final_norm": ones(cfg.d_model)}
+    if not cfg.tie_embeddings:
+        params["lm_head"] = dense((cfg.d_model, cfg.vocab_size))
+    layers = []
+    for _ in range(cfg.n_layers):
+        layer = {
+            "attn_norm": ones(cfg.d_model),
+            "mlp_norm": ones(cfg.d_model),
+            "wq": dense((cfg.d_model, cfg.q_dim)),
+            "wk": dense((cfg.d_model, cfg.kv_dim)),
+            "wv": dense((cfg.d_model, cfg.kv_dim)),
+            "wo": dense((cfg.q_dim, cfg.d_model)),
+            "w_gate": dense((cfg.d_model, cfg.ffn_dim)),
+            "w_up": dense((cfg.d_model, cfg.ffn_dim)),
+            "w_down": dense((cfg.ffn_dim, cfg.d_model)),
+        }
+        if cfg.qk_norm:
+            layer["q_norm"] = ones(cfg.head_dim)
+            layer["k_norm"] = ones(cfg.head_dim)
+        layers.append(layer)
+    params["layers"] = layers
+    return params
+
+
+# ---------------------------------------------------------------------------
+# building blocks
+# ---------------------------------------------------------------------------
+
+
+def rms_norm(x: torch.Tensor, w: torch.Tensor, eps: float) -> torch.Tensor:
+    xf = x.float()
+    var = torch.mean(xf * xf, dim=-1, keepdim=True)
+    return (xf * torch.rsqrt(var + eps) * w).to(x.dtype)
+
+
+def rope(x: torch.Tensor, positions: torch.Tensor,
+         theta: float) -> torch.Tensor:
+    """Rotary embedding.  x: [..., seq, heads, hd], positions: [..., seq]."""
+    hd = x.shape[-1]
+    half = hd // 2
+    exps = torch.arange(0, half, dtype=torch.float32, device=x.device) / half
+    freqs = 1.0 / (theta ** exps)
+    angles = positions[..., :, None].float() * freqs  # [..., seq, half]
+    cos = torch.cos(angles)[..., :, None, :]  # broadcast over heads
+    sin = torch.sin(angles)[..., :, None, :]
+    xf1, xf2 = x[..., :half].float(), x[..., half:].float()
+    out = torch.cat([xf1 * cos - xf2 * sin, xf2 * cos + xf1 * sin], dim=-1)
+    return out.to(x.dtype)
+
+
+def _qkv(layer, cfg: LlamaConfig, x: torch.Tensor,
+         positions: torch.Tensor):
+    """x: [..., seq, d] -> q [..., seq, nh, hd], k/v [..., seq, nkv, hd]."""
+    *lead, seq, _ = x.shape
+    q = (x @ layer["wq"]).reshape(*lead, seq, cfg.n_heads, cfg.head_dim)
+    k = (x @ layer["wk"]).reshape(*lead, seq, cfg.n_kv_heads, cfg.head_dim)
+    v = (x @ layer["wv"]).reshape(*lead, seq, cfg.n_kv_heads, cfg.head_dim)
+    if cfg.qk_norm:
+        q = rms_norm(q, layer["q_norm"]["norm"], cfg.rms_eps)
+        k = rms_norm(k, layer["k_norm"]["norm"], cfg.rms_eps)
+    q = rope(q, positions, cfg.rope_theta)
+    k = rope(k, positions, cfg.rope_theta)
+    return q, k, v
+
+
+def _attn_out(layer, attn_flat: torch.Tensor) -> torch.Tensor:
+    return attn_flat @ layer["wo"]
+
+
+def _mlp(layer, x: torch.Tensor) -> torch.Tensor:
+    return (torch.nn.functional.silu(x @ layer["w_gate"])
+            * (x @ layer["w_up"])) @ layer["w_down"]
+
+
+def _logits(params, cfg: LlamaConfig, x: torch.Tensor) -> torch.Tensor:
+    x = rms_norm(x, params["final_norm"]["norm"], cfg.rms_eps)
+    if cfg.tie_embeddings:
+        return (x @ params["embedding"].T).float()
+    return (x @ params["lm_head"]).float()
+
+
+# ---------------------------------------------------------------------------
+# packed prefill: several sequences' chunks as one padding-free stream
+# ---------------------------------------------------------------------------
+
+
+def prefill_packed(
+    params: Params,
+    cfg: LlamaConfig,
+    kv_cache: KVCache,
+    token_ids: torch.Tensor,     # [T] int32 packed stream (tail padded)
+    positions: torch.Tensor,     # [T] int32 absolute position per token
+    seg_ids: torch.Tensor,       # [T] int32 segment row per token
+    block_tables: torch.Tensor,  # [S, mb] int32 per-segment block tables
+    last_idx: torch.Tensor,      # [S] int32 packed index of each segment's
+    #                              last token this chunk (0 for unused rows)
+    valid: torch.Tensor,         # [T] bool: False on the padded tail
+):
+    """Packed multi-sequence prefill (ops/packed_prefill.py): K/V scatter
+    into each token's own blocks, attention is causal-within-segment over
+    each segment's paged context.  Returns (logits [S, vocab] at each
+    segment's last packed token, kv_cache updated in place)."""
+    x = _packed_forward(params, cfg, kv_cache, token_ids, positions,
+                        seg_ids, block_tables, valid)
+    return _logits(params, cfg, x[last_idx.long()]), kv_cache
+
+
+def _packed_forward(params, cfg: LlamaConfig, kv_cache: KVCache,
+                    token_ids, positions, seg_ids, block_tables, valid):
+    """The packed-stream transformer body.  Returns the final hidden
+    states [T, d] (before the final norm)."""
+    k_cache, v_cache = kv_cache
+    T = token_ids.shape[0]
+    x = params["embedding"][token_ids.long()].to(cfg.dtype)  # [T, d]
+    for li, layer in enumerate(params["layers"]):
+        h = rms_norm(x, layer["attn_norm"]["norm"], cfg.rms_eps)
+        q, k, v = _qkv(layer, cfg, h, positions)  # [T, nh, hd]
+        write_packed_kv(k_cache, v_cache, li, k, v, block_tables, seg_ids,
+                        positions, valid)
+        attn = packed_prefill_attention(
+            q, k_cache, v_cache, li, block_tables, seg_ids, positions,
+            valid, impl=cfg.packed_attn_impl)
+        x = x + _attn_out(layer, attn.reshape(T, cfg.q_dim))
+        h = rms_norm(x, layer["mlp_norm"]["norm"], cfg.rms_eps)
+        x = x + _mlp(layer, h)
+    return x
+
+
+# ---------------------------------------------------------------------------
+# decode: one token per active row, batched
+# ---------------------------------------------------------------------------
+
+
+def decode(
+    params: Params,
+    cfg: LlamaConfig,
+    kv_cache: KVCache,
+    token_ids: torch.Tensor,     # [B] int32, last sampled token per row
+    positions: torch.Tensor,     # [B] int32
+    block_tables: torch.Tensor,  # [B, max_blocks] int32
+    ctx_lens: torch.Tensor,      # [B] int32, tokens in cache BEFORE this step
+):
+    """One decode step for B rows: writes each token's K/V, attends over
+    the paged context.  Returns (logits [B, vocab], kv_cache updated in
+    place)."""
+    x = _decode_trunk(params, cfg, kv_cache, token_ids, positions,
+                      block_tables, ctx_lens)
+    return _logits(params, cfg, x), kv_cache
+
+
+def _decode_trunk(params, cfg: LlamaConfig, kv_cache: KVCache, token_ids,
+                  positions, block_tables, ctx_lens):
+    """The decode layer stack.  Returns the hidden states [B, d] before
+    the final norm."""
+    k_cache, v_cache = kv_cache
+    x = params["embedding"][token_ids.long()].to(cfg.dtype)  # [B, d]
+    pos1 = positions[:, None]  # [B, 1] for rope
+    kv_lens = ctx_lens + 1
+    for li, layer in enumerate(params["layers"]):
+        h = rms_norm(x, layer["attn_norm"]["norm"], cfg.rms_eps)
+        q, k, v = _qkv(layer, cfg, h[:, None, :], pos1)
+        write_token_kv(k_cache, v_cache, li, k[:, 0], v[:, 0], block_tables,
+                       ctx_lens)
+        attn = paged_attention_decode(q[:, 0], k_cache, v_cache, li,
+                                      block_tables, kv_lens,
+                                      impl=cfg.attn_impl)  # [B, nh, hd]
+        x = x + _attn_out(layer, attn.reshape(x.shape[0], cfg.q_dim))
+        h = rms_norm(x, layer["mlp_norm"]["norm"], cfg.rms_eps)
+        x = x + _mlp(layer, h)
+    return x

@@ -1,0 +1,161 @@
+"""Wrapper of kernel K3, the hand-written CUDA packed-prefill attention.
+
+Kernel: csrc/packed_prefill.cu (CUDA C++ for sm_90a, built by
+ops/_build.py at first use).  It replaces the TPU kernel
+`packed_prefill_attention_pallas` (dynamo_tpu/ops/pallas_packed_prefill.py)
+in its bf16 mode; the source note says what bounds it on an H100 and how
+its design answers that.
+
+`packed_tile_plan` is the wrapper-side half of the tile-skip scheme, the
+same per-(token tile, segment) chunk counts the TPU wrapper builds
+(pallas_packed_prefill.py:244-254), with one cache block per chunk.
+
+For a CPU tensor `packed_prefill` returns the plain version
+(ops/packed_prefill.py `packed_prefill_attention_ref`).  For a CUDA tensor
+it launches the kernel or raises: there is no fallback.  Each launch adds
+one to `packed_prefill.launches`, and nothing else does.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import math
+from typing import Tuple
+
+import torch
+import torch.nn.functional as F
+
+from ._build import check_status, load_library
+from .packed_prefill import packed_prefill_attention_ref
+
+KERNEL = "packed_prefill"
+TOKEN_BLOCK = 16  # tokens per tile (kTB in the source)
+MAX_GROUP = 8
+MAX_BLOCK_SIZE = 128
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_SIGNATURES = (
+    ("packed_prefill_bf16",
+     (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I,
+      ctypes.c_float, _P),
+     ctypes.c_int),
+    ("packed_prefill_error_string", (ctypes.c_int,), ctypes.c_char_p),
+)
+
+
+def packed_tile_plan(seg_ids: torch.Tensor, positions: torch.Tensor,
+                     valid: torch.Tensor, n_segments: int, token_block: int,
+                     block_size: int, max_blocks: int
+                     ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(seg_eff, positions, nchunks) for the kernel.
+
+    seg_eff [n_tiles * token_block]: each token's segment, -1 for invalid
+    tokens and the tile padding, so no mask ever selects them and no
+    chunk count grows on their behalf.  nchunks [n_tiles, S]: context
+    blocks each (tile, segment) pair walks: the causal frontier of the
+    tile's farthest token of that segment, 0 when the segment owns no
+    token of the tile (the skip), capped at the table width."""
+    T = seg_ids.shape[0]
+    n_tiles = -(-T // token_block)
+    pad = n_tiles * token_block - T
+    seg = torch.where(valid, seg_ids.to(torch.int32),
+                      torch.full_like(seg_ids, -1, dtype=torch.int32))
+    pos = positions.to(torch.int32)
+    if pad:
+        seg = F.pad(seg, (0, pad), value=-1)
+        pos = F.pad(pos, (0, pad))
+    seg2 = seg.view(n_tiles, token_block)
+    pos2 = pos.view(n_tiles, token_block)
+    rows = torch.arange(n_segments, dtype=torch.int32, device=seg.device)
+    owned = seg2[:, None, :] == rows[None, :, None]      # [n_tiles, S, TB]
+    maxpos = torch.where(owned, pos2[:, None, :],
+                         torch.full_like(pos2[:, None, :], -1)).amax(-1)
+    nch = torch.where(maxpos >= 0, maxpos // block_size + 1,
+                      torch.zeros_like(maxpos))
+    nch = torch.clamp(nch, max=max_blocks).to(torch.int32).contiguous()
+    return seg.contiguous(), pos.contiguous(), nch
+
+
+def _check(q, k_cache, v_cache, layer, block_tables, seg_ids, positions,
+           valid) -> None:
+    dev = q.device
+    for name, t in (("k_cache", k_cache), ("v_cache", v_cache),
+                    ("block_tables", block_tables), ("seg_ids", seg_ids),
+                    ("positions", positions), ("valid", valid)):
+        if t.device != dev:
+            raise ValueError(f"{name} is on {t.device}, q on {dev}")
+    for name, t in (("q", q), ("k_cache", k_cache), ("v_cache", v_cache),
+                    ("block_tables", block_tables)):
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    if q.data_ptr() % 16:
+        raise ValueError("q must be 16-byte aligned (the kernel loads rows "
+                         "as 16-byte vectors)")
+    if q.dtype != torch.bfloat16 or k_cache.dtype != torch.bfloat16 \
+            or v_cache.dtype != torch.bfloat16:
+        raise TypeError("the CUDA packed-prefill kernel takes bf16 q and "
+                        f"caches, got {q.dtype}/{k_cache.dtype}/"
+                        f"{v_cache.dtype}")
+    if block_tables.dtype != torch.int32:
+        raise TypeError("block_tables must be int32")
+    if valid.dtype != torch.bool:
+        raise TypeError("valid must be bool")
+    T, nh, hd = q.shape
+    L, nkv, _, bs, chd = k_cache.shape
+    if v_cache.shape != k_cache.shape or chd != hd:
+        raise ValueError(f"cache shapes {tuple(k_cache.shape)}/"
+                         f"{tuple(v_cache.shape)} do not fit q {tuple(q.shape)}")
+    if hd not in (64, 128):
+        raise ValueError(f"head_dim {hd} not supported (64 or 128)")
+    if nh % nkv or nh // nkv > MAX_GROUP:
+        raise ValueError(f"{nh} heads over {nkv} kv heads: the group must "
+                         f"divide and be <= {MAX_GROUP}")
+    if bs % 64 or not 0 < bs <= MAX_BLOCK_SIZE:
+        raise ValueError(f"block_size {bs} must be a multiple of 64 in "
+                         f"(0, {MAX_BLOCK_SIZE}]")
+    if not 0 <= layer < L:
+        raise IndexError(f"layer {layer} out of range [0, {L})")
+    if block_tables.dim() != 2 or block_tables.shape[1] < 1:
+        raise ValueError("block_tables must be [S, >=1]")
+    if seg_ids.shape != (T,) or positions.shape != (T,) \
+            or valid.shape != (T,):
+        raise ValueError("seg_ids, positions and valid must be [T]")
+
+
+def packed_prefill(q: torch.Tensor, k_cache: torch.Tensor,
+                   v_cache: torch.Tensor, layer: int,
+                   block_tables: torch.Tensor, seg_ids: torch.Tensor,
+                   positions: torch.Tensor,
+                   valid: torch.Tensor) -> torch.Tensor:
+    """Segment-causal attention [T, nh, hd] for a packed prefill stream;
+    the kernel computes packed_prefill_attention_ref(...,
+    round_scaled_q=True)."""
+    if not q.is_cuda:
+        return packed_prefill_attention_ref(q, k_cache, v_cache, layer,
+                                            block_tables, seg_ids,
+                                            positions, valid)
+    _check(q, k_cache, v_cache, layer, block_tables, seg_ids, positions,
+           valid)
+    lib = load_library(KERNEL, _SIGNATURES)
+    T, nh, hd = q.shape
+    _, nkv, num_blocks, bs, _ = k_cache.shape
+    S, mb = block_tables.shape
+    if T == 0:
+        return torch.empty_like(q)
+    seg_eff, pos, nchunks = packed_tile_plan(seg_ids, positions, valid, S,
+                                             TOKEN_BLOCK, bs, mb)
+    n_tiles = nchunks.shape[0]
+    out = torch.empty_like(q)
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    status = lib.packed_prefill_bf16(
+        q.data_ptr(), k_cache[layer].data_ptr(), v_cache[layer].data_ptr(),
+        block_tables.data_ptr(), seg_eff.data_ptr(), pos.data_ptr(),
+        nchunks.data_ptr(), out.data_ptr(), T, nh, nkv, hd, num_blocks, bs,
+        S, mb, n_tiles, 1.0 / math.sqrt(hd), stream)
+    check_status(lib, "packed_prefill_error_string", status,
+                 "packed_prefill")
+    packed_prefill.launches += 1
+    return out
+
+
+packed_prefill.launches = 0

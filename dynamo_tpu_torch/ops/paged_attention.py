@@ -1,0 +1,169 @@
+"""Paged KV-cache ops: cache writes and single-token decode attention.
+
+The counterpart of dynamo_tpu/ops/paged_attention.py.
+
+Cache layout (per tensor): [n_layers, n_kv_heads, num_blocks, block_size,
+head_dim].  Head-major like the JAX package, so one (head, block) slab is
+contiguous (32 KiB at bs = hd = 128 in bf16), but with head_dim innermost
+instead of the TPU's transposed [..., hd, bs]: the transposition was a
+TPU lane-alignment choice with no meaning on a GPU, and with hd innermost
+one position's key is 256 contiguous bytes, so 16-byte vector loads
+coalesce.  models/convert.py is the only place the two layouts meet.
+
+Conventions (shared with the JAX package):
+  * physical block 0 is the GARBAGE block: inactive rows' writes land
+    there and are never read; allocators hand out ids >= 1.
+  * sequence validity is carried by lengths and enforced with masks.
+
+Unlike the JAX functions, which return new arrays, every write here is an
+in-place scatter into the cache tensors (`index_put_`), which saves a
+copy of the multi-GiB cache per layer.  `index_put_` does not drop
+out-of-range indices the way JAX's `mode="drop"` does, so every caller
+routes invalid rows to block 0 instead, as the JAX code already does.
+
+`paged_attention_decode` dispatches: "auto" goes through the kernel's
+wrapper (ops/cuda_paged_attention.py), which launches the hand-written
+CUDA kernel for CUDA tensors and uses `paged_attention_decode_ref` for
+CPU tensors; "torch" runs the plain version on any device (the
+yardstick the kernel is held to on the card).
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+
+NEG_INF = -1e30
+
+# the decode dispatch's impl vocabulary (engine/config.py validates
+# attn_impl against it)
+DECODE_IMPLS = ("auto", "torch")
+
+
+# ---------------------------------------------------------------------------
+# cache writes (block scatter, in place)
+# ---------------------------------------------------------------------------
+
+
+def _store_kv(k_cache: torch.Tensor, v_cache: torch.Tensor, layer: int,
+              k: torch.Tensor, v: torch.Tensor, blocks: torch.Tensor,
+              offsets: torch.Tensor) -> None:
+    """Shared scatter tail for every write site: k/v [T, nkv, hd] land at
+    cache[layer, :, blocks, offsets, :] (target [nkv, T, hd]).  In place."""
+    blocks = blocks.long()
+    offsets = offsets.long()
+    k_cache[layer][:, blocks, offsets] = k.transpose(0, 1).to(k_cache.dtype)
+    v_cache[layer][:, blocks, offsets] = v.transpose(0, 1).to(v_cache.dtype)
+
+
+def write_token_kv(k_cache: torch.Tensor, v_cache: torch.Tensor, layer: int,
+                   k: torch.Tensor,             # [B, nkv, hd]
+                   v: torch.Tensor,
+                   block_tables: torch.Tensor,  # [B, max_blocks] int32
+                   ctx_lens: torch.Tensor,      # [B] position to write
+                   ) -> None:
+    """Decode-step KV write: each row's token at position ctx_lens[b].
+    In-place scatter (the JAX version returns new cache arrays).  The
+    table column is clamped to the table width, mirroring JAX's clamped
+    gather."""
+    bs = k_cache.shape[3]
+    B, mb = block_tables.shape
+    col = torch.clamp(ctx_lens.long() // bs, max=mb - 1)
+    rows = torch.arange(B, device=block_tables.device)
+    blocks = block_tables[rows, col]
+    _store_kv(k_cache, v_cache, layer, k, v, blocks, ctx_lens.long() % bs)
+
+
+# ---------------------------------------------------------------------------
+# attention reads
+# ---------------------------------------------------------------------------
+
+
+def _gather_ctx(cache: torch.Tensor, layer: int,
+                block_table: torch.Tensor) -> torch.Tensor:
+    """[L, nkv, nb, bs, hd] + [max_blocks] -> [nkv, max_blocks * bs, hd]."""
+    g = cache[layer][:, block_table.long()]  # [nkv, mb, bs, hd]
+    return g.reshape(g.shape[0], -1, g.shape[-1])
+
+
+def _q_operand(q: torch.Tensor, scale: float,
+               round_to_q: bool) -> tuple[torch.Tensor, float]:
+    """(fp32 query operand, factor for the scores).  round_to_q: q is
+    pre-scaled and rounded to its dtype, as the kernels do
+    (pallas_paged_attention.py:340-341); else the scores are scaled, as
+    the JAX reference paths do."""
+    if round_to_q:
+        return (q.float() * scale).to(q.dtype).float(), 1.0
+    return q.float(), scale
+
+
+def paged_attention_decode_ref(
+    q: torch.Tensor,             # [B, nh, hd]
+    k_cache: torch.Tensor,       # [L, nkv, num_blocks, bs, hd]
+    v_cache: torch.Tensor,
+    layer: int,
+    block_tables: torch.Tensor,  # [B, max_blocks] int32
+    kv_lens: torch.Tensor,       # [B] valid tokens (incl. the one just written)
+    round_scaled_q: bool = False,
+) -> torch.Tensor:
+    """The plain version of kernel K1, mirroring
+    paged_attention_decode_jnp with fp32-upcast operands: gather each
+    row's context through its block table, mask positions >= kv_len,
+    exact softmax, fp32 accumulation.  kv_lens are clamped to >= 1 as the
+    kernels (TPU and CUDA) clamp them.  round_scaled_q=True also rounds
+    q * 1/sqrt(hd) to q's dtype before the product, as the kernels do, so
+    the kernel and this version compute the same function for every
+    input; it is off by default, as in the JAX package's reference
+    path."""
+    B, nh, hd = q.shape
+    nkv = k_cache.shape[1]
+    group = nh // nkv
+    scale = 1.0 / math.sqrt(hd)
+    tables = block_tables.long()
+    kb = k_cache[layer][:, tables]  # [nkv, B, mb, bs, hd]
+    vb = v_cache[layer][:, tables]
+    S = kb.shape[2] * kb.shape[3]
+    kb = kb.reshape(nkv, B, S, hd).transpose(0, 1).float()  # [B, nkv, S, hd]
+    vb = vb.reshape(nkv, B, S, hd).transpose(0, 1).float()
+    qg, factor = _q_operand(q, scale, round_scaled_q)
+    qg = qg.reshape(B, nkv, group, hd)
+    s = torch.einsum("bkgh,bksh->bkgs", qg, kb) * factor
+    lens = torch.clamp(kv_lens.long(), min=1)
+    mask = torch.arange(S, device=q.device)[None, :] < lens[:, None]
+    s = s.masked_fill(~mask[:, None, None, :], NEG_INF)
+    p = torch.softmax(s, dim=-1)
+    o = torch.einsum("bkgs,bksh->bkgh", p, vb)
+    return o.reshape(B, nh, hd).to(q.dtype)
+
+
+def paged_attention_decode(
+    q: torch.Tensor,
+    k_cache: torch.Tensor,
+    v_cache: torch.Tensor,
+    layer: int,
+    block_tables: torch.Tensor,
+    kv_lens: torch.Tensor,
+    impl: str = "auto",
+    k_scale: torch.Tensor = None,
+    v_scale: torch.Tensor = None,
+) -> torch.Tensor:
+    """Single-token batched paged attention (the decode hot loop).
+
+    impl: "auto" (the kernel wrapper: CUDA kernel K1 on CUDA tensors,
+    the plain version on CPU tensors) or "torch" (the plain version on
+    any device).  An int8 cache's scales are not supported yet: the int8
+    mode of K1 comes with int8 KV in a later slice."""
+    if impl not in DECODE_IMPLS:
+        raise ValueError(f"unknown attention impl {impl!r}; expected "
+                         + " | ".join(DECODE_IMPLS))
+    if k_scale is not None or v_scale is not None:
+        raise NotImplementedError(
+            "int8 KV cache scales: the int8 mode of the decode kernel is "
+            "not ported yet")
+    if impl == "torch":
+        return paged_attention_decode_ref(q, k_cache, v_cache, layer,
+                                          block_tables, kv_lens)
+    from .cuda_paged_attention import paged_decode
+
+    return paged_decode(q, k_cache, v_cache, layer, block_tables, kv_lens)

@@ -1,0 +1,135 @@
+"""The port's boundaries: what it imports, where it runs, what it refuses.
+
+* No module of dynamo_tpu_torch and no line of chip_smoke.py imports
+  jax, dynamo_tpu or ml_dtypes (an AST scan), and importing the whole
+  package in a fresh interpreter loads none of them.
+* Entry points default to CUDA and raise on a machine without it; they
+  never fall back to the CPU.  chip_smoke.py fails without CUDA and
+  without the rest of the repository, printing no result.
+* A config field of a JAX-engine feature the port lacks raises when set.
+"""
+
+import ast
+import os
+import shutil
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+from dynamo_tpu_torch import resolve_device
+from dynamo_tpu_torch.engine import EngineConfig, TorchEngine
+from dynamo_tpu_torch.engine.config import _UNPORTED
+from dynamo_tpu_torch.models.convert import params_from_numpy
+from dynamo_tpu_torch.models.llama import PRESETS
+
+REPO = Path(__file__).resolve().parent.parent
+PKG = REPO / "dynamo_tpu_torch"
+FORBIDDEN = ("jax", "jaxlib", "dynamo_tpu", "ml_dtypes")
+
+
+def _package_modules():
+    """The package's .py files, leaving out the git-ignored build
+    directory (generated output, not source)."""
+    return sorted(p for p in PKG.rglob("*.py")
+                  if "_build" not in p.relative_to(PKG).parts[:-1])
+
+
+def _port_sources():
+    return _package_modules() + [REPO / "chip_smoke.py"]
+
+
+def _imported_roots(path: Path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for alias in node.names:
+                yield alias.name.split(".")[0], node.lineno
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module.split(".")[0], node.lineno
+
+
+def test_no_port_module_imports_jax_or_the_jax_package():
+    sources = _port_sources()
+    assert len(sources) > 15
+    bad = [f"{p.relative_to(REPO)}:{line} imports {root}"
+           for p in sources for root, line in _imported_roots(p)
+           if root in FORBIDDEN]
+    assert not bad, bad
+
+
+def test_importing_the_port_loads_neither():
+    mods = sorted({".".join(p.relative_to(REPO).with_suffix("").parts)
+                   .removesuffix(".__init__") for p in _package_modules()})
+    code = (
+        "import sys\n"
+        f"for m in {mods!r} + ['chip_smoke']:\n"
+        "    __import__(m)\n"
+        f"bad = [m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r}]\n"
+        "print(len(sys.modules))\n"
+        "assert not bad, bad\n")
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stdout + out.stderr
+
+
+def test_cuda_is_the_default_and_absent_cuda_raises():
+    if torch.cuda.is_available():
+        pytest.skip("this machine has CUDA: the default device is valid")
+    with pytest.raises(RuntimeError, match="cuda"):
+        resolve_device()
+    with pytest.raises(RuntimeError, match="cuda"):
+        TorchEngine(EngineConfig(model_config=PRESETS["tiny"]))
+    with pytest.raises(RuntimeError, match="cuda"):
+        params_from_numpy({"w": np.zeros(2, np.float32)}, PRESETS["tiny"])
+    with pytest.raises(ValueError):
+        resolve_device("mps")
+    assert resolve_device("cpu") == torch.device("cpu")
+
+
+@pytest.mark.parametrize("where", ["repo", "alone"])
+def test_chip_smoke_fails_without_cuda_or_repo(where, tmp_path):
+    if torch.cuda.is_available():
+        pytest.skip("this machine has CUDA")
+    cwd = REPO
+    if where == "alone":
+        shutil.copy(REPO / "chip_smoke.py", tmp_path / "chip_smoke.py")
+        cwd = tmp_path
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    out = subprocess.run([sys.executable, "chip_smoke.py"], cwd=cwd,
+                         env=env, capture_output=True, text=True,
+                         timeout=300)
+    assert out.returncode != 0
+    assert '"ok"' not in out.stdout
+
+
+def _non_default(default):
+    if isinstance(default, bool):
+        return not default
+    if isinstance(default, (int, float)):
+        return default + 1
+    if default is None:
+        return "/tmp/x"
+    return "something-else"
+
+
+@pytest.mark.parametrize("field", sorted(_UNPORTED))
+def test_unported_config_field_raises(field):
+    value = _non_default(_UNPORTED[field][0])
+    with pytest.raises(NotImplementedError, match=field):
+        EngineConfig(**{field: value})
+    EngineConfig(**{field: _UNPORTED[field][0]})  # the default is fine
+
+
+def test_unknown_attention_impl_raises():
+    with pytest.raises(ValueError):
+        EngineConfig(attn_impl="pallas")
+    with pytest.raises(ValueError):
+        EngineConfig(packed_attn_impl="xla")
+    cfg = EngineConfig(model="tiny-gqa", attn_impl="torch")
+    assert cfg.resolve_model().attn_impl == "torch"
+    assert cfg.resolve_model().n_kv_heads == 2

@@ -1,0 +1,159 @@
+"""The port's Llama model against dynamo_tpu.models.llama.
+
+The JAX package's parameters (init_params from a seed) cross to the port
+through models/convert.py (bf16 upcast to float32 by the test, exact),
+and the same packed prefill plus decode step runs through both on the
+CPU.  Tolerances: fp32 logits within 1e-5 absolute and relative (the
+same sums in another order); bf16 logits within 3e-2 absolute: both
+packages round activations to bf16 after every product and norm, but XLA
+and PyTorch fuse and order those roundings differently.  The logits here
+reach about 4, where one bf16 ulp is 1.6e-2, and the two packages differ
+by about one ulp (2.0e-2 measured), so the bound is two ulps.
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from dynamo_tpu.models import llama as jl
+from dynamo_tpu_torch.models import llama as tl
+from dynamo_tpu_torch.models.convert import (
+    kv_cache_from_numpy,
+    kv_cache_to_numpy,
+    params_from_numpy,
+)
+
+pytestmark = pytest.mark.allow_slow_callbacks
+
+SHAPES = dict(vocab_size=256, d_model=64, n_layers=2, ffn_dim=128)
+CONFIGS = {
+    # the tests/test_engine.py FP32 config
+    "fp32": (jl.LlamaConfig(name="tiny32", n_heads=4, n_kv_heads=2,
+                            head_dim=16, dtype=jnp.float32, **SHAPES),
+             tl.LlamaConfig(name="tiny32", n_heads=4, n_kv_heads=2,
+                            head_dim=16, dtype=torch.float32, **SHAPES),
+             dict(rtol=1e-5, atol=1e-5)),
+    # Qwen3-style per-head q/k norms (the qk_norm branch of _qkv)
+    "fp32-qknorm": (jl.LlamaConfig(name="tiny32-qk", n_heads=4,
+                                   n_kv_heads=2, head_dim=16, qk_norm=True,
+                                   dtype=jnp.float32, **SHAPES),
+                    tl.LlamaConfig(name="tiny32-qk", n_heads=4,
+                                   n_kv_heads=2, head_dim=16, qk_norm=True,
+                                   dtype=torch.float32, **SHAPES),
+                    dict(rtol=1e-5, atol=1e-5)),
+    # tiny-gqa's head grouping (8 heads over 2 kv heads) in bf16
+    "bf16-gqa": (jl.LlamaConfig(name="tiny-gqa-bf16", n_heads=8,
+                                n_kv_heads=2, head_dim=8, **SHAPES),
+                 tl.LlamaConfig(name="tiny-gqa-bf16", n_heads=8,
+                                n_kv_heads=2, head_dim=8, **SHAPES),
+                 dict(rtol=0, atol=3e-2)),
+}
+
+
+def _numpy_tree(params):
+    return jax.tree_util.tree_map(lambda a: np.asarray(a, np.float32), params)
+
+
+def test_params_from_numpy():
+    jcfg, tcfg, _ = CONFIGS["bf16-gqa"]
+    tree = _numpy_tree(jl.init_params(jcfg, jax.random.PRNGKey(0)))
+    params = params_from_numpy(tree, tcfg, device="cpu")
+    assert params["embedding"].dtype == torch.bfloat16
+    assert params["final_norm"]["norm"].dtype == torch.float32
+    assert params["layers"][1]["attn_norm"]["norm"].dtype == torch.float32
+    assert len(params["layers"]) == jcfg.n_layers
+    for name in ("wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down"):
+        got = params["layers"][1][name].float().numpy()
+        np.testing.assert_array_equal(got, tree["layers"][1][name])
+    # the bf16 round trip through float32 is exact
+    np.testing.assert_array_equal(params["lm_head"].float().numpy(),
+                                  tree["lm_head"])
+    with pytest.raises(TypeError):
+        params_from_numpy({"w": np.zeros(2, np.int8)}, tcfg, device="cpu")
+
+
+def test_kv_cache_round_trip():
+    rng = np.random.default_rng(0)
+    k = rng.standard_normal((2, 3, 5, 8, 4)).astype(np.float32)  # hd=8, bs=4
+    v = rng.standard_normal((2, 3, 5, 8, 4)).astype(np.float32)
+    tk, tv = kv_cache_from_numpy(k, v, device="cpu")
+    assert tk.shape == (2, 3, 5, 4, 8) and tk.is_contiguous()
+    # position p of block b, head dim d: JAX [.., d, p] is the port's [.., p, d]
+    assert tk[1, 2, 3, 1, 6].item() == k[1, 2, 3, 6, 1]
+    back_k, back_v = kv_cache_to_numpy((tk, tv))
+    np.testing.assert_array_equal(back_k, k)
+    np.testing.assert_array_equal(back_v, v)
+
+
+def _packed_inputs(bs):
+    """Two prompts (7 and 5 tokens) packed into one 16-token stream with a
+    padded tail, then one decode step for each."""
+    toks = np.array([5, 9, 13, 2, 7, 11, 3, 40, 41, 42, 43, 44] + [0] * 4,
+                    np.int32)
+    pos = np.array(list(range(7)) + list(range(5)) + [0] * 4, np.int32)
+    seg = np.array([0] * 7 + [1] * 5 + [0] * 4, np.int32)
+    valid = np.arange(16) < 12
+    tables = np.array([[1, 2, 3, 0], [4, 5, 0, 0]], np.int32)
+    last = np.array([6, 11], np.int32)
+    dec = dict(tokens=np.array([17, 23], np.int32),
+               positions=np.array([7, 5], np.int32),
+               ctx=np.array([7, 5], np.int32))
+    return toks, pos, seg, valid, tables, last, dec
+
+
+@pytest.mark.parametrize("name", sorted(CONFIGS))
+def test_prefill_packed_and_decode_match_jax(name):
+    jcfg, tcfg, tol = CONFIGS[name]
+    bs, nb = 4, 8
+    jparams = jl.init_params(jcfg, jax.random.PRNGKey(3))
+    tparams = params_from_numpy(_numpy_tree(jparams), tcfg, device="cpu")
+    toks, pos, seg, valid, tables, last, dec = _packed_inputs(bs)
+
+    shape = jl.kv_cache_shapes(jcfg, nb, bs)[0]
+    jkv = (jnp.zeros(shape, jcfg.dtype), jnp.zeros(shape, jcfg.dtype))
+    jlog, jkv = jl.prefill_packed(
+        jparams, jcfg, jkv, jnp.asarray(toks), jnp.asarray(pos),
+        jnp.asarray(seg), jnp.asarray(tables), jnp.asarray(last),
+        jnp.asarray(valid))
+    jdec, jkv = jl.decode(
+        jparams, jcfg, jkv, jnp.asarray(dec["tokens"]),
+        jnp.asarray(dec["positions"]), jnp.asarray(tables),
+        jnp.asarray(dec["ctx"]))
+
+    tkv = tuple(torch.zeros(s, dtype=tcfg.dtype)
+                for s in tl.kv_cache_shapes(tcfg, nb, bs))
+    t = {k: torch.from_numpy(v) for k, v in dict(
+        toks=toks, pos=pos, seg=seg, valid=valid, tables=tables,
+        last=last).items()}
+    tlog, tkv = tl.prefill_packed(tparams, tcfg, tkv, t["toks"], t["pos"],
+                                  t["seg"], t["tables"], t["last"],
+                                  t["valid"])
+    tdec, tkv = tl.decode(tparams, tcfg, tkv,
+                          torch.from_numpy(dec["tokens"]),
+                          torch.from_numpy(dec["positions"]), t["tables"],
+                          torch.from_numpy(dec["ctx"]))
+
+    np.testing.assert_allclose(tlog.numpy(), np.asarray(jlog), **tol)
+    np.testing.assert_allclose(tdec.numpy(), np.asarray(jdec), **tol)
+    # the caches agree outside the garbage block, through the conversion
+    tk, tv = kv_cache_to_numpy(tkv)
+    for got, want in ((tk, jkv[0]), (tv, jkv[1])):
+        want = np.asarray(want, np.float32)
+        np.testing.assert_allclose(got[:, :, 1:], want[:, :, 1:], **tol)
+
+
+def test_moe_and_unknown_impls_raise():
+    with pytest.raises(NotImplementedError):
+        tl.LlamaConfig(n_experts=4)
+    cfg = CONFIGS["fp32"][1]
+    params = tl.init_params(cfg, torch.Generator().manual_seed(0))
+    assert params["layers"][0]["wq"].shape == (64, 64)
+    assert params["embedding"].device.type == "cpu"
+    bad = tl.LlamaConfig(**{**cfg.__dict__, "attn_impl": "pallas"})
+    kv = tuple(torch.zeros(s) for s in tl.kv_cache_shapes(cfg, 4, 4))
+    one = torch.zeros(1, dtype=torch.int32)
+    with pytest.raises(ValueError):
+        tl.decode(params, bad, kv, one, one,
+                  torch.ones(1, 1, dtype=torch.int32), one)
