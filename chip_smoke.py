@@ -3,10 +3,13 @@
 
     python3 chip_smoke.py
 
-Builds the port's CUDA kernels from csrc/, holds each against its plain
-PyTorch version at the llama-8b shapes the main path gives it, then
-serves concurrent requests through `TorchEngine` with the llama-8b preset
-at full width (random bf16 weights made on the card from a seed) and
+Builds the port's CUDA kernels from csrc/, holds each entry point (K1
+and K3, each in its bf16 and its int8 mode) against its plain PyTorch
+version at the llama-8b shapes the main path gives it, then serves
+concurrent requests through `TorchEngine` with the llama-8b preset at
+full width (random bf16 weights made on the card from a seed), first on
+a bf16 KV cache and then, with the same weights, on an int8 KV cache
+sized by a memory budget (`kv_cache_dtype="int8"`, `kv_hbm_gb`), and
 checks the streams.  Any failed phase ends the script with a non-zero
 exit code.  It imports nothing of JAX or of the JAX package.
 
@@ -16,9 +19,9 @@ kernel's launches on the main path, error against its plain version
 device time (`ms`, by CUDA-graph replay), the plain version's time, the
 one-call PyTorch yardstick's time (`library_ms`,
 scaled_dot_product_attention on the same context gathered into a dense
-tensor beforehand; the port never calls it) and the least time the card
-could take (`bound_ms`); the card's name and power limit; and, last,
-`{"ok": true, "device": {...}}`.
+tensor beforehand, dequantized to bf16 for the int8 modes; the port never
+calls it) and the least time the card could take (`bound_ms`); the card's
+name and power limit; and, last, `{"ok": true, "device": {...}}`.
 
 Bounds use the H100 SXM data sheet (3.35 TB/s HBM3, 989 TFLOP/s dense
 bf16); a card run below its 700 W limit is slower, so its limit is
@@ -49,8 +52,10 @@ BF16_FLOPS_PER_S = 989e12
 # would be loose on long rows; a relative one is not.  REL_TOL lies
 # between the largest error of the sound kernels and the smallest error
 # of planted faults (a context block read from another sequence, one
-# position past a row's end), which every run measures again and
-# requires to exceed it.
+# position past a row's end and, on an int8 cache, a block's scale rows
+# read from another block), which every run measures again and requires
+# to exceed it.  The int8 kernels compute their plain version up to the
+# bf16 rounding of their P operand, P * v_scale, the same size of error.
 REL_TOL = 1e-2
 # whole-model agreement of the kernel path with the plain path: 32 bf16
 # layers of random weights amplify per-layer rounding, so the bound is on
@@ -161,6 +166,8 @@ def sdpa(q, k, v, mask):
 
 
 def build_kernels() -> None:
+    """Both sources, one nvcc each, started together; each library holds
+    its kernel's bf16 and int8 entry points."""
     from dynamo_tpu_torch.ops import _build
     from dynamo_tpu_torch.ops.cuda_packed_prefill import KERNEL as K3
     from dynamo_tpu_torch.ops.cuda_paged_attention import KERNEL as K1
@@ -189,8 +196,72 @@ def _random_cache(gen, L, nkv, nb, bs, hd, device):
     return k.to(torch.bfloat16), v.to(torch.bfloat16)
 
 
-def check_decode_kernel(cfg, device) -> dict:
-    from dynamo_tpu_torch.ops.cuda_paged_attention import paged_decode
+# per-block magnitude spread of the int8 checks' K and V, as powers of 10:
+# K by 0.7-1.4 and V by 0.32-3.2 (log-uniform).  Wider K spreads make a
+# few positions take all of the softmax and wider V spreads let a small
+# block drown in large ones; both would hide the read one position past
+# a row's end (measured with the plain versions: V by 0.1-10 brought it
+# down to 1.1e-2, at the tolerance)
+INT8_SPREAD = (0.15, 0.5)
+
+
+def _int8_cache(kc, vc, seed: int):
+    """An int8 cache (k, v, k_scale, v_scale) quantized by the port's
+    quantize_tokens from bf16 caches, each block's K/V first scaled by a
+    factor drawn (numpy, from `seed`) within INT8_SPREAD, so that the
+    magnitudes of blocks differ and a scale row read from another layer,
+    head or block shows in the output."""
+    from dynamo_tpu_torch.quant.kv import quantize_tokens
+
+    rng = np.random.default_rng(seed)
+    out = []
+    for c, r in zip((kc, vc), INT8_SPREAD):
+        spread = torch.from_numpy(10.0 ** rng.uniform(-r, r, c.shape[:3]))
+        out.append(quantize_tokens(
+            c.float() * spread.float().to(c.device)[..., None, None]))
+    (k, ks), (v, vs) = out
+    return k, v, ks, vs
+
+
+def _plant_junk(cache, tails) -> tuple:
+    """A copy of an int8 cache with junk where nothing may be read: codes
+    of 127 and scales of 1e30 in the garbage block, and codes of -127 and
+    NaN scales at the unwritten positions `tails` ((block, first unused
+    offset) pairs)."""
+    k, v, ks, vs = (t.clone() for t in cache)
+    for c in (k, v):
+        c[:, :, 0] = 127
+    for s in (ks, vs):
+        s[:, :, 0] = 1e30
+    for blk, off in tails:
+        for c in (k, v):
+            c[:, :, blk, off:] = -127
+        for s in (ks, vs):
+            s[:, :, blk, off:] = float("nan")
+    return k, v, ks, vs
+
+
+def _junk_check(name: str, kernel, cache, tails, out) -> None:
+    """The kernel's output on `cache` with junk planted in the garbage
+    block and the unwritten tails must equal `out` bit for bit."""
+    again = kernel(*_plant_junk(cache, tails))
+    torch.cuda.synchronize()
+    same = torch.equal(again, out)
+    log(f"{name}: junk (codes +-127, scales 1e30 and NaN) in the garbage "
+        f"block and {len(tails)} unwritten tails, output bit-identical: "
+        f"{same}")
+    if not same:
+        raise SystemExit(f"{name}: junk in unread positions reached the "
+                         "output")
+
+
+def check_decode_kernel(cfg, device, int8: bool = False) -> dict:
+    """K1 in its bf16 mode, or (int8) in its int8 mode on the same
+    shapes with the cache quantized by the port's quantizer."""
+    from dynamo_tpu_torch.ops.cuda_paged_attention import (
+        paged_decode,
+        paged_decode_int8,
+    )
     from dynamo_tpu_torch.ops.paged_attention import (
         paged_attention_decode_ref,
     )
@@ -212,51 +283,74 @@ def check_decode_kernel(cfg, device) -> dict:
     q = torch.randn(B, nh, hd, generator=gen, device=device).to(torch.bfloat16)
     tables_t = torch.from_numpy(tables).to(device)
     lens_t = torch.tensor(kv_lens, dtype=torch.int32, device=device)
+    name, tag = ("paged_decode_int8", "K1-int8") if int8 else \
+        ("paged_decode", "K1")
+    cache = _int8_cache(kc, vc, seed=3) if int8 else (kc, vc)
 
-    def plain(tables=tables_t, lens=lens_t):
-        return paged_attention_decode_ref(q, kc, vc, layer, tables, lens,
-                                          round_scaled_q=True)
+    def kernel(*c):
+        if int8:
+            return paged_decode_int8(q, *c, layer, tables_t, lens_t)
+        return paged_decode(q, *c, layer, tables_t, lens_t)
 
-    out = paged_decode(q, kc, vc, layer, tables_t, lens_t)
+    def plain(tables=tables_t, lens=lens_t, c=cache):
+        scales = dict(k_scale=c[2], v_scale=c[3]) if int8 else {}
+        return paged_attention_decode_ref(q, c[0], c[1], layer, tables, lens,
+                                          round_scaled_q=True, **scales)
+
+    out = kernel(*cache)
     torch.cuda.synchronize()
-    log(f"K1 paged_decode vs plain: B={B} nh={nh} nkv={nkv} hd={hd} bs={bs} "
+    log(f"{tag} {name} vs plain: B={B} nh={nh} nkv={nkv} hd={hd} bs={bs} "
         f"kv_lens={kv_lens}")
     # planted faults: the 2048-position row reads its 9th block from the
-    # 1500-position row; the 2047-position row sees one position more
+    # 1500-position row; the 2047-position row sees one position more;
+    # int8: the 2048-position row's 9th block reads the scale rows of the
+    # 700-position row's first block
+    r2048 = kv_lens.index(2048)
     wrong = tables_t.clone()
-    wrong[kv_lens.index(2048), 8] = tables_t[kv_lens.index(1500), 0]
+    wrong[r2048, 8] = tables_t[kv_lens.index(1500), 0]
     longer = lens_t.clone()
     longer[kv_lens.index(2047)] += 1
-    err, rel = hold_to_plain("K1", out, plain(), {
-        "foreign block": plain(tables=wrong),
-        "one position past kv_len": plain(lens=longer)})
+    faults = {"foreign block": plain(tables=wrong),
+              "one position past kv_len": plain(lens=longer)}
+    if int8:
+        faults["scale row of another block"] = plain(c=_swap_scale_rows(
+            cache, layer, tables[r2048, 8], tables[kv_lens.index(700), 0]))
+    err, rel = hold_to_plain(tag, out, plain(), faults)
+    if int8:
+        tails = [(tables[b, (n - 1) // bs], (n - 1) % bs + 1)
+                 for b, n in enumerate(kv_lens) if n % bs]
+        _junk_check(tag, kernel, cache, tails, out)
 
-    ms = graph_time_ms(
-        lambda: paged_decode(q, kc, vc, layer, tables_t, lens_t))
+    ms = graph_time_ms(lambda: kernel(*cache))
     plain_ms = time_ms(plain, iters=5)
-    # yardstick: SDPA over each row's context gathered densely beforehand,
-    # padded to the table width (B x mb*bs positions) and masked
+    # yardstick: SDPA over each row's context gathered (int8: and
+    # dequantized to bf16) densely beforehand, padded to the table width
+    # (B x mb*bs positions) and masked
     S = mb * bs
-    kd = kc[layer][:, tables_t.long()].reshape(nkv, B, S, hd).transpose(0, 1)
-    vd = vc[layer][:, tables_t.long()].reshape(nkv, B, S, hd).transpose(0, 1)
+    dense = [_dense(c, s, layer, tables_t.long()).reshape(nkv, B, S, hd)
+             .transpose(0, 1).contiguous()
+             for c, s in ((cache[0], cache[2] if int8 else None),
+                          (cache[1], cache[3] if int8 else None))]
     mask = (torch.arange(S, device=device)[None, :]
             < lens_t[:, None]).reshape(B, 1, 1, S)
-    lib = sdpa(q.reshape(B, nh, 1, hd), kd.contiguous(), vd.contiguous(),
-               mask)
-    library_ms = graph_time_ms(lib)
+    library_ms = graph_time_ms(sdpa(q.reshape(B, nh, 1, hd), *dense, mask))
     total = sum(kv_lens)
-    nbytes = (2 * total * nkv * hd * 2 + 2 * q.numel() * 2
+    # bytes per position per kv head: bf16 rows, or int8 rows + a scale
+    pos_bytes = (hd + 4) if int8 else 2 * hd
+    nbytes = (2 * total * nkv * pos_bytes + 2 * q.numel() * 2
               + tables.nbytes + 4 * B)
     flops = 4 * nh * hd * total
     bound_ms, bound_by = bound(nbytes, flops)
-    # what SDPA's padded input alone takes to read at the memory rate
+    # what SDPA's padded bf16 input alone takes to read at the memory rate
     sdpa_bytes_ms = 2 * B * S * nkv * hd * 2 / HBM_BYTES_PER_S * 1e3
-    log(f"K1 times: kernel {ms:.4f} ms (graph replay), plain "
+    log(f"{tag} times: kernel {ms:.4f} ms (graph replay), plain "
         f"{plain_ms:.4f} ms (host loop), sdpa {library_ms:.4f} ms (graph "
-        f"replay; it reads the padded {B}x{S} positions, {sdpa_bytes_ms:.4f}"
-        f" ms at the memory rate, against {total} real ones), bound "
-        f"{bound_ms:.4f} ms ({bound_by})")
-    return {"name": "paged_decode", "route": "cuda",
+        f"replay; it reads the padded {B}x{S} positions"
+        f"{', dequantized to bf16 beforehand' if int8 else ''}, "
+        f"{sdpa_bytes_ms:.4f} ms at the memory rate, against {total} real "
+        f"ones{' in int8' if int8 else ''}), bound {bound_ms:.4f} ms "
+        f"({bound_by}, {nbytes / 1e6:.1f} MB)")
+    return {"name": name, "route": "cuda",
             "source": "dynamo_tpu_torch/csrc/paged_decode.cu",
             "replaces": "dynamo_tpu/ops/pallas_paged_attention.py:300",
             "max_abs_err": err, "max_rel_err": rel, "ms": ms,
@@ -264,13 +358,38 @@ def check_decode_kernel(cfg, device) -> dict:
             "bound_by": bound_by, "library_ms": library_ms}
 
 
+def _swap_scale_rows(cache, layer: int, blk: int, other: int) -> tuple:
+    """A copy of an int8 cache whose block `blk` has block `other`'s scale
+    rows in `layer` (the planted fault of a wrong scale index)."""
+    k, v, ks, vs = cache
+    ks, vs = ks.clone(), vs.clone()
+    ks[layer, :, int(blk)] = ks[layer, :, int(other)]
+    vs[layer, :, int(blk)] = vs[layer, :, int(other)]
+    return k, v, ks, vs
+
+
+def _dense(cache, scale, layer: int, *index) -> torch.Tensor:
+    """cache[layer][:, *index] in bf16, dequantized when `scale` is given
+    (the yardstick's input, made before it is timed)."""
+    g = cache[layer][(slice(None), *index)]
+    if scale is None:
+        return g
+    s = scale[layer][(slice(None), *index)]
+    return (g.float() * s[..., None]).to(torch.bfloat16)
+
+
 # ---------------------------------------------------------------------------
 # phase 4: K3 against its plain version
 # ---------------------------------------------------------------------------
 
 
-def check_prefill_kernel(cfg, device) -> dict:
-    from dynamo_tpu_torch.ops.cuda_packed_prefill import packed_prefill
+def check_prefill_kernel(cfg, device, int8: bool = False) -> dict:
+    """K3 in its bf16 mode, or (int8) in its int8 mode on the same
+    stream with the cache quantized by the port's quantizer."""
+    from dynamo_tpu_torch.ops.cuda_packed_prefill import (
+        packed_prefill,
+        packed_prefill_int8,
+    )
     from dynamo_tpu_torch.ops.packed_prefill import (
         packed_prefill_attention_ref,
     )
@@ -310,39 +429,61 @@ def check_prefill_kernel(cfg, device) -> dict:
     q = torch.randn(T, nh, hd, generator=gen, device=device).to(torch.bfloat16)
     args = [torch.from_numpy(a).to(device)
             for a in (tables, seg_ids, positions, valid)]
+    name, tag = ("packed_prefill_int8", "K3-int8") if int8 else \
+        ("packed_prefill", "K3")
+    cache = _int8_cache(kc, vc, seed=4) if int8 else (kc, vc)
 
-    def plain(tables_t=args[0], positions_t=args[2]):
-        return packed_prefill_attention_ref(q, kc, vc, layer, tables_t,
+    def kernel(*c):
+        if int8:
+            return packed_prefill_int8(q, *c, layer, *args)
+        return packed_prefill(q, *c, layer, *args)
+
+    def plain(tables_t=args[0], positions_t=args[2], c=cache):
+        scales = dict(k_scale=c[2], v_scale=c[3]) if int8 else {}
+        return packed_prefill_attention_ref(q, c[0], c[1], layer, tables_t,
                                             args[1], positions_t, args[3],
-                                            round_scaled_q=True)
+                                            round_scaled_q=True, **scales)
 
-    out = packed_prefill(q, kc, vc, layer, *args)
+    out = kernel(*cache)
     torch.cuda.synchronize()
     tail_zero = bool((out[~args[3]] == 0).all())
-    log(f"K3 packed_prefill vs plain: T={T} rows={lens} prefix={ctx0} "
+    log(f"{tag} {name} vs plain: T={T} rows={lens} prefix={ctx0} "
         f"stream order={order}, padded tail exactly 0: {tail_zero}")
     if not tail_zero:
-        raise SystemExit("K3: the padded tail is not 0")
+        raise SystemExit(f"{tag}: the padded tail is not 0")
     # planted faults: row 0 (1800 tokens) reads its 8th block from row 3;
-    # row 0's last token sees one position past its causal frontier
+    # row 0's last token sees one position past its causal frontier;
+    # int8: row 0's 8th block reads the scale rows of row 3's first block
     wrong = args[0].clone()
     wrong[0, 7] = args[0][3, 0]
     further = args[2].clone()
     further[int(np.flatnonzero((seg_ids == 0) & valid)[-1])] += 1
-    err, rel = hold_to_plain("K3", out, plain(), {
-        "foreign block": plain(tables_t=wrong),
-        "one position past the causal frontier": plain(positions_t=further)})
+    faults = {"foreign block": plain(tables_t=wrong),
+              "one position past the causal frontier":
+                  plain(positions_t=further)}
+    if int8:
+        faults["scale row of another block"] = plain(c=_swap_scale_rows(
+            cache, layer, tables[0, 7], tables[3, 0]))
+    err, rel = hold_to_plain(tag, out, plain(), faults)
+    if int8:
+        ends = {s: c + n for s, (c, n) in enumerate(zip(ctx0, lens)) if n}
+        tails = [(tables[s, (e - 1) // bs], (e - 1) % bs + 1)
+                 for s, e in ends.items() if e % bs]
+        _junk_check(tag, kernel, cache, tails, out)
 
-    ms = graph_time_ms(lambda: packed_prefill(q, kc, vc, layer, *args))
+    ms = graph_time_ms(lambda: kernel(*cache))
     plain_ms = time_ms(plain, iters=3, warmup=1)
-    # yardstick: one SDPA call over every row's context gathered densely
-    # beforehand, with the segment-causal mask
+    # yardstick: one SDPA call over every row's context gathered (int8:
+    # and dequantized to bf16) densely beforehand, with the
+    # segment-causal mask
     cols = [(s, c) for s in range(S) for c in range(ctx0[s] + lens[s])]
     col_seg = torch.tensor([s for s, _ in cols], device=device)
     col_pos = torch.tensor([c for _, c in cols], device=device)
     col_blk = torch.from_numpy(tables).to(device)[col_seg, col_pos // bs].long()
-    kd = kc[layer][:, col_blk, col_pos % bs].unsqueeze(0).contiguous()
-    vd = vc[layer][:, col_blk, col_pos % bs].unsqueeze(0).contiguous()
+    kd, vd = (_dense(c, s, layer, col_blk, col_pos % bs).unsqueeze(0)
+              .contiguous()
+              for c, s in ((cache[0], cache[2] if int8 else None),
+                           (cache[1], cache[3] if int8 else None)))
     seg_t, pos_t, val_t = args[1].long(), args[2].long(), args[3]
     mask = ((seg_t[:, None] == col_seg[None, :])
             & (col_pos[None, :] <= pos_t[:, None]) & val_t[:, None])
@@ -351,15 +492,17 @@ def check_prefill_kernel(cfg, device) -> dict:
     library_ms = graph_time_ms(lib)
     ctx = positions[valid].astype(np.int64) + 1
     kv_pos = sum(c + n for c, n in zip(ctx0, lens))
-    nbytes = 2 * kv_pos * nkv * hd * 2 + 2 * q.numel() * 2 + tables.nbytes \
-        + 9 * T
+    pos_bytes = (hd + 4) if int8 else 2 * hd
+    nbytes = 2 * kv_pos * nkv * pos_bytes + 2 * q.numel() * 2 \
+        + tables.nbytes + 9 * T
     flops = 4 * nh * hd * int(ctx.sum())
     bound_ms, bound_by = bound(nbytes, flops)
-    log(f"K3 times: kernel {ms:.4f} ms (graph replay, tile plan "
+    log(f"{tag} times: kernel {ms:.4f} ms (graph replay, tile plan "
         f"included), plain {plain_ms:.4f} ms (host loop), sdpa "
-        f"{library_ms:.4f} ms (graph replay), bound {bound_ms:.4f} ms "
-        f"({bound_by})")
-    return {"name": "packed_prefill", "route": "cuda",
+        f"{library_ms:.4f} ms (graph replay"
+        f"{', context dequantized to bf16 beforehand' if int8 else ''}), "
+        f"bound {bound_ms:.4f} ms ({bound_by})")
+    return {"name": name, "route": "cuda",
             "source": "dynamo_tpu_torch/csrc/packed_prefill.cu",
             "replaces": "dynamo_tpu/ops/pallas_packed_prefill.py:195",
             "max_abs_err": err, "max_rel_err": rel, "ms": ms,
@@ -411,13 +554,25 @@ async def _serve(engine, reqs):
     return await asyncio.gather(*(one(r) for r in reqs))
 
 
-def _compare_logits(params, cfg, device) -> None:
+def _compare_logits(params, cfg, device, kv_dtype: str) -> int:
     """One 512-token prompt's last-token logits, and the next decode
-    step's, through the kernel path and the plain path on the card."""
+    step's, through the kernel path and the plain path on the card, on a
+    cache of `kv_dtype` ("bf16" | "int8").  Returns the device operations
+    (kernels, copies) that the kernel path's decode step launched."""
     from dynamo_tpu_torch.models import llama
 
     plain_cfg = dataclasses.replace(cfg, attn_impl="torch",
                                     packed_attn_impl="torch")
+
+    def new_cache():
+        if kv_dtype == "bf16":
+            return tuple(torch.zeros(s, dtype=cfg.dtype, device=device)
+                         for s in llama.kv_cache_shapes(cfg, 8, 128))
+        return tuple(torch.zeros(s, dtype=torch.int8, device=device)
+                     for s in llama.kv_cache_shapes(cfg, 8, 128)) + tuple(
+            torch.zeros(s, device=device)
+            for s in llama.kv_cache_scale_shapes(cfg, 8, 128))
+
     rng = np.random.default_rng(7)
     toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, 512)
                             .astype(np.int32)).to(device)
@@ -427,17 +582,21 @@ def _compare_logits(params, cfg, device) -> None:
     tables = torch.tensor([[1, 2, 3, 4, 5]], dtype=torch.int32, device=device)
     last = torch.tensor([511], dtype=torch.int32, device=device)
     res = {}
+    nxt = torch.tensor([7], dtype=torch.int32, device=device)
+    at = torch.tensor([512], dtype=torch.int32, device=device)
     for name, c in (("kernel", cfg), ("plain", plain_cfg)):
-        kv = tuple(torch.zeros(s, dtype=cfg.dtype, device=device)
-                   for s in llama.kv_cache_shapes(cfg, 8, 128))
+        kv = new_cache()
         pre, _ = llama.prefill_packed(params, c, kv, toks, pos, seg, tables,
                                       last, valid)
-        nxt = torch.tensor([7], dtype=torch.int32, device=device)
-        dec, _ = llama.decode(params, c, kv, nxt,
-                              torch.tensor([512], dtype=torch.int32,
-                                           device=device),
-                              tables, torch.tensor([512], dtype=torch.int32,
-                                                   device=device))
+        torch.cuda.synchronize()
+        with torch.profiler.profile(activities=[
+                torch.profiler.ProfilerActivity.CPU,
+                torch.profiler.ProfilerActivity.CUDA]) as prof:
+            dec, _ = llama.decode(params, c, kv, nxt, at, tables, at)
+            torch.cuda.synchronize()
+        if name == "kernel":
+            ops = sum(1 for e in prof.events()
+                      if str(e.device_type).endswith("CUDA"))
         res[name] = (pre[0].float(), dec[0].float())
     for i, what in enumerate(("prefill", "decode")):
         a, b = res["kernel"][i], res["plain"][i]
@@ -447,30 +606,65 @@ def _compare_logits(params, cfg, device) -> None:
         gap = (top2[0] - top2[1]).item()
         same = int(a.argmax()) == int(b.argmax())
         ok = cos >= MIN_COSINE and (same or gap <= diff)
-        log(f"logits {what}, kernel path vs plain path (512-token prompt): "
-            f"cosine={cos:.6f} (>= {MIN_COSINE}) top1 equal={same} "
+        log(f"logits {what}, {kv_dtype} cache, kernel path vs plain path "
+            f"(512-token prompt): cosine={cos:.6f} (>= {MIN_COSINE}) top1 "
+            f"equal={same} "
             f"max_abs_diff={diff:.4f} plain top-2 gap={gap:.4f} "
             f"{'ok' if ok else 'FAILED'}")
         if not ok:
             raise SystemExit(f"kernel path and plain path disagree ({what})")
+    log(f"one decode step (one sequence, {kv_dtype} cache, kernel path): "
+        f"{ops} device operations launched")
+    return ops
 
 
-def check_engine(device, card: str) -> dict:
+# the int8 run's memory budget for its cache, in GB
+INT8_KV_HBM_GB = 4.5
+
+
+def check_engine(device, card: str, kv_dtype: str = "bf16", params=None):
+    """Serve the five requests through TorchEngine at full width on a
+    cache of `kv_dtype`: the bf16 run makes random weights, the int8 run
+    takes them as `params` and sizes its cache from INT8_KV_HBM_GB.
+    Returns (the main path's launch counts by kernel name, the engine,
+    device operations of one decode step)."""
     from dynamo_tpu_torch.engine import EngineConfig, TorchEngine
-    from dynamo_tpu_torch.ops.cuda_packed_prefill import packed_prefill
-    from dynamo_tpu_torch.ops.cuda_paged_attention import paged_decode
+    from dynamo_tpu_torch.models import llama
+    from dynamo_tpu_torch.ops import cuda_packed_prefill as k3
+    from dynamo_tpu_torch.ops import cuda_paged_attention as k1
+    from dynamo_tpu_torch.quant.kv import blocks_for_hbm_budget
 
-    cfg = EngineConfig(model="llama-8b", block_size=128, num_blocks=512,
+    int8 = kv_dtype == "int8"
+    size = (dict(kv_cache_dtype="int8", kv_hbm_gb=INT8_KV_HBM_GB) if int8
+            else dict(num_blocks=512))
+    cfg = EngineConfig(model="llama-8b", block_size=128,
                        max_blocks_per_seq=16, max_num_seqs=4,
-                       max_batch_tokens=2048, max_prefill_seqs=4, seed=0)
+                       max_batch_tokens=2048, max_prefill_seqs=4, seed=0,
+                       **size)
+    if int8:
+        mc8 = cfg.resolve_model()
+        per = {d: blocks_for_hbm_budget(llama, mc8, 128, d,
+                                        int(INT8_KV_HBM_GB * 1e9))
+               for d in ("bf16", "int8")}
+        log(f"kv_hbm_gb={INT8_KV_HBM_GB}: blocks_for_hbm_budget gives "
+            f"{per['bf16']} bf16 blocks and {per['int8']} int8 blocks of "
+            f"128 (ratio {per['int8'] / per['bf16']:.3f})")
+    # (decode, prefill) wrappers of this cache dtype; the other pair's
+    # counts must stay 0 (no route from one dtype to the other's kernel)
+    used = ((k1.paged_decode_int8, k3.packed_prefill_int8) if int8
+            else (k1.paged_decode, k3.packed_prefill))
+    unused = ((k1.paged_decode, k3.packed_prefill) if int8
+              else (k1.paged_decode_int8, k3.packed_prefill_int8))
     t0 = time.perf_counter()
-    engine = TorchEngine(cfg, device=device)
+    engine = TorchEngine(cfg, params=params, device=device)
     torch.cuda.synchronize()
     mc = engine.model_cfg
-    log(f"engine: llama-8b d={mc.d_model} layers={mc.n_layers} "
-        f"heads={mc.n_heads}/{mc.n_kv_heads} vocab={mc.vocab_size}, random "
-        f"bf16 weights in {time.perf_counter() - t0:.1f} s, "
-        f"{cfg.num_blocks} KV blocks of {cfg.block_size}, "
+    log(f"engine ({kv_dtype} KV cache): llama-8b d={mc.d_model} "
+        f"layers={mc.n_layers} heads={mc.n_heads}/{mc.n_kv_heads} "
+        f"vocab={mc.vocab_size}, "
+        f"{'weights of the bf16 run' if int8 else 'random bf16 weights'} "
+        f"in {time.perf_counter() - t0:.1f} s, {cfg.num_blocks} KV blocks "
+        f"of {cfg.block_size}, "
         f"{torch.cuda.memory_allocated() / 2**30:.1f} GiB allocated")
     reqs = _requests(mc.vocab_size)
 
@@ -478,11 +672,10 @@ def check_engine(device, card: str) -> dict:
         try:
             # the main path's run: counts set to 0 just before, read just
             # after, before any other launch
-            paged_decode.launches = 0
-            packed_prefill.launches = 0
+            for fn in (*used, *unused):
+                fn.launches = 0
             first = await _serve(engine, reqs)
-            counts = {"paged_decode": paged_decode.launches,
-                      "packed_prefill": packed_prefill.launches}
+            counts = {fn.__name__: fn.launches for fn in (*used, *unused)}
             stats = dict(engine.metrics)
             await engine.clear_kv_blocks()
             second = await _serve(engine, reqs)
@@ -509,14 +702,19 @@ def check_engine(device, card: str) -> dict:
     L = mc.n_layers
     need_dec = L * stats["decode_steps"]
     need_pre = L * stats["prefill_steps"]
-    log(f"engine launches in the first run: paged_decode "
-        f"{launches['paged_decode']} (>= {need_dec} = "
-        f"{L} layers x {stats['decode_steps']} decode steps), packed_prefill "
-        f"{launches['packed_prefill']} (>= {need_pre} = {L} x "
-        f"{stats['prefill_steps']} prefill dispatches)")
-    if launches["paged_decode"] < need_dec \
-            or launches["packed_prefill"] < need_pre or not need_dec:
+    dec, pre = (fn.__name__ for fn in used)
+    log(f"engine launches in the first run: {dec} {launches[dec]} (>= "
+        f"{need_dec} = {L} layers x {stats['decode_steps']} decode steps), "
+        f"{pre} {launches[pre]} (>= {need_pre} = {L} x "
+        f"{stats['prefill_steps']} prefill dispatches); the other mode's "
+        + ", ".join(f"{fn.__name__} {launches[fn.__name__]}"
+                    for fn in unused))
+    if launches[dec] < need_dec or launches[pre] < need_pre \
+            or not need_dec:
         raise SystemExit("the engine did not run through both kernels")
+    if any(launches[fn.__name__] for fn in unused):
+        raise SystemExit(f"the {kv_dtype} engine launched the other "
+                         "mode's kernels")
     if stats["cache_hit_tokens"] < 1024:
         raise SystemExit(f"prefix hit not taken: {stats['cache_hit_tokens']}")
     log(f"prefix cache: {stats['cache_hit_tokens']} tokens reused "
@@ -533,14 +731,15 @@ def check_engine(device, card: str) -> dict:
         t_first = min(ttft)
         t_end = max(r[3] for r in res)
         dec_tokens = sum(len(r[0]) - 1 for r in res)
-        log(f"serving, {name} run ({card}): ttft s per request "
+        log(f"serving, {kv_dtype} cache, {name} run ({card}): ttft s per "
+            f"request "
             f"{[round(t, 4) for t in ttft]}, decode {dec_tokens} tokens in "
             f"{t_end - t_first:.3f} s = "
             f"{dec_tokens / (t_end - t_first):.1f} tokens/s aggregate "
             f"(max_num_seqs={cfg.max_num_seqs}, eager, no CUDA graphs)")
     _device_breakdown(prof, wall)
-    _compare_logits(engine.params, mc, device)
-    return launches
+    ops = _compare_logits(engine.params, mc, device, kv_dtype)
+    return {fn.__name__: launches[fn.__name__] for fn in used}, engine, ops
 
 
 def _device_breakdown(prof, wall: float) -> None:
@@ -580,6 +779,7 @@ def main() -> int:
         print("chip_smoke: torch.cuda is not available; nothing to run",
               file=sys.stderr)
         return 1
+    t_start = time.perf_counter()
     from dynamo_tpu_torch.models.llama import PRESETS
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -592,10 +792,24 @@ def main() -> int:
     cfg = PRESETS["llama-8b"]
     build_kernels()
     kernels = [check_decode_kernel(cfg, device),
-               check_prefill_kernel(cfg, device)]
-    launches = check_engine(device, card)
+               check_prefill_kernel(cfg, device),
+               check_decode_kernel(cfg, device, int8=True),
+               check_prefill_kernel(cfg, device, int8=True)]
+    launches, engine, ops_bf16 = check_engine(device, card)
+    # the int8 run reuses the weights; the bf16 cache is freed first
+    params = engine.params
+    engine.kv = None
+    del engine
+    torch.cuda.empty_cache()
+    launches8, _, ops_int8 = check_engine(device, card, "int8", params)
+    launches.update(launches8)
+    log(f"device operations per decode step (one sequence): int8 cache "
+        f"{ops_int8} against bf16 cache {ops_bf16} (the plain-torch "
+        f"quantize-on-write adds {ops_int8 - ops_bf16})")
     for k in kernels:
         k["launches"] = launches[k["name"]]
+    log(f"chip_smoke: every phase passed in "
+        f"{time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -2,7 +2,8 @@
 //
 // Replaces the TPU kernel `paged_attention_decode_pallas`
 // (dynamo_tpu/ops/pallas_paged_attention.py, body `_decode_kernel`) in its
-// bf16 mode.  Same function: one query token per sequence; the group =
+// bf16 mode (`paged_decode_bf16`) and its int8 mode (`paged_decode_int8`).
+// Same function: one query token per sequence; the group =
 // nh / nkv query heads of a kv head attend over that sequence's paged
 // context, reached block by block through its block table; positions >=
 // kv_len are masked; kv_len is clamped to >= 1; q is pre-scaled by
@@ -11,12 +12,15 @@
 //
 // Cache layout: [nkv, num_blocks, bs, hd] per layer (the caller passes the
 // layer's slice), head_dim innermost, so a block's keys are one contiguous
-// bs * hd * 2-byte slab.
+// bs * hd-element slab.  An int8 cache adds fp32 scale planes
+// [nkv, num_blocks, bs] per layer, one scale per (position, kv head): a
+// block's scale row is bs * 4 contiguous bytes.
 //
 // What bounds it on this card: bytes.  Every context position's K and V
-// row is read once (2 * nkv * hd * 2 bytes per position per sequence) and
-// the arithmetic is 4 * nh * hd flops per position, about 1 flop per byte,
-// far under the ~295 flop/byte ridge of the H100 in bf16.
+// row is read once (2 * nkv * hd * 2 bytes per position per sequence in
+// bf16, 2 * nkv * (hd + 4) in int8) and the arithmetic is 4 * nh * hd
+// flops per position, about 1 flop per byte, far under the ~295
+// flop/byte ridge of the H100 in bf16.
 //
 // Design: split-KV ("flash-decoding").  B * nkv blocks alone (64 at B = 8,
 // llama-8b) would leave most of the 132 SMs idle, so the grid is
@@ -39,13 +43,35 @@
 // kv_len are masked, and V rows past them are zeroed, so junk in the
 // garbage block or a block's unwritten tail cannot reach the output.
 //
+// Int8 mode: the TPU kernel dequantizes each block to the query dtype
+// (k = bf16(code * scale)) before its products; this kernel computes the
+// same function without a dequantized tile, by folding the scales out of
+// the products.  A code |c| <= 127 is exact in bf16, so each block's int8
+// rows (hd bytes) are converted once, on their way into shared memory, to
+// bf16 codes in the bf16 mode's row layout, and the bf16 mode's fragment
+// code runs on them unchanged.  The rows come through registers, with
+// kLoadBatch 16-byte loads of K and of V in flight per thread (one load
+// at a time left each thread waiting out eight round trips per block,
+// and a cp.async staging buffer converted shared to shared cost an extra
+// pass and barrier: both were measured slower, PERF.md); the block's fp32
+// scale rows (bs * 4 contiguous bytes per kv head) come by cp.async.
+// s_j = (q . c_kj) * k_scale_j in fp32 after Q.K^T, and O += P.V takes
+// bf16(p_j * v_scale_j) as its A operand against the V codes, with l
+// summing the unscaled p_j.  That rounds less than the TPU's dequantized
+// tile (one bf16 rounding of p * scale instead of one of code * scale and
+// one of p).  Junk scales (the garbage block, a block's unwritten tail,
+// even inf or NaN) never reach a sum: a masked score is selected to -inf,
+// never multiplied, and a masked column's P operand is selected to
+// exactly 0 before its scale could multiply it.
+//
 // Known limits, for later PRs: no copy/compute double buffering within a
-// block, no TMA, and the int8 mode with per-position fp32 scales is not
-// ported yet.
+// block, no TMA.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace {
 
@@ -54,6 +80,7 @@ constexpr int kWarps = kThreads / 32;
 constexpr int kRows = 16;        // mma rows: the group's query rows, zero-padded
 constexpr int kSlice = 32;       // context columns per warp per step
 constexpr int kSplitBlocks = 4;  // cache blocks per split
+constexpr int kLoadBatch = 4;    // int8 mode: 16-byte loads in flight per thread
 constexpr float kNegInf = -1e30f;
 
 __device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
@@ -85,13 +112,28 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<const uint32_t*>(&v);
 }
 
+// 16 int8 codes (one 16-byte load) stored as 16 bf16 values, exactly
+__device__ __forceinline__ void store_codes(__nv_bfloat16* dst, uint4 raw) {
+  const int8_t* c = reinterpret_cast<const int8_t*>(&raw);
+  uint32_t w[8];
+#pragma unroll
+  for (int e = 0; e < 8; ++e) w[e] = pack_bf16(c[2 * e], c[2 * e + 1]);
+  *reinterpret_cast<uint4*>(dst) = make_uint4(w[0], w[1], w[2], w[3]);
+  *reinterpret_cast<uint4*>(dst + 8) = make_uint4(w[4], w[5], w[6], w[7]);
+}
+
+// a P operand scaled by its column's V scale; a masked column (p == 0)
+// stays exactly 0 whatever its scale holds
+__device__ __forceinline__ float scaled_p(float p, float s) { return p > 0.f ? p * s : 0.f; }
+
 __host__ __device__ constexpr size_t align16(size_t n) { return (n + 15) & ~size_t(15); }
 
 __host__ __device__ constexpr size_t max_size(size_t a, size_t b) { return a > b ? a : b; }
 
 // shared memory carve-up, in bytes, shared by the kernel and the launcher;
-// the warps' final states (o) reuse the K region once the walk is done
-template <int HD>
+// the warps' final states (o) reuse the K region once the walk is done;
+// int8 adds the block's K and V scale rows
+template <int HD, bool kQ>
 struct Smem {
   static constexpr int kStride = HD + 8;  // bf16 per row
   __host__ __device__ static size_t k(int) { return align16(sizeof(__nv_bfloat16) * kRows * kStride); }
@@ -99,34 +141,40 @@ struct Smem {
     return k(bs) + align16(max_size(sizeof(__nv_bfloat16) * bs * kStride,
                                     sizeof(float) * kWarps * kRows * HD));
   }
-  __host__ __device__ static size_t ml(int bs) {
-    return v(bs) + align16(sizeof(__nv_bfloat16) * bs * kStride);
-  }
+  __host__ __device__ static size_t sc(int bs) { return v(bs) + align16(sizeof(__nv_bfloat16) * bs * kStride); }
+  __host__ __device__ static size_t ml(int bs) { return sc(bs) + (kQ ? sizeof(float) * 2 * bs : 0); }
   __host__ __device__ static size_t total(int bs) { return ml(bs) + sizeof(float) * 2 * kWarps * kRows; }
 };
 
-// one split of one (sequence, kv head): unnormalized partials
-template <int HD>
+// one split of one (sequence, kv head): unnormalized partials.  kQ: an
+// int8 cache with its scale planes (k_scale/v_scale unused otherwise)
+template <int HD, bool kQ>
 __global__ void __launch_bounds__(kThreads)
-paged_decode_split(const __nv_bfloat16* __restrict__ q,        // [B, nh, HD]
-                   const __nv_bfloat16* __restrict__ k_cache,  // [nkv, NB, bs, HD]
-                   const __nv_bfloat16* __restrict__ v_cache,
-                   const int* __restrict__ tables,             // [B, mb]
-                   const int* __restrict__ kv_lens,            // [B]
-                   float* __restrict__ part_m,                 // [B, nh, n_splits]
-                   float* __restrict__ part_l,                 // [B, nh, n_splits]
-                   float* __restrict__ part_acc,               // [B, nh, n_splits, HD]
+paged_decode_split(const __nv_bfloat16* __restrict__ q,  // [B, nh, HD]
+                   const std::conditional_t<kQ, int8_t, __nv_bfloat16>* __restrict__ k_cache,
+                   const std::conditional_t<kQ, int8_t, __nv_bfloat16>* __restrict__ v_cache,
+                   const float* __restrict__ k_scale,    // [nkv, NB, bs] (int8)
+                   const float* __restrict__ v_scale,
+                   const int* __restrict__ tables,       // [B, mb]
+                   const int* __restrict__ kv_lens,      // [B]
+                   float* __restrict__ part_m,           // [B, nh, n_splits]
+                   float* __restrict__ part_l,           // [B, nh, n_splits]
+                   float* __restrict__ part_acc,         // [B, nh, n_splits, HD]
                    int nh, int nkv, int num_blocks, int bs, int mb, float scale) {
-  using L = Smem<HD>;
+  using L = Smem<HD, kQ>;
+  using KV = std::conditional_t<kQ, int8_t, __nv_bfloat16>;
   constexpr int kStride = L::kStride;
-  constexpr int kGran = HD / 8;  // 16-byte granules per row
+  constexpr int kGran = HD / 8;                  // 16-byte bf16 granules per row
+  constexpr int kKVGran = HD * sizeof(KV) / 16;  // 16-byte granules per cache row
   constexpr int kKSteps = HD / 16;
   constexpr int kDTiles = HD / 8;
 
   extern __shared__ __align__(16) unsigned char smem[];
   __nv_bfloat16* q_s = reinterpret_cast<__nv_bfloat16*>(smem);  // [kRows][kStride]
-  __nv_bfloat16* k_s = reinterpret_cast<__nv_bfloat16*>(smem + L::k(bs));
+  __nv_bfloat16* k_s = reinterpret_cast<__nv_bfloat16*>(smem + L::k(bs));  // [bs][kStride]
   __nv_bfloat16* v_s = reinterpret_cast<__nv_bfloat16*>(smem + L::v(bs));
+  float* ks_s = reinterpret_cast<float*>(smem + L::sc(bs));     // [bs] (int8)
+  float* vs_s = ks_s + bs;
   float* o_w = reinterpret_cast<float*>(smem + L::k(bs));  // [kWarps][kRows][HD], after the walk
   float* m_w = reinterpret_cast<float*>(smem + L::ml(bs));  // [kWarps][kRows]
   float* l_w = m_w + kWarps * kRows;
@@ -191,19 +239,53 @@ paged_decode_split(const __nv_bfloat16* __restrict__ q,        // [B, nh, HD]
     for (int e = 0; e < 4; ++e) o[dt][e] = 0.f;
   float m0 = kNegInf, m1 = kNegInf, l0 = 0.f, l1 = 0.f;
 
-  const size_t head_off = (size_t)h * num_blocks * bs * HD;
+  const size_t head_pos = (size_t)h * num_blocks * bs;  // this head's first position
   for (int c = c_begin; c < c_end; ++c) {
     const int blk = tables[(size_t)b * mb + c];
     const int n_valid = min(bs, kv_len - c * bs);
     const int n_pad = min(bs, (n_valid + kSlice - 1) / kSlice * kSlice);
-    const uint4* kg = reinterpret_cast<const uint4*>(k_cache + head_off + (size_t)blk * bs * HD);
-    const uint4* vg = reinterpret_cast<const uint4*>(v_cache + head_off + (size_t)blk * bs * HD);
+    const size_t blk_pos = head_pos + (size_t)blk * bs;
+    const uint4* kg = reinterpret_cast<const uint4*>(k_cache + blk_pos * HD);
+    const uint4* vg = reinterpret_cast<const uint4*>(v_cache + blk_pos * HD);
     __syncthreads();  // the previous block's readers are done with k_s/v_s
-    for (int i = tid; i < n_valid * kGran; i += kThreads) {
-      const int r = i / kGran;
-      const int gr = i % kGran;
-      cp_async16(k_s + r * kStride + gr * 8, kg + i);
-      cp_async16(v_s + r * kStride + gr * 8, vg + i);
+    if constexpr (kQ) {
+      // the block's scale rows, 4 positions per copy (bs is a multiple of
+      // 32, so rows are 16-byte aligned); junk past n_valid is never used
+      const uint4* ksg = reinterpret_cast<const uint4*>(k_scale + blk_pos);
+      const uint4* vsg = reinterpret_cast<const uint4*>(v_scale + blk_pos);
+      for (int i = tid; i < (n_valid + 3) / 4; i += kThreads) {
+        cp_async16(ks_s + 4 * i, ksg + i);
+        cp_async16(vs_s + 4 * i, vsg + i);
+      }
+      // int8 rows, 16 codes a load, kLoadBatch loads of K and of V in
+      // flight per thread before any is stored as bf16 codes
+      const int n = n_valid * kKVGran;
+      for (int i0 = tid; i0 < n; i0 += kLoadBatch * kThreads) {
+        uint4 kr[kLoadBatch], vr[kLoadBatch];
+#pragma unroll
+        for (int j = 0; j < kLoadBatch; ++j) {
+          const int i = i0 + j * kThreads;
+          if (i < n) {
+            kr[j] = kg[i];
+            vr[j] = vg[i];
+          }
+        }
+#pragma unroll
+        for (int j = 0; j < kLoadBatch; ++j) {
+          const int i = i0 + j * kThreads;
+          if (i < n) {
+            store_codes(k_s + (i / kKVGran) * kStride + (i % kKVGran) * 16, kr[j]);
+            store_codes(v_s + (i / kKVGran) * kStride + (i % kKVGran) * 16, vr[j]);
+          }
+        }
+      }
+    } else {
+      for (int i = tid; i < n_valid * kKVGran; i += kThreads) {
+        const int r = i / kKVGran;
+        const int gr = i % kKVGran;
+        cp_async16(k_s + r * kStride + gr * 8, kg + i);
+        cp_async16(v_s + r * kStride + gr * 8, vg + i);
+      }
     }
     // V rows past kv_len meet P = 0: make them finite zeros
     for (int i = n_valid * kGran + tid; i < n_pad * kGran; i += kThreads)
@@ -227,13 +309,19 @@ paged_decode_split(const __nv_bfloat16* __restrict__ q,        // [B, nh, HD]
           mma_bf16(sc[nt], qa[ks], b0, b1);
         }
       }
-      // mask positions past kv_len; online softmax over this slice
+      // mask positions past kv_len (int8: scale the rest by their K
+      // scale); online softmax over this slice
       float mx0 = kNegInf, mx1 = kNegInf;
 #pragma unroll
       for (int nt = 0; nt < kSlice / 8; ++nt) {
 #pragma unroll
         for (int e = 0; e < 2; ++e) {
-          const bool ok = col0 + nt * 8 + kc + e < n_valid;
+          const int col = col0 + nt * 8 + kc + e;
+          const bool ok = col < n_valid;
+          if constexpr (kQ) {
+            sc[nt][e] *= ks_s[col];
+            sc[nt][2 + e] *= ks_s[col];
+          }
           sc[nt][e] = ok ? sc[nt][e] : kNegInf;
           sc[nt][2 + e] = ok ? sc[nt][2 + e] : kNegInf;
           mx0 = fmaxf(mx0, sc[nt][e]);
@@ -279,9 +367,22 @@ paged_decode_split(const __nv_bfloat16* __restrict__ q,        // [B, nh, HD]
         o[dt][2] *= al1;
         o[dt][3] *= al1;
       }
-      // O += P.V: P re-packed as bf16 A fragments, V by ldmatrix.trans
+      // O += P.V: P re-packed as bf16 A fragments (int8: each column's P
+      // scaled by its V scale first), V by ldmatrix.trans
 #pragma unroll
       for (int kk = 0; kk < kSlice / 16; ++kk) {
+        if constexpr (kQ) {
+          const int ca = col0 + kk * 16 + kc;  // this thread's columns ca, ca+1, ca+8, ca+9
+          const float2 sa = *reinterpret_cast<const float2*>(vs_s + ca);
+          const float2 sb = *reinterpret_cast<const float2*>(vs_s + ca + 8);
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            sc[2 * kk][2 * h] = scaled_p(sc[2 * kk][2 * h], sa.x);
+            sc[2 * kk][2 * h + 1] = scaled_p(sc[2 * kk][2 * h + 1], sa.y);
+            sc[2 * kk + 1][2 * h] = scaled_p(sc[2 * kk + 1][2 * h], sb.x);
+            sc[2 * kk + 1][2 * h + 1] = scaled_p(sc[2 * kk + 1][2 * h + 1], sb.y);
+          }
+        }
         const uint32_t pa[4] = {pack_bf16(sc[2 * kk][0], sc[2 * kk][1]),
                                 pack_bf16(sc[2 * kk][2], sc[2 * kk][3]),
                                 pack_bf16(sc[2 * kk + 1][0], sc[2 * kk + 1][1]),
@@ -363,20 +464,23 @@ paged_decode_merge(const float* __restrict__ part_m, const float* __restrict__ p
   out[row * HD + d] = __float2bfloat16(num / den);
 }
 
-template <int HD>
-int launch(const void* q, const void* k, const void* v, const void* tables, const void* kv_lens,
-           void* part_m, void* part_l, void* part_acc, void* out, int B, int nh, int nkv,
-           int num_blocks, int bs, int mb, float scale, cudaStream_t stream) {
-  const size_t smem = Smem<HD>::total(bs);
-  cudaError_t err = cudaFuncSetAttribute(paged_decode_split<HD>,
+template <int HD, bool kQ>
+int launch(const void* q, const void* k, const void* v, const void* k_scale, const void* v_scale,
+           const void* tables, const void* kv_lens, void* part_m, void* part_l, void* part_acc,
+           void* out, int B, int nh, int nkv, int num_blocks, int bs, int mb, float scale,
+           cudaStream_t stream) {
+  using KV = std::conditional_t<kQ, int8_t, __nv_bfloat16>;
+  const size_t smem = Smem<HD, kQ>::total(bs);
+  cudaError_t err = cudaFuncSetAttribute(paged_decode_split<HD, kQ>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   const int n_splits = (mb + kSplitBlocks - 1) / kSplitBlocks;
-  paged_decode_split<HD><<<dim3(B, nkv, n_splits), kThreads, smem, stream>>>(
-      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
-      static_cast<const __nv_bfloat16*>(v), static_cast<const int*>(tables),
-      static_cast<const int*>(kv_lens), static_cast<float*>(part_m), static_cast<float*>(part_l),
-      static_cast<float*>(part_acc), nh, nkv, num_blocks, bs, mb, scale);
+  paged_decode_split<HD, kQ><<<dim3(B, nkv, n_splits), kThreads, smem, stream>>>(
+      static_cast<const __nv_bfloat16*>(q), static_cast<const KV*>(k), static_cast<const KV*>(v),
+      static_cast<const float*>(k_scale), static_cast<const float*>(v_scale),
+      static_cast<const int*>(tables), static_cast<const int*>(kv_lens),
+      static_cast<float*>(part_m), static_cast<float*>(part_l), static_cast<float*>(part_acc),
+      nh, nkv, num_blocks, bs, mb, scale);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   paged_decode_merge<HD><<<B * nh, HD, 0, stream>>>(
@@ -392,7 +496,7 @@ extern "C" {
 // Splits of the context per row, for the caller's partial buffers.
 int paged_decode_num_splits(int mb) { return (mb + kSplitBlocks - 1) / kSplitBlocks; }
 
-// Returns the cudaError_t of the launches (0 on success).  Shapes are
+// Both return the cudaError_t of the launches (0 on success).  Shapes are
 // checked by the Python wrapper: hd is 64 or 128, nh / nkv <= 16, bs a
 // multiple of 32; the partial buffers hold B * nh * num_splits (m, l) and
 // that times hd (acc) floats.
@@ -402,11 +506,30 @@ int paged_decode_bf16(const void* q, const void* k_layer, const void* v_layer,
                       int bs, int mb, float scale, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (hd == 128)
-    return launch<128>(q, k_layer, v_layer, tables, kv_lens, part_m, part_l, part_acc, out, B, nh,
-                       nkv, num_blocks, bs, mb, scale, s);
+    return launch<128, false>(q, k_layer, v_layer, nullptr, nullptr, tables, kv_lens, part_m,
+                              part_l, part_acc, out, B, nh, nkv, num_blocks, bs, mb, scale, s);
   if (hd == 64)
-    return launch<64>(q, k_layer, v_layer, tables, kv_lens, part_m, part_l, part_acc, out, B, nh,
-                      nkv, num_blocks, bs, mb, scale, s);
+    return launch<64, false>(q, k_layer, v_layer, nullptr, nullptr, tables, kv_lens, part_m,
+                             part_l, part_acc, out, B, nh, nkv, num_blocks, bs, mb, scale, s);
+  return (int)cudaErrorInvalidValue;
+}
+
+// The int8 mode: int8 caches with their layer's fp32 scale planes
+// [nkv, num_blocks, bs].
+int paged_decode_int8(const void* q, const void* k_layer, const void* v_layer,
+                      const void* k_scale_layer, const void* v_scale_layer, const void* tables,
+                      const void* kv_lens, void* part_m, void* part_l, void* part_acc, void* out,
+                      int B, int nh, int nkv, int hd, int num_blocks, int bs, int mb, float scale,
+                      void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (hd == 128)
+    return launch<128, true>(q, k_layer, v_layer, k_scale_layer, v_scale_layer, tables, kv_lens,
+                             part_m, part_l, part_acc, out, B, nh, nkv, num_blocks, bs, mb, scale,
+                             s);
+  if (hd == 64)
+    return launch<64, true>(q, k_layer, v_layer, k_scale_layer, v_scale_layer, tables, kv_lens,
+                            part_m, part_l, part_acc, out, B, nh, nkv, num_blocks, bs, mb, scale,
+                            s);
   return (int)cudaErrorInvalidValue;
 }
 

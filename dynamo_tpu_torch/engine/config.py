@@ -21,8 +21,6 @@ from ..ops.paged_attention import DECODE_IMPLS
 # field -> (default, the feature it belongs to)
 _UNPORTED = {
     "model_path": ("", "checkpoint loading"),
-    "kv_cache_dtype": ("bf16", "int8 KV cache"),
-    "kv_hbm_gb": (0.0, "KV memory budgets (int8 KV sizing)"),
     "dp": (1, "data parallelism"),
     "tp": (1, "tensor parallelism"),
     "sp": (1, "sequence-parallel ring prefill"),
@@ -47,6 +45,12 @@ class EngineConfig:
     num_blocks: int = 128         # physical blocks
     max_blocks_per_seq: int = 64  # max context = block_size * this
     enable_prefix_caching: bool = True
+    # "bf16" (the model's dtype) | "int8" (quant/kv.py: int8 codes plus
+    # fp32 scale planes, ~1.94x the blocks per byte at head_dim 128)
+    kv_cache_dtype: str = "bf16"
+    # > 0: size the block pool from this budget in GB (1e9 bytes) of
+    # cache; the engine overwrites num_blocks with what it holds
+    kv_hbm_gb: float = 0.0
 
     # batching
     max_num_seqs: int = 8
@@ -72,8 +76,6 @@ class EngineConfig:
 
     # JAX-engine features not ported yet (see _UNPORTED)
     model_path: str = ""
-    kv_cache_dtype: str = "bf16"
-    kv_hbm_gb: float = 0.0
     dp: int = 1
     tp: int = 1
     sp: int = 1
@@ -93,6 +95,9 @@ class EngineConfig:
                 raise NotImplementedError(
                     f"EngineConfig.{name}={value!r}: {feature} is not ported "
                     f"to dynamo_tpu_torch yet (default {default!r})")
+        if self.kv_cache_dtype not in ("bf16", "int8"):
+            raise ValueError(f"kv_cache_dtype must be 'bf16' | 'int8', got "
+                             f"{self.kv_cache_dtype!r}")
         if self.attn_impl and self.attn_impl not in DECODE_IMPLS:
             raise ValueError(f"attn_impl must be one of "
                              f"{' | '.join(DECODE_IMPLS)}, got "

@@ -39,6 +39,7 @@ import torch
 from ..device import DeviceLike, resolve_device
 from ..models import llama
 from ..protocols import LLMEngineOutput, PreprocessedRequest
+from ..quant.kv import blocks_for_hbm_budget
 from ..tokens import TokenBlockSequence, request_salt
 from .block_allocator import BlockAllocator
 from .config import EngineConfig
@@ -113,10 +114,16 @@ class TorchEngine:
             gen.manual_seed(config.seed)
             params = llama.init_params(self.model_cfg, gen, self.device)
         self.params = params
-        self.kv = tuple(
-            torch.zeros(shape, dtype=self.model_cfg.dtype, device=self.device)
-            for shape in llama.kv_cache_shapes(
-                self.model_cfg, config.num_blocks, config.block_size))
+        # the cache dtype sizes the block pool: with a kv_hbm_gb budget
+        # the block count derives from bytes per block, so int8 holds
+        # ~2x the blocks of bf16 in the same memory; config.num_blocks is
+        # updated in place so the allocator and the cache agree
+        self.kv_dtype = config.kv_cache_dtype
+        if config.kv_hbm_gb > 0:
+            config.num_blocks = blocks_for_hbm_budget(
+                llama, self.model_cfg, config.block_size, self.kv_dtype,
+                int(config.kv_hbm_gb * 1e9))
+        self.kv = self._init_kv_cache()
         self.allocator = BlockAllocator(config.num_blocks,
                                         config.enable_prefix_caching)
         self.waiting: List[_Slot] = []
@@ -168,6 +175,21 @@ class TorchEngine:
                 slot.finished = True
                 slot.cancel_requested = True
                 slot.out_q.put_nowait(err)
+
+    def _init_kv_cache(self) -> tuple:
+        """(k, v) in the model's dtype, or for an int8 cache (k, v int8,
+        k_scale, v_scale fp32) (quant/kv.py); zeros."""
+        m, c = self.model_cfg, self.config
+        int8 = self.kv_dtype == "int8"
+        kv = [torch.zeros(shape, dtype=torch.int8 if int8 else m.dtype,
+                          device=self.device)
+              for shape in llama.kv_cache_shapes(m, c.num_blocks,
+                                                 c.block_size)]
+        if int8:
+            kv += [torch.zeros(shape, dtype=torch.float32, device=self.device)
+                   for shape in llama.kv_cache_scale_shapes(
+                       m, c.num_blocks, c.block_size)]
+        return tuple(kv)
 
     def kv_usage(self) -> float:
         return self.allocator.usage()

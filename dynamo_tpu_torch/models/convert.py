@@ -11,6 +11,9 @@ does not import, so a caller upcasts bf16 JAX arrays to float32 first
   * KV cache: the JAX cache is [L, nkv, num_blocks, head_dim, block_size]
     (blocks transposed for TPU lanes); the port's is
     [L, nkv, num_blocks, block_size, head_dim] (ops/paged_attention.py).
+    An int8 cache's codes cross as int8, transposed like the data, and
+    its fp32 scale planes [L, nkv, num_blocks, block_size] unchanged:
+    both packages lay them out alike.
 """
 
 from __future__ import annotations
@@ -24,12 +27,14 @@ from ..device import DeviceLike, resolve_device
 from .llama import LlamaConfig
 
 _FLOATS = (np.float16, np.float32, np.float64)
+# what a KV cache may hold: floats, or an int8 cache's codes
+_KV_TYPES = _FLOATS + (np.int8,)
 
 
-def _tensor(a, dtype: torch.dtype, dev: torch.device,
-            path: str) -> torch.Tensor:
+def _tensor(a, dtype: torch.dtype, dev: torch.device, path: str,
+            kinds=_FLOATS) -> torch.Tensor:
     a = np.asarray(a)
-    if a.dtype not in _FLOATS:
+    if a.dtype not in kinds:
         raise TypeError(
             f"{path}: numpy dtype {a.dtype} cannot cross without ml_dtypes; "
             "upcast the JAX array to float32 first")
@@ -59,24 +64,35 @@ def params_from_numpy(tree: Any, cfg: LlamaConfig,
 
 def kv_cache_from_numpy(k: np.ndarray, v: np.ndarray,
                         device: DeviceLike = "cuda",
-                        dtype: Optional[torch.dtype] = None
-                        ) -> Tuple[torch.Tensor, torch.Tensor]:
+                        dtype: Optional[torch.dtype] = None,
+                        k_scale: Optional[np.ndarray] = None,
+                        v_scale: Optional[np.ndarray] = None
+                        ) -> Tuple[torch.Tensor, ...]:
     """JAX cache arrays [L, nkv, nb, hd, bs] -> the port's (k, v)
-    [L, nkv, nb, bs, hd], contiguous, in `dtype` (default: the arrays')."""
+    [L, nkv, nb, bs, hd], contiguous, in `dtype` (default: the arrays').
+    With an int8 cache's scale planes [L, nkv, nb, bs] the result is the
+    4-tuple (k, v, k_scale, v_scale), the planes fp32 and unchanged."""
     dev = resolve_device(device)
     out = []
     for name, a in (("k", k), ("v", v)):
         a = np.swapaxes(np.asarray(a), -1, -2)
         t = _tensor(a, dtype or torch.from_numpy(np.empty(0, a.dtype)).dtype,
-                    dev, name)
+                    dev, name, _KV_TYPES)
         out.append(t.contiguous())
-    return out[0], out[1]
+    if k_scale is not None or v_scale is not None:
+        out += [_tensor(a, torch.float32, dev, name)
+                for name, a in (("k_scale", k_scale), ("v_scale", v_scale))]
+    return tuple(out)
 
 
-def kv_cache_to_numpy(kv_cache: Tuple[torch.Tensor, torch.Tensor]
-                      ) -> Tuple[np.ndarray, np.ndarray]:
-    """The port's (k, v) cache -> float32 numpy arrays in the JAX layout
-    [L, nkv, nb, hd, bs]."""
-    return tuple(np.ascontiguousarray(
-        t.detach().float().cpu().numpy().swapaxes(-1, -2))
-        for t in kv_cache)
+def kv_cache_to_numpy(kv_cache: Tuple[torch.Tensor, ...]
+                      ) -> Tuple[np.ndarray, ...]:
+    """The port's cache -> numpy arrays in the JAX layout: float data as
+    float32 [L, nkv, nb, hd, bs], int8 codes as int8 in the same layout,
+    and an int8 cache's scale planes [L, nkv, nb, bs] unchanged."""
+    out = []
+    for i, t in enumerate(kv_cache):
+        a = t.detach().cpu()
+        a = (a.float() if a.is_floating_point() else a).numpy()
+        out.append(np.ascontiguousarray(a if i >= 2 else a.swapaxes(-1, -2)))
+    return tuple(out)

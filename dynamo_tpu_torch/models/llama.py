@@ -12,8 +12,9 @@ the hand-written CUDA kernels on CUDA tensors.
 Weights are bf16 by default; norms are fp32 and activations are computed
 in fp32 around the norms and rotary embedding, as in the JAX package.
 The KV cache is a (k, v) tuple in the port's layout
-[L, nkv, num_blocks, block_size, hd] and is updated IN PLACE: the
-functions still return it, so call sites read like the JAX ones.
+[L, nkv, num_blocks, block_size, hd], or (k, v, k_scale, v_scale) for an
+int8 cache (quant/kv.py), and is updated IN PLACE: the functions still
+return it, so call sites read like the JAX ones.
 The MoE paths are not ported yet and raise.
 """
 
@@ -27,9 +28,11 @@ import torch
 
 from ..ops.packed_prefill import packed_prefill_attention, write_packed_kv
 from ..ops.paged_attention import paged_attention_decode, write_token_kv
+from ..quant.kv import unpack_kv
 
 Params = Dict[str, Any]
-KVCache = Tuple[torch.Tensor, torch.Tensor]
+# (k, v) or, for an int8 cache, (k, v, k_scale, v_scale)
+KVCache = Tuple[torch.Tensor, ...]
 
 
 @dataclass(frozen=True)
@@ -77,6 +80,15 @@ def kv_cache_shapes(cfg: LlamaConfig, num_blocks: int,
     innermost (ops/paged_attention.py)."""
     shape = (cfg.n_layers, cfg.n_kv_heads, num_blocks, block_size,
              cfg.head_dim)
+    return shape, shape
+
+
+def kv_cache_scale_shapes(cfg: LlamaConfig, num_blocks: int,
+                          block_size: int) -> tuple:
+    """(k_scale, v_scale) shapes of an int8 cache (quant/kv.py): one fp32
+    scale per (layer, kv head, block, position), the JAX package's
+    layout."""
+    shape = (cfg.n_layers, cfg.n_kv_heads, num_blocks, block_size)
     return shape, shape
 
 
@@ -192,6 +204,13 @@ def _qkv(layer, cfg: LlamaConfig, x: torch.Tensor,
     return q, k, v
 
 
+def _write_kv(fn, kv_cache: KVCache, layer: int, *args) -> None:
+    """A cache write through `fn` (write_token_kv or write_packed_kv),
+    threading the scale planes when the cache is int8.  In place."""
+    k, v, ks, vs = unpack_kv(kv_cache)
+    fn(k, v, layer, *args, k_scale=ks, v_scale=vs)
+
+
 def _attn_out(layer, attn_flat: torch.Tensor) -> torch.Tensor:
     return attn_flat @ layer["wo"]
 
@@ -238,17 +257,18 @@ def _packed_forward(params, cfg: LlamaConfig, kv_cache: KVCache,
                     token_ids, positions, seg_ids, block_tables, valid):
     """The packed-stream transformer body.  Returns the final hidden
     states [T, d] (before the final norm)."""
-    k_cache, v_cache = kv_cache
+    k_cache, v_cache, k_scale, v_scale = unpack_kv(kv_cache)
     T = token_ids.shape[0]
     x = params["embedding"][token_ids.long()].to(cfg.dtype)  # [T, d]
     for li, layer in enumerate(params["layers"]):
         h = rms_norm(x, layer["attn_norm"]["norm"], cfg.rms_eps)
         q, k, v = _qkv(layer, cfg, h, positions)  # [T, nh, hd]
-        write_packed_kv(k_cache, v_cache, li, k, v, block_tables, seg_ids,
-                        positions, valid)
+        _write_kv(write_packed_kv, kv_cache, li, k, v, block_tables,
+                  seg_ids, positions, valid)
         attn = packed_prefill_attention(
             q, k_cache, v_cache, li, block_tables, seg_ids, positions,
-            valid, impl=cfg.packed_attn_impl)
+            valid, impl=cfg.packed_attn_impl, k_scale=k_scale,
+            v_scale=v_scale)
         x = x + _attn_out(layer, attn.reshape(T, cfg.q_dim))
         h = rms_norm(x, layer["mlp_norm"]["norm"], cfg.rms_eps)
         x = x + _mlp(layer, h)
@@ -281,18 +301,19 @@ def _decode_trunk(params, cfg: LlamaConfig, kv_cache: KVCache, token_ids,
                   positions, block_tables, ctx_lens):
     """The decode layer stack.  Returns the hidden states [B, d] before
     the final norm."""
-    k_cache, v_cache = kv_cache
+    k_cache, v_cache, k_scale, v_scale = unpack_kv(kv_cache)
     x = params["embedding"][token_ids.long()].to(cfg.dtype)  # [B, d]
     pos1 = positions[:, None]  # [B, 1] for rope
     kv_lens = ctx_lens + 1
     for li, layer in enumerate(params["layers"]):
         h = rms_norm(x, layer["attn_norm"]["norm"], cfg.rms_eps)
         q, k, v = _qkv(layer, cfg, h[:, None, :], pos1)
-        write_token_kv(k_cache, v_cache, li, k[:, 0], v[:, 0], block_tables,
-                       ctx_lens)
+        _write_kv(write_token_kv, kv_cache, li, k[:, 0], v[:, 0],
+                  block_tables, ctx_lens)
         attn = paged_attention_decode(q[:, 0], k_cache, v_cache, li,
                                       block_tables, kv_lens,
-                                      impl=cfg.attn_impl)  # [B, nh, hd]
+                                      impl=cfg.attn_impl, k_scale=k_scale,
+                                      v_scale=v_scale)  # [B, nh, hd]
         x = x + _attn_out(layer, attn.reshape(x.shape[0], cfg.q_dim))
         h = rms_norm(x, layer["mlp_norm"]["norm"], cfg.rms_eps)
         x = x + _mlp(layer, h)

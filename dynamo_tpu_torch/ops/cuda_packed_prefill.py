@@ -1,19 +1,22 @@
-"""Wrapper of kernel K3, the hand-written CUDA packed-prefill attention.
+"""Wrappers of kernel K3, the hand-written CUDA packed-prefill attention.
 
 Kernel: csrc/packed_prefill.cu (CUDA C++ for sm_90a, built by
 ops/_build.py at first use).  It replaces the TPU kernel
 `packed_prefill_attention_pallas` (dynamo_tpu/ops/pallas_packed_prefill.py)
-in its bf16 mode; the source note says what bounds it on an H100 and how
-its design answers that.
+in its bf16 mode (`packed_prefill`) and its int8 mode
+(`packed_prefill_int8`: int8 caches with their fp32 scale planes); the
+source note says what bounds it on an H100 and how its design answers
+that.
 
 `packed_tile_plan` is the wrapper-side half of the tile-skip scheme, the
 same per-(token tile, segment) chunk counts the TPU wrapper builds
 (pallas_packed_prefill.py:244-254), with one cache block per chunk.
 
-For a CPU tensor `packed_prefill` returns the plain version
-(ops/packed_prefill.py `packed_prefill_attention_ref`).  For a CUDA tensor
-it launches the kernel or raises: there is no fallback.  Each launch adds
-one to `packed_prefill.launches`, and nothing else does.
+For CPU tensors each wrapper returns the plain version
+(ops/packed_prefill.py `packed_prefill_attention_ref`, with the scales for
+int8).  For CUDA tensors it launches its kernel or raises: there is no
+fallback.  Each launch adds one to `packed_prefill.launches` or
+`packed_prefill_int8.launches`, and nothing else does.
 """
 
 from __future__ import annotations
@@ -26,6 +29,7 @@ import torch
 import torch.nn.functional as F
 
 from ._build import check_status, load_library
+from .cuda_paged_attention import check_cache
 from .packed_prefill import packed_prefill_attention_ref
 
 KERNEL = "packed_prefill"
@@ -38,6 +42,10 @@ _SIGNATURES = (
     ("packed_prefill_bf16",
      (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I,
       ctypes.c_float, _P),
+     ctypes.c_int),
+    ("packed_prefill_int8",
+     (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+      _I, _I, ctypes.c_float, _P),
      ctypes.c_int),
     ("packed_prefill_error_string", (ctypes.c_int,), ctypes.c_char_p),
 )
@@ -77,34 +85,24 @@ def packed_tile_plan(seg_ids: torch.Tensor, positions: torch.Tensor,
 
 
 def _check(q, k_cache, v_cache, layer, block_tables, seg_ids, positions,
-           valid) -> None:
-    dev = q.device
-    for name, t in (("k_cache", k_cache), ("v_cache", v_cache),
-                    ("block_tables", block_tables), ("seg_ids", seg_ids),
+           valid, k_scale=None, v_scale=None) -> None:
+    check_cache(q, k_cache, v_cache, k_scale, v_scale, layer,
+                "packed-prefill")
+    for name, t in (("block_tables", block_tables), ("seg_ids", seg_ids),
                     ("positions", positions), ("valid", valid)):
-        if t.device != dev:
-            raise ValueError(f"{name} is on {t.device}, q on {dev}")
-    for name, t in (("q", q), ("k_cache", k_cache), ("v_cache", v_cache),
-                    ("block_tables", block_tables)):
-        if not t.is_contiguous():
-            raise ValueError(f"{name} must be contiguous")
-    if q.data_ptr() % 16:
-        raise ValueError("q must be 16-byte aligned (the kernel loads rows "
-                         "as 16-byte vectors)")
-    if q.dtype != torch.bfloat16 or k_cache.dtype != torch.bfloat16 \
-            or v_cache.dtype != torch.bfloat16:
-        raise TypeError("the CUDA packed-prefill kernel takes bf16 q and "
-                        f"caches, got {q.dtype}/{k_cache.dtype}/"
-                        f"{v_cache.dtype}")
+        if t.device != q.device:
+            raise ValueError(f"{name} is on {t.device}, q on {q.device}")
+    if not block_tables.is_contiguous():
+        raise ValueError("block_tables must be contiguous")
     if block_tables.dtype != torch.int32:
         raise TypeError("block_tables must be int32")
     if valid.dtype != torch.bool:
         raise TypeError("valid must be bool")
     T, nh, hd = q.shape
-    L, nkv, _, bs, chd = k_cache.shape
-    if v_cache.shape != k_cache.shape or chd != hd:
-        raise ValueError(f"cache shapes {tuple(k_cache.shape)}/"
-                         f"{tuple(v_cache.shape)} do not fit q {tuple(q.shape)}")
+    _, nkv, _, bs, chd = k_cache.shape
+    if chd != hd:
+        raise ValueError(f"cache shape {tuple(k_cache.shape)} does not fit "
+                         f"q {tuple(q.shape)}")
     if hd not in (64, 128):
         raise ValueError(f"head_dim {hd} not supported (64 or 128)")
     if nh % nkv or nh // nkv > MAX_GROUP:
@@ -113,8 +111,6 @@ def _check(q, k_cache, v_cache, layer, block_tables, seg_ids, positions,
     if bs % 64 or not 0 < bs <= MAX_BLOCK_SIZE:
         raise ValueError(f"block_size {bs} must be a multiple of 64 in "
                          f"(0, {MAX_BLOCK_SIZE}]")
-    if not 0 <= layer < L:
-        raise IndexError(f"layer {layer} out of range [0, {L})")
     if block_tables.dim() != 2 or block_tables.shape[1] < 1:
         raise ValueError("block_tables must be [S, >=1]")
     if seg_ids.shape != (T,) or positions.shape != (T,) \
@@ -122,40 +118,77 @@ def _check(q, k_cache, v_cache, layer, block_tables, seg_ids, positions,
         raise ValueError("seg_ids, positions and valid must be [T]")
 
 
+def _launch(q, k_cache, v_cache, k_scale, v_scale, layer, block_tables,
+            seg_ids, positions, valid) -> torch.Tensor:
+    """One launch of the bf16 (no scales) or the int8 entry point."""
+    _check(q, k_cache, v_cache, layer, block_tables, seg_ids, positions,
+           valid, k_scale, v_scale)
+    lib = load_library(KERNEL, _SIGNATURES)
+    T, nh, hd = q.shape
+    _, nkv, num_blocks, bs, _ = k_cache.shape
+    S, mb = block_tables.shape
+    out = torch.empty_like(q)
+    if T == 0:
+        return out
+    seg_eff, pos, nchunks = packed_tile_plan(seg_ids, positions, valid, S,
+                                             TOKEN_BLOCK, bs, mb)
+    n_tiles = nchunks.shape[0]
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    common = (block_tables.data_ptr(), seg_eff.data_ptr(), pos.data_ptr(),
+              nchunks.data_ptr(), out.data_ptr(), T, nh, nkv, hd,
+              num_blocks, bs, S, mb, n_tiles, 1.0 / math.sqrt(hd), stream)
+    caches = (q.data_ptr(), k_cache[layer].data_ptr(),
+              v_cache[layer].data_ptr())
+    if k_scale is None:
+        status = lib.packed_prefill_bf16(*caches, *common)
+    else:
+        status = lib.packed_prefill_int8(*caches, k_scale[layer].data_ptr(),
+                                         v_scale[layer].data_ptr(), *common)
+    check_status(lib, "packed_prefill_error_string", status,
+                 "packed_prefill")
+    return out
+
+
 def packed_prefill(q: torch.Tensor, k_cache: torch.Tensor,
                    v_cache: torch.Tensor, layer: int,
                    block_tables: torch.Tensor, seg_ids: torch.Tensor,
                    positions: torch.Tensor,
                    valid: torch.Tensor) -> torch.Tensor:
-    """Segment-causal attention [T, nh, hd] for a packed prefill stream;
-    the kernel computes packed_prefill_attention_ref(...,
-    round_scaled_q=True)."""
+    """Segment-causal attention [T, nh, hd] for a packed prefill stream
+    over the bf16 cache; the kernel computes
+    packed_prefill_attention_ref(..., round_scaled_q=True)."""
     if not q.is_cuda:
         return packed_prefill_attention_ref(q, k_cache, v_cache, layer,
                                             block_tables, seg_ids,
                                             positions, valid)
-    _check(q, k_cache, v_cache, layer, block_tables, seg_ids, positions,
-           valid)
-    lib = load_library(KERNEL, _SIGNATURES)
-    T, nh, hd = q.shape
-    _, nkv, num_blocks, bs, _ = k_cache.shape
-    S, mb = block_tables.shape
-    if T == 0:
-        return torch.empty_like(q)
-    seg_eff, pos, nchunks = packed_tile_plan(seg_ids, positions, valid, S,
-                                             TOKEN_BLOCK, bs, mb)
-    n_tiles = nchunks.shape[0]
-    out = torch.empty_like(q)
-    stream = torch.cuda.current_stream(q.device).cuda_stream
-    status = lib.packed_prefill_bf16(
-        q.data_ptr(), k_cache[layer].data_ptr(), v_cache[layer].data_ptr(),
-        block_tables.data_ptr(), seg_eff.data_ptr(), pos.data_ptr(),
-        nchunks.data_ptr(), out.data_ptr(), T, nh, nkv, hd, num_blocks, bs,
-        S, mb, n_tiles, 1.0 / math.sqrt(hd), stream)
-    check_status(lib, "packed_prefill_error_string", status,
-                 "packed_prefill")
+    out = _launch(q, k_cache, v_cache, None, None, layer, block_tables,
+                  seg_ids, positions, valid)
     packed_prefill.launches += 1
     return out
 
 
+def packed_prefill_int8(q: torch.Tensor, k_cache: torch.Tensor,
+                        v_cache: torch.Tensor, k_scale: torch.Tensor,
+                        v_scale: torch.Tensor, layer: int,
+                        block_tables: torch.Tensor, seg_ids: torch.Tensor,
+                        positions: torch.Tensor,
+                        valid: torch.Tensor) -> torch.Tensor:
+    """Segment-causal attention [T, nh, hd] over the int8 cache and its
+    scale planes; the kernel computes packed_prefill_attention_ref(...,
+    round_scaled_q=True, k_scale=k_scale, v_scale=v_scale) up to the bf16
+    rounding of its P operand."""
+    if not q.is_cuda:
+        return packed_prefill_attention_ref(q, k_cache, v_cache, layer,
+                                            block_tables, seg_ids,
+                                            positions, valid,
+                                            k_scale=k_scale, v_scale=v_scale)
+    if k_scale is None or v_scale is None:
+        raise ValueError("packed_prefill_int8 needs k_scale and v_scale")
+    out = _launch(q, k_cache, v_cache, k_scale, v_scale, layer, block_tables,
+                  seg_ids, positions, valid)
+    packed_prefill_int8.launches += 1
+    return out
+
+
 packed_prefill.launches = 0
+packed_prefill_int8.launches = 0

@@ -1,14 +1,18 @@
-"""Wrapper of kernel K1, the hand-written CUDA decode attention.
+"""Wrappers of kernel K1, the hand-written CUDA decode attention.
 
 Kernel: csrc/paged_decode.cu (CUDA C++ for sm_90a, built by ops/_build.py
 at first use).  It replaces the TPU kernel `paged_attention_decode_pallas`
-(dynamo_tpu/ops/pallas_paged_attention.py) in its bf16 mode; the source
-note says what bounds it on an H100 and how its design answers that.
+(dynamo_tpu/ops/pallas_paged_attention.py) in its bf16 mode
+(`paged_decode`) and its int8 mode (`paged_decode_int8`: int8 caches with
+their fp32 scale planes, quant/kv.py); the source note says what bounds
+it on an H100 and how its design answers that.
 
-For a CPU tensor `paged_decode` returns the plain version
-(ops/paged_attention.py `paged_attention_decode_ref`).  For a CUDA tensor
-it launches the kernel or raises: there is no fallback.  Each launch adds
-one to `paged_decode.launches`, and nothing else does.
+For CPU tensors each wrapper returns the plain version
+(ops/paged_attention.py `paged_attention_decode_ref`, with the scales for
+int8).  For CUDA tensors it launches its kernel or raises: there is no
+fallback, and no route from an int8 cache to the bf16 kernel.  Each
+launch adds one to `paged_decode.launches` or `paged_decode_int8.launches`,
+and nothing else does.
 """
 
 from __future__ import annotations
@@ -29,6 +33,10 @@ _SIGNATURES = (
      (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
       ctypes.c_float, _P),
      ctypes.c_int),
+    ("paged_decode_int8",
+     (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+      _I, ctypes.c_float, _P),
+     ctypes.c_int),
     ("paged_decode_num_splits", (_I,), ctypes.c_int),
     ("paged_decode_error_string", (ctypes.c_int,), ctypes.c_char_p),
 )
@@ -36,30 +44,66 @@ MAX_GROUP = 16
 MAX_BLOCK_SIZE = 256
 
 
-def _check(q, k_cache, v_cache, layer, block_tables, kv_lens) -> None:
+def check_cache(q, k_cache, v_cache, k_scale, v_scale, layer: int,
+                what: str) -> None:
+    """The checks K1 and K3 share on q, the caches and, for the int8 mode
+    (scales passed), the scale planes [L, nkv, num_blocks, bs] fp32."""
     dev = q.device
-    for name, t in (("k_cache", k_cache), ("v_cache", v_cache),
-                    ("block_tables", block_tables), ("kv_lens", kv_lens)):
+    quantized = k_scale is not None or v_scale is not None
+    planes = (("k_scale", k_scale), ("v_scale", v_scale)) if quantized else ()
+    for name, t in (("q", q), ("k_cache", k_cache), ("v_cache", v_cache),
+                    *planes):
+        if t is None:
+            raise ValueError(f"the int8 {what} kernel needs {name}")
         if t.device != dev:
             raise ValueError(f"{name} is on {t.device}, q on {dev}")
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
-    if not q.is_contiguous():
-        raise ValueError("q must be contiguous")
-    if q.data_ptr() % 16:
-        raise ValueError("q must be 16-byte aligned (the kernel loads rows "
-                         "as 16-byte vectors)")
-    if q.dtype != torch.bfloat16 or k_cache.dtype != torch.bfloat16 \
-            or v_cache.dtype != torch.bfloat16:
-        raise TypeError("the CUDA decode kernel takes bf16 q and caches, got "
+    cache = torch.int8 if quantized else torch.bfloat16
+    if q.dtype != torch.bfloat16 or k_cache.dtype != cache \
+            or v_cache.dtype != cache:
+        raise TypeError(f"the CUDA {what} kernel's "
+                        f"{'int8' if quantized else 'bf16'} mode takes bf16 "
+                        f"q and {cache} caches, got "
                         f"{q.dtype}/{k_cache.dtype}/{v_cache.dtype}")
+    if k_cache.dim() != 5 or v_cache.shape != k_cache.shape:
+        raise ValueError(f"cache shapes {tuple(k_cache.shape)}/"
+                         f"{tuple(v_cache.shape)} are not one "
+                         "[L, nkv, nb, bs, hd] pair")
+    if not 0 <= layer < k_cache.shape[0]:
+        raise IndexError(f"layer {layer} out of range [0, "
+                         f"{k_cache.shape[0]})")
+    # rows load as 16-byte vectors: each layer's slab and scale rows too
+    for name, t in (("q", q), ("k_cache", k_cache[layer]),
+                    ("v_cache", v_cache[layer]),
+                    *((n, t[layer]) for n, t in planes)):
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name} must be 16-byte aligned (the kernel "
+                             "loads rows as 16-byte vectors)")
+    for name, t in planes:
+        if t.dtype != torch.float32:
+            raise TypeError(f"{name} must be float32, got {t.dtype}")
+        if t.shape != k_cache.shape[:4]:
+            raise ValueError(f"{name} shape {tuple(t.shape)} is not the "
+                             f"cache's [L, nkv, nb, bs] "
+                             f"{tuple(k_cache.shape[:4])}")
+
+
+def _check(q, k_cache, v_cache, layer, block_tables, kv_lens, k_scale=None,
+           v_scale=None) -> None:
+    check_cache(q, k_cache, v_cache, k_scale, v_scale, layer, "decode")
+    for name, t in (("block_tables", block_tables), ("kv_lens", kv_lens)):
+        if t.device != q.device:
+            raise ValueError(f"{name} is on {t.device}, q on {q.device}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
     if block_tables.dtype != torch.int32 or kv_lens.dtype != torch.int32:
         raise TypeError("block_tables and kv_lens must be int32")
     B, nh, hd = q.shape
-    L, nkv, _, bs, chd = k_cache.shape
-    if v_cache.shape != k_cache.shape or chd != hd:
-        raise ValueError(f"cache shapes {tuple(k_cache.shape)}/"
-                         f"{tuple(v_cache.shape)} do not fit q {tuple(q.shape)}")
+    _, nkv, _, bs, chd = k_cache.shape
+    if chd != hd:
+        raise ValueError(f"cache shape {tuple(k_cache.shape)} does not fit "
+                         f"q {tuple(q.shape)}")
     if hd not in (64, 128):
         raise ValueError(f"head_dim {hd} not supported (64 or 128)")
     if nh % nkv or nh // nkv > MAX_GROUP:
@@ -68,29 +112,22 @@ def _check(q, k_cache, v_cache, layer, block_tables, kv_lens) -> None:
     if bs % 32 or not 0 < bs <= MAX_BLOCK_SIZE:
         raise ValueError(f"block_size {bs} must be a multiple of 32 in "
                          f"(0, {MAX_BLOCK_SIZE}]")
-    if not 0 <= layer < L:
-        raise IndexError(f"layer {layer} out of range [0, {L})")
     if block_tables.dim() != 2 or block_tables.shape[0] != B \
             or block_tables.shape[1] < 1 or kv_lens.shape != (B,):
         raise ValueError("block_tables must be [B, >=1] and kv_lens [B]")
 
 
-def paged_decode(q: torch.Tensor, k_cache: torch.Tensor,
-                 v_cache: torch.Tensor, layer: int,
-                 block_tables: torch.Tensor,
-                 kv_lens: torch.Tensor) -> torch.Tensor:
-    """Decode attention [B, nh, hd] over the paged cache
-    [L, nkv, num_blocks, bs, hd]; the kernel computes
-    paged_attention_decode_ref(..., round_scaled_q=True)."""
-    if not q.is_cuda:
-        return paged_attention_decode_ref(q, k_cache, v_cache, layer,
-                                          block_tables, kv_lens)
-    _check(q, k_cache, v_cache, layer, block_tables, kv_lens)
+def _launch(q, k_cache, v_cache, k_scale, v_scale, layer, block_tables,
+            kv_lens) -> torch.Tensor:
+    """One launch of the bf16 (no scales) or the int8 entry point."""
+    _check(q, k_cache, v_cache, layer, block_tables, kv_lens, k_scale,
+           v_scale)
     lib = load_library(KERNEL, _SIGNATURES)
     B, nh, hd = q.shape
     _, nkv, num_blocks, bs, _ = k_cache.shape
+    out = torch.empty_like(q)
     if B == 0:
-        return torch.empty_like(q)
+        return out
     mb = block_tables.shape[1]
     # split-KV partials (max, sum, unnormalized accumulator) per split
     splits = lib.paged_decode_num_splits(mb)
@@ -98,16 +135,58 @@ def paged_decode(q: torch.Tensor, k_cache: torch.Tensor,
                           device=q.device)
     part_acc = torch.empty(B, nh, splits, hd, dtype=torch.float32,
                            device=q.device)
-    out = torch.empty_like(q)
     stream = torch.cuda.current_stream(q.device).cuda_stream
-    status = lib.paged_decode_bf16(
-        q.data_ptr(), k_cache[layer].data_ptr(), v_cache[layer].data_ptr(),
-        block_tables.data_ptr(), kv_lens.data_ptr(), part_ml[0].data_ptr(),
-        part_ml[1].data_ptr(), part_acc.data_ptr(), out.data_ptr(),
-        B, nh, nkv, hd, num_blocks, bs, mb, 1.0 / math.sqrt(hd), stream)
+    common = (block_tables.data_ptr(), kv_lens.data_ptr(),
+              part_ml[0].data_ptr(), part_ml[1].data_ptr(),
+              part_acc.data_ptr(), out.data_ptr(), B, nh, nkv, hd,
+              num_blocks, bs, mb, 1.0 / math.sqrt(hd), stream)
+    caches = (q.data_ptr(), k_cache[layer].data_ptr(),
+              v_cache[layer].data_ptr())
+    if k_scale is None:
+        status = lib.paged_decode_bf16(*caches, *common)
+    else:
+        status = lib.paged_decode_int8(*caches, k_scale[layer].data_ptr(),
+                                       v_scale[layer].data_ptr(), *common)
     check_status(lib, "paged_decode_error_string", status, "paged_decode")
+    return out
+
+
+def paged_decode(q: torch.Tensor, k_cache: torch.Tensor,
+                 v_cache: torch.Tensor, layer: int,
+                 block_tables: torch.Tensor,
+                 kv_lens: torch.Tensor) -> torch.Tensor:
+    """Decode attention [B, nh, hd] over the bf16 paged cache
+    [L, nkv, num_blocks, bs, hd]; the kernel computes
+    paged_attention_decode_ref(..., round_scaled_q=True)."""
+    if not q.is_cuda:
+        return paged_attention_decode_ref(q, k_cache, v_cache, layer,
+                                          block_tables, kv_lens)
+    out = _launch(q, k_cache, v_cache, None, None, layer, block_tables,
+                  kv_lens)
     paged_decode.launches += 1
     return out
 
 
+def paged_decode_int8(q: torch.Tensor, k_cache: torch.Tensor,
+                      v_cache: torch.Tensor, k_scale: torch.Tensor,
+                      v_scale: torch.Tensor, layer: int,
+                      block_tables: torch.Tensor,
+                      kv_lens: torch.Tensor) -> torch.Tensor:
+    """Decode attention [B, nh, hd] over the int8 paged cache and its
+    scale planes [L, nkv, num_blocks, bs]; the kernel computes
+    paged_attention_decode_ref(..., round_scaled_q=True, k_scale=k_scale,
+    v_scale=v_scale) up to the bf16 rounding of its P operand."""
+    if not q.is_cuda:
+        return paged_attention_decode_ref(q, k_cache, v_cache, layer,
+                                          block_tables, kv_lens,
+                                          k_scale=k_scale, v_scale=v_scale)
+    if k_scale is None or v_scale is None:
+        raise ValueError("paged_decode_int8 needs k_scale and v_scale")
+    out = _launch(q, k_cache, v_cache, k_scale, v_scale, layer,
+                  block_tables, kv_lens)
+    paged_decode_int8.launches += 1
+    return out
+
+
 paged_decode.launches = 0
+paged_decode_int8.launches = 0

@@ -17,9 +17,12 @@ causal-within-segment by absolute position (token t sees its segment's
 cache positions [0, positions[t]]).
 
 `packed_prefill_attention` dispatches: "auto" goes through the kernel's
-wrapper (ops/cuda_packed_prefill.py: CUDA kernel K3 on CUDA tensors, the
-plain version on CPU tensors); "torch" runs the plain version anywhere.
-Cache layout and conventions are those of ops/paged_attention.py.
+wrapper (ops/cuda_packed_prefill.py: CUDA kernel K3 on CUDA tensors, its
+bf16 or int8 entry point; the plain version on CPU tensors); "torch" runs
+the plain version anywhere.  Cache layout and conventions, the int8
+cache's scale planes included, are those of ops/paged_attention.py: on
+an int8 cache the chunk's own K/V round-trip the quantizer before
+attention reads them back, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -28,7 +31,13 @@ import math
 
 import torch
 
-from .paged_attention import NEG_INF, _gather_ctx, _q_operand, _store_kv
+from .paged_attention import (
+    NEG_INF,
+    _gather_ctx,
+    _q_operand,
+    _store_kv,
+    check_kv_scales,
+)
 
 # the packed-prefill dispatch's impl vocabulary
 PACKED_IMPLS = ("auto", "torch")
@@ -44,6 +53,8 @@ def write_packed_kv(
     seg_ids: torch.Tensor,       # [T] int32 segment row per token
     positions: torch.Tensor,     # [T] int32 absolute position per token
     valid: torch.Tensor,         # [T] bool (False = padded tail)
+    k_scale: torch.Tensor = None,  # [L, nkv, nblocks, bs] fp32 (int8)
+    v_scale: torch.Tensor = None,
 ) -> None:
     """Scatter a packed chunk's K/V into each token's own sequence blocks,
     in place (the JAX version returns new cache arrays).  Padding tokens
@@ -54,7 +65,8 @@ def write_packed_kv(
     col = torch.clamp(positions.long() // bs, max=mb - 1)
     blocks = block_tables[seg_ids.long(), col]
     blocks = torch.where(valid, blocks, torch.zeros_like(blocks))
-    _store_kv(k_cache, v_cache, layer, k, v, blocks, positions.long() % bs)
+    _store_kv(k_cache, v_cache, layer, k, v, blocks, positions.long() % bs,
+              k_scale, v_scale)
 
 
 def packed_prefill_attention_ref(
@@ -67,13 +79,17 @@ def packed_prefill_attention_ref(
     positions: torch.Tensor,     # [T]
     valid: torch.Tensor,         # [T]
     round_scaled_q: bool = False,
+    k_scale: torch.Tensor = None,  # [L, nkv, num_blocks, bs] fp32 (int8)
+    v_scale: torch.Tensor = None,
 ) -> torch.Tensor:
     """The plain version of kernel K3: what `_segment_flash` computes per
     segment, written as an exact segment-causal softmax over each
     segment's gathered context in fp32.  Tokens no segment owns (the
     padded tail) output exactly 0.  round_scaled_q: as in
     paged_attention_decode_ref (the kernels' rounding of q * 1/sqrt(hd)
-    to q's dtype; off by default, as in the JAX reference path)."""
+    to q's dtype; off by default, as in the JAX reference path).  An int8
+    cache's context is dequantized in fp32 with its scales."""
+    check_kv_scales(k_cache, k_scale, v_scale)
     T, nh, hd = q.shape
     nkv = k_cache.shape[1]
     group = nh // nkv
@@ -85,8 +101,9 @@ def packed_prefill_attention_ref(
         if idx.numel() == 0:
             continue
         qs = qop[idx].reshape(-1, nkv, group, hd)  # [Ts, nkv, g, hd]
-        k = _gather_ctx(k_cache, layer, block_tables[s]).float()  # [nkv, C, hd]
-        v = _gather_ctx(v_cache, layer, block_tables[s]).float()
+        k = _gather_ctx(k_cache, layer, block_tables[s],
+                        k_scale).float()  # [nkv, C, hd]
+        v = _gather_ctx(v_cache, layer, block_tables[s], v_scale).float()
         sc = torch.einsum("tkgh,ksh->tkgs", qs, k) * factor
         span = torch.arange(k.shape[1], device=q.device)
         mask = span[None, :] <= positions[idx].long()[:, None]  # [Ts, C]
@@ -118,19 +135,21 @@ def packed_prefill_attention(
 
     impl: "auto" (the kernel wrapper: CUDA kernel K3 on CUDA tensors,
     the plain version on CPU tensors) or "torch" (the plain version on
-    any device).  int8 scales are not supported yet (a later slice)."""
+    any device).  k_scale/v_scale: an int8 cache's scale planes; they
+    select K3's int8 entry point."""
     if impl not in PACKED_IMPLS:
         raise ValueError(f"unknown packed-prefill impl {impl!r}; expected "
                          + " | ".join(PACKED_IMPLS))
-    if k_scale is not None or v_scale is not None:
-        raise NotImplementedError(
-            "int8 KV cache scales: the int8 mode of the packed-prefill "
-            "kernel is not ported yet")
     if impl == "torch":
         return packed_prefill_attention_ref(q, k_cache, v_cache, layer,
                                             block_tables, seg_ids,
-                                            positions, valid)
-    from .cuda_packed_prefill import packed_prefill
+                                            positions, valid,
+                                            k_scale=k_scale, v_scale=v_scale)
+    from .cuda_packed_prefill import packed_prefill, packed_prefill_int8
 
+    if check_kv_scales(k_cache, k_scale, v_scale):
+        return packed_prefill_int8(q, k_cache, v_cache, k_scale, v_scale,
+                                   layer, block_tables, seg_ids, positions,
+                                   valid)
     return packed_prefill(q, k_cache, v_cache, layer, block_tables, seg_ids,
                           positions, valid)

@@ -21,11 +21,19 @@ copy of the multi-GiB cache per layer.  `index_put_` does not drop
 out-of-range indices the way JAX's `mode="drop"` does, so every caller
 routes invalid rows to block 0 instead, as the JAX code already does.
 
+Int8 KV cache (quant/kv.py, engine `kv_cache_dtype="int8"`): the caches
+hold int8 codes and every write and read takes the fp32 scale planes
+`k_scale`/`v_scale` [L, nkv, num_blocks, bs].  A write quantizes k/v per
+(token, head) and scatters codes and scales with the same blocks and
+offsets; a plain read dequantizes the gathered context in fp32, as the
+JAX "jnp" path does.  The quantize-on-write stays plain torch, as it
+stays XLA outside any Pallas kernel in the JAX package.
+
 `paged_attention_decode` dispatches: "auto" goes through the kernel's
 wrapper (ops/cuda_paged_attention.py), which launches the hand-written
-CUDA kernel for CUDA tensors and uses `paged_attention_decode_ref` for
-CPU tensors; "torch" runs the plain version on any device (the
-yardstick the kernel is held to on the card).
+CUDA kernel for CUDA tensors (the bf16 or the int8 entry point) and uses
+`paged_attention_decode_ref` for CPU tensors; "torch" runs the plain
+version on any device (the yardstick the kernel is held to on the card).
 """
 
 from __future__ import annotations
@@ -33,6 +41,8 @@ from __future__ import annotations
 import math
 
 import torch
+
+from ..quant.kv import quantize_tokens
 
 NEG_INF = -1e30
 
@@ -46,13 +56,35 @@ DECODE_IMPLS = ("auto", "torch")
 # ---------------------------------------------------------------------------
 
 
+def check_kv_scales(k_cache: torch.Tensor, k_scale, v_scale) -> bool:
+    """True for an int8 cache passed with both scale planes, False for a
+    float cache passed with none; anything else raises."""
+    if (k_scale is None) != (v_scale is None):
+        raise ValueError("pass both k_scale and v_scale, or neither")
+    quantized = k_cache.dtype == torch.int8
+    if quantized and k_scale is None:
+        raise TypeError("an int8 KV cache needs its k_scale/v_scale planes")
+    if not quantized and k_scale is not None:
+        raise TypeError(f"scale planes passed with a {k_cache.dtype} cache "
+                        "(they belong to an int8 cache)")
+    return quantized
+
+
 def _store_kv(k_cache: torch.Tensor, v_cache: torch.Tensor, layer: int,
               k: torch.Tensor, v: torch.Tensor, blocks: torch.Tensor,
-              offsets: torch.Tensor) -> None:
+              offsets: torch.Tensor, k_scale: torch.Tensor = None,
+              v_scale: torch.Tensor = None) -> None:
     """Shared scatter tail for every write site: k/v [T, nkv, hd] land at
-    cache[layer, :, blocks, offsets, :] (target [nkv, T, hd]).  In place."""
+    cache[layer, :, blocks, offsets, :] (target [nkv, T, hd]), and for an
+    int8 cache their per-(token, head) scales at scale[layer, :, blocks,
+    offsets] (target [nkv, T]) with the SAME blocks/offsets.  In place."""
     blocks = blocks.long()
     offsets = offsets.long()
+    if check_kv_scales(k_cache, k_scale, v_scale):
+        k, ks = quantize_tokens(k)
+        v, vs = quantize_tokens(v)
+        k_scale[layer][:, blocks, offsets] = ks.transpose(0, 1)
+        v_scale[layer][:, blocks, offsets] = vs.transpose(0, 1)
     k_cache[layer][:, blocks, offsets] = k.transpose(0, 1).to(k_cache.dtype)
     v_cache[layer][:, blocks, offsets] = v.transpose(0, 1).to(v_cache.dtype)
 
@@ -62,6 +94,8 @@ def write_token_kv(k_cache: torch.Tensor, v_cache: torch.Tensor, layer: int,
                    v: torch.Tensor,
                    block_tables: torch.Tensor,  # [B, max_blocks] int32
                    ctx_lens: torch.Tensor,      # [B] position to write
+                   k_scale: torch.Tensor = None,  # [L, nkv, nb, bs] (int8)
+                   v_scale: torch.Tensor = None,
                    ) -> None:
     """Decode-step KV write: each row's token at position ctx_lens[b].
     In-place scatter (the JAX version returns new cache arrays).  The
@@ -72,7 +106,8 @@ def write_token_kv(k_cache: torch.Tensor, v_cache: torch.Tensor, layer: int,
     col = torch.clamp(ctx_lens.long() // bs, max=mb - 1)
     rows = torch.arange(B, device=block_tables.device)
     blocks = block_tables[rows, col]
-    _store_kv(k_cache, v_cache, layer, k, v, blocks, ctx_lens.long() % bs)
+    _store_kv(k_cache, v_cache, layer, k, v, blocks, ctx_lens.long() % bs,
+              k_scale, v_scale)
 
 
 # ---------------------------------------------------------------------------
@@ -80,11 +115,23 @@ def write_token_kv(k_cache: torch.Tensor, v_cache: torch.Tensor, layer: int,
 # ---------------------------------------------------------------------------
 
 
-def _gather_ctx(cache: torch.Tensor, layer: int,
-                block_table: torch.Tensor) -> torch.Tensor:
-    """[L, nkv, nb, bs, hd] + [max_blocks] -> [nkv, max_blocks * bs, hd]."""
-    g = cache[layer][:, block_table.long()]  # [nkv, mb, bs, hd]
+def _gather_ctx(cache: torch.Tensor, layer: int, block_table: torch.Tensor,
+                scale: torch.Tensor = None) -> torch.Tensor:
+    """[L, nkv, nb, bs, hd] + [max_blocks] -> [nkv, max_blocks * bs, hd];
+    `scale` [L, nkv, nb, bs] dequantizes an int8 cache to fp32."""
+    g = _gather_blocks(cache, layer, block_table, scale)  # [nkv, mb, bs, hd]
     return g.reshape(g.shape[0], -1, g.shape[-1])
+
+
+def _gather_blocks(cache: torch.Tensor, layer: int, tables: torch.Tensor,
+                   scale: torch.Tensor = None) -> torch.Tensor:
+    """cache[layer][:, tables]: the blocks of any table shape, dequantized
+    in fp32 by the same gather of `scale` for an int8 cache."""
+    tables = tables.long()
+    g = cache[layer][:, tables]
+    if scale is None:
+        return g
+    return g.float() * scale[layer][:, tables][..., None]
 
 
 def _q_operand(q: torch.Tensor, scale: float,
@@ -106,6 +153,8 @@ def paged_attention_decode_ref(
     block_tables: torch.Tensor,  # [B, max_blocks] int32
     kv_lens: torch.Tensor,       # [B] valid tokens (incl. the one just written)
     round_scaled_q: bool = False,
+    k_scale: torch.Tensor = None,  # [L, nkv, num_blocks, bs] fp32 (int8)
+    v_scale: torch.Tensor = None,
 ) -> torch.Tensor:
     """The plain version of kernel K1, mirroring
     paged_attention_decode_jnp with fp32-upcast operands: gather each
@@ -115,14 +164,17 @@ def paged_attention_decode_ref(
     q * 1/sqrt(hd) to q's dtype before the product, as the kernels do, so
     the kernel and this version compute the same function for every
     input; it is off by default, as in the JAX package's reference
-    path."""
+    path.  An int8 cache's context is dequantized in fp32 with its
+    scales, as the JAX "jnp" impl does."""
+    check_kv_scales(k_cache, k_scale, v_scale)
     B, nh, hd = q.shape
     nkv = k_cache.shape[1]
     group = nh // nkv
     scale = 1.0 / math.sqrt(hd)
     tables = block_tables.long()
-    kb = k_cache[layer][:, tables]  # [nkv, B, mb, bs, hd]
-    vb = v_cache[layer][:, tables]
+    # [nkv, B, mb, bs, hd]
+    kb = _gather_blocks(k_cache, layer, tables, k_scale)
+    vb = _gather_blocks(v_cache, layer, tables, v_scale)
     S = kb.shape[2] * kb.shape[3]
     kb = kb.reshape(nkv, B, S, hd).transpose(0, 1).float()  # [B, nkv, S, hd]
     vb = vb.reshape(nkv, B, S, hd).transpose(0, 1).float()
@@ -152,18 +204,18 @@ def paged_attention_decode(
 
     impl: "auto" (the kernel wrapper: CUDA kernel K1 on CUDA tensors,
     the plain version on CPU tensors) or "torch" (the plain version on
-    any device).  An int8 cache's scales are not supported yet: the int8
-    mode of K1 comes with int8 KV in a later slice."""
+    any device).  k_scale/v_scale: an int8 cache's scale planes; they
+    select K1's int8 entry point."""
     if impl not in DECODE_IMPLS:
         raise ValueError(f"unknown attention impl {impl!r}; expected "
                          + " | ".join(DECODE_IMPLS))
-    if k_scale is not None or v_scale is not None:
-        raise NotImplementedError(
-            "int8 KV cache scales: the int8 mode of the decode kernel is "
-            "not ported yet")
     if impl == "torch":
         return paged_attention_decode_ref(q, k_cache, v_cache, layer,
-                                          block_tables, kv_lens)
-    from .cuda_paged_attention import paged_decode
+                                          block_tables, kv_lens,
+                                          k_scale=k_scale, v_scale=v_scale)
+    from .cuda_paged_attention import paged_decode, paged_decode_int8
 
+    if check_kv_scales(k_cache, k_scale, v_scale):
+        return paged_decode_int8(q, k_cache, v_cache, k_scale, v_scale,
+                                 layer, block_tables, kv_lens)
     return paged_decode(q, k_cache, v_cache, layer, block_tables, kv_lens)

@@ -114,6 +114,46 @@ async def test_greedy_streams_match_jax_engine():
         await te.close()
 
 
+async def test_greedy_streams_match_jax_engine_int8():
+    """The same concurrent requests and prefix-cache hit on an int8 KV
+    cache (quantize-on-write, dequantizing reads) in both engines."""
+    je, te = engines(kv_cache_dtype="int8")
+    try:
+        assert len(te.kv) == 4 and te.kv[0].dtype == torch.int8
+        prompts = [[3, 1, 4, 1, 5, 9], [2, 7, 1, 8, 2, 8, 1, 8],
+                   list(range(30, 50)), [14, 14, 2]]
+        jres, tres = await _both(je, te, prompts, 8)
+        assert tres == jres
+        assert all(f == "length" and len(t) == 8 for t, f in tres)
+        assert te.metrics["prefill_steps"] == 1
+        hit = list(range(30, 50)) + [7, 7, 7]
+        jres, tres = await _both(je, te, [hit], 6)
+        assert tres == jres
+        assert te.metrics["cache_hit_tokens"] == 20
+    finally:
+        await je.close()
+        await te.close()
+
+
+@pytest.mark.parametrize("kv_cache_dtype", ["bf16", "int8"])
+def test_kv_hbm_budget_sizes_the_pool_like_jax(kv_cache_dtype):
+    """kv_hbm_gb overwrites config.num_blocks with what the budget holds,
+    the same count as the JAX engine; int8 holds more blocks."""
+    je, te = engines(kv_cache_dtype=kv_cache_dtype, kv_hbm_gb=0.0005)
+    assert te.config.num_blocks == je.config.num_blocks
+    assert te.kv[0].shape[2] == te.config.num_blocks
+    assert te.allocator.num_free == te.config.num_blocks - 1
+    # tiny32: 2048 bytes per fp32 block, 640 per int8 block
+    assert te.config.num_blocks == {"bf16": 244, "int8": 781}[
+        kv_cache_dtype]
+
+
+def test_kv_cache_dtype_is_validated():
+    with pytest.raises(ValueError):
+        EngineConfig(kv_cache_dtype="fp8")
+    assert EngineConfig(kv_cache_dtype="int8").kv_cache_dtype == "int8"
+
+
 async def test_stop_conditions_match_jax_engine():
     """max_tokens ends with "length"; a stop token id and an eos id end
     with "stop" on the same token in both engines."""

@@ -21,6 +21,21 @@ from chip_smoke import REL_TOL, row_rel_err
 from dynamo_tpu_torch.ops import cuda_packed_prefill, cuda_paged_attention
 from dynamo_tpu_torch.ops.packed_prefill import packed_prefill_attention_ref
 from dynamo_tpu_torch.ops.paged_attention import paged_attention_decode_ref
+from dynamo_tpu_torch.quant.kv import quantize_tokens
+
+
+def _quantized(k, v, rng):
+    """(k codes, v codes, k_scale, v_scale) of float caches
+    [L, nkv, nb, bs, hd], each block's magnitude spread over 0.1-10 first
+    so that a scale row read from the wrong block shows."""
+    out = []
+    for c in (k, v):
+        spread = 10.0 ** rng.uniform(-1, 1, c.shape[:3])
+        out.append(quantize_tokens(
+            c.float() * torch.from_numpy(spread).float()[..., None, None]
+            .to(c.device)))
+    (kq, ks), (vq, vs) = out
+    return kq, vq, ks, vs
 
 
 def _decode_inputs(kv_lens, *, nkv=2, group=4, hd=128, bs=128, mb=4, L=2,
@@ -41,6 +56,14 @@ def _decode_inputs(kv_lens, *, nkv=2, group=4, hd=128, bs=128, mb=4, L=2,
     return (q.to(**to), k.to(**to), v.to(**to),
             torch.from_numpy(tables).to(device),
             torch.tensor(kv_lens, dtype=torch.int32, device=device))
+
+
+def _decode_inputs_int8(kv_lens, **kw):
+    """_decode_inputs with int8 caches: (q, k, v, tables, lens, k_scale,
+    v_scale)."""
+    q, k, v, tables, lens = _decode_inputs(kv_lens, **kw)
+    kq, vq, ks, vs = _quantized(k, v, np.random.default_rng(2))
+    return q, kq, vq, tables, lens, ks, vs
 
 
 def _packed_inputs(lens, ctx0, *, nkv=2, group=4, hd=128, bs=128, mb=4,
@@ -68,6 +91,35 @@ def _packed_inputs(lens, ctx0, *, nkv=2, group=4, hd=128, bs=128, mb=4,
               for a in (tables, seg, pos, valid)))
 
 
+def _packed_inputs_int8(lens, ctx0, **kw):
+    """_packed_inputs with int8 caches: (q, k, v, tables, seg, pos,
+    valid, k_scale, v_scale)."""
+    q, k, v, *rest = _packed_inputs(lens, ctx0, **kw)
+    kq, vq, ks, vs = _quantized(k, v, np.random.default_rng(3))
+    return (q, kq, vq, *rest, ks, vs)
+
+
+# int8 misuse: name -> (change to (k, v, k_scale, v_scale), error)
+_INT8_MISUSE = {
+    "int8 cache without scales": (
+        lambda k, v, ks, vs: (k, v, None, None), TypeError),
+    "scales with a bf16 cache": (
+        lambda k, v, ks, vs: (k.to(torch.bfloat16), v.to(torch.bfloat16),
+                              ks, vs), TypeError),
+    "one scale plane": (lambda k, v, ks, vs: (k, v, ks, None), ValueError),
+    "bf16 scales": (
+        lambda k, v, ks, vs: (k, v, ks.to(torch.bfloat16), vs), TypeError),
+    "scale plane of another shape": (
+        lambda k, v, ks, vs: (k, v, ks[:, :, :-1].contiguous(), vs),
+        ValueError),
+    "non-contiguous scales": (
+        lambda k, v, ks, vs: (k, v, ks.transpose(0, 1).contiguous()
+                              .transpose(0, 1), vs), ValueError),
+    "scales on another device": (
+        lambda k, v, ks, vs: (k, v, ks, vs.to("meta")), ValueError),
+}
+
+
 @pytest.mark.parametrize("change,error", [
     (dict(dtype=torch.float32), TypeError),   # the kernels take bf16
     (dict(hd=32), ValueError),                # head_dim 64 or 128
@@ -92,6 +144,24 @@ def test_packed_wrapper_rejects_what_the_kernel_does_not_take(change,
         cuda_packed_prefill._check(args[0], args[1], args[2], 1, *args[3:])
 
 
+@pytest.mark.parametrize("misuse", sorted(_INT8_MISUSE))
+def test_decode_wrapper_rejects_int8_misuse(misuse):
+    change, error = _INT8_MISUSE[misuse]
+    q, k, v, tables, lens, ks, vs = _decode_inputs_int8([5, 9])
+    k, v, ks, vs = change(k, v, ks, vs)
+    with pytest.raises(error):
+        cuda_paged_attention._check(q, k, v, 1, tables, lens, ks, vs)
+
+
+@pytest.mark.parametrize("misuse", sorted(_INT8_MISUSE))
+def test_packed_wrapper_rejects_int8_misuse(misuse):
+    change, error = _INT8_MISUSE[misuse]
+    q, k, v, *meta, ks, vs = _packed_inputs_int8([7, 3], [0, 4])
+    k, v, ks, vs = change(k, v, ks, vs)
+    with pytest.raises(error):
+        cuda_packed_prefill._check(q, k, v, 1, *meta, ks, vs)
+
+
 def test_wrapper_checks_accept_the_main_path_shapes():
     q, k, v, tables, lens = _decode_inputs([5, 9])
     cuda_paged_attention._check(q, k, v, 1, tables, lens)
@@ -99,6 +169,28 @@ def test_wrapper_checks_accept_the_main_path_shapes():
     cuda_packed_prefill._check(args[0], args[1], args[2], 1, *args[3:])
     with pytest.raises(IndexError):
         cuda_paged_attention._check(q, k, v, 2, tables, lens)
+    q, k, v, tables, lens, ks, vs = _decode_inputs_int8([5, 9])
+    cuda_paged_attention._check(q, k, v, 1, tables, lens, ks, vs)
+    q, k, v, *meta, ks, vs = _packed_inputs_int8([7, 3], [0, 4])
+    cuda_packed_prefill._check(q, k, v, 1, *meta, ks, vs)
+
+
+def test_int8_wrappers_on_cpu_take_the_int8_plain_version():
+    q, k, v, tables, lens, ks, vs = _decode_inputs_int8([5, 9])
+    before = cuda_paged_attention.paged_decode_int8.launches
+    got = cuda_paged_attention.paged_decode_int8(q, k, v, ks, vs, 1, tables,
+                                                 lens)
+    want = paged_attention_decode_ref(q, k, v, 1, tables, lens,
+                                      k_scale=ks, v_scale=vs)
+    torch.testing.assert_close(got, want, rtol=0, atol=0)
+    q, k, v, *meta, ks, vs = _packed_inputs_int8([7, 3], [0, 4])
+    got = cuda_packed_prefill.packed_prefill_int8(q, k, v, ks, vs, 1, *meta)
+    want = packed_prefill_attention_ref(q, k, v, 1, *meta, k_scale=ks,
+                                        v_scale=vs)
+    torch.testing.assert_close(got, want, rtol=0, atol=0)
+    assert cuda_paged_attention.paged_decode_int8.launches == before
+    with pytest.raises(TypeError):  # the bf16 entry point on int8 codes
+        cuda_paged_attention.paged_decode(q[:2], k, v, 1, tables, lens)
 
 
 def test_tolerance_passes_rounding_and_catches_an_off_by_one():
@@ -117,6 +209,27 @@ def test_tolerance_passes_rounding_and_catches_an_off_by_one():
     past_end = paged_attention_decode_ref(q, k, v, 1, tables, longer,
                                           round_scaled_q=True)
     assert row_rel_err(past_end, want) > REL_TOL
+
+
+def test_tolerance_catches_a_wrong_scale_row():
+    """On an int8 cache with per-block magnitude spread, a block's scale
+    rows read from another block err far above REL_TOL, while the int8
+    plain version's own q rounding stays inside it."""
+    q, k, v, tables, lens, ks, vs = _decode_inputs_int8([1, 127, 300, 511])
+    want = paged_attention_decode_ref(q, k, v, 1, tables, lens,
+                                      round_scaled_q=True, k_scale=ks,
+                                      v_scale=vs)
+    unrounded = paged_attention_decode_ref(q, k, v, 1, tables, lens,
+                                           k_scale=ks, v_scale=vs)
+    assert 0 < row_rel_err(unrounded, want) <= REL_TOL
+    blk, other = int(tables[3, 2]), int(tables[2, 0])
+    wks, wvs = ks.clone(), vs.clone()
+    wks[1, :, blk] = ks[1, :, other]
+    wvs[1, :, blk] = vs[1, :, other]
+    wrong = paged_attention_decode_ref(q, k, v, 1, tables, lens,
+                                       round_scaled_q=True, k_scale=wks,
+                                       v_scale=wvs)
+    assert row_rel_err(wrong, want) > REL_TOL
 
 
 def _cuda():
@@ -153,3 +266,35 @@ def test_packed_kernel_matches_plain_on_gpu(hd, bs):
                                         *args[3:], round_scaled_q=True)
     assert row_rel_err(got, want) <= REL_TOL
     assert bool((got[~args[6]] == 0).all())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("hd", [64, 128])
+def test_decode_int8_kernel_matches_plain_on_gpu(hd):
+    dev = _cuda()
+    q, k, v, tables, lens, ks, vs = _decode_inputs_int8(
+        [1, 127, 128, 129, 300], hd=hd, device=dev)
+    before = cuda_paged_attention.paged_decode_int8.launches
+    got = cuda_paged_attention.paged_decode_int8(q, k, v, ks, vs, 1, tables,
+                                                 lens)
+    assert cuda_paged_attention.paged_decode_int8.launches == before + 1
+    want = paged_attention_decode_ref(q, k, v, 1, tables, lens,
+                                      round_scaled_q=True, k_scale=ks,
+                                      v_scale=vs)
+    assert row_rel_err(got, want) <= REL_TOL
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("hd,bs", [(64, 64), (128, 128)])
+def test_packed_int8_kernel_matches_plain_on_gpu(hd, bs):
+    dev = _cuda()
+    q, k, v, *meta, ks, vs = _packed_inputs_int8(
+        [150, 0, 37, 70], [0, 0, 100, 3], hd=hd, bs=bs, device=dev)
+    before = cuda_packed_prefill.packed_prefill_int8.launches
+    got = cuda_packed_prefill.packed_prefill_int8(q, k, v, ks, vs, 1, *meta)
+    assert cuda_packed_prefill.packed_prefill_int8.launches == before + 1
+    want = packed_prefill_attention_ref(q, k, v, 1, *meta,
+                                        round_scaled_q=True, k_scale=ks,
+                                        v_scale=vs)
+    assert row_rel_err(got, want) <= REL_TOL
+    assert bool((got[~meta[3]] == 0).all())

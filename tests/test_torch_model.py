@@ -87,6 +87,25 @@ def test_kv_cache_round_trip():
     np.testing.assert_array_equal(back_v, v)
 
 
+def test_kv_cache_round_trip_int8():
+    """int8 codes cross transposed like the data and stay int8; the scale
+    planes cross unchanged."""
+    rng = np.random.default_rng(1)
+    k = rng.integers(-127, 128, (2, 3, 5, 8, 4)).astype(np.int8)
+    v = rng.integers(-127, 128, (2, 3, 5, 8, 4)).astype(np.int8)
+    ks = rng.random((2, 3, 5, 4)).astype(np.float32)
+    vs = rng.random((2, 3, 5, 4)).astype(np.float32)
+    tk, tv, tks, tvs = kv_cache_from_numpy(k, v, device="cpu", k_scale=ks,
+                                           v_scale=vs)
+    assert tk.dtype == torch.int8 and tk.shape == (2, 3, 5, 4, 8)
+    assert tks.dtype == torch.float32 and tks.shape == ks.shape
+    assert tk[1, 2, 3, 1, 6].item() == k[1, 2, 3, 6, 1]
+    for got, want in zip(kv_cache_to_numpy((tk, tv, tks, tvs)),
+                         (k, v, ks, vs)):
+        assert got.dtype == want.dtype
+        np.testing.assert_array_equal(got, want)
+
+
 def _packed_inputs(bs):
     """Two prompts (7 and 5 tokens) packed into one 16-token stream with a
     padded tail, then one decode step for each."""
@@ -142,6 +161,64 @@ def test_prefill_packed_and_decode_match_jax(name):
     for got, want in ((tk, jkv[0]), (tv, jkv[1])):
         want = np.asarray(want, np.float32)
         np.testing.assert_allclose(got[:, :, 1:], want[:, :, 1:], **tol)
+
+
+@pytest.mark.parametrize("name", ["fp32", "fp32-qknorm"])
+def test_prefill_packed_and_decode_int8_match_jax(name):
+    """The same prefill and decode step on an int8 cache (k, v, k_scale,
+    v_scale), in the fp32 configs, where the two packages compute the
+    same fp32 sums (the bf16 config's one-ulp K/V differences move int8
+    codes across half steps, which the logits then amplify past the
+    bf16 bound): logits within 1e-5, and the caches carried
+    back through kv_cache_to_numpy agree: codes within one step (where
+    the two packages' K/V differ by a rounding, a code on a half step
+    may round the other way), scales at the tolerance."""
+    jcfg, tcfg, tol = CONFIGS[name]
+    bs, nb = 4, 8
+    jparams = jl.init_params(jcfg, jax.random.PRNGKey(3))
+    tparams = params_from_numpy(_numpy_tree(jparams), tcfg, device="cpu")
+    toks, pos, seg, valid, tables, last, dec = _packed_inputs(bs)
+
+    shape = jl.kv_cache_shapes(jcfg, nb, bs)[0]
+    sshape = jl.kv_cache_scale_shapes(jcfg, nb, bs)[0]
+    jkv = (jnp.zeros(shape, jnp.int8), jnp.zeros(shape, jnp.int8),
+           jnp.zeros(sshape, jnp.float32), jnp.zeros(sshape, jnp.float32))
+    jlog, jkv = jl.prefill_packed(
+        jparams, jcfg, jkv, jnp.asarray(toks), jnp.asarray(pos),
+        jnp.asarray(seg), jnp.asarray(tables), jnp.asarray(last),
+        jnp.asarray(valid))
+    jdec, jkv = jl.decode(
+        jparams, jcfg, jkv, jnp.asarray(dec["tokens"]),
+        jnp.asarray(dec["positions"]), jnp.asarray(tables),
+        jnp.asarray(dec["ctx"]))
+
+    assert tl.kv_cache_scale_shapes(tcfg, nb, bs)[0] == sshape
+    tkv = tuple(torch.zeros(s, dtype=torch.int8)
+                for s in tl.kv_cache_shapes(tcfg, nb, bs)) + tuple(
+        torch.zeros(s) for s in tl.kv_cache_scale_shapes(tcfg, nb, bs))
+    t = {k: torch.from_numpy(v) for k, v in dict(
+        toks=toks, pos=pos, seg=seg, valid=valid, tables=tables,
+        last=last).items()}
+    tlog, tkv = tl.prefill_packed(tparams, tcfg, tkv, t["toks"], t["pos"],
+                                  t["seg"], t["tables"], t["last"],
+                                  t["valid"])
+    tdec, tkv = tl.decode(tparams, tcfg, tkv,
+                          torch.from_numpy(dec["tokens"]),
+                          torch.from_numpy(dec["positions"]), t["tables"],
+                          torch.from_numpy(dec["ctx"]))
+    assert len(tkv) == 4
+
+    np.testing.assert_allclose(tlog.numpy(), np.asarray(jlog), **tol)
+    np.testing.assert_allclose(tdec.numpy(), np.asarray(jdec), **tol)
+    got = kv_cache_to_numpy(tkv)
+    for i, (g, w) in enumerate(zip(got, jkv)):
+        g, w = g[:, :, 1:], np.asarray(w)[:, :, 1:]
+        if i < 2:
+            assert g.dtype == np.int8
+            np.testing.assert_allclose(g.astype(np.int32),
+                                       w.astype(np.int32), rtol=0, atol=1)
+        else:
+            np.testing.assert_allclose(g, w, **tol)
 
 
 def test_moe_and_unknown_impls_raise():
