@@ -1,11 +1,14 @@
 #!/usr/bin/env python3
 """Smoke test of the PyTorch/CUDA port (dynamo_tpu_torch) on one NVIDIA GPU.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py                 # the whole check, as below
+    python3 chip_smoke.py --ab OTHER_DIR  # the kernels only, against
+                                          # another checkout's
 
 Builds the port's CUDA kernels from csrc/, holds each entry point (K1
 and K3, each in its bf16 and its int8 mode) against its plain PyTorch
-version at the llama-8b shapes the main path gives it, then serves
+version at the llama-8b shapes the main path gives it (K1 at B = 8, 4
+and 1, K3 on a 2048-token and a 512-token packed stream), then serves
 concurrent requests through `TorchEngine` with the llama-8b preset at
 full width (random bf16 weights made on the card from a seed), first on
 a bf16 KV cache and then, with the same weights, on an int8 KV cache
@@ -16,12 +19,21 @@ exit code.  It imports nothing of JAX or of the JAX package.
 Output: one line per phase; a `{"kernels": [...]}` JSON line with each
 kernel's launches on the main path, error against its plain version
 (`max_abs_err`, and `max_rel_err`, the figure the tolerance holds), its
-device time (`ms`, by CUDA-graph replay), the plain version's time, the
-one-call PyTorch yardstick's time (`library_ms`,
+device time (`ms`, by CUDA-graph replay; K3's with its tile plan
+computed beforehand, as the model does once per dispatch, `plan_ms` the
+plan alone and `with_plan_ms` a call that computes its own), the plain
+version's time, the one-call PyTorch yardstick's time (`library_ms`,
 scaled_dot_product_attention on the same context gathered into a dense
 tensor beforehand, dequantized to bf16 for the int8 modes; the port never
-calls it) and the least time the card could take (`bound_ms`); the card's
-name and power limit; and, last, `{"ok": true, "device": {...}}`.
+calls it), the least time the card could take (`bound_ms`) and, under
+`cases`, the time and bound of every case; the card's name and power
+limit; and, last, `{"ok": true, "device": {...}}`.
+
+With --ab, each mode of both kernels of this checkout is timed against
+the same mode of the checkout at OTHER_DIR (for instance the parent
+commit unpacked into the git-ignored dynamo_tpu_torch/_build/), case by
+case, in one process on one card, in turns (other, this, this, other),
+both held to the plain version; K1 is also timed at other split counts.
 
 Bounds use the H100 SXM data sheet (3.35 TB/s HBM3, 989 TFLOP/s dense
 bf16); a card run below its 700 W limit is slower, so its limit is
@@ -167,19 +179,32 @@ def sdpa(q, k, v, mask):
 
 def build_kernels() -> None:
     """Both sources, one nvcc each, started together; each library holds
-    its kernel's bf16 and int8 entry points."""
+    its kernel's bf16 and int8 entry points.  Logs each instantiation's
+    registers and spills (ptxas) and the shared memory a CTA asks for."""
+    import re
+
     from dynamo_tpu_torch.ops import _build
-    from dynamo_tpu_torch.ops.cuda_packed_prefill import KERNEL as K3
-    from dynamo_tpu_torch.ops.cuda_paged_attention import KERNEL as K1
+    from dynamo_tpu_torch.ops import cuda_packed_prefill as k3
+    from dynamo_tpu_torch.ops import cuda_paged_attention as k1
 
     t0 = time.perf_counter()
-    logs = _build.compile_sources([K1, K3])
+    logs = _build.compile_sources([k1.KERNEL, k3.KERNEL])
     dt = time.perf_counter() - t0
-    for name, text in logs.items():
-        for line in text.splitlines():
-            if "registers" in line or "spill" in line or "smem" in line:
-                log(f"  nvcc {name}: {line.strip()}")
-    log(f"build: {K1}.cu and {K3}.cu for sm_90a in {dt:.1f} s")
+    for mod in (k1, k3):
+        lib = _build.load_library(mod.KERNEL, mod._SIGNATURES)
+        smem = getattr(lib, f"{mod.KERNEL}_smem_bytes")
+        fn = None
+        for line in logs[mod.KERNEL].splitlines():
+            m = re.search(r"Compiling entry function .*ILi(\d+)ELb(\d)E", line)
+            if m:
+                hd, q8 = int(m.group(1)), int(m.group(2))
+                fn = (f"{mod.KERNEL} hd={hd} {'int8' if q8 else 'bf16'} "
+                      f"(smem {smem(hd, q8)} B a CTA)")
+            elif fn and ("registers" in line or "spill" in line):
+                log(f"  ptxas {fn}: {line.split(':', 1)[-1].strip()}")
+            elif "Performance" in line or "warning" in line.lower():
+                log(f"  ptxas {mod.KERNEL}: {line.strip()}")
+    log(f"build: {k1.KERNEL}.cu and {k3.KERNEL}.cu for sm_90a in {dt:.1f} s")
 
 
 # ---------------------------------------------------------------------------
@@ -255,19 +280,30 @@ def _junk_check(name: str, kernel, cache, tails, out) -> None:
                          "output")
 
 
-def check_decode_kernel(cfg, device, int8: bool = False) -> dict:
-    """K1 in its bf16 mode, or (int8) in its int8 mode on the same
-    shapes with the cache quantized by the port's quantizer."""
-    from dynamo_tpu_torch.ops.cuda_paged_attention import (
-        paged_decode,
-        paged_decode_int8,
-    )
-    from dynamo_tpu_torch.ops.paged_attention import (
-        paged_attention_decode_ref,
-    )
+# K1's cases: (tag, kv_lens).  B = 8 is the case earlier versions were
+# timed at; B = 4 decodes the engine's four prompts at its max_num_seqs;
+# B = 1 is one long row, whose splits alone must fill the card
+DECODE_CASES = (("B=8", [1, 127, 128, 129, 2048, 700, 1500, 2047]),
+                ("B=4", [1800, 500, 100, 37]),
+                ("B=1", [2047]))
+# K3's cases: (tag, segment lengths, prefix offsets, stream order).  The
+# long stream: row 1 is empty (an interleaved empty row); the stream
+# starts with row 2, so the first active (tile, segment) pair is not
+# (0, 0); row 2 starts at a prefix offset of 300 cached positions; 1800 +
+# 100 + 110 + 37 = 2047 real tokens and one padded; no boundary is a
+# multiple of the 32-token tile.  The short stream: four 128-token
+# prompts, T = 512.
+PACKED_CASES = (("T=2048", [1800, 0, 100, 110, 37], [0, 0, 300, 0, 0],
+                 [2, 0, 3, 4], 2048),
+                ("T=512", [128, 128, 128, 128], [0, 0, 0, 0], [0, 1, 2, 3],
+                 512))
 
+
+def decode_case(cfg, device, kv_lens, int8: bool) -> dict:
+    """K1's inputs for one case: random bf16 caches (or their int8
+    quantization) with junk in the garbage block, each row's blocks a
+    random disjoint set, padded table entries on block 0."""
     nh, nkv, hd, bs = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, 128
-    kv_lens = [1, 127, 128, 129, 2048, 700, 1500, 2047]
     B, mb, L, layer = len(kv_lens), 2048 // bs, 2, 1
     need = [-(-n // bs) for n in kv_lens]
     nb = 1 + sum(need)
@@ -281,81 +317,125 @@ def check_decode_kernel(cfg, device, int8: bool = False) -> dict:
     gen = torch.Generator(device=device).manual_seed(1)
     kc, vc = _random_cache(gen, L, nkv, nb, bs, hd, device)
     q = torch.randn(B, nh, hd, generator=gen, device=device).to(torch.bfloat16)
-    tables_t = torch.from_numpy(tables).to(device)
-    lens_t = torch.tensor(kv_lens, dtype=torch.int32, device=device)
+    return dict(q=q, cache=_int8_cache(kc, vc, seed=3) if int8 else (kc, vc),
+                tables=tables, tables_t=torch.from_numpy(tables).to(device),
+                lens_t=torch.tensor(kv_lens, dtype=torch.int32,
+                                    device=device),
+                kv_lens=kv_lens, layer=layer, bs=bs, mb=mb, int8=int8)
+
+
+def decode_call(mod, c: dict, cache=None):
+    """A thunk of one call of K1's wrapper in module `mod` (this
+    checkout's ops.cuda_paged_attention, or another checkout's)."""
+    cache = c["cache"] if cache is None else cache
+    fn = mod.paged_decode_int8 if c["int8"] else mod.paged_decode
+    return lambda: fn(c["q"], *cache, c["layer"], c["tables_t"],
+                      c["lens_t"])
+
+
+def decode_bound(cfg, c: dict):
+    hd, nh, nkv = cfg.head_dim, cfg.n_heads, cfg.n_kv_heads
+    total = sum(c["kv_lens"])
+    # bytes per position per kv head: bf16 rows, or int8 rows + a scale
+    pos_bytes = (hd + 4) if c["int8"] else 2 * hd
+    nbytes = (2 * total * nkv * pos_bytes + 2 * c["q"].numel() * 2
+              + c["tables"].nbytes + 4 * len(c["kv_lens"]))
+    return bound(nbytes, 4 * nh * hd * total) + (nbytes,)
+
+
+def check_decode_kernel(cfg, device, int8: bool = False) -> dict:
+    """K1 in its bf16 mode, or (int8) in its int8 mode on the same
+    shapes with the cache quantized by the port's quantizer, at every
+    case of DECODE_CASES; the first case is the one that carries the
+    plain and library times."""
+    from dynamo_tpu_torch.ops import cuda_paged_attention as k1
+    from dynamo_tpu_torch.ops.paged_attention import (
+        paged_attention_decode_ref,
+    )
+
     name, tag = ("paged_decode_int8", "K1-int8") if int8 else \
         ("paged_decode", "K1")
-    cache = _int8_cache(kc, vc, seed=3) if int8 else (kc, vc)
+    entry = {"name": name, "route": "cuda",
+             "source": "dynamo_tpu_torch/csrc/paged_decode.cu",
+             "replaces": "dynamo_tpu/ops/pallas_paged_attention.py:300",
+             "cases": {}}
+    for ci, (case, kv_lens) in enumerate(DECODE_CASES):
+        c = decode_case(cfg, device, kv_lens, int8)
+        q, cache, tables, layer = c["q"], c["cache"], c["tables"], c["layer"]
+        bs, mb, B = c["bs"], c["mb"], len(kv_lens)
 
-    def kernel(*c):
+        def plain(tables_t=c["tables_t"], lens=c["lens_t"], cc=cache):
+            scales = dict(k_scale=cc[2], v_scale=cc[3]) if int8 else {}
+            return paged_attention_decode_ref(q, cc[0], cc[1], layer,
+                                              tables_t, lens,
+                                              round_scaled_q=True, **scales)
+
+        out = decode_call(k1, c)()
+        torch.cuda.synchronize()
+        splits = k1.decode_splits(B, cfg.n_kv_heads, mb, bs,
+                                  torch.cuda.get_device_properties(
+                                      device).multi_processor_count)
+        log(f"{tag} {name} vs plain, {case}: nh={cfg.n_heads} "
+            f"nkv={cfg.n_kv_heads} hd={cfg.head_dim} bs={bs} "
+            f"kv_lens={kv_lens}, {splits} splits a row")
+        # planted faults: the longest row reads a block from another row
+        # (B = 1: another of its own blocks); the longest row shorter than
+        # the table sees one position more; int8: the longest row's block
+        # reads the scale rows of another block
+        r = int(np.argmax(kv_lens))
+        col = -(-kv_lens[r] // bs) // 2
+        other = (tables[(r + 1) % B, 0] if B > 1 else tables[r, col - 1])
+        wrong = c["tables_t"].clone()
+        wrong[r, col] = int(other)
+        longer = c["lens_t"].clone()
+        rl = max((i for i, n in enumerate(kv_lens) if n < mb * bs),
+                 key=lambda i: kv_lens[i])
+        longer[rl] += 1
+        faults = {"foreign block": plain(tables_t=wrong),
+                  "one position past kv_len": plain(lens=longer)}
         if int8:
-            return paged_decode_int8(q, *c, layer, tables_t, lens_t)
-        return paged_decode(q, *c, layer, tables_t, lens_t)
-
-    def plain(tables=tables_t, lens=lens_t, c=cache):
-        scales = dict(k_scale=c[2], v_scale=c[3]) if int8 else {}
-        return paged_attention_decode_ref(q, c[0], c[1], layer, tables, lens,
-                                          round_scaled_q=True, **scales)
-
-    out = kernel(*cache)
-    torch.cuda.synchronize()
-    log(f"{tag} {name} vs plain: B={B} nh={nh} nkv={nkv} hd={hd} bs={bs} "
-        f"kv_lens={kv_lens}")
-    # planted faults: the 2048-position row reads its 9th block from the
-    # 1500-position row; the 2047-position row sees one position more;
-    # int8: the 2048-position row's 9th block reads the scale rows of the
-    # 700-position row's first block
-    r2048 = kv_lens.index(2048)
-    wrong = tables_t.clone()
-    wrong[r2048, 8] = tables_t[kv_lens.index(1500), 0]
-    longer = lens_t.clone()
-    longer[kv_lens.index(2047)] += 1
-    faults = {"foreign block": plain(tables=wrong),
-              "one position past kv_len": plain(lens=longer)}
-    if int8:
-        faults["scale row of another block"] = plain(c=_swap_scale_rows(
-            cache, layer, tables[r2048, 8], tables[kv_lens.index(700), 0]))
-    err, rel = hold_to_plain(tag, out, plain(), faults)
-    if int8:
-        tails = [(tables[b, (n - 1) // bs], (n - 1) % bs + 1)
-                 for b, n in enumerate(kv_lens) if n % bs]
-        _junk_check(tag, kernel, cache, tails, out)
-
-    ms = graph_time_ms(lambda: kernel(*cache))
-    plain_ms = time_ms(plain, iters=5)
-    # yardstick: SDPA over each row's context gathered (int8: and
-    # dequantized to bf16) densely beforehand, padded to the table width
-    # (B x mb*bs positions) and masked
-    S = mb * bs
-    dense = [_dense(c, s, layer, tables_t.long()).reshape(nkv, B, S, hd)
-             .transpose(0, 1).contiguous()
-             for c, s in ((cache[0], cache[2] if int8 else None),
-                          (cache[1], cache[3] if int8 else None))]
-    mask = (torch.arange(S, device=device)[None, :]
-            < lens_t[:, None]).reshape(B, 1, 1, S)
-    library_ms = graph_time_ms(sdpa(q.reshape(B, nh, 1, hd), *dense, mask))
-    total = sum(kv_lens)
-    # bytes per position per kv head: bf16 rows, or int8 rows + a scale
-    pos_bytes = (hd + 4) if int8 else 2 * hd
-    nbytes = (2 * total * nkv * pos_bytes + 2 * q.numel() * 2
-              + tables.nbytes + 4 * B)
-    flops = 4 * nh * hd * total
-    bound_ms, bound_by = bound(nbytes, flops)
-    # what SDPA's padded bf16 input alone takes to read at the memory rate
-    sdpa_bytes_ms = 2 * B * S * nkv * hd * 2 / HBM_BYTES_PER_S * 1e3
-    log(f"{tag} times: kernel {ms:.4f} ms (graph replay), plain "
-        f"{plain_ms:.4f} ms (host loop), sdpa {library_ms:.4f} ms (graph "
-        f"replay; it reads the padded {B}x{S} positions"
-        f"{', dequantized to bf16 beforehand' if int8 else ''}, "
-        f"{sdpa_bytes_ms:.4f} ms at the memory rate, against {total} real "
-        f"ones{' in int8' if int8 else ''}), bound {bound_ms:.4f} ms "
-        f"({bound_by}, {nbytes / 1e6:.1f} MB)")
-    return {"name": name, "route": "cuda",
-            "source": "dynamo_tpu_torch/csrc/paged_decode.cu",
-            "replaces": "dynamo_tpu/ops/pallas_paged_attention.py:300",
-            "max_abs_err": err, "max_rel_err": rel, "ms": ms,
-            "plain_ms": plain_ms, "bound_ms": bound_ms,
-            "bound_by": bound_by, "library_ms": library_ms}
+            faults["scale row of another block"] = plain(cc=_swap_scale_rows(
+                cache, layer, tables[r, col], other))
+        err, rel = hold_to_plain(f"{tag} {case}", out, plain(), faults)
+        if int8:
+            tails = [(tables[b, (n - 1) // bs], (n - 1) % bs + 1)
+                     for b, n in enumerate(kv_lens) if n % bs]
+            _junk_check(f"{tag} {case}", lambda *cc: decode_call(k1, c, cc)(),
+                        cache, tails, out)
+        ms = graph_time_ms(decode_call(k1, c))
+        bound_ms, bound_by, nbytes = decode_bound(cfg, c)
+        entry["cases"][case] = {"ms": ms, "bound_ms": bound_ms,
+                                "max_rel_err": rel, "splits": splits}
+        log(f"{tag} {case} time: kernel {ms:.4f} ms (graph replay), bound "
+            f"{bound_ms:.4f} ms ({bound_by}, {nbytes / 1e6:.1f} MB)")
+        if ci:
+            continue
+        plain_ms = time_ms(plain, iters=5)
+        # yardstick: SDPA over each row's context gathered (int8: and
+        # dequantized to bf16) densely beforehand, padded to the table
+        # width (B x mb*bs positions) and masked
+        nkv, hd, S = cfg.n_kv_heads, cfg.head_dim, mb * bs
+        dense = [_dense(cc, s, layer, c["tables_t"].long())
+                 .reshape(nkv, B, S, hd).transpose(0, 1).contiguous()
+                 for cc, s in ((cache[0], cache[2] if int8 else None),
+                               (cache[1], cache[3] if int8 else None))]
+        mask = (torch.arange(S, device=device)[None, :]
+                < c["lens_t"][:, None]).reshape(B, 1, 1, S)
+        library_ms = graph_time_ms(sdpa(q.reshape(B, cfg.n_heads, 1, hd),
+                                        *dense, mask))
+        # what SDPA's padded bf16 input alone takes to read at the memory rate
+        sdpa_bytes_ms = 2 * B * S * nkv * hd * 2 / HBM_BYTES_PER_S * 1e3
+        log(f"{tag} {case} times: plain {plain_ms:.4f} ms (host loop), sdpa "
+            f"{library_ms:.4f} ms (graph replay; it reads the padded {B}x{S} "
+            f"positions{', dequantized to bf16 beforehand' if int8 else ''}, "
+            f"{sdpa_bytes_ms:.4f} ms at the memory rate, against "
+            f"{sum(kv_lens)} real ones{' in int8' if int8 else ''})")
+        entry.update({"max_abs_err": err, "max_rel_err": rel, "ms": ms,
+                      "plain_ms": plain_ms, "bound_ms": bound_ms,
+                      "bound_by": bound_by, "library_ms": library_ms})
+    entry["max_rel_err"] = max(v["max_rel_err"]
+                               for v in entry["cases"].values())
+    return entry
 
 
 def _swap_scale_rows(cache, layer: int, blk: int, other: int) -> tuple:
@@ -383,27 +463,13 @@ def _dense(cache, scale, layer: int, *index) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 
-def check_prefill_kernel(cfg, device, int8: bool = False) -> dict:
-    """K3 in its bf16 mode, or (int8) in its int8 mode on the same
-    stream with the cache quantized by the port's quantizer."""
-    from dynamo_tpu_torch.ops.cuda_packed_prefill import (
-        packed_prefill,
-        packed_prefill_int8,
-    )
-    from dynamo_tpu_torch.ops.packed_prefill import (
-        packed_prefill_attention_ref,
-    )
-
+def packed_case(cfg, device, lens, ctx0, order, T, int8: bool) -> dict:
+    """K3's inputs for one case: the packed stream of `lens` tokens per
+    segment row (at prefix offsets `ctx0`, in stream `order`, padded to
+    T), random caches (or their int8 quantization) with junk in the
+    garbage block, each row's blocks a random disjoint set."""
     nh, nkv, hd, bs = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, 128
-    T, mb, L, layer = 2048, 2048 // bs, 2, 1
-    # segment rows: row 1 is empty (an interleaved empty row); the stream
-    # starts with row 2, so the first active (tile, segment) pair is not
-    # (0, 0); row 2 starts at a prefix offset of 300 cached positions;
-    # 1800 + 100 + 110 + 37 = 2047 real tokens and one padded; no
-    # boundary is a multiple of the 16-token tile
-    lens = [1800, 0, 100, 110, 37]
-    ctx0 = [0, 0, 300, 0, 0]
-    order = [2, 0, 3, 4]
+    mb, L, layer = 2048 // bs, 2, 1
     S = len(lens)
     seg_ids = np.zeros(T, np.int32)
     positions = np.zeros(T, np.int32)
@@ -427,87 +493,150 @@ def check_prefill_kernel(cfg, device, int8: bool = False) -> dict:
     gen = torch.Generator(device=device).manual_seed(2)
     kc, vc = _random_cache(gen, L, nkv, nb, bs, hd, device)
     q = torch.randn(T, nh, hd, generator=gen, device=device).to(torch.bfloat16)
-    args = [torch.from_numpy(a).to(device)
-            for a in (tables, seg_ids, positions, valid)]
+    return dict(q=q, cache=_int8_cache(kc, vc, seed=4) if int8 else (kc, vc),
+                args=[torch.from_numpy(a).to(device)
+                      for a in (tables, seg_ids, positions, valid)],
+                tables=tables, seg_ids=seg_ids, positions=positions,
+                valid=valid, lens=lens, ctx0=ctx0, layer=layer, bs=bs,
+                int8=int8)
+
+
+def packed_call(mod, c: dict, cache=None, plan=None):
+    """A thunk of one call of K3's wrapper in module `mod` (this
+    checkout's ops.cuda_packed_prefill, or another checkout's), with a
+    precomputed tile plan when `plan` is given."""
+    cache = c["cache"] if cache is None else cache
+    fn = mod.packed_prefill_int8 if c["int8"] else mod.packed_prefill
+    kw = {} if plan is None else {"plan": plan}
+    return lambda: fn(c["q"], *cache, c["layer"], *c["args"], **kw)
+
+
+def packed_plan_call(mod, cfg, c: dict):
+    """A thunk computing K3's tile plan for case `c`, as
+    models/llama.py does once per packed dispatch."""
+    tables_t, seg_t, pos_t, val_t = c["args"]
+    return lambda: mod.packed_prefill_plan(seg_t, pos_t, val_t, tables_t,
+                                           cfg.n_heads, cfg.n_kv_heads,
+                                           c["bs"])
+
+
+def packed_bound(cfg, c: dict):
+    hd, nh, nkv = cfg.head_dim, cfg.n_heads, cfg.n_kv_heads
+    ctx = c["positions"][c["valid"]].astype(np.int64) + 1
+    kv_pos = sum(a + n for a, n in zip(c["ctx0"], c["lens"]))
+    pos_bytes = (hd + 4) if c["int8"] else 2 * hd
+    T = c["q"].shape[0]
+    nbytes = 2 * kv_pos * nkv * pos_bytes + 2 * c["q"].numel() * 2 \
+        + c["tables"].nbytes + 9 * T
+    return bound(nbytes, 4 * nh * hd * int(ctx.sum()))
+
+
+def check_prefill_kernel(cfg, device, int8: bool = False) -> dict:
+    """K3 in its bf16 mode, or (int8) in its int8 mode on the same
+    streams with the cache quantized by the port's quantizer, at every
+    case of PACKED_CASES; the first case carries the plain and library
+    times.  `ms` is the kernel alone, with the tile plan computed
+    beforehand as models/llama.py does once per dispatch; `plan_ms` is
+    the plan alone and `with_plan_ms` a call that computes its own."""
+    from dynamo_tpu_torch.ops import cuda_packed_prefill as k3
+    from dynamo_tpu_torch.ops.packed_prefill import (
+        packed_prefill_attention_ref,
+    )
+
     name, tag = ("packed_prefill_int8", "K3-int8") if int8 else \
         ("packed_prefill", "K3")
-    cache = _int8_cache(kc, vc, seed=4) if int8 else (kc, vc)
+    entry = {"name": name, "route": "cuda",
+             "source": "dynamo_tpu_torch/csrc/packed_prefill.cu",
+             "replaces": "dynamo_tpu/ops/pallas_packed_prefill.py:195",
+             "cases": {}}
+    for ci, (case, lens, ctx0, order, T) in enumerate(PACKED_CASES):
+        c = packed_case(cfg, device, lens, ctx0, order, T, int8)
+        q, cache, args, layer = c["q"], c["cache"], c["args"], c["layer"]
+        tables, bs, S = c["tables"], c["bs"], len(lens)
 
-    def kernel(*c):
+        def plain(tables_t=args[0], positions_t=args[2], cc=cache):
+            scales = dict(k_scale=cc[2], v_scale=cc[3]) if int8 else {}
+            return packed_prefill_attention_ref(q, cc[0], cc[1], layer,
+                                                tables_t, args[1],
+                                                positions_t, args[3],
+                                                round_scaled_q=True,
+                                                **scales)
+
+        plan = packed_plan_call(k3, cfg, c)()
+        out = packed_call(k3, c, plan=plan)()
+        torch.cuda.synchronize()
+        tail_zero = bool((out[~args[3]] == 0).all())
+        log(f"{tag} {name} vs plain, {case}: rows={lens} prefix={ctx0} "
+            f"stream order={order}, {plan.token_block}-token tiles, padded "
+            f"tail exactly 0: {tail_zero}")
+        if not tail_zero:
+            raise SystemExit(f"{tag} {case}: the padded tail is not 0")
+        # planted faults: the longest row reads one of its blocks from
+        # the last row; its last token sees one position past its causal
+        # frontier; int8: that block reads the last row's scale rows
+        r = int(np.argmax(lens))
+        col = (ctx0[r] + lens[r] - 1) // bs // 2
+        wrong = args[0].clone()
+        wrong[r, col] = args[0][S - 1, 0]
+        further = args[2].clone()
+        further[int(np.flatnonzero((c["seg_ids"] == r)
+                                   & c["valid"])[-1])] += 1
+        faults = {"foreign block": plain(tables_t=wrong),
+                  "one position past the causal frontier":
+                      plain(positions_t=further)}
         if int8:
-            return packed_prefill_int8(q, *c, layer, *args)
-        return packed_prefill(q, *c, layer, *args)
-
-    def plain(tables_t=args[0], positions_t=args[2], c=cache):
-        scales = dict(k_scale=c[2], v_scale=c[3]) if int8 else {}
-        return packed_prefill_attention_ref(q, c[0], c[1], layer, tables_t,
-                                            args[1], positions_t, args[3],
-                                            round_scaled_q=True, **scales)
-
-    out = kernel(*cache)
-    torch.cuda.synchronize()
-    tail_zero = bool((out[~args[3]] == 0).all())
-    log(f"{tag} {name} vs plain: T={T} rows={lens} prefix={ctx0} "
-        f"stream order={order}, padded tail exactly 0: {tail_zero}")
-    if not tail_zero:
-        raise SystemExit(f"{tag}: the padded tail is not 0")
-    # planted faults: row 0 (1800 tokens) reads its 8th block from row 3;
-    # row 0's last token sees one position past its causal frontier;
-    # int8: row 0's 8th block reads the scale rows of row 3's first block
-    wrong = args[0].clone()
-    wrong[0, 7] = args[0][3, 0]
-    further = args[2].clone()
-    further[int(np.flatnonzero((seg_ids == 0) & valid)[-1])] += 1
-    faults = {"foreign block": plain(tables_t=wrong),
-              "one position past the causal frontier":
-                  plain(positions_t=further)}
-    if int8:
-        faults["scale row of another block"] = plain(c=_swap_scale_rows(
-            cache, layer, tables[0, 7], tables[3, 0]))
-    err, rel = hold_to_plain(tag, out, plain(), faults)
-    if int8:
-        ends = {s: c + n for s, (c, n) in enumerate(zip(ctx0, lens)) if n}
-        tails = [(tables[s, (e - 1) // bs], (e - 1) % bs + 1)
-                 for s, e in ends.items() if e % bs]
-        _junk_check(tag, kernel, cache, tails, out)
-
-    ms = graph_time_ms(lambda: kernel(*cache))
-    plain_ms = time_ms(plain, iters=3, warmup=1)
-    # yardstick: one SDPA call over every row's context gathered (int8:
-    # and dequantized to bf16) densely beforehand, with the
-    # segment-causal mask
-    cols = [(s, c) for s in range(S) for c in range(ctx0[s] + lens[s])]
-    col_seg = torch.tensor([s for s, _ in cols], device=device)
-    col_pos = torch.tensor([c for _, c in cols], device=device)
-    col_blk = torch.from_numpy(tables).to(device)[col_seg, col_pos // bs].long()
-    kd, vd = (_dense(c, s, layer, col_blk, col_pos % bs).unsqueeze(0)
-              .contiguous()
-              for c, s in ((cache[0], cache[2] if int8 else None),
-                           (cache[1], cache[3] if int8 else None)))
-    seg_t, pos_t, val_t = args[1].long(), args[2].long(), args[3]
-    mask = ((seg_t[:, None] == col_seg[None, :])
-            & (col_pos[None, :] <= pos_t[:, None]) & val_t[:, None])
-    mask[~val_t, 0] = True  # padded rows attend somewhere (output unused)
-    lib = sdpa(q.transpose(0, 1).unsqueeze(0), kd, vd, mask)
-    library_ms = graph_time_ms(lib)
-    ctx = positions[valid].astype(np.int64) + 1
-    kv_pos = sum(c + n for c, n in zip(ctx0, lens))
-    pos_bytes = (hd + 4) if int8 else 2 * hd
-    nbytes = 2 * kv_pos * nkv * pos_bytes + 2 * q.numel() * 2 \
-        + tables.nbytes + 9 * T
-    flops = 4 * nh * hd * int(ctx.sum())
-    bound_ms, bound_by = bound(nbytes, flops)
-    log(f"{tag} times: kernel {ms:.4f} ms (graph replay, tile plan "
-        f"included), plain {plain_ms:.4f} ms (host loop), sdpa "
-        f"{library_ms:.4f} ms (graph replay"
-        f"{', context dequantized to bf16 beforehand' if int8 else ''}), "
-        f"bound {bound_ms:.4f} ms ({bound_by})")
-    return {"name": name, "route": "cuda",
-            "source": "dynamo_tpu_torch/csrc/packed_prefill.cu",
-            "replaces": "dynamo_tpu/ops/pallas_packed_prefill.py:195",
-            "max_abs_err": err, "max_rel_err": rel, "ms": ms,
-            "plain_ms": plain_ms, "bound_ms": bound_ms,
-            "bound_by": bound_by, "library_ms": library_ms}
+            faults["scale row of another block"] = plain(cc=_swap_scale_rows(
+                cache, layer, tables[r, col], tables[S - 1, 0]))
+        err, rel = hold_to_plain(f"{tag} {case}", out, plain(), faults)
+        if int8:
+            ends = {s: a + n for s, (a, n) in enumerate(zip(ctx0, lens)) if n}
+            tails = [(tables[s, (e - 1) // bs], (e - 1) % bs + 1)
+                     for s, e in ends.items() if e % bs]
+            _junk_check(f"{tag} {case}",
+                        lambda *cc: packed_call(k3, c, cc, plan)(), cache,
+                        tails, out)
+        ms = graph_time_ms(packed_call(k3, c, plan=plan))
+        plan_ms = graph_time_ms(packed_plan_call(k3, cfg, c))
+        with_plan_ms = graph_time_ms(packed_call(k3, c))
+        bound_ms, bound_by = packed_bound(cfg, c)
+        entry["cases"][case] = {"ms": ms, "plan_ms": plan_ms,
+                                "with_plan_ms": with_plan_ms,
+                                "bound_ms": bound_ms, "max_rel_err": rel}
+        log(f"{tag} {case} times: kernel {ms:.4f} ms (graph replay, tile "
+            f"plan computed beforehand), plan {plan_ms:.4f} ms, kernel "
+            f"with its own plan {with_plan_ms:.4f} ms, bound "
+            f"{bound_ms:.4f} ms ({bound_by})")
+        if ci:
+            continue
+        plain_ms = time_ms(plain, iters=3, warmup=1)
+        # yardstick: one SDPA call over every row's context gathered
+        # (int8: and dequantized to bf16) densely beforehand, with the
+        # segment-causal mask
+        cols = [(s, p) for s in range(S) for p in range(ctx0[s] + lens[s])]
+        col_seg = torch.tensor([s for s, _ in cols], device=device)
+        col_pos = torch.tensor([p for _, p in cols], device=device)
+        col_blk = torch.from_numpy(tables).to(device)[col_seg,
+                                                      col_pos // bs].long()
+        kd, vd = (_dense(cc, s, layer, col_blk, col_pos % bs).unsqueeze(0)
+                  .contiguous()
+                  for cc, s in ((cache[0], cache[2] if int8 else None),
+                                (cache[1], cache[3] if int8 else None)))
+        seg_t, pos_t, val_t = args[1].long(), args[2].long(), args[3]
+        mask = ((seg_t[:, None] == col_seg[None, :])
+                & (col_pos[None, :] <= pos_t[:, None]) & val_t[:, None])
+        mask[~val_t, 0] = True  # padded rows attend somewhere (output unused)
+        library_ms = graph_time_ms(sdpa(q.transpose(0, 1).unsqueeze(0), kd,
+                                        vd, mask))
+        log(f"{tag} {case} times: plain {plain_ms:.4f} ms (host loop), sdpa "
+            f"{library_ms:.4f} ms (graph replay"
+            f"{', context dequantized to bf16 beforehand' if int8 else ''})")
+        entry.update({"max_abs_err": err, "max_rel_err": rel, "ms": ms,
+                      "plan_ms": plan_ms, "with_plan_ms": with_plan_ms,
+                      "plain_ms": plain_ms, "bound_ms": bound_ms,
+                      "bound_by": bound_by, "library_ms": library_ms})
+    entry["max_rel_err"] = max(v["max_rel_err"]
+                               for v in entry["cases"].values())
+    return entry
 
 
 # ---------------------------------------------------------------------------
@@ -774,6 +903,90 @@ def _device_breakdown(prof, wall: float) -> None:
         f"{n[:60]} {us / 1e3:.1f}" for n, us in top))
 
 
+def load_checkout(path: str):
+    """(_build, cuda_paged_attention, cuda_packed_prefill) of the port in
+    another checkout at `path` (for instance the parent commit unpacked
+    into a git-ignored directory), imported under another package name;
+    its kernels build into that checkout's own _build/."""
+    import importlib
+    import importlib.util
+    from pathlib import Path
+
+    pkg = Path(path).resolve() / "dynamo_tpu_torch"
+    name = "ab_dynamo_tpu_torch"
+    spec = importlib.util.spec_from_file_location(
+        name, pkg / "__init__.py", submodule_search_locations=[str(pkg)])
+    mod = importlib.util.module_from_spec(spec)
+    sys.modules[name] = mod
+    spec.loader.exec_module(mod)
+    return tuple(importlib.import_module(f"{name}.ops.{m}") for m in
+                 ("_build", "cuda_paged_attention", "cuda_packed_prefill"))
+
+
+def ab_compare(cfg, device, path: str) -> list:
+    """Each mode of K1 and K3 of this checkout against the same mode of
+    the checkout at `path`, at every case, on the same inputs and in one
+    process: both outputs held to the plain version, and each timed by
+    graph replay in turns (other, this, this, other).  K3's "this" is
+    timed with its tile plan computed beforehand and with a plan of its
+    own per call.  Also times this K1 at other split counts."""
+    from dynamo_tpu_torch.ops import cuda_packed_prefill as k3
+    from dynamo_tpu_torch.ops import cuda_paged_attention as k1
+    from dynamo_tpu_torch.ops.packed_prefill import (
+        packed_prefill_attention_ref,
+    )
+    from dynamo_tpu_torch.ops.paged_attention import (
+        paged_attention_decode_ref,
+    )
+
+    _, o1, o3 = load_checkout(path)
+    rows = []
+    for int8 in (False, True):
+        for case, kv_lens in DECODE_CASES:
+            c = decode_case(cfg, device, kv_lens, int8)
+            sc = dict(k_scale=c["cache"][2], v_scale=c["cache"][3]) \
+                if int8 else {}
+            ref = paged_attention_decode_ref(
+                c["q"], *c["cache"][:2], c["layer"], c["tables_t"],
+                c["lens_t"], round_scaled_q=True, **sc)
+            old, new = decode_call(o1, c), decode_call(k1, c)
+            errs = [row_rel_err(f(), ref) for f in (old, new)]
+            t = [graph_time_ms(f) for f in (old, new, new, old)]
+            sweep = {}
+            if not int8:
+                for n in (2, 4, 5, 8, 9, 16):
+                    sweep[n] = graph_time_ms(lambda n=n: k1._launch(
+                        c["q"], *c["cache"], None, None, c["layer"],
+                        c["tables_t"], c["lens_t"], n_splits=n))
+            rows.append({"kernel": "K1-int8" if int8 else "K1",
+                         "case": case, "old_ms": (t[0] + t[3]) / 2,
+                         "new_ms": (t[1] + t[2]) / 2, "turns": t,
+                         "old_rel_err": errs[0], "new_rel_err": errs[1],
+                         "bound_ms": decode_bound(cfg, c)[0],
+                         "splits_sweep_ms": sweep})
+            log(f"A/B {rows[-1]}")
+        for case, lens, ctx0, order, T in PACKED_CASES:
+            c = packed_case(cfg, device, lens, ctx0, order, T, int8)
+            sc = dict(k_scale=c["cache"][2], v_scale=c["cache"][3]) \
+                if int8 else {}
+            ref = packed_prefill_attention_ref(
+                c["q"], *c["cache"][:2], c["layer"], *c["args"],
+                round_scaled_q=True, **sc)
+            plan = packed_plan_call(k3, cfg, c)()
+            old, new = packed_call(o3, c), packed_call(k3, c, plan=plan)
+            errs = [row_rel_err(f(), ref) for f in (old, new)]
+            t = [graph_time_ms(f) for f in (old, new, new, old)]
+            rows.append({"kernel": "K3-int8" if int8 else "K3",
+                         "case": case, "old_ms": (t[0] + t[3]) / 2,
+                         "new_ms": (t[1] + t[2]) / 2, "turns": t,
+                         "new_with_plan_ms": graph_time_ms(
+                             packed_call(k3, c)),
+                         "old_rel_err": errs[0], "new_rel_err": errs[1],
+                         "bound_ms": packed_bound(cfg, c)[0]})
+            log(f"A/B {rows[-1]}")
+    return rows
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda is not available; nothing to run",
@@ -790,12 +1003,25 @@ def main() -> int:
         f"cudnn={torch.backends.cudnn.allow_tf32}")
     device = torch.device("cuda", 0)
     cfg = PRESETS["llama-8b"]
+    if len(sys.argv) == 3 and sys.argv[1] == "--ab":
+        # python3 chip_smoke.py --ab OTHER_CHECKOUT: the kernels only,
+        # this checkout's against the other's
+        other = load_checkout(sys.argv[2])[0]
+        log(f"build of {sys.argv[2]}: "
+            f"{sorted(other.compile_sources(['paged_decode', 'packed_prefill']))}")
+        build_kernels()
+        print(json.dumps({"ab": ab_compare(cfg, device, sys.argv[2])}),
+              flush=True)
+        print(card, flush=True)
+        return 0
     build_kernels()
     kernels = [check_decode_kernel(cfg, device),
                check_prefill_kernel(cfg, device),
                check_decode_kernel(cfg, device, int8=True),
                check_prefill_kernel(cfg, device, int8=True)]
+    log(f"kernel phases done at {time.perf_counter() - t_start:.1f} s")
     launches, engine, ops_bf16 = check_engine(device, card)
+    log(f"bf16 engine phase done at {time.perf_counter() - t_start:.1f} s")
     # the int8 run reuses the weights; the bf16 cache is freed first
     params = engine.params
     engine.kv = None

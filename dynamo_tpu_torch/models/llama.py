@@ -26,7 +26,11 @@ from typing import Any, Dict, Optional, Tuple
 
 import torch
 
-from ..ops.packed_prefill import packed_prefill_attention, write_packed_kv
+from ..ops.packed_prefill import (
+    packed_attention_plan,
+    packed_prefill_attention,
+    write_packed_kv,
+)
 from ..ops.paged_attention import paged_attention_decode, write_token_kv
 from ..quant.kv import unpack_kv
 
@@ -256,9 +260,13 @@ def prefill_packed(
 def _packed_forward(params, cfg: LlamaConfig, kv_cache: KVCache,
                     token_ids, positions, seg_ids, block_tables, valid):
     """The packed-stream transformer body.  Returns the final hidden
-    states [T, d] (before the final norm)."""
+    states [T, d] (before the final norm).  K3's tile plan depends only on
+    the stream's layout, so it is computed once here for every layer."""
     k_cache, v_cache, k_scale, v_scale = unpack_kv(kv_cache)
     T = token_ids.shape[0]
+    plan = packed_attention_plan(k_cache, cfg.n_heads, block_tables,
+                                 seg_ids, positions, valid,
+                                 impl=cfg.packed_attn_impl)
     x = params["embedding"][token_ids.long()].to(cfg.dtype)  # [T, d]
     for li, layer in enumerate(params["layers"]):
         h = rms_norm(x, layer["attn_norm"]["norm"], cfg.rms_eps)
@@ -268,7 +276,7 @@ def _packed_forward(params, cfg: LlamaConfig, kv_cache: KVCache,
         attn = packed_prefill_attention(
             q, k_cache, v_cache, li, block_tables, seg_ids, positions,
             valid, impl=cfg.packed_attn_impl, k_scale=k_scale,
-            v_scale=v_scale)
+            v_scale=v_scale, plan=plan)
         x = x + _attn_out(layer, attn.reshape(T, cfg.q_dim))
         h = rms_norm(x, layer["mlp_norm"]["norm"], cfg.rms_eps)
         x = x + _mlp(layer, h)

@@ -126,6 +126,7 @@ def packed_prefill_attention(
     impl: str = "auto",
     k_scale: torch.Tensor = None,
     v_scale: torch.Tensor = None,
+    plan=None,
 ) -> torch.Tensor:
     """Causal-within-segment attention for a packed prefill chunk.
 
@@ -136,7 +137,8 @@ def packed_prefill_attention(
     impl: "auto" (the kernel wrapper: CUDA kernel K3 on CUDA tensors,
     the plain version on CPU tensors) or "torch" (the plain version on
     any device).  k_scale/v_scale: an int8 cache's scale planes; they
-    select K3's int8 entry point."""
+    select K3's int8 entry point.  plan: K3's tile plan for this dispatch
+    (`packed_attention_plan`), computed per call when absent."""
     if impl not in PACKED_IMPLS:
         raise ValueError(f"unknown packed-prefill impl {impl!r}; expected "
                          + " | ".join(PACKED_IMPLS))
@@ -150,6 +152,20 @@ def packed_prefill_attention(
     if check_kv_scales(k_cache, k_scale, v_scale):
         return packed_prefill_int8(q, k_cache, v_cache, k_scale, v_scale,
                                    layer, block_tables, seg_ids, positions,
-                                   valid)
+                                   valid, plan=plan)
     return packed_prefill(q, k_cache, v_cache, layer, block_tables, seg_ids,
-                          positions, valid)
+                          positions, valid, plan=plan)
+
+
+def packed_attention_plan(k_cache: torch.Tensor, n_heads: int,
+                          block_tables: torch.Tensor, seg_ids: torch.Tensor,
+                          positions: torch.Tensor, valid: torch.Tensor,
+                          impl: str = "auto"):
+    """K3's tile plan for one packed dispatch (the same for all its
+    layers), or None where no kernel runs (impl "torch", CPU tensors)."""
+    if impl != "auto" or not k_cache.is_cuda:
+        return None
+    from .cuda_packed_prefill import packed_prefill_plan
+
+    return packed_prefill_plan(seg_ids, positions, valid, block_tables,
+                               n_heads, k_cache.shape[1], k_cache.shape[3])

@@ -232,6 +232,20 @@ def test_tolerance_catches_a_wrong_scale_row():
     assert row_rel_err(wrong, want) > REL_TOL
 
 
+@pytest.mark.parametrize("B,nkv,mb,bs,sms,want", [
+    (8, 8, 16, 128, 132, 5),    # the chip_smoke case: 64 (row, head) pairs
+    (4, 8, 16, 128, 132, 9),    # the engine's batch
+    (1, 8, 16, 128, 132, 16),   # one row: capped at MAX_SPLITS
+    (64, 8, 16, 128, 132, 1),   # more pairs than one wave holds
+    (2, 2, 3, 32, 132, 2),      # a table narrower than two units
+])
+def test_decode_split_plan_follows_the_grid(B, nkv, mb, bs, sms, want):
+    """K1's split count comes from B, nkv, the table width and the SM
+    count: one wave of CTAS_PER_SM CTAs per SM at full tables, never more
+    splits than a full table has 64-position units or MAX_SPLITS."""
+    assert cuda_paged_attention.decode_splits(B, nkv, mb, bs, sms) == want
+
+
 def _cuda():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
@@ -282,6 +296,76 @@ def test_decode_int8_kernel_matches_plain_on_gpu(hd):
                                       round_scaled_q=True, k_scale=ks,
                                       v_scale=vs)
     assert row_rel_err(got, want) <= REL_TOL
+
+
+# decode edge cases: (kv_lens, mb); B = 64 draws its lengths from a seed
+_DECODE_EDGES = {
+    "B=1, kv_len 1": ([1], 4),
+    "B=1, a full table": ([2048], 16),
+    "one unit, one split's worth, a unit boundary": ([64, 128, 192, 65], 4),
+    "B=64": (list(np.random.default_rng(7).integers(1, 257, 64)), 2),
+}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("int8", [False, True])
+@pytest.mark.parametrize("case", sorted(_DECODE_EDGES))
+def test_decode_kernel_edge_cases_on_gpu(case, int8):
+    """K1 in both modes at the split plan's edges: a 1-position row, a
+    row that is exactly one unit (its one live split writes the output
+    directly), rows that end on a unit or block boundary, B = 1 (every
+    split of one row live) and B = 64 (one or two splits a row)."""
+    dev = _cuda()
+    kv_lens, mb = _DECODE_EDGES[case]
+    kw = dict(mb=mb, device=dev)
+    if int8:
+        q, k, v, tables, lens, ks, vs = _decode_inputs_int8(kv_lens, **kw)
+        got = cuda_paged_attention.paged_decode_int8(q, k, v, ks, vs, 1,
+                                                     tables, lens)
+        scales = dict(k_scale=ks, v_scale=vs)
+    else:
+        q, k, v, tables, lens = _decode_inputs(kv_lens, **kw)
+        got = cuda_paged_attention.paged_decode(q, k, v, 1, tables, lens)
+        scales = {}
+    want = paged_attention_decode_ref(q, k, v, 1, tables, lens,
+                                      round_scaled_q=True, **scales)
+    assert row_rel_err(got, want) <= REL_TOL
+    # a second call finds the merge counters reset
+    again = (cuda_paged_attention.paged_decode_int8(q, k, v, ks, vs, 1,
+                                                    tables, lens) if int8
+             else cuda_paged_attention.paged_decode(q, k, v, 1, tables,
+                                                    lens))
+    assert torch.equal(again, got)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("int8", [False, True])
+def test_packed_kernel_group8_tile_boundaries_on_gpu(int8):
+    """K3 at group 8, hd 64, bs 64: 16-token tiles, with segment
+    boundaries inside tiles, an empty row, a prefix offset and a padded
+    tail; the plan is computed once and reused, as the model does."""
+    dev = _cuda()
+    lens, ctx0 = [5, 16, 0, 23, 40], [0, 70, 0, 9, 0]
+    kw = dict(group=8, hd=64, bs=64, mb=3, nkv=2, device=dev)
+    if int8:
+        q, k, v, *meta, ks, vs = _packed_inputs_int8(lens, ctx0, **kw)
+        scales = dict(k_scale=ks, v_scale=vs)
+    else:
+        q, k, v, *meta = _packed_inputs(lens, ctx0, **kw)
+        scales = {}
+    tables, seg, pos, valid = meta
+    plan = cuda_packed_prefill.packed_prefill_plan(seg, pos, valid, tables,
+                                                   16, 2, 64)
+    assert plan.token_block == 16
+    fn = (cuda_packed_prefill.packed_prefill_int8 if int8
+          else cuda_packed_prefill.packed_prefill)
+    args = (q, k, v, *(scales.values()), 1, *meta)
+    got = fn(*args, plan=plan)
+    assert torch.equal(fn(*args), got)  # the plan computed per call
+    want = packed_prefill_attention_ref(q, k, v, 1, *meta,
+                                        round_scaled_q=True, **scales)
+    assert row_rel_err(got, want) <= REL_TOL
+    assert bool((got[~valid] == 0).all())
 
 
 @pytest.mark.gpu

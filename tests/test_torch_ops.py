@@ -41,7 +41,6 @@ from dynamo_tpu_torch.models.convert import (
     kv_cache_to_numpy,
 )
 from dynamo_tpu_torch.ops import cuda_packed_prefill, cuda_paged_attention
-from dynamo_tpu_torch.ops.cuda_packed_prefill import packed_tile_plan
 from dynamo_tpu_torch.ops.packed_prefill import (
     packed_prefill_attention,
     packed_prefill_attention_ref,
@@ -227,36 +226,54 @@ def test_garbage_block_and_padded_tail():
     torch.testing.assert_close(d1, d0, rtol=0, atol=0)
 
 
-@pytest.mark.parametrize("lens,token_block,ctx0", [
-    ([5, 11, 3, 13], 8, [0, 0, 0, 0]),
+@pytest.mark.parametrize("lens,group,ctx0", [
+    # segment boundaries mid-tile (the test_chained_dma layout)
+    ([5, 11, 3, 13], 4, [0, 0, 0, 0]),
+    # leading and interleaved EMPTY rows: the first active (tile,
+    # segment) pair is not (0, 0)
     ([0, 7, 0, 9, 0], 8, [0, 0, 0, 0, 0]),
-    ([6, 4, 6], 4, [13, 0, 5]),
+    # uneven rows at prefix offsets, boundaries mid-tile at group 8
+    ([6, 4, 6], 8, [13, 0, 5]),
+    # one segment over several tiles, another starting mid-tile (group 4:
+    # 32-token tiles), a long prefix capped at the table width
+    ([70, 0, 25], 4, [0, 0, 40]),
+    # group 1: 128-token tiles, the whole stream in one tile
+    ([9, 30], 1, [3, 0]),
 ])
-def test_packed_tile_plan_matches_pallas_formula(lens, token_block, ctx0):
+def test_packed_tile_plan_matches_pallas_formula(lens, group, ctx0):
     """The wrapper-side tile-skip plane equals the TPU wrapper's formula
-    (pallas_packed_prefill.py:244-254 at chunk_cols=1): per (tile,
-    segment) the causal frontier in blocks, 0 for foreign segments."""
+    (pallas_packed_prefill.py:244-254 at chunk_cols=1) at the CUDA
+    kernel's tile size: per (tile, segment) the causal frontier in
+    blocks, 0 for foreign segments; the tiles are ordered by their work,
+    most first."""
     bs, mb = 4, 8
+    tb = cuda_packed_prefill.token_block(group)
     T = sum(lens)
-    Tp = -(-(T + 3) // token_block) * token_block  # a padded tail
+    Tp = -(-(T + 3) // tb) * tb  # a padded tail
     seg = np.concatenate([np.full(n, i) for i, n in enumerate(lens)]
                          + [np.zeros(Tp - T)]).astype(np.int32)
     pos = np.concatenate([c + np.arange(n) for c, n in zip(ctx0, lens)]
                          + [np.zeros(Tp - T)]).astype(np.int32)
     valid = np.arange(Tp) < T
-    seg_eff, _, nch = packed_tile_plan(_t(seg), _t(pos), _t(valid),
-                                       len(lens), token_block, bs, mb)
-    n_tiles = Tp // token_block
+    tables = _t(np.ones((len(lens), mb), np.int32))
+    plan = cuda_packed_prefill.packed_prefill_plan(
+        _t(seg), _t(pos), _t(valid), tables, 4 * group, 4, bs)
+    assert plan.token_block == tb == 2 * (64 // group)
+    n_tiles = Tp // tb
     want = np.zeros((n_tiles, len(lens)), np.int32)
     for t in range(n_tiles):
         for s in range(len(lens)):
-            sl = slice(t * token_block, (t + 1) * token_block)
+            sl = slice(t * tb, (t + 1) * tb)
             owned = (seg[sl] == s) & valid[sl]
             if owned.any():
                 want[t, s] = min(pos[sl][owned].max() // bs + 1, mb)
-    np.testing.assert_array_equal(nch.numpy(), want)
-    assert seg_eff.shape == (Tp,)
-    assert (seg_eff.numpy()[~valid] == -1).all()
+    np.testing.assert_array_equal(plan.nchunks.numpy(), want)
+    assert plan.seg_eff.shape == (Tp,)
+    assert (plan.seg_eff.numpy()[~valid] == -1).all()
+    work = want.sum(1)
+    order = plan.order.numpy()
+    assert sorted(order) == list(range(n_tiles))
+    assert (np.diff(work[order]) <= 0).all()
 
 
 def test_cpu_tensors_take_the_plain_version():
