@@ -4,6 +4,8 @@
     python3 chip_smoke.py                 # the whole check, as below
     python3 chip_smoke.py --ab OTHER_DIR  # the kernels only, against
                                           # another checkout's
+    python3 chip_smoke.py --worker-ab     # the engine directly against
+                                          # the engine behind the worker
 
 Builds the port's CUDA kernels from csrc/, holds each entry point (K1
 and K3, each in its bf16 and its int8 mode) against its plain PyTorch
@@ -13,11 +15,18 @@ concurrent requests through `TorchEngine` with the llama-8b preset at
 full width (random bf16 weights made on the card from a seed), first on
 a bf16 KV cache and then, with the same weights, on an int8 KV cache
 sized by a memory budget (`kv_cache_dtype="int8"`, `kv_hbm_gb`), and
-checks the streams.  Any failed phase ends the script with a non-zero
-exit code.  It imports nothing of JAX or of the JAX package.
+checks the streams.  After the bf16 engine run, the same requests go
+through a `TorchEngineWorker` with the same config and weights, over the
+port's runtime (mem discovery, in-process event plane, TCP request plane
+on 127.0.0.1), and the worker's contract is checked: streams, KV events,
+load metrics, FPM records, the MDC, clear_kv_blocks, cancellation and
+close; after the int8 run, one request goes through a worker on the
+int8 cache (its launches and the dtype it reports).  Any failed phase ends the script with a non-zero exit code.  It
+imports nothing of JAX or of the JAX package.
 
 Output: one line per phase; a `{"kernels": [...]}` JSON line with each
-kernel's launches on the main path, error against its plain version
+kernel's launches on the main path (`launches` in the engine run,
+`worker_launches` in the worker run), error against its plain version
 (`max_abs_err`, and `max_rel_err`, the figure the tolerance holds), its
 device time (`ms`, by CUDA-graph replay; K3's with its tile plan
 computed beforehand, as the model does once per dispatch, `plan_ms` the
@@ -35,6 +44,12 @@ commit unpacked into the git-ignored dynamo_tpu_torch/_build/), case by
 case, in one process on one card, in turns (other, this, this, other),
 both held to the plain version; K1 is also timed at other split counts.
 
+With --worker-ab, the five requests on a bf16 cache are served in one
+process directly by a `TorchEngine` and through a `TorchEngineWorker`
+(own caches, the same weights) in turns (direct, worker, worker,
+direct; three rounds), each turn's TTFT, tokens/s, decode-step medians
+and prefill dispatches logged, and the port's codec is timed per frame.
+
 Bounds use the H100 SXM data sheet (3.35 TB/s HBM3, 989 TFLOP/s dense
 bf16); a card run below its 700 W limit is slower, so its limit is
 printed beside every number.
@@ -43,6 +58,7 @@ printed beside every number.
 from __future__ import annotations
 
 import asyncio
+import contextlib
 import dataclasses
 import json
 import subprocess
@@ -751,25 +767,33 @@ def _compare_logits(params, cfg, device, kv_dtype: str) -> int:
 INT8_KV_HBM_GB = 4.5
 
 
+def _engine_config(kv_dtype: str):
+    """The engine runs' config: llama-8b at full width, four slots, a
+    2048-token prefill budget; 512 blocks of bf16 cache, or an int8 cache
+    sized by INT8_KV_HBM_GB."""
+    from dynamo_tpu_torch.engine import EngineConfig
+
+    size = (dict(kv_cache_dtype="int8", kv_hbm_gb=INT8_KV_HBM_GB)
+            if kv_dtype == "int8" else dict(num_blocks=512))
+    return EngineConfig(model="llama-8b", block_size=128,
+                        max_blocks_per_seq=16, max_num_seqs=4,
+                        max_batch_tokens=2048, max_prefill_seqs=4, seed=0,
+                        **size)
+
+
 def check_engine(device, card: str, kv_dtype: str = "bf16", params=None):
     """Serve the five requests through TorchEngine at full width on a
     cache of `kv_dtype`: the bf16 run makes random weights, the int8 run
     takes them as `params` and sizes its cache from INT8_KV_HBM_GB.
     Returns (the main path's launch counts by kernel name, the engine,
-    device operations of one decode step)."""
-    from dynamo_tpu_torch.engine import EngineConfig, TorchEngine
+    device operations of one decode step, (the second (warm) run's
+    results, its decode steps' _step_medians))."""
+    from dynamo_tpu_torch.engine import TorchEngine
     from dynamo_tpu_torch.models import llama
-    from dynamo_tpu_torch.ops import cuda_packed_prefill as k3
-    from dynamo_tpu_torch.ops import cuda_paged_attention as k1
     from dynamo_tpu_torch.quant.kv import blocks_for_hbm_budget
 
     int8 = kv_dtype == "int8"
-    size = (dict(kv_cache_dtype="int8", kv_hbm_gb=INT8_KV_HBM_GB) if int8
-            else dict(num_blocks=512))
-    cfg = EngineConfig(model="llama-8b", block_size=128,
-                       max_blocks_per_seq=16, max_num_seqs=4,
-                       max_batch_tokens=2048, max_prefill_seqs=4, seed=0,
-                       **size)
+    cfg = _engine_config(kv_dtype)
     if int8:
         mc8 = cfg.resolve_model()
         per = {d: blocks_for_hbm_budget(llama, mc8, 128, d,
@@ -780,10 +804,8 @@ def check_engine(device, card: str, kv_dtype: str = "bf16", params=None):
             f"128 (ratio {per['int8'] / per['bf16']:.3f})")
     # (decode, prefill) wrappers of this cache dtype; the other pair's
     # counts must stay 0 (no route from one dtype to the other's kernel)
-    used = ((k1.paged_decode_int8, k3.packed_prefill_int8) if int8
-            else (k1.paged_decode, k3.packed_prefill))
-    unused = ((k1.paged_decode, k3.packed_prefill) if int8
-              else (k1.paged_decode_int8, k3.packed_prefill_int8))
+    used = _kernels_of(kv_dtype)
+    unused = _kernels_of("bf16" if int8 else "int8")
     t0 = time.perf_counter()
     engine = TorchEngine(cfg, params=params, device=device)
     torch.cuda.synchronize()
@@ -807,7 +829,11 @@ def check_engine(device, card: str, kv_dtype: str = "bf16", params=None):
             counts = {fn.__name__: fn.launches for fn in (*used, *unused)}
             stats = dict(engine.metrics)
             await engine.clear_kv_blocks()
+            engine.fpm.clear()
+            w0 = time.monotonic()
             second = await _serve(engine, reqs)
+            steps = _step_medians(engine.fpm)
+            dispatches = _prefill_dispatches(engine.fpm, w0)
             await engine.clear_kv_blocks()
             with torch.profiler.profile(activities=[
                     torch.profiler.ProfilerActivity.CPU,
@@ -816,11 +842,14 @@ def check_engine(device, card: str, kv_dtype: str = "bf16", params=None):
                 await _serve(engine, reqs)
                 torch.cuda.synchronize()
                 wall = time.perf_counter() - t0
-            return first, counts, stats, second, (prof, wall)
+            return (first, counts, stats, (second, steps), dispatches,
+                    (prof, wall))
         finally:
             await engine.close()
 
-    first, launches, stats, second, (prof, wall) = asyncio.run(run())
+    first, launches, stats, direct, dispatches, (prof, wall) = \
+        asyncio.run(run())
+    second = direct[0]
     for i, (toks, finish, ttft, _) in enumerate(first):
         log(f"  request {i}: prompt {len(reqs[i].token_ids)} tokens, "
             f"{len(toks)} out, finish={finish}, ttft={ttft:.3f} s")
@@ -856,19 +885,468 @@ def check_engine(device, card: str, kv_dtype: str = "bf16", params=None):
     if not same:
         raise SystemExit("greedy streams are not reproducible")
     for name, res in (("first (cold)", first), ("second (warm)", second)):
-        ttft = [r[2] for r in res]
-        t_first = min(ttft)
-        t_end = max(r[3] for r in res)
-        dec_tokens = sum(len(r[0]) - 1 for r in res)
+        n, secs = _decode_rate(res)
         log(f"serving, {kv_dtype} cache, {name} run ({card}): ttft s per "
-            f"request "
-            f"{[round(t, 4) for t in ttft]}, decode {dec_tokens} tokens in "
-            f"{t_end - t_first:.3f} s = "
-            f"{dec_tokens / (t_end - t_first):.1f} tokens/s aggregate "
+            f"request {[round(r[2], 4) for r in res]}, decode {n} tokens in "
+            f"{secs:.3f} s = {n / secs:.1f} tokens/s aggregate "
             f"(max_num_seqs={cfg.max_num_seqs}, eager, no CUDA graphs)")
+    log(f"decode step ms, second (warm) run, median by lanes (FPM gap_s): "
+        f"{_fmt_steps(direct[1])}; its prefill dispatches (ms after the "
+        f"start, rows, tokens): {dispatches}")
     _device_breakdown(prof, wall)
     ops = _compare_logits(engine.params, mc, device, kv_dtype)
-    return {fn.__name__: launches[fn.__name__] for fn in used}, engine, ops
+    return ({fn.__name__: launches[fn.__name__] for fn in used}, engine, ops,
+            direct)
+
+
+def _decode_rate(res) -> tuple:
+    """(decode tokens after each request's first, seconds from the first
+    first token to the last token) of a _serve-shaped result."""
+    t_first = min(r[2] for r in res)
+    return (sum(len(r[0]) - 1 for r in res),
+            max(r[3] for r in res) - t_first)
+
+
+def _step_medians(records) -> dict:
+    """{lanes: (median ms, steps)} of the decode steps' dispatch-to-
+    dispatch gaps in FPM records: the host-bound step time by batch size,
+    where a prefill dispatch between two steps falls out of the median
+    (the aggregate tokens/s does not separate them)."""
+    by: dict = {}
+    for r in records:
+        if r["kind"] == "decode" and r["gap_s"] > 0:
+            by.setdefault(r["lanes"], []).append(r["gap_s"] * 1e3)
+    return {k: (float(np.median(v)), len(v)) for k, v in sorted(by.items())}
+
+
+def _prefill_dispatches(records, w0: float) -> list:
+    """[ms after `w0` (time.monotonic), rows, tokens] of each packed
+    prefill dispatch in FPM `records` after w0."""
+    return [[round((r["t"] - w0) * 1e3, 1), r["rows"], r["tokens"]]
+            for r in records if r["kind"] == "prefill" and r["t"] >= w0]
+
+
+def _fmt_steps(steps: dict) -> str:
+    return ", ".join(f"{k} lanes {ms:.2f} ms ({n} steps)"
+                     for k, (ms, n) in steps.items())
+
+
+# ---------------------------------------------------------------------------
+# phase 6: the worker at full width
+# ---------------------------------------------------------------------------
+
+
+@contextlib.asynccontextmanager
+async def _serving_worker(device, cfg, params):
+    """A TorchEngineWorker (config `cfg` with warm-up, a fresh cache of
+    its kind, weights `params`) on a fresh runtime of the port: mem
+    discovery, in-process event plane, the TCP request plane on
+    127.0.0.1.  Yields (runtime, worker, generate client, seen), `seen`
+    collecting every message on the worker's kv_events, load_metrics and
+    fpm subjects under "kv", "load" and "fpm".  On exit closes the worker
+    and exits unless its MDC left discovery."""
+    import uuid
+
+    from dynamo_tpu_torch.engine import TorchEngineWorker
+    from dynamo_tpu_torch.runtime import DistributedRuntime, RuntimeConfig
+
+    rt = await DistributedRuntime(config=RuntimeConfig(
+        discovery_backend="mem", event_plane="inproc",
+        tcp_host="127.0.0.1"), cluster_id=uuid.uuid4().hex).start()
+    t0 = time.perf_counter()
+    worker = await TorchEngineWorker(
+        rt, dataclasses.replace(cfg, warmup=True), params=params,
+        device=device).start()
+    log(f"worker ({cfg.kv_cache_dtype} KV cache): started with warm-up in "
+        f"{time.perf_counter() - t0:.1f} s, {worker.config.num_blocks} KV "
+        f"blocks, instance {worker.served.instance_id} @ "
+        f"{worker.served.instance.address}")
+    seen = {"kv": [], "load": [], "fpm": []}
+    stop = asyncio.Event()
+
+    async def listen(subject, into):
+        async for _, msg in rt.event_plane.subscribe(subject, cancel=stop):
+            into.append(msg)
+
+    listeners = [asyncio.create_task(listen(f"{k}.dynamo.backend", seen[v]))
+                 for k, v in (("kv_events", "kv"), ("load_metrics", "load"),
+                              ("fpm", "fpm"))]
+    client = await rt.namespace("dynamo").component("backend").endpoint(
+        "generate").client().start()
+    key = worker.card.key(worker.served.instance_id)
+    try:
+        await client.wait_for_instances()
+        yield rt, worker, client, seen
+    finally:
+        stop.set()
+        for t in listeners:
+            t.cancel()
+        await asyncio.gather(*listeners, return_exceptions=True)
+        await client.close()
+        await worker.close()
+        gone = not await rt.discovery.get_prefix(key)
+        worker.engine.kv = None
+        await rt.shutdown()
+        log(f"worker close(): MDC gone from discovery: {gone}")
+        if not gone:
+            raise SystemExit("the MDC outlived close()")
+
+
+async def _serve_worker(client, reqs):
+    """_serve through the request plane: every request sent at once as
+    PreprocessedRequest.to_dict() by `client`."""
+    t0 = time.perf_counter()
+
+    async def one(req):
+        toks, finish, first = [], None, None
+        async for out in client.generate(req.to_dict()):
+            if out.get("token_ids") and first is None:
+                first = time.perf_counter() - t0
+            toks.extend(out.get("token_ids", []))
+            finish = out.get("finish_reason")
+        return toks, finish, first, time.perf_counter() - t0
+
+    return await asyncio.gather(*(one(r) for r in reqs))
+
+
+def _kernels_of(kv_dtype: str) -> tuple:
+    """The (decode, prefill) wrappers that serve a cache of `kv_dtype`."""
+    from dynamo_tpu_torch.ops import cuda_packed_prefill as k3
+    from dynamo_tpu_torch.ops import cuda_paged_attention as k1
+
+    if kv_dtype == "int8":
+        return k1.paged_decode_int8, k3.packed_prefill_int8
+    return k1.paged_decode, k3.packed_prefill
+
+
+def _check_worker_launches(counts: dict, steps: dict, L: int) -> None:
+    """Exit unless the worker's (decode, prefill) launch `counts` cover
+    L layers x its decode steps and prefill dispatches in `steps`."""
+    dec, pre = counts
+    need_dec, need_pre = L * steps["decode_steps"], L * steps["prefill_steps"]
+    log(f"worker launches: {dec} {counts[dec]} (>= {need_dec} = {L} layers x "
+        f"{steps['decode_steps']} decode steps), {pre} {counts[pre]} (>= "
+        f"{need_pre} = {L} x {steps['prefill_steps']} prefill dispatches)")
+    if counts[dec] < need_dec or counts[pre] < need_pre or not need_dec:
+        raise SystemExit("the worker did not run through both kernels")
+
+
+def check_worker(device, card: str, cfg, params, direct) -> dict:
+    """The five requests through a TorchEngineWorker (_serving_worker)
+    with the engine run's config `cfg` and weights `params`, sent
+    concurrently by a client of the same runtime.  `direct` is the
+    engine run's (warm run's results, decode-step medians), for the log:
+    the worker starts warm too.  Exits unless every request finishes
+    with 32 tokens, the kernels of this cache dtype were launched at least
+    layers x steps times, the stored KV events carry every prompt's
+    full-block hashes, the prefix hit reuses >= 1024 tokens, load_metrics
+    and FPM records arrive, the MDC is in discovery, clear_kv_blocks over
+    the request plane clears blocks and removed events follow, a stream
+    cancelled midway frees its slot, and close() removes the MDC.  Returns
+    the worker run's launch counts by kernel name."""
+    from dynamo_tpu_torch.router.events import wire_to_hash
+    from dynamo_tpu_torch.tokens import compute_block_hashes_for_request
+
+    kv_dtype = cfg.kv_cache_dtype
+    used = _kernels_of(kv_dtype)
+    reqs = _requests(cfg.resolve_model().vocab_size)
+    bs = cfg.block_size
+
+    async def run():
+        async with _serving_worker(device, cfg, params) as (
+                rt, worker, client, seen):
+            eng, iid = worker.engine, worker.served.instance_id
+            ep = rt.namespace("dynamo").component("backend")
+            if not await rt.discovery.get_prefix(worker.card.key(iid)):
+                raise SystemExit("the MDC is not in discovery")
+            m0 = dict(eng.metrics)
+            # the main path's run: counts set to 0 just before, read just
+            # after, before any other launch
+            for fn in used:
+                fn.launches = 0
+            w0 = time.monotonic()
+            res = await _serve_worker(client, reqs)
+            w1 = time.monotonic()
+            counts = {fn.__name__: fn.launches for fn in used}
+            steps = {k: eng.metrics[k] - m0[k] for k in
+                     ("decode_steps", "prefill_steps", "cache_hit_tokens")}
+            # load metrics and FPM records (published every 0.5 s)
+            for _ in range(100):
+                if seen["load"] and seen["fpm"]:
+                    break
+                await asyncio.sleep(0.05)
+            n_removed = len(seen["kv"])
+            cleared = [x async for x in ep.endpoint("clear_kv_blocks")
+                       .client().generate({})]
+            for _ in range(100):
+                if any(e["op"] == "removed" for e in seen["kv"][n_removed:]):
+                    break
+                await asyncio.sleep(0.02)
+            removed_after = [e for e in seen["kv"][n_removed:]
+                             if e["op"] == "removed"]
+            # one stream abandoned after 4 tokens: the client kills it on
+            # the server, and the engine frees its slot
+            long = dataclasses.replace(reqs[3], request_id="smoke-cancel")
+            long.stop = dataclasses.replace(long.stop, max_tokens=1000)
+            got = 0
+            stream = client.generate(long.to_dict())
+            async for out in stream:
+                got += len(out.get("token_ids", []))
+                if got >= 4:
+                    break
+            await stream.aclose()
+            for _ in range(200):
+                if eng.num_active_seqs == 0:
+                    break
+                await asyncio.sleep(0.02)
+            freed = eng.num_active_seqs == 0
+            await asyncio.sleep(0.6)  # the main run's last FPM records
+            recs = [r for m in seen["fpm"] for r in m["steps"]
+                    if w0 <= r["t"] <= w1]
+            return (res, counts, steps, dict(seen), cleared, removed_after,
+                    got, freed, (_step_medians(recs),
+                                 _prefill_dispatches(recs, w0)))
+
+    (res, counts, steps, seen, cleared, removed_after, got, freed,
+     (step_ms, dispatches)) = asyncio.run(run())
+    direct, direct_step_ms = direct
+    for i, (toks, finish, ttft, _) in enumerate(res):
+        log(f"  worker request {i}: prompt {len(reqs[i].token_ids)} tokens, "
+            f"{len(toks)} out, finish={finish}, ttft={ttft:.3f} s "
+            f"(direct, warm {direct[i][2]:.3f} s)")
+    bad = [i for i, r in enumerate(res) if r[1] != "length" or len(r[0]) != 32]
+    if bad:
+        raise SystemExit(f"worker requests {bad} did not finish with 32 tokens")
+    _check_worker_launches(counts, steps, cfg.resolve_model().n_layers)
+    stored = {wire_to_hash(h) for e in seen["kv"] if e["op"] == "stored"
+              for h in e["block_hashes"]}
+    for r in reqs:
+        full = len(r.token_ids) // bs
+        want = compute_block_hashes_for_request(r.token_ids, bs)[:full]
+        if not stored.issuperset(want):
+            raise SystemExit(f"{r.request_id}: stored KV events lack its "
+                             "full-block hashes")
+    log(f"worker KV events: {len(seen['kv'])} batches, {len(stored)} stored "
+        f"hashes covering every prompt's full blocks; prefix reuse "
+        f"{steps['cache_hit_tokens']} tokens")
+    if steps["cache_hit_tokens"] < 1024:
+        raise SystemExit("worker prefix hit not taken")
+    load = seen["load"][-1] if seen["load"] else {}
+    log(f"worker load_metrics: {len(seen['load'])} messages, last "
+        f"worker_id={load.get('worker_id')} kv_usage={load.get('kv_usage')} "
+        f"kv_cache_dtype={load.get('kv_cache_dtype')} itl_ema_s="
+        f"{load.get('itl_ema_s')}; fpm: {len(seen['fpm'])} messages, "
+        f"{sum(len(m['steps']) for m in seen['fpm'])} records")
+    if not ({"worker_id", "kv_usage"} <= set(load)
+            and load["kv_cache_dtype"] == kv_dtype and seen["fpm"]):
+        raise SystemExit("load_metrics or fpm records missing")
+    n_cleared = cleared[0]["cleared_blocks"] if cleared else 0
+    log(f"worker clear_kv_blocks over the request plane: {n_cleared} blocks, "
+        f"then {len(removed_after)} removed events; a stream abandoned after "
+        f"{got} tokens freed its slot: {freed}")
+    if n_cleared <= 0 or not removed_after or not freed:
+        raise SystemExit("clear_kv_blocks or cancellation failed")
+    greedy = [i for i, r in enumerate(reqs) if r.sampling.temperature <= 0]
+    same = sum(res[i][0] == direct[i][0] for i in greedy)
+    n, secs = _decode_rate(res)
+    dn, dsecs = _decode_rate(direct)
+    log(f"serving through the worker, {kv_dtype} cache ({card}): ttft s per "
+        f"request {[round(r[2], 4) for r in res]}, decode {n} tokens in "
+        f"{secs:.3f} s = {n / secs:.1f} tokens/s aggregate, against the "
+        f"direct engine's warm run's {dn / dsecs:.1f} tokens/s (ttft "
+        f"{[round(r[2], 4) for r in direct]}); greedy streams equal to the "
+        f"direct run's: {same} of {len(greedy)} (not required: batching "
+        f"differs, and so does bf16 rounding)")
+    log(f"decode step ms through the worker, median by lanes (FPM gap_s): "
+        f"{_fmt_steps(step_ms)}; direct warm run: "
+        f"{_fmt_steps(direct_step_ms)}; the worker's prefill dispatches (ms "
+        f"after the start, rows, tokens): {dispatches}")
+    return counts
+
+
+def check_worker_short(device, cfg, params) -> dict:
+    """One request (the 500-token prompt) through a TorchEngineWorker with
+    `cfg` (the int8 run's) and weights `params`: exits unless it finishes
+    with 32 tokens, the kernels of the cache's dtype were launched at
+    least layers x steps times, and load_metrics reports that dtype.  The
+    rest of the worker's contract does not depend on the cache dtype;
+    check_worker holds it.  Returns the launch counts by kernel name."""
+    used = _kernels_of(cfg.kv_cache_dtype)
+    req = _requests(cfg.resolve_model().vocab_size)[1]
+
+    async def run():
+        async with _serving_worker(device, cfg, params) as (
+                _, worker, client, seen):
+            eng = worker.engine
+            m0 = dict(eng.metrics)
+            for fn in used:
+                fn.launches = 0
+            res = await _serve_worker(client, [req])
+            counts = {fn.__name__: fn.launches for fn in used}
+            steps = {k: eng.metrics[k] - m0[k]
+                     for k in ("decode_steps", "prefill_steps")}
+            for _ in range(100):
+                if seen["load"]:
+                    break
+                await asyncio.sleep(0.05)
+            return res[0], counts, steps, list(seen["load"])
+
+    (toks, finish, ttft, _), counts, steps, load = asyncio.run(run())
+    kv = load[-1].get("kv_cache_dtype") if load else None
+    log(f"  worker request 1 alone: {len(toks)} out, finish={finish}, "
+        f"ttft={ttft:.3f} s; load_metrics kv_cache_dtype={kv}")
+    if finish != "length" or len(toks) != 32:
+        raise SystemExit("the worker's request did not finish with 32 tokens")
+    _check_worker_launches(counts, steps, cfg.resolve_model().n_layers)
+    if kv != cfg.kv_cache_dtype:
+        raise SystemExit(f"load_metrics kv_cache_dtype {kv!r}, expected "
+                         f"{cfg.kv_cache_dtype!r}")
+    return counts
+
+
+# ---------------------------------------------------------------------------
+# --worker-ab: does the request plane show in host-bound decode?
+# ---------------------------------------------------------------------------
+
+
+def codec_cost(packb, unpackb, reps: int = 20000) -> dict:
+    """Microseconds per call of `packb` and `unpackb` (the port's codec, or
+    any with msgpack's interface) on the request plane's frames: the data
+    frame of one token (one per stream per decode step, packed by the
+    server and unpacked by the client) and the request frame of the
+    1800-token prompt (one per request)."""
+    from dynamo_tpu_torch.protocols import LLMEngineOutput
+
+    frames = {
+        "token": {"t": "data", "id": "0123456789abcdef",
+                  "data": LLMEngineOutput(token_ids=[91234]).to_dict()},
+        "request": {"t": "req", "id": "0123456789abcdef",
+                    "path": "dynamo/backend/generate", "iid": 2**62 + 1,
+                    "payload": _requests(128256)[0].to_dict(), "ctx": {}},
+    }
+    out = {}
+    for name, frame in frames.items():
+        n = reps if name == "token" else max(reps // 200, 10)
+        body = packb(frame)
+        t0 = time.perf_counter()
+        for _ in range(n):
+            packb(frame)
+        t1 = time.perf_counter()
+        for _ in range(n):
+            unpackb(body)
+        t2 = time.perf_counter()
+        out[name] = {"bytes": len(body), "pack_us": (t1 - t0) / n * 1e6,
+                     "unpack_us": (t2 - t1) / n * 1e6}
+    return out
+
+
+def _ab_record(path: str, res, records, w0: float) -> dict:
+    """One turn of worker_ab: TTFT per request, aggregate decode tokens/s,
+    the median decode step by lanes and the prefill dispatches (ms after
+    the turn's start, rows, tokens) of the FPM `records` in the turn."""
+    n, secs = _decode_rate(res)
+    return {
+        "path": path,
+        "ttft_s": [round(r[2], 4) for r in res],
+        "decode_tok_s": round(n / secs, 2),
+        "step_ms": {k: [round(ms, 2), c]
+                    for k, (ms, c) in _step_medians(records).items()},
+        "prefills": _prefill_dispatches(records, w0),
+    }
+
+
+def worker_ab(device, card: str, rounds: int = 3) -> dict:
+    """The five requests at llama-8b width on a bf16 cache, served in one
+    process directly by a TorchEngine and through a TorchEngineWorker
+    (_serving_worker: its own cache, the same weights) in turns (direct,
+    worker, worker, direct) `rounds` times, after one warm-up run of
+    each; every turn starts from a cleared prefix cache after 1.1 s
+    idle.  Returns the
+    turns (_ab_record), each path's median over its turns, and the
+    port's codec_cost on this host."""
+    from dynamo_tpu_torch.engine import TorchEngine
+    from dynamo_tpu_torch.runtime.codec import packb, unpackb
+
+    cfg = _engine_config("bf16")
+    reqs = _requests(cfg.resolve_model().vocab_size)
+
+    async def run():
+        engine = TorchEngine(cfg, device=device)
+        turns = []
+        try:
+            async with _serving_worker(device, cfg, engine.params) as (
+                    _, worker, client, seen):
+                paths = {"direct": (engine, lambda: _serve(engine, reqs)),
+                         "worker": (worker.engine,
+                                    lambda: _serve_worker(client, reqs))}
+                for eng, serve in paths.values():  # warm-up
+                    await serve()
+                    await eng.clear_kv_blocks()
+                await asyncio.sleep(1.1)
+                order = ["direct", "worker", "worker", "direct"] * rounds
+                for path in order:
+                    eng, serve = paths[path]
+                    w0 = time.monotonic()
+                    res = await serve()
+                    w1 = time.monotonic()
+                    await eng.clear_kv_blocks()
+                    # idle past the FPM's 1 s gap limit, so that no step
+                    # gap spans two turns; the worker's load loop
+                    # publishes its records meanwhile
+                    await asyncio.sleep(1.1)
+                    recs = [r for r in engine.fpm if w0 <= r["t"] <= w1] \
+                        if path == "direct" else \
+                        [r for m in seen["fpm"] for r in m["steps"]
+                         if w0 <= r["t"] <= w1]
+                    bad = [i for i, r in enumerate(res)
+                           if r[1] != "length" or len(r[0]) != 32]
+                    if bad:
+                        raise SystemExit(f"{path} requests {bad} did not "
+                                         "finish with 32 tokens")
+                    turns.append(_ab_record(path, res, recs, w0))
+                    log(f"worker A/B turn {len(turns)}: {turns[-1]}")
+        finally:
+            await engine.close()
+        return turns
+
+    turns = asyncio.run(run())
+    summary = {}
+    for path in ("direct", "worker"):
+        mine = [t for t in turns if t["path"] == path]
+        med = {"decode_tok_s": float(np.median([t["decode_tok_s"]
+                                                for t in mine]))}
+        for lanes in ("1", "4"):
+            vals = [t["step_ms"][int(lanes)][0] for t in mine
+                    if int(lanes) in t["step_ms"]]
+            med[f"step_ms_{lanes}_lanes"] = (float(np.median(vals))
+                                            if vals else None)
+        med["ttft_s"] = [float(np.median([t["ttft_s"][i] for t in mine]))
+                         for i in range(len(reqs))]
+        summary[path] = med
+        log(f"worker A/B, {path}, median of {len(mine)} turns ({card}): "
+            f"{med}")
+    # the host drifts over a run, so each round (direct, worker, worker,
+    # direct) is also compared within itself: the worker turns' mean
+    # step over the direct turns' mean step
+    ratios = {}
+    for lanes in (1, 4):
+        ratios[f"{lanes}_lanes"] = [
+            round(float(np.mean([t["step_ms"][lanes][0] for t in rnd[1:3]])
+                        / np.mean([t["step_ms"][lanes][0]
+                                   for t in (rnd[0], rnd[3])])), 4)
+            for rnd in (turns[i:i + 4] for i in range(0, len(turns), 4))]
+    summary["worker_over_direct_by_round"] = ratios
+    log(f"worker A/B, worker step over direct step within each round: "
+        f"{ratios}")
+    codec = codec_cost(packb, unpackb)
+    tok = codec["token"]
+    per_step = 4 * (tok["pack_us"] + tok["unpack_us"])
+    step = summary["worker"]["step_ms_4_lanes"]
+    log(f"the port's codec on this host: {codec}; at 4 lanes a decode step "
+        f"packs and unpacks 4 token frames, {per_step:.1f} us"
+        + (f" = {100 * per_step / (step * 1e3):.3f}% of the worker's "
+           f"median step" if step else ""))
+    return {"turns": turns, "median": summary, "codec_us": codec}
 
 
 def _device_breakdown(prof, wall: float) -> None:
@@ -1014,26 +1492,43 @@ def main() -> int:
               flush=True)
         print(card, flush=True)
         return 0
+    if sys.argv[1:] == ["--worker-ab"]:
+        # python3 chip_smoke.py --worker-ab: the engine directly against
+        # the engine behind the worker, in turns
+        print(json.dumps({"worker_ab": worker_ab(device, card)}), flush=True)
+        print(card, flush=True)
+        return 0
     build_kernels()
     kernels = [check_decode_kernel(cfg, device),
                check_prefill_kernel(cfg, device),
                check_decode_kernel(cfg, device, int8=True),
                check_prefill_kernel(cfg, device, int8=True)]
     log(f"kernel phases done at {time.perf_counter() - t_start:.1f} s")
-    launches, engine, ops_bf16 = check_engine(device, card)
+    launches, engine, ops_bf16, direct = check_engine(device, card)
     log(f"bf16 engine phase done at {time.perf_counter() - t_start:.1f} s")
-    # the int8 run reuses the weights; the bf16 cache is freed first
+    # the later runs reuse the weights; each cache is freed first
     params = engine.params
     engine.kv = None
+    torch.cuda.empty_cache()
+    worker_launches = check_worker(device, card, engine.config, params,
+                                   direct)
+    log(f"bf16 worker phase done at {time.perf_counter() - t_start:.1f} s")
     del engine
     torch.cuda.empty_cache()
-    launches8, _, ops_int8 = check_engine(device, card, "int8", params)
+    launches8, engine8, ops_int8, _ = check_engine(device, card, "int8",
+                                                   params)
     launches.update(launches8)
+    log(f"int8 engine phase done at {time.perf_counter() - t_start:.1f} s")
+    engine8.kv = None
+    torch.cuda.empty_cache()
+    worker_launches.update(check_worker_short(device, engine8.config, params))
+    log(f"int8 worker phase done at {time.perf_counter() - t_start:.1f} s")
     log(f"device operations per decode step (one sequence): int8 cache "
         f"{ops_int8} against bf16 cache {ops_bf16} (the plain-torch "
         f"quantize-on-write adds {ops_int8 - ops_bf16})")
     for k in kernels:
         k["launches"] = launches[k["name"]]
+        k["worker_launches"] = worker_launches[k["name"]]
     log(f"chip_smoke: every phase passed in "
         f"{time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}), flush=True)

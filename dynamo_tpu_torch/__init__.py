@@ -1,4 +1,6 @@
-"""dynamo_tpu_torch: the PyTorch/CUDA port of dynamo_tpu's engine.
+"""dynamo_tpu_torch: the PyTorch/CUDA port of dynamo_tpu's engine and
+its worker (`python -m dynamo_tpu_torch.engine`, on the port's own copy
+of the distributed runtime in runtime/).
 
 A second package beside the JAX one (`dynamo_tpu/`, the reference it is
 held against), for one NVIDIA H100.  It imports `torch`, never `jax`, and

@@ -1,4 +1,5 @@
 from .config import EngineConfig
 from .core import TorchEngine
+from .worker import TorchEngineWorker
 
-__all__ = ["EngineConfig", "TorchEngine"]
+__all__ = ["EngineConfig", "TorchEngine", "TorchEngineWorker"]

@@ -1,0 +1,128 @@
+"""`python -m dynamo_tpu_torch.engine` — run a torch engine worker.
+
+The counterpart of `python -m dynamo_tpu.engine`, with the flags of the
+features the port serves (flags of features not ported yet are not
+offered) and `--device`, CUDA by default: without CUDA the worker exits
+non-zero unless `--device cpu` asks for the plain attention versions on
+the CPU.  The runtime is configured from the `DYN_*` environment
+(runtime/config.py), e.g. DYN_DISCOVERY_BACKEND=file and
+DYN_DISCOVERY_PATH=<dir> to sit behind `python -m dynamo_tpu.frontend`
+on one host.  Prints `ready instance_id=<id>` once registered; SIGTERM
+drains, deregisters and exits.
+"""
+
+import argparse
+import asyncio
+import os
+import sys
+
+from ..device import resolve_device
+from ..ops.packed_prefill import PACKED_IMPLS
+from ..ops.paged_attention import DECODE_IMPLS
+from ..runtime import DistributedRuntime
+from ..runtime.aio import install_drain_handler
+from ..runtime.logging import setup_logging
+from .config import EngineConfig
+from .worker import TorchEngineWorker
+
+
+def build_args() -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser("dynamo_tpu_torch.engine")
+    p.add_argument("--model", default="tiny", help="model preset name")
+    p.add_argument("--model-name", default="", help="served model name")
+    p.add_argument("--namespace", default="dynamo")
+    p.add_argument("--component", default="backend")
+    p.add_argument("--block-size", type=int, default=128)
+    p.add_argument("--num-blocks", type=int, default=128)
+    p.add_argument("--max-blocks-per-seq", type=int, default=64)
+    p.add_argument("--max-num-seqs", type=int, default=8)
+    p.add_argument("--no-prefix-caching", action="store_true")
+    p.add_argument("--kv-cache-dtype", default="bf16",
+                   choices=["bf16", "int8"],
+                   help="KV storage dtype (quant/kv.py): int8 stores codes "
+                        "plus fp32 scales, ~1.94x the blocks per byte at "
+                        "head_dim 128")
+    p.add_argument("--kv-hbm-gb", type=float, default=0.0,
+                   help="KV memory budget in GB: derive --num-blocks from "
+                        "bytes per block at the KV dtype (0 = use "
+                        "--num-blocks as given)")
+    p.add_argument("--prefill-chunk-tokens", type=int, default=0,
+                   help="packed-prefill token budget per scheduler step; "
+                        "0 = max_batch_tokens")
+    p.add_argument("--attn-impl", default="", choices=["", *DECODE_IMPLS],
+                   help="decode attention: auto = kernel K1 on CUDA "
+                        "tensors, torch = the plain version; default keeps "
+                        "the preset's")
+    p.add_argument("--packed-attn-impl", default="",
+                   choices=["", *PACKED_IMPLS],
+                   help="packed-prefill attention: auto = kernel K3 on "
+                        "CUDA tensors, torch = the plain version")
+    p.add_argument("--peak-tflops", type=float,
+                   default=float(os.environ.get("DYN_PEAK_TFLOPS", "0")),
+                   help="dense-bf16 peak, for prefill MFU in the FPM "
+                        "records (H100 SXM: 989); 0 = unknown")
+    p.add_argument("--migration-limit", type=int, default=3)
+    p.add_argument("--no-warmup", action="store_true",
+                   help="skip the kernel build and decode warm-up at "
+                        "startup")
+    p.add_argument("--drain-deadline-s", type=float, default=5.0,
+                   help="SIGTERM grace: in-flight requests get this long "
+                        "to finish before the rest error with the "
+                        "migratable 'worker draining' marker")
+    p.add_argument("--device", default="cuda",
+                   help="cuda (default; exits non-zero without CUDA), "
+                        "cuda:N, or cpu (the plain attention versions)")
+    return p
+
+
+async def main() -> int:
+    setup_logging()
+    args = build_args().parse_args()
+    try:
+        device = resolve_device(args.device)
+    except (RuntimeError, ValueError) as e:
+        print(f"dynamo_tpu_torch.engine: {e}", file=sys.stderr)
+        return 2
+    config = EngineConfig(
+        model=args.model,
+        model_name=args.model_name,
+        block_size=args.block_size,
+        num_blocks=args.num_blocks,
+        max_blocks_per_seq=args.max_blocks_per_seq,
+        max_num_seqs=args.max_num_seqs,
+        enable_prefix_caching=not args.no_prefix_caching,
+        kv_cache_dtype=args.kv_cache_dtype,
+        kv_hbm_gb=args.kv_hbm_gb,
+        prefill_chunk_tokens=args.prefill_chunk_tokens,
+        attn_impl=args.attn_impl,
+        packed_attn_impl=args.packed_attn_impl,
+        peak_tflops=args.peak_tflops,
+        warmup=not args.no_warmup,
+    )
+    rt = await DistributedRuntime.detached().start()
+    worker = await TorchEngineWorker(
+        rt, config, namespace=args.namespace, component=args.component,
+        migration_limit=args.migration_limit, device=device,
+    ).start()
+
+    async def drain_worker() -> None:
+        # graceful SIGTERM: withdraw the lease, finish or abort in-flight
+        # requests, then exit, even if a drain step fails
+        try:
+            await worker.drain(args.drain_deadline_s)
+        finally:
+            rt.root_token.kill()
+
+    install_drain_handler(drain_worker)
+    print(f"ready instance_id={worker.served.instance_id}", flush=True)
+    try:
+        await rt.root_token.wait_killed()
+    except (KeyboardInterrupt, asyncio.CancelledError):
+        pass
+    await worker.close()
+    await rt.shutdown()
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(asyncio.run(main()))

@@ -32,12 +32,15 @@ _UNPORTED = {
     "disk_cache_blocks": (0, "KVBM disk tier (G3)"),
     "object_store_dir": (None, "KVBM object tier (G4)"),
     "sampling_epilogue": ("off", "the fused sampling epilogue"),
+    # its one reader in JAX is the roofline (MBU) gauges of /metrics
+    "peak_hbm_gbps": (0.0, "the /metrics roofline gauges"),
 }
 
 
 @dataclass
 class EngineConfig:
     model: str = "tiny"  # preset name (models.llama.PRESETS)
+    model_name: str = ""  # served model name; defaults to the preset's
     model_config: Optional[LlamaConfig] = None
 
     # paged KV cache (block 0 is the garbage block)
@@ -70,6 +73,13 @@ class EngineConfig:
     attn_impl: str = ""
     packed_attn_impl: str = ""
 
+    # accelerator peak (dense bf16) TFLOP/s, for prefill-phase MFU in the
+    # FPM records; 0 = unknown, MFU omitted
+    peak_tflops: float = 0.0
+    # run TorchEngine.warmup_decode before the worker registers (the CLI
+    # worker's default; off here so short-lived test engines skip it)
+    warmup: bool = False
+
     # None = the model config's eos ids
     eos_token_id: Optional[int] = None
     seed: int = 0
@@ -87,6 +97,7 @@ class EngineConfig:
     disk_cache_blocks: int = 0
     object_store_dir: Optional[str] = None
     sampling_epilogue: str = "off"
+    peak_hbm_gbps: float = 0.0
 
     def __post_init__(self):
         for name, (default, feature) in _UNPORTED.items():
@@ -123,6 +134,10 @@ class EngineConfig:
         if self.packed_attn_impl:
             over["packed_attn_impl"] = self.packed_attn_impl
         return dataclasses.replace(cfg, **over) if over else cfg
+
+    @property
+    def served_name(self) -> str:
+        return self.model_name or self.resolve_model().name
 
     @property
     def max_context(self) -> int:

@@ -16,11 +16,17 @@ does there:
   * sampled tokens stream back, blocks are committed to the prefix cache
     once their K/V is materialized, and stop conditions finish requests.
 
+Every block allocator mutation's KV events (stored/removed hashes) are
+netted through the consolidator on the scheduler thread, in mutation
+order, and handed to `kv_event_sink(stored, removed, tier)` on the event
+loop's thread (engine/worker.py publishes them); every prefill dispatch
+and decode step appends one forward-pass-metrics record to `fpm`, with
+the keys of the JAX engine's records.
+
 Not here yet (ROADMAP.md): overlap scheduling, fused decode bursts and
 CUDA graphs (the step is lockstep and eager: launch, wait, emit), the
-fused sampling epilogue and penalties, KV events and forward-pass
-metrics, KVBM tiers, disaggregation, speculative and guided decoding,
-LoRA, and the worker process around the engine.
+fused sampling epilogue and penalties, KVBM tiers, disaggregation,
+speculative and guided decoding, and LoRA.
 """
 
 from __future__ import annotations
@@ -30,48 +36,31 @@ import logging
 import threading
 import time
 import zlib
+from collections import deque
 from dataclasses import dataclass
-from typing import Any, AsyncIterator, Dict, List, Optional, Sequence
+from typing import Any, AsyncIterator, Callable, Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
 
 from ..device import DeviceLike, resolve_device
+from ..kvbm.consolidator import KvEventConsolidator
 from ..models import llama
-from ..protocols import LLMEngineOutput, PreprocessedRequest
+from ..protocols import (
+    DRAIN_ABORT,
+    DRAIN_REJECT,
+    LLMEngineOutput,
+    PreprocessedRequest,
+)
 from ..quant.kv import blocks_for_hbm_budget
+from ..runtime.aio import CANCELLED, next_or_cancel
 from ..tokens import TokenBlockSequence, request_salt
-from .block_allocator import BlockAllocator
+from .block_allocator import BlockAllocator, GrowResult
 from .config import EngineConfig
 from .prefill import _pow2, plan_packed_prefill
 from .sampler import greedy_tokens, sample_tokens
 
 logger = logging.getLogger(__name__)
-
-_CANCELLED = object()
-
-
-async def _next_or_cancel(q: asyncio.Queue,
-                          cancel: Optional[asyncio.Event]) -> Any:
-    """The next queue item, or _CANCELLED if `cancel` fires first (a copy
-    of the runtime's next_or_cancel).  Pending futures are cleaned up."""
-    if cancel is None:
-        return await q.get()
-    if cancel.is_set():
-        return _CANCELLED
-    get = asyncio.ensure_future(q.get())
-    cw = asyncio.ensure_future(cancel.wait())
-    try:
-        done, _ = await asyncio.wait({get, cw},
-                                     return_when=asyncio.FIRST_COMPLETED)
-    finally:
-        for f in (get, cw):
-            if not f.done():
-                f.cancel()
-    if get in done:
-        return get.result()
-    return _CANCELLED
-
 
 @dataclass
 class _Slot:
@@ -93,18 +82,37 @@ class _Slot:
     cached_tokens: int = 0   # prefix-cache reuse (for metrics)
     enqueued_t: float = 0.0
     first_token_t: float = 0.0
+    last_push_t: float = 0.0
 
     @property
     def prefilling(self) -> bool:
         return self.prefill_pos < self.prompt_len
 
 
+KvEventSink = Callable[[List[int], List[int], str], None]
+
+
+def _tensors(tree):
+    if isinstance(tree, torch.Tensor):
+        yield tree
+    elif isinstance(tree, dict):
+        for v in tree.values():
+            yield from _tensors(v)
+    elif isinstance(tree, (list, tuple)):
+        for v in tree:
+            yield from _tensors(v)
+
+
 class TorchEngine:
     def __init__(self, config: EngineConfig, params=None,
-                 device: DeviceLike = "cuda"):
+                 device: DeviceLike = "cuda",
+                 kv_event_sink: Optional[KvEventSink] = None):
         """`params`: the port's parameter tree on `device` (for example
         from models/convert.py params_from_numpy); None makes random
-        weights from config.seed on the device."""
+        weights from config.seed on the device.  `kv_event_sink(stored,
+        removed, tier)`: called on the event loop's thread with each
+        netted batch of KV events, in mutation order (engine/worker.py
+        passes KvEventPublisher.enqueue_batch)."""
         self.config = config
         self.device = resolve_device(device)
         self.model_cfg = config.resolve_model()
@@ -134,12 +142,34 @@ class TorchEngine:
         self._task: Optional[asyncio.Task] = None
         self._loop_ref: Optional[asyncio.AbstractEventLoop] = None
         self._closed = False
+        self.kv_event_sink = kv_event_sink
+        self._consolidator = KvEventConsolidator()
+        # graceful drain (engine/worker.py drain()): set to reject new
+        # requests with the migratable "worker draining" marker
+        self.draining = False
         self.metrics: Dict[str, Any] = {
             "steps": 0, "prefill_steps": 0, "decode_steps": 0,
             "prefill_tokens": 0, "decode_tokens": 0, "cache_hit_tokens": 0,
             "preemptions": 0, "step_time_s": 0.0, "requests": 0,
             "prompt_tokens": 0,
         }
+        self.itl_ema_s = 0.0  # streamed inter-token latency (SLA planner)
+        # forward-pass metrics: one record per prefill dispatch and per
+        # decode step, with the JAX engine's keys (its xla_* keys come
+        # from XLA's cost analysis and have no counterpart here); the
+        # worker drains this ring onto the event plane
+        self.fpm: deque = deque(maxlen=4096)
+        self._fpm_last_decode_t = 0.0
+        self._fpm_last_prefill_t = 0.0
+        # time of the last blocking device read (the sampled tokens)
+        self._fpm_sync_t = 0.0
+        # dense matmul FLOPs per prompt token, ~2 x params without the
+        # embedding (a lookup) and the lm_head (last-token rows only);
+        # attention is left out, as in the JAX engine's hand count
+        skip = {id(params.get(k)) for k in ("embedding", "lm_head")}
+        n_params = sum(t.numel() for t in _tensors(params)
+                       if id(t) not in skip)
+        self._flops_per_token = 2.0 * max(n_params, 1)
 
     # -- lifecycle ----------------------------------------------------------
     def start(self) -> None:
@@ -194,13 +224,82 @@ class TorchEngine:
     def kv_usage(self) -> float:
         return self.allocator.usage()
 
+    @property
+    def num_active_seqs(self) -> int:
+        return sum(s is not None for s in self._slots) + len(self.waiting)
+
     async def clear_kv_blocks(self) -> int:
-        """Drop every unreferenced prefix-cache block (between steps)."""
+        """Drop every unreferenced prefix-cache block, between steps; the
+        removals are emitted under the step lock, so they reach the wire
+        before the stores of any later step."""
+        if self._loop_ref is None:
+            self._loop_ref = asyncio.get_running_loop()
+
         def clear() -> int:
             with self._step_lock:
-                return len(self.allocator.clear_cached())
+                removed = self.allocator.clear_cached()
+                self._emit_events(GrowResult(removed=removed))
+                return len(removed)
 
         return await asyncio.to_thread(clear)
+
+    def drain_abort(self) -> None:
+        """Graceful-drain deadline: error every in-flight stream with the
+        migratable "worker draining" marker, so the frontend replays each
+        request on a surviving worker; the scheduler reaps the slots."""
+        self.draining = True
+        self._fail_all_streams(error=DRAIN_ABORT)
+        self._wake.set()
+
+    def warmup_decode(self) -> None:
+        """One decode dispatch at every batch size up to max_num_seqs, and
+        one packed prefill dispatch, all on the garbage block, so the
+        first request pays for no kernel build (on CUDA both sources are
+        built first, one nvcc each, started together) and no cuBLAS
+        warm-up.  Runs on the caller's thread and holds the step lock
+        throughout: the worker serves its generate endpoint (and arms the
+        canary) before warm-up ends, and a step must not run between
+        warm-up dispatches."""
+        c, dev = self.config, self.device
+
+        def zeros(*shape, dtype=torch.int32):
+            return torch.zeros(shape, dtype=dtype, device=dev)
+
+        with self._step_lock:
+            if dev.type == "cuda":
+                from ..ops import _build, cuda_packed_prefill, cuda_paged_attention
+
+                _build.compile_sources([cuda_paged_attention.KERNEL,
+                                        cuda_packed_prefill.KERNEL])
+            T = c.prefill_buckets[0]
+            valid = zeros(T, dtype=torch.bool)
+            valid[0] = True
+            llama.prefill_packed(self.params, self.model_cfg, self.kv,
+                                 zeros(T), zeros(T), zeros(T), zeros(1, 1),
+                                 zeros(1), valid)
+            for B in range(1, c.max_num_seqs + 1):
+                llama.decode(self.params, self.model_cfg, self.kv, zeros(B),
+                             zeros(B), zeros(B, 1), zeros(B))
+            if dev.type == "cuda":
+                torch.cuda.synchronize(dev)
+
+    # -- KV events ------------------------------------------------------------
+    def _emit_events(self, res) -> None:
+        """Net one allocator mutation's events (scheduler thread) and hand
+        them to the sink on the loop thread: call_soon_threadsafe runs
+        callbacks in FIFO order, so wire order equals mutation order."""
+        if not (res.stored or res.removed):
+            return
+        stored, removed, tier = self._consolidator.apply(
+            list(res.stored), list(res.removed), "g1")
+        sink = self.kv_event_sink
+        if sink is None or not (stored or removed):
+            return
+        if self._loop_ref is not None:
+            self._loop_ref.call_soon_threadsafe(sink, stored, removed, tier)
+        else:
+            # before the engine started nothing is routing to it yet
+            sink(stored, removed, tier)
 
     # -- request entry ------------------------------------------------------
     async def generate(self, request: PreprocessedRequest,
@@ -208,6 +307,12 @@ class TorchEngine:
         """Stream the request's tokens.  `token` is an optional
         cancellation token exposing `stopped_event` (asyncio.Event)."""
         self.start()
+        if self.draining:
+            # rejected before admission with the migratable marker: the
+            # router may still dispatch here between the lease withdrawal
+            # and its watch converging
+            yield LLMEngineOutput(finish_reason="error", error=DRAIN_REJECT)
+            return
         if self._task is not None and self._task.done():
             yield LLMEngineOutput(
                 finish_reason="error",
@@ -248,10 +353,10 @@ class TorchEngine:
         self._wake.set()
         try:
             while True:
-                item = await _next_or_cancel(
+                item = await next_or_cancel(
                     slot.out_q,
                     token.stopped_event if token is not None else None)
-                if item is _CANCELLED:
+                if item is CANCELLED:
                     slot.cancel_requested = True
                     self._wake.set()
                     yield LLMEngineOutput(finish_reason="cancelled")
@@ -321,7 +426,7 @@ class TorchEngine:
             if slot is not None and slot.cancel_requested:
                 slot.finished = True
                 self._slots[i] = None
-                self.allocator.free(self._seq_id(slot))
+                self._emit_events(self.allocator.free(self._seq_id(slot)))
 
     @staticmethod
     def _seq_id(slot: _Slot) -> str:
@@ -350,6 +455,7 @@ class TorchEngine:
                 if res is None:
                     return  # capacity: stay in queue (FIFO)
                 self.waiting.pop(0)
+            self._emit_events(res)
             slot.index = free_idx
             self._slots[free_idx] = slot
             slot.block_table[:len(res.block_ids)] = res.block_ids
@@ -369,17 +475,20 @@ class TorchEngine:
         """Next token per row of `logits` for `slots` (one row each)."""
         temps = [s.request.sampling.temperature for s in slots]
         if all(t <= 0.0 for t in temps):
-            return greedy_tokens(logits).tolist()
-        dev = logits.device
-        return sample_tokens(
-            logits,
-            torch.tensor(temps, dtype=torch.float32, device=dev),
-            torch.tensor([s.request.sampling.top_k for s in slots],
-                         device=dev),
-            torch.tensor([s.request.sampling.top_p for s in slots],
-                         dtype=torch.float32, device=dev),
-            [s.generator for s in slots],
-        ).tolist()
+            toks = greedy_tokens(logits).tolist()
+        else:
+            dev = logits.device
+            toks = sample_tokens(
+                logits,
+                torch.tensor(temps, dtype=torch.float32, device=dev),
+                torch.tensor([s.request.sampling.top_k for s in slots],
+                             device=dev),
+                torch.tensor([s.request.sampling.top_p for s in slots],
+                             dtype=torch.float32, device=dev),
+                [s.generator for s in slots],
+            ).tolist()
+        self._fpm_sync_t = time.monotonic()  # .tolist() waited on the device
+        return toks
 
     def _prefill_step(self) -> None:
         """One packed prefill dispatch for up to max_prefill_seqs
@@ -412,6 +521,8 @@ class TorchEngine:
         # completes in this chunk (intermediate chunks discard theirs)
         done = [i for i, (s, ch) in enumerate(zip(plan.slots, plan.chunks))
                 if s.prefill_pos + ch >= s.prompt_len]
+        self._fpm_prefill(len(plan.slots), plan.tokens, plan.bucket,
+                          completing=len(done))
         firsts = {}
         if done:
             rows = torch.tensor(done, device=logits.device)
@@ -448,6 +559,7 @@ class TorchEngine:
                 # _finish_reason ends every sequence at max_context - 1
                 raise RuntimeError(f"{self._seq_id(slot)}: block table full")
             grow = self.allocator.append_block(self._seq_id(slot))
+            self._emit_events(grow)
             if grow.block_id is None:
                 self._preempt(slot)
                 continue
@@ -470,10 +582,53 @@ class TorchEngine:
                                  self._to_device(tokens), ctx_t,
                                  self._to_device(tables), ctx_t)
         self.metrics["decode_steps"] += 1
+        self._fpm_decode(B)
         for s, tok in zip(active, self._sample(logits, active)):
             s.ctx_len += 1
             self.metrics["decode_tokens"] += 1
             self._push_token(s, tok)
+
+    # -- forward-pass metrics ------------------------------------------------
+    def _fpm_prefill(self, rows: int, tokens: int, bucket: int,
+                     completing: int) -> None:
+        """One record per packed prefill dispatch, as the JAX engine's
+        `_fpm_prefill`: gap_s is the dispatch-to-dispatch gap (0.0 after
+        an idle second: unknown), queue_depth the prefilling and waiting
+        requests minus those this dispatch completes, and est_mfu (= mfu)
+        the hand-counted dense FLOPs over the gap against
+        config.peak_tflops, when that is set and a blocking read of
+        sampled tokens landed inside the gap."""
+        now = time.monotonic()
+        gap = (now - self._fpm_last_prefill_t
+               if self._fpm_last_prefill_t else 0.0)
+        if gap > 1.0:
+            gap = 0.0
+        depth = max(0, len(self.waiting) + sum(
+            1 for s in self._slots if s is not None and s.prefilling)
+            - completing)
+        flops = tokens * self._flops_per_token
+        synced = self._fpm_sync_t >= self._fpm_last_prefill_t
+        rec = {
+            "t": now, "kind": "prefill", "rows": rows, "tokens": tokens,
+            "bucket": bucket, "packed": True, "gap_s": gap,
+            "flops": flops, "queue_depth": depth, "synced": synced,
+        }
+        if gap > 0.0 and self.config.peak_tflops > 0.0 and synced:
+            est = min(flops / gap / (self.config.peak_tflops * 1e12), 1.0)
+            rec["est_mfu"] = rec["mfu"] = est
+        self.fpm.append(rec)
+        self._fpm_last_prefill_t = now
+
+    def _fpm_decode(self, lanes: int) -> None:
+        """One record per decode step (k = 1: no fused bursts yet)."""
+        now = time.monotonic()
+        gap = (now - self._fpm_last_decode_t
+               if self._fpm_last_decode_t else 0.0)
+        if gap > 1.0:
+            gap = 0.0
+        self.fpm.append({"t": now, "kind": "decode", "k": 1, "lanes": lanes,
+                         "gap_s": gap})
+        self._fpm_last_decode_t = now
 
     def _commit_full_blocks(self, slot: _Slot) -> None:
         """Register newly completed full blocks under their PLH, once every
@@ -484,12 +639,18 @@ class TorchEngine:
         limit = min(slot.seq.num_full_blocks, materialized)
         while slot.committed_blocks < limit:
             idx = slot.committed_blocks
-            self.allocator.commit_block(self._seq_id(slot), idx,
-                                        slot.seq.block_hashes[idx])
+            self._emit_events(self.allocator.commit_block(
+                self._seq_id(slot), idx, slot.seq.block_hashes[idx]))
             slot.committed_blocks += 1
 
     def _push_token(self, slot: _Slot, tok: int) -> None:
         """Append a generated token, stream it, handle finish."""
+        now = time.monotonic()
+        if slot.last_push_t > 0.0:
+            gap = now - slot.last_push_t
+            self.itl_ema_s = gap if self.itl_ema_s == 0.0 \
+                else 0.95 * self.itl_ema_s + 0.05 * gap
+        slot.last_push_t = now
         slot.seq.append(tok)
         slot.last_token = tok
         slot.generated += 1
@@ -508,14 +669,14 @@ class TorchEngine:
             slot.finished = True
             if slot.index >= 0:
                 self._slots[slot.index] = None
-            self.allocator.free(self._seq_id(slot))
+            self._emit_events(self.allocator.free(self._seq_id(slot)))
 
     def _preempt(self, slot: _Slot) -> None:
         """KV out of blocks: drop the slot's blocks and re-enqueue it
         first, to be replayed from its full token sequence."""
         self.metrics["preemptions"] += 1
         self._slots[slot.index] = None
-        self.allocator.free(self._seq_id(slot))
+        self._emit_events(self.allocator.free(self._seq_id(slot)))
         slot.index = -1
         slot.ctx_len = 0
         slot.prefill_pos = 0

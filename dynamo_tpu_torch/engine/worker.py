@@ -1,0 +1,227 @@
+"""Torch engine worker: serves TorchEngine under the standard worker contract.
+
+The counterpart of dynamo_tpu/engine/worker.py (`JaxEngineWorker`) for an
+aggregated, single-process, single-GPU worker, on the port's own copy of
+the distributed runtime (runtime/).  It keeps that worker's contract, so
+the unchanged JAX frontend and its KV router serve it like any other:
+
+  * the model deployment card (MDC), published in discovery once the
+    engine is warm, withdrawn on drain and close;
+  * the `generate`, `clear_kv_blocks` and `kv_events_replay` endpoints on
+    the TCP request plane, `generate` with the canary health check;
+  * KV events on `kv_events.{ns}.{comp}` (router/events.py), netted by the
+    engine's consolidator;
+  * load metrics on `load_metrics.{ns}.{comp}` and the engine's
+    forward-pass-metrics records on `fpm.{ns}.{comp}`, every 0.5 s;
+  * drain on SIGTERM (engine/__main__.py): withdraw the routing identity,
+    let in-flight requests finish until a deadline, abort the rest with
+    the migratable "worker draining" marker.
+
+Not ported yet (ROADMAP.md): multi-host slices, the `kv_pull`,
+`kvbm_pull` and `embed` endpoints, the SLO feed, the guided-decoding
+codec, timeline spans, and the /metrics gauges and /debug sources (the
+system-status server is not ported).
+"""
+
+from __future__ import annotations
+
+import asyncio
+import logging
+import time
+from typing import Optional
+
+from ..device import DeviceLike
+from ..protocols import (
+    CANARY_GENERATE_PAYLOAD,
+    ModelDeploymentCard,
+    PreprocessedRequest,
+    deregister_model,
+    register_model,
+)
+from ..router.events import KvEventPublisher
+from ..runtime import DistributedRuntime
+from ..runtime.discovery import new_instance_id
+from .config import EngineConfig
+from .core import TorchEngine
+
+logger = logging.getLogger(__name__)
+
+LOAD_SUBJECT_PREFIX = "load_metrics"
+FPM_SUBJECT_PREFIX = "fpm"
+
+
+class TorchEngineWorker:
+    def __init__(self, runtime: DistributedRuntime, config: EngineConfig,
+                 namespace: str = "dynamo", component: str = "backend",
+                 migration_limit: int = 3,
+                 tokenizer_cfg: Optional[dict] = None,
+                 params=None, device: DeviceLike = "cuda"):
+        """`params`: the port's parameter tree on `device`, or None for
+        random weights from config.seed (TorchEngine)."""
+        self.runtime = runtime
+        self.config = config
+        self.namespace = namespace
+        self.component = component
+        self.migration_limit = migration_limit
+        self.tokenizer_cfg = tokenizer_cfg or {
+            "type": "mock", "vocab_size": config.resolve_model().vocab_size}
+        self.device = device
+        self._params = params
+        self.engine: Optional[TorchEngine] = None
+        self.publisher: Optional[KvEventPublisher] = None
+        self.served = None
+        self._aux_served: list = []
+        self._load_task: Optional[asyncio.Task] = None
+
+    @property
+    def card(self) -> ModelDeploymentCard:
+        m = self.config.resolve_model()
+        eng = self.engine
+        return ModelDeploymentCard(
+            name=self.config.served_name,
+            namespace=self.namespace,
+            component=self.component,
+            endpoint="generate",
+            tokenizer=self.tokenizer_cfg,
+            context_length=min(m.max_context, self.config.max_context),
+            kv_cache_block_size=self.config.block_size,
+            migration_limit=self.migration_limit,
+            # JAX's runtime_config keys with this worker's effective values
+            runtime_config={
+                "total_kv_blocks": self.config.num_blocks,
+                "max_num_seqs": self.config.max_num_seqs,
+                "model_preset": self.config.model,
+                "tp": self.config.tp,
+                "dp": self.config.dp,
+                "role": self.config.role,
+                "kv_cache_dtype": (eng.kv_dtype if eng is not None
+                                   else self.config.kv_cache_dtype),
+                "prefill_chunk_tokens": self.config.chunk_budget,
+                "prefill_packed": True,
+                # "auto" = the CUDA kernels on CUDA tensors, "torch" = the
+                # plain versions
+                "attn_impl": (eng.model_cfg.attn_impl if eng is not None
+                              else (self.config.attn_impl or "auto")),
+                "packed_attn_impl": (
+                    eng.model_cfg.packed_attn_impl if eng is not None
+                    else (self.config.packed_attn_impl or "auto")),
+                "sampling_epilogue": self.config.sampling_epilogue,
+                "overlap_scheduling": False,
+            },
+        )
+
+    async def start(self) -> "TorchEngineWorker":
+        rt = self.runtime
+        instance_id = new_instance_id()
+        self.publisher = KvEventPublisher(
+            rt, self.namespace, self.component, worker_id=instance_id)
+
+        def kv_event_sink(stored, removed, tier):
+            # on the loop thread (the engine hands batches over with
+            # call_soon_threadsafe, in mutation order): ids are assigned
+            # here and one drain task publishes them FIFO
+            self.publisher.enqueue_batch(stored=stored, removed=removed,
+                                         tier=tier)
+
+        self.engine = TorchEngine(self.config, params=self._params,
+                                  device=self.device,
+                                  kv_event_sink=kv_event_sink)
+        self._params = None  # the engine holds them now
+
+        async def generate_handler(payload, ctx):
+            request = PreprocessedRequest.from_dict(payload)
+            async for out in self.engine.generate(request, token=ctx.token):
+                yield out.to_dict()
+
+        async def clear_handler(payload, ctx):
+            n = await self.engine.clear_kv_blocks()
+            yield {"cleared_blocks": n}
+
+        comp = rt.namespace(self.namespace).component(self.component)
+        self.served = await comp.endpoint("generate").serve_endpoint(
+            generate_handler,
+            metadata={"model": self.config.served_name},
+            instance_id=instance_id,
+            health_check_payload=CANARY_GENERATE_PAYLOAD,
+        )
+        self._aux_served = [
+            await comp.endpoint("clear_kv_blocks").serve_endpoint(
+                clear_handler, instance_id=instance_id),
+            await comp.endpoint("kv_events_replay").serve_endpoint(
+                self.publisher.replay_handler, instance_id=instance_id),
+        ]
+        if self.config.warmup:
+            # before the model becomes discoverable, so no request pays
+            # for a kernel build; the step lock keeps a canary's step out
+            await asyncio.to_thread(self.engine.warmup_decode)
+        await register_model(rt, self.card, instance_id)
+        self._load_task = asyncio.create_task(self._load_loop())
+        logger.info("torch engine worker %d serving %s on %s", instance_id,
+                    self.config.served_name, self.engine.device)
+        return self
+
+    async def _load_loop(self) -> None:
+        subject = f"{LOAD_SUBJECT_PREFIX}.{self.namespace}.{self.component}"
+        fpm_subject = f"{FPM_SUBJECT_PREFIX}.{self.namespace}.{self.component}"
+        plane = self.runtime.event_plane
+        while True:
+            await asyncio.sleep(0.5)
+            eng, wid = self.engine, self.served.instance_id
+            steps = []
+            while eng.fpm and len(steps) < 512:
+                steps.append(eng.fpm.popleft())
+            try:
+                if steps:
+                    await plane.publish(fpm_subject,
+                                        {"worker_id": wid, "steps": steps})
+                await plane.publish(subject, {
+                    "worker_id": wid,
+                    "active_seqs": eng.num_active_seqs,
+                    "kv_usage": eng.kv_usage(),
+                    "kv_total_blocks": self.config.num_blocks,
+                    "kv_cache_dtype": eng.kv_dtype,
+                    "engine_metrics": dict(eng.metrics),
+                    "requests_total": eng.metrics["requests"],
+                    "prompt_tokens_total": eng.metrics["prompt_tokens"],
+                    "itl_ema_s": eng.itl_ema_s,
+                })
+            except Exception:
+                logger.warning("load/fpm publish failed", exc_info=True)
+
+    async def drain(self, deadline_s: float = 5.0) -> None:
+        """Graceful drain (the SIGTERM path): withdraw this worker's
+        routing identity from discovery, reject new work with the
+        migratable "worker draining" marker, let in-flight requests
+        finish until the deadline, then drain_abort() the rest so the
+        frontend's token-replay migration moves them to surviving
+        workers.  Only this worker's keys are deleted."""
+        if self.engine is None:
+            return
+        self.engine.draining = True
+        if self.served is not None:
+            logger.warning("draining torch engine worker %d (deadline "
+                           "%.1fs)", self.served.instance_id, deadline_s)
+            await deregister_model(self.runtime, self.card,
+                                   self.served.instance_id)
+            await self.runtime.discovery.delete(self.served.instance.key())
+        t0 = time.monotonic()
+        while (self.engine.num_active_seqs
+               and time.monotonic() - t0 < deadline_s):
+            await asyncio.sleep(0.02)
+        self.engine.drain_abort()
+
+    async def close(self) -> None:
+        if self._load_task is not None:
+            self._load_task.cancel()
+            await asyncio.gather(self._load_task, return_exceptions=True)
+            self._load_task = None
+        if self.engine is not None:
+            await self.engine.close()
+        if self.served is not None:
+            await deregister_model(self.runtime, self.card,
+                                   self.served.instance_id)
+        for served in self._aux_served:
+            await served.shutdown()
+        self._aux_served = []
+        if self.served is not None:
+            await self.served.shutdown()

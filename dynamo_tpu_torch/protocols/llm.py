@@ -1,6 +1,7 @@
 """Engine-facing request/response protocol.
 
-A copy of the request and output types of dynamo_tpu/protocols/llm.py
+A copy of the request and output types, the drain markers and the
+canary payload of dynamo_tpu/protocols/llm.py
 (the port imports nothing of the JAX package).  `PreprocessedRequest` is
 what the frontend's preprocessor emits and every engine consumes;
 `LLMEngineOutput` is the per-step stream item flowing back.  Both
@@ -14,6 +15,20 @@ from dataclasses import dataclass, field
 from typing import Any, Dict, List, Optional
 
 FinishReason = str  # "stop" | "length" | "eos" | "cancelled" | "error"
+
+# graceful-drain error markers (engine/worker.py drain()): the frontend
+# classifies a stream error as migratable by the "worker draining"
+# prefix, so the text is byte-identical to the JAX package's
+DRAIN_REJECT = "worker draining: request rejected before admission"
+DRAIN_ABORT = "worker draining: in-flight request migrating"
+
+# minimal liveness probe riding the real generate path (the canary of
+# runtime/health_check.py): 2-token prompt, 1 greedy token out
+CANARY_GENERATE_PAYLOAD: Dict[str, Any] = {
+    "token_ids": [1, 2],
+    "stop": {"max_tokens": 1, "ignore_eos": True},
+    "annotations": ["canary"],
+}
 
 
 @dataclass

@@ -1,0 +1,66 @@
+"""Structured logging, copied from dynamo_tpu/runtime/logging.py: one
+JSON object per line when DYN_LOG_JSON is truthy, human-readable
+otherwise; DYN_LOG_LEVEL sets the level.  `extra={...}` fields on a log
+call land as top-level JSON keys.  (The trace-id filter is left out: the
+port has no timeline tracing yet.)"""
+
+from __future__ import annotations
+
+import json
+import logging
+import os
+import sys
+from typing import Optional
+
+from .config import env_truthy
+
+_STD_KEYS = frozenset(logging.LogRecord(
+    "", 0, "", 0, "", (), None).__dict__) | {"message", "asctime",
+                                             "taskName"}
+
+
+class JsonFormatter(logging.Formatter):
+    def format(self, record: logging.LogRecord) -> str:
+        out = {
+            "ts": round(record.created, 6),
+            "level": record.levelname,
+            "logger": record.name,
+            "msg": record.getMessage(),
+        }
+        for k, v in record.__dict__.items():
+            if k not in _STD_KEYS and not k.startswith("_"):
+                try:
+                    json.dumps(v)
+                    out[k] = v
+                except (TypeError, ValueError):
+                    out[k] = repr(v)
+        if record.exc_info:
+            out["exc"] = self.formatException(record.exc_info)
+        return json.dumps(out)
+
+
+def setup_logging(level: Optional[int] = None,
+                  json_lines: Optional[bool] = None) -> None:
+    """Configure the root logger once (idempotent)."""
+    if json_lines is None:
+        json_lines = env_truthy("DYN_LOG_JSON")
+    if level is None:
+        level = getattr(logging, os.environ.get("DYN_LOG_LEVEL", "INFO")
+                        .upper(), logging.INFO)
+    root = logging.getLogger()
+    root.setLevel(level)
+
+    def formatter() -> logging.Formatter:
+        return JsonFormatter() if json_lines else logging.Formatter(
+            "%(levelname)s:%(name)s:%(message)s")
+
+    if root.handlers:
+        # re-invocation: keep the handlers, swap formatters if the mode
+        # changed
+        for h in root.handlers:
+            if json_lines != isinstance(h.formatter, JsonFormatter):
+                h.setFormatter(formatter())
+        return
+    handler = logging.StreamHandler(sys.stderr)
+    handler.setFormatter(formatter())
+    root.addHandler(handler)
