@@ -6,37 +6,51 @@
                                           # another checkout's
     python3 chip_smoke.py --worker-ab     # the engine directly against
                                           # the engine behind the worker
+    python3 chip_smoke.py --decode-ab     # lockstep eager decode against
+                                          # the default scheduler
 
-Builds the port's CUDA kernels from csrc/, holds each entry point (K1
-and K3, each in its bf16 and its int8 mode) against its plain PyTorch
-version at the llama-8b shapes the main path gives it (K1 at B = 8, 4
-and 1, K3 on a 2048-token and a 512-token packed stream), then serves
+Builds the port's CUDA kernels from csrc/ (three nvcc processes started
+together), holds each entry point (K1 and K3, each in its bf16 and its
+int8 mode) against its plain PyTorch version at the llama-8b shapes the
+main path gives it (K1 at B = 8, 4 and 1, K3 on a 2048-token and a
+512-token packed stream), runs the paged-gather bandwidth microbench
+(dynamo_tpu_torch/bench/bench_dma_layouts.py: K4a strided and contig,
+K4b) and holds its kernels against their plain versions, then serves
 concurrent requests through `TorchEngine` with the llama-8b preset at
-full width (random bf16 weights made on the card from a seed), first on
-a bf16 KV cache and then, with the same weights, on an int8 KV cache
-sized by a memory budget (`kv_cache_dtype="int8"`, `kv_hbm_gb`), and
-checks the streams.  After the bf16 engine run, the same requests go
-through a `TorchEngineWorker` with the same config and weights, over the
-port's runtime (mem discovery, in-process event plane, TCP request plane
-on 127.0.0.1), and the worker's contract is checked: streams, KV events,
+full width (random bf16 weights made on the card from a seed) and the
+JAX engine's default scheduler (overlapped, decode bursts fused up to 8
+steps and replayed from CUDA graphs that warm-up captures), first on a
+bf16 KV cache and then, with the same weights, on an int8 KV cache sized
+by a memory budget (`kv_cache_dtype="int8"`, `kv_hbm_gb`), and checks
+the streams, that every decode program was captured once and never
+again while serving, and that a replayed burst equals the same burst run
+eagerly.  After the bf16 engine run, the same requests go through a
+`TorchEngineWorker` with the same config and weights, over the port's
+runtime (mem discovery, in-process event plane, TCP request plane on
+127.0.0.1), and the worker's contract is checked: streams, KV events,
 load metrics, FPM records, the MDC, clear_kv_blocks, cancellation and
-close; after the int8 run, one request goes through a worker on the
-int8 cache (its launches and the dtype it reports).  Any failed phase ends the script with a non-zero exit code.  It
-imports nothing of JAX or of the JAX package.
+close; then the decode A/B (below) runs; after the int8 run, one request
+goes through a worker on the int8 cache (its launches and the dtype it
+reports).  Any failed phase ends the script with a non-zero exit code.
+It imports nothing of JAX or of the JAX package.
 
 Output: one line per phase; a `{"kernels": [...]}` JSON line with each
-kernel's launches on the main path (`launches` in the engine run,
-`worker_launches` in the worker run), error against its plain version
-(`max_abs_err`, and `max_rel_err`, the figure the tolerance holds), its
-device time (`ms`, by CUDA-graph replay; K3's with its tile plan
-computed beforehand, as the model does once per dispatch, `plan_ms` the
-plan alone and `with_plan_ms` a call that computes its own), the plain
-version's time, the one-call PyTorch yardstick's time (`library_ms`,
-scaled_dot_product_attention on the same context gathered into a dense
-tensor beforehand, dequantized to bf16 for the int8 modes; the port never
-calls it), the least time the card could take (`bound_ms`) and, under
-`cases`, the time and bound of every case; the card's name and power
-limit; and, last, `{"ok": true, "device": {...}}`.
+kernel's launches on the main path (`launches` in the engine run, or the
+microbench's own run for K4, `worker_launches` in the worker run; a
+replay of a captured decode program adds the K1 launches its capture
+recorded), error against its plain version (`max_abs_err`, and
+`max_rel_err`, the figure the tolerance holds), its device time (`ms`,
+by CUDA-graph replay for K1/K3; K3's with its tile plan computed
+beforehand, as the model does once per dispatch, `plan_ms` the plan
+alone and `with_plan_ms` a call that computes its own; by CUDA events
+around calls for K4), the plain version's time, the one-call PyTorch
+yardstick's time (`library_ms`: scaled_dot_product_attention on the same
+context gathered into a dense tensor beforehand, dequantized to bf16 for
+the int8 modes; for K4 index_select of the table's blocks or a sum over
+the slab, once; the port never calls them), the least time the card
+could take (`bound_ms`) and, under `cases`, the time and bound of every
+case; the card's name and power limit; and, last, `{"ok": true,
+"device": {...}}`.
 
 With --ab, each mode of both kernels of this checkout is timed against
 the same mode of the checkout at OTHER_DIR (for instance the parent
@@ -50,6 +64,14 @@ process directly by a `TorchEngine` and through a `TorchEngineWorker`
 direct; three rounds), each turn's TTFT, tokens/s, decode-step medians
 and prefill dispatches logged, and the port's codec is timed per frame.
 
+The decode A/B (part of the whole check; alone with --decode-ab) serves
+the five requests on a bf16 cache in one process by a lockstep engine
+with single eager decode steps and by a default engine on graphs (same
+weights, own caches), in turns (lockstep, default, default, lockstep;
+two rounds): TTFT per request, decode tokens/s, the median dispatch gap
+per burst and per token, the device's busy share of a profiled turn and
+device operations per decode token.
+
 Bounds use the H100 SXM data sheet (3.35 TB/s HBM3, 989 TFLOP/s dense
 bf16); a card run below its 700 W limit is slower, so its limit is
 printed beside every number.
@@ -60,10 +82,12 @@ from __future__ import annotations
 import asyncio
 import contextlib
 import dataclasses
+import gc
 import json
 import subprocess
 import sys
 import time
+from typing import Optional
 
 import numpy as np
 import torch
@@ -194,18 +218,29 @@ def sdpa(q, k, v, mask):
 
 
 def build_kernels() -> None:
-    """Both sources, one nvcc each, started together; each library holds
-    its kernel's bf16 and int8 entry points.  Logs each instantiation's
-    registers and spills (ptxas) and the shared memory a CTA asks for."""
+    """The three sources, one nvcc each, started together: K1's and K3's
+    libraries hold their kernel's bf16 and int8 entry points, K4's its
+    gather and sequential walks.  Logs each instantiation's registers and
+    spills (ptxas) and, for K1/K3, the shared memory a CTA asks for."""
     import re
 
+    from dynamo_tpu_torch.bench import bench_dma_layouts as k4
     from dynamo_tpu_torch.ops import _build
     from dynamo_tpu_torch.ops import cuda_packed_prefill as k3
     from dynamo_tpu_torch.ops import cuda_paged_attention as k1
 
     t0 = time.perf_counter()
-    logs = _build.compile_sources([k1.KERNEL, k3.KERNEL])
+    logs = _build.compile_sources([k1.KERNEL, k3.KERNEL, k4.KERNEL])
     dt = time.perf_counter() - t0
+    _build.load_library(k4.KERNEL, k4._SIGNATURES)
+    fn = None
+    for line in logs[k4.KERNEL].splitlines():
+        m = re.search(r"Compiling entry function .*(walk|reduce)_kernel",
+                      line)
+        if m:
+            fn = f"{k4.KERNEL} {m.group(1)}_kernel"
+        elif fn and ("registers" in line or "spill" in line):
+            log(f"  ptxas {fn}: {line.split(':', 1)[-1].strip()}")
     for mod in (k1, k3):
         lib = _build.load_library(mod.KERNEL, mod._SIGNATURES)
         smem = getattr(lib, f"{mod.KERNEL}_smem_bytes")
@@ -220,7 +255,8 @@ def build_kernels() -> None:
                 log(f"  ptxas {fn}: {line.split(':', 1)[-1].strip()}")
             elif "Performance" in line or "warning" in line.lower():
                 log(f"  ptxas {mod.KERNEL}: {line.strip()}")
-    log(f"build: {k1.KERNEL}.cu and {k3.KERNEL}.cu for sm_90a in {dt:.1f} s")
+    log(f"build: {k1.KERNEL}.cu, {k3.KERNEL}.cu and {k4.KERNEL}.cu for "
+        f"sm_90a in {dt:.1f} s")
 
 
 # ---------------------------------------------------------------------------
@@ -656,6 +692,101 @@ def check_prefill_kernel(cfg, device, int8: bool = False) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phase 4b: K4a/K4b, the paged-gather bandwidth microbench
+# ---------------------------------------------------------------------------
+
+# K4's outputs are fp32 sums of the same bf16 values in another order:
+# the per-row relative L2 error against the plain version stays near
+# fp32 rounding; a block read in place of another's moves it to O(1)
+DMA_REL_TOL = 1e-5
+K4_REPLACES = {"gather_strided": "benchmarks/bench_dma_layouts.py:103",
+               "gather_contig": "benchmarks/bench_dma_layouts.py:103",
+               "seq": "benchmarks/bench_dma_layouts.py:151"}
+
+
+def check_dma_kernels(device) -> list:
+    """K4a (strided, contig) and K4b at the microbench's shapes.  The
+    main path is the microbench's own measurement (bench_dma_layouts
+    measure): the counts are set to 0 just before it and read just
+    after.  Then each mode is held against its plain version (per-row
+    relative error <= DMA_REL_TOL) with a planted fault (a chunk-first
+    table entry naming another block; K4b: the chunks' second blocks) that
+    must read above it, and the plain version and one PyTorch call are
+    timed (index_select of the table's blocks once, a sum over the slab
+    once: neither is like-for-like, the first writes its copy and the
+    second reduces every element, each in one pass where the kernel makes
+    REPS)."""
+    from dynamo_tpu_torch.bench import bench_dma_layouts as k4
+
+    x = k4.inputs(device)
+    wrappers = {"strided": k4.gather_strided, "contig": k4.gather_contig,
+                "seq": k4.seq}
+    for fn in wrappers.values():
+        fn.launches = 0
+    measured = k4.measure(x)
+    launches = {m: fn.launches for m, fn in wrappers.items()}
+    spare = next(b for b in range(k4.NB)
+                 if b not in set(x["tables"].tolist()))
+    bad = x["tables"].clone()
+    bad[k4.BPC] = spare  # the second chunk's first block
+    plain = {
+        "strided": (lambda t=x["tables"]:
+                    k4.gather_ref(x["layer"], t, True)),
+        "contig": (lambda t=x["tables"]:
+                   k4.gather_ref(x["slab"], t, False)),
+        "seq": lambda s=x["slab"]: k4.seq_ref(s)}
+    faults = {"strided": plain["strided"](bad),
+              "contig": plain["contig"](bad),
+              "seq": k4.seq_ref(x["slab"][1:])}
+    library = {
+        "strided": lambda: torch.index_select(x["layer"], 1,
+                                              x["tables"].long()),
+        "contig": lambda: torch.index_select(x["slab"], 0,
+                                             x["tables"].long()),
+        "seq": lambda: torch.sum(x["slab"], dim=(0, 1), dtype=torch.float32)}
+    lib_bytes = {"strided": 2 * k4.nbytes("strided") // k4.REPS,
+                 "contig": 2 * k4.nbytes("contig") // k4.REPS,
+                 "seq": k4.nbytes("seq") // k4.REPS}
+    entries = []
+    for mode, fn in k4.calls(x).items():
+        name = wrappers[mode].__name__
+        out, ref = fn(), plain[mode]()
+        torch.cuda.synchronize()
+        err = (out - ref).abs().max().item()
+        rel = row_rel_err(out, ref)
+        det = torch.equal(out, fn())
+        fault = row_rel_err(faults[mode], ref)
+        r = measured[mode]
+        plain_ms = time_ms(plain[mode], iters=5)
+        library_ms = time_ms(library[mode], iters=5)
+        bound_ms = r["bytes"] / HBM_BYTES_PER_S * 1e3
+        log(f"K4 {name}: max row relative error {rel:.3e} (limit "
+            f"{DMA_REL_TOL}), max_abs_err {err:.3e}, bit-identical on a "
+            f"second call: {det}; planted fault reads {fault:.3e}; "
+            f"{r['gb_per_s']:.1f} GB/s = {100 * r['share_of_peak']:.1f}% of "
+            f"3.35 TB/s ({r['bytes'] / 1e9:.2f} GB in {r['ms']:.4f} ms, "
+            f"bound {bound_ms:.4f} ms); plain {plain_ms:.4f} ms; PyTorch "
+            f"call {library_ms:.4f} ms for {lib_bytes[mode] / 1e9:.2f} GB "
+            f"= {lib_bytes[mode] / library_ms / 1e6:.1f} GB/s; main-path "
+            f"launches {launches[mode]}")
+        if not fault > DMA_REL_TOL:
+            raise SystemExit(f"K4 {name}: the planted fault passes")
+        if not (rel <= DMA_REL_TOL and det):
+            raise SystemExit(f"K4 {name} disagrees with its plain version")
+        if not launches[mode]:
+            raise SystemExit(f"K4 {name} was not launched by the microbench")
+        entries.append({
+            "name": name, "route": "cuda",
+            "source": "dynamo_tpu_torch/csrc/dma_layouts.cu",
+            "replaces": K4_REPLACES[name], "launches": launches[mode],
+            "max_abs_err": err, "max_rel_err": rel, "ms": r["ms"],
+            "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": "bytes",
+            "library_ms": library_ms, "gb_per_s": r["gb_per_s"],
+            "share_of_peak": r["share_of_peak"]})
+    return entries
+
+
+# ---------------------------------------------------------------------------
 # phase 5: the engine at full width
 # ---------------------------------------------------------------------------
 
@@ -781,13 +912,56 @@ def _engine_config(kv_dtype: str):
                         **size)
 
 
+@contextlib.contextmanager
+def gc_pauses(into: list):
+    """Record the duration of every garbage-collector pass inside the
+    block into `into` (seconds): the scheduler thread stops with the
+    interpreter while one runs."""
+    t0 = []
+
+    def cb(phase, info):
+        if phase == "start":
+            t0.append(time.perf_counter())
+        elif t0:
+            into.append(time.perf_counter() - t0.pop())
+
+    gc.callbacks.append(cb)
+    try:
+        yield into
+    finally:
+        gc.callbacks.remove(cb)
+
+
+def _log_programs(engine, what: str) -> dict:
+    """Log the engine's decode programs after warm-up: how many times
+    each (greedy, k) was built, the seconds each capture took and the
+    graph pool's bytes; exit unless every rung was built exactly once."""
+    g = engine.graphs
+    want = {(gr, k): 1 for gr in (True, False)
+            for k in engine._fuse_ladder()}
+    log(f"{what}: decode programs built {sorted(g.counts.items())}; "
+        f"capture s " + ", ".join(f"{'greedy' if gr else 'sampled'} k={k} "
+                                  f"{t:.2f}" for (gr, k), t in
+                                  sorted(g.capture_s.items()))
+        + f"; graph pool {g.pool_bytes / 2**20:.0f} MiB")
+    if g.counts != want:
+        raise SystemExit(f"{what}: warm-up built {g.counts}, expected every "
+                         f"rung once: {want}")
+    return dict(g.counts)
+
+
 def check_engine(device, card: str, kv_dtype: str = "bf16", params=None):
     """Serve the five requests through TorchEngine at full width on a
-    cache of `kv_dtype`: the bf16 run makes random weights, the int8 run
-    takes them as `params` and sizes its cache from INT8_KV_HBM_GB.
-    Returns (the main path's launch counts by kernel name, the engine,
-    device operations of one decode step, (the second (warm) run's
-    results, its decode steps' _step_medians))."""
+    cache of `kv_dtype` with the JAX engine's default scheduler
+    (overlapped, bursts fused up to 8, pipeline depth 4, adaptive), the
+    decode bursts replayed from CUDA graphs captured by warmup_decode:
+    the bf16 run makes random weights, the int8 run takes them as
+    `params` and sizes its cache from INT8_KV_HBM_GB.  Exits unless every
+    program was captured once by warm-up and never again while serving,
+    and a replayed burst equals the same burst run eagerly
+    (check_graph_burst).  Returns (the main path's launch counts by
+    kernel name, the engine, device operations of one decode step, (the
+    second (warm) run's results, its decode bursts' _step_medians))."""
     from dynamo_tpu_torch.engine import TorchEngine
     from dynamo_tpu_torch.models import llama
     from dynamo_tpu_torch.quant.kv import blocks_for_hbm_budget
@@ -817,7 +991,13 @@ def check_engine(device, card: str, kv_dtype: str = "bf16", params=None):
         f"in {time.perf_counter() - t0:.1f} s, {cfg.num_blocks} KV blocks "
         f"of {cfg.block_size}, "
         f"{torch.cuda.memory_allocated() / 2**30:.1f} GiB allocated")
+    t0 = time.perf_counter()
+    engine.warmup_decode()
+    log(f"engine ({kv_dtype}) warm-up in {time.perf_counter() - t0:.1f} s")
+    built = _log_programs(engine, f"engine ({kv_dtype})")
     reqs = _requests(mc.vocab_size)
+    gc.collect()  # not the earlier phases' garbage in this one's runs
+    pauses: list = []
 
     async def run():
         try:
@@ -830,11 +1010,16 @@ def check_engine(device, card: str, kv_dtype: str = "bf16", params=None):
             stats = dict(engine.metrics)
             await engine.clear_kv_blocks()
             engine.fpm.clear()
+            # bursts dispatched before the first run's last finish was
+            # read back: the device runs them before the next prefill
+            tail = len(engine._inflight)
             w0 = time.monotonic()
-            second = await _serve(engine, reqs)
+            with gc_pauses(pauses):
+                second = await _serve(engine, reqs)
             steps = _step_medians(engine.fpm)
             dispatches = _prefill_dispatches(engine.fpm, w0)
             await engine.clear_kv_blocks()
+            n0 = used[0].launches
             with torch.profiler.profile(activities=[
                     torch.profiler.ProfilerActivity.CPU,
                     torch.profiler.ProfilerActivity.CUDA]) as prof:
@@ -842,12 +1027,13 @@ def check_engine(device, card: str, kv_dtype: str = "bf16", params=None):
                 await _serve(engine, reqs)
                 torch.cuda.synchronize()
                 wall = time.perf_counter() - t0
-            return (first, counts, stats, (second, steps), dispatches,
-                    (prof, wall))
+            return (first, counts, stats, (second, steps), (dispatches, tail),
+                    (prof, wall, used[0].launches - n0))
         finally:
             await engine.close()
 
-    first, launches, stats, direct, dispatches, (prof, wall) = \
+    first, launches, stats, direct, (dispatches, tail), (prof, wall,
+                                                         counted) = \
         asyncio.run(run())
     second = direct[0]
     for i, (toks, finish, ttft, _) in enumerate(first):
@@ -857,16 +1043,22 @@ def check_engine(device, card: str, kv_dtype: str = "bf16", params=None):
            or len(r[0]) != 32]
     if bad:
         raise SystemExit(f"requests {bad} did not finish with 32 tokens")
+    if engine.graphs.counts != built:
+        raise SystemExit(f"serving captured programs again: "
+                         f"{engine.graphs.counts} after warm-up {built}")
+    log(f"three serving runs captured nothing more: {engine.graphs.counts}")
     L = mc.n_layers
     need_dec = L * stats["decode_steps"]
     need_pre = L * stats["prefill_steps"]
     dec, pre = (fn.__name__ for fn in used)
     log(f"engine launches in the first run: {dec} {launches[dec]} (>= "
-        f"{need_dec} = {L} layers x {stats['decode_steps']} decode steps), "
-        f"{pre} {launches[pre]} (>= {need_pre} = {L} x "
-        f"{stats['prefill_steps']} prefill dispatches); the other mode's "
-        + ", ".join(f"{fn.__name__} {launches[fn.__name__]}"
-                    for fn in unused))
+        f"{need_dec} = {L} layers x {stats['decode_steps']} fused decode "
+        f"steps in {stats['decode_bursts']} bursts, "
+        f"{stats['cont_bursts']} of them continuations; replays counted "
+        f"from their captures), {pre} {launches[pre]} (>= {need_pre} = "
+        f"{L} x {stats['prefill_steps']} prefill dispatches); the other "
+        "mode's " + ", ".join(f"{fn.__name__} {launches[fn.__name__]}"
+                              for fn in unused))
     if launches[dec] < need_dec or launches[pre] < need_pre \
             or not need_dec:
         raise SystemExit("the engine did not run through both kernels")
@@ -882,21 +1074,138 @@ def check_engine(device, card: str, kv_dtype: str = "bf16", params=None):
     log(f"second run, same requests after clearing the prefix cache: greedy "
         f"streams {greedy} identical: {same}; sampled stream identical: "
         f"{first[2][0] == second[2][0]}")
-    if not same:
-        raise SystemExit("greedy streams are not reproducible")
+    if not same or first[2][0] != second[2][0]:
+        raise SystemExit("streams are not reproducible")
     for name, res in (("first (cold)", first), ("second (warm)", second)):
         n, secs = _decode_rate(res)
         log(f"serving, {kv_dtype} cache, {name} run ({card}): ttft s per "
             f"request {[round(r[2], 4) for r in res]}, decode {n} tokens in "
             f"{secs:.3f} s = {n / secs:.1f} tokens/s aggregate "
-            f"(max_num_seqs={cfg.max_num_seqs}, eager, no CUDA graphs)")
-    log(f"decode step ms, second (warm) run, median by lanes (FPM gap_s): "
+            f"(max_num_seqs={cfg.max_num_seqs}, overlapped, CUDA graphs)")
+    log(f"decode burst ms, second (warm) run, median by lanes (FPM gap_s): "
         f"{_fmt_steps(direct[1])}; its prefill dispatches (ms after the "
-        f"start, rows, tokens): {dispatches}")
-    _device_breakdown(prof, wall)
+        f"start, rows, tokens): {dispatches}; it started behind {tail} "
+        f"bursts of the first run still in flight; {len(pauses)} GC "
+        f"passes during it, {1e3 * sum(pauses):.1f} ms in all, the "
+        f"longest {1e3 * max(pauses, default=0.0):.1f} ms")
+    seen = _device_breakdown(prof, wall)
+    k1_seen = sum(1 for e in prof.events()
+                  if str(e.device_type).endswith("CUDA")
+                  and "paged_decode" in e.name)
+    log(f"profiled run: {dec} counted {counted} launches (replays counted "
+        f"from their captures), the profiler saw {k1_seen} K1 kernels"
+        + ("" if seen else " (no device time seen)"))
+    check_graph_burst(engine, device, kv_dtype)
     ops = _compare_logits(engine.params, mc, device, kv_dtype)
     return ({fn.__name__: launches[fn.__name__] for fn in used}, engine, ops,
             direct)
+
+
+def _burst_inputs(engine, device, seed: int) -> tuple:
+    """A k = 8 burst's descriptor at B = max_num_seqs, every lane live,
+    over blocks of random K/V (int8: random codes and scales): lane
+    contexts 1800, 500, 100 and 37 (the engine's prompts).  Returns (the
+    descriptor's host arrays, the block ids the lanes use)."""
+    c = engine.config
+    bs, B, mb = c.block_size, c.max_num_seqs, c.max_blocks_per_seq
+    lens = [1800, 500, 100, 37][:B]
+    gen = torch.Generator(device=device).manual_seed(seed)
+    tables = np.zeros((B, mb), np.int32)
+    nxt = 1
+    for b, n in enumerate(lens):
+        need = -(-(n + 8) // bs)
+        tables[b, :need] = np.arange(nxt, nxt + need)
+        nxt += need
+    blocks = torch.arange(1, nxt, device=device)
+    kv = engine.kv
+    for t in kv[:2]:
+        shape = (t.shape[0], t.shape[1], len(blocks), *t.shape[3:])
+        if t.dtype == torch.int8:
+            vals = torch.randint(-127, 128, shape, generator=gen,
+                                 device=device, dtype=torch.int8)
+        else:
+            vals = torch.randn(shape, generator=gen, device=device,
+                               dtype=torch.float32).to(t.dtype)
+        t[:, :, blocks] = vals
+    for t in kv[2:]:
+        shape = (t.shape[0], t.shape[1], len(blocks), t.shape[3])
+        t[:, :, blocks] = 0.02 * torch.rand(shape, generator=gen,
+                                            device=device) + 0.005
+    a = engine.graphs.host_descriptor()
+    a["tokens"][:] = np.random.default_rng(seed).integers(
+        0, engine.model_cfg.vocab_size, B)
+    a["positions"][:] = a["ctx_lens"][:] = lens
+    a["tables"][:] = tables
+    a["steps"][:] = 1
+    a["valid"][:] = True
+    return a, blocks
+
+
+def check_graph_burst(engine, device, kv_dtype: str) -> dict:
+    """A replayed k = 8 greedy burst at B = max_num_seqs against the same
+    burst run eagerly (the program's body) on the same inputs: the
+    tokens must be equal and the K/V the two wrote within K1's per-row
+    tolerance.  Also times the replay (CUDA events) and counts the device
+    operations of the eager body (the kernels the graph holds) per
+    decode token.  Uses blocks of random K/V: run after serving."""
+    g, k = engine.graphs, 8
+    a, blocks = _burst_inputs(engine, device, seed=11)
+    kv = engine.kv
+    saved = [t[:, :, blocks].clone() for t in kv]
+    snap = g.snapshot()
+
+    def written():
+        return [t[:, :, blocks].clone() for t in kv]
+
+    def reset():
+        for t, s in zip(kv, saved):
+            t[:, :, blocks] = s
+        g.restore(snap)
+        g.upload(a)
+
+    reset()
+    with torch.profiler.profile(activities=[
+            torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        eager = g.run_eager(True, k).clone()
+        torch.cuda.synchronize()
+    ops = sum(1 for e in prof.events() if str(e.device_type).endswith("CUDA"))
+    kv_eager = written()
+    reset()
+    replay = torch.from_numpy(g.run(True, k).wait().copy())
+    kv_replay = written()
+    same = torch.equal(eager.cpu(), replay)
+    errs = [row_rel_err(r.float(), e.float())
+            for r, e in zip(kv_replay, kv_eager)]
+    diff = max((r.float() - e.float()).abs().max().item()
+               for r, e in zip(kv_replay, kv_eager))
+    reset()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(5):
+        g.continuation(0)
+        g.run(True, k)
+    end.record()
+    end.synchronize()
+    burst_ms = start.elapsed_time(end) / 5
+    tokens = k * engine.config.max_num_seqs
+    log(f"graph burst ({kv_dtype}): replayed k={k} greedy burst at B="
+        f"{engine.config.max_num_seqs} equals the eager burst: tokens "
+        f"{same}, K/V max row relative error {max(errs):.3e} (limit "
+        f"{REL_TOL}), max abs diff {diff:.3e}; replay {burst_ms:.3f} ms = "
+        f"{burst_ms / k:.3f} ms a step; the burst's eager body launched "
+        f"{ops} device operations = {ops / tokens:.1f} per decode token")
+    for t, s in zip(kv, saved):
+        t[:, :, blocks] = s
+    g.restore(snap)
+    if not same:
+        diverge = (eager.cpu() != replay).nonzero().tolist()
+        raise SystemExit(f"replayed burst differs from the eager one at "
+                         f"(step, lane) {diverge}")
+    if not max(errs) <= REL_TOL:
+        raise SystemExit("replayed burst wrote other K/V than the eager one")
+    return {"burst_ms": burst_ms, "ops_per_token": ops / tokens}
 
 
 def _decode_rate(res) -> tuple:
@@ -985,7 +1294,7 @@ async def _serving_worker(device, cfg, params):
         await client.close()
         await worker.close()
         gone = not await rt.discovery.get_prefix(key)
-        worker.engine.kv = None
+        worker.engine.kv = worker.engine.graphs = None
         await rt.shutdown()
         log(f"worker close(): MDC gone from discovery: {gone}")
         if not gone:
@@ -1205,6 +1514,152 @@ def check_worker_short(device, cfg, params) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# the decode A/B: lockstep eager decode against the default scheduler
+# ---------------------------------------------------------------------------
+
+
+def _body_ops(engine, k: int) -> int:
+    """Device operations one decode program (greedy, k) launches: its body
+    run eagerly, profiled, on an all-padding descriptor (writes land in
+    block 0); a CUDA graph holds the same kernels.  The descriptor is
+    restored afterwards."""
+    g = engine.graphs
+    snap = g.snapshot()
+    a = g.host_descriptor()
+    a["ctx_lens"][:] = a["steps"][:] = 1
+    g.upload(a)
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[
+            torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        g.run_eager(True, k)
+        torch.cuda.synchronize()
+    g.restore(snap)
+    return sum(1 for e in prof.events() if str(e.device_type).endswith("CUDA"))
+
+
+def _decode_ab_record(path: str, res, records) -> dict:
+    """One turn of decode_ab: TTFT per request, aggregate decode tokens/s,
+    and from the FPM decode records the median dispatch gap per burst and
+    per token (gap / k), and the bursts' sizes."""
+    n, secs = _decode_rate(res)
+    dec = [r for r in records if r["kind"] == "decode" and r["gap_s"] > 0]
+    ks: dict = {}
+    for r in records:
+        if r["kind"] == "decode":
+            ks[r["k"]] = ks.get(r["k"], 0) + 1
+    return {
+        "path": path,
+        "ttft_s": [round(r[2], 4) for r in res],
+        "decode_tok_s": round(n / secs, 2),
+        "gap_ms_per_burst": round(float(np.median(
+            [r["gap_s"] * 1e3 for r in dec])), 3) if dec else None,
+        "gap_ms_per_token": round(float(np.median(
+            [r["gap_s"] * 1e3 / r["k"] for r in dec])), 3) if dec else None,
+        "bursts_by_k": dict(sorted(ks.items())),
+    }
+
+
+def decode_ab(device, card: str, params, rounds: int = 2) -> dict:
+    """The five requests at llama-8b width on a bf16 cache, served in one
+    process by two engines with the same weights and their own caches:
+    "lockstep", the lockstep scheduler with single eager decode steps
+    (overlap_scheduling=False, decode_fused_steps=1, no CUDA graphs), and
+    "default", the JAX engine's defaults on CUDA graphs; in turns
+    (lockstep, default, default, lockstep) `rounds` times after a warm-up
+    run of each, each turn from a cleared prefix cache after 1.1 s idle;
+    then one profiled turn of each for the device's busy share, and each
+    path's device operations per decode token (its decode program's
+    body).  Returns the turns and each path's medians."""
+    from dynamo_tpu_torch.engine import TorchEngine
+
+    cfg = _engine_config("bf16")
+    engines = {
+        "lockstep": TorchEngine(dataclasses.replace(
+            cfg, overlap_scheduling=False, decode_fused_steps=1),
+            params=params, device=device, cuda_graphs=False),
+        "default": TorchEngine(dataclasses.replace(cfg), params=params,
+                               device=device)}
+    reqs = _requests(cfg.resolve_model().vocab_size)
+    for eng in engines.values():
+        eng.warmup_decode()
+    ks = {"lockstep": 1, "default": 8}
+    ops = {p: _body_ops(e, ks[p]) for p, e in engines.items()}
+    gc.collect()
+
+    async def run():
+        turns, prof = [], {}
+        try:
+            for eng in engines.values():  # warm-up
+                await _serve(eng, reqs)
+                await eng.clear_kv_blocks()
+            await asyncio.sleep(1.1)
+            for path in ["lockstep", "default", "default",
+                         "lockstep"] * rounds:
+                eng = engines[path]
+                w0 = time.monotonic()
+                res = await _serve(eng, reqs)
+                w1 = time.monotonic()
+                await eng.clear_kv_blocks()
+                await asyncio.sleep(1.1)
+                bad = [i for i, r in enumerate(res)
+                       if r[1] != "length" or len(r[0]) != 32]
+                if bad:
+                    raise SystemExit(f"decode A/B {path}: requests {bad} "
+                                     "did not finish with 32 tokens")
+                turns.append(_decode_ab_record(
+                    path, res, [r for r in eng.fpm if w0 <= r["t"] <= w1]))
+                turns[-1]["streams"] = [r[0] for r in res]
+                log(f"decode A/B turn {len(turns)}: "
+                    f"{ {k: v for k, v in turns[-1].items() if k != 'streams'} }")
+            for path, eng in engines.items():
+                with torch.profiler.profile(activities=[
+                        torch.profiler.ProfilerActivity.CPU,
+                        torch.profiler.ProfilerActivity.CUDA]) as p:
+                    t0 = time.perf_counter()
+                    res = await _serve(eng, reqs)
+                    torch.cuda.synchronize()
+                    wall = time.perf_counter() - t0
+                await eng.clear_kv_blocks()
+                log(f"decode A/B, {path}, profiled turn:")
+                prof[path] = (_device_breakdown(p, wall),
+                              sum(len(r[0]) for r in res))
+        finally:
+            for eng in engines.values():
+                await eng.close()
+        return turns, prof
+
+    turns, prof = asyncio.run(run())
+    greedy = [i for i, r in enumerate(reqs) if r.sampling.temperature <= 0]
+    ref = turns[0]["streams"]
+    if any(t["streams"][i] != ref[i] for t in turns for i in greedy):
+        raise SystemExit("decode A/B: greedy streams differ between paths")
+    summary = {}
+    for path in ("lockstep", "default"):
+        mine = [t for t in turns if t["path"] == path]
+        med = {key: float(np.median([t[key] for t in mine]))
+               for key in ("decode_tok_s", "gap_ms_per_burst",
+                           "gap_ms_per_token")}
+        med["ttft_s"] = [float(np.median([t["ttft_s"][i] for t in mine]))
+                         for i in range(len(reqs))]
+        seen, tokens = prof[path]
+        med["busy_share"] = seen["busy_share"] if seen else None
+        med["device_ops_per_token_served"] = (seen["device_ops"] / tokens
+                                              if seen else None)
+        med["device_ops_per_decode_token"] = \
+            ops[path] / (ks[path] * cfg.max_num_seqs)
+        summary[path] = med
+        log(f"decode A/B, {path}, median of {len(mine)} turns ({card}): "
+            f"{med}")
+    log(f"decode A/B: default over lockstep decode tokens/s "
+        f"{summary['default']['decode_tok_s'] / summary['lockstep']['decode_tok_s']:.2f}x; "
+        f"greedy streams equal across every turn of both paths")
+    for t in turns:
+        del t["streams"]
+    return {"turns": turns, "median": summary}
+
+
+# ---------------------------------------------------------------------------
 # --worker-ab: does the request plane show in host-bound decode?
 # ---------------------------------------------------------------------------
 
@@ -1349,16 +1804,17 @@ def worker_ab(device, card: str, rounds: int = 3) -> dict:
     return {"turns": turns, "median": summary, "codec_us": codec}
 
 
-def _device_breakdown(prof, wall: float) -> None:
-    """Where a third, profiled run's device time goes: kernel time by
-    family and the device's busy share of the run's wall time (one
-    stream, so kernel times do not overlap; the profiler's own host
-    overhead lengthens the wall, so the busy share is a lower bound)."""
+def _device_breakdown(prof, wall: float) -> Optional[dict]:
+    """Where a profiled run's device time goes: kernel time by family and
+    the device's busy share of the run's wall time (one stream, so kernel
+    times do not overlap; the profiler's own host overhead lengthens the
+    wall, so the busy share is a lower bound).  Returns {"busy_share",
+    "device_ops"}, or None when the profiler saw no kernels."""
     kernels = [e for e in prof.events()
                if str(e.device_type).endswith("CUDA")]
     if not kernels:
         log("device breakdown: not measured (the profiler saw no kernels)")
-        return
+        return None
     fams = {"K1 paged_decode": ("paged_decode",),
             "K3 packed_prefill": ("packed_prefill",),
             "matmul": ("gemm", "cutlass", "xmma", "nvjet", "sm90"),
@@ -1379,6 +1835,7 @@ def _device_breakdown(prof, wall: float) -> None:
     top = sorted(names.items(), key=lambda kv: -kv[1])[:6]
     log("top kernels (ms): " + "; ".join(
         f"{n[:60]} {us / 1e3:.1f}" for n, us in top))
+    return {"busy_share": busy / wall, "device_ops": len(kernels)}
 
 
 def load_checkout(path: str):
@@ -1492,6 +1949,18 @@ def main() -> int:
               flush=True)
         print(card, flush=True)
         return 0
+    if sys.argv[1:] == ["--decode-ab"]:
+        # python3 chip_smoke.py --decode-ab: lockstep eager decode
+        # against the default scheduler on graphs, in turns
+        build_kernels()
+        from dynamo_tpu_torch.models import llama
+
+        gen = torch.Generator(device=device).manual_seed(0)
+        params = llama.init_params(cfg, gen, device)
+        print(json.dumps({"decode_ab": decode_ab(device, card, params)}),
+              flush=True)
+        print(card, flush=True)
+        return 0
     if sys.argv[1:] == ["--worker-ab"]:
         # python3 chip_smoke.py --worker-ab: the engine directly against
         # the engine behind the worker, in turns
@@ -1503,23 +1972,28 @@ def main() -> int:
                check_prefill_kernel(cfg, device),
                check_decode_kernel(cfg, device, int8=True),
                check_prefill_kernel(cfg, device, int8=True)]
+    dma = check_dma_kernels(device)
+    torch.cuda.empty_cache()
     log(f"kernel phases done at {time.perf_counter() - t_start:.1f} s")
     launches, engine, ops_bf16, direct = check_engine(device, card)
     log(f"bf16 engine phase done at {time.perf_counter() - t_start:.1f} s")
     # the later runs reuse the weights; each cache is freed first
     params = engine.params
-    engine.kv = None
+    engine.kv = engine.graphs = None
     torch.cuda.empty_cache()
     worker_launches = check_worker(device, card, engine.config, params,
                                    direct)
     log(f"bf16 worker phase done at {time.perf_counter() - t_start:.1f} s")
     del engine
     torch.cuda.empty_cache()
+    decode_ab(device, card, params)
+    torch.cuda.empty_cache()
+    log(f"decode A/B phase done at {time.perf_counter() - t_start:.1f} s")
     launches8, engine8, ops_int8, _ = check_engine(device, card, "int8",
                                                    params)
     launches.update(launches8)
     log(f"int8 engine phase done at {time.perf_counter() - t_start:.1f} s")
-    engine8.kv = None
+    engine8.kv = engine8.graphs = None
     torch.cuda.empty_cache()
     worker_launches.update(check_worker_short(device, engine8.config, params))
     log(f"int8 worker phase done at {time.perf_counter() - t_start:.1f} s")
@@ -1531,7 +2005,7 @@ def main() -> int:
         k["worker_launches"] = worker_launches[k["name"]]
     log(f"chip_smoke: every phase passed in "
         f"{time.perf_counter() - t_start:.1f} s")
-    print(json.dumps({"kernels": kernels}), flush=True)
+    print(json.dumps({"kernels": kernels + dma}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

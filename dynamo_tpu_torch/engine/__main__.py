@@ -61,6 +61,14 @@ def build_args() -> argparse.ArgumentParser:
                    default=float(os.environ.get("DYN_PEAK_TFLOPS", "0")),
                    help="dense-bf16 peak, for prefill MFU in the FPM "
                         "records (H100 SXM: 989); 0 = unknown")
+    p.add_argument("--no-overlap-scheduling", action="store_true",
+                   help="lockstep scheduler: dispatch, block on the "
+                        "device, emit (the byte-identical reference for "
+                        "the overlapped default)")
+    p.add_argument("--no-adaptive-fusion", action="store_true",
+                   help="fixed decode bursts: decode_fused_steps whenever "
+                        "no prefill/admission work is pending, instead of "
+                        "ramping the fusion ladder")
     p.add_argument("--migration-limit", type=int, default=3)
     p.add_argument("--no-warmup", action="store_true",
                    help="skip the kernel build and decode warm-up at "
@@ -75,15 +83,8 @@ def build_args() -> argparse.ArgumentParser:
     return p
 
 
-async def main() -> int:
-    setup_logging()
-    args = build_args().parse_args()
-    try:
-        device = resolve_device(args.device)
-    except (RuntimeError, ValueError) as e:
-        print(f"dynamo_tpu_torch.engine: {e}", file=sys.stderr)
-        return 2
-    config = EngineConfig(
+def engine_config(args: argparse.Namespace) -> EngineConfig:
+    return EngineConfig(
         model=args.model,
         model_name=args.model_name,
         block_size=args.block_size,
@@ -97,8 +98,21 @@ async def main() -> int:
         attn_impl=args.attn_impl,
         packed_attn_impl=args.packed_attn_impl,
         peak_tflops=args.peak_tflops,
+        overlap_scheduling=not args.no_overlap_scheduling,
+        decode_fuse_adaptive=not args.no_adaptive_fusion,
         warmup=not args.no_warmup,
     )
+
+
+async def main() -> int:
+    setup_logging()
+    args = build_args().parse_args()
+    try:
+        device = resolve_device(args.device)
+    except (RuntimeError, ValueError) as e:
+        print(f"dynamo_tpu_torch.engine: {e}", file=sys.stderr)
+        return 2
+    config = engine_config(args)
     rt = await DistributedRuntime.detached().start()
     worker = await TorchEngineWorker(
         rt, config, namespace=args.namespace, component=args.component,

@@ -60,6 +60,30 @@ class EngineConfig:
     # the smallest entry floors the per-step prefill budget and the packed
     # stream's padded length, as in the JAX engine
     prefill_buckets: Tuple[int, ...] = (32, 64, 128, 256, 512, 1024, 2048)
+    # decode burst: this many decode steps fused into ONE program
+    # (models/llama.py decode_multi, captured as a CUDA graph by
+    # engine/graphs.py) when no prefill/admission work is pending; 1
+    # disables fusion
+    decode_fused_steps: int = 8
+    # decode output pipelining: up to depth-1 dispatched bursts stay
+    # UNREAD while the next one runs, their sampled ids chained on the
+    # device; emission and stop detection lag by up to
+    # (depth-1) * decode_fused_steps tokens (the overshoot is discarded,
+    # like a mid-burst finish).  Only effective with overlap_scheduling
+    decode_pipeline_depth: int = 4
+    # overlapped scheduler: decode bursts pipeline to
+    # decode_pipeline_depth and a completing prefill's first-token
+    # readback is deferred one step.  False = lockstep reference mode
+    # (schedule, dispatch, block on the device, emit), greedy
+    # byte-identical to the overlapped mode by construction
+    overlap_scheduling: bool = True
+    # adaptive decode fusion: in a decode-only stretch the burst size
+    # ramps INTERLEAVE_BURST -> 2x -> ... -> decode_fused_steps (one
+    # program per ladder rung, all built by warmup_decode) and de-fuses
+    # to the interleave burst when an arrival, cancellation or pending
+    # prefill chunk appears.  False = full decode_fused_steps whenever no
+    # prefill/admission work is pending
+    decode_fuse_adaptive: bool = True
     # per-step token budget: one packed prefill dispatch is capped to
     # max_batch_tokens minus one token per decoding slot
     max_batch_tokens: int = 2048

@@ -3,30 +3,40 @@
 The counterpart of dynamo_tpu/engine/core.py (`JaxEngine`), with the
 same request contract (`generate(PreprocessedRequest, token=None)` ->
 async stream of `LLMEngineOutput`) and the same scheduling of the main
-path.  Each scheduler step runs on a worker thread, as `_sched_step`
-does there:
+path, the overlapped scheduler by default.  Each scheduler step runs on
+a worker thread, as `_sched_step` does there:
 
   * cancellations are reaped and waiting requests admitted through the
     block allocator, reusing prefix-cache hits (engine/block_allocator.py);
+  * the previous step's deferred first tokens are read back and emitted;
   * ONE budget-capped packed prefill dispatch runs the prefilling slots'
     chunks as a single padding-free stream (engine/prefill.py plans it,
-    models/llama.py prefill_packed runs it, kernel K3 attends);
-  * ONE batched decode step runs every slot past prefill (models/llama.py
-    decode, kernel K1 attends);
-  * sampled tokens stream back, blocks are committed to the prefix cache
-    once their K/V is materialized, and stop conditions finish requests.
+    models/llama.py prefill_packed runs it eagerly, kernel K3 attends);
+    in overlap mode its first tokens are read back one step late;
+  * ONE decode burst runs every slot past prefill: k fused decode steps
+    (k on the fusion ladder, adapted to pending work) at the fixed batch
+    B = max_num_seqs, replayed from a captured CUDA graph
+    (engine/graphs.py; kernel K1 attends).  Up to decode_pipeline_depth-1
+    bursts stay unread while the next runs, their sampled ids chained on
+    the device; a steady-state burst re-dispatches the device descriptor
+    with an in-program advance and uploads nothing;
+  * the oldest burst's tokens stream back, blocks are committed to the
+    prefix cache once their K/V is materialized, and stop conditions
+    finish requests (a mid-burst finish discards the overshoot).
+
+`overlap_scheduling=False` is the lockstep reference mode (dispatch,
+block on the device, emit), greedy byte-identical to the overlapped one.
 
 Every block allocator mutation's KV events (stored/removed hashes) are
 netted through the consolidator on the scheduler thread, in mutation
 order, and handed to `kv_event_sink(stored, removed, tier)` on the event
 loop's thread (engine/worker.py publishes them); every prefill dispatch
-and decode step appends one forward-pass-metrics record to `fpm`, with
+and decode burst appends one forward-pass-metrics record to `fpm`, with
 the keys of the JAX engine's records.
 
-Not here yet (ROADMAP.md): overlap scheduling, fused decode bursts and
-CUDA graphs (the step is lockstep and eager: launch, wait, emit), the
-fused sampling epilogue and penalties, KVBM tiers, disaggregation,
-speculative and guided decoding, and LoRA.
+Not here yet (ROADMAP.md): graph capture of packed prefill, the fused
+sampling epilogue and penalties, KVBM tiers, disaggregation, speculative
+and guided decoding, and LoRA.
 """
 
 from __future__ import annotations
@@ -38,7 +48,7 @@ import time
 import zlib
 from collections import deque
 from dataclasses import dataclass
-from typing import Any, AsyncIterator, Callable, Dict, List, Optional, Sequence
+from typing import Any, AsyncIterator, Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -57,7 +67,8 @@ from ..runtime.aio import CANCELLED, next_or_cancel
 from ..tokens import TokenBlockSequence, request_salt
 from .block_allocator import BlockAllocator, GrowResult
 from .config import EngineConfig
-from .prefill import _pow2, plan_packed_prefill
+from .graphs import DecodePrograms, Readback
+from .prefill import plan_packed_prefill
 from .sampler import greedy_tokens, sample_tokens
 
 logger = logging.getLogger(__name__)
@@ -76,13 +87,21 @@ class _Slot:
     generated: int = 0
     committed_blocks: int = 0
     sampling_seed: int = 0
-    generator: Optional[torch.Generator] = None  # sampled requests only
     finished: bool = False
     cancel_requested: bool = False
     cached_tokens: int = 0   # prefix-cache reuse (for metrics)
     enqueued_t: float = 0.0
     first_token_t: float = 0.0
     last_push_t: float = 0.0
+    # decode pipelining: tokens the device has decoded for this slot that
+    # the host has not read back yet
+    inflight: int = 0
+    # bumped on preemption so stale in-flight bursts are discarded
+    epoch: int = 0
+    # overlapped scheduling: the prompt is prefilled but its first token
+    # is still being read back (_pending_first); decode skips the slot
+    # until the next step's flush emits it
+    awaiting_first: bool = False
 
     @property
     def prefilling(self) -> bool:
@@ -104,15 +123,23 @@ def _tensors(tree):
 
 
 class TorchEngine:
+    # decode burst size while prefill/admission work is pending: a short
+    # burst bounds how long a chunk waits behind decode while amortizing
+    # the dispatch 4x (the JAX engine's value)
+    INTERLEAVE_BURST = 4
+
     def __init__(self, config: EngineConfig, params=None,
                  device: DeviceLike = "cuda",
-                 kv_event_sink: Optional[KvEventSink] = None):
+                 kv_event_sink: Optional[KvEventSink] = None,
+                 cuda_graphs: bool = True):
         """`params`: the port's parameter tree on `device` (for example
         from models/convert.py params_from_numpy); None makes random
         weights from config.seed on the device.  `kv_event_sink(stored,
         removed, tier)`: called on the event loop's thread with each
         netted batch of KV events, in mutation order (engine/worker.py
-        passes KvEventPublisher.enqueue_batch)."""
+        passes KvEventPublisher.enqueue_batch).  `cuda_graphs=False` runs
+        the decode programs eagerly on CUDA too (a measurement baseline;
+        on the CPU they always run eagerly)."""
         self.config = config
         self.device = resolve_device(device)
         self.model_cfg = config.resolve_model()
@@ -144,11 +171,31 @@ class TorchEngine:
         self._closed = False
         self.kv_event_sink = kv_event_sink
         self._consolidator = KvEventConsolidator()
+        # the decode programs (engine/graphs.py) and the overlapped
+        # scheduler's state: dispatched-but-unread bursts, the owner of
+        # each lane's device chain, the host mirror of the last full
+        # descriptor (_is_continuation), deferred first-token readbacks
+        # and the adaptive fusion ramp's clock
+        self.graphs = DecodePrograms(self.params, self.model_cfg, self.kv,
+                                     config.max_num_seqs,
+                                     config.max_blocks_per_seq, self.device,
+                                     capture=cuda_graphs)
+        self._overlap = bool(config.overlap_scheduling)
+        self._inflight: deque = deque()
+        self._chain_owner: List[Optional[Tuple[str, int]]] = \
+            [None] * config.max_num_seqs  # (seq_id, epoch) per lane
+        self._last_desc: Optional[Dict[str, Any]] = None
+        self._pending_first: List[dict] = []
+        self._decode_only_run = 0
         # graceful drain (engine/worker.py drain()): set to reject new
         # requests with the migratable "worker draining" marker
         self.draining = False
+        # decode_steps counts fused model steps (k per burst),
+        # decode_bursts the dispatches, cont_bursts those that re-used the
+        # device descriptor
         self.metrics: Dict[str, Any] = {
             "steps": 0, "prefill_steps": 0, "decode_steps": 0,
+            "decode_bursts": 0, "cont_bursts": 0,
             "prefill_tokens": 0, "decode_tokens": 0, "cache_hit_tokens": 0,
             "preemptions": 0, "step_time_s": 0.0, "requests": 0,
             "prompt_tokens": 0,
@@ -189,6 +236,8 @@ class TorchEngine:
         await asyncio.to_thread(self._step_lock.acquire)
         self._step_lock.release()
         self._fail_all_streams()
+        self._inflight.clear()  # unread bursts: their streams are dead
+        self._pending_first.clear()
 
     def _fail_all_streams(
         self,
@@ -252,19 +301,25 @@ class TorchEngine:
         self._wake.set()
 
     def warmup_decode(self) -> None:
-        """One decode dispatch at every batch size up to max_num_seqs, and
-        one packed prefill dispatch, all on the garbage block, so the
-        first request pays for no kernel build (on CUDA both sources are
-        built first, one nvcc each, started together) and no cuBLAS
-        warm-up.  Runs on the caller's thread and holds the step lock
-        throughout: the worker serves its generate endpoint (and arms the
-        canary) before warm-up ends, and a step must not run between
-        warm-up dispatches."""
+        """Build every decode program serving can reach, so no request
+        pays for a kernel build, a cuBLAS warm-up or a graph capture: on
+        CUDA both kernel sources first (one nvcc each, started together),
+        one packed prefill dispatch on the garbage block, then every rung
+        of the fusion ladder, greedy and sampled, dispatched full and as a
+        continuation (engine/graphs.py captures each program at its first
+        run).  Nothing real decodes (valid all false, all-zero tables:
+        the writes land in block 0), and the descriptor, the device chain
+        and the continuation state are restored afterwards.  Runs on the
+        caller's thread and holds the step lock throughout: the worker
+        serves its generate endpoint (and arms the canary) before warm-up
+        ends, and a step must not run between warm-up dispatches."""
         c, dev = self.config, self.device
 
         def zeros(*shape, dtype=torch.int32):
             return torch.zeros(shape, dtype=dtype, device=dev)
 
+        a = self.graphs.host_descriptor()
+        a["ctx_lens"][:] = a["steps"][:] = 1
         with self._step_lock:
             if dev.type == "cuda":
                 from ..ops import _build, cuda_packed_prefill, cuda_paged_attention
@@ -277,9 +332,16 @@ class TorchEngine:
             llama.prefill_packed(self.params, self.model_cfg, self.kv,
                                  zeros(T), zeros(T), zeros(T), zeros(1, 1),
                                  zeros(1), valid)
-            for B in range(1, c.max_num_seqs + 1):
-                llama.decode(self.params, self.model_cfg, self.kv, zeros(B),
-                             zeros(B), zeros(B, 1), zeros(B))
+            snap, last = self.graphs.snapshot(), self._last_desc
+            for greedy in (True, False):
+                a["temps"][:] = 0.0 if greedy else 0.7
+                for k in self._fuse_ladder():
+                    self.graphs.upload(a)
+                    self.graphs.run(greedy, k).wait()
+                    self.graphs.continuation(k)
+                    self.graphs.run(greedy, k).wait()
+            self.graphs.restore(snap)
+            self._last_desc = last
             if dev.type == "cuda":
                 torch.cuda.synchronize(dev)
 
@@ -334,10 +396,6 @@ class TorchEngine:
         seed = (s.seed if s.seed is not None
                 # stable across processes (unlike hash(): PYTHONHASHSEED)
                 else zlib.crc32(request.request_id.encode()) & 0x7FFFFFFF)
-        generator = None
-        if s.temperature > 0.0:
-            generator = torch.Generator(device=self.device)
-            generator.manual_seed(seed)
         slot = _Slot(
             index=-1, request=request,
             seq=TokenBlockSequence(request.token_ids, self.config.block_size,
@@ -345,7 +403,7 @@ class TorchEngine:
                                                      request.media_hashes)),
             out_q=asyncio.Queue(),
             block_table=np.zeros(self.config.max_blocks_per_seq, np.int32),
-            sampling_seed=seed, generator=generator,
+            sampling_seed=seed,
             enqueued_t=time.monotonic(),
         )
         with self._qlock:
@@ -387,7 +445,8 @@ class TorchEngine:
     async def _loop(self) -> None:
         try:
             while not self._closed:
-                busy = any(s is not None for s in self._slots)
+                busy = (any(s is not None for s in self._slots)
+                         or bool(self._inflight))
                 if not busy and not self.waiting:
                     self._wake.clear()
                     await self._wake.wait()
@@ -412,9 +471,18 @@ class TorchEngine:
                 return
             self._process_cancellations()
             self._admit_waiting()
+            # the previous step's deferred first tokens, before this
+            # step's dispatches: the wait pays only for work the device
+            # has had a step to finish
+            self._flush_pending_first()
             self._prefill_step()
-            if any(s is not None and not s.prefilling for s in self._slots):
+            if any(s is not None and not s.prefilling
+                   and not s.awaiting_first for s in self._slots):
                 self._decode_step()
+            elif self._inflight:
+                # no dispatchable decode work: flush the pipeline tail so
+                # trailing tokens and finishes are delivered promptly
+                self._drain_inflight()
 
     def _process_cancellations(self) -> None:
         with self._qlock:
@@ -427,6 +495,9 @@ class TorchEngine:
                 slot.finished = True
                 self._slots[i] = None
                 self._emit_events(self.allocator.free(self._seq_id(slot)))
+                # membership changed: de-fuse, so the freed lane returns
+                # to useful work within a short burst
+                self._decode_only_run = 0
 
     @staticmethod
     def _seq_id(slot: _Slot) -> str:
@@ -468,27 +539,13 @@ class TorchEngine:
             slot.prefill_pos = cached
 
     def _to_device(self, a: np.ndarray) -> torch.Tensor:
-        return torch.from_numpy(a).to(self.device)
-
-    def _sample(self, logits: torch.Tensor, slots: Sequence[_Slot]
-                ) -> List[int]:
-        """Next token per row of `logits` for `slots` (one row each)."""
-        temps = [s.request.sampling.temperature for s in slots]
-        if all(t <= 0.0 for t in temps):
-            toks = greedy_tokens(logits).tolist()
-        else:
-            dev = logits.device
-            toks = sample_tokens(
-                logits,
-                torch.tensor(temps, dtype=torch.float32, device=dev),
-                torch.tensor([s.request.sampling.top_k for s in slots],
-                             device=dev),
-                torch.tensor([s.request.sampling.top_p for s in slots],
-                             dtype=torch.float32, device=dev),
-                [s.generator for s in slots],
-            ).tolist()
-        self._fpm_sync_t = time.monotonic()  # .tolist() waited on the device
-        return toks
+        t = torch.from_numpy(a)
+        if self.device.type != "cuda":
+            return t
+        # from pinned memory: a pageable upload synchronizes the stream
+        # first, so the host would wait out every burst in flight (the
+        # caching host allocator keeps the block until the copy has run)
+        return t.pin_memory().to(self.device, non_blocking=True)
 
     def _prefill_step(self) -> None:
         """One packed prefill dispatch for up to max_prefill_seqs
@@ -511,82 +568,286 @@ class TorchEngine:
         if plan is None:
             return
         a = {k: self._to_device(v) for k, v in plan.arrays.items()
-             if k in ("toks", "positions", "seg_ids", "tables", "last_idx",
-                      "valid")}
+             if k != "lidx"}
         logits, _ = llama.prefill_packed(
             self.params, self.model_cfg, self.kv, a["toks"], a["positions"],
             a["seg_ids"], a["tables"], a["last_idx"], a["valid"])
         self.metrics["prefill_steps"] += 1
-        # the first token is sampled only for segments whose prompt
-        # completes in this chunk (intermediate chunks discard theirs)
-        done = [i for i, (s, ch) in enumerate(zip(plan.slots, plan.chunks))
-                if s.prefill_pos + ch >= s.prompt_len]
+        # the first token is sampled (step 0 of the request's stream) only
+        # for segments whose prompt completes in this chunk; intermediate
+        # chunks discard theirs
+        need = {i: s for i, (s, ch) in enumerate(zip(plan.slots,
+                                                     plan.chunks))
+                if s.prefill_pos + ch >= s.prompt_len}
         self._fpm_prefill(len(plan.slots), plan.tokens, plan.bucket,
-                          completing=len(done))
-        firsts = {}
-        if done:
-            rows = torch.tensor(done, device=logits.device)
-            toks = self._sample(logits[rows], [plan.slots[i] for i in done])
-            firsts = dict(zip(done, toks))
+                          completing=len(need))
+        firsts = None
+        if need:
+            if all(s.request.sampling.temperature <= 0.0 for s in plan.slots):
+                tok = greedy_tokens(logits)
+            else:
+                tok = sample_tokens(logits, a["seeds"],
+                                    torch.zeros_like(a["seeds"]), a["temps"],
+                                    a["top_ks"], a["top_ps"])
+            firsts = self._prefill_samples(tok, need)
         for i, (slot, chunk) in enumerate(zip(plan.slots, plan.chunks)):
-            self._finish_prefill_chunk(slot, chunk, firsts.get(i, -1))
+            if i in need:
+                first = int(firsts[i]) if firsts is not None else None
+            else:
+                first = -1
+            self._finish_prefill_chunk(slot, chunk, first)
+
+    def _prefill_samples(self, tok: torch.Tensor,
+                         need: Dict[int, _Slot]) -> Optional[np.ndarray]:
+        """The completing slots' first tokens.  Lockstep: read back now.
+        Overlap: start the copy to the host and defer the read one step
+        (_flush_pending_first), so this step never blocks on its own
+        dispatch; returns None then."""
+        back = Readback(tok)
+        if self._overlap:
+            ents = []
+            for row, slot in need.items():
+                slot.awaiting_first = True
+                ents.append((slot, (self._seq_id(slot), slot.epoch), row))
+            self._pending_first.append({"tok": back, "entries": ents})
+            return None
+        arr = back.wait()
+        self._fpm_sync_t = time.monotonic()
+        return arr
+
+    def _flush_pending_first(self) -> None:
+        """Overlap mode: read back the previous step's deferred first
+        tokens and emit them.  Entries whose slot finished, was cancelled
+        or was preempted since the dispatch are dropped (the (seq_id,
+        epoch) check the in-flight bursts use)."""
+        if not self._pending_first:
+            return
+        pending, self._pending_first = self._pending_first, []
+        arrs = [e["tok"].wait() for e in pending]
+        self._fpm_sync_t = time.monotonic()
+        for e, arr in zip(pending, arrs):
+            for slot, ident, row in e["entries"]:
+                slot.awaiting_first = False
+                if slot.finished or slot.index < 0 \
+                        or self._slots[slot.index] is not slot \
+                        or (self._seq_id(slot), slot.epoch) != ident:
+                    continue
+                self._complete_prefill(slot, int(arr[row]))
 
     def _finish_prefill_chunk(self, slot: _Slot, chunk: int,
-                              first: int) -> None:
-        """Advance a slot past a computed chunk; `first` is the sampled
-        first token when the prompt completes with it (else -1)."""
+                              first: Optional[int]) -> None:
+        """Advance a slot past a computed chunk.  `first` is the sampled
+        first token when the prompt completes with it, -1 for a chunk
+        that does not complete it, None for a completed prompt whose
+        first token is still being read back (the next step's flush
+        emits it)."""
         self.metrics["prefill_tokens"] += chunk
         slot.prefill_pos += chunk
         slot.ctx_len = slot.prefill_pos
         # registration is deferred to materialization, so commit tracks
         # prefill progress chunk by chunk
         self._commit_full_blocks(slot)
-        if slot.prefilling:
-            return  # more chunks to go; decode runs in between
+        if slot.prefilling or first is None:
+            return  # more chunks to go, or awaiting_first
+        self._complete_prefill(slot, first)
+
+    def _complete_prefill(self, slot: _Slot, first: int) -> None:
         slot.first_token_t = time.monotonic()
         self._push_token(slot, first)
 
-    def _decode_step(self) -> None:
-        """One decode step for every slot past prefill: each needs a
-        block for its next position (preempted when none is left)."""
+    # -- decode -------------------------------------------------------------
+    def _fuse_ladder(self) -> List[int]:
+        """The burst sizes adaptive fusion can dispatch, ascending: 1, then
+        INTERLEAVE_BURST doubling up to decode_fused_steps.  One program
+        per (greedy, rung) exists (engine/graphs.py), all built by
+        warmup_decode: the ladder is the closed set serving can reach."""
+        fused = self.config.decode_fused_steps
+        ladder = [1]
+        k = min(self.INTERLEAVE_BURST, fused)
+        while k > ladder[-1]:
+            ladder.append(k)
+            k = min(k * 2, fused)
+        return ladder
+
+    def _fused_k(self) -> int:
+        """This step's burst size (the adaptive fusion policy): pending
+        admissions, prefill chunks or deferred first tokens de-fuse to the
+        interleave burst and reset the ramp; a decode-only stretch ramps
+        up the ladder one rung per step."""
         c = self.config
-        active = [s for s in self._slots if s is not None and not s.prefilling]
-        for slot in active:
-            nblocks = int(np.count_nonzero(slot.block_table))
-            if slot.ctx_len < nblocks * c.block_size:
-                continue
-            if nblocks >= c.max_blocks_per_seq:
-                # _finish_reason ends every sequence at max_context - 1
-                raise RuntimeError(f"{self._seq_id(slot)}: block table full")
-            grow = self.allocator.append_block(self._seq_id(slot))
-            self._emit_events(grow)
-            if grow.block_id is None:
-                self._preempt(slot)
-                continue
-            slot.block_table[nblocks] = grow.block_id
-        active = [s for s in self._slots if s is not None and not s.prefilling]
+        if c.decode_fused_steps <= 1:
+            return 1
+        if (self.waiting
+                or any(s is not None and (s.prefilling or s.awaiting_first)
+                       for s in self._slots)):
+            self._decode_only_run = 0
+            return min(self.INTERLEAVE_BURST, c.decode_fused_steps)
+        if not c.decode_fuse_adaptive:
+            return c.decode_fused_steps
+        k = min(self.INTERLEAVE_BURST << self._decode_only_run,
+                c.decode_fused_steps)
+        self._decode_only_run = min(self._decode_only_run + 1, 16)
+        return k
+
+    def _decodable(self) -> List[_Slot]:
+        return [s for s in self._slots
+                if s is not None and not s.prefilling
+                and not s.awaiting_first]
+
+    def _decode_step(self) -> None:
+        """One decode burst for every slot past prefill.  At most depth-1
+        bursts stay unread after it (the oldest are processed first);
+        lockstep mode is depth 1 with a drain right after the dispatch."""
+        c = self.config
+        depth = max(1, c.decode_pipeline_depth) if self._overlap else 1
+        while len(self._inflight) >= depth:
+            self._process_oldest_burst()
+        k = self._fused_k()
+        active = self._decodable()
         if not active:
             return
-        B = len(active)
-        width = min(_pow2(max(int(np.count_nonzero(s.block_table))
-                              for s in active)), c.max_blocks_per_seq)
-        tokens = np.zeros(B, np.int32)
-        ctx_lens = np.zeros(B, np.int32)
-        tables = np.zeros((B, width), np.int32)
-        for b, s in enumerate(active):
-            tokens[b] = s.last_token
-            ctx_lens[b] = s.ctx_len
-            tables[b] = s.block_table[:width]
-        ctx_t = self._to_device(ctx_lens)
-        logits, _ = llama.decode(self.params, self.model_cfg, self.kv,
-                                 self._to_device(tokens), ctx_t,
-                                 self._to_device(tables), ctx_t)
-        self.metrics["decode_steps"] += 1
-        self._fpm_decode(B)
-        for s, tok in zip(active, self._sample(logits, active)):
-            s.ctx_len += 1
-            self.metrics["decode_tokens"] += 1
-            self._push_token(s, tok)
+        # every active slot MUST have a block for its next device position
+        # ctx_len + inflight (preempted if even that fails); blocks for the
+        # rest of the burst are speculative: under pressure the burst
+        # degrades to k = 1 instead of preempting
+        for slot in active:
+            # a drain below can finish later slots of this snapshot
+            if slot.finished or self._slots[slot.index] is not slot:
+                continue
+            eff = slot.ctx_len + slot.inflight
+            nblocks = int(np.count_nonzero(slot.block_table))
+            if eff >= nblocks * c.block_size:
+                if nblocks >= c.max_blocks_per_seq:
+                    # the in-flight tokens reach the end of the table:
+                    # drain so the length finish fires first
+                    self._drain_inflight()
+                    return
+                grow = self.allocator.append_block(self._seq_id(slot))
+                self._emit_events(grow)
+                if grow.block_id is None:
+                    # processing may finish the slot or free blocks
+                    self._drain_inflight()
+                    if slot.finished or self._slots[slot.index] is not slot:
+                        continue
+                    grow = self.allocator.append_block(self._seq_id(slot))
+                    self._emit_events(grow)
+                    if grow.block_id is None:
+                        self._preempt(slot)
+                        continue
+                slot.block_table[nblocks] = grow.block_id
+                nblocks += 1
+            while k > 1 and eff + k - 1 >= nblocks * c.block_size:
+                if nblocks >= c.max_blocks_per_seq:
+                    k = 1  # positions past the table would clamp
+                    break
+                grow = self.allocator.append_block(self._seq_id(slot))
+                self._emit_events(grow)
+                if grow.block_id is None:
+                    k = 1  # pressure: single step this time
+                    break
+                slot.block_table[nblocks] = grow.block_id
+                nblocks += 1
+        active = self._decodable()
+        if not active:
+            return
+        # fresh arrays per full dispatch: _last_desc keeps the previous
+        # ones as the continuation check's host mirror
+        a = self.graphs.host_descriptor()
+        for s in active:
+            i, sp = s.index, s.request.sampling
+            a["tokens"][i] = s.last_token
+            # a lane whose previous burst is unread takes its input token
+            # from the device chain; the host's last_token is stale
+            a["use_chain"][i] = (
+                self._chain_owner[i] == (self._seq_id(s), s.epoch)
+                and s.inflight > 0)
+            a["positions"][i] = a["ctx_lens"][i] = s.ctx_len + s.inflight
+            a["tables"][i] = s.block_table
+            a["seeds"][i] = s.sampling_seed
+            a["steps"][i] = s.generated + s.inflight + 1
+            a["temps"][i] = sp.temperature
+            a["top_ks"][i] = sp.top_k
+            a["top_ps"][i] = sp.top_p
+            a["valid"][i] = True
+        greedy = bool(np.all(a["temps"] <= 0.0))
+        cont = self._is_continuation(a, active, k)
+        if cont:
+            # steady state: only the clock moved; advance the device
+            # descriptor in the program and upload nothing
+            prev = self._last_desc
+            adv = prev["k"]
+            self.graphs.continuation(adv)
+            for name in ("positions", "ctx_lens", "steps"):
+                prev[name] = prev[name] + adv
+            prev["k"] = k
+            self.metrics["cont_bursts"] += 1
+        else:
+            self.graphs.upload(a)
+            self._last_desc = {n: v for n, v in a.items()
+                               if n not in ("tokens", "use_chain")}
+            self._last_desc["k"] = k
+        back = self.graphs.run(greedy, k)
+        self.metrics["decode_steps"] += k
+        self.metrics["decode_bursts"] += 1
+        self._fpm_decode(k)
+        lanes = {}
+        for s in active:
+            s.inflight += k
+            lanes[s.index] = (self._seq_id(s), s.epoch)
+            self._chain_owner[s.index] = lanes[s.index]
+        self._inflight.append({"burst": back, "k": k, "lanes": lanes})
+        if not self._overlap:
+            self._drain_inflight()  # lockstep: block and emit now
+
+    def _is_continuation(self, a: Dict[str, np.ndarray], active,
+                         k: int) -> bool:
+        """True when this burst is the pure continuation of the last one:
+        the same k, membership, tables and sampling, every lane's input
+        token in the device chain, and positions and steps exactly one
+        advance ahead, so the device descriptor can advance in place."""
+        prev = self._last_desc
+        if prev is None or k != prev["k"]:
+            return False
+        for s in active:
+            if self._chain_owner[s.index] != (self._seq_id(s), s.epoch):
+                return False
+        m = a["valid"]
+        adv = prev["k"]
+        return (
+            np.array_equal(a["valid"], prev["valid"])
+            and np.array_equal(a["positions"][m], prev["positions"][m] + adv)
+            and np.array_equal(a["ctx_lens"][m], prev["ctx_lens"][m] + adv)
+            and np.array_equal(a["steps"][m], prev["steps"][m] + adv)
+            and all(np.array_equal(a[n][m], prev[n][m])
+                    for n in ("tables", "seeds", "temps", "top_ks",
+                              "top_ps")))
+
+    def _process_oldest_burst(self) -> None:
+        """Read back the oldest dispatched burst and apply it: stream its
+        tokens, advance ctx, commit blocks, detect finishes.  Lanes whose
+        slot finished, was preempted or cancelled since the dispatch are
+        discarded (their writes went to blocks never committed past the
+        finish, or to freed blocks that later dispatches overwrite in
+        stream order)."""
+        e = self._inflight.popleft()
+        arr = e["burst"].wait()  # [k, B]
+        self._fpm_sync_t = time.monotonic()
+        for i, ident in e["lanes"].items():
+            s = self._slots[i]
+            if s is None or (self._seq_id(s), s.epoch) != ident \
+                    or s.finished:
+                continue
+            s.inflight -= e["k"]
+            for j in range(e["k"]):
+                s.ctx_len += 1
+                self.metrics["decode_tokens"] += 1
+                self._push_token(s, int(arr[j, i]))
+                if s.finished:
+                    break  # mid-burst finish: the overshoot is discarded
+
+    def _drain_inflight(self) -> None:
+        while self._inflight:
+            self._process_oldest_burst()
 
     # -- forward-pass metrics ------------------------------------------------
     def _fpm_prefill(self, rows: int, tokens: int, bucket: int,
@@ -619,14 +880,19 @@ class TorchEngine:
         self.fpm.append(rec)
         self._fpm_last_prefill_t = now
 
-    def _fpm_decode(self, lanes: int) -> None:
-        """One record per decode step (k = 1: no fused bursts yet)."""
+    def _fpm_decode(self, k: int) -> None:
+        """One record per decode burst, as the JAX engine's: its fused k,
+        the slots past prefill, and the dispatch-to-dispatch gap (with
+        the pipeline saturated, the burst's wall time; 0.0 after an idle
+        second: unknown)."""
         now = time.monotonic()
         gap = (now - self._fpm_last_decode_t
                if self._fpm_last_decode_t else 0.0)
         if gap > 1.0:
             gap = 0.0
-        self.fpm.append({"t": now, "kind": "decode", "k": 1, "lanes": lanes,
+        lanes = sum(1 for s in self._slots
+                    if s is not None and not s.prefilling)
+        self.fpm.append({"t": now, "kind": "decode", "k": k, "lanes": lanes,
                          "gap_s": gap})
         self._fpm_last_decode_t = now
 
@@ -683,6 +949,10 @@ class TorchEngine:
         slot.prompt_len = 0
         slot.committed_blocks = 0
         slot.block_table[:] = 0
+        # its in-flight bursts are discarded when processed (lanes are
+        # keyed by (seq_id, epoch))
+        slot.epoch += 1
+        slot.inflight = 0
         with self._qlock:
             self.waiting.insert(0, slot)
 

@@ -1,0 +1,233 @@
+"""The decode-burst programs, captured once as CUDA graphs and replayed.
+
+The port's counterpart of the JAX engine's jitted decode programs
+(`_decode_impl`, `_decode_multi_impl`, dynamo_tpu/engine/core.py) and of
+its compile watch.  One program exists per (greedy, k): k fused decode
+steps (models/llama.py decode_multi) at the fixed batch B = max_num_seqs
+and full table width, argmax-only when `greedy`, else drawing with the
+stateless sampler (engine/sampler.py sample_tokens).  Every program reads
+the same static input buffers, the argument list of the JAX programs:
+chain, use_chain, tokens, positions, tables, ctx_lens, seeds, steps,
+temps, top_ks, top_ps, valid and the `advance` scalar.  They are views
+of ONE int32 device descriptor (floats by their bits, flags as 0/1), so
+a full dispatch uploads it with one copy from a pinned staging buffer.
+A program adds `advance` to positions, ctx_lens and steps in place (the
+continuation clock: a steady-state burst re-dispatches the previous
+descriptor with advance = k and uploads nothing), takes each lane's
+input token from the device chain where use_chain is set, writes its
+[k, B] tokens to its own static output and their last row to the chain.
+
+On CUDA the first run of a program is eager, which also sizes K1's
+workspace and warms cuBLAS; it is then captured into a CUDA graph (one
+memory pool shared by all programs; the KV cache and the parameters keep
+their addresses, since every write is in place), and every later run
+replays the graph.  `warmup_decode` (engine/core.py) builds every rung
+of the fusion ladder under the step lock, so serving captures nothing.
+A capture that fails raises: there is no eager fallback on CUDA.
+`counts[(greedy, k)]` is the number of times a program was built
+(captured on CUDA; first run on the CPU): the analogue of
+`compile_watch.counts`, and steady-state serving must not raise it.
+With `capture=False` (and always on the CPU) the bodies run eagerly.
+
+K1's wrappers count the launches they make.  A capture launches nothing,
+so the counts it added are taken back and kept per program, and each
+replay adds its program's count (k x layers) to the wrapper's.
+
+Readback, the counterpart of `copy_to_host_async`: right after a run
+its output is copied on the same stream into a pinned host buffer owned
+by the returned `Readback`, and an event is recorded; `wait()` blocks on
+that event only.  The next burst's replay may overwrite the static
+output, but stream order puts it after the copy.
+"""
+
+from __future__ import annotations
+
+import time
+from typing import Callable, Dict, Optional, Tuple
+
+import numpy as np
+import torch
+
+from ..models import llama
+from .sampler import sample_tokens
+
+# descriptor fields of B words each, in buffer order, then the tables
+# (B x max_blocks words) and the advance word
+FIELDS = ("tokens", "use_chain", "positions", "ctx_lens", "seeds", "steps",
+          "temps", "top_ks", "top_ps", "valid")
+_FLOAT_FIELDS = ("temps", "top_ps")
+# pinned staging buffers for descriptor uploads, reused round-robin; each
+# is rewritten only after the event of its last copy
+_STAGING = 4
+
+
+class Readback:
+    """A device int32 array on its way to the host."""
+
+    def __init__(self, src: torch.Tensor):
+        if src.is_cuda:
+            self._host = torch.empty(src.shape, dtype=src.dtype,
+                                     pin_memory=True)
+            self._host.copy_(src, non_blocking=True)
+            self._event = torch.cuda.Event()
+            self._event.record()
+        else:
+            self._host, self._event = src.clone(), None
+
+    def wait(self) -> np.ndarray:
+        """The host array, once its copy has landed."""
+        if self._event is not None:
+            self._event.synchronize()
+        return self._host.numpy()
+
+
+class _Desc:
+    """Views of the descriptor buffer by field name."""
+
+    def __init__(self, buf: torch.Tensor, B: int, max_blocks: int):
+        for i, name in enumerate(FIELDS):
+            view = buf[i * B:(i + 1) * B]
+            setattr(self, name, view.view(torch.float32)
+                    if name in _FLOAT_FIELDS else view)
+        off = len(FIELDS) * B
+        self.tables = buf[off:off + B * max_blocks].view(B, max_blocks)
+        self.advance = buf[off + B * max_blocks:]
+
+
+class DecodePrograms:
+    def __init__(self, params, cfg: llama.LlamaConfig, kv: tuple, B: int,
+                 max_blocks: int, device: torch.device,
+                 capture: bool = True):
+        self.params, self.cfg, self.kv = params, cfg, kv
+        self.B, self.max_blocks, self.device = B, max_blocks, device
+        self.capture = capture and device.type == "cuda"
+        n = len(FIELDS) * B + B * max_blocks + 1
+        self.desc = torch.zeros(n, dtype=torch.int32, device=device)
+        self.d = _Desc(self.desc, B, max_blocks)
+        self.chain = torch.zeros(B, dtype=torch.int32, device=device)
+        self.out: Dict[int, torch.Tensor] = {}
+        self.counts: Dict[Tuple[bool, int], int] = {}
+        # seconds each capture took, and the bytes the graph pool reserved
+        self.capture_s: Dict[Tuple[bool, int], float] = {}
+        self.pool_bytes = 0
+        self._graphs: Dict[Tuple[bool, int], torch.cuda.CUDAGraph] = {}
+        self._graph_launches: Dict[Tuple[bool, int], list] = {}
+        self._pool = None
+        pin = device.type == "cuda"
+        self._staging = [torch.zeros(n, dtype=torch.int32, pin_memory=pin)
+                         for _ in range(_STAGING)]
+        self._staged = [None] * _STAGING
+        self._next = 0
+
+    # -- inputs ------------------------------------------------------------
+    def host_descriptor(self) -> Dict[str, np.ndarray]:
+        """Fresh host arrays of a descriptor with every lane padding (the
+        JAX engine's padding values: top_p 1, everything else 0), for the
+        caller to fill its live lanes into."""
+        B = self.B
+        a = {name: np.zeros(B, np.float32 if name in _FLOAT_FIELDS
+                            else bool if name in ("use_chain", "valid")
+                            else np.int32) for name in FIELDS}
+        a["top_ps"][:] = 1.0
+        a["tables"] = np.zeros((B, self.max_blocks), np.int32)
+        return a
+
+    def upload(self, a: Dict[str, np.ndarray]) -> None:
+        """A full descriptor from the host arrays `a` (the JAX engine's
+        descriptor keys), advance 0: one copy from a pinned buffer."""
+        i = self._next
+        self._next = (i + 1) % _STAGING
+        if self._staged[i] is not None:
+            self._staged[i].synchronize()  # its last copy has run
+        host = self._staging[i].numpy()
+        B = self.B
+        for j, name in enumerate(FIELDS):
+            col = np.asarray(a[name])
+            host[j * B:(j + 1) * B] = (col.astype(np.float32).view(np.int32)
+                                       if name in _FLOAT_FIELDS
+                                       else col.astype(np.int32))
+        off = len(FIELDS) * B
+        host[off:off + B * self.max_blocks] = np.asarray(
+            a["tables"], np.int32).reshape(-1)
+        host[-1] = 0
+        self.desc.copy_(self._staging[i], non_blocking=True)
+        if self.device.type == "cuda":
+            self._staged[i] = torch.cuda.Event()
+            self._staged[i].record()
+
+    def continuation(self, advance: int) -> None:
+        """Re-dispatch the device descriptor: every lane chains and the
+        program advances it by `advance`; nothing is uploaded."""
+        self.d.use_chain.fill_(1)
+        self.d.advance.fill_(advance)
+
+    def snapshot(self) -> tuple:
+        return self.desc.clone(), self.chain.clone()
+
+    def restore(self, snap: tuple) -> None:
+        self.desc.copy_(snap[0])
+        self.chain.copy_(snap[1])
+
+    # -- programs ----------------------------------------------------------
+    def run_eager(self, greedy: bool, k: int) -> torch.Tensor:
+        """The program body, run eagerly: returns its output [k, B]."""
+        d = self.d
+        for t in (d.positions, d.ctx_lens, d.steps):
+            t.add_(d.advance)
+        tokens = torch.where(d.use_chain != 0, self.chain, d.tokens)
+        sample_fn: Optional[Callable] = None
+        if not greedy:
+            def sample_fn(logits, step):
+                return sample_tokens(logits, d.seeds, d.steps + step,
+                                     d.temps, d.top_ks, d.top_ps)
+        burst, _ = llama.decode_multi(
+            self.params, self.cfg, self.kv, tokens, d.positions, d.tables,
+            d.ctx_lens, k, sample_fn, valid=d.valid != 0)
+        out = self.out.get(k)
+        if out is None:
+            out = self.out[k] = torch.zeros(k, self.B, dtype=torch.int32,
+                                            device=self.device)
+        out.copy_(burst)
+        self.chain.copy_(burst[k - 1])
+        return out
+
+    def run(self, greedy: bool, k: int) -> Readback:
+        """Dispatch program (greedy, k) on the current inputs and start
+        its output's readback."""
+        key = (greedy, k)
+        graph = self._graphs.get(key)
+        if graph is not None:
+            graph.replay()
+            for fn, n in self._graph_launches[key]:
+                fn.launches += n
+            return Readback(self.out[k])
+        out = self.run_eager(greedy, k)
+        if key not in self.counts:
+            if self.capture:
+                self._capture(key)
+            self.counts[key] = 1
+        return Readback(out)
+
+    def _capture(self, key: Tuple[bool, int]) -> None:
+        from ..ops import cuda_paged_attention as k1
+
+        wrappers = (k1.paged_decode, k1.paged_decode_int8)
+        before = [fn.launches for fn in wrappers]
+        if self._pool is None:
+            self._pool = torch.cuda.graph_pool_handle()
+        # what empty_cache cannot return afterwards is the pool's growth
+        torch.cuda.synchronize(self.device)
+        torch.cuda.empty_cache()
+        reserved = torch.cuda.memory_reserved(self.device)
+        t0 = time.perf_counter()
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph, pool=self._pool):
+            self.run_eager(*key)
+        self.capture_s[key] = time.perf_counter() - t0
+        torch.cuda.empty_cache()
+        self.pool_bytes += torch.cuda.memory_reserved(self.device) - reserved
+        self._graph_launches[key] = [
+            (fn, fn.launches - b) for fn, b in zip(wrappers, before)]
+        for fn, b in zip(wrappers, before):
+            fn.launches = b  # the capture itself launched nothing
+        self._graphs[key] = graph

@@ -6,16 +6,25 @@ requested top_k is clamped to CAP, and the top-p nucleus mass is measured
 against the TRUE full-vocab softmax (logsumexp), with the first candidate
 always kept.  temperature <= 0 is greedy over the full vocabulary.
 
-The draws differ: JAX folds the step into a threefry key, while the port
-draws from a per-request `torch.Generator` seeded from the request's seed
-(engine/core.py), so seeded sampled streams match the JAX engine in
-distribution only; greedy streams match token for token.
+The draw is stateless, as in the JAX package: row b draws from the key
+`fold_in(PRNGKey(seeds[b]), steps[b])` by the Gumbel-max trick
+(`jax.random.categorical`).  The threefry2x32 hash, the key derivation,
+the random bits and the uniform-to-Gumbel transform are written out here
+in plain torch integer and float ops, with the constants and rotations of
+`jax._src.prng` (threefry2x32, threefry_fold_in,
+threefry_random_bits with jax_threefry_partitionable=True) and
+`jax._src.random` (_uniform, _gumbel in its default "low" mode,
+categorical).  So the bits equal JAX's bit for bit, and a seeded sampled
+stream equals the JAX engine's token for token (up to an ulp of
+-log(-log(u)) in the rare case that it decides an argmax).  Nothing reads
+the host, so a sampled decode burst can be captured in a CUDA graph.
+uint32 arithmetic is carried in int64 tensors masked to 32 bits (torch
+has no full uint32 op set).
 """
 
 from __future__ import annotations
 
-from typing import Optional, Sequence
-
+import numpy as np
 import torch
 
 NEG_INF = -1e30
@@ -23,10 +32,74 @@ NEG_INF = -1e30
 #: sampling candidate window (max effective top-k)
 CAP = 64
 
+_MASK = 0xFFFFFFFF
+# threefry2x32: the rotations of even and odd rounds and the key-schedule
+# parity constant (jax._src.prng._threefry2x32_lowering)
+_ROTATIONS = ((13, 15, 26, 6), (17, 29, 16, 24))
+_PARITY = 0x1BD11BDA
+# float32 uniform in [tiny, 1) from 32 random bits (jax._src.random
+# _uniform): 23 mantissa bits under the exponent of 1.0
+_TINY = float(np.finfo(np.float32).tiny)
+_ONE_BITS = 0x3F800000
+_SPAN = float(np.float32(1.0) - np.float32(_TINY))  # maxval - minval in fp32
+
 
 def greedy_tokens(logits: torch.Tensor) -> torch.Tensor:
     """Argmax over the vocabulary: [B, vocab] -> [B] int32."""
     return torch.argmax(logits, dim=-1).to(torch.int32)
+
+
+def _rotl(x: torch.Tensor, r: int) -> torch.Tensor:
+    return ((x << r) | (x >> (32 - r))) & _MASK
+
+
+def threefry2x32(k1: torch.Tensor, k2: torch.Tensor, x1: torch.Tensor,
+                 x2: torch.Tensor):
+    """The threefry2x32 hash of counts (x1, x2) under key (k1, k2): int64
+    tensors holding uint32 values, broadcast together."""
+    ks = (k1, k2, k1 ^ k2 ^ _PARITY)
+    x1 = (x1 + ks[0]) & _MASK
+    x2 = (x2 + ks[1]) & _MASK
+    for i in range(5):
+        for r in _ROTATIONS[i % 2]:
+            x1 = (x1 + x2) & _MASK
+            x2 = _rotl(x2, r) ^ x1
+        x1 = (x1 + ks[(i + 1) % 3]) & _MASK
+        x2 = (x2 + ks[(i + 2) % 3] + (i + 1)) & _MASK
+    return x1, x2
+
+
+def prng_key(seeds: torch.Tensor):
+    """`jax.random.PRNGKey` of int32 seeds [B]: the key words (0, seed as
+    uint32), each [B] int64."""
+    s = seeds.to(torch.int64) & _MASK
+    return torch.zeros_like(s), s
+
+
+def fold_in(key, data: torch.Tensor):
+    """`jax.random.fold_in(key, data)` per row: data [B] int, taken as
+    uint32, is hashed as the count pair (0, data)."""
+    d = data.to(torch.int64) & _MASK
+    return threefry2x32(key[0], key[1], torch.zeros_like(d), d)
+
+
+def random_bits(key, n: int) -> torch.Tensor:
+    """`jax.random.bits(key, (n,), uint32)` per row, the partitionable
+    path: the counts are the uint64 iota split into (hi, lo) words and the
+    two output words are xor-ed.  [B, n] int64."""
+    k1, k2 = key[0][:, None], key[1][:, None]
+    lo = torch.arange(n, dtype=torch.int64, device=k1.device)[None, :]
+    b1, b2 = threefry2x32(k1, k2, torch.zeros_like(lo), lo)
+    return b1 ^ b2
+
+
+def gumbel(key, n: int) -> torch.Tensor:
+    """`jax.random.gumbel(key, (n,), float32)` per row ("low" mode):
+    -log(-log(u)), u uniform in [tiny, 1).  [B, n] float32."""
+    bits = (random_bits(key, n) >> 9) | _ONE_BITS
+    floats = bits.to(torch.int32).view(torch.float32) - 1.0
+    u = torch.clamp(floats * _SPAN + _TINY, min=_TINY)
+    return -torch.log(-torch.log(u))
 
 
 def candidate_window(logits: torch.Tensor, temperature: torch.Tensor,
@@ -52,22 +125,19 @@ def candidate_window(logits: torch.Tensor, temperature: torch.Tensor,
 
 def sample_tokens(
     logits: torch.Tensor,        # [B, vocab] fp32
+    seeds: torch.Tensor,         # [B] int32 per-request seed
+    steps: torch.Tensor,         # [B] int32 decode step counter (rng stream)
     temperature: torch.Tensor,   # [B] fp32; <= 0 means greedy
     top_k: torch.Tensor,         # [B] int; 0 disables
     top_p: torch.Tensor,         # [B] fp32; >= 1 disables
-    generators: Sequence[Optional[torch.Generator]],  # per row
 ) -> torch.Tensor:
-    """Sampled token ids [B] int32.  Each sampled row draws one candidate
-    from its masked window with its own generator (on logits' device);
-    greedy rows need none and draw nothing."""
-    out = greedy_tokens(logits)
-    temps = temperature.tolist()
-    rows = [b for b, t in enumerate(temps) if t > 0.0]
-    if not rows:
-        return out
+    """Sampled token ids [B] int32: each sampled row draws one candidate
+    of its masked window with the key fold_in(PRNGKey(seed), step); greedy
+    rows take the full-vocab argmax.  Every row is computed on the device
+    and no value is read back."""
+    greedy = greedy_tokens(logits)
     ids, masked = candidate_window(logits, temperature, top_k, top_p)
-    probs = torch.softmax(masked, dim=-1)
-    for b in rows:
-        j = torch.multinomial(probs[b], 1, generator=generators[b])
-        out[b] = ids[b, j[0]].to(torch.int32)
-    return out
+    key = fold_in(prng_key(seeds), steps)
+    pick = torch.argmax(gumbel(key, masked.shape[-1]) + masked, dim=-1)
+    sampled = torch.gather(ids, 1, pick[:, None])[:, 0].to(torch.int32)
+    return torch.where(temperature <= 0.0, greedy, sampled)

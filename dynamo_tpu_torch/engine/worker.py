@@ -106,7 +106,7 @@ class TorchEngineWorker:
                     eng.model_cfg.packed_attn_impl if eng is not None
                     else (self.config.packed_attn_impl or "auto")),
                 "sampling_epilogue": self.config.sampling_epilogue,
-                "overlap_scheduling": False,
+                "overlap_scheduling": self.config.overlap_scheduling,
             },
         )
 

@@ -296,13 +296,53 @@ def decode(
     positions: torch.Tensor,     # [B] int32
     block_tables: torch.Tensor,  # [B, max_blocks] int32
     ctx_lens: torch.Tensor,      # [B] int32, tokens in cache BEFORE this step
+    valid: Optional[torch.Tensor] = None,  # [B] bool: active (non-padding) rows
 ):
     """One decode step for B rows: writes each token's K/V, attends over
     the paged context.  Returns (logits [B, vocab], kv_cache updated in
-    place)."""
+    place).  The engine decodes at a fixed B = max_num_seqs with
+    full-width tables: a padding row has an all-zero table, so its write
+    lands in the garbage block 0.  `valid` keeps the JAX signature; the
+    dense layers do not read it (JAX's MoE capacity does)."""
     x = _decode_trunk(params, cfg, kv_cache, token_ids, positions,
                       block_tables, ctx_lens)
     return _logits(params, cfg, x), kv_cache
+
+
+def decode_multi(
+    params: Params,
+    cfg: LlamaConfig,
+    kv_cache: KVCache,
+    token_ids: torch.Tensor,     # [B] int32
+    positions: torch.Tensor,     # [B] int32
+    block_tables: torch.Tensor,  # [B, max_blocks] int32
+    ctx_lens: torch.Tensor,      # [B] int32
+    num_steps: int,
+    sample_fn=None,              # (logits [B, V], step_idx) -> tokens [B]
+    valid: Optional[torch.Tensor] = None,  # [B] bool: active rows
+):
+    """`num_steps` decode steps in one call, the counterpart of the JAX
+    package's lax.scan burst: each step's sampled ids feed the next step
+    on the device, and positions and ctx_lens advance by one per step.
+    The block tables are fixed across the burst, so callers allocate the
+    blocks of positions [ctx, ctx + num_steps) beforehand.  Nothing reads
+    the host, so the burst can be captured as one CUDA graph
+    (engine/graphs.py).  Returns (tokens [num_steps, B] int32, kv_cache
+    updated in place)."""
+    if sample_fn is None:
+        def sample_fn(logits, _):
+            return torch.argmax(logits, dim=-1).to(torch.int32)
+
+    toks = []
+    for step in range(num_steps):
+        logits, kv_cache = decode(params, cfg, kv_cache, token_ids,
+                                  positions, block_tables, ctx_lens,
+                                  valid=valid)
+        token_ids = sample_fn(logits, step).to(torch.int32)
+        toks.append(token_ids)
+        positions = positions + 1
+        ctx_lens = ctx_lens + 1
+    return torch.stack(toks), kv_cache
 
 
 def _decode_trunk(params, cfg: LlamaConfig, kv_cache: KVCache, token_ids,

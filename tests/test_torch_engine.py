@@ -1,11 +1,12 @@
 """TorchEngine against JaxEngine on the same converted weights (CPU).
 
 Both engines serve the tests/test_engine.py FP32 config with the JAX
-engine's parameters (converted through models/convert.py), and their
-greedy token streams must be identical, token for token, across
+engine's parameters (converted through models/convert.py), each with its
+default scheduler (overlapped, fused decode bursts, adaptive fusion), and
+their greedy token streams must be identical, token for token, across
 concurrent requests packed into one prefill dispatch, a prefix-cache hit
-and stop conditions.  Sampled streams are not compared (the two draw
-from different generators; see engine/sampler.py).
+and stop conditions.  Seeded sampled streams are compared in
+tests/test_torch_overlap.py.
 """
 
 import asyncio
@@ -51,8 +52,7 @@ COMMON = dict(block_size=4, num_blocks=128, max_blocks_per_seq=16,
 def engines(**over):
     """A JaxEngine and a TorchEngine serving the same weights."""
     kw = {**COMMON, **over}
-    je = JaxEngine(JaxEngineConfig(model_config=JAX_FP32,
-                                   decode_fused_steps=1, **kw))
+    je = JaxEngine(JaxEngineConfig(model_config=JAX_FP32, **kw))
     tree = jax.tree_util.tree_map(lambda a: np.asarray(a, np.float32),
                                   je.params)
     te = TorchEngine(EngineConfig(model_config=FP32, **kw),

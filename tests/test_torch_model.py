@@ -221,6 +221,90 @@ def test_prefill_packed_and_decode_int8_match_jax(name):
             np.testing.assert_allclose(g, w, **tol)
 
 
+def _int8_or_float_caches(jcfg, tcfg, nb, bs, int8):
+    shape = jl.kv_cache_shapes(jcfg, nb, bs)[0]
+    if not int8:
+        return ((jnp.zeros(shape, jcfg.dtype), jnp.zeros(shape, jcfg.dtype)),
+                tuple(torch.zeros(s, dtype=tcfg.dtype)
+                      for s in tl.kv_cache_shapes(tcfg, nb, bs)))
+    sshape = jl.kv_cache_scale_shapes(jcfg, nb, bs)[0]
+    jkv = (jnp.zeros(shape, jnp.int8), jnp.zeros(shape, jnp.int8),
+           jnp.zeros(sshape, jnp.float32), jnp.zeros(sshape, jnp.float32))
+    tkv = tuple(torch.zeros(s, dtype=torch.int8)
+                for s in tl.kv_cache_shapes(tcfg, nb, bs)) + tuple(
+        torch.zeros(s) for s in tl.kv_cache_scale_shapes(tcfg, nb, bs))
+    return jkv, tkv
+
+
+@pytest.mark.parametrize("int8", [False, True], ids=["float", "int8"])
+@pytest.mark.parametrize("sampled", [False, True],
+                         ids=["argmax", "sampled"])
+def test_decode_multi_matches_jax(int8, sampled):
+    """A 5-step burst after the packed prefill, at the engine's fixed
+    batch: 4 lanes of which 1 and 3 are padding (all-zero tables, so
+    their writes land in the garbage block), tables covering the whole
+    burst.  Tokens equal, argmax or drawn by each package's stateless
+    sampler with the running step; the caches agree outside block 0 as
+    in the single-step tests."""
+    from dynamo_tpu.engine.sampler import sample_tokens as jax_sample
+    from dynamo_tpu_torch.engine.sampler import sample_tokens
+
+    jcfg, tcfg, tol = CONFIGS["fp32"]
+    bs, nb, k = 4, 8, 5
+    jparams = jl.init_params(jcfg, jax.random.PRNGKey(3))
+    tparams = params_from_numpy(_numpy_tree(jparams), tcfg, device="cpu")
+    toks, pos, seg, valid, tables, last, _ = _packed_inputs(bs)
+    jkv, tkv = _int8_or_float_caches(jcfg, tcfg, nb, bs, int8)
+    _, jkv = jl.prefill_packed(
+        jparams, jcfg, jkv, jnp.asarray(toks), jnp.asarray(pos),
+        jnp.asarray(seg), jnp.asarray(tables), jnp.asarray(last),
+        jnp.asarray(valid))
+    t = [torch.from_numpy(a) for a in (toks, pos, seg, tables, last, valid)]
+    tl.prefill_packed(tparams, tcfg, tkv, *t)
+
+    lanes = dict(
+        tokens=np.int32([17, 0, 23, 0]), positions=np.int32([7, 0, 5, 0]),
+        ctx=np.int32([7, 0, 5, 0]),
+        tables=np.int32([[1, 2, 3, 0], [0] * 4, [4, 5, 6, 0], [0] * 4]),
+        valid=np.array([True, False, True, False]))
+    samp = dict(seeds=np.int32([3, 0, 99, 0]), steps=np.int32([1, 1, 1, 1]),
+                temps=np.float32([0.9, 0.0, 1.2, 0.0]),
+                top_ks=np.int32([0, 0, 8, 0]),
+                top_ps=np.float32([0.95, 1.0, 1.0, 1.0]))
+    jfn = tfn = None
+    if sampled:
+        js = {n: jnp.asarray(v) for n, v in samp.items()}
+        ts = {n: torch.from_numpy(v) for n, v in samp.items()}
+
+        def jfn(logits, i):
+            return jax_sample(logits, js["seeds"], js["steps"] + i,
+                              js["temps"], js["top_ks"], js["top_ps"])
+
+        def tfn(logits, i):
+            return sample_tokens(logits, ts["seeds"], ts["steps"] + i,
+                                 ts["temps"], ts["top_ks"], ts["top_ps"])
+
+    jtoks, jkv = jl.decode_multi(
+        jparams, jcfg, jkv, jnp.asarray(lanes["tokens"]),
+        jnp.asarray(lanes["positions"]), jnp.asarray(lanes["tables"]),
+        jnp.asarray(lanes["ctx"]), k, jfn, valid=jnp.asarray(lanes["valid"]))
+    ttoks, tkv = tl.decode_multi(
+        tparams, tcfg, tkv, *(torch.from_numpy(lanes[n]) for n in (
+            "tokens", "positions", "tables", "ctx")), k, tfn,
+        valid=torch.from_numpy(lanes["valid"]))
+    assert ttoks.shape == (k, 4) and ttoks.dtype == torch.int32
+    np.testing.assert_array_equal(ttoks.numpy()[:, [0, 2]],
+                                  np.asarray(jtoks)[:, [0, 2]])
+    got = kv_cache_to_numpy(tkv)
+    for i, (g, w) in enumerate(zip(got, jkv)):
+        g, w = g[:, :, 1:], np.asarray(w)[:, :, 1:]
+        if int8 and i < 2:
+            np.testing.assert_allclose(g.astype(np.int32),
+                                       w.astype(np.int32), rtol=0, atol=1)
+        else:
+            np.testing.assert_allclose(g, np.asarray(w, np.float32), **tol)
+
+
 def test_moe_and_unknown_impls_raise():
     with pytest.raises(NotImplementedError):
         tl.LlamaConfig(n_experts=4)

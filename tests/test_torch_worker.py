@@ -73,9 +73,11 @@ COMMON = dict(block_size=4, num_blocks=128, max_blocks_per_seq=16,
 
 def _jax_and_torch_params(**kw):
     """A JaxEngine and the port's parameter tree of its weights.  The JAX
-    engine runs its lockstep scheduler (overlap_scheduling=False), the
-    port's only one: the overlapped scheduler grows and frees blocks in
-    other batches, which nets to other event batches."""
+    engine runs its lockstep scheduler (overlap_scheduling=False, single
+    decode steps), as the port engine of the KV-event test below does:
+    the overlapped scheduler grows and frees blocks in other batches,
+    which nets to other event batches (tests/test_torch_overlap.py holds
+    the overlapped port to the overlapped JaxEngine)."""
     je = JaxEngine(JaxEngineConfig(model_config=JAX_FP32,
                                    decode_fused_steps=1,
                                    overlap_scheduling=False, **kw))
@@ -171,8 +173,9 @@ async def test_netted_kv_events_match_jax_engine():
     kw = {**COMMON, "num_blocks": 12}
     je, params = _jax_and_torch_params(**kw)
     te_events, je_events = [], []
-    te = TorchEngine(EngineConfig(model_config=FP32, **kw), params=params,
-                     device="cpu",
+    te = TorchEngine(EngineConfig(model_config=FP32, decode_fused_steps=1,
+                                  overlap_scheduling=False, **kw),
+                     params=params, device="cpu",
                      kv_event_sink=lambda s, r, t: te_events.append(
                          (list(s), list(r), t)))
     je.kv_event_sink = lambda s, r, t: je_events.append((list(s), list(r), t))
@@ -268,8 +271,8 @@ async def test_jax_frontend_serves_torch_worker_like_jax_worker(tmp_path):
     je, params = _jax_and_torch_params(**COMMON)
     tok_cfg = {"type": "mock", "vocab_size": SHAPES["vocab_size"]}
     jw = JaxEngineWorker(jrt, JaxEngineConfig(
-        model_config=JAX_FP32, model_name="m-jax", decode_fused_steps=1,
-        **COMMON), component="jaxw", tokenizer_cfg=tok_cfg, params=je.params)
+        model_config=JAX_FP32, model_name="m-jax", **COMMON),
+        component="jaxw", tokenizer_cfg=tok_cfg, params=je.params)
     await je.close()
     tw = TorchEngineWorker(prt, EngineConfig(
         model_config=FP32, model_name="m-torch", **COMMON),
@@ -492,7 +495,7 @@ def test_engine_cli_registers_and_sigterm_deregisters(tmp_path):
         iid = line.strip().split("=", 1)[1]
         mdc = disc / "v1" / "mdc" / "dynamo" / "tiny" / f"{iid}.json"
         card = json.loads(mdc.read_text())
-        assert card["runtime_config"]["overlap_scheduling"] is False
+        assert card["runtime_config"]["overlap_scheduling"] is True
         assert (disc / "v1" / "instances" / "dynamo" / "backend" / "generate"
                 / f"{iid}.json").exists()
         proc.send_signal(signal.SIGTERM)
@@ -505,6 +508,18 @@ def test_engine_cli_registers_and_sigterm_deregisters(tmp_path):
             proc.wait(timeout=10)
         proc.stdout.close()
         proc.stderr.close()
+
+
+def test_engine_cli_scheduler_flags():
+    from dynamo_tpu_torch.engine.__main__ import build_args, engine_config
+
+    cfg = engine_config(build_args().parse_args([]))
+    assert (cfg.overlap_scheduling, cfg.decode_fuse_adaptive,
+            cfg.decode_fused_steps, cfg.decode_pipeline_depth) == (
+                True, True, 8, 4)
+    cfg = engine_config(build_args().parse_args(
+        ["--no-overlap-scheduling", "--no-adaptive-fusion"]))
+    assert not cfg.overlap_scheduling and not cfg.decode_fuse_adaptive
 
 
 def test_engine_cli_without_cuda_exits_nonzero():
