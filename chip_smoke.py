@@ -8,6 +8,9 @@
                                           # the engine behind the worker
     python3 chip_smoke.py --decode-ab     # lockstep eager decode against
                                           # the default scheduler
+    python3 chip_smoke.py --fused-ab      # the sampling epilogue off
+                                          # against fused
+    python3 chip_smoke.py --checkpoint    # the loaded-checkpoint phase
 
 Builds the port's CUDA kernels from csrc/ (three nvcc processes started
 together), holds each entry point (K1 and K3, each in its bf16 and its
@@ -29,16 +32,21 @@ eagerly.  After the bf16 engine run, the same requests go through a
 runtime (mem discovery, in-process event plane, TCP request plane on
 127.0.0.1), and the worker's contract is checked: streams, KV events,
 load metrics, FPM records, the MDC, clear_kv_blocks, cancellation and
-close; then the decode A/B (below) runs; after the int8 run, one request
-goes through a worker on the int8 cache (its launches and the dtype it
-reports).  Any failed phase ends the script with a non-zero exit code.
-It imports nothing of JAX or of the JAX package.
+close; then the decode A/B and the fused A/B (below) run; after the int8
+run, one request goes through a worker on the int8 cache (its launches
+and the dtype it reports).  Last, a HF-format Llama checkpoint at
+llama-8b width, depth cut to 4 layers (about 3.9 GB of bf16), is written
+to a temporary directory with the standard library and served through
+the port's own safetensors loader and weight cache (below).  Any failed
+phase ends the script with a non-zero exit code.  It imports nothing of
+JAX or of the JAX package.
 
 Output: one line per phase; a `{"kernels": [...]}` JSON line with each
 kernel's launches on the main path (`launches` in the engine run, or the
 microbench's own run for K4, `worker_launches` in the worker run; a
 replay of a captured decode program adds the K1 launches its capture
-recorded), error against its plain version (`max_abs_err`, and
+recorded; `checkpoint_launches` in the loaded checkpoint's run), error
+against its plain version (`max_abs_err`, and
 `max_rel_err`, the figure the tolerance holds), its device time (`ms`,
 by CUDA-graph replay for K1/K3; K3's with its tile plan computed
 beforehand, as the model does once per dispatch, `plan_ms` the plan
@@ -72,6 +80,28 @@ two rounds): TTFT per request, decode tokens/s, the median dispatch gap
 per burst and per token, the device's busy share of a profiled turn and
 device operations per decode token.
 
+The fused A/B (part of the whole check; alone with --fused-ab) serves
+the five requests on a bf16 cache at llama-8b width and depth by two
+default engines with the same weights: sampling_epilogue "off" and
+"fused" (the final projection streamed in vocab tiles into the
+sampler's statistics inside every captured program), in turns (off,
+fused, fused, off; two rounds): each path's warm-up captures, a replayed
+k = 8 burst against the eager one with its time and device operations
+per decode token, per turn TTFT, decode tokens/s and the decode gap per
+token, and the epilogue's bound.  Greedy streams must be equal, except
+where they part at a near-tie: the off logits' top-2 gap at that token
+(recomputed) within the largest tile-vs-full logit difference measured.
+
+The checkpoint phase (alone with --checkpoint): the synthesized
+checkpoint (two shards, config.json, tokenizer.json, a chat template)
+is loaded by TorchEngine(EngineConfig(model_path=...)) on the card,
+every parameter held bit for bit to the tensors written, the load timed
+from disk (page cache dropped first) and from the weight cache in turns
+with its GB/s, the five requests served (greedy streams equal to an
+engine given the written tensors as params), and one request served
+through a TorchEngineWorker whose MDC must carry the inline tokenizer
+and the chat template.
+
 Bounds use the H100 SXM data sheet (3.35 TB/s HBM3, 989 TFLOP/s dense
 bf16); a card run below its 700 W limit is slower, so its limit is
 printed beside every number.
@@ -84,6 +114,8 @@ import contextlib
 import dataclasses
 import gc
 import json
+import os
+import struct
 import subprocess
 import sys
 import time
@@ -1145,7 +1177,8 @@ def check_graph_burst(engine, device, kv_dtype: str) -> dict:
     """A replayed k = 8 greedy burst at B = max_num_seqs against the same
     burst run eagerly (the program's body) on the same inputs: the
     tokens must be equal and the K/V the two wrote within K1's per-row
-    tolerance.  Also times the replay (CUDA events) and counts the device
+    tolerance.  Also times the replay and the sampled program's replay on
+    the same lanes (CUDA events) and counts the device
     operations of the eager body (the kernels the graph holds) per
     decode token.  Uses blocks of random K/V: run after serving."""
     g, k = engine.graphs, 8
@@ -1167,9 +1200,13 @@ def check_graph_burst(engine, device, kv_dtype: str) -> dict:
     with torch.profiler.profile(activities=[
             torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
         eager = g.run_eager(True, k).clone()
         torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
     ops = sum(1 for e in prof.events() if str(e.device_type).endswith("CUDA"))
+    _device_breakdown(prof, wall, f"eager k={k} greedy burst body "
+                                  f"({kv_dtype})")
     kv_eager = written()
     reset()
     replay = torch.from_numpy(g.run(True, k).wait().copy())
@@ -1179,23 +1216,31 @@ def check_graph_burst(engine, device, kv_dtype: str) -> dict:
             for r, e in zip(kv_replay, kv_eager)]
     diff = max((r.float() - e.float()).abs().max().item()
                for r, e in zip(kv_replay, kv_eager))
-    reset()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(5):
-        g.continuation(0)
-        g.run(True, k)
-    end.record()
-    end.synchronize()
-    burst_ms = start.elapsed_time(end) / 5
+    def replay_ms(greedy: bool) -> float:
+        reset()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(5):
+            g.continuation(0)
+            g.run(greedy, k)
+        end.record()
+        end.synchronize()
+        return start.elapsed_time(end) / 5
+
+    burst_ms = replay_ms(True)
+    # the sampled program on the same lanes, every one sampled
+    a["temps"][:], a["top_ps"][:] = 0.8, 0.9
+    sampled_ms = replay_ms(False)
     tokens = k * engine.config.max_num_seqs
     log(f"graph burst ({kv_dtype}): replayed k={k} greedy burst at B="
         f"{engine.config.max_num_seqs} equals the eager burst: tokens "
         f"{same}, K/V max row relative error {max(errs):.3e} (limit "
         f"{REL_TOL}), max abs diff {diff:.3e}; replay {burst_ms:.3f} ms = "
-        f"{burst_ms / k:.3f} ms a step; the burst's eager body launched "
-        f"{ops} device operations = {ops / tokens:.1f} per decode token")
+        f"{burst_ms / k:.3f} ms a step (the sampled program {sampled_ms:.3f} "
+        f"ms = {sampled_ms / k:.3f} ms a step); the burst's eager body "
+        f"launched {ops} device operations = {ops / tokens:.1f} per decode "
+        f"token")
     for t, s in zip(kv, saved):
         t[:, :, blocks] = s
     g.restore(snap)
@@ -1205,7 +1250,8 @@ def check_graph_burst(engine, device, kv_dtype: str) -> dict:
                          f"(step, lane) {diverge}")
     if not max(errs) <= REL_TOL:
         raise SystemExit("replayed burst wrote other K/V than the eager one")
-    return {"burst_ms": burst_ms, "ops_per_token": ops / tokens}
+    return {"burst_ms": burst_ms, "sampled_ms": sampled_ms,
+            "ops_per_token": ops / tokens}
 
 
 def _decode_rate(res) -> tuple:
@@ -1328,16 +1374,17 @@ def _kernels_of(kv_dtype: str) -> tuple:
     return k1.paged_decode, k3.packed_prefill
 
 
-def _check_worker_launches(counts: dict, steps: dict, L: int) -> None:
-    """Exit unless the worker's (decode, prefill) launch `counts` cover
-    L layers x its decode steps and prefill dispatches in `steps`."""
+def _check_worker_launches(counts: dict, steps: dict, L: int,
+                           what: str = "worker") -> None:
+    """Exit unless the (decode, prefill) launch `counts` of `what`'s run
+    cover L layers x its decode steps and prefill dispatches in `steps`."""
     dec, pre = counts
     need_dec, need_pre = L * steps["decode_steps"], L * steps["prefill_steps"]
-    log(f"worker launches: {dec} {counts[dec]} (>= {need_dec} = {L} layers x "
+    log(f"{what} launches: {dec} {counts[dec]} (>= {need_dec} = {L} layers x "
         f"{steps['decode_steps']} decode steps), {pre} {counts[pre]} (>= "
         f"{need_pre} = {L} x {steps['prefill_steps']} prefill dispatches)")
     if counts[dec] < need_dec or counts[pre] < need_pre or not need_dec:
-        raise SystemExit("the worker did not run through both kernels")
+        raise SystemExit(f"the {what} did not run through both kernels")
 
 
 def check_worker(device, card: str, cfg, params, direct) -> dict:
@@ -1660,6 +1707,574 @@ def decode_ab(device, card: str, params, rounds: int = 2) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# the fused sampling epilogue against the materialized logits
+# ---------------------------------------------------------------------------
+
+
+def _tile_vs_full(params, cfg, h) -> float:
+    """Largest |tile - full| over the logits of final-norm hidden states
+    `h`: each column as the fused epilogue's tile product computes it
+    (ops/fused_sampling.py's plan, DEFAULT_TILE columns) against the same
+    column of the full [B, vocab] product the "off" path computes."""
+    from dynamo_tpu_torch.models import llama
+    from dynamo_tpu_torch.ops import fused_sampling as fs
+
+    w = llama.unembed_weight(params, cfg)
+    full = (h @ w).float()
+    V = w.shape[1]
+    tile, n_t = fs._tile_plan(V, fs.DEFAULT_TILE)
+    diff = 0.0
+    for i in range(n_t):
+        lg, start = fs._tile_logits(h, w, i, tile, V)
+        fresh = i * tile - start
+        diff = max(diff, (lg[:, fresh:] - full[:, i * tile:start + tile])
+                   .abs().max().item())
+    return diff
+
+
+def _sample_tile_diff(engine, device, steps: int = 8) -> float:
+    """_tile_vs_full over `steps` eager decode steps at B = 4 live lanes
+    (_burst_inputs' contexts over blocks of random K/V, argmax tokens
+    fed back): the largest tile-vs-full logit difference seen.  Writes
+    the engine's cache: run it when the engine has served."""
+    from dynamo_tpu_torch.models import llama
+
+    a, _ = _burst_inputs(engine, device, seed=13)
+    dev = {n: torch.from_numpy(np.asarray(a[n])).to(device)
+           for n in ("tokens", "positions", "tables", "ctx_lens")}
+    tok, pos, ctx = dev["tokens"], dev["positions"], dev["ctx_lens"]
+    params, cfg = engine.params, engine.model_cfg
+    diff = 0.0
+    for _ in range(steps):
+        h, _ = llama.decode_hidden(params, cfg, engine.kv, tok, pos,
+                                   dev["tables"], ctx)
+        diff = max(diff, _tile_vs_full(params, cfg, h))
+        tok = (h @ llama.unembed_weight(params, cfg)).float().argmax(-1) \
+            .to(torch.int32)
+        pos, ctx = pos + 1, ctx + 1
+    return diff
+
+
+def _replay_gap(params, cfg, device, prompt, stream, j: int) -> tuple:
+    """The "off" path's logits for token j of `stream`, recomputed
+    teacher-forced on a scratch cache: the prompt prefilled, then decode
+    steps at B = 4 (lane 0 live, as served) fed stream[:j].  Returns (the
+    gap between its top two logits, its top token, _tile_vs_full of that
+    step's hidden state)."""
+    from dynamo_tpu_torch.models import llama
+
+    bs = 128
+    L = len(prompt)
+    nb = -(-(L + j + 1) // bs)
+    kv = tuple(torch.zeros(s, dtype=cfg.dtype, device=device)
+               for s in llama.kv_cache_shapes(cfg, nb + 1, bs))
+    T = -(-L // bs) * bs
+
+    def i32(x):
+        return torch.tensor(x, dtype=torch.int32, device=device)
+
+    if j < 1:
+        raise SystemExit("fused A/B: streams part at the first token, which "
+                         "prefill samples without the epilogue")
+    table = list(range(1, nb + 1))
+    llama.prefill_packed(
+        params, cfg, kv, i32(prompt + [0] * (T - L)),
+        i32(list(range(L)) + [0] * (T - L)), i32([0] * T), i32([table]),
+        i32([L - 1]), torch.arange(T, device=device) < L)
+    tables = i32([table] + [[0] * nb] * 3)
+    for s in range(j):
+        at = [L + s, 0, 0, 0]
+        h, _ = llama.decode_hidden(params, cfg, kv, i32([stream[s], 0, 0, 0]),
+                                   i32(at), tables, i32(at))
+    full = (h @ llama.unembed_weight(params, cfg)).float()[0]
+    top2 = torch.topk(full, 2)
+    return ((top2.values[0] - top2.values[1]).item(),
+            int(top2.indices[0]), _tile_vs_full(params, cfg, h))
+
+
+# the fused A/B's bound terms at llama-8b width, batch B = max_num_seqs
+def _epilogue_bound(cfg, B: int) -> tuple:
+    """(ms a decode step to read the [d, vocab] bf16 unembedding once at
+    3.35 TB/s, bytes of the [B, vocab] fp32 logits' write and read that
+    the epilogue saves)."""
+    w_bytes = cfg.d_model * cfg.vocab_size * 2
+    return w_bytes / HBM_BYTES_PER_S * 1e3, 2 * B * cfg.vocab_size * 4
+
+
+def fused_ab(device, card: str, params, rounds: int = 2) -> dict:
+    """The five requests at llama-8b width and depth (random bf16 weights
+    `params`) on a bf16 cache, served in one process by two engines of
+    the default scheduler with their own caches: "off" (logits
+    materialized, the reference sampler) and "fused"
+    (sampling_epilogue="fused": ops/fused_sampling.py inside every
+    captured program), in turns (off, fused, fused, off) `rounds` times
+    after a warm-up run of each.  Exits unless warm-up captured every
+    (greedy, k) program of each once and serving none, a replayed k = 8
+    burst equals the eager one on each, each path's greedy streams repeat
+    across its turns, and fused greedy streams equal off ones up to a
+    near-tie: where they part, the off logits' top-2 gap at that token
+    (recomputed, _replay_gap) must be within the largest tile-vs-full
+    logit difference measured.  Logs per turn TTFT, decode tokens/s and
+    the FPM decode gap per token, and per path the k = 8 burst's replay
+    time and device operations per decode token."""
+    from dynamo_tpu_torch.engine import TorchEngine
+
+    cfg = _engine_config("bf16")
+    engines = {path: TorchEngine(dataclasses.replace(
+        cfg, sampling_epilogue=path), params=params, device=device)
+        for path in ("off", "fused")}
+    mc = engines["off"].model_cfg
+    built, burst = {}, {}
+    for path, eng in engines.items():
+        t0 = time.perf_counter()
+        eng.warmup_decode()
+        log(f"fused A/B, epilogue {path}: warm-up in "
+            f"{time.perf_counter() - t0:.1f} s")
+        built[path] = _log_programs(eng, f"fused A/B, epilogue {path}")
+        burst[path] = check_graph_burst(eng, device,
+                                        f"bf16, epilogue {path}")
+    step_ms, saved = _epilogue_bound(mc, cfg.max_num_seqs)
+    log(f"fused A/B: the epilogue's bound, the [{mc.d_model}, "
+        f"{mc.vocab_size}] bf16 unembedding read once a step at 3.35 TB/s: "
+        f"{step_ms:.4f} ms a step; the logits round trip it saves, "
+        f"2 x {cfg.max_num_seqs} x {mc.vocab_size} x 4 bytes = {saved} "
+        f"bytes = {saved / HBM_BYTES_PER_S * 1e3:.4f} ms a step; a replayed "
+        f"k=8 burst {burst['fused']['burst_ms']:.3f} ms fused against "
+        f"{burst['off']['burst_ms']:.3f} ms off (sampled "
+        f"{burst['fused']['sampled_ms']:.3f} against "
+        f"{burst['off']['sampled_ms']:.3f} ms), "
+        f"{burst['fused']['ops_per_token']:.1f} against "
+        f"{burst['off']['ops_per_token']:.1f} device operations per decode "
+        f"token ({card})")
+    reqs = _requests(mc.vocab_size)
+    gc.collect()
+
+    async def run():
+        turns = []
+        try:
+            for eng in engines.values():  # warm-up
+                await _serve(eng, reqs)
+                await eng.clear_kv_blocks()
+            await asyncio.sleep(1.1)
+            for path in ["off", "fused", "fused", "off"] * rounds:
+                eng = engines[path]
+                w0 = time.monotonic()
+                res = await _serve(eng, reqs)
+                w1 = time.monotonic()
+                await eng.clear_kv_blocks()
+                await asyncio.sleep(1.1)
+                bad = [i for i, r in enumerate(res)
+                       if r[1] != "length" or len(r[0]) != 32]
+                if bad:
+                    raise SystemExit(f"fused A/B {path}: requests {bad} did "
+                                     "not finish with 32 tokens")
+                turns.append(_decode_ab_record(
+                    path, res, [r for r in eng.fpm if w0 <= r["t"] <= w1]))
+                turns[-1]["ops_per_decode_token"] = \
+                    burst[path]["ops_per_token"]
+                turns[-1]["streams"] = [r[0] for r in res]
+                shown = {k: v for k, v in turns[-1].items()
+                         if k != "streams"}
+                log(f"fused A/B turn {len(turns)} ({card}): {shown}")
+        finally:
+            for eng in engines.values():
+                await eng.close()
+        return turns
+
+    turns = asyncio.run(run())
+    for path, eng in engines.items():
+        if eng.graphs.counts != built[path]:
+            raise SystemExit(f"fused A/B {path}: serving captured programs: "
+                             f"{eng.graphs.counts} after warm-up "
+                             f"{built[path]}")
+    greedy = [i for i, r in enumerate(reqs) if r.sampling.temperature <= 0]
+    first = {p: next(t["streams"] for t in turns if t["path"] == p)
+             for p in engines}
+    for t in turns:
+        if any(t["streams"][i] != first[t["path"]][i] for i in greedy):
+            raise SystemExit(f"fused A/B: {t['path']} greedy streams differ "
+                             "between its turns")
+    diff = _sample_tile_diff(engines["off"], device)
+    log(f"fused A/B: largest tile-vs-full logit difference over 8 decode "
+        f"steps of 4 live lanes: {diff:.6f}")
+    parted = []
+    for i in greedy:
+        off, fused = first["off"][i], first["fused"][i]
+        j = next((n for n, (a, b) in enumerate(zip(off, fused)) if a != b),
+                 None)
+        if j is None:
+            continue
+        gap, top, d = _replay_gap(params, mc, device,
+                                  list(reqs[i].token_ids), off, j)
+        diff = max(diff, d)
+        parted.append((i, j, gap))
+        log(f"fused A/B: request {i}'s greedy streams part at token {j}: "
+            f"off {off[j]}, fused {fused[j]}; the off logits' top-2 gap "
+            f"there {gap:.6f} (recomputed top token {top}), tile-vs-full "
+            f"difference of that step {d:.6f}")
+    bad = [(i, j, gap) for i, j, gap in parted if gap > diff]
+    log(f"fused A/B: greedy streams equal for "
+        f"{len(greedy) - len(parted)} of {len(greedy)} requests; "
+        f"{len(parted)} part at a near-tie within the largest tile-vs-full "
+        f"difference {diff:.6f}: {parted}; the sampled request's stream "
+        f"equal: {first['off'][2] == first['fused'][2]} (not required)")
+    if bad:
+        raise SystemExit(f"fused A/B: greedy streams part where the top-2 "
+                         f"gap exceeds the tile-vs-full difference: {bad}")
+    summary = {}
+    for path in ("off", "fused"):
+        mine = [t for t in turns if t["path"] == path]
+        med = {key: float(np.median([t[key] for t in mine]))
+               for key in ("decode_tok_s", "gap_ms_per_burst",
+                           "gap_ms_per_token")}
+        med["ttft_s"] = [float(np.median([t["ttft_s"][i] for t in mine]))
+                         for i in range(len(reqs))]
+        med["burst_ms"] = burst[path]["burst_ms"]
+        med["sampled_burst_ms"] = burst[path]["sampled_ms"]
+        med["ops_per_decode_token"] = burst[path]["ops_per_token"]
+        summary[path] = med
+        log(f"fused A/B, epilogue {path}, median of {len(mine)} turns "
+            f"({card}): {med}")
+    ratio = summary["fused"]["decode_tok_s"] / summary["off"]["decode_tok_s"]
+    log(f"fused A/B: fused over off decode tokens/s {ratio:.3f}x, "
+        f"decode gap per token {summary['fused']['gap_ms_per_token']:.3f} "
+        f"against {summary['off']['gap_ms_per_token']:.3f} ms")
+    for t in turns:
+        del t["streams"]
+    return {"turns": turns, "median": summary, "tile_vs_full": diff,
+            "parted": parted}
+
+
+# ---------------------------------------------------------------------------
+# a loaded checkpoint: the port's own safetensors loader and weight cache
+# ---------------------------------------------------------------------------
+
+# depth of the synthesized checkpoint (llama-8b width): 4 of 32 layers,
+# about 3.9 GB of bf16 on disk
+CKPT_LAYERS = 4
+CHAT_TEMPLATE = ("{% for m in messages %}<|{{ m.role }}|>{{ m.content }}"
+                 "{% endfor %}<|assistant|>")
+
+
+def _hf_tensors(cfg, n_layers: int) -> list:
+    """(HF name, shape [out, in] as nn.Linear stores it, init scale or
+    None for a norm) of a Llama checkpoint of `cfg`'s width, in the
+    order the shards hold them."""
+    d, q, kv, f = cfg.d_model, cfg.q_dim, cfg.kv_dim, cfg.ffn_dim
+    out = [("model.embed_tokens.weight", (cfg.vocab_size, d), 0.02)]
+    for i in range(n_layers):
+        p = f"model.layers.{i}."
+        out += [(p + "input_layernorm.weight", (d,), None),
+                (p + "self_attn.q_proj.weight", (q, d), d ** -0.5),
+                (p + "self_attn.k_proj.weight", (kv, d), d ** -0.5),
+                (p + "self_attn.v_proj.weight", (kv, d), d ** -0.5),
+                (p + "self_attn.o_proj.weight", (d, q), q ** -0.5),
+                (p + "post_attention_layernorm.weight", (d,), None),
+                (p + "mlp.gate_proj.weight", (f, d), d ** -0.5),
+                (p + "mlp.up_proj.weight", (f, d), d ** -0.5),
+                (p + "mlp.down_proj.weight", (d, f), f ** -0.5)]
+    return out + [("model.norm.weight", (d,), None),
+                  ("lm_head.weight", (cfg.vocab_size, d), d ** -0.5)]
+
+
+def _evict(path: str) -> None:
+    """Write the file back and drop it from the page cache, so the next
+    read comes from the disk (a no-op on tmpfs, which has no disk)."""
+    fd = os.open(path, os.O_RDONLY)
+    try:
+        os.fsync(fd)
+        os.posix_fadvise(fd, 0, 0, os.POSIX_FADV_DONTNEED)
+    finally:
+        os.close(fd)
+
+
+def _fs_type(path: str) -> str:
+    """The file system type /proc/mounts gives the longest mount point
+    holding `path`."""
+    best, kind = "", "unknown"
+    real = os.path.realpath(path)
+    with open("/proc/mounts") as f:
+        for line in f:
+            parts = line.split()
+            if len(parts) > 2 and (real == parts[1] or real.startswith(
+                    parts[1].rstrip("/") + "/")) and len(parts[1]) > len(best):
+                best, kind = parts[1], parts[2]
+    return kind
+
+
+def write_checkpoint(path: str, cfg, n_layers: int, device,
+                     seed: int = 0) -> dict:
+    """A HF-format Llama checkpoint of `cfg`'s width and `n_layers`
+    layers in `path`, written with the standard library alone: two
+    safetensors shards (8-byte little-endian header length, the JSON
+    header padded to 8 bytes, the raw bf16 bytes), their index,
+    config.json (untied lm_head), a minimal tokenizer.json and a
+    tokenizer_config.json with a chat template.  Weights are random from
+    `seed`, made on the card (norms 1 + 0.1 N(0, 1)); returns them by HF
+    name, on the card, for the bit-equality check."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    names = _hf_tensors(cfg, n_layers)
+    half = 1 + 9 * (n_layers // 2)
+    shards = [names[:half], names[half:]]
+    ref, weight_map = {}, {}
+    for s, part in enumerate(shards):
+        fname = f"model-{s + 1:05d}-of-{len(shards):05d}.safetensors"
+        header, off = {}, 0
+        for name, shape, _ in part:
+            n = int(np.prod(shape)) * 2
+            header[name] = {"dtype": "BF16", "shape": list(shape),
+                            "data_offsets": [off, off + n]}
+            off += n
+            weight_map[name] = fname
+        hb = json.dumps(header).encode()
+        hb += b" " * ((-(8 + len(hb))) % 8)
+        with open(os.path.join(path, fname), "wb") as f:
+            f.write(struct.pack("<Q", len(hb)))
+            f.write(hb)
+            for name, shape, scale in part:
+                x = torch.randn(shape, generator=gen, device=device)
+                t = (1 + 0.1 * x if scale is None else x * scale).to(
+                    torch.bfloat16)
+                ref[name] = t
+                f.write(t.view(torch.int16).cpu().numpy().data)
+    files = {
+        "model.safetensors.index.json": {
+            "metadata": {"total_size": sum(
+                t.numel() * 2 for t in ref.values())},
+            "weight_map": weight_map},
+        "config.json": {
+            "architectures": ["LlamaForCausalLM"], "model_type": "llama",
+            "hidden_size": cfg.d_model, "intermediate_size": cfg.ffn_dim,
+            "num_attention_heads": cfg.n_heads,
+            "num_key_value_heads": cfg.n_kv_heads, "head_dim": cfg.head_dim,
+            "num_hidden_layers": n_layers, "vocab_size": cfg.vocab_size,
+            "rms_norm_eps": cfg.rms_eps, "rope_theta": cfg.rope_theta,
+            "max_position_embeddings": cfg.max_context,
+            "tie_word_embeddings": False, "torch_dtype": "bfloat16",
+            "bos_token_id": 128000, "eos_token_id": [128001, 128009]},
+        "tokenizer.json": {
+            "version": "1.0", "added_tokens": [], "normalizer": None,
+            "pre_tokenizer": {"type": "ByteLevel", "add_prefix_space": False},
+            "decoder": {"type": "ByteLevel"},
+            "model": {"type": "BPE", "vocab": {"a": 0, "b": 1},
+                      "merges": []}},
+        "tokenizer_config.json": {"chat_template": CHAT_TEMPLATE},
+    }
+    for fname, body in files.items():
+        with open(os.path.join(path, fname), "w") as f:
+            json.dump(body, f)
+    return ref
+
+
+def _port_tree(ref: dict, n_layers: int) -> dict:
+    """The port's parameter tree of the HF tensors `ref`, built here by
+    hand (linear weights transposed to [in, out], norms fp32): the
+    loader's expected output."""
+    def norm(name):
+        return {"norm": ref[name].float()}
+
+    layers = []
+    for i in range(n_layers):
+        p = f"model.layers.{i}."
+        layer = {"attn_norm": norm(p + "input_layernorm.weight"),
+                 "mlp_norm": norm(p + "post_attention_layernorm.weight")}
+        for key, hf in (("wq", "self_attn.q_proj"),
+                        ("wk", "self_attn.k_proj"),
+                        ("wv", "self_attn.v_proj"),
+                        ("wo", "self_attn.o_proj"),
+                        ("w_gate", "mlp.gate_proj"), ("w_up", "mlp.up_proj"),
+                        ("w_down", "mlp.down_proj")):
+            layer[key] = ref[p + hf + ".weight"].T.contiguous()
+        layers.append(layer)
+    return {"embedding": ref["model.embed_tokens.weight"],
+            "final_norm": norm("model.norm.weight"),
+            "lm_head": ref["lm_head.weight"].T.contiguous(),
+            "layers": layers}
+
+
+def check_checkpoint(device, card: str) -> dict:
+    """A synthesized HF Llama checkpoint at llama-8b width, depth cut to
+    CKPT_LAYERS, served through the port's own loader: written to a
+    temporary directory (its weight cache beside it, DYN_WEIGHT_CACHE_DIR),
+    loaded by TorchEngine(EngineConfig(model_path=...)) on the card, every
+    parameter held bit for bit to the tensors written, the load timed
+    from disk (page cache dropped first) and from the weight cache in
+    turns (disk, cache, cache, disk), the five requests served by that
+    engine and by an engine given the written tensors as `params` (greedy
+    streams equal), and one request through a TorchEngineWorker on the
+    checkpoint whose MDC must carry the inline tokenizer and the chat
+    template.  Returns the loaded engine's run's launch counts by kernel
+    name."""
+    import tempfile
+
+    from dynamo_tpu_torch.models import weight_cache
+    from dynamo_tpu_torch.models.llama import PRESETS
+
+    used = _kernels_of("bf16")
+    width = PRESETS["llama-8b"]
+    with tempfile.TemporaryDirectory(prefix="ckpt-") as tmp:
+        path = os.path.join(tmp, f"llama-8b-width-{CKPT_LAYERS}-layers")
+        os.makedirs(path)
+        cache_dir = os.path.join(tmp, "weight-cache")
+        env = os.environ.get("DYN_WEIGHT_CACHE_DIR")
+        os.environ["DYN_WEIGHT_CACHE_DIR"] = cache_dir
+        try:
+            t0 = time.perf_counter()
+            ref = write_checkpoint(path, width, CKPT_LAYERS, device)
+            files = sorted(os.listdir(path))
+            for f in files:
+                _evict(os.path.join(path, f))
+            nbytes = sum(t.numel() * 2 for t in ref.values())
+            log(f"checkpoint: llama-8b width (d {width.d_model}, heads "
+                f"{width.n_heads}/{width.n_kv_heads}, hd {width.head_dim}, "
+                f"ffn {width.ffn_dim}, vocab {width.vocab_size}, untied "
+                f"lm_head), depth cut to {CKPT_LAYERS} of "
+                f"{width.n_layers} layers: {len(ref)} bf16 tensors, "
+                f"{nbytes / 1e9:.3f} GB in 2 shards, written and synced in "
+                f"{time.perf_counter() - t0:.1f} s to {_fs_type(path)} "
+                f"(the weight cache beside it); files {files}")
+            results = _serve_checkpoint(device, card, path, ref, nbytes,
+                                        cache_dir, used, width)
+        finally:
+            if env is None:
+                os.environ.pop("DYN_WEIGHT_CACHE_DIR", None)
+            else:
+                os.environ["DYN_WEIGHT_CACHE_DIR"] = env
+            weight_cache.clear_cache(cache_dir)
+    return results
+
+
+def _serve_checkpoint(device, card, path, ref, nbytes, cache_dir, used,
+                      width):
+    """check_checkpoint's engine, load, serving and worker checks on the
+    checkpoint at `path` (written tensors `ref`, `nbytes` of them, the
+    model config `width` at CKPT_LAYERS layers)."""
+    from dynamo_tpu_torch.engine import EngineConfig, TorchEngine
+    from dynamo_tpu_torch.models import loader, weight_cache
+
+    cfg = dataclasses.replace(_engine_config("bf16"), model_path=path)
+    mc = cfg.resolve_model()
+    if dataclasses.replace(mc, name=width.name) != dataclasses.replace(
+            width, n_layers=CKPT_LAYERS, eos_token_ids=(128001, 128009)):
+        raise SystemExit(f"checkpoint config read as {mc}")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    engine = TorchEngine(cfg, device=device)
+    torch.cuda.synchronize()
+    first = time.perf_counter() - t0
+    if weight_cache.read_cache(cache_dir, path, "cpu") is None:
+        raise SystemExit("the engine's load wrote no weight cache entry")
+    log(f"checkpoint: TorchEngine(EngineConfig(model_path=...)) loaded "
+        f"it from disk onto {device} and wrote the weight cache in "
+        f"{first:.2f} s")
+    want = _port_tree(ref, CKPT_LAYERS)
+    del ref
+    got = dict(weight_cache._flatten_with_paths(engine.params))
+    leaves = list(weight_cache._flatten_with_paths(want))
+    bad = [name for name, t in leaves
+           if name not in got or got[name].dtype != t.dtype
+           or not got[name].is_contiguous() or not torch.equal(got[name], t)]
+    if bad or len(got) != len(leaves):
+        raise SystemExit(f"checkpoint: loaded parameters differ from the "
+                         f"tensors written: {bad[:5]}")
+    log(f"checkpoint: all {len(got)} parameters bit-equal to the tensors "
+        "written (linear weights transposed, norms fp32)")
+    loads = []
+    for turn in ("disk", "cache", "cache", "disk"):
+        torch.cuda.empty_cache()
+        if turn == "disk":
+            for f in os.listdir(path):
+                _evict(os.path.join(path, f))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        p = (loader.load_params(path, mc, device=device, host_cache=False)
+             if turn == "disk" else
+             weight_cache.read_cache(cache_dir, path, device))
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        if p is None or not torch.equal(p["lm_head"],
+                                        engine.params["lm_head"]):
+            raise SystemExit(f"checkpoint: the {turn} load failed")
+        del p
+        loads.append({"from": turn, "s": round(secs, 4),
+                      "GB_per_s": round(nbytes / 1e9 / secs, 3)})
+        log(f"checkpoint load {len(loads)} ({card}): from {turn}, "
+            f"{nbytes / 1e9:.3f} GB in {secs:.3f} s = "
+            f"{nbytes / 1e9 / secs:.2f} GB/s")
+    torch.cuda.empty_cache()
+    reqs = _requests(mc.vocab_size)
+    direct = TorchEngine(cfg, params=want, device=device)
+    engine.warmup_decode()
+    direct.warmup_decode()
+
+    async def run():
+        try:
+            for fn in used:
+                fn.launches = 0
+            res = await _serve(engine, reqs)
+            counts = {fn.__name__: fn.launches for fn in used}
+            steps = {k: engine.metrics[k] for k in ("decode_steps",
+                                                   "prefill_steps")}
+            return res, counts, steps, await _serve(direct, reqs)
+        finally:
+            await engine.close()
+            await direct.close()
+
+    res, counts, steps, ref_res = asyncio.run(run())
+    greedy = [i for i, r in enumerate(reqs) if r.sampling.temperature <= 0]
+    bad = [i for i, r in enumerate(res) if r[1] != "length"
+           or len(r[0]) != 32]
+    if bad:
+        raise SystemExit(f"checkpoint: requests {bad} did not finish")
+    if any(res[i][0] != ref_res[i][0] for i in greedy):
+        raise SystemExit("checkpoint: the loaded engine's greedy streams "
+                         "differ from the engine given the tensors")
+    n, secs = _decode_rate(res)
+    log(f"checkpoint: the loaded engine served the five requests (ttft s "
+        f"{[round(r[2], 4) for r in res]}, {n / secs:.1f} decode tokens/s, "
+        f"{CKPT_LAYERS} layers, {card}); greedy streams {greedy} equal to "
+        f"an engine given the written tensors as params; sampled stream "
+        f"equal: {res[2][0] == ref_res[2][0]}")
+    _check_worker_launches(counts, steps, CKPT_LAYERS,
+                           "loaded checkpoint's engine")
+    engine.kv = engine.graphs = direct.kv = direct.graphs = None
+    del engine, direct, want
+    torch.cuda.empty_cache()
+    _checkpoint_worker(device, cfg, path, reqs[1])
+    return {"launches": counts, "loads": loads, "first_load_s": first}
+
+
+def _checkpoint_worker(device, cfg, path, req) -> None:
+    """One request through a TorchEngineWorker serving the checkpoint
+    (model_path; its weights from the weight cache): exits unless it
+    finishes and the MDC in discovery carries tokenizer.json inline as
+    the "hf" tokenizer with the first eos id, and the chat template."""
+    async def run():
+        async with _serving_worker(device, cfg, None) as (
+                rt, worker, client, _):
+            mdc = await rt.discovery.get_prefix(
+                worker.card.key(worker.served.instance_id))
+            res = await _serve_worker(client, [req])
+            return list(mdc.values()), res[0]
+
+    mdc, (toks, finish, ttft, _) = asyncio.run(run())
+    with open(os.path.join(path, "tokenizer.json")) as f:
+        tok_json = f.read()
+    card = mdc[0] if len(mdc) == 1 else {}
+    ok = (card.get("tokenizer") == {"type": "hf", "json": tok_json,
+                                    "eos_id": 128001}
+          and card.get("chat_template") == CHAT_TEMPLATE
+          and card.get("name") == os.path.basename(path))
+    log(f"checkpoint worker: one request, {len(toks)} out, finish={finish}, "
+        f"ttft={ttft:.3f} s; MDC name {card.get('name')!r}, tokenizer "
+        f"{(card.get('tokenizer') or {}).get('type')!r} inline "
+        f"({len(tok_json)} bytes), chat template carried: "
+        f"{card.get('chat_template') == CHAT_TEMPLATE}")
+    if finish != "length" or len(toks) != 32 or not ok:
+        raise SystemExit("checkpoint worker: request or MDC check failed")
+
+
+# ---------------------------------------------------------------------------
 # --worker-ab: does the request plane show in host-bound decode?
 # ---------------------------------------------------------------------------
 
@@ -1804,7 +2419,8 @@ def worker_ab(device, card: str, rounds: int = 3) -> dict:
     return {"turns": turns, "median": summary, "codec_us": codec}
 
 
-def _device_breakdown(prof, wall: float) -> Optional[dict]:
+def _device_breakdown(prof, wall: float,
+                      what: str = "profiled run") -> Optional[dict]:
     """Where a profiled run's device time goes: kernel time by family and
     the device's busy share of the run's wall time (one stream, so kernel
     times do not overlap; the profiler's own host overhead lengthens the
@@ -1828,7 +2444,7 @@ def _device_breakdown(prof, wall: float) -> Optional[dict]:
                     if any(k in e.name.lower() for k in keys)), "other")
         by[fam] += us
     busy = sum(by.values()) / 1e6
-    log(f"device breakdown, profiled run: wall {wall:.3f} s, kernels "
+    log(f"device breakdown, {what}: wall {wall:.3f} s, kernels "
         f"{busy:.3f} s busy ({100 * busy / wall:.1f}%), "
         f"{len(kernels)} kernel launches; by family (ms): "
         + ", ".join(f"{k} {v / 1e3:.1f}" for k, v in by.items()))
@@ -1961,6 +2577,25 @@ def main() -> int:
               flush=True)
         print(card, flush=True)
         return 0
+    if sys.argv[1:] == ["--fused-ab"]:
+        # python3 chip_smoke.py --fused-ab: the sampling epilogue off
+        # against fused, in turns
+        build_kernels()
+        from dynamo_tpu_torch.models import llama
+
+        gen = torch.Generator(device=device).manual_seed(0)
+        params = llama.init_params(cfg, gen, device)
+        print(json.dumps({"fused_ab": fused_ab(device, card, params)}),
+              flush=True)
+        print(card, flush=True)
+        return 0
+    if sys.argv[1:] == ["--checkpoint"]:
+        # python3 chip_smoke.py --checkpoint: the loaded-checkpoint phase
+        build_kernels()
+        print(json.dumps({"checkpoint": check_checkpoint(device, card)}),
+              flush=True)
+        print(card, flush=True)
+        return 0
     if sys.argv[1:] == ["--worker-ab"]:
         # python3 chip_smoke.py --worker-ab: the engine directly against
         # the engine behind the worker, in turns
@@ -1989,6 +2624,9 @@ def main() -> int:
     decode_ab(device, card, params)
     torch.cuda.empty_cache()
     log(f"decode A/B phase done at {time.perf_counter() - t_start:.1f} s")
+    fused_ab(device, card, params)
+    torch.cuda.empty_cache()
+    log(f"fused A/B phase done at {time.perf_counter() - t_start:.1f} s")
     launches8, engine8, ops_int8, _ = check_engine(device, card, "int8",
                                                    params)
     launches.update(launches8)
@@ -2000,9 +2638,14 @@ def main() -> int:
     log(f"device operations per decode step (one sequence): int8 cache "
         f"{ops_int8} against bf16 cache {ops_bf16} (the plain-torch "
         f"quantize-on-write adds {ops_int8 - ops_bf16})")
+    del engine8, params
+    torch.cuda.empty_cache()
+    ckpt = check_checkpoint(device, card)
+    log(f"checkpoint phase done at {time.perf_counter() - t_start:.1f} s")
     for k in kernels:
         k["launches"] = launches[k["name"]]
         k["worker_launches"] = worker_launches[k["name"]]
+        k["checkpoint_launches"] = ckpt["launches"].get(k["name"], 0)
     log(f"chip_smoke: every phase passed in "
         f"{time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels + dma}), flush=True)

@@ -17,6 +17,7 @@ import os
 import sys
 
 from ..device import resolve_device
+from ..ops.fused_sampling import EPILOGUE_MODES
 from ..ops.packed_prefill import PACKED_IMPLS
 from ..ops.paged_attention import DECODE_IMPLS
 from ..runtime import DistributedRuntime
@@ -29,6 +30,8 @@ from .worker import TorchEngineWorker
 def build_args() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser("dynamo_tpu_torch.engine")
     p.add_argument("--model", default="tiny", help="model preset name")
+    p.add_argument("--model-path", default="",
+                   help="local HF checkpoint dir (overrides --model)")
     p.add_argument("--model-name", default="", help="served model name")
     p.add_argument("--namespace", default="dynamo")
     p.add_argument("--component", default="backend")
@@ -57,6 +60,12 @@ def build_args() -> argparse.ArgumentParser:
                    choices=["", *PACKED_IMPLS],
                    help="packed-prefill attention: auto = kernel K3 on "
                         "CUDA tensors, torch = the plain version")
+    p.add_argument("--sampling-epilogue", default="off",
+                   choices=list(EPILOGUE_MODES),
+                   help="fused = stream the decode step's final projection "
+                        "in vocab tiles into the sampler's statistics (no "
+                        "[B, vocab] logits); off = materialize the logits "
+                        "and sample them")
     p.add_argument("--peak-tflops", type=float,
                    default=float(os.environ.get("DYN_PEAK_TFLOPS", "0")),
                    help="dense-bf16 peak, for prefill MFU in the FPM "
@@ -86,6 +95,7 @@ def build_args() -> argparse.ArgumentParser:
 def engine_config(args: argparse.Namespace) -> EngineConfig:
     return EngineConfig(
         model=args.model,
+        model_path=args.model_path,
         model_name=args.model_name,
         block_size=args.block_size,
         num_blocks=args.num_blocks,
@@ -97,6 +107,7 @@ def engine_config(args: argparse.Namespace) -> EngineConfig:
         prefill_chunk_tokens=args.prefill_chunk_tokens,
         attn_impl=args.attn_impl,
         packed_attn_impl=args.packed_attn_impl,
+        sampling_epilogue=args.sampling_epilogue,
         peak_tflops=args.peak_tflops,
         overlap_scheduling=not args.no_overlap_scheduling,
         decode_fuse_adaptive=not args.no_adaptive_fusion,

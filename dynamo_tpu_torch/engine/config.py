@@ -20,7 +20,6 @@ from ..ops.paged_attention import DECODE_IMPLS
 
 # field -> (default, the feature it belongs to)
 _UNPORTED = {
-    "model_path": ("", "checkpoint loading"),
     "dp": (1, "data parallelism"),
     "tp": (1, "tensor parallelism"),
     "sp": (1, "sequence-parallel ring prefill"),
@@ -31,7 +30,6 @@ _UNPORTED = {
     "disk_cache_dir": (None, "KVBM disk tier (G3)"),
     "disk_cache_blocks": (0, "KVBM disk tier (G3)"),
     "object_store_dir": (None, "KVBM object tier (G4)"),
-    "sampling_epilogue": ("off", "the fused sampling epilogue"),
     # its one reader in JAX is the roofline (MBU) gauges of /metrics
     "peak_hbm_gbps": (0.0, "the /metrics roofline gauges"),
 }
@@ -40,7 +38,10 @@ _UNPORTED = {
 @dataclass
 class EngineConfig:
     model: str = "tiny"  # preset name (models.llama.PRESETS)
-    model_name: str = ""  # served model name; defaults to the preset's
+    # a local HF checkpoint directory (config.json + *.safetensors,
+    # models/loader.py); overrides `model`, the engine loads its weights
+    model_path: str = ""
+    model_name: str = ""  # served model name; defaults to the model's
     model_config: Optional[LlamaConfig] = None
 
     # paged KV cache (block 0 is the garbage block)
@@ -91,6 +92,11 @@ class EngineConfig:
     max_prefill_seqs: int = 4
     # chunk budget for one packed prefill dispatch (0 = max_batch_tokens)
     prefill_chunk_tokens: int = 0
+    # "off" | "fused": the decode programs end each step at the final-norm
+    # hidden state and stream the projection in vocab tiles into the
+    # sampler's statistics, so no [B, vocab] logits exist
+    # (ops/fused_sampling.py); "off" materializes the logits
+    sampling_epilogue: str = "off"
     # attention impl overrides ("" = keep the model config's): decode
     # "auto" | "torch" (ops/paged_attention.py), packed prefill "auto" |
     # "torch" (ops/packed_prefill.py)
@@ -104,12 +110,12 @@ class EngineConfig:
     # worker's default; off here so short-lived test engines skip it)
     warmup: bool = False
 
-    # None = the model config's eos ids
+    # None = the model config's eos ids (the checkpoint's config.json with
+    # model_path)
     eos_token_id: Optional[int] = None
     seed: int = 0
 
     # JAX-engine features not ported yet (see _UNPORTED)
-    model_path: str = ""
     dp: int = 1
     tp: int = 1
     sp: int = 1
@@ -120,7 +126,6 @@ class EngineConfig:
     disk_cache_dir: Optional[str] = None
     disk_cache_blocks: int = 0
     object_store_dir: Optional[str] = None
-    sampling_epilogue: str = "off"
     peak_hbm_gbps: float = 0.0
 
     def __post_init__(self):
@@ -130,6 +135,13 @@ class EngineConfig:
                 raise NotImplementedError(
                     f"EngineConfig.{name}={value!r}: {feature} is not ported "
                     f"to dynamo_tpu_torch yet (default {default!r})")
+        # imported here: ops/fused_sampling.py imports the engine package
+        from ..ops.fused_sampling import EPILOGUE_MODES
+
+        if self.sampling_epilogue not in EPILOGUE_MODES:
+            raise ValueError(
+                f"sampling_epilogue must be {' | '.join(EPILOGUE_MODES)}, "
+                f"got {self.sampling_epilogue!r}")
         if self.kv_cache_dtype not in ("bf16", "int8"):
             raise ValueError(f"kv_cache_dtype must be 'bf16' | 'int8', got "
                              f"{self.kv_cache_dtype!r}")
@@ -144,9 +156,15 @@ class EngineConfig:
                              f"{self.packed_attn_impl!r}")
 
     def resolve_model(self) -> LlamaConfig:
-        """The model config with the engine's attention-impl overrides."""
+        """The model config (model_config, else the checkpoint's at
+        model_path, else the preset) with the engine's attention-impl
+        overrides."""
         if self.model_config is not None:
             cfg = self.model_config
+        elif self.model_path:
+            from .loader_cache import cached_hf_config
+
+            cfg = cached_hf_config(self.model_path)
         elif self.model in PRESETS:
             cfg = PRESETS[self.model]
         else:

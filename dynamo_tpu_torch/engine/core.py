@@ -34,9 +34,15 @@ loop's thread (engine/worker.py publishes them); every prefill dispatch
 and decode burst appends one forward-pass-metrics record to `fpm`, with
 the keys of the JAX engine's records.
 
-Not here yet (ROADMAP.md): graph capture of packed prefill, the fused
-sampling epilogue and penalties, KVBM tiers, disaggregation, speculative
-and guided decoding, and LoRA.
+With `sampling_epilogue="fused"` every decode program streams the final
+projection through ops/fused_sampling.py instead of materializing the
+logits.  Weights come from `params`, from the HF checkpoint at
+`config.model_path` (models/loader.py, through the host weight cache),
+or are random from config.seed.
+
+Not here yet (ROADMAP.md): graph capture of packed prefill, penalties
+(the JAX engine ignores them too), KVBM tiers, disaggregation,
+speculative and guided decoding, and LoRA.
 """
 
 from __future__ import annotations
@@ -133,8 +139,9 @@ class TorchEngine:
                  kv_event_sink: Optional[KvEventSink] = None,
                  cuda_graphs: bool = True):
         """`params`: the port's parameter tree on `device` (for example
-        from models/convert.py params_from_numpy); None makes random
-        weights from config.seed on the device.  `kv_event_sink(stored,
+        from models/convert.py params_from_numpy); None loads the
+        checkpoint at config.model_path, or makes random weights from
+        config.seed on the device without one.  `kv_event_sink(stored,
         removed, tier)`: called on the event loop's thread with each
         netted batch of KV events, in mutation order (engine/worker.py
         passes KvEventPublisher.enqueue_batch).  `cuda_graphs=False` runs
@@ -144,7 +151,12 @@ class TorchEngine:
         self.device = resolve_device(device)
         self.model_cfg = config.resolve_model()
         self.eos_ids = frozenset(config.resolve_eos_ids())
-        if params is None:
+        if params is None and config.model_path:
+            from ..models.loader import load_params
+
+            params = load_params(config.model_path, self.model_cfg,
+                                 device=self.device)
+        elif params is None:
             gen = torch.Generator(device=self.device)
             gen.manual_seed(config.seed)
             params = llama.init_params(self.model_cfg, gen, self.device)
@@ -179,7 +191,9 @@ class TorchEngine:
         self.graphs = DecodePrograms(self.params, self.model_cfg, self.kv,
                                      config.max_num_seqs,
                                      config.max_blocks_per_seq, self.device,
-                                     capture=cuda_graphs)
+                                     capture=cuda_graphs,
+                                     epilogue=config.sampling_epilogue
+                                     == "fused")
         self._overlap = bool(config.overlap_scheduling)
         self._inflight: deque = deque()
         self._chain_owner: List[Optional[Tuple[str, int]]] = \

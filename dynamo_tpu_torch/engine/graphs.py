@@ -5,7 +5,13 @@ The port's counterpart of the JAX engine's jitted decode programs
 its compile watch.  One program exists per (greedy, k): k fused decode
 steps (models/llama.py decode_multi) at the fixed batch B = max_num_seqs
 and full table width, argmax-only when `greedy`, else drawing with the
-stateless sampler (engine/sampler.py sample_tokens).  Every program reads
+stateless sampler (engine/sampler.py sample_tokens).  With the fused
+sampling epilogue (`epilogue=True`, EngineConfig.sampling_epilogue
+"fused") every program ends each step at the final-norm hidden state
+(models/llama.py decode_multi_hidden) and streams the projection through
+ops/fused_sampling.py instead: a static property of all the programs,
+as in the JAX engine, so the set of (greedy, k) programs is the same in
+both modes.  Every program reads
 the same static input buffers, the argument list of the JAX programs:
 chain, use_chain, tokens, positions, tables, ctx_lens, seeds, steps,
 temps, top_ks, top_ps, valid and the `advance` scalar.  They are views
@@ -49,6 +55,7 @@ import numpy as np
 import torch
 
 from ..models import llama
+from ..ops import fused_sampling
 from .sampler import sample_tokens
 
 # descriptor fields of B words each, in buffer order, then the tables
@@ -97,8 +104,9 @@ class _Desc:
 class DecodePrograms:
     def __init__(self, params, cfg: llama.LlamaConfig, kv: tuple, B: int,
                  max_blocks: int, device: torch.device,
-                 capture: bool = True):
+                 capture: bool = True, epilogue: bool = False):
         self.params, self.cfg, self.kv = params, cfg, kv
+        self.epilogue = epilogue
         self.B, self.max_blocks, self.device = B, max_blocks, device
         self.capture = capture and device.type == "cuda"
         n = len(FIELDS) * B + B * max_blocks + 1
@@ -175,14 +183,28 @@ class DecodePrograms:
         for t in (d.positions, d.ctx_lens, d.steps):
             t.add_(d.advance)
         tokens = torch.where(d.use_chain != 0, self.chain, d.tokens)
-        sample_fn: Optional[Callable] = None
-        if not greedy:
-            def sample_fn(logits, step):
-                return sample_tokens(logits, d.seeds, d.steps + step,
-                                     d.temps, d.top_ks, d.top_ps)
-        burst, _ = llama.decode_multi(
-            self.params, self.cfg, self.kv, tokens, d.positions, d.tables,
-            d.ctx_lens, k, sample_fn, valid=d.valid != 0)
+        args = (self.params, self.cfg, self.kv, tokens, d.positions,
+                d.tables, d.ctx_lens, k)
+        if self.epilogue:
+            uw = llama.unembed_weight(self.params, self.cfg)
+            if greedy:
+                def fused(h, step):
+                    return fused_sampling.fused_greedy_tokens(h, uw)
+            else:
+                def fused(h, step):
+                    return fused_sampling.fused_sample_tokens(
+                        h, uw, d.seeds, d.steps + step, d.temps, d.top_ks,
+                        d.top_ps)
+            burst, _ = llama.decode_multi_hidden(*args, fused,
+                                                 valid=d.valid != 0)
+        else:
+            sample_fn: Optional[Callable] = None
+            if not greedy:
+                def sample_fn(logits, step):
+                    return sample_tokens(logits, d.seeds, d.steps + step,
+                                         d.temps, d.top_ks, d.top_ps)
+            burst, _ = llama.decode_multi(*args, sample_fn,
+                                          valid=d.valid != 0)
         out = self.out.get(k)
         if out is None:
             out = self.out[k] = torch.zeros(k, self.B, dtype=torch.int32,

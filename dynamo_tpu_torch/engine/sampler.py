@@ -4,7 +4,9 @@ The counterpart of dynamo_tpu/engine/sampler.py, with the same semantics:
 sampling is restricted to the CAP (64) highest logits per row, the
 requested top_k is clamped to CAP, and the top-p nucleus mass is measured
 against the TRUE full-vocab softmax (logsumexp), with the first candidate
-always kept.  temperature <= 0 is greedy over the full vocabulary.
+always kept.  temperature <= 0 is greedy over the full vocabulary.  The
+window is ordered as `lax.top_k` orders it, equal values by ascending id
+(order_keys), since the draw below indexes its noise by window position.
 
 The draw is stateless, as in the JAX package: row b draws from the key
 `fold_in(PRNGKey(seeds[b]), steps[b])` by the Gumbel-max trick
@@ -102,25 +104,62 @@ def gumbel(key, n: int) -> torch.Tensor:
     return -torch.log(-torch.log(u))
 
 
+def order_keys(x: torch.Tensor, cols: torch.Tensor) -> torch.Tensor:
+    """int64 keys that order the fp32 values `x` [..., n] descending and
+    equal values by ascending column id `cols` (broadcast against x, ids
+    below 2^31): the order of `lax.top_k`, which keeps the lower index
+    first on a tie.  `torch.topk` promises no order among equal values,
+    and bf16 logits tie often.  The float's bits are mapped to an integer
+    of the same order (negative floats' magnitude bits flipped); NaN is
+    not ordered."""
+    b = x.float().contiguous().view(torch.int32).to(torch.int64)
+    b = torch.where(b < 0, b ^ 0x7FFFFFFF, b)
+    return b * (1 << 32) - cols
+
+
+def top_window(scaled: torch.Tensor):
+    """(values, ids) [B, CAP] of the CAP largest of `scaled` [B, n],
+    sorted descending with ties to the lower id, as `lax.top_k`."""
+    n = scaled.shape[-1]
+    _, ids = torch.topk(order_keys(scaled, torch.arange(
+        n, device=scaled.device)), min(CAP, n), dim=-1)
+    return torch.gather(scaled, -1, ids), ids
+
+
+def mask_window(vals: torch.Tensor, lse: torch.Tensor, top_k: torch.Tensor,
+                top_p: torch.Tensor) -> torch.Tensor:
+    """The window `vals` [B, n] (scaled logits, descending) with NEG_INF
+    on every candidate that top-k or top-p removes: top_k clamped to CAP,
+    the nucleus mass measured against `lse` [B], the logsumexp of the
+    full-vocab scaled logits, and the first candidate always kept."""
+    k_eff = torch.clamp(torch.where(top_k > 0, top_k,
+                                    torch.full_like(top_k, CAP)), 1, CAP)
+    keep_k = torch.arange(vals.shape[-1], device=vals.device)[None, :] \
+        < k_eff[:, None]
+    cum = torch.cumsum(torch.exp(vals - lse[:, None]), dim=-1)
+    first = torch.ones_like(cum[:, :1], dtype=torch.bool)
+    keep_p = torch.cat([first, cum[:, :-1] < top_p[:, None]], dim=-1)
+    return torch.where(keep_k & keep_p, vals, torch.full_like(vals, NEG_INF))
+
+
+def draw(ids: torch.Tensor, masked: torch.Tensor, seeds: torch.Tensor,
+         steps: torch.Tensor) -> torch.Tensor:
+    """One candidate of each row's masked window, `jax.random.categorical`
+    with the key fold_in(PRNGKey(seed), step) (Gumbel-max): [B] int32."""
+    key = fold_in(prng_key(seeds), steps)
+    pick = torch.argmax(gumbel(key, masked.shape[-1]) + masked, dim=-1)
+    return torch.gather(ids, 1, pick[:, None])[:, 0].to(torch.int32)
+
+
 def candidate_window(logits: torch.Tensor, temperature: torch.Tensor,
                      top_k: torch.Tensor, top_p: torch.Tensor):
     """(ids [B, CAP], masked scaled logits [B, CAP]): the candidates a
     sampled row draws from, with NEG_INF on every candidate that top-k or
     top-p removes."""
     scaled = logits / torch.clamp(temperature, min=1e-6)[:, None]
-    cap = min(CAP, logits.shape[-1])
-    vals, ids = torch.topk(scaled, cap, dim=-1)  # sorted descending
-    k_eff = torch.clamp(torch.where(top_k > 0, top_k,
-                                    torch.full_like(top_k, CAP)), 1, CAP)
-    keep_k = torch.arange(cap, device=logits.device)[None, :] \
-        < k_eff[:, None]
-    probs = torch.exp(vals - torch.logsumexp(scaled, dim=-1, keepdim=True))
-    cum = torch.cumsum(probs, dim=-1)
-    first = torch.ones_like(cum[:, :1], dtype=torch.bool)
-    keep_p = torch.cat([first, cum[:, :-1] < top_p[:, None]], dim=-1)
-    masked = torch.where(keep_k & keep_p, vals,
-                         torch.full_like(vals, NEG_INF))
-    return ids, masked
+    vals, ids = top_window(scaled)
+    lse = torch.logsumexp(scaled, dim=-1)
+    return ids, mask_window(vals, lse, top_k, top_p)
 
 
 def sample_tokens(
@@ -137,7 +176,19 @@ def sample_tokens(
     and no value is read back."""
     greedy = greedy_tokens(logits)
     ids, masked = candidate_window(logits, temperature, top_k, top_p)
-    key = fold_in(prng_key(seeds), steps)
-    pick = torch.argmax(gumbel(key, masked.shape[-1]) + masked, dim=-1)
-    sampled = torch.gather(ids, 1, pick[:, None])[:, 0].to(torch.int32)
+    sampled = draw(ids, masked, seeds, steps)
     return torch.where(temperature <= 0.0, greedy, sampled)
+
+
+def apply_penalties(
+    logits: torch.Tensor,             # [B, vocab]
+    token_counts: torch.Tensor,       # [B, vocab] int: counts in the output
+    frequency_penalty: torch.Tensor,  # [B]
+    presence_penalty: torch.Tensor,   # [B]
+) -> torch.Tensor:
+    """OpenAI frequency and presence penalties, as the JAX sampler's
+    `apply_penalties`.  Like the JAX engine, the engine does not call it:
+    both accept the request fields and ignore them."""
+    counts = token_counts.to(torch.float32)
+    lf = logits - frequency_penalty[:, None] * counts
+    return lf - presence_penalty[:, None] * (counts > 0).to(torch.float32)

@@ -6,7 +6,9 @@ the distributed runtime (runtime/).  It keeps that worker's contract, so
 the unchanged JAX frontend and its KV router serve it like any other:
 
   * the model deployment card (MDC), published in discovery once the
-    engine is warm, withdrawn on drain and close;
+    engine is warm, withdrawn on drain and close; with a checkpoint
+    (config.model_path) it carries the checkpoint's tokenizer.json inline
+    and its chat template, so frontends on other hosts can build them;
   * the `generate`, `clear_kv_blocks` and `kv_events_replay` endpoints on
     the TCP request plane, `generate` with the canary health check;
   * KV events on `kv_events.{ns}.{comp}` (router/events.py), netted by the
@@ -27,10 +29,12 @@ from __future__ import annotations
 
 import asyncio
 import logging
+import os
 import time
 from typing import Optional
 
 from ..device import DeviceLike
+from ..models.loader import load_chat_template
 from ..protocols import (
     CANARY_GENERATE_PAYLOAD,
     ModelDeploymentCard,
@@ -57,12 +61,23 @@ class TorchEngineWorker:
                  tokenizer_cfg: Optional[dict] = None,
                  params=None, device: DeviceLike = "cuda"):
         """`params`: the port's parameter tree on `device`, or None for
-        random weights from config.seed (TorchEngine)."""
+        the checkpoint at config.model_path, else random weights from
+        config.seed (TorchEngine)."""
         self.runtime = runtime
         self.config = config
         self.namespace = namespace
         self.component = component
         self.migration_limit = migration_limit
+        self._chat_template: Optional[str] = None
+        if tokenizer_cfg is None and config.model_path:
+            eos_ids = config.resolve_eos_ids()
+            # the tokenizer ships inline: a worker-local path would not
+            # resolve on a frontend's host
+            with open(os.path.join(config.model_path,
+                                   "tokenizer.json")) as f:
+                tokenizer_cfg = {"type": "hf", "json": f.read(),
+                                 "eos_id": eos_ids[0] if eos_ids else None}
+            self._chat_template = load_chat_template(config.model_path)
         self.tokenizer_cfg = tokenizer_cfg or {
             "type": "mock", "vocab_size": config.resolve_model().vocab_size}
         self.device = device
@@ -83,6 +98,7 @@ class TorchEngineWorker:
             component=self.component,
             endpoint="generate",
             tokenizer=self.tokenizer_cfg,
+            chat_template=self._chat_template,
             context_length=min(m.max_context, self.config.max_context),
             kv_cache_block_size=self.config.block_size,
             migration_limit=self.migration_limit,
@@ -105,6 +121,8 @@ class TorchEngineWorker:
                 "packed_attn_impl": (
                     eng.model_cfg.packed_attn_impl if eng is not None
                     else (self.config.packed_attn_impl or "auto")),
+                # the effective mode: the port has no family that falls
+                # back to "off", as JAX's MLA does
                 "sampling_epilogue": self.config.sampling_epilogue,
                 "overlap_scheduling": self.config.overlap_scheduling,
             },

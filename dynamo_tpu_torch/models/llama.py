@@ -15,7 +15,7 @@ The KV cache is a (k, v) tuple in the port's layout
 [L, nkv, num_blocks, block_size, hd], or (k, v, k_scale, v_scale) for an
 int8 cache (quant/kv.py), and is updated IN PLACE: the functions still
 return it, so call sites read like the JAX ones.
-The MoE paths are not ported yet and raise.
+The MoE paths are not ported yet and raise (ROADMAP.md Queue 1 item 9).
 """
 
 from __future__ import annotations
@@ -67,7 +67,8 @@ class LlamaConfig:
     def __post_init__(self):
         if self.n_experts > 0:
             raise NotImplementedError(
-                "MoE (n_experts > 0) is not ported to dynamo_tpu_torch yet")
+                "MoE (n_experts > 0) is not ported to dynamo_tpu_torch yet "
+                "(ROADMAP.md Queue 1 item 9: MoE and MLA)")
 
     @property
     def q_dim(self) -> int:
@@ -224,11 +225,19 @@ def _mlp(layer, x: torch.Tensor) -> torch.Tensor:
             * (x @ layer["w_up"])) @ layer["w_down"]
 
 
-def _logits(params, cfg: LlamaConfig, x: torch.Tensor) -> torch.Tensor:
-    x = rms_norm(x, params["final_norm"]["norm"], cfg.rms_eps)
+def unembed_weight(params, cfg: LlamaConfig) -> torch.Tensor:
+    """The [d, vocab] final-projection matrix (embedding.T when tied)."""
     if cfg.tie_embeddings:
-        return (x @ params["embedding"].T).float()
-    return (x @ params["lm_head"]).float()
+        return params["embedding"].T
+    return params["lm_head"]
+
+
+def _final_norm(params, cfg: LlamaConfig, x: torch.Tensor) -> torch.Tensor:
+    return rms_norm(x, params["final_norm"]["norm"], cfg.rms_eps)
+
+
+def _logits(params, cfg: LlamaConfig, x: torch.Tensor) -> torch.Tensor:
+    return (_final_norm(params, cfg, x) @ unembed_weight(params, cfg)).float()
 
 
 # ---------------------------------------------------------------------------
@@ -333,12 +342,61 @@ def decode_multi(
         def sample_fn(logits, _):
             return torch.argmax(logits, dim=-1).to(torch.int32)
 
+    return _burst(decode, params, cfg, kv_cache, token_ids, positions,
+                  block_tables, ctx_lens, num_steps, sample_fn, valid)
+
+
+def decode_hidden(
+    params: Params,
+    cfg: LlamaConfig,
+    kv_cache: KVCache,
+    token_ids: torch.Tensor,     # [B] int32
+    positions: torch.Tensor,     # [B] int32
+    block_tables: torch.Tensor,  # [B, max_blocks] int32
+    ctx_lens: torch.Tensor,      # [B] int32
+    valid: Optional[torch.Tensor] = None,
+):
+    """decode minus the final projection: returns (final-norm hidden
+    [B, d] in cfg.dtype, kv_cache updated in place).  The fused sampling
+    epilogue (ops/fused_sampling.py) contracts it with unembed_weight tile
+    by tile; `_logits` is `(this hidden @ unembed_weight).float()`."""
+    x = _decode_trunk(params, cfg, kv_cache, token_ids, positions,
+                      block_tables, ctx_lens)
+    return _final_norm(params, cfg, x), kv_cache
+
+
+def decode_multi_hidden(
+    params: Params,
+    cfg: LlamaConfig,
+    kv_cache: KVCache,
+    token_ids: torch.Tensor,     # [B] int32
+    positions: torch.Tensor,     # [B] int32
+    block_tables: torch.Tensor,  # [B, max_blocks] int32
+    ctx_lens: torch.Tensor,      # [B] int32
+    num_steps: int,
+    sample_fn,                   # (hidden [B, d], step_idx) -> tokens [B]
+    valid: Optional[torch.Tensor] = None,
+):
+    """decode_multi with the fused sampling epilogue: each step hands
+    `sample_fn` the final-norm hidden state instead of logits, so no
+    [B, vocab] tensor exists in the burst.  Same chaining and position
+    bookkeeping as decode_multi.  Returns (tokens [num_steps, B] int32,
+    kv_cache updated in place)."""
+    return _burst(decode_hidden, params, cfg, kv_cache, token_ids,
+                  positions, block_tables, ctx_lens, num_steps, sample_fn,
+                  valid)
+
+
+def _burst(step_fn, params, cfg: LlamaConfig, kv_cache: KVCache, token_ids,
+           positions, block_tables, ctx_lens, num_steps: int, sample_fn,
+           valid):
+    """`num_steps` steps of `step_fn` (decode or decode_hidden), each
+    step's tokens (sample_fn of its output) the next step's input."""
     toks = []
     for step in range(num_steps):
-        logits, kv_cache = decode(params, cfg, kv_cache, token_ids,
-                                  positions, block_tables, ctx_lens,
-                                  valid=valid)
-        token_ids = sample_fn(logits, step).to(torch.int32)
+        out, kv_cache = step_fn(params, cfg, kv_cache, token_ids, positions,
+                                block_tables, ctx_lens, valid=valid)
+        token_ids = sample_fn(out, step).to(torch.int32)
         toks.append(token_ids)
         positions = positions + 1
         ctx_lens = ctx_lens + 1

@@ -1,12 +1,15 @@
 """The port's boundaries: what it imports, where it runs, what it refuses.
 
 * No module of dynamo_tpu_torch and no line of chip_smoke.py imports
-  jax, dynamo_tpu or ml_dtypes (an AST scan), and importing the whole
-  package in a fresh interpreter loads none of them.
+  jax, dynamo_tpu, ml_dtypes, safetensors or transformers (an AST scan),
+  and importing the whole package in a fresh interpreter loads none of
+  them (a GPU host need have none of them).
 * Entry points default to CUDA and raise on a machine without it; they
   never fall back to the CPU.  chip_smoke.py fails without CUDA and
   without the rest of the repository, printing no result.
-* A config field of a JAX-engine feature the port lacks raises when set.
+* A config field of a JAX-engine feature the port lacks raises when set;
+  the fields of ported features take their values, and reject invalid
+  ones with the JAX engine's error.
 """
 
 import ast
@@ -28,7 +31,11 @@ from dynamo_tpu_torch.models.llama import PRESETS
 
 REPO = Path(__file__).resolve().parent.parent
 PKG = REPO / "dynamo_tpu_torch"
-FORBIDDEN = ("jax", "jaxlib", "dynamo_tpu", "ml_dtypes")
+FORBIDDEN = ("jax", "jaxlib", "dynamo_tpu", "ml_dtypes", "safetensors",
+             "transformers")
+# modules the import checks must reach (a later slice's additions)
+REQUIRED = ("models/loader.py", "models/weight_cache.py",
+            "engine/loader_cache.py", "ops/fused_sampling.py")
 
 
 def _package_modules():
@@ -55,6 +62,7 @@ def _imported_roots(path: Path):
 def test_no_port_module_imports_jax_or_the_jax_package():
     sources = _port_sources()
     assert len(sources) > 15
+    assert {str(p.relative_to(PKG)) for p in sources[:-1]} >= set(REQUIRED)
     bad = [f"{p.relative_to(REPO)}:{line} imports {root}"
            for p in sources for root, line in _imported_roots(p)
            if root in FORBIDDEN]
@@ -123,6 +131,40 @@ def test_unported_config_field_raises(field):
     with pytest.raises(NotImplementedError, match=field):
         EngineConfig(**{field: value})
     EngineConfig(**{field: _UNPORTED[field][0]})  # the default is fine
+
+
+@pytest.mark.parametrize("field", ["model_path", "sampling_epilogue"])
+def test_ported_config_field_accepted(field, tmp_path):
+    """Fields that left _UNPORTED when their features were ported take a
+    valid value; sampling_epilogue rejects others with the JAX engine's
+    ValueError."""
+    assert field not in _UNPORTED
+    if field == "sampling_epilogue":
+        for mode in ("off", "fused"):
+            assert EngineConfig(sampling_epilogue=mode).sampling_epilogue \
+                == mode
+        from dynamo_tpu.engine import EngineConfig as JaxEngineConfig
+        from dynamo_tpu.engine import JaxEngine
+
+        with pytest.raises(ValueError) as want:
+            JaxEngine(JaxEngineConfig(model="tiny",
+                                      sampling_epilogue="pallas"))
+        with pytest.raises(ValueError) as got:
+            EngineConfig(sampling_epilogue="pallas")
+        assert str(got.value) == str(want.value)
+        return
+    from test_torch_loader import write_checkpoint
+
+    path = write_checkpoint(tmp_path / "tiny-ck", "qwen3")
+    cfg = EngineConfig(model_path=path)
+    m = cfg.resolve_model()
+    assert (m.name, m.qk_norm, m.d_model, m.dtype) == (
+        "tiny-ck", True, 64, torch.bfloat16)
+    assert cfg.served_name == "tiny-ck"
+    assert cfg.resolve_eos_ids() == (2, 7)
+    # the engine's attention-impl overrides apply to a checkpoint's config
+    assert EngineConfig(model_path=path,
+                        attn_impl="torch").resolve_model().attn_impl == "torch"
 
 
 def test_unknown_attention_impl_raises():

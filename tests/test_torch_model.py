@@ -318,3 +318,106 @@ def test_moe_and_unknown_impls_raise():
     with pytest.raises(ValueError):
         tl.decode(params, bad, kv, one, one,
                   torch.ones(1, 1, dtype=torch.int32), one)
+
+
+@pytest.mark.parametrize("tied", [False, True], ids=["untied", "tied"])
+def test_decode_hidden_and_unembed_match_jax(tied):
+    """decode_hidden returns the final-norm hidden state JAX's returns,
+    unembed_weight the same [d, vocab] matrix (embedding.T when tied),
+    and their product is decode's logits: the operands of the fused
+    epilogue."""
+    jcfg, tcfg, tol = CONFIGS["fp32"]
+    jcfg = jl.LlamaConfig(**{**jcfg.__dict__, "tie_embeddings": tied})
+    tcfg = tl.LlamaConfig(**{**tcfg.__dict__, "tie_embeddings": tied})
+    bs, nb = 4, 8
+    jparams = jl.init_params(jcfg, jax.random.PRNGKey(4))
+    tparams = params_from_numpy(_numpy_tree(jparams), tcfg, device="cpu")
+    assert ("lm_head" in tparams) is not tied
+    toks, pos, seg, valid, tables, last, dec = _packed_inputs(bs)
+    jkv, tkv = _int8_or_float_caches(jcfg, tcfg, nb, bs, False)
+    _, jkv = jl.prefill_packed(
+        jparams, jcfg, jkv, jnp.asarray(toks), jnp.asarray(pos),
+        jnp.asarray(seg), jnp.asarray(tables), jnp.asarray(last),
+        jnp.asarray(valid))
+    tl.prefill_packed(tparams, tcfg, tkv, *(torch.from_numpy(a) for a in (
+        toks, pos, seg, tables, last, valid)))
+    jh, _ = jl.decode_hidden(
+        jparams, jcfg, jkv, jnp.asarray(dec["tokens"]),
+        jnp.asarray(dec["positions"]), jnp.asarray(tables),
+        jnp.asarray(dec["ctx"]))
+    args = (torch.from_numpy(dec["tokens"]),
+            torch.from_numpy(dec["positions"]), torch.from_numpy(tables),
+            torch.from_numpy(dec["ctx"]))
+    kv0 = tuple(t.clone() for t in tkv)
+    th, _ = tl.decode_hidden(tparams, tcfg, tkv, *args)
+    np.testing.assert_allclose(th.numpy(), np.asarray(jh), **tol)
+    uw = tl.unembed_weight(tparams, tcfg)
+    np.testing.assert_array_equal(
+        uw.numpy(), np.asarray(jl.unembed_weight(jparams, jcfg)))
+    logits, _ = tl.decode(tparams, tcfg, kv0, *args)
+    np.testing.assert_array_equal((th @ uw).float().numpy(), logits.numpy())
+
+
+@pytest.mark.parametrize("sampled", [False, True],
+                         ids=["argmax", "sampled"])
+def test_decode_multi_hidden_with_fused_epilogue_matches_jax(sampled):
+    """A 5-step burst through decode_multi_hidden with each package's
+    fused epilogue (ops/fused_sampling.py, tile 64 over the 256-token
+    vocab: four tiles) gives JAX's tokens, and the port's decode_multi
+    with the plain sampler gives the same."""
+    from dynamo_tpu.ops import fused_sampling as jf
+    from dynamo_tpu_torch.engine.sampler import sample_tokens
+    from dynamo_tpu_torch.ops import fused_sampling as tf
+
+    jcfg, tcfg, _ = CONFIGS["fp32"]
+    bs, nb, k = 4, 8, 5
+    jparams = jl.init_params(jcfg, jax.random.PRNGKey(3))
+    tparams = params_from_numpy(_numpy_tree(jparams), tcfg, device="cpu")
+    toks, pos, seg, valid, tables, last, _ = _packed_inputs(bs)
+    jkv, tkv = _int8_or_float_caches(jcfg, tcfg, nb, bs, False)
+    _, jkv = jl.prefill_packed(
+        jparams, jcfg, jkv, jnp.asarray(toks), jnp.asarray(pos),
+        jnp.asarray(seg), jnp.asarray(tables), jnp.asarray(last),
+        jnp.asarray(valid))
+    tl.prefill_packed(tparams, tcfg, tkv, *(torch.from_numpy(a) for a in (
+        toks, pos, seg, tables, last, valid)))
+    kv_off = tuple(t.clone() for t in tkv)
+    lanes = dict(tokens=np.int32([17, 23]), positions=np.int32([7, 5]),
+                 ctx=np.int32([7, 5]),
+                 tables=np.int32([[1, 2, 3, 0], [4, 5, 6, 0]]))
+    samp = dict(seeds=np.int32([3, 99]), steps=np.int32([1, 1]),
+                temps=np.float32([0.9, 1.2] if sampled else [0.0, 0.0]),
+                top_ks=np.int32([0, 8]), top_ps=np.float32([0.95, 1.0]))
+    js = {n: jnp.asarray(v) for n, v in samp.items()}
+    ts = {n: torch.from_numpy(v) for n, v in samp.items()}
+    juw = jl.unembed_weight(jparams, jcfg)
+    tuw = tl.unembed_weight(tparams, tcfg)
+
+    def jfn(h, i):
+        if not sampled:
+            return jf.fused_greedy_tokens(h, juw, tile=64)
+        return jf.fused_sample_tokens(h, juw, js["seeds"], js["steps"] + i,
+                                      js["temps"], js["top_ks"],
+                                      js["top_ps"], tile=64)
+
+    def tfn(h, i):
+        if not sampled:
+            return tf.fused_greedy_tokens(h, tuw, tile=64)
+        return tf.fused_sample_tokens(h, tuw, ts["seeds"], ts["steps"] + i,
+                                      ts["temps"], ts["top_ks"],
+                                      ts["top_ps"], tile=64)
+
+    def tref(logits, i):
+        return sample_tokens(logits, ts["seeds"], ts["steps"] + i,
+                             ts["temps"], ts["top_ks"], ts["top_ps"])
+
+    jtoks, _ = jl.decode_multi_hidden(
+        jparams, jcfg, jkv, *(jnp.asarray(lanes[n]) for n in (
+            "tokens", "positions", "tables", "ctx")), k, jfn)
+    targs = [torch.from_numpy(lanes[n]) for n in ("tokens", "positions",
+                                                  "tables", "ctx")]
+    ttoks, _ = tl.decode_multi_hidden(tparams, tcfg, tkv, *targs, k, tfn)
+    off, _ = tl.decode_multi(tparams, tcfg, kv_off, *targs, k, tref)
+    assert ttoks.shape == (k, 2) and ttoks.dtype == torch.int32
+    np.testing.assert_array_equal(ttoks.numpy(), np.asarray(jtoks))
+    np.testing.assert_array_equal(ttoks.numpy(), off.numpy())

@@ -13,7 +13,9 @@
   (`graphs.counts`, the counterpart of compile_watch.counts).
 * The overlapped port's netted KV events and FPM records equal the
   overlapped JaxEngine's (tests/test_torch_worker.py holds the lockstep
-  ones).
+  ones); each request is sent once the engines are idle (_drive).
+* With sampling_epilogue="fused" the streams equal the fused JaxEngine's
+  and the port's own "off" streams, and serving builds no program.
 """
 
 import asyncio
@@ -307,6 +309,29 @@ async def test_serving_steady_state_builds_no_program():
     assert eng.graphs.counts == want
     # bursts that needed no new block re-used the device descriptor
     assert eng.metrics["cont_bursts"] > 0
+
+
+async def test_fused_epilogue_streams_match_jax_and_off():
+    """sampling_epilogue="fused": under staggered arrivals the port's
+    default engine streams, greedy and seeded, what the fused JaxEngine
+    streams and what the port streams with "off"; warm-up builds every
+    (greedy, k) program, each with the epilogue, and serving builds
+    none."""
+    te = torch_engine(sampling_epilogue="fused")
+    assert te.graphs.epilogue
+    await asyncio.to_thread(te.warmup_decode)
+    want = {(g, k): 1 for g in (True, False) for k in (1, 4, 8)}
+    assert te.graphs.counts == want
+    fused = await _staggered(te, False, "f", n_tokens=20, sampled=True)
+    assert te.graphs.counts == want
+    assert te.metrics["decode_bursts"] < te.metrics["decode_steps"]
+    jres = await _staggered(jax_engine(sampling_epilogue="fused"), True,
+                            "j", n_tokens=20, sampled=True)
+    off = await _staggered(torch_engine(), False, "o", n_tokens=20,
+                           sampled=True)
+    assert fused == jres
+    assert fused == off
+    assert all(len(t) == 20 for t in fused)
 
 
 async def test_overlapped_kv_events_match_overlapped_jax_engine():

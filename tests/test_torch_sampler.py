@@ -139,3 +139,43 @@ def test_mixed_batch_greedy_rows_and_seeded_draws():
     for row in a:
         assert row[0] == argmax[0] and row[2] == argmax[2]
     assert len({row[1] for row in a}) > 1
+
+
+def test_seeded_draws_equal_jax_on_tied_logits():
+    """Logits rounded to one decimal tie everywhere, 80 of them at the
+    maximum: the window cuts through ties at its CAP edge and holds equal
+    values inside.  `lax.top_k` orders equal values by ascending id and
+    the draw indexes its noise by window position, so the port's window
+    must order them the same (order_keys) to draw JAX's tokens; a window
+    in torch.topk's order drew other tokens."""
+    rng = np.random.default_rng(0)
+    logits = np.round(rng.standard_normal((8, 300)), 1).astype(np.float32)
+    logits[:, rng.permutation(300)[:80]] = 5.0
+    args = (logits, np.arange(8, dtype=np.int32) + 3, np.ones(8, np.int32),
+            np.full(8, 0.7, np.float32), np.int32([0, 0, 5, 70, 64, 0, 3, 0]),
+            np.float32([1.0, 0.9, 1.0, 1.0, 0.99, 0.5, 1.0, 1.0]))
+    got = sample_tokens(*(torch.from_numpy(a) for a in args)).numpy()
+    want = np.asarray(jax_sample(*(jnp.asarray(a) for a in args)))
+    np.testing.assert_array_equal(got, want)
+    ids, _ = candidate_window(torch.from_numpy(logits), torch.ones(8),
+                              torch.zeros(8, dtype=torch.int32),
+                              torch.ones(8))
+    _, jids = jax.lax.top_k(jnp.asarray(logits), CAP)
+    np.testing.assert_array_equal(ids.numpy(), np.asarray(jids))
+
+
+def test_apply_penalties_matches_jax():
+    from dynamo_tpu.engine.sampler import apply_penalties as jax_penalties
+    from dynamo_tpu_torch.engine.sampler import apply_penalties
+
+    rng = np.random.default_rng(2)
+    logits = rng.standard_normal((3, 50)).astype(np.float32)
+    counts = rng.integers(0, 3, (3, 50)).astype(np.int32)
+    freq = np.float32([0.0, 0.5, -0.3])
+    pres = np.float32([1.0, 0.0, 0.25])
+    got = apply_penalties(*(torch.from_numpy(a)
+                            for a in (logits, counts, freq, pres)))
+    want = jax_penalties(*(jnp.asarray(a)
+                           for a in (logits, counts, freq, pres)))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-6,
+                               atol=1e-6)

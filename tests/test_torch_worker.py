@@ -12,10 +12,14 @@
   zmq event plane: greedy /v1/completions give the same token ids from
   both, the frontend's KV indexer scores the torch worker's blocks, and
   load_metrics, FPM records and kv_events_replay answer.
+* A worker serving a checkpoint (model_path) publishes the JAX worker's
+  MDC: the inline "hf" tokenizer, the chat template, the effective
+  sampling_epilogue.
 * Drain: in-flight requests finish, new ones get the migratable marker,
   the rest are aborted with it at the deadline.
 * `python -m dynamo_tpu_torch.engine --device cpu` registers, and SIGTERM
-  deregisters it; without CUDA and without --device it exits non-zero.
+  deregisters it; without CUDA and without --device it exits non-zero;
+  its --model-path and --sampling-epilogue are the JAX CLI's.
 """
 
 import asyncio
@@ -144,12 +148,29 @@ def _req(jax_side, tokens, rid, n):
              stop=T(max_tokens=n, ignore_eos=True))
 
 
+async def _idle(eng, timeout_s: float = 30.0):
+    """Wait until `eng` holds no request, no unread burst and no deferred
+    first token, and no scheduler step is running.  A stream ends while
+    the step that read its finish is still running: in overlap mode that
+    step goes on to the adaptive-fusion clock (`_fused_k`), which resets
+    its ramp if the next request is already waiting.  Both engines do so,
+    so the next arrival waits for this state, not for the stream's end."""
+    deadline = time.monotonic() + timeout_s
+    while (eng.waiting or eng._inflight or eng._pending_first
+           or any(s is not None for s in eng._slots)
+           or eng._step_lock.locked()):
+        assert time.monotonic() < deadline, "the engine did not go idle"
+        await asyncio.sleep(0.002)
+
+
 async def _drive(eng, jax_side, events):
-    """The scenario, one request at a time: returns greedy streams; KV
-    event batches land in `events` through the engine's sink."""
+    """The scenario, one request at a time, each sent once the engine is
+    idle (_idle): returns greedy streams; KV event batches land in
+    `events` through the engine's sink."""
     out = []
 
     async def run(tokens, rid, n):
+        await _idle(eng)
         toks = []
         async for o in eng.generate(_req(jax_side, tokens, rid, n)):
             toks.extend(o.token_ids)
@@ -362,6 +383,47 @@ async def test_jax_frontend_serves_torch_worker_like_jax_worker(tmp_path):
 
 
 # ---------------------------------------------------------------------------
+# a worker serving a checkpoint
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("epilogue", ["off", "fused"])
+async def test_checkpoint_worker_publishes_the_jax_workers_mdc(
+        epilogue, tmp_path, monkeypatch):
+    """With a model_path the worker ships the checkpoint's tokenizer.json
+    inline as the "hf" tokenizer with its first eos id, and its chat
+    template: the published MDC equals the JAX worker's card for the same
+    config, the effective sampling_epilogue included."""
+    from dynamo_tpu.engine.worker import JaxEngineWorker
+    from test_torch_loader import write_checkpoint
+
+    monkeypatch.setenv("DYN_WEIGHT_CACHE_DIR", str(tmp_path / "wcache"))
+    path = write_checkpoint(tmp_path / "tiny-ck", "qwen3")
+    kw = dict(model_path=path, sampling_epilogue=epilogue, block_size=4,
+              num_blocks=32, max_blocks_per_seq=8, max_num_seqs=2,
+              prefill_buckets=(8, 16))
+    want = JaxEngineWorker(None, JaxEngineConfig(**kw)).card.to_dict()
+    rt = await DistributedRuntime(config=RuntimeConfig(
+        discovery_backend="mem", event_plane="inproc"),
+        cluster_id=uuid.uuid4().hex).start()
+    w = await TorchEngineWorker(rt, EngineConfig(**kw), device="cpu").start()
+    try:
+        published = await rt.discovery.get_prefix(
+            w.card.key(w.served.instance_id))
+        assert list(published.values()) == [want]
+        with open(os.path.join(path, "tokenizer.json")) as f:
+            assert want["tokenizer"] == {"type": "hf", "json": f.read(),
+                                         "eos_id": 2}
+        assert want["chat_template"].startswith("{% for m in messages %}")
+        assert want["name"] == "tiny-ck"
+        assert want["runtime_config"]["sampling_epilogue"] == epilogue
+        assert w.engine.graphs.epilogue is (epilogue == "fused")
+    finally:
+        await w.close()
+        await rt.shutdown()
+
+
+# ---------------------------------------------------------------------------
 # drain
 # ---------------------------------------------------------------------------
 
@@ -520,6 +582,24 @@ def test_engine_cli_scheduler_flags():
     cfg = engine_config(build_args().parse_args(
         ["--no-overlap-scheduling", "--no-adaptive-fusion"]))
     assert not cfg.overlap_scheduling and not cfg.decode_fuse_adaptive
+
+
+def test_engine_cli_model_path_and_epilogue_flags():
+    """--model-path and --sampling-epilogue, with the JAX CLI's names,
+    defaults and choices."""
+    from dynamo_tpu.engine.__main__ import build_args as jax_args
+    from dynamo_tpu_torch.engine.__main__ import build_args, engine_config
+
+    for argv in ([], ["--model-path", "/ck", "--sampling-epilogue",
+                      "fused"]):
+        args = build_args().parse_args(argv)
+        jargs = jax_args().parse_args(argv)
+        assert (args.model_path, args.sampling_epilogue) == (
+            jargs.model_path, jargs.sampling_epilogue)
+    cfg = engine_config(args)
+    assert (cfg.model_path, cfg.sampling_epilogue) == ("/ck", "fused")
+    with pytest.raises(SystemExit):
+        build_args().parse_args(["--sampling-epilogue", "pallas"])
 
 
 def test_engine_cli_without_cuda_exits_nonzero():
