@@ -11,6 +11,9 @@
     python3 chip_smoke.py --fused-ab      # the sampling epilogue off
                                           # against fused
     python3 chip_smoke.py --checkpoint    # the loaded-checkpoint phase
+    python3 chip_smoke.py --prefill-ab    # eager packed prefill against
+                                          # one CUDA graph per bucket
+    python3 chip_smoke.py --disagg        # the disaggregated pair
 
 Builds the port's CUDA kernels from csrc/ (three nvcc processes started
 together), holds each entry point (K1 and K3, each in its bf16 and its
@@ -25,16 +28,19 @@ JAX engine's default scheduler (overlapped, decode bursts fused up to 8
 steps and replayed from CUDA graphs that warm-up captures), first on a
 bf16 KV cache and then, with the same weights, on an int8 KV cache sized
 by a memory budget (`kv_cache_dtype="int8"`, `kv_hbm_gb`), and checks
-the streams, that every decode program was captured once and never
-again while serving, and that a replayed burst equals the same burst run
-eagerly.  After the bf16 engine run, the same requests go through a
+the streams, that every decode program and every packed-prefill
+bucket's program was captured once and never again while serving, that
+a replayed burst equals the same burst run eagerly, and that a replayed
+prefill bucket's first tokens and logits are bit-equal to its eager
+body's (a full 2048-token bucket, and a 32-token one with padded rows).  After the bf16 engine run, the same requests go through a
 `TorchEngineWorker` with the same config and weights, over the port's
 runtime (mem discovery, in-process event plane, TCP request plane on
 127.0.0.1), and the worker's contract is checked: streams, KV events,
 load metrics, FPM records, the MDC, clear_kv_blocks, cancellation and
-close; then the decode A/B and the fused A/B (below) run; after the int8
-run, one request goes through a worker on the int8 cache (its launches
-and the dtype it reports).  Last, a HF-format Llama checkpoint at
+close; then the decode A/B, the fused A/B and the prefill A/B (below)
+run; after the int8 run, one request goes through a worker on the int8
+cache (its launches and the dtype it reports), then the disagg phase
+(below).  Last, a HF-format Llama checkpoint at
 llama-8b width, depth cut to 4 layers (about 3.9 GB of bf16), is written
 to a temporary directory with the standard library and served through
 the port's own safetensors loader and weight cache (below).  Any failed
@@ -44,8 +50,10 @@ JAX or of the JAX package.
 Output: one line per phase; a `{"kernels": [...]}` JSON line with each
 kernel's launches on the main path (`launches` in the engine run, or the
 microbench's own run for K4, `worker_launches` in the worker run; a
-replay of a captured decode program adds the K1 launches its capture
-recorded; `checkpoint_launches` in the loaded checkpoint's run), error
+replay of a captured program adds the K1/K3 launches its capture
+recorded; `checkpoint_launches` in the loaded checkpoint's run;
+`disagg_prefill_launches` and `disagg_decode_launches`, the disagg
+pair's prefill and decode workers' in its main run), error
 against its plain version (`max_abs_err`, and
 `max_rel_err`, the figure the tolerance holds), its device time (`ms`,
 by CUDA-graph replay for K1/K3; K3's with its tile plan computed
@@ -91,6 +99,28 @@ per decode token, per turn TTFT, decode tokens/s and the decode gap per
 token, and the epilogue's bound.  Greedy streams must be equal, except
 where they part at a near-tie: the off logits' top-2 gap at that token
 (recomputed) within the largest tile-vs-full logit difference measured.
+
+The prefill A/B (part of the whole check; alone with --prefill-ab)
+serves the five requests on a bf16 cache by two default engines with
+the same weights, packed prefill eager (TorchEngine(prefill_graphs=
+False)) and on graphs, in turns (eager, graph, graph, eager; two
+rounds): TTFT per request, the time from a warm run's start to its first
+prefill record, the host time to dispatch one prefill, decode tokens/s,
+and device operations per prefill token; streams must be equal.
+
+The disagg phase (part of the whole check; alone with --disagg): a
+prefill and a decode TorchEngineWorker (role "prefill" and "decode") in
+one process at llama-8b width and depth, one set of weights, routed by
+hand as the JAX frontend's PrefillOrchestrator routes; per tier (the
+in-process broker, and host-staged frames over the request plane with
+the broker lookup off) the five requests one at a time, whose streams
+must equal an aggregated TorchEngine's (a parting only at a near-tie),
+with no prefill on the decode worker, exactly the expected blocks
+pulled, no parked KV left and one request's injected blocks bit-equal
+to the sender's; then the five at once (TTFT through the pair against
+the aggregated engine's), pull GB/s per tier, the host chunk bound, and
+gather/inject GB/s against their byte bound; then one request through
+an int8 pair against an aggregated int8 engine.
 
 The checkpoint phase (alone with --checkpoint): the synthesized
 checkpoint (two shards, config.json, tokenizer.json, a chat template)
@@ -982,6 +1012,23 @@ def _log_programs(engine, what: str) -> dict:
     return dict(g.counts)
 
 
+def _log_prefill_programs(engine, what: str) -> dict:
+    """Log the engine's packed-prefill programs after warm-up (one per
+    bucket of the planner's ladder: the seven prefill_buckets of the
+    default config): builds, capture seconds, graph pool bytes; exit
+    unless every bucket was built exactly once."""
+    g = engine.prefill_graphs
+    want = {T: 1 for T in engine.config.prefill_buckets}
+    log(f"{what}: prefill programs built {sorted(g.counts.items())}; "
+        f"capture s " + ", ".join(f"T={T} {t:.2f}" for T, t in
+                                  sorted(g.capture_s.items()))
+        + f"; prefill graph pool {g.pool_bytes / 2**20:.0f} MiB")
+    if g.counts != want or g.buckets != tuple(want):
+        raise SystemExit(f"{what}: warm-up built prefill programs "
+                         f"{g.counts}, expected every bucket once: {want}")
+    return dict(g.counts)
+
+
 def check_engine(device, card: str, kv_dtype: str = "bf16", params=None):
     """Serve the five requests through TorchEngine at full width on a
     cache of `kv_dtype` with the JAX engine's default scheduler
@@ -1027,6 +1074,7 @@ def check_engine(device, card: str, kv_dtype: str = "bf16", params=None):
     engine.warmup_decode()
     log(f"engine ({kv_dtype}) warm-up in {time.perf_counter() - t0:.1f} s")
     built = _log_programs(engine, f"engine ({kv_dtype})")
+    pbuilt = _log_prefill_programs(engine, f"engine ({kv_dtype})")
     reqs = _requests(mc.vocab_size)
     gc.collect()  # not the earlier phases' garbage in this one's runs
     pauses: list = []
@@ -1075,10 +1123,14 @@ def check_engine(device, card: str, kv_dtype: str = "bf16", params=None):
            or len(r[0]) != 32]
     if bad:
         raise SystemExit(f"requests {bad} did not finish with 32 tokens")
-    if engine.graphs.counts != built:
+    if engine.graphs.counts != built \
+            or engine.prefill_graphs.counts != pbuilt:
         raise SystemExit(f"serving captured programs again: "
-                         f"{engine.graphs.counts} after warm-up {built}")
-    log(f"three serving runs captured nothing more: {engine.graphs.counts}")
+                         f"{engine.graphs.counts} after warm-up {built}; "
+                         f"prefill {engine.prefill_graphs.counts} after "
+                         f"{pbuilt}")
+    log(f"three serving runs captured nothing more: {engine.graphs.counts}, "
+        f"prefill {engine.prefill_graphs.counts}")
     L = mc.n_layers
     need_dec = L * stats["decode_steps"]
     need_pre = L * stats["prefill_steps"]
@@ -1128,6 +1180,7 @@ def check_engine(device, card: str, kv_dtype: str = "bf16", params=None):
         f"from their captures), the profiler saw {k1_seen} K1 kernels"
         + ("" if seen else " (no device time seen)"))
     check_graph_burst(engine, device, kv_dtype)
+    check_prefill_replay(engine, device, kv_dtype)
     ops = _compare_logits(engine.params, mc, device, kv_dtype)
     return ({fn.__name__: launches[fn.__name__] for fn in used}, engine, ops,
             direct)
@@ -1254,6 +1307,86 @@ def check_graph_burst(engine, device, kv_dtype: str) -> dict:
             "ops_per_token": ops / tokens}
 
 
+def _prefill_descriptor(engine, T: int, rows, seed: int) -> dict:
+    """Bucket T's host descriptor for `rows`: (stream offset, tokens,
+    first position, block ids) per segment row, random prompt tokens;
+    the rows after them stay padding.  Row 1, where there is one, is
+    sampled (seed 1234, T 0.8, top-p 0.9)."""
+    g = engine.prefill_graphs
+    a = g.host_descriptor(T)
+    rng = np.random.default_rng(seed)
+    for r, (off, n, start, blocks) in enumerate(rows):
+        a["toks"][off:off + n] = rng.integers(
+            0, engine.model_cfg.vocab_size, n)
+        a["positions"][off:off + n] = start + np.arange(n)
+        a["seg_ids"][off:off + n] = r
+        a["valid"][off:off + n] = True
+        a["tables"][r, :len(blocks)] = blocks
+        a["last_idx"][r] = off + n - 1
+    if len(rows) > 1:
+        a["seeds"][1], a["temps"][1], a["top_ps"][1] = 1234, 0.8, 0.9
+    return a
+
+
+# (bucket, rows) of check_prefill_replay: a full 2048-token bucket of two
+# prompts (1800 and 200 tokens, rows 2-3 padding), and a 32-token bucket
+# of one 20-token chunk after a 300-token prefix (rows 1-3 padding)
+PREFILL_REPLAY_CASES = (
+    (2048, ((0, 1800, 0, tuple(range(1, 16))), (1800, 200, 0, (16, 17)))),
+    (32, ((0, 20, 300, (20, 21, 22)),)),
+)
+
+
+def check_prefill_replay(engine, device, kv_dtype: str) -> dict:
+    """Each PREFILL_REPLAY_CASES bucket's replayed program against its
+    eager body on the same descriptor: the first tokens and the
+    last-position logits must be bit-equal (the K/V both write are the
+    same values).  Times the replay and the eager body (CUDA events,
+    5 calls each) and the host time to dispatch each.  Uses blocks 1-22
+    of the cache: run after serving."""
+    g = engine.prefill_graphs
+    out = {}
+    for T, rows in PREFILL_REPLAY_CASES:
+        a = _prefill_descriptor(engine, T, rows, seed=T)
+        g.upload(a)
+        eager = g.run_eager(T).clone()
+        eager_logits = g.logits[T].clone()
+        g.upload(a)
+        replay = g.run(T).clone()
+        torch.cuda.synchronize()
+        same = (torch.equal(replay, eager)
+                and torch.equal(g.logits[T], eager_logits))
+        times = {}
+        for path, fn in (("replay", lambda: g.run(T)),
+                         ("eager", lambda: g.run_eager(T))):
+            torch.cuda.synchronize()
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            t0 = time.perf_counter()
+            start.record()
+            for _ in range(5):
+                fn()
+            host = (time.perf_counter() - t0) / 5
+            end.record()
+            end.synchronize()
+            times[path] = (start.elapsed_time(end) / 5, host * 1e3)
+        n = sum(r[1] for r in rows)
+        log(f"prefill graph ({kv_dtype}), bucket T={T}, {len(rows)} of "
+            f"{g.rows} rows live ({n} tokens): replayed first tokens "
+            f"{replay[:len(rows)].tolist()} and logits bit-equal to the "
+            f"eager body: {same}; replay {times['replay'][0]:.3f} ms on the "
+            f"device, {times['replay'][1]:.3f} ms on the host to dispatch; "
+            f"eager body {times['eager'][0]:.3f} ms on the device, "
+            f"{times['eager'][1]:.3f} ms on the host")
+        if not same:
+            raise SystemExit(f"prefill graph T={T}: the replay differs from "
+                             f"the eager body: {replay.tolist()} against "
+                             f"{eager.tolist()}, logits max diff "
+                             f"{(g.logits[T] - eager_logits).abs().max()}")
+        out[T] = times
+    return out
+
+
 def _decode_rate(res) -> tuple:
     """(decode tokens after each request's first, seconds from the first
     first token to the last token) of a _serve-shaped result."""
@@ -1341,6 +1474,7 @@ async def _serving_worker(device, cfg, params):
         await worker.close()
         gone = not await rt.discovery.get_prefix(key)
         worker.engine.kv = worker.engine.graphs = None
+        worker.engine.prefill_graphs = None
         await rt.shutdown()
         log(f"worker close(): MDC gone from discovery: {gone}")
         if not gone:
@@ -1760,7 +1894,7 @@ def _replay_gap(params, cfg, device, prompt, stream, j: int) -> tuple:
     teacher-forced on a scratch cache: the prompt prefilled, then decode
     steps at B = 4 (lane 0 live, as served) fed stream[:j].  Returns (the
     gap between its top two logits, its top token, _tile_vs_full of that
-    step's hidden state)."""
+    step's hidden state, its top logit)."""
     from dynamo_tpu_torch.models import llama
 
     bs = 128
@@ -1789,7 +1923,8 @@ def _replay_gap(params, cfg, device, prompt, stream, j: int) -> tuple:
     full = (h @ llama.unembed_weight(params, cfg)).float()[0]
     top2 = torch.topk(full, 2)
     return ((top2.values[0] - top2.values[1]).item(),
-            int(top2.indices[0]), _tile_vs_full(params, cfg, h))
+            int(top2.indices[0]), _tile_vs_full(params, cfg, h),
+            top2.values[0].item())
 
 
 # the fused A/B's bound terms at llama-8b width, batch B = max_num_seqs
@@ -1904,8 +2039,8 @@ def fused_ab(device, card: str, params, rounds: int = 2) -> dict:
                  None)
         if j is None:
             continue
-        gap, top, d = _replay_gap(params, mc, device,
-                                  list(reqs[i].token_ids), off, j)
+        gap, top, d, _ = _replay_gap(params, mc, device,
+                                     list(reqs[i].token_ids), off, j)
         diff = max(diff, d)
         parted.append((i, j, gap))
         log(f"fused A/B: request {i}'s greedy streams part at token {j}: "
@@ -1943,6 +2078,637 @@ def fused_ab(device, card: str, params, rounds: int = 2) -> dict:
         del t["streams"]
     return {"turns": turns, "median": summary, "tile_vs_full": diff,
             "parted": parted}
+
+
+# ---------------------------------------------------------------------------
+# the prefill A/B: eager packed prefill against one CUDA graph per bucket
+# ---------------------------------------------------------------------------
+
+
+def _time_prefill_dispatches(engine, into: list) -> None:
+    """Wrap the engine's prefill programs so each dispatch appends its
+    host seconds (descriptor upload through the program's launch, eager
+    or replayed) to `into`."""
+    g = engine.prefill_graphs
+    upload, run = g.upload, g.run
+    t0 = []
+
+    def timed_upload(a):
+        t0.append(time.perf_counter())
+        return upload(a)
+
+    def timed_run(T):
+        out = run(T)
+        into.append(time.perf_counter() - t0.pop())
+        return out
+
+    g.upload, g.run = timed_upload, timed_run
+
+
+def _prefill_ops_per_token(engine) -> float:
+    """Device operations of the T = 2048 program's body (the first
+    PREFILL_REPLAY_CASES descriptor, 2000 live tokens) per live token: a
+    graph holds the same kernels."""
+    g = engine.prefill_graphs
+    T, rows = PREFILL_REPLAY_CASES[0]
+    g.upload(_prefill_descriptor(engine, T, rows, seed=T))
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[
+            torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        g.run_eager(T)
+        torch.cuda.synchronize()
+    ops = sum(1 for e in prof.events() if str(e.device_type).endswith("CUDA"))
+    return ops / sum(r[1] for r in rows)
+
+
+def prefill_ab(device, card: str, params, rounds: int = 2) -> dict:
+    """The five requests at llama-8b width on a bf16 cache, served in one
+    process by two default engines with the same weights and their own
+    caches: "eager" (packed prefill dispatched layer by layer from the
+    host, TorchEngine(prefill_graphs=False); decode on graphs) and
+    "graph" (one captured program per bucket), in turns (eager, graph,
+    graph, eager) `rounds` times after a warm-up run of each, each turn
+    from a cleared prefix cache after 1.1 s idle.  Logs per turn TTFT per
+    request, the time from the run's start to its first prefill record
+    (FPM), the median host time to dispatch one prefill and decode
+    tokens/s, and device operations per prefill token.  Exits unless
+    the graph engine's warm-up built every bucket once and serving none,
+    the eager engine captured nothing, and every stream is equal across
+    turns and paths (the replays are bit-equal to the eager bodies)."""
+    from dynamo_tpu_torch.engine import TorchEngine
+
+    cfg = _engine_config("bf16")
+    engines = {"eager": TorchEngine(dataclasses.replace(cfg), params=params,
+                                    device=device, prefill_graphs=False),
+               "graph": TorchEngine(dataclasses.replace(cfg), params=params,
+                                    device=device)}
+    for path, eng in engines.items():
+        t0 = time.perf_counter()
+        eng.warmup_decode()
+        log(f"prefill A/B, {path}: warm-up in {time.perf_counter() - t0:.1f}"
+            " s")
+    built = _log_prefill_programs(engines["graph"], "prefill A/B, graph")
+    if engines["eager"].prefill_graphs.capture_s:
+        raise SystemExit("prefill A/B: the eager engine captured a program")
+    ops = _prefill_ops_per_token(engines["graph"])
+    host = {p: [] for p in engines}
+    for path, eng in engines.items():
+        _time_prefill_dispatches(eng, host[path])
+    reqs = _requests(engines["graph"].model_cfg.vocab_size)
+    gc.collect()
+
+    async def run():
+        turns = []
+        try:
+            for eng in engines.values():  # warm-up
+                await _serve(eng, reqs)
+                await eng.clear_kv_blocks()
+            await asyncio.sleep(1.1)
+            for path in ["eager", "graph", "graph", "eager"] * rounds:
+                eng = engines[path]
+                n0 = len(host[path])
+                w0 = time.monotonic()
+                res = await _serve(eng, reqs)
+                w1 = time.monotonic()
+                await eng.clear_kv_blocks()
+                await asyncio.sleep(1.1)
+                bad = [i for i, r in enumerate(res)
+                       if r[1] != "length" or len(r[0]) != 32]
+                if bad:
+                    raise SystemExit(f"prefill A/B {path}: requests {bad} "
+                                     "did not finish with 32 tokens")
+                pre = [r["t"] for r in eng.fpm
+                       if r["kind"] == "prefill" and w0 <= r["t"] <= w1]
+                n, secs = _decode_rate(res)
+                mine = host[path][n0:]
+                turns.append({
+                    "path": path,
+                    "ttft_s": [round(r[2], 4) for r in res],
+                    "first_prefill_ms": round((min(pre) - w0) * 1e3, 2),
+                    "dispatch_host_ms": round(float(np.median(mine)) * 1e3,
+                                              3),
+                    "dispatches": len(mine),
+                    "decode_tok_s": round(n / secs, 2),
+                    "streams": [r[0] for r in res]})
+                log(f"prefill A/B turn {len(turns)} ({card}): "
+                    f"{ {k: v for k, v in turns[-1].items() if k != 'streams'} }")
+        finally:
+            for eng in engines.values():
+                await eng.close()
+        return turns
+
+    turns = asyncio.run(run())
+    if engines["graph"].prefill_graphs.counts != built:
+        raise SystemExit(f"prefill A/B: serving built prefill programs: "
+                         f"{engines['graph'].prefill_graphs.counts}")
+    ref = turns[0]["streams"]
+    if any(t["streams"] != ref for t in turns):
+        raise SystemExit("prefill A/B: streams differ between turns or "
+                         "paths")
+    summary = {}
+    for path in ("eager", "graph"):
+        mine = [t for t in turns if t["path"] == path]
+        med = {key: float(np.median([t[key] for t in mine]))
+               for key in ("first_prefill_ms", "dispatch_host_ms",
+                           "decode_tok_s")}
+        med["ttft_s"] = [float(np.median([t["ttft_s"][i] for t in mine]))
+                         for i in range(len(reqs))]
+        med["device_ops_per_prefill_token"] = ops
+        summary[path] = med
+        log(f"prefill A/B, {path}, median of {len(mine)} turns ({card}): "
+            f"{med}")
+    log(f"prefill A/B: graph against eager, first prefill record "
+        f"{summary['graph']['first_prefill_ms']:.2f} against "
+        f"{summary['eager']['first_prefill_ms']:.2f} ms after a run's "
+        f"start, host time a dispatch "
+        f"{summary['graph']['dispatch_host_ms']:.3f} against "
+        f"{summary['eager']['dispatch_host_ms']:.3f} ms; {ops:.3f} device "
+        f"operations per prefill token; streams equal across every turn of "
+        f"both paths")
+    for t in turns:
+        del t["streams"]
+    return {"turns": turns, "median": summary}
+
+
+# ---------------------------------------------------------------------------
+# disaggregated prefill/decode: two workers on one card
+# ---------------------------------------------------------------------------
+
+
+def _expected_pulls(reqs, bs: int) -> list:
+    """Blocks each request's pull moves when the five are served one at a
+    time from cleared prefix caches: its prompt's blocks less the leading
+    full blocks an earlier prompt committed on the decode side (admission
+    never reuses the block of the last prompt token)."""
+    from dynamo_tpu_torch.tokens import compute_block_hashes_for_request
+
+    seen, out = set(), []
+    for r in reqs:
+        hashes = compute_block_hashes_for_request(r.token_ids, bs)
+        cap = (len(r.token_ids) - 1) // bs
+        hit = 0
+        while hit < cap and hashes[hit] in seen:
+            hit += 1
+        out.append(-(-len(r.token_ids) // bs) - hit)
+        seen.update(hashes[:len(r.token_ids) // bs])
+    return out
+
+
+def _ulp_bf16(x: float) -> float:
+    return float(torch.finfo(torch.bfloat16).eps) * 2.0 ** np.floor(
+        np.log2(abs(x))) if x else 0.0
+
+
+async def _disagg_one(pclient, dclient, req, t0: float):
+    """One request through the pair: the prompt with DISAGG_ANNOTATION to
+    the prefill worker (one frame back: its first token and
+    kv_transfer_params), then the request with those params to the decode
+    worker.  Returns (tokens, finish, first token time, last token time,
+    the prefill hop's time), times after t0."""
+    from dynamo_tpu_torch.protocols import DISAGG_ANNOTATION
+
+    hop = dataclasses.replace(req, annotations=[DISAGG_ANNOTATION])
+    frames = [o async for o in pclient.generate(hop.to_dict())]
+    t_hop = time.perf_counter() - t0
+    if len(frames) != 1 or frames[0].get("finish_reason") != "stop" \
+            or not frames[0].get("kv_transfer_params"):
+        raise SystemExit(f"disagg: the prefill hop of {req.request_id} "
+                         f"answered {frames}")
+    dreq = dataclasses.replace(
+        req, disaggregated_params=frames[0]["kv_transfer_params"])
+    toks, finish, first = [], None, None
+    async for out in dclient.generate(dreq.to_dict()):
+        if out.get("token_ids") and first is None:
+            first = time.perf_counter() - t0
+        toks.extend(out.get("token_ids", []))
+        finish = out.get("finish_reason")
+    return toks, finish, first, time.perf_counter() - t0, t_hop
+
+
+def _watch_blocks(pw, dw, rid: str, sent: dict, landed: dict) -> None:
+    """Record request `rid`'s chunks as the prefill engine gathers them
+    and its blocks as the decode engine injected them (gathered back),
+    keyed by first block, for the bit-equality check."""
+    from dynamo_tpu_torch.ops.kv_transfer import gather_universal
+
+    extract, inject = (pw.engine.extract_parked_chunk,
+                       dw.engine._inject_pulled_chunk)
+
+    async def recorded_extract(request_id, start, count, **kw):
+        arrs = await extract(request_id, start, count, **kw)
+        if request_id == rid:
+            sent[start] = [a.clone() for a in arrs]
+        return arrs
+
+    def recorded_inject(slot, b0, n, arrs):
+        inject(slot, b0, n, arrs)
+        if slot.request.request_id == rid:
+            ids = dw.engine.allocator.seq_block_ids(rid)[b0:b0 + n]
+            landed[b0] = gather_universal(dw.engine.kv, ids)
+
+    pw.engine.extract_parked_chunk = recorded_extract
+    dw.engine._inject_pulled_chunk = recorded_inject
+
+
+def _same_blocks(sent: dict, landed: dict) -> bool:
+    return bool(sent) and sorted(sent) == sorted(landed) and all(
+        torch.equal(a.to(b.device).view(torch.uint8),
+                    b.view(torch.uint8))
+        for b0 in sent for a, b in zip(sent[b0], landed[b0]))
+
+
+def _transfer_bandwidth(engine, n_blocks: int, card: str) -> dict:
+    """gather_universal and inject_universal on `engine`'s cache, n_blocks
+    blocks (a broker chunk), CUDA events around 5 calls each: ms, the
+    byte bound (the payload read once and written once at 3.35 TB/s) and
+    GB/s of the bytes moved."""
+    from dynamo_tpu_torch.ops.kv_transfer import (
+        gather_universal,
+        inject_universal,
+    )
+
+    ids = torch.arange(1, 1 + n_blocks, device=engine.device)
+    dst = torch.arange(1 + n_blocks, 1 + 2 * n_blocks, device=engine.device)
+    arrs = gather_universal(engine.kv, ids)
+    payload = sum(a.numel() * a.element_size() for a in arrs)
+    out = {}
+    for name, fn in (("gather_universal",
+                      lambda: gather_universal(engine.kv, ids)),
+                     ("inject_universal",
+                      lambda: inject_universal(engine.kv, *arrs[:2], dst,
+                                               *arrs[2:]))):
+        ms = time_ms(fn, iters=5, warmup=2)
+        moved = 2 * payload
+        bound_ms = moved / HBM_BYTES_PER_S * 1e3
+        out[name] = {"ms": ms, "bound_ms": bound_ms,
+                     "gb_s": moved / ms / 1e6, "bytes": moved}
+        log(f"disagg: {name} of {n_blocks} blocks ({payload / 2**20:.0f} "
+            f"MiB payload, {moved / 2**20:.0f} MiB moved) {ms:.3f} ms = "
+            f"{moved / ms / 1e6:.1f} GB/s, {100 * bound_ms / ms:.1f}% of "
+            f"the {bound_ms:.3f} ms byte bound at 3.35 TB/s ({card})")
+    return out
+
+
+@contextlib.contextmanager
+def _broker_off(off: bool):
+    """The host-staged tier forced: the in-process broker finds no
+    engine (as tests/test_disagg.py's _forced_tier_roundtrip does)."""
+    from dynamo_tpu_torch.disagg import broker
+
+    orig = broker.lookup_engine
+    if off:
+        broker.lookup_engine = lambda _id: None
+    try:
+        yield
+    finally:
+        broker.lookup_engine = orig
+
+
+@contextlib.asynccontextmanager
+async def _disagg_pair(device, cfg, params, warmup: bool):
+    """A prefill TorchEngineWorker (role "prefill", component "prefill")
+    and a decode one (role "decode", component "backend") with config
+    `cfg`, sharing the weight tensors `params`, on one runtime of the
+    port (mem discovery, in-process event plane, TCP on 127.0.0.1).
+    Yields (prefill worker, decode worker, prefill client, decode
+    client); closes both and frees their caches on exit."""
+    import uuid
+
+    from dynamo_tpu_torch.engine import TorchEngineWorker
+    from dynamo_tpu_torch.runtime import DistributedRuntime, RuntimeConfig
+
+    rt = await DistributedRuntime(config=RuntimeConfig(
+        discovery_backend="mem", event_plane="inproc",
+        tcp_host="127.0.0.1"), cluster_id=uuid.uuid4().hex).start()
+    workers, clients = [], []
+    try:
+        for role, comp in (("prefill", "prefill"), ("decode", "backend")):
+            t0 = time.perf_counter()
+            w = await TorchEngineWorker(rt, dataclasses.replace(
+                cfg, role=role, warmup=warmup), component=comp,
+                params=params, device=device).start()
+            workers.append(w)
+            log(f"disagg ({cfg.kv_cache_dtype}): {role} worker started "
+                f"{'with warm-up ' if warmup else ''}in "
+                f"{time.perf_counter() - t0:.1f} s, "
+                f"{w.config.num_blocks} KV blocks, MDC role "
+                f"{w.card.runtime_config['role']}, "
+                f"{torch.cuda.memory_allocated() / 2**30:.1f} GiB allocated")
+            c = await rt.namespace("dynamo").component(comp).endpoint(
+                "generate").client().start()
+            clients.append(c)
+            await c.wait_for_instances()
+        yield (*workers, *clients)
+    finally:
+        for c in clients:
+            await c.close()
+        for w in workers:
+            await w.close()
+            w.engine.kv = w.engine.graphs = w.engine.prefill_graphs = None
+        await rt.shutdown()
+        gc.collect()
+        torch.cuda.empty_cache()
+
+
+def _aggregated_reference(device, cfg, params, reqs, warmup: bool) -> tuple:
+    """The requests through an aggregated TorchEngine (`cfg`, weights
+    `params`): one at a time (the reference streams), then, after a
+    cleared prefix cache, all at once (the TTFT yardstick).  Frees its
+    cache before returning."""
+    from dynamo_tpu_torch.engine import TorchEngine
+
+    eng = TorchEngine(dataclasses.replace(cfg), params=params, device=device)
+    if warmup:
+        eng.warmup_decode()
+
+    async def run():
+        try:
+            one = [(await _serve(eng, [r]))[0] for r in reqs]
+            await eng.clear_kv_blocks()
+            await asyncio.sleep(1.1)
+            return one, await _serve(eng, reqs)
+        finally:
+            await eng.close()
+
+    one, conc = asyncio.run(run())
+    eng.kv = eng.graphs = eng.prefill_graphs = None
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    return one, conc
+
+
+def _check_streams(what: str, got, ref, reqs, params, mc, device) -> list:
+    """Exit unless every stream of `got` equals `ref`'s, except a parting
+    at a near-tie (the reference's top-2 logit gap at that token, through
+    _replay_gap, within one bf16 ulp of its top logit); returns the
+    partings."""
+    parted = []
+    for i, (g, r) in enumerate(zip(got, ref)):
+        if g[0] == r[0]:
+            continue
+        j = next((n for n, (a, b) in enumerate(zip(g[0], r[0])) if a != b),
+                 min(len(g[0]), len(r[0])))
+        if j == 0:
+            raise SystemExit(f"{what}: request {i}'s first token differs "
+                             "from the aggregated engine's")
+        gap, _, _, top = _replay_gap(params, mc, device,
+                                     list(reqs[i].token_ids), r[0], j)
+        ulp = _ulp_bf16(top)
+        parted.append((i, j, gap, ulp))
+        log(f"{what}: request {i}'s stream parts from the aggregated one at "
+            f"token {j}: top-2 gap {gap:.6f}, one bf16 ulp {ulp:.6f}")
+        if gap > ulp:
+            raise SystemExit(f"{what}: request {i} parts at token {j} where "
+                             f"the top-2 gap {gap} exceeds a bf16 ulp")
+    return parted
+
+
+def check_disagg(device, card: str, params) -> dict:
+    """Disaggregated serving at llama-8b width and depth on one card: a
+    prefill and a decode TorchEngineWorker in one process (_disagg_pair,
+    one set of weight tensors, two bf16 caches of 512 blocks, warm-up
+    capturing every program), routed by hand as tests/test_disagg.py's
+    _engine_disagg_roundtrip does (the frontend's PrefillOrchestrator is
+    JAX code).  For each tier, the broker (device-resident chunks) and
+    host-staged frames (broker lookup off), from cleared prefix caches:
+    the five requests one at a time, whose streams must equal an
+    aggregated TorchEngine's served one at a time with the same weights
+    (a parting only at a near-tie), with the decode worker prefilling no
+    token, pulling exactly each prompt's blocks less those its prefix
+    cache holds, the prefill worker holding no parked entry after the
+    pulls, and request 1's injected blocks bit-equal to the sender's
+    gathered ones; then the five at once (TTFT through the pair against
+    the aggregated engine's, concurrent).  The broker tier's one-at-a-time
+    run is the main path: the launch counters are set to 0 just before
+    it and read just after (K3 from the prefill worker's graph replays,
+    K1 from the decode worker's).  Logs pull GB/s per tier, the host
+    chunk bound, and gather/inject GB/s against their byte bound.  Then
+    one request (request 1) through an int8 pair, both tiers, against an
+    aggregated int8 engine.  Returns {"launches": {kernel: (prefill
+    worker's, decode worker's)}, ...}."""
+    cfg = _engine_config("bf16")
+    mc = cfg.resolve_model()
+    reqs = _requests(mc.vocab_size)
+    bs = cfg.block_size
+    t0 = time.perf_counter()
+    ref_one, ref_conc = _aggregated_reference(device, cfg, params, reqs,
+                                              warmup=True)
+    log(f"disagg: aggregated reference (one at a time, then concurrent) in "
+        f"{time.perf_counter() - t0:.1f} s; ttft s concurrent "
+        f"{[round(r[2], 4) for r in ref_conc]}")
+    want_pulls = _expected_pulls(reqs, bs)
+    k1, k3 = _kernels_of("bf16")
+    result = {"tiers": {}}
+
+    async def run():
+        async with _disagg_pair(device, cfg, params, warmup=True) as (
+                pw, dw, pclient, dclient):
+            pbuilt = _log_prefill_programs(pw.engine, "disagg prefill worker")
+            dbuilt = _log_programs(dw.engine, "disagg decode worker")
+            replays = []
+            run_prefill = dw.engine.prefill_graphs.run
+
+            def counted(T):
+                replays.append(T)
+                return run_prefill(T)
+
+            dw.engine.prefill_graphs.run = counted
+            layout = dw.engine.kv_wire_layout()
+            for tier in ("broker", "host"):
+                with _broker_off(tier == "host"):
+                    for w in (pw, dw):
+                        await w.engine.clear_kv_blocks()
+                    await asyncio.sleep(1.1)
+                    sent, landed = {}, {}
+                    _watch_blocks(pw, dw, reqs[1].request_id, sent, landed)
+                    m0 = dict(dw.engine.metrics)
+                    p0 = dict(pw.engine.metrics)
+                    if tier == "broker":
+                        for fn in (k1, k3):
+                            fn.launches = 0
+                    one = []
+                    for r in reqs:
+                        t = time.perf_counter()
+                        one.append(await _disagg_one(pclient, dclient, r, t))
+                    if tier == "broker":
+                        launches = {fn.__name__: fn.launches
+                                    for fn in (k1, k3)}
+                    dm = {k: dw.engine.metrics.get(k, 0) - m0.get(k, 0)
+                          for k in ("prefill_tokens", "prefill_steps",
+                                    "decode_steps", "pull_blocks",
+                                    "pull_seconds")}
+                    pm = {k: pw.engine.metrics[k] - p0[k]
+                          for k in ("prefill_steps", "decode_steps",
+                                    "prefill_tokens")}
+                    for _ in range(100):
+                        if not pw.engine._parked:
+                            break
+                        await asyncio.sleep(0.02)
+                    parked = dict(pw.engine._parked)
+                    del pw.engine.extract_parked_chunk
+                    del dw.engine._inject_pulled_chunk
+                    same = _same_blocks(sent, landed)
+                    for w in (pw, dw):
+                        await w.engine.clear_kv_blocks()
+                    await asyncio.sleep(1.1)
+                    conc = await asyncio.gather(*(
+                        _disagg_one(pclient, dclient, r, time.perf_counter())
+                        for r in reqs))
+                entry = {"one": one, "conc": conc, "decode": dm,
+                         "prefill": pm, "parked": parked,
+                         "blocks_equal": same,
+                         "host_chunk_max": dw.engine.metrics.get(
+                             "pull_host_chunk_bytes_max", 0),
+                         "sent_chunks": len(sent)}
+                if tier == "broker":
+                    entry["launches"] = launches
+                result["tiers"][tier] = entry
+            for w, built, g in ((pw, pbuilt, pw.engine.prefill_graphs),
+                                (dw, dbuilt, dw.engine.graphs)):
+                if g.counts != built:
+                    raise SystemExit(f"disagg: serving built programs: "
+                                     f"{g.counts} after warm-up {built}")
+            result["recomputes"] = len(replays)
+            result["layout"] = layout
+            # a broker chunk (8 frames' worth), within half the pool
+            result["bandwidth"] = _transfer_bandwidth(
+                dw.engine, min(8 * layout.blocks_per_chunk(
+                    dw.engine.config.transfer_chunk_bytes),
+                    (dw.engine.config.num_blocks - 1) // 2), card)
+
+    asyncio.run(run())
+    L = mc.n_layers
+    block_bytes = result["layout"].block_bytes()
+    chunk = result["layout"].blocks_per_chunk(cfg.transfer_chunk_bytes) \
+        * block_bytes
+    for tier, e in result["tiers"].items():
+        one, dm, pm = e["one"], e["decode"], e["prefill"]
+        bad = [i for i, r in enumerate(one)
+               if r[1] != "length" or len(r[0]) != 32]
+        if bad:
+            raise SystemExit(f"disagg {tier}: requests {bad} did not finish "
+                             "with 32 tokens")
+        e["parted"] = _check_streams(f"disagg {tier}", one, ref_one, reqs,
+                                     params, mc, device)
+        gbs = (dm["pull_blocks"] * block_bytes / dm["pull_seconds"] / 1e9
+               if dm["pull_seconds"] else 0.0)
+        log(f"disagg {tier} tier, one at a time ({card}): streams equal to "
+            f"the aggregated engine's for {5 - len(e['parted'])} of 5; "
+            f"decode worker prefill tokens {dm['prefill_tokens']}, prefill "
+            f"dispatches {dm['prefill_steps']}, decode steps "
+            f"{dm['decode_steps']}, pulled blocks {dm['pull_blocks']} "
+            f"(expected {sum(want_pulls)} = {want_pulls}) in "
+            f"{dm['pull_seconds']:.3f} s of pulls = {gbs:.2f} GB/s; prefill "
+            f"worker prefill dispatches {pm['prefill_steps']}, decode steps "
+            f"{pm['decode_steps']}; parked after the pulls "
+            f"{sorted(e['parked'])}; request 1's {e['sent_chunks']} chunks "
+            f"injected bit-equal to the sender's: {e['blocks_equal']}; "
+            f"prefill hop s {[round(r[4], 4) for r in one]}")
+        if dm["prefill_tokens"] or dm["prefill_steps"]:
+            raise SystemExit(f"disagg {tier}: the decode worker prefilled "
+                             "(a failed pull's local fallback?)")
+        if dm["pull_blocks"] != sum(want_pulls):
+            raise SystemExit(f"disagg {tier}: pulled {dm['pull_blocks']} "
+                             f"blocks, expected {sum(want_pulls)}")
+        if pm["decode_steps"] or e["parked"] or not e["blocks_equal"]:
+            raise SystemExit(f"disagg {tier}: the prefill worker decoded, "
+                             "kept parked KV or sent other blocks than "
+                             "landed")
+        conc = e["conc"]
+        n, secs = _decode_rate(conc)
+        rn, rsecs = _decode_rate(ref_conc)
+        log(f"disagg {tier} tier, the five at once ({card}): ttft s through "
+            f"the pair {[round(r[2], 4) for r in conc]} (prefill hop "
+            f"{[round(r[4], 4) for r in conc]}) against the aggregated "
+            f"engine's {[round(r[2], 4) for r in ref_conc]}; decode "
+            f"{n / secs:.1f} tokens/s against {rn / rsecs:.1f}")
+        e["pull_gb_s"] = gbs
+    host_max = result["tiers"]["host"]["host_chunk_max"]
+    log(f"disagg: pull_host_chunk_bytes_max {host_max} bytes against two "
+        f"chunks {2 * chunk} bytes ({chunk // block_bytes} blocks of "
+        f"{block_bytes} bytes a chunk under transfer_chunk_bytes "
+        f"{cfg.transfer_chunk_bytes}); broker chunks of up to "
+        f"{8 * chunk // block_bytes} blocks stay on the device")
+    if not 0 < host_max <= 2 * chunk:
+        raise SystemExit("disagg: host-staged chunks exceed two chunks")
+    if result["tiers"]["broker"]["host_chunk_max"]:
+        raise SystemExit("disagg: the broker tier staged chunks on the host")
+    if result["recomputes"]:
+        raise SystemExit("disagg: the decode worker recomputed a first token")
+    launches = result["tiers"]["broker"]["launches"]
+    steps = result["tiers"]["broker"]
+    need_pre = L * steps["prefill"]["prefill_steps"]
+    need_dec = L * steps["decode"]["decode_steps"]
+    log(f"disagg launches, broker tier one at a time: {k3.__name__} "
+        f"{launches[k3.__name__]} (>= {need_pre} = {L} layers x "
+        f"{steps['prefill']['prefill_steps']} prefill replays on the prefill "
+        f"worker), {k1.__name__} {launches[k1.__name__]} (>= {need_dec} = "
+        f"{L} x {steps['decode']['decode_steps']} decode steps on the decode "
+        f"worker)")
+    if launches[k3.__name__] < need_pre or launches[k1.__name__] < need_dec \
+            or not need_pre or not need_dec:
+        raise SystemExit("disagg: the pair did not run through both kernels")
+    out = {"launches": {k1.__name__: (0, launches[k1.__name__]),
+                        k3.__name__: (launches[k3.__name__], 0)},
+           "bandwidth": result["bandwidth"],
+           "pull_gb_s": {t: e["pull_gb_s"]
+                         for t, e in result["tiers"].items()}}
+    out["launches"].update(check_disagg_int8(device, card, params))
+    return out
+
+
+def check_disagg_int8(device, card: str, params) -> dict:
+    """Request 1 through an int8 prefill/decode pair (both caches int8,
+    sized by INT8_KV_HBM_GB, no warm-up: the first run captures), once a
+    tier, against an aggregated int8 engine: the scale planes ride along,
+    so the stream must equal the aggregated one, with no prefill on the
+    decode side.  Returns {kernel: (prefill worker's launches, decode
+    worker's)} of the broker tier's run."""
+    cfg = _engine_config("int8")
+    mc = cfg.resolve_model()
+    req = _requests(mc.vocab_size)[1]
+    ref, _ = _aggregated_reference(device, cfg, params, [req], warmup=False)
+    k1, k3 = _kernels_of("int8")
+    got = {}
+
+    async def run():
+        async with _disagg_pair(device, cfg, params, warmup=False) as (
+                pw, dw, pclient, dclient):
+            for tier in ("broker", "host"):
+                with _broker_off(tier == "host"):
+                    m0 = dict(dw.engine.metrics)
+                    for fn in (k1, k3):
+                        fn.launches = 0
+                    res = await _disagg_one(pclient, dclient, req,
+                                            time.perf_counter())
+                    got[tier] = (res, {fn.__name__: fn.launches
+                                       for fn in (k1, k3)},
+                                 dw.engine.metrics["prefill_tokens"]
+                                 - m0["prefill_tokens"],
+                                 dw.engine.metrics.get("pull_blocks", 0)
+                                 - m0.get("pull_blocks", 0))
+                    for w in (pw, dw):
+                        await w.engine.clear_kv_blocks()
+
+    asyncio.run(run())
+    for tier, (res, launches, pre, pulled) in got.items():
+        log(f"disagg int8 {tier} tier: request 1 {len(res[0])} out, "
+            f"finish={res[1]}, equal to the aggregated int8 engine's: "
+            f"{res[0] == ref[0][0]}; decode worker prefill tokens {pre}, "
+            f"pulled {pulled} blocks; launches {launches}")
+        if res[1] != "length" or len(res[0]) != 32 or pre or pulled != 4:
+            raise SystemExit(f"disagg int8 {tier}: the request did not "
+                             "finish by a pull")
+        _check_streams(f"disagg int8 {tier}", [res], ref, [req], params, mc,
+                       device)
+    launches = got["broker"][1]
+    if not (launches[k1.__name__] and launches[k3.__name__]):
+        raise SystemExit("disagg int8: the pair did not run through both "
+                         "int8 kernels")
+    return {k1.__name__: (0, launches[k1.__name__]),
+            k3.__name__: (launches[k3.__name__], 0)}
 
 
 # ---------------------------------------------------------------------------
@@ -2238,6 +3004,7 @@ def _serve_checkpoint(device, card, path, ref, nbytes, cache_dir, used,
     _check_worker_launches(counts, steps, CKPT_LAYERS,
                            "loaded checkpoint's engine")
     engine.kv = engine.graphs = direct.kv = direct.graphs = None
+    engine.prefill_graphs = direct.prefill_graphs = None
     del engine, direct, want
     torch.cuda.empty_cache()
     _checkpoint_worker(device, cfg, path, reqs[1])
@@ -2589,6 +3356,21 @@ def main() -> int:
               flush=True)
         print(card, flush=True)
         return 0
+    if sys.argv[1:] in (["--prefill-ab"], ["--disagg"]):
+        # python3 chip_smoke.py --prefill-ab: eager packed prefill against
+        # one graph per bucket, in turns; --disagg: the disagg phase
+        build_kernels()
+        from dynamo_tpu_torch.models import llama
+
+        gen = torch.Generator(device=device).manual_seed(0)
+        params = llama.init_params(cfg, gen, device)
+        if sys.argv[1] == "--prefill-ab":
+            out = {"prefill_ab": prefill_ab(device, card, params)}
+        else:
+            out = {"disagg": check_disagg(device, card, params)}
+        print(json.dumps(out, default=str), flush=True)
+        print(card, flush=True)
+        return 0
     if sys.argv[1:] == ["--checkpoint"]:
         # python3 chip_smoke.py --checkpoint: the loaded-checkpoint phase
         build_kernels()
@@ -2614,31 +3396,40 @@ def main() -> int:
     log(f"bf16 engine phase done at {time.perf_counter() - t_start:.1f} s")
     # the later runs reuse the weights; each cache is freed first
     params = engine.params
-    engine.kv = engine.graphs = None
+    engine.kv = engine.graphs = engine.prefill_graphs = None
     torch.cuda.empty_cache()
     worker_launches = check_worker(device, card, engine.config, params,
                                    direct)
     log(f"bf16 worker phase done at {time.perf_counter() - t_start:.1f} s")
     del engine
     torch.cuda.empty_cache()
-    decode_ab(device, card, params)
+    # one round in the whole check (two with --decode-ab), so the
+    # prefill A/B and disagg phases fit in the script's time budget
+    decode_ab(device, card, params, rounds=1)
     torch.cuda.empty_cache()
     log(f"decode A/B phase done at {time.perf_counter() - t_start:.1f} s")
     fused_ab(device, card, params)
     torch.cuda.empty_cache()
     log(f"fused A/B phase done at {time.perf_counter() - t_start:.1f} s")
+    prefill_ab(device, card, params)
+    torch.cuda.empty_cache()
+    log(f"prefill A/B phase done at {time.perf_counter() - t_start:.1f} s")
     launches8, engine8, ops_int8, _ = check_engine(device, card, "int8",
                                                    params)
     launches.update(launches8)
     log(f"int8 engine phase done at {time.perf_counter() - t_start:.1f} s")
-    engine8.kv = engine8.graphs = None
+    engine8.kv = engine8.graphs = engine8.prefill_graphs = None
     torch.cuda.empty_cache()
     worker_launches.update(check_worker_short(device, engine8.config, params))
     log(f"int8 worker phase done at {time.perf_counter() - t_start:.1f} s")
     log(f"device operations per decode step (one sequence): int8 cache "
         f"{ops_int8} against bf16 cache {ops_bf16} (the plain-torch "
         f"quantize-on-write adds {ops_int8 - ops_bf16})")
-    del engine8, params
+    del engine8
+    torch.cuda.empty_cache()
+    disagg = check_disagg(device, card, params)
+    log(f"disagg phase done at {time.perf_counter() - t_start:.1f} s")
+    del params
     torch.cuda.empty_cache()
     ckpt = check_checkpoint(device, card)
     log(f"checkpoint phase done at {time.perf_counter() - t_start:.1f} s")
@@ -2646,6 +3437,10 @@ def main() -> int:
         k["launches"] = launches[k["name"]]
         k["worker_launches"] = worker_launches[k["name"]]
         k["checkpoint_launches"] = ckpt["launches"].get(k["name"], 0)
+        (k["disagg_prefill_launches"],
+         k["disagg_decode_launches"]) = disagg["launches"][k["name"]]
+    for k in dma:  # the microbench is on no serving path
+        k["disagg_prefill_launches"] = k["disagg_decode_launches"] = 0
     log(f"chip_smoke: every phase passed in "
         f"{time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels + dma}), flush=True)

@@ -23,7 +23,7 @@ from ..ops.paged_attention import DECODE_IMPLS
 from ..runtime import DistributedRuntime
 from ..runtime.aio import install_drain_handler
 from ..runtime.logging import setup_logging
-from .config import EngineConfig
+from .config import ROLES, EngineConfig
 from .worker import TorchEngineWorker
 
 
@@ -78,6 +78,10 @@ def build_args() -> argparse.ArgumentParser:
                    help="fixed decode bursts: decode_fused_steps whenever "
                         "no prefill/admission work is pending, instead of "
                         "ramping the fusion ladder")
+    p.add_argument("--role", default="both", choices=list(ROLES),
+                   help="disaggregation role: prefill workers park each "
+                        "prompt's KV for a decode worker's pull; decode "
+                        "workers pull it instead of prefilling")
     p.add_argument("--migration-limit", type=int, default=3)
     p.add_argument("--no-warmup", action="store_true",
                    help="skip the kernel build and decode warm-up at "
@@ -112,6 +116,7 @@ def engine_config(args: argparse.Namespace) -> EngineConfig:
         overlap_scheduling=not args.no_overlap_scheduling,
         decode_fuse_adaptive=not args.no_adaptive_fusion,
         warmup=not args.no_warmup,
+        role=args.role,
     )
 
 

@@ -55,6 +55,9 @@ class BlockAllocator:
     def num_evictable(self) -> int:
         return len(self._lru)
 
+    def seq_block_ids(self, seq_id: str) -> List[int]:
+        return self._seq_blocks.get(seq_id, [])
+
     def usage(self) -> float:
         usable = self.num_blocks - 1
         return (usable - self.num_free) / max(1, usable)

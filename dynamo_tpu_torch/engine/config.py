@@ -14,9 +14,13 @@ import dataclasses
 from dataclasses import dataclass
 from typing import Optional, Tuple
 
+from ..disagg.transfer import DEFAULT_CHUNK_BYTES
 from ..models.llama import PRESETS, LlamaConfig
 from ..ops.packed_prefill import PACKED_IMPLS
 from ..ops.paged_attention import DECODE_IMPLS
+
+# the disaggregation roles (the JAX CLI's --role choices)
+ROLES = ("both", "prefill", "decode")
 
 # field -> (default, the feature it belongs to)
 _UNPORTED = {
@@ -25,7 +29,6 @@ _UNPORTED = {
     "sp": (1, "sequence-parallel ring prefill"),
     "spec_decode": ("off", "speculative decoding"),
     "lora_max_adapters": (0, "LoRA serving"),
-    "role": ("both", "disaggregated prefill/decode"),
     "host_cache_blocks": (0, "KVBM host tier (G2)"),
     "disk_cache_dir": (None, "KVBM disk tier (G3)"),
     "disk_cache_blocks": (0, "KVBM disk tier (G3)"),
@@ -110,6 +113,13 @@ class EngineConfig:
     # worker's default; off here so short-lived test engines skip it)
     warmup: bool = False
 
+    # disaggregation role: "both" serves agg traffic; "prefill" workers run
+    # prefill-only hops and park KV; "decode" workers pull and decode
+    role: str = "both"
+    # disagg KV transfer: bound on one wire frame's K+V payload bytes
+    # (disagg/transfer.py chunk sizing)
+    transfer_chunk_bytes: int = DEFAULT_CHUNK_BYTES
+
     # None = the model config's eos ids (the checkpoint's config.json with
     # model_path)
     eos_token_id: Optional[int] = None
@@ -121,7 +131,6 @@ class EngineConfig:
     sp: int = 1
     spec_decode: str = "off"
     lora_max_adapters: int = 0
-    role: str = "both"
     host_cache_blocks: int = 0
     disk_cache_dir: Optional[str] = None
     disk_cache_blocks: int = 0
@@ -142,6 +151,9 @@ class EngineConfig:
             raise ValueError(
                 f"sampling_epilogue must be {' | '.join(EPILOGUE_MODES)}, "
                 f"got {self.sampling_epilogue!r}")
+        if self.role not in ROLES:
+            raise ValueError(f"role must be {' | '.join(ROLES)}, got "
+                             f"{self.role!r}")
         if self.kv_cache_dtype not in ("bf16", "int8"):
             raise ValueError(f"kv_cache_dtype must be 'bf16' | 'int8', got "
                              f"{self.kv_cache_dtype!r}")

@@ -10,9 +10,11 @@ a worker thread, as `_sched_step` does there:
     block allocator, reusing prefix-cache hits (engine/block_allocator.py);
   * the previous step's deferred first tokens are read back and emitted;
   * ONE budget-capped packed prefill dispatch runs the prefilling slots'
-    chunks as a single padding-free stream (engine/prefill.py plans it,
-    models/llama.py prefill_packed runs it eagerly, kernel K3 attends);
-    in overlap mode its first tokens are read back one step late;
+    chunks as a single padding-free stream (engine/prefill.py plans it;
+    the bucket's program, models/llama.py prefill_packed and the
+    sampler, is replayed from a captured CUDA graph, engine/graphs.py
+    PrefillPrograms; kernel K3 attends); in overlap mode its first
+    tokens are read back one step late;
   * ONE decode burst runs every slot past prefill: k fused decode steps
     (k on the fusion ladder, adapted to pending work) at the fixed batch
     B = max_num_seqs, replayed from a captured CUDA graph
@@ -40,9 +42,22 @@ logits.  Weights come from `params`, from the HF checkpoint at
 `config.model_path` (models/loader.py, through the host weight cache),
 or are random from config.seed.
 
-Not here yet (ROADMAP.md): graph capture of packed prefill, penalties
-(the JAX engine ignores them too), KVBM tiers, disaggregation,
-speculative and guided decoding, and LoRA.
+Disaggregated serving (the JAX engine's park/pull/inject): a request
+annotated DISAGG_ANNOTATION is a prefill hop, whose KV is parked when its
+prompt completes (one frame with finish_reason "stop" and
+kv_transfer_params goes back); the decode worker's pull reads it chunk
+by chunk (extract_parked_chunk, one scheduler op each) and releases it.
+A request whose disaggregated_params name engine "jax" (the wire
+protocol, not the framework) is pulled instead of prefilled: its slot
+sits admitted but idle while `_stream_pull` injects chunk after chunk
+(ops/kv_transfer.py), other slots decoding in between, then streams on
+from the transferred first token.  A failed pull falls back to local
+prefill, as in the JAX engine.  Scheduler ops (`_call_on_scheduler`)
+run between steps under the step lock.
+
+Not here yet (ROADMAP.md): penalties (the JAX engine ignores them too),
+KVBM tiers, the device-to-device pull across processes, speculative and
+guided decoding, and LoRA.
 """
 
 from __future__ import annotations
@@ -54,15 +69,19 @@ import time
 import zlib
 from collections import deque
 from dataclasses import dataclass
+from functools import partial
 from typing import Any, AsyncIterator, Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
 
 from ..device import DeviceLike, resolve_device
+from ..disagg.transfer import KvLayout, dtype_name, make_transfer_params
 from ..kvbm.consolidator import KvEventConsolidator
 from ..models import llama
+from ..ops.kv_transfer import gather_universal, inject_universal
 from ..protocols import (
+    DISAGG_ANNOTATION,
     DRAIN_ABORT,
     DRAIN_REJECT,
     LLMEngineOutput,
@@ -70,14 +89,25 @@ from ..protocols import (
 )
 from ..quant.kv import blocks_for_hbm_budget
 from ..runtime.aio import CANCELLED, next_or_cancel
+from ..runtime.retry import PULL_POLICY, call_with_retry
 from ..tokens import TokenBlockSequence, request_salt
 from .block_allocator import BlockAllocator, GrowResult
 from .config import EngineConfig
-from .graphs import DecodePrograms, Readback
+from .graphs import DecodePrograms, PrefillPrograms, Readback
 from .prefill import plan_packed_prefill
-from .sampler import greedy_tokens, sample_tokens
 
 logger = logging.getLogger(__name__)
+
+
+def _set_result_safe(fut: asyncio.Future, value) -> None:
+    if not fut.done():
+        fut.set_result(value)
+
+
+def _set_exception_safe(fut: asyncio.Future, err: BaseException) -> None:
+    if not fut.done():
+        fut.set_exception(err)
+
 
 @dataclass
 class _Slot:
@@ -108,10 +138,27 @@ class _Slot:
     # is still being read back (_pending_first); decode skips the slot
     # until the next step's flush emits it
     awaiting_first: bool = False
+    # disaggregation: a prefill-only hop whose KV is parked for pulling
+    disagg_prefill: bool = False
+    # decode side of a disagg pull: the slot sits admitted but idle while
+    # the pull task injects chunks into its blocks (prefill and decode
+    # skip it until the pull finishes or falls back)
+    pulling: bool = False
+    admitted: Optional[asyncio.Event] = None  # set (loop thread) on admit
 
     @property
     def prefilling(self) -> bool:
         return self.prefill_pos < self.prompt_len
+
+
+@dataclass
+class _Parked:
+    """A finished disagg prefill whose KV awaits pulling by decode."""
+
+    seq_id: str
+    block_ids: list
+    prompt_len: int
+    expires_t: float
 
 
 KvEventSink = Callable[[List[int], List[int], str], None]
@@ -137,7 +184,9 @@ class TorchEngine:
     def __init__(self, config: EngineConfig, params=None,
                  device: DeviceLike = "cuda",
                  kv_event_sink: Optional[KvEventSink] = None,
-                 cuda_graphs: bool = True):
+                 cuda_graphs: bool = True,
+                 prefill_graphs: Optional[bool] = None,
+                 kv_pull_fn: Optional[Callable] = None):
         """`params`: the port's parameter tree on `device` (for example
         from models/convert.py params_from_numpy); None loads the
         checkpoint at config.model_path, or makes random weights from
@@ -145,8 +194,12 @@ class TorchEngine:
         removed, tier)`: called on the event loop's thread with each
         netted batch of KV events, in mutation order (engine/worker.py
         passes KvEventPublisher.enqueue_batch).  `cuda_graphs=False` runs
-        the decode programs eagerly on CUDA too (a measurement baseline;
-        on the CPU they always run eagerly)."""
+        the decode and prefill programs eagerly on CUDA too (a
+        measurement baseline; on the CPU they always run eagerly);
+        `prefill_graphs` overrides it for the prefill programs alone.
+        `kv_pull_fn(disaggregated_params)`: an async callable returning
+        the PullSource of a remote prefill's parked KV (set by the
+        worker; the engine stays transport-agnostic)."""
         self.config = config
         self.device = resolve_device(device)
         self.model_cfg = config.resolve_model()
@@ -194,6 +247,17 @@ class TorchEngine:
                                      capture=cuda_graphs,
                                      epilogue=config.sampling_epilogue
                                      == "fused")
+        # one packed-prefill program per bucket the planner can give:
+        # the pow2 ladder from the smallest bucket to the first one that
+        # holds the chunk budget
+        buckets = [config.prefill_buckets[0]]
+        while buckets[-1] < config.chunk_budget:
+            buckets.append(buckets[-1] * 2)
+        self.prefill_graphs = PrefillPrograms(
+            self.params, self.model_cfg, self.kv, config.max_prefill_seqs,
+            config.max_blocks_per_seq, buckets, self.device,
+            capture=cuda_graphs if prefill_graphs is None
+            else prefill_graphs)
         self._overlap = bool(config.overlap_scheduling)
         self._inflight: deque = deque()
         self._chain_owner: List[Optional[Tuple[str, int]]] = \
@@ -204,6 +268,15 @@ class TorchEngine:
         # graceful drain (engine/worker.py drain()): set to reject new
         # requests with the migratable "worker draining" marker
         self.draining = False
+        # disaggregation: (fn, future) scheduler ops run between steps,
+        # parked prefills by request id, the identity advertised in
+        # kv_transfer_params (set by the worker) and the pull source
+        # factory
+        self._sched_calls: List[tuple] = []
+        self._parked: Dict[str, _Parked] = {}
+        self.parked_ttl_s = 120.0
+        self.transfer_identity: Dict[str, Any] = {}
+        self.kv_pull_fn = kv_pull_fn
         # decode_steps counts fused model steps (k per burst),
         # decode_bursts the dispatches, cont_bursts those that re-used the
         # device descriptor
@@ -252,6 +325,9 @@ class TorchEngine:
         self._fail_all_streams()
         self._inflight.clear()  # unread bursts: their streams are dead
         self._pending_first.clear()
+        calls, self._sched_calls = self._sched_calls, []
+        for _, fut in calls:
+            _set_exception_safe(fut, RuntimeError("engine closed"))
 
     def _fail_all_streams(
         self,
@@ -314,24 +390,339 @@ class TorchEngine:
         self._fail_all_streams(error=DRAIN_ABORT)
         self._wake.set()
 
+    # -- scheduler ops ------------------------------------------------------
+    def _call_on_scheduler(self, fn) -> asyncio.Future:
+        """Run `fn()` between scheduler steps, under the step lock (the
+        allocator and the KV cache belong to the scheduler), as the JAX
+        engine's _call_on_scheduler; the future takes its result or its
+        exception."""
+        fut: asyncio.Future = asyncio.get_running_loop().create_future()
+        if self._closed:
+            fut.set_exception(RuntimeError("engine closed"))
+            return fut
+        self._sched_calls.append((fn, fut))
+        self._wake.set()
+        if self._task is None or self._task.done():
+            # no live loop to drain for us (unstarted or crashed)
+            self._between_steps()
+        return fut
+
+    def _between_steps(self) -> None:
+        """Run the queued scheduler ops and reap expired parked KV, under
+        the step lock."""
+        with self._step_lock:
+            while self._sched_calls:
+                fn, fut = self._sched_calls.pop(0)
+                try:
+                    result = fn()
+                except Exception as e:  # surface to the caller
+                    self._resolve(_set_exception_safe, fut, e)
+                else:
+                    self._resolve(_set_result_safe, fut, result)
+            self._reap_parked()
+
+    def _resolve(self, setter, fut: asyncio.Future, value) -> None:
+        if self._loop_ref is not None:
+            self._loop_ref.call_soon_threadsafe(setter, fut, value)
+        else:
+            setter(fut, value)
+
+    # -- disaggregation: parked prefills and KV extraction ------------------
+    def kv_wire_layout(self, n_blocks: int = 0) -> KvLayout:
+        """This engine's KvLayout for wire headers and validation, from
+        its own cache tensors ([L, nkv, NB, bs, hd])."""
+        k, v = self.kv[0], self.kv[1]
+        return KvLayout(
+            num_layers=k.shape[0], num_blocks=n_blocks,
+            block_size=self.config.block_size, kv_heads=k.shape[1],
+            head_dim=k.shape[4], dtype=dtype_name(k.dtype),
+            tp=self.config.tp, dp=self.config.dp,
+            head_dim_v=v.shape[4] if v.shape[4] != k.shape[4] else 0,
+            scales=len(self.kv) == 4)
+
+    async def parked_info(self, request_id: str) -> Tuple[int, int]:
+        """(n_blocks, prompt_len) of a parked prefill (the pull's open)."""
+
+        def info():
+            parked = self._parked.get(request_id)
+            if parked is None:
+                raise KeyError(f"no parked KV for request {request_id!r}")
+            return len(parked.block_ids), parked.prompt_len
+
+        return await self._call_on_scheduler(info)
+
+    async def extract_parked_chunk(self, request_id: str, start: int,
+                                   count: int, *, to_host: bool = True):
+        """Blocks [start, start+count) of a parked prefill in the
+        universal transfer layout (ops/kv_transfer.py) — ONE scheduler op
+        per chunk, so decode bursts interleave with a long extraction.
+        to_host=False leaves the chunk on the device (the broker tier);
+        to_host=True returns CPU tensors, read back through pinned
+        memory."""
+
+        def gather():
+            parked = self._parked.get(request_id)
+            if parked is None:
+                raise KeyError(f"no parked KV for request {request_id!r}")
+            chunk_ids = parked.block_ids[start:start + count]
+            if len(chunk_ids) != count:
+                raise ValueError(
+                    f"chunk [{start},{start + count}) out of range for "
+                    f"{len(parked.block_ids)} parked blocks")
+            arrs = gather_universal(self.kv, chunk_ids)
+            if not to_host or not arrs[0].is_cuda:
+                return arrs
+            host = [torch.empty(a.shape, dtype=a.dtype, pin_memory=True)
+                    for a in arrs]
+            for h, a in zip(host, arrs):
+                h.copy_(a, non_blocking=True)
+            done = torch.cuda.Event()
+            done.record()
+            done.synchronize()
+            return tuple(host)
+
+        return await self._call_on_scheduler(gather)
+
+    async def release_parked(self, request_id: str) -> None:
+        def release():
+            parked = self._parked.pop(request_id, None)
+            if parked is not None:
+                self._emit_events(self.allocator.free(parked.seq_id))
+
+        await self._call_on_scheduler(release)
+
+    def _expired_parks(self) -> List[str]:
+        now = time.monotonic()
+        return [r for r, p in list(self._parked.items())
+                if now > p.expires_t]
+
+    def _reap_parked(self) -> None:
+        for rid in self._expired_parks():
+            logger.warning("parked KV for %s expired unpulled", rid)
+            parked = self._parked.pop(rid)
+            self._emit_events(self.allocator.free(parked.seq_id))
+
+    def _park_prefilled(self, slot: _Slot, first_token: int) -> None:
+        """Disagg prefill done: keep the KV, hand back transfer metadata
+        in one frame."""
+        seq_id = self._seq_id(slot)
+        rid = slot.request.request_id
+        self._parked[rid] = _Parked(
+            seq_id=seq_id,
+            block_ids=list(self.allocator.seq_block_ids(seq_id)),
+            prompt_len=slot.ctx_len,
+            expires_t=time.monotonic() + self.parked_ttl_s,
+        )
+        slot.finished = True
+        if slot.index >= 0:
+            self._slots[slot.index] = None
+            slot.index = -1
+        params = make_transfer_params(
+            instance_id=self.transfer_identity.get("instance_id", 0),
+            request_id=rid,
+            prompt_len=self._parked[rid].prompt_len,
+            first_token=first_token,
+            block_size=self.config.block_size,
+            num_layers=self.model_cfg.n_layers,
+        )
+        params.update({k: v for k, v in self.transfer_identity.items()
+                       if k != "instance_id"})
+        out = LLMEngineOutput(
+            token_ids=[first_token], finish_reason="stop",
+            kv_transfer_params=params,
+            metrics={"ttft_s": slot.first_token_t - slot.enqueued_t})
+        if self._loop_ref is not None:
+            self._loop_ref.call_soon_threadsafe(slot.out_q.put_nowait, out)
+        else:
+            slot.out_q.put_nowait(out)
+
+    # -- disaggregation: the decode side's pull -----------------------------
+    async def _stream_pull(self, slot: _Slot, dp: Dict[str, Any]) -> None:
+        """Decode-side streaming pull: inject the prefill's KV chunk by
+        chunk, each chunk one scheduler op, so decode bursts of OTHER
+        slots run in between; host memory is bounded by two chunks (the
+        injecting one and one prefetch in flight).  Any failure falls
+        back to local prefill: the slot's blocks are allocated and
+        prefill_pos still points at the cached prefix."""
+        src = None
+        t0 = time.monotonic()
+        rid = slot.request.request_id
+
+        async def pull_chunk(b0: int, n: int):
+            # a transiently failing chunk op is retried with jittered
+            # backoff before the whole pull gives up
+            return await call_with_retry(
+                lambda: src.chunk(b0, n), PULL_POLICY,
+                on_retry=lambda a, e: logger.warning(
+                    "kv pull chunk [%d,%d) for %s failed (attempt %d): "
+                    "%s", b0, b0 + n, rid, a, e))
+
+        try:
+            await slot.admitted.wait()
+            if slot.finished or slot.cancel_requested:
+                return
+            src = await self.kv_pull_fn(dp)
+            header = await call_with_retry(src.open, PULL_POLICY)
+            layout = KvLayout.from_dict(header["layout"])
+            layout.check_compatible(self.kv_wire_layout())
+            prompt_len = slot.prompt_len
+            if int(header["prompt_len"]) != prompt_len:
+                raise ValueError(
+                    f"prefill parked {header['prompt_len']} tokens but the "
+                    f"decode request has {prompt_len}")
+            bs = self.config.block_size
+            n_blocks = (prompt_len + bs - 1) // bs
+            if layout.num_blocks != n_blocks:
+                raise ValueError(
+                    f"prefill parked {layout.num_blocks} blocks; decode "
+                    f"needs {n_blocks}")
+            # skip blocks the local prefix cache materialized at
+            # admission: pull only the missing tail
+            start = slot.cached_tokens // bs
+            per = layout.blocks_per_chunk(self.config.transfer_chunk_bytes)
+            device_resident = getattr(src, "device_resident", False)
+            if device_resident:
+                # the chunk bound protects HOST memory, which device
+                # chunks never touch: 8x chunks cut the round trips
+                per *= 8
+            spans = [(b0, min(per, n_blocks - b0))
+                     for b0 in range(start, n_blocks, per)]
+            pulled = 0
+            # pipelined: chunk i+1 is in flight on the SOURCE while chunk
+            # i injects here (receiver-paced, one outstanding prefetch)
+            nxt = (asyncio.ensure_future(pull_chunk(*spans[0]))
+                   if spans else None)
+            try:
+                for idx, (b0, n) in enumerate(spans):
+                    if slot.finished or slot.cancel_requested:
+                        return
+                    arrs = await nxt
+                    nxt = (asyncio.ensure_future(
+                        pull_chunk(*spans[idx + 1]))
+                        if idx + 1 < len(spans) else None)
+                    await self._call_on_scheduler(
+                        partial(self._inject_pulled_chunk, slot, b0, n,
+                                arrs))
+                    if not device_resident:
+                        nbytes = sum(a.numel() * a.element_size()
+                                     for a in arrs)
+                        self.metrics["pull_host_chunk_bytes_max"] = max(
+                            self.metrics.get("pull_host_chunk_bytes_max",
+                                             0), nbytes)
+                    pulled += n
+            finally:
+                if nxt is not None:
+                    nxt.cancel()  # no-op if already done
+                    try:
+                        await nxt
+                    except asyncio.CancelledError:
+                        # suppress only the prefetch's OWN cancellation;
+                        # re-raise when the pull task itself is being
+                        # cancelled, so nothing below runs after a cancel
+                        cur = asyncio.current_task()
+                        if not nxt.cancelled() or (
+                                cur is not None and cur.cancelling() > 0):
+                            raise
+                    except Exception:
+                        pass
+            self.metrics["pull_blocks"] = (
+                self.metrics.get("pull_blocks", 0) + pulled)
+            self.metrics["pull_seconds"] = (
+                self.metrics.get("pull_seconds", 0.0)
+                + (time.monotonic() - t0))
+            await self._call_on_scheduler(
+                partial(self._finish_pull, slot, dp.get("first_token")))
+        except asyncio.CancelledError:
+            raise
+        except Exception:
+            logger.warning("KV pull failed for %s; local prefill fallback",
+                           rid, exc_info=True)
+
+            def fallback():
+                slot.pulling = False  # the prefill path picks the slot up
+
+            try:
+                await self._call_on_scheduler(fallback)
+            except Exception:
+                pass
+            self._wake.set()
+        finally:
+            if src is not None:
+                try:
+                    await src.close()
+                except Exception:
+                    pass
+
+    def _inject_pulled_chunk(self, slot: _Slot, b0: int, n: int,
+                             arrs) -> None:
+        """Scheduler op: write one pulled chunk into the slot's blocks.
+        `arrs` is (kb, vb), plus (ksb, vsb) for an int8 cache: CPU tensors
+        (host-staged tier) or device tensors (broker tier).  The write
+        goes on the stream after the bursts already dispatched."""
+        if slot.finished or slot.cancel_requested:
+            return  # blocks may already be freed; drop the chunk
+        if len(arrs) != len(self.kv):
+            raise ValueError(
+                f"pulled chunk has {len(arrs)} payload arrays but the "
+                f"cache expects {len(self.kv)} (kv dtype mismatch)")
+        block_ids = self.allocator.seq_block_ids(
+            self._seq_id(slot))[b0:b0 + n]
+        if len(block_ids) != n:
+            raise ValueError(f"slot lost blocks [{b0},{b0 + n}) mid-pull")
+        inject_universal(self.kv, arrs[0], arrs[1], block_ids, *arrs[2:])
+
+    def _finish_pull(self, slot: _Slot, first: Optional[int]) -> None:
+        """Scheduler op: every chunk landed — commit the blocks and emit
+        the first token (recomputed when the transfer metadata lacks
+        it)."""
+        if slot.finished or slot.cancel_requested:
+            return
+        prompt_len = slot.prompt_len
+        slot.ctx_len = prompt_len
+        slot.prefill_pos = prompt_len
+        slot.cached_tokens = prompt_len  # skipped compute entirely
+        slot.pulling = False
+        self._commit_full_blocks(slot)
+        slot.first_token_t = time.monotonic()
+        if first is None:
+            first = self._recompute_first(slot)
+        self.metrics["cache_hit_tokens"] += prompt_len
+        self._push_token(slot, int(first))
+
+    def _recompute_first(self, slot: _Slot) -> int:
+        """The first token from the last prompt position, whose K/V the
+        pull already wrote (the rewrite is value-identical): a one-row
+        packed prefill on the smallest bucket's program."""
+        g = self.prefill_graphs
+        T = g.buckets[0]
+        a = g.host_descriptor(T)
+        a["toks"][0] = slot.seq.tokens[slot.prompt_len - 1]
+        a["positions"][0] = slot.prompt_len - 1
+        a["valid"][0] = True
+        a["tables"][0] = slot.block_table
+        sp = slot.request.sampling
+        a["seeds"][0] = slot.sampling_seed
+        a["temps"][0] = sp.temperature
+        a["top_ks"][0] = sp.top_k
+        a["top_ps"][0] = sp.top_p
+        g.upload(a)
+        return int(Readback(g.run(T)).wait()[0])
+
     def warmup_decode(self) -> None:
-        """Build every decode program serving can reach, so no request
-        pays for a kernel build, a cuBLAS warm-up or a graph capture: on
-        CUDA both kernel sources first (one nvcc each, started together),
-        one packed prefill dispatch on the garbage block, then every rung
-        of the fusion ladder, greedy and sampled, dispatched full and as a
+        """Build every program serving can reach, so no request pays for
+        a kernel build, a cuBLAS warm-up or a graph capture: on CUDA both
+        kernel sources first (one nvcc each, started together), then the
+        packed-prefill program of every bucket, then every rung of the
+        fusion ladder, greedy and sampled, dispatched full and as a
         continuation (engine/graphs.py captures each program at its first
-        run).  Nothing real decodes (valid all false, all-zero tables:
-        the writes land in block 0), and the descriptor, the device chain
-        and the continuation state are restored afterwards.  Runs on the
-        caller's thread and holds the step lock throughout: the worker
-        serves its generate endpoint (and arms the canary) before warm-up
-        ends, and a step must not run between warm-up dispatches."""
-        c, dev = self.config, self.device
-
-        def zeros(*shape, dtype=torch.int32):
-            return torch.zeros(shape, dtype=dtype, device=dev)
-
+        run).  Nothing real is computed (one prefill token, all-zero
+        tables: every write lands in block 0), and the decode descriptor,
+        the device chain and the continuation state are restored
+        afterwards.  Runs on the caller's thread and holds the step lock
+        throughout: the worker serves its generate endpoint (and arms the
+        canary) before warm-up ends, and a step must not run between
+        warm-up dispatches."""
+        dev = self.device
         a = self.graphs.host_descriptor()
         a["ctx_lens"][:] = a["steps"][:] = 1
         with self._step_lock:
@@ -340,12 +731,11 @@ class TorchEngine:
 
                 _build.compile_sources([cuda_paged_attention.KERNEL,
                                         cuda_packed_prefill.KERNEL])
-            T = c.prefill_buckets[0]
-            valid = zeros(T, dtype=torch.bool)
-            valid[0] = True
-            llama.prefill_packed(self.params, self.model_cfg, self.kv,
-                                 zeros(T), zeros(T), zeros(T), zeros(1, 1),
-                                 zeros(1), valid)
+            for T in self.prefill_graphs.buckets:
+                p = self.prefill_graphs.host_descriptor(T)
+                p["valid"][0] = True  # one token, in block 0
+                self.prefill_graphs.upload(p)
+                self.prefill_graphs.run(T)
             snap, last = self.graphs.snapshot(), self._last_desc
             for greedy in (True, False):
                 a["temps"][:] = 0.0 if greedy else 0.7
@@ -406,6 +796,12 @@ class TorchEngine:
             return
         self.metrics["requests"] += 1
         self.metrics["prompt_tokens"] += len(request.token_ids)
+        dp = request.disaggregated_params
+        want_pull = dp is not None and dp.get("engine") == "jax"
+        if want_pull and self.kv_pull_fn is None:
+            logger.warning("disaggregated_params but no kv_pull_fn; "
+                           "falling back to local prefill")
+            want_pull = False
         s = request.sampling
         seed = (s.seed if s.seed is not None
                 # stable across processes (unlike hash(): PYTHONHASHSEED)
@@ -419,10 +815,19 @@ class TorchEngine:
             block_table=np.zeros(self.config.max_blocks_per_seq, np.int32),
             sampling_seed=seed,
             enqueued_t=time.monotonic(),
+            disagg_prefill=DISAGG_ANNOTATION in (request.annotations or []),
         )
+        pull_task = None
+        if want_pull:
+            slot.pulling = True
+            slot.admitted = asyncio.Event()
         with self._qlock:
             self.waiting.append(slot)
         self._wake.set()
+        if want_pull:
+            # streaming pull: chunk injects interleave with decode steps;
+            # on any failure the slot falls back to local prefill
+            pull_task = asyncio.create_task(self._stream_pull(slot, dp))
         try:
             while True:
                 item = await next_or_cancel(
@@ -437,6 +842,8 @@ class TorchEngine:
                 if item.finish_reason is not None:
                     return
         finally:
+            if pull_task is not None and not pull_task.done():
+                pull_task.cancel()
             if not slot.finished:
                 # actual teardown happens on the scheduler thread
                 slot.cancel_requested = True
@@ -459,11 +866,30 @@ class TorchEngine:
     async def _loop(self) -> None:
         try:
             while not self._closed:
-                busy = (any(s is not None for s in self._slots)
-                         or bool(self._inflight))
+                if self._sched_calls or self._expired_parks():
+                    # scheduler ops (KV gathers, injects) run off the
+                    # event loop; no step is in flight while we await
+                    await asyncio.to_thread(self._between_steps)
+                # a slot mid-pull has no step work of its own (its chunk
+                # injects arrive as scheduler ops, which set _wake), except
+                # a pending cancellation, which needs one step to reap it
+                busy = (any(s is not None
+                            and (not s.pulling or s.cancel_requested)
+                            for s in self._slots)
+                        or bool(self._inflight))
                 if not busy and not self.waiting:
                     self._wake.clear()
-                    await self._wake.wait()
+                    if self._sched_calls:
+                        continue
+                    if self._parked:
+                        # wake so the parked-KV TTL reaper runs even on an
+                        # otherwise idle worker
+                        try:
+                            await asyncio.wait_for(self._wake.wait(), 5.0)
+                        except asyncio.TimeoutError:
+                            pass
+                    else:
+                        await self._wake.wait()
                     continue
                 t0 = time.monotonic()
                 await asyncio.to_thread(self._sched_step)
@@ -551,15 +977,12 @@ class TorchEngine:
             slot.ctx_len = cached
             slot.prompt_len = prompt_len
             slot.prefill_pos = cached
-
-    def _to_device(self, a: np.ndarray) -> torch.Tensor:
-        t = torch.from_numpy(a)
-        if self.device.type != "cuda":
-            return t
-        # from pinned memory: a pageable upload synchronizes the stream
-        # first, so the host would wait out every burst in flight (the
-        # caching host allocator keeps the block until the copy has run)
-        return t.pin_memory().to(self.device, non_blocking=True)
+            # disagg decode: wake the pull task now that blocks exist; the
+            # slot idles (prefill and decode skip it) while chunk injects
+            # stream in between steps
+            if slot.pulling and slot.admitted is not None \
+                    and self._loop_ref is not None:
+                self._loop_ref.call_soon_threadsafe(slot.admitted.set)
 
     def _prefill_step(self) -> None:
         """One packed prefill dispatch for up to max_prefill_seqs
@@ -567,7 +990,8 @@ class TorchEngine:
         by the chunk budget minus one token per decoding slot."""
         c = self.config
         pslots = sorted(
-            (s for s in self._slots if s is not None and s.prefilling),
+            (s for s in self._slots
+             if s is not None and s.prefilling and not s.pulling),
             key=lambda s: s.enqueued_t,
         )[:c.max_prefill_seqs]
         if not pslots:
@@ -581,11 +1005,10 @@ class TorchEngine:
             min_bucket=c.prefill_buckets[0], with_lora=False)
         if plan is None:
             return
-        a = {k: self._to_device(v) for k, v in plan.arrays.items()
-             if k != "lidx"}
-        logits, _ = llama.prefill_packed(
-            self.params, self.model_cfg, self.kv, a["toks"], a["positions"],
-            a["seg_ids"], a["tables"], a["last_idx"], a["valid"])
+        # the bucket's program on the plan padded to max_prefill_seqs rows
+        # (every row sampled: greedy rows take the argmax)
+        tok = self.prefill_graphs.run(
+            self.prefill_graphs.upload(self.prefill_graphs.pad(plan.arrays)))
         self.metrics["prefill_steps"] += 1
         # the first token is sampled (step 0 of the request's stream) only
         # for segments whose prompt completes in this chunk; intermediate
@@ -597,12 +1020,6 @@ class TorchEngine:
                           completing=len(need))
         firsts = None
         if need:
-            if all(s.request.sampling.temperature <= 0.0 for s in plan.slots):
-                tok = greedy_tokens(logits)
-            else:
-                tok = sample_tokens(logits, a["seeds"],
-                                    torch.zeros_like(a["seeds"]), a["temps"],
-                                    a["top_ks"], a["top_ps"])
             firsts = self._prefill_samples(tok, need)
         for i, (slot, chunk) in enumerate(zip(plan.slots, plan.chunks)):
             if i in need:
@@ -666,7 +1083,12 @@ class TorchEngine:
         self._complete_prefill(slot, first)
 
     def _complete_prefill(self, slot: _Slot, first: int) -> None:
+        """Prompt materialized and first token in hand: emit it, or park
+        the KV for a disagg pull."""
         slot.first_token_t = time.monotonic()
+        if slot.disagg_prefill:
+            self._park_prefilled(slot, first)
+            return
         self._push_token(slot, first)
 
     # -- decode -------------------------------------------------------------

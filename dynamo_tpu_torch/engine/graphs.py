@@ -1,4 +1,5 @@
-"""The decode-burst programs, captured once as CUDA graphs and replayed.
+"""The decode-burst and packed-prefill programs, captured once as CUDA
+graphs and replayed.
 
 The port's counterpart of the JAX engine's jitted decode programs
 (`_decode_impl`, `_decode_multi_impl`, dynamo_tpu/engine/core.py) and of
@@ -27,7 +28,9 @@ On CUDA the first run of a program is eager, which also sizes K1's
 workspace and warms cuBLAS; it is then captured into a CUDA graph (one
 memory pool shared by all programs; the KV cache and the parameters keep
 their addresses, since every write is in place), and every later run
-replays the graph.  `warmup_decode` (engine/core.py) builds every rung
+replays the graph.  Python's cyclic collector is off while a capture
+runs: a collection there may destroy another, unreachable engine's
+graphs, and destroying a graph invalidates the capture.  `warmup_decode` (engine/core.py) builds every rung
 of the fusion ladder under the step lock, so serving captures nothing.
 A capture that fails raises: there is no eager fallback on CUDA.
 `counts[(greedy, k)]` is the number of times a program was built
@@ -39,6 +42,24 @@ K1's wrappers count the launches they make.  A capture launches nothing,
 so the counts it added are taken back and kept per program, and each
 replay adds its program's count (k x layers) to the wrapper's.
 
+PrefillPrograms, the counterpart of the JAX engine's one jitted packed
+prefill per bucket (`_prefill_packed_impl`): one program per stream
+length T of the planner's bucket ladder (engine/prefill.py; with the
+default config the seven `prefill_buckets` 32 ... 2048).  Each runs
+models/llama.py prefill_packed, which computes K3's tile plan on the
+device, then sample_tokens (greedy rows take the argmax) into static
+[rows] tokens and [rows, vocab] logits.  Rows are padded to
+max_prefill_seqs and tables to max_blocks_per_seq: a padding row has
+last_idx 0 and an all-zero table, and owns no token, so it reads and
+writes only block 0 and K3 skips it.  So one program per bucket serves
+every plan.  Its inputs are views of one int32 descriptor per bucket
+(toks, positions, seg_ids, valid, then per row last_idx, seeds, temps,
+top_ks, top_ps, then the tables), uploaded with one copy from a pinned
+staging buffer.  The prefill programs keep their own graph pool: their
+replays interleave with the decode programs' in any order.  K3's
+launches move from the capture to each replay, as K1's do, and
+`counts[T]` gates the builds as `counts[(greedy, k)]` does.
+
 Readback, the counterpart of `copy_to_host_async`: right after a run
 its output is copied on the same stream into a pinned host buffer owned
 by the returned `Readback`, and an event is recorded; `wait()` blocks on
@@ -48,6 +69,7 @@ output, but stream order puts it after the copy.
 
 from __future__ import annotations
 
+import gc
 import time
 from typing import Callable, Dict, Optional, Tuple
 
@@ -233,23 +255,203 @@ class DecodePrograms:
     def _capture(self, key: Tuple[bool, int]) -> None:
         from ..ops import cuda_paged_attention as k1
 
-        wrappers = (k1.paged_decode, k1.paged_decode_int8)
-        before = [fn.launches for fn in wrappers]
         if self._pool is None:
             self._pool = torch.cuda.graph_pool_handle()
-        # what empty_cache cannot return afterwards is the pool's growth
-        torch.cuda.synchronize(self.device)
-        torch.cuda.empty_cache()
-        reserved = torch.cuda.memory_reserved(self.device)
-        t0 = time.perf_counter()
-        graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(graph, pool=self._pool):
-            self.run_eager(*key)
-        self.capture_s[key] = time.perf_counter() - t0
-        torch.cuda.empty_cache()
-        self.pool_bytes += torch.cuda.memory_reserved(self.device) - reserved
-        self._graph_launches[key] = [
-            (fn, fn.launches - b) for fn, b in zip(wrappers, before)]
-        for fn, b in zip(wrappers, before):
-            fn.launches = b  # the capture itself launched nothing
-        self._graphs[key] = graph
+        (self._graphs[key], self._graph_launches[key], self.capture_s[key],
+         grown) = _capture(self.device, self._pool,
+                           lambda: self.run_eager(*key),
+                           (k1.paged_decode, k1.paged_decode_int8))
+        self.pool_bytes += grown
+
+
+def _capture(device: torch.device, pool, body: Callable[[], object],
+             wrappers: tuple) -> tuple:
+    """Capture `body` into a CUDA graph in `pool`.  Returns (the graph,
+    [(wrapper, launches)] the body's kernel launches per replay, the
+    seconds the capture took, the bytes the pool grew by).  A capture
+    launches nothing, so the counts it added to `wrappers` are taken
+    back."""
+    before = [fn.launches for fn in wrappers]
+    # what empty_cache cannot return afterwards is the pool's growth
+    torch.cuda.synchronize(device)
+    torch.cuda.empty_cache()
+    reserved = torch.cuda.memory_reserved(device)
+    t0 = time.perf_counter()
+    graph = torch.cuda.CUDAGraph()
+    # no cyclic collection inside a capture: it may destroy an unreachable
+    # engine's CUDA graphs, and that invalidates the capture
+    # (cudaErrorStreamCaptureInvalidated)
+    gc_was_enabled = gc.isenabled()
+    gc.disable()
+    try:
+        # thread_local: another engine of the process (a disagg pair on
+        # one card) may launch work from its own scheduler thread meanwhile
+        with torch.cuda.graph(graph, pool=pool,
+                              capture_error_mode="thread_local"):
+            body()
+    finally:
+        if gc_was_enabled:
+            gc.enable()
+    seconds = time.perf_counter() - t0
+    torch.cuda.empty_cache()
+    grown = torch.cuda.memory_reserved(device) - reserved
+    launches = [(fn, fn.launches - b) for fn, b in zip(wrappers, before)]
+    for fn, b in zip(wrappers, before):
+        fn.launches = b  # the capture itself launched nothing
+    return graph, launches, seconds, grown
+
+
+# packed-prefill descriptor: fields of T words (the stream), then fields
+# of `rows` words, then the tables (rows x max_blocks words)
+PREFILL_STREAM = ("toks", "positions", "seg_ids", "valid")
+PREFILL_ROWS = ("last_idx", "seeds", "temps", "top_ks", "top_ps")
+
+
+class _PrefillDesc:
+    """Views of one bucket's descriptor buffer by field name."""
+
+    def __init__(self, buf: torch.Tensor, T: int, rows: int,
+                 max_blocks: int):
+        off = 0
+        for name, n in ([(f, T) for f in PREFILL_STREAM]
+                        + [(f, rows) for f in PREFILL_ROWS]):
+            view = buf[off:off + n]
+            setattr(self, name, view.view(torch.float32)
+                    if name in _FLOAT_FIELDS else view)
+            off += n
+        self.tables = buf[off:off + rows * max_blocks].view(rows, max_blocks)
+
+
+class PrefillPrograms:
+    def __init__(self, params, cfg: llama.LlamaConfig, kv: tuple, rows: int,
+                 max_blocks: int, buckets, device: torch.device,
+                 capture: bool = True):
+        self.params, self.cfg, self.kv = params, cfg, kv
+        self.rows, self.max_blocks, self.device = rows, max_blocks, device
+        self.buckets = tuple(buckets)
+        self.capture = capture and device.type == "cuda"
+        self.desc: Dict[int, torch.Tensor] = {}
+        self.d: Dict[int, _PrefillDesc] = {}
+        self.tok: Dict[int, torch.Tensor] = {}
+        self.logits: Dict[int, torch.Tensor] = {}
+        for T in self.buckets:
+            self.desc[T] = torch.zeros(self._words(T), dtype=torch.int32,
+                                       device=device)
+            self.d[T] = _PrefillDesc(self.desc[T], T, rows, max_blocks)
+            self.tok[T] = torch.zeros(rows, dtype=torch.int32, device=device)
+            self.logits[T] = torch.zeros(rows, cfg.vocab_size,
+                                         dtype=torch.float32, device=device)
+        self.counts: Dict[int, int] = {}
+        self.capture_s: Dict[int, float] = {}
+        self.pool_bytes = 0
+        self._graphs: Dict[int, torch.cuda.CUDAGraph] = {}
+        self._graph_launches: Dict[int, list] = {}
+        self._pool = None
+        pin = device.type == "cuda"
+        n = max(self._words(T) for T in self.buckets)
+        self._staging = [torch.zeros(n, dtype=torch.int32, pin_memory=pin)
+                         for _ in range(_STAGING)]
+        self._staged = [None] * _STAGING
+        self._next = 0
+
+    def _words(self, T: int) -> int:
+        return (len(PREFILL_STREAM) * T + len(PREFILL_ROWS) * self.rows
+                + self.rows * self.max_blocks)
+
+    # -- inputs ------------------------------------------------------------
+    def host_descriptor(self, T: int) -> Dict[str, np.ndarray]:
+        """Fresh host arrays of bucket T's descriptor with every token and
+        row padding (top_p 1, everything else 0)."""
+        rows = self.rows
+        a = {name: np.zeros(T, bool if name == "valid" else np.int32)
+             for name in PREFILL_STREAM}
+        a.update({name: np.zeros(rows, np.float32 if name in _FLOAT_FIELDS
+                                  else np.int32) for name in PREFILL_ROWS})
+        a["top_ps"][:] = 1.0
+        a["tables"] = np.zeros((rows, self.max_blocks), np.int32)
+        return a
+
+    def pad(self, arrays: Dict[str, np.ndarray]) -> Dict[str, np.ndarray]:
+        """A planner's arrays (engine/prefill.py: S <= rows segment rows,
+        tables up to max_blocks wide, stream length its bucket) padded to
+        the bucket's descriptor."""
+        T = len(arrays["toks"])
+        a = self.host_descriptor(T)
+        for name in PREFILL_STREAM:
+            a[name][:] = arrays[name]
+        S = len(arrays["last_idx"])
+        for name in PREFILL_ROWS:
+            a[name][:S] = arrays[name]
+        tables = np.asarray(arrays["tables"])
+        a["tables"][:S, :tables.shape[1]] = tables
+        return a
+
+    def upload(self, a: Dict[str, np.ndarray]) -> int:
+        """Bucket T's descriptor from the host arrays `a` (T = the stream
+        length): one copy from a pinned buffer.  Returns T."""
+        T = len(a["toks"])
+        if T not in self.desc:
+            raise ValueError(f"no prefill program for a {T}-token stream; "
+                             f"buckets {self.buckets}")
+        i = self._next
+        self._next = (i + 1) % _STAGING
+        if self._staged[i] is not None:
+            self._staged[i].synchronize()  # its last copy has run
+        n = self._words(T)
+        host = self._staging[i][:n].numpy()
+        off = 0
+        for name, width in ([(f, T) for f in PREFILL_STREAM]
+                            + [(f, self.rows) for f in PREFILL_ROWS]):
+            col = np.asarray(a[name])
+            host[off:off + width] = (col.astype(np.float32).view(np.int32)
+                                     if name in _FLOAT_FIELDS
+                                     else col.astype(np.int32))
+            off += width
+        host[off:] = np.asarray(a["tables"], np.int32).reshape(-1)
+        self.desc[T].copy_(self._staging[i][:n], non_blocking=True)
+        if self.device.type == "cuda":
+            self._staged[i] = torch.cuda.Event()
+            self._staged[i].record()
+        return T
+
+    # -- programs ----------------------------------------------------------
+    def run_eager(self, T: int) -> torch.Tensor:
+        """The program body, run eagerly: returns its static tokens
+        [rows] (its logits are in `logits[T]`)."""
+        d = self.d[T]
+        logits, _ = llama.prefill_packed(
+            self.params, self.cfg, self.kv, d.toks, d.positions, d.seg_ids,
+            d.tables, d.last_idx, d.valid != 0)
+        tok = sample_tokens(logits, d.seeds, torch.zeros_like(d.seeds),
+                            d.temps, d.top_ks, d.top_ps)
+        self.logits[T].copy_(logits)
+        self.tok[T].copy_(tok)
+        return self.tok[T]
+
+    def run(self, T: int) -> torch.Tensor:
+        """Dispatch bucket T's program on its current descriptor; returns
+        its static tokens [rows] (a later dispatch of the bucket
+        overwrites them, in stream order)."""
+        graph = self._graphs.get(T)
+        if graph is not None:
+            graph.replay()
+            for fn, n in self._graph_launches[T]:
+                fn.launches += n
+            return self.tok[T]
+        out = self.run_eager(T)
+        if T not in self.counts:
+            if self.capture:
+                self._capture(T)
+            self.counts[T] = 1
+        return out
+
+    def _capture(self, T: int) -> None:
+        from ..ops import cuda_packed_prefill as k3
+
+        if self._pool is None:
+            self._pool = torch.cuda.graph_pool_handle()
+        (self._graphs[T], self._graph_launches[T], self.capture_s[T],
+         grown) = _capture(self.device, self._pool,
+                           lambda: self.run_eager(T),
+                           (k3.packed_prefill, k3.packed_prefill_int8))
+        self.pool_bytes += grown

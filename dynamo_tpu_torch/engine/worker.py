@@ -9,8 +9,13 @@ the unchanged JAX frontend and its KV router serve it like any other:
     engine is warm, withdrawn on drain and close; with a checkpoint
     (config.model_path) it carries the checkpoint's tokenizer.json inline
     and its chat template, so frontends on other hosts can build them;
-  * the `generate`, `clear_kv_blocks` and `kv_events_replay` endpoints on
-    the TCP request plane, `generate` with the canary health check;
+  * the `generate`, `clear_kv_blocks`, `kv_events_replay` and `kv_pull`
+    endpoints on the TCP request plane, `generate` with the canary health
+    check; `kv_pull` serves the disagg pull's open/chunk/close ops
+    (disagg/transfer.py) on a prefill worker's parked KV, and the engine
+    is registered with the in-process broker (disagg/broker.py), so a
+    decode worker in the same process pulls device-resident chunks and
+    one elsewhere pulls host-staged frames over the request plane;
   * KV events on `kv_events.{ns}.{comp}` (router/events.py), netted by the
     engine's consolidator;
   * load metrics on `load_metrics.{ns}.{comp}` and the engine's
@@ -19,7 +24,8 @@ the unchanged JAX frontend and its KV router serve it like any other:
     let in-flight requests finish until a deadline, abort the rest with
     the migratable "worker draining" marker.
 
-Not ported yet (ROADMAP.md): multi-host slices, the `kv_pull`,
+Not ported yet (ROADMAP.md): multi-host slices, the device-to-device
+pull across processes (the `kv_pull` op's `via=transfer` branch), the
 `kvbm_pull` and `embed` endpoints, the SLO feed, the guided-decoding
 codec, timeline spans, and the /metrics gauges and /debug sources (the
 system-status server is not ported).
@@ -34,6 +40,12 @@ import time
 from typing import Optional
 
 from ..device import DeviceLike
+from ..disagg import broker
+from ..disagg.transfer import (
+    RequestPlanePullSource,
+    encode_chunk_frame,
+    make_header,
+)
 from ..models.loader import load_chat_template
 from ..protocols import (
     CANARY_GENERATE_PAYLOAD,
@@ -87,6 +99,8 @@ class TorchEngineWorker:
         self.served = None
         self._aux_served: list = []
         self._load_task: Optional[asyncio.Task] = None
+        self._pull_clients: dict = {}
+        self._broker_id: Optional[int] = None
 
     @property
     def card(self) -> ModelDeploymentCard:
@@ -143,8 +157,14 @@ class TorchEngineWorker:
 
         self.engine = TorchEngine(self.config, params=self._params,
                                   device=self.device,
-                                  kv_event_sink=kv_event_sink)
+                                  kv_event_sink=kv_event_sink,
+                                  kv_pull_fn=self._kv_pull)
         self._params = None  # the engine holds them now
+        self.engine.transfer_identity = {
+            "instance_id": instance_id,
+            "namespace": self.namespace,
+            "component": self.component,
+        }
 
         async def generate_handler(payload, ctx):
             request = PreprocessedRequest.from_dict(payload)
@@ -154,6 +174,28 @@ class TorchEngineWorker:
         async def clear_handler(payload, ctx):
             n = await self.engine.clear_kv_blocks()
             yield {"cleared_blocks": n}
+
+        async def kv_pull_handler(payload, ctx):
+            """Receiver-paced pull ops (disagg/transfer.py): open ->
+            header, chunk -> one gathered chunk as host bytes, close ->
+            release.  Each chunk is ONE scheduler op on this engine, so
+            its other requests interleave with the extraction."""
+            op = payload.get("op")
+            rid = payload["request_id"]
+            if op == "open":
+                n_blocks, prompt_len = await self.engine.parked_info(rid)
+                yield make_header(prompt_len,
+                                  self.engine.kv_wire_layout(n_blocks))
+            elif op == "chunk":
+                b0 = int(payload["start"])
+                arrs = await self.engine.extract_parked_chunk(
+                    rid, b0, int(payload["count"]))
+                yield encode_chunk_frame(b0, *arrs)
+            elif op == "close":
+                await self.engine.release_parked(rid)
+                yield {}
+            else:
+                raise ValueError(f"unknown kv_pull op {op!r}")
 
         comp = rt.namespace(self.namespace).component(self.component)
         self.served = await comp.endpoint("generate").serve_endpoint(
@@ -167,7 +209,14 @@ class TorchEngineWorker:
                 clear_handler, instance_id=instance_id),
             await comp.endpoint("kv_events_replay").serve_endpoint(
                 self.publisher.replay_handler, instance_id=instance_id),
+            await comp.endpoint("kv_pull").serve_endpoint(
+                kv_pull_handler, instance_id=instance_id),
         ]
+        # co-resident engines pull device-resident chunks through the
+        # process broker; registered once every endpoint is up, so a
+        # failed start leaks no half-built engine into the registry
+        broker.register_engine(instance_id, self.engine)
+        self._broker_id = instance_id
         if self.config.warmup:
             # before the model becomes discoverable, so no request pays
             # for a kernel build; the step lock keeps a canary's step out
@@ -177,6 +226,26 @@ class TorchEngineWorker:
         logger.info("torch engine worker %d serving %s on %s", instance_id,
                     self.config.served_name, self.engine.device)
         return self
+
+    async def _kv_pull(self, params: dict):
+        """Decode-side pull source, best tier first: an engine of this
+        process (broker: chunks stay on the device), else host-staged
+        frames over the request plane from the sender's `kv_pull`
+        endpoint.  The engine validates the sender's layout."""
+        src_engine = broker.lookup_engine(params["instance_id"])
+        if src_engine is not None and src_engine is not self.engine:
+            return broker.LocalEnginePullSource(src_engine,
+                                                params["request_id"])
+        key = (params.get("namespace", self.namespace),
+               params.get("component", self.component))
+        client = self._pull_clients.get(key)
+        if client is None:
+            ep = (self.runtime.namespace(key[0]).component(key[1])
+                  .endpoint("kv_pull"))
+            client = await ep.client().start()
+            await client.wait_for_instances()
+            self._pull_clients[key] = client
+        return RequestPlanePullSource(client, params)
 
     async def _load_loop(self) -> None:
         subject = f"{LOAD_SUBJECT_PREFIX}.{self.namespace}.{self.component}"
@@ -229,6 +298,12 @@ class TorchEngineWorker:
         self.engine.drain_abort()
 
     async def close(self) -> None:
+        if self._broker_id is not None:
+            broker.deregister_engine(self._broker_id)
+            self._broker_id = None
+        for client in self._pull_clients.values():
+            await client.close()
+        self._pull_clients = {}
         if self._load_task is not None:
             self._load_task.cancel()
             await asyncio.gather(self._load_task, return_exceptions=True)

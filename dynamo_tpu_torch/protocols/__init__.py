@@ -1,5 +1,6 @@
 from .llm import (
     CANARY_GENERATE_PAYLOAD,
+    DISAGG_ANNOTATION,
     DRAIN_ABORT,
     DRAIN_REJECT,
     FinishReason,
@@ -12,6 +13,7 @@ from .model_card import ModelDeploymentCard, deregister_model, register_model
 
 __all__ = [
     "CANARY_GENERATE_PAYLOAD",
+    "DISAGG_ANNOTATION",
     "DRAIN_ABORT",
     "DRAIN_REJECT",
     "FinishReason",

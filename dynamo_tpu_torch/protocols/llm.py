@@ -1,7 +1,7 @@
 """Engine-facing request/response protocol.
 
-A copy of the request and output types, the drain markers and the
-canary payload of dynamo_tpu/protocols/llm.py
+A copy of the request and output types, the drain markers, the disagg
+annotation and the canary payload of dynamo_tpu/protocols/llm.py
 (the port imports nothing of the JAX package).  `PreprocessedRequest` is
 what the frontend's preprocessor emits and every engine consumes;
 `LLMEngineOutput` is the per-step stream item flowing back.  Both
@@ -15,6 +15,11 @@ from dataclasses import dataclass, field
 from typing import Any, Dict, List, Optional
 
 FinishReason = str  # "stop" | "length" | "eos" | "cancelled" | "error"
+
+# a request carrying this annotation is a disaggregated prefill hop: the
+# engine prefills, parks the KV for the decode worker's pull and answers
+# with one frame carrying kv_transfer_params (engine/core.py)
+DISAGG_ANNOTATION = "disagg_prefill"
 
 # graceful-drain error markers (engine/worker.py drain()): the frontend
 # classifies a stream error as migratable by the "worker draining"

@@ -35,7 +35,9 @@ FORBIDDEN = ("jax", "jaxlib", "dynamo_tpu", "ml_dtypes", "safetensors",
              "transformers")
 # modules the import checks must reach (a later slice's additions)
 REQUIRED = ("models/loader.py", "models/weight_cache.py",
-            "engine/loader_cache.py", "ops/fused_sampling.py")
+            "engine/loader_cache.py", "ops/fused_sampling.py",
+            "disagg/__init__.py", "disagg/transfer.py", "disagg/broker.py",
+            "ops/kv_transfer.py", "runtime/retry.py")
 
 
 def _package_modules():
@@ -133,12 +135,29 @@ def test_unported_config_field_raises(field):
     EngineConfig(**{field: _UNPORTED[field][0]})  # the default is fine
 
 
-@pytest.mark.parametrize("field", ["model_path", "sampling_epilogue"])
+@pytest.mark.parametrize("field", ["model_path", "sampling_epilogue",
+                                   "role"])
 def test_ported_config_field_accepted(field, tmp_path):
     """Fields that left _UNPORTED when their features were ported take a
     valid value; sampling_epilogue rejects others with the JAX engine's
-    ValueError."""
+    ValueError, role with the JAX CLI's choices."""
     assert field not in _UNPORTED
+    if field == "role":
+        from dynamo_tpu.engine.__main__ import build_args as jax_args
+        from dynamo_tpu.engine.config import EngineConfig as JaxEngineConfig
+        from dynamo_tpu_torch.engine.__main__ import build_args
+
+        choices = [a.choices for p in (jax_args(), build_args())
+                   for a in p._actions if a.dest == "role"]
+        assert choices[0] == choices[1] == ["both", "prefill", "decode"]
+        for role in choices[0]:
+            assert EngineConfig(role=role).role == role
+        with pytest.raises(ValueError, match="role"):
+            EngineConfig(role="router")
+        # the frame bound that comes with it, at the JAX default
+        assert EngineConfig().transfer_chunk_bytes \
+            == JaxEngineConfig().transfer_chunk_bytes
+        return
     if field == "sampling_epilogue":
         for mode in ("off", "fused"):
             assert EngineConfig(sampling_epilogue=mode).sampling_epilogue \

@@ -220,6 +220,7 @@ async def test_drain_abort_mid_overlap():
     eng = torch_engine()
     streams = {i: [] for i in range(len(PROMPTS))}
     errors = {}
+    last = len(PROMPTS) - 1
 
     async def one(i):
         await asyncio.sleep(i * 0.02)
@@ -229,7 +230,10 @@ async def test_drain_abort_mid_overlap():
                 errors[i] = out.error
                 return
             streams[i].extend(out.token_ids)
-            if i == 0 and len(streams[0]) >= 10 and not eng.draining:
+            # mid-stream, once the last arrival is admitted: an earlier
+            # drain would reject it before admission (DRAIN_REJECT)
+            if len(streams[0]) >= 10 and streams[last] \
+                    and not eng.draining:
                 eng.drain_abort()
 
     try:
@@ -366,13 +370,19 @@ async def test_overlapped_kv_events_match_overlapped_jax_engine():
 
 
 @pytest.mark.gpu
-async def test_graphed_engine_equals_eager_engine_on_gpu():
+def test_graphed_engine_equals_eager_engine_on_gpu():
     """On a card: the tiny preset (bf16, hd 64) served with its decode
     programs captured by warm-up streams what the same engine streams
     with the programs run eagerly, greedy and sampled, and serving
-    captures nothing more."""
+    captures nothing more.  It runs its own event loop, so it needs no
+    async support from the suite's conftest (`--noconftest` on a GPU
+    host)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+    asyncio.run(_graphed_against_eager())
+
+
+async def _graphed_against_eager():
     reqs = [_req(False, list(range(3 + i, 3 + i + n)), f"g{i}", 40,
                  SAMPLING[i]) for i, n in enumerate((300, 40, 7, 129))]
     res = {}
