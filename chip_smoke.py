@@ -14,6 +14,7 @@
     python3 chip_smoke.py --prefill-ab    # eager packed prefill against
                                           # one CUDA graph per bucket
     python3 chip_smoke.py --disagg        # the disaggregated pair
+    python3 chip_smoke.py --kvbm          # the KV block manager's tiers
 
 Builds the port's CUDA kernels from csrc/ (three nvcc processes started
 together), holds each entry point (K1 and K3, each in its bf16 and its
@@ -40,7 +41,8 @@ load metrics, FPM records, the MDC, clear_kv_blocks, cancellation and
 close; then the decode A/B, the fused A/B and the prefill A/B (below)
 run; after the int8 run, one request goes through a worker on the int8
 cache (its launches and the dtype it reports), then the disagg phase
-(below).  Last, a HF-format Llama checkpoint at
+(below), then the KVBM phase (below).  Last, a HF-format Llama
+checkpoint at
 llama-8b width, depth cut to 4 layers (about 3.9 GB of bf16), is written
 to a temporary directory with the standard library and served through
 the port's own safetensors loader and weight cache (below).  Any failed
@@ -53,7 +55,8 @@ microbench's own run for K4, `worker_launches` in the worker run; a
 replay of a captured program adds the K1/K3 launches its capture
 recorded; `checkpoint_launches` in the loaded checkpoint's run;
 `disagg_prefill_launches` and `disagg_decode_launches`, the disagg
-pair's prefill and decode workers' in its main run), error
+pair's prefill and decode workers' in its main run; `kvbm_launches` in
+the KVBM phase's first G2 run, bf16, or its int8 run), error
 against its plain version (`max_abs_err`, and
 `max_rel_err`, the figure the tolerance holds), its device time (`ms`,
 by CUDA-graph replay for K1/K3; K3's with its tile plan computed
@@ -121,6 +124,25 @@ to the sender's; then the five at once (TTFT through the pair against
 the aggregated engine's), pull GB/s per tier, the host chunk bound, and
 gather/inject GB/s against their byte bound; then one request through
 an int8 pair against an aggregated int8 engine.
+
+The KVBM phase (part of the whole check; alone with --kvbm): llama-8b
+at full width and depth, a 64-block G1 with the offload watermark at the
+pool, prompt A (1800 tokens, 14 full blocks) and five distinct
+1800-token churn prompts that push A out of G1 (each engine its own
+cache and temp directories): a reference without KVBM whose repeat of A
+is a G1 prefix hit; G2 (pinned host memory) against the recompute
+baseline in turns; G3 (a disk directory under $TMPDIR, its file system
+printed); G4 (an object store directory); G2 on an int8 cache against
+an int8 reference; and the cross-worker pull between two workers.  Each
+onboarded repeat must onboard all 14 blocks from the named tier, prefill
+at most 8 tokens, stream the reference repeat's tokens and hold prefix
+blocks bit-equal to the reference's; no program is captured while
+serving.  It prints the repeat's TTFT per tier against the recompute,
+the churn's decode tokens/s with KVBM on and off, the scheduler's
+seconds in offload passes, the gather's GB/s against its byte bound,
+device-to-host GB/s against one contiguous pinned copy, the onboard's
+upload + inject GB/s, G3 write and read GB/s, the pull's GB/s and the
+pinned bytes of G2.
 
 The checkpoint phase (alone with --checkpoint): the synthesized
 checkpoint (two shards, config.json, tokenizer.json, a chat template)
@@ -2712,6 +2734,537 @@ def check_disagg_int8(device, card: str, params) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# KVBM: the multi-tier KV block manager (G2 pinned host memory, G3 disk,
+# G4 shared object store, the cross-worker pull)
+# ---------------------------------------------------------------------------
+
+# prompt A: 1800 tokens, 14 full blocks of 128 (224 MiB of bf16 at
+# llama-8b width); the churn: distinct 1800-token prompts served one at a
+# time, enough that A keeps no block in a 64-block G1 (each request holds
+# 15 blocks; the LRU evicts A's first)
+KVBM_PROMPT = 1800
+KVBM_CHURN = 5
+KVBM_BLOCKS = 64
+# G3's capacity: A and the churn offload 6 x 14 blocks, 8 of which G2
+# keeps, so a disk of 64 would drop A's oldest blocks before the repeat
+KVBM_DISK_BLOCKS = 96
+# the G4 ops' deadline in this phase: a 16 MiB blob on a slow mount must
+# not time out into a recompute the checks would call a failure
+KVBM_IO_DEADLINE_S = 2.0
+
+
+def _greedy(tokens, rid: str):
+    from dynamo_tpu_torch.protocols import (
+        PreprocessedRequest,
+        SamplingOptions,
+        StopConditions,
+    )
+
+    return PreprocessedRequest(
+        token_ids=list(tokens), request_id=rid,
+        sampling=SamplingOptions(temperature=0.0),
+        stop=StopConditions(max_tokens=32, ignore_eos=True))
+
+
+def _kvbm_prompts(vocab: int) -> tuple:
+    """(prompt A, the churn prompts, a short tick prompt), seed 11."""
+    rng = np.random.default_rng(11)
+    a = rng.integers(0, vocab, KVBM_PROMPT).tolist()
+    churn = [rng.integers(0, vocab, KVBM_PROMPT).tolist()
+             for _ in range(KVBM_CHURN)]
+    return a, churn, rng.integers(0, vocab, 37).tolist()
+
+
+def _kvbm_config(kv_dtype: str, **kw):
+    """The engine runs' config (_engine_config) with a 64-block G1 and the
+    offload watermark at the pool, so every step offloads before it evicts
+    (tests/test_kvbm.py:239); `kw` sets the tiers."""
+    return dataclasses.replace(
+        _engine_config("bf16"), kv_cache_dtype=kv_dtype,
+        num_blocks=KVBM_BLOCKS, offload_watermark_blocks=KVBM_BLOCKS,
+        kv_io_deadline_s=KVBM_IO_DEADLINE_S, **kw)
+
+
+def _a_hashes(a, bs: int) -> list:
+    from dynamo_tpu_torch.tokens import compute_block_hashes_for_request
+
+    return compute_block_hashes_for_request(a, bs)[:(len(a) - 1) // bs]
+
+
+async def _repeat(eng, req) -> tuple:
+    """Serve `req` alone on the idle engine `eng`: (its _serve result,
+    (metrics before, metrics after, where its TTFT went: each prefill
+    dispatch's ms after the request's start, rows and tokens from the FPM
+    records, and the garbage-collector passes inside it))."""
+    await _idle(eng)
+    m0 = dict(eng.metrics)
+    pauses: list = []
+    w0 = time.monotonic()
+    with gc_pauses(pauses):
+        res = (await _serve(eng, [req]))[0]
+    trace = (f"prefill dispatches (ms after the start, rows, tokens) "
+             f"{_prefill_dispatches(eng.fpm, w0)}, {len(pauses)} GC passes "
+             f"{1e3 * sum(pauses):.1f} ms")
+    return res, (m0, dict(eng.metrics), trace)
+
+
+async def _idle(eng) -> None:
+    """Wait until `eng` has nothing queued: no request, no burst in
+    flight or being read back (the step lock free), no first token
+    unread, no offload copy uncommitted, the device done.  A request sent
+    right after another's stream ends would wait out that request's
+    unread bursts first (overshoot the device still runs), which is not
+    the TTFT of the tier it came back from."""
+    while (eng.waiting or any(s is not None for s in eng._slots)
+           or eng._inflight or eng._pending_first or eng._offloading
+           or eng._step_lock.locked()):
+        await asyncio.sleep(0.005)
+    await asyncio.to_thread(torch.cuda.synchronize)
+
+
+def _free_engine(eng) -> None:
+    eng.kv = eng.graphs = eng.prefill_graphs = None
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def _prefix_blocks(eng, hashes) -> tuple:
+    """The blocks G1 holds under `hashes`, gathered to the host."""
+    from dynamo_tpu_torch.ops.kv_transfer import gather_universal
+
+    ids = [eng.allocator._hash_to_block[h] for h in hashes]
+    return tuple(t.cpu() for t in gather_universal(eng.kv, ids))
+
+
+def _same_payload(x, y) -> bool:
+    return len(x) == len(y) and all(
+        a.dtype == b.dtype and a.shape == b.shape
+        and torch.equal(a.view(torch.uint8), b.view(torch.uint8))
+        for a, b in zip(x, y))
+
+
+def _kvbm_turn(device, card: str, cfg, params, prompts, what: str,
+               count=()) -> dict:
+    """One engine with `cfg` (warm-up capturing every program): prompt A,
+    the churn one at a time, then A again once A keeps no block in G1.
+    Launch counts of `count`'s wrappers are set to 0 just before A and
+    read just after the repeat.  Frees the engine's cache."""
+    from dynamo_tpu_torch.engine import TorchEngine
+
+    a, churn, _ = prompts
+    eng = TorchEngine(cfg, params=params, device=device)
+    t0 = time.perf_counter()
+    eng.warmup_decode()
+    built = (_log_programs(eng, what), _log_prefill_programs(eng, what))
+    log(f"{what}: warm-up in {time.perf_counter() - t0:.1f} s, "
+        f"{cfg.num_blocks} blocks of {cfg.block_size}, host_cache_blocks "
+        f"{cfg.host_cache_blocks}, disk {cfg.disk_cache_blocks}, object "
+        f"store {bool(cfg.object_store_dir)}")
+    hashes = _a_hashes(a, cfg.block_size)
+    gc.collect()
+
+    async def run():
+        try:
+            for fn in count:
+                fn.launches = 0
+            first = (await _serve(eng, [_greedy(a, "kvbm-a1")]))[0]
+            t0 = time.perf_counter()
+            churned = [(await _serve(eng, [_greedy(p, f"kvbm-c{i}")]))[0]
+                       for i, p in enumerate(churn)]
+            churn_s = time.perf_counter() - t0
+            kept = eng.allocator.lookup(hashes)
+            again, trace = await _repeat(eng, _greedy(a, "kvbm-a2"))
+            launches = {fn.__name__: fn.launches for fn in count}
+            return first, churned, churn_s, kept, again, trace, launches
+        finally:
+            await eng.close()
+
+    first, churned, churn_s, kept, again, (m0, m1, trace), launches = \
+        asyncio.run(run())
+    if kept:
+        raise SystemExit(f"{what}: A kept {kept} blocks in G1 after the "
+                         "churn")
+    if (eng.graphs.counts, eng.prefill_graphs.counts) != built:
+        raise SystemExit(f"{what}: serving captured programs again: "
+                         f"{eng.graphs.counts}, {eng.prefill_graphs.counts}")
+    n_dec = sum(len(r[0]) - 1 for r in churned)
+    dec_s = sum(r[3] - r[2] for r in churned)
+    g2 = eng.kvbm.g2 if eng.kvbm is not None else None
+    res = {
+        "first": first, "again": again, "churn_s": churn_s,
+        "decode_tok_s": n_dec / dec_s,
+        "prefill": m1["prefill_tokens"] - m0["prefill_tokens"],
+        "onboarded": {t: m1.get(f"kv_onboard_{t}", 0)
+                      - m0.get(f"kv_onboard_{t}", 0)
+                      for t in ("g2", "g3", "g4")},
+        "launches": launches, "stats": dict(eng.kvbm.stats) if g2 else {},
+        "offload_s": m1.get("offload_s", 0.0),
+        "offload_wait_s": m1.get("offload_wait_s", 0.0),
+        "offloaded_bytes": m1.get("offloaded_bytes", 0),
+        "g2_bytes": g2.nbytes() if g2 else 0,
+        "g2_pinned": sum(all(t.is_pinned() for t in b)
+                         for b in g2._blocks.values()) if g2 else 0,
+        "g2_blocks": len(g2) if g2 else 0,
+        "blocks": _prefix_blocks(eng, hashes),
+    }
+    if eng.kvbm is not None and eng.kvbm.g3 is not None:
+        res["g3_dir"] = eng.kvbm.g3.dir
+    log(f"{what} ({card}): repeat ttft {again[2]:.4f} s (first "
+        f"{first[2]:.4f} s; {trace}), repeat prefill tokens {res['prefill']}, "
+        f"onboarded {res['onboarded']}; churn decode "
+        f"{res['decode_tok_s']:.1f} tokens/s ({n_dec} tokens, "
+        f"{KVBM_CHURN} requests in {churn_s:.2f} s); scheduler thread in "
+        f"offload passes {res['offload_s']:.4f} s, waiting on copies "
+        f"{res['offload_wait_s']:.4f} s (idle engine only); offloaded "
+        f"{res['offloaded_bytes'] / 2**30:.3f} GiB; G2 {res['g2_blocks']} "
+        f"blocks, {res['g2_bytes'] / 2**30:.3f} GiB, {res['g2_pinned']} "
+        f"pinned; stats {res['stats']}; launches {launches}")
+    _free_engine(eng)
+    return res
+
+
+def _kvbm_reference(device, card: str, kv_dtype: str, params,
+                    prompts) -> dict:
+    """KVBM off, 512 blocks: A, then A again (a G1 prefix hit of every
+    full block); the repeat's tokens and its prefix blocks."""
+    from dynamo_tpu_torch.engine import TorchEngine
+
+    cfg = dataclasses.replace(_kvbm_config(kv_dtype), num_blocks=512)
+    a = prompts[0]
+    eng = TorchEngine(cfg, params=params, device=device)
+    eng.warmup_decode()
+
+    async def run():
+        try:
+            first = (await _serve(eng, [_greedy(a, "kvbm-ref1")]))[0]
+            again, (m0, m1, trace) = await _repeat(eng,
+                                                   _greedy(a, "kvbm-ref2"))
+            return (first, again,
+                    m1["prefill_tokens"] - m0["prefill_tokens"], trace)
+        finally:
+            await eng.close()
+
+    first, again, prefilled, trace = asyncio.run(run())
+    hashes = _a_hashes(a, cfg.block_size)
+    ref = {"first": first, "again": again, "prefill": prefilled,
+           "blocks": _prefix_blocks(eng, hashes)}
+    log(f"kvbm reference ({kv_dtype}, KVBM off, 512 blocks, "
+        f"{card}): repeat ttft {again[2]:.4f} s (G1 hit of "
+        f"{len(hashes)} blocks, {prefilled} tokens prefilled; {trace}), "
+        f"first ttft "
+        f"{first[2]:.4f} s; repeat equal to the first stream: "
+        f"{again[0] == first[0]}")
+    _free_engine(eng)
+    return ref
+
+
+def _check_repeat(what: str, res: dict, ref: dict, tier: str,
+                  n_blocks: int) -> None:
+    """Exit unless the repeat onboarded all `n_blocks` of A, `tier`
+    among them, computed at most 8 prefill tokens and streamed the
+    reference repeat's tokens, with its prefix blocks bit-equal to the
+    reference's."""
+    got = res["onboarded"]
+    ok = (sum(got.values()) == n_blocks and got[tier] > 0
+          and res["prefill"] <= KVBM_PROMPT - n_blocks * 128
+          and res["again"][0] == ref["again"][0]
+          and res["again"][1] == "length"
+          and _same_payload(res["blocks"], ref["blocks"]))
+    log(f"{what}: onboarded {got} of {n_blocks} blocks, prefill tokens "
+        f"{res['prefill']} (at most {KVBM_PROMPT - n_blocks * 128}), tokens "
+        f"equal to the reference repeat's: {res['again'][0] == ref['again'][0]}"
+        f", prefix blocks bit-equal: "
+        f"{_same_payload(res['blocks'], ref['blocks'])}")
+    if not ok:
+        raise SystemExit(f"{what}: the repeat did not onboard A from {tier} "
+                         "as the reference computed it")
+
+
+def _kvbm_bandwidth(device, card: str, params, n: int) -> dict:
+    """The offload's and the onboard's transfers on a bf16 cache of the
+    KVBM config, n blocks, by CUDA events: the block-major gather against
+    its byte bound (read and written once at 3.35 TB/s); the per-block
+    device-to-host copies into pinned tensors against one contiguous
+    pinned copy of the same bytes (the library yardstick), in turns; the
+    upload and inject of blocks_from_host."""
+    from dynamo_tpu_torch.engine import TorchEngine
+    from dynamo_tpu_torch.ops.kv_transfer import blocks_from_host
+
+    eng = TorchEngine(_kvbm_config("bf16"), params=params, device=device)
+    kv = eng.kv
+    idx = torch.arange(1, 1 + n, device=device)
+    dst = list(range(1 + n, 1 + 2 * n))
+
+    def gather():
+        return [t.index_select(2, idx).permute(2, 0, 3, 1, 4).contiguous()
+                for t in kv]
+
+    major = gather()
+    payload = sum(g.numel() * g.element_size() for g in major)
+    pin = device.type == "cuda"
+    hosts = [[torch.empty(g.shape[1:], dtype=g.dtype, pin_memory=pin)
+              for g in major] for _ in range(n)]
+    big = [torch.empty(g.shape, dtype=g.dtype, pin_memory=pin)
+           for g in major]
+
+    def per_block():
+        for i in range(n):
+            for h, g in zip(hosts[i], major):
+                h.copy_(g[i], non_blocking=True)
+
+    def one_copy():
+        for b, g in zip(big, major):
+            b.copy_(g, non_blocking=True)
+
+    blocks = [tuple(h) for h in hosts]
+    out = {"payload": payload, "gather_ms": time_ms(gather, 5, 2),
+           "per_block_ms": [], "contiguous_ms": [],
+           "onboard_ms": time_ms(lambda: blocks_from_host(kv, blocks, dst),
+                                 3, 1)}
+    for name in ("contiguous", "per_block", "per_block", "contiguous"):
+        out[f"{name}_ms"].append(time_ms(
+            one_copy if name == "contiguous" else per_block, 3, 1))
+    moved = 2 * payload
+    out["gather_bound_ms"] = moved / HBM_BYTES_PER_S * 1e3
+    gb = lambda nbytes, ms: nbytes / ms / 1e6  # noqa: E731
+    log(f"kvbm transfers, {n} bf16 blocks ({payload / 2**20:.0f} MiB, "
+        f"{card}): gather {out['gather_ms']:.3f} ms = "
+        f"{gb(moved, out['gather_ms']):.1f} GB/s moved, "
+        f"{100 * out['gather_bound_ms'] / out['gather_ms']:.1f}% of its "
+        f"{out['gather_bound_ms']:.3f} ms byte bound; device-to-host "
+        f"per-block pinned copies ms {[round(x, 3) for x in out['per_block_ms']]}"
+        f" = {gb(payload, float(np.median(out['per_block_ms']))):.2f} GB/s "
+        f"against one contiguous pinned copy ms "
+        f"{[round(x, 3) for x in out['contiguous_ms']]} = "
+        f"{gb(payload, float(np.median(out['contiguous_ms']))):.2f} GB/s; "
+        f"onboard upload + inject {out['onboard_ms']:.3f} ms = "
+        f"{gb(payload, out['onboard_ms']):.2f} GB/s")
+    _free_engine(eng)
+    return out
+
+
+def _disk_bandwidth(card: str, blocks, directory: str) -> dict:
+    """G3 write and read GB/s of `blocks` (per-block tensor tuples) in a
+    fresh DiskBlockPool in `directory`: the puts (crc and npz included)
+    timed on the host clock, then each file dropped from the page cache
+    and every block read back and verified."""
+    from dynamo_tpu_torch.kvbm.pools import DiskBlockPool
+
+    pool = DiskBlockPool(directory, len(blocks))
+    try:
+        nbytes = sum(t.numel() * t.element_size() for b in blocks for t in b)
+        t0 = time.perf_counter()
+        for h, b in enumerate(blocks, 1):
+            pool.put(h, *b)
+        write_s = time.perf_counter() - t0
+        for h in range(1, len(blocks) + 1):
+            _evict(pool._path(h))
+        t0 = time.perf_counter()
+        back = [pool.get(h) for h in range(1, len(blocks) + 1)]
+        read_s = time.perf_counter() - t0
+        if not all(_same_payload(x, y) for x, y in zip(back, blocks)):
+            raise SystemExit("kvbm: a G3 block read back other bytes")
+    finally:
+        pool.close()
+    out = {"write_gb_s": nbytes / write_s / 1e9,
+           "read_gb_s": nbytes / read_s / 1e9, "bytes": nbytes}
+    log(f"kvbm G3 on {_fs_type(directory)} ({card}): {len(blocks)} "
+        f"blocks, {nbytes / 2**20:.0f} MiB: write {write_s:.3f} s = "
+        f"{out['write_gb_s']:.3f} GB/s, read (page cache dropped) "
+        f"{read_s:.3f} s = {out['read_gb_s']:.3f} GB/s")
+    return out
+
+
+def _kvbm_remote(device, card: str, params, prompts, ref: dict) -> dict:
+    """Two TorchEngineWorkers in one process sharing the weights (mem
+    discovery, in-process event plane, TCP on 127.0.0.1), bf16, G2 on:
+    W1 serves A and a tick (whose step offloads A's blocks); once W2's
+    index sees W1's run, W2 serves A (routed by hand): it pulls A's
+    blocks over kvbm_pull into its G2 and onboards them."""
+    import uuid
+
+    from dynamo_tpu_torch.engine import TorchEngineWorker
+    from dynamo_tpu_torch.runtime import DistributedRuntime, RuntimeConfig
+
+    a, _, tick = prompts
+    cfg = _kvbm_config("bf16", host_cache_blocks=96, warmup=True)
+    hashes = _a_hashes(a, cfg.block_size)
+
+    async def run():
+        rt = await DistributedRuntime(config=RuntimeConfig(
+            discovery_backend="mem", event_plane="inproc",
+            tcp_host="127.0.0.1"), cluster_id=uuid.uuid4().hex).start()
+        workers = []
+        try:
+            for _ in range(2):
+                workers.append(await TorchEngineWorker(
+                    rt, cfg, params=params, device=device).start())
+            w1, w2 = workers
+            built = [(w.engine.graphs.counts.copy(),
+                      w.engine.prefill_graphs.counts.copy())
+                     for w in workers]
+            client = await rt.namespace("dynamo").component(
+                "backend").endpoint("generate").client().start()
+            await client.wait_for_instances()
+            w1_id, w2_id = (w.served.instance_id for w in workers)
+
+            async def serve(req, wid):
+                t0 = time.perf_counter()
+                toks, first = [], None
+                async for out in client.generate(req.to_dict(),
+                                                 instance_id=wid):
+                    if out.get("token_ids") and first is None:
+                        first = time.perf_counter() - t0
+                    toks.extend(out.get("token_ids", []))
+                return toks, first
+
+            await serve(_greedy(a, "kvbm-r1"), w1_id)
+            await serve(_greedy(tick, "kvbm-tick"), w1_id)
+            t0 = time.monotonic()
+            while w2._kvbm_index.best_run(hashes) != (w1_id, len(hashes)):
+                if time.monotonic() - t0 > 30:
+                    raise SystemExit("kvbm remote: W2's index never saw "
+                                     "W1's G2 run of A")
+                await asyncio.sleep(0.02)
+            pulls = []
+            fetch = w2.engine.remote_kvbm_fetch
+
+            async def timed(hs):
+                t = time.perf_counter()
+                got = await fetch(hs)
+                pulls.append((time.perf_counter() - t, got))
+                return got
+
+            w2.engine.remote_kvbm_fetch = timed
+            await _idle(w2.engine)
+            m0 = dict(w2.engine.metrics)
+            toks, ttft = await serve(_greedy(a, "kvbm-r2"), w2_id)
+            m1 = dict(w2.engine.metrics)
+            blocks = _prefix_blocks(w2.engine, hashes)
+            same_built = [(w.engine.graphs.counts,
+                           w.engine.prefill_graphs.counts) for w in workers]
+            await client.close()
+            return toks, ttft, m0, m1, blocks, pulls, built == same_built
+        finally:
+            for w in workers:
+                await w.close()
+                _free_engine(w.engine)
+            await rt.shutdown()
+
+    toks, ttft, m0, m1, blocks, pulls, same_built = asyncio.run(run())
+    pulled = sum(t.numel() * t.element_size()
+                 for _, got in pulls for b in got for t in b[1:])
+    pull_s = sum(s for s, _ in pulls)
+    res = {"again": (toks, "length", ttft, 0.0), "blocks": blocks,
+           "prefill": m1["prefill_tokens"] - m0["prefill_tokens"],
+           "onboarded": {t: m1.get(f"kv_onboard_{t}", 0)
+                         - m0.get(f"kv_onboard_{t}", 0)
+                         for t in ("g2", "g3", "g4")},
+           "remote_onboarded": m1.get("remote_onboarded", 0),
+           "pull_gb_s": pulled / pull_s / 1e9 if pull_s else 0.0}
+    log(f"kvbm remote ({card}): W2 pulled {res['remote_onboarded']} "
+        f"blocks ({pulled / 2**20:.0f} MiB) in {pull_s:.3f} s = "
+        f"{res['pull_gb_s']:.3f} GB/s over kvbm_pull; repeat ttft on W2 "
+        f"{ttft:.4f} s (pull included); programs captured once on both "
+        f"workers: {same_built}")
+    if res["remote_onboarded"] != len(hashes) or not same_built:
+        raise SystemExit("kvbm remote: W2 did not stage A's blocks from W1"
+                         " or captured programs while serving")
+    _check_repeat("kvbm remote", res, ref, "g2", len(hashes))
+    return res
+
+
+def check_kvbm(device, card: str, params) -> dict:
+    """KVBM at llama-8b width and depth (weights `params`), a 64-block G1
+    with the offload watermark at the pool.  Runs, each engine with its
+    own cache and temp directories, freed before the next: (1) the
+    reference, KVBM off, 512 blocks: A then A again (a G1 hit); (2) G2
+    (96 blocks of pinned host memory, 1.5 GiB) and (3) the recompute
+    baseline (KVBM off), in turns (2, 3, 3, 2): A, the churn one at a
+    time, A again once A keeps no block in G1; (4) G3 (8 G2 blocks, 96 on
+    disk); (5) G4 (8 G2 blocks, an object store directory); (6) G2 on an
+    int8 cache against an int8 reference; (7) the cross-worker pull
+    between two workers.  Every onboarded repeat must onboard all 14 of
+    A's blocks from the named tier, prefill at most 8 tokens, stream the
+    reference repeat's tokens and hold its prefix blocks bit-equal to the
+    reference's; the recompute repeat prefills all 1800.  The first G2
+    turn (bf16) and the int8 run are the KVBM main path: K1/K3's launch
+    counts are set to 0 before and read after them."""
+    import tempfile
+
+    mc = _kvbm_config("bf16").resolve_model()
+    prompts = _kvbm_prompts(mc.vocab_size)
+    n_blocks = len(_a_hashes(prompts[0], 128))
+    tmp = os.environ.get("TMPDIR") or tempfile.gettempdir()
+    k1, k3 = _kernels_of("bf16")
+    k1i, k3i = _kernels_of("int8")
+    ref = _kvbm_reference(device, card, "bf16", params, prompts)
+    turns = {"g2": [], "off": []}
+    for which in ("g2", "off", "off", "g2"):
+        count = (k1, k3) if which == "g2" and not turns["g2"] else ()
+        cfg = _kvbm_config("bf16", host_cache_blocks=96 if which == "g2"
+                           else 0)
+        res = _kvbm_turn(device, card, cfg, params, prompts,
+                         f"kvbm {which} turn {len(turns[which]) + 1}",
+                         count)
+        turns[which].append(res)
+        if which == "g2":
+            _check_repeat(f"kvbm G2 turn {len(turns['g2'])}", res, ref,
+                          "g2", n_blocks)
+        elif res["prefill"] != KVBM_PROMPT or sum(res["onboarded"].values()):
+            raise SystemExit("kvbm off: the repeat did not recompute A")
+    launches = turns["g2"][0]["launches"]
+    for fn in (k1, k3):
+        if not launches[fn.__name__]:
+            raise SystemExit(f"kvbm: {fn.__name__} did not launch")
+    with tempfile.TemporaryDirectory(dir=tmp) as d:
+        g3 = _kvbm_turn(device, card, _kvbm_config(
+            "bf16", host_cache_blocks=8, disk_cache_dir=os.path.join(d, "g3"),
+            disk_cache_blocks=KVBM_DISK_BLOCKS), params, prompts, "kvbm G3")
+        log(f"kvbm G3 directory on {_fs_type(d)}: demoted "
+            f"{g3['stats'].get('demoted', 0)}, disk hits "
+            f"{g3['stats'].get('disk_hits', 0)}")
+        if not g3["stats"].get("demoted"):
+            raise SystemExit("kvbm G3: nothing demoted to disk")
+        _check_repeat("kvbm G3", g3, ref, "g3", n_blocks)
+        disk = _disk_bandwidth(
+            card, [tuple(t[:, i].contiguous() for t in ref["blocks"])
+             for i in range(n_blocks)], os.path.join(d, "bw"))
+    with tempfile.TemporaryDirectory(dir=tmp) as d:
+        g4 = _kvbm_turn(device, card, _kvbm_config(
+            "bf16", host_cache_blocks=8, object_store_dir=d), params,
+            prompts, "kvbm G4")
+        log(f"kvbm G4 directory on {_fs_type(d)}: stats {g4['stats']}")
+        _check_repeat("kvbm G4", g4, ref, "g4", n_blocks)
+    ref8 = _kvbm_reference(device, card, "int8", params, prompts)
+    int8 = _kvbm_turn(device, card, _kvbm_config("int8",
+                                                 host_cache_blocks=96),
+                      params, prompts, "kvbm G2 int8", (k1i, k3i))
+    _check_repeat("kvbm G2 int8", int8, ref8, "g2", n_blocks)
+    for fn in (k1i, k3i):
+        if not int8["launches"][fn.__name__]:
+            raise SystemExit(f"kvbm: {fn.__name__} did not launch")
+    launches.update(int8["launches"])
+    remote = _kvbm_remote(device, card, params, prompts, ref)
+    bw = _kvbm_bandwidth(device, card, params, n_blocks)
+    g2t = [r["again"][2] for r in turns["g2"]]
+    offt = [r["again"][2] for r in turns["off"]]
+    log(f"kvbm summary ({card}): A's repeat ttft s: G2 onboard {g2t} "
+        f"against recompute {offt} (in turns), G3 {g3['again'][2]:.4f}, "
+        f"G4 {g4['again'][2]:.4f}, int8 G2 {int8['again'][2]:.4f}, remote "
+        f"{remote['again'][2]:.4f}; churn decode tokens/s KVBM on "
+        f"{[round(r['decode_tok_s'], 1) for r in turns['g2']]} against off "
+        f"{[round(r['decode_tok_s'], 1) for r in turns['off']]}; "
+        f"scheduler seconds in offload passes "
+        f"{[round(r['offload_s'], 4) for r in turns['g2']]}, waiting on "
+        f"copies {[round(r['offload_wait_s'], 4) for r in turns['g2']]}; "
+        f"G2 pinned bytes {turns['g2'][0]['g2_bytes']}")
+    return {"launches": launches, "ttft": {"g2": g2t, "off": offt},
+            "bandwidth": bw, "disk": disk,
+            "pull_gb_s": remote["pull_gb_s"]}
+
+
+# ---------------------------------------------------------------------------
 # a loaded checkpoint: the port's own safetensors loader and weight cache
 # ---------------------------------------------------------------------------
 
@@ -3371,6 +3924,17 @@ def main() -> int:
         print(json.dumps(out, default=str), flush=True)
         print(card, flush=True)
         return 0
+    if sys.argv[1:] == ["--kvbm"]:
+        # python3 chip_smoke.py --kvbm: the KVBM phase
+        build_kernels()
+        from dynamo_tpu_torch.models import llama
+
+        gen = torch.Generator(device=device).manual_seed(0)
+        params = llama.init_params(cfg, gen, device)
+        print(json.dumps({"kvbm": check_kvbm(device, card, params)},
+                         default=str), flush=True)
+        print(card, flush=True)
+        return 0
     if sys.argv[1:] == ["--checkpoint"]:
         # python3 chip_smoke.py --checkpoint: the loaded-checkpoint phase
         build_kernels()
@@ -3429,6 +3993,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     disagg = check_disagg(device, card, params)
     log(f"disagg phase done at {time.perf_counter() - t_start:.1f} s")
+    kvbm = check_kvbm(device, card, params)
+    log(f"kvbm phase done at {time.perf_counter() - t_start:.1f} s")
     del params
     torch.cuda.empty_cache()
     ckpt = check_checkpoint(device, card)
@@ -3439,8 +4005,10 @@ def main() -> int:
         k["checkpoint_launches"] = ckpt["launches"].get(k["name"], 0)
         (k["disagg_prefill_launches"],
          k["disagg_decode_launches"]) = disagg["launches"][k["name"]]
+        k["kvbm_launches"] = kvbm["launches"][k["name"]]
     for k in dma:  # the microbench is on no serving path
         k["disagg_prefill_launches"] = k["disagg_decode_launches"] = 0
+        k["kvbm_launches"] = 0
     log(f"chip_smoke: every phase passed in "
         f"{time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels + dma}), flush=True)

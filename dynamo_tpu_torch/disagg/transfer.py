@@ -63,7 +63,7 @@ def dtype_name(dtype: torch.dtype) -> str:
         raise ValueError(f"no wire name for {dtype}") from None
 
 
-def _torch_dtype(name: str) -> torch.dtype:
+def torch_dtype(name: str) -> torch.dtype:
     try:
         return _DTYPES[name]
     except KeyError:
@@ -147,7 +147,7 @@ class KvLayout:
     def block_bytes(self) -> int:
         """Payload bytes of ONE block across all layers (k + v, plus the
         fp32 scale planes for a quantized payload)."""
-        itemsize = _torch_dtype(self.dtype).itemsize
+        itemsize = torch_dtype(self.dtype).itemsize
         per_tok = self.kv_heads * (self.head_dim + self.hd_v)
         data = self.num_layers * self.block_size * per_tok * itemsize
         if self.scales:
@@ -232,7 +232,7 @@ def decode_chunk_frame(
         raise ValueError(
             f"chunk frame for blocks [{b0},{b0 + n}) failed its crc32 "
             "footer")
-    dt = _torch_dtype(layout.dtype)
+    dt = torch_dtype(layout.dtype)
     lo = layout
     kb = _tensor(frame["k"], dt, (lo.num_layers, n, lo.block_size,
                                   lo.kv_heads, lo.head_dim))

@@ -78,6 +78,33 @@ def build_args() -> argparse.ArgumentParser:
                    help="fixed decode bursts: decode_fused_steps whenever "
                         "no prefill/admission work is pending, instead of "
                         "ramping the fusion ladder")
+    p.add_argument("--host-cache-blocks", type=int, default=0,
+                   help="G2 host-memory KV cache capacity (blocks); 0 off")
+    p.add_argument("--offload-watermark-blocks", type=int, default=0,
+                   help="offload coldest device blocks to G2 once free "
+                        "blocks fall below this (0 = num_blocks/4); raise "
+                        "toward num_blocks so allocation bursts can't "
+                        "evict a block before the offload pass copies it")
+    p.add_argument("--disk-cache-dir", default="",
+                   help="G3 disk KV cache directory")
+    p.add_argument("--disk-cache-blocks", type=int, default=0)
+    p.add_argument("--object-store-dir",
+                   default=os.environ.get("DYN_KVBM_OBJECT_DIR", ""),
+                   help="G4 cluster-shared object store (shared FS path; "
+                        "defaults to $DYN_KVBM_OBJECT_DIR)")
+    p.add_argument("--kv-io-deadline-s", type=float, default=0.25,
+                   help="per-op deadline for shared-FS (G4) KV I/O on the "
+                        "dedicated I/O thread; a wedged mount is a bounded "
+                        "timeout off the scheduler path")
+    p.add_argument("--kv-breaker-threshold", type=int, default=3,
+                   help="consecutive tier failures that trip the tier's "
+                        "circuit breaker open (tier skipped until a "
+                        "half-open probe succeeds)")
+    p.add_argument("--kv-breaker-cooldown-s", type=float, default=30.0,
+                   help="seconds an open tier breaker waits before "
+                        "admitting one half-open probe op")
+    p.add_argument("--no-kvbm-remote", action="store_true",
+                   help="disable cross-worker G2 pull")
     p.add_argument("--role", default="both", choices=list(ROLES),
                    help="disaggregation role: prefill workers park each "
                         "prompt's KV for a decode worker's pull; decode "
@@ -117,6 +144,15 @@ def engine_config(args: argparse.Namespace) -> EngineConfig:
         decode_fuse_adaptive=not args.no_adaptive_fusion,
         warmup=not args.no_warmup,
         role=args.role,
+        host_cache_blocks=args.host_cache_blocks,
+        offload_watermark_blocks=args.offload_watermark_blocks,
+        disk_cache_dir=args.disk_cache_dir or None,
+        disk_cache_blocks=args.disk_cache_blocks,
+        object_store_dir=args.object_store_dir or None,
+        kv_io_deadline_s=args.kv_io_deadline_s,
+        kv_breaker_threshold=args.kv_breaker_threshold,
+        kv_breaker_cooldown_s=args.kv_breaker_cooldown_s,
+        kvbm_remote=not args.no_kvbm_remote,
     )
 
 

@@ -7,16 +7,16 @@ refcount-0 registered blocks stay cached in LRU order until evicted.
 Block id 0 is the garbage block (never allocated): inactive rows' KV
 writes land there and are never read.
 
-Every mutation returns the KV events (stored/removed hashes) a worker
-would publish, so the router's view can stay consistent with device
-memory once the port has a worker.
+Every mutation returns the KV events (stored/removed hashes) the worker
+publishes, so the router's view stays consistent with device memory;
+`coldest_evictable` names the KVBM offload's candidates.
 """
 
 from __future__ import annotations
 
 from collections import OrderedDict
 from dataclasses import dataclass, field
-from typing import Dict, List, Optional, Sequence
+from typing import Dict, List, Optional, Sequence, Tuple
 
 
 @dataclass
@@ -57,6 +57,27 @@ class BlockAllocator:
 
     def seq_block_ids(self, seq_id: str) -> List[int]:
         return self._seq_blocks.get(seq_id, [])
+
+    def coldest_evictable(self, n: int, exclude=(),
+                          scan_limit: Optional[int] = None
+                          ) -> List[Tuple[int, int]]:
+        """Up to n (hash, block_id) pairs from the cold end of the LRU,
+        skipping `exclude` hashes: offload candidates (the blocks the next
+        evictions would destroy).  Does not mutate.
+
+        scan_limit bounds the walk: once the cold end is fully excluded
+        (already offloaded), an unbounded scan would cost O(num_blocks) of
+        Python per scheduler step for an empty result."""
+        out: List[Tuple[int, int]] = []
+        for i, h in enumerate(self._lru):
+            if scan_limit is not None and i >= scan_limit:
+                break
+            if h in exclude:
+                continue
+            out.append((h, self._hash_to_block[h]))
+            if len(out) >= n:
+                break
+        return out
 
     def usage(self) -> float:
         usable = self.num_blocks - 1

@@ -29,10 +29,6 @@ _UNPORTED = {
     "sp": (1, "sequence-parallel ring prefill"),
     "spec_decode": ("off", "speculative decoding"),
     "lora_max_adapters": (0, "LoRA serving"),
-    "host_cache_blocks": (0, "KVBM host tier (G2)"),
-    "disk_cache_dir": (None, "KVBM disk tier (G3)"),
-    "disk_cache_blocks": (0, "KVBM disk tier (G3)"),
-    "object_store_dir": (None, "KVBM object tier (G4)"),
     # its one reader in JAX is the roofline (MBU) gauges of /metrics
     "peak_hbm_gbps": (0.0, "the /metrics roofline gauges"),
 }
@@ -113,6 +109,35 @@ class EngineConfig:
     # worker's default; off here so short-lived test engines skip it)
     warmup: bool = False
 
+    # KVBM tiers (kvbm/): 0 disables the G2 host cache.  When enabled, the
+    # scheduler offloads the coldest evictable device blocks to host
+    # memory once free blocks fall below offload_watermark_blocks (one
+    # batched device-to-host gather per step, pinned copies that the
+    # scheduler never waits on), and onboards G2/G3/G4 prefix hits at
+    # admission instead of recomputing prefill.
+    host_cache_blocks: int = 0
+    disk_cache_dir: Optional[str] = None   # G3; needs disk_cache_blocks > 0
+    disk_cache_blocks: int = 0
+    # G4 cluster-shared object store (kvbm/object_store.py): demotions
+    # that would otherwise drop spill here; any worker onboards them
+    object_store_dir: Optional[str] = None
+    object_store_ttl_s: Optional[float] = None
+    # cross-worker G2 pull (kvbm/remote.py): prefetch missing prefix
+    # blocks from a peer's host tiers at admission time
+    kvbm_remote: bool = True
+    kvbm_remote_max_blocks: int = 64
+    offload_watermark_blocks: int = 0      # 0 = num_blocks // 4
+    offload_batch: int = 16                # max blocks gathered per step
+    # KV integrity and degraded modes (kvbm/object_io.py,
+    # kvbm/breaker.py): every G4 op of the serving path is awaited at
+    # most kv_io_deadline_s on a dedicated I/O thread;
+    # kv_breaker_threshold consecutive failures of a tier trip its
+    # circuit breaker open until a half-open probe succeeds after
+    # kv_breaker_cooldown_s
+    kv_io_deadline_s: float = 0.25
+    kv_breaker_threshold: int = 3
+    kv_breaker_cooldown_s: float = 30.0
+
     # disaggregation role: "both" serves agg traffic; "prefill" workers run
     # prefill-only hops and park KV; "decode" workers pull and decode
     role: str = "both"
@@ -131,10 +156,6 @@ class EngineConfig:
     sp: int = 1
     spec_decode: str = "off"
     lora_max_adapters: int = 0
-    host_cache_blocks: int = 0
-    disk_cache_dir: Optional[str] = None
-    disk_cache_blocks: int = 0
-    object_store_dir: Optional[str] = None
     peak_hbm_gbps: float = 0.0
 
     def __post_init__(self):

@@ -55,9 +55,26 @@ from the transferred first token.  A failed pull falls back to local
 prefill, as in the JAX engine.  Scheduler ops (`_call_on_scheduler`)
 run between steps under the step lock.
 
+KVBM (the JAX engine's tiers, kvbm/): with host_cache_blocks > 0 each
+step copies the coldest evictable device blocks to G2 before eviction
+destroys them (`_maybe_offload`).  On CUDA the gather is enqueued behind
+the bursts in flight, the copies into pinned host tensors run on a side
+stream, and the blocks commit to G2 (stored(g2)) at a later step, once
+their event has completed: the scheduler never waits on an offload, and
+nothing reads the bytes before they landed.  On the CPU the copy is synchronous and the
+blocks commit in the same step, as in the JAX engine.  G2's victims
+demote to G3 (a disk directory) and spill to G4 (a shared object store)
+on the scheduler thread, as in JAX.  Admission extends a device prefix
+hit with a run onboarded from G2/G3/G4 (`_try_onboard`: each block's
+host tensors uploaded into a staging buffer, one in-place inject) instead
+of prefilling it again, and `generate` first pulls a prompt's missing
+leading blocks from a peer's host tiers into G2 (`_remote_prefetch`,
+kvbm/remote.py, installed by the worker).  A failed tier read or pull
+falls back to local prefill.
+
 Not here yet (ROADMAP.md): penalties (the JAX engine ignores them too),
-KVBM tiers, the device-to-device pull across processes, speculative and
-guided decoding, and LoRA.
+the device-to-device pull across processes, speculative and guided
+decoding, and LoRA.
 """
 
 from __future__ import annotations
@@ -78,8 +95,15 @@ import torch
 from ..device import DeviceLike, resolve_device
 from ..disagg.transfer import KvLayout, dtype_name, make_transfer_params
 from ..kvbm.consolidator import KvEventConsolidator
+from ..kvbm.manager import TieredKvManager
+from ..kvbm.residency import LineageResidency
 from ..models import llama
-from ..ops.kv_transfer import gather_universal, inject_universal
+from ..ops.kv_transfer import (
+    blocks_from_host,
+    blocks_to_host,
+    gather_universal,
+    inject_universal,
+)
 from ..protocols import (
     DISAGG_ANNOTATION,
     DRAIN_ABORT,
@@ -90,7 +114,11 @@ from ..protocols import (
 from ..quant.kv import blocks_for_hbm_budget
 from ..runtime.aio import CANCELLED, next_or_cancel
 from ..runtime.retry import PULL_POLICY, call_with_retry
-from ..tokens import TokenBlockSequence, request_salt
+from ..tokens import (
+    TokenBlockSequence,
+    compute_block_hashes_for_request,
+    request_salt,
+)
 from .block_allocator import BlockAllocator, GrowResult
 from .config import EngineConfig
 from .graphs import DecodePrograms, PrefillPrograms, Readback
@@ -162,6 +190,18 @@ class _Parked:
 
 
 KvEventSink = Callable[[List[int], List[int], str], None]
+
+
+class _OffloadExclude:
+    """The hashes an offload pass skips: those the KVBM tiers hold or
+    recently dropped (kvbm/manager.py _OffloadSkip) and those whose copy
+    to the host is still in flight."""
+
+    def __init__(self, kvbm: TieredKvManager, pending: set):
+        self._skip, self._pending = kvbm.offload_skip, pending
+
+    def __contains__(self, h: int) -> bool:
+        return h in self._pending or h in self._skip
 
 
 def _tensors(tree):
@@ -236,6 +276,50 @@ class TorchEngine:
         self._closed = False
         self.kv_event_sink = kv_event_sink
         self._consolidator = KvEventConsolidator()
+        # KVBM tiers: router-visible events of every tier are netted
+        # through the consolidator, so a block offloaded to G2 survives
+        # its G1 eviction in the router's view
+        self.kvbm: Optional[TieredKvManager] = None
+        if config.disk_cache_dir and config.host_cache_blocks <= 0:
+            raise ValueError(
+                "disk_cache_dir (G3) requires host_cache_blocks > 0: the "
+                "disk tier is fed only by demotion from the host tier")
+        if config.disk_cache_dir and config.disk_cache_blocks <= 0:
+            raise ValueError(
+                "disk_cache_dir (G3) requires disk_cache_blocks > 0")
+        if config.object_store_dir and config.host_cache_blocks <= 0:
+            raise ValueError(
+                "object_store_dir (G4) requires host_cache_blocks > 0: the "
+                "object tier is fed by demotion down the tier ladder")
+        if config.host_cache_blocks > 0:
+            self.kvbm = TieredKvManager(
+                config.host_cache_blocks,
+                disk_dir=config.disk_cache_dir,
+                disk_blocks=config.disk_cache_blocks,
+                object_dir=config.object_store_dir,
+                object_ttl_s=config.object_store_ttl_s,
+                io_deadline_s=config.kv_io_deadline_s,
+                breaker_threshold=config.kv_breaker_threshold,
+                breaker_cooldown_s=config.kv_breaker_cooldown_s)
+            self.kvbm.on_corruption = self._note_kv_corruption
+        # (tier, action) -> count of checksum quarantines across the KV
+        # cache fabric (g3/g4/remote), via _note_kv_corruption
+        self.kv_integrity: Dict[Tuple[str, str], int] = {}
+        # cross-worker pull (kvbm/remote.py): installed by the worker;
+        # async callable(hashes) -> [(h, *payload), ...]
+        self.remote_kvbm_fetch: Optional[Callable] = None
+        self._offload_watermark = (config.offload_watermark_blocks
+                                   or config.num_blocks // 4)
+        # offloads whose device-to-host copies are in flight, oldest
+        # first: (event or None, [(hash, host block), ...]), and their
+        # hashes (skipped by the next offload passes)
+        self._offloading: deque = deque()
+        self._offload_pending: set = set()
+        # the offload's device-to-host copies run on a side stream, so
+        # they overlap the next bursts instead of queueing before them
+        self._offload_stream = (torch.cuda.Stream(self.device)
+                                if self.kvbm is not None
+                                and self.device.type == "cuda" else None)
         # the decode programs (engine/graphs.py) and the overlapped
         # scheduler's state: dispatched-but-unread bursts, the owner of
         # each lane's device chain, the host mirror of the last full
@@ -287,6 +371,14 @@ class TorchEngine:
             "preemptions": 0, "step_time_s": 0.0, "requests": 0,
             "prompt_tokens": 0,
         }
+        if self.kvbm is not None:
+            # scheduler-thread seconds in offload passes (the enqueue of
+            # gathers and copies, and the commits with their G3/G4
+            # writes), seconds an idle engine waited for copies in flight
+            # (_finish_offloads; a step never waits), and the bytes
+            # committed to G2
+            self.metrics.update(offload_s=0.0, offload_wait_s=0.0,
+                                offloaded_bytes=0)
         self.itl_ema_s = 0.0  # streamed inter-token latency (SLA planner)
         # forward-pass metrics: one record per prefill dispatch and per
         # decode step, with the JAX engine's keys (its xla_* keys come
@@ -328,6 +420,12 @@ class TorchEngine:
         calls, self._sched_calls = self._sched_calls, []
         for _, fut in calls:
             _set_exception_safe(fut, RuntimeError("engine closed"))
+        if self.kvbm is not None:
+            # the step lock was waited out above: no step is mid-write
+            # into the G3 directory whose ownership close() releases
+            self._offloading.clear()
+            self._offload_pending.clear()
+            self.kvbm.close()
 
     def _fail_all_streams(
         self,
@@ -363,6 +461,52 @@ class TorchEngine:
     def kv_usage(self) -> float:
         return self.allocator.usage()
 
+    def kv_occupancy(self) -> Dict[str, Dict[str, int]]:
+        """Block occupancy per storage tier: g1 = the device allocator (id
+        0 is the garbage block, so capacity is num_blocks - 1), g2..g4 =
+        the KVBM tiers when enabled (kvbm/manager.py occupancy; G4 lists
+        the shared directory, so this is for the worker's load loop, never
+        the scheduler step)."""
+        a = self.allocator
+        usable = a.num_blocks - 1
+        out: Dict[str, Dict[str, int]] = {"g1": {
+            "used": usable - a.num_free, "free": a.num_free,
+            "capacity": usable, "evictable": a.num_evictable,
+        }}
+        if self.kvbm is not None:
+            out.update(self.kvbm.occupancy())
+        return out
+
+    async def sweep_kvbm_g4(self) -> int:
+        """One GC pass over the shared G4 store (the worker's load loop
+        calls it on a slow cadence; the sweep lists a shared directory, so
+        it runs in a thread, never on the scheduler).  With no KV ledger
+        every blob ages by TTL (kvbm/residency.py).  Reaped hashes are
+        folded through the consolidator as a scheduler op, so a later
+        re-spill of the same hash emits stored(g4) again."""
+        if self.kvbm is None or self.kvbm.g4 is None:
+            return 0
+        if self.kvbm.breaker.state("g4") == "open":
+            return 0  # the tier is dark: let the half-open probe decide
+        res = LineageResidency(None, pool=self.kvbm.g4)
+        try:
+            swept = await asyncio.to_thread(self.kvbm.g4.sweep, None, res)
+        except OSError:
+            logger.warning("G4 residency sweep failed", exc_info=True)
+            return 0
+        if swept:
+            await self._call_on_scheduler(
+                lambda: self._emit_tier_events([([], list(swept), "g4")]))
+        return len(swept)
+
+    def _note_kv_corruption(self, tier: str, h: Optional[int]) -> None:
+        """One checksum-failed consume anywhere in the fabric (G3 pool, G4
+        object store, remote pull): count it.  The caller already
+        quarantined the bytes and degraded to a miss (recompute), so this
+        hook is forensic and must never raise."""
+        key = (tier, "quarantine")
+        self.kv_integrity[key] = self.kv_integrity.get(key, 0) + 1
+
     @property
     def num_active_seqs(self) -> int:
         return sum(s is not None for s in self._slots) + len(self.waiting)
@@ -378,6 +522,11 @@ class TorchEngine:
             with self._step_lock:
                 removed = self.allocator.clear_cached()
                 self._emit_events(GrowResult(removed=removed))
+                if self.kvbm is not None:
+                    # offloads still in flight never reached a tier
+                    self._offloading.clear()
+                    self._offload_pending.clear()
+                    self._emit_tier_events(self.kvbm.clear())
                 return len(removed)
 
         return await asyncio.to_thread(clear)
@@ -708,6 +857,165 @@ class TorchEngine:
         g.upload(a)
         return int(Readback(g.run(T)).wait()[0])
 
+    # -- KVBM: the cross-worker pull (kvbm/remote.py) ----------------------
+    async def _remote_prefetch(self, request: PreprocessedRequest) -> None:
+        """Pull this prompt's missing leading blocks from a peer's host
+        tiers and stage them into the LOCAL G2, where admission's
+        onboarding finds them.  Racy local-presence checks are safe: the
+        worst case pulls a block that arrived locally meanwhile (the stage
+        skips it)."""
+        hashes = compute_block_hashes_for_request(
+            request.token_ids, self.config.block_size,
+            lora_name=request.lora_name, media_hashes=request.media_hashes)
+        start = 0
+        while start < len(hashes) and hashes[start] in self.kvbm:
+            start += 1
+        if start >= len(hashes):
+            return
+        blocks = await self.remote_kvbm_fetch(hashes[start:])
+        if not blocks:
+            return
+
+        def stage() -> int:
+            n = 0
+            for h, *arrays in blocks:
+                if h in self.kvbm:
+                    continue
+                if len(arrays) != len(self.kv):
+                    # the peer runs the other cache dtype: its payload
+                    # cannot go into this cache, and the leading-run
+                    # contract makes the tail unusable too
+                    break
+                self._emit_tier_events(self.kvbm.offload(h, *arrays))
+                n += 1
+            return n
+
+        staged = await self._call_on_scheduler(stage)
+        if staged:
+            self.metrics["remote_onboarded"] = (
+                self.metrics.get("remote_onboarded", 0) + staged)
+            logger.info("staged %d remote KV blocks for %s", staged,
+                        request.request_id)
+
+    def read_host_blocks(self, hashes: List[int]) -> asyncio.Future:
+        """Serve a peer's pull: fetch each block from the local tiers
+        (promoting it to G2: a peer pulling it marks the prefix hot) until
+        the first miss.  Runs between scheduler steps."""
+
+        def read():
+            out = []
+            for h in hashes:
+                blk, events, _src = (self.kvbm.fetch(h)
+                                     if self.kvbm is not None
+                                     else (None, [], None))
+                self._emit_tier_events(events)
+                if blk is None:
+                    break
+                out.append((h, *blk))
+            return out
+
+        return self._call_on_scheduler(read)
+
+    # -- KVBM: offload and onboard ----------------------------------------
+    def _maybe_offload(self) -> None:
+        """Copy the coldest evictable device blocks to the G2 host tier
+        before eviction pressure destroys them: one batched gather per
+        step, once free blocks fall below the watermark.  The blocks stay
+        live in G1 (an offload is a copy, not a move).  On CUDA the gather
+        queues behind the bursts in flight (stream order makes it read the
+        blocks before any later write to them), the copies into pinned
+        tensors run on a side stream after it, and the blocks commit at a
+        later step, once their event has completed: the scheduler never
+        waits for them."""
+        if self.kvbm is None:
+            return
+        t0 = time.perf_counter()
+        self._commit_offloads()
+        if self.allocator.num_free < self._offload_watermark:
+            cands = self.allocator.coldest_evictable(
+                self.config.offload_batch,
+                exclude=_OffloadExclude(self.kvbm, self._offload_pending),
+                scan_limit=4 * self.config.offload_batch + 64)
+            if cands:
+                blocks = blocks_to_host(self.kv, [bid for _, bid in cands],
+                                        stream=self._offload_stream)
+                done = None
+                if self._offload_stream is not None:
+                    done = torch.cuda.Event()
+                    done.record(self._offload_stream)
+                self._offloading.append(
+                    (done, [(h, blk) for (h, _), blk in zip(cands, blocks)]))
+                self._offload_pending.update(h for h, _ in cands)
+                # on the CPU the copies are done: commit now, as JAX does
+                self._commit_offloads()
+        self.metrics["offload_s"] += time.perf_counter() - t0
+
+    def _finish_offloads(self) -> None:
+        """Wait for every offload copy in flight and commit it (the idle
+        engine's loop: nothing else is queued on the stream)."""
+        with self._step_lock:
+            self._commit_offloads(wait=True)
+
+    def _commit_offloads(self, wait: bool = False) -> None:
+        """Commit to G2, in order, every offload whose copies have
+        completed (stored(g2) events; G2's victims demote to G3 or spill
+        to G4 here, on the scheduler thread, as in JAX).  Unless `wait`,
+        an offload still in flight is left for a later step."""
+        while self._offloading:
+            done, blocks = self._offloading[0]
+            if done is not None and not done.query():
+                if not wait:
+                    return
+                t0 = time.perf_counter()
+                done.synchronize()
+                self.metrics["offload_wait_s"] += time.perf_counter() - t0
+            self._offloading.popleft()
+            for h, blk in blocks:
+                self._offload_pending.discard(h)
+                self.metrics["offloaded_bytes"] += sum(
+                    t.numel() * t.element_size() for t in blk)
+                self._emit_tier_events(self.kvbm.offload(h, *blk))
+
+    def _try_onboard(self, slot: _Slot, hit: int, cap_blocks: int) -> int:
+        """Extend a G1 prefix hit with blocks onboarded from G2/G3/G4:
+        write their payloads into the freshly allocated blocks instead of
+        recomputing prefill (the upload queues behind the bursts in flight
+        and reads pinned memory, so the scheduler does not wait for it).
+        Returns the number of blocks onboarded."""
+        if self.kvbm is None:
+            return 0
+        hashes = slot.seq.block_hashes
+        run = self.kvbm.match_run(hashes[hit:cap_blocks])
+        if run == 0:
+            return 0
+        block_ids = self.allocator.seq_block_ids(self._seq_id(slot))
+        blocks, ids = [], []
+        by_tier: Dict[str, int] = {}
+        for i in range(hit, hit + run):
+            blk, events, src = self.kvbm.fetch(hashes[i])
+            self._emit_tier_events(events)
+            if blk is None:  # dropped from the pool mid-walk
+                break
+            if len(blk) != len(self.kv):
+                # a block staged from a peer running the OTHER cache dtype:
+                # writing it without (or with stray) scales would be silent
+                # corruption; treat it as a miss and recompute
+                logger.warning(
+                    "KVBM block %x has %d payload arrays but the cache "
+                    "expects %d (kv dtype mismatch); recomputing",
+                    hashes[i], len(blk), len(self.kv))
+                break
+            blocks.append(blk)
+            ids.append(block_ids[i])
+            by_tier[src] = by_tier.get(src, 0) + 1
+        if not ids:
+            return 0
+        blocks_from_host(self.kv, blocks, ids)
+        for src, cnt in by_tier.items():
+            key = f"kv_onboard_{src}"
+            self.metrics[key] = self.metrics.get(key, 0) + cnt
+        return len(ids)
+
     def warmup_decode(self) -> None:
         """Build every program serving can reach, so no request pays for
         a kernel build, a cuBLAS warm-up or a graph capture: on CUDA both
@@ -750,14 +1058,16 @@ class TorchEngine:
                 torch.cuda.synchronize(dev)
 
     # -- KV events ------------------------------------------------------------
-    def _emit_events(self, res) -> None:
-        """Net one allocator mutation's events (scheduler thread) and hand
+    def _emit_events(self, res, tier: str = "g1") -> None:
+        """Net one cache mutation's events (scheduler thread) and hand
         them to the sink on the loop thread: call_soon_threadsafe runs
-        callbacks in FIFO order, so wire order equals mutation order."""
+        callbacks in FIFO order, so wire order equals mutation order.  G1
+        evictions of offloaded blocks do not drop their G2/G3 copies: the
+        consolidator nets per tier."""
         if not (res.stored or res.removed):
             return
         stored, removed, tier = self._consolidator.apply(
-            list(res.stored), list(res.removed), "g1")
+            list(res.stored), list(res.removed), tier)
         sink = self.kv_event_sink
         if sink is None or not (stored or removed):
             return
@@ -766,6 +1076,13 @@ class TorchEngine:
         else:
             # before the engine started nothing is routing to it yet
             sink(stored, removed, tier)
+
+    def _emit_tier_events(self, batches) -> None:
+        """Emit [(stored, removed, tier), ...] batches from the KVBM
+        manager (per tier; still netted through the consolidator)."""
+        for stored, removed, tier in batches:
+            self._emit_events(GrowResult(stored=stored, removed=removed),
+                              tier=tier)
 
     # -- request entry ------------------------------------------------------
     async def generate(self, request: PreprocessedRequest,
@@ -802,6 +1119,14 @@ class TorchEngine:
             logger.warning("disaggregated_params but no kv_pull_fn; "
                            "falling back to local prefill")
             want_pull = False
+        if self.kvbm is not None and self.remote_kvbm_fetch is not None:
+            try:
+                await self._remote_prefetch(request)
+            except Exception:
+                # a remote warm-up is an optimization; local prefill is the
+                # always-correct fallback
+                logger.warning("remote KVBM prefetch failed for %s",
+                               request.request_id, exc_info=True)
         s = request.sampling
         seed = (s.seed if s.seed is not None
                 # stable across processes (unlike hash(): PYTHONHASHSEED)
@@ -878,6 +1203,12 @@ class TorchEngine:
                             for s in self._slots)
                         or bool(self._inflight))
                 if not busy and not self.waiting:
+                    if self._offloading:
+                        # idle: wait out the offload copies in flight (no
+                        # burst is queued before them) and commit them, so
+                        # their stored(g2) events do not wait for traffic
+                        await asyncio.to_thread(self._finish_offloads)
+                        continue
                     self._wake.clear()
                     if self._sched_calls:
                         continue
@@ -910,6 +1241,7 @@ class TorchEngine:
             if self._closed:
                 return
             self._process_cancellations()
+            self._maybe_offload()
             self._admit_waiting()
             # the previous step's deferred first tokens, before this
             # step's dispatches: the wait pays only for work the device
@@ -971,9 +1303,21 @@ class TorchEngine:
             self._slots[free_idx] = slot
             slot.block_table[:len(res.block_ids)] = res.block_ids
             slot.committed_blocks = res.cached_blocks
-            cached = res.cached_blocks * c.block_size
+            # extend the G1 hit with G2/G3/G4 onboarding (KV written back
+            # into the cache instead of recomputed)
+            onboarded = self._try_onboard(slot, res.cached_blocks,
+                                          cap_blocks)
+            for i in range(res.cached_blocks, res.cached_blocks + onboarded):
+                self._emit_events(self.allocator.commit_block(
+                    self._seq_id(slot), i, slot.seq.block_hashes[i]))
+                slot.committed_blocks = i + 1
+            cached = (res.cached_blocks + onboarded) * c.block_size
             slot.cached_tokens = cached
             self.metrics["cache_hit_tokens"] += cached
+            if onboarded:
+                self.metrics["onboarded_tokens"] = (
+                    self.metrics.get("onboarded_tokens", 0)
+                    + onboarded * c.block_size)
             slot.ctx_len = cached
             slot.prompt_len = prompt_len
             slot.prefill_pos = cached

@@ -16,19 +16,30 @@ the unchanged JAX frontend and its KV router serve it like any other:
     is registered with the in-process broker (disagg/broker.py), so a
     decode worker in the same process pulls device-resident chunks and
     one elsewhere pulls host-staged frames over the request plane;
+  * with KVBM on (config.host_cache_blocks > 0 and kvbm_remote), the
+    `kvbm_pull` endpoint, which streams this worker's host-tier copies of
+    a block run (kvbm/remote.py), and the puller the engine prefetches a
+    prompt's missing blocks from peers with (a RemoteBlockIndex following
+    the KV event stream);
   * KV events on `kv_events.{ns}.{comp}` (router/events.py), netted by the
-    engine's consolidator;
+    engine's consolidator, tiers g1-g4;
   * load metrics on `load_metrics.{ns}.{comp}` and the engine's
-    forward-pass-metrics records on `fpm.{ns}.{comp}`, every 0.5 s;
+    forward-pass-metrics records on `fpm.{ns}.{comp}`, every 0.5 s, and a
+    GC sweep of the shared G4 store every 30 s;
   * drain on SIGTERM (engine/__main__.py): withdraw the routing identity,
     let in-flight requests finish until a deadline, abort the rest with
     the migratable "worker draining" marker.
 
 Not ported yet (ROADMAP.md): multi-host slices, the device-to-device
 pull across processes (the `kv_pull` op's `via=transfer` branch), the
-`kvbm_pull` and `embed` endpoints, the SLO feed, the guided-decoding
-codec, timeline spans, and the /metrics gauges and /debug sources (the
-system-status server is not ported).
+`embed` endpoint, the SLO feed, the guided-decoding codec, timeline
+spans, and the /metrics gauges and /debug sources (the system-status
+server is not ported).
+
+The `kvbm_pull` wire carries block hashes as 16-byte big-endian bytes
+(router/events.py hash_to_wire), as the KV events do, and accepts plain
+ints: a 128-bit PLH is out of msgpack's integer range, so the JAX
+worker's int hashes cannot be encoded on the request plane at all.
 """
 
 from __future__ import annotations
@@ -54,7 +65,8 @@ from ..protocols import (
     deregister_model,
     register_model,
 )
-from ..router.events import KvEventPublisher
+from ..kvbm.remote import RemoteBlockIndex, RemoteKvbmPuller, encode_block
+from ..router.events import KvEventPublisher, hash_to_wire, wire_to_hash
 from ..runtime import DistributedRuntime
 from ..runtime.discovery import new_instance_id
 from .config import EngineConfig
@@ -64,6 +76,8 @@ logger = logging.getLogger(__name__)
 
 LOAD_SUBJECT_PREFIX = "load_metrics"
 FPM_SUBJECT_PREFIX = "fpm"
+# load-loop ticks (0.5 s each) between G4 sweeps
+G4_SWEEP_TICKS = 60
 
 
 class TorchEngineWorker:
@@ -101,6 +115,8 @@ class TorchEngineWorker:
         self._load_task: Optional[asyncio.Task] = None
         self._pull_clients: dict = {}
         self._broker_id: Optional[int] = None
+        self._kvbm_index: Optional[RemoteBlockIndex] = None
+        self._kvbm_pull_client = None
 
     @property
     def card(self) -> ModelDeploymentCard:
@@ -197,6 +213,20 @@ class TorchEngineWorker:
             else:
                 raise ValueError(f"unknown kv_pull op {op!r}")
 
+        async def kvbm_pull_handler(payload, ctx):
+            """Cross-worker pull (kvbm/remote.py): stream this worker's
+            host-tier copies of the requested block run; a None hash marks
+            where the run broke (a peer eviction)."""
+            hashes = [wire_to_hash(h)
+                      for h in list(payload.get("hashes", []))[:128]]
+            blocks = await self.engine.read_host_blocks(hashes)
+            for h, *arrays in blocks:
+                frame = encode_block(h, *arrays)
+                frame["h"] = hash_to_wire(h)
+                yield frame
+            if len(blocks) < len(hashes):
+                yield {"h": None}
+
         comp = rt.namespace(self.namespace).component(self.component)
         self.served = await comp.endpoint("generate").serve_endpoint(
             generate_handler,
@@ -212,6 +242,21 @@ class TorchEngineWorker:
             await comp.endpoint("kv_pull").serve_endpoint(
                 kv_pull_handler, instance_id=instance_id),
         ]
+        if self.engine.kvbm is not None and self.config.kvbm_remote:
+            self._aux_served.append(
+                await comp.endpoint("kvbm_pull").serve_endpoint(
+                    kvbm_pull_handler, instance_id=instance_id))
+            self._kvbm_index = await RemoteBlockIndex(
+                rt, self.namespace, self.component, instance_id).start()
+            self._kvbm_pull_client = await (
+                comp.endpoint("kvbm_pull").client().start())
+            puller = RemoteKvbmPuller(
+                self._kvbm_index, self._kvbm_pull_client,
+                max_blocks=self.config.kvbm_remote_max_blocks)
+            # corrupt pulled frames count like every other tier's
+            # (tier "remote"), and the index marks the peer suspect
+            puller.on_corruption = self.engine._note_kv_corruption
+            self.engine.remote_kvbm_fetch = puller.fetch_run
         # co-resident engines pull device-resident chunks through the
         # process broker; registered once every endpoint is up, so a
         # failed start leaks no half-built engine into the registry
@@ -251,9 +296,17 @@ class TorchEngineWorker:
         subject = f"{LOAD_SUBJECT_PREFIX}.{self.namespace}.{self.component}"
         fpm_subject = f"{FPM_SUBJECT_PREFIX}.{self.namespace}.{self.component}"
         plane = self.runtime.event_plane
+        ticks = 0
         while True:
             await asyncio.sleep(0.5)
+            ticks += 1
             eng, wid = self.engine, self.served.instance_id
+            if ticks % G4_SWEEP_TICKS == 0:
+                # the shared store is swept by every mounted worker
+                try:
+                    await eng.sweep_kvbm_g4()
+                except Exception:
+                    logger.warning("g4 sweep failed", exc_info=True)
             steps = []
             while eng.fpm and len(steps) < 512:
                 steps.append(eng.fpm.popleft())
@@ -304,6 +357,12 @@ class TorchEngineWorker:
         for client in self._pull_clients.values():
             await client.close()
         self._pull_clients = {}
+        if self._kvbm_index is not None:
+            await self._kvbm_index.close()
+            self._kvbm_index = None
+        if self._kvbm_pull_client is not None:
+            await self._kvbm_pull_client.close()
+            self._kvbm_pull_client = None
         if self._load_task is not None:
             self._load_task.cancel()
             await asyncio.gather(self._load_task, return_exceptions=True)

@@ -7,9 +7,14 @@ The stream is **per-tier netted**:
     already resident there, and
   * `removed(tier=t)` when it leaves a tier it was resident in.
 
-Duplicate mutations inside one tier net to nothing.  The port has only
-tier `g1` (device memory) so far; the tiers of KVBM (host, disk, object
-store) are a later slice.
+Duplicate mutations inside one tier net to nothing, so `stored(g1) ->
+offload stored(g2) -> evict removed(g1)` tells the router precisely what
+happened: the block moved from device memory to host memory.
+
+G4 is the shared object store: any worker may sweep a blob another
+worker spilled, so `removed(tier="g4")` passes through even when this
+worker's books never saw the store: the consolidator must not eat a GC
+notification because the sweeper was not the spiller.
 
 Runs on the engine's scheduler thread (the thread of every cache
 mutation), so net-event order equals mutation order.
@@ -38,6 +43,9 @@ class KvEventConsolidator:
         for h in removed:
             tiers = self._tiers.get(h)
             if tiers is None or tier not in tiers:
+                if tier == "g4":
+                    # shared-store GC: the sweeper may not be the spiller
+                    net_removed.append(h)
                 continue
             tiers.discard(tier)
             if not tiers:

@@ -14,11 +14,19 @@ for the gather, and an in-place `index_copy_` for the inject, so the
 cache keeps its address and the captured CUDA graphs (engine/graphs.py)
 stay valid.  `ids` are the cache's block ids, in payload order, with no
 padding (eager torch has no shape buckets to fill).
+
+KVBM moves single blocks between the cache and host memory
+(`blocks_to_host` / `blocks_from_host`), each block its own tensor tuple
+in the universal per-block layout [L, bs, nkv, hd] (scales [L, bs, nkv]):
+the gather is block-major, so each block's device-to-host copy is one
+contiguous copy into its own pinned tensor, and the upload copies each
+block's pinned tensor straight into a device staging buffer.
 """
 
 from __future__ import annotations
 
-from typing import Sequence, Tuple, Union
+import contextlib
+from typing import List, Sequence, Tuple, Union
 
 import torch
 
@@ -74,3 +82,63 @@ def inject_universal(kv: Tuple[torch.Tensor, ...], kb: torch.Tensor,
     for t, b in zip(kv[2:], (ksb, vsb)):
         t.index_copy_(2, idx, _to(b, dev).to(t.dtype).permute(0, 3, 1, 2))
     return kv
+
+
+def blocks_to_host(kv: Tuple[torch.Tensor, ...], ids: Ids,
+                   stream=None) -> List[Tuple[torch.Tensor, ...]]:
+    """Blocks `ids` of the cache `kv` as one host tensor tuple each: (k, v)
+    [L, bs, nkv, hd], plus (k_scale, v_scale) [L, bs, nkv] for an int8
+    cache.  The gather runs on the current stream, after the work queued
+    there (so it reads the blocks before any later write to them).  From a
+    CUDA cache the copies go into pinned tensors and are asynchronous, on
+    `stream` when given (a side stream: the copies overlap the next
+    kernels instead of delaying them): record an event on that stream
+    after this call and read no byte before it has completed."""
+    idx = _ids(ids, kv[0].device)
+    # block-major [nb, L, bs, nkv(, hd)]: one contiguous slab per block
+    major = [t.index_select(2, idx).permute(2, 0, 3, 1, 4).contiguous()
+             for t in kv[:2]]
+    major += [t.index_select(2, idx).permute(2, 0, 3, 1).contiguous()
+              for t in kv[2:]]
+    ctx = contextlib.nullcontext()
+    if stream is not None:
+        stream.wait_stream(torch.cuda.current_stream(kv[0].device))
+        for g in major:  # not reused before the side stream's copies ran
+            g.record_stream(stream)
+        ctx = torch.cuda.stream(stream)
+    out = []
+    with ctx:
+        for i in range(len(idx)):
+            blk = []
+            for g in major:
+                # a tensor of its own per block: a view into the batch
+                # would keep the whole batch alive as long as any one
+                # block lives
+                host = torch.empty(g.shape[1:], dtype=g.dtype,
+                                   pin_memory=g.is_cuda)
+                blk.append(host.copy_(g[i], non_blocking=True))
+            out.append(tuple(blk))
+    return out
+
+
+def blocks_from_host(kv: Tuple[torch.Tensor, ...],
+                     blocks: Sequence[Tuple[torch.Tensor, ...]],
+                     ids: Ids) -> Tuple[torch.Tensor, ...]:
+    """Write host blocks (blocks_to_host's layout) into blocks `ids` of
+    the cache `kv`, in place: each block's tensors are uploaded into a
+    device staging buffer (a block not in pinned memory is pinned first:
+    a pageable upload would wait out the stream), then one
+    inject_universal."""
+    dev = kv[0].device
+    staged = []
+    for c in range(len(kv)):
+        first = blocks[0][c]
+        st = torch.empty((len(blocks), *first.shape), dtype=first.dtype,
+                         device=dev)
+        for i, blk in enumerate(blocks):
+            src = blk[c]
+            if dev.type == "cuda" and not src.is_pinned():
+                src = src.pin_memory()
+            st[i].copy_(src, non_blocking=True)
+        staged.append(st.transpose(0, 1))  # universal [L, nb, ...]
+    return inject_universal(kv, staged[0], staged[1], ids, *staged[2:])

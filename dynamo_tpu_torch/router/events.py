@@ -1,6 +1,7 @@
 """KV event protocol + worker-side publisher (the publishing half of
-dynamo_tpu/router/events.py, copied; the indexers that consume it are
-the frontend's).
+dynamo_tpu/router/events.py, copied, with `KvCacheEvent.from_wire` for
+kvbm/remote.py's index; the indexers the router runs are the
+frontend's).
 
 Workers publish `stored` / `removed` block events on the event plane under
 `kv_events.{namespace}.{component}`.  Events carry monotonically increasing
@@ -63,6 +64,19 @@ class KvCacheEvent:
             "dp_rank": self.dp_rank,
             "tier": self.tier,
         }
+
+    @staticmethod
+    def from_wire(d: Dict[str, Any]) -> "KvCacheEvent":
+        ph = d.get("parent_hash")
+        return KvCacheEvent(
+            worker_id=d["worker_id"],
+            event_id=d["event_id"],
+            op=d["op"],
+            block_hashes=[wire_to_hash(b) for b in d.get("block_hashes", [])],
+            parent_hash=wire_to_hash(ph) if ph is not None else None,
+            dp_rank=d.get("dp_rank", 0),
+            tier=d.get("tier", "g1"),
+        )
 
 
 def kv_event_subject(namespace: str, component: str) -> str:

@@ -10,7 +10,8 @@ Two entry points:
 
   * :func:`call_with_retry` — wrap an async callable; retries on the
     given exception types until attempts/deadline run out (the disagg
-    pull's chunk ops use it with PULL_POLICY, engine/core.py).
+    pull's chunk ops use it with PULL_POLICY, engine/core.py; the KVBM
+    pull with KVBM_POLICY, kvbm/remote.py).
   * :class:`Backoff` — an attempt pacer for call sites that cannot be
     expressed as a closure.
 
@@ -59,6 +60,8 @@ class RetryPolicy:
 
 # the disagg pull's chunk ops (engine/core.py _stream_pull)
 PULL_POLICY = RetryPolicy(max_attempts=3, base_s=0.05, cap_s=0.5)
+# the cross-worker KVBM pull (kvbm/remote.py RemoteKvbmPuller.fetch_run)
+KVBM_POLICY = RetryPolicy(max_attempts=3, base_s=0.05, cap_s=0.5)
 
 
 class Backoff:
@@ -132,6 +135,7 @@ async def call_with_retry(
 
 __all__ = [
     "Backoff",
+    "KVBM_POLICY",
     "PULL_POLICY",
     "RetryPolicy",
     "call_with_retry",

@@ -37,7 +37,17 @@ FORBIDDEN = ("jax", "jaxlib", "dynamo_tpu", "ml_dtypes", "safetensors",
 REQUIRED = ("models/loader.py", "models/weight_cache.py",
             "engine/loader_cache.py", "ops/fused_sampling.py",
             "disagg/__init__.py", "disagg/transfer.py", "disagg/broker.py",
-            "ops/kv_transfer.py", "runtime/retry.py")
+            "ops/kv_transfer.py", "runtime/retry.py", "kvbm/pools.py",
+            "kvbm/breaker.py", "kvbm/object_store.py", "kvbm/object_io.py",
+            "kvbm/residency.py", "kvbm/manager.py", "kvbm/remote.py")
+# the KVBM tiers' fields (ported with kvbm/) and the knobs that came
+# with them, at the JAX engine's defaults
+KVBM_FIELDS = ("host_cache_blocks", "disk_cache_dir", "disk_cache_blocks",
+               "object_store_dir")
+KVBM_KNOBS = ("object_store_ttl_s", "kvbm_remote", "kvbm_remote_max_blocks",
+              "offload_watermark_blocks", "offload_batch",
+              "kv_io_deadline_s", "kv_breaker_threshold",
+              "kv_breaker_cooldown_s")
 
 
 def _package_modules():
@@ -136,12 +146,22 @@ def test_unported_config_field_raises(field):
 
 
 @pytest.mark.parametrize("field", ["model_path", "sampling_epilogue",
-                                   "role"])
+                                   "role", *KVBM_FIELDS])
 def test_ported_config_field_accepted(field, tmp_path):
     """Fields that left _UNPORTED when their features were ported take a
     valid value; sampling_epilogue rejects others with the JAX engine's
-    ValueError, role with the JAX CLI's choices."""
+    ValueError, role with the JAX CLI's choices; the KVBM fields and
+    their knobs default as the JAX engine's do."""
     assert field not in _UNPORTED
+    if field in KVBM_FIELDS:
+        from dynamo_tpu.engine.config import EngineConfig as JaxEngineConfig
+
+        for name in (field, *KVBM_KNOBS):
+            assert getattr(EngineConfig(), name) \
+                == getattr(JaxEngineConfig(), name)
+        value = 8 if field.endswith("blocks") else str(tmp_path / "d")
+        assert getattr(EngineConfig(**{field: value}), field) == value
+        return
     if field == "role":
         from dynamo_tpu.engine.__main__ import build_args as jax_args
         from dynamo_tpu.engine.config import EngineConfig as JaxEngineConfig
