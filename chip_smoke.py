@@ -15,12 +15,14 @@
                                           # one CUDA graph per bucket
     python3 chip_smoke.py --disagg        # the disaggregated pair
     python3 chip_smoke.py --kvbm          # the KV block manager's tiers
+    python3 chip_smoke.py --spec          # speculative decoding
 
 Builds the port's CUDA kernels from csrc/ (three nvcc processes started
 together), holds each entry point (K1 and K3, each in its bf16 and its
 int8 mode) against its plain PyTorch version at the llama-8b shapes the
 main path gives it (K1 at B = 8, 4 and 1, K3 on a 2048-token and a
-512-token packed stream), runs the paged-gather bandwidth microbench
+512-token packed stream and on the 32-token stream of a speculative
+verify dispatch), runs the paged-gather bandwidth microbench
 (dynamo_tpu_torch/bench/bench_dma_layouts.py: K4a strided and contig,
 K4b) and holds its kernels against their plain versions, then serves
 concurrent requests through `TorchEngine` with the llama-8b preset at
@@ -41,7 +43,8 @@ load metrics, FPM records, the MDC, clear_kv_blocks, cancellation and
 close; then the decode A/B, the fused A/B and the prefill A/B (below)
 run; after the int8 run, one request goes through a worker on the int8
 cache (its launches and the dtype it reports), then the disagg phase
-(below), then the KVBM phase (below).  Last, a HF-format Llama
+(below), then the KVBM phase (below), then the spec phase (below).
+Last, a HF-format Llama
 checkpoint at
 llama-8b width, depth cut to 4 layers (about 3.9 GB of bf16), is written
 to a temporary directory with the standard library and served through
@@ -56,7 +59,8 @@ replay of a captured program adds the K1/K3 launches its capture
 recorded; `checkpoint_launches` in the loaded checkpoint's run;
 `disagg_prefill_launches` and `disagg_decode_launches`, the disagg
 pair's prefill and decode workers' in its main run; `kvbm_launches` in
-the KVBM phase's first G2 run, bf16, or its int8 run), error
+the KVBM phase's first G2 run, bf16, or its int8 run; `spec_launches` in
+the spec phase's first n-gram turn, bf16, or its int8 n-gram run), error
 against its plain version (`max_abs_err`, and
 `max_rel_err`, the figure the tolerance holds), its device time (`ms`,
 by CUDA-graph replay for K1/K3; K3's with its tile plan computed
@@ -143,6 +147,23 @@ seconds in offload passes, the gather's GB/s against its byte bound,
 device-to-host GB/s against one contiguous pinned copy, the onboard's
 upload + inject GB/s, G3 write and read GB/s, the pull's GB/s and the
 pinned bytes of G2.
+
+The spec phase (part of the whole check; alone with --spec): llama-8b at
+full width and depth, random bf16 weights from seed 0, bf16 caches of 512
+blocks; the five requests plus two repetition prompts (a 64-token random
+pattern repeated 8 times, 64 greedy tokens).  A spec-off and an n-gram
+engine (spec_k 4, both warmed up) serve them in turns (off, ngram, ngram,
+off): streams must be equal except at a near-tie, the n-gram engine must
+verify drafts, each verify bucket's program (8, 16, 32) must be captured
+once by warm-up and never while serving, and a replayed verify bucket
+must be bit-equal to its eager body; it prints TTFT, decode tokens/s,
+proposed/accepted, each verify dispatch's device time (CUDA events) and
+K3's launches per verify dispatch.  Then llama-8b as its own draft
+(weights from the same seed, checked equal): streams equal spec-off
+except at a near-tie, at least half the drafts accepted, nothing
+captured while serving; tokens/s and the draft's eager catch-up
+prefills (dispatches, host time).  Then one repetition request with
+n-gram on an int8 cache against the int8 spec-off stream.
 
 The checkpoint phase (alone with --checkpoint): the synthesized
 checkpoint (two shards, config.json, tokenizer.json, a chat template)
@@ -428,11 +449,18 @@ DECODE_CASES = (("B=8", [1, 127, 128, 129, 2048, 700, 1500, 2047]),
 # (0, 0); row 2 starts at a prefix offset of 300 cached positions; 1800 +
 # 100 + 110 + 37 = 2047 real tokens and one padded; no boundary is a
 # multiple of the 32-token tile.  The short stream: four 128-token
-# prompts, T = 512.
+# prompts, T = 512.  The verify stream (speculative decoding's verify
+# program): four rows of 5 tokens (last token + 4 drafts) after contexts
+# of 1800, 500, 100 and 37 cached positions, T = 32: one 32-token tile at
+# group 4, every segment shorter than a warpgroup's token rows and all
+# four sharing the tile.
+VERIFY_CASE = "verify T=32"
 PACKED_CASES = (("T=2048", [1800, 0, 100, 110, 37], [0, 0, 300, 0, 0],
                  [2, 0, 3, 4], 2048),
                 ("T=512", [128, 128, 128, 128], [0, 0, 0, 0], [0, 1, 2, 3],
-                 512))
+                 512),
+                (VERIFY_CASE, [5, 5, 5, 5], [1800, 500, 100, 37],
+                 [0, 1, 2, 3], 32))
 
 
 def decode_case(cfg, device, kv_lens, int8: bool) -> dict:
@@ -671,7 +699,7 @@ def check_prefill_kernel(cfg, device, int8: bool = False) -> dict:
     """K3 in its bf16 mode, or (int8) in its int8 mode on the same
     streams with the cache quantized by the port's quantizer, at every
     case of PACKED_CASES; the first case carries the plain and library
-    times.  `ms` is the kernel alone, with the tile plan computed
+    times, and the verify case has its own under `cases`.  `ms` is the kernel alone, with the tile plan computed
     beforehand as models/llama.py does once per dispatch; `plan_ms` is
     the plan alone and `with_plan_ms` a call that computes its own."""
     from dynamo_tpu_torch.ops import cuda_packed_prefill as k3
@@ -742,7 +770,7 @@ def check_prefill_kernel(cfg, device, int8: bool = False) -> dict:
             f"plan computed beforehand), plan {plan_ms:.4f} ms, kernel "
             f"with its own plan {with_plan_ms:.4f} ms, bound "
             f"{bound_ms:.4f} ms ({bound_by})")
-        if ci:
+        if ci and case != VERIFY_CASE:
             continue
         plain_ms = time_ms(plain, iters=3, warmup=1)
         # yardstick: one SDPA call over every row's context gathered
@@ -766,6 +794,10 @@ def check_prefill_kernel(cfg, device, int8: bool = False) -> dict:
         log(f"{tag} {case} times: plain {plain_ms:.4f} ms (host loop), sdpa "
             f"{library_ms:.4f} ms (graph replay"
             f"{', context dequantized to bf16 beforehand' if int8 else ''})")
+        entry["cases"][case].update(plain_ms=plain_ms, library_ms=library_ms,
+                                    bound_by=bound_by)
+        if ci:
+            continue
         entry.update({"max_abs_err": err, "max_rel_err": rel, "ms": ms,
                       "plan_ms": plan_ms, "with_plan_ms": with_plan_ms,
                       "plain_ms": plain_ms, "bound_ms": bound_ms,
@@ -2824,6 +2856,7 @@ async def _idle(eng) -> None:
 
 def _free_engine(eng) -> None:
     eng.kv = eng.graphs = eng.prefill_graphs = None
+    eng.verify_graphs = eng.proposer = None
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -3262,6 +3295,360 @@ def check_kvbm(device, card: str, params) -> dict:
     return {"launches": launches, "ttft": {"g2": g2t, "off": offt},
             "bandwidth": bw, "disk": disk,
             "pull_gb_s": remote["pull_gb_s"]}
+
+
+# ---------------------------------------------------------------------------
+# speculative decoding: n-gram and draft-model proposers, the packed verify
+# program on K3 captured per bucket
+# ---------------------------------------------------------------------------
+
+# the repetition prompts: a random pattern of SPEC_PATTERN tokens repeated
+# SPEC_REPEATS times (512 tokens), SPEC_NEW greedy tokens each
+SPEC_PATTERN = 64
+SPEC_REPEATS = 8
+SPEC_NEW = 64
+
+
+def _spec_requests(vocab: int):
+    """The five requests plus two repetition prompts."""
+    from dynamo_tpu_torch.protocols import (
+        PreprocessedRequest,
+        SamplingOptions,
+        StopConditions,
+    )
+
+    reqs = _requests(vocab)
+    rng = np.random.default_rng(9)
+    for i in range(2):
+        pattern = rng.integers(0, vocab, SPEC_PATTERN).tolist()
+        reqs.append(PreprocessedRequest(
+            token_ids=pattern * SPEC_REPEATS, request_id=f"smoke-rep-{i}",
+            sampling=SamplingOptions(temperature=0.0),
+            stop=StopConditions(max_tokens=SPEC_NEW, ignore_eos=True)))
+    return reqs
+
+
+def _check_greedy_streams(what: str, got, ref, reqs, params, mc, device):
+    """_check_streams on the greedy requests: rejection sampling keeps a
+    sampled request's distribution, not its spec-off draws."""
+    greedy = [i for i, r in enumerate(reqs) if r.sampling.temperature <= 0]
+    _check_streams(what, [got[i] for i in greedy], [ref[i] for i in greedy],
+                   [reqs[i] for i in greedy], params, mc, device)
+
+
+def _spec_config(kv_dtype: str, **kw):
+    return dataclasses.replace(_engine_config(kv_dtype), **kw)
+
+
+def _program_counts(eng) -> tuple:
+    """Every program family's build counts (the draft's propose programs
+    where there is a draft)."""
+    draft = getattr(eng.proposer, "programs", None)
+    return (dict(eng.graphs.counts), dict(eng.prefill_graphs.counts),
+            dict(eng.verify_graphs.counts) if eng.verify_graphs else None,
+            dict(draft.counts) if draft is not None else None)
+
+
+def _timed_verify(eng, into: list):
+    """Wrap eng.verify_graphs.run so each dispatch records CUDA events
+    around it on the stream: their interval is the dispatch's device time
+    (the stream reaches the first event when the work queued before it is
+    done)."""
+    g = eng.verify_graphs
+    run = g.run
+
+    def timed(T):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = run(T)
+        end.record()
+        into.append((T, start, end))
+        return out
+
+    g.run = timed
+
+
+def _spec_turn_record(path: str, res, eng, m0: dict) -> dict:
+    n, secs = _decode_rate(res)
+    m = {k: eng.metrics.get(k, 0) - m0.get(k, 0)
+         for k in ("spec_steps", "spec_proposed", "spec_accepted",
+                   "decode_tokens")}
+    return {"path": path, "ttft_s": [round(r[2], 4) for r in res],
+            "decode_tok_s": n / secs, **m,
+            "acceptance": (m["spec_accepted"] / m["spec_proposed"]
+                           if m["spec_proposed"] else None)}
+
+
+def _check_verify_replay(eng, device) -> dict:
+    """Bucket 32's replayed verify program against its eager body on the
+    same descriptor (4 rows x 5 tokens at contexts 1800/500/100/37, blocks
+    1-21 of the cache, row 1 sampled at T 0.7): ids, values and lse must be
+    bit-equal.  Times 10 replays (CUDA events) and counts K3's launches
+    per replay (the wrapper's count, which a replay raises by what its
+    capture recorded).  Run after serving."""
+    k3 = _kernels_of("bf16")[1]
+    g = eng.verify_graphs
+    a = g.host_descriptor(32)
+    rng = np.random.default_rng(32)
+    nxt, off = 1, 0
+    for row, ctx in enumerate((1800, 500, 100, 37)):
+        need = -(-(ctx + 5) // eng.config.block_size)
+        a["tables"][row, :need] = np.arange(nxt, nxt + need)
+        nxt += need
+        a["toks"][off:off + 5] = rng.integers(0, eng.model_cfg.vocab_size, 5)
+        a["positions"][off:off + 5] = ctx + np.arange(5)
+        a["seg_ids"][off:off + 5] = row
+        a["valid"][off:off + 5] = True
+        a["temps_t"][off:off + 5] = 0.7 if row == 1 else 0.0
+        off += 5
+    g.upload(a)
+    eager = [t.clone() for t in g.run_eager(32)]
+    g.upload(a)
+    replay = [t.clone() for t in g.run(32)]
+    torch.cuda.synchronize()
+    same = all(torch.equal(r, e) for r, e in zip(replay, eager))
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    n0 = k3.launches
+    start.record()
+    for _ in range(10):
+        g.run(32)
+    end.record()
+    end.synchronize()
+    ms = start.elapsed_time(end) / 10
+    per = (k3.launches - n0) / 10
+    log(f"spec verify graph, bucket T=32 (4 rows x 5 tokens at contexts "
+        f"1800/500/100/37): replayed ids, values and lse bit-equal to the "
+        f"eager body: {same}; replay {ms:.3f} ms on the device; "
+        f"{k3.__name__} launches per replay {per:g}")
+    if not same:
+        raise SystemExit("spec verify graph T=32: the replay differs from "
+                         "the eager body")
+    if per != eng.model_cfg.n_layers:
+        raise SystemExit(f"spec verify graph T=32: {per:g} K3 launches a "
+                         "dispatch, not one a layer")
+    return {"replay_ms": ms, "k3_launches_per_dispatch": per}
+
+
+def check_spec(device, card: str, params) -> dict:
+    """Speculative decoding at llama-8b width and depth (random bf16
+    weights `params`, a bf16 cache of 512 blocks), one process:
+
+    * n-gram A/B: a spec-off and an n-gram engine (spec_k 4), both warmed
+      up, serve the five requests and two repetition prompts in turns
+      (off, ngram, ngram, off).  Gates: streams equal (a parting only at a
+      near-tie), spec_steps > 0, each verify bucket's program captured once
+      by warm-up and never while serving, a replayed verify bucket
+      bit-equal to its eager body.  Reports TTFT, decode tokens/s,
+      proposed/accepted, the median device time of a verify dispatch (CUDA
+      events around each) and K3's launches per verify dispatch.
+    * draft == target: the draft is llama-8b with the engine's seed, so
+      its own weights equal the target's (checked); streams equal spec-off
+      except at a near-tie, accepted >= proposed // 2, no capture while
+      serving; tokens/s and the draft's eager catch-up prefills.
+    * int8: one repetition request with n-gram on an int8 cache
+      (INT8_KV_HBM_GB) against the int8 spec-off stream.
+
+    Returns {"launches": {kernel: spec launches}, ...}."""
+    from dynamo_tpu_torch.engine import TorchEngine
+
+    t_phase = time.perf_counter()
+    cfg = _spec_config("bf16")
+    mc = cfg.resolve_model()
+    reqs = _spec_requests(mc.vocab_size)
+    k1, k3 = _kernels_of("bf16")
+    off = TorchEngine(dataclasses.replace(cfg), params=params, device=device)
+    ngram = TorchEngine(_spec_config("bf16", spec_decode="ngram", spec_k=4),
+                        params=params, device=device)
+    t0 = time.perf_counter()
+    for eng in (off, ngram):
+        eng.warmup_decode()
+    vg = ngram.verify_graphs
+    log(f"spec: engines off and ngram warmed up in "
+        f"{time.perf_counter() - t0:.1f} s; verify programs built "
+        f"{sorted(vg.counts.items())}, capture s "
+        + ", ".join(f"T={T} {s:.2f}" for T, s in sorted(vg.capture_s.items()))
+        + f", verify graph pool {vg.pool_bytes / 2**20:.0f} MiB")
+    if vg.counts != {T: 1 for T in vg.buckets} or vg.buckets != (8, 16, 32):
+        raise SystemExit(f"spec: warm-up built verify programs {vg.counts} "
+                         f"for buckets {vg.buckets}, expected 8, 16, 32 once")
+    built = _program_counts(ngram)
+    gc.collect()
+    verify_events: list = []
+
+    async def ab():
+        turns, streams, launches = [], {}, {}
+        try:
+            for i, path in enumerate(["off", "ngram", "ngram", "off"]):
+                eng = off if path == "off" else ngram
+                m0 = dict(eng.metrics)
+                if i == 1:
+                    for fn in (k1, k3):
+                        fn.launches = 0
+                    _timed_verify(ngram, verify_events)
+                res = await _serve(eng, reqs)
+                if i == 1:
+                    launches.update({fn.__name__: fn.launches
+                                     for fn in (k1, k3)})
+                    del ngram.verify_graphs.run  # the class's again
+                turns.append(_spec_turn_record(path, res, eng, m0))
+                streams.setdefault(path, []).append(res)
+                log(f"spec A/B turn {i + 1} ({card}): {turns[-1]}")
+                await eng.clear_kv_blocks()
+                await asyncio.sleep(1.1)
+        finally:
+            for eng in (off, ngram):
+                await eng.close()
+        return turns, streams, launches
+
+    turns, streams, launches = asyncio.run(ab())
+    for res in streams["off"] + streams["ngram"]:
+        bad = [i for i, r in enumerate(res) if r[1] != "length"]
+        if bad:
+            raise SystemExit(f"spec: requests {bad} did not finish by length")
+    ref = streams["off"][0]
+    for what, got in (("spec off turn 4", streams["off"][1]),
+                      ("spec ngram turn 2", streams["ngram"][0]),
+                      ("spec ngram turn 3", streams["ngram"][1])):
+        _check_greedy_streams(what, got, ref, reqs, params, mc, device)
+    steps = sum(t["spec_steps"] for t in turns if t["path"] == "ngram")
+    if not steps:
+        raise SystemExit("spec: the n-gram engine never verified a draft")
+    if _program_counts(ngram) != built:
+        raise SystemExit(f"spec: serving built programs: "
+                         f"{_program_counts(ngram)} after warm-up {built}")
+    torch.cuda.synchronize()
+    by_T: dict = {}
+    for T, s, e in verify_events:
+        by_T.setdefault(T, []).append(s.elapsed_time(e))
+    verify_ms = {T: (float(np.median(v)), len(v)) for T, v in by_T.items()}
+    log(f"spec: {steps} verify dispatches in the two ngram turns, none "
+        f"captured a program; turn 2's verify dispatches by bucket: median "
+        f"device ms and count {verify_ms}; spec launches (turn 2) "
+        f"{launches}")
+    if not (launches[k1.__name__] and launches[k3.__name__]):
+        raise SystemExit("spec: the ngram turn did not launch K1 and K3")
+    replay = _check_verify_replay(ngram, device)
+    for eng in (off, ngram):
+        _free_engine(eng)
+    del off, ngram
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"spec n-gram A/B done at {time.perf_counter() - t_phase:.1f} s of "
+        f"the phase")
+
+    draft = check_spec_draft(device, card, params, reqs, ref)
+    log(f"spec draft == target done at {time.perf_counter() - t_phase:.1f} "
+        f"s of the phase")
+    launches8 = check_spec_int8(device, card, params, reqs[-1])
+    launches.update(launches8)
+    log(f"spec phase done in {time.perf_counter() - t_phase:.1f} s")
+    return {"launches": launches, "turns": turns, "verify_ms": verify_ms,
+            "replay": replay, "draft": draft}
+
+
+def check_spec_draft(device, card: str, params, reqs, ref) -> dict:
+    """Draft == target: llama-8b as its own draft, its weights made from
+    the engine's seed by the proposer (a second 16 GB set, equal to
+    `params`), its own 512-block cache; one warmed-up turn of `reqs`
+    against the spec-off streams `ref`."""
+    from dynamo_tpu_torch.engine import TorchEngine
+    from dynamo_tpu_torch.models.llama import PRESETS
+
+    cfg = _spec_config("bf16", spec_decode="draft", spec_k=4,
+                       spec_draft_config=PRESETS["llama-8b"])
+    mc = cfg.resolve_model()
+    t0 = time.perf_counter()
+    eng = TorchEngine(cfg, params=params, device=device)
+    dp = eng.proposer.params
+    same = all(torch.equal(dp[k], params[k]) for k in ("embedding",
+                                                       "lm_head")) \
+        and torch.equal(dp["layers"][-1]["w_down"],
+                        params["layers"][-1]["w_down"])
+    eng.warmup_decode()
+    built = _program_counts(eng)
+    log(f"spec draft: engine with a llama-8b draft (its weights from seed "
+        f"{cfg.seed}, equal to the target's: {same}) built and warmed up in "
+        f"{time.perf_counter() - t0:.1f} s, "
+        f"{torch.cuda.memory_allocated() / 2**30:.1f} GiB allocated; draft "
+        f"propose programs {sorted(built[3].items())}")
+    if not same:
+        raise SystemExit("spec draft: the draft's weights differ from the "
+                         "target's")
+    gc.collect()
+
+    async def run():
+        try:
+            m0 = dict(eng.metrics)
+            res = await _serve(eng, reqs)
+            return res, _spec_turn_record("draft", res, eng, m0)
+        finally:
+            await eng.close()
+
+    res, rec = asyncio.run(run())
+    catchup = dict(eng.proposer.metrics)
+    log(f"spec draft turn ({card}): {rec}; the draft's eager catch-up "
+        f"prefills: {catchup['catchup_dispatches']} dispatches, "
+        f"{catchup['catchup_s']:.3f} s of host time")
+    if any(r[1] != "length" for r in res):
+        raise SystemExit("spec draft: a request did not finish by length")
+    _check_greedy_streams("spec draft", res, ref, reqs, params, mc, device)
+    if not rec["spec_proposed"] \
+            or rec["spec_accepted"] < rec["spec_proposed"] // 2:
+        raise SystemExit(f"spec draft: accepted {rec['spec_accepted']} of "
+                         f"{rec['spec_proposed']} (need half)")
+    if _program_counts(eng) != built:
+        raise SystemExit(f"spec draft: serving built programs: "
+                         f"{_program_counts(eng)} after warm-up {built}")
+    _free_engine(eng)
+    del eng, dp
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {**rec, **catchup}
+
+
+def check_spec_int8(device, card: str, params, req) -> dict:
+    """One repetition request on int8 caches (INT8_KV_HBM_GB each): spec
+    off, then n-gram (no warm-up: the first runs capture); the streams
+    must be equal except at a near-tie.  Returns the int8 kernels'
+    launches in the n-gram run."""
+    from dynamo_tpu_torch.engine import TorchEngine
+
+    k1, k3 = _kernels_of("int8")
+    out = {}
+    for path in ("off", "ngram"):
+        kw = {"spec_decode": "ngram", "spec_k": 4} if path == "ngram" else {}
+        eng = TorchEngine(_spec_config("int8", **kw), params=params,
+                          device=device)
+
+        async def run(eng=eng):
+            try:
+                for fn in (k1, k3):
+                    fn.launches = 0
+                return await _serve(eng, [req])
+            finally:
+                await eng.close()
+
+        res = asyncio.run(run())
+        launches = {fn.__name__: fn.launches for fn in (k1, k3)}
+        out[path] = (res, dict(eng.metrics), launches)
+        mc = eng.model_cfg
+        _free_engine(eng)
+        del eng
+        gc.collect()
+        torch.cuda.empty_cache()
+    res, m, launches = out["ngram"]
+    log(f"spec int8 ({card}): {req.request_id} {len(res[0][0])} out, "
+        f"equal to the int8 spec-off stream: {res[0][0] == out['off'][0][0][0]}"
+        f"; spec_steps {m.get('spec_steps', 0)} proposed "
+        f"{m.get('spec_proposed', 0)} accepted {m.get('spec_accepted', 0)}; "
+        f"launches {launches}")
+    _check_streams("spec int8", res, out["off"][0], [req], params, mc, device)
+    if not m.get("spec_steps") or not all(launches.values()):
+        raise SystemExit("spec int8: no verify dispatch, or the int8 kernels "
+                         "did not launch")
+    return launches
 
 
 # ---------------------------------------------------------------------------
@@ -3935,6 +4322,17 @@ def main() -> int:
                          default=str), flush=True)
         print(card, flush=True)
         return 0
+    if sys.argv[1:] == ["--spec"]:
+        # python3 chip_smoke.py --spec: the speculative decoding phase
+        build_kernels()
+        from dynamo_tpu_torch.models import llama
+
+        gen = torch.Generator(device=device).manual_seed(0)
+        params = llama.init_params(cfg, gen, device)
+        print(json.dumps({"spec": check_spec(device, card, params)},
+                         default=str), flush=True)
+        print(card, flush=True)
+        return 0
     if sys.argv[1:] == ["--checkpoint"]:
         # python3 chip_smoke.py --checkpoint: the loaded-checkpoint phase
         build_kernels()
@@ -3995,6 +4393,8 @@ def main() -> int:
     log(f"disagg phase done at {time.perf_counter() - t_start:.1f} s")
     kvbm = check_kvbm(device, card, params)
     log(f"kvbm phase done at {time.perf_counter() - t_start:.1f} s")
+    spec = check_spec(device, card, params)
+    log(f"spec phase done at {time.perf_counter() - t_start:.1f} s")
     del params
     torch.cuda.empty_cache()
     ckpt = check_checkpoint(device, card)
@@ -4006,9 +4406,10 @@ def main() -> int:
         (k["disagg_prefill_launches"],
          k["disagg_decode_launches"]) = disagg["launches"][k["name"]]
         k["kvbm_launches"] = kvbm["launches"][k["name"]]
+        k["spec_launches"] = spec["launches"][k["name"]]
     for k in dma:  # the microbench is on no serving path
         k["disagg_prefill_launches"] = k["disagg_decode_launches"] = 0
-        k["kvbm_launches"] = 0
+        k["kvbm_launches"] = k["spec_launches"] = 0
     log(f"chip_smoke: every phase passed in "
         f"{time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels + dma}), flush=True)

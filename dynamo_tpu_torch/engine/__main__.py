@@ -23,7 +23,7 @@ from ..ops.paged_attention import DECODE_IMPLS
 from ..runtime import DistributedRuntime
 from ..runtime.aio import install_drain_handler
 from ..runtime.logging import setup_logging
-from .config import ROLES, EngineConfig
+from .config import ROLES, SPEC_MODES, EngineConfig
 from .worker import TorchEngineWorker
 
 
@@ -109,6 +109,17 @@ def build_args() -> argparse.ArgumentParser:
                    help="disaggregation role: prefill workers park each "
                         "prompt's KV for a decode worker's pull; decode "
                         "workers pull it instead of prefilling")
+    p.add_argument("--spec-decode", default="off", choices=list(SPEC_MODES),
+                   help="speculative decoding proposer (spec/): ngram = "
+                        "zero-weight prompt lookup; draft = a second "
+                        "model on the same device")
+    p.add_argument("--spec-k", type=int, default=4,
+                   help="max draft tokens per speculation round "
+                        "(per-sequence acceptance EMA adapts below this)")
+    p.add_argument("--spec-draft-model", default="",
+                   help="draft model preset for --spec-decode draft")
+    p.add_argument("--spec-draft-model-path", default="",
+                   help="draft HF checkpoint dir (overrides the preset)")
     p.add_argument("--migration-limit", type=int, default=3)
     p.add_argument("--no-warmup", action="store_true",
                    help="skip the kernel build and decode warm-up at "
@@ -153,6 +164,10 @@ def engine_config(args: argparse.Namespace) -> EngineConfig:
         kv_breaker_threshold=args.kv_breaker_threshold,
         kv_breaker_cooldown_s=args.kv_breaker_cooldown_s,
         kvbm_remote=not args.no_kvbm_remote,
+        spec_decode=args.spec_decode,
+        spec_k=args.spec_k,
+        spec_draft_model=args.spec_draft_model,
+        spec_draft_model_path=args.spec_draft_model_path,
     )
 
 

@@ -185,6 +185,27 @@ class BlockAllocator:
         res.block_id = bid
         return res
 
+    def trim_blocks(self, seq_id: str, keep: int) -> GrowResult:
+        """Free a sequence's trailing blocks beyond its first `keep`
+        (speculative-decode rollback: blocks grown to hold rejected draft
+        tokens' KV return to the free list, so the accounting matches
+        plain decode).  Trailing blocks are partial and unregistered by
+        construction, but the release mirrors free()'s full handling."""
+        res = GrowResult()
+        blocks = self._seq_blocks.get(seq_id)
+        if blocks is None:
+            return res
+        while len(blocks) > max(keep, 0):
+            bid = blocks.pop()
+            rc = self._block_ref.get(bid, 1) - 1
+            if rc > 0:
+                self._block_ref[bid] = rc
+                continue
+            gone = self._release_one(bid)
+            if gone is not None:
+                res.removed.append(gone)
+        return res
+
     def commit_block(self, seq_id: str, block_index: int, h: int) -> GrowResult:
         """A sequence's partial block became full: register its PLH."""
         res = GrowResult()

@@ -21,13 +21,14 @@ from ..ops.paged_attention import DECODE_IMPLS
 
 # the disaggregation roles (the JAX CLI's --role choices)
 ROLES = ("both", "prefill", "decode")
+# speculative decoding's proposers (the JAX CLI's --spec-decode choices)
+SPEC_MODES = ("off", "ngram", "draft")
 
 # field -> (default, the feature it belongs to)
 _UNPORTED = {
     "dp": (1, "data parallelism"),
     "tp": (1, "tensor parallelism"),
     "sp": (1, "sequence-parallel ring prefill"),
-    "spec_decode": ("off", "speculative decoding"),
     "lora_max_adapters": (0, "LoRA serving"),
     # its one reader in JAX is the roofline (MBU) gauges of /metrics
     "peak_hbm_gbps": (0.0, "the /metrics roofline gauges"),
@@ -145,6 +146,33 @@ class EngineConfig:
     # (disagg/transfer.py chunk sizing)
     transfer_chunk_bytes: int = DEFAULT_CHUNK_BYTES
 
+    # speculative decoding (spec/): "ngram" is the zero-weight
+    # prompt-lookup proposer, "draft" a second model on the same device
+    # (greedy k-step drafts through the decode programs at B = 1).  The
+    # verify program scores every speculating sequence's drafts in ONE
+    # packed dispatch (models/llama.py spec_verify_packed over K3, one
+    # CUDA graph per stream bucket) and rejection sampling keeps the
+    # decode sampler's distribution: greedy output is token-identical to
+    # plain decode.  "off" disables.
+    spec_decode: str = "off"
+    # max draft tokens per round; the per-sequence draft length adapts
+    # below it through an acceptance-rate EMA, down to 0 (plain pipelined
+    # decode), with a probe every spec_probe_interval generated tokens
+    spec_k: int = 4
+    # n-gram proposer: suffix lengths tried, longest first
+    spec_ngram_max: int = 3
+    spec_ngram_min: int = 1
+    # draft model, first match wins: explicit config object (tests) > HF
+    # checkpoint dir > preset name.  Vocab must equal the target's.
+    spec_draft_config: Optional[LlamaConfig] = None
+    spec_draft_model_path: str = ""
+    spec_draft_model: str = ""
+    # acceptance EMA below this collapses the sequence to plain decode
+    spec_accept_min: float = 0.15
+    # max probe distance (generated tokens) for collapsed or missing
+    # slots: failed probes back off exponentially from 8 up to this cap
+    spec_probe_interval: int = 64
+
     # None = the model config's eos ids (the checkpoint's config.json with
     # model_path)
     eos_token_id: Optional[int] = None
@@ -154,7 +182,6 @@ class EngineConfig:
     dp: int = 1
     tp: int = 1
     sp: int = 1
-    spec_decode: str = "off"
     lora_max_adapters: int = 0
     peak_hbm_gbps: float = 0.0
 
@@ -175,6 +202,10 @@ class EngineConfig:
         if self.role not in ROLES:
             raise ValueError(f"role must be {' | '.join(ROLES)}, got "
                              f"{self.role!r}")
+        if self.spec_decode not in SPEC_MODES:
+            raise ValueError(f"spec_decode must be "
+                             f"{' | '.join(repr(m) for m in SPEC_MODES)}, "
+                             f"got {self.spec_decode!r}")
         if self.kv_cache_dtype not in ("bf16", "int8"):
             raise ValueError(f"kv_cache_dtype must be 'bf16' | 'int8', got "
                              f"{self.kv_cache_dtype!r}")

@@ -72,9 +72,15 @@ leading blocks from a peer's host tiers into G2 (`_remote_prefetch`,
 kvbm/remote.py, installed by the worker).  A failed tier read or pull
 falls back to local prefill.
 
+Speculative decoding (the JAX engine's, spec/): with spec_decode
+"ngram" or "draft" each step after the prefill dispatch proposes drafts
+for the decoding slots, scores them in one packed verify dispatch (a
+captured program per stream bucket, kernel K3 attends), accepts on the
+host and rolls rejected block growth back (`_spec_step`); those slots
+skip the step's decode burst.
+
 Not here yet (ROADMAP.md): penalties (the JAX engine ignores them too),
-the device-to-device pull across processes, speculative and guided
-decoding, and LoRA.
+the device-to-device pull across processes, guided decoding, and LoRA.
 """
 
 from __future__ import annotations
@@ -121,8 +127,9 @@ from ..tokens import (
 )
 from .block_allocator import BlockAllocator, GrowResult
 from .config import EngineConfig
-from .graphs import DecodePrograms, PrefillPrograms, Readback
-from .prefill import plan_packed_prefill
+from .graphs import DecodePrograms, PrefillPrograms, Readback, VerifyPrograms
+from .prefill import _pow2, plan_packed_prefill
+from .sampler import spec_accept_tokens
 
 logger = logging.getLogger(__name__)
 
@@ -173,6 +180,17 @@ class _Slot:
     # skip it until the pull finishes or falls back)
     pulling: bool = False
     admitted: Optional[asyncio.Event] = None  # set (loop thread) on admit
+    # speculative decoding (spec/): adaptive draft length (-1 = take the
+    # engine default on the first attempt; 0 = collapsed to plain
+    # decode), acceptance-rate EMA (a neutral 0.5 prior on the first
+    # attempt), the generated-token count at which a collapsed or
+    # pipelined slot next probes, the probe backoff, and the number of
+    # leading positions whose DRAFT-model KV matches the real sequence
+    spec_k_cur: int = -1
+    spec_accept_ema: float = -1.0
+    spec_probe_at: int = 0
+    spec_backoff: int = 0
+    draft_pos: int = 0
 
     @property
     def prefilling(self) -> bool:
@@ -204,6 +222,15 @@ class _OffloadExclude:
         return h in self._pending or h in self._skip
 
 
+def _ladder(lo: int, top: int) -> List[int]:
+    """lo, 2 lo, 4 lo, ... up to the first that holds `top`: the stream
+    buckets of a packed planner (engine/prefill.py _pow2)."""
+    out = [lo]
+    while out[-1] < top:
+        out.append(out[-1] * 2)
+    return out
+
+
 def _tensors(tree):
     if isinstance(tree, torch.Tensor):
         yield tree
@@ -226,7 +253,8 @@ class TorchEngine:
                  kv_event_sink: Optional[KvEventSink] = None,
                  cuda_graphs: bool = True,
                  prefill_graphs: Optional[bool] = None,
-                 kv_pull_fn: Optional[Callable] = None):
+                 kv_pull_fn: Optional[Callable] = None,
+                 draft_params=None):
         """`params`: the port's parameter tree on `device` (for example
         from models/convert.py params_from_numpy); None loads the
         checkpoint at config.model_path, or makes random weights from
@@ -239,7 +267,9 @@ class TorchEngine:
         `prefill_graphs` overrides it for the prefill programs alone.
         `kv_pull_fn(disaggregated_params)`: an async callable returning
         the PullSource of a remote prefill's parked KV (set by the
-        worker; the engine stays transport-agnostic)."""
+        worker; the engine stays transport-agnostic).  `draft_params`:
+        the draft model's weights under spec_decode="draft" (None: loaded
+        from spec_draft_model_path, or random from config.seed)."""
         self.config = config
         self.device = resolve_device(device)
         self.model_cfg = config.resolve_model()
@@ -334,14 +364,36 @@ class TorchEngine:
         # one packed-prefill program per bucket the planner can give:
         # the pow2 ladder from the smallest bucket to the first one that
         # holds the chunk budget
-        buckets = [config.prefill_buckets[0]]
-        while buckets[-1] < config.chunk_budget:
-            buckets.append(buckets[-1] * 2)
         self.prefill_graphs = PrefillPrograms(
             self.params, self.model_cfg, self.kv, config.max_prefill_seqs,
-            config.max_blocks_per_seq, buckets, self.device,
+            config.max_blocks_per_seq,
+            _ladder(config.prefill_buckets[0], config.chunk_budget),
+            self.device,
             capture=cuda_graphs if prefill_graphs is None
             else prefill_graphs)
+        # speculative decoding (spec/): the proposer and one verify
+        # program per pow2 stream length a round can give (rows
+        # [last_token, d1..dk], at most spec_k + 1 tokens a slot, capped
+        # by the chunk budget; the planner's smallest bucket is 8), rows
+        # padded to _pow2(max_num_seqs)
+        self.proposer = None
+        self.verify_graphs: Optional[VerifyPrograms] = None
+        if config.spec_decode != "off":
+            from ..spec import make_proposer
+
+            self.proposer = make_proposer(config, self.device,
+                                          params=draft_params,
+                                          capture=cuda_graphs)
+            self.verify_graphs = VerifyPrograms(
+                self.params, self.model_cfg, self.kv,
+                _pow2(config.max_num_seqs), config.max_blocks_per_seq,
+                _ladder(8, min(config.max_num_seqs * (config.spec_k + 1),
+                               config.chunk_budget)),
+                self.device, capture=cuda_graphs)
+        # slot indexes that speculated this scheduler step (they emitted
+        # synchronously; the decode burst skips them)
+        self._specced: frozenset = frozenset()
+        self._fpm_last_spec_t = 0.0
         self._overlap = bool(config.overlap_scheduling)
         self._inflight: deque = deque()
         self._chain_owner: List[Optional[Tuple[str, int]]] = \
@@ -506,6 +558,12 @@ class TorchEngine:
         hook is forensic and must never raise."""
         key = (tier, "quarantine")
         self.kv_integrity[key] = self.kv_integrity.get(key, 0) + 1
+
+    @property
+    def spec_enabled(self) -> bool:
+        """Speculative decoding is active (what the worker advertises in
+        its MDC)."""
+        return self.proposer is not None
 
     @property
     def num_active_seqs(self) -> int:
@@ -1023,7 +1081,9 @@ class TorchEngine:
         packed-prefill program of every bucket, then every rung of the
         fusion ladder, greedy and sampled, dispatched full and as a
         continuation (engine/graphs.py captures each program at its first
-        run).  Nothing real is computed (one prefill token, all-zero
+        run), and under spec_decode every verify bucket's program and
+        the draft model's propose bursts (k = 1..spec_k, B = 1).  Nothing
+        real is computed (one prefill token, all-zero
         tables: every write lands in block 0), and the decode descriptor,
         the device chain and the continuation state are restored
         afterwards.  Runs on the caller's thread and holds the step lock
@@ -1044,6 +1104,14 @@ class TorchEngine:
                 p["valid"][0] = True  # one token, in block 0
                 self.prefill_graphs.upload(p)
                 self.prefill_graphs.run(T)
+            if self.verify_graphs is not None:
+                for T in self.verify_graphs.buckets:
+                    p = self.verify_graphs.host_descriptor(T)
+                    p["valid"][0] = True  # one token, in block 0
+                    self.verify_graphs.upload(p)
+                    self.verify_graphs.run(T)
+                if hasattr(self.proposer, "warmup"):
+                    self.proposer.warmup()
             snap, last = self.graphs.snapshot(), self._last_desc
             for greedy in (True, False):
                 a["temps"][:] = 0.0 if greedy else 0.7
@@ -1248,6 +1316,7 @@ class TorchEngine:
             # has had a step to finish
             self._flush_pending_first()
             self._prefill_step()
+            self._spec_step()
             if any(s is not None and not s.prefilling
                    and not s.awaiting_first for s in self._slots):
                 self._decode_step()
@@ -1435,6 +1504,195 @@ class TorchEngine:
             return
         self._push_token(slot, first)
 
+    # -- speculative decoding (spec/) ----------------------------------------
+    def _spec_step(self) -> None:
+        """One speculation round, as the JAX engine's `_spec_step`:
+        propose up to k draft tokens per eligible slot (n-gram prompt
+        lookup or the draft model), score every speculating slot's row in
+        ONE packed verify dispatch (the bucket's captured program,
+        engine/graphs.py VerifyPrograms), read its candidate windows back,
+        accept the longest distribution-preserving prefix on the host
+        (sampler.spec_accept_tokens) and roll the rejected tail's block
+        growth back through the allocator.
+
+        Slots that speculate this step skip the decode burst (their
+        emission is synchronous: the verify readback is the step); the
+        rest decode as usual.  Mid-pull disagg slots and slots awaiting
+        their first token never speculate (the port serves no guided or
+        LoRA request, the JAX engine's other exclusions).  A slot whose
+        acceptance EMA collapsed to k = 0 rides the pipelined decode path
+        and re-probes with exponential backoff; a probe of a pipelined
+        slot drains the pipeline first, so the proposer sees its true
+        tail."""
+        self._specced = frozenset()
+        if self.proposer is None:
+            return
+        c = self.config
+        cands = [s for s in self._slots
+                 if s is not None and not s.prefilling and not s.pulling
+                 and not s.awaiting_first and not s.finished]
+        if not cands:
+            return
+        rows = []
+        budget = c.chunk_budget
+        for s in cands:
+            # an earlier candidate's probe drain can finish or preempt
+            # later slots of this snapshot: re-check before the allocator
+            if s.finished or self._slots[s.index] is not s:
+                continue
+            if s.spec_k_cur < 0:
+                s.spec_k_cur = c.spec_k
+                s.spec_backoff = min(self.SPEC_PROBE_MIN,
+                                     c.spec_probe_interval)
+                s.spec_accept_ema = 0.5
+            if (s.spec_k_cur == 0 or s.inflight > 0) \
+                    and s.generated < s.spec_probe_at:
+                continue
+            if budget <= 1:
+                # a probe skipped here stays due next step; draining first
+                # would flush the pipeline for a probe that never runs
+                break
+            if s.inflight > 0:
+                self._drain_inflight()
+                if s.finished or self._slots[s.index] is not s \
+                        or s.inflight:
+                    continue
+            k = max(1, s.spec_k_cur)
+            # verify touches positions [ctx, ctx+k]: cap by the table and
+            # by the step's remaining token budget
+            k = min(k, c.max_context - 1 - s.ctx_len, budget - 1)
+            k = self._spec_grow(s, k) if k > 0 else 0
+            if k <= 0:
+                self._spec_feedback(s, 0, 0)
+                continue
+            drafts = list(self.proposer.propose(
+                s.seq.tokens, k, ctx=s.ctx_len, draft_pos=s.draft_pos,
+                block_table=s.block_table))[:k]
+            if not drafts:
+                # a miss for the EMA; plain decode takes the slot
+                self._spec_feedback(s, 0, 0)
+                self._spec_trim(s)
+                continue
+            budget -= len(drafts) + 1
+            rows.append((s, drafts))
+        if not rows:
+            return
+        from ..spec import plan_spec_verify
+
+        plan = plan_spec_verify(rows, block_size=c.block_size,
+                                max_blocks_per_seq=c.max_blocks_per_seq)
+        g = self.verify_graphs
+        backs = [Readback(t) for t in g.run(g.upload(g.pad(plan.arrays)))]
+        ids, vals, lse = (b.wait() for b in backs)
+        self._fpm_sync_t = time.monotonic()
+        proposed_total = accepted_total = 0
+        specced = set()
+        for (s, drafts), off in zip(plan.rows, plan.offsets):
+            n = len(drafts) + 1
+            sm = s.request.sampling
+            # host rng stream keyed (seed, position), as in the JAX engine
+            rng = np.random.default_rng(
+                (s.sampling_seed * 0x9E3779B1 + s.generated + 1)
+                & 0xFFFFFFFF)
+            accepted, emitted = spec_accept_tokens(
+                ids[off:off + n], vals[off:off + n], lse[off:off + n],
+                drafts, greedy=sm.temperature <= 0.0, top_k=sm.top_k,
+                top_p=sm.top_p, rng=rng)
+            proposed_total += len(drafts)
+            accepted_total += accepted
+            self._spec_feedback(s, accepted, len(drafts))
+            specced.add(s.index)
+            # the device chain no longer feeds this lane: its last_token is
+            # a host-side spec emission, so the next burst must neither
+            # chain it nor count as a continuation (_is_continuation)
+            self._chain_owner[s.index] = None
+            ctx0 = s.ctx_len
+            for tok in emitted:
+                s.ctx_len += 1
+                self.metrics["decode_tokens"] += 1
+                self._push_token(s, int(tok))
+                if s.finished:
+                    break
+            # the draft cache matches the sequence through the accepted
+            # prefix; after FULL acceptance the last draft's own KV was
+            # never a decode input, so that position is prefilled again
+            s.draft_pos = min(s.ctx_len, ctx0 + len(drafts))
+            if not s.finished:
+                self._spec_trim(s)
+        self._specced = frozenset(specced)
+        self.metrics["spec_steps"] = self.metrics.get("spec_steps", 0) + 1
+        self.metrics["spec_proposed"] = \
+            self.metrics.get("spec_proposed", 0) + proposed_total
+        self.metrics["spec_accepted"] = \
+            self.metrics.get("spec_accepted", 0) + accepted_total
+        now = time.monotonic()
+        gap = (now - self._fpm_last_spec_t
+               if self._fpm_last_spec_t else 0.0)
+        if gap > 1.0:
+            gap = 0.0  # an idle stretch, not verify latency: unknown
+        # one FPM record per verify dispatch: the acceptance input the SLA
+        # planner's FpmObserver.spec_acceptance aggregates (no xla_* keys:
+        # the port has no cost analysis)
+        self.fpm.append({
+            "t": now, "kind": "spec_verify", "lanes": len(plan.rows),
+            "proposed": proposed_total, "accepted": accepted_total,
+            "tokens": plan.tokens, "gap_s": gap,
+        })
+        self._fpm_last_spec_t = now
+
+    def _spec_grow(self, s: _Slot, k: int) -> int:
+        """Grow s's block table to cover verify positions [ctx, ctx+k];
+        under allocation pressure shrink k to what the table already
+        covers (0 = no speculation this step)."""
+        c = self.config
+        bs = c.block_size
+        nblocks = int(np.count_nonzero(s.block_table))
+        while nblocks * bs <= s.ctx_len + k:
+            if nblocks >= c.max_blocks_per_seq:
+                break
+            grow = self.allocator.append_block(self._seq_id(s))
+            self._emit_events(grow)
+            if grow.block_id is None:
+                break
+            s.block_table[nblocks] = grow.block_id
+            nblocks += 1
+        return min(k, nblocks * bs - 1 - s.ctx_len)
+
+    def _spec_trim(self, s: _Slot) -> None:
+        """Roll back speculative block growth: trailing blocks beyond the
+        materialized context (the rejected drafts' KV slots) return to
+        the allocator, so free-block accounting matches plain decode."""
+        keep = max(-(-s.ctx_len // self.config.block_size), 1)
+        self._emit_events(self.allocator.trim_blocks(self._seq_id(s), keep))
+        s.block_table[keep:] = 0
+
+    #: first re-probe distance (generated tokens); failed probes back off
+    #: exponentially up to spec_probe_interval
+    SPEC_PROBE_MIN = 8
+
+    def _spec_feedback(self, s: _Slot, accepted: int,
+                       proposed: int) -> None:
+        """Fold one speculation outcome into the slot's adaptivity state:
+        a proposer miss (proposed == 0) only pushes the probe clock with
+        exponential backoff; a verified round updates the acceptance EMA,
+        which runs the full spec_k when high, halves it when middling and
+        collapses the slot to 0 (plain decode) below spec_accept_min."""
+        c = self.config
+        if proposed <= 0:
+            s.spec_probe_at = s.generated + s.spec_backoff
+            s.spec_backoff = min(s.spec_backoff * 2, c.spec_probe_interval)
+            return
+        rate = accepted / proposed
+        s.spec_accept_ema = 0.7 * s.spec_accept_ema + 0.3 * rate
+        if s.spec_accept_ema < c.spec_accept_min:
+            s.spec_k_cur = 0
+            s.spec_probe_at = s.generated + s.spec_backoff
+            s.spec_backoff = min(s.spec_backoff * 2, c.spec_probe_interval)
+        else:
+            s.spec_backoff = min(self.SPEC_PROBE_MIN, c.spec_probe_interval)
+            s.spec_k_cur = c.spec_k if s.spec_accept_ema >= 0.5 \
+                else max(1, c.spec_k // 2)
+
     # -- decode -------------------------------------------------------------
     def _fuse_ladder(self) -> List[int]:
         """The burst sizes adaptive fusion can dispatch, ascending: 1, then
@@ -1470,9 +1728,11 @@ class TorchEngine:
         return k
 
     def _decodable(self) -> List[_Slot]:
+        # slots that speculated this step already emitted synchronously
+        # (_spec_step): dispatching them again would double-step
         return [s for s in self._slots
                 if s is not None and not s.prefilling
-                and not s.awaiting_first]
+                and not s.awaiting_first and s.index not in self._specced]
 
     def _decode_step(self) -> None:
         """One decode burst for every slot past prefill.  At most depth-1
@@ -1733,6 +1993,9 @@ class TorchEngine:
         # keyed by (seq_id, epoch))
         slot.epoch += 1
         slot.inflight = 0
+        # the draft-model cache for the freed blocks is stale: the replay
+        # re-prefills the draft from position 0 (spec/draft.py)
+        slot.draft_pos = 0
         with self._qlock:
             self.waiting.insert(0, slot)
 

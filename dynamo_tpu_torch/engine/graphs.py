@@ -60,6 +60,17 @@ replays interleave with the decode programs' in any order.  K3's
 launches move from the capture to each replay, as K1's do, and
 `counts[T]` gates the builds as `counts[(greedy, k)]` does.
 
+VerifyPrograms, the counterpart of the JAX engine's jitted `spec_verify`
+(`_spec_verify_impl`, speculative decoding): the same bucket machinery
+(_BucketPrograms), one program per verify stream length T (the pow2
+ladder from 8 to the stream a full round can give, engine/core.py), rows
+padded to a fixed count and tables to max_blocks.  Each runs
+models/llama.py spec_verify_packed (K3 attends, every packed position's
+logits) and `spec_verify_window` into static ids [T, CAP], vals
+[T, CAP] and lse [T], which the engine reads back for the host-side
+acceptance test.  Its descriptor is toks, positions, seg_ids, valid and
+temps_t of T words each, then the tables.  Its graph pool is its own.
+
 Readback, the counterpart of `copy_to_host_async`: right after a run
 its output is copied on the same stream into a pinned host buffer owned
 by the returned `Readback`, and an event is recorded; `wait()` blocks on
@@ -78,13 +89,13 @@ import torch
 
 from ..models import llama
 from ..ops import fused_sampling
-from .sampler import sample_tokens
+from .sampler import CAP, sample_tokens, top_window
 
 # descriptor fields of B words each, in buffer order, then the tables
 # (B x max_blocks words) and the advance word
 FIELDS = ("tokens", "use_chain", "positions", "ctx_lens", "seeds", "steps",
           "temps", "top_ks", "top_ps", "valid")
-_FLOAT_FIELDS = ("temps", "top_ps")
+_FLOAT_FIELDS = ("temps", "top_ps", "temps_t")
 # pinned staging buffers for descriptor uploads, reused round-robin; each
 # is rewritten only after the event of its last copy
 _STAGING = 4
@@ -305,16 +316,18 @@ def _capture(device: torch.device, pool, body: Callable[[], object],
 # of `rows` words, then the tables (rows x max_blocks words)
 PREFILL_STREAM = ("toks", "positions", "seg_ids", "valid")
 PREFILL_ROWS = ("last_idx", "seeds", "temps", "top_ks", "top_ps")
+# the verify descriptor: fields of T words, then the tables
+VERIFY_STREAM = ("toks", "positions", "seg_ids", "valid", "temps_t")
 
 
-class _PrefillDesc:
+class _BucketDesc:
     """Views of one bucket's descriptor buffer by field name."""
 
     def __init__(self, buf: torch.Tensor, T: int, rows: int,
-                 max_blocks: int):
+                 max_blocks: int, stream: tuple, row_fields: tuple):
         off = 0
-        for name, n in ([(f, T) for f in PREFILL_STREAM]
-                        + [(f, rows) for f in PREFILL_ROWS]):
+        for name, n in ([(f, T) for f in stream]
+                        + [(f, rows) for f in row_fields]):
             view = buf[off:off + n]
             setattr(self, name, view.view(torch.float32)
                     if name in _FLOAT_FIELDS else view)
@@ -322,7 +335,18 @@ class _PrefillDesc:
         self.tables = buf[off:off + rows * max_blocks].view(rows, max_blocks)
 
 
-class PrefillPrograms:
+class _BucketPrograms:
+    """One program per stream length T of a packed planner's buckets,
+    each reading views of its own int32 descriptor (STREAM fields of T
+    words, ROWS fields of `rows` words, then the tables) and writing
+    static outputs; captured at its first run on CUDA into the family's
+    own graph pool, with K3's launches moved from the capture to each
+    replay.  Subclasses give the fields, the outputs and the body."""
+
+    KIND = ""
+    STREAM: tuple = ()
+    ROWS: tuple = ()
+
     def __init__(self, params, cfg: llama.LlamaConfig, kv: tuple, rows: int,
                  max_blocks: int, buckets, device: torch.device,
                  capture: bool = True):
@@ -331,16 +355,12 @@ class PrefillPrograms:
         self.buckets = tuple(buckets)
         self.capture = capture and device.type == "cuda"
         self.desc: Dict[int, torch.Tensor] = {}
-        self.d: Dict[int, _PrefillDesc] = {}
-        self.tok: Dict[int, torch.Tensor] = {}
-        self.logits: Dict[int, torch.Tensor] = {}
+        self.d: Dict[int, _BucketDesc] = {}
         for T in self.buckets:
             self.desc[T] = torch.zeros(self._words(T), dtype=torch.int32,
                                        device=device)
-            self.d[T] = _PrefillDesc(self.desc[T], T, rows, max_blocks)
-            self.tok[T] = torch.zeros(rows, dtype=torch.int32, device=device)
-            self.logits[T] = torch.zeros(rows, cfg.vocab_size,
-                                         dtype=torch.float32, device=device)
+            self.d[T] = _BucketDesc(self.desc[T], T, rows, max_blocks,
+                                    self.STREAM, self.ROWS)
         self.counts: Dict[int, int] = {}
         self.capture_s: Dict[int, float] = {}
         self.pool_bytes = 0
@@ -353,9 +373,10 @@ class PrefillPrograms:
                          for _ in range(_STAGING)]
         self._staged = [None] * _STAGING
         self._next = 0
+        self._init_outputs()
 
     def _words(self, T: int) -> int:
-        return (len(PREFILL_STREAM) * T + len(PREFILL_ROWS) * self.rows
+        return (len(self.STREAM) * T + len(self.ROWS) * self.rows
                 + self.rows * self.max_blocks)
 
     # -- inputs ------------------------------------------------------------
@@ -363,26 +384,28 @@ class PrefillPrograms:
         """Fresh host arrays of bucket T's descriptor with every token and
         row padding (top_p 1, everything else 0)."""
         rows = self.rows
-        a = {name: np.zeros(T, bool if name == "valid" else np.int32)
-             for name in PREFILL_STREAM}
+        a = {name: np.zeros(T, bool if name == "valid" else np.float32
+                            if name in _FLOAT_FIELDS else np.int32)
+             for name in self.STREAM}
         a.update({name: np.zeros(rows, np.float32 if name in _FLOAT_FIELDS
-                                  else np.int32) for name in PREFILL_ROWS})
-        a["top_ps"][:] = 1.0
+                                  else np.int32) for name in self.ROWS})
+        if "top_ps" in a:
+            a["top_ps"][:] = 1.0
         a["tables"] = np.zeros((rows, self.max_blocks), np.int32)
         return a
 
     def pad(self, arrays: Dict[str, np.ndarray]) -> Dict[str, np.ndarray]:
-        """A planner's arrays (engine/prefill.py: S <= rows segment rows,
-        tables up to max_blocks wide, stream length its bucket) padded to
-        the bucket's descriptor."""
+        """A planner's arrays (S <= rows segment rows, tables up to
+        max_blocks wide, stream length its bucket) padded to the bucket's
+        descriptor."""
         T = len(arrays["toks"])
         a = self.host_descriptor(T)
-        for name in PREFILL_STREAM:
+        for name in self.STREAM:
             a[name][:] = arrays[name]
-        S = len(arrays["last_idx"])
-        for name in PREFILL_ROWS:
-            a[name][:S] = arrays[name]
         tables = np.asarray(arrays["tables"])
+        S = tables.shape[0]
+        for name in self.ROWS:
+            a[name][:S] = arrays[name]
         a["tables"][:S, :tables.shape[1]] = tables
         return a
 
@@ -391,8 +414,8 @@ class PrefillPrograms:
         length): one copy from a pinned buffer.  Returns T."""
         T = len(a["toks"])
         if T not in self.desc:
-            raise ValueError(f"no prefill program for a {T}-token stream; "
-                             f"buckets {self.buckets}")
+            raise ValueError(f"no {self.KIND} program for a {T}-token "
+                             f"stream; buckets {self.buckets}")
         i = self._next
         self._next = (i + 1) % _STAGING
         if self._staged[i] is not None:
@@ -400,8 +423,8 @@ class PrefillPrograms:
         n = self._words(T)
         host = self._staging[i][:n].numpy()
         off = 0
-        for name, width in ([(f, T) for f in PREFILL_STREAM]
-                            + [(f, self.rows) for f in PREFILL_ROWS]):
+        for name, width in ([(f, T) for f in self.STREAM]
+                            + [(f, self.rows) for f in self.ROWS]):
             col = np.asarray(a[name])
             host[off:off + width] = (col.astype(np.float32).view(np.int32)
                                      if name in _FLOAT_FIELDS
@@ -415,29 +438,27 @@ class PrefillPrograms:
         return T
 
     # -- programs ----------------------------------------------------------
-    def run_eager(self, T: int) -> torch.Tensor:
-        """The program body, run eagerly: returns its static tokens
-        [rows] (its logits are in `logits[T]`)."""
-        d = self.d[T]
-        logits, _ = llama.prefill_packed(
-            self.params, self.cfg, self.kv, d.toks, d.positions, d.seg_ids,
-            d.tables, d.last_idx, d.valid != 0)
-        tok = sample_tokens(logits, d.seeds, torch.zeros_like(d.seeds),
-                            d.temps, d.top_ks, d.top_ps)
-        self.logits[T].copy_(logits)
-        self.tok[T].copy_(tok)
-        return self.tok[T]
+    def _init_outputs(self) -> None:
+        """Allocate every bucket's static outputs."""
+        raise NotImplementedError
 
-    def run(self, T: int) -> torch.Tensor:
+    def _outputs(self, T: int):
+        raise NotImplementedError
+
+    def run_eager(self, T: int):
+        """The program body, run eagerly: returns its static outputs."""
+        raise NotImplementedError
+
+    def run(self, T: int):
         """Dispatch bucket T's program on its current descriptor; returns
-        its static tokens [rows] (a later dispatch of the bucket
-        overwrites them, in stream order)."""
+        its static outputs (a later dispatch of the bucket overwrites
+        them, in stream order)."""
         graph = self._graphs.get(T)
         if graph is not None:
             graph.replay()
             for fn, n in self._graph_launches[T]:
                 fn.launches += n
-            return self.tok[T]
+            return self._outputs(T)
         out = self.run_eager(T)
         if T not in self.counts:
             if self.capture:
@@ -455,3 +476,77 @@ class PrefillPrograms:
                            lambda: self.run_eager(T),
                            (k3.packed_prefill, k3.packed_prefill_int8))
         self.pool_bytes += grown
+
+
+class PrefillPrograms(_BucketPrograms):
+    """The packed-prefill program of each bucket: models/llama.py
+    prefill_packed, then sample_tokens, into static [rows] tokens `tok[T]`
+    and [rows, vocab] logits `logits[T]`."""
+
+    KIND = "prefill"
+    STREAM = PREFILL_STREAM
+    ROWS = PREFILL_ROWS
+
+    def _init_outputs(self) -> None:
+        rows, dev = self.rows, self.device
+        self.tok = {T: torch.zeros(rows, dtype=torch.int32, device=dev)
+                    for T in self.buckets}
+        self.logits = {T: torch.zeros(rows, self.cfg.vocab_size,
+                                      dtype=torch.float32, device=dev)
+                       for T in self.buckets}
+
+    def _outputs(self, T: int) -> torch.Tensor:
+        return self.tok[T]
+
+    def run_eager(self, T: int) -> torch.Tensor:
+        """The program body, run eagerly: returns its static tokens
+        [rows] (its logits are in `logits[T]`)."""
+        d = self.d[T]
+        logits, _ = llama.prefill_packed(
+            self.params, self.cfg, self.kv, d.toks, d.positions, d.seg_ids,
+            d.tables, d.last_idx, d.valid != 0)
+        tok = sample_tokens(logits, d.seeds, torch.zeros_like(d.seeds),
+                            d.temps, d.top_ks, d.top_ps)
+        self.logits[T].copy_(logits)
+        self.tok[T].copy_(tok)
+        return self.tok[T]
+
+
+def spec_verify_window(logits: torch.Tensor, temps_t: torch.Tensor):
+    """The JAX engine's `_spec_verify_impl` tail: per packed position the
+    CAP largest temperature-scaled logits (ids [T, CAP] int32, values
+    [T, CAP], ordered as `lax.top_k`: ties to the lower id) and the
+    full-vocab logsumexp [T] of the scaled logits, the inputs of
+    sampler.spec_accept_tokens."""
+    scaled = logits / torch.clamp(temps_t, min=1e-6)[:, None]
+    vals, ids = top_window(scaled)
+    return ids.to(torch.int32), vals, torch.logsumexp(scaled, dim=-1)
+
+
+class VerifyPrograms(_BucketPrograms):
+    """The speculative verify program of each bucket: models/llama.py
+    spec_verify_packed (K3 attends), then `spec_verify_window`, into
+    static ids [T, CAP], vals [T, CAP] and lse [T]."""
+
+    KIND = "verify"
+    STREAM = VERIFY_STREAM
+
+    def _init_outputs(self) -> None:
+        dev = self.device
+        self.out = {T: (torch.zeros(T, CAP, dtype=torch.int32, device=dev),
+                        torch.zeros(T, CAP, dtype=torch.float32, device=dev),
+                        torch.zeros(T, dtype=torch.float32, device=dev))
+                    for T in self.buckets}
+
+    def _outputs(self, T: int) -> tuple:
+        return self.out[T]
+
+    def run_eager(self, T: int) -> tuple:
+        d = self.d[T]
+        logits, _ = llama.spec_verify_packed(
+            self.params, self.cfg, self.kv, d.toks, d.positions, d.seg_ids,
+            d.tables, d.valid != 0)
+        for dst, src in zip(self.out[T], spec_verify_window(logits,
+                                                            d.temps_t)):
+            dst.copy_(src)
+        return self.out[T]

@@ -22,9 +22,15 @@ stream equals the JAX engine's token for token (up to an ulp of
 the host, so a sampled decode burst can be captured in a CUDA graph.
 uint32 arithmetic is carried in int64 tensors masked to 32 bits (torch
 has no full uint32 op set).
+
+`spec_window_weights` and `spec_accept_tokens`, speculative decoding's
+host-side rejection sampling, are numpy and copied verbatim: on the same
+verify outputs and the same host RNG they accept and emit the same tokens.
 """
 
 from __future__ import annotations
+
+from typing import List, Tuple
 
 import numpy as np
 import torch
@@ -178,6 +184,97 @@ def sample_tokens(
     ids, masked = candidate_window(logits, temperature, top_k, top_p)
     sampled = draw(ids, masked, seeds, steps)
     return torch.where(temperature <= 0.0, greedy, sampled)
+
+
+# ---------------------------------------------------------------------------
+# speculative decoding: host-side rejection sampling (spec/)
+#
+# The verify program (engine/graphs.py VerifyPrograms, the JAX engine's
+# _spec_verify_impl) returns, per packed position, the top-CAP candidate
+# ids + temperature-scaled logits and the full-vocab logsumexp of the scaled logits.  From those three arrays the
+# host reconstructs EXACTLY the masked-window categorical `sample_tokens`
+# draws from (same CAP window, same top-k clamp, same true-softmax top-p
+# nucleus), so acceptance decisions are made against the real target
+# distribution, not an approximation of it.
+#
+# Proposals are point masses (greedy n-gram / greedy draft model), so the
+# Leviathan rejection rule specializes to: accept draft d with probability
+# p(d); on rejection, sample from p with d's mass removed, renormalized.
+# The emitted marginal is p(d)*1[x=d] + (1-p(d)) * p(x)*1[x!=d]/(1-p(d))
+# = p(x) — the target distribution exactly, per position.  Greedy
+# (temperature <= 0) degenerates to exact argmax-prefix matching, so the
+# speculative stream is token-identical to plain greedy decode.
+# ---------------------------------------------------------------------------
+
+
+def spec_window_weights(vals: np.ndarray, lse: float, top_k: int,
+                        top_p: float) -> np.ndarray:
+    """Normalized target weights over the CAP candidate window — the same
+    masking sample_tokens applies on device.  vals: [CAP] scaled logits
+    sorted descending; lse: logsumexp of the full scaled logits."""
+    probs = np.exp(vals.astype(np.float64) - float(lse))
+    k_eff = int(np.clip(top_k if top_k > 0 else CAP, 1, CAP))
+    keep = np.arange(CAP) < k_eff
+    cum = np.cumsum(probs)
+    keep &= np.concatenate(([True], cum[:-1] < top_p))
+    w = np.where(keep, probs, 0.0)
+    s = w.sum()
+    if s <= 0.0:  # fp underflow corner: the argmax candidate stands alone
+        w = np.zeros(CAP)
+        w[0] = 1.0
+        return w
+    return w / s
+
+
+def spec_accept_tokens(
+    ids: np.ndarray,      # [n, CAP] candidate ids per position, sorted
+    vals: np.ndarray,     # [n, CAP] scaled logits per position
+    lse: np.ndarray,      # [n] full-vocab logsumexp of scaled logits
+    drafts: List[int],    # k point-mass proposals (n == k + 1)
+    *,
+    greedy: bool,
+    top_k: int,
+    top_p: float,
+    rng: np.random.Generator,
+) -> Tuple[int, List[int]]:
+    """Verify k drafted tokens against the target's per-position window
+    distributions.  Returns (accepted_count, emitted_tokens): the
+    accepted draft prefix plus exactly ONE more token — the corrected
+    sample at the first rejection, or the bonus token from the position
+    after the last draft when everything was accepted."""
+    emitted: List[int] = []
+    for i, d in enumerate(drafts):
+        if greedy:
+            t = int(ids[i, 0])
+            if t == d:
+                emitted.append(d)
+                continue
+            emitted.append(t)
+            return i, emitted
+        w = spec_window_weights(vals[i], lse[i], top_k, top_p)
+        j = np.nonzero(ids[i] == d)[0]
+        p_d = float(w[j[0]]) if len(j) else 0.0
+        if rng.random() < p_d:
+            emitted.append(d)
+            continue
+        if len(j):
+            w[j[0]] = 0.0
+        s = w.sum()
+        if s <= 0.0:
+            # the target was itself a point mass at d and the float
+            # comparison still rejected: d IS the sample
+            emitted.append(d)
+            continue
+        emitted.append(int(ids[i, rng.choice(CAP, p=w / s)]))
+        return i, emitted
+    # every draft accepted: bonus token from the last scored position
+    i = len(drafts)
+    if greedy:
+        emitted.append(int(ids[i, 0]))
+    else:
+        w = spec_window_weights(vals[i], lse[i], top_k, top_p)
+        emitted.append(int(ids[i, rng.choice(CAP, p=w)]))
+    return len(drafts), emitted
 
 
 def apply_penalties(

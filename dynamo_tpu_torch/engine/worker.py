@@ -155,6 +155,12 @@ class TorchEngineWorker:
                 # back to "off", as JAX's MLA does
                 "sampling_epilogue": self.config.sampling_epilogue,
                 "overlap_scheduling": self.config.overlap_scheduling,
+                # speculative decoding: the proposer and max draft length,
+                # only where the engine speculates (live acceptance rides
+                # the FPM stream's spec_verify records)
+                **({"speculative": {"proposer": self.config.spec_decode,
+                                    "k": self.config.spec_k}}
+                   if eng is not None and eng.spec_enabled else {}),
             },
         )
 

@@ -31,7 +31,12 @@ from ..ops.packed_prefill import (
     packed_prefill_attention,
     write_packed_kv,
 )
-from ..ops.paged_attention import paged_attention_decode, write_token_kv
+from ..ops.paged_attention import (
+    paged_attention_decode,
+    paged_prefill_attention,
+    write_prompt_kv,
+    write_token_kv,
+)
 from ..quant.kv import unpack_kv
 
 Params = Dict[str, Any]
@@ -290,6 +295,66 @@ def _packed_forward(params, cfg: LlamaConfig, kv_cache: KVCache,
         h = rms_norm(x, layer["mlp_norm"]["norm"], cfg.rms_eps)
         x = x + _mlp(layer, h)
     return x
+
+
+def spec_verify_packed(
+    params: Params,
+    cfg: LlamaConfig,
+    kv_cache: KVCache,
+    token_ids: torch.Tensor,     # [T] int32 packed verify stream
+    positions: torch.Tensor,     # [T] int32 absolute position per token
+    seg_ids: torch.Tensor,       # [T] int32 segment row per token
+    block_tables: torch.Tensor,  # [S, mb] int32 per-segment block tables
+    valid: torch.Tensor,         # [T] bool: False on the padded tail
+):
+    """Speculative-decoding verification (spec/): each speculating
+    sequence's row [last_token, d1..dk] runs through the same packed
+    segment-id path as chunked prefill (K3 on the card), K/V written in
+    place for every draft position (rejected tails are overwritten when
+    the sequence reaches those positions), with logits at EVERY packed
+    position.  Returns (logits [T, vocab], kv_cache updated in place)."""
+    x = _packed_forward(params, cfg, kv_cache, token_ids, positions,
+                        seg_ids, block_tables, valid)
+    return _logits(params, cfg, x), kv_cache
+
+
+# ---------------------------------------------------------------------------
+# prefill: one sequence's chunk attends to its cached context + itself
+# ---------------------------------------------------------------------------
+
+
+def prefill(
+    params: Params,
+    cfg: LlamaConfig,
+    kv_cache: KVCache,
+    token_ids: torch.Tensor,     # [T_pad] int32 (one sequence, padded)
+    positions: torch.Tensor,     # [T_pad] int32 absolute positions
+    block_table: torch.Tensor,   # [max_blocks] int32 physical block ids
+    ctx_len,                     # tokens already cached (int or 0-d)
+    true_len,                    # valid tokens in token_ids (int or 0-d)
+):
+    """One sequence's prompt chunk: its tokens attend to ctx_len cached
+    tokens through the block table plus themselves causally
+    (ops/paged_attention.py paged_prefill_attention, plain torch as the
+    JAX package's is XLA), their K/V written into the cache in place.
+    The draft model's catch-up (spec/draft.py) runs it.  Returns (logits
+    [vocab] at the last valid token, kv_cache)."""
+    k_cache, v_cache, k_scale, v_scale = unpack_kv(kv_cache)
+    T = token_ids.shape[0]
+    x = params["embedding"][token_ids.long()].to(cfg.dtype)  # [T, d]
+    for li, layer in enumerate(params["layers"]):
+        h = rms_norm(x, layer["attn_norm"]["norm"], cfg.rms_eps)
+        q, k, v = _qkv(layer, cfg, h, positions)  # [T, nh, hd]
+        _write_kv(write_prompt_kv, kv_cache, li, k, v, block_table,
+                  ctx_len, true_len)
+        attn = paged_prefill_attention(q, k, v, k_cache, v_cache, li,
+                                       block_table, ctx_len, true_len,
+                                       k_scale=k_scale, v_scale=v_scale)
+        x = x + _attn_out(layer, attn.reshape(T, cfg.q_dim))
+        h = rms_norm(x, layer["mlp_norm"]["norm"], cfg.rms_eps)
+        x = x + _mlp(layer, h)
+    last = max(int(true_len) - 1, 0)
+    return _logits(params, cfg, x[last]), kv_cache
 
 
 # ---------------------------------------------------------------------------

@@ -1,4 +1,5 @@
-"""Paged KV-cache ops: cache writes and single-token decode attention.
+"""Paged KV-cache ops: cache writes, single-token decode attention and
+one sequence's chunked prefill attention.
 
 The counterpart of dynamo_tpu/ops/paged_attention.py.
 
@@ -110,6 +111,31 @@ def write_token_kv(k_cache: torch.Tensor, v_cache: torch.Tensor, layer: int,
               k_scale, v_scale)
 
 
+def write_prompt_kv(k_cache: torch.Tensor, v_cache: torch.Tensor,
+                    layer: int,
+                    k: torch.Tensor,            # [T, nkv, hd] new tokens' keys
+                    v: torch.Tensor,
+                    block_table: torch.Tensor,  # [max_blocks] int32
+                    ctx_len,                    # tokens already in cache
+                    true_len,                   # valid entries of k/v
+                    k_scale: torch.Tensor = None,  # [L, nkv, nb, bs] (int8)
+                    v_scale: torch.Tensor = None,
+                    ) -> None:
+    """One sequence's chunk write: token i at position ctx_len + i, the
+    rows past true_len to the garbage block.  In place; the table column
+    is clamped to the table width, mirroring JAX's clamped gather.
+    ctx_len/true_len: ints or 0-d tensors."""
+    T = k.shape[0]
+    bs = k_cache.shape[3]
+    idx = torch.arange(T, device=k.device)
+    pos = idx + ctx_len
+    col = torch.clamp(pos // bs, max=block_table.shape[0] - 1)
+    blocks = torch.where(idx < true_len, block_table.long()[col],
+                         torch.zeros_like(col))
+    _store_kv(k_cache, v_cache, layer, k, v, blocks, pos % bs,
+              k_scale, v_scale)
+
+
 # ---------------------------------------------------------------------------
 # attention reads
 # ---------------------------------------------------------------------------
@@ -187,6 +213,47 @@ def paged_attention_decode_ref(
     p = torch.softmax(s, dim=-1)
     o = torch.einsum("bkgs,bksh->bkgh", p, vb)
     return o.reshape(B, nh, hd).to(q.dtype)
+
+
+def paged_prefill_attention(
+    q: torch.Tensor,            # [T, nh, hd] (rope applied)
+    k: torch.Tensor,            # [T, nkv, hd] this chunk's keys
+    v: torch.Tensor,
+    k_cache: torch.Tensor,
+    v_cache: torch.Tensor,
+    layer: int,
+    block_table: torch.Tensor,  # [max_blocks] int32
+    ctx_len,                    # cached tokens this chunk attends to
+    true_len,                   # valid tokens in the chunk
+    k_scale: torch.Tensor = None,  # int8 cache: dequant scales (quant/kv.py)
+    v_scale: torch.Tensor = None,
+) -> torch.Tensor:
+    """One sequence's chunk attends to (cached context) ++ (chunk,
+    causally), in fp32, as the JAX package's `paged_prefill_attention`:
+    the chunk's own K/V attend at full precision (fresh from the
+    projection); only the cached context dequantizes on an int8 cache.
+    Plain torch, as it is XLA there (no Pallas kernel): the draft model's
+    catch-up prefill (spec/draft.py) is its one caller."""
+    check_kv_scales(k_cache, k_scale, v_scale)
+    T, nh, hd = q.shape
+    nkv = k_cache.shape[1]
+    group = nh // nkv
+    scale = 1.0 / math.sqrt(hd)
+    k_ctx = _gather_ctx(k_cache, layer, block_table, k_scale).float()
+    v_ctx = _gather_ctx(v_cache, layer, block_table, v_scale).float()
+    S = k_ctx.shape[1]
+    qg = q.float().reshape(T, nkv, group, hd)
+    s_ctx = torch.einsum("tkgh,ksh->tkgs", qg, k_ctx) * scale
+    ctx_mask = torch.arange(S, device=q.device) < ctx_len
+    s_ctx = s_ctx.masked_fill(~ctx_mask, NEG_INF)
+    s_self = torch.einsum("tkgh,skh->tkgs", qg, k.float()) * scale
+    i = torch.arange(T, device=q.device)
+    causal = (i[None, :] <= i[:, None]) & (i[None, :] < true_len)
+    s_self = s_self.masked_fill(~causal[:, None, None, :], NEG_INF)
+    p = torch.softmax(torch.cat([s_ctx, s_self], dim=-1), dim=-1)
+    out = (torch.einsum("tkgs,ksh->tkgh", p[..., :S], v_ctx)
+           + torch.einsum("tkgs,skh->tkgh", p[..., S:], v.float()))
+    return out.reshape(T, nh, hd).to(q.dtype)
 
 
 def paged_attention_decode(

@@ -1,0 +1,98 @@
+"""Verification packing planner: speculating slots -> ONE packed program.
+
+A copy of dynamo_tpu/spec/verify.py (numpy only).
+
+Each speculating slot contributes the row [last_token, d1 .. dk] at
+absolute positions [ctx, ctx+k]; rows concatenate into a single
+padding-free token stream with segment ids — the same shape family as
+packed chunked prefill (engine/prefill.py plan_packed_prefill), so the
+verify program reuses ops/packed_prefill.py's segment-id causal
+attention and per-segment paged KV scatter wholesale.  The stream
+length buckets pow2 (lo=min_bucket), the segment-row count pow2, and
+the table width pow2 up to max_blocks_per_seq, bounding the compiled
+shape zoo exactly like prefill packing does.  The port pads each plan
+to its stream bucket's program (rows to a fixed count, tables to full
+width: engine/graphs.py VerifyPrograms), captured once as a CUDA graph.
+
+`temps_t` carries each token's sequence temperature so the verify
+program can temperature-scale BEFORE its on-device top-CAP reduction —
+the host-side acceptance test (engine/sampler.py spec_accept_tokens)
+then sees the exact candidate window the decode sampler would draw
+from.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Dict, List, Tuple
+
+import numpy as np
+
+# one bucket-rounding policy for BOTH packed planners: a divergence here
+# would silently fork the verify-plan shape zoo from the prefill one
+from ..engine.prefill import _pow2
+
+
+@dataclass
+class SpecPlan:
+    """One packed verify dispatch: rows[i] = (slot, drafts) occupies
+    packed indices [offsets[i], offsets[i] + len(drafts) + 1)."""
+
+    rows: List[Tuple]             # (engine _Slot, [draft token ids])
+    offsets: List[int]            # packed start index per row
+    arrays: Dict[str, np.ndarray]
+    tokens: int                   # real (non-padding) tokens in the stream
+    bucket: int                   # padded stream length
+
+
+def plan_spec_verify(
+    rows: List[Tuple],
+    *,
+    block_size: int,
+    max_blocks_per_seq: int,
+    min_bucket: int = 8,
+) -> SpecPlan:
+    """Build the inputs of one spec_verify dispatch.
+
+    rows: [(slot, drafts)] with len(drafts) >= 1 per row; the caller has
+    already grown each slot's block table to cover positions
+    [ctx, ctx + len(drafts)]."""
+    n = len(rows)
+    total = sum(len(d) + 1 for _, d in rows)
+    bucket = _pow2(total, lo=min_bucket)
+    S = _pow2(n)
+    mbp = min(
+        _pow2(max(-(-(s.ctx_len + len(d) + 1) // block_size)
+                  for s, d in rows)),
+        max_blocks_per_seq,
+    )
+
+    toks = np.zeros(bucket, np.int32)
+    positions = np.zeros(bucket, np.int32)
+    seg_ids = np.zeros(bucket, np.int32)
+    valid = np.zeros(bucket, bool)
+    temps_t = np.zeros(bucket, np.float32)
+    tables = np.zeros((S, mbp), np.int32)
+
+    offsets: List[int] = []
+    off = 0
+    for i, (slot, drafts) in enumerate(rows):
+        row = [slot.last_token] + list(drafts)
+        m = len(row)
+        toks[off:off + m] = row
+        positions[off:off + m] = slot.ctx_len + np.arange(m, dtype=np.int32)
+        seg_ids[off:off + m] = i
+        valid[off:off + m] = True
+        temps_t[off:off + m] = slot.request.sampling.temperature
+        tables[i] = slot.block_table[:mbp]
+        offsets.append(off)
+        off += m
+
+    return SpecPlan(
+        rows=list(rows), offsets=offsets,
+        arrays={
+            "toks": toks, "positions": positions, "seg_ids": seg_ids,
+            "tables": tables, "valid": valid, "temps_t": temps_t,
+        },
+        tokens=total, bucket=bucket,
+    )

@@ -39,7 +39,9 @@ REQUIRED = ("models/loader.py", "models/weight_cache.py",
             "disagg/__init__.py", "disagg/transfer.py", "disagg/broker.py",
             "ops/kv_transfer.py", "runtime/retry.py", "kvbm/pools.py",
             "kvbm/breaker.py", "kvbm/object_store.py", "kvbm/object_io.py",
-            "kvbm/residency.py", "kvbm/manager.py", "kvbm/remote.py")
+            "kvbm/residency.py", "kvbm/manager.py", "kvbm/remote.py",
+            "spec/__init__.py", "spec/ngram.py", "spec/verify.py",
+            "spec/draft.py")
 # the KVBM tiers' fields (ported with kvbm/) and the knobs that came
 # with them, at the JAX engine's defaults
 KVBM_FIELDS = ("host_cache_blocks", "disk_cache_dir", "disk_cache_blocks",
@@ -146,13 +148,33 @@ def test_unported_config_field_raises(field):
 
 
 @pytest.mark.parametrize("field", ["model_path", "sampling_epilogue",
-                                   "role", *KVBM_FIELDS])
+                                   "role", "spec_decode", *KVBM_FIELDS])
 def test_ported_config_field_accepted(field, tmp_path):
     """Fields that left _UNPORTED when their features were ported take a
     valid value; sampling_epilogue rejects others with the JAX engine's
     ValueError, role with the JAX CLI's choices; the KVBM fields and
-    their knobs default as the JAX engine's do."""
+    their knobs default as the JAX engine's do; spec_decode and its knobs
+    default as JAX's, take "ngram" and "draft", and reject others with
+    the JAX engine's ValueError."""
     assert field not in _UNPORTED
+    if field == "spec_decode":
+        from dynamo_tpu.engine import EngineConfig as JaxEngineConfig
+        from dynamo_tpu.engine import JaxEngine
+
+        for name in ("spec_decode", "spec_k", "spec_ngram_max",
+                     "spec_ngram_min", "spec_draft_config",
+                     "spec_draft_model_path", "spec_draft_model",
+                     "spec_accept_min", "spec_probe_interval"):
+            assert getattr(EngineConfig(), name) \
+                == getattr(JaxEngineConfig(), name)
+        for mode in ("ngram", "draft"):
+            assert EngineConfig(spec_decode=mode).spec_decode == mode
+        with pytest.raises(ValueError) as want:
+            JaxEngine(JaxEngineConfig(model="tiny", spec_decode="medusa"))
+        with pytest.raises(ValueError) as got:
+            EngineConfig(spec_decode="medusa")
+        assert str(got.value) == str(want.value)
+        return
     if field in KVBM_FIELDS:
         from dynamo_tpu.engine.config import EngineConfig as JaxEngineConfig
 
