@@ -16,6 +16,7 @@
     python3 chip_smoke.py --disagg        # the disaggregated pair
     python3 chip_smoke.py --kvbm          # the KV block manager's tiers
     python3 chip_smoke.py --spec          # speculative decoding
+    python3 chip_smoke.py --lora          # LoRA serving and guided decoding
 
 Builds the port's CUDA kernels from csrc/ (three nvcc processes started
 together), holds each entry point (K1 and K3, each in its bf16 and its
@@ -43,7 +44,8 @@ load metrics, FPM records, the MDC, clear_kv_blocks, cancellation and
 close; then the decode A/B, the fused A/B and the prefill A/B (below)
 run; after the int8 run, one request goes through a worker on the int8
 cache (its launches and the dtype it reports), then the disagg phase
-(below), then the KVBM phase (below), then the spec phase (below).
+(below), then the KVBM phase (below), then the spec phase (below), then
+the LoRA and guided phase (below).
 Last, a HF-format Llama
 checkpoint at
 llama-8b width, depth cut to 4 layers (about 3.9 GB of bf16), is written
@@ -60,7 +62,9 @@ recorded; `checkpoint_launches` in the loaded checkpoint's run;
 `disagg_prefill_launches` and `disagg_decode_launches`, the disagg
 pair's prefill and decode workers' in its main run; `kvbm_launches` in
 the KVBM phase's first G2 run, bf16, or its int8 run; `spec_launches` in
-the spec phase's first n-gram turn, bf16, or its int8 n-gram run), error
+the spec phase's first n-gram turn, bf16, or its int8 n-gram run;
+`lora_launches` in the LoRA phase's mixed batch and `guided_launches` in
+its guided run), error
 against its plain version (`max_abs_err`, and
 `max_rel_err`, the figure the tolerance holds), its device time (`ms`,
 by CUDA-graph replay for K1/K3; K3's with its tile plan computed
@@ -164,6 +168,32 @@ except at a near-tie, at least half the drafts accepted, nothing
 captured while serving; tokens/s and the draft's eager catch-up
 prefills (dispatches, host time).  Then one repetition request with
 n-gram on an int8 cache against the int8 spec-off stream.
+
+The LoRA and guided phase (part of the whole check; alone with --lora):
+llama-8b at full width and depth, random bf16 weights from seed 0, bf16
+caches of 512 blocks; three PEFT adapters (ranks 8, 16 and 8, all four
+attention targets) written to $TMPDIR with the standard library.  A
+bank-less engine and a LoRA engine (lora_max_adapters 4, lora_rank 16):
+the five requests, all base, bit-equal on both; the mixed batch (base,
+ad1, ad2, ad1) against the same prompts on the bank-less engine in
+turns (off, lora, lora, off), each stream equal to the request served
+alone (a parting only at a near-tie of its own logits) and each adapter
+stream unlike the base one; no program captured while serving; a
+replayed burst on slots 0/1/2/1 bit-equal to its eager body; each
+adapter's first-token logits from the prefill program within 2e-2
+(per-row relative L2) of a plain fp32 forward; device operations per
+decode token with and without the bank, the operations a decode program
+dispatches (the bank-less count equal to the default engine's) and the
+delta's device time a step.  An engine
+with lora_max_adapters 2 evicts the least recently used adapter for a
+third, whose stream must equal the 4-slot engine's.  Guided decoding on
+the bank-less engine: three guided requests (greedy, and two seeded
+alike at T 0.7) beside two unguided ones, 64 tokens each; schema-valid
+documents under the byte mock, equal seeded outputs, unguided streams
+equal to their solo run, both top-M programs built by warm-up only, a
+replayed M = 32 program bit-equal to its eager body; guided tokens/s, a
+top-M program's device time, a guided step's host time, the guided
+counters.
 
 The checkpoint phase (alone with --checkpoint): the synthesized
 checkpoint (two shards, config.json, tokenizer.json, a chat template)
@@ -1528,7 +1558,7 @@ async def _serving_worker(device, cfg, params):
         await worker.close()
         gone = not await rt.discovery.get_prefix(key)
         worker.engine.kv = worker.engine.graphs = None
-        worker.engine.prefill_graphs = None
+        worker.engine.prefill_graphs = worker.engine.guided_graphs = None
         await rt.shutdown()
         log(f"worker close(): MDC gone from discovery: {gone}")
         if not gone:
@@ -1773,6 +1803,31 @@ def _body_ops(engine, k: int) -> int:
     return sum(1 for e in prof.events() if str(e.device_type).endswith("CUDA"))
 
 
+def _dispatched_ops(engine, k: int) -> int:
+    """Operations one decode program (greedy, k) dispatches, counted on
+    the host: the aten ops its body calls, run eagerly on an all-padding
+    descriptor (the profiler's host-side records, which drop nothing),
+    plus K1's launches.  Unlike _body_ops's device-side count, which
+    moves by a few events from run to run, two programs of one body
+    count alike.  The descriptor and K1's count are restored."""
+    k1 = _kernels_of(engine.kv_dtype)[0]
+    g = engine.graphs
+    snap = g.snapshot()
+    a = g.host_descriptor()
+    a["ctx_lens"][:] = a["steps"][:] = 1
+    g.upload(a)
+    torch.cuda.synchronize()
+    n0 = k1.launches
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+        g.run_eager(True, k)
+    torch.cuda.synchronize()
+    launches, k1.launches = k1.launches - n0, n0
+    g.restore(snap)
+    return launches + sum(1 for e in prof.events()
+                          if e.name.startswith("aten::"))
+
+
 def _decode_ab_record(path: str, res, records) -> dict:
     """One turn of decode_ab: TTFT per request, aggregate decode tokens/s,
     and from the FPM decode records the median dispatch gap per burst and
@@ -1943,12 +1998,14 @@ def _sample_tile_diff(engine, device, steps: int = 8) -> float:
     return diff
 
 
-def _replay_gap(params, cfg, device, prompt, stream, j: int) -> tuple:
+def _replay_gap(params, cfg, device, prompt, stream, j: int,
+                lora: Optional[tuple] = None) -> tuple:
     """The "off" path's logits for token j of `stream`, recomputed
     teacher-forced on a scratch cache: the prompt prefilled, then decode
-    steps at B = 4 (lane 0 live, as served) fed stream[:j].  Returns (the
-    gap between its top two logits, its top token, _tile_vs_full of that
-    step's hidden state, its top logit)."""
+    steps at B = 4 (lane 0 live, as served) fed stream[:j]; with `lora`
+    (bank, slot) lane 0 and the prompt run on that adapter slot.  Returns
+    (the gap between its top two logits, its top token, _tile_vs_full of
+    that step's hidden state, its top logit)."""
     from dynamo_tpu_torch.models import llama
 
     bs = 128
@@ -1965,15 +2022,19 @@ def _replay_gap(params, cfg, device, prompt, stream, j: int) -> tuple:
         raise SystemExit("fused A/B: streams part at the first token, which "
                          "prefill samples without the epilogue")
     table = list(range(1, nb + 1))
+    bank, slot = lora if lora is not None else (None, 0)
+    kw = (lambda idx: {"lora_bank": bank, "adapter_idx": i32(idx)}) \
+        if bank is not None else (lambda idx: {})
     llama.prefill_packed(
         params, cfg, kv, i32(prompt + [0] * (T - L)),
         i32(list(range(L)) + [0] * (T - L)), i32([0] * T), i32([table]),
-        i32([L - 1]), torch.arange(T, device=device) < L)
+        i32([L - 1]), torch.arange(T, device=device) < L, **kw([slot] * T))
     tables = i32([table] + [[0] * nb] * 3)
     for s in range(j):
         at = [L + s, 0, 0, 0]
         h, _ = llama.decode_hidden(params, cfg, kv, i32([stream[s], 0, 0, 0]),
-                                   i32(at), tables, i32(at))
+                                   i32(at), tables, i32(at),
+                                   **kw([slot, 0, 0, 0]))
     full = (h @ llama.unembed_weight(params, cfg)).float()[0]
     top2 = torch.topk(full, 2)
     return ((top2.values[0] - top2.values[1]).item(),
@@ -2460,6 +2521,7 @@ async def _disagg_pair(device, cfg, params, warmup: bool):
         for w in workers:
             await w.close()
             w.engine.kv = w.engine.graphs = w.engine.prefill_graphs = None
+            w.engine.guided_graphs = None
         await rt.shutdown()
         gc.collect()
         torch.cuda.empty_cache()
@@ -2486,18 +2548,20 @@ def _aggregated_reference(device, cfg, params, reqs, warmup: bool) -> tuple:
             await eng.close()
 
     one, conc = asyncio.run(run())
-    eng.kv = eng.graphs = eng.prefill_graphs = None
+    eng.kv = eng.graphs = eng.prefill_graphs = eng.guided_graphs = None
     del eng
     gc.collect()
     torch.cuda.empty_cache()
     return one, conc
 
 
-def _check_streams(what: str, got, ref, reqs, params, mc, device) -> list:
+def _check_streams(what: str, got, ref, reqs, params, mc, device,
+                   lora: Optional[tuple] = None) -> list:
     """Exit unless every stream of `got` equals `ref`'s, except a parting
     at a near-tie (the reference's top-2 logit gap at that token, through
     _replay_gap, within one bf16 ulp of its top logit); returns the
-    partings."""
+    partings.  With `lora` (bank, {adapter: slot}) each request's gap is
+    its adapter's."""
     parted = []
     for i, (g, r) in enumerate(zip(got, ref)):
         if g[0] == r[0]:
@@ -2507,8 +2571,10 @@ def _check_streams(what: str, got, ref, reqs, params, mc, device) -> list:
         if j == 0:
             raise SystemExit(f"{what}: request {i}'s first token differs "
                              "from the aggregated engine's")
-        gap, _, _, top = _replay_gap(params, mc, device,
-                                     list(reqs[i].token_ids), r[0], j)
+        slot = lora[1].get(reqs[i].lora_name, 0) if lora else 0
+        gap, _, _, top = _replay_gap(
+            params, mc, device, list(reqs[i].token_ids), r[0], j,
+            (lora[0], slot) if lora else None)
         ulp = _ulp_bf16(top)
         parted.append((i, j, gap, ulp))
         log(f"{what}: request {i}'s stream parts from the aggregated one at "
@@ -2855,7 +2921,7 @@ async def _idle(eng) -> None:
 
 
 def _free_engine(eng) -> None:
-    eng.kv = eng.graphs = eng.prefill_graphs = None
+    eng.kv = eng.graphs = eng.prefill_graphs = eng.guided_graphs = None
     eng.verify_graphs = eng.proposer = None
     gc.collect()
     torch.cuda.empty_cache()
@@ -3652,6 +3718,609 @@ def check_spec_int8(device, card: str, params, req) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# LoRA serving (a stacked adapter bank in the captured programs) and guided
+# JSON decoding (the top-M programs over K1)
+# ---------------------------------------------------------------------------
+
+# the phase's adapters: (name, rank, file dtype, seed); alpha = 2 rank
+LORA_ADAPTERS = (("ad1", 8, "BF16", 1), ("ad2", 16, "F32", 2),
+                 ("ad3", 8, "BF16", 3))
+LORA_RANK = 16
+# the A and B factors' scale: the delta is of the order of the projection
+# it is added to, so it changes the greedy streams
+LORA_SCALE = 0.5
+GUIDED_SCHEMA = {"type": "object", "properties": {
+    "city": {"type": "string"}, "unit": {"enum": ["c", "f"]},
+    "days": {"type": "integer"}}}
+GUIDED_NEW = 64
+
+
+def write_peft_adapter(root: str, name: str, cfg, rank: int, dtype: str,
+                       seed: int) -> None:
+    """A PEFT adapter of `cfg`'s width in root/name (adapter_config.json,
+    adapter_model.safetensors with lora_A [r, d_in] and lora_B [d_out, r]
+    for q/k/v/o of every layer), written with the standard library;
+    random from `seed` (A ~ N(0, 1/d_in), B ~ N(0, 1/r), both times
+    LORA_SCALE), in `dtype` ("BF16" | "F32"), lora_alpha = 2 rank."""
+    gen = torch.Generator().manual_seed(seed)
+    tdt = torch.bfloat16 if dtype == "BF16" else torch.float32
+    dims = {"q": (cfg.d_model, cfg.q_dim), "k": (cfg.d_model, cfg.kv_dim),
+            "v": (cfg.d_model, cfg.kv_dim), "o": (cfg.q_dim, cfg.d_model)}
+    names, header, off = [], {}, 0
+    for li in range(cfg.n_layers):
+        for t, (d_in, d_out) in dims.items():
+            p = f"base_model.model.model.layers.{li}.self_attn.{t}_proj"
+            for ab, shape, fan in (("A", (rank, d_in), d_in),
+                                   ("B", (d_out, rank), rank)):
+                key = f"{p}.lora_{ab}.weight"
+                n = shape[0] * shape[1] * tdt.itemsize
+                header[key] = {"dtype": dtype, "shape": list(shape),
+                               "data_offsets": [off, off + n]}
+                names.append((key, shape, fan))
+                off += n
+    d = os.path.join(root, name)
+    os.makedirs(d, exist_ok=True)
+    with open(os.path.join(d, "adapter_config.json"), "w") as f:
+        json.dump({"r": rank, "lora_alpha": 2 * rank,
+                   "base_model_name_or_path": cfg.name,
+                   "target_modules": ["q_proj", "k_proj", "v_proj",
+                                      "o_proj"]}, f)
+    hb = json.dumps(header).encode()
+    hb += b" " * ((-(8 + len(hb))) % 8)
+    with open(os.path.join(d, "adapter_model.safetensors"), "wb") as f:
+        f.write(struct.pack("<Q", len(hb)))
+        f.write(hb)
+        for key, shape, fan in names:
+            t = (torch.randn(shape, generator=gen) * (LORA_SCALE
+                                                      / fan ** 0.5)).to(tdt)
+            f.write((t.view(torch.int16) if tdt == torch.bfloat16
+                     else t).numpy().tobytes())
+
+
+def _lora_requests(vocab: int, loras) -> list:
+    """The engine's first four prompts (1800, 500, 100, 37 tokens), 32
+    greedy tokens each, on the adapters `loras` (None = base)."""
+    reqs = _requests(vocab)[:4]
+    return [dataclasses.replace(r, request_id=f"{r.request_id}-{lo}",
+                                lora_name=lo,
+                                sampling=dataclasses.replace(
+                                    r.sampling, temperature=0.0))
+            for r, lo in zip(reqs, loras)]
+
+
+class _Fp32Layers:
+    """The layers of a parameter tree, each upcast to fp32 on access (one
+    layer at a time on the card)."""
+
+    def __init__(self, layers):
+        self.layers = layers
+
+    def __iter__(self):
+        for layer in self.layers:
+            yield {k: ({kk: vv.float() for kk, vv in v.items()}
+                       if isinstance(v, dict) else v.float())
+                   for k, v in layer.items()}
+
+
+def _lora_delta_check(eng, device, src) -> dict:
+    """For each adapter the engine holds: one 512-token prompt's
+    first-token logits from the engine's prefill program (bucket 512, the
+    prompt's tokens on the adapter's slot) against a plain fp32 forward
+    (models/llama.py prefill with the weights upcast layer by layer, plain
+    attention, x @ W + (x @ A) @ B on the adapter's fp32 tensors from the
+    PEFT file): per-row relative L2, at most LORA_DELTA_TOL.  Slot 0 (the
+    base model) is measured the same way as the yardstick, and each
+    adapter's logits must move off the base ones by far more than the
+    error.  Writes blocks 1-4 of the cache: run on an idle engine."""
+    from dynamo_tpu_torch.lora.bank import empty_bank, write_adapter
+    from dynamo_tpu_torch.models import llama
+
+    mc, c = eng.model_cfg, eng.config
+    T = 512
+    toks = np.random.default_rng(17).integers(0, mc.vocab_size, T)
+    g = eng.prefill_graphs
+    cfg32 = dataclasses.replace(mc, dtype=torch.float32, attn_impl="torch",
+                                packed_attn_impl="torch")
+    p = eng.params
+    ref_params = {"embedding": p["embedding"], "final_norm": p["final_norm"],
+                  "lm_head": p["lm_head"].float(),
+                  "layers": _Fp32Layers(p["layers"])}
+    bank32 = empty_bank(mc.n_layers, c.lora_max_adapters + 1, c.lora_rank,
+                        mc.d_model, mc.q_dim, mc.kv_dim, torch.float32,
+                        device)
+    for name, slot in eng._lora_slots.items():
+        write_adapter(bank32, slot, src.load(name, mc.n_layers)
+                      .padded_to(c.lora_rank).tensors)
+    out, logits = {}, {}
+    for name, slot in [("base", 0)] + sorted(eng._lora_slots.items()):
+        a = g.host_descriptor(T)
+        a["toks"][:] = toks
+        a["positions"][:] = np.arange(T)
+        a["valid"][:] = True
+        a["lidx"][:] = slot
+        a["last_idx"][0] = T - 1
+        a["tables"][0, :4] = [1, 2, 3, 4]
+        g.upload(a)
+        g.run(T)
+        got = g.logits[T][0].clone()
+        kv32 = tuple(torch.zeros(s, dtype=torch.float32, device=device)
+                     for s in llama.kv_cache_shapes(mc, 5, c.block_size))
+
+        def i32(x):
+            return torch.as_tensor(np.asarray(x, np.int32), device=device)
+
+        ref, _ = llama.prefill(ref_params, cfg32, kv32, i32(toks),
+                               i32(np.arange(T)), i32([1, 2, 3, 4]), 0, T,
+                               lora_bank=bank32,
+                               adapter_idx=torch.tensor(slot, device=device))
+        del kv32
+        err = row_rel_err(got[None], ref[None])
+        logits[name] = got
+        out[name] = {"slot": slot, "rel_l2": err}
+    base = logits.pop("base")
+    for name, got in logits.items():
+        out[name]["moved_rel_l2"] = row_rel_err(got[None], base[None])
+    log(f"lora: first-token logits of a 512-token prompt, the engine's "
+        f"prefill program (bf16) against a plain fp32 forward with x@W + "
+        f"(x@A)@B: per-row relative L2 {out} (limit {LORA_DELTA_TOL}; "
+        f"moved_rel_l2 = the adapter's logits against the base ones)")
+    for name, r in out.items():
+        if not r["rel_l2"] <= LORA_DELTA_TOL:
+            raise SystemExit(f"lora: adapter {name}'s logits are off the "
+                             f"fp32 reference by {r['rel_l2']}")
+        if name != "base" and not r["moved_rel_l2"] > 10 * r["rel_l2"]:
+            raise SystemExit(f"lora: adapter {name} barely moves the logits "
+                             f"({r['moved_rel_l2']})")
+    return out
+
+
+# the LoRA delta check's limit: per-row relative L2 of the engine's bf16
+# logits against the fp32 forward
+LORA_DELTA_TOL = 2e-2
+
+
+def _check_lora_burst(eng, device) -> dict:
+    """A replayed k = 8 greedy burst on lanes of slots 0, 1, 2, 1 against
+    its eager body on the same inputs (_burst_inputs: random K/V): tokens
+    bit-equal, K/V within K1's tolerance; the replay's device time."""
+    g, k = eng.graphs, 8
+    a, blocks = _burst_inputs(eng, device, seed=13)
+    a["lidx"][:] = [0, 1, 2, 1]
+    kv = eng.kv
+    saved = [t[:, :, blocks].clone() for t in kv]
+    snap = g.snapshot()
+
+    def reset():
+        for t, s in zip(kv, saved):
+            t[:, :, blocks] = s
+        g.restore(snap)
+        g.upload(a)
+
+    reset()
+    eager = g.run_eager(True, k).clone()
+    kv_eager = [t[:, :, blocks].clone() for t in kv]
+    reset()
+    replay = torch.from_numpy(g.run(True, k).wait().copy())
+    same = torch.equal(eager.cpu(), replay)
+    errs = [row_rel_err(t[:, :, blocks].float(), e.float())
+            for t, e in zip(kv, kv_eager)]
+    reset()
+    ms = _replay_ms(g, k)
+    for t, s in zip(kv, saved):
+        t[:, :, blocks] = s
+    g.restore(snap)
+    log(f"lora: replayed k={k} greedy burst on slots [0, 1, 2, 1] equals "
+        f"its eager body: tokens {same}, K/V max row relative error "
+        f"{max(errs):.3e} (limit {REL_TOL}); replay {ms:.3f} ms")
+    if not same or not max(errs) <= REL_TOL:
+        raise SystemExit("lora: the replayed burst differs from its eager "
+                         "body")
+    return {"replay_ms": ms}
+
+
+def _replay_ms(g, k: int, n: int = 5) -> float:
+    """Device ms of one replay of the (greedy, k) program on the uploaded
+    descriptor (CUDA events around n replays, the clock held still)."""
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(n):
+        g.continuation(0)
+        g.run(True, k)
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / n
+
+
+def _delta_step_ms(off, lora, device) -> dict:
+    """The LoRA delta's device time a decode step: the same k = 8 burst
+    (the engine's four contexts, random K/V) replayed by the bank-less
+    engine and by the LoRA engine with every lane on an adapter, in turns
+    (off, lora, lora, off); the difference of the medians over 8."""
+    times = {"off": [], "lora": []}
+    state = {}
+    for name, eng in (("off", off), ("lora", lora)):
+        a, blocks = _burst_inputs(eng, device, seed=19)
+        if "lidx" in a:
+            a["lidx"][:] = [1, 2, 1, 2]
+        state[name] = (eng, a, blocks, [t[:, :, blocks].clone()
+                                        for t in eng.kv],
+                       eng.graphs.snapshot())
+    for name in ("off", "lora", "lora", "off"):
+        eng, a, _, _, _ = state[name]
+        eng.graphs.upload(a)
+        times[name].append(_replay_ms(eng.graphs, 8))
+    for eng, a, blocks, saved, snap in state.values():
+        for t, s in zip(eng.kv, saved):
+            t[:, :, blocks] = s
+        eng.graphs.restore(snap)
+    med = {k: float(np.median(v)) for k, v in times.items()}
+    out = {"burst_ms": times, "delta_ms_per_step": (med["lora"]
+                                                    - med["off"]) / 8}
+    log(f"lora: k=8 burst replay ms, bank-less / LoRA (every lane on an "
+        f"adapter), in turns: {times}; the delta's device time a decode "
+        f"step {out['delta_ms_per_step']:.3f} ms")
+    return out
+
+
+def _guided_requests(vocab: int) -> tuple:
+    """(three guided requests: greedy, and two seeded at T 0.7 with the
+    same seed; two unguided greedy ones), GUIDED_NEW tokens each, on the
+    engine's 100- and 37-token prompts."""
+    base = _requests(vocab)
+    short = [base[2].token_ids, base[3].token_ids]
+    guided = [dataclasses.replace(
+        base[3], request_id=f"guided-{i}",
+        sampling=dataclasses.replace(base[3].sampling, temperature=t,
+                                     seed=s, top_p=1.0,
+                                     guided_json=GUIDED_SCHEMA),
+        stop=dataclasses.replace(base[3].stop, max_tokens=GUIDED_NEW,
+                                 ignore_eos=False))
+        for i, (t, s) in enumerate(((0.0, None), (0.7, 42), (0.7, 42)))]
+    plain = [dataclasses.replace(
+        base[2], request_id=f"plain-{i}", token_ids=p,
+        sampling=dataclasses.replace(base[2].sampling, temperature=0.0,
+                                     seed=None),
+        stop=dataclasses.replace(base[2].stop, max_tokens=GUIDED_NEW))
+        for i, p in enumerate(short)]
+    return guided, plain
+
+
+def _check_topm_replay(eng) -> dict:
+    """The M = 32 guided program replayed against its eager body on one
+    lane over blocks of the cache: ids and values bit-equal; each
+    program's replay time and K1 launches a replay."""
+    k1 = _kernels_of("bf16")[0]
+    g = eng.guided_graphs
+    a = g.host_descriptor()
+    a["tokens"][1] = 7
+    a["positions"][1] = a["ctx_lens"][1] = 500
+    a["tables"][1, :4] = [1, 2, 3, 4]
+    a["valid"][1] = True
+    g.upload(a)
+    eager = [t.clone() for t in g.run_eager(32)]
+    g.upload(a)
+    replay = [torch.from_numpy(b.wait().copy()) for b in g.run(32)]
+    same = all(torch.equal(r, e.cpu()) for r, e in zip(replay, eager))
+    ms = {}
+    for m in g.ms:
+        n0 = k1.launches
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(5):
+            g.run(m)
+        end.record()
+        end.synchronize()
+        ms[m] = (start.elapsed_time(end) / 5, (k1.launches - n0) / 5)
+    log(f"guided: replayed M=32 top-M program equals its eager body (ids "
+        f"and values): {same}; replay ms and K1 launches a replay by M "
+        f"{ms}")
+    if not same:
+        raise SystemExit("guided: the replayed M=32 program differs from "
+                         "its eager body")
+    return {"replay": {m: v[0] for m, v in ms.items()}}
+
+
+def check_lora_guided(device, card: str, params,
+                      ops_default: Optional[int] = None) -> dict:
+    """LoRA serving and guided decoding at llama-8b width and depth
+    (random bf16 weights `params`, bf16 caches of 512 blocks), one
+    process.  Two PEFT adapters (rank 8 in bf16, rank 16 in fp32, all four
+    attention targets, scaled to move the greedy streams) and a third for
+    the eviction are written to $TMPDIR with the standard library.
+
+    * A bank-less engine and a LoRA engine (lora_max_adapters 4,
+      lora_rank 16), both warmed up.  The five requests, all base, on the
+      LoRA engine stream bit-equal to the bank-less engine's.  Then the
+      mixed batch (base, ad1, ad2, ad1 on the four prompts) against the
+      same prompts without adapters on the bank-less engine, in turns
+      (off, lora, lora, off): each LoRA stream equals the same request
+      served alone on the LoRA engine (a parting only at a near-tie of
+      its own logits) and each adapter stream differs from the base one;
+      no program is captured while serving; a replayed burst on slots
+      0/1/2/1 is bit-equal to its eager body; the delta's logits against
+      an fp32 forward (_lora_delta_check).  Reports decode tokens/s,
+      device operations per decode token with and without the bank
+      (_body_ops), the operations a k = 8 program dispatches
+      (_dispatched_ops: the bank-less engine's must equal `ops_default`,
+      the default engine's in the same call), and the delta's device
+      time a step.
+    * Eviction: an engine with lora_max_adapters 2 serves ad1, ad2, then
+      ad3, which takes the least recently used slot; ad3's stream equals
+      the LoRA engine's (a near-tie aside).
+    * Guided: on the bank-less engine, three guided requests (greedy, and
+      two seeded at T 0.7 with one seed) beside two unguided ones, 64
+      tokens each, after the two unguided alone.  Every guided output is
+      a schema-valid document under the byte mock, the seeded two are
+      equal, the unguided streams equal their solo run (a near-tie
+      aside), both top-M programs were built by warm-up and never again,
+      and a replayed M = 32 program is bit-equal to its eager body.
+      Reports guided tokens/s, a guided step's device time (CUDA events
+      around each top-M program) and host time, and the guided counters.
+
+    Returns {"lora_launches": {kernel: n}, "guided_launches": {kernel:
+    n}, ...}: K1/K3 launches in the mixed batch's first LoRA turn and in
+    the guided run."""
+    import tempfile
+
+    from dynamo_tpu_torch.engine import TorchEngine
+    from dynamo_tpu_torch.frontend.tokenizer import MockTokenizer
+    from dynamo_tpu_torch.guided import JsonSchemaGuide
+    from dynamo_tpu_torch.lora import LocalLoraSource
+
+    t_phase = time.perf_counter()
+    k1, k3 = _kernels_of("bf16")
+    base_cfg = _engine_config("bf16")
+    mc = base_cfg.resolve_model()
+    root = tempfile.mkdtemp(prefix="lora-")
+    t0 = time.perf_counter()
+    for name, rank, dtype, seed in LORA_ADAPTERS:
+        write_peft_adapter(root, name, mc, rank, dtype, seed)
+    log(f"lora: wrote {len(LORA_ADAPTERS)} PEFT adapters (ranks "
+        f"{[a[1] for a in LORA_ADAPTERS]}) to {root} in "
+        f"{time.perf_counter() - t0:.1f} s")
+    lora_cfg = dataclasses.replace(base_cfg, lora_max_adapters=4,
+                                   lora_rank=LORA_RANK, lora_dir=root)
+    off = TorchEngine(dataclasses.replace(base_cfg), params=params,
+                      device=device)
+    lora = TorchEngine(lora_cfg, params=params, device=device)
+    t0 = time.perf_counter()
+    for eng in (off, lora):
+        eng.warmup_decode()
+    built = {}
+    for name, eng in (("off", off), ("lora", lora)):
+        built[name] = (_log_programs(eng, f"lora phase, {name}"),
+                       _log_prefill_programs(eng, f"lora phase, {name}"),
+                       dict(eng.guided_graphs.counts))
+        if built[name][2] != {32: 1, 256: 1}:
+            raise SystemExit(f"lora phase: warm-up built guided programs "
+                             f"{built[name][2]}")
+    log(f"lora: engines off and lora warmed up in "
+        f"{time.perf_counter() - t0:.1f} s; guided capture s "
+        f"{lora.guided_graphs.capture_s}, guided pool "
+        f"{lora.guided_graphs.pool_bytes / 2**20:.0f} MiB; bank "
+        f"{sum(t.numel() * t.element_size() for t in lora.lora_bank.values()) / 2**20:.0f} MiB")
+    ops = {name: _body_ops(eng, 8) / (8 * eng.config.max_num_seqs)
+           for name, eng in (("off", off), ("lora", lora))}
+    dispatched = {name: _dispatched_ops(eng, 8)
+                  for name, eng in (("off", off), ("lora", lora))}
+    if ops_default is None:
+        ops_default = dispatched["off"]
+    log(f"lora: device operations per decode token (the profiler's device "
+        f"count), bank-less {ops['off']:.1f}, with the bank "
+        f"{ops['lora']:.1f}; operations a k=8 program dispatches (host "
+        f"count), bank-less {dispatched['off']} (the default engine's in "
+        f"this call {ops_default}), with the bank {dispatched['lora']}")
+    if dispatched["off"] != ops_default:
+        raise SystemExit("lora: the bank-less engine's decode programs "
+                         "dispatch other operations than the default's")
+    five = _requests(mc.vocab_size)
+    mixed_loras = [None, "ad1", "ad2", "ad1"]
+    mixed = _lora_requests(mc.vocab_size, mixed_loras)
+    plain = _lora_requests(mc.vocab_size, [None] * 4)
+    guided, unguided = _guided_requests(mc.vocab_size)
+    g = off.guided_graphs
+    events: list = []
+    host_s: list = []
+    run, step = g.run, off._guided_step
+
+    def timed_run(m):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = run(m)
+        end.record()
+        events.append((m, start, end))
+        return out
+
+    def timed_step():
+        n, t = len(events), time.perf_counter()
+        step()
+        if len(events) > n:  # a step that dispatched a top-M program
+            host_s.append(time.perf_counter() - t)
+
+    async def serve_guided(res):
+        """Guided decoding on the bank-less engine: the unguided pair
+        alone, then beside the three guided requests."""
+        res["solo"] = await _serve(off, unguided)
+        await off.clear_kv_blocks()
+        m0 = dict(off.metrics)
+        for fn in (k1, k3):
+            fn.launches = 0
+        g.run, off._guided_step = timed_run, timed_step
+        t0 = time.perf_counter()
+        res["both"] = await _serve(off, guided + unguided)
+        res["guided_wall"] = time.perf_counter() - t0
+        res["guided_launches"] = {fn.__name__: fn.launches
+                                  for fn in (k1, k3)}
+        del g.run, off._guided_step
+        res["guided_metrics"] = {
+            k: off.metrics.get(k, 0) - m0.get(k, 0)
+            for k in ("guided_widened_retries", "guided_forced_closes",
+                      "decode_tokens")}
+
+    gc.collect()
+
+    async def serve_lora():
+        res = {"turns": []}
+        try:
+            res["five_off"] = await _serve(off, five)
+            res["five_lora"] = await _serve(lora, five)
+            for i, path in enumerate(("off", "lora", "lora", "off")):
+                eng = off if path == "off" else lora
+                if i == 1:
+                    for fn in (k1, k3):
+                        fn.launches = 0
+                got = await _serve(eng, plain if path == "off" else mixed)
+                if i == 0:
+                    res["plain"] = got
+                if i == 1:
+                    res["launches"] = {fn.__name__: fn.launches
+                                       for fn in (k1, k3)}
+                    res["mixed"] = got
+                n, secs = _decode_rate(got)
+                res["turns"].append({"path": path, "decode_tok_s": n / secs,
+                                     "ttft_s": [round(r[2], 4) for r in got]})
+                log(f"lora turn {i + 1} ({card}): {res['turns'][-1]}")
+                await eng.clear_kv_blocks()
+            res["alone"] = [(await _serve(lora, [r]))[0] for r in mixed]
+            await lora.clear_kv_blocks()
+            res["ad3"] = (await _serve(lora, _lora_requests(
+                mc.vocab_size, ["ad3"])))[0]
+            await lora.clear_kv_blocks()
+            await serve_guided(res)
+        finally:
+            await off.close()
+            await lora.close()
+        return res
+
+    res = asyncio.run(serve_lora())
+    if [r[0] for r in res["five_lora"]] != [r[0] for r in res["five_off"]]:
+        raise SystemExit("lora: base requests on the LoRA engine differ "
+                         "from the bank-less engine's streams")
+    log("lora: the five base requests on the LoRA engine are bit-equal to "
+        "the bank-less engine's streams")
+    for got in [res["mixed"]] + [[r] for r in res["alone"]]:
+        bad = [r for r in got if r[1] != "length" or len(r[0]) != 32]
+        if bad:
+            raise SystemExit("lora: a request did not finish with 32 tokens")
+    parted = _check_streams("lora mixed batch vs alone", res["mixed"],
+                            res["alone"], mixed, params, mc, device,
+                            (lora.lora_bank, lora._lora_slots))
+    # each adapter stream against the bank-less stream of its prompt
+    for r, s, b in zip(mixed, res["mixed"], res["plain"]):
+        if r.lora_name and s[0] == b[0]:
+            raise SystemExit(f"lora: {r.request_id}'s stream equals the "
+                             "base stream of its prompt")
+    after = {name: ((dict(eng.graphs.counts),
+                     dict(eng.prefill_graphs.counts),
+                     dict(eng.guided_graphs.counts)))
+             for name, eng in (("off", off), ("lora", lora))}
+    if after != built:
+        raise SystemExit(f"lora: serving built programs: {after} after "
+                         f"warm-up {built}")
+    log(f"lora: serving captured nothing more; mixed-batch launches "
+        f"{res['launches']}; the mixed batch parts from the solo runs "
+        f"{parted or 'nowhere'}")
+    if not (res["launches"][k1.__name__] and res["launches"][k3.__name__]):
+        raise SystemExit("lora: the mixed batch did not launch K1 and K3")
+    burst = _check_lora_burst(lora, device)
+    delta_ms = _delta_step_ms(off, lora, device)
+    delta = _lora_delta_check(lora, device, LocalLoraSource(root))
+    _free_engine(lora)
+    del lora
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"lora: mixed batch done at {time.perf_counter() - t_phase:.1f} s "
+        f"of the phase")
+
+    # eviction: two slots, ad1 and ad2 loaded, then ad3
+    evict = TorchEngine(dataclasses.replace(lora_cfg, lora_max_adapters=2,
+                                            num_blocks=64),
+                        params=params, device=device)
+    evict.warmup_decode()
+    ebuilt = (dict(evict.graphs.counts), dict(evict.prefill_graphs.counts))
+
+    async def serve_evict():
+        out = []
+        try:
+            for name in ("ad1", "ad2", "ad3"):
+                out.append((await _serve(evict, _lora_requests(
+                    mc.vocab_size, [name])))[0])
+                out.append(dict(evict._lora_slots))
+        finally:
+            await evict.close()
+        return out
+
+    ev = asyncio.run(serve_evict())
+    slots = ev[5]
+    log(f"lora eviction (lora_max_adapters 2): slots after ad1, ad2, ad3: "
+        f"{ev[1]}, {ev[3]}, {slots}")
+    if slots != {"ad2": 2, "ad3": 1}:
+        raise SystemExit(f"lora eviction: ad3 did not take ad1's slot: "
+                         f"{slots}")
+    if (dict(evict.graphs.counts), dict(evict.prefill_graphs.counts)) \
+            != ebuilt:
+        raise SystemExit("lora eviction: serving built programs")
+    eparted = _check_streams(
+        "lora eviction ad3 vs the 4-slot engine", [ev[4]], [res["ad3"]],
+        _lora_requests(mc.vocab_size, ["ad3"]), params, mc, device,
+        (evict.lora_bank, evict._lora_slots))
+    _free_engine(evict)
+    del evict
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # guided decoding on the bank-less engine (served in serve_lora)
+    solo, both, wall = res["solo"], res["both"], res["guided_wall"]
+    glaunches, gm = res["guided_launches"], res["guided_metrics"]
+    codec = MockTokenizer(mc.vocab_size)
+    texts = [codec.decode(r[0]) for r in both[:3]]
+    for text in texts:
+        if not JsonSchemaGuide(GUIDED_SCHEMA).done(text.strip()):
+            raise SystemExit(f"guided: not a schema-valid document: {text!r}")
+        json.loads(text)
+    if both[1][0] != both[2][0]:
+        raise SystemExit("guided: two runs with one seed differ")
+    gparted = _check_streams("guided neighbours", both[3:], solo, unguided,
+                             params, mc, device)
+    if dict(g.counts) != {32: 1, 256: 1}:
+        raise SystemExit(f"guided: serving built top-M programs: {g.counts}")
+    torch.cuda.synchronize()
+    dev = {}
+    for m, s, e in events:
+        dev.setdefault(m, []).append(s.elapsed_time(e))
+    guided_tokens = sum(len(r[0]) for r in both[:3])
+    span = max(r[3] for r in both[:3]) - min(r[2] for r in both[:3])
+    report = {
+        "outputs": texts, "guided_tokens": guided_tokens,
+        "guided_tok_s": guided_tokens / span if span > 0 else None,
+        "program_device_ms": {m: (float(np.median(v)), len(v))
+                              for m, v in dev.items()},
+        "step_host_ms": (float(np.median(host_s)) * 1e3 if host_s
+                         else None, len(host_s)),
+        **{k: v for k, v in gm.items() if k.startswith("guided")},
+        "launches": glaunches, "wall_s": wall,
+    }
+    log(f"guided ({card}): {report}; the unguided neighbours part from "
+        f"their solo run {gparted or 'nowhere'}")
+    if not glaunches[k1.__name__] or not dev.get(32):
+        raise SystemExit("guided: the guided run launched no top-M program")
+    topm = _check_topm_replay(off)
+    _free_engine(off)
+    del off
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"lora and guided phase done in {time.perf_counter() - t_phase:.1f} s")
+    return {"lora_launches": res["launches"], "guided_launches": glaunches,
+            "turns": res["turns"], "ops_per_token": ops,
+            "dispatched_ops": dispatched, "burst": burst,
+            "delta_step": delta_ms, "delta": delta, "guided": report,
+            "topm": topm, "parted": parted + eparted + gparted}
+
+
+# ---------------------------------------------------------------------------
 # a loaded checkpoint: the port's own safetensors loader and weight cache
 # ---------------------------------------------------------------------------
 
@@ -3945,6 +4614,7 @@ def _serve_checkpoint(device, card, path, ref, nbytes, cache_dir, used,
                            "loaded checkpoint's engine")
     engine.kv = engine.graphs = direct.kv = direct.graphs = None
     engine.prefill_graphs = direct.prefill_graphs = None
+    engine.guided_graphs = direct.guided_graphs = None
     del engine, direct, want
     torch.cuda.empty_cache()
     _checkpoint_worker(device, cfg, path, reqs[1])
@@ -4333,6 +5003,17 @@ def main() -> int:
                          default=str), flush=True)
         print(card, flush=True)
         return 0
+    if sys.argv[1:] == ["--lora"]:
+        # python3 chip_smoke.py --lora: the LoRA and guided phase
+        build_kernels()
+        from dynamo_tpu_torch.models import llama
+
+        gen = torch.Generator(device=device).manual_seed(0)
+        params = llama.init_params(cfg, gen, device)
+        print(json.dumps({"lora": check_lora_guided(device, card, params)},
+                         default=str), flush=True)
+        print(card, flush=True)
+        return 0
     if sys.argv[1:] == ["--checkpoint"]:
         # python3 chip_smoke.py --checkpoint: the loaded-checkpoint phase
         build_kernels()
@@ -4355,10 +5036,14 @@ def main() -> int:
     torch.cuda.empty_cache()
     log(f"kernel phases done at {time.perf_counter() - t_start:.1f} s")
     launches, engine, ops_bf16, direct = check_engine(device, card)
+    # the operations the default engine's k = 8 program dispatches, for
+    # the LoRA phase's bank-less engine to match
+    ops_default = _dispatched_ops(engine, 8)
     log(f"bf16 engine phase done at {time.perf_counter() - t_start:.1f} s")
     # the later runs reuse the weights; each cache is freed first
     params = engine.params
     engine.kv = engine.graphs = engine.prefill_graphs = None
+    engine.guided_graphs = None
     torch.cuda.empty_cache()
     worker_launches = check_worker(device, card, engine.config, params,
                                    direct)
@@ -4381,6 +5066,7 @@ def main() -> int:
     launches.update(launches8)
     log(f"int8 engine phase done at {time.perf_counter() - t_start:.1f} s")
     engine8.kv = engine8.graphs = engine8.prefill_graphs = None
+    engine8.guided_graphs = None
     torch.cuda.empty_cache()
     worker_launches.update(check_worker_short(device, engine8.config, params))
     log(f"int8 worker phase done at {time.perf_counter() - t_start:.1f} s")
@@ -4395,6 +5081,9 @@ def main() -> int:
     log(f"kvbm phase done at {time.perf_counter() - t_start:.1f} s")
     spec = check_spec(device, card, params)
     log(f"spec phase done at {time.perf_counter() - t_start:.1f} s")
+    lora = check_lora_guided(device, card, params, ops_default)
+    log(f"lora and guided phase done at {time.perf_counter() - t_start:.1f} "
+        "s")
     del params
     torch.cuda.empty_cache()
     ckpt = check_checkpoint(device, card)
@@ -4407,9 +5096,12 @@ def main() -> int:
          k["disagg_decode_launches"]) = disagg["launches"][k["name"]]
         k["kvbm_launches"] = kvbm["launches"][k["name"]]
         k["spec_launches"] = spec["launches"][k["name"]]
+        k["lora_launches"] = lora["lora_launches"].get(k["name"], 0)
+        k["guided_launches"] = lora["guided_launches"].get(k["name"], 0)
     for k in dma:  # the microbench is on no serving path
         k["disagg_prefill_launches"] = k["disagg_decode_launches"] = 0
         k["kvbm_launches"] = k["spec_launches"] = 0
+        k["lora_launches"] = k["guided_launches"] = 0
     log(f"chip_smoke: every phase passed in "
         f"{time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels + dma}), flush=True)

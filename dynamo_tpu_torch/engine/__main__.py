@@ -120,6 +120,10 @@ def build_args() -> argparse.ArgumentParser:
                    help="draft model preset for --spec-decode draft")
     p.add_argument("--spec-draft-model-path", default="",
                    help="draft HF checkpoint dir (overrides the preset)")
+    p.add_argument("--lora-dir", default=os.environ.get("DYN_LORA_PATH", ""),
+                   help="PEFT adapter tree (lora/source.py); empty = off")
+    p.add_argument("--lora-max-adapters", type=int, default=4)
+    p.add_argument("--lora-rank", type=int, default=16)
     p.add_argument("--migration-limit", type=int, default=3)
     p.add_argument("--no-warmup", action="store_true",
                    help="skip the kernel build and decode warm-up at "
@@ -168,6 +172,10 @@ def engine_config(args: argparse.Namespace) -> EngineConfig:
         spec_k=args.spec_k,
         spec_draft_model=args.spec_draft_model,
         spec_draft_model_path=args.spec_draft_model_path,
+        # the bank exists only with an adapter directory, as in JAX
+        lora_dir=args.lora_dir or None,
+        lora_max_adapters=(args.lora_max_adapters if args.lora_dir else 0),
+        lora_rank=args.lora_rank,
     )
 
 

@@ -29,7 +29,6 @@ _UNPORTED = {
     "dp": (1, "data parallelism"),
     "tp": (1, "tensor parallelism"),
     "sp": (1, "sequence-parallel ring prefill"),
-    "lora_max_adapters": (0, "LoRA serving"),
     # its one reader in JAX is the roofline (MBU) gauges of /metrics
     "peak_hbm_gbps": (0.0, "the /metrics roofline gauges"),
 }
@@ -85,6 +84,16 @@ class EngineConfig:
     # prefill chunk appears.  False = full decode_fused_steps whenever no
     # prefill/admission work is pending
     decode_fuse_adaptive: bool = True
+    # SLA-aware admission: when the frontends' published error-budget
+    # burn rate (the worst window, fed by the worker's slo_metrics
+    # subscription into TorchEngine.set_slo_burn) exceeds this threshold
+    # while decodes are active, the step's prefill chunk budget is scaled
+    # by threshold/burn (floored at the smallest prefill bucket): prefill
+    # yields to decode until ITL recovers.  0 disables.
+    slo_yield_burn: float = 1.0
+    # a burn signal older than this is ignored (a frontend gone or the
+    # SLO plane off must not throttle prefill forever)
+    slo_burn_stale_s: float = 10.0
     # per-step token budget: one packed prefill dispatch is capped to
     # max_batch_tokens minus one token per decoding slot
     max_batch_tokens: int = 2048
@@ -173,6 +182,17 @@ class EngineConfig:
     # slots: failed probes back off exponentially from 8 up to this cap
     spec_probe_interval: int = 64
 
+    # LoRA serving (lora/): 0 disables.  lora_max_adapters counts the
+    # usable bank slots (slot 0 is the no-adapter slot); adapters load
+    # from lora_dir (a PEFT directory tree) on their first request into
+    # the stacked bank every captured decode and prefill program reads,
+    # and the least recently used slot no sequence references is evicted
+    # when the bank is full.  Ranks are zero-padded to lora_rank; larger
+    # ranks are rejected.
+    lora_max_adapters: int = 0
+    lora_rank: int = 16
+    lora_dir: Optional[str] = None
+
     # None = the model config's eos ids (the checkpoint's config.json with
     # model_path)
     eos_token_id: Optional[int] = None
@@ -182,7 +202,6 @@ class EngineConfig:
     dp: int = 1
     tp: int = 1
     sp: int = 1
-    lora_max_adapters: int = 0
     peak_hbm_gbps: float = 0.0
 
     def __post_init__(self):

@@ -79,8 +79,31 @@ captured program per stream bucket, kernel K3 attends), accepts on the
 host and rolls rejected block growth back (`_spec_step`); those slots
 skip the step's decode burst.
 
-Not here yet (ROADMAP.md): penalties (the JAX engine ignores them too),
-the device-to-device pull across processes, guided decoding, and LoRA.
+LoRA (the JAX engine's, lora/): with lora_max_adapters > 0 a stacked
+adapter bank (slot 0 all zeros) sits in every captured decode and
+prefill program, read through a `lidx` lane per decode lane and per
+packed token, so base and adapter requests share each dispatch.
+Adapters load from lora_dir on their first request (`_resolve_lora`:
+the file read off the scheduler, the in-place bank write a scheduler
+op, LRU eviction among slots no sequence references).  Block hashes are
+salted by the adapter's name.
+
+Guided decoding (the JAX engine's, guided/): a request with
+sampling.guided_json steps alone, one token a scheduler step, through
+the guided top-M program (engine/graphs.py GuidedPrograms; M = 32, then
+a widened 256 when no candidate fits): the host tries the candidates in
+sampled order and keeps the first whose text is still a valid prefix of
+a schema-conforming document (the codec: `guided_codec`, installed by
+the worker from its MDC, else the byte mock), and closes the document
+canonically when nothing fits or the budget runs out.  Guided slots
+take no decode burst and no speculation.
+
+`set_slo_burn` (fed by the worker's SLO subscription) scales the
+prefill chunk budget down while the frontends report an error-budget
+burn above slo_yield_burn, as in the JAX engine.
+
+Not here yet (ROADMAP.md): penalties (the JAX engine ignores them too)
+and the device-to-device pull across processes.
 """
 
 from __future__ import annotations
@@ -91,7 +114,7 @@ import threading
 import time
 import zlib
 from collections import deque
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from functools import partial
 from typing import Any, AsyncIterator, Callable, Dict, List, Optional, Tuple
 
@@ -103,6 +126,8 @@ from ..disagg.transfer import KvLayout, dtype_name, make_transfer_params
 from ..kvbm.consolidator import KvEventConsolidator
 from ..kvbm.manager import TieredKvManager
 from ..kvbm.residency import LineageResidency
+from ..lora.bank import clear_slot, empty_bank, write_adapter
+from ..lora.source import LocalLoraSource
 from ..models import llama
 from ..ops.kv_transfer import (
     blocks_from_host,
@@ -127,7 +152,13 @@ from ..tokens import (
 )
 from .block_allocator import BlockAllocator, GrowResult
 from .config import EngineConfig
-from .graphs import DecodePrograms, PrefillPrograms, Readback, VerifyPrograms
+from .graphs import (
+    DecodePrograms,
+    GuidedPrograms,
+    PrefillPrograms,
+    Readback,
+    VerifyPrograms,
+)
 from .prefill import _pow2, plan_packed_prefill
 from .sampler import spec_accept_tokens
 
@@ -191,6 +222,12 @@ class _Slot:
     spec_probe_at: int = 0
     spec_backoff: int = 0
     draft_pos: int = 0
+    # adapter bank slot (0 = no adapter)
+    lora_idx: int = 0
+    # guided decoding (guided/json_prefix.py): a constrained slot steps
+    # through _guided_step; guided_out holds its emitted document tokens
+    guide: Optional[Any] = None
+    guided_out: List[int] = field(default_factory=list)
 
     @property
     def prefilling(self) -> bool:
@@ -247,6 +284,10 @@ class TorchEngine:
     # burst bounds how long a chunk waits behind decode while amortizing
     # the dispatch 4x (the JAX engine's value)
     INTERLEAVE_BURST = 4
+    # guided decoding's candidate window, and the widened retry's (the
+    # JAX engine's values)
+    GUIDED_TOPM = 32
+    GUIDED_TOPM_WIDE = 256
 
     def __init__(self, config: EngineConfig, params=None,
                  device: DeviceLike = "cuda",
@@ -350,6 +391,24 @@ class TorchEngine:
         self._offload_stream = (torch.cuda.Stream(self.device)
                                 if self.kvbm is not None
                                 and self.device.type == "cuda" else None)
+        # LoRA: the stacked adapter bank (lora/bank.py; slot 0 the all-zero
+        # no-adapter slot) and the name -> slot registry: adapters load
+        # from lora_dir on their first request, the least recently used
+        # slot no sequence references is evicted; a pin holds a slot
+        # between its resolution and the request's enqueue
+        self.lora_bank: Optional[Dict[str, torch.Tensor]] = None
+        self._lora_slots: Dict[str, int] = {}   # name -> bank slot (>= 1)
+        self._lora_lru: List[str] = []          # LRU order, oldest first
+        self._lora_pins: Dict[int, int] = {}    # slot -> pins
+        self._lora_source: Optional[LocalLoraSource] = None
+        if config.lora_max_adapters > 0:
+            mc = self.model_cfg
+            self.lora_bank = empty_bank(
+                mc.n_layers, config.lora_max_adapters + 1, config.lora_rank,
+                mc.d_model, mc.q_dim, mc.kv_dim, dtype=mc.dtype,
+                device=self.device)
+            if config.lora_dir:
+                self._lora_source = LocalLoraSource(config.lora_dir)
         # the decode programs (engine/graphs.py) and the overlapped
         # scheduler's state: dispatched-but-unread bursts, the owner of
         # each lane's device chain, the host mirror of the last full
@@ -360,7 +419,7 @@ class TorchEngine:
                                      config.max_blocks_per_seq, self.device,
                                      capture=cuda_graphs,
                                      epilogue=config.sampling_epilogue
-                                     == "fused")
+                                     == "fused", lora_bank=self.lora_bank)
         # one packed-prefill program per bucket the planner can give:
         # the pow2 ladder from the smallest bucket to the first one that
         # holds the chunk budget
@@ -370,7 +429,17 @@ class TorchEngine:
             _ladder(config.prefill_buckets[0], config.chunk_budget),
             self.device,
             capture=cuda_graphs if prefill_graphs is None
-            else prefill_graphs)
+            else prefill_graphs, lora_bank=self.lora_bank)
+        # guided decoding's candidate programs (top-M at M = GUIDED_TOPM
+        # and the widened GUIDED_TOPM_WIDE), both built by warm-up; the
+        # token<->text codec (the worker installs the model's tokenizer;
+        # None falls back to the byte mock)
+        self.guided_graphs = GuidedPrograms(
+            self.params, self.model_cfg, self.kv, config.max_num_seqs,
+            config.max_blocks_per_seq,
+            (self.GUIDED_TOPM, self.GUIDED_TOPM_WIDE), self.device,
+            capture=cuda_graphs)
+        self.guided_codec = None
         # speculative decoding (spec/): the proposer and one verify
         # program per pow2 stream length a round can give (rows
         # [last_token, d1..dk], at most spec_k + 1 tokens a slot, capped
@@ -432,6 +501,10 @@ class TorchEngine:
             self.metrics.update(offload_s=0.0, offload_wait_s=0.0,
                                 offloaded_bytes=0)
         self.itl_ema_s = 0.0  # streamed inter-token latency (SLA planner)
+        # SLA-aware admission: the frontends' worst SLO burn rate and when
+        # it was reported (set_slo_burn); stale signals decay to 0
+        self._slo_burn = 0.0
+        self._slo_burn_t = 0.0
         # forward-pass metrics: one record per prefill dispatch and per
         # decode step, with the JAX engine's keys (its xla_* keys come
         # from XLA's cost analysis and have no counterpart here); the
@@ -564,6 +637,24 @@ class TorchEngine:
         """Speculative decoding is active (what the worker advertises in
         its MDC)."""
         return self.proposer is not None
+
+    def set_slo_burn(self, burn: float) -> None:
+        """SLA-aware admission input: the worst SLO error-budget burn
+        rate the frontends currently report (fed by the worker's
+        slo_metrics subscription).  Any-thread safe (two float stores);
+        read by _prefill_step, where a burn above config.slo_yield_burn
+        makes prefill chunks yield budget to decode."""
+        self._slo_burn = float(burn)
+        self._slo_burn_t = time.monotonic()
+
+    def _effective_slo_burn(self) -> float:
+        """The last reported burn, or 0.0 once it has gone stale (a dead
+        frontend or a disabled SLO plane must not throttle prefill
+        forever)."""
+        if time.monotonic() - self._slo_burn_t > \
+                self.config.slo_burn_stale_s:
+            return 0.0
+        return self._slo_burn
 
     @property
     def num_active_seqs(self) -> int:
@@ -891,6 +982,17 @@ class TorchEngine:
         slot.pulling = False
         self._commit_full_blocks(slot)
         slot.first_token_t = time.monotonic()
+        if slot.guide is not None:
+            # constrained output served through disagg: the prefill
+            # worker sampled its first token unconstrained (it parks
+            # before any guided step), so pushing it would stream a stray
+            # token ahead of the document.  Rewind to the last prompt
+            # position instead and let _guided_step re-derive the first
+            # token under the constraint, as the JAX engine does.
+            self.metrics["cache_hit_tokens"] += prompt_len
+            slot.ctx_len = prompt_len - 1
+            slot.last_token = slot.seq.tokens[prompt_len - 1]
+            return
         if first is None:
             first = self._recompute_first(slot)
         self.metrics["cache_hit_tokens"] += prompt_len
@@ -912,6 +1014,8 @@ class TorchEngine:
         a["temps"][0] = sp.temperature
         a["top_ks"][0] = sp.top_k
         a["top_ps"][0] = sp.top_p
+        if "lidx" in a:
+            a["lidx"][0] = slot.lora_idx
         g.upload(a)
         return int(Readback(g.run(T)).wait()[0])
 
@@ -1082,8 +1186,8 @@ class TorchEngine:
         fusion ladder, greedy and sampled, dispatched full and as a
         continuation (engine/graphs.py captures each program at its first
         run), and under spec_decode every verify bucket's program and
-        the draft model's propose bursts (k = 1..spec_k, B = 1).  Nothing
-        real is computed (one prefill token, all-zero
+        the draft model's propose bursts (k = 1..spec_k, B = 1), and both
+        guided top-M programs.  Nothing real is computed (one prefill token, all-zero
         tables: every write lands in block 0), and the decode descriptor,
         the device chain and the continuation state are restored
         afterwards.  Runs on the caller's thread and holds the step lock
@@ -1112,6 +1216,11 @@ class TorchEngine:
                     self.verify_graphs.run(T)
                 if hasattr(self.proposer, "warmup"):
                     self.proposer.warmup()
+            g = self.guided_graphs.host_descriptor()
+            g["ctx_lens"][:] = 1
+            for m in self.guided_graphs.ms:
+                self.guided_graphs.upload(g)
+                self.guided_graphs.run(m)[0].wait()
             snap, last = self.graphs.snapshot(), self._last_desc
             for greedy in (True, False):
                 a["temps"][:] = 0.0 if greedy else 0.7
@@ -1195,6 +1304,24 @@ class TorchEngine:
                 # always-correct fallback
                 logger.warning("remote KVBM prefetch failed for %s",
                                request.request_id, exc_info=True)
+        lora_idx = 0
+        if request.lora_name:
+            if self.lora_bank is None:
+                # serving the base model labeled as the adapter would be
+                # silently wrong output: fail loud, as the JAX engine does
+                yield LLMEngineOutput(
+                    finish_reason="error",
+                    error=f"lora adapter {request.lora_name!r} requested "
+                          "but this worker has LoRA disabled "
+                          "(lora_max_adapters=0)")
+                return
+            try:
+                lora_idx = await self._resolve_lora(request.lora_name)
+            except Exception as e:
+                yield LLMEngineOutput(
+                    finish_reason="error",
+                    error=f"lora adapter {request.lora_name!r}: {e}")
+                return
         s = request.sampling
         seed = (s.seed if s.seed is not None
                 # stable across processes (unlike hash(): PYTHONHASHSEED)
@@ -1207,15 +1334,23 @@ class TorchEngine:
             out_q=asyncio.Queue(),
             block_table=np.zeros(self.config.max_blocks_per_seq, np.int32),
             sampling_seed=seed,
+            lora_idx=lora_idx,
             enqueued_t=time.monotonic(),
             disagg_prefill=DISAGG_ANNOTATION in (request.annotations or []),
         )
+        if s.guided_json is not None:
+            from ..guided import JsonSchemaGuide
+
+            slot.guide = JsonSchemaGuide(s.guided_json)
         pull_task = None
         if want_pull:
             slot.pulling = True
             slot.admitted = asyncio.Event()
         with self._qlock:
             self.waiting.append(slot)
+        if lora_idx:
+            # enqueued: the waiting/_slots scan now holds the reference
+            self._lora_pins[lora_idx] -= 1
         self._wake.set()
         if want_pull:
             # streaming pull: chunk injects interleave with decode steps;
@@ -1242,15 +1377,79 @@ class TorchEngine:
                 slot.cancel_requested = True
                 self._wake.set()
 
+    async def _resolve_lora(self, name: str) -> int:
+        """Map an adapter name to its bank slot, loading it from lora_dir
+        on first use, as the JAX engine's `_resolve_lora`.  Eviction is
+        LRU among adapters no active or waiting sequence references and
+        no resolved-but-not-yet-enqueued request pins.  The registry
+        changes and the bank write run as scheduler ops (between steps,
+        under the step lock: a copy issued from another thread could
+        land inside a graph capture or race a queued replay); the file
+        read runs in an executor so streams never stall on it.  The
+        write goes in place on the stream after the bursts already
+        queued, into a slot no queued burst selects."""
+
+        def lookup() -> Optional[int]:
+            idx = self._lora_slots.get(name)
+            if idx is not None:
+                self._lora_lru.remove(name)
+                self._lora_lru.append(name)
+                self._lora_pins[idx] = self._lora_pins.get(idx, 0) + 1
+            return idx
+
+        idx = await self._call_on_scheduler(lookup)
+        if idx is not None:
+            return idx
+        if self._lora_source is None:
+            raise ValueError("unknown adapter (engine has no lora_dir)")
+        loop = asyncio.get_running_loop()
+        adapter = await loop.run_in_executor(
+            None,
+            lambda: self._lora_source.load(
+                name, self.model_cfg.n_layers
+            ).padded_to(self.config.lora_rank))
+
+        def install() -> int:
+            existing = self._lora_slots.get(name)
+            if existing is not None:  # raced with another request
+                self._lora_pins[existing] = \
+                    self._lora_pins.get(existing, 0) + 1
+                return existing
+            in_use = {s.lora_idx for s in self._slots if s is not None}
+            with self._qlock:
+                in_use |= {s.lora_idx for s in self.waiting}
+            in_use |= {i for i, c in self._lora_pins.items() if c > 0}
+            free = (set(range(1, self.config.lora_max_adapters + 1))
+                    - set(self._lora_slots.values()))
+            if free:
+                slot = min(free)
+            else:
+                victim = next(
+                    (n for n in self._lora_lru
+                     if self._lora_slots[n] not in in_use), None)
+                if victim is None:
+                    raise RuntimeError(
+                        "all adapter slots are referenced by active "
+                        "sequences; raise lora_max_adapters")
+                slot = self._lora_slots.pop(victim)
+                self._lora_lru.remove(victim)
+            # a reused slot keeps nothing of its last adapter: one that
+            # targets fewer projections must not inherit the rest
+            clear_slot(self.lora_bank, slot)
+            write_adapter(self.lora_bank, slot, adapter.tensors)
+            self._lora_slots[name] = slot
+            self._lora_lru.append(name)
+            self._lora_pins[slot] = self._lora_pins.get(slot, 0) + 1
+            logger.info("lora adapter %r loaded into slot %d (rank %d)",
+                        name, slot, adapter.rank)
+            return slot
+
+        return await self._call_on_scheduler(install)
+
     @staticmethod
     def _unsupported(request: PreprocessedRequest) -> Optional[str]:
         """An error for request features the port does not serve yet
         (serving them without the feature would be silently wrong)."""
-        if request.lora_name:
-            return (f"lora adapter {request.lora_name!r} requested but "
-                    "dynamo_tpu_torch has no LoRA serving yet")
-        if request.sampling.guided_json is not None:
-            return "guided decoding is not ported to dynamo_tpu_torch yet"
         if request.multimodal:
             return "multimodal inputs are not ported to dynamo_tpu_torch yet"
         return None
@@ -1316,6 +1515,7 @@ class TorchEngine:
             # has had a step to finish
             self._flush_pending_first()
             self._prefill_step()
+            self._guided_step()
             self._spec_step()
             if any(s is not None and not s.prefilling
                    and not s.awaiting_first for s in self._slots):
@@ -1412,10 +1612,22 @@ class TorchEngine:
         decoding = sum(1 for s in self._slots
                        if s is not None and not s.prefilling)
         budget = max(c.chunk_budget - decoding, c.prefill_buckets[0])
+        # SLA-aware admission: while the frontends report the error
+        # budget burning faster than slo_yield_burn and decodes are live,
+        # prefill yields chunk budget to decode, scaled by threshold/burn
+        # and floored at the smallest bucket (prefill always advances)
+        if c.slo_yield_burn > 0 and decoding:
+            burn = self._effective_slo_burn()
+            if burn > c.slo_yield_burn:
+                budget = max(int(budget * c.slo_yield_burn / burn),
+                             c.prefill_buckets[0])
+                self.metrics["slo_yield_steps"] = \
+                    self.metrics.get("slo_yield_steps", 0) + 1
         plan = plan_packed_prefill(
             pslots, budget, block_size=c.block_size,
             max_blocks_per_seq=c.max_blocks_per_seq,
-            min_bucket=c.prefill_buckets[0], with_lora=False)
+            min_bucket=c.prefill_buckets[0],
+            with_lora=self.lora_bank is not None)
         if plan is None:
             return
         # the bucket's program on the plan padded to max_prefill_seqs rows
@@ -1425,12 +1637,16 @@ class TorchEngine:
         self.metrics["prefill_steps"] += 1
         # the first token is sampled (step 0 of the request's stream) only
         # for segments whose prompt completes in this chunk; intermediate
-        # chunks discard theirs
+        # chunks discard theirs, and so do guided completions (the guided
+        # step re-derives the first token under the constraint)
+        completing = sum(1 for s, ch in zip(plan.slots, plan.chunks)
+                         if s.prefill_pos + ch >= s.prompt_len)
         need = {i: s for i, (s, ch) in enumerate(zip(plan.slots,
                                                      plan.chunks))
-                if s.prefill_pos + ch >= s.prompt_len}
+                if s.prefill_pos + ch >= s.prompt_len
+                and (s.guide is None or s.disagg_prefill)}
         self._fpm_prefill(len(plan.slots), plan.tokens, plan.bucket,
-                          completing=len(need))
+                          completing=completing)
         firsts = None
         if need:
             firsts = self._prefill_samples(tok, need)
@@ -1482,17 +1698,28 @@ class TorchEngine:
                               first: Optional[int]) -> None:
         """Advance a slot past a computed chunk.  `first` is the sampled
         first token when the prompt completes with it, -1 for a chunk
-        that does not complete it, None for a completed prompt whose
-        first token is still being read back (the next step's flush
-        emits it)."""
+        that does not complete it (or a guided completion, which discards
+        the sample), None for a completed prompt whose first token is
+        still being read back (the next step's flush emits it)."""
         self.metrics["prefill_tokens"] += chunk
         slot.prefill_pos += chunk
         slot.ctx_len = slot.prefill_pos
         # registration is deferred to materialization, so commit tracks
         # prefill progress chunk by chunk
         self._commit_full_blocks(slot)
-        if slot.prefilling or first is None:
-            return  # more chunks to go, or awaiting_first
+        if slot.prefilling:
+            return  # more chunks to go; decode runs in between
+        if slot.guide is not None and not slot.disagg_prefill:
+            # constrained output: the unconstrained sample is discarded
+            # and the guided step re-derives the first token's logits by
+            # re-running the last prompt position (its K/V rewrite is
+            # value-identical)
+            slot.first_token_t = time.monotonic()
+            slot.ctx_len = slot.prompt_len - 1
+            slot.last_token = slot.seq.tokens[slot.prompt_len - 1]
+            return
+        if first is None:
+            return  # awaiting_first; the next step's flush completes it
         self._complete_prefill(slot, first)
 
     def _complete_prefill(self, slot: _Slot, first: int) -> None:
@@ -1517,9 +1744,9 @@ class TorchEngine:
 
         Slots that speculate this step skip the decode burst (their
         emission is synchronous: the verify readback is the step); the
-        rest decode as usual.  Mid-pull disagg slots and slots awaiting
-        their first token never speculate (the port serves no guided or
-        LoRA request, the JAX engine's other exclusions).  A slot whose
+        rest decode as usual.  Mid-pull disagg slots, slots awaiting
+        their first token, guided slots and LoRA slots never speculate,
+        as in the JAX engine.  A slot whose
         acceptance EMA collapsed to k = 0 rides the pipelined decode path
         and re-probes with exponential backoff; a probe of a pipelined
         slot drains the pipeline first, so the proposer sees its true
@@ -1530,7 +1757,8 @@ class TorchEngine:
         c = self.config
         cands = [s for s in self._slots
                  if s is not None and not s.prefilling and not s.pulling
-                 and not s.awaiting_first and not s.finished]
+                 and not s.awaiting_first and not s.finished
+                 and s.guide is None and s.lora_idx == 0]
         if not cands:
             return
         rows = []
@@ -1693,6 +1921,184 @@ class TorchEngine:
             s.spec_k_cur = c.spec_k if s.spec_accept_ema >= 0.5 \
                 else max(1, c.spec_k // 2)
 
+    # -- guided decoding (guided/) -------------------------------------------
+    def _guided_codec(self):
+        """Token<->text codec for guided decoding: the worker installs the
+        model's tokenizer; otherwise the byte mock the presets' model
+        cards advertise."""
+        if self.guided_codec is None:
+            from ..frontend.tokenizer import MockTokenizer
+
+            self.guided_codec = MockTokenizer(self.model_cfg.vocab_size)
+        return self.guided_codec
+
+    def _guided_step(self) -> None:
+        """One constrained token for every guided slot, as the JAX
+        engine's `_guided_step`.  Each slot steps alone through the
+        top-M program (engine/graphs.py GuidedPrograms, its lane the only
+        valid one), whose candidates are read back synchronously, after
+        the decode bursts already queued on the stream.  They are tried
+        in sampled order (argsort of the logits when greedy, else a Gumbel
+        draw from the host rng keyed (seed + generated)) and the first
+        whose decoded text keeps the output a valid JSON prefix wins; EOS
+        is admissible only once the document is complete.  When no
+        candidate of the window or of the widened retry fits, or the
+        token budget runs out mid-document, the canonical completion
+        closes the document, so the response is always schema-valid.
+        Slots awaiting their first token are skipped: a guided disagg
+        hop parks its prompt's KV at the next flush."""
+        gslots = [s for s in self._slots
+                  if s is not None and not s.prefilling
+                  and not s.awaiting_first
+                  and s.guide is not None and not s.finished]
+        if not gslots:
+            return
+        c = self.config
+        codec = self._guided_codec()
+        g = self.guided_graphs
+        for slot in gslots:
+            # a block for the next position (no burst speculation needed)
+            nblocks = int(np.count_nonzero(slot.block_table))
+            if slot.ctx_len >= nblocks * c.block_size:
+                if nblocks >= c.max_blocks_per_seq:
+                    self._guided_finish(slot, codec, forced=True)
+                    continue
+                grow = self.allocator.append_block(self._seq_id(slot))
+                self._emit_events(grow)
+                if grow.block_id is None:
+                    self._preempt(slot)
+                    continue
+                slot.block_table[nblocks] = grow.block_id
+            a = g.host_descriptor()
+            i = slot.index
+            a["tokens"][i] = slot.last_token
+            a["positions"][i] = slot.ctx_len
+            a["ctx_lens"][i] = slot.ctx_len
+            a["tables"][i] = slot.block_table
+            a["valid"][i] = True
+            g.upload(a)
+            ids, vals = (b.wait() for b in g.run(self.GUIDED_TOPM))
+            self._fpm_sync_t = time.monotonic()
+            slot.ctx_len += 1  # this step's KV write is in the cache
+            s = slot.request.sampling
+            text = codec.decode(slot.guided_out)
+
+            def choose(cand_ids, cand_logits):
+                if s.temperature <= 0.0:
+                    order = np.argsort(-cand_logits)
+                else:
+                    gum = np.random.default_rng(
+                        (slot.sampling_seed + slot.generated)
+                        & 0xFFFFFFFF).gumbel(size=cand_logits.shape)
+                    order = np.argsort(-(cand_logits / s.temperature + gum))
+                for j in order:
+                    tok = int(cand_ids[j])
+                    if tok in self.eos_ids:
+                        if slot.guide.done(text):
+                            return ("eos", tok)
+                        continue
+                    if slot.guide.ok(codec.decode(slot.guided_out + [tok])):
+                        return ("tok", tok)
+                return None
+
+            chosen = choose(ids[i], vals[i])
+            if chosen is None:
+                # nothing in the top-M set extends the document: retry
+                # once with the widened set before giving up (the step
+                # re-runs the same position; the shared body rewrites
+                # its K/V with the same values)
+                self.metrics["guided_widened_retries"] = \
+                    self.metrics.get("guided_widened_retries", 0) + 1
+                g.upload(a)
+                wids, wvals = (b.wait() for b in g.run(self.GUIDED_TOPM_WIDE))
+                chosen = choose(wids[i], wvals[i])
+            if chosen is None:
+                # even the widened set has no valid continuation: close
+                # the document canonically (and say so in the response)
+                self._guided_finish(slot, codec, forced=True)
+                continue
+            kind, tok = chosen
+            if kind == "eos":
+                self._guided_emit(slot, tok, "stop")
+                continue
+            slot.guided_out.append(tok)
+            done = slot.guide.done(codec.decode(slot.guided_out))
+            self._guided_emit(slot, tok, "stop" if done else None)
+            if not slot.finished \
+                    and slot.generated >= slot.request.stop.max_tokens:
+                # budget exhausted mid-document: schema validity beats
+                # the token budget, so the document is closed canonically
+                # (a few tokens over) instead of truncated
+                self._guided_finish(slot, codec, forced=True)
+
+    def _finish_metrics(self, slot: _Slot) -> Dict[str, Any]:
+        """A stream's last chunk's metrics."""
+        return {"kv_usage": self.kv_usage(),
+                "cached_tokens": slot.cached_tokens,
+                "ttft_s": slot.first_token_t - slot.enqueued_t}
+
+    def _put(self, slot: _Slot, out: LLMEngineOutput) -> None:
+        """Hand one chunk to the slot's stream (on the loop's thread)."""
+        if self._loop_ref is not None:
+            self._loop_ref.call_soon_threadsafe(slot.out_q.put_nowait, out)
+        else:
+            slot.out_q.put_nowait(out)
+
+    def _release_finished(self, slot: _Slot) -> None:
+        """A guided stream's end: the slot and its blocks go, as in the
+        JAX engine's guided path."""
+        slot.finished = True
+        if slot.index >= 0:
+            self._slots[slot.index] = None
+            slot.index = -1
+        self._emit_events(self.allocator.free(self._seq_id(slot)))
+
+    def _guided_emit(self, slot: _Slot, tok: int,
+                     finish: Optional[str]) -> None:
+        """Stream one guided token with an explicit finish decision (the
+        generic _finish_reason would truncate at max_tokens
+        mid-document; the guided path closes the document instead)."""
+        now = time.monotonic()
+        if slot.last_push_t > 0.0:
+            gap = now - slot.last_push_t
+            self.itl_ema_s = gap if self.itl_ema_s == 0.0 \
+                else 0.95 * self.itl_ema_s + 0.05 * gap
+        slot.last_push_t = now
+        slot.seq.append(tok)
+        slot.last_token = tok
+        slot.generated += 1
+        self.metrics["decode_tokens"] += 1
+        self._commit_full_blocks(slot)
+        self._put(slot, LLMEngineOutput(
+            token_ids=[tok], finish_reason=finish,
+            metrics=self._finish_metrics(slot) if finish else None))
+        if finish is not None:
+            self._release_finished(slot)
+
+    def _guided_finish(self, slot: _Slot, codec,
+                       forced: bool = False) -> None:
+        """Emit the canonical completion that closes the document and
+        finish the stream.  A non-empty completion means the engine, not
+        the model, wrote the document's tail: the final chunk's metrics
+        say how many tokens (`guided_forced_close_tokens`), and
+        `guided_forced_closes` counts such finishes."""
+        text = codec.decode(slot.guided_out)
+        try:
+            completion = slot.guide.complete(text)
+        except ValueError:
+            completion = ""
+        toks = codec.encode(completion) if completion else []
+        slot.guided_out.extend(toks)
+        metrics = self._finish_metrics(slot)
+        if toks or forced:
+            self.metrics["guided_forced_closes"] = \
+                self.metrics.get("guided_forced_closes", 0) + 1
+            metrics["guided_forced_close_tokens"] = len(toks)
+        self._put(slot, LLMEngineOutput(token_ids=list(toks),
+                                        finish_reason="stop",
+                                        metrics=metrics))
+        self._release_finished(slot)
+
     # -- decode -------------------------------------------------------------
     def _fuse_ladder(self) -> List[int]:
         """The burst sizes adaptive fusion can dispatch, ascending: 1, then
@@ -1729,10 +2135,12 @@ class TorchEngine:
 
     def _decodable(self) -> List[_Slot]:
         # slots that speculated this step already emitted synchronously
-        # (_spec_step): dispatching them again would double-step
+        # (_spec_step): dispatching them again would double-step; guided
+        # slots step alone (_guided_step)
         return [s for s in self._slots
                 if s is not None and not s.prefilling
-                and not s.awaiting_first and s.index not in self._specced]
+                and not s.awaiting_first and s.guide is None
+                and s.index not in self._specced]
 
     def _decode_step(self) -> None:
         """One decode burst for every slot past prefill.  At most depth-1
@@ -1809,6 +2217,8 @@ class TorchEngine:
             a["top_ks"][i] = sp.top_k
             a["top_ps"][i] = sp.top_p
             a["valid"][i] = True
+            if "lidx" in a:
+                a["lidx"][i] = s.lora_idx
         greedy = bool(np.all(a["temps"] <= 0.0))
         cont = self._is_continuation(a, active, k)
         if cont:
@@ -1842,9 +2252,10 @@ class TorchEngine:
     def _is_continuation(self, a: Dict[str, np.ndarray], active,
                          k: int) -> bool:
         """True when this burst is the pure continuation of the last one:
-        the same k, membership, tables and sampling, every lane's input
-        token in the device chain, and positions and steps exactly one
-        advance ahead, so the device descriptor can advance in place."""
+        the same k, membership, tables, sampling and adapter slots, every
+        lane's input token in the device chain, and positions and steps
+        exactly one advance ahead, so the device descriptor can advance
+        in place."""
         prev = self._last_desc
         if prev is None or k != prev["k"]:
             return False
@@ -1860,7 +2271,7 @@ class TorchEngine:
             and np.array_equal(a["steps"][m], prev["steps"][m] + adv)
             and all(np.array_equal(a[n][m], prev[n][m])
                     for n in ("tables", "seeds", "temps", "top_ks",
-                              "top_ps")))
+                              "top_ps", "lidx") if n in a))
 
     def _process_oldest_burst(self) -> None:
         """Read back the oldest dispatched burst and apply it: stream its
@@ -1962,15 +2373,9 @@ class TorchEngine:
         slot.generated += 1
         self._commit_full_blocks(slot)
         finish = self._finish_reason(slot, tok)
-        metrics = None
-        if finish:
-            metrics = {"kv_usage": self.kv_usage(),
-                       "cached_tokens": slot.cached_tokens,
-                       "ttft_s": slot.first_token_t - slot.enqueued_t}
-        out = LLMEngineOutput(token_ids=[tok], finish_reason=finish,
-                              metrics=metrics)
-        if self._loop_ref is not None:
-            self._loop_ref.call_soon_threadsafe(slot.out_q.put_nowait, out)
+        self._put(slot, LLMEngineOutput(
+            token_ids=[tok], finish_reason=finish,
+            metrics=self._finish_metrics(slot) if finish else None))
         if finish is not None:
             slot.finished = True
             if slot.index >= 0:

@@ -71,6 +71,18 @@ logits) and `spec_verify_window` into static ids [T, CAP], vals
 acceptance test.  Its descriptor is toks, positions, seg_ids, valid and
 temps_t of T words each, then the tables.  Its graph pool is its own.
 
+LoRA (lora/bank.py): with an adapter bank the decode descriptor gains a
+`lidx` lane (each lane's bank slot) after `valid`, the prefill stream a
+`lidx` word per token, and both bodies read the bank's tensors in place
+(its slots are written in place, so the captured addresses stay valid).
+Without a bank the descriptors and the bodies are exactly the bank-less
+ones.
+
+GuidedPrograms, the counterpart of the JAX engine's guided top-M
+programs (`_decode_topk_impl`): one decode step and the M largest
+logits of every lane, for M = 32 and the widened 256, one graph each in
+their own pool, both built by warm-up.
+
 Readback, the counterpart of `copy_to_host_async`: right after a run
 its output is copied on the same stream into a pinned host buffer owned
 by the returned `Readback`, and an event is recorded; `wait()` blocks on
@@ -124,36 +136,29 @@ class Readback:
 class _Desc:
     """Views of the descriptor buffer by field name."""
 
-    def __init__(self, buf: torch.Tensor, B: int, max_blocks: int):
-        for i, name in enumerate(FIELDS):
+    def __init__(self, buf: torch.Tensor, B: int, max_blocks: int,
+                 fields: tuple):
+        for i, name in enumerate(fields):
             view = buf[i * B:(i + 1) * B]
             setattr(self, name, view.view(torch.float32)
                     if name in _FLOAT_FIELDS else view)
-        off = len(FIELDS) * B
+        off = len(fields) * B
         self.tables = buf[off:off + B * max_blocks].view(B, max_blocks)
         self.advance = buf[off + B * max_blocks:]
 
 
-class DecodePrograms:
-    def __init__(self, params, cfg: llama.LlamaConfig, kv: tuple, B: int,
-                 max_blocks: int, device: torch.device,
-                 capture: bool = True, epilogue: bool = False):
-        self.params, self.cfg, self.kv = params, cfg, kv
-        self.epilogue = epilogue
+class _LaneDescriptor:
+    """A lane-major int32 device descriptor (`fields` of B words each,
+    then the tables, then the advance word) with its pinned staging
+    buffers: what the decode and the guided programs read."""
+
+    def _init_descriptor(self, B: int, max_blocks: int,
+                         device: torch.device, fields: tuple) -> None:
         self.B, self.max_blocks, self.device = B, max_blocks, device
-        self.capture = capture and device.type == "cuda"
-        n = len(FIELDS) * B + B * max_blocks + 1
+        self.fields = fields
+        n = len(fields) * B + B * max_blocks + 1
         self.desc = torch.zeros(n, dtype=torch.int32, device=device)
-        self.d = _Desc(self.desc, B, max_blocks)
-        self.chain = torch.zeros(B, dtype=torch.int32, device=device)
-        self.out: Dict[int, torch.Tensor] = {}
-        self.counts: Dict[Tuple[bool, int], int] = {}
-        # seconds each capture took, and the bytes the graph pool reserved
-        self.capture_s: Dict[Tuple[bool, int], float] = {}
-        self.pool_bytes = 0
-        self._graphs: Dict[Tuple[bool, int], torch.cuda.CUDAGraph] = {}
-        self._graph_launches: Dict[Tuple[bool, int], list] = {}
-        self._pool = None
+        self.d = _Desc(self.desc, B, max_blocks, fields)
         pin = device.type == "cuda"
         self._staging = [torch.zeros(n, dtype=torch.int32, pin_memory=pin)
                          for _ in range(_STAGING)]
@@ -168,8 +173,9 @@ class DecodePrograms:
         B = self.B
         a = {name: np.zeros(B, np.float32 if name in _FLOAT_FIELDS
                             else bool if name in ("use_chain", "valid")
-                            else np.int32) for name in FIELDS}
-        a["top_ps"][:] = 1.0
+                            else np.int32) for name in self.fields}
+        if "top_ps" in a:
+            a["top_ps"][:] = 1.0
         a["tables"] = np.zeros((B, self.max_blocks), np.int32)
         return a
 
@@ -182,12 +188,12 @@ class DecodePrograms:
             self._staged[i].synchronize()  # its last copy has run
         host = self._staging[i].numpy()
         B = self.B
-        for j, name in enumerate(FIELDS):
+        for j, name in enumerate(self.fields):
             col = np.asarray(a[name])
             host[j * B:(j + 1) * B] = (col.astype(np.float32).view(np.int32)
                                        if name in _FLOAT_FIELDS
                                        else col.astype(np.int32))
-        off = len(FIELDS) * B
+        off = len(self.fields) * B
         host[off:off + B * self.max_blocks] = np.asarray(
             a["tables"], np.int32).reshape(-1)
         host[-1] = 0
@@ -195,6 +201,31 @@ class DecodePrograms:
         if self.device.type == "cuda":
             self._staged[i] = torch.cuda.Event()
             self._staged[i].record()
+
+
+class DecodePrograms(_LaneDescriptor):
+    def __init__(self, params, cfg: llama.LlamaConfig, kv: tuple, B: int,
+                 max_blocks: int, device: torch.device,
+                 capture: bool = True, epilogue: bool = False,
+                 lora_bank: Optional[Dict[str, torch.Tensor]] = None):
+        self.params, self.cfg, self.kv = params, cfg, kv
+        self.epilogue = epilogue
+        # with a LoRA bank the descriptor gains the `lidx` lane (each
+        # lane's bank slot) and the body reads the bank in place
+        self.lora_bank = lora_bank
+        self.capture = capture and device.type == "cuda"
+        self._init_descriptor(
+            B, max_blocks, device,
+            FIELDS + ("lidx",) if lora_bank is not None else FIELDS)
+        self.chain = torch.zeros(B, dtype=torch.int32, device=device)
+        self.out: Dict[int, torch.Tensor] = {}
+        self.counts: Dict[Tuple[bool, int], int] = {}
+        # seconds each capture took, and the bytes the graph pool reserved
+        self.capture_s: Dict[Tuple[bool, int], float] = {}
+        self.pool_bytes = 0
+        self._graphs: Dict[Tuple[bool, int], torch.cuda.CUDAGraph] = {}
+        self._graph_launches: Dict[Tuple[bool, int], list] = {}
+        self._pool = None
 
     def continuation(self, advance: int) -> None:
         """Re-dispatch the device descriptor: every lane chains and the
@@ -218,6 +249,8 @@ class DecodePrograms:
         tokens = torch.where(d.use_chain != 0, self.chain, d.tokens)
         args = (self.params, self.cfg, self.kv, tokens, d.positions,
                 d.tables, d.ctx_lens, k)
+        lora = ({"lora_bank": self.lora_bank, "adapter_idx": d.lidx}
+                if self.lora_bank is not None else {})
         if self.epilogue:
             uw = llama.unembed_weight(self.params, self.cfg)
             if greedy:
@@ -229,7 +262,7 @@ class DecodePrograms:
                         h, uw, d.seeds, d.steps + step, d.temps, d.top_ks,
                         d.top_ps)
             burst, _ = llama.decode_multi_hidden(*args, fused,
-                                                 valid=d.valid != 0)
+                                                 valid=d.valid != 0, **lora)
         else:
             sample_fn: Optional[Callable] = None
             if not greedy:
@@ -237,7 +270,7 @@ class DecodePrograms:
                     return sample_tokens(logits, d.seeds, d.steps + step,
                                          d.temps, d.top_ks, d.top_ps)
             burst, _ = llama.decode_multi(*args, sample_fn,
-                                          valid=d.valid != 0)
+                                          valid=d.valid != 0, **lora)
         out = self.out.get(k)
         if out is None:
             out = self.out[k] = torch.zeros(k, self.B, dtype=torch.int32,
@@ -349,18 +382,24 @@ class _BucketPrograms:
 
     def __init__(self, params, cfg: llama.LlamaConfig, kv: tuple, rows: int,
                  max_blocks: int, buckets, device: torch.device,
-                 capture: bool = True):
+                 capture: bool = True,
+                 lora_bank: Optional[Dict[str, torch.Tensor]] = None):
         self.params, self.cfg, self.kv = params, cfg, kv
         self.rows, self.max_blocks, self.device = rows, max_blocks, device
         self.buckets = tuple(buckets)
         self.capture = capture and device.type == "cuda"
+        # with a LoRA bank the stream gains `lidx` (each token's bank
+        # slot) and the body reads the bank in place
+        self.lora_bank = lora_bank
+        self.stream = (self.STREAM + ("lidx",) if lora_bank is not None
+                       else self.STREAM)
         self.desc: Dict[int, torch.Tensor] = {}
         self.d: Dict[int, _BucketDesc] = {}
         for T in self.buckets:
             self.desc[T] = torch.zeros(self._words(T), dtype=torch.int32,
                                        device=device)
             self.d[T] = _BucketDesc(self.desc[T], T, rows, max_blocks,
-                                    self.STREAM, self.ROWS)
+                                    self.stream, self.ROWS)
         self.counts: Dict[int, int] = {}
         self.capture_s: Dict[int, float] = {}
         self.pool_bytes = 0
@@ -376,7 +415,7 @@ class _BucketPrograms:
         self._init_outputs()
 
     def _words(self, T: int) -> int:
-        return (len(self.STREAM) * T + len(self.ROWS) * self.rows
+        return (len(self.stream) * T + len(self.ROWS) * self.rows
                 + self.rows * self.max_blocks)
 
     # -- inputs ------------------------------------------------------------
@@ -386,7 +425,7 @@ class _BucketPrograms:
         rows = self.rows
         a = {name: np.zeros(T, bool if name == "valid" else np.float32
                             if name in _FLOAT_FIELDS else np.int32)
-             for name in self.STREAM}
+             for name in self.stream}
         a.update({name: np.zeros(rows, np.float32 if name in _FLOAT_FIELDS
                                   else np.int32) for name in self.ROWS})
         if "top_ps" in a:
@@ -400,7 +439,7 @@ class _BucketPrograms:
         descriptor."""
         T = len(arrays["toks"])
         a = self.host_descriptor(T)
-        for name in self.STREAM:
+        for name in self.stream:
             a[name][:] = arrays[name]
         tables = np.asarray(arrays["tables"])
         S = tables.shape[0]
@@ -423,7 +462,7 @@ class _BucketPrograms:
         n = self._words(T)
         host = self._staging[i][:n].numpy()
         off = 0
-        for name, width in ([(f, T) for f in self.STREAM]
+        for name, width in ([(f, T) for f in self.stream]
                             + [(f, self.rows) for f in self.ROWS]):
             col = np.asarray(a[name])
             host[off:off + width] = (col.astype(np.float32).view(np.int32)
@@ -502,9 +541,11 @@ class PrefillPrograms(_BucketPrograms):
         """The program body, run eagerly: returns its static tokens
         [rows] (its logits are in `logits[T]`)."""
         d = self.d[T]
+        lora = ({"lora_bank": self.lora_bank, "adapter_idx": d.lidx}
+                if self.lora_bank is not None else {})
         logits, _ = llama.prefill_packed(
             self.params, self.cfg, self.kv, d.toks, d.positions, d.seg_ids,
-            d.tables, d.last_idx, d.valid != 0)
+            d.tables, d.last_idx, d.valid != 0, **lora)
         tok = sample_tokens(logits, d.seeds, torch.zeros_like(d.seeds),
                             d.temps, d.top_ks, d.top_ps)
         self.logits[T].copy_(logits)
@@ -550,3 +591,79 @@ class VerifyPrograms(_BucketPrograms):
                                                             d.temps_t)):
             dst.copy_(src)
         return self.out[T]
+
+
+# the guided programs' descriptor: one decode step's lane fields
+GUIDED_FIELDS = ("tokens", "positions", "ctx_lens", "valid")
+
+
+class GuidedPrograms(_LaneDescriptor):
+    """The guided-decoding candidate programs, the counterpart of the JAX
+    engine's `_decode_topk_impl` (its `_topk_jit` and `_topk_wide_jit`):
+    one decode step at B = max_num_seqs (models/llama.py decode; K1
+    attends), then the M largest fp32 logits of every lane, ordered as
+    `lax.top_k` (sampler.top_window: ties to the lower id), into static
+    ids [B, M] int32 and vals [B, M] fp32.  One program per M in `ms`,
+    all of one body that differs only in the window, so a widened retry
+    rewrites the step's K/V with the same values.  The engine fills one
+    valid lane a dispatch.  As in JAX, the step reads no LoRA bank.  On
+    CUDA each program is captured at its first run (warmup_decode runs
+    both) into its own graph pool, K1's launches moved to the replays;
+    `counts[M]` gates the builds."""
+
+    def __init__(self, params, cfg: llama.LlamaConfig, kv: tuple, B: int,
+                 max_blocks: int, ms, device: torch.device,
+                 capture: bool = True):
+        self.params, self.cfg, self.kv = params, cfg, kv
+        self.ms = tuple(ms)
+        self.capture = capture and device.type == "cuda"
+        self._init_descriptor(B, max_blocks, device, GUIDED_FIELDS)
+        width = {m: min(m, cfg.vocab_size) for m in self.ms}
+        self.ids = {m: torch.zeros(B, width[m], dtype=torch.int32,
+                                   device=device) for m in self.ms}
+        self.vals = {m: torch.zeros(B, width[m], dtype=torch.float32,
+                                    device=device) for m in self.ms}
+        self.counts: Dict[int, int] = {}
+        self.capture_s: Dict[int, float] = {}
+        self.pool_bytes = 0
+        self._graphs: Dict[int, torch.cuda.CUDAGraph] = {}
+        self._graph_launches: Dict[int, list] = {}
+        self._pool = None
+
+    def run_eager(self, m: int) -> Tuple[torch.Tensor, torch.Tensor]:
+        """The program body, run eagerly: returns its static (ids, vals)."""
+        d = self.d
+        logits, _ = llama.decode(self.params, self.cfg, self.kv, d.tokens,
+                                 d.positions, d.tables, d.ctx_lens,
+                                 valid=d.valid != 0)
+        vals, ids = top_window(logits.float(), m)
+        self.ids[m].copy_(ids)
+        self.vals[m].copy_(vals)
+        return self.ids[m], self.vals[m]
+
+    def run(self, m: int) -> Tuple[Readback, Readback]:
+        """Dispatch program M on the current descriptor and start the
+        readback of its (ids, vals)."""
+        graph = self._graphs.get(m)
+        if graph is not None:
+            graph.replay()
+            for fn, n in self._graph_launches[m]:
+                fn.launches += n
+            return Readback(self.ids[m]), Readback(self.vals[m])
+        ids, vals = self.run_eager(m)
+        if m not in self.counts:
+            if self.capture:
+                self._capture(m)
+            self.counts[m] = 1
+        return Readback(ids), Readback(vals)
+
+    def _capture(self, m: int) -> None:
+        from ..ops import cuda_paged_attention as k1
+
+        if self._pool is None:
+            self._pool = torch.cuda.graph_pool_handle()
+        (self._graphs[m], self._graph_launches[m], self.capture_s[m],
+         grown) = _capture(self.device, self._pool,
+                           lambda: self.run_eager(m),
+                           (k1.paged_decode, k1.paged_decode_int8))
+        self.pool_bytes += grown

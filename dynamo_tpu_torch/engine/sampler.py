@@ -123,12 +123,12 @@ def order_keys(x: torch.Tensor, cols: torch.Tensor) -> torch.Tensor:
     return b * (1 << 32) - cols
 
 
-def top_window(scaled: torch.Tensor):
-    """(values, ids) [B, CAP] of the CAP largest of `scaled` [B, n],
-    sorted descending with ties to the lower id, as `lax.top_k`."""
+def top_window(scaled: torch.Tensor, m: int = CAP):
+    """(values, ids) [B, m] of the m (default CAP) largest of `scaled`
+    [B, n], sorted descending with ties to the lower id, as `lax.top_k`."""
     n = scaled.shape[-1]
     _, ids = torch.topk(order_keys(scaled, torch.arange(
-        n, device=scaled.device)), min(CAP, n), dim=-1)
+        n, device=scaled.device)), min(m, n), dim=-1)
     return torch.gather(scaled, -1, ids), ids
 
 

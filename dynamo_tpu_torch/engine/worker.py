@@ -26,15 +26,19 @@ the unchanged JAX frontend and its KV router serve it like any other:
   * load metrics on `load_metrics.{ns}.{comp}` and the engine's
     forward-pass-metrics records on `fpm.{ns}.{comp}`, every 0.5 s, and a
     GC sweep of the shared G4 store every 30 s;
+  * guided decoding validates candidate text with the model's tokenizer,
+    built from the MDC's tokenizer entry (frontend/tokenizer.py), or the
+    byte mock where it cannot be built;
+  * the SLO feed: the frontends' burn rates on `slo_metrics.{ns}`
+    (obs/slo.py), the worst window into TorchEngine.set_slo_burn;
   * drain on SIGTERM (engine/__main__.py): withdraw the routing identity,
     let in-flight requests finish until a deadline, abort the rest with
     the migratable "worker draining" marker.
 
 Not ported yet (ROADMAP.md): multi-host slices, the device-to-device
 pull across processes (the `kv_pull` op's `via=transfer` branch), the
-`embed` endpoint, the SLO feed, the guided-decoding codec, timeline
-spans, and the /metrics gauges and /debug sources (the system-status
-server is not ported).
+`embed` endpoint, timeline spans, and the /metrics gauges and /debug
+sources (the system-status server is not ported).
 
 The `kvbm_pull` wire carries block hashes as 16-byte big-endian bytes
 (router/events.py hash_to_wire), as the KV events do, and accepts plain
@@ -57,7 +61,9 @@ from ..disagg.transfer import (
     encode_chunk_frame,
     make_header,
 )
+from ..frontend.tokenizer import tokenizer_from_mdc
 from ..models.loader import load_chat_template
+from ..obs.slo import SLO_SUBJECT_PREFIX
 from ..protocols import (
     CANARY_GENERATE_PAYLOAD,
     ModelDeploymentCard,
@@ -113,6 +119,8 @@ class TorchEngineWorker:
         self.served = None
         self._aux_served: list = []
         self._load_task: Optional[asyncio.Task] = None
+        self._slo_task: Optional[asyncio.Task] = None
+        self._slo_cancel = asyncio.Event()
         self._pull_clients: dict = {}
         self._broker_id: Optional[int] = None
         self._kvbm_index: Optional[RemoteBlockIndex] = None
@@ -187,6 +195,15 @@ class TorchEngineWorker:
             "namespace": self.namespace,
             "component": self.component,
         }
+        # guided decoding validates candidate text with the MODEL'S
+        # tokenizer (the engine falls back to the byte mock, which the
+        # mock cards' frontends use too)
+        try:
+            self.engine.guided_codec = tokenizer_from_mdc(
+                self.tokenizer_cfg)
+        except Exception:
+            logger.warning("guided codec unavailable; guided decoding "
+                           "will use the byte fallback", exc_info=True)
 
         async def generate_handler(payload, ctx):
             request = PreprocessedRequest.from_dict(payload)
@@ -274,6 +291,11 @@ class TorchEngineWorker:
             await asyncio.to_thread(self.engine.warmup_decode)
         await register_model(rt, self.card, instance_id)
         self._load_task = asyncio.create_task(self._load_loop())
+        # SLA-aware admission input: the frontends' published SLO burn
+        # rate into the engine, where a sustained burn makes prefill
+        # chunks yield budget to decode (stale signals decay engine-side,
+        # slo_burn_stale_s)
+        self._slo_task = asyncio.create_task(self._slo_loop())
         logger.info("torch engine worker %d serving %s on %s", instance_id,
                     self.config.served_name, self.engine.device)
         return self
@@ -297,6 +319,31 @@ class TorchEngineWorker:
             await client.wait_for_instances()
             self._pull_clients[key] = client
         return RequestPlanePullSource(client, params)
+
+    async def _slo_loop(self) -> None:
+        """Fold every frontend SLO summary into the engine's burn signal
+        (the worst window wins, as the planner's SloObserver reduces
+        it)."""
+        subject = f"{SLO_SUBJECT_PREFIX}.{self.namespace}"
+        try:
+            async for subj, payload in self.runtime.event_plane.subscribe(
+                    subject, cancel=self._slo_cancel):
+                if subj != subject or self.engine is None:
+                    continue
+                try:
+                    burns = payload.get("burn")
+                    self.engine.set_slo_burn(
+                        max((float(v) for v in burns.values()),
+                            default=0.0)
+                        if isinstance(burns, dict) else 0.0)
+                except Exception:
+                    # one malformed event (a non-dict payload included)
+                    # must not kill the feed: a dead subscription would
+                    # disable SLA-aware admission for the worker's life
+                    logger.warning("malformed slo payload: %r", payload,
+                                   exc_info=True)
+        except asyncio.CancelledError:
+            pass
 
     async def _load_loop(self) -> None:
         subject = f"{LOAD_SUBJECT_PREFIX}.{self.namespace}.{self.component}"
@@ -373,6 +420,11 @@ class TorchEngineWorker:
             self._load_task.cancel()
             await asyncio.gather(self._load_task, return_exceptions=True)
             self._load_task = None
+        if self._slo_task is not None:
+            self._slo_cancel.set()
+            self._slo_task.cancel()
+            await asyncio.gather(self._slo_task, return_exceptions=True)
+            self._slo_task = None
         if self.engine is not None:
             await self.engine.close()
         if self.served is not None:

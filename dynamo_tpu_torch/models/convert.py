@@ -14,11 +14,13 @@ does not import, so a caller upcasts bf16 JAX arrays to float32 first
     An int8 cache's codes cross as int8, transposed like the data, and
     its fp32 scale planes [L, nkv, num_blocks, block_size] unchanged:
     both packages lay them out alike.
+  * LoRA bank: the JAX bank's stacked A/B arrays map one to one onto the
+    port's (lora/bank.py), in the model's dtype.
 """
 
 from __future__ import annotations
 
-from typing import Any, Optional, Tuple
+from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -96,3 +98,14 @@ def kv_cache_to_numpy(kv_cache: Tuple[torch.Tensor, ...]
         a = (a.float() if a.is_floating_point() else a).numpy()
         out.append(np.ascontiguousarray(a if i >= 2 else a.swapaxes(-1, -2)))
     return tuple(out)
+
+
+def bank_from_numpy(bank: Dict[str, Any], dtype: torch.dtype,
+                    device: DeviceLike = "cuda") -> Dict[str, torch.Tensor]:
+    """A JAX LoRA bank (lora/bank.py: {"A_q": [L, N, d_in, r], "B_q":
+    [L, N, r, d_out], ...}), as numpy float arrays, turned into the
+    port's bank on `device` in `dtype` (the model's).  Both banks share
+    the layout, so nothing is transposed."""
+    dev = resolve_device(device)
+    return {k: _tensor(v, dtype, dev, k).contiguous()
+            for k, v in bank.items()}

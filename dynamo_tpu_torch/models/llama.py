@@ -26,6 +26,7 @@ from typing import Any, Dict, Optional, Tuple
 
 import torch
 
+from ..lora.bank import bank_layer, lora_delta, masked_delta, slot_onehot
 from ..ops.packed_prefill import (
     packed_attention_plan,
     packed_prefill_attention,
@@ -200,12 +201,24 @@ def rope(x: torch.Tensor, positions: torch.Tensor,
 
 
 def _qkv(layer, cfg: LlamaConfig, x: torch.Tensor,
-         positions: torch.Tensor):
-    """x: [..., seq, d] -> q [..., seq, nh, hd], k/v [..., seq, nkv, hd]."""
+         positions: torch.Tensor, lora=None):
+    """x: [..., seq, d] -> q [..., seq, nh, hd], k/v [..., seq, nkv, hd].
+
+    `lora`: optional (bank_layer, selector) from _lora_ctx: batched
+    low-rank deltas added to the projections (lora/bank.py); slot 0 is
+    zeros, so mixed base/adapter batches share this program."""
     *lead, seq, _ = x.shape
-    q = (x @ layer["wq"]).reshape(*lead, seq, cfg.n_heads, cfg.head_dim)
-    k = (x @ layer["wk"]).reshape(*lead, seq, cfg.n_kv_heads, cfg.head_dim)
-    v = (x @ layer["wv"]).reshape(*lead, seq, cfg.n_kv_heads, cfg.head_dim)
+    zq = x @ layer["wq"]
+    zk = x @ layer["wk"]
+    zv = x @ layer["wv"]
+    if lora is not None:
+        bl, sel = lora
+        zq = zq + _lora_delta(x, bl["A_q"], bl["B_q"], sel)
+        zk = zk + _lora_delta(x, bl["A_k"], bl["B_k"], sel)
+        zv = zv + _lora_delta(x, bl["A_v"], bl["B_v"], sel)
+    q = zq.reshape(*lead, seq, cfg.n_heads, cfg.head_dim)
+    k = zk.reshape(*lead, seq, cfg.n_kv_heads, cfg.head_dim)
+    v = zv.reshape(*lead, seq, cfg.n_kv_heads, cfg.head_dim)
     if cfg.qk_norm:
         q = rms_norm(q, layer["q_norm"]["norm"], cfg.rms_eps)
         k = rms_norm(k, layer["k_norm"]["norm"], cfg.rms_eps)
@@ -221,8 +234,37 @@ def _write_kv(fn, kv_cache: KVCache, layer: int, *args) -> None:
     fn(k, v, layer, *args, k_scale=ks, v_scale=vs)
 
 
-def _attn_out(layer, attn_flat: torch.Tensor) -> torch.Tensor:
-    return attn_flat @ layer["wo"]
+def _attn_out(layer, attn_flat: torch.Tensor, lora=None) -> torch.Tensor:
+    o = attn_flat @ layer["wo"]
+    if lora is not None:
+        bl, sel = lora
+        o = o + _lora_delta(attn_flat, bl["A_o"], bl["B_o"], sel)
+    return o
+
+
+def _lora_sel(lora_bank, adapter_idx, dtype: torch.dtype):
+    """The adapter selector of one forward pass: None without a bank, a
+    scalar index as it is, else the rows' one-hot over the bank's slots
+    (lora/bank.py slot_onehot), built once for every layer and target."""
+    if lora_bank is None or adapter_idx is None:
+        return None
+    if adapter_idx.ndim == 0:
+        return adapter_idx
+    return slot_onehot(adapter_idx, lora_bank["A_q"].shape[1], dtype)
+
+
+def _lora_ctx(lora_bank, sel, li):
+    """Per-layer LoRA context for _qkv/_attn_out, or None when disabled."""
+    if sel is None:
+        return None
+    return bank_layer(lora_bank, li), sel
+
+
+def _lora_delta(x, A, B, sel):
+    """lora/bank.py's delta for a selector of _lora_sel."""
+    if sel.ndim == 0:
+        return lora_delta(x, A, B, sel)
+    return masked_delta(x, A, B, sel)
 
 
 def _mlp(layer, x: torch.Tensor) -> torch.Tensor:
@@ -261,37 +303,44 @@ def prefill_packed(
     last_idx: torch.Tensor,      # [S] int32 packed index of each segment's
     #                              last token this chunk (0 for unused rows)
     valid: torch.Tensor,         # [T] bool: False on the padded tail
+    lora_bank=None,              # stacked adapter bank (lora/bank.py)
+    adapter_idx=None,            # [T] int32: bank slot PER TOKEN
 ):
     """Packed multi-sequence prefill (ops/packed_prefill.py): K/V scatter
     into each token's own blocks, attention is causal-within-segment over
     each segment's paged context.  Returns (logits [S, vocab] at each
     segment's last packed token, kv_cache updated in place)."""
     x = _packed_forward(params, cfg, kv_cache, token_ids, positions,
-                        seg_ids, block_tables, valid)
+                        seg_ids, block_tables, valid, lora_bank,
+                        adapter_idx)
     return _logits(params, cfg, x[last_idx.long()]), kv_cache
 
 
 def _packed_forward(params, cfg: LlamaConfig, kv_cache: KVCache,
-                    token_ids, positions, seg_ids, block_tables, valid):
+                    token_ids, positions, seg_ids, block_tables, valid,
+                    lora_bank=None, adapter_idx=None):
     """The packed-stream transformer body.  Returns the final hidden
     states [T, d] (before the final norm).  K3's tile plan depends only on
-    the stream's layout, so it is computed once here for every layer."""
+    the stream's layout, so it is computed once here for every layer, as
+    is the per-token adapter one-hot with a bank."""
     k_cache, v_cache, k_scale, v_scale = unpack_kv(kv_cache)
     T = token_ids.shape[0]
     plan = packed_attention_plan(k_cache, cfg.n_heads, block_tables,
                                  seg_ids, positions, valid,
                                  impl=cfg.packed_attn_impl)
+    sel = _lora_sel(lora_bank, adapter_idx, cfg.dtype)
     x = params["embedding"][token_ids.long()].to(cfg.dtype)  # [T, d]
     for li, layer in enumerate(params["layers"]):
+        lctx = _lora_ctx(lora_bank, sel, li)
         h = rms_norm(x, layer["attn_norm"]["norm"], cfg.rms_eps)
-        q, k, v = _qkv(layer, cfg, h, positions)  # [T, nh, hd]
+        q, k, v = _qkv(layer, cfg, h, positions, lora=lctx)  # [T, nh, hd]
         _write_kv(write_packed_kv, kv_cache, li, k, v, block_tables,
                   seg_ids, positions, valid)
         attn = packed_prefill_attention(
             q, k_cache, v_cache, li, block_tables, seg_ids, positions,
             valid, impl=cfg.packed_attn_impl, k_scale=k_scale,
             v_scale=v_scale, plan=plan)
-        x = x + _attn_out(layer, attn.reshape(T, cfg.q_dim))
+        x = x + _attn_out(layer, attn.reshape(T, cfg.q_dim), lora=lctx)
         h = rms_norm(x, layer["mlp_norm"]["norm"], cfg.rms_eps)
         x = x + _mlp(layer, h)
     return x
@@ -332,6 +381,8 @@ def prefill(
     block_table: torch.Tensor,   # [max_blocks] int32 physical block ids
     ctx_len,                     # tokens already cached (int or 0-d)
     true_len,                    # valid tokens in token_ids (int or 0-d)
+    lora_bank=None,              # stacked adapter bank (lora/bank.py)
+    adapter_idx=None,            # scalar int32: this sequence's bank slot
 ):
     """One sequence's prompt chunk: its tokens attend to ctx_len cached
     tokens through the block table plus themselves causally
@@ -341,16 +392,18 @@ def prefill(
     [vocab] at the last valid token, kv_cache)."""
     k_cache, v_cache, k_scale, v_scale = unpack_kv(kv_cache)
     T = token_ids.shape[0]
+    sel = _lora_sel(lora_bank, adapter_idx, cfg.dtype)
     x = params["embedding"][token_ids.long()].to(cfg.dtype)  # [T, d]
     for li, layer in enumerate(params["layers"]):
+        lctx = _lora_ctx(lora_bank, sel, li)
         h = rms_norm(x, layer["attn_norm"]["norm"], cfg.rms_eps)
-        q, k, v = _qkv(layer, cfg, h, positions)  # [T, nh, hd]
+        q, k, v = _qkv(layer, cfg, h, positions, lora=lctx)  # [T, nh, hd]
         _write_kv(write_prompt_kv, kv_cache, li, k, v, block_table,
                   ctx_len, true_len)
         attn = paged_prefill_attention(q, k, v, k_cache, v_cache, li,
                                        block_table, ctx_len, true_len,
                                        k_scale=k_scale, v_scale=v_scale)
-        x = x + _attn_out(layer, attn.reshape(T, cfg.q_dim))
+        x = x + _attn_out(layer, attn.reshape(T, cfg.q_dim), lora=lctx)
         h = rms_norm(x, layer["mlp_norm"]["norm"], cfg.rms_eps)
         x = x + _mlp(layer, h)
     last = max(int(true_len) - 1, 0)
@@ -371,6 +424,8 @@ def decode(
     block_tables: torch.Tensor,  # [B, max_blocks] int32
     ctx_lens: torch.Tensor,      # [B] int32, tokens in cache BEFORE this step
     valid: Optional[torch.Tensor] = None,  # [B] bool: active (non-padding) rows
+    lora_bank=None,              # stacked adapter bank (lora/bank.py)
+    adapter_idx=None,            # [B] int32: bank slot per row
 ):
     """One decode step for B rows: writes each token's K/V, attends over
     the paged context.  Returns (logits [B, vocab], kv_cache updated in
@@ -379,7 +434,7 @@ def decode(
     lands in the garbage block 0.  `valid` keeps the JAX signature; the
     dense layers do not read it (JAX's MoE capacity does)."""
     x = _decode_trunk(params, cfg, kv_cache, token_ids, positions,
-                      block_tables, ctx_lens)
+                      block_tables, ctx_lens, lora_bank, adapter_idx)
     return _logits(params, cfg, x), kv_cache
 
 
@@ -394,6 +449,8 @@ def decode_multi(
     num_steps: int,
     sample_fn=None,              # (logits [B, V], step_idx) -> tokens [B]
     valid: Optional[torch.Tensor] = None,  # [B] bool: active rows
+    lora_bank=None,              # stacked adapter bank (lora/bank.py)
+    adapter_idx=None,            # [B] int32: bank slot per row
 ):
     """`num_steps` decode steps in one call, the counterpart of the JAX
     package's lax.scan burst: each step's sampled ids feed the next step
@@ -408,7 +465,8 @@ def decode_multi(
             return torch.argmax(logits, dim=-1).to(torch.int32)
 
     return _burst(decode, params, cfg, kv_cache, token_ids, positions,
-                  block_tables, ctx_lens, num_steps, sample_fn, valid)
+                  block_tables, ctx_lens, num_steps, sample_fn, valid,
+                  lora_bank, adapter_idx)
 
 
 def decode_hidden(
@@ -420,13 +478,15 @@ def decode_hidden(
     block_tables: torch.Tensor,  # [B, max_blocks] int32
     ctx_lens: torch.Tensor,      # [B] int32
     valid: Optional[torch.Tensor] = None,
+    lora_bank=None,
+    adapter_idx=None,
 ):
     """decode minus the final projection: returns (final-norm hidden
     [B, d] in cfg.dtype, kv_cache updated in place).  The fused sampling
     epilogue (ops/fused_sampling.py) contracts it with unembed_weight tile
     by tile; `_logits` is `(this hidden @ unembed_weight).float()`."""
     x = _decode_trunk(params, cfg, kv_cache, token_ids, positions,
-                      block_tables, ctx_lens)
+                      block_tables, ctx_lens, lora_bank, adapter_idx)
     return _final_norm(params, cfg, x), kv_cache
 
 
@@ -441,6 +501,8 @@ def decode_multi_hidden(
     num_steps: int,
     sample_fn,                   # (hidden [B, d], step_idx) -> tokens [B]
     valid: Optional[torch.Tensor] = None,
+    lora_bank=None,
+    adapter_idx=None,
 ):
     """decode_multi with the fused sampling epilogue: each step hands
     `sample_fn` the final-norm hidden state instead of logits, so no
@@ -449,18 +511,20 @@ def decode_multi_hidden(
     kv_cache updated in place)."""
     return _burst(decode_hidden, params, cfg, kv_cache, token_ids,
                   positions, block_tables, ctx_lens, num_steps, sample_fn,
-                  valid)
+                  valid, lora_bank, adapter_idx)
 
 
 def _burst(step_fn, params, cfg: LlamaConfig, kv_cache: KVCache, token_ids,
            positions, block_tables, ctx_lens, num_steps: int, sample_fn,
-           valid):
+           valid, lora_bank=None, adapter_idx=None):
     """`num_steps` steps of `step_fn` (decode or decode_hidden), each
     step's tokens (sample_fn of its output) the next step's input."""
+    lora = ({"lora_bank": lora_bank, "adapter_idx": adapter_idx}
+            if lora_bank is not None else {})
     toks = []
     for step in range(num_steps):
         out, kv_cache = step_fn(params, cfg, kv_cache, token_ids, positions,
-                                block_tables, ctx_lens, valid=valid)
+                                block_tables, ctx_lens, valid=valid, **lora)
         token_ids = sample_fn(out, step).to(torch.int32)
         toks.append(token_ids)
         positions = positions + 1
@@ -469,23 +533,27 @@ def _burst(step_fn, params, cfg: LlamaConfig, kv_cache: KVCache, token_ids,
 
 
 def _decode_trunk(params, cfg: LlamaConfig, kv_cache: KVCache, token_ids,
-                  positions, block_tables, ctx_lens):
+                  positions, block_tables, ctx_lens, lora_bank=None,
+                  adapter_idx=None):
     """The decode layer stack.  Returns the hidden states [B, d] before
     the final norm."""
     k_cache, v_cache, k_scale, v_scale = unpack_kv(kv_cache)
+    sel = _lora_sel(lora_bank, adapter_idx, cfg.dtype)
     x = params["embedding"][token_ids.long()].to(cfg.dtype)  # [B, d]
     pos1 = positions[:, None]  # [B, 1] for rope
     kv_lens = ctx_lens + 1
     for li, layer in enumerate(params["layers"]):
+        lctx = _lora_ctx(lora_bank, sel, li)
         h = rms_norm(x, layer["attn_norm"]["norm"], cfg.rms_eps)
-        q, k, v = _qkv(layer, cfg, h[:, None, :], pos1)
+        q, k, v = _qkv(layer, cfg, h[:, None, :], pos1, lora=lctx)
         _write_kv(write_token_kv, kv_cache, li, k[:, 0], v[:, 0],
                   block_tables, ctx_lens)
         attn = paged_attention_decode(q[:, 0], k_cache, v_cache, li,
                                       block_tables, kv_lens,
                                       impl=cfg.attn_impl, k_scale=k_scale,
                                       v_scale=v_scale)  # [B, nh, hd]
-        x = x + _attn_out(layer, attn.reshape(x.shape[0], cfg.q_dim))
+        x = x + _attn_out(layer, attn.reshape(x.shape[0], cfg.q_dim),
+                          lora=lctx)
         h = rms_norm(x, layer["mlp_norm"]["norm"], cfg.rms_eps)
         x = x + _mlp(layer, h)
     return x

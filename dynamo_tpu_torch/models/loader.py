@@ -179,35 +179,44 @@ def tensor_view(buf, dtype: torch.dtype, shape, offset: int,
 def _iter_safetensors(model_path: str, stats: Dict[str, int]
                       ) -> Iterator[Tuple[str, torch.Tensor]]:
     """(name, tensor) of every tensor of every *.safetensors file under
-    `model_path`, files by name and tensors by offset; each tensor is a
-    view of the file's map (tensor_view), valid until the caller drops
-    it.  A file is an 8-byte little-endian header length, that many bytes
-    of JSON header, then the tensors' bytes."""
+    `model_path`, files by name (iter_safetensors_file)."""
     files = sorted(f for f in os.listdir(model_path)
                    if f.endswith(".safetensors"))
     if not files:
         raise FileNotFoundError(f"no *.safetensors under {model_path}")
     for fname in files:
-        buf = map_file(os.path.join(model_path, fname))
-        (n,) = struct.unpack_from("<Q", buf)
-        header = json.loads(buf[8:8 + n])
-        header.pop("__metadata__", None)
-        base = 8 + n
-        for name, meta in sorted(header.items(),
-                                 key=lambda kv: kv[1]["data_offsets"][0]):
-            dtype = _DTYPES.get(meta["dtype"])
-            if dtype is None:
-                raise ValueError(
-                    f"{fname}: tensor {name!r} has dtype {meta['dtype']!r}; "
-                    f"the loader reads {sorted(_DTYPES)}")
-            begin, end = meta["data_offsets"]
-            if end - begin != math.prod(meta["shape"]) * dtype.itemsize:
-                raise ValueError(f"{fname}: tensor {name!r} spans "
-                                 f"{end - begin} bytes, not its shape's")
-            stats["tensors"] += 1
-            stats["bytes"] += end - begin
-            yield name, tensor_view(buf, dtype, meta["shape"], base + begin,
-                                    stats)
+        yield from iter_safetensors_file(os.path.join(model_path, fname),
+                                         stats)
+
+
+def iter_safetensors_file(path: str, stats: Dict[str, int]
+                          ) -> Iterator[Tuple[str, torch.Tensor]]:
+    """(name, tensor) of every tensor of the safetensors file `path`, by
+    offset; each tensor is a view of the file's map (tensor_view), valid
+    until the caller drops it.  A file is an 8-byte little-endian header
+    length, that many bytes of JSON header, then the tensors' bytes.
+    `stats` counts "tensors", "bytes" and "copies"."""
+    fname = os.path.basename(path)
+    buf = map_file(path)
+    (n,) = struct.unpack_from("<Q", buf)
+    header = json.loads(buf[8:8 + n])
+    header.pop("__metadata__", None)
+    base = 8 + n
+    for name, meta in sorted(header.items(),
+                             key=lambda kv: kv[1]["data_offsets"][0]):
+        dtype = _DTYPES.get(meta["dtype"])
+        if dtype is None:
+            raise ValueError(
+                f"{fname}: tensor {name!r} has dtype {meta['dtype']!r}; "
+                f"the loader reads {sorted(_DTYPES)}")
+        begin, end = meta["data_offsets"]
+        if end - begin != math.prod(meta["shape"]) * dtype.itemsize:
+            raise ValueError(f"{fname}: tensor {name!r} spans "
+                             f"{end - begin} bytes, not its shape's")
+        stats["tensors"] += 1
+        stats["bytes"] += end - begin
+        yield name, tensor_view(buf, dtype, meta["shape"], base + begin,
+                                stats)
 
 
 class Placer:

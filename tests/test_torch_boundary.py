@@ -41,7 +41,10 @@ REQUIRED = ("models/loader.py", "models/weight_cache.py",
             "kvbm/breaker.py", "kvbm/object_store.py", "kvbm/object_io.py",
             "kvbm/residency.py", "kvbm/manager.py", "kvbm/remote.py",
             "spec/__init__.py", "spec/ngram.py", "spec/verify.py",
-            "spec/draft.py")
+            "spec/draft.py", "lora/__init__.py", "lora/bank.py",
+            "lora/source.py", "guided/__init__.py", "guided/json_prefix.py",
+            "frontend/__init__.py", "frontend/tokenizer.py",
+            "obs/__init__.py", "obs/slo.py")
 # the KVBM tiers' fields (ported with kvbm/) and the knobs that came
 # with them, at the JAX engine's defaults
 KVBM_FIELDS = ("host_cache_blocks", "disk_cache_dir", "disk_cache_blocks",
@@ -148,15 +151,29 @@ def test_unported_config_field_raises(field):
 
 
 @pytest.mark.parametrize("field", ["model_path", "sampling_epilogue",
-                                   "role", "spec_decode", *KVBM_FIELDS])
+                                   "role", "spec_decode", "lora_max_adapters",
+                                   *KVBM_FIELDS])
 def test_ported_config_field_accepted(field, tmp_path):
     """Fields that left _UNPORTED when their features were ported take a
     valid value; sampling_epilogue rejects others with the JAX engine's
     ValueError, role with the JAX CLI's choices; the KVBM fields and
     their knobs default as the JAX engine's do; spec_decode and its knobs
     default as JAX's, take "ngram" and "draft", and reject others with
-    the JAX engine's ValueError."""
+    the JAX engine's ValueError; lora_max_adapters and its knobs (and
+    the SLO input's) default as JAX's and take a bank size."""
     assert field not in _UNPORTED
+    if field == "lora_max_adapters":
+        from dynamo_tpu.engine.config import EngineConfig as JaxEngineConfig
+
+        for name in ("lora_max_adapters", "lora_rank", "lora_dir",
+                     "slo_yield_burn", "slo_burn_stale_s"):
+            assert getattr(EngineConfig(), name) \
+                == getattr(JaxEngineConfig(), name)
+        cfg = EngineConfig(lora_max_adapters=4, lora_rank=8,
+                           lora_dir=str(tmp_path))
+        assert (cfg.lora_max_adapters, cfg.lora_rank, cfg.lora_dir) == (
+            4, 8, str(tmp_path))
+        return
     if field == "spec_decode":
         from dynamo_tpu.engine import EngineConfig as JaxEngineConfig
         from dynamo_tpu.engine import JaxEngine

@@ -483,7 +483,6 @@ def test_engine_kvbm_config_errors_equal_jax(tmp_path):
                         params=_params()[1], device="cpu")
         assert str(terr.value) == str(jerr.value)
     assert sorted(_UNPORTED) == sorted(["dp", "tp", "sp",
-                                        "lora_max_adapters",
                                         "peak_hbm_gbps"])
 
 
