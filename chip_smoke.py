@@ -14,6 +14,7 @@
     python3 chip_smoke.py --prefill-ab    # eager packed prefill against
                                           # one CUDA graph per bucket
     python3 chip_smoke.py --disagg        # the disaggregated pair
+    python3 chip_smoke.py --disagg-ipc    # the pair across two processes
     python3 chip_smoke.py --kvbm          # the KV block manager's tiers
     python3 chip_smoke.py --spec          # speculative decoding
     python3 chip_smoke.py --lora          # LoRA serving and guided decoding
@@ -44,8 +45,9 @@ load metrics, FPM records, the MDC, clear_kv_blocks, cancellation and
 close; then the decode A/B, the fused A/B and the prefill A/B (below)
 run; after the int8 run, one request goes through a worker on the int8
 cache (its launches and the dtype it reports), then the disagg phase
-(below), then the KVBM phase (below), then the spec phase (below), then
-the LoRA and guided phase (below).
+(below), then the pair across two processes (below), then the KVBM
+phase (below), then the spec phase (below), then the LoRA and guided
+phase (below).
 Last, a HF-format Llama
 checkpoint at
 llama-8b width, depth cut to 4 layers (about 3.9 GB of bf16), is written
@@ -60,9 +62,15 @@ microbench's own run for K4, `worker_launches` in the worker run; a
 replay of a captured program adds the K1/K3 launches its capture
 recorded; `checkpoint_launches` in the loaded checkpoint's run;
 `disagg_prefill_launches` and `disagg_decode_launches`, the disagg
-pair's prefill and decode workers' in its main run; `kvbm_launches` in
+pair's prefill and decode workers' in its main run;
+`disagg_ipc_prefill_launches`, the prefill worker process's over the
+four turns of the pair across two processes (its own counts, logged at
+ready and at exit), and `disagg_ipc_decode_launches`, the decode
+worker's in its first CUDA IPC turn; `kvbm_launches` in
 the KVBM phase's first G2 run, bf16, or its int8 run; `spec_launches` in
 the spec phase's first n-gram turn, bf16, or its int8 n-gram run;
+`spec_draft_launches`, K3's in the draft's catch-up programs during the
+draft == target turn;
 `lora_launches` in the LoRA phase's mixed batch and `guided_launches` in
 its guided run), error
 against its plain version (`max_abs_err`, and
@@ -133,6 +141,22 @@ the aggregated engine's), pull GB/s per tier, the host chunk bound, and
 gather/inject GB/s against their byte bound; then one request through
 an int8 pair against an aggregated int8 engine.
 
+The pair across two processes (part of the whole check after the disagg
+phase; alone with --disagg-ipc): a prefill worker process started with
+`python -m dynamo_tpu_torch.engine --role prefill` (llama-8b at full
+width and depth, random weights from seed 0, a bf16 cache of 512
+blocks) and a decode TorchEngineWorker in this process, both opted in to
+the device tier (DYN_KV_TRANSFER_SERVER=1), on file discovery under a
+temporary directory with the in-process event plane.  The five requests
+one at a time in turns (CUDA IPC, host-staged, host-staged, CUDA IPC;
+the host-staged turns take the opt-in away from this process only):
+every pull of an IPC turn moves device chunks only, streams equal the
+aggregated engine's, landed blocks bit-equal across the turns over the
+prompts' positions, no program built while serving, the prefill process
+drops no staged chunk at its drain and exits 0 on SIGTERM; GB/s per tier
+(from each pull's source to its last inject, and of pull time) beside
+the broker's, a device chunk's RPC, event wait and copy, TTFT.
+
 The KVBM phase (part of the whole check; alone with --kvbm): llama-8b
 at full width and depth, a 64-block G1 with the offload watermark at the
 pool, prompt A (1800 tokens, 14 full blocks) and five distinct
@@ -165,8 +189,10 @@ proposed/accepted, each verify dispatch's device time (CUDA events) and
 K3's launches per verify dispatch.  Then llama-8b as its own draft
 (weights from the same seed, checked equal): streams equal spec-off
 except at a near-tie, at least half the drafts accepted, nothing
-captured while serving; tokens/s and the draft's eager catch-up
-prefills (dispatches, host time).  Then one repetition request with
+captured while serving, every catch-up from the captured catch-up
+program of its bucket; tokens/s and the catch-up's dispatches, host
+time, device time (CUDA events) and K3 launches, and the one-token
+catch-ups' device time against a speculation round.  Then one repetition request with
 n-gram on an int8 cache against the int8 spec-off stream.
 
 The LoRA and guided phase (part of the whole check; alone with --lora):
@@ -2426,6 +2452,40 @@ def _watch_blocks(pw, dw, rid: str, sent: dict, landed: dict) -> None:
     dw.engine._inject_pulled_chunk = recorded_inject
 
 
+def _pull_timer(engine):
+    """Wrap a decode engine's pull source and chunk injects: per request
+    [time its pull task reached the source (after admission), time its
+    last chunk inject returned, blocks injected].  Returns (the records,
+    a function that restores the engine's own)."""
+    rec: dict = {}
+    pull_fn, inject = engine.kv_pull_fn, engine._inject_pulled_chunk
+
+    async def timed_pull_fn(dp):
+        rec[dp["request_id"]] = [time.perf_counter(), None, 0]
+        return await pull_fn(dp)
+
+    def timed_inject(slot, b0, n, arrs):
+        inject(slot, b0, n, arrs)
+        r = rec.get(slot.request.request_id)
+        if r is not None:
+            r[1], r[2] = time.perf_counter(), r[2] + n
+
+    def restore():
+        engine.kv_pull_fn, engine._inject_pulled_chunk = pull_fn, inject
+
+    engine.kv_pull_fn, engine._inject_pulled_chunk = timed_pull_fn, timed_inject
+    return rec, restore
+
+
+def _transfer_gb_s(rec: dict, block_bytes: int) -> tuple:
+    """(GB/s, seconds) of the pulls in `rec` (_pull_timer) from their
+    source to their last inject: the tier's own time, without the wait
+    for admission behind the previous request's queued bursts."""
+    secs = sum(r[1] - r[0] for r in rec.values() if r[1] is not None)
+    moved = sum(r[2] for r in rec.values()) * block_bytes
+    return (moved / secs / 1e9 if secs else 0.0), secs
+
+
 def _same_blocks(sent: dict, landed: dict) -> bool:
     return bool(sent) and sorted(sent) == sorted(landed) and all(
         torch.equal(a.to(b.device).view(torch.uint8),
@@ -2643,6 +2703,7 @@ def check_disagg(device, card: str, params) -> dict:
                     await asyncio.sleep(1.1)
                     sent, landed = {}, {}
                     _watch_blocks(pw, dw, reqs[1].request_id, sent, landed)
+                    timed, restore = _pull_timer(dw.engine)
                     m0 = dict(dw.engine.metrics)
                     p0 = dict(pw.engine.metrics)
                     if tier == "broker":
@@ -2667,6 +2728,7 @@ def check_disagg(device, card: str, params) -> dict:
                             break
                         await asyncio.sleep(0.02)
                     parked = dict(pw.engine._parked)
+                    restore()
                     del pw.engine.extract_parked_chunk
                     del dw.engine._inject_pulled_chunk
                     same = _same_blocks(sent, landed)
@@ -2677,7 +2739,7 @@ def check_disagg(device, card: str, params) -> dict:
                         _disagg_one(pclient, dclient, r, time.perf_counter())
                         for r in reqs))
                 entry = {"one": one, "conc": conc, "decode": dm,
-                         "prefill": pm, "parked": parked,
+                         "prefill": pm, "parked": parked, "timed": timed,
                          "blocks_equal": same,
                          "host_chunk_max": dw.engine.metrics.get(
                              "pull_host_chunk_bytes_max", 0),
@@ -2714,6 +2776,10 @@ def check_disagg(device, card: str, params) -> dict:
                                      params, mc, device)
         gbs = (dm["pull_blocks"] * block_bytes / dm["pull_seconds"] / 1e9
                if dm["pull_seconds"] else 0.0)
+        e["transfer_gb_s"], xfer_s = _transfer_gb_s(e["timed"], block_bytes)
+        log(f"disagg {tier} tier, one at a time ({card}): from each pull's "
+            f"source to its last inject {xfer_s:.3f} s = "
+            f"{e['transfer_gb_s']:.2f} GB/s")
         log(f"disagg {tier} tier, one at a time ({card}): streams equal to "
             f"the aggregated engine's for {5 - len(e['parted'])} of 5; "
             f"decode worker prefill tokens {dm['prefill_tokens']}, prefill "
@@ -2774,7 +2840,12 @@ def check_disagg(device, card: str, params) -> dict:
                         k3.__name__: (launches[k3.__name__], 0)},
            "bandwidth": result["bandwidth"],
            "pull_gb_s": {t: e["pull_gb_s"]
-                         for t, e in result["tiers"].items()}}
+                         for t, e in result["tiers"].items()},
+           "transfer_gb_s": {t: e["transfer_gb_s"]
+                             for t, e in result["tiers"].items()},
+           # the aggregated engine's streams, one at a time: the
+           # --disagg-ipc phase's reference too
+           "ref_one": ref_one}
     out["launches"].update(check_disagg_int8(device, card, params))
     return out
 
@@ -2829,6 +2900,350 @@ def check_disagg_int8(device, card: str, params) -> dict:
                          "int8 kernels")
     return {k1.__name__: (0, launches[k1.__name__]),
             k3.__name__: (launches[k3.__name__], 0)}
+
+
+# ---------------------------------------------------------------------------
+# disagg across processes: the device tier over CUDA IPC
+# ---------------------------------------------------------------------------
+
+IPC_OPT_IN = "DYN_KV_TRANSFER_SERVER"
+# seconds the prefill worker process may take to build its weights, warm
+# up and register, and to drain and exit on SIGTERM
+IPC_READY_S = 400.0
+IPC_EXIT_S = 120.0
+
+
+def _start_prefill_process(cfg, disc: str, log_path: str):
+    """`python -m dynamo_tpu_torch.engine --role prefill` at `cfg`'s model
+    and cache, with the device tier opted in, file discovery under `disc`
+    and the in-process event plane (the pair needs discovery and the
+    request plane only).  Returns the process once it printed its ready
+    line."""
+    import select
+
+    env = dict(os.environ, DYN_KV_TRANSFER_SERVER="1",
+               DYN_DISCOVERY_BACKEND="file", DYN_DISCOVERY_PATH=disc,
+               DYN_EVENT_PLANE="inproc", DYN_LOG_JSON="0",
+               DYN_LOG_LEVEL="INFO")
+    cmd = [sys.executable, "-m", "dynamo_tpu_torch.engine",
+           "--role", "prefill", "--component", "prefill",
+           "--model", cfg.model, "--block-size", str(cfg.block_size),
+           "--num-blocks", str(cfg.num_blocks),
+           "--max-blocks-per-seq", str(cfg.max_blocks_per_seq),
+           "--max-num-seqs", str(cfg.max_num_seqs),
+           "--kv-cache-dtype", cfg.kv_cache_dtype]
+    with open(log_path, "w") as err:
+        proc = subprocess.Popen(
+            cmd, env=env, stdout=subprocess.PIPE, stderr=err, text=True,
+            cwd=os.path.dirname(os.path.abspath(__file__)))
+    deadline = time.monotonic() + IPC_READY_S
+    while time.monotonic() < deadline:
+        ready, _, _ = select.select([proc.stdout], [], [], 1.0)
+        if ready:
+            line = proc.stdout.readline()
+            if line.startswith("ready instance_id="):
+                return proc
+            if not line and proc.poll() is not None:
+                break
+    proc.kill()
+    proc.wait()
+    with open(log_path) as f:
+        tail = f.read()[-3000:]
+    raise SystemExit(f"disagg ipc: the prefill worker process did not get "
+                     f"ready (exit {proc.returncode}):\n{tail}")
+
+
+def _stop_prefill_process(proc, log_path: str) -> tuple:
+    """SIGTERM, wait; returns (exit code, its log's launch counts at ready
+    and at exit, the staged chunk refs its drain dropped)."""
+    import re
+    import signal
+
+    proc.send_signal(signal.SIGTERM)
+    try:
+        rc = proc.wait(timeout=IPC_EXIT_S)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.wait()
+        raise SystemExit("disagg ipc: the prefill worker process did not "
+                         "exit on SIGTERM")
+    with open(log_path) as f:
+        text = f.read()
+    counts = {w: json.loads(m) for w, m in re.findall(
+        r"kernel launches at (ready|exit): (\{[^\n]*\})", text)}
+    dropped = re.findall(r"drain: dropped (\d+) staged", text)
+    if rc != 0 or set(counts) != {"ready", "exit"} or len(dropped) != 1:
+        raise SystemExit(f"disagg ipc: the prefill worker process exited "
+                         f"{rc}; log tail:\n{text[-3000:]}")
+    return rc, counts, int(dropped[0])
+
+
+def _same_prompt_rows(a, b, b0: int, prompt_len: int, bs: int) -> bool:
+    """Two landed universal-layout chunk parts ([L, n, bs, ...] from block
+    b0) bit-equal over the prompt's positions: a last block's tail past
+    the prompt holds whatever the sender's block held before."""
+    n = a.shape[1]
+    keep = min(n * bs, prompt_len - b0 * bs)
+    a = a.reshape(a.shape[0], n * bs, *a.shape[3:])[:, :keep]
+    b = b.reshape(b.shape[0], n * bs, *b.shape[3:])[:, :keep]
+    return torch.equal(a.contiguous().view(torch.uint8),
+                       b.contiguous().view(torch.uint8))
+
+
+def check_disagg_ipc(device, card: str, params, ref_one=None,
+                     broker_gb_s: Optional[float] = None) -> dict:
+    """Disagg across two processes on one card, the device tier over CUDA
+    IPC (disagg/device_transfer.py): a prefill worker process (the CLI,
+    llama-8b at full width and depth, random weights from the engine's
+    seed, which equal `params`; a bf16 cache of 512 blocks; opted in
+    with DYN_KV_TRANSFER_SERVER=1) and a decode TorchEngineWorker in this
+    process (the same config, `params`), both on file discovery under a
+    temporary directory with the in-process event plane.  The five
+    requests, one at a time from cleared prefix caches, in turns (IPC,
+    host-staged, host-staged, IPC: the host-staged turns take the opt-in
+    away from this process only, so the sender still advertises CUDA
+    IPC and the receiver declines it).  Gates: every pull of an IPC turn
+    moved device chunks only (no host chunk byte, no fallback) and every
+    pull of a host turn host frames only; the decode worker prefilled
+    nothing and pulled exactly the expected blocks; streams equal the
+    aggregated engine's `ref_one` (a parting only at a near-tie); every
+    landed block of every turn bit-equal to the first IPC turn's over the
+    prompt's positions (the host frames carry the JAX crc32 of the
+    sender's bytes, so the IPC bytes are the sender's); no program built while serving; the prefill
+    process dropped no staged chunk at its drain (every pull's close
+    released its buffer) and exited 0 on SIGTERM.  Reports GB/s per tier
+    from each pull's source to its last inject (the tier's own time)
+    beside the broker's (`broker_gb_s`, the same call's --disagg phase)
+    and of the engine's pull time (which holds the wait for admission
+    behind the previous request's queued bursts), the device chunks'
+    time split into the chunk RPC, the event wait and the copy (device
+    ms), and TTFT per request.  Returns
+    {"launches": {kernel: (prefill process's, decode worker's)}, ...}:
+    the prefill process's launches over the four turns (its logged counts
+    at exit less those at ready), the decode worker's in the first IPC
+    turn."""
+    import shutil
+    import tempfile
+    import uuid
+
+    from dynamo_tpu_torch.disagg import device_transfer
+    from dynamo_tpu_torch.engine import TorchEngineWorker
+    from dynamo_tpu_torch.ops.kv_transfer import gather_universal
+    from dynamo_tpu_torch.runtime import DistributedRuntime, RuntimeConfig
+
+    t_phase = time.perf_counter()
+    cfg = _engine_config("bf16")
+    mc = cfg.resolve_model()
+    reqs = _requests(mc.vocab_size)
+    if ref_one is None:
+        ref_one, _ = _aggregated_reference(device, cfg, params, reqs,
+                                           warmup=True)
+    want_pulls = _expected_pulls(reqs, cfg.block_size)
+    k1, k3 = _kernels_of("bf16")
+    tmp = tempfile.mkdtemp(prefix="dyn-disagg-ipc-")
+    disc = os.path.join(tmp, "discovery")
+    log_path = os.path.join(tmp, "prefill-worker.log")
+    t0 = time.perf_counter()
+    proc = _start_prefill_process(cfg, disc, log_path)
+    log(f"disagg ipc: prefill worker process ready in "
+        f"{time.perf_counter() - t0:.1f} s (pid {proc.pid})")
+    saved = os.environ.get(IPC_OPT_IN)
+    os.environ[IPC_OPT_IN] = "1"
+    turns = ["ipc", "host", "host", "ipc"]
+    result = {}
+
+    async def run():
+        rt = await DistributedRuntime(config=RuntimeConfig(
+            discovery_backend="file", discovery_path=disc,
+            event_plane="inproc", tcp_host="127.0.0.1"),
+            cluster_id=uuid.uuid4().hex).start()
+        dw, clients = None, []
+        try:
+            t0 = time.perf_counter()
+            dw = await TorchEngineWorker(rt, dataclasses.replace(
+                cfg, role="decode", warmup=True), component="backend",
+                params=params, device=device).start()
+            srv = device_transfer.get_transfer_server()
+            log(f"disagg ipc: decode worker started with warm-up in "
+                f"{time.perf_counter() - t0:.1f} s; CUDA IPC here: "
+                f"{srv.capability if srv else None}")
+            if srv is None:
+                raise SystemExit("disagg ipc: CUDA IPC unavailable in the "
+                                 "decode process (the probe failed)")
+            for comp, ep in (("prefill", "generate"), ("backend", "generate"),
+                             ("prefill", "clear_kv_blocks")):
+                c = await rt.namespace("dynamo").component(comp).endpoint(
+                    ep).client().start()
+                await c.wait_for_instances()
+                clients.append(c)
+            pclient, dclient, pclear = clients
+            built = _program_counts(dw.engine)
+            inject = dw.engine._inject_pulled_chunk
+            landed: dict = {}
+
+            def recorded(slot, b0, n, arrs):
+                # block by block: the tiers' chunks differ in width
+                inject(slot, b0, n, arrs)
+                rid = slot.request.request_id
+                ids = dw.engine.allocator.seq_block_ids(rid)[b0:b0 + n]
+                parts = gather_universal(dw.engine.kv, ids)
+                for j in range(n):
+                    landed[(rid, b0 + j)] = [p[:, j:j + 1] for p in parts]
+
+            dw.engine._inject_pulled_chunk = recorded
+            prompt_len = {r.request_id: len(r.token_ids) for r in reqs}
+            first, out = None, []
+            for i, tier in enumerate(turns):
+                os.environ[IPC_OPT_IN] = "1" if tier == "ipc" else "0"
+                await dw.engine.clear_kv_blocks()
+                async for _ in pclear.generate({}):
+                    pass
+                await asyncio.sleep(1.1)
+                landed.clear()
+                if i == 0:
+                    for fn in (k1, k3):
+                        fn.launches = 0
+                m0 = dict(dw.engine.metrics)
+                timed, restore = _pull_timer(dw.engine)
+                one, stats = [], []
+                for r in reqs:
+                    t = time.perf_counter()
+                    one.append(await _disagg_one(pclient, dclient, r, t))
+                    # the pull reached its source once the slot was admitted
+                    stats.append(dict(dw.pull_stats.get(r.request_id, {}),
+                                      pull_start_s=timed[r.request_id][0] - t))
+                restore()
+                if i == 0:
+                    launches = {fn.__name__: fn.launches for fn in (k1, k3)}
+                dm = {k: dw.engine.metrics.get(k, 0) - m0.get(k, 0)
+                      for k in ("prefill_tokens", "prefill_steps",
+                                "decode_steps", "pull_blocks",
+                                "pull_seconds")}
+                if first is None:
+                    first = dict(landed)
+                    differ = [] if first else ["none landed"]
+                elif sorted(first) != sorted(landed):
+                    differ = ["the landed blocks' keys"]
+                else:
+                    differ = [key for key in sorted(first) if not all(
+                        _same_prompt_rows(a, b, key[1], prompt_len[key[0]],
+                                          cfg.block_size)
+                        for a, b in zip(first[key], landed[key]))]
+                out.append({"tier": tier, "one": one, "stats": stats,
+                            "decode": dm, "differ": differ, "timed": timed})
+            del dw.engine._inject_pulled_chunk
+            result["turns"] = out
+            result["launches"] = launches
+            result["built"] = (built, _program_counts(dw.engine))
+            result["block_bytes"] = dw.engine.kv_wire_layout().block_bytes()
+        finally:
+            for c in clients:
+                await c.close()
+            if dw is not None:
+                await dw.close()
+                _free_engine(dw.engine)
+            await rt.shutdown()
+
+    try:
+        asyncio.run(run())
+    finally:
+        if saved is None:
+            os.environ.pop(IPC_OPT_IN, None)
+        else:
+            os.environ[IPC_OPT_IN] = saved
+        rc, counts, dropped = _stop_prefill_process(proc, log_path)
+        shutil.rmtree(tmp, ignore_errors=True)
+        gc.collect()
+        torch.cuda.empty_cache()
+    pre_launches = {k: counts["exit"][k] - counts["ready"][k]
+                    for k in counts["exit"]}
+    log(f"disagg ipc: the prefill worker process exited {rc} on SIGTERM; "
+        f"its drain dropped {dropped} staged chunk refs; its launches over "
+        f"the four turns {pre_launches}; the decode worker's in turn 1 "
+        f"{result['launches']}")
+    if dropped:
+        raise SystemExit("disagg ipc: the sender's registry held staged "
+                         "chunks after every pull closed")
+    built, after = result["built"]
+    if built != after:
+        raise SystemExit(f"disagg ipc: serving built programs: {after} "
+                         f"after warm-up {built}")
+    block_bytes = result["block_bytes"]
+    gb_s, xfer_gb_s = {}, {}
+    for i, e in enumerate(result["turns"]):
+        tier, one, dm, stats = e["tier"], e["one"], e["decode"], e["stats"]
+        bad = [j for j, r in enumerate(one)
+               if r[1] != "length" or len(r[0]) != 32]
+        if bad:
+            raise SystemExit(f"disagg ipc turn {i + 1}: requests {bad} did "
+                             "not finish with 32 tokens")
+        _check_streams(f"disagg ipc turn {i + 1} ({tier})", one, ref_one,
+                       reqs, params, mc, device)
+        if dm["prefill_tokens"] or dm["prefill_steps"] \
+                or dm["pull_blocks"] != sum(want_pulls):
+            raise SystemExit(f"disagg ipc turn {i + 1}: the decode worker "
+                             f"prefilled or pulled {dm['pull_blocks']} "
+                             f"blocks (expected {sum(want_pulls)})")
+        dev = [s.get("device_chunks", 0) for s in stats]
+        host = [s.get("host_bytes", 0) for s in stats]
+        falls = sum(s.get("fallbacks", 0) for s in stats)
+        if tier == "ipc" and (not all(dev) or any(host) or falls):
+            raise SystemExit(f"disagg ipc turn {i + 1}: a pull left the "
+                             f"device tier: device chunks {dev}, host bytes "
+                             f"{host}, fallbacks {falls}")
+        if tier == "host" and (any(dev) or not all(host)):
+            raise SystemExit(f"disagg ipc turn {i + 1}: a host-staged pull "
+                             f"moved device chunks {dev}")
+        if e["differ"]:
+            raise SystemExit(f"disagg ipc turn {i + 1}: landed blocks differ "
+                             f"from the first IPC turn's: {e['differ']}")
+        gbs = (dm["pull_blocks"] * block_bytes / dm["pull_seconds"] / 1e9
+               if dm["pull_seconds"] else 0.0)
+        xfer, xfer_s = _transfer_gb_s(e["timed"], block_bytes)
+        gb_s.setdefault(tier, []).append(gbs)
+        xfer_gb_s.setdefault(tier, []).append(xfer)
+        n_dev = sum(dev)
+        split = ""
+        if n_dev:
+            rpc = sum(s.get("rpc_s", 0.0) for s in stats) / n_dev * 1e3
+            wait = sum(s.get("wait_ms", 0.0) for s in stats) / n_dev
+            copy = sum(s.get("copy_ms", 0.0) for s in stats) / n_dev
+            nbytes = sum(s.get("device_bytes", 0) for s in stats)
+            copy_gb_s = nbytes / n_dev / copy / 1e6 if copy else 0.0
+            split = (f"; {n_dev} device chunks ({nbytes / 2**20:.0f} MiB), "
+                     f"a chunk's RPC {rpc:.2f} ms (host), event wait "
+                     f"{wait:.3f} ms and copy {copy:.3f} ms (device) = "
+                     f"{copy_gb_s:.1f} GB/s copied")
+            e["split_ms"] = {"rpc": rpc, "wait": wait, "copy": copy}
+        log(f"disagg ipc turn {i + 1} ({tier}, {card}): pulled "
+            f"{dm['pull_blocks']} blocks in {dm['pull_seconds']:.3f} s of "
+            f"pulls = {gbs:.2f} GB/s (from each pull's source to its last "
+            f"inject {xfer_s:.3f} s = {xfer:.2f} GB/s){split}; host chunk "
+            f"bytes {sum(host)}; "
+            f"ttft s {[round(r[2], 4) for r in one]} (prefill hop "
+            f"{[round(r[4], 4) for r in one]}, the pull's start "
+            f"{[round(s['pull_start_s'], 4) for s in stats]}, its open RPC "
+            f"{[round(s.get('open_s', 0.0), 4) for s in stats]}); blocks "
+            f"bit-equal to turn 1's: {not e['differ']}")
+    ratio = min(xfer_gb_s["ipc"]) / max(xfer_gb_s["host"])
+    log(f"disagg ipc ({card}): GB/s from each pull's source to its last "
+        f"inject, IPC {[round(g, 2) for g in xfer_gb_s['ipc']]}, host-staged "
+        f"{[round(g, 2) for g in xfer_gb_s['host']]} (IPC at least "
+        f"{ratio:.1f}x), broker (this call's --disagg phase) "
+        f"{None if broker_gb_s is None else round(broker_gb_s, 2)}; of pull "
+        f"time (the engine's, from the request's arrival, the wait for "
+        f"admission included), IPC {[round(g, 2) for g in gb_s['ipc']]}, "
+        f"host-staged {[round(g, 2) for g in gb_s['host']]}; phase "
+        f"{time.perf_counter() - t_phase:.1f} s")
+    launches = result["launches"]
+    if not (launches[k1.__name__] and pre_launches[k3.__name__]):
+        raise SystemExit("disagg ipc: the pair did not run through both "
+                         "kernels")
+    return {"launches": {k1.__name__: (0, launches[k1.__name__]),
+                         k3.__name__: (pre_launches[k3.__name__], 0)},
+            "gb_s": gb_s, "transfer_gb_s": xfer_gb_s, "turns": [
+                {k: e.get(k) for k in ("tier", "decode", "split_ms")}
+                for e in result["turns"]]}
 
 
 # ---------------------------------------------------------------------------
@@ -3407,12 +3822,14 @@ def _spec_config(kv_dtype: str, **kw):
 
 
 def _program_counts(eng) -> tuple:
-    """Every program family's build counts (the draft's propose programs
-    where there is a draft)."""
+    """Every program family's build counts (the draft's propose and
+    catch-up programs where there is a draft)."""
     draft = getattr(eng.proposer, "programs", None)
+    catchup = getattr(eng.proposer, "catchup", None)
     return (dict(eng.graphs.counts), dict(eng.prefill_graphs.counts),
             dict(eng.verify_graphs.counts) if eng.verify_graphs else None,
-            dict(draft.counts) if draft is not None else None)
+            dict(draft.counts) if draft is not None else None,
+            dict(catchup.counts) if catchup is not None else None)
 
 
 def _timed_verify(eng, into: list):
@@ -3618,7 +4035,12 @@ def check_spec_draft(device, card: str, params, reqs, ref) -> dict:
     """Draft == target: llama-8b as its own draft, its weights made from
     the engine's seed by the proposer (a second 16 GB set, equal to
     `params`), its own 512-block cache; one warmed-up turn of `reqs`
-    against the spec-off streams `ref`."""
+    against the spec-off streams `ref`.  The draft's catch-up runs from
+    one captured program per prefill bucket, each built by warm-up only
+    (gated); each catch-up dispatch is timed by CUDA events around it
+    (its device time) and its K3 launches counted (`catchup_launches`),
+    beside the host time the proposer spends in catch-ups and the
+    one-token catch-ups' share of a speculation round."""
     from dynamo_tpu_torch.engine import TorchEngine
     from dynamo_tpu_torch.models.llama import PRESETS
 
@@ -3634,14 +4056,42 @@ def check_spec_draft(device, card: str, params, reqs, ref) -> dict:
                         params["layers"][-1]["w_down"])
     eng.warmup_decode()
     built = _program_counts(eng)
+    cp = eng.proposer.catchup
     log(f"spec draft: engine with a llama-8b draft (its weights from seed "
         f"{cfg.seed}, equal to the target's: {same}) built and warmed up in "
         f"{time.perf_counter() - t0:.1f} s, "
         f"{torch.cuda.memory_allocated() / 2**30:.1f} GiB allocated; draft "
-        f"propose programs {sorted(built[3].items())}")
+        f"propose programs {sorted(built[3].items())}, catch-up programs "
+        f"{sorted(built[4].items())} (capture s "
+        + ", ".join(f"T={T} {x:.2f}" for T, x in sorted(cp.capture_s.items()))
+        + f", pool {cp.pool_bytes / 2**20:.0f} MiB)")
     if not same:
         raise SystemExit("spec draft: the draft's weights differ from the "
                          "target's")
+    if built[4] != {T: 1 for T in cp.buckets}:
+        raise SystemExit(f"spec draft: warm-up built catch-up programs "
+                         f"{built[4]} for buckets {cp.buckets}")
+    k3 = _kernels_of("bf16")[1]
+    timed: list = []
+    cur = {"n": 0}
+    propose, run_catchup = eng.proposer.propose, cp.run
+
+    def counted_propose(tokens, k, *, ctx, draft_pos, block_table):
+        cur["n"] = ctx - draft_pos
+        return propose(tokens, k, ctx=ctx, draft_pos=draft_pos,
+                       block_table=block_table)
+
+    def timed_run(T):
+        ev = (torch.cuda.Event(enable_timing=True),
+              torch.cuda.Event(enable_timing=True))
+        before = k3.launches
+        ev[0].record()
+        out = run_catchup(T)
+        ev[1].record()
+        timed.append((cur["n"], T, ev, k3.launches - before))
+        return out
+
+    eng.proposer.propose, cp.run = counted_propose, timed_run
     gc.collect()
 
     async def run():
@@ -3652,11 +4102,32 @@ def check_spec_draft(device, card: str, params, reqs, ref) -> dict:
         finally:
             await eng.close()
 
+    t_turn = time.perf_counter()
     res, rec = asyncio.run(run())
+    t_turn = time.perf_counter() - t_turn
+    del eng.proposer.propose, cp.run  # the classes' again
+    torch.cuda.synchronize()
     catchup = dict(eng.proposer.metrics)
-    log(f"spec draft turn ({card}): {rec}; the draft's eager catch-up "
-        f"prefills: {catchup['catchup_dispatches']} dispatches, "
-        f"{catchup['catchup_s']:.3f} s of host time")
+    dev_ms = [ev[0].elapsed_time(ev[1]) for _, _, ev, _ in timed]
+    one_ms = [m for (n, _, _, _), m in zip(timed, dev_ms) if n == 1]
+    rounds = rec["spec_steps"]
+    round_ms = 1e3 * t_turn / rounds if rounds else 0.0
+    catchup.update(
+        catchup_device_s=sum(dev_ms) / 1e3,
+        catchup_launches={k3.__name__: sum(x[3] for x in timed)},
+        catchup_one_token=len(one_ms),
+        catchup_one_token_ms=float(np.median(one_ms)) if one_ms else 0.0,
+        round_ms=round_ms)
+    log(f"spec draft turn ({card}): {rec}; the draft's catch-up on its "
+        f"captured programs: {catchup['catchup_dispatches']} dispatches "
+        f"(buckets {sorted(set(T for _, T, _, _ in timed))}), "
+        f"{catchup['catchup_s']:.3f} s of host time, "
+        f"{catchup['catchup_device_s']:.3f} s of device time, K3 launches "
+        f"{catchup['catchup_launches']} (PR 9's eager catch-up: 6.81 s of "
+        f"host time, 28.2 decode tokens/s); one-token catch-ups "
+        f"{len(one_ms)}, median {catchup['catchup_one_token_ms']:.3f} ms of "
+        f"device time against {round_ms:.2f} ms a speculation round "
+        f"({rounds} rounds in {t_turn:.2f} s)")
     if any(r[1] != "length" for r in res):
         raise SystemExit("spec draft: a request did not finish by length")
     _check_greedy_streams("spec draft", res, ref, reqs, params, mc, device)
@@ -3667,6 +4138,11 @@ def check_spec_draft(device, card: str, params, reqs, ref) -> dict:
     if _program_counts(eng) != built:
         raise SystemExit(f"spec draft: serving built programs: "
                          f"{_program_counts(eng)} after warm-up {built}")
+    if not catchup["catchup_dispatches"] \
+            or len(timed) != catchup["catchup_dispatches"] \
+            or not catchup["catchup_launches"][k3.__name__]:
+        raise SystemExit("spec draft: the catch-up did not run through its "
+                         "captured programs and K3")
     _free_engine(eng)
     del eng, dp
     gc.collect()
@@ -4966,9 +5442,10 @@ def main() -> int:
               flush=True)
         print(card, flush=True)
         return 0
-    if sys.argv[1:] in (["--prefill-ab"], ["--disagg"]):
+    if sys.argv[1:] in (["--prefill-ab"], ["--disagg"], ["--disagg-ipc"]):
         # python3 chip_smoke.py --prefill-ab: eager packed prefill against
-        # one graph per bucket, in turns; --disagg: the disagg phase
+        # one graph per bucket, in turns; --disagg: the disagg phase;
+        # --disagg-ipc: the pair across two processes
         build_kernels()
         from dynamo_tpu_torch.models import llama
 
@@ -4976,8 +5453,11 @@ def main() -> int:
         params = llama.init_params(cfg, gen, device)
         if sys.argv[1] == "--prefill-ab":
             out = {"prefill_ab": prefill_ab(device, card, params)}
-        else:
+        elif sys.argv[1] == "--disagg":
             out = {"disagg": check_disagg(device, card, params)}
+            out["disagg"].pop("ref_one")
+        else:
+            out = {"disagg_ipc": check_disagg_ipc(device, card, params)}
         print(json.dumps(out, default=str), flush=True)
         print(card, flush=True)
         return 0
@@ -5077,6 +5557,9 @@ def main() -> int:
     torch.cuda.empty_cache()
     disagg = check_disagg(device, card, params)
     log(f"disagg phase done at {time.perf_counter() - t_start:.1f} s")
+    ipc = check_disagg_ipc(device, card, params, disagg.pop("ref_one"),
+                           disagg["transfer_gb_s"]["broker"])
+    log(f"disagg ipc phase done at {time.perf_counter() - t_start:.1f} s")
     kvbm = check_kvbm(device, card, params)
     log(f"kvbm phase done at {time.perf_counter() - t_start:.1f} s")
     spec = check_spec(device, card, params)
@@ -5094,13 +5577,19 @@ def main() -> int:
         k["checkpoint_launches"] = ckpt["launches"].get(k["name"], 0)
         (k["disagg_prefill_launches"],
          k["disagg_decode_launches"]) = disagg["launches"][k["name"]]
+        (k["disagg_ipc_prefill_launches"],
+         k["disagg_ipc_decode_launches"]) = ipc["launches"].get(k["name"],
+                                                                (0, 0))
         k["kvbm_launches"] = kvbm["launches"][k["name"]]
         k["spec_launches"] = spec["launches"][k["name"]]
+        k["spec_draft_launches"] = spec["draft"]["catchup_launches"].get(
+            k["name"], 0)
         k["lora_launches"] = lora["lora_launches"].get(k["name"], 0)
         k["guided_launches"] = lora["guided_launches"].get(k["name"], 0)
     for k in dma:  # the microbench is on no serving path
         k["disagg_prefill_launches"] = k["disagg_decode_launches"] = 0
-        k["kvbm_launches"] = k["spec_launches"] = 0
+        k["disagg_ipc_prefill_launches"] = k["disagg_ipc_decode_launches"] = 0
+        k["kvbm_launches"] = k["spec_launches"] = k["spec_draft_launches"] = 0
         k["lora_launches"] = k["guided_launches"] = 0
     log(f"chip_smoke: every phase passed in "
         f"{time.perf_counter() - t_start:.1f} s")

@@ -8,19 +8,24 @@ and it is RECEIVER-PACED, tiered by where the two engines live:
   tier 1 — same process: block chunks stay on the device; the receiver
            injects the sender's gathered chunk without a host round trip
            (disagg/broker.py).
+  tier 2 — another process on the same card, when both ends opt in:
+           each chunk is staged in a sender-owned device buffer and
+           copied out by the receiver over CUDA IPC; only the chunk's
+           metadata rides the request plane (disagg/device_transfer.py).
   tier 3 — host-staged, correct on any topology: chunks gather to the
            host and ride the request plane as byte frames
            (RequestPlanePullSource below).
 
-(Tier 2, the JAX package's device-to-device transfer server across
-processes, is not ported.)  Both tiers speak the op protocol of the
-sender's `kv_pull` endpoint:
+The pull speaks the op protocol of the sender's `kv_pull` endpoint:
 
   {"op": "open",  "request_id"}                  -> header frame
-      header = {prompt_len, layout: KvLayout}
+      header = {prompt_len, layout: KvLayout[, cuda_ipc]}
   {"op": "chunk", "request_id", "start", "count"}
       -> one chunk frame: {"block_start", "block_count", "k", "v"
          [, "ks", "vs"], "crc"}
+  {"op": "chunk", ..., "via": "cuda_ipc"}          (tier 2)
+      -> {"uuid", "block_start", "block_count", "handle", "event",
+          "nbytes", "parts"}
   {"op": "close", "request_id"}                  -> {} (release parked KV)
 
 Each chunk is one scheduler op on each engine, so decode bursts
@@ -161,10 +166,18 @@ class KvLayout:
         return max(1, max_bytes // max(1, self.block_bytes()))
 
 
-def make_header(prompt_len: int, layout: KvLayout) -> Dict[str, Any]:
-    """The `open` op's answer (a JAX sender may add "transfer_addr", its
-    tier-2 server, which the port's receiver ignores)."""
-    return {"prompt_len": prompt_len, "layout": layout.to_dict()}
+def make_header(prompt_len: int, layout: KvLayout,
+                ipc: Optional[Dict[str, str]] = None) -> Dict[str, Any]:
+    """The `open` op's answer.  `ipc` is the sender's CUDA IPC capability
+    (disagg/device_transfer.py), under a key of its own that a JAX
+    receiver ignores; without it the header is the JAX package's.  A JAX
+    sender may add "transfer_addr", its own tier-2 server, which the
+    port's receiver ignores."""
+    h: Dict[str, Any] = {"prompt_len": prompt_len,
+                         "layout": layout.to_dict()}
+    if ipc:
+        h["cuda_ipc"] = dict(ipc)
+    return h
 
 
 def _bytes(a) -> bytes:

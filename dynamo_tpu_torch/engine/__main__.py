@@ -8,11 +8,15 @@ the CPU.  The runtime is configured from the `DYN_*` environment
 (runtime/config.py), e.g. DYN_DISCOVERY_BACKEND=file and
 DYN_DISCOVERY_PATH=<dir> to sit behind `python -m dynamo_tpu.frontend`
 on one host.  Prints `ready instance_id=<id>` once registered; SIGTERM
-drains, deregisters and exits.
+drains, deregisters and exits.  The kernels' launch counts (each CUDA
+wrapper's `launches`) are logged once ready and again at exit, so a
+driver of the process can tell what serving launched.
 """
 
 import argparse
 import asyncio
+import json
+import logging
 import os
 import sys
 
@@ -25,6 +29,18 @@ from ..runtime.aio import install_drain_handler
 from ..runtime.logging import setup_logging
 from .config import ROLES, SPEC_MODES, EngineConfig
 from .worker import TorchEngineWorker
+
+logger = logging.getLogger("dynamo_tpu_torch.engine")
+
+
+def launch_counts() -> dict:
+    """Each kernel wrapper's launches in this process."""
+    from ..ops import cuda_packed_prefill as k3
+    from ..ops import cuda_paged_attention as k1
+
+    return {fn.__name__: fn.launches
+            for fn in (k1.paged_decode, k1.paged_decode_int8,
+                       k3.packed_prefill, k3.packed_prefill_int8)}
 
 
 def build_args() -> argparse.ArgumentParser:
@@ -203,6 +219,7 @@ async def main() -> int:
             rt.root_token.kill()
 
     install_drain_handler(drain_worker)
+    logger.info("kernel launches at ready: %s", json.dumps(launch_counts()))
     print(f"ready instance_id={worker.served.instance_id}", flush=True)
     try:
         await rt.root_token.wait_killed()
@@ -210,6 +227,7 @@ async def main() -> int:
         pass
     await worker.close()
     await rt.shutdown()
+    logger.info("kernel launches at exit: %s", json.dumps(launch_counts()))
     return 0
 
 

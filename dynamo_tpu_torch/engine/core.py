@@ -102,13 +102,13 @@ take no decode burst and no speculation.
 prefill chunk budget down while the frontends report an error-budget
 burn above slo_yield_burn, as in the JAX engine.
 
-Not here yet (ROADMAP.md): penalties (the JAX engine ignores them too)
-and the device-to-device pull across processes.
+Not here yet (ROADMAP.md): penalties (the JAX engine ignores them too).
 """
 
 from __future__ import annotations
 
 import asyncio
+import itertools
 import logging
 import threading
 import time
@@ -198,7 +198,10 @@ class _Slot:
     # decode pipelining: tokens the device has decoded for this slot that
     # the host has not read back yet
     inflight: int = 0
-    # bumped on preemption so stale in-flight bursts are discarded
+    # the serial of this admission, unique per engine and renewed on
+    # preemption: the (seq_id, epoch) lane identity then never matches a
+    # burst dispatched for an earlier slot, even one that carried the
+    # same request id and finished with bursts still in flight
     epoch: int = 0
     # overlapped scheduling: the prompt is prefilled but its first token
     # is still being read back (_pending_first); decode skips the slot
@@ -467,6 +470,7 @@ class TorchEngine:
         self._inflight: deque = deque()
         self._chain_owner: List[Optional[Tuple[str, int]]] = \
             [None] * config.max_num_seqs  # (seq_id, epoch) per lane
+        self._epochs = itertools.count()  # _Slot.epoch serials
         self._last_desc: Optional[Dict[str, Any]] = None
         self._pending_first: List[dict] = []
         self._decode_only_run = 0
@@ -1334,6 +1338,7 @@ class TorchEngine:
             out_q=asyncio.Queue(),
             block_table=np.zeros(self.config.max_blocks_per_seq, np.int32),
             sampling_seed=seed,
+            epoch=next(self._epochs),
             lora_idx=lora_idx,
             enqueued_t=time.monotonic(),
             disagg_prefill=DISAGG_ANNOTATION in (request.annotations or []),
@@ -2396,7 +2401,7 @@ class TorchEngine:
         slot.block_table[:] = 0
         # its in-flight bursts are discarded when processed (lanes are
         # keyed by (seq_id, epoch))
-        slot.epoch += 1
+        slot.epoch = next(self._epochs)
         slot.inflight = 0
         # the draft-model cache for the freed blocks is stale: the replay
         # re-prefills the draft from position 0 (spec/draft.py)

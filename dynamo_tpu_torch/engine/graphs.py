@@ -60,6 +60,11 @@ replays interleave with the decode programs' in any order.  K3's
 launches move from the capture to each replay, as K1's do, and
 `counts[T]` gates the builds as `counts[(greedy, k)]` does.
 
+CatchupPrograms, the counterpart of the JAX draft proposer's jitted
+catch-up prefill (`_prefill_impl`, spec/draft.py): one program per
+prefill bucket, one segment each (its table the draft's row), writing
+the draft model's cache only; its graph pool is its own.
+
 VerifyPrograms, the counterpart of the JAX engine's jitted `spec_verify`
 (`_spec_verify_impl`, speculative decoding): the same bucket machinery
 (_BucketPrograms), one program per verify stream length T (the pow2
@@ -591,6 +596,35 @@ class VerifyPrograms(_BucketPrograms):
                                                             d.temps_t)):
             dst.copy_(src)
         return self.out[T]
+
+
+# the draft catch-up descriptor: one segment's stream, then its table
+CATCHUP_STREAM = ("toks", "positions", "seg_ids", "valid")
+
+
+class CatchupPrograms(_BucketPrograms):
+    """The draft model's catch-up prefill of each bucket, the counterpart
+    of the JAX proposer's jitted `_prefill_impl` (dynamo_tpu/spec/
+    draft.py): one segment (rows = 1) through models/llama.py
+    prefill_packed_kv, so K3 attends to the draft's cached context from a
+    descriptor that holds the chunk's positions and valid length on the
+    device (no host read of a length, so the body is capturable).  It
+    writes the draft's cache and has no output."""
+
+    KIND = "catchup"
+    STREAM = CATCHUP_STREAM
+
+    def _init_outputs(self) -> None:
+        pass
+
+    def _outputs(self, T: int) -> None:
+        return None
+
+    def run_eager(self, T: int) -> None:
+        d = self.d[T]
+        llama.prefill_packed_kv(self.params, self.cfg, self.kv, d.toks,
+                                d.positions, d.seg_ids, d.tables,
+                                d.valid != 0)
 
 
 # the guided programs' descriptor: one decode step's lane fields

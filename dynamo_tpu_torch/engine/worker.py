@@ -14,8 +14,11 @@ the unchanged JAX frontend and its KV router serve it like any other:
     check; `kv_pull` serves the disagg pull's open/chunk/close ops
     (disagg/transfer.py) on a prefill worker's parked KV, and the engine
     is registered with the in-process broker (disagg/broker.py), so a
-    decode worker in the same process pulls device-resident chunks and
-    one elsewhere pulls host-staged frames over the request plane;
+    decode worker in the same process pulls device-resident chunks, one
+    in another process on the same card copies chunks over CUDA IPC
+    when both opted in (DYN_KV_TRANSFER_SERVER; the header's
+    "cuda_ipc", disagg/device_transfer.py), and any other pulls
+    host-staged frames over the request plane;
   * with KVBM on (config.host_cache_blocks > 0 and kvbm_remote), the
     `kvbm_pull` endpoint, which streams this worker's host-tier copies of
     a block run (kvbm/remote.py), and the puller the engine prefetches a
@@ -35,10 +38,9 @@ the unchanged JAX frontend and its KV router serve it like any other:
     let in-flight requests finish until a deadline, abort the rest with
     the migratable "worker draining" marker.
 
-Not ported yet (ROADMAP.md): multi-host slices, the device-to-device
-pull across processes (the `kv_pull` op's `via=transfer` branch), the
-`embed` endpoint, timeline spans, and the /metrics gauges and /debug
-sources (the system-status server is not ported).
+Not ported yet (ROADMAP.md): multi-host slices, the `embed` endpoint,
+timeline spans, and the /metrics gauges and /debug sources (the
+system-status server is not ported).
 
 The `kvbm_pull` wire carries block hashes as 16-byte big-endian bytes
 (router/events.py hash_to_wire), as the KV events do, and accepts plain
@@ -52,15 +54,18 @@ import asyncio
 import logging
 import os
 import time
-from typing import Optional
+from collections import OrderedDict
+from typing import Dict, Optional
 
 from ..device import DeviceLike
 from ..disagg import broker
-from ..disagg.transfer import (
-    RequestPlanePullSource,
-    encode_chunk_frame,
-    make_header,
+from ..disagg.device_transfer import (
+    NegotiatedPullSource,
+    SenderChunkRegistry,
+    get_transfer_server,
+    next_uuid,
 )
+from ..disagg.transfer import encode_chunk_frame, make_header
 from ..frontend.tokenizer import tokenizer_from_mdc
 from ..models.loader import load_chat_template
 from ..obs.slo import SLO_SUBJECT_PREFIX
@@ -84,6 +89,8 @@ LOAD_SUBJECT_PREFIX = "load_metrics"
 FPM_SUBJECT_PREFIX = "fpm"
 # load-loop ticks (0.5 s each) between G4 sweeps
 G4_SWEEP_TICKS = 60
+# decode-side pulls whose tier stats the worker keeps (pull_stats)
+PULL_STATS_KEPT = 256
 
 
 class TorchEngineWorker:
@@ -122,6 +129,14 @@ class TorchEngineWorker:
         self._slo_task: Optional[asyncio.Task] = None
         self._slo_cancel = asyncio.Event()
         self._pull_clients: dict = {}
+        # device-tier chunks staged for a receiver: (server, buffer) per
+        # request, the buffer back to the server's pool once consumed
+        self._chunk_refs = SenderChunkRegistry(
+            on_drop=lambda ref: ref[0].release(ref[1]))
+        # per decode-side pull (request id): its chunks and bytes by tier
+        # and the device chunks' RPC s, event-wait ms and copy ms
+        self.pull_stats: "OrderedDict[str, Dict[str, float]]" = \
+            OrderedDict()
         self._broker_id: Optional[int] = None
         self._kvbm_index: Optional[RemoteBlockIndex] = None
         self._kvbm_pull_client = None
@@ -216,21 +231,44 @@ class TorchEngineWorker:
 
         async def kv_pull_handler(payload, ctx):
             """Receiver-paced pull ops (disagg/transfer.py): open ->
-            header, chunk -> one gathered chunk as host bytes, close ->
-            release.  Each chunk is ONE scheduler op on this engine, so
-            its other requests interleave with the extraction."""
+            header (with the CUDA IPC capability where this process has
+            it), chunk -> one gathered chunk as host bytes or, asked
+            `via: "cuda_ipc"`, staged in a device buffer whose handles
+            the answer carries; close -> release.  Each chunk is ONE
+            scheduler op on this engine, so its other requests
+            interleave with the extraction."""
             op = payload.get("op")
             rid = payload["request_id"]
             if op == "open":
                 n_blocks, prompt_len = await self.engine.parked_info(rid)
+                srv = self._transfer_server()
                 yield make_header(prompt_len,
-                                  self.engine.kv_wire_layout(n_blocks))
+                                  self.engine.kv_wire_layout(n_blocks),
+                                  ipc=srv.capability if srv else None)
             elif op == "chunk":
-                b0 = int(payload["start"])
-                arrs = await self.engine.extract_parked_chunk(
-                    rid, b0, int(payload["count"]))
-                yield encode_chunk_frame(b0, *arrs)
+                b0, n = int(payload["start"]), int(payload["count"])
+                srv = (self._transfer_server()
+                       if payload.get("via") == "cuda_ipc" else None)
+                if srv is not None:
+                    # asking for chunk i+1 proves chunk i was copied out:
+                    # its buffer goes back to the pool before this one is
+                    # staged
+                    self._chunk_refs.release(rid)
+                    arrs = await self.engine.extract_parked_chunk(
+                        rid, b0, n, to_host=False)
+                    # the copies and the event record queue on the
+                    # engine's stream after the gather
+                    slot, meta = srv.stage(arrs)
+                    uid = next_uuid()
+                    self._chunk_refs.park(rid, uid, (srv, slot))
+                    yield {"uuid": uid, "block_start": b0,
+                           "block_count": n, **meta}
+                else:
+                    arrs = await self.engine.extract_parked_chunk(
+                        rid, b0, n)
+                    yield encode_chunk_frame(b0, *arrs)
             elif op == "close":
+                self._chunk_refs.release(rid)
                 await self.engine.release_parked(rid)
                 yield {}
             else:
@@ -285,6 +323,9 @@ class TorchEngineWorker:
         # failed start leaks no half-built engine into the registry
         broker.register_engine(instance_id, self.engine)
         self._broker_id = instance_id
+        if self.engine.device.type == "cuda":
+            # the opt-in's probe (a child process) runs before any pull
+            await asyncio.to_thread(get_transfer_server)
         if self.config.warmup:
             # before the model becomes discoverable, so no request pays
             # for a kernel build; the step lock keeps a canary's step out
@@ -300,11 +341,21 @@ class TorchEngineWorker:
                     self.config.served_name, self.engine.device)
         return self
 
+    def _transfer_server(self):
+        """The process's CUDA IPC server where the opt-in holds and it
+        lives on the engine's device; else None."""
+        srv = get_transfer_server()
+        if srv is None or self.engine is None \
+                or srv.device != self.engine.device:
+            return None
+        return srv
+
     async def _kv_pull(self, params: dict):
         """Decode-side pull source, best tier first: an engine of this
-        process (broker: chunks stay on the device), else host-staged
-        frames over the request plane from the sender's `kv_pull`
-        endpoint.  The engine validates the sender's layout."""
+        process (broker: chunks stay on the device), else the sender's
+        `kv_pull` endpoint over the request plane, chunks copied over
+        CUDA IPC when both ends have it (negotiated per pull), else
+        host-staged frames.  The engine validates the sender's layout."""
         src_engine = broker.lookup_engine(params["instance_id"])
         if src_engine is not None and src_engine is not self.engine:
             return broker.LocalEnginePullSource(src_engine,
@@ -318,7 +369,11 @@ class TorchEngineWorker:
             client = await ep.client().start()
             await client.wait_for_instances()
             self._pull_clients[key] = client
-        return RequestPlanePullSource(client, params)
+        stats = self.pull_stats[params["request_id"]] = {}
+        while len(self.pull_stats) > PULL_STATS_KEPT:
+            self.pull_stats.popitem(last=False)
+        return NegotiatedPullSource(client, params,
+                                    device=self.engine.device, stats=stats)
 
     async def _slo_loop(self) -> None:
         """Fold every frontend SLO summary into the engine's burn signal
@@ -360,6 +415,9 @@ class TorchEngineWorker:
                     await eng.sweep_kvbm_g4()
                 except Exception:
                     logger.warning("g4 sweep failed", exc_info=True)
+            # device-tier buffers whose receiver died mid-pull (the
+            # engine's parked-KV TTL)
+            self._chunk_refs.sweep(eng.parked_ttl_s)
             steps = []
             while eng.fpm and len(steps) < 512:
                 steps.append(eng.fpm.popleft())
@@ -402,6 +460,8 @@ class TorchEngineWorker:
                and time.monotonic() - t0 < deadline_s):
             await asyncio.sleep(0.02)
         self.engine.drain_abort()
+        logger.info("drain: dropped %d staged device-tier chunk refs",
+                    self._chunk_refs.clear())
 
     async def close(self) -> None:
         if self._broker_id is not None:
@@ -425,6 +485,10 @@ class TorchEngineWorker:
             self._slo_task.cancel()
             await asyncio.gather(self._slo_task, return_exceptions=True)
             self._slo_task = None
+        self._chunk_refs.clear()
+        srv = self._transfer_server()
+        if srv is not None:
+            srv.close()
         if self.engine is not None:
             await self.engine.close()
         if self.served is not None:

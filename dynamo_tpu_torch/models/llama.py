@@ -316,6 +316,17 @@ def prefill_packed(
     return _logits(params, cfg, x[last_idx.long()]), kv_cache
 
 
+def prefill_packed_kv(params: Params, cfg: LlamaConfig, kv_cache: KVCache,
+                      token_ids, positions, seg_ids, block_tables,
+                      valid) -> KVCache:
+    """prefill_packed's K/V writes alone, no logits: the draft model's
+    catch-up (spec/draft.py), as the JAX proposer's `_prefill_impl`
+    returns its cache alone.  Returns kv_cache, updated in place."""
+    _packed_forward(params, cfg, kv_cache, token_ids, positions, seg_ids,
+                    block_tables, valid)
+    return kv_cache
+
+
 def _packed_forward(params, cfg: LlamaConfig, kv_cache: KVCache,
                     token_ids, positions, seg_ids, block_tables, valid,
                     lora_bank=None, adapter_idx=None):

@@ -15,8 +15,11 @@ planes too).
 Per speculation round for one slot:
 
   1. catch-up: prefill the draft over tokens[draft_pos:ctx] in B = 1
-     chunks bucketed by prefill_buckets (models/llama.py prefill, plain
-     torch, eager: `catchup_dispatches` and `catchup_s` count them).
+     chunks bucketed by prefill_buckets, each one dispatch of that
+     bucket's catch-up program (engine/graphs.py CatchupPrograms: one
+     packed segment, K3 attends, the draft's cache written), captured
+     once per bucket by `warmup` (`catchup_dispatches` and `catchup_s`,
+     the host seconds, count them).
      draft_pos is engine bookkeeping on the slot; after a partly accepted
      round it equals the new ctx, so the catch-up is empty, and after a
      fully accepted one it is one token short (the last draft's own KV
@@ -39,7 +42,7 @@ from typing import List, Sequence
 import numpy as np
 import torch
 
-from ..engine.graphs import DecodePrograms
+from ..engine.graphs import CatchupPrograms, DecodePrograms
 from ..models import llama
 
 
@@ -81,11 +84,20 @@ class DraftModelProposer:
         self.programs = DecodePrograms(self.params, model_cfg, self.kv, 1,
                                        max_blocks_per_seq, device,
                                        capture=capture)
+        self.catchup = CatchupPrograms(self.params, model_cfg, self.kv, 1,
+                                       max_blocks_per_seq, self.buckets,
+                                       device, capture=capture)
         self.metrics = {"catchup_dispatches": 0, "catchup_s": 0.0}
 
     def warmup(self) -> None:
-        """Build every propose program (k = 1..max_k): one token in the
-        garbage block 0, nothing real computed."""
+        """Build every catch-up program (one per prefill bucket) and every
+        propose program (k = 1..max_k): one token in the garbage block 0,
+        nothing real computed."""
+        for T in self.catchup.buckets:
+            a = self.catchup.host_descriptor(T)
+            a["valid"][0] = True
+            self.catchup.upload(a)
+            self.catchup.run(T)
         g = self.programs
         a = g.host_descriptor()
         a["ctx_lens"][:] = a["steps"][:] = 1
@@ -104,21 +116,18 @@ class DraftModelProposer:
         """k greedy draft tokens continuing tokens[:ctx+1] (last_token is
         tokens[ctx]).  Catch-up prefill covers [draft_pos, ctx); the
         caller advances draft_pos to the new ctx after verification."""
-        dev = self.device
         pos = draft_pos
         if pos < ctx:
             t0 = time.perf_counter()
-            table = torch.from_numpy(np.asarray(block_table, np.int32)).to(dev)
+            cp = self.catchup
             while pos < ctx:
                 chunk = min(ctx - pos, self.buckets[-1])
-                bucket = self._bucket_for(chunk)
-                toks = np.zeros(bucket, np.int32)
-                toks[:chunk] = tokens[pos:pos + chunk]
-                positions = pos + np.arange(bucket, dtype=np.int32)
-                llama.prefill(self.params, self.cfg, self.kv,
-                              torch.from_numpy(toks).to(dev),
-                              torch.from_numpy(positions).to(dev), table,
-                              pos, chunk)
+                a = cp.host_descriptor(self._bucket_for(chunk))
+                a["toks"][:chunk] = tokens[pos:pos + chunk]
+                a["positions"][:chunk] = np.arange(pos, pos + chunk)
+                a["valid"][:chunk] = True
+                a["tables"][0] = block_table
+                cp.run(cp.upload(a))
                 self.metrics["catchup_dispatches"] += 1
                 pos += chunk
             self.metrics["catchup_s"] += time.perf_counter() - t0

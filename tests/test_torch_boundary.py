@@ -37,6 +37,7 @@ FORBIDDEN = ("jax", "jaxlib", "dynamo_tpu", "ml_dtypes", "safetensors",
 REQUIRED = ("models/loader.py", "models/weight_cache.py",
             "engine/loader_cache.py", "ops/fused_sampling.py",
             "disagg/__init__.py", "disagg/transfer.py", "disagg/broker.py",
+            "disagg/device_transfer.py",
             "ops/kv_transfer.py", "runtime/retry.py", "kvbm/pools.py",
             "kvbm/breaker.py", "kvbm/object_store.py", "kvbm/object_io.py",
             "kvbm/residency.py", "kvbm/manager.py", "kvbm/remote.py",

@@ -369,6 +369,30 @@ async def test_overlapped_kv_events_match_overlapped_jax_engine():
     assert {r["k"] for r in records(te) if r["kind"] == "decode"} > {1}
 
 
+async def test_reused_request_id_takes_no_stale_burst():
+    """A request that reuses the id of one that just finished while its
+    overshoot bursts were still in flight (a long neighbour keeps the
+    pipeline full) streams what the first one streamed.  Lanes are keyed
+    by (request id, epoch); with the epoch counted per slot from 0, both
+    slots had the same key, and the repeat, admitted into the same lane,
+    took the earlier slot's stale tokens while it was still prefilling
+    (the repeat parting of test_graphed_engine_equals_eager_engine_on_gpu
+    below, ROADMAP Queue 3 item 8)."""
+    eng = torch_engine()
+    try:
+        long = asyncio.ensure_future(_collect(eng, _req(
+            False, PROMPTS[0], "long", 60)))
+        first = await _collect(eng, _req(False, PROMPTS[1], "x", 6,
+                                         SAMPLING[1]))
+        again = await _collect(eng, _req(False, PROMPTS[1], "x", 6,
+                                         SAMPLING[1]))
+        await long
+    finally:
+        await eng.close()
+    assert len(first) == 6
+    assert again == first
+
+
 @pytest.mark.gpu
 def test_graphed_engine_equals_eager_engine_on_gpu():
     """On a card: the tiny preset (bf16, hd 64) served with its decode

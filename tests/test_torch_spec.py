@@ -372,6 +372,62 @@ def test_prefill_matches_jax(case):
             np.testing.assert_allclose(got, want, **tol)
 
 
+@pytest.mark.parametrize("int8", [False, True], ids=["fp32", "int8"])
+def test_catchup_program_writes_what_prefill_writes(int8):
+    """The draft's catch-up program (engine/graphs.py CatchupPrograms,
+    its body eager on the CPU: one packed segment, the start position and
+    length in its descriptor) writes the draft cache that models/llama.py
+    prefill writes, two chunks of one sequence (7 tokens, then 5 after
+    them, bucket 8 both times) on an fp32 model.  Each position's K and V
+    vectors within a relative L2 error of 1e-5 (the two attentions sum in
+    another order; 5.6e-7 measured), or 3e-2 dequantized on an int8 cache
+    (1.5e-2 measured): the packed body attends to its own chunk through
+    the int8 cache, as the engine's packed prefill and JAX's do, where
+    prefill attends to the fresh K/V, so the second layer's inputs differ
+    by a quantization step (up to 1/127 of a row's largest value)."""
+    from dynamo_tpu_torch.engine.graphs import CatchupPrograms
+
+    tparams = params_from_numpy(jax.tree_util.tree_map(
+        lambda a: np.asarray(a, np.float32),
+        jl.init_params(JAX_FP32, jax.random.PRNGKey(3))), FP32,
+        device="cpu")
+    nb, bs, mb = 8, 4, 6
+    if int8:
+        kv = tuple(torch.zeros(s, dtype=torch.int8)
+                   for s in tl.kv_cache_shapes(FP32, nb, bs)) + tuple(
+            torch.zeros(s) for s in tl.kv_cache_scale_shapes(FP32, nb, bs))
+    else:
+        kv = tuple(torch.zeros(s) for s in tl.kv_cache_shapes(FP32, nb, bs))
+    ref = tuple(t.clone() for t in kv)
+    progs = CatchupPrograms(tparams, FP32, kv, 1, mb, (8, 16),
+                            torch.device("cpu"))
+    table = np.array([3, 1, 6, 2, 0, 0], np.int32)
+    prompt = [5, 9, 13, 2, 7, 11, 3, 40, 41, 42, 43, 44]
+    for ctx, chunk in ((0, 7), (7, 5)):
+        a = progs.host_descriptor(8)
+        a["toks"][:chunk] = prompt[ctx:ctx + chunk]
+        a["positions"][:chunk] = np.arange(ctx, ctx + chunk)
+        a["valid"][:chunk] = True
+        a["tables"][0] = table
+        assert progs.run(progs.upload(a)) is None
+        toks = np.zeros(8, np.int32)
+        toks[:chunk] = prompt[ctx:ctx + chunk]
+        tl.prefill(tparams, FP32, ref, torch.from_numpy(toks),
+                   torch.from_numpy(ctx + np.arange(8, dtype=np.int32)),
+                   torch.from_numpy(table), ctx, chunk)
+    assert progs.counts == {8: 1}
+    if int8:
+        # per position, the dequantized K and V vectors
+        kv = [c.float() * s[..., None] for c, s in zip(kv[:2], kv[2:])]
+        ref = [c.float() * s[..., None] for c, s in zip(ref[:2], ref[2:])]
+    for got, want in zip(kv, ref):
+        # block 0 is the garbage block either side may write
+        got, want = got[:, :, 1:].float(), want[:, :, 1:].float()
+        err = (got - want).norm(dim=-1) / want.norm(dim=-1).clamp(min=1e-9)
+        assert float(err.max()) <= (3e-2 if int8 else 1e-5)
+        assert float(got.abs().max()) > 0
+
+
 @pytest.mark.parametrize("int8", [False, True], ids=["bf16", "int8"])
 def test_paged_prefill_attention_matches_jax(int8):
     """The chunk's own K/V at full precision, the cached context (random,
@@ -452,6 +508,26 @@ async def test_draft_equals_target_matches_jax():
     assert m["spec_proposed"] > 0
     assert m["spec_accepted"] >= m["spec_proposed"] // 2
     assert te.proposer.metrics["catchup_dispatches"] > 0
+    # every catch-up ran through a bucket's program
+    assert te.proposer.catchup.counts
+
+
+async def test_draft_catchup_programs_built_by_warmup_only():
+    """Warm-up builds every catch-up program (one per prefill bucket)
+    beside the propose bursts; serving catch-ups build none, and the
+    stream and spec counters equal JAX's."""
+    je, te = engines(draft=True, spec_decode="draft", spec_k=4)
+    await asyncio.to_thread(te.warmup_decode)
+    built = (dict(te.proposer.catchup.counts),
+             dict(te.proposer.programs.counts))
+    assert built[0] == {T: 1 for T in COMMON["prefill_buckets"]}
+    assert built[1] == {(True, k): 1 for k in range(1, 5)}
+    (jres,), (tres,) = await serve(je, te, [RANDOM_PROMPT + REPEAT_PROMPT],
+                                   32)
+    assert tres == jres
+    assert spec_counts(te) == spec_counts(je)
+    assert te.proposer.metrics["catchup_dispatches"] > 1
+    assert (te.proposer.catchup.counts, te.proposer.programs.counts) == built
 
 
 async def test_sampled_spec_streams_match_jax():

@@ -14,6 +14,10 @@ GPU host without them:
 * Serving under spec_decode="ngram" speculates and builds no program:
   warm-up captured every decode, prefill and verify program and the
   draft-free engine's counts stay as warm-up left them.
+* Serving under spec_decode="draft" (the tiny preset as its own draft)
+  builds no draft program either: warm-up captured the draft's propose
+  bursts and one catch-up program per prefill bucket, and every
+  catch-up ran from them.
 """
 
 import asyncio
@@ -164,3 +168,41 @@ async def _serve_spec():
     assert eng.metrics.get("spec_steps", 0) > 0
     assert (eng.graphs.counts, eng.prefill_graphs.counts,
             eng.verify_graphs.counts) == built
+
+
+@pytest.mark.gpu
+def test_draft_serving_builds_no_program_on_gpu():
+    _needs_card()
+    asyncio.run(_serve_draft())
+
+
+async def _serve_draft():
+    from dynamo_tpu_torch.models.llama import PRESETS
+
+    eng = _engine(spec_decode="draft", spec_draft_config=PRESETS["tiny"])
+    await asyncio.to_thread(eng.warmup_decode)
+    cp = eng.proposer.catchup
+    built = (dict(eng.proposer.programs.counts), dict(cp.counts))
+    assert built[1] == {T: 1 for T in cp.buckets}
+    assert built[0] == {(True, k): 1 for k in range(1, 5)}
+    rng = np.random.default_rng(3)
+    reqs = [PreprocessedRequest(
+        token_ids=[int(t) for t in rng.integers(0, 32000, n)],
+        request_id=f"d{i}", sampling=SamplingOptions(temperature=0.0),
+        stop=StopConditions(max_tokens=24, ignore_eos=True))
+        for i, n in enumerate((300, 40, 7))]
+
+    async def one(r):
+        toks = []
+        async for out in eng.generate(r):
+            toks.extend(out.token_ids)
+        return toks
+
+    try:
+        outs = await asyncio.gather(*[one(r) for r in reqs])
+    finally:
+        await eng.close()
+    assert all(len(t) == 24 for t in outs)
+    assert eng.metrics.get("spec_steps", 0) > 0
+    assert eng.proposer.metrics["catchup_dispatches"] > 0
+    assert (dict(eng.proposer.programs.counts), dict(cp.counts)) == built
