@@ -18,6 +18,7 @@
     python3 chip_smoke.py --kvbm          # the KV block manager's tiers
     python3 chip_smoke.py --spec          # speculative decoding
     python3 chip_smoke.py --lora          # LoRA serving and guided decoding
+    python3 chip_smoke.py --status        # the worker's status plane
 
 Builds the port's CUDA kernels from csrc/ (three nvcc processes started
 together), holds each entry point (K1 and K3, each in its bf16 and its
@@ -42,7 +43,16 @@ body's (a full 2048-token bucket, and a 32-token one with padded rows).  After t
 runtime (mem discovery, in-process event plane, TCP request plane on
 127.0.0.1), and the worker's contract is checked: streams, KV events,
 load metrics, FPM records, the MDC, clear_kv_blocks, cancellation and
-close; then the decode A/B, the fused A/B and the prefill A/B (below)
+close, and its status plane (the system-status server on an ephemeral
+port with an admin token, the roofline peaks of this card and the
+timeline tracer on: /live and /health, system_addr in discovery,
+/metrics' decode MBU and prefill MFU in (0, 1] with the decode MBU held
+to the smoke's own roofline, one compile sample per captured program
+and none while serving, a decode step's counted bytes against the
+weights and a full table's KV, ordered kv_tier_costs, /debug/state's
+token gate and JAX keys, /debug/profile naming K1 during a decode run,
+the trace's span kinds, greedy streams equal with tracing off and on,
+and /health 503 after the drain); then the decode A/B, the fused A/B and the prefill A/B (below)
 run; after the int8 run, one request goes through a worker on the int8
 cache (its launches and the dtype it reports), then the disagg phase
 (below), then the pair across two processes (below), then the KVBM
@@ -1535,22 +1545,31 @@ def _fmt_steps(steps: dict) -> str:
 
 
 @contextlib.asynccontextmanager
-async def _serving_worker(device, cfg, params):
+async def _serving_worker(device, cfg, params, status: bool = False):
     """A TorchEngineWorker (config `cfg` with warm-up, a fresh cache of
     its kind, weights `params`) on a fresh runtime of the port: mem
     discovery, in-process event plane, the TCP request plane on
-    127.0.0.1.  Yields (runtime, worker, generate client, seen), `seen`
-    collecting every message on the worker's kv_events, load_metrics and
-    fpm subjects under "kv", "load" and "fpm".  On exit closes the worker
-    and exits unless its MDC left discovery."""
+    127.0.0.1.  With `status` the runtime also serves the system-status
+    server on an ephemeral port with the admin token STATUS_TOKEN, and
+    the worker's config carries this card's peaks (PEAK_TFLOPS,
+    PEAK_HBM_GBPS) for the roofline gauges.  Yields (runtime, worker,
+    generate client, seen), `seen` collecting every message on the
+    worker's kv_events, load_metrics and fpm subjects under "kv", "load"
+    and "fpm".  On exit closes the worker and exits unless its MDC left
+    discovery."""
     import uuid
 
     from dynamo_tpu_torch.engine import TorchEngineWorker
     from dynamo_tpu_torch.runtime import DistributedRuntime, RuntimeConfig
 
+    extra = (dict(system_port=-1, admin_token=STATUS_TOKEN) if status
+             else {})
     rt = await DistributedRuntime(config=RuntimeConfig(
         discovery_backend="mem", event_plane="inproc",
-        tcp_host="127.0.0.1"), cluster_id=uuid.uuid4().hex).start()
+        tcp_host="127.0.0.1", **extra), cluster_id=uuid.uuid4().hex).start()
+    if status:
+        cfg = dataclasses.replace(cfg, peak_tflops=PEAK_TFLOPS,
+                                  peak_hbm_gbps=PEAK_HBM_GBPS)
     t0 = time.perf_counter()
     worker = await TorchEngineWorker(
         rt, dataclasses.replace(cfg, warmup=True), params=params,
@@ -1608,6 +1627,390 @@ async def _serve_worker(client, reqs):
     return await asyncio.gather(*(one(r) for r in reqs))
 
 
+# ---------------------------------------------------------------------------
+# the worker's status plane (rides the bf16 worker phase; --status alone)
+# ---------------------------------------------------------------------------
+
+# the gauges' peaks: this card's specification (H100 SXM dense bf16 tensor
+# cores and HBM3), the rates the kernel bounds above divide by
+PEAK_TFLOPS = BF16_FLOPS_PER_S / 1e12
+PEAK_HBM_GBPS = HBM_BYTES_PER_S / 1e9
+STATUS_TOKEN = "chip-smoke-admin"
+# K1's kernel symbol, as the profiler names its device events
+K1_SYMBOL = "paged_decode_kernel"
+# the span kinds the worker phase exercises (no speculation, guided
+# decoding or KVBM tiers there)
+STATUS_SPANS = ("step", "sched", "enqueue_ahead", "prefill_dispatch",
+                "decode_dispatch", "device_wait", "worker_request",
+                "compile")
+# the keys of the JAX worker's /debug/state source
+# (dynamo_tpu/engine/worker.py debug_state)
+DEBUG_STATE_KEYS = ("kind", "instance_id", "namespace", "component",
+                    "model", "role", "draining", "active_seqs", "waiting",
+                    "slots", "tokens_in_flight", "kv", "kv_usage",
+                    "kv_cache_dtype", "itl_ema_s", "itl_p95_s", "compile",
+                    "engine_metrics", "config")
+# the decode MBU gauge (window sums of the bursts' counted bytes over
+# their gaps) and the smoke's own roofline (the median burst's bytes over
+# its gap) must agree within this factor: they read 0.573 and 0.495
+# (1.157x) on an H100 80GB HBM3 at 700 W: the gauge weighs each burst by
+# its gap, so the k = 8 bursts (the most bytes a second) count most, where
+# the median counts every burst once
+MBU_AGREE = 1.5
+
+
+async def _http(addr: str, path: str, method: str = "GET",
+                token: Optional[str] = None, timeout: float = 60.0) -> tuple:
+    """(status, body bytes) of one HTTP/1.1 request to `addr` (host:port)
+    over asyncio streams (the card's machine has no HTTP client
+    library)."""
+    host, port = addr.rsplit(":", 1)
+    reader, writer = await asyncio.open_connection(host, int(port))
+    head = f"{method} {path} HTTP/1.1\r\nHost: {addr}\r\n"
+    if token:
+        head += f"X-Dyn-Admin-Token: {token}\r\n"
+    writer.write((head + "Content-Length: 0\r\n\r\n").encode())
+    await writer.drain()
+    data = await asyncio.wait_for(reader.read(), timeout)
+    writer.close()
+    hdr, _, body = data.partition(b"\r\n\r\n")
+    return int(hdr.split(b" ", 2)[1]), body
+
+
+def _parse_metrics(text: str) -> list:
+    """[(sample name, {label: value}, value)] of a Prometheus text
+    exposition (the port's renderer: labels without embedded commas)."""
+    out = []
+    for line in text.splitlines():
+        if not line or line.startswith("#"):
+            continue
+        head, _, value = line.rpartition(" ")
+        name, _, labels = head.partition("{")
+        lab = {}
+        for part in labels.rstrip("}").split('",'):
+            if "=" in part:
+                k, v = part.split("=", 1)
+                lab[k] = v.strip('"')
+        out.append((name, lab, float(value)))
+    return out
+
+
+def _sample(samples, name: str, **labels) -> Optional[float]:
+    for n, lab, v in samples:
+        if n == name and all(lab.get(k) == x for k, x in labels.items()):
+            return v
+    return None
+
+
+def _weight_read_bytes(params, lanes: int) -> int:
+    """The bytes of weights one decode step reads: every parameter but the
+    embedding table, of which it looks up `lanes` rows."""
+    emb = params["embedding"]
+    total = sum(t.numel() * t.element_size() for t in _leaves(params))
+    return total - emb.numel() * emb.element_size() \
+        + lanes * emb.shape[1] * emb.element_size()
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from _leaves(v)
+    elif isinstance(tree, (list, tuple)):
+        for v in tree:
+            yield from _leaves(v)
+    elif isinstance(tree, torch.Tensor):
+        yield tree
+
+
+async def _status_probes(rt, worker, seen) -> dict:
+    """The status checks before the main run: /live and /health answer
+    200 on the warm worker, /debug/state answers 401 without the token,
+    and the instance advertises system_addr in discovery."""
+    addr = rt.system_address
+    live, _ = await _http(addr, "/live")
+    health, body = await _http(addr, "/health")
+    denied, _ = await _http(addr, "/debug/state")
+    snap = await rt.discovery.get_prefix("v1/instances/dynamo/backend/")
+    advertised = sorted({v["metadata"].get("system_addr", "")
+                         for v in snap.values()})
+    log(f"status server at {addr}: /live {live}, /health {health} "
+        f"({json.loads(body)['status']}), /debug/state without the token "
+        f"{denied}; instances advertise system_addr {advertised}")
+    # 401: a token is configured and none was given (403 is JAX's answer
+    # when no token is configured at all)
+    if (live, health, denied) != (200, 200, 401) or advertised != [addr]:
+        raise SystemExit("the status server's probes or system_addr failed")
+    return {"addr": addr}
+
+
+async def _poll_live(addr: str, stop: asyncio.Event, into: list) -> None:
+    """/live every 0.1 s until `stop`; each status into `into`."""
+    while not stop.is_set():
+        into.append((await _http(addr, "/live"))[0])
+        try:
+            await asyncio.wait_for(stop.wait(), 0.1)
+        except asyncio.TimeoutError:
+            pass
+
+
+def _burst_roofline(recs) -> tuple:
+    """(median per-burst bytes/s of the decode records with a plausible
+    gap, bursts): the smoke's own decode roofline."""
+    rates = [r["xla_bytes"] / r["gap_s"] for r in recs
+             if r["kind"] == "decode" and 0.0 < r["gap_s"] < 1.0]
+    return (float(np.median(rates)) if rates else 0.0), len(rates)
+
+
+async def _status_gauges(rt, worker, seen, recs) -> dict:
+    """/metrics after the main run: the roofline gauges in (0, 1], the
+    decode MBU against the smoke's own roofline, one compile sample per
+    captured program and none while serving, a 4-lane decode program's
+    counted bytes between the weights it reads and those plus a full
+    table's KV, and load_metrics' kv_tier_costs ordered."""
+    eng = worker.engine
+    await asyncio.sleep(1.1)  # two load-loop ticks past the run
+    status, body = await _http(rt.system_address, "/metrics")
+    samples = _parse_metrics(body.decode())
+    mbu = _sample(samples, "dynamo_engine_mbu", phase="decode")
+    mfu = _sample(samples, "dynamo_engine_mfu", phase="prefill")
+    mfu_dec = _sample(samples, "dynamo_engine_mfu", phase="decode")
+    mbu_pre = _sample(samples, "dynamo_engine_mbu", phase="prefill")
+    own, bursts = _burst_roofline(recs)
+    own_mbu = own / HBM_BYTES_PER_S
+    compiles = {lab["family"]: v for n, lab, v in samples
+                if n == "dynamo_engine_compile_seconds_count"}
+    built = {}
+    for progs in eng._program_families():
+        for key in progs.counts:
+            fam = progs.watch_family(key)
+            built[fam] = built.get(fam, 0) + 1
+    serving = sum(v for n, _, v in samples
+                  if n == "dynamo_engine_serving_compiles_total")
+    B, mb = eng.config.max_num_seqs, eng.config.max_blocks_per_seq
+    per_step = eng.graphs.costs[(True, 1)]["bytes"]
+    weights = _weight_read_bytes(eng.params, B)
+    mc = eng.model_cfg
+    table_kv = (2 * B * mc.n_kv_heads * mb * eng.config.block_size
+                * mc.head_dim * 2 * mc.n_layers)
+    costs = next((m["kv_tier_costs"] for m in reversed(seen["load"])
+                  if "kv_tier_costs" in m), None)
+    log(f"/metrics ({status}, {len(samples)} samples): decode MBU "
+        f"{mbu} against the smoke's own roofline {own_mbu:.4f} (median of "
+        f"{bursts} bursts' counted bytes over their gaps; ratio "
+        f"{(mbu or 0) / own_mbu if own_mbu else float('nan'):.3f}), decode "
+        f"MFU {mfu_dec}, prefill MFU {mfu}, prefill MBU {mbu_pre} (peaks "
+        f"{PEAK_TFLOPS:.0f} TFLOP/s, {PEAK_HBM_GBPS:.0f} GB/s); compile "
+        f"samples by family {compiles} against programs built {built}; "
+        f"serving compiles {serving}; a {B}-lane decode step counts "
+        f"{per_step / 1e9:.3f} GB against {weights / 1e9:.3f} GB of weights "
+        f"read and a full table's KV of {table_kv / 1e9:.3f} GB; "
+        f"kv_tier_costs {costs}")
+    if status != 200 or mbu is None or mfu is None:
+        raise SystemExit("/metrics lacks the roofline gauges")
+    if not (0.0 < mbu <= 1.0 and 0.0 < mfu <= 1.0):
+        raise SystemExit(f"roofline gauges out of (0, 1]: MBU {mbu}, "
+                         f"MFU {mfu}")
+    if not own_mbu or not 1 / MBU_AGREE <= mbu / own_mbu <= MBU_AGREE:
+        raise SystemExit(f"decode MBU {mbu} disagrees with the smoke's "
+                         f"roofline {own_mbu} beyond {MBU_AGREE}x")
+    if compiles != built or serving:
+        raise SystemExit("compile records do not match the captured "
+                         "programs, or a capture landed while serving")
+    # what lies above weights + table is the step's K/V writes and its
+    # fp32 logits rows (~2.6 MB at llama-8b, 4 lanes)
+    if not weights + table_kv <= per_step <= 1.01 * (weights + table_kv):
+        raise SystemExit(f"a decode step counts {per_step} bytes, outside "
+                         f"[{weights + table_kv}] + 1%")
+    if not (costs and costs["g1"] == 0.0 < costs["g2"] < costs["g3"]
+            < costs["g4"]):
+        raise SystemExit(f"kv_tier_costs missing or unordered: {costs}")
+    return {"mbu_decode": mbu, "own_mbu_decode": own_mbu,
+            "mfu_prefill": mfu, "mfu_decode": mfu_dec,
+            "mbu_prefill": mbu_pre, "compiles": compiles,
+            "decode_step_gb": per_step / 1e9, "weights_gb": weights / 1e9,
+            "table_kv_gb": table_kv / 1e9, "kv_tier_costs": costs}
+
+
+async def _status_debug(rt, worker, client, reqs) -> dict:
+    """/debug/state with the token (the JAX keys), then /debug/profile for
+    0.5 s while four long greedy streams decode: status "ok", a Chrome
+    trace naming K1's kernel among its device events, and a device-memory
+    snapshot."""
+    addr = rt.system_address
+    st, body = await _http(addr, "/debug/state", token=STATUS_TOKEN)
+    state = json.loads(body)
+    src = state["sources"].get(f"worker:{worker.served.instance_id}", {})
+    missing = sorted(set(DEBUG_STATE_KEYS) - set(src))
+    log(f"/debug/state with the token: {st}, source keys missing against "
+        f"the JAX worker's: {missing}; flight recorder "
+        f"{len(state['flight']['spans'])} spans")
+    if st != 200 or missing or not state["flight"]["enabled"]:
+        raise SystemExit("/debug/state failed")
+    long = [dataclasses.replace(r, request_id=f"profiled-{i}",
+                                stop=dataclasses.replace(r.stop,
+                                                         max_tokens=200))
+            for i, r in enumerate(reqs[:4])]
+    first = asyncio.Event()
+    n_first = []
+
+    async def one(req):
+        async for out in client.generate(req.to_dict()):
+            if out.get("token_ids") and req.request_id not in n_first:
+                n_first.append(req.request_id)
+                if len(n_first) == len(long):
+                    first.set()
+
+    runs = [asyncio.create_task(one(r)) for r in long]
+    await asyncio.wait_for(first.wait(), 60.0)
+    t0 = time.perf_counter()
+    st, body = await _http(addr, "/debug/profile?duration_s=0.5", "POST",
+                           token=STATUS_TOKEN)
+    took = time.perf_counter() - t0
+    await asyncio.gather(*runs)
+    prof = json.loads(body)
+    k1 = kernels = 0
+    if prof.get("status") == "ok":
+        with open(prof["trace_file"]) as f:
+            trace = json.load(f)
+        for e in trace.get("traceEvents", []):
+            if e.get("cat") == "kernel":
+                kernels += 1
+                k1 += K1_SYMBOL in e.get("name", "")
+    mem = prof.get("memory_profile")
+    snap = json.load(open(mem)) if mem else {}
+    log(f"/debug/profile?duration_s=0.5 during decode: {st}, status "
+        f"{prof.get('status')}, backend {prof.get('backend')}, {took:.2f} s, "
+        f"{kernels} kernel events of which {k1} name {K1_SYMBOL}; memory "
+        f"snapshot {mem}: {snap.get('mem_get_info')}, allocated "
+        f"{snap.get('memory_stats', {}).get('allocated_bytes.all.current')}"
+        f"; error {prof.get('error') or prof.get('memory_profile_error')}")
+    if st != 200 or prof.get("status") != "ok" or not k1 \
+            or "mem_get_info" not in snap:
+        raise SystemExit("/debug/profile did not capture K1 and a memory "
+                         "snapshot")
+    return {"profile_kernels": kernels, "profile_k1": k1}
+
+
+async def _tracing_ab(engine, reqs) -> dict:
+    """The same five requests through the worker's engine, all sent at
+    once with the prefix cache cleared first, with tracing off, on, on
+    and off: the greedy streams must be equal in every round; decode
+    tokens/s is printed."""
+    from dynamo_tpu_torch import obs
+
+    tr = obs.tracer()
+    rates, streams = {"off": [], "on": []}, []
+    greedy = [i for i, r in enumerate(reqs) if r.sampling.temperature <= 0]
+    for mode in ("off", "on", "on", "off"):
+        if mode == "off":
+            tr.uninstall()
+        else:
+            tr.install()
+        await engine.clear_kv_blocks()
+        res = await _serve(engine, [dataclasses.replace(
+            r, request_id=f"{r.request_id}-{mode}-{len(streams)}")
+            for r in reqs])
+        n, secs = _decode_rate(res)
+        rates[mode].append(n / secs)
+        streams.append([res[i][0] for i in greedy])
+    tr.install()
+    same = all(s == streams[0] for s in streams)
+    log(f"tracing A/B (off, on, on, off), decode tokens/s: off "
+        f"{[round(x, 1) for x in rates['off']]}, on "
+        f"{[round(x, 1) for x in rates['on']]}; greedy streams equal in "
+        f"every round: {same}")
+    if not same:
+        raise SystemExit("greedy streams differ with tracing on")
+    return {"tokens_per_s": rates}
+
+
+def _within(rows, t0: float, t1: float, tid=None) -> dict:
+    """{span kind: us} of the `rows` (Chrome trace "X" events) that lie
+    inside [t0, t1] (on track `tid` if given), clipped to it."""
+    by: dict = {}
+    for e in rows:
+        if tid is not None and e["tid"] != tid:
+            continue
+        lo, hi = max(e["ts"], t0), min(e["ts"] + e["dur"], t1)
+        if hi > lo:
+            by[e["name"]] = by.get(e["name"], 0.0) + hi - lo
+    return by
+
+
+async def _status_trace(out_path: str) -> dict:
+    """The Chrome trace the tracer dumps: every span kind the worker phase
+    exercised; the median 4-lane step split by phase (decode_dispatch's
+    own time is what its nested device_wait and enqueue_ahead leave); and
+    for each request, the wait from its arrival (`worker_request` start)
+    to the first packed prefill dispatch after it, split by what the
+    scheduler track did meanwhile."""
+    from dynamo_tpu_torch import obs
+
+    path = obs.tracer().dump(out_path)
+    with open(path) as f:
+        doc = json.load(f)
+    rows = [e for e in doc["traceEvents"] if e["ph"] == "X"]
+    kinds = {e["name"] for e in rows}
+    missing = sorted(set(STATUS_SPANS) - kinds)
+    steps = [e for e in rows if e["name"] == "step"
+             and e["args"].get("active") == 4]
+    split = []
+    for st in steps:
+        by = _within(rows, st["ts"], st["ts"] + st["dur"], st["tid"])
+        by["decode_dispatch"] = by.get("decode_dispatch", 0.0) \
+            - by.get("device_wait", 0.0) - by.get("enqueue_ahead", 0.0)
+        split.append((st["dur"], by))
+    med = {}
+    if split:
+        med["step"] = float(np.median([d for d, _ in split])) / 1e3
+        for k in ("sched", "enqueue_ahead", "prefill_dispatch",
+                  "decode_dispatch", "device_wait"):
+            med[k] = float(np.median([by.get(k, 0.0)
+                                      for _, by in split])) / 1e3
+    prefills = sorted(e["ts"] for e in rows
+                      if e["name"] == "prefill_dispatch")
+    sched_tid = steps[0]["tid"] if steps else None
+    waits = []
+    for r in rows:
+        if r["name"] != "worker_request":
+            continue
+        nxt = next((t for t in prefills if t >= r["ts"]), None)
+        if nxt is None:
+            continue
+        by = _within(rows, r["ts"], nxt, sched_tid)
+        waits.append({"ms": round((nxt - r["ts"]) / 1e3, 2),
+                      **{k: round(by.get(k, 0.0) / 1e3, 2)
+                         for k in ("step", "prefill_dispatch",
+                                   "decode_dispatch", "device_wait",
+                                   "enqueue_ahead", "sched")}})
+    log(f"trace {path}: {len(rows)} spans, kinds {sorted(kinds)}, missing "
+        f"{missing}; the median of {len(split)} 4-lane steps, ms: "
+        + ", ".join(f"{k} {v:.2f}" for k, v in med.items())
+        + f"; arrival to the next prefill dispatch, ms (and the scheduler "
+        f"track's spans inside it): "
+        f"{sorted(w['ms'] for w in waits)}, the longest "
+        f"{max(waits, key=lambda w: w['ms']) if waits else None}")
+    if missing:
+        raise SystemExit(f"the trace lacks span kinds {missing}")
+    return {"spans": len(rows), "step_ms": med, "arrival_waits": waits}
+
+
+async def _status_drain(rt, worker, polled: list) -> dict:
+    """The drain: /health answers 503 once it starts (the root token is
+    killed with it, as the CLI does), /live stays 200 throughout."""
+    addr = rt.system_address
+    await worker.drain(1.0)
+    rt.root_token.kill()
+    health, body = await _http(addr, "/health")
+    live, _ = await _http(addr, "/live")
+    log(f"after the drain: /health {health} ({json.loads(body)['status']}),"
+        f" /live {live}; /live polled {len(polled)} times during the run, "
+        f"statuses {sorted(set(polled))}")
+    if health != 503 or live != 200 or set(polled) != {200}:
+        raise SystemExit("/health or /live wrong around the drain")
+    return {"live_polls": len(polled)}
+
+
 def _kernels_of(kv_dtype: str) -> tuple:
     """The (decode, prefill) wrappers that serve a cache of `kv_dtype`."""
     from dynamo_tpu_torch.ops import cuda_packed_prefill as k3
@@ -1635,15 +2038,22 @@ def check_worker(device, card: str, cfg, params, direct) -> dict:
     """The five requests through a TorchEngineWorker (_serving_worker)
     with the engine run's config `cfg` and weights `params`, sent
     concurrently by a client of the same runtime.  `direct` is the
-    engine run's (warm run's results, decode-step medians), for the log:
-    the worker starts warm too.  Exits unless every request finishes
-    with 32 tokens, the kernels of this cache dtype were launched at least
-    layers x steps times, the stored KV events carry every prompt's
-    full-block hashes, the prefix hit reuses >= 1024 tokens, load_metrics
-    and FPM records arrive, the MDC is in discovery, clear_kv_blocks over
-    the request plane clears blocks and removed events follow, a stream
-    cancelled midway frees its slot, and close() removes the MDC.  Returns
-    the worker run's launch counts by kernel name."""
+    engine run's (warm run's results, decode-step medians), for the log
+    (None: not run): the worker starts warm too.  Exits unless every
+    request finishes with 32 tokens, the kernels of this cache dtype were
+    launched at least layers x steps times, the stored KV events carry
+    every prompt's full-block hashes, the prefix hit reuses >= 1024
+    tokens, load_metrics and FPM records arrive, the MDC is in discovery,
+    clear_kv_blocks over the request plane clears blocks and removed
+    events follow, a stream cancelled midway frees its slot, and close()
+    removes the MDC.  The same worker also serves the status plane, with
+    the tracer on, and its phase runs around the main run
+    (_status_probes, _poll_live, _status_gauges, _status_debug,
+    _tracing_ab, _status_trace, _status_drain); its own seconds are
+    printed.  Returns the worker run's launch counts by kernel name."""
+    import tempfile
+
+    from dynamo_tpu_torch import obs
     from dynamo_tpu_torch.router.events import wire_to_hash
     from dynamo_tpu_torch.tokens import compute_block_hashes_for_request
 
@@ -1651,14 +2061,25 @@ def check_worker(device, card: str, cfg, params, direct) -> dict:
     used = _kernels_of(kv_dtype)
     reqs = _requests(cfg.resolve_model().vocab_size)
     bs = cfg.block_size
+    trace_dir = tempfile.mkdtemp(prefix="chip-smoke-trace-")
+    # the timeline spans from the worker's warm-up on
+    obs.Tracer(out_path=os.path.join(trace_dir, "trace.json")).install()
+    status_s = [0.0]
 
     async def run():
-        async with _serving_worker(device, cfg, params) as (
+        async with _serving_worker(device, cfg, params, True) as (
                 rt, worker, client, seen):
             eng, iid = worker.engine, worker.served.instance_id
             ep = rt.namespace("dynamo").component("backend")
             if not await rt.discovery.get_prefix(worker.card.key(iid)):
                 raise SystemExit("the MDC is not in discovery")
+            polled: list = []
+            stop_poll = asyncio.Event()
+            t_st = time.perf_counter()
+            await _status_probes(rt, worker, seen)
+            poller = asyncio.create_task(
+                _poll_live(rt.system_address, stop_poll, polled))
+            status_s[0] += time.perf_counter() - t_st
             m0 = dict(eng.metrics)
             # the main path's run: counts set to 0 just before, read just
             # after, before any other launch
@@ -1703,12 +2124,29 @@ def check_worker(device, card: str, cfg, params, direct) -> dict:
             await asyncio.sleep(0.6)  # the main run's last FPM records
             recs = [r for m in seen["fpm"] for r in m["steps"]
                     if w0 <= r["t"] <= w1]
+            t_st = time.perf_counter()
+            stop_poll.set()
+            await poller
+            await _status_gauges(rt, worker, seen, recs)
+            await _status_debug(rt, worker, client, reqs)
+            await _tracing_ab(eng, reqs)
+            await _status_trace(os.path.join(trace_dir, "trace.json"))
+            await _status_drain(rt, worker, polled)
+            status_s[0] += time.perf_counter() - t_st
             return (res, counts, steps, dict(seen), cleared, removed_after,
                     got, freed, (_step_medians(recs),
                                  _prefill_dispatches(recs, w0)))
 
-    (res, counts, steps, seen, cleared, removed_after, got, freed,
-     (step_ms, dispatches)) = asyncio.run(run())
+    try:
+        (res, counts, steps, seen, cleared, removed_after, got, freed,
+         (step_ms, dispatches)) = asyncio.run(run())
+    finally:
+        if obs.tracer() is not None:
+            obs.tracer().uninstall()
+    log(f"status phase: {status_s[0]:.1f} s of its own (probes, gauges, "
+        f"debug and profile routes, tracing A/B, trace, drain)")
+    if direct is None:  # --status: no direct engine run to compare with
+        direct = ([(r[0], r[1], float("nan"), r[3]) for r in res], {})
     direct, direct_step_ms = direct
     for i, (toks, finish, ttft, _) in enumerate(res):
         log(f"  worker request {i}: prompt {len(reqs[i].token_ids)} tokens, "
@@ -5499,6 +5937,22 @@ def main() -> int:
         build_kernels()
         print(json.dumps({"checkpoint": check_checkpoint(device, card)}),
               flush=True)
+        print(card, flush=True)
+        return 0
+    if sys.argv[1:] == ["--status"]:
+        # python3 chip_smoke.py --status: the bf16 worker phase with its
+        # status plane (no direct engine run before it)
+        build_kernels()
+        from dynamo_tpu_torch.models import llama
+
+        gen = torch.Generator(device=device).manual_seed(0)
+        params = llama.init_params(cfg, gen, device)
+        t0 = time.perf_counter()
+        launches = check_worker(device, card, _engine_config("bf16"),
+                                params, None)
+        print(json.dumps({"status": {
+            "launches": launches,
+            "seconds": round(time.perf_counter() - t0, 1)}}), flush=True)
         print(card, flush=True)
         return 0
     if sys.argv[1:] == ["--worker-ab"]:

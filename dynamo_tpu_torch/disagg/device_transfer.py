@@ -38,6 +38,7 @@ from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import torch
 
+from .. import obs
 from .transfer import RequestPlanePullSource, dtype_name, torch_dtype
 
 logger = logging.getLogger(__name__)
@@ -497,10 +498,12 @@ class NegotiatedPullSource(RequestPlanePullSource):
 
     async def _device_chunk(self, b0: int, n: int):
         t0 = time.perf_counter()
-        reply = await self._call({
-            "op": "chunk", "request_id": self.params["request_id"],
-            "start": int(b0), "count": int(n), "via": "cuda_ipc",
-        })
+        with obs.span("disagg_chunk", request_id=self.params["request_id"],
+                      start=int(b0), count=int(n), via="cuda_ipc"):
+            reply = await self._call({
+                "op": "chunk", "request_id": self.params["request_id"],
+                "start": int(b0), "count": int(n), "via": "cuda_ipc",
+            })
         rpc_s = time.perf_counter() - t0
         if "uuid" not in reply:
             raise RuntimeError("sender refused a CUDA IPC chunk")

@@ -1,7 +1,7 @@
 """KV-block transfer between a prefill and a decode worker.
 
-A copy of dynamo_tpu/disagg/transfer.py (its obs spans left out), with
-the same wire protocol, so a torch worker pulls from a JAX worker and a
+A copy of dynamo_tpu/disagg/transfer.py, with the same wire protocol
+and the same `disagg_open`/`disagg_chunk` spans (obs/) on the pull's ops, so a torch worker pulls from a JAX worker and a
 JAX worker pulls from a torch worker.  The decode side owns the pull,
 and it is RECEIVER-PACED, tiered by where the two engines live:
 
@@ -48,6 +48,8 @@ from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
 import torch
+
+from .. import obs
 
 # wire dtype names (numpy's, as the JAX package writes them) and their
 # torch dtypes
@@ -301,16 +303,21 @@ class RequestPlanePullSource(PullSource):
         return out
 
     async def open(self) -> Dict[str, Any]:
-        header = await self._call(
-            {"op": "open", "request_id": self.params["request_id"]})
+        with obs.span("disagg_open",
+                      request_id=self.params["request_id"]):
+            header = await self._call(
+                {"op": "open", "request_id": self.params["request_id"]})
         self.layout = KvLayout.from_dict(header["layout"])
         return header
 
     async def chunk(self, b0: int, n: int):
-        frame = await self._call({
-            "op": "chunk", "request_id": self.params["request_id"],
-            "start": int(b0), "count": int(n),
-        })
+        with obs.span("disagg_chunk",
+                      request_id=self.params["request_id"],
+                      start=int(b0), count=int(n)):
+            frame = await self._call({
+                "op": "chunk", "request_id": self.params["request_id"],
+                "start": int(b0), "count": int(n),
+            })
         out = decode_chunk_frame(frame, self.layout)
         fb0, fn, arrs = out[0], out[1], out[2:]
         if fb0 != b0 or fn != n:

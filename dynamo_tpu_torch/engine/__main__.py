@@ -7,7 +7,11 @@ non-zero unless `--device cpu` asks for the plain attention versions on
 the CPU.  The runtime is configured from the `DYN_*` environment
 (runtime/config.py), e.g. DYN_DISCOVERY_BACKEND=file and
 DYN_DISCOVERY_PATH=<dir> to sit behind `python -m dynamo_tpu.frontend`
-on one host.  Prints `ready instance_id=<id>` once registered; SIGTERM
+on one host; DYN_SYSTEM_PORT (negative: an ephemeral port) serves
+/health, /live, /metrics and, with DYN_ADMIN_TOKEN, the /debug routes
+(runtime/system_status.py), and DYN_TRACE=1 with DYN_TRACE_OUT=<file>
+records the timeline spans and dumps them as a Chrome trace at exit
+(obs/).  Prints `ready instance_id=<id>` once registered; SIGTERM
 drains, deregisters and exits.  The kernels' launch counts (each CUDA
 wrapper's `launches`) are logged once ready and again at exit, so a
 driver of the process can tell what serving launched.
@@ -20,6 +24,7 @@ import logging
 import os
 import sys
 
+from .. import obs
 from ..device import resolve_device
 from ..ops.fused_sampling import EPILOGUE_MODES
 from ..ops.packed_prefill import PACKED_IMPLS
@@ -86,6 +91,10 @@ def build_args() -> argparse.ArgumentParser:
                    default=float(os.environ.get("DYN_PEAK_TFLOPS", "0")),
                    help="dense-bf16 peak, for prefill MFU in the FPM "
                         "records (H100 SXM: 989); 0 = unknown")
+    p.add_argument("--peak-hbm-gbps", type=float,
+                   default=float(os.environ.get("DYN_PEAK_HBM_GBPS", "0")),
+                   help="peak HBM bandwidth GB/s, for the /metrics "
+                        "roofline MBU gauges (H100 SXM: 3350); 0 = unknown")
     p.add_argument("--no-overlap-scheduling", action="store_true",
                    help="lockstep scheduler: dispatch, block on the "
                         "device, emit (the byte-identical reference for "
@@ -171,6 +180,7 @@ def engine_config(args: argparse.Namespace) -> EngineConfig:
         packed_attn_impl=args.packed_attn_impl,
         sampling_epilogue=args.sampling_epilogue,
         peak_tflops=args.peak_tflops,
+        peak_hbm_gbps=args.peak_hbm_gbps,
         overlap_scheduling=not args.no_overlap_scheduling,
         decode_fuse_adaptive=not args.no_adaptive_fusion,
         warmup=not args.no_warmup,
@@ -197,6 +207,9 @@ def engine_config(args: argparse.Namespace) -> EngineConfig:
 
 async def main() -> int:
     setup_logging()
+    # timeline tracing (obs/): DYN_TRACE=1 installs the process tracer;
+    # DYN_TRACE_OUT gets a Chrome trace dump at exit
+    obs.install_from_env()
     args = build_args().parse_args()
     try:
         device = resolve_device(args.device)

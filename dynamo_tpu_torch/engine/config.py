@@ -29,8 +29,6 @@ _UNPORTED = {
     "dp": (1, "data parallelism"),
     "tp": (1, "tensor parallelism"),
     "sp": (1, "sequence-parallel ring prefill"),
-    # its one reader in JAX is the roofline (MBU) gauges of /metrics
-    "peak_hbm_gbps": (0.0, "the /metrics roofline gauges"),
 }
 
 
@@ -115,6 +113,10 @@ class EngineConfig:
     # accelerator peak (dense bf16) TFLOP/s, for prefill-phase MFU in the
     # FPM records; 0 = unknown, MFU omitted
     peak_tflops: float = 0.0
+    # accelerator peak HBM bandwidth in GB/s, for the /metrics roofline
+    # MBU gauges (planner/metrics.py export_engine_gauges; H100 SXM HBM3:
+    # 3350); 0 = unknown, MBU gauges omitted
+    peak_hbm_gbps: float = 0.0
     # run TorchEngine.warmup_decode before the worker registers (the CLI
     # worker's default; off here so short-lived test engines skip it)
     warmup: bool = False
@@ -202,7 +204,6 @@ class EngineConfig:
     dp: int = 1
     tp: int = 1
     sp: int = 1
-    peak_hbm_gbps: float = 0.0
 
     def __post_init__(self):
         for name, (default, feature) in _UNPORTED.items():

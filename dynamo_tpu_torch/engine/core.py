@@ -102,6 +102,16 @@ take no decode burst and no speculation.
 prefill chunk budget down while the frontends report an error-budget
 burn above slo_yield_burn, as in the JAX engine.
 
+Observability (obs/): every scheduler phase is a timeline span of the
+JAX engine's taxonomy on one logical track per engine (`step`, `sched`
+or `enqueue_ahead`, `prefill_dispatch`, `decode_dispatch`,
+`device_wait`, `sample`, `kvbm_offload`/`kvbm_onboard`, `kv_pull`), one
+`None` check each when tracing is off; every program build is recorded
+by the capture watch (`capture_watch`, obs/compile_watch.py), and the
+prefill, decode and spec_verify FPM records carry the program's cost
+count (obs/costs.py) under the JAX names `xla_flops`/`xla_bytes`.  A
+drain abort and an engine crash dump the flight recorder.
+
 Not here yet (ROADMAP.md): penalties (the JAX engine ignores them too).
 """
 
@@ -121,6 +131,7 @@ from typing import Any, AsyncIterator, Callable, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from .. import obs
 from ..device import DeviceLike, resolve_device
 from ..disagg.transfer import KvLayout, dtype_name, make_transfer_params
 from ..kvbm.consolidator import KvEventConsolidator
@@ -129,6 +140,7 @@ from ..kvbm.residency import LineageResidency
 from ..lora.bank import clear_slot, empty_bank, write_adapter
 from ..lora.source import LocalLoraSource
 from ..models import llama
+from ..obs.compile_watch import CaptureWatch
 from ..ops.kv_transfer import (
     blocks_from_host,
     blocks_to_host,
@@ -280,6 +292,16 @@ def _tensors(tree):
     elif isinstance(tree, (list, tuple)):
         for v in tree:
             yield from _tensors(v)
+
+
+# the FPM record fields a dispatch span carries (when tracing)
+_PREFILL_SPAN_FIELDS = ("tokens", "bucket", "gap_s", "synced", "mfu",
+                        "est_mfu", "xla_flops", "xla_bytes")
+_DECODE_SPAN_FIELDS = ("gap_s", "xla_flops", "xla_bytes")
+
+
+def _span_fields(rec: Optional[dict], keys: tuple) -> dict:
+    return {} if rec is None else {k: rec[k] for k in keys if k in rec}
 
 
 class TorchEngine:
@@ -462,6 +484,18 @@ class TorchEngine:
                 _ladder(8, min(config.max_num_seqs * (config.spec_k + 1),
                                config.chunk_budget)),
                 self.device, capture=cuda_graphs)
+        # timeline spans: steps run on whatever pool thread to_thread
+        # picked, but the step lock serializes them, so every step-phase
+        # span (and capture span) is pinned to ONE logical track per
+        # engine
+        self._obs_track = f"sched:{id(self):x}"
+        # every program build is an observed event (the JAX engine's
+        # compile watch): counted, timed, span-recorded and costed
+        self.capture_watch = CaptureWatch(
+            sink=lambda rec: self.fpm.append(rec), track=self._obs_track,
+            serving=lambda: any(s is not None for s in self._slots))
+        for progs in self._program_families():
+            progs.watch = self.capture_watch
         # slot indexes that speculated this scheduler step (they emitted
         # synchronously; the decode burst skips them)
         self._specced: frozenset = frozenset()
@@ -509,9 +543,9 @@ class TorchEngine:
         # it was reported (set_slo_burn); stale signals decay to 0
         self._slo_burn = 0.0
         self._slo_burn_t = 0.0
-        # forward-pass metrics: one record per prefill dispatch and per
-        # decode step, with the JAX engine's keys (its xla_* keys come
-        # from XLA's cost analysis and have no counterpart here); the
+        # forward-pass metrics: one record per prefill dispatch, decode
+        # burst, verify dispatch and program build, with the JAX engine's
+        # keys (xla_flops/xla_bytes from the per-program cost count); the
         # worker drains this ring onto the event plane
         self.fpm: deque = deque(maxlen=4096)
         self._fpm_last_decode_t = 0.0
@@ -520,11 +554,24 @@ class TorchEngine:
         self._fpm_sync_t = 0.0
         # dense matmul FLOPs per prompt token, ~2 x params without the
         # embedding (a lookup) and the lm_head (last-token rows only);
-        # attention is left out, as in the JAX engine's hand count
+        # attention is left out, as in the JAX engine's hand count (the
+        # records' `flops`/`est_mfu`; `mfu` reads the cost count)
         skip = {id(params.get(k)) for k in ("embedding", "lm_head")}
         n_params = sum(t.numel() for t in _tensors(params)
                        if id(t) not in skip)
         self._flops_per_token = 2.0 * max(n_params, 1)
+
+    def _program_families(self) -> list:
+        """Every program family this engine builds (the capture watch's
+        sources)."""
+        fams = [self.graphs, self.prefill_graphs, self.guided_graphs]
+        if self.verify_graphs is not None:
+            fams.append(self.verify_graphs)
+        for name in ("programs", "catchup"):
+            progs = getattr(self.proposer, name, None)
+            if progs is not None:
+                fams.append(progs)
+        return fams
 
     # -- lifecycle ----------------------------------------------------------
     def start(self) -> None:
@@ -604,6 +651,23 @@ class TorchEngine:
         }}
         if self.kvbm is not None:
             out.update(self.kvbm.occupancy())
+        return out
+
+    def kv_block_bytes(self) -> int:
+        """Host-tier bytes one block's payload moves when onboarded (all
+        cache components, per physical block): the numerator of the
+        worker's published per-tier onboard costs."""
+        return int(sum(t.numel() * t.element_size() for t in self.kv)
+                   // max(1, self.config.num_blocks))
+
+    def kv_integrity_counters(self) -> Dict[Tuple[str, str], int]:
+        """(tier, action) -> count rows for the integrity-failure gauge:
+        the quarantines recorded here plus the KVBM manager's I/O
+        timeouts and errors."""
+        out = dict(self.kv_integrity)
+        if self.kvbm is not None:
+            for k, v in self.kvbm.io_failure_counters().items():
+                out[k] = out.get(k, 0) + v
         return out
 
     async def sweep_kvbm_g4(self) -> int:
@@ -689,6 +753,9 @@ class TorchEngine:
         migratable "worker draining" marker, so the frontend replays each
         request on a surviving worker; the scheduler reaps the slots."""
         self.draining = True
+        # flight recorder: the last N spans are the timeline that led to
+        # the abort; dumped before the streams are torn down
+        obs.flight_dump("drain_abort")
         self._fail_all_streams(error=DRAIN_ABORT)
         self._wake.set()
 
@@ -849,6 +916,9 @@ class TorchEngine:
         src = None
         t0 = time.monotonic()
         rid = slot.request.request_id
+        t_obs = obs.begin()
+        tid_obs = (obs.trace_id_from_annotations(slot.request.annotations)
+                   if t_obs else None)
 
         async def pull_chunk(b0: int, n: int):
             # a transiently failing chunk op is retried with jittered
@@ -949,6 +1019,7 @@ class TorchEngine:
                 pass
             self._wake.set()
         finally:
+            obs.end("kv_pull", t_obs, request_id=rid, trace_id=tid_obs)
             if src is not None:
                 try:
                     await src.close()
@@ -1103,6 +1174,7 @@ class TorchEngine:
                 exclude=_OffloadExclude(self.kvbm, self._offload_pending),
                 scan_limit=4 * self.config.offload_batch + 64)
             if cands:
+                t_obs = obs.begin()
                 blocks = blocks_to_host(self.kv, [bid for _, bid in cands],
                                         stream=self._offload_stream)
                 done = None
@@ -1114,6 +1186,8 @@ class TorchEngine:
                 self._offload_pending.update(h for h, _ in cands)
                 # on the CPU the copies are done: commit now, as JAX does
                 self._commit_offloads()
+                obs.end("kvbm_offload", t_obs, track=self._obs_track,
+                        blocks=len(cands))
         self.metrics["offload_s"] += time.perf_counter() - t0
 
     def _finish_offloads(self) -> None:
@@ -1133,7 +1207,10 @@ class TorchEngine:
                 if not wait:
                     return
                 t0 = time.perf_counter()
+                t_d = obs.begin()
                 done.synchronize()
+                obs.end("device_wait", t_d, track=self._obs_track,
+                        what="offload_copy")
                 self.metrics["offload_wait_s"] += time.perf_counter() - t0
             self._offloading.popleft()
             for h, blk in blocks:
@@ -1154,6 +1231,7 @@ class TorchEngine:
         run = self.kvbm.match_run(hashes[hit:cap_blocks])
         if run == 0:
             return 0
+        t_obs = obs.begin()
         block_ids = self.allocator.seq_block_ids(self._seq_id(slot))
         blocks, ids = [], []
         by_tier: Dict[str, int] = {}
@@ -1180,7 +1258,11 @@ class TorchEngine:
         for src, cnt in by_tier.items():
             key = f"kv_onboard_{src}"
             self.metrics[key] = self.metrics.get(key, 0) + cnt
-        return len(ids)
+        n = len(ids)
+        obs.end("kvbm_onboard", t_obs, track=self._obs_track, blocks=n,
+                tokens=n * self.config.block_size,
+                **{f"from_{s}": c for s, c in by_tier.items()})
+        return n
 
     def warmup_decode(self) -> None:
         """Build every program serving can reach, so no request pays for
@@ -1501,6 +1583,7 @@ class TorchEngine:
                 await asyncio.sleep(0)  # yield to the event loop
         except Exception:
             logger.exception("engine loop crashed")
+            obs.flight_dump("engine_crash")
             self._fail_all_streams()
             raise
 
@@ -1512,9 +1595,18 @@ class TorchEngine:
         with self._step_lock:
             if self._closed:
                 return
+            # timeline spans: one `step` over the iteration, `sched` over
+            # the host-only scheduling work (`enqueue_ahead` when unread
+            # bursts keep the device busy meanwhile: overlapped, not
+            # overhead); the dispatch phases emit their own spans inside
+            t_step = obs.begin()
+            t = obs.begin()
+            overlapped = self._overlap and bool(self._inflight)
             self._process_cancellations()
             self._maybe_offload()
             self._admit_waiting()
+            obs.end("enqueue_ahead" if overlapped else "sched", t,
+                    track=self._obs_track)
             # the previous step's deferred first tokens, before this
             # step's dispatches: the wait pays only for work the device
             # has had a step to finish
@@ -1529,6 +1621,11 @@ class TorchEngine:
                 # no dispatchable decode work: flush the pipeline tail so
                 # trailing tokens and finishes are delivered promptly
                 self._drain_inflight()
+            if t_step:  # attrs are only worth computing when tracing
+                obs.end("step", t_step, track=self._obs_track,
+                        active=sum(1 for s in self._slots
+                                   if s is not None),
+                        waiting=len(self.waiting))
 
     def _process_cancellations(self) -> None:
         with self._qlock:
@@ -1614,6 +1711,21 @@ class TorchEngine:
         )[:c.max_prefill_seqs]
         if not pslots:
             return
+        t_obs = obs.begin()
+        rec = None
+        try:
+            rec = self._prefill_dispatch(pslots)
+        finally:
+            if t_obs:
+                obs.end("prefill_dispatch", t_obs, track=self._obs_track,
+                        rows=len(pslots),
+                        **_span_fields(rec, _PREFILL_SPAN_FIELDS))
+
+    def _prefill_dispatch(self, pslots: List[_Slot]) -> Optional[dict]:
+        """_prefill_step's dispatch (split out so the span covers every
+        exit); returns the dispatch's FPM record, None when nothing was
+        planned."""
+        c = self.config
         decoding = sum(1 for s in self._slots
                        if s is not None and not s.prefilling)
         budget = max(c.chunk_budget - decoding, c.prefill_buckets[0])
@@ -1634,7 +1746,7 @@ class TorchEngine:
             min_bucket=c.prefill_buckets[0],
             with_lora=self.lora_bank is not None)
         if plan is None:
-            return
+            return None
         # the bucket's program on the plan padded to max_prefill_seqs rows
         # (every row sampled: greedy rows take the argmax)
         tok = self.prefill_graphs.run(
@@ -1650,8 +1762,9 @@ class TorchEngine:
                                                      plan.chunks))
                 if s.prefill_pos + ch >= s.prompt_len
                 and (s.guide is None or s.disagg_prefill)}
-        self._fpm_prefill(len(plan.slots), plan.tokens, plan.bucket,
-                          completing=completing)
+        rec = self._fpm_prefill(len(plan.slots), plan.tokens, plan.bucket,
+                                completing,
+                                self.prefill_graphs.costs[plan.bucket])
         firsts = None
         if need:
             firsts = self._prefill_samples(tok, need)
@@ -1661,6 +1774,7 @@ class TorchEngine:
             else:
                 first = -1
             self._finish_prefill_chunk(slot, chunk, first)
+        return rec
 
     def _prefill_samples(self, tok: torch.Tensor,
                          need: Dict[int, _Slot]) -> Optional[np.ndarray]:
@@ -1676,7 +1790,10 @@ class TorchEngine:
                 ents.append((slot, (self._seq_id(slot), slot.epoch), row))
             self._pending_first.append({"tok": back, "entries": ents})
             return None
+        t_obs = obs.begin()
         arr = back.wait()
+        obs.end("device_wait", t_obs, track=self._obs_track,
+                what="prefill_first_token")
         self._fpm_sync_t = time.monotonic()
         return arr
 
@@ -1688,7 +1805,10 @@ class TorchEngine:
         if not self._pending_first:
             return
         pending, self._pending_first = self._pending_first, []
+        t_obs = obs.begin()
         arrs = [e["tok"].wait() for e in pending]
+        obs.end("device_wait", t_obs, track=self._obs_track,
+                what="deferred_first_token")
         self._fpm_sync_t = time.monotonic()
         for e, arr in zip(pending, arrs):
             for slot, ident, row in e["entries"]:
@@ -1815,9 +1935,14 @@ class TorchEngine:
         plan = plan_spec_verify(rows, block_size=c.block_size,
                                 max_blocks_per_seq=c.max_blocks_per_seq)
         g = self.verify_graphs
-        backs = [Readback(t) for t in g.run(g.upload(g.pad(plan.arrays)))]
+        T = g.upload(g.pad(plan.arrays))
+        backs = [Readback(t) for t in g.run(T)]
+        t_obs = obs.begin()
         ids, vals, lse = (b.wait() for b in backs)
+        obs.end("device_wait", t_obs, track=self._obs_track,
+                what="spec_verify_fetch")
         self._fpm_sync_t = time.monotonic()
+        t_obs = obs.begin()
         proposed_total = accepted_total = 0
         specced = set()
         for (s, drafts), off in zip(plan.rows, plan.offsets):
@@ -1852,6 +1977,8 @@ class TorchEngine:
             s.draft_pos = min(s.ctx_len, ctx0 + len(drafts))
             if not s.finished:
                 self._spec_trim(s)
+        obs.end("sample", t_obs, track=self._obs_track,
+                what="spec_accept", lanes=len(plan.rows))
         self._specced = frozenset(specced)
         self.metrics["spec_steps"] = self.metrics.get("spec_steps", 0) + 1
         self.metrics["spec_proposed"] = \
@@ -1864,12 +1991,14 @@ class TorchEngine:
         if gap > 1.0:
             gap = 0.0  # an idle stretch, not verify latency: unknown
         # one FPM record per verify dispatch: the acceptance input the SLA
-        # planner's FpmObserver.spec_acceptance aggregates (no xla_* keys:
-        # the port has no cost analysis)
+        # planner's FpmObserver.spec_acceptance aggregates, and the verify
+        # program's cost count for the roofline gauges
+        cost = g.costs[T]
         self.fpm.append({
             "t": now, "kind": "spec_verify", "lanes": len(plan.rows),
             "proposed": proposed_total, "accepted": accepted_total,
             "tokens": plan.tokens, "gap_s": gap,
+            "xla_flops": cost["flops"], "xla_bytes": cost["bytes"],
         })
         self._fpm_last_spec_t = now
 
@@ -1961,6 +2090,7 @@ class TorchEngine:
         c = self.config
         codec = self._guided_codec()
         g = self.guided_graphs
+        t_obs = obs.begin()
         for slot in gslots:
             # a block for the next position (no burst speculation needed)
             nblocks = int(np.count_nonzero(slot.block_table))
@@ -1982,7 +2112,11 @@ class TorchEngine:
             a["tables"][i] = slot.block_table
             a["valid"][i] = True
             g.upload(a)
-            ids, vals = (b.wait() for b in g.run(self.GUIDED_TOPM))
+            backs = g.run(self.GUIDED_TOPM)
+            t_d = obs.begin()
+            ids, vals = (b.wait() for b in backs)
+            obs.end("device_wait", t_d, track=self._obs_track,
+                    what="guided_topk_fetch")
             self._fpm_sync_t = time.monotonic()
             slot.ctx_len += 1  # this step's KV write is in the cache
             s = slot.request.sampling
@@ -2015,7 +2149,11 @@ class TorchEngine:
                 self.metrics["guided_widened_retries"] = \
                     self.metrics.get("guided_widened_retries", 0) + 1
                 g.upload(a)
-                wids, wvals = (b.wait() for b in g.run(self.GUIDED_TOPM_WIDE))
+                backs = g.run(self.GUIDED_TOPM_WIDE)
+                t_d = obs.begin()
+                wids, wvals = (b.wait() for b in backs)
+                obs.end("device_wait", t_d, track=self._obs_track,
+                        what="guided_topk_fetch")
                 chosen = choose(wids[i], wvals[i])
             if chosen is None:
                 # even the widened set has no valid continuation: close
@@ -2035,6 +2173,8 @@ class TorchEngine:
                 # the token budget, so the document is closed canonically
                 # (a few tokens over) instead of truncated
                 self._guided_finish(slot, codec, forced=True)
+        obs.end("sample", t_obs, track=self._obs_track, what="guided",
+                lanes=len(gslots))
 
     def _finish_metrics(self, slot: _Slot) -> Dict[str, Any]:
         """A stream's last chunk's metrics."""
@@ -2152,6 +2292,7 @@ class TorchEngine:
         bursts stay unread after it (the oldest are processed first);
         lockstep mode is depth 1 with a drain right after the dispatch."""
         c = self.config
+        t_obs = obs.begin()
         depth = max(1, c.decode_pipeline_depth) if self._overlap else 1
         while len(self._inflight) >= depth:
             self._process_oldest_burst()
@@ -2203,6 +2344,11 @@ class TorchEngine:
         active = self._decodable()
         if not active:
             return
+        # from here to the dispatch is host work building and enqueuing
+        # the NEXT burst; with unread bursts in flight the device is still
+        # executing, so it is the overlapped `enqueue_ahead` phase, nested
+        # inside decode_dispatch
+        t_ea = obs.begin() if (self._overlap and self._inflight) else 0.0
         # fresh arrays per full dispatch: _last_desc keeps the previous
         # ones as the continuation check's host mirror
         a = self.graphs.host_descriptor()
@@ -2242,15 +2388,20 @@ class TorchEngine:
                                if n not in ("tokens", "use_chain")}
             self._last_desc["k"] = k
         back = self.graphs.run(greedy, k)
+        obs.end("enqueue_ahead", t_ea, track=self._obs_track, k=k)
         self.metrics["decode_steps"] += k
         self.metrics["decode_bursts"] += 1
-        self._fpm_decode(k)
+        rec = self._fpm_decode(k, self.graphs.costs[(greedy, k)])
         lanes = {}
         for s in active:
             s.inflight += k
             lanes[s.index] = (self._seq_id(s), s.epoch)
             self._chain_owner[s.index] = lanes[s.index]
         self._inflight.append({"burst": back, "k": k, "lanes": lanes})
+        if t_obs:
+            obs.end("decode_dispatch", t_obs, track=self._obs_track,
+                    cont=cont, k=k, lanes=len(active),
+                    **_span_fields(rec, _DECODE_SPAN_FIELDS))
         if not self._overlap:
             self._drain_inflight()  # lockstep: block and emit now
 
@@ -2286,7 +2437,10 @@ class TorchEngine:
         finish, or to freed blocks that later dispatches overwrite in
         stream order)."""
         e = self._inflight.popleft()
+        t_obs = obs.begin()
         arr = e["burst"].wait()  # [k, B]
+        obs.end("device_wait", t_obs, track=self._obs_track, k=e["k"],
+                what="burst_fetch")
         self._fpm_sync_t = time.monotonic()
         for i, ident in e["lanes"].items():
             s = self._slots[i]
@@ -2307,14 +2461,18 @@ class TorchEngine:
 
     # -- forward-pass metrics ------------------------------------------------
     def _fpm_prefill(self, rows: int, tokens: int, bucket: int,
-                     completing: int) -> None:
+                     completing: int, cost: Dict[str, float]) -> dict:
         """One record per packed prefill dispatch, as the JAX engine's
         `_fpm_prefill`: gap_s is the dispatch-to-dispatch gap (0.0 after
         an idle second: unknown), queue_depth the prefilling and waiting
-        requests minus those this dispatch completes, and est_mfu (= mfu)
-        the hand-counted dense FLOPs over the gap against
-        config.peak_tflops, when that is set and a blocking read of
-        sampled tokens landed inside the gap."""
+        requests minus those this dispatch completes, xla_flops/xla_bytes
+        the bucket program's cost count (obs/costs.py; JAX's come from
+        XLA's cost analysis of the compiled program), and est_mfu the
+        hand-counted dense FLOPs over the gap against config.peak_tflops,
+        when that is set and a blocking read of sampled tokens landed
+        inside the gap; `mfu` is the cost count's FLOPs over the same gap
+        (it includes attention, the real logit rows and the bucket's
+        padding)."""
         now = time.monotonic()
         gap = (now - self._fpm_last_prefill_t
                if self._fpm_last_prefill_t else 0.0)
@@ -2329,18 +2487,22 @@ class TorchEngine:
             "t": now, "kind": "prefill", "rows": rows, "tokens": tokens,
             "bucket": bucket, "packed": True, "gap_s": gap,
             "flops": flops, "queue_depth": depth, "synced": synced,
+            "xla_flops": cost["flops"], "xla_bytes": cost["bytes"],
         }
         if gap > 0.0 and self.config.peak_tflops > 0.0 and synced:
-            est = min(flops / gap / (self.config.peak_tflops * 1e12), 1.0)
-            rec["est_mfu"] = rec["mfu"] = est
+            peak = self.config.peak_tflops * 1e12
+            rec["est_mfu"] = min(flops / gap / peak, 1.0)
+            rec["mfu"] = min(cost["flops"] / gap / peak, 1.0)
         self.fpm.append(rec)
         self._fpm_last_prefill_t = now
+        return rec
 
-    def _fpm_decode(self, k: int) -> None:
+    def _fpm_decode(self, k: int, cost: Dict[str, float]) -> dict:
         """One record per decode burst, as the JAX engine's: its fused k,
-        the slots past prefill, and the dispatch-to-dispatch gap (with
-        the pipeline saturated, the burst's wall time; 0.0 after an idle
-        second: unknown)."""
+        the slots past prefill, the dispatch-to-dispatch gap (with the
+        pipeline saturated, the burst's wall time; 0.0 after an idle
+        second: unknown) and the burst program's cost count as
+        xla_flops/xla_bytes."""
         now = time.monotonic()
         gap = (now - self._fpm_last_decode_t
                if self._fpm_last_decode_t else 0.0)
@@ -2348,9 +2510,12 @@ class TorchEngine:
             gap = 0.0
         lanes = sum(1 for s in self._slots
                     if s is not None and not s.prefilling)
-        self.fpm.append({"t": now, "kind": "decode", "k": k, "lanes": lanes,
-                         "gap_s": gap})
+        rec = {"t": now, "kind": "decode", "k": k, "lanes": lanes,
+               "gap_s": gap, "xla_flops": cost["flops"],
+               "xla_bytes": cost["bytes"]}
+        self.fpm.append(rec)
         self._fpm_last_decode_t = now
+        return rec
 
     def _commit_full_blocks(self, slot: _Slot) -> None:
         """Register newly completed full blocks under their PLH, once every

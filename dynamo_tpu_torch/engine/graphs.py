@@ -88,6 +88,12 @@ programs (`_decode_topk_impl`): one decode step and the M largest
 logits of every lane, for M = 32 and the widened 256, one graph each in
 their own pool, both built by warm-up.
 
+Every family records each build (`_Built`): `costs[key]` holds the
+program's cost count (obs/costs.py, {"flops", "bytes"} at its captured
+shapes), computed once at the build, and a `watch` the engine installs
+(obs/compile_watch.py CaptureWatch) is told the family, the key, the
+build's seconds (first run plus capture) and the costs.
+
 Readback, the counterpart of `copy_to_host_async`: right after a run
 its output is copied on the same stream into a pinned host buffer owned
 by the returned `Readback`, and an event is recorded; `wait()` blocks on
@@ -105,6 +111,7 @@ import numpy as np
 import torch
 
 from ..models import llama
+from ..obs.costs import program_costs
 from ..ops import fused_sampling
 from .sampler import CAP, sample_tokens, top_window
 
@@ -136,6 +143,49 @@ class Readback:
         if self._event is not None:
             self._event.synchronize()
         return self._host.numpy()
+
+
+def _lora_shape(bank: Optional[Dict[str, torch.Tensor]]) -> tuple:
+    """(slots, rank) of a LoRA bank (lora/bank.py), (0, 0) without one."""
+    if bank is None:
+        return 0, 0
+    a = bank["A_q"]  # [L, N, d_in, r]
+    return int(a.shape[1]), int(a.shape[3])
+
+
+class _Built:
+    """A program family's build record: `counts[key]` (1 once built),
+    `costs[key]` (the cost count, obs/costs.py) and the capture watch's
+    event.  Subclasses give `COST_FAMILY` and the shape arguments of
+    their count, and the family name the watch records."""
+
+    COST_FAMILY = ""
+    watch = None  # obs/compile_watch.py CaptureWatch, set by the engine
+
+    def _cost_shape(self) -> dict:
+        raise NotImplementedError
+
+    def watch_family(self, key) -> str:
+        raise NotImplementedError
+
+    @staticmethod
+    def watch_tokens(key) -> int:
+        return int(key)
+
+    def _built(self, key, seconds: float) -> None:
+        self.counts[key] = 1
+        self.costs[key] = program_costs(self.cfg, self.COST_FAMILY, key,
+                                        **self._cost_shape())
+        if self.watch is not None:
+            self.watch.on_capture(self.watch_family(key),
+                                  self.watch_tokens(key), seconds,
+                                  self.costs[key])
+
+
+def _cache_shape(kv: tuple) -> dict:
+    """The cost count's cache arguments: block size and the int8 mode."""
+    return {"block_size": int(kv[0].shape[3]),
+            "int8": kv[0].dtype == torch.int8}
 
 
 class _Desc:
@@ -208,7 +258,12 @@ class _LaneDescriptor:
             self._staged[i].record()
 
 
-class DecodePrograms(_LaneDescriptor):
+class DecodePrograms(_LaneDescriptor, _Built):
+    COST_FAMILY = "decode"
+    # the JAX programs' names: decode (one step), decode_multi (bursts);
+    # the draft proposer's instance records draft_propose
+    FAMILY_ONE, FAMILY_MULTI = "decode", "decode_multi"
+
     def __init__(self, params, cfg: llama.LlamaConfig, kv: tuple, B: int,
                  max_blocks: int, device: torch.device,
                  capture: bool = True, epilogue: bool = False,
@@ -225,12 +280,25 @@ class DecodePrograms(_LaneDescriptor):
         self.chain = torch.zeros(B, dtype=torch.int32, device=device)
         self.out: Dict[int, torch.Tensor] = {}
         self.counts: Dict[Tuple[bool, int], int] = {}
+        self.costs: Dict[Tuple[bool, int], Dict[str, float]] = {}
         # seconds each capture took, and the bytes the graph pool reserved
         self.capture_s: Dict[Tuple[bool, int], float] = {}
         self.pool_bytes = 0
         self._graphs: Dict[Tuple[bool, int], torch.cuda.CUDAGraph] = {}
         self._graph_launches: Dict[Tuple[bool, int], list] = {}
         self._pool = None
+
+    def _cost_shape(self) -> dict:
+        return {"rows": self.B, "max_blocks": self.max_blocks,
+                "lora": _lora_shape(self.lora_bank),
+                "epilogue": self.epilogue, **_cache_shape(self.kv)}
+
+    def watch_family(self, key) -> str:
+        return self.FAMILY_ONE if key[1] == 1 else self.FAMILY_MULTI
+
+    @staticmethod
+    def watch_tokens(key) -> int:
+        return int(key[1])
 
     def continuation(self, advance: int) -> None:
         """Re-dispatch the device descriptor: every lane chains and the
@@ -294,11 +362,12 @@ class DecodePrograms(_LaneDescriptor):
             for fn, n in self._graph_launches[key]:
                 fn.launches += n
             return Readback(self.out[k])
+        t0 = time.perf_counter()
         out = self.run_eager(greedy, k)
         if key not in self.counts:
             if self.capture:
                 self._capture(key)
-            self.counts[key] = 1
+            self._built(key, time.perf_counter() - t0)
         return Readback(out)
 
     def _capture(self, key: Tuple[bool, int]) -> None:
@@ -373,7 +442,7 @@ class _BucketDesc:
         self.tables = buf[off:off + rows * max_blocks].view(rows, max_blocks)
 
 
-class _BucketPrograms:
+class _BucketPrograms(_Built):
     """One program per stream length T of a packed planner's buckets,
     each reading views of its own int32 descriptor (STREAM fields of T
     words, ROWS fields of `rows` words, then the tables) and writing
@@ -406,6 +475,7 @@ class _BucketPrograms:
             self.d[T] = _BucketDesc(self.desc[T], T, rows, max_blocks,
                                     self.stream, self.ROWS)
         self.counts: Dict[int, int] = {}
+        self.costs: Dict[int, Dict[str, float]] = {}
         self.capture_s: Dict[int, float] = {}
         self.pool_bytes = 0
         self._graphs: Dict[int, torch.cuda.CUDAGraph] = {}
@@ -418,6 +488,14 @@ class _BucketPrograms:
         self._staged = [None] * _STAGING
         self._next = 0
         self._init_outputs()
+
+    def _cost_shape(self) -> dict:
+        return {"rows": self.rows, "max_blocks": self.max_blocks,
+                "lora": _lora_shape(self.lora_bank),
+                **_cache_shape(self.kv)}
+
+    def watch_family(self, key) -> str:
+        return self.FAMILY
 
     def _words(self, T: int) -> int:
         return (len(self.stream) * T + len(self.ROWS) * self.rows
@@ -503,11 +581,12 @@ class _BucketPrograms:
             for fn, n in self._graph_launches[T]:
                 fn.launches += n
             return self._outputs(T)
+        t0 = time.perf_counter()
         out = self.run_eager(T)
         if T not in self.counts:
             if self.capture:
                 self._capture(T)
-            self.counts[T] = 1
+            self._built(T, time.perf_counter() - t0)
         return out
 
     def _capture(self, T: int) -> None:
@@ -528,6 +607,8 @@ class PrefillPrograms(_BucketPrograms):
     and [rows, vocab] logits `logits[T]`."""
 
     KIND = "prefill"
+    COST_FAMILY = "prefill"
+    FAMILY = "prefill_packed"
     STREAM = PREFILL_STREAM
     ROWS = PREFILL_ROWS
 
@@ -575,6 +656,8 @@ class VerifyPrograms(_BucketPrograms):
     static ids [T, CAP], vals [T, CAP] and lse [T]."""
 
     KIND = "verify"
+    COST_FAMILY = "verify"
+    FAMILY = "spec_verify"
     STREAM = VERIFY_STREAM
 
     def _init_outputs(self) -> None:
@@ -612,6 +695,8 @@ class CatchupPrograms(_BucketPrograms):
     writes the draft's cache and has no output."""
 
     KIND = "catchup"
+    COST_FAMILY = "catchup"
+    FAMILY = "draft_prefill"
     STREAM = CATCHUP_STREAM
 
     def _init_outputs(self) -> None:
@@ -631,7 +716,7 @@ class CatchupPrograms(_BucketPrograms):
 GUIDED_FIELDS = ("tokens", "positions", "ctx_lens", "valid")
 
 
-class GuidedPrograms(_LaneDescriptor):
+class GuidedPrograms(_LaneDescriptor, _Built):
     """The guided-decoding candidate programs, the counterpart of the JAX
     engine's `_decode_topk_impl` (its `_topk_jit` and `_topk_wide_jit`):
     one decode step at B = max_num_seqs (models/llama.py decode; K1
@@ -644,6 +729,8 @@ class GuidedPrograms(_LaneDescriptor):
     CUDA each program is captured at its first run (warmup_decode runs
     both) into its own graph pool, K1's launches moved to the replays;
     `counts[M]` gates the builds."""
+
+    COST_FAMILY = "guided"
 
     def __init__(self, params, cfg: llama.LlamaConfig, kv: tuple, B: int,
                  max_blocks: int, ms, device: torch.device,
@@ -658,11 +745,20 @@ class GuidedPrograms(_LaneDescriptor):
         self.vals = {m: torch.zeros(B, width[m], dtype=torch.float32,
                                     device=device) for m in self.ms}
         self.counts: Dict[int, int] = {}
+        self.costs: Dict[int, Dict[str, float]] = {}
         self.capture_s: Dict[int, float] = {}
         self.pool_bytes = 0
         self._graphs: Dict[int, torch.cuda.CUDAGraph] = {}
         self._graph_launches: Dict[int, list] = {}
         self._pool = None
+
+    def _cost_shape(self) -> dict:
+        return {"rows": self.B, "max_blocks": self.max_blocks,
+                **_cache_shape(self.kv)}
+
+    def watch_family(self, key) -> str:
+        # the JAX engine's top-M programs: the window, then the widened
+        return "decode_topk" if key == self.ms[0] else "decode_topk_wide"
 
     def run_eager(self, m: int) -> Tuple[torch.Tensor, torch.Tensor]:
         """The program body, run eagerly: returns its static (ids, vals)."""
@@ -684,11 +780,12 @@ class GuidedPrograms(_LaneDescriptor):
             for fn, n in self._graph_launches[m]:
                 fn.launches += n
             return Readback(self.ids[m]), Readback(self.vals[m])
+        t0 = time.perf_counter()
         ids, vals = self.run_eager(m)
         if m not in self.counts:
             if self.capture:
                 self._capture(m)
-            self.counts[m] = 1
+            self._built(m, time.perf_counter() - t0)
         return Readback(ids), Readback(vals)
 
     def _capture(self, m: int) -> None:

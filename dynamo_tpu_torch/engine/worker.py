@@ -26,9 +26,24 @@ the unchanged JAX frontend and its KV router serve it like any other:
     the KV event stream);
   * KV events on `kv_events.{ns}.{comp}` (router/events.py), netted by the
     engine's consolidator, tiers g1-g4;
-  * load metrics on `load_metrics.{ns}.{comp}` and the engine's
-    forward-pass-metrics records on `fpm.{ns}.{comp}`, every 0.5 s, and a
-    GC sweep of the shared G4 store every 30 s;
+  * load metrics on `load_metrics.{ns}.{comp}` (with `kv_tier_costs`,
+    the per-tier onboard costs the KV router's tiered selector reads,
+    priced from the measured prefill rate and degraded under an open
+    breaker) and the engine's forward-pass-metrics records on
+    `fpm.{ns}.{comp}`, every 0.5 s, and a GC sweep of the shared G4 store
+    every 30 s;
+  * the /metrics surface of the runtime's system-status server
+    (runtime/system_status.py), fed by the same load loop: the FPM
+    window's gauges (planner/metrics.py export_engine_gauges: prefill
+    MFU, per-phase roofline `dynamo_engine_mfu`/`dynamo_engine_mbu` from
+    the per-program cost counts against config.peak_tflops and
+    peak_hbm_gbps, KV blocks by tier), the capture watch's compile
+    histogram, the breaker and integrity gauges, the four
+    `dynamo_engine_*` load gauges and, with tracing on, the span
+    histogram; `/debug/state` merges this worker's `debug_state`;
+  * each generate() stream is a `worker_request` span carrying the
+    frontend's trace id (bound for log correlation meanwhile), and the
+    MDC advertises `"tracing": True` while a tracer is installed;
   * guided decoding validates candidate text with the model's tokenizer,
     built from the MDC's tokenizer entry (frontend/tokenizer.py), or the
     byte mock where it cannot be built;
@@ -39,8 +54,7 @@ the unchanged JAX frontend and its KV router serve it like any other:
     the migratable "worker draining" marker.
 
 Not ported yet (ROADMAP.md): multi-host slices, the `embed` endpoint,
-timeline spans, and the /metrics gauges and /debug sources (the
-system-status server is not ported).
+and the KV ledger's /debug/kv source.
 
 The `kvbm_pull` wire carries block hashes as 16-byte big-endian bytes
 (router/events.py hash_to_wire), as the KV events do, and accepts plain
@@ -57,6 +71,7 @@ import time
 from collections import OrderedDict
 from typing import Dict, Optional
 
+from .. import obs
 from ..device import DeviceLike
 from ..disagg import broker
 from ..disagg.device_transfer import (
@@ -68,7 +83,10 @@ from ..disagg.device_transfer import (
 from ..disagg.transfer import encode_chunk_frame, make_header
 from ..frontend.tokenizer import tokenizer_from_mdc
 from ..models.loader import load_chat_template
+from ..kvbm import breaker as kvbm_breaker
+from ..obs.compile_watch import observe_compile_records
 from ..obs.slo import SLO_SUBJECT_PREFIX
+from ..planner.metrics import FpmWindow, export_engine_gauges
 from ..protocols import (
     CANARY_GENERATE_PAYLOAD,
     ModelDeploymentCard,
@@ -78,6 +96,7 @@ from ..protocols import (
 )
 from ..kvbm.remote import RemoteBlockIndex, RemoteKvbmPuller, encode_block
 from ..router.events import KvEventPublisher, hash_to_wire, wire_to_hash
+from ..router.tiered_index import compute_tier_costs, degraded_tier_costs
 from ..runtime import DistributedRuntime
 from ..runtime.discovery import new_instance_id
 from .config import EngineConfig
@@ -140,6 +159,11 @@ class TorchEngineWorker:
         self._broker_id: Optional[int] = None
         self._kvbm_index: Optional[RemoteBlockIndex] = None
         self._kvbm_pull_client = None
+        # the worker's own FPM window: the load loop feeds it, /metrics
+        # and /debug/state read the engine numbers off it
+        self._fpm_window = FpmWindow()
+        self._debug_source_name: Optional[str] = None
+        self.tier_costs: Optional[Dict[str, float]] = None
 
     @property
     def card(self) -> ModelDeploymentCard:
@@ -184,6 +208,8 @@ class TorchEngineWorker:
                 **({"speculative": {"proposer": self.config.spec_decode,
                                     "k": self.config.spec_k}}
                    if eng is not None and eng.spec_enabled else {}),
+                # the timeline-tracing capability (obs/)
+                **({"tracing": True} if obs.enabled() else {}),
             },
         )
 
@@ -222,8 +248,23 @@ class TorchEngineWorker:
 
         async def generate_handler(payload, ctx):
             request = PreprocessedRequest.from_dict(payload)
-            async for out in self.engine.generate(request, token=ctx.token):
-                yield out.to_dict()
+            ntok = 0
+            tid = obs.trace_id_from_annotations(request.annotations)
+            # log<->trace correlation: every record logged while serving
+            # the stream carries the frontend's trace id
+            bind_tok = obs.bind_trace_id(tid)
+            # the worker-side request span, joined to the frontend's
+            # `request` span by the propagated trace id
+            t_obs = obs.begin()
+            try:
+                async for out in self.engine.generate(request,
+                                                      token=ctx.token):
+                    ntok += len(out.token_ids)
+                    yield out.to_dict()
+            finally:
+                obs.end("worker_request", t_obs, trace_id=tid,
+                        request_id=request.request_id, tokens=ntok)
+                obs.unbind_trace_id(bind_tok)
 
         async def clear_handler(payload, ctx):
             n = await self.engine.clear_kv_blocks()
@@ -332,6 +373,9 @@ class TorchEngineWorker:
             await asyncio.to_thread(self.engine.warmup_decode)
         await register_model(rt, self.card, instance_id)
         self._load_task = asyncio.create_task(self._load_loop())
+        # fleet introspection: this worker's live state on /debug/state
+        self._debug_source_name = f"worker:{instance_id}"
+        rt.register_debug_source(self._debug_source_name, self.debug_state)
         # SLA-aware admission input: the frontends' published SLO burn
         # rate into the engine, where a sustained burn makes prefill
         # chunks yield budget to decode (stale signals decay engine-side,
@@ -340,6 +384,50 @@ class TorchEngineWorker:
         logger.info("torch engine worker %d serving %s on %s", instance_id,
                     self.config.served_name, self.engine.device)
         return self
+
+    def debug_state(self) -> dict:
+        """Live scheduler/KV/drain snapshot for /debug/state and the fleet
+        aggregator, with the JAX worker's keys.  Read-only over structures
+        the scheduler thread mutates: copies first and tolerates a torn
+        read (a debug dump never takes the step lock)."""
+        eng = self.engine
+        slots = []
+        for s in list(eng._slots):
+            if s is None:
+                continue
+            slots.append({
+                "request_id": s.request.request_id,
+                "prompt_len": s.prompt_len,
+                "generated": s.generated,
+                "prefilling": s.prefilling,
+                "pulling": s.pulling,
+                "inflight": s.inflight,
+                "cached_tokens": s.cached_tokens,
+            })
+        fw = self._fpm_window
+        return {
+            "kind": "engine",
+            "instance_id": (self.served.instance_id
+                            if self.served is not None else None),
+            "namespace": self.namespace,
+            "component": self.component,
+            "model": self.config.served_name,
+            "role": self.config.role,
+            "draining": eng.draining,
+            "active_seqs": eng.num_active_seqs,
+            "waiting": [s.request.request_id for s in list(eng.waiting)],
+            "slots": slots,
+            "tokens_in_flight": sum(
+                s["prompt_len"] + s["generated"] for s in slots),
+            "kv": eng.kv_occupancy(),
+            "kv_usage": eng.kv_usage(),
+            "kv_cache_dtype": eng.kv_dtype,
+            "itl_ema_s": eng.itl_ema_s,
+            "itl_p95_s": fw.decode_itl_p95_s(),
+            "compile": fw.compile_stats(),
+            "engine_metrics": dict(eng.metrics),
+            "config": dict(self.card.runtime_config),
+        }
 
     def _transfer_server(self):
         """The process's CUDA IPC server where the opt-in holds and it
@@ -404,6 +492,13 @@ class TorchEngineWorker:
         subject = f"{LOAD_SUBJECT_PREFIX}.{self.namespace}.{self.component}"
         fpm_subject = f"{FPM_SUBJECT_PREFIX}.{self.namespace}.{self.component}"
         plane = self.runtime.event_plane
+        # this worker's /metrics surface on the system-status server
+        m = self.runtime.metrics.scoped(component=self.component)
+        tr = obs.tracer()
+        if tr is not None:
+            # per-span-kind duration histograms next to the engine gauges
+            tr.bind_metrics(m)
+        fw = self._fpm_window
         ticks = 0
         while True:
             await asyncio.sleep(0.5)
@@ -421,6 +516,45 @@ class TorchEngineWorker:
             steps = []
             while eng.fpm and len(steps) < 512:
                 steps.append(eng.fpm.popleft())
+            for rec in steps:
+                fw.add(wid, rec)
+            # capture-watch records -> the per-family compile histogram,
+            # then the gauge surface: headline FPM aggregates, per-phase
+            # roofline MFU/MBU from the cost counts over dispatch gaps,
+            # KV occupancy per tier
+            observe_compile_records(m, steps)
+            export_engine_gauges(
+                m, fw, peak_tflops=self.config.peak_tflops,
+                peak_hbm_gbps=self.config.peak_hbm_gbps,
+                occupancy=eng.kv_occupancy())
+            # per-tier onboard costs for the router's tiered selector:
+            # the measured prefill rate over the cache's per-block bytes,
+            # recomputed each tick as the window fills (the selector
+            # falls back to its defaults until the first publish)
+            flops_rate, _ = fw._phase_rates("prefill")
+            tok_rate = fw.prefill_tokens_per_s()
+            if flops_rate > 0.0 and tok_rate > 0.0:
+                self.tier_costs = compute_tier_costs(
+                    prefill_flops_per_s=flops_rate,
+                    flops_per_token=flops_rate / tok_rate,
+                    bytes_per_block=eng.kv_block_bytes(),
+                    block_tokens=self.config.block_size)
+            tier_costs = self.tier_costs
+            # degraded mode: a non-closed tier is priced AT recompute, so
+            # the selector stops steering traffic toward its blocks
+            if eng.kvbm is not None:
+                states = eng.kvbm.tier_states()
+                tier_costs = degraded_tier_costs(tier_costs, states)
+                for tier, st in states.items():
+                    m.set("dynamo_kvbm_tier_state",
+                          float(kvbm_breaker.NUMERIC.get(st, 0)),
+                          "KV tier circuit-breaker state "
+                          "(0=closed, 1=half_open, 2=open)", tier=tier)
+            for (tier, action), n in eng.kv_integrity_counters().items():
+                m.set("dynamo_kv_integrity_failures_total", float(n),
+                      "checksum quarantines and deadline/breaker I/O "
+                      "failures across the KV cache fabric",
+                      tier=tier, action=action)
             try:
                 if steps:
                     await plane.publish(fpm_subject,
@@ -430,6 +564,8 @@ class TorchEngineWorker:
                     "active_seqs": eng.num_active_seqs,
                     "kv_usage": eng.kv_usage(),
                     "kv_total_blocks": self.config.num_blocks,
+                    **({"kv_tier_costs": tier_costs} if tier_costs
+                       else {}),
                     "kv_cache_dtype": eng.kv_dtype,
                     "engine_metrics": dict(eng.metrics),
                     "requests_total": eng.metrics["requests"],
@@ -438,6 +574,10 @@ class TorchEngineWorker:
                 })
             except Exception:
                 logger.warning("load/fpm publish failed", exc_info=True)
+            m.set("dynamo_engine_active_seqs", eng.num_active_seqs)
+            m.set("dynamo_engine_waiting_seqs", len(eng.waiting))
+            m.set("dynamo_engine_kv_usage", eng.kv_usage())
+            m.set("dynamo_engine_itl_ema_seconds", eng.itl_ema_s)
 
     async def drain(self, deadline_s: float = 5.0) -> None:
         """Graceful drain (the SIGTERM path): withdraw this worker's
@@ -464,6 +604,9 @@ class TorchEngineWorker:
                     self._chunk_refs.clear())
 
     async def close(self) -> None:
+        if self._debug_source_name is not None:
+            self.runtime.unregister_debug_source(self._debug_source_name)
+            self._debug_source_name = None
         if self._broker_id is not None:
             broker.deregister_engine(self._broker_id)
             self._broker_id = None

@@ -1,0 +1,183 @@
+"""The per-program cost count: FLOPs and bytes of each captured program.
+
+The port's counterpart of dynamo_tpu/obs/compile_watch.py `xla_costs`:
+the JAX engine reads each compiled program's FLOPs and bytes accessed
+off XLA's cost analysis, which includes the Pallas kernels' own
+`CostEstimate`s; the port has no compiler to ask, so it counts them from
+the model config, the program's family and its capture key (the decode
+burst k, or the stream bucket T), at the program's captured shapes.
+The count is computed once per program when engine/graphs.py builds it,
+and the engine stamps it on the FPM records as `xla_flops`/`xla_bytes`,
+the names the roofline readers (planner/metrics.py FpmWindow, the JAX
+planner) join on.
+
+What is counted, per trunk pass of n tokens through L layers:
+
+  * the matmuls: 2·n·(d·q + 2·d·kv + q·d + 3·d·ffn) per layer, the
+    lm_head's 2·rows·d·vocab for the rows the program projects, and
+    with a LoRA bank mounted the per-row masked delta of every target
+    (x·A for every slot, then the [n, N·r] x [N·r, d_out] product);
+  * attention by the Pallas kernels' cost formulas, so a torch worker's
+    roofline reads as a JAX worker's: K1 (`paged_attention_decode_pallas`)
+    per layer and step 2·2·B·nh·hd·max_blocks·bs FLOPs and
+    2·B·nkv·max_blocks·bs·pos_bytes bytes; K3
+    (`packed_prefill_attention_pallas`) per layer 2·2·Tp·nh·hd·chunks·C
+    FLOPs and 2·tiles·nkv·chunks·C·pos_bytes bytes at the bucket's tiles
+    (TB = min(128, pow2(T)), chunks of 8 blocks, C = 8·bs); pos_bytes is
+    hd x the cache element size, plus one fp32 scale for int8;
+  * bytes: every weight the program reads (each step of a burst reads
+    them again), the LoRA bank, the embedding rows looked up, the K/V
+    written (n tokens), the attention reads above, and the fp32 logits
+    rows the program writes (none under the fused epilogue or in the
+    catch-up program, which projects nothing).
+
+Elementwise work (norms, rope, softmax, sampling) is left out, as it is
+small next to these terms.  `program_terms` returns the terms by name
+(the tests hold the matmul term against torch's FlopCounterMode and the
+attention terms against the Pallas formulas); `program_costs` sums them
+into {"flops", "bytes"}.
+"""
+
+from __future__ import annotations
+
+from typing import Dict
+
+# the Pallas kernels' tiling constants (pallas_packed_prefill.py: the
+# default chunk_cols and the token tile's cap)
+K3_CHUNK_COLS = 8
+K3_MAX_TOKEN_BLOCK = 128
+
+
+def _pow2(n: int) -> int:
+    p = 1
+    while p < n:
+        p *= 2
+    return p
+
+
+def _elem_bytes(dtype) -> int:
+    return dtype.itemsize
+
+
+def pos_bytes(cfg, int8: bool) -> int:
+    """Bytes per cached context position per kv head, as the Pallas
+    kernels count them: hd elements, plus one fp32 scale for int8."""
+    return cfg.head_dim * (1 if int8 else _elem_bytes(cfg.dtype)) \
+        + (4 if int8 else 0)
+
+
+def k1_costs(cfg, B: int, max_blocks: int, block_size: int,
+             int8: bool) -> Dict[str, int]:
+    """K1's CostEstimate for one layer and step (pallas_paged_attention.py
+    `paged_attention_decode_pallas`)."""
+    span = max_blocks * block_size
+    return {"flops": 2 * 2 * B * cfg.n_heads * cfg.head_dim * span,
+            "bytes": 2 * B * cfg.n_kv_heads * span * pos_bytes(cfg, int8)}
+
+
+def k3_costs(cfg, T: int, max_blocks: int, block_size: int,
+             int8: bool) -> Dict[str, int]:
+    """K3's CostEstimate for one layer over a T-token stream
+    (pallas_packed_prefill.py `packed_prefill_attention_pallas`)."""
+    TB = min(K3_MAX_TOKEN_BLOCK, _pow2(T))
+    n_tiles = -(-T // TB)
+    Tp = n_tiles * TB
+    bpc = max(1, min(max_blocks, K3_CHUNK_COLS))
+    n_chunks = -(-max_blocks // bpc)
+    C = bpc * block_size
+    return {"flops": 2 * 2 * Tp * cfg.n_heads * cfg.head_dim * n_chunks * C,
+            "bytes": 2 * n_tiles * cfg.n_kv_heads * n_chunks * C
+            * pos_bytes(cfg, int8)}
+
+
+def _dense_weights(cfg) -> int:
+    """Matmul weight elements of one layer."""
+    d, q, kv, f = cfg.d_model, cfg.q_dim, cfg.kv_dim, cfg.ffn_dim
+    return d * q + 2 * d * kv + q * d + 3 * d * f
+
+
+def _lora_dims(cfg):
+    d, q, kv = cfg.d_model, cfg.q_dim, cfg.kv_dim
+    return ((d, q), (d, kv), (d, kv), (q, d))  # lora/bank.py TARGETS
+
+
+def weight_bytes(cfg, lm_head: bool = True) -> int:
+    """Bytes of the weights one trunk pass reads: every layer's matmul
+    weights and fp32 norms, the final norm and (when the program
+    projects) the [d, vocab] unembedding.  The embedding table is read
+    by lookup (counted per token), not whole."""
+    wb = _elem_bytes(cfg.dtype)
+    norms = 2 * cfg.d_model + (2 * cfg.head_dim if cfg.qk_norm else 0)
+    n = cfg.n_layers * (_dense_weights(cfg) * wb + 4 * norms) \
+        + 4 * cfg.d_model
+    if lm_head:
+        n += cfg.d_model * cfg.vocab_size * wb
+    return n
+
+
+def _trunk_terms(cfg, n: int, attn: Dict[str, int], int8: bool,
+                 lora: tuple, logits_rows: int,
+                 write_logits: bool) -> Dict[str, float]:
+    """One pass of n tokens through the layer stack plus the projection
+    of `logits_rows` rows; `attn` is one layer's attention cost; `lora`
+    is (slots, rank), (0, 0) without a bank."""
+    L, d, V = cfg.n_layers, cfg.d_model, cfg.vocab_size
+    wb = _elem_bytes(cfg.dtype)
+    slots, rank = lora
+    lora_flops = lora_bytes = 0
+    if slots:
+        for d_in, d_out in _lora_dims(cfg):
+            lora_flops += 2 * n * slots * rank * (d_in + d_out)
+            lora_bytes += slots * rank * (d_in + d_out) * wb
+    kv_write = n * 2 * cfg.n_kv_heads * pos_bytes(cfg, int8)
+    return {
+        "matmul_flops": L * (2 * n * _dense_weights(cfg) + lora_flops)
+        + 2 * logits_rows * d * V,
+        "attn_flops": L * attn["flops"],
+        "weight_bytes": weight_bytes(cfg, lm_head=logits_rows > 0)
+        + L * lora_bytes + n * d * wb,
+        "kv_read_bytes": L * attn["bytes"],
+        "kv_write_bytes": L * kv_write,
+        "out_bytes": logits_rows * V * 4 if write_logits else 0,
+    }
+
+
+def program_terms(cfg, family: str, key, *, rows: int, max_blocks: int,
+                  block_size: int, int8: bool = False, lora=(0, 0),
+                  epilogue: bool = False) -> Dict[str, float]:
+    """The cost terms of one captured program.  `family` is decode,
+    prefill, verify, catchup or guided; `key` its capture key: (greedy,
+    k) for decode, the stream bucket T for prefill/verify/catchup, the
+    window M for guided.
+    `rows` is the lane count B (decode, guided) or the row count of a
+    bucket's descriptor (prefill: padded segments, catchup: 1; verify
+    projects every stream position).  Raises on a family it does not
+    know: every captured program must have a count."""
+    if family == "decode":
+        _, k = key
+        one = _trunk_terms(cfg, rows, k1_costs(cfg, rows, max_blocks,
+                                               block_size, int8),
+                           int8, lora, rows, not epilogue)
+        return {n: k * v for n, v in one.items()}
+    if family == "guided":
+        return _trunk_terms(cfg, rows, k1_costs(cfg, rows, max_blocks,
+                                                block_size, int8),
+                            int8, (0, 0), rows, True)
+    if family in ("prefill", "verify", "catchup"):
+        T = int(key)
+        attn = k3_costs(cfg, T, max_blocks, block_size, int8)
+        if family == "prefill":
+            return _trunk_terms(cfg, T, attn, int8, lora, rows, True)
+        if family == "verify":
+            return _trunk_terms(cfg, T, attn, int8, (0, 0), T, True)
+        return _trunk_terms(cfg, T, attn, int8, (0, 0), 0, False)
+    raise ValueError(f"no cost count for program family {family!r}")
+
+
+def program_costs(cfg, family: str, key, **shape) -> Dict[str, float]:
+    """{"flops", "bytes"} of one captured program (program_terms summed),
+    the shape of the JAX watch's `xla_costs` entries."""
+    t = program_terms(cfg, family, key, **shape)
+    return {"flops": float(t["matmul_flops"] + t["attn_flops"]),
+            "bytes": float(t["weight_bytes"] + t["kv_read_bytes"]
+                           + t["kv_write_bytes"] + t["out_bytes"])}

@@ -1,7 +1,9 @@
 """The port's copy of the distributed runtime (dynamo_tpu/runtime/), with
 the same module names, `DYN_*` environment and wire formats, and none of
-its third-party dependencies: the msgpack codec is the port's own
-(codec.py) and pyzmq is needed only by the zmq event plane."""
+its third-party dependencies: the msgpack codec (codec.py), the
+Prometheus renderer (metrics.py) and the system-status HTTP server
+(system_status.py) are the port's own, and pyzmq is needed only by the
+zmq event plane."""
 
 from .cancellation import CancellationToken
 from .component import Client, Component, Endpoint, Namespace, ServedEndpoint
@@ -17,6 +19,7 @@ from .discovery import (
 )
 from .distributed import DistributedRuntime
 from .event_plane import EventPlane, InProcEventPlane, ZmqEventPlane
+from .metrics import MetricsHierarchy
 from .push_router import PushRouter
 from .request_plane import (
     EngineError,
@@ -38,6 +41,7 @@ __all__ = [
     "InProcEventPlane",
     "Instance",
     "MemDiscovery",
+    "MetricsHierarchy",
     "Namespace",
     "PushRouter",
     "RequestContext",

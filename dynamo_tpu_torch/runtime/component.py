@@ -1,10 +1,12 @@
 """Namespace → Component → Endpoint hierarchy + endpoint clients.
 
-A copy of dynamo_tpu/runtime/component.py (its chaos seam and the
-system-status address left out).  `Endpoint.serve_endpoint(handler)`
+A copy of dynamo_tpu/runtime/component.py (its chaos seam, router
+modes and migration `avoid` set left out).  `Endpoint.serve_endpoint(handler)`
 registers a streaming handler on the process's request-plane server and
-writes a lease-bound discovery entry; `Endpoint.client()` watches
-discovery and routes requests to live instances via a PushRouter.
+writes a lease-bound discovery entry (advertising the process's
+system-status address as `system_addr` when it serves one);
+`Endpoint.client()` watches discovery and routes requests to live
+instances via a PushRouter.
 """
 
 from __future__ import annotations
@@ -96,6 +98,11 @@ class Endpoint:
         address = await rt.request_server.start()
         iid = instance_id if instance_id is not None else new_instance_id()
         meta = dict(metadata or {})
+        # fleet introspection: every instance advertises where its
+        # /metrics and /debug/state surface lives, so the aggregator
+        # needs no out-of-band port map
+        if rt.system_address and "system_addr" not in meta:
+            meta["system_addr"] = rt.system_address
         instance = Instance(
             namespace=self.component.namespace.name,
             component=self.component.name,

@@ -48,8 +48,13 @@ class RuntimeConfig:
     zmq_host: str = ""  # advertised ZMQ PUB bind host
 
     namespace: str = "dynamo"
-    # the /health /live /metrics server is not ported yet: 0 only
+    # /health /live /metrics server (system_status.py); 0 = disabled,
+    # negative = an ephemeral port, advertised in discovery metadata
     system_port: int = 0
+    # admin surface (system_status.py /debug/*): shared secret required
+    # for state dumps and profiler captures; empty = admin routes return
+    # 403 (fail closed).  /health /live /metrics stay unauthenticated.
+    admin_token: str = ""
 
     @classmethod
     def from_env(cls, **overrides) -> "RuntimeConfig":
@@ -63,6 +68,7 @@ class RuntimeConfig:
             zmq_host=os.environ.get("DYN_ZMQ_HOST", ""),
             namespace=os.environ.get("DYN_NAMESPACE", "dynamo"),
             system_port=int(os.environ.get("DYN_SYSTEM_PORT", "0")),
+            admin_token=os.environ.get("DYN_ADMIN_TOKEN", ""),
         )
         for k, v in overrides.items():
             setattr(cfg, k, v)

@@ -2,15 +2,15 @@
 
 A copy of dynamo_tpu/runtime/distributed.py: it owns the discovery
 backend (with its lease heartbeat), the lazily-started request-plane
-server, the request-plane client pool, the event plane, the canary
-health registry and the root cancellation token.  Everything else
-(`Namespace` → `Component` → `Endpoint`) hangs off it.
-
-Not ported yet (ROADMAP.md): the Prometheus metrics hierarchy and the
-system-status server (/health /live /metrics /debug), which the JAX
-module serves with prometheus_client and aiohttp; a non-zero
-DYN_SYSTEM_PORT therefore raises instead of being ignored.  The debug,
-forensics and KV-ledger source registries go with that server.
+server, the request-plane client pool, the event plane, the metrics
+hierarchy (runtime/metrics.py), the canary health registry and the root
+cancellation token.  Everything else (`Namespace` → `Component` →
+`Endpoint`) hangs off it.  With a non-zero system_port (DYN_SYSTEM_PORT;
+negative = ephemeral) `start()` serves /health /live /metrics and the
+token-gated /debug routes (runtime/system_status.py) and sets
+`system_address`, which every served instance advertises in its
+discovery metadata as `system_addr`; the debug, forensics and KV
+source registries feed /debug/state, /debug/requests and /debug/kv.
 """
 
 from __future__ import annotations
@@ -24,6 +24,7 @@ from .config import RuntimeConfig
 from .discovery import DiscoveryBackend, make_discovery, new_instance_id
 from .event_plane import EventPlane, make_event_plane
 from .health_check import SystemHealth
+from .metrics import MetricsHierarchy
 from .request_plane import RequestPlaneClient, RequestPlaneServer
 
 logger = logging.getLogger(__name__)
@@ -34,11 +35,6 @@ class DistributedRuntime:
                  discovery: Optional[DiscoveryBackend] = None,
                  cluster_id: str = "default"):
         self.config = config or RuntimeConfig.from_env()
-        if self.config.system_port:
-            raise NotImplementedError(
-                "DYN_SYSTEM_PORT / system_port: the system-status server "
-                "(/health /live /metrics) is not ported to dynamo_tpu_torch "
-                "yet (ROADMAP.md); leave it 0")
         self.cluster_id = cluster_id
         self.worker_id = new_instance_id()
         self.root_token = CancellationToken()
@@ -62,8 +58,21 @@ class DistributedRuntime:
             root_token=self.root_token,
         )
         self.request_client = RequestPlaneClient()
+        self.metrics = MetricsHierarchy(namespace=self.config.namespace)
         self.system_health = SystemHealth(self)
         self.request_server.on_activity = self.system_health.notify_activity
+        self._system_server = None
+        # the fleet introspection plane: workers register state-dump
+        # callables here and /debug/state merges them; system_address is
+        # what instances advertise in discovery so the fleet aggregator
+        # finds this process's scrape surface
+        self.debug_sources: dict = {}
+        # /debug/requests (per-request forensics) and /debug/kv (KV
+        # accounting) merge theirs, kept apart so the heavier payloads
+        # never ride a plain /debug/state scrape
+        self.forensics_sources: dict = {}
+        self.kv_sources: dict = {}
+        self.system_address: str = ""
         self._closed = False
 
     @classmethod
@@ -74,8 +83,48 @@ class DistributedRuntime:
     def namespace(self, name: Optional[str] = None) -> Namespace:
         return Namespace(self, name or self.config.namespace)
 
+    def register_debug_source(self, name: str, fn) -> None:
+        """Register a callable (sync or async, returning a JSON-able
+        dict) merged into /debug/state under `name`.  Worker sources
+        include their `instance_id` so the fleet aggregator can join a
+        dump entry to the discovery instance it describes."""
+        self.debug_sources[name] = fn
+
+    def unregister_debug_source(self, name: str) -> None:
+        self.debug_sources.pop(name, None)
+
+    def register_forensics_source(self, name: str, fn) -> None:
+        """Register a callable returning a dynamo.forensics.v1 dump dict,
+        merged into /debug/requests under `name`."""
+        self.forensics_sources[name] = fn
+
+    def unregister_forensics_source(self, name: str) -> None:
+        self.forensics_sources.pop(name, None)
+
+    def register_kv_source(self, name: str, fn) -> None:
+        """Register a callable returning a dynamo.kv_ledger.v1 dump dict,
+        merged into /debug/kv under `name`."""
+        self.kv_sources[name] = fn
+
+    def unregister_kv_source(self, name: str) -> None:
+        self.kv_sources.pop(name, None)
+
     async def start(self) -> "DistributedRuntime":
         await self.discovery.start()
+        if self.config.system_port:
+            from .system_status import SystemStatusServer
+
+            # negative = ephemeral (DYN_SYSTEM_PORT=-1): multi-process
+            # single-host fleets can't share a fixed port, and the fleet
+            # aggregator finds the bound port via discovery metadata
+            self._system_server = SystemStatusServer(
+                self, max(0, self.config.system_port))
+            await self._system_server.start()
+            # advertised on the request-plane host (the bind is 0.0.0.0;
+            # the reachable address is the one the request plane
+            # advertises)
+            self.system_address = (f"{self.config.tcp_host}:"
+                                   f"{self._system_server.bound_port}")
         return self
 
     async def shutdown(self) -> None:
@@ -84,6 +133,8 @@ class DistributedRuntime:
         self._closed = True
         self.root_token.kill()
         await self.system_health.close()
+        if self._system_server is not None:
+            await self._system_server.close()
         await self.request_client.close()
         await self.request_server.close()
         await self.event_plane.close()

@@ -1,7 +1,6 @@
 """Canary health checks: detect alive-but-wedged workers.
 
-A copy of dynamo_tpu/runtime/health_check.py (without its Prometheus
-counter: the port's metrics surface is not ported yet).  Lease expiry
+A copy of dynamo_tpu/runtime/health_check.py.  Lease expiry
 catches dead processes, but a process whose engine is wedged keeps its
 lease alive while every routed request times out.  The canary closes
 that gap: per served endpoint, a timer armed by inactivity sends a real
@@ -10,7 +9,9 @@ marks the endpoint not ready, and the process then withdraws its
 discovery lease (DYN_HEALTH_WITHDRAW, default on), so routers purge it
 and in-flight requests migrate.  A later canary that succeeds restores
 the lease.  Any successfully streamed response frame on the endpoint
-resets the timer, so a busy worker is never canaried.
+resets the timer, so a busy worker is never canaried.  Each transition
+counts on `dynamo_health_transitions_total`, and `statuses()` is what
+the system-status server's /health reports per endpoint.
 """
 
 from __future__ import annotations
@@ -166,6 +167,10 @@ class SystemHealth:
     def healthy(self) -> bool:
         return all(t.ready for t in self.targets.values())
 
+    def statuses(self) -> Dict[str, str]:
+        return {t.subject: ("ready" if t.ready else "not_ready")
+                for t in self.targets.values()}
+
     # -- canary machinery -------------------------------------------------
     async def _canary_loop(self, t: _Target) -> None:
         while not t.closed:
@@ -200,6 +205,9 @@ class SystemHealth:
         t.ready = ready
         logger.warning("endpoint %s -> %s", t.subject,
                        "ready" if ready else "NOT READY")
+        m = self.runtime.metrics.scoped(component="health")
+        m.inc("dynamo_health_transitions_total",
+              endpoint=t.path, to="ready" if ready else "not_ready")
         self._maybe_reconcile()
 
     def _maybe_reconcile(self) -> None:

@@ -1,8 +1,8 @@
 """Structured logging, copied from dynamo_tpu/runtime/logging.py: one
 JSON object per line when DYN_LOG_JSON is truthy, human-readable
 otherwise; DYN_LOG_LEVEL sets the level.  `extra={...}` fields on a log
-call land as top-level JSON keys.  (The trace-id filter is left out: the
-port has no timeline tracing yet.)"""
+call land as top-level JSON keys, and every record emitted inside a
+bound trace-id context (obs.bind_trace_id) carries it as `trace_id`."""
 
 from __future__ import annotations
 
@@ -17,6 +17,23 @@ from .config import env_truthy
 _STD_KEYS = frozenset(logging.LogRecord(
     "", 0, "", 0, "", (), None).__dict__) | {"message", "asctime",
                                              "taskName"}
+
+
+class TraceIdFilter(logging.Filter):
+    """Log<->trace correlation: stamp the context-bound trace_id
+    (obs.bind_trace_id; workers bind it per generate() stream) onto every
+    record, so a request's log lines are greppable by the same id that
+    joins its timeline spans.  Explicit `extra={"trace_id": ...}` on a
+    call wins over the ambient context."""
+
+    def filter(self, record: logging.LogRecord) -> bool:
+        if not hasattr(record, "trace_id"):
+            from .. import obs
+
+            tid = obs.current_trace_id()
+            if tid is not None:
+                record.trace_id = tid
+        return True
 
 
 class JsonFormatter(logging.Formatter):
@@ -60,7 +77,10 @@ def setup_logging(level: Optional[int] = None,
         for h in root.handlers:
             if json_lines != isinstance(h.formatter, JsonFormatter):
                 h.setFormatter(formatter())
+            if not any(isinstance(f, TraceIdFilter) for f in h.filters):
+                h.addFilter(TraceIdFilter())
         return
     handler = logging.StreamHandler(sys.stderr)
     handler.setFormatter(formatter())
+    handler.addFilter(TraceIdFilter())
     root.addHandler(handler)

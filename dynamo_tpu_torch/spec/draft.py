@@ -84,6 +84,9 @@ class DraftModelProposer:
         self.programs = DecodePrograms(self.params, model_cfg, self.kv, 1,
                                        max_blocks_per_seq, device,
                                        capture=capture)
+        # the capture watch records them as the JAX proposer's programs
+        self.programs.FAMILY_ONE = self.programs.FAMILY_MULTI = \
+            "draft_propose"
         self.catchup = CatchupPrograms(self.params, model_cfg, self.kv, 1,
                                        max_blocks_per_seq, self.buckets,
                                        device, capture=capture)

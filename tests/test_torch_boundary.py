@@ -1,7 +1,8 @@
 """The port's boundaries: what it imports, where it runs, what it refuses.
 
 * No module of dynamo_tpu_torch and no line of chip_smoke.py imports
-  jax, dynamo_tpu, ml_dtypes, safetensors or transformers (an AST scan),
+  jax, dynamo_tpu, ml_dtypes, safetensors, transformers, aiohttp or
+  prometheus_client (an AST scan),
   and importing the whole package in a fresh interpreter loads none of
   them (a GPU host need have none of them).
 * Entry points default to CUDA and raise on a machine without it; they
@@ -32,7 +33,7 @@ from dynamo_tpu_torch.models.llama import PRESETS
 REPO = Path(__file__).resolve().parent.parent
 PKG = REPO / "dynamo_tpu_torch"
 FORBIDDEN = ("jax", "jaxlib", "dynamo_tpu", "ml_dtypes", "safetensors",
-             "transformers")
+             "transformers", "aiohttp", "prometheus_client")
 # modules the import checks must reach (a later slice's additions)
 REQUIRED = ("models/loader.py", "models/weight_cache.py",
             "engine/loader_cache.py", "ops/fused_sampling.py",
@@ -45,7 +46,10 @@ REQUIRED = ("models/loader.py", "models/weight_cache.py",
             "spec/draft.py", "lora/__init__.py", "lora/bank.py",
             "lora/source.py", "guided/__init__.py", "guided/json_prefix.py",
             "frontend/__init__.py", "frontend/tokenizer.py",
-            "obs/__init__.py", "obs/slo.py")
+            "obs/__init__.py", "obs/slo.py", "obs/compile_watch.py",
+            "obs/costs.py", "runtime/metrics.py",
+            "runtime/system_status.py", "planner/__init__.py",
+            "planner/metrics.py", "router/tiered_index.py")
 # the KVBM tiers' fields (ported with kvbm/) and the knobs that came
 # with them, at the JAX engine's defaults
 KVBM_FIELDS = ("host_cache_blocks", "disk_cache_dir", "disk_cache_blocks",
@@ -153,7 +157,7 @@ def test_unported_config_field_raises(field):
 
 @pytest.mark.parametrize("field", ["model_path", "sampling_epilogue",
                                    "role", "spec_decode", "lora_max_adapters",
-                                   *KVBM_FIELDS])
+                                   "peak_hbm_gbps", *KVBM_FIELDS])
 def test_ported_config_field_accepted(field, tmp_path):
     """Fields that left _UNPORTED when their features were ported take a
     valid value; sampling_epilogue rejects others with the JAX engine's
@@ -161,8 +165,25 @@ def test_ported_config_field_accepted(field, tmp_path):
     their knobs default as the JAX engine's do; spec_decode and its knobs
     default as JAX's, take "ngram" and "draft", and reject others with
     the JAX engine's ValueError; lora_max_adapters and its knobs (and
-    the SLO input's) default as JAX's and take a bank size."""
+    the SLO input's) default as JAX's and take a bank size; peak_hbm_gbps
+    (the roofline MBU gauges' peak) defaults as JAX's, takes a rate and
+    is the CLI's --peak-hbm-gbps, as in the JAX CLI."""
     assert field not in _UNPORTED
+    if field == "peak_hbm_gbps":
+        from dynamo_tpu.engine.__main__ import build_args as jax_args
+        from dynamo_tpu.engine.config import EngineConfig as JaxEngineConfig
+        from dynamo_tpu_torch.engine.__main__ import build_args, engine_config
+
+        assert EngineConfig().peak_hbm_gbps \
+            == JaxEngineConfig().peak_hbm_gbps == 0.0
+        assert EngineConfig(peak_hbm_gbps=3350.0).peak_hbm_gbps == 3350.0
+        argv = ["--peak-hbm-gbps", "3350", "--peak-tflops", "989"]
+        ours, theirs = build_args().parse_args(argv), jax_args().parse_args(
+            argv)
+        assert ours.peak_hbm_gbps == theirs.peak_hbm_gbps == 3350.0
+        cfg = engine_config(ours)
+        assert (cfg.peak_hbm_gbps, cfg.peak_tflops) == (3350.0, 989.0)
+        return
     if field == "lora_max_adapters":
         from dynamo_tpu.engine.config import EngineConfig as JaxEngineConfig
 
