@@ -19,6 +19,7 @@
     python3 chip_smoke.py --spec          # speculative decoding
     python3 chip_smoke.py --lora          # LoRA serving and guided decoding
     python3 chip_smoke.py --status        # the worker's status plane
+    python3 chip_smoke.py --moe           # the MoE family (Mixtral)
 
 Builds the port's CUDA kernels from csrc/ (three nvcc processes started
 together), holds each entry point (K1 and K3, each in its bf16 and its
@@ -240,6 +241,29 @@ with its GB/s, the five requests served (greedy streams equal to an
 engine given the written tensors as params), and one request served
 through a TorchEngineWorker whose MDC must carry the inline tokenizer
 and the chat template.
+
+The MoE phase (last in the whole check; alone with --moe): mixtral-8x7b
+at full width (d 4096, 32/8 heads, ffn 14336, 8 experts, top 2, vocab
+32000) with its depth cut to MOE_LAYERS = 16 of 32 (the 32 layers hold
+93.4 GB of bf16 weights, more than the card's 80 GB; 16 hold 46.97 GB),
+random bf16 weights made on the card from seed 0, a bf16 cache of 512
+blocks.  Dense dispatch on the default scheduler and graphs: the five
+requests (every program captured once by warm-up and never while
+serving, a replayed k = 8 burst and a replayed 2048 bucket equal to
+their eager bodies, K1 and K3 launched), greedy streams equal to an
+engine on the same weights with the plain attention versions except at
+a near-tie; one MoE layer at T = 2048 in dense dispatch and in dropless
+capacity dispatch (capacity factor E/k) within 2e-2 (per-row relative
+L2) of an fp32 forward; capacity dispatch (the padded programs, eager,
+no packed program built, K3 never launched) at E/k with greedy streams
+equal to the dense engine's except at a near-tie, and at the default
+1.25 with its tokens/s, TTFT and a padded dispatch's host and device
+time; one request through a TorchEngineWorker (stream, MDC, launches).
+It prints TTFT and decode tokens/s, a burst's replay against its byte
+bound, operations per decode token, a 2048 bucket's device time against
+its FLOP bound, the device time by family under torch.profiler (expert
+GEMMs, the MoE dispatch/combine products, the router and its glue, K1,
+K3, the dense matmuls, other) and the phase's seconds.
 
 Bounds use the H100 SXM data sheet (3.35 TB/s HBM3, 989 TFLOP/s dense
 bf16); a card run below its 700 W limit is slower, so its limit is
@@ -2204,18 +2228,22 @@ def check_worker(device, card: str, cfg, params, direct) -> dict:
 
 def check_worker_short(device, cfg, params) -> dict:
     """One request (the 500-token prompt) through a TorchEngineWorker with
-    `cfg` (the int8 run's) and weights `params`: exits unless it finishes
-    with 32 tokens, the kernels of the cache's dtype were launched at
-    least layers x steps times, and load_metrics reports that dtype.  The
-    rest of the worker's contract does not depend on the cache dtype;
-    check_worker holds it.  Returns the launch counts by kernel name."""
+    `cfg` (the int8 run's, or the MoE phase's) and weights `params`:
+    exits unless it finishes with 32 tokens, the kernels of the cache's
+    dtype were launched at least layers x steps times, load_metrics
+    reports that dtype and the MDC in discovery names the served model
+    with the cache's block size.  The rest of the worker's contract does
+    not depend on the cache dtype or the model; check_worker holds it.
+    Returns the launch counts by kernel name."""
     used = _kernels_of(cfg.kv_cache_dtype)
     req = _requests(cfg.resolve_model().vocab_size)[1]
 
     async def run():
         async with _serving_worker(device, cfg, params) as (
-                _, worker, client, seen):
+                rt, worker, client, seen):
             eng = worker.engine
+            mdc = await rt.discovery.get_prefix(
+                worker.card.key(worker.served.instance_id))
             m0 = dict(eng.metrics)
             for fn in used:
                 fn.launches = 0
@@ -2227,14 +2255,21 @@ def check_worker_short(device, cfg, params) -> dict:
                 if seen["load"]:
                     break
                 await asyncio.sleep(0.05)
-            return res[0], counts, steps, list(seen["load"])
+            return (res[0], counts, steps, list(seen["load"]),
+                    list(mdc.values()))
 
-    (toks, finish, ttft, _), counts, steps, load = asyncio.run(run())
+    (toks, finish, ttft, _), counts, steps, load, mdc = asyncio.run(run())
     kv = load[-1].get("kv_cache_dtype") if load else None
+    card = mdc[0] if len(mdc) == 1 else {}
     log(f"  worker request 1 alone: {len(toks)} out, finish={finish}, "
-        f"ttft={ttft:.3f} s; load_metrics kv_cache_dtype={kv}")
+        f"ttft={ttft:.3f} s; load_metrics kv_cache_dtype={kv}; MDC name "
+        f"{card.get('name')!r}, block size "
+        f"{card.get('kv_cache_block_size')}")
     if finish != "length" or len(toks) != 32:
         raise SystemExit("the worker's request did not finish with 32 tokens")
+    if card.get("name") != cfg.served_name \
+            or card.get("kv_cache_block_size") != cfg.block_size:
+        raise SystemExit(f"the worker's MDC is not the model's: {card}")
     _check_worker_launches(counts, steps, cfg.resolve_model().n_layers)
     if kv != cfg.kv_cache_dtype:
         raise SystemExit(f"load_metrics kv_cache_dtype {kv!r}, expected "
@@ -3775,7 +3810,7 @@ async def _idle(eng) -> None:
 
 def _free_engine(eng) -> None:
     eng.kv = eng.graphs = eng.prefill_graphs = eng.guided_graphs = None
-    eng.verify_graphs = eng.proposer = None
+    eng.verify_graphs = eng.proposer = eng.padded_prefill = None
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -5745,6 +5780,584 @@ def _device_breakdown(prof, wall: float,
     return {"busy_share": busy / wall, "device_ops": len(kernels)}
 
 
+# ---------------------------------------------------------------------------
+# the MoE family at mixtral-8x7b width (--moe; last in the whole run)
+# ---------------------------------------------------------------------------
+
+# mixtral-8x7b's 32 layers hold 93.4 GB of bf16 weights, more than the
+# card's 80 GB; 16 layers hold 46.97 GB with the embedding and lm_head
+MOE_LAYERS = 16
+# the one-layer check: its tokens, and the largest relative L2 error of
+# a row against the fp32 forward (bf16 operands and products, fp32
+# accumulation, as the adapters' check of the LoRA phase)
+MOE_LAYER_T = 2048
+MOE_LAYER_TOL = 2e-2
+# the profiled device split: the families, in print order
+MOE_FAMILIES = ("expert GEMMs", "MoE dispatch/combine", "MoE router+glue",
+                "K1", "K3", "dense matmuls", "other")
+
+
+def _moe_model(**kw):
+    """mixtral-8x7b at full width, MOE_LAYERS deep."""
+    from dynamo_tpu_torch.models.llama import PRESETS
+
+    return dataclasses.replace(PRESETS["mixtral-8x7b"], n_layers=MOE_LAYERS,
+                               **kw)
+
+
+def _moe_engine_config(mc, **kw):
+    """The MoE runs' engine config: the llama-8b runs' scheduler (four
+    slots, a 2048-token prefill budget, 16-wide tables) with model
+    config `mc` and 512 blocks of bf16 cache."""
+    from dynamo_tpu_torch.engine import EngineConfig
+
+    return EngineConfig(model_config=mc, block_size=128,
+                        max_blocks_per_seq=16, max_num_seqs=4,
+                        max_batch_tokens=2048, max_prefill_seqs=4,
+                        num_blocks=512, seed=0, **kw)
+
+
+def _moe_serve(eng, reqs, used) -> tuple:
+    """The requests through `eng` at once, launch counts set to 0 just
+    before and read just after: (results, counts by kernel name, the
+    engine's metrics).  Closes the engine."""
+    async def run():
+        try:
+            for fn in used:
+                fn.launches = 0
+            res = await _serve(eng, reqs)
+            counts = {fn.__name__: fn.launches for fn in used}
+            return res, counts, dict(eng.metrics)
+        finally:
+            await eng.close()
+
+    return asyncio.run(run())
+
+
+def _moe_split(run, what: str) -> Optional[dict]:
+    """Device time by family (MOE_FAMILIES, ms) of `run()` under
+    torch.profiler: each kernel is charged to the operator that launched
+    it.  `_ffn` runs inside a record_function range for the run, so a
+    kernel under it is an expert GEMM (a batched product), a
+    dispatch/combine product (a batched product inside an einsum) or the
+    router and its glue (everything else there: the router's product,
+    the sort, softmax, scatter, one-hot, cumsum); outside it the dense
+    products (attention projections, the lm_head) and other.  K1 and K3
+    (launched through ctypes, under no operator) count by their symbols,
+    and every device kernel the profiler linked to no operator is
+    other.  None when the profiler saw no kernel."""
+    from dynamo_tpu_torch.models import llama
+
+    orig = llama._ffn
+
+    def ffn(*a, **k):
+        with torch.profiler.record_function("moe_ffn"):
+            return orig(*a, **k)
+
+    llama._ffn = ffn
+    try:
+        torch.cuda.synchronize()
+        with torch.profiler.profile(activities=[
+                torch.profiler.ProfilerActivity.CPU,
+                torch.profiler.ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            run()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+    finally:
+        llama._ffn = orig
+    by = dict.fromkeys(MOE_FAMILIES, 0.0)
+    device = 0.0
+    for e in prof.events():
+        # the range's own device-side annotation spans its kernels
+        if str(e.device_type).endswith("CUDA") and e.name != "moe_ffn":
+            ms = (e.time_range.end - e.time_range.start) / 1e3
+            device += ms
+            if "paged_decode" in e.name:
+                by["K1"] += ms
+            elif "packed_prefill" in e.name:
+                by["K3"] += ms
+    for e in prof.events():
+        if not getattr(e, "kernels", None):
+            continue
+        chain, p = [], e
+        while p is not None:
+            chain.append(p.name)
+            p = p.cpu_parent
+        for kern in e.kernels:
+            if "moe_ffn" in chain:
+                fam = ("MoE router+glue" if e.name != "aten::bmm"
+                       else "MoE dispatch/combine" if "aten::einsum" in chain
+                       else "expert GEMMs")
+            elif e.name in ("aten::mm", "aten::addmm", "aten::bmm"):
+                fam = "dense matmuls"
+            else:
+                fam = "other"
+            by[fam] += kern.duration / 1e3
+    # the kernels no operator launched (beyond K1 and K3)
+    by["other"] += max(device - sum(by.values()), 0.0)
+    total = sum(by.values())
+    if not device:
+        log(f"MoE device split, {what}: not measured (the profiler saw no "
+            "kernels)")
+        return None
+    log(f"MoE device split, {what}: wall {1e3 * wall:.1f} ms, kernels "
+        f"{total:.1f} ms; by family (ms, share): "
+        + ", ".join(f"{k} {v:.2f} ({100 * v / total:.1f}%)"
+                    for k, v in by.items()))
+    return by
+
+
+@contextlib.contextmanager
+def _routes(record: Optional[list] = None, replay: Optional[list] = None):
+    """Within the block every `_moe_router` call appends its expert ids
+    [T, k] to `record`, or, with `replay` (a `record` of the same calls),
+    selects the recorded experts instead of its own top k, weighted by
+    the softmax of its own router logits at them."""
+    from dynamo_tpu_torch.models import llama
+
+    orig = llama._moe_router
+    calls = iter(replay) if replay is not None else None
+
+    def spy(layer, cfg, x):
+        if calls is not None:
+            ids = next(calls)
+            router = x.float() @ layer["moe_gate"].float()
+            return torch.softmax(torch.gather(router, 1, ids), dim=-1), ids
+        w, e = orig(layer, cfg, x)
+        if record is not None:
+            record.append(e)
+        return w, e
+
+    llama._moe_router = spy
+    try:
+        yield
+    finally:
+        llama._moe_router = orig
+
+
+def _moe_compare_logits(params, mc, device) -> dict:
+    """K1 and K3 inside the MoE model against their plain versions, with
+    the routing held fixed: a 512-token prompt's last-token logits
+    (prefill_packed, K3) and the next decode step's (K1) through the
+    kernel path, then through the plain path with the kernel path's
+    expert choices replayed (_routes), so a router near-tie that rounding
+    tips either way does not hide or fake a difference.  Exits unless
+    each pair's cosine is at least MIN_COSINE and their top tokens agree
+    or the plain top-2 gap is within the largest logit difference."""
+    from dynamo_tpu_torch.models import llama
+
+    plain = dataclasses.replace(mc, attn_impl="torch",
+                                packed_attn_impl="torch")
+    rng = np.random.default_rng(7)
+
+    def i32(x):
+        return torch.tensor(x, dtype=torch.int32, device=device)
+
+    toks = i32(rng.integers(0, mc.vocab_size, 512).tolist())
+    pos = torch.arange(512, dtype=torch.int32, device=device)
+    seg = torch.zeros(512, dtype=torch.int32, device=device)
+    valid = torch.ones(512, dtype=torch.bool, device=device)
+    tables, last = i32([[1, 2, 3, 4, 5]]), i32([511])
+    lane = torch.tensor([True], device=device)
+    rec, out = [], {}
+    for name, c in (("kernel", mc), ("plain", plain)):
+        kv = tuple(torch.zeros(sh, dtype=mc.dtype, device=device)
+                   for sh in llama.kv_cache_shapes(mc, 8, 128))
+        with _routes(record=rec if name == "kernel" else None,
+                     replay=rec if name == "plain" else None):
+            pre, _ = llama.prefill_packed(params, c, kv, toks, pos, seg,
+                                          tables, last, valid)
+            dec, _ = llama.decode(params, c, kv, i32([7]), i32([512]),
+                                  tables, i32([512]), valid=lane)
+        out[name] = (pre[0].float(), dec[0].float())
+    res = {}
+    for i, what in enumerate(("prefill", "decode")):
+        a, b = out["kernel"][i], out["plain"][i]
+        cos = torch.nn.functional.cosine_similarity(a, b, dim=0).item()
+        diff = (a - b).abs().max().item()
+        top2 = torch.topk(b, 2).values
+        gap = (top2[0] - top2[1]).item()
+        same = int(a.argmax()) == int(b.argmax())
+        ok = cos >= MIN_COSINE and (same or gap <= diff)
+        log(f"MoE logits {what}, kernel path vs plain path, routing held "
+            f"(512-token prompt): cosine={cos:.6f} (>= {MIN_COSINE}) top1 "
+            f"equal={same} max_abs_diff={diff:.4f} plain top-2 gap="
+            f"{gap:.4f} {'ok' if ok else 'FAILED'}")
+        if not ok:
+            raise SystemExit(f"MoE: kernel path and plain path disagree "
+                             f"({what})")
+        res[what] = {"cosine": cos, "max_abs_diff": diff}
+    return res
+
+
+def _moe_replay(params, cfg, device, prompt, stream, j: int,
+                record: Optional[list] = None,
+                replay: Optional[list] = None) -> torch.Tensor:
+    """Token j's fp32 logits of `stream` through `cfg` on a scratch
+    cache, teacher-forced as _replay_gap: the prompt prefilled packed,
+    then decode steps at B = 4 (lane 0 live) fed stream[:j]; j = 0 is
+    the prompt's last position.  `record`/`replay`: _routes's, over
+    every router call of the replay."""
+    from dynamo_tpu_torch.models import llama
+
+    bs, L = 128, len(prompt)
+    nb = -(-(L + j + 1) // bs)
+    kv = tuple(torch.zeros(s, dtype=cfg.dtype, device=device)
+               for s in llama.kv_cache_shapes(cfg, nb + 1, bs))
+    T = -(-L // bs) * bs
+
+    def i32(x):
+        return torch.tensor(x, dtype=torch.int32, device=device)
+
+    table = list(range(1, nb + 1))
+    tables = i32([table] + [[0] * nb] * 3)
+    valid = torch.tensor([True, False, False, False], device=device)
+    with _routes(record, replay):
+        logits, _ = llama.prefill_packed(
+            params, cfg, kv, i32(prompt + [0] * (T - L)),
+            i32(list(range(L)) + [0] * (T - L)), i32([0] * T), i32([table]),
+            i32([L - 1]), torch.arange(T, device=device) < L)
+        logits = logits[0]
+        for s in range(j):
+            at = [L + s, 0, 0, 0]
+            out, _ = llama.decode(params, cfg, kv, i32([stream[s], 0, 0, 0]),
+                                  i32(at), tables, i32(at), valid=valid)
+            logits = out[0]
+    return logits.float()
+
+
+def _route_flips(a: list, b: list, L: int, n_layers: int) -> int:
+    """(token, layer) routings of the live rows (the L prompt tokens in
+    the prefill's n_layers calls, then decode lane 0) that chose other
+    experts in record `b` than in record `a`."""
+    n = 0
+    for c, (x, y) in enumerate(zip(a, b)):
+        rows = L if c < n_layers else 1
+        n += int((x[:rows].sort(dim=1).values
+                  != y[:rows].sort(dim=1).values).any(dim=1).sum())
+    return n
+
+
+def _moe_streams(what: str, got, ref, reqs, params, cfg_got, cfg_ref,
+                 device) -> list:
+    """The partings of the greedy streams of `got` (served with cfg_got)
+    from `ref`'s (cfg_ref), each logged with what _near_tie reads,
+    teacher-forced at the parting token j (_moe_replay): the reference's
+    top-2 logit gap and one bf16 ulp of its top logit; the (token,
+    layer) routings of the context that the two paths chose otherwise;
+    and, with every routing of the other path held to the reference's
+    (_routes), its logits' cosine with the reference's, their largest
+    difference and whether the top tokens agree."""
+    parted = []
+    for i, (g, r) in enumerate(zip(got, ref)):
+        if reqs[i].sampling.temperature > 0 or g[0] == r[0]:
+            continue
+        j = next((n for n, (a, b) in enumerate(zip(g[0], r[0])) if a != b),
+                 min(len(g[0]), len(r[0])))
+        prompt = list(reqs[i].token_ids)
+        rec_ref, rec_got = [], []
+        lr = _moe_replay(params, cfg_ref, device, prompt, r[0], j, rec_ref)
+        _moe_replay(params, cfg_got, device, prompt, r[0], j, rec_got)
+        lh = _moe_replay(params, cfg_got, device, prompt, r[0], j,
+                         replay=rec_ref)
+        top2 = torch.topk(lr, 2).values
+        p = {"request": i, "token": j,
+             "gap": (top2[0] - top2[1]).item(),
+             "ulp": _ulp_bf16(top2[0].item()),
+             "flips": _route_flips(rec_ref, rec_got, len(prompt),
+                                   cfg_ref.n_layers),
+             "held_cosine": torch.nn.functional.cosine_similarity(
+                 lh, lr, dim=0).item(),
+             "held_diff": (lh - lr).abs().max().item(),
+             "held_same": int(lh.argmax()) == int(lr.argmax())}
+        parted.append(p)
+        log(f"{what}: request {i}'s greedy stream parts at token {j}: "
+            f"reference top-2 gap {p['gap']:.6f}, one bf16 ulp "
+            f"{p['ulp']:.6f}; {p['flips']} (token, layer) routings of its "
+            f"context chose other experts on the two paths; with the "
+            f"routing held to the reference's: cosine "
+            f"{p['held_cosine']:.6f}, max difference {p['held_diff']:.6f}, "
+            f"top tokens equal {p['held_same']}; near-tie: {_near_tie(p)}")
+    return parted
+
+
+def _near_tie(p: dict) -> bool:
+    """Whether a _moe_streams parting is a near-tie: a logit near-tie,
+    the reference's top-2 gap within one bf16 ulp of its top logit; or
+    a router near-tie, where the two paths' rounding chose other experts
+    for some token of the context (a discrete change that moves later
+    logits by several ulps) and, with the routing held to the
+    reference's, the other path agrees at the parting token (cosine at
+    least MIN_COSINE, the same top token or a top-2 gap within their
+    largest difference): the parting is the routing's, not the
+    attention's or the dispatch's under test."""
+    held = p["held_cosine"] >= MIN_COSINE and (p["held_same"]
+                                               or p["gap"] <= p["held_diff"])
+    return p["gap"] <= p["ulp"] or (p["flips"] > 0 and held)
+
+
+def _moe_layer_check(params, mc, device) -> dict:
+    """One MoE layer (layer 0's weights) on MOE_LAYER_T random bf16 rows,
+    in dense dispatch and in capacity dispatch at capacity factor E/k
+    (C = T: dropless), against an fp32 forward of the same layer: the
+    same routing (`_moe_router`, fp32), then each expert's FFN in fp32
+    on the rows routed to it, weighted and summed.  Exits unless every
+    row's relative L2 error is within MOE_LAYER_TOL."""
+    from dynamo_tpu_torch.models import llama
+
+    layer = params["layers"][0]
+    gen = torch.Generator(device=device).manual_seed(3)
+    x = torch.randn(MOE_LAYER_T, mc.d_model, generator=gen,
+                    device=device).to(mc.dtype)
+    top_w, top_e = llama._moe_router(layer, mc, x)
+    xf = x.float()
+    ref = torch.zeros(xf.shape, device=device)
+    for e in range(mc.n_experts):
+        rows, slot = (top_e == e).nonzero(as_tuple=True)
+        h = torch.nn.functional.silu(xf[rows] @ layer["moe_w_gate"][e].float())
+        h = h * (xf[rows] @ layer["moe_w_up"][e].float())
+        ref.index_add_(0, rows, (h @ layer["moe_w_down"][e].float())
+                       * top_w[rows, slot][:, None])
+    out = {}
+    for dispatch, cf in (("dense", mc.moe_capacity_factor),
+                         ("capacity", mc.n_experts / mc.experts_per_token)):
+        cfg = dataclasses.replace(mc, moe_dispatch=dispatch,
+                                  moe_capacity_factor=cf)
+        got = llama._ffn(layer, cfg, x)
+        torch.cuda.synchronize()
+        out[dispatch] = row_rel_err(got, ref)
+        log(f"one MoE layer, T={MOE_LAYER_T}, {dispatch} dispatch (capacity "
+            f"factor {cf}): max row relative L2 error against the fp32 "
+            f"forward {out[dispatch]:.3e} (limit {MOE_LAYER_TOL})")
+        if not out[dispatch] <= MOE_LAYER_TOL:
+            raise SystemExit(f"the MoE layer ({dispatch} dispatch) disagrees "
+                             "with its fp32 forward")
+    return out
+
+
+def _moe_padded_times(eng, device) -> dict:
+    """Host and device ms (CUDA events; 3 calls each) of a padded
+    prefill dispatch after serving: B = 1 on a full 2048 bucket and four
+    rows of 512, random prompts over blocks 1-16 (a row's own)."""
+    c, g = eng.config, eng.padded_prefill
+    rng = np.random.default_rng(4)
+    out = {}
+    for rows, T in ((1, 2048), (4, 512)):
+        a = eng._padded_warmup(rows, T)
+        a["toks"][:] = rng.integers(0, eng.model_cfg.vocab_size, (rows, T))
+        a["true_lens"][:] = T
+        nb = T // c.block_size
+        for r in range(rows):
+            a["tables"][r, :nb] = 1 + r * nb + np.arange(nb)
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
+        start.record()
+        for _ in range(3):
+            g.run(a)
+        host = (time.perf_counter() - t0) / 3
+        end.record()
+        end.synchronize()
+        out[(rows, T)] = (start.elapsed_time(end) / 3, 1e3 * host)
+        log(f"capacity dispatch (factor {eng.model_cfg.moe_capacity_factor})"
+            f", a padded prefill dispatch of {rows} x {T}: "
+            f"{out[(rows, T)][0]:.3f} ms on the device, "
+            f"{out[(rows, T)][1]:.3f} ms on the host to dispatch")
+    return out
+
+
+def _moe_capacity(device, card: str, params, reqs, used, mc) -> dict:
+    """Capacity dispatch on the same weights: the five requests at
+    capacity factor E/k (dropless; check_moe holds its greedy streams to
+    the dense engine's) and at the default 1.25, timed.  Both engines
+    warm up (decode programs captured, the padded shapes run eagerly),
+    build no packed program, never launch K3 and build nothing while
+    serving.  Returns {"dropless": the E/k run's results, "launches":
+    the 1.25 run's counts, "padded_ms": its dispatch times}."""
+    from dynamo_tpu_torch.engine import TorchEngine
+
+    k1, k3 = used
+    out = {}
+    for cf in (mc.n_experts / mc.experts_per_token, mc.moe_capacity_factor):
+        cmc = dataclasses.replace(mc, moe_dispatch="capacity",
+                                  moe_capacity_factor=cf)
+        eng = TorchEngine(_moe_engine_config(cmc), params=params,
+                          device=device)
+        t0 = time.perf_counter()
+        eng.warmup_decode()
+        built = _log_programs(eng, f"capacity engine (factor {cf})")
+        padded = dict(eng.padded_prefill.counts)
+        log(f"capacity engine (factor {cf}): warm-up in "
+            f"{time.perf_counter() - t0:.1f} s, padded prefill shapes "
+            f"{sorted(padded)}, packed programs {eng.prefill_graphs.counts}")
+        if eng.prefill_graphs.counts or set(padded) != set(
+                eng._padded_shapes()):
+            raise SystemExit("capacity warm-up built a packed program or "
+                             "missed a padded shape")
+        res, counts, stats = _moe_serve(eng, reqs, used)
+        _moe_check_served(f"capacity (factor {cf})", res, reqs, card,
+                          eng.config)
+        if eng.graphs.counts != built or eng.padded_prefill.counts != padded:
+            raise SystemExit("the capacity engine built programs while "
+                             "serving")
+        need = mc.n_layers * stats["decode_steps"]
+        log(f"capacity (factor {cf}) launches: {k1.__name__} "
+            f"{counts[k1.__name__]} (>= {need}), {k3.__name__} "
+            f"{counts[k3.__name__]} (0: no packed prefill); "
+            f"{stats['prefill_steps']} padded prefill dispatches")
+        if counts[k1.__name__] < need or counts[k3.__name__]:
+            raise SystemExit("the capacity engine's launches are wrong")
+        if cf == mc.n_experts / mc.experts_per_token:
+            out["dropless"] = res
+        else:
+            out["padded_ms"] = _moe_padded_times(eng, device)
+            out["launches"] = counts
+            _moe_split(lambda: eng.padded_prefill.run(
+                eng._padded_warmup(4, 512)), "a padded 4 x 512 dispatch "
+                f"(capacity, factor {cf})")
+        _free_engine(eng)
+        del eng
+    return out
+
+
+def _moe_check_served(what: str, res, reqs, card: str, cfg) -> None:
+    """Log TTFT and decode tokens/s of a _serve result; exit unless every
+    request finished with 32 tokens."""
+    n, secs = _decode_rate(res)
+    log(f"serving mixtral-8x7b/{MOE_LAYERS} layers, {what} ({card}): ttft "
+        f"s per request {[round(r[2], 4) for r in res]}, decode {n} "
+        f"tokens in {secs:.3f} s = {n / secs:.1f} tokens/s aggregate "
+        f"(max_num_seqs={cfg.max_num_seqs})")
+    bad = [i for i, r in enumerate(res) if r[1] != "length"
+           or len(r[0]) != 32]
+    if bad:
+        raise SystemExit(f"{what}: requests {bad} did not finish with 32 "
+                         "tokens")
+
+
+def check_moe(device, card: str) -> dict:
+    """The MoE phase (module docstring).  Returns {"launches": the dense
+    engine's main-path counts by kernel name, "seconds": ...}."""
+    from dynamo_tpu_torch.engine import TorchEngine
+    from dynamo_tpu_torch.models import llama
+    from dynamo_tpu_torch.obs.costs import program_costs, weight_bytes
+
+    t_phase = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    mc = _moe_model()
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=device).manual_seed(0)
+    params = llama.init_params(mc, gen, device)
+    torch.cuda.synchronize()
+    nbytes = sum(t.numel() * t.element_size() for t in _leaves(params))
+    log(f"MoE: mixtral-8x7b at full width (d={mc.d_model}, heads "
+        f"{mc.n_heads}/{mc.n_kv_heads}, ffn {mc.ffn_dim}, {mc.n_experts} "
+        f"experts, top {mc.experts_per_token}, vocab {mc.vocab_size}), "
+        f"{mc.n_layers} of 32 layers: {nbytes / 1e9:.2f} GB of random bf16 "
+        f"weights made on the card in {time.perf_counter() - t0:.1f} s")
+    used = _kernels_of("bf16")
+    reqs = _requests(mc.vocab_size)
+
+    # dense dispatch, the default scheduler on graphs
+    eng = TorchEngine(_moe_engine_config(mc), params=params, device=device)
+    t0 = time.perf_counter()
+    eng.warmup_decode()
+    log(f"MoE dense engine: warm-up in {time.perf_counter() - t0:.1f} s; "
+        f"prefill graph pool by bucket (MiB): "
+        + ", ".join(f"T={T} {b / 2**20:.0f}" for T, b in
+                    sorted(eng.prefill_graphs.pool_grown.items()))
+        + f"; decode graph pool {eng.graphs.pool_bytes / 2**20:.0f} MiB")
+    built = _log_programs(eng, "MoE dense engine")
+    pbuilt = _log_prefill_programs(eng, "MoE dense engine")
+    res, launches, stats = _moe_serve(eng, reqs, used)
+    _moe_check_served("dense dispatch, graphs", res, reqs, card, eng.config)
+    if eng.graphs.counts != built or eng.prefill_graphs.counts != pbuilt:
+        raise SystemExit("the MoE engine captured programs while serving")
+    L = mc.n_layers
+    dec, pre = (fn.__name__ for fn in used)
+    need_dec, need_pre = L * stats["decode_steps"], L * stats["prefill_steps"]
+    log(f"MoE dense engine launches: {dec} {launches[dec]} (>= {need_dec} = "
+        f"{L} layers x {stats['decode_steps']} decode steps), {pre} "
+        f"{launches[pre]} (>= {need_pre} = {L} x {stats['prefill_steps']} "
+        "prefill dispatches); nothing captured while serving")
+    if launches[dec] < need_dec or launches[pre] < need_pre or not need_dec:
+        raise SystemExit("the MoE engine did not run through both kernels")
+    burst = check_graph_burst(eng, device, "mixtral bf16")
+    step_bytes = weight_bytes(mc)
+    counted = program_costs(mc, "decode", (True, 8), rows=4, max_blocks=16,
+                            block_size=128)["bytes"]
+    log(f"MoE k=8 burst replay {burst['burst_ms']:.3f} ms ({card}) against "
+        f"its byte bound: {step_bytes / 1e9:.2f} GB of weights a step = "
+        f"{8e3 * step_bytes / HBM_BYTES_PER_S:.1f} ms a burst at 3.35 TB/s "
+        f"({burst['burst_ms'] * HBM_BYTES_PER_S / 8e3 / step_bytes:.2f}x); "
+        f"with K1's full tables {counted / 1e9:.1f} GB = "
+        f"{1e3 * counted / HBM_BYTES_PER_S:.1f} ms; "
+        f"{burst['ops_per_token']:.1f} device operations per decode token "
+        f"at {L} layers ({burst['ops_per_token'] / L:.1f} a layer; the dense "
+        "llama-8b: 651-653 at 32 layers)")
+    replay = check_prefill_replay(eng, device, "mixtral bf16")
+    flops = program_costs(mc, "prefill", 2048, rows=4, max_blocks=16,
+                          block_size=128)["flops"]
+    ms = replay[2048]["replay"][0]
+    log(f"MoE T=2048 bucket replay {ms:.3f} ms on the device ({card}) "
+        f"against its FLOP bound: {flops / 1e12:.1f} TFLOP (dense dispatch,"
+        f" {L} layers) = {1e3 * flops / BF16_FLOPS_PER_S:.1f} ms at 989 "
+        f"TFLOP/s ({1e3 * flops / BF16_FLOPS_PER_S / ms:.2f} of it)")
+    split = {"decode": _moe_split(lambda: eng.graphs.run_eager(True, 8),
+                                  "eager k=8 decode burst body"),
+             "prefill": _moe_split(lambda: eng.prefill_graphs.run_eager(2048),
+                                   "eager T=2048 prefill bucket body")}
+    _free_engine(eng)
+    del eng
+
+    layer = _moe_layer_check(params, mc, device)
+    cap = _moe_capacity(device, card, params, reqs, used, mc)
+    worker = check_worker_short(device, _moe_engine_config(mc), params)
+
+    # the plain attention versions, eagerly, on the same weights
+    pmc = dataclasses.replace(mc, attn_impl="torch", packed_attn_impl="torch")
+    peng = TorchEngine(_moe_engine_config(pmc), params=params, device=device,
+                       cuda_graphs=False)
+    plain, plain_counts, _ = _moe_serve(peng, reqs, used)
+    _free_engine(peng)
+    del peng
+    if any(plain_counts.values()):
+        raise SystemExit(f"the plain engine launched kernels: {plain_counts}")
+    held = _moe_compare_logits(params, mc, device)
+    parted = {"plain": _moe_streams("MoE kernels against plain attention",
+                                    res, plain, reqs, params, mc, pmc,
+                                    device)}
+    cmc = dataclasses.replace(mc, moe_dispatch="capacity",
+                              moe_capacity_factor=mc.n_experts
+                              / mc.experts_per_token)
+    parted["capacity"] = _moe_streams(
+        "MoE capacity dispatch (dropless) against dense", cap["dropless"],
+        res, reqs, params, cmc, mc, device)
+    bad = {k: [p for p in v if not _near_tie(p)] for k, v in parted.items()}
+    if any(bad.values()):
+        raise SystemExit(f"MoE streams part at neither a logit near-tie nor "
+                         f"a router near-tie: {bad}")
+    log("MoE: greedy streams of the kernel engine equal the plain-attention "
+        "engine's (K1 and K3 held to their plain versions inside the "
+        "model), and those of dropless capacity dispatch the dense "
+        "engine's, but at near-ties")
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    secs = time.perf_counter() - t_phase
+    log(f"MoE phase: {secs:.1f} s, max_memory_allocated "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.1f} GiB ({card})")
+    return {"launches": launches, "worker_launches": worker,
+            "capacity_launches": cap["launches"], "layer_err": layer,
+            "burst": burst, "split": split, "parted": parted,
+            "held": held,
+            "seconds": secs}
+
+
 def load_checkout(path: str):
     """(_build, cuda_paged_attention, cuda_packed_prefill) of the port in
     another checkout at `path` (for instance the parent commit unpacked
@@ -5955,6 +6568,15 @@ def main() -> int:
             "seconds": round(time.perf_counter() - t0, 1)}}), flush=True)
         print(card, flush=True)
         return 0
+    if sys.argv[1:] == ["--moe"]:
+        # python3 chip_smoke.py --moe: the MoE phase
+        build_kernels()
+        out = check_moe(device, card)
+        print(json.dumps({"moe": {k: out[k] for k in (
+            "launches", "worker_launches", "capacity_launches", "layer_err",
+            "seconds")}}), flush=True)
+        print(card, flush=True)
+        return 0
     if sys.argv[1:] == ["--worker-ab"]:
         # python3 chip_smoke.py --worker-ab: the engine directly against
         # the engine behind the worker, in turns
@@ -6025,6 +6647,10 @@ def main() -> int:
     torch.cuda.empty_cache()
     ckpt = check_checkpoint(device, card)
     log(f"checkpoint phase done at {time.perf_counter() - t_start:.1f} s")
+    gc.collect()
+    torch.cuda.empty_cache()
+    moe = check_moe(device, card)
+    log(f"moe phase done at {time.perf_counter() - t_start:.1f} s")
     for k in kernels:
         k["launches"] = launches[k["name"]]
         k["worker_launches"] = worker_launches[k["name"]]
@@ -6040,11 +6666,12 @@ def main() -> int:
             k["name"], 0)
         k["lora_launches"] = lora["lora_launches"].get(k["name"], 0)
         k["guided_launches"] = lora["guided_launches"].get(k["name"], 0)
+        k["moe_launches"] = moe["launches"].get(k["name"], 0)
     for k in dma:  # the microbench is on no serving path
         k["disagg_prefill_launches"] = k["disagg_decode_launches"] = 0
         k["disagg_ipc_prefill_launches"] = k["disagg_ipc_decode_launches"] = 0
         k["kvbm_launches"] = k["spec_launches"] = k["spec_draft_launches"] = 0
-        k["lora_launches"] = k["guided_launches"] = 0
+        k["lora_launches"] = k["guided_launches"] = k["moe_launches"] = 0
     log(f"chip_smoke: every phase passed in "
         f"{time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels + dma}), flush=True)

@@ -14,7 +14,11 @@ a worker thread, as `_sched_step` does there:
     the bucket's program, models/llama.py prefill_packed and the
     sampler, is replayed from a captured CUDA graph, engine/graphs.py
     PrefillPrograms; kernel K3 attends); in overlap mode its first
-    tokens are read back one step late;
+    tokens are read back one step late.  Capacity-dispatch MoE is not
+    packed-safe: its slots take the JAX engine's padded programs
+    instead (one slot: `prefill` padded to its bucket; several:
+    `prefill_batched` with equal budget shares), run eagerly
+    (engine/graphs.py PaddedPrefillPrograms);
   * ONE decode burst runs every slot past prefill: k fused decode steps
     (k on the fusion ladder, adapted to pending work) at the fixed batch
     B = max_num_seqs, replayed from a captured CUDA graph
@@ -167,6 +171,7 @@ from .config import EngineConfig
 from .graphs import (
     DecodePrograms,
     GuidedPrograms,
+    PaddedPrefillPrograms,
     PrefillPrograms,
     Readback,
     VerifyPrograms,
@@ -455,6 +460,18 @@ class TorchEngine:
             self.device,
             capture=cuda_graphs if prefill_graphs is None
             else prefill_graphs, lora_bank=self.lora_bank)
+        # capacity-dispatch MoE is not packed-safe (a packed stream would
+        # merge the sequences' expert-capacity pools): its prefill takes
+        # the padded programs, as the JAX engine's `_packed_prefill_ok`
+        # routes it
+        mc = self.model_cfg
+        self._packed_prefill_ok = not (mc.n_experts > 0
+                                       and mc.moe_dispatch == "capacity")
+        self.padded_prefill: Optional[PaddedPrefillPrograms] = None
+        if not self._packed_prefill_ok:
+            self.padded_prefill = PaddedPrefillPrograms(
+                self.params, mc, self.kv, config.max_blocks_per_seq,
+                self.device, lora_bank=self.lora_bank)
         # guided decoding's candidate programs (top-M at M = GUIDED_TOPM
         # and the widened GUIDED_TOPM_WIDE), both built by warm-up; the
         # token<->text codec (the worker installs the model's tokenizer;
@@ -565,6 +582,8 @@ class TorchEngine:
         """Every program family this engine builds (the capture watch's
         sources)."""
         fams = [self.graphs, self.prefill_graphs, self.guided_graphs]
+        if self.padded_prefill is not None:
+            fams.append(self.padded_prefill)
         if self.verify_graphs is not None:
             fams.append(self.verify_graphs)
         for name in ("programs", "catchup"):
@@ -1076,7 +1095,13 @@ class TorchEngine:
     def _recompute_first(self, slot: _Slot) -> int:
         """The first token from the last prompt position, whose K/V the
         pull already wrote (the rewrite is value-identical): a one-row
-        packed prefill on the smallest bucket's program."""
+        packed prefill on the smallest bucket's program (the padded B = 1
+        program under capacity-dispatch MoE, as JAX's)."""
+        if self.padded_prefill is not None:
+            a = self._padded_arrays([slot], [1],
+                                    self.config.prefill_buckets[0], 1,
+                                    pos=[slot.prompt_len - 1])
+            return int(Readback(self.padded_prefill.run(a)).wait()[0])
         g = self.prefill_graphs
         T = g.buckets[0]
         a = g.host_descriptor(T)
@@ -1273,8 +1298,12 @@ class TorchEngine:
         continuation (engine/graphs.py captures each program at its first
         run), and under spec_decode every verify bucket's program and
         the draft model's propose bursts (k = 1..spec_k, B = 1), and both
-        guided top-M programs.  Nothing real is computed (one prefill token, all-zero
-        tables: every write lands in block 0), and the decode descriptor,
+        guided top-M programs.  Under capacity-dispatch MoE the padded
+        prefill programs take the packed ones' place: every (rows,
+        bucket) shape the scheduler can give runs once, eagerly
+        (_padded_shapes).  Nothing real is computed (one prefill token
+        a row, all-zero tables: every write lands in block 0), and the
+        decode descriptor,
         the device chain and the continuation state are restored
         afterwards.  Runs on the caller's thread and holds the step lock
         throughout: the worker serves its generate endpoint (and arms the
@@ -1289,11 +1318,15 @@ class TorchEngine:
 
                 _build.compile_sources([cuda_paged_attention.KERNEL,
                                         cuda_packed_prefill.KERNEL])
-            for T in self.prefill_graphs.buckets:
-                p = self.prefill_graphs.host_descriptor(T)
-                p["valid"][0] = True  # one token, in block 0
-                self.prefill_graphs.upload(p)
-                self.prefill_graphs.run(T)
+            if self.padded_prefill is not None:
+                for rows, T in self._padded_shapes():
+                    self.padded_prefill.run(self._padded_warmup(rows, T))
+            else:
+                for T in self.prefill_graphs.buckets:
+                    p = self.prefill_graphs.host_descriptor(T)
+                    p["valid"][0] = True  # one token, in block 0
+                    self.prefill_graphs.upload(p)
+                    self.prefill_graphs.run(T)
             if self.verify_graphs is not None:
                 for T in self.verify_graphs.buckets:
                     p = self.verify_graphs.host_descriptor(T)
@@ -1740,6 +1773,8 @@ class TorchEngine:
                              c.prefill_buckets[0])
                 self.metrics["slo_yield_steps"] = \
                     self.metrics.get("slo_yield_steps", 0) + 1
+        if not self._packed_prefill_ok:
+            return self._prefill_padded(pslots, budget)
         plan = plan_packed_prefill(
             pslots, budget, block_size=c.block_size,
             max_blocks_per_seq=c.max_blocks_per_seq,
@@ -1764,11 +1799,123 @@ class TorchEngine:
                 and (s.guide is None or s.disagg_prefill)}
         rec = self._fpm_prefill(len(plan.slots), plan.tokens, plan.bucket,
                                 completing,
-                                self.prefill_graphs.costs[plan.bucket])
+                                self.prefill_graphs.costs[plan.bucket], True)
         firsts = None
         if need:
             firsts = self._prefill_samples(tok, need)
         for i, (slot, chunk) in enumerate(zip(plan.slots, plan.chunks)):
+            if i in need:
+                first = int(firsts[i]) if firsts is not None else None
+            else:
+                first = -1
+            self._finish_prefill_chunk(slot, chunk, first)
+        return rec
+
+    def _bucket_for(self, n: int) -> int:
+        """The smallest prefill bucket holding n tokens (the largest
+        otherwise), as the JAX engine's."""
+        for b in self.config.prefill_buckets:
+            if n <= b:
+                return b
+        return self.config.prefill_buckets[-1]
+
+    def _padded_shapes(self) -> List[Tuple[int, int]]:
+        """Every (rows, bucket) the padded prefill can dispatch: B = 1 at
+        each bucket up to the chunk budget's, and for n = 2 ..
+        max_prefill_seqs co-scheduled slots (as many as the budget gives
+        the smallest bucket each) pow2(n) rows at each bucket up to that
+        of the n-way equal share."""
+        c = self.config
+        b0, top = c.prefill_buckets[0], c.prefill_buckets[-1]
+        budget = max(c.chunk_budget, b0)
+        shapes = {(1, T) for T in c.prefill_buckets
+                  if T <= self._bucket_for(min(top, budget))}
+        for n in range(2, min(c.max_prefill_seqs, budget // b0) + 1):
+            cap = self._bucket_for(min(top, max(budget // n, b0)))
+            shapes |= {(_pow2(n), T) for T in c.prefill_buckets if T <= cap}
+        return sorted(shapes)
+
+    def _padded_warmup(self, rows: int, T: int) -> Dict[str, np.ndarray]:
+        """A padded dispatch's host arrays that compute nothing real: one
+        token a row, all-zero tables (every write lands in block 0)."""
+        c = self.config
+        a = {"toks": np.zeros((rows, T), np.int32),
+             "positions": np.tile(np.arange(T, dtype=np.int32), (rows, 1)),
+             "tables": np.zeros((rows, c.max_blocks_per_seq), np.int32),
+             "ctx_lens": np.zeros(rows, np.int32),
+             "true_lens": np.ones(rows, np.int32),
+             "seeds": np.zeros(rows, np.int32),
+             "temps": np.zeros(rows, np.float32),
+             "top_ks": np.zeros(rows, np.int32),
+             "top_ps": np.ones(rows, np.float32)}
+        if self.lora_bank is not None:
+            a["lidx"] = np.zeros(rows, np.int32)
+        return a
+
+    def _padded_arrays(self, slots: List[_Slot], chunks: List[int],
+                       bucket: int, rows: int,
+                       pos: Optional[List[int]] = None
+                       ) -> Dict[str, np.ndarray]:
+        """The padded programs' host arrays for `slots`, each's chunk of
+        `chunks` tokens from its position in `pos` (default its
+        prefill_pos) padded to `bucket`, rows past the slots padding
+        (true_len 0, all-zero tables): the JAX engine's
+        `_prefill_dispatch` and `_prefill_one` arrays."""
+        a = self._padded_warmup(rows, bucket)
+        a["true_lens"][:] = 0
+        for i, (slot, chunk) in enumerate(zip(slots, chunks)):
+            p = slot.prefill_pos if pos is None else pos[i]
+            a["toks"][i, :chunk] = slot.seq.tokens[p:p + chunk]
+            a["positions"][i] = p + np.arange(bucket, dtype=np.int32)
+            a["tables"][i] = slot.block_table
+            a["ctx_lens"][i] = p
+            a["true_lens"][i] = chunk
+            sp = slot.request.sampling
+            a["seeds"][i] = slot.sampling_seed
+            a["temps"][i] = sp.temperature
+            a["top_ks"][i] = sp.top_k
+            a["top_ps"][i] = sp.top_p
+            if "lidx" in a:
+                a["lidx"][i] = slot.lora_idx
+        return a
+
+    def _prefill_padded(self, pslots: List[_Slot],
+                        budget: int) -> Optional[dict]:
+        """The JAX engine's padded prefill routing, for capacity-dispatch
+        MoE (each sequence its own expert-capacity pool): one slot runs
+        `prefill` on its chunk padded to its bucket; several share the
+        budget equally, with no donation of leftovers (every row pads to
+        the largest chunk's bucket, so a row past its share would
+        multiply the batch's padded compute), fewer slots when the
+        budget cannot give each the smallest bucket, and run
+        `prefill_batched` on pow2(n) rows.  C depends on the padded
+        length, so the padding is JAX's.  Returns the FPM record."""
+        c = self.config
+        n = max(1, min(len(pslots), budget // c.prefill_buckets[0]))
+        pslots = pslots[:n]
+        if n == 1:
+            chunks = [min(c.prefill_buckets[-1], budget,
+                          pslots[0].prompt_len - pslots[0].prefill_pos)]
+            rows = 1
+        else:
+            share = max(budget // n, c.prefill_buckets[0])
+            chunks = [min(c.prefill_buckets[-1], share,
+                          s.prompt_len - s.prefill_pos) for s in pslots]
+            rows = _pow2(n)
+        bucket = self._bucket_for(max(chunks))
+        tok = self.padded_prefill.run(
+            self._padded_arrays(pslots, chunks, bucket, rows))
+        self.metrics["prefill_steps"] += 1
+        need = {i: s for i, (s, ch) in enumerate(zip(pslots, chunks))
+                if s.prefill_pos + ch >= s.prompt_len
+                and (s.guide is None or s.disagg_prefill)}
+        completing = sum(1 for s, ch in zip(pslots, chunks)
+                         if s.prefill_pos + ch >= s.prompt_len)
+        rec = self._fpm_prefill(n, int(sum(chunks)), bucket, completing,
+                                self.padded_prefill.costs[(rows, bucket)],
+                                False)
+        firsts = self._prefill_samples(tok, need) if need else None
+        for i, (slot, chunk) in enumerate(zip(pslots, chunks)):
             if i in need:
                 first = int(firsts[i]) if firsts is not None else None
             else:
@@ -2461,9 +2608,10 @@ class TorchEngine:
 
     # -- forward-pass metrics ------------------------------------------------
     def _fpm_prefill(self, rows: int, tokens: int, bucket: int,
-                     completing: int, cost: Dict[str, float]) -> dict:
-        """One record per packed prefill dispatch, as the JAX engine's
-        `_fpm_prefill`: gap_s is the dispatch-to-dispatch gap (0.0 after
+                     completing: int, cost: Dict[str, float],
+                     packed: bool) -> dict:
+        """One record per prefill dispatch (`packed`: the packed program,
+        else a padded one), as the JAX engine's `_fpm_prefill`: gap_s is the dispatch-to-dispatch gap (0.0 after
         an idle second: unknown), queue_depth the prefilling and waiting
         requests minus those this dispatch completes, xla_flops/xla_bytes
         the bucket program's cost count (obs/costs.py; JAX's come from
@@ -2485,7 +2633,7 @@ class TorchEngine:
         synced = self._fpm_sync_t >= self._fpm_last_prefill_t
         rec = {
             "t": now, "kind": "prefill", "rows": rows, "tokens": tokens,
-            "bucket": bucket, "packed": True, "gap_s": gap,
+            "bucket": bucket, "packed": packed, "gap_s": gap,
             "flops": flops, "queue_depth": depth, "synced": synced,
             "xla_flops": cost["flops"], "xla_bytes": cost["bytes"],
         }

@@ -88,6 +88,15 @@ programs (`_decode_topk_impl`): one decode step and the M largest
 logits of every lane, for M = 32 and the widened 256, one graph each in
 their own pool, both built by warm-up.
 
+MoE (models/llama.py `_ffn`): every program above captures a MoE trunk
+as it does a dense one, the descriptor's `valid` lanes or stream tokens
+reaching the dispatch (padding claims no expert capacity).
+PaddedPrefillPrograms, the counterparts of the JAX engine's jitted
+`_prefill_impl` and `_prefill_batched_impl`, serve capacity-dispatch
+MoE, whose sequences a packed stream would pool: one chunk padded to its
+bucket, or pow2 rows padded to one bucket, run eagerly (capturing them
+is left to do), one build record per (rows, T).
+
 Every family records each build (`_Built`): `costs[key]` holds the
 program's cost count (obs/costs.py, {"flops", "bytes"} at its captured
 shapes), computed once at the build, and a `watch` the engine installs
@@ -477,7 +486,9 @@ class _BucketPrograms(_Built):
         self.counts: Dict[int, int] = {}
         self.costs: Dict[int, Dict[str, float]] = {}
         self.capture_s: Dict[int, float] = {}
+        # the bytes the graph pool reserved, in all and by bucket
         self.pool_bytes = 0
+        self.pool_grown: Dict[int, int] = {}
         self._graphs: Dict[int, torch.cuda.CUDAGraph] = {}
         self._graph_launches: Dict[int, list] = {}
         self._pool = None
@@ -599,6 +610,7 @@ class _BucketPrograms(_Built):
                            lambda: self.run_eager(T),
                            (k3.packed_prefill, k3.packed_prefill_int8))
         self.pool_bytes += grown
+        self.pool_grown[T] = grown
 
 
 class PrefillPrograms(_BucketPrograms):
@@ -637,6 +649,84 @@ class PrefillPrograms(_BucketPrograms):
         self.logits[T].copy_(logits)
         self.tok[T].copy_(tok)
         return self.tok[T]
+
+
+class PaddedPrefillPrograms(_Built):
+    """The padded prefill programs of capacity-dispatch MoE, the
+    counterparts of the JAX engine's jitted `_prefill_impl` (one
+    sequence's chunk padded to its bucket, models/llama.py `prefill`)
+    and `_prefill_batched_impl` (Bp = pow2(n) rows of chunks padded to
+    one bucket, `prefill_batched`), each followed by sample_tokens into
+    [rows] tokens.  A packed stream would merge the sequences' expert
+    capacity pools, so the engine routes these configs here, as JAX
+    does.  They run eagerly (their lengths are read on the host); each
+    (rows, T) shape records one build with its cost count, as a program
+    family's first run does."""
+
+    COST_FAMILY = "prefill_padded"
+
+    def __init__(self, params, cfg: llama.LlamaConfig, kv: tuple,
+                 max_blocks: int, device: torch.device,
+                 lora_bank: Optional[Dict[str, torch.Tensor]] = None):
+        self.params, self.cfg, self.kv = params, cfg, kv
+        self.max_blocks, self.device = max_blocks, device
+        self.lora_bank = lora_bank
+        self.counts: Dict[Tuple[int, int], int] = {}
+        self.costs: Dict[Tuple[int, int], Dict[str, float]] = {}
+
+    def _cost_shape(self) -> dict:
+        # the row count is the key's
+        return {"max_blocks": self.max_blocks,
+                "lora": _lora_shape(self.lora_bank), **_cache_shape(self.kv)}
+
+    def watch_family(self, key) -> str:
+        return "prefill" if key[0] == 1 else "prefill_batched"
+
+    @staticmethod
+    def watch_tokens(key) -> int:
+        return int(key[0] * key[1])
+
+    def _upload(self, arr: np.ndarray) -> torch.Tensor:
+        """A host array on the device; on CUDA through pinned memory
+        (the caching host allocator keeps it until the copy has run),
+        so the dispatch never waits for the work queued before it."""
+        t = torch.from_numpy(np.ascontiguousarray(arr))
+        if self.device.type != "cuda":
+            return t
+        return t.pin_memory().to(self.device, non_blocking=True)
+
+    def run(self, a: Dict[str, np.ndarray]) -> torch.Tensor:
+        """One padded dispatch on the host arrays `a` (toks and positions
+        [rows, T], tables [rows, max_blocks], and per row ctx_lens,
+        true_lens, seeds, temps, top_ks, top_ps, with a LoRA bank lidx):
+        rows 1 runs `prefill`, more `prefill_batched`.  Returns the
+        sampled tokens [rows] (greedy rows take the argmax)."""
+        rows, T = a["toks"].shape
+        key = (rows, T)
+        t0 = time.perf_counter()
+        t = {k: self._upload(v) for k, v in a.items()
+             if k not in ("ctx_lens", "true_lens")}
+        if rows == 1:
+            # the sequence's adapter slot on each of its tokens
+            lora = ({"lora_bank": self.lora_bank,
+                     "adapter_idx": t["lidx"].expand(T)}
+                    if self.lora_bank is not None else {})
+            logits, _ = llama.prefill(
+                self.params, self.cfg, self.kv, t["toks"][0],
+                t["positions"][0], t["tables"][0], int(a["ctx_lens"][0]),
+                int(a["true_lens"][0]), **lora)
+            logits = logits[None]
+        else:
+            lora = ({"lora_bank": self.lora_bank, "adapter_idx": t["lidx"]}
+                    if self.lora_bank is not None else {})
+            logits, _ = llama.prefill_batched(
+                self.params, self.cfg, self.kv, t["toks"], t["positions"],
+                t["tables"], a["ctx_lens"], a["true_lens"], **lora)
+        tok = sample_tokens(logits, t["seeds"], torch.zeros_like(t["seeds"]),
+                            t["temps"], t["top_ks"], t["top_ps"])
+        if key not in self.counts:
+            self._built(key, time.perf_counter() - t0)
+        return tok
 
 
 def spec_verify_window(logits: torch.Tensor, temps_t: torch.Tensor):

@@ -7,7 +7,9 @@ does not import, so a caller upcasts bf16 JAX arrays to float32 first
 
   * parameters: the JAX parameter tree (nested dicts and lists, weights
     [in, out]) maps one to one onto the port's tree; norms stay fp32, the
-    rest takes the model config's dtype.
+    rest takes the model config's dtype.  A MoE layer's router
+    `moe_gate` [d, E] and expert stacks `moe_w_*` [E, in, out] are no
+    norms, so they take the model's dtype, as the JAX init makes them.
   * KV cache: the JAX cache is [L, nkv, num_blocks, head_dim, block_size]
     (blocks transposed for TPU lanes); the port's is
     [L, nkv, num_blocks, block_size, head_dim] (ops/paged_attention.py).

@@ -1,6 +1,6 @@
 """Llama-family decoder over a paged KV cache, in PyTorch.
 
-The counterpart of dynamo_tpu/models/llama.py (dense families): plain
+The counterpart of dynamo_tpu/models/llama.py (dense and MoE): plain
 functions over a parameter dict with the JAX package's tree and names
 ({"embedding", "final_norm", "lm_head", "layers": [...]}, weights stored
 [in, out] so `x @ w` reads the same), so weights carry across through
@@ -15,7 +15,18 @@ The KV cache is a (k, v) tuple in the port's layout
 [L, nkv, num_blocks, block_size, hd], or (k, v, k_scale, v_scale) for an
 int8 cache (quant/kv.py), and is updated IN PLACE: the functions still
 return it, so call sites read like the JAX ones.
-The MoE paths are not ported yet and raise (ROADMAP.md Queue 1 item 9).
+
+MoE (the Mixtral family, `n_experts > 0`): the routed MLP replaces the
+dense one in every forward (`_ffn`), with JAX's two dispatches: "dense"
+(every expert computes every token, the router weights mask the
+combine; dropless and batch-invariant) and "capacity" (GShard one-hot
+placement into per-expert buffers of C slots, overflow dropped).  Both
+are static-shape tensor programs (no host read, no data-dependent
+size), so the decode, packed-prefill and verify programs capture them
+as CUDA graphs.  Every forward passes its `valid` rows, so padding
+claims no expert capacity.  Capacity dispatch is not packed-safe
+(segments would share one capacity pool): the engine serves it through
+the padded `prefill` and `prefill_batched` instead, as JAX does.
 """
 
 from __future__ import annotations
@@ -67,14 +78,14 @@ class LlamaConfig:
     # packed-prefill attention: "auto" (kernel K3 / plain) | "torch"
     packed_attn_impl: str = "auto"
     eos_token_ids: Tuple[int, ...] = (2,)
-    # MoE (Mixtral family) is a later slice of the port
+    # MoE (Mixtral family): 0 experts = the dense MLP.  moe_dispatch
+    # "dense" (dropless, batch-invariant; E/k x the routed FLOPs) or
+    # "capacity" (GShard: an expert's tokens past
+    # C = ceil(T*k/E * moe_capacity_factor) are dropped), as in JAX
     n_experts: int = 0
-
-    def __post_init__(self):
-        if self.n_experts > 0:
-            raise NotImplementedError(
-                "MoE (n_experts > 0) is not ported to dynamo_tpu_torch yet "
-                "(ROADMAP.md Queue 1 item 9: MoE and MLA)")
+    experts_per_token: int = 2
+    moe_dispatch: str = "dense"
+    moe_capacity_factor: float = 1.25
 
     @property
     def q_dim(self) -> int:
@@ -103,7 +114,7 @@ def kv_cache_scale_shapes(cfg: LlamaConfig, num_blocks: int,
     return shape, shape
 
 
-# the dense presets of the JAX package, with torch dtypes
+# the JAX package's presets, with torch dtypes
 PRESETS: Dict[str, LlamaConfig] = {
     "tiny": LlamaConfig(),
     "tiny-gqa": LlamaConfig(name="tiny-gqa", n_heads=8, n_kv_heads=2),
@@ -122,6 +133,29 @@ PRESETS: Dict[str, LlamaConfig] = {
         n_heads=32, n_kv_heads=8, head_dim=128, ffn_dim=14336,
         max_context=131072,
     ),
+    # needs tensor parallelism to fit (ROADMAP.md Queue 1 item 8)
+    "llama-70b": LlamaConfig(
+        name="llama-70b", vocab_size=128256, d_model=8192, n_layers=80,
+        n_heads=64, n_kv_heads=8, head_dim=128, ffn_dim=28672,
+        max_context=131072,
+    ),
+    "qwen3-32b": LlamaConfig(
+        name="qwen3-32b", vocab_size=151936, d_model=5120, n_layers=64,
+        n_heads=64, n_kv_heads=8, head_dim=128, ffn_dim=25600,
+        qk_norm=True, rope_theta=1000000.0, max_context=40960,
+    ),
+    # MoE family
+    "tiny-moe": LlamaConfig(
+        name="tiny-moe", vocab_size=256, d_model=64, n_layers=2,
+        n_heads=4, n_kv_heads=2, head_dim=16, ffn_dim=128,
+        n_experts=4, experts_per_token=2,
+    ),
+    "mixtral-8x7b": LlamaConfig(
+        name="mixtral-8x7b", vocab_size=32000, d_model=4096, n_layers=32,
+        n_heads=32, n_kv_heads=8, head_dim=128, ffn_dim=14336,
+        rope_theta=1000000.0, max_context=32768,
+        n_experts=8, experts_per_token=2,
+    ),
 }
 
 
@@ -133,7 +167,10 @@ PRESETS: Dict[str, LlamaConfig] = {
 def init_params(cfg: LlamaConfig, generator: torch.Generator,
                 device: Optional[torch.device] = None) -> Params:
     """Random-init parameters with the JAX package's shapes and scales
-    (normal * 1/sqrt(fan_in), embedding * 0.02, norms 1).  The draws come
+    (normal * 1/sqrt(fan_in), embedding * 0.02, norms 1; a MoE layer's
+    router `moe_gate` [d, E] and expert stacks `moe_w_gate`/`moe_w_up`
+    [E, d, ffn] and `moe_w_down` [E, ffn, d] instead of the dense MLP,
+    each scaled by its fan-in).  The draws come
     from `generator` (on `device`, default the generator's), so they are
     not the JAX package's values: tests that compare the two convert the
     JAX parameters instead (models/convert.py)."""
@@ -162,10 +199,17 @@ def init_params(cfg: LlamaConfig, generator: torch.Generator,
             "wk": dense((cfg.d_model, cfg.kv_dim)),
             "wv": dense((cfg.d_model, cfg.kv_dim)),
             "wo": dense((cfg.q_dim, cfg.d_model)),
-            "w_gate": dense((cfg.d_model, cfg.ffn_dim)),
-            "w_up": dense((cfg.d_model, cfg.ffn_dim)),
-            "w_down": dense((cfg.ffn_dim, cfg.d_model)),
         }
+        if cfg.n_experts > 0:
+            E, d, f = cfg.n_experts, cfg.d_model, cfg.ffn_dim
+            layer["moe_gate"] = dense((d, E))
+            layer["moe_w_gate"] = dense((E, d, f), scale=1.0 / math.sqrt(d))
+            layer["moe_w_up"] = dense((E, d, f), scale=1.0 / math.sqrt(d))
+            layer["moe_w_down"] = dense((E, f, d), scale=1.0 / math.sqrt(f))
+        else:
+            layer["w_gate"] = dense((cfg.d_model, cfg.ffn_dim))
+            layer["w_up"] = dense((cfg.d_model, cfg.ffn_dim))
+            layer["w_down"] = dense((cfg.ffn_dim, cfg.d_model))
         if cfg.qk_norm:
             layer["q_norm"] = ones(cfg.head_dim)
             layer["k_norm"] = ones(cfg.head_dim)
@@ -272,6 +316,112 @@ def _mlp(layer, x: torch.Tensor) -> torch.Tensor:
             * (x @ layer["w_up"])) @ layer["w_down"]
 
 
+def _moe_router(layer, cfg: LlamaConfig, x: torch.Tensor):
+    """Top-k routing of x [T, d]: (weights [T, k] fp32, the softmax of
+    the k selected fp32 router logits; expert ids [T, k] int64).  The
+    selection keeps `lax.top_k`'s order, the lower expert first among
+    equal logits (capacity positions depend on the slot order), through
+    a stable descending sort: `torch.topk` promises no order for ties."""
+    router = x.float() @ layer["moe_gate"].float()  # [T, E]
+    vals, ids = torch.sort(router, dim=-1, descending=True, stable=True)
+    k = cfg.experts_per_token
+    return torch.softmax(vals[:, :k], dim=-1), ids[:, :k]
+
+
+def moe_dispatch_dense(layer, cfg: LlamaConfig, x: torch.Tensor,
+                       top_w: torch.Tensor, top_e: torch.Tensor,
+                       valid: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Dropless masked-dense dispatch for precomputed routing (top_w,
+    top_e [T, k]): every expert computes every token ([E, T, ffn]
+    batched products), and the [T, E] router weight matrix, zero off the
+    selected experts and on invalid rows, masks the combine in
+    cfg.dtype.  Batch-invariant by construction."""
+    T = x.shape[0]
+    wmat = torch.zeros(T, cfg.n_experts, dtype=torch.float32,
+                       device=x.device).scatter_(1, top_e, top_w)
+    if valid is not None:
+        wmat = wmat * valid.to(torch.float32)[:, None]
+    h = torch.nn.functional.silu(torch.matmul(x, layer["moe_w_gate"])) \
+        * torch.matmul(x, layer["moe_w_up"])             # [E, T, ffn]
+    eout = torch.matmul(h, layer["moe_w_down"])           # [E, T, d]
+    return torch.einsum("etd,te->td", eout, wmat.to(cfg.dtype))
+
+
+def _moe_mlp_dense(layer, cfg: LlamaConfig, x: torch.Tensor,
+                   valid: Optional[torch.Tensor] = None) -> torch.Tensor:
+    top_w, top_e = _moe_router(layer, cfg, x)
+    return moe_dispatch_dense(layer, cfg, x, top_w, top_e, valid)
+
+
+def moe_capacity(cfg: LlamaConfig, T: int) -> int:
+    """An expert's buffer slots for a T-token dispatch, with JAX's float
+    expression order: max(1, ceil(T * k / E * capacity_factor))."""
+    return max(1, math.ceil(T * cfg.experts_per_token / cfg.n_experts
+                            * cfg.moe_capacity_factor))
+
+
+def moe_dispatch_capacity(layer, cfg: LlamaConfig, x: torch.Tensor,
+                          top_w: torch.Tensor, top_e: torch.Tensor,
+                          valid: Optional[torch.Tensor] = None
+                          ) -> torch.Tensor:
+    """GShard capacity dispatch for precomputed routing, JAX's
+    formulation: each (token, slot) in flattened order takes the next
+    position of its expert's buffer of C = moe_capacity(cfg, T) slots (a
+    cumsum over the one-hot assignments), a position past C places
+    nothing (the token's expert output is dropped; its residual passes
+    through), and one-hot dispatch [T*k, E, C] and combine tensors move
+    the tokens in and out with products.  Rows with valid False claim no
+    position.  Static shapes throughout."""
+    T, d = x.shape
+    E, k = cfg.n_experts, cfg.experts_per_token
+    C = moe_capacity(cfg, T)
+    e_flat = top_e.reshape(-1)                           # [Tk]
+    w_flat = top_w.reshape(-1)
+    onehot = (e_flat[:, None] == torch.arange(
+        E, device=x.device)).to(torch.int32)             # [Tk, E]
+    if valid is not None:
+        onehot = onehot * valid.to(torch.int32).repeat_interleave(k)[:, None]
+    pos = torch.gather(torch.cumsum(onehot, dim=0) - onehot, 1,
+                       e_flat[:, None])[:, 0]            # [Tk]
+    # jax.nn.one_hot(pos, C): an all-zero row for pos >= C (the drop)
+    slot = (pos[:, None] == torch.arange(C, device=x.device)).float()
+    disp = onehot.float()[:, :, None] * slot[:, None, :]  # [Tk, E, C]
+    comb = disp * w_flat[:, None, None]
+    x_rep = x.repeat_interleave(k, dim=0)                # [Tk, d]
+    ein = torch.einsum("sec,sd->ecd", disp.to(cfg.dtype), x_rep)
+    h = torch.nn.functional.silu(torch.matmul(ein, layer["moe_w_gate"])) \
+        * torch.matmul(ein, layer["moe_w_up"])           # [E, C, ffn]
+    eout = torch.matmul(h, layer["moe_w_down"])           # [E, C, d]
+    out = torch.einsum("sec,ecd->sd", comb.to(cfg.dtype), eout)
+    # the k slots summed in fp32, as jnp.sum upcasts bf16 operands
+    return out.reshape(T, k, d).float().sum(dim=1).to(x.dtype)
+
+
+def _moe_mlp(layer, cfg: LlamaConfig, x: torch.Tensor,
+             valid: Optional[torch.Tensor] = None) -> torch.Tensor:
+    top_w, top_e = _moe_router(layer, cfg, x)
+    return moe_dispatch_capacity(layer, cfg, x, top_w, top_e, valid)
+
+
+def _ffn(layer, cfg: LlamaConfig, x: torch.Tensor,
+         valid: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The dense MLP, or the routed one over x [..., d] (leading dims
+    flattened into one dispatch, `valid` [...] with them).  Raises
+    JAX's ValueError on an unknown moe_dispatch."""
+    if cfg.n_experts <= 0:
+        return _mlp(layer, x)
+    if cfg.moe_dispatch not in ("dense", "capacity"):
+        raise ValueError(
+            f"moe_dispatch must be 'dense' or 'capacity', "
+            f"got {cfg.moe_dispatch!r}")
+    lead = x.shape[:-1]
+    if valid is not None:
+        valid = valid.reshape(-1)
+    moe = _moe_mlp if cfg.moe_dispatch == "capacity" else _moe_mlp_dense
+    out = moe(layer, cfg, x.reshape(-1, x.shape[-1]), valid)
+    return out.reshape(*lead, x.shape[-1])
+
+
 def unembed_weight(params, cfg: LlamaConfig) -> torch.Tensor:
     """The [d, vocab] final-projection matrix (embedding.T when tied)."""
     if cfg.tie_embeddings:
@@ -308,8 +458,11 @@ def prefill_packed(
 ):
     """Packed multi-sequence prefill (ops/packed_prefill.py): K/V scatter
     into each token's own blocks, attention is causal-within-segment over
-    each segment's paged context.  Returns (logits [S, vocab] at each
-    segment's last packed token, kv_cache updated in place)."""
+    each segment's paged context.  Capacity-dispatch MoE is not
+    packed-safe (the segments would share one expert-capacity pool); the
+    engine serves it through `prefill`/`prefill_batched`, as JAX does.
+    Returns (logits [S, vocab] at each segment's last packed token,
+    kv_cache updated in place)."""
     x = _packed_forward(params, cfg, kv_cache, token_ids, positions,
                         seg_ids, block_tables, valid, lora_bank,
                         adapter_idx)
@@ -353,7 +506,7 @@ def _packed_forward(params, cfg: LlamaConfig, kv_cache: KVCache,
             v_scale=v_scale, plan=plan)
         x = x + _attn_out(layer, attn.reshape(T, cfg.q_dim), lora=lctx)
         h = rms_norm(x, layer["mlp_norm"]["norm"], cfg.rms_eps)
-        x = x + _mlp(layer, h)
+        x = x + _ffn(layer, cfg, h, valid=valid)
     return x
 
 
@@ -404,6 +557,9 @@ def prefill(
     k_cache, v_cache, k_scale, v_scale = unpack_kv(kv_cache)
     T = token_ids.shape[0]
     sel = _lora_sel(lora_bank, adapter_idx, cfg.dtype)
+    # padding past true_len must not claim MoE expert capacity
+    valid = (torch.arange(T, device=token_ids.device) < true_len
+             if cfg.n_experts > 0 else None)
     x = params["embedding"][token_ids.long()].to(cfg.dtype)  # [T, d]
     for li, layer in enumerate(params["layers"]):
         lctx = _lora_ctx(lora_bank, sel, li)
@@ -416,9 +572,63 @@ def prefill(
                                        k_scale=k_scale, v_scale=v_scale)
         x = x + _attn_out(layer, attn.reshape(T, cfg.q_dim), lora=lctx)
         h = rms_norm(x, layer["mlp_norm"]["norm"], cfg.rms_eps)
-        x = x + _mlp(layer, h)
+        x = x + _ffn(layer, cfg, h, valid=valid)
     last = max(int(true_len) - 1, 0)
     return _logits(params, cfg, x[last]), kv_cache
+
+
+def prefill_batched(
+    params: Params,
+    cfg: LlamaConfig,
+    kv_cache: KVCache,
+    token_ids: torch.Tensor,     # [Bp, T_pad] int32 (a chunk per row)
+    positions: torch.Tensor,     # [Bp, T_pad] int32 absolute positions
+    block_tables: torch.Tensor,  # [Bp, max_blocks] int32
+    ctx_lens,                    # [Bp] tokens already cached per row
+    true_lens,                   # [Bp] valid tokens per row
+    lora_bank=None,              # stacked adapter bank (lora/bank.py)
+    adapter_idx=None,            # [Bp] int32: bank slot per row
+):
+    """Several sequences' padded chunks in one call, the counterpart of
+    the JAX package's `prefill_batched` and the same function as
+    `prefill` per row: each row's K/V writes and plain padded attention
+    (ops/paged_attention.py) run per row over the shared cache, a row
+    with true_len 0 writes only the garbage block, and MoE dispatches
+    per row, so each sequence keeps its own expert-capacity pool as in
+    the B = 1 program (co-scheduled requests never capacity-drop each
+    other's tokens).  Reads the lengths on the host (pass host arrays or
+    CPU tensors): the engine runs it eagerly.  Returns (logits [Bp,
+    vocab] at each row's last valid token, kv_cache updated in
+    place)."""
+    k_cache, v_cache, k_scale, v_scale = unpack_kv(kv_cache)
+    Bp, T = token_ids.shape
+    ctx = [int(c) for c in ctx_lens]
+    lens = [int(n) for n in true_lens]
+    sel = _lora_sel(lora_bank, adapter_idx, cfg.dtype)
+    span = torch.arange(T, device=token_ids.device)
+    valid = torch.stack([span < n for n in lens])             # [Bp, T]
+    x = params["embedding"][token_ids.long()].to(cfg.dtype)  # [Bp, T, d]
+    for li, layer in enumerate(params["layers"]):
+        lctx = _lora_ctx(lora_bank, sel, li)
+        h = rms_norm(x, layer["attn_norm"]["norm"], cfg.rms_eps)
+        q, k, v = _qkv(layer, cfg, h, positions, lora=lctx)  # [Bp,T,nh,hd]
+        attn = []
+        for b in range(Bp):
+            _write_kv(write_prompt_kv, kv_cache, li, k[b], v[b],
+                      block_tables[b], ctx[b], lens[b])
+            attn.append(paged_prefill_attention(
+                q[b], k[b], v[b], k_cache, v_cache, li, block_tables[b],
+                ctx[b], lens[b], k_scale=k_scale, v_scale=v_scale))
+        attn = torch.stack(attn)
+        x = x + _attn_out(layer, attn.reshape(Bp, T, cfg.q_dim), lora=lctx)
+        h = rms_norm(x, layer["mlp_norm"]["norm"], cfg.rms_eps)
+        if cfg.n_experts > 0:
+            x = x + torch.stack([_ffn(layer, cfg, h[b], valid=valid[b])
+                                 for b in range(Bp)])
+        else:
+            x = x + _ffn(layer, cfg, h)
+    xl = torch.stack([x[b, max(n - 1, 0)] for b, n in enumerate(lens)])
+    return _logits(params, cfg, xl), kv_cache
 
 
 # ---------------------------------------------------------------------------
@@ -442,10 +652,11 @@ def decode(
     the paged context.  Returns (logits [B, vocab], kv_cache updated in
     place).  The engine decodes at a fixed B = max_num_seqs with
     full-width tables: a padding row has an all-zero table, so its write
-    lands in the garbage block 0.  `valid` keeps the JAX signature; the
-    dense layers do not read it (JAX's MoE capacity does)."""
+    lands in the garbage block 0.  `valid` reaches the MoE dispatch
+    (padding rows claim no expert capacity); the dense layers do not
+    read it."""
     x = _decode_trunk(params, cfg, kv_cache, token_ids, positions,
-                      block_tables, ctx_lens, lora_bank, adapter_idx)
+                      block_tables, ctx_lens, valid, lora_bank, adapter_idx)
     return _logits(params, cfg, x), kv_cache
 
 
@@ -497,7 +708,7 @@ def decode_hidden(
     epilogue (ops/fused_sampling.py) contracts it with unembed_weight tile
     by tile; `_logits` is `(this hidden @ unembed_weight).float()`."""
     x = _decode_trunk(params, cfg, kv_cache, token_ids, positions,
-                      block_tables, ctx_lens, lora_bank, adapter_idx)
+                      block_tables, ctx_lens, valid, lora_bank, adapter_idx)
     return _final_norm(params, cfg, x), kv_cache
 
 
@@ -544,8 +755,8 @@ def _burst(step_fn, params, cfg: LlamaConfig, kv_cache: KVCache, token_ids,
 
 
 def _decode_trunk(params, cfg: LlamaConfig, kv_cache: KVCache, token_ids,
-                  positions, block_tables, ctx_lens, lora_bank=None,
-                  adapter_idx=None):
+                  positions, block_tables, ctx_lens, valid=None,
+                  lora_bank=None, adapter_idx=None):
     """The decode layer stack.  Returns the hidden states [B, d] before
     the final norm."""
     k_cache, v_cache, k_scale, v_scale = unpack_kv(kv_cache)
@@ -566,5 +777,5 @@ def _decode_trunk(params, cfg: LlamaConfig, kv_cache: KVCache, token_ids,
         x = x + _attn_out(layer, attn.reshape(x.shape[0], cfg.q_dim),
                           lora=lctx)
         h = rms_norm(x, layer["mlp_norm"]["norm"], cfg.rms_eps)
-        x = x + _mlp(layer, h)
+        x = x + _ffn(layer, cfg, h, valid=valid)
     return x

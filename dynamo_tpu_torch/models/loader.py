@@ -1,9 +1,10 @@
 """HF checkpoint loading: config.json + *.safetensors -> the port's params.
 
 The counterpart of dynamo_tpu/models/loader.py for the Llama lineage
-(Llama, Mistral, Qwen2, Qwen3 with its per-head q/k norms).  Mixtral's
-experts and the DeepSeek (MLA) architectures raise NotImplementedError:
-they come with ROADMAP.md Queue 1 item 9.
+(Llama, Mistral, Qwen2, Qwen3 with its per-head q/k norms) and Mixtral
+(its router and per-expert weights stacked into [E, ...] arrays).  The
+DeepSeek (MLA) architectures raise NotImplementedError: they come with
+ROADMAP.md Queue 1 item 9.
 
 The safetensors files are read with the standard library and torch
 alone (a GPU host need have neither `safetensors` nor `ml_dtypes`, and
@@ -30,6 +31,14 @@ Name mapping (HF -> the JAX package's tree, which the port shares):
     ...layers.N.input_layernorm            layers[N].attn_norm.norm
     ...layers.N.post_attention_layernorm   layers[N].mlp_norm.norm
     ...layers.N.mlp.{gate,up,down}_proj    layers[N].w_gate/w_up/w_down (T)
+    ...block_sparse_moe.gate               layers[N].moe_gate [d, E] (T)
+    ...block_sparse_moe.experts.E.w1/w3/w2 layers[N].moe_w_gate/up/down
+                                           [E, in, out], expert E's (T)
+
+Mixtral keeps one tensor per expert; `_ExpertStage` streams each into
+one preallocated host stack per (layer, kind) and places the stack when
+its last expert arrives, so host memory holds one stack per kind in
+flight, not E copies and a stack.
 
 With the weight cache on (models/weight_cache.py, on by default), a
 second load of the same checkpoint reads the finished tensors from host
@@ -58,7 +67,7 @@ logger = logging.getLogger(__name__)
 _ARCHS = {
     "LlamaForCausalLM": {},
     "MistralForCausalLM": {},
-    "MixtralForCausalLM": {},  # experts from config.json: raises below
+    "MixtralForCausalLM": {},  # experts from config.json
     "Qwen2ForCausalLM": {},
     "Qwen3ForCausalLM": {"qk_norm": True},
 }
@@ -79,7 +88,7 @@ def load_hf_config(model_path: str,
     if arch in _DS_ARCHS:
         raise NotImplementedError(
             f"{arch}: the MLA (DeepSeek) family is not ported to "
-            "dynamo_tpu_torch yet (ROADMAP.md Queue 1 item 9: MoE and MLA)")
+            "dynamo_tpu_torch yet (ROADMAP.md Queue 1 item 9: MLA)")
     if arch not in _ARCHS:
         raise ValueError(
             f"unsupported architecture {arch!r}; have "
@@ -89,7 +98,6 @@ def load_hf_config(model_path: str,
     eos = hf.get("eos_token_id", 2)
     eos_ids = tuple(int(e) for e in eos) if isinstance(eos, list) else (
         (int(eos),) if eos is not None else ())
-    # n_experts > 0 (Mixtral) raises in LlamaConfig: MoE is not ported
     return LlamaConfig(
         name=os.path.basename(os.path.abspath(model_path)) or hf.get(
             "model_type", "hf-model"),
@@ -107,6 +115,7 @@ def load_hf_config(model_path: str,
         dtype=dtype,
         eos_token_ids=eos_ids or (2,),
         n_experts=int(hf.get("num_local_experts", 0)),
+        experts_per_token=int(hf.get("num_experts_per_tok", 2)),
         **_ARCHS[arch],
     )
 
@@ -145,6 +154,17 @@ _LAYER_MAP = {
 }
 
 _NORM_KEYS = {"attn_norm", "mlp_norm", "q_norm", "k_norm"}
+
+# Mixtral's MoE layer tensors: the router, and one tensor per expert
+# (w1 = gate, w3 = up, w2 = down; HF Linear [out, in], transposed like
+# the dense maps), stacked [n_experts, ...] in the tree
+_MOE_GATE = "block_sparse_moe.gate.weight"
+_MOE_EXPERT_RE = re.compile(
+    r"^block_sparse_moe\.experts\.(\d+)\.(w1|w2|w3)\.weight$")
+_MOE_W_MAP = {"w1": "moe_w_gate", "w3": "moe_w_up", "w2": "moe_w_down"}
+_MOE_KEYS = {"moe_gate", "moe_w_gate", "moe_w_up", "moe_w_down"}
+_DENSE_MLP = {"mlp.gate_proj.weight", "mlp.up_proj.weight",
+              "mlp.down_proj.weight"}
 
 
 # -- reading ----------------------------------------------------------------
@@ -219,6 +239,36 @@ def iter_safetensors_file(path: str, stats: Dict[str, int]
                                 stats)
 
 
+class _ExpertStage:
+    """Streams per-expert tensors into ONE preallocated host stack
+    [E, ...] in `dtype` per (layer, kind), handing it to
+    `sink(li, key, stack)` when every expert has arrived: host memory
+    holds one stack per kind in flight, not E copies and a stack."""
+
+    def __init__(self, n_experts: int, dtype: torch.dtype, sink):
+        self.n_experts = n_experts
+        self.dtype = dtype
+        self.sink = sink
+        self._stage: Dict[int, Dict[str, Any]] = {}
+
+    def feed(self, li: int, e: int, key: str, t: torch.Tensor) -> None:
+        stage = self._stage.setdefault(li, {})
+        if key not in stage:
+            stage[key] = (torch.empty((self.n_experts, *t.shape),
+                                      dtype=self.dtype), set())
+        buf, got = stage[key]
+        buf[e].copy_(t)
+        got.add(e)
+        if len(got) == self.n_experts:
+            del stage[key]
+            self.sink(li, key, buf)
+
+    def pending(self):
+        """(layer, unfinished kinds) pairs, for the completeness check."""
+        return [(li, sorted(parts)) for li, parts in self._stage.items()
+                if parts]
+
+
 class Placer:
     """Host tensors -> contiguous tensors of a given dtype on the device.
     On the CPU a fresh tensor (never a view of a file's map).  On CUDA the
@@ -279,10 +329,26 @@ def load_params(model_path: str, cfg: Optional[LlamaConfig] = None,
     stats = {"tensors": 0, "bytes": 0, "copies": 0}
     params: Dict[str, Any] = {
         "layers": [dict() for _ in range(cfg.n_layers)]}
+
+    def place_stack(li: int, key: str, stack: torch.Tensor) -> None:
+        # on the CPU the stack is already a fresh tensor of the dtype
+        params["layers"][li][key] = (stack if dev.type == "cpu"
+                                     else placer.put(stack, cfg.dtype))
+
+    stage = _ExpertStage(cfg.n_experts, cfg.dtype, place_stack)
     for name, tensor in _iter_safetensors(model_path, stats):
         m = _LAYER_RE.match(name)
         if m:
             li, suffix = int(m.group(1)), m.group(2)
+            em = _MOE_EXPERT_RE.match(suffix)
+            if em:
+                stage.feed(li, int(em.group(1)), _MOE_W_MAP[em.group(2)],
+                           tensor.T)
+                continue
+            if suffix == _MOE_GATE:
+                params["layers"][li]["moe_gate"] = placer.put(tensor.T,
+                                                              cfg.dtype)
+                continue
             if suffix not in _LAYER_MAP:
                 raise ValueError(f"unmapped layer tensor {name!r}")
             key, transpose = _LAYER_MAP[suffix]
@@ -316,6 +382,12 @@ def load_params(model_path: str, cfg: Optional[LlamaConfig] = None,
     want = set(_LAYER_MAP)
     if not cfg.qk_norm:
         want -= {"self_attn.q_norm.weight", "self_attn.k_norm.weight"}
+    if cfg.n_experts > 0:
+        # the routed MLP replaces the dense one: the router and three
+        # expert stacks instead of the three dense projections
+        want = (want - _DENSE_MLP) | _MOE_KEYS
+    missing.extend(f"model.layers.{li} expert tensors {parts}"
+                   for li, parts in stage.pending())
     for li, layer in enumerate(params["layers"]):
         got = len(layer)
         if got != len(want):

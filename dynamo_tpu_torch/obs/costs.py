@@ -17,6 +17,13 @@ What is counted, per trunk pass of n tokens through L layers:
     lm_head's 2·rows·d·vocab for the rows the program projects, and
     with a LoRA bank mounted the per-row masked delta of every target
     (x·A for every slot, then the [n, N·r] x [N·r, d_out] product);
+  * a MoE layer (n_experts E > 0, experts_per_token k) replaces the
+    dense MLP's 2·n·3·d·ffn with the router's 2·n·d·E and, under dense
+    dispatch, every expert on every token, 2·n·E·3·d·ffn, plus the
+    combine's 2·n·E·d; under capacity dispatch, per dispatch pool of m
+    tokens with C = moe_capacity(m) slots an expert, 2·E·C·3·d·ffn plus
+    the dispatch and combine products, 2·(m·k)·E·C·d each (one pool per
+    program, one per row in the padded batched prefill);
   * attention by the Pallas kernels' cost formulas, so a torch worker's
     roofline reads as a JAX worker's: K1 (`paged_attention_decode_pallas`)
     per layer and step 2·2·B·nh·hd·max_blocks·bs FLOPs and
@@ -29,7 +36,12 @@ What is counted, per trunk pass of n tokens through L layers:
     them again), the LoRA bank, the embedding rows looked up, the K/V
     written (n tokens), the attention reads above, and the fp32 logits
     rows the program writes (none under the fused epilogue or in the
-    catch-up program, which projects nothing).
+    catch-up program, which projects nothing).  A MoE layer reads
+    every expert's weights and the router on every trunk pass;
+  * the padded prefill programs of capacity-dispatch MoE (family
+    prefill_padded, key (rows, T)) attend by the plain padded path:
+    2·2·T·nh·hd·(S + T) FLOPs a row and layer over its S = max_blocks·bs
+    context positions, whose K/V it reads (2·nkv·S·pos_bytes a row).
 
 Elementwise work (norms, rope, softmax, sampling) is left out, as it is
 small next to these terms.  `program_terms` returns the terms by name
@@ -41,6 +53,8 @@ into {"flops", "bytes"}.
 from __future__ import annotations
 
 from typing import Dict
+
+from ..models.llama import moe_capacity
 
 # the Pallas kernels' tiling constants (pallas_packed_prefill.py: the
 # default chunk_cols and the token tile's cap)
@@ -90,10 +104,46 @@ def k3_costs(cfg, T: int, max_blocks: int, block_size: int,
             * pos_bytes(cfg, int8)}
 
 
+def _attn_weights(cfg) -> int:
+    """Matmul weight elements of one layer's attention projections."""
+    d, q, kv = cfg.d_model, cfg.q_dim, cfg.kv_dim
+    return d * q + 2 * d * kv + q * d
+
+
 def _dense_weights(cfg) -> int:
-    """Matmul weight elements of one layer."""
-    d, q, kv, f = cfg.d_model, cfg.q_dim, cfg.kv_dim, cfg.ffn_dim
-    return d * q + 2 * d * kv + q * d + 3 * d * f
+    """Matmul weight elements of one layer: the attention projections,
+    and the dense MLP or, for MoE, the router and every expert."""
+    d, f, E = cfg.d_model, cfg.ffn_dim, cfg.n_experts
+    if E > 0:
+        return _attn_weights(cfg) + d * E + E * 3 * d * f
+    return _attn_weights(cfg) + 3 * d * f
+
+
+def _mlp_flops(cfg, n: int, pools: int = 1) -> int:
+    """One layer's MLP FLOPs over n tokens: the dense MLP, or the router
+    and the experts of the config's dispatch over `pools` equal dispatch
+    pools (capacity dispatch sizes C per pool)."""
+    d, f, E, k = cfg.d_model, cfg.ffn_dim, cfg.n_experts, \
+        cfg.experts_per_token
+    if E <= 0:
+        return 2 * n * 3 * d * f
+    router = 2 * n * d * E
+    if cfg.moe_dispatch != "capacity":
+        return router + 2 * n * E * 3 * d * f + 2 * n * E * d
+    m = n // pools
+    C = moe_capacity(cfg, m)
+    return router + pools * (2 * E * C * 3 * d * f
+                             + 2 * 2 * (m * k) * E * C * d)
+
+
+def padded_attn_costs(cfg, T: int, max_blocks: int, block_size: int,
+                      int8: bool) -> Dict[str, int]:
+    """One row's plain padded prefill attention for one layer
+    (ops/paged_attention.py paged_prefill_attention): scores and values
+    over the S gathered context positions and the T chunk tokens."""
+    S = max_blocks * block_size
+    return {"flops": 2 * 2 * T * cfg.n_heads * cfg.head_dim * (S + T),
+            "bytes": 2 * cfg.n_kv_heads * S * pos_bytes(cfg, int8)}
 
 
 def _lora_dims(cfg):
@@ -117,10 +167,11 @@ def weight_bytes(cfg, lm_head: bool = True) -> int:
 
 def _trunk_terms(cfg, n: int, attn: Dict[str, int], int8: bool,
                  lora: tuple, logits_rows: int,
-                 write_logits: bool) -> Dict[str, float]:
+                 write_logits: bool, pools: int = 1) -> Dict[str, float]:
     """One pass of n tokens through the layer stack plus the projection
     of `logits_rows` rows; `attn` is one layer's attention cost; `lora`
-    is (slots, rank), (0, 0) without a bank."""
+    is (slots, rank), (0, 0) without a bank; `pools` the MoE dispatch
+    pools the n tokens split into."""
     L, d, V = cfg.n_layers, cfg.d_model, cfg.vocab_size
     wb = _elem_bytes(cfg.dtype)
     slots, rank = lora
@@ -131,7 +182,8 @@ def _trunk_terms(cfg, n: int, attn: Dict[str, int], int8: bool,
             lora_bytes += slots * rank * (d_in + d_out) * wb
     kv_write = n * 2 * cfg.n_kv_heads * pos_bytes(cfg, int8)
     return {
-        "matmul_flops": L * (2 * n * _dense_weights(cfg) + lora_flops)
+        "matmul_flops": L * (2 * n * _attn_weights(cfg)
+                             + _mlp_flops(cfg, n, pools) + lora_flops)
         + 2 * logits_rows * d * V,
         "attn_flops": L * attn["flops"],
         "weight_bytes": weight_bytes(cfg, lm_head=logits_rows > 0)
@@ -142,17 +194,18 @@ def _trunk_terms(cfg, n: int, attn: Dict[str, int], int8: bool,
     }
 
 
-def program_terms(cfg, family: str, key, *, rows: int, max_blocks: int,
+def program_terms(cfg, family: str, key, *, rows: int = 0, max_blocks: int,
                   block_size: int, int8: bool = False, lora=(0, 0),
                   epilogue: bool = False) -> Dict[str, float]:
-    """The cost terms of one captured program.  `family` is decode,
-    prefill, verify, catchup or guided; `key` its capture key: (greedy,
-    k) for decode, the stream bucket T for prefill/verify/catchup, the
-    window M for guided.
-    `rows` is the lane count B (decode, guided) or the row count of a
-    bucket's descriptor (prefill: padded segments, catchup: 1; verify
-    projects every stream position).  Raises on a family it does not
-    know: every captured program must have a count."""
+    """The cost terms of one program.  `family` is decode, prefill,
+    verify, catchup, guided or prefill_padded; `key` its build key:
+    (greedy, k) for decode, the stream bucket T for
+    prefill/verify/catchup, the window M for guided, (rows, T) for
+    prefill_padded.  `rows` is the lane count B (decode, guided) or the
+    row count of a bucket's descriptor (prefill: padded segments,
+    catchup: 1; verify projects every stream position); prefill_padded
+    takes its rows from the key.  Raises on a family it does not know:
+    every program must have a count."""
     if family == "decode":
         _, k = key
         one = _trunk_terms(cfg, rows, k1_costs(cfg, rows, max_blocks,
@@ -171,6 +224,11 @@ def program_terms(cfg, family: str, key, *, rows: int, max_blocks: int,
         if family == "verify":
             return _trunk_terms(cfg, T, attn, int8, (0, 0), T, True)
         return _trunk_terms(cfg, T, attn, int8, (0, 0), 0, False)
+    if family == "prefill_padded":
+        R, T = key
+        attn = padded_attn_costs(cfg, T, max_blocks, block_size, int8)
+        return _trunk_terms(cfg, R * T, {k: R * v for k, v in attn.items()},
+                            int8, lora, R, True, pools=R)
     raise ValueError(f"no cost count for program family {family!r}")
 
 

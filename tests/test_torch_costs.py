@@ -6,7 +6,12 @@
   catch-up; the guided top-M step) equals what torch's FlopCounterMode
   counts over the program's plain body at a tiny width, within 1%, with
   the attention calls stubbed out (attention is counted by the kernels'
-  formulas, not by the plain version's products).
+  formulas, not by the plain version's products).  So do the MoE terms
+  (the router, every expert under dense dispatch, the capacity buffers
+  and the dispatch/combine products under capacity dispatch) in the
+  decode, packed-prefill, verify and guided programs and in the padded
+  B = 1 and batched prefill of capacity dispatch; the padded programs'
+  attention term equals the plain padded path's products.
 * The K1 and K3 terms equal the CostEstimates the JAX package's Pallas
   kernels compute for the same shapes (read off their `pallas_call`),
   exactly, bf16 and int8.
@@ -207,6 +212,98 @@ def test_k3_term_equals_pallas_cost_estimate(int8, T, mb, bs, monkeypatch):
         jnp.zeros((S, mb), jnp.int32), jnp.zeros((T,), jnp.int32),
         jnp.arange(T, dtype=jnp.int32), jnp.ones((T,), bool), **scales)
     assert k3_costs(cfg, T, mb, bs, int8) == want
+
+
+def _moe_cfg(dispatch):
+    return LlamaConfig(**{**CFG.__dict__, "name": "cost-moe",
+                          "n_experts": 4, "experts_per_token": 2,
+                          "moe_dispatch": dispatch})
+
+
+MOE_CASES = [
+    ("dense", "decode", (True, 2)),
+    ("dense", "prefill", 16),
+    ("dense", "verify", 8),
+    ("dense", "guided", 8),
+    ("capacity", "decode", (False, 1)),
+    ("capacity", "prefill", 32),
+    ("capacity", "prefill_padded", (1, 16)),
+    ("capacity", "prefill_padded", (2, 16)),
+    ("capacity", "prefill_padded", (4, 8)),
+]
+
+
+@pytest.mark.parametrize("dispatch,family,key", MOE_CASES,
+                         ids=[f"{d}-{f}-{k}" for d, f, k in MOE_CASES])
+def test_moe_terms_equal_flop_counter(dispatch, family, key, monkeypatch):
+    """The MoE programs' matmul term against FlopCounterMode over the
+    plain body (attention stubbed); the padded programs' attention term
+    against the FLOPs of the plain padded attention alone."""
+    from dynamo_tpu_torch.engine.graphs import PaddedPrefillPrograms
+
+    cfg = _moe_cfg(dispatch)
+    gen = torch.Generator().manual_seed(0)
+    params = llama.init_params(cfg, gen, torch.device("cpu"))
+    kv = tuple(torch.zeros(s) for s in llama.kv_cache_shapes(cfg, NB, BS))
+    cpu = torch.device("cpu")
+    if family == "prefill_padded":
+        progs = PaddedPrefillPrograms(params, cfg, kv, MB, cpu)
+        rows, T = key
+        rng = np.random.default_rng(0)
+        a = {"toks": rng.integers(0, 96, (rows, T)).astype(np.int32),
+             "positions": np.tile(np.arange(T, dtype=np.int32), (rows, 1)),
+             "tables": np.tile(np.arange(1, MB + 1, dtype=np.int32),
+                               (rows, 1)),
+             "ctx_lens": np.zeros(rows, np.int32),
+             "true_lens": np.full(rows, T - 3, np.int32),
+             "seeds": np.zeros(rows, np.int32),
+             "temps": np.zeros(rows, np.float32),
+             "top_ks": np.zeros(rows, np.int32),
+             "top_ps": np.ones(rows, np.float32)}
+
+        def run(p):
+            p.run(a)
+
+        monkeypatch.setattr(llama, "paged_prefill_attention",
+                            lambda q, *x, **k: torch.zeros_like(q))
+    else:
+        if family == "decode":
+            progs = DecodePrograms(params, cfg, kv, B, MB, cpu,
+                                   capture=False)
+        elif family == "guided":
+            progs = GuidedPrograms(params, cfg, kv, B, MB, (8,), cpu,
+                                   capture=False)
+        elif family == "prefill":
+            progs = PrefillPrograms(params, cfg, kv, B, MB, (16, 32), cpu,
+                                    capture=False)
+        else:
+            progs = VerifyPrograms(params, cfg, kv, 4, MB, (8,), cpu,
+                                   capture=False)
+
+        def run(p):
+            p.run_eager(*key) if family == "decode" else p.run_eager(key)
+
+    counted = _counted_matmul_flops(progs, run, monkeypatch)
+    terms = program_terms(cfg, family, key, **progs._cost_shape())
+    assert abs(terms["matmul_flops"] - counted) <= 0.01 * counted
+    dense = program_terms(CFG, "prefill", 16, rows=B, max_blocks=MB,
+                          block_size=BS)
+    if family == "prefill" and dispatch == "dense":
+        # every expert on every token: more than the dense model's MLP
+        assert terms["matmul_flops"] > dense["matmul_flops"]
+        assert terms["weight_bytes"] > dense["weight_bytes"]
+    if family == "prefill_padded":
+        monkeypatch.undo()
+        with FlopCounterMode(display=False) as fc:
+            q = torch.zeros(key[1], cfg.n_heads, cfg.head_dim)
+            k = torch.zeros(key[1], cfg.n_kv_heads, cfg.head_dim)
+            llama.paged_prefill_attention(q, k, k, *kv[:2], 0,
+                                          torch.zeros(MB, dtype=torch.int32),
+                                          0, key[1])
+        per_row = fc.get_total_flops() * cfg.n_layers
+        assert terms["attn_flops"] == key[0] * per_row
+        assert progs.costs[key] == program_costs(cfg, family, key,
+                                                 **progs._cost_shape())
 
 
 def test_int8_and_bank_move_the_bytes():

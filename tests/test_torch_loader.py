@@ -6,20 +6,22 @@ tokenizer files), with random weights from numpy and norms away from 1
 so a mapping mistake shows:
 
 * load_hf_config gives JAX's LlamaConfig field by field (Llama, Qwen3
-  with qk_norm, tied and untied); Mixtral's experts and the DeepSeek
+  with qk_norm, tied and untied, Mixtral with its experts); the DeepSeek
   architectures raise NotImplementedError naming the ROADMAP item.
 * load_params equals JAX's load_params carried through models/convert.py
   bit for bit, in fp32 and in bf16 (bf16 files and fp32 files cast to
   bf16), with the tied and untied lm_head rules; an unmapped tensor and
   a missing layer raise JAX's errors; a bf16 file whose tensors start at
   odd offsets loads equal to the aligned one, through one counted copy
-  per tensor.
+  per tensor.  Mixtral's per-expert tensors, split across the shards,
+  load as JAX's stacked [E, ...] arrays, bit-equal; a missing expert
+  raises JAX's error; the stacks go through the weight cache.
 * The weight cache: DYN_WEIGHT_CACHE / DYN_WEIGHT_CACHE_DIR resolve as
   in JAX, the fingerprint is JAX's, a second load reads the cache,
   a changed checkpoint misses, clear drops the entry, and the port's
   entries and JAX's live side by side.
 * TorchEngine(EngineConfig(model_path=...)) streams the greedy tokens
-  JaxEngine streams from the same checkpoint.
+  JaxEngine streams from the same checkpoint (Qwen3, and Mixtral).
 """
 
 import json
@@ -50,6 +52,8 @@ VARIANTS = {
                        tie_word_embeddings=True),
     "qwen3": dict(architectures=["Qwen3ForCausalLM"]),
     "mistral-bf16": dict(architectures=["MistralForCausalLM"]),
+    "mixtral": dict(architectures=["MixtralForCausalLM"],
+                    num_local_experts=4, num_experts_per_tok=2),
 }
 _ST = {torch.bfloat16: "BF16", torch.float16: "F16", torch.float32: "F32"}
 
@@ -87,6 +91,7 @@ def hf_tensors(hf: dict, qk_norm: bool, dtype=torch.float32, seed=0):
         return torch.from_numpy(a.astype(np.float32)).to(dtype)
 
     out = {"model.embed_tokens.weight": w(V, d)}
+    E = hf.get("num_local_experts", 0)
     for i in range(L):
         p = f"model.layers.{i}."
         out.update({
@@ -94,12 +99,21 @@ def hf_tensors(hf: dict, qk_norm: bool, dtype=torch.float32, seed=0):
             p + "self_attn.k_proj.weight": w(nkv * hd, d),
             p + "self_attn.v_proj.weight": w(nkv * hd, d),
             p + "self_attn.o_proj.weight": w(d, nh * hd),
-            p + "mlp.gate_proj.weight": w(ffn, d),
-            p + "mlp.up_proj.weight": w(ffn, d),
-            p + "mlp.down_proj.weight": w(d, ffn),
             p + "input_layernorm.weight": w(d, norm=True),
             p + "post_attention_layernorm.weight": w(d, norm=True),
         })
+        if E:
+            # Mixtral: the router, then one tensor per expert and kind
+            moe = p + "block_sparse_moe."
+            out[moe + "gate.weight"] = w(E, d)
+            for e in range(E):
+                out.update({moe + f"experts.{e}.w1.weight": w(ffn, d),
+                            moe + f"experts.{e}.w3.weight": w(ffn, d),
+                            moe + f"experts.{e}.w2.weight": w(d, ffn)})
+        else:
+            out.update({p + "mlp.gate_proj.weight": w(ffn, d),
+                        p + "mlp.up_proj.weight": w(ffn, d),
+                        p + "mlp.down_proj.weight": w(d, ffn)})
         if qk_norm:
             out[p + "self_attn.q_norm.weight"] = w(hd, norm=True)
             out[p + "self_attn.k_norm.weight"] = w(hd, norm=True)
@@ -172,7 +186,7 @@ def test_hf_config_equals_jax(variant, tmp_path):
     for field in ("name", "vocab_size", "d_model", "n_layers", "n_heads",
                   "n_kv_heads", "head_dim", "ffn_dim", "rope_theta",
                   "rms_eps", "qk_norm", "tie_embeddings", "max_context",
-                  "eos_token_ids", "n_experts"):
+                  "eos_token_ids", "n_experts", "experts_per_token"):
         assert getattr(got, field) == getattr(want, field), field
     assert got.dtype == torch.float32
     assert loader.load_hf_config(path).dtype == torch.bfloat16
@@ -218,8 +232,7 @@ def test_untied_config_without_lm_head_uses_the_embedding(tmp_path):
     assert torch.equal(got["lm_head"], got["embedding"].T)
 
 
-@pytest.mark.parametrize("arch", ["MixtralForCausalLM",
-                                  "DeepseekV3ForCausalLM",
+@pytest.mark.parametrize("arch", ["DeepseekV3ForCausalLM",
                                   "DeepseekV2ForCausalLM"])
 def test_moe_and_mla_checkpoints_raise_not_implemented(arch, tmp_path):
     path = tmp_path / "ck"
@@ -229,6 +242,55 @@ def test_moe_and_mla_checkpoints_raise_not_implemented(arch, tmp_path):
         json.dump(hf, f)
     with pytest.raises(NotImplementedError, match="Queue 1 item 9"):
         loader.load_hf_config(str(path))
+
+
+def test_mixtral_params_are_stacked_experts(tmp_path):
+    """The Mixtral tree: no dense MLP, the router [d, E] and each kind's
+    experts stacked [E, in, out] from the per-expert tensors."""
+    hf = {**HF, **VARIANTS["mixtral"]}
+    tensors = hf_tensors(hf, False)
+    path = write_checkpoint(tmp_path / "ck", "mixtral", tensors)
+    cfg = loader.load_hf_config(path, dtype=torch.float32)
+    assert (cfg.n_experts, cfg.experts_per_token) == (4, 2)
+    got = loader.load_params(path, cfg, device="cpu", host_cache=False)
+    lay = got["layers"][1]
+    assert "w_gate" not in lay
+    assert lay["moe_gate"].shape == (64, 4)
+    assert lay["moe_w_gate"].shape == (4, 64, 128)
+    assert lay["moe_w_down"].shape == (4, 128, 64)
+    moe = "model.layers.1.block_sparse_moe."
+    for e in range(4):
+        assert torch.equal(lay["moe_w_up"][e],
+                           tensors[moe + f"experts.{e}.w3.weight"].T)
+        assert torch.equal(lay["moe_w_down"][e],
+                           tensors[moe + f"experts.{e}.w2.weight"].T)
+
+
+@pytest.mark.parametrize("fault", ["missing-expert", "missing-router"])
+def test_incomplete_mixtral_raises_the_jax_error(fault, tmp_path):
+    hf = {**HF, **VARIANTS["mixtral"]}
+    tensors = hf_tensors(hf, False)
+    moe = "model.layers.1.block_sparse_moe."
+    del tensors[moe + ("experts.2.w1.weight" if fault == "missing-expert"
+                       else "gate.weight")]
+    path = write_checkpoint(tmp_path / "ck", "mixtral", tensors)
+    with pytest.raises(ValueError) as want:
+        jloader.load_params(path, jloader.load_hf_config(path),
+                            host_cache=False)
+    with pytest.raises(ValueError) as got:
+        loader.load_params(path, device="cpu", host_cache=False)
+    assert str(got.value) == str(want.value)
+
+
+def test_mixtral_stacks_through_the_weight_cache(tmp_path, caplog):
+    path = write_checkpoint(tmp_path / "ck", "mixtral")
+    cfg = loader.load_hf_config(path)
+    first = loader.load_params(path, cfg, device="cpu")
+    with caplog.at_level(logging.INFO):
+        second = loader.load_params(path, cfg, device="cpu")
+        assert "restored from host cache" in caplog.text
+    _assert_trees_equal(second, first)
+    assert second["layers"][0]["moe_w_gate"].dtype == torch.bfloat16
 
 
 def test_unknown_architecture_raises_the_jax_error(tmp_path):
@@ -348,6 +410,17 @@ def test_weight_cache_write_read_stale_clear(tmp_path, _cache_dir, caplog):
 async def test_engine_serves_the_checkpoint_like_the_jax_engine(tmp_path):
     """EngineConfig(model_path=...): the port's engine loads the
     checkpoint and streams JaxEngine's greedy tokens on it, fp32."""
+    await _serve_like_jax(tmp_path, "qwen3")
+
+
+async def test_engine_serves_a_mixtral_checkpoint_like_the_jax_engine(
+        tmp_path):
+    """The same with a Mixtral checkpoint (dense dispatch, JAX's
+    default): the experts load stacked and route as JAX's."""
+    await _serve_like_jax(tmp_path, "mixtral")
+
+
+async def _serve_like_jax(tmp_path, variant):
     from dynamo_tpu.engine import EngineConfig as JaxEngineConfig
     from dynamo_tpu.engine import JaxEngine
     from dynamo_tpu.protocols import PreprocessedRequest as JaxRequest
@@ -360,7 +433,7 @@ async def test_engine_serves_the_checkpoint_like_the_jax_engine(tmp_path):
         StopConditions,
     )
 
-    path = write_checkpoint(tmp_path / "ck", "qwen3")
+    path = write_checkpoint(tmp_path / "ck", variant)
     common = dict(model_path=path, block_size=4, num_blocks=64,
                   max_blocks_per_seq=16, max_num_seqs=2,
                   prefill_buckets=(8, 16, 32))

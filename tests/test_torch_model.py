@@ -306,8 +306,20 @@ def test_decode_multi_matches_jax(int8, sampled):
 
 
 def test_moe_and_unknown_impls_raise():
-    with pytest.raises(NotImplementedError):
-        tl.LlamaConfig(n_experts=4)
+    """An unknown attention impl raises, and so does an unknown MoE
+    dispatch, with JAX's ValueError (a MoE config builds: the family is
+    ported, tests/test_torch_moe.py)."""
+    moe = dict(n_layers=1, n_experts=4, moe_dispatch="grouped",
+               dtype=torch.float32)
+    jmoe = jl.LlamaConfig(**{**moe, "dtype": jnp.float32})
+    tmoe = tl.LlamaConfig(**moe)
+    layer = {"moe_gate": torch.zeros(tmoe.d_model, 4)}
+    with pytest.raises(ValueError) as want:
+        jl._ffn({"moe_gate": jnp.zeros((jmoe.d_model, 4))}, jmoe,
+                jnp.zeros((1, jmoe.d_model)))
+    with pytest.raises(ValueError) as got:
+        tl._ffn(layer, tmoe, torch.zeros(1, tmoe.d_model))
+    assert str(got.value) == str(want.value)
     cfg = CONFIGS["fp32"][1]
     params = tl.init_params(cfg, torch.Generator().manual_seed(0))
     assert params["layers"][0]["wq"].shape == (64, 64)
