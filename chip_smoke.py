@@ -20,6 +20,7 @@
     python3 chip_smoke.py --lora          # LoRA serving and guided decoding
     python3 chip_smoke.py --status        # the worker's status plane
     python3 chip_smoke.py --moe           # the MoE family (Mixtral)
+    python3 chip_smoke.py --mla           # the DeepSeek MLA family
 
 Builds the port's CUDA kernels from csrc/ (three nvcc processes started
 together), holds each entry point (K1 and K3, each in its bf16 and its
@@ -242,6 +243,34 @@ engine given the written tensors as params), and one request served
 through a TorchEngineWorker whose MDC must carry the inline tokenizer
 and the chat template.
 
+The MLA phase (after the checkpoint phase in the whole check; alone
+with --mla): deepseek-v2-lite at its published widths and full depth
+(d 2048, 27 layers, 16 heads, kv_lora_rank 512, qk_nope 128, qk_rope
+64, v_head 128, the first layer dense with ffn 10944, then 64 routed
+experts of ffn 1408, top 6, plus 2 shared; vocab 102400), 15.7 B
+random bf16 parameters made on the card from seed 0, a 512-block bf16
+latent cache (31,104 bytes a token against llama-8b's 131,072), the
+llama-8b runs' scheduler and the same five requests, dense dispatch.
+The gates: every decode program and every padded (rows, bucket) shape
+built once by warm-up and never while serving, no packed, verify or
+catch-up program built, no GQA kernel launched; the greedy streams
+equal to an engine running the same programs eagerly but at a logit
+or router near-tie (`_near_tie`, the teacher-forced replay's two paths
+the prompt in one chunk and in 512-token chunks); one layer's MLA
+attention in bf16 within 2e-2 (per-row relative L2) of fp32, prefill
+(non-absorbed, T = 2048 after 1024 cached tokens) and decode
+(absorbed), with a planted foreign block above it; the absorbed decode
+within 1e-4 of a materialised non-absorbed oracle in fp32; one request
+through a TorchEngineWorker asked for int8 and the fused epilogue whose
+MDC advertises bf16 and "off".  It prints TTFT and decode tokens/s, a
+replayed k = 8 burst against its byte bound (obs/costs.py's MLA terms),
+operations per decode token, a padded 1 x 2048 dispatch's device and
+host time against its FLOP bound, the device split of both under
+torch.profiler (MLA attention, the q/kv projections, expert GEMMs,
+shared experts, router and glue, dense matmuls, other), the phase's
+seconds and its max_memory_allocated; it frees its memory before the
+MoE phase.
+
 The MoE phase (last in the whole check; alone with --moe): mixtral-8x7b
 at full width (d 4096, 32/8 heads, ffn 14336, 8 experts, top 2, vocab
 32000) with its depth cut to MOE_LAYERS = 16 of 32 (the 32 layers hold
@@ -289,6 +318,8 @@ import torch
 
 HBM_BYTES_PER_S = 3.35e12
 BF16_FLOPS_PER_S = 989e12
+# fp32 outside the tensor cores (TF32 is off here): MLA's fp32 attention
+FP32_FLOPS_PER_S = 67e12
 # Tolerance of a kernel against its plain version, per output row (one
 # token's one head, hd values): the relative L2 error ||out - ref|| /
 # ||ref||.  The plain version runs with round_scaled_q=True, so it rounds
@@ -1569,8 +1600,9 @@ def _fmt_steps(steps: dict) -> str:
 
 
 @contextlib.asynccontextmanager
-async def _serving_worker(device, cfg, params, status: bool = False):
-    """A TorchEngineWorker (config `cfg` with warm-up, a fresh cache of
+async def _serving_worker(device, cfg, params, status: bool = False,
+                          warmup: bool = True):
+    """A TorchEngineWorker (config `cfg` with `warmup`, a fresh cache of
     its kind, weights `params`) on a fresh runtime of the port: mem
     discovery, in-process event plane, the TCP request plane on
     127.0.0.1.  With `status` the runtime also serves the system-status
@@ -1596,9 +1628,10 @@ async def _serving_worker(device, cfg, params, status: bool = False):
                                   peak_hbm_gbps=PEAK_HBM_GBPS)
     t0 = time.perf_counter()
     worker = await TorchEngineWorker(
-        rt, dataclasses.replace(cfg, warmup=True), params=params,
+        rt, dataclasses.replace(cfg, warmup=warmup), params=params,
         device=device).start()
-    log(f"worker ({cfg.kv_cache_dtype} KV cache): started with warm-up in "
+    log(f"worker ({cfg.kv_cache_dtype} KV cache): started "
+        f"{'with' if warmup else 'without'} warm-up in "
         f"{time.perf_counter() - t0:.1f} s, {worker.config.num_blocks} KV "
         f"blocks, instance {worker.served.instance_id} @ "
         f"{worker.served.instance.address}")
@@ -5806,8 +5839,8 @@ def _moe_model(**kw):
 
 
 def _moe_engine_config(mc, **kw):
-    """The MoE runs' engine config: the llama-8b runs' scheduler (four
-    slots, a 2048-token prefill budget, 16-wide tables) with model
+    """The MoE and MLA runs' engine config: the llama-8b runs' scheduler
+    (four slots, a 2048-token prefill budget, 16-wide tables) with model
     config `mc` and 512 blocks of bf16 cache."""
     from dynamo_tpu_torch.engine import EngineConfig
 
@@ -5834,27 +5867,28 @@ def _moe_serve(eng, reqs, used) -> tuple:
     return asyncio.run(run())
 
 
-def _moe_split(run, what: str) -> Optional[dict]:
-    """Device time by family (MOE_FAMILIES, ms) of `run()` under
-    torch.profiler: each kernel is charged to the operator that launched
-    it.  `_ffn` runs inside a record_function range for the run, so a
-    kernel under it is an expert GEMM (a batched product), a
-    dispatch/combine product (a batched product inside an einsum) or the
-    router and its glue (everything else there: the router's product,
-    the sort, softmax, scatter, one-hot, cumsum); outside it the dense
-    products (attention projections, the lm_head) and other.  K1 and K3
-    (launched through ctypes, under no operator) count by their symbols,
-    and every device kernel the profiler linked to no operator is
-    other.  None when the profiler saw no kernel."""
-    from dynamo_tpu_torch.models import llama
+def _profile_split(run, ranges: dict, classify, families: tuple,
+                   what: str) -> Optional[dict]:
+    """Device time by family (`families`, ms) of `run()` under
+    torch.profiler, each kernel charged to the operator that launched
+    it.  For the run every function `ranges` names ((module, attribute)
+    -> label) runs inside a record_function range of that label, and
+    `classify(op, chain)` names the family of a kernel launched by
+    operator `op` under `chain` (the operator and its ancestry, ranges
+    included, innermost first), or, with op None and chain [symbol], of
+    a device kernel no operator launched (None: other).  Every kernel
+    left uncharged is "other".  Logs `what` and returns the split, or
+    None when the profiler saw no kernel."""
+    orig = {key: getattr(*key) for key in ranges}
 
-    orig = llama._ffn
+    def ranged(fn, label):
+        def wrapped(*a, **k):
+            with torch.profiler.record_function(label):
+                return fn(*a, **k)
+        return wrapped
 
-    def ffn(*a, **k):
-        with torch.profiler.record_function("moe_ffn"):
-            return orig(*a, **k)
-
-    llama._ffn = ffn
+    for (mod, attr), label in ranges.items():
+        setattr(mod, attr, ranged(orig[(mod, attr)], label))
     try:
         torch.cuda.synchronize()
         with torch.profiler.profile(activities=[
@@ -5865,18 +5899,19 @@ def _moe_split(run, what: str) -> Optional[dict]:
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
     finally:
-        llama._ffn = orig
-    by = dict.fromkeys(MOE_FAMILIES, 0.0)
+        for (mod, attr), fn in orig.items():
+            setattr(mod, attr, fn)
+    labels = set(ranges.values())
+    by = dict.fromkeys(families, 0.0)
     device = 0.0
     for e in prof.events():
-        # the range's own device-side annotation spans its kernels
-        if str(e.device_type).endswith("CUDA") and e.name != "moe_ffn":
+        # a range's own device-side annotation spans its kernels
+        if str(e.device_type).endswith("CUDA") and e.name not in labels:
             ms = (e.time_range.end - e.time_range.start) / 1e3
             device += ms
-            if "paged_decode" in e.name:
-                by["K1"] += ms
-            elif "packed_prefill" in e.name:
-                by["K3"] += ms
+            fam = classify(None, [e.name])
+            if fam is not None:
+                by[fam] += ms
     for e in prof.events():
         if not getattr(e, "kernels", None):
             continue
@@ -5885,27 +5920,46 @@ def _moe_split(run, what: str) -> Optional[dict]:
             chain.append(p.name)
             p = p.cpu_parent
         for kern in e.kernels:
-            if "moe_ffn" in chain:
-                fam = ("MoE router+glue" if e.name != "aten::bmm"
-                       else "MoE dispatch/combine" if "aten::einsum" in chain
-                       else "expert GEMMs")
-            elif e.name in ("aten::mm", "aten::addmm", "aten::bmm"):
-                fam = "dense matmuls"
-            else:
-                fam = "other"
-            by[fam] += kern.duration / 1e3
-    # the kernels no operator launched (beyond K1 and K3)
+            by[classify(e.name, chain)] += kern.duration / 1e3
+    # the kernels no operator launched (beyond those named by symbol)
     by["other"] += max(device - sum(by.values()), 0.0)
     total = sum(by.values())
     if not device:
-        log(f"MoE device split, {what}: not measured (the profiler saw no "
-            "kernels)")
+        log(f"{what}: not measured (the profiler saw no kernels)")
         return None
-    log(f"MoE device split, {what}: wall {1e3 * wall:.1f} ms, kernels "
-        f"{total:.1f} ms; by family (ms, share): "
-        + ", ".join(f"{k} {v:.2f} ({100 * v / total:.1f}%)"
-                    for k, v in by.items()))
+    log(f"{what}: wall {1e3 * wall:.1f} ms, kernels {total:.1f} ms; by "
+        "family (ms, share): " + ", ".join(
+            f"{k} {v:.2f} ({100 * v / total:.1f}%)" for k, v in by.items()))
     return by
+
+
+def _moe_family(op, chain) -> Optional[str]:
+    """_profile_split's classifier of the MoE model: under `_ffn`'s
+    range a batched product is an expert GEMM, or a dispatch/combine
+    product inside an einsum, and everything else there (the router's
+    product, the sort, softmax, scatter, one-hot, cumsum) the router and
+    its glue; outside it the dense products (attention projections, the
+    lm_head) and other.  K1 and K3, launched through ctypes under no
+    operator, count by their symbols."""
+    if op is None:
+        return ("K1" if "paged_decode" in chain[0]
+                else "K3" if "packed_prefill" in chain[0] else None)
+    if "moe_ffn" in chain:
+        return ("MoE router+glue" if op != "aten::bmm"
+                else "MoE dispatch/combine" if "aten::einsum" in chain
+                else "expert GEMMs")
+    if op in ("aten::mm", "aten::addmm", "aten::bmm"):
+        return "dense matmuls"
+    return "other"
+
+
+def _moe_split(run, what: str) -> Optional[dict]:
+    """Device time by family (MOE_FAMILIES, ms) of `run()`
+    (_profile_split with `_ffn` in a range, `_moe_family`)."""
+    from dynamo_tpu_torch.models import llama
+
+    return _profile_split(run, {(llama, "_ffn"): "moe_ffn"}, _moe_family,
+                          MOE_FAMILIES, f"MoE device split, {what}")
 
 
 @contextlib.contextmanager
@@ -6358,6 +6412,583 @@ def check_moe(device, card: str) -> dict:
             "seconds": secs}
 
 
+# ---------------------------------------------------------------------------
+# the DeepSeek MLA family at deepseek-v2-lite width and depth (--mla)
+# ---------------------------------------------------------------------------
+
+# one layer's MLA attention in bf16 against fp32: a T-token chunk after
+# MLA_LAYER_CTX cached tokens, and a decode step over all of them; the
+# per-row relative L2 limit is the MoE layer check's
+MLA_LAYER_T = 2048
+MLA_LAYER_CTX = 1024
+MLA_LAYER_TOL = 2e-2
+# the absorbed decode against a materialised non-absorbed oracle on the
+# same fp32 cache (the identity MLA rests on; TF32 is off)
+MLA_ABSORB_TOL = 1e-4
+# the teacher-forced replays' second path: the prompt in chunks of this
+# many tokens (the equal share a four-row prefill of 2048 gives a row)
+MLA_CHUNK = 512
+# the profiled device split: the families, in print order
+MLA_FAMILIES = ("MLA attention", "q/kv projections", "expert GEMMs",
+                "shared experts", "router+glue", "dense matmuls", "other")
+
+
+def _mla_model():
+    """deepseek-v2-lite at its published widths and full depth."""
+    from dynamo_tpu_torch.models.deepseek import PRESETS
+
+    return PRESETS["deepseek-v2-lite"]
+
+
+@contextlib.contextmanager
+def _ds_routes(record: Optional[list] = None, replay: Optional[list] = None):
+    """_routes for the DeepSeek router: within the block every
+    `_ds_router` call appends its expert ids [T, k] to `record`, or, with
+    `replay` (the ids of the same calls, in order), selects those experts
+    instead of its own choice, weighted by its own scores at them
+    (renormalized and scaled as the router does)."""
+    from dynamo_tpu_torch.models import deepseek
+
+    orig = deepseek._ds_router
+    calls = iter(replay) if replay is not None else None
+
+    def spy(layer, cfg, x):
+        if calls is not None:
+            ids = next(calls)
+            logits = x.float() @ layer["moe_gate"].float()
+            scores = (torch.sigmoid(logits) if cfg.moe_scoring == "sigmoid"
+                      else torch.softmax(logits, dim=-1))
+            w = torch.gather(scores, 1, ids)
+            if cfg.norm_topk_prob:
+                w = w / (w.sum(-1, keepdim=True) + 1e-20)
+            return w * cfg.routed_scaling_factor, ids
+        w, e = orig(layer, cfg, x)
+        if record is not None:
+            record.append(e)
+        return w, e
+
+    deepseek._ds_router = spy
+    try:
+        yield
+    finally:
+        deepseek._ds_router = orig
+
+
+def _mla_replay(params, cfg, device, prompt, stream, j: int,
+                chunk: Optional[int] = None, record: Optional[list] = None,
+                replay: Optional[list] = None) -> torch.Tensor:
+    """Token j's fp32 logits of `stream` teacher-forced through the
+    family's functions on a scratch cache: the prompt through the padded
+    `prefill` in chunks of `chunk` tokens (None: one chunk), each padded
+    to whole blocks, then decode steps at B = 4 (lane 0 live) fed
+    stream[:j]; j = 0 is the prompt's last position.  `record`/`replay`:
+    _ds_routes's, over every router call."""
+    from dynamo_tpu_torch.models import deepseek
+
+    bs, L = 128, len(prompt)
+    nb = -(-(L + j + 1) // bs)
+    kv = tuple(torch.zeros(s, dtype=cfg.dtype, device=device)
+               for s in deepseek.kv_cache_shapes(cfg, nb + 1, bs))
+
+    def i32(x):
+        return torch.tensor(x, dtype=torch.int32, device=device)
+
+    table = list(range(1, nb + 1))
+    tables = i32([table] + [[0] * nb] * 3)
+    valid = torch.tensor([True, False, False, False], device=device)
+    step = chunk or L
+    with _ds_routes(record, replay):
+        for c0 in range(0, L, step):
+            n = min(step, L - c0)
+            T = -(-n // bs) * bs
+            logits, _ = deepseek.prefill(
+                params, cfg, kv, i32(prompt[c0:c0 + n] + [0] * (T - n)),
+                i32(list(range(c0, c0 + T))), i32(table), c0, n)
+        for s in range(j):
+            at = [L + s, 0, 0, 0]
+            out, _ = deepseek.decode(params, cfg, kv,
+                                     i32([stream[s], 0, 0, 0]), i32(at),
+                                     tables, i32(at), valid=valid)
+            logits = out[0]
+    return logits.float()
+
+
+def _chunked_routes(whole: list, L: int, n_moe: int, chunk: int,
+                    bs: int = 128) -> list:
+    """The router calls of a one-chunk replay (`whole`: n_moe prefill
+    calls of [T, k], then the decode steps' calls) laid out as a replay
+    in chunks of `chunk` tokens calls them: each chunk's n_moe calls
+    hold its rows of the whole prompt's ids (padding rows: expert 0,
+    which no valid row claims), then the same decode calls."""
+    out = []
+    for c0 in range(0, L, chunk):
+        n = min(chunk, L - c0)
+        T = -(-n // bs) * bs
+        for m in range(n_moe):
+            ids = whole[m][c0:c0 + n]
+            pad = ids.new_zeros((T - n, ids.shape[1]))
+            out.append(torch.cat([ids, pad]))
+    return out + whole[n_moe:]
+
+
+def _mla_route_flips(whole: list, chunked: list, L: int, n_moe: int,
+                     chunk: int) -> int:
+    """(token, layer) routings of the live rows (the L prompt tokens in
+    each MoE layer, then decode lane 0) that the chunked replay chose
+    otherwise than the one-chunk replay."""
+    n_chunks = -(-L // chunk)
+    n = 0
+    for m in range(n_moe):
+        a = whole[m][:L]
+        b = torch.cat([chunked[c * n_moe + m][:min(chunk, L - c * chunk)]
+                       for c in range(n_chunks)])
+        n += int((a.sort(dim=1).values != b.sort(dim=1).values)
+                 .any(dim=1).sum())
+    for x, y in zip(whole[n_moe:], chunked[n_chunks * n_moe:]):
+        n += int((x[:1].sort(dim=1).values != y[:1].sort(dim=1).values)
+                 .any(dim=1).sum())
+    return n
+
+
+def _mla_streams(what: str, got, ref, reqs, params, cfg, device) -> list:
+    """The partings of the greedy streams of `got` from `ref`'s, each
+    logged with what _near_tie reads, teacher-forced at the parting
+    token j (_mla_replay) through two numerically different paths, the
+    prompt in one chunk (the reference) and in MLA_CHUNK-token chunks
+    (as the engine's four-row prefill shares it): the reference's top-2
+    gap and one bf16 ulp of its top logit; the (token, layer) routings
+    the two paths chose otherwise; and, with the chunked path's routing
+    held to the reference's (_ds_routes), its logits' cosine with the
+    reference's, their largest difference and whether the top tokens
+    agree."""
+    n_moe = sum(cfg._moe_layer(li) for li in range(cfg.n_layers))
+    parted = []
+    for i, (g, r) in enumerate(zip(got, ref)):
+        if reqs[i].sampling.temperature > 0 or g[0] == r[0]:
+            continue
+        j = next((n for n, (a, b) in enumerate(zip(g[0], r[0])) if a != b),
+                 min(len(g[0]), len(r[0])))
+        prompt = list(reqs[i].token_ids)
+        L = len(prompt)
+        rec_ref, rec_got = [], []
+        lr = _mla_replay(params, cfg, device, prompt, r[0], j,
+                         record=rec_ref)
+        _mla_replay(params, cfg, device, prompt, r[0], j, MLA_CHUNK,
+                    record=rec_got)
+        lh = _mla_replay(params, cfg, device, prompt, r[0], j, MLA_CHUNK,
+                         replay=_chunked_routes(rec_ref, L, n_moe,
+                                                MLA_CHUNK))
+        top2 = torch.topk(lr, 2).values
+        p = {"request": i, "token": j,
+             "gap": (top2[0] - top2[1]).item(),
+             "ulp": _ulp_bf16(top2[0].item()),
+             "flips": _mla_route_flips(rec_ref, rec_got, L, n_moe,
+                                       MLA_CHUNK),
+             "held_cosine": torch.nn.functional.cosine_similarity(
+                 lh, lr, dim=0).item(),
+             "held_diff": (lh - lr).abs().max().item(),
+             "held_same": int(lh.argmax()) == int(lr.argmax())}
+        parted.append(p)
+        log(f"{what}: request {i}'s greedy stream parts at token {j}: "
+            f"reference top-2 gap {p['gap']:.6f}, one bf16 ulp "
+            f"{p['ulp']:.6f}; {p['flips']} (token, layer) routings chose "
+            f"other experts with the prompt in {MLA_CHUNK}-token chunks; "
+            f"routing held: cosine {p['held_cosine']:.6f}, max difference "
+            f"{p['held_diff']:.6f}, top tokens equal {p['held_same']}; "
+            f"near-tie: {_near_tie(p)}")
+    return parted
+
+
+def _mla_family(op, chain) -> Optional[str]:
+    """_profile_split's classifier of the MLA model: the attention (the
+    latent gather, scores, softmax and the context's products;
+    ops/mla_attention.py), the q/kv projections with the query's
+    absorption (`_q_proj`, `_kv_latent`, `_absorb_q`), and DeepSeekMoE
+    (`_ds_ffn`): there a batched product is an expert GEMM unless an
+    einsum launched it, the shared experts' MLP is its own family, and
+    the rest is the router and its glue.  Outside these the products
+    (the output projection, the dense first layer's MLP, the lm_head)
+    are dense matmuls and the rest other."""
+    if op is None:
+        return None
+    if "mla_attn" in chain:
+        return "MLA attention"
+    if "mla_proj" in chain:
+        return "q/kv projections"
+    if "mla_ffn" in chain:
+        return ("shared experts" if "mla_mlp" in chain
+                else "expert GEMMs" if op == "aten::bmm"
+                and "aten::einsum" not in chain else "router+glue")
+    if op in ("aten::mm", "aten::addmm", "aten::bmm", "aten::matmul"):
+        return "dense matmuls"
+    return "other"
+
+
+def _mla_split(run, what: str, card: str) -> Optional[dict]:
+    """Device time by family (MLA_FAMILIES, ms) of `run()`
+    (_profile_split with the MLA model's functions in ranges,
+    `_mla_family`)."""
+    from dynamo_tpu_torch.models import deepseek
+
+    ranges = {(deepseek, "mla_decode_attention"): "mla_attn",
+              (deepseek, "mla_prefill_attention"): "mla_attn",
+              (deepseek, "_q_proj"): "mla_proj",
+              (deepseek, "_kv_latent"): "mla_proj",
+              (deepseek, "_absorb_q"): "mla_proj",
+              (deepseek, "_ds_ffn"): "mla_ffn",
+              (deepseek, "_mlp"): "mla_mlp"}
+    return _profile_split(run, ranges, _mla_family, MLA_FAMILIES,
+                          f"MLA device split, {what} ({card})")
+
+
+def _mla_layer_inputs(layer, cfg, device, dtype, faults: bool = False):
+    """Layer 0's MLA inputs at `dtype` (bf16, or the fp32 reference from
+    the same weights and hidden states upcast): MLA_LAYER_CTX cached
+    tokens written into a fresh latent cache, then a MLA_LAYER_T-token
+    chunk after them, and four decode rows at the whole context.
+    Returns (prefill arguments, decode arguments, (the decode rows'
+    q_nope, w_uk)); with `faults` the table's second block, a context
+    block of every row, is a foreign block of other latents."""
+    from dynamo_tpu_torch.models import deepseek
+    from dynamo_tpu_torch.ops.paged_attention import write_prompt_kv
+
+    bs, C, T = 128, MLA_LAYER_CTX, MLA_LAYER_T
+    n = C + T
+    nb = n // bs
+    gen = torch.Generator(device=device).manual_seed(21)
+    x = torch.randn(n + 4, cfg.d_model, generator=gen,
+                    device=device).to(cfg.dtype).to(dtype)
+    lay = {k: (v.to(dtype) if torch.is_tensor(v) else
+               {kk: vv for kk, vv in v.items()})
+           for k, v in layer.items() if k not in ("w_gate", "w_up",
+                                                  "w_down")}
+    c32 = dataclasses.replace(cfg, dtype=dtype)
+    pos = torch.arange(n, device=device)
+    h = deepseek.rms_norm(x[:n], lay["attn_norm"]["norm"], cfg.rms_eps)
+    q_nope, q_rope = deepseek._q_proj(lay, c32, h, pos)
+    c, kr = deepseek._kv_latent(lay, c32, h, pos)
+    kv = tuple(torch.zeros(s, dtype=dtype, device=device)
+               for s in deepseek.kv_cache_shapes(c32, nb + 2, bs))
+    table = torch.arange(1, nb + 1, dtype=torch.int32, device=device)
+    write_prompt_kv(*kv, 0, c[:n, None], kr[:n, None], table, 0, n)
+    # a foreign block: other latents in the spare block nb + 1
+    for t in kv:
+        t[0, 0, nb + 1] = torch.randn(t.shape[3:], generator=gen,
+                                      device=device).to(dtype)
+    if faults:
+        table = table.clone()
+        table[1] = nb + 1
+    pre = (q_nope[C:], q_rope[C:], c[C:], kr[C:], *kv, 0, table, C, T,
+           lay["w_uk"], lay["w_uv"])
+    # four decode rows at the whole context, their own new tokens
+    hd = deepseek.rms_norm(x[n:], lay["attn_norm"]["norm"], cfg.rms_eps)
+    dpos = torch.full((4, 1), n, device=device)
+    qn, qr = deepseek._q_proj(lay, c32, hd[:, None], dpos)
+    q_abs = deepseek._absorb_q(lay, qn[:, 0])
+    lens = torch.full((4,), n, dtype=torch.int32, device=device)
+    dec = (q_abs, qr[:, 0], *kv, 0, table[None].expand(4, -1), lens,
+           lay["w_uv"], deepseek.score_scale(cfg.qk_head_dim))
+    return pre, dec, (qn[:, 0], lay["w_uk"])
+
+
+def _mla_layer_check(params, mc, device) -> dict:
+    """Gate 3: one layer's MLA attention in bf16 (layer 0's weights, the
+    projections and the cache in bf16) against the same computation from
+    the same weights and hidden states in fp32: the non-absorbed prefill
+    of a MLA_LAYER_T-token chunk after MLA_LAYER_CTX cached tokens and
+    the absorbed decode of four rows over all of them.  Exits unless
+    every output row's (one token's one head) relative L2 error is within
+    MLA_LAYER_TOL, and unless a planted foreign block reads above it."""
+    from dynamo_tpu_torch.ops.mla_attention import (
+        mla_decode_attention,
+        mla_prefill_attention,
+    )
+
+    layer = params["layers"][0]
+    ref_pre, ref_dec, _ = _mla_layer_inputs(layer, mc, device, torch.float32)
+    want = (mla_prefill_attention(*ref_pre), mla_decode_attention(*ref_dec))
+    del ref_pre, ref_dec
+    out = {}
+    for faults in (False, True):
+        pre, dec, _ = _mla_layer_inputs(layer, mc, device, mc.dtype, faults)
+        got = (mla_prefill_attention(*pre), mla_decode_attention(*dec))
+        torch.cuda.synchronize()
+        for what, g, w in zip(("prefill", "decode"), got, want):
+            out[(what, faults)] = row_rel_err(g, w)
+        del pre, dec, got
+    log(f"one MLA layer in bf16 against fp32 (prefill T={MLA_LAYER_T} "
+        f"after {MLA_LAYER_CTX} cached tokens, non-absorbed; decode of 4 "
+        f"rows over {MLA_LAYER_CTX + MLA_LAYER_T}, absorbed): max row "
+        f"relative L2 error prefill {out[('prefill', False)]:.3e}, decode "
+        f"{out[('decode', False)]:.3e} (limit {MLA_LAYER_TOL}); planted "
+        f"foreign block: prefill {out[('prefill', True)]:.3e}, decode "
+        f"{out[('decode', True)]:.3e} (must exceed it)")
+    for what in ("prefill", "decode"):
+        if not out[(what, False)] <= MLA_LAYER_TOL:
+            raise SystemExit(f"MLA {what} attention in bf16 disagrees with "
+                             "fp32")
+        if not out[(what, True)] > MLA_LAYER_TOL:
+            raise SystemExit(f"MLA {what}: the planted foreign block reads "
+                             "within the limit")
+    return {f"{w}{'_fault' if f else ''}": v for (w, f), v in out.items()}
+
+
+def _mla_absorb_check(params, mc, device) -> float:
+    """Gate 4: the absorbed decode (ops/mla_attention.py, the query
+    absorbed through w_uk) against a materialised non-absorbed oracle on
+    the same fp32 cache: per-head keys W_UK c_t concatenated with the
+    shared rope key, values W_UV c_t, plain softmax attention.  Exits
+    unless every row's relative L2 error is within MLA_ABSORB_TOL (the
+    CPU twin: tests/test_torch_mla.py, as tests/test_mla.py:138)."""
+    from dynamo_tpu_torch.ops.mla_attention import (
+        _gather_latent,
+        mla_decode_attention,
+    )
+
+    _, dec, (q_nope, w_uk) = _mla_layer_inputs(
+        params["layers"][0], mc, device, torch.float32)
+    q_abs, q_rope, c_cache, kr_cache, li, tables, lens, w_uv, scale = dec
+    got = mla_decode_attention(*dec)
+    c = _gather_latent(c_cache, li, tables)            # [B, S, R]
+    kr = _gather_latent(kr_cache, li, tables)          # [B, S, dr]
+    k_nope = torch.einsum("bsr,hrd->bhsd", c, w_uk)
+    v = torch.einsum("bsr,hrd->bhsd", c, w_uv)
+    s = (torch.einsum("bhd,bhsd->bhs", q_nope, k_nope)
+         + torch.einsum("bhd,bsd->bhs", q_rope, kr)) * scale
+    mask = torch.arange(c.shape[1], device=device)[None, None] \
+        < lens[:, None, None]
+    p = torch.softmax(torch.where(mask, s, -1e30), dim=-1)
+    oracle = torch.einsum("bhs,bhsd->bhd", p, v)
+    torch.cuda.synchronize()
+    err = row_rel_err(got, oracle)
+    log(f"MLA absorbed decode against the materialised non-absorbed oracle "
+        f"(fp32, 4 rows over {MLA_LAYER_CTX + MLA_LAYER_T} positions): max "
+        f"row relative L2 error {err:.3e} (limit {MLA_ABSORB_TOL})")
+    if not err <= MLA_ABSORB_TOL:
+        raise SystemExit("the absorbed MLA decode disagrees with the "
+                         "non-absorbed oracle")
+    return err
+
+
+def _mla_worker(device, cfg, params) -> dict:
+    """Gate 5: one request (the 500-token prompt) through a
+    TorchEngineWorker asked for an int8 cache and the fused epilogue:
+    it must finish with 32 tokens, and the MDC in discovery must
+    advertise what the engine runs, a bf16 cache and the epilogue off
+    (JAX's fallbacks), with load_metrics reporting bf16 too.  The worker
+    skips warm-up (the engine phase holds the program builds)."""
+    cfg = dataclasses.replace(cfg, kv_cache_dtype="int8",
+                              sampling_epilogue="fused")
+    req = _requests(cfg.resolve_model().vocab_size)[1]
+
+    async def run():
+        async with _serving_worker(device, cfg, params, warmup=False) as (
+                rt, worker, client, seen):
+            mdc = await rt.discovery.get_prefix(
+                worker.card.key(worker.served.instance_id))
+            res = await _serve_worker(client, [req])
+            for _ in range(100):
+                if seen["load"]:
+                    break
+                await asyncio.sleep(0.05)
+            return res[0], list(seen["load"]), list(mdc.values())
+
+    (toks, finish, ttft, _), load, mdc = asyncio.run(run())
+    rc = (mdc[0] if len(mdc) == 1 else {}).get("runtime_config", {})
+    got = {"kv_cache_dtype": rc.get("kv_cache_dtype"),
+           "sampling_epilogue": rc.get("sampling_epilogue"),
+           "load_kv_cache_dtype": load[-1].get("kv_cache_dtype")
+           if load else None}
+    log(f"MLA worker (int8 and fused asked): request 1 {len(toks)} tokens, "
+        f"finish={finish}, ttft={ttft:.3f} s; MDC {got}")
+    if finish != "length" or len(toks) != 32:
+        raise SystemExit("the MLA worker's request did not finish with 32 "
+                         "tokens")
+    if got != {"kv_cache_dtype": "bf16", "sampling_epilogue": "off",
+               "load_kv_cache_dtype": "bf16"}:
+        raise SystemExit(f"the MLA worker advertises settings it does not "
+                         f"run: {got}")
+    return {"ttft": ttft, **got}
+
+
+def _mla_padded_ms(eng, device) -> tuple:
+    """(device ms, host ms) of a padded 1 x 2048 prefill dispatch after
+    serving (CUDA events; 3 calls): a random prompt over blocks 1-16."""
+    c = eng.config
+    a = eng._padded_warmup(1, 2048)
+    a["toks"][:] = np.random.default_rng(4).integers(
+        0, eng.model_cfg.vocab_size, (1, 2048))
+    a["true_lens"][:] = 2048
+    a["tables"][0, :2048 // c.block_size] = 1 + np.arange(
+        2048 // c.block_size)
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    t0 = time.perf_counter()
+    start.record()
+    for _ in range(3):
+        eng.padded_prefill.run(a)
+    host = (time.perf_counter() - t0) / 3
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / 3, 1e3 * host, a
+
+
+def check_mla(device, card: str) -> dict:
+    """The MLA phase (module docstring).  Returns {"launches": K1/K3's
+    counts in the graphed engine's run (0: MLA runs no kernel of the
+    port), "seconds": ..., and the measured numbers}."""
+    from dynamo_tpu_torch.engine import TorchEngine
+    from dynamo_tpu_torch.models import deepseek, llama
+    from dynamo_tpu_torch.obs.costs import (
+        program_costs,
+        program_terms,
+        weight_bytes,
+    )
+
+    t_phase = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    mc = _mla_model()
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=device).manual_seed(0)
+    params = deepseek.init_params(mc, gen, device)
+    torch.cuda.synchronize()
+    leaves = list(_leaves(params))
+    nbytes = sum(t.numel() * t.element_size() for t in leaves)
+    # bf16 cache bytes a token: both members' elements over the layers
+    per_tok = {name: 2 * sum(int(np.prod(s)) for s in fam.kv_cache_shapes(
+        cfg, 1, 1)) for name, fam, cfg in (
+            ("deepseek-v2-lite", deepseek, mc),
+            ("llama-8b", llama, llama.PRESETS["llama-8b"]))}
+    log(f"MLA: deepseek-v2-lite at its published widths and full depth "
+        f"(d={mc.d_model}, {mc.n_layers} layers, {mc.n_heads} heads, "
+        f"kv_lora_rank {mc.kv_lora_rank}, qk_nope {mc.qk_nope_head_dim}, "
+        f"qk_rope {mc.qk_rope_head_dim}, v_head {mc.v_head_dim}, first "
+        f"{mc.first_k_dense} dense (ffn {mc.ffn_dim}), {mc.n_experts} routed "
+        f"experts top {mc.experts_per_token} (ffn {mc.moe_ffn_dim}) plus "
+        f"{mc.n_shared_experts} shared, vocab {mc.vocab_size}): "
+        f"{sum(t.numel() for t in leaves) / 1e9:.2f} B parameters, "
+        f"{nbytes / 1e9:.2f} GB of random bf16 weights made on the card in "
+        f"{time.perf_counter() - t0:.1f} s; bf16 cache bytes a token "
+        f"{per_tok['deepseek-v2-lite']} (llama-8b {per_tok['llama-8b']})")
+    used = _kernels_of("bf16")
+    reqs = _requests(mc.vocab_size)
+
+    # the default scheduler with its decode bursts on graphs
+    eng = TorchEngine(_moe_engine_config(mc), params=params, device=device)
+    t0 = time.perf_counter()
+    eng.warmup_decode()
+    built = _log_programs(eng, "MLA engine")
+    padded = dict(eng.padded_prefill.counts)
+    guided = dict(eng.guided_graphs.counts)
+    log(f"MLA engine: warm-up in {time.perf_counter() - t0:.1f} s; padded "
+        f"prefill shapes {sorted(padded)}; packed programs "
+        f"{eng.prefill_graphs}, verify programs {eng.verify_graphs}; "
+        f"decode graph pool {eng.graphs.pool_bytes / 2**20:.0f} MiB")
+    if eng.prefill_graphs is not None or eng.verify_graphs is not None \
+            or set(padded) != set(eng._padded_shapes()) \
+            or set(padded.values()) != {1}:
+        raise SystemExit("MLA warm-up built a packed program or missed a "
+                         "padded shape")
+    res, launches, stats = _moe_serve(eng, reqs, used)
+    _mla_check_served("graphs", res, card, eng.config)
+    if eng.graphs.counts != built or eng.padded_prefill.counts != padded \
+            or eng.guided_graphs.counts != guided:
+        raise SystemExit("the MLA engine built programs while serving")
+    log(f"MLA engine launches of the port's kernels: {launches} (MLA "
+        f"attention is plain torch); {stats['decode_steps']} decode steps, "
+        f"{stats['prefill_steps']} padded prefill dispatches; nothing built "
+        "while serving")
+    if any(launches.values()) or not stats["decode_steps"]:
+        raise SystemExit("the MLA engine launched a GQA kernel or decoded "
+                         "nothing")
+    burst = check_graph_burst(eng, device, "deepseek-v2-lite bf16")
+    step_bytes = weight_bytes(mc)
+    counted = program_costs(mc, "decode", (True, 8), rows=4, max_blocks=16,
+                            block_size=128)["bytes"]
+    bound_ms = 1e3 * counted / HBM_BYTES_PER_S
+    log(f"MLA k=8 burst replay {burst['burst_ms']:.3f} ms ({card}) against "
+        f"its byte bound: {step_bytes / 1e9:.2f} GB of weights a step "
+        f"(dense dispatch reads every expert) = "
+        f"{8e3 * step_bytes / HBM_BYTES_PER_S:.2f} ms a burst at 3.35 TB/s; "
+        f"with the full tables' latents {counted / 1e9:.2f} GB = "
+        f"{bound_ms:.2f} ms ({burst['burst_ms'] / bound_ms:.2f}x); "
+        f"{burst['ops_per_token']:.1f} device operations per decode token "
+        f"({burst['ops_per_token'] / mc.n_layers:.1f} a layer)")
+    dev_ms, host_ms, a = _mla_padded_ms(eng, device)
+    terms = program_terms(mc, "prefill_padded", (1, 2048), max_blocks=16,
+                          block_size=128)
+    # the bf16 products at the tensor cores' peak, the fp32 attention at
+    # the fp32 peak
+    f_bound = 1e3 * (terms["matmul_flops"] / BF16_FLOPS_PER_S
+                     + terms["attn_flops"] / FP32_FLOPS_PER_S)
+    log(f"MLA padded 1 x 2048 prefill dispatch: {dev_ms:.3f} ms on the "
+        f"device, {host_ms:.3f} ms on the host to dispatch ({card}); "
+        f"counted {terms['matmul_flops'] / 1e12:.2f} TFLOP of bf16 products "
+        f"(every expert on every token) at 989 TFLOP/s and "
+        f"{terms['attn_flops'] / 1e12:.2f} TFLOP of fp32 attention at 67 "
+        f"TFLOP/s = {f_bound:.2f} ms ({f_bound / dev_ms:.2f} of it)")
+    split = {"decode": _mla_split(lambda: eng.graphs.run_eager(True, 8),
+                                  "eager k=8 decode burst body", card),
+             "prefill": _mla_split(lambda: eng.padded_prefill.run(a),
+                                   "a padded 1 x 2048 prefill dispatch",
+                                   card)}
+    _free_engine(eng)
+    del eng
+
+    layer = _mla_layer_check(params, mc, device)
+    absorb = _mla_absorb_check(params, mc, device)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # gate 2: the same engine with its programs run eagerly
+    eeng = TorchEngine(_moe_engine_config(mc), params=params, device=device,
+                       cuda_graphs=False)
+    eager, _, _ = _moe_serve(eeng, reqs, used)
+    _mla_check_served("eager", eager, card, eeng.config)
+    _free_engine(eeng)
+    del eeng
+    parted = _mla_streams("MLA graphs against eager", res, eager, reqs,
+                          params, mc, device)
+    bad = [p for p in parted if not _near_tie(p)]
+    if bad:
+        raise SystemExit(f"MLA streams part at neither a logit near-tie nor "
+                         f"a router near-tie: {bad}")
+    log(f"MLA: greedy streams of the graphed engine equal the eager "
+        f"engine's{' but at near-ties' if parted else ''}")
+    worker = _mla_worker(device, _moe_engine_config(mc), params)
+    del params, leaves
+    gc.collect()
+    torch.cuda.empty_cache()
+    secs = time.perf_counter() - t_phase
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    log(f"MLA phase: {secs:.1f} s, max_memory_allocated {peak:.1f} GiB "
+        f"({card})")
+    return {"launches": launches, "burst": burst, "bound_ms": bound_ms,
+            "padded_ms": (dev_ms, host_ms), "flop_bound_ms": f_bound,
+            "split": split, "layer_err": layer, "absorb_err": absorb,
+            "parted": parted, "worker": worker,
+            "tokens_s": _decode_rate(res), "ttft": [r[2] for r in res],
+            "peak_gib": peak, "seconds": secs}
+
+
+def _mla_check_served(what: str, res, card: str, cfg) -> None:
+    """Log TTFT and decode tokens/s of a _serve result of the MLA engine;
+    exit unless every request finished with 32 tokens."""
+    n, secs = _decode_rate(res)
+    log(f"serving deepseek-v2-lite, {what} ({card}): ttft s per request "
+        f"{[round(r[2], 4) for r in res]}, decode {n} tokens in "
+        f"{secs:.3f} s = {n / secs:.1f} tokens/s aggregate "
+        f"(max_num_seqs={cfg.max_num_seqs})")
+    bad = [i for i, r in enumerate(res) if r[1] != "length"
+           or len(r[0]) != 32]
+    if bad:
+        raise SystemExit(f"MLA {what}: requests {bad} did not finish with 32 "
+                         "tokens")
+
+
 def load_checkout(path: str):
     """(_build, cuda_paged_attention, cuda_packed_prefill) of the port in
     another checkout at `path` (for instance the parent commit unpacked
@@ -6577,6 +7208,14 @@ def main() -> int:
             "seconds")}}), flush=True)
         print(card, flush=True)
         return 0
+    if sys.argv[1:] == ["--mla"]:
+        # python3 chip_smoke.py --mla: the MLA phase
+        out = check_mla(device, card)
+        print(json.dumps({"mla": {k: out[k] for k in (
+            "launches", "layer_err", "absorb_err", "worker", "bound_ms",
+            "flop_bound_ms", "peak_gib", "seconds")}}), flush=True)
+        print(card, flush=True)
+        return 0
     if sys.argv[1:] == ["--worker-ab"]:
         # python3 chip_smoke.py --worker-ab: the engine directly against
         # the engine behind the worker, in turns
@@ -6649,6 +7288,10 @@ def main() -> int:
     log(f"checkpoint phase done at {time.perf_counter() - t_start:.1f} s")
     gc.collect()
     torch.cuda.empty_cache()
+    mla = check_mla(device, card)
+    log(f"mla phase done at {time.perf_counter() - t_start:.1f} s")
+    gc.collect()
+    torch.cuda.empty_cache()
     moe = check_moe(device, card)
     log(f"moe phase done at {time.perf_counter() - t_start:.1f} s")
     for k in kernels:
@@ -6667,11 +7310,13 @@ def main() -> int:
         k["lora_launches"] = lora["lora_launches"].get(k["name"], 0)
         k["guided_launches"] = lora["guided_launches"].get(k["name"], 0)
         k["moe_launches"] = moe["launches"].get(k["name"], 0)
+        k["mla_launches"] = mla["launches"].get(k["name"], 0)
     for k in dma:  # the microbench is on no serving path
         k["disagg_prefill_launches"] = k["disagg_decode_launches"] = 0
         k["disagg_ipc_prefill_launches"] = k["disagg_ipc_decode_launches"] = 0
         k["kvbm_launches"] = k["spec_launches"] = k["spec_draft_launches"] = 0
         k["lora_launches"] = k["guided_launches"] = k["moe_launches"] = 0
+        k["mla_launches"] = 0
     log(f"chip_smoke: every phase passed in "
         f"{time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels + dma}), flush=True)

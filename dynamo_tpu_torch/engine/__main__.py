@@ -50,9 +50,12 @@ def launch_counts() -> dict:
 
 def build_args() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser("dynamo_tpu_torch.engine")
-    p.add_argument("--model", default="tiny", help="model preset name")
+    p.add_argument("--model", default="tiny",
+                   help="model preset name, any family (Llama, Mixtral, "
+                        "DeepSeek MLA: tiny-mla, deepseek-v2-lite, ...)")
     p.add_argument("--model-path", default="",
-                   help="local HF checkpoint dir (overrides --model)")
+                   help="local HF checkpoint dir (overrides --model): the "
+                        "Llama lineage, Mixtral, DeepSeek V2/V3")
     p.add_argument("--model-name", default="", help="served model name")
     p.add_argument("--namespace", default="dynamo")
     p.add_argument("--component", default="backend")
@@ -65,7 +68,8 @@ def build_args() -> argparse.ArgumentParser:
                    choices=["bf16", "int8"],
                    help="KV storage dtype (quant/kv.py): int8 stores codes "
                         "plus fp32 scales, ~1.94x the blocks per byte at "
-                        "head_dim 128")
+                        "head_dim 128; the DeepSeek MLA family has no int8 "
+                        "cache and falls back to bf16 with a warning")
     p.add_argument("--kv-hbm-gb", type=float, default=0.0,
                    help="KV memory budget in GB: derive --num-blocks from "
                         "bytes per block at the KV dtype (0 = use "
@@ -86,7 +90,8 @@ def build_args() -> argparse.ArgumentParser:
                    help="fused = stream the decode step's final projection "
                         "in vocab tiles into the sampler's statistics (no "
                         "[B, vocab] logits); off = materialize the logits "
-                        "and sample them")
+                        "and sample them (the DeepSeek MLA family falls "
+                        "back to off)")
     p.add_argument("--peak-tflops", type=float,
                    default=float(os.environ.get("DYN_PEAK_TFLOPS", "0")),
                    help="dense-bf16 peak, for prefill MFU in the FPM "

@@ -12,10 +12,10 @@ from __future__ import annotations
 
 import dataclasses
 from dataclasses import dataclass
-from typing import Optional, Tuple
+from typing import Optional, Tuple, Union
 
 from ..disagg.transfer import DEFAULT_CHUNK_BYTES
-from ..models.llama import PRESETS, LlamaConfig
+from ..models import PRESETS, DeepseekConfig, LlamaConfig, get_family
 from ..ops.packed_prefill import PACKED_IMPLS
 from ..ops.paged_attention import DECODE_IMPLS
 
@@ -34,12 +34,12 @@ _UNPORTED = {
 
 @dataclass
 class EngineConfig:
-    model: str = "tiny"  # preset name (models.llama.PRESETS)
+    model: str = "tiny"  # preset name (models.PRESETS, every family)
     # a local HF checkpoint directory (config.json + *.safetensors,
     # models/loader.py); overrides `model`, the engine loads its weights
     model_path: str = ""
     model_name: str = ""  # served model name; defaults to the model's
-    model_config: Optional[LlamaConfig] = None
+    model_config: Optional[Union[LlamaConfig, DeepseekConfig]] = None
 
     # paged KV cache (block 0 is the garbage block)
     block_size: int = 128         # tokens per block == PLH hashing block size
@@ -239,10 +239,14 @@ class EngineConfig:
                              f"{' | '.join(PACKED_IMPLS)}, got "
                              f"{self.packed_attn_impl!r}")
 
-    def resolve_model(self) -> LlamaConfig:
+    def resolve_model(self) -> Union[LlamaConfig, DeepseekConfig]:
         """The model config (model_config, else the checkpoint's at
         model_path, else the preset) with the engine's attention-impl
-        overrides."""
+        overrides, each applied only where the family has the knob, as
+        the JAX engine does: an attn_impl outside the family's
+        SUPPORTED_ATTN_IMPLS (MLA: the plain one alone) and a
+        packed_attn_impl on a family with no packed prefill raise
+        JAX's ValueErrors rather than be ignored."""
         if self.model_config is not None:
             cfg = self.model_config
         elif self.model_path:
@@ -256,8 +260,21 @@ class EngineConfig:
                              f"{sorted(PRESETS)}")
         over = {}
         if self.attn_impl:
+            supported = getattr(get_family(cfg), "SUPPORTED_ATTN_IMPLS",
+                                DECODE_IMPLS)
+            if self.attn_impl not in supported:
+                raise ValueError(
+                    f"attn_impl for model family {type(cfg).__name__} must "
+                    f"be one of {' | '.join(supported)}, got "
+                    f"{self.attn_impl!r}")
             over["attn_impl"] = self.attn_impl
         if self.packed_attn_impl:
+            if "packed_attn_impl" not in {
+                    f.name for f in dataclasses.fields(cfg)}:
+                raise ValueError(
+                    f"model family {type(cfg).__name__} has no "
+                    f"packed_attn_impl knob (MLA has no packed prefill "
+                    f"path)")
             over["packed_attn_impl"] = self.packed_attn_impl
         return dataclasses.replace(cfg, **over) if over else cfg
 

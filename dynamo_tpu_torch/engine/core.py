@@ -30,6 +30,15 @@ a worker thread, as `_sched_step` does there:
     prefix cache once their K/V is materialized, and stop conditions
     finish requests (a mid-burst finish discards the overshoot).
 
+The model family is bound once (`self.family`, models/__init__.py
+get_family): Llama, Qwen and Mixtral (models/llama.py), or the DeepSeek
+MLA family (models/deepseek.py), whose engine has no packed prefill, no
+verify path, no int8 cache, no LoRA and no hidden-state decode: its
+prefill takes the padded programs, and int8, the fused epilogue and
+speculative decoding fall back to bf16, "off" and plain decode with the
+JAX engine's warnings (LoRA and a packed_attn_impl raise its errors).
+The decode bursts capture as Llama's do.
+
 `overlap_scheduling=False` is the lockstep reference mode (dispatch,
 block on the device, emit), greedy byte-identical to the overlapped one.
 
@@ -122,6 +131,7 @@ Not here yet (ROADMAP.md): penalties (the JAX engine ignores them too).
 from __future__ import annotations
 
 import asyncio
+import inspect
 import itertools
 import logging
 import threading
@@ -143,7 +153,7 @@ from ..kvbm.manager import TieredKvManager
 from ..kvbm.residency import LineageResidency
 from ..lora.bank import clear_slot, empty_bank, write_adapter
 from ..lora.source import LocalLoraSource
-from ..models import llama
+from ..models import get_family
 from ..obs.compile_watch import CaptureWatch
 from ..ops.kv_transfer import (
     blocks_from_host,
@@ -344,7 +354,31 @@ class TorchEngine:
         self.config = config
         self.device = resolve_device(device)
         self.model_cfg = config.resolve_model()
+        # the model family's module (models/__init__.py get_family): every
+        # forward, init and cache shape below goes through it, and what
+        # the family lacks is detected by its attributes, as in JAX
+        self.family = get_family(self.model_cfg)
         self.eos_ids = frozenset(config.resolve_eos_ids())
+        # the EFFECTIVE fused-sampling epilogue, as the attention impls and
+        # the cache dtype: a family without the hidden-state decode
+        # surface (MLA) falls back to "off" with JAX's warning, and the
+        # worker's MDC advertises this, never a mode the engine does not run
+        self.sampling_epilogue = config.sampling_epilogue
+        if self.sampling_epilogue == "fused" and not (
+                hasattr(self.family, "decode_hidden")
+                and hasattr(self.family, "unembed_weight")
+                and hasattr(self.family, "decode_multi_hidden")):
+            logger.warning(
+                "model family %r has no hidden-state decode surface; "
+                "sampling_epilogue falls back to off",
+                type(self.model_cfg).__name__)
+            self.sampling_epilogue = "off"
+        # LoRA needs a family whose prefill takes the adapter bank
+        if config.lora_max_adapters > 0 and "lora_bank" not in \
+                inspect.signature(self.family.prefill).parameters:
+            raise ValueError(
+                f"model family {self.model_cfg.name!r} does not support "
+                "LoRA serving")
         if params is None and config.model_path:
             from ..models.loader import load_params
 
@@ -353,17 +387,27 @@ class TorchEngine:
         elif params is None:
             gen = torch.Generator(device=self.device)
             gen.manual_seed(config.seed)
-            params = llama.init_params(self.model_cfg, gen, self.device)
+            params = self.family.init_params(self.model_cfg, gen,
+                                             self.device)
         self.params = params
-        # the cache dtype sizes the block pool: with a kv_hbm_gb budget
-        # the block count derives from bytes per block, so int8 holds
-        # ~2x the blocks of bf16 in the same memory; config.num_blocks is
-        # updated in place so the allocator and the cache agree
+        # the EFFECTIVE cache dtype: a family without a quantized cache
+        # (MLA: no kv_cache_scale_shapes) falls back to bf16 with JAX's
+        # warning.  The dtype sizes the block pool: with a kv_hbm_gb
+        # budget the block count derives from bytes per block, so int8
+        # holds ~2x the blocks of bf16 in the same memory;
+        # config.num_blocks is updated in place so the allocator and the
+        # cache agree
         self.kv_dtype = config.kv_cache_dtype
+        if self.kv_dtype == "int8" \
+                and not hasattr(self.family, "kv_cache_scale_shapes"):
+            logger.warning(
+                "model family %r has no quantized KV path; "
+                "kv_cache_dtype falls back to bf16", self.model_cfg.name)
+            self.kv_dtype = "bf16"
         if config.kv_hbm_gb > 0:
             config.num_blocks = blocks_for_hbm_budget(
-                llama, self.model_cfg, config.block_size, self.kv_dtype,
-                int(config.kv_hbm_gb * 1e9))
+                self.family, self.model_cfg, config.block_size,
+                self.kv_dtype, int(config.kv_hbm_gb * 1e9))
         self.kv = self._init_kv_cache()
         self.allocator = BlockAllocator(config.num_blocks,
                                         config.enable_prefix_caching)
@@ -448,25 +492,30 @@ class TorchEngine:
                                      config.max_num_seqs,
                                      config.max_blocks_per_seq, self.device,
                                      capture=cuda_graphs,
-                                     epilogue=config.sampling_epilogue
+                                     epilogue=self.sampling_epilogue
                                      == "fused", lora_bank=self.lora_bank)
         # one packed-prefill program per bucket the planner can give:
         # the pow2 ladder from the smallest bucket to the first one that
-        # holds the chunk budget
-        self.prefill_graphs = PrefillPrograms(
-            self.params, self.model_cfg, self.kv, config.max_prefill_seqs,
-            config.max_blocks_per_seq,
-            _ladder(config.prefill_buckets[0], config.chunk_budget),
-            self.device,
-            capture=cuda_graphs if prefill_graphs is None
-            else prefill_graphs, lora_bank=self.lora_bank)
-        # capacity-dispatch MoE is not packed-safe (a packed stream would
-        # merge the sequences' expert-capacity pools): its prefill takes
-        # the padded programs, as the JAX engine's `_packed_prefill_ok`
-        # routes it
+        # holds the chunk budget; none for a family without packed
+        # prefill (MLA)
+        packed = hasattr(self.family, "prefill_packed")
+        self.prefill_graphs: Optional[PrefillPrograms] = None
+        if packed:
+            self.prefill_graphs = PrefillPrograms(
+                self.params, self.model_cfg, self.kv,
+                config.max_prefill_seqs, config.max_blocks_per_seq,
+                _ladder(config.prefill_buckets[0], config.chunk_budget),
+                self.device,
+                capture=cuda_graphs if prefill_graphs is None
+                else prefill_graphs, lora_bank=self.lora_bank)
+        # a family without packed prefill, and capacity-dispatch MoE,
+        # which is not packed-safe (a packed stream would merge the
+        # sequences' expert-capacity pools), take the padded programs,
+        # as the JAX engine's `_packed_prefill_ok` routes them
         mc = self.model_cfg
-        self._packed_prefill_ok = not (mc.n_experts > 0
-                                       and mc.moe_dispatch == "capacity")
+        self._packed_prefill_ok = packed and not (
+            getattr(mc, "n_experts", 0) > 0
+            and getattr(mc, "moe_dispatch", "dense") == "capacity")
         self.padded_prefill: Optional[PaddedPrefillPrograms] = None
         if not self._packed_prefill_ok:
             self.padded_prefill = PaddedPrefillPrograms(
@@ -489,7 +538,13 @@ class TorchEngine:
         # padded to _pow2(max_num_seqs)
         self.proposer = None
         self.verify_graphs: Optional[VerifyPrograms] = None
-        if config.spec_decode != "off":
+        if config.spec_decode != "off" \
+                and not hasattr(self.family, "spec_verify_packed"):
+            # MLA has no packed verify path: plain decode, as JAX serves it
+            logger.warning(
+                "model family %r has no spec_verify_packed; speculative "
+                "decoding disabled (plain decode)", self.model_cfg.name)
+        elif config.spec_decode != "off":
             from ..spec import make_proposer
 
             self.proposer = make_proposer(config, self.device,
@@ -581,11 +636,11 @@ class TorchEngine:
     def _program_families(self) -> list:
         """Every program family this engine builds (the capture watch's
         sources)."""
-        fams = [self.graphs, self.prefill_graphs, self.guided_graphs]
-        if self.padded_prefill is not None:
-            fams.append(self.padded_prefill)
-        if self.verify_graphs is not None:
-            fams.append(self.verify_graphs)
+        fams = [self.graphs, self.guided_graphs]
+        for progs in (self.prefill_graphs, self.padded_prefill,
+                      self.verify_graphs):
+            if progs is not None:
+                fams.append(progs)
         for name in ("programs", "catchup"):
             progs = getattr(self.proposer, name, None)
             if progs is not None:
@@ -645,11 +700,11 @@ class TorchEngine:
         int8 = self.kv_dtype == "int8"
         kv = [torch.zeros(shape, dtype=torch.int8 if int8 else m.dtype,
                           device=self.device)
-              for shape in llama.kv_cache_shapes(m, c.num_blocks,
-                                                 c.block_size)]
+              for shape in self.family.kv_cache_shapes(m, c.num_blocks,
+                                                       c.block_size)]
         if int8:
             kv += [torch.zeros(shape, dtype=torch.float32, device=self.device)
-                   for shape in llama.kv_cache_scale_shapes(
+                   for shape in self.family.kv_cache_scale_shapes(
                        m, c.num_blocks, c.block_size)]
         return tuple(kv)
 

@@ -97,6 +97,14 @@ MoE, whose sequences a packed stream would pool: one chunk padded to its
 bucket, or pow2 rows padded to one bucket, run eagerly (capturing them
 is left to do), one build record per (rows, T).
 
+Every body calls the model family the engine bound (models/__init__.py
+get_family; `self.family`).  The DeepSeek MLA family (models/
+deepseek.py) has no packed prefill and no verify path, so an MLA engine
+builds DecodePrograms, GuidedPrograms and PaddedPrefillPrograms only:
+its decode bursts and top-M steps are captured as Llama's are (the
+absorbed attention is plain torch, so a capture moves no kernel
+launches), and its prefill takes the padded programs eagerly.
+
 Every family records each build (`_Built`): `costs[key]` holds the
 program's cost count (obs/costs.py, {"flops", "bytes"} at its captured
 shapes), computed once at the build, and a `watch` the engine installs
@@ -119,7 +127,7 @@ from typing import Callable, Dict, Optional, Tuple
 import numpy as np
 import torch
 
-from ..models import llama
+from ..models import get_family
 from ..obs.costs import program_costs
 from ..ops import fused_sampling
 from .sampler import CAP, sample_tokens, top_window
@@ -273,11 +281,12 @@ class DecodePrograms(_LaneDescriptor, _Built):
     # the draft proposer's instance records draft_propose
     FAMILY_ONE, FAMILY_MULTI = "decode", "decode_multi"
 
-    def __init__(self, params, cfg: llama.LlamaConfig, kv: tuple, B: int,
+    def __init__(self, params, cfg, kv: tuple, B: int,
                  max_blocks: int, device: torch.device,
                  capture: bool = True, epilogue: bool = False,
                  lora_bank: Optional[Dict[str, torch.Tensor]] = None):
         self.params, self.cfg, self.kv = params, cfg, kv
+        self.family = get_family(cfg)
         self.epilogue = epilogue
         # with a LoRA bank the descriptor gains the `lidx` lane (each
         # lane's bank slot) and the body reads the bank in place
@@ -334,7 +343,7 @@ class DecodePrograms(_LaneDescriptor, _Built):
         lora = ({"lora_bank": self.lora_bank, "adapter_idx": d.lidx}
                 if self.lora_bank is not None else {})
         if self.epilogue:
-            uw = llama.unembed_weight(self.params, self.cfg)
+            uw = self.family.unembed_weight(self.params, self.cfg)
             if greedy:
                 def fused(h, step):
                     return fused_sampling.fused_greedy_tokens(h, uw)
@@ -343,16 +352,16 @@ class DecodePrograms(_LaneDescriptor, _Built):
                     return fused_sampling.fused_sample_tokens(
                         h, uw, d.seeds, d.steps + step, d.temps, d.top_ks,
                         d.top_ps)
-            burst, _ = llama.decode_multi_hidden(*args, fused,
-                                                 valid=d.valid != 0, **lora)
+            burst, _ = self.family.decode_multi_hidden(
+                *args, fused, valid=d.valid != 0, **lora)
         else:
             sample_fn: Optional[Callable] = None
             if not greedy:
                 def sample_fn(logits, step):
                     return sample_tokens(logits, d.seeds, d.steps + step,
                                          d.temps, d.top_ks, d.top_ps)
-            burst, _ = llama.decode_multi(*args, sample_fn,
-                                          valid=d.valid != 0, **lora)
+            burst, _ = self.family.decode_multi(
+                *args, sample_fn, valid=d.valid != 0, **lora)
         out = self.out.get(k)
         if out is None:
             out = self.out[k] = torch.zeros(k, self.B, dtype=torch.int32,
@@ -463,11 +472,12 @@ class _BucketPrograms(_Built):
     STREAM: tuple = ()
     ROWS: tuple = ()
 
-    def __init__(self, params, cfg: llama.LlamaConfig, kv: tuple, rows: int,
+    def __init__(self, params, cfg, kv: tuple, rows: int,
                  max_blocks: int, buckets, device: torch.device,
                  capture: bool = True,
                  lora_bank: Optional[Dict[str, torch.Tensor]] = None):
         self.params, self.cfg, self.kv = params, cfg, kv
+        self.family = get_family(cfg)
         self.rows, self.max_blocks, self.device = rows, max_blocks, device
         self.buckets = tuple(buckets)
         self.capture = capture and device.type == "cuda"
@@ -641,7 +651,7 @@ class PrefillPrograms(_BucketPrograms):
         d = self.d[T]
         lora = ({"lora_bank": self.lora_bank, "adapter_idx": d.lidx}
                 if self.lora_bank is not None else {})
-        logits, _ = llama.prefill_packed(
+        logits, _ = self.family.prefill_packed(
             self.params, self.cfg, self.kv, d.toks, d.positions, d.seg_ids,
             d.tables, d.last_idx, d.valid != 0, **lora)
         tok = sample_tokens(logits, d.seeds, torch.zeros_like(d.seeds),
@@ -665,10 +675,11 @@ class PaddedPrefillPrograms(_Built):
 
     COST_FAMILY = "prefill_padded"
 
-    def __init__(self, params, cfg: llama.LlamaConfig, kv: tuple,
+    def __init__(self, params, cfg, kv: tuple,
                  max_blocks: int, device: torch.device,
                  lora_bank: Optional[Dict[str, torch.Tensor]] = None):
         self.params, self.cfg, self.kv = params, cfg, kv
+        self.family = get_family(cfg)
         self.max_blocks, self.device = max_blocks, device
         self.lora_bank = lora_bank
         self.counts: Dict[Tuple[int, int], int] = {}
@@ -711,7 +722,7 @@ class PaddedPrefillPrograms(_Built):
             lora = ({"lora_bank": self.lora_bank,
                      "adapter_idx": t["lidx"].expand(T)}
                     if self.lora_bank is not None else {})
-            logits, _ = llama.prefill(
+            logits, _ = self.family.prefill(
                 self.params, self.cfg, self.kv, t["toks"][0],
                 t["positions"][0], t["tables"][0], int(a["ctx_lens"][0]),
                 int(a["true_lens"][0]), **lora)
@@ -719,7 +730,7 @@ class PaddedPrefillPrograms(_Built):
         else:
             lora = ({"lora_bank": self.lora_bank, "adapter_idx": t["lidx"]}
                     if self.lora_bank is not None else {})
-            logits, _ = llama.prefill_batched(
+            logits, _ = self.family.prefill_batched(
                 self.params, self.cfg, self.kv, t["toks"], t["positions"],
                 t["tables"], a["ctx_lens"], a["true_lens"], **lora)
         tok = sample_tokens(logits, t["seeds"], torch.zeros_like(t["seeds"]),
@@ -762,7 +773,7 @@ class VerifyPrograms(_BucketPrograms):
 
     def run_eager(self, T: int) -> tuple:
         d = self.d[T]
-        logits, _ = llama.spec_verify_packed(
+        logits, _ = self.family.spec_verify_packed(
             self.params, self.cfg, self.kv, d.toks, d.positions, d.seg_ids,
             d.tables, d.valid != 0)
         for dst, src in zip(self.out[T], spec_verify_window(logits,
@@ -797,9 +808,9 @@ class CatchupPrograms(_BucketPrograms):
 
     def run_eager(self, T: int) -> None:
         d = self.d[T]
-        llama.prefill_packed_kv(self.params, self.cfg, self.kv, d.toks,
-                                d.positions, d.seg_ids, d.tables,
-                                d.valid != 0)
+        self.family.prefill_packed_kv(self.params, self.cfg, self.kv,
+                                      d.toks, d.positions, d.seg_ids,
+                                      d.tables, d.valid != 0)
 
 
 # the guided programs' descriptor: one decode step's lane fields
@@ -822,10 +833,11 @@ class GuidedPrograms(_LaneDescriptor, _Built):
 
     COST_FAMILY = "guided"
 
-    def __init__(self, params, cfg: llama.LlamaConfig, kv: tuple, B: int,
+    def __init__(self, params, cfg, kv: tuple, B: int,
                  max_blocks: int, ms, device: torch.device,
                  capture: bool = True):
         self.params, self.cfg, self.kv = params, cfg, kv
+        self.family = get_family(cfg)
         self.ms = tuple(ms)
         self.capture = capture and device.type == "cuda"
         self._init_descriptor(B, max_blocks, device, GUIDED_FIELDS)
@@ -853,9 +865,9 @@ class GuidedPrograms(_LaneDescriptor, _Built):
     def run_eager(self, m: int) -> Tuple[torch.Tensor, torch.Tensor]:
         """The program body, run eagerly: returns its static (ids, vals)."""
         d = self.d
-        logits, _ = llama.decode(self.params, self.cfg, self.kv, d.tokens,
-                                 d.positions, d.tables, d.ctx_lens,
-                                 valid=d.valid != 0)
+        logits, _ = self.family.decode(self.params, self.cfg, self.kv,
+                                       d.tokens, d.positions, d.tables,
+                                       d.ctx_lens, valid=d.valid != 0)
         vals, ids = top_window(logits.float(), m)
         self.ids[m].copy_(ids)
         self.vals[m].copy_(vals)

@@ -195,12 +195,16 @@ class TorchEngineWorker:
                 # plain versions
                 "attn_impl": (eng.model_cfg.attn_impl if eng is not None
                               else (self.config.attn_impl or "auto")),
+                # a family without packed prefill (MLA) has no such
+                # knob: "auto", as the JAX worker advertises it
                 "packed_attn_impl": (
-                    eng.model_cfg.packed_attn_impl if eng is not None
+                    getattr(eng.model_cfg, "packed_attn_impl", "auto")
+                    if eng is not None
                     else (self.config.packed_attn_impl or "auto")),
-                # the effective mode: the port has no family that falls
-                # back to "off", as JAX's MLA does
-                "sampling_epilogue": self.config.sampling_epilogue,
+                # the effective mode (MLA falls back to "off", as JAX's)
+                "sampling_epilogue": (eng.sampling_epilogue
+                                      if eng is not None
+                                      else self.config.sampling_epilogue),
                 "overlap_scheduling": self.config.overlap_scheduling,
                 # speculative decoding: the proposer and max draft length,
                 # only where the engine speculates (live acceptance rides

@@ -10,9 +10,14 @@ does not import, so a caller upcasts bf16 JAX arrays to float32 first
     rest takes the model config's dtype.  A MoE layer's router
     `moe_gate` [d, E] and expert stacks `moe_w_*` [E, in, out] are no
     norms, so they take the model's dtype, as the JAX init makes them.
+    The DeepSeek tree (models/deepseek.py) crosses the same way, its
+    latent norms fp32 and its V3 router bias `moe_gate_bias` fp32 too:
+    the bias decides the expert choice, and bf16 would change it.
   * KV cache: the JAX cache is [L, nkv, num_blocks, head_dim, block_size]
     (blocks transposed for TPU lanes); the port's is
     [L, nkv, num_blocks, block_size, head_dim] (ops/paged_attention.py).
+    Each member crosses on its own, so the MLA pair (a latent cache of
+    width R and a rope-key cache of width dr, one head) crosses alike.
     An int8 cache's codes cross as int8, transposed like the data, and
     its fp32 scale planes [L, nkv, num_blocks, block_size] unchanged:
     both packages lay them out alike.
@@ -22,17 +27,20 @@ does not import, so a caller upcasts bf16 JAX arrays to float32 first
 
 from __future__ import annotations
 
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Dict, Optional, Tuple, Union
 
 import numpy as np
 import torch
 
 from ..device import DeviceLike, resolve_device
+from .deepseek import DeepseekConfig
 from .llama import LlamaConfig
 
 _FLOATS = (np.float16, np.float32, np.float64)
 # what a KV cache may hold: floats, or an int8 cache's codes
 _KV_TYPES = _FLOATS + (np.int8,)
+# parameter keys kept fp32 besides the norms (the V3 router's choice bias)
+_FP32_KEYS = ("moe_gate_bias",)
 
 
 def _tensor(a, dtype: torch.dtype, dev: torch.device, path: str,
@@ -46,16 +54,18 @@ def _tensor(a, dtype: torch.dtype, dev: torch.device, path: str,
     return torch.from_numpy(np.array(a)).to(device=dev, dtype=dtype)
 
 
-def params_from_numpy(tree: Any, cfg: LlamaConfig,
+def params_from_numpy(tree: Any, cfg: Union[LlamaConfig, DeepseekConfig],
                       device: DeviceLike = "cuda") -> Any:
     """The JAX package's parameter tree, as numpy float arrays, turned into
     the port's parameters on `device`: tensors named under a "norm" key
-    are fp32 (as the JAX init makes them), the rest cfg.dtype."""
+    and `moe_gate_bias` are fp32 (as the JAX init makes them), the rest
+    cfg.dtype."""
     dev = resolve_device(device)
 
     def conv(node, path: str, in_norm: bool):
         if isinstance(node, dict):
-            return {k: conv(v, f"{path}/{k}", in_norm or "norm" in k)
+            return {k: conv(v, f"{path}/{k}",
+                            in_norm or "norm" in k or k in _FP32_KEYS)
                     for k, v in node.items()}
         if isinstance(node, (list, tuple)):
             return [conv(v, f"{path}[{i}]", in_norm)

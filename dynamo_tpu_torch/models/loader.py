@@ -1,10 +1,10 @@
 """HF checkpoint loading: config.json + *.safetensors -> the port's params.
 
 The counterpart of dynamo_tpu/models/loader.py for the Llama lineage
-(Llama, Mistral, Qwen2, Qwen3 with its per-head q/k norms) and Mixtral
-(its router and per-expert weights stacked into [E, ...] arrays).  The
-DeepSeek (MLA) architectures raise NotImplementedError: they come with
-ROADMAP.md Queue 1 item 9.
+(Llama, Mistral, Qwen2, Qwen3 with its per-head q/k norms), Mixtral
+(its router and per-expert weights stacked into [E, ...] arrays) and
+the DeepSeek V2/V3 (MLA) architectures (models/deepseek.py; the mapping
+is `_load_deepseek_params`'s).
 
 The safetensors files are read with the standard library and torch
 alone (a GPU host need have neither `safetensors` nor `ml_dtypes`, and
@@ -55,11 +55,12 @@ import os
 import re
 import struct
 import time
-from typing import Any, Dict, Iterator, Optional, Tuple
+from typing import Any, Dict, Iterator, Optional, Tuple, Union
 
 import torch
 
 from ..device import DeviceLike, resolve_device
+from .deepseek import DeepseekConfig
 from .llama import LlamaConfig
 
 logger = logging.getLogger(__name__)
@@ -71,24 +72,66 @@ _ARCHS = {
     "Qwen2ForCausalLM": {},
     "Qwen3ForCausalLM": {"qk_norm": True},
 }
-# the MLA family (models/deepseek.py in the JAX package)
-_DS_ARCHS = ("DeepseekV2ForCausalLM", "DeepseekV3ForCausalLM")
+# the MLA family (models/deepseek.py): V3 routes by sigmoid plus the
+# choice bias, V2 declares its scoring_func in config.json
+_DS_ARCHS = {"DeepseekV2ForCausalLM": "v2", "DeepseekV3ForCausalLM": "v3"}
 
 # safetensors dtype names the loader reads
 _DTYPES = {"BF16": torch.bfloat16, "F16": torch.float16,
            "F32": torch.float32}
 
 
-def load_hf_config(model_path: str,
-                   dtype: torch.dtype = torch.bfloat16) -> LlamaConfig:
-    """config.json -> LlamaConfig, the fields of the JAX loader's."""
+def _load_deepseek_config(hf: dict, lineage: str, name: str,
+                          dtype: torch.dtype) -> DeepseekConfig:
+    """A DeepSeek config.json -> DeepseekConfig, the JAX loader's fields
+    and defaults (V3: sigmoid scoring, renormalized top k)."""
+    eos = hf.get("eos_token_id", 2)
+    eos_ids = tuple(int(e) for e in eos) if isinstance(eos, list) else (
+        (int(eos),) if eos is not None else (2,))
+    scoring = ("sigmoid" if lineage == "v3"
+               else hf.get("scoring_func", "softmax"))
+    return DeepseekConfig(
+        name=name,
+        vocab_size=hf["vocab_size"],
+        d_model=hf["hidden_size"],
+        n_layers=hf["num_hidden_layers"],
+        n_heads=hf["num_attention_heads"],
+        q_lora_rank=int(hf.get("q_lora_rank") or 0),
+        kv_lora_rank=int(hf["kv_lora_rank"]),
+        qk_nope_head_dim=int(hf["qk_nope_head_dim"]),
+        qk_rope_head_dim=int(hf["qk_rope_head_dim"]),
+        v_head_dim=int(hf["v_head_dim"]),
+        ffn_dim=hf["intermediate_size"],
+        moe_ffn_dim=int(hf.get("moe_intermediate_size") or 0),
+        n_experts=int(hf.get("n_routed_experts") or 0),
+        experts_per_token=int(hf.get("num_experts_per_tok") or 2),
+        n_shared_experts=int(hf.get("n_shared_experts") or 0),
+        first_k_dense=int(hf.get("first_k_dense_replace") or 0),
+        routed_scaling_factor=float(hf.get("routed_scaling_factor", 1.0)),
+        moe_scoring=scoring,
+        norm_topk_prob=bool(hf.get("norm_topk_prob", lineage == "v3")),
+        n_group=int(hf.get("n_group") or 1),
+        topk_group=int(hf.get("topk_group") or 1),
+        rope_theta=float(hf.get("rope_theta", 10000.0)),
+        rms_eps=float(hf.get("rms_norm_eps", 1e-6)),
+        tie_embeddings=bool(hf.get("tie_word_embeddings", False)),
+        max_context=int(hf.get("max_position_embeddings", 8192)),
+        dtype=dtype,
+        eos_token_ids=eos_ids,
+    )
+
+
+def load_hf_config(model_path: str, dtype: torch.dtype = torch.bfloat16
+                   ) -> Union[LlamaConfig, DeepseekConfig]:
+    """config.json -> LlamaConfig or DeepseekConfig by architecture, the
+    fields of the JAX loader's."""
     with open(os.path.join(model_path, "config.json")) as f:
         hf = json.load(f)
     arch = (hf.get("architectures") or ["LlamaForCausalLM"])[0]
     if arch in _DS_ARCHS:
-        raise NotImplementedError(
-            f"{arch}: the MLA (DeepSeek) family is not ported to "
-            "dynamo_tpu_torch yet (ROADMAP.md Queue 1 item 9: MLA)")
+        name = os.path.basename(os.path.abspath(model_path)) \
+            or hf.get("model_type", "hf-model")
+        return _load_deepseek_config(hf, _DS_ARCHS[arch], name, dtype)
     if arch not in _ARCHS:
         raise ValueError(
             f"unsupported architecture {arch!r}; have "
@@ -305,7 +348,8 @@ class Placer:
         self._buf = self._copied = None
 
 
-def load_params(model_path: str, cfg: Optional[LlamaConfig] = None,
+def load_params(model_path: str,
+                cfg: Optional[Union[LlamaConfig, DeepseekConfig]] = None,
                 device: DeviceLike = "cuda",
                 host_cache: bool = True) -> Dict[str, Any]:
     """Load a HF checkpoint into the port's parameter tree on `device`
@@ -327,6 +371,22 @@ def load_params(model_path: str, cfg: Optional[LlamaConfig] = None,
     t0 = time.perf_counter()
     placer = Placer(dev)
     stats = {"tensors": 0, "bytes": 0, "copies": 0}
+    load = (_load_deepseek_params if isinstance(cfg, DeepseekConfig)
+            else _load_llama_params)
+    params = load(model_path, cfg, placer, stats, dev)
+    logger.info("loaded %s from disk to %s: %d tensors, %.3f GB in %.2f s; "
+                "%d unaligned tensors copied", model_path, dev,
+                stats["tensors"], stats["bytes"] / 1e9,
+                time.perf_counter() - t0, stats["copies"])
+    if cache_dir is not None:
+        write_cache(cache_dir, model_path, params)
+    return params
+
+
+def _load_llama_params(model_path: str, cfg: LlamaConfig, placer: Placer,
+                       stats: Dict[str, int],
+                       dev: torch.device) -> Dict[str, Any]:
+    """The Llama lineage's and Mixtral's tensors -> the llama.py tree."""
     params: Dict[str, Any] = {
         "layers": [dict() for _ in range(cfg.n_layers)]}
 
@@ -395,10 +455,159 @@ def load_params(model_path: str, cfg: Optional[LlamaConfig] = None,
     if missing:
         raise ValueError(f"incomplete checkpoint {model_path}: missing "
                          f"{missing[:5]}")
-    logger.info("loaded %s from disk to %s: %d tensors, %.3f GB in %.2f s; "
-                "%d unaligned tensors copied", model_path, dev,
-                stats["tensors"], stats["bytes"] / 1e9,
-                time.perf_counter() - t0, stats["copies"])
-    if cache_dir is not None:
-        write_cache(cache_dir, model_path, params)
+    return params
+
+
+def _deinterleave_rope_rows(w: torch.Tensor, rope_dim: int) -> torch.Tensor:
+    """The rope-row block [rope_dim, ...] of a DeepSeek weight with its
+    rows de-interleaved (even rows, then odd): HF checkpoints store them
+    interleaved and de-interleave each head at run time; permuting the
+    rows once at load time lets the half-split rope (llama.py) apply
+    directly, as the JAX loader does."""
+    idx = torch.cat([torch.arange(0, rope_dim, 2),
+                     torch.arange(1, rope_dim, 2)])
+    return w[idx]
+
+
+_DS_EXPERT_RE = re.compile(
+    r"^mlp\.experts\.(\d+)\.(gate_proj|up_proj|down_proj)\.weight$")
+_DS_SHARED_RE = re.compile(
+    r"^mlp\.shared_experts\.(gate_proj|up_proj|down_proj)\.weight$")
+_DS_W_MAP = {"gate_proj": "w_gate", "up_proj": "w_up",
+             "down_proj": "w_down"}
+# HF suffix -> our norm key (fp32 {"norm": ...})
+_DS_NORMS = {"input_layernorm.weight": "attn_norm",
+             "post_attention_layernorm.weight": "mlp_norm",
+             "self_attn.kv_a_layernorm.weight": "kv_a_norm",
+             "self_attn.q_a_layernorm.weight": "q_a_norm"}
+# HF suffix -> our key of a plain transposed matrix
+_DS_LINEAR = {"self_attn.q_a_proj.weight": "wq_a",
+              "self_attn.o_proj.weight": "wo",
+              "mlp.gate.weight": "moe_gate",
+              "mlp.gate_proj.weight": "w_gate",
+              "mlp.up_proj.weight": "w_up",
+              "mlp.down_proj.weight": "w_down"}
+
+
+def _load_deepseek_params(model_path: str, cfg: DeepseekConfig,
+                          placer: Placer, stats: Dict[str, int],
+                          dev: torch.device) -> Dict[str, Any]:
+    """A DeepSeek V2/V3 checkpoint -> the deepseek.py tree, the JAX
+    loader's mapping (HF Linear is [out, in]; the tree transposes):
+
+        self_attn.q_proj | q_a_proj, q_a_layernorm, q_b_proj
+                                       wq | wq_a, q_a_norm, wq_b
+                                       (each head's rope rows
+                                       de-interleaved)
+        self_attn.kv_a_proj_with_mqa   wkv_a (rope rows de-interleaved)
+        self_attn.kv_a_layernorm       kv_a_norm
+        self_attn.kv_b_proj            w_uk [nh, R, dn] + w_uv [nh, R, dv]
+        self_attn.o_proj               wo
+        mlp.gate.weight                moe_gate
+        mlp.gate.e_score_correction_bias   moe_gate_bias (fp32)
+        mlp.experts.E.{gate,up,down}_proj  moe_w_* (stacked [E, ...])
+        mlp.shared_experts.{gate,up,down}_proj  shared.w_*
+
+    The de-interleave applies when config.json's rope_interleave is
+    true (its default).  Layers at or past num_hidden_layers (V3's
+    multi-token-prediction module) are skipped."""
+    with open(os.path.join(model_path, "config.json")) as f:
+        interleaved = bool(json.load(f).get("rope_interleave", True))
+    R, dr = cfg.kv_lora_rank, cfg.qk_rope_head_dim
+    dn, dv, nh = cfg.qk_nope_head_dim, cfg.v_head_dim, cfg.n_heads
+
+    def perm_q(t: torch.Tensor) -> torch.Tensor:
+        """q/q_b rows [nh * (dn + dr), in] with each head's rope block
+        de-interleaved."""
+        if not interleaved:
+            return t
+        t = t.reshape(nh, dn + dr, -1)
+        rope_rows = _deinterleave_rope_rows(t[:, dn:].transpose(0, 1), dr)
+        return torch.cat([t[:, :dn], rope_rows.transpose(0, 1)],
+                         dim=1).reshape(nh * (dn + dr), -1)
+
+    params: Dict[str, Any] = {
+        "layers": [dict() for _ in range(cfg.n_layers)]}
+
+    def place_stack(li: int, key: str, stack: torch.Tensor) -> None:
+        params["layers"][li][key] = (stack if dev.type == "cpu"
+                                     else placer.put(stack, cfg.dtype))
+
+    stage = _ExpertStage(cfg.n_experts, cfg.dtype, place_stack)
+    for name, tensor in _iter_safetensors(model_path, stats):
+        m = _LAYER_RE.match(name)
+        if m:
+            li, suffix = int(m.group(1)), m.group(2)
+            if li >= cfg.n_layers:
+                # the multi-token-prediction module of V3/R1 checkpoints
+                # (layer num_hidden_layers) is no part of serving
+                continue
+            layer = params["layers"][li]
+            em = _DS_EXPERT_RE.match(suffix)
+            sm = _DS_SHARED_RE.match(suffix)
+            if em:
+                stage.feed(li, int(em.group(1)),
+                           "moe_" + _DS_W_MAP[em.group(2)], tensor.T)
+            elif sm:
+                layer.setdefault("shared", {})[_DS_W_MAP[sm.group(1)]] = \
+                    placer.put(tensor.T, cfg.dtype)
+            elif suffix in _DS_NORMS:
+                layer[_DS_NORMS[suffix]] = {
+                    "norm": placer.put(tensor, torch.float32)}
+            elif suffix in _DS_LINEAR:
+                layer[_DS_LINEAR[suffix]] = placer.put(tensor.T, cfg.dtype)
+            elif suffix == "mlp.gate.e_score_correction_bias":
+                layer["moe_gate_bias"] = placer.put(tensor, torch.float32)
+            elif suffix == "self_attn.q_proj.weight":
+                layer["wq"] = placer.put(perm_q(tensor).T, cfg.dtype)
+            elif suffix == "self_attn.q_b_proj.weight":
+                layer["wq_b"] = placer.put(perm_q(tensor).T, cfg.dtype)
+            elif suffix == "self_attn.kv_a_proj_with_mqa.weight":
+                t = tensor
+                if interleaved:
+                    t = torch.cat([t[:R], _deinterleave_rope_rows(t[R:], dr)])
+                layer["wkv_a"] = placer.put(t.T, cfg.dtype)
+            elif suffix == "self_attn.kv_b_proj.weight":
+                # [nh * (dn + dv), R] -> per-head up-projections [nh, R, *]
+                t = tensor.reshape(nh, dn + dv, R)
+                layer["w_uk"] = placer.put(t[:, :dn].transpose(1, 2),
+                                           cfg.dtype)
+                layer["w_uv"] = placer.put(t[:, dn:].transpose(1, 2),
+                                           cfg.dtype)
+            else:
+                raise ValueError(f"unmapped deepseek tensor {name!r}")
+        elif name == "model.embed_tokens.weight":
+            params["embedding"] = placer.put(tensor, cfg.dtype)
+        elif name == "lm_head.weight":
+            params["lm_head"] = placer.put(tensor.T, cfg.dtype)
+        elif name == "model.norm.weight":
+            params["final_norm"] = {"norm": placer.put(tensor, torch.float32)}
+        else:
+            raise ValueError(f"unmapped deepseek tensor {name!r}")
+    placer.finish()
+
+    if cfg.tie_embeddings:
+        params.pop("lm_head", None)
+    elif "lm_head" not in params and "embedding" in params:
+        params["lm_head"] = params["embedding"].T.contiguous()
+
+    # completeness: each layer's tensor count from the config, then the
+    # unfinished expert stacks (the JAX loader's order and texts)
+    missing = [k for k in ("embedding", "final_norm") if k not in params]
+    for li, layer in enumerate(params["layers"]):
+        want = 7  # attn_norm, mlp_norm, wkv_a, kv_a_norm, w_uk, w_uv, wo
+        want += 3 if cfg.q_lora_rank > 0 else 1
+        if cfg._moe_layer(li):
+            want += 4 + (1 if cfg.moe_scoring == "sigmoid" else 0) \
+                + (1 if cfg.n_shared_experts > 0 else 0)
+        else:
+            want += 3
+        if len(layer) != want:
+            missing.append(
+                f"model.layers.{li} ({len(layer)}/{want} tensors)")
+    missing.extend(f"model.layers.{li} expert tensors {parts}"
+                   for li, parts in stage.pending())
+    if missing:
+        raise ValueError(f"incomplete checkpoint {model_path}: missing "
+                         f"{missing[:5]}")
     return params

@@ -43,6 +43,30 @@ What is counted, per trunk pass of n tokens through L layers:
     2·2·T·nh·hd·(S + T) FLOPs a row and layer over its S = max_blocks·bs
     context positions, whose K/V it reads (2·nkv·S·pos_bytes a row).
 
+The DeepSeek MLA family (models/deepseek.py) has its own terms, from
+the latent cache of R + dr elements a position (R = kv_lora_rank, dr =
+qk_rope_head_dim) and the absorbed decode (ops/mla_attention.py):
+
+  * the matmuls outside attention: the query projection (through the
+    q_lora_rank bottleneck when it has one), the latent projection
+    d·(R + dr) and the output nh·dv·d, 2·n·(...) per layer; the MLP of
+    each of the first_k_dense dense layers; a MoE layer's router,
+    routed experts by dispatch (as above, at the per-expert width
+    moe_ffn_dim) and n_shared_experts always-on experts, 2·n·3·d·(ns·f);
+  * decode attention per layer, step and row over S = max_blocks·bs
+    positions: the absorption 2·nh·dn·R, scores 2·nh·S·(R + dr), the
+    context 2·nh·S·R and its up-projection 2·nh·R·dv FLOPs, and the
+    latents read, S·(R + dr) elements;
+  * padded prefill attention per layer and row: the up-projection of the
+    S + T latents to keys and values, 2·(S + T)·R·nh·(dn + dv), the
+    scores 2·T·nh·(S + T)·(dn + dr) and the values 2·T·nh·(S + T)·dv,
+    reading S·(R + dr) elements;
+  * bytes: every weight (w_uk and w_uv included, every expert of a MoE
+    layer, the V3 router's fp32 bias), the latents written (n·(R + dr)
+    elements a layer), and the logits rows.
+The family builds decode, guided and prefill_padded programs only (no
+packed prefill, verify or catch-up), with a bf16 cache and no LoRA.
+
 Elementwise work (norms, rope, softmax, sampling) is left out, as it is
 small next to these terms.  `program_terms` returns the terms by name
 (the tests hold the matmul term against torch's FlopCounterMode and the
@@ -54,6 +78,7 @@ from __future__ import annotations
 
 from typing import Dict
 
+from ..models.deepseek import DeepseekConfig
 from ..models.llama import moe_capacity
 
 # the Pallas kernels' tiling constants (pallas_packed_prefill.py: the
@@ -119,14 +144,11 @@ def _dense_weights(cfg) -> int:
     return _attn_weights(cfg) + 3 * d * f
 
 
-def _mlp_flops(cfg, n: int, pools: int = 1) -> int:
-    """One layer's MLP FLOPs over n tokens: the dense MLP, or the router
-    and the experts of the config's dispatch over `pools` equal dispatch
-    pools (capacity dispatch sizes C per pool)."""
-    d, f, E, k = cfg.d_model, cfg.ffn_dim, cfg.n_experts, \
-        cfg.experts_per_token
-    if E <= 0:
-        return 2 * n * 3 * d * f
+def _routed_flops(cfg, n: int, f: int, pools: int = 1) -> int:
+    """A MoE layer's router and routed experts (of hidden width f) over
+    n tokens in the config's dispatch, over `pools` equal dispatch pools
+    (capacity dispatch sizes C per pool)."""
+    d, E, k = cfg.d_model, cfg.n_experts, cfg.experts_per_token
     router = 2 * n * d * E
     if cfg.moe_dispatch != "capacity":
         return router + 2 * n * E * 3 * d * f + 2 * n * E * d
@@ -134,6 +156,14 @@ def _mlp_flops(cfg, n: int, pools: int = 1) -> int:
     C = moe_capacity(cfg, m)
     return router + pools * (2 * E * C * 3 * d * f
                              + 2 * 2 * (m * k) * E * C * d)
+
+
+def _mlp_flops(cfg, n: int, pools: int = 1) -> int:
+    """One layer's MLP FLOPs over n tokens: the dense MLP, or the router
+    and the experts (_routed_flops)."""
+    if cfg.n_experts <= 0:
+        return 2 * n * 3 * cfg.d_model * cfg.ffn_dim
+    return _routed_flops(cfg, n, cfg.ffn_dim, pools)
 
 
 def padded_attn_costs(cfg, T: int, max_blocks: int, block_size: int,
@@ -156,6 +186,8 @@ def weight_bytes(cfg, lm_head: bool = True) -> int:
     weights and fp32 norms, the final norm and (when the program
     projects) the [d, vocab] unembedding.  The embedding table is read
     by lookup (counted per token), not whole."""
+    if isinstance(cfg, DeepseekConfig):
+        return mla_weight_bytes(cfg, lm_head)
     wb = _elem_bytes(cfg.dtype)
     norms = 2 * cfg.d_model + (2 * cfg.head_dim if cfg.qk_norm else 0)
     n = cfg.n_layers * (_dense_weights(cfg) * wb + 4 * norms) \
@@ -206,6 +238,10 @@ def program_terms(cfg, family: str, key, *, rows: int = 0, max_blocks: int,
     catchup: 1; verify projects every stream position); prefill_padded
     takes its rows from the key.  Raises on a family it does not know:
     every program must have a count."""
+    if isinstance(cfg, DeepseekConfig):
+        return _mla_program_terms(cfg, family, key, rows=rows,
+                                  max_blocks=max_blocks,
+                                  block_size=block_size)
     if family == "decode":
         _, k = key
         one = _trunk_terms(cfg, rows, k1_costs(cfg, rows, max_blocks,
@@ -230,6 +266,137 @@ def program_terms(cfg, family: str, key, *, rows: int = 0, max_blocks: int,
         return _trunk_terms(cfg, R * T, {k: R * v for k, v in attn.items()},
                             int8, lora, R, True, pools=R)
     raise ValueError(f"no cost count for program family {family!r}")
+
+
+# -- the MLA family ----------------------------------------------------------
+
+
+def mla_pos_bytes(cfg) -> int:
+    """Bytes of one cached position of the latent pair: R + dr elements."""
+    return (cfg.kv_lora_rank + cfg.qk_rope_head_dim) * _elem_bytes(cfg.dtype)
+
+
+def _mla_expert_dim(cfg) -> int:
+    return cfg.moe_ffn_dim or cfg.ffn_dim
+
+
+def _mla_proj_weights(cfg) -> int:
+    """Weight elements of one layer's matmuls outside attention: the
+    query projection (through its LoRA bottleneck), the latent
+    projection and the output projection."""
+    d, qr = cfg.d_model, cfg.q_lora_rank
+    q = d * qr + qr * cfg.q_dim if qr > 0 else d * cfg.q_dim
+    return q + d * (cfg.kv_lora_rank + cfg.qk_rope_head_dim) \
+        + cfg.n_heads * cfg.v_head_dim * d
+
+
+def _mla_up_weights(cfg) -> int:
+    """Elements of one layer's up-projections w_uk and w_uv."""
+    return cfg.n_heads * cfg.kv_lora_rank * (cfg.qk_nope_head_dim
+                                             + cfg.v_head_dim)
+
+
+def _mla_ffn_weights(cfg, li: int) -> int:
+    """Weight elements of layer li's MLP: the dense MLP, or the router,
+    every routed expert and the shared experts."""
+    d = cfg.d_model
+    if not cfg._moe_layer(li):
+        return 3 * d * cfg.ffn_dim
+    E, f = cfg.n_experts, _mla_expert_dim(cfg)
+    return d * E + E * 3 * d * f + 3 * d * cfg.n_shared_experts * f
+
+
+def _mla_mlp_flops(cfg, li: int, n: int, pools: int = 1) -> int:
+    """Layer li's MLP FLOPs over n tokens (`pools` equal capacity
+    pools): the dense MLP, or the router, the routed experts of the
+    config's dispatch and the shared experts."""
+    d = cfg.d_model
+    if not cfg._moe_layer(li):
+        return 2 * n * 3 * d * cfg.ffn_dim
+    f = _mla_expert_dim(cfg)
+    return (_routed_flops(cfg, n, f, pools)
+            + 2 * n * 3 * d * cfg.n_shared_experts * f)
+
+
+def mla_weight_bytes(cfg, lm_head: bool = True) -> int:
+    """weight_bytes of the MLA family: every layer's projections,
+    up-projections and MLP (each expert of a MoE layer), its fp32 norms
+    (attn, mlp, the latent's and the query bottleneck's) and a V3
+    router's fp32 bias, the final norm and the unembedding."""
+    wb = _elem_bytes(cfg.dtype)
+    norms = 2 * cfg.d_model + cfg.kv_lora_rank + cfg.q_lora_rank
+    n = 4 * cfg.d_model
+    for li in range(cfg.n_layers):
+        n += (_mla_proj_weights(cfg) + _mla_up_weights(cfg)
+              + _mla_ffn_weights(cfg, li)) * wb + 4 * norms
+        if cfg._moe_layer(li) and cfg.moe_scoring == "sigmoid":
+            n += 4 * cfg.n_experts
+    if lm_head:
+        n += cfg.d_model * cfg.vocab_size * wb
+    return n
+
+
+def mla_decode_attn_costs(cfg, B: int, max_blocks: int,
+                          block_size: int) -> Dict[str, int]:
+    """One layer's absorbed decode step for B rows over the full table
+    width (ops/mla_attention.py mla_decode_attention, with the query's
+    absorption of models/deepseek.py `_absorb_q`)."""
+    S = max_blocks * block_size
+    R, dr = cfg.kv_lora_rank, cfg.qk_rope_head_dim
+    flops = 2 * B * cfg.n_heads * (cfg.qk_nope_head_dim * R + S * (R + dr)
+                                   + S * R + R * cfg.v_head_dim)
+    return {"flops": flops, "bytes": B * S * mla_pos_bytes(cfg)}
+
+
+def mla_prefill_attn_costs(cfg, T: int, max_blocks: int,
+                           block_size: int) -> Dict[str, int]:
+    """One row's padded prefill attention for one layer
+    (mla_prefill_attention): the up-projection of the S gathered and T
+    chunk latents, then scores and values over S + T positions."""
+    S = max_blocks * block_size
+    N = S + T
+    nh, dn, dv = cfg.n_heads, cfg.qk_nope_head_dim, cfg.v_head_dim
+    flops = 2 * N * cfg.kv_lora_rank * nh * (dn + dv) \
+        + 2 * T * nh * N * (dn + cfg.qk_rope_head_dim) + 2 * T * nh * N * dv
+    return {"flops": flops, "bytes": S * mla_pos_bytes(cfg)}
+
+
+def _mla_trunk_terms(cfg, n: int, attn: Dict[str, int], logits_rows: int,
+                     pools: int = 1) -> Dict[str, float]:
+    """_trunk_terms of the MLA family: n tokens through the layer stack,
+    `attn` one layer's attention cost, then `logits_rows` rows
+    projected (their fp32 logits written)."""
+    L, d, V = cfg.n_layers, cfg.d_model, cfg.vocab_size
+    matmul = sum(2 * n * _mla_proj_weights(cfg)
+                 + _mla_mlp_flops(cfg, li, n, pools) for li in range(L))
+    return {
+        "matmul_flops": matmul + 2 * logits_rows * d * V,
+        "attn_flops": L * attn["flops"],
+        "weight_bytes": mla_weight_bytes(cfg, lm_head=logits_rows > 0)
+        + n * d * _elem_bytes(cfg.dtype),
+        "kv_read_bytes": L * attn["bytes"],
+        "kv_write_bytes": L * n * mla_pos_bytes(cfg),
+        "out_bytes": logits_rows * V * 4,
+    }
+
+
+def _mla_program_terms(cfg, family: str, key, *, rows: int,
+                       max_blocks: int, block_size: int) -> Dict[str, float]:
+    """program_terms of the MLA family: decode (k steps of B = rows),
+    guided (one step) and prefill_padded ((rows, T) from the key)."""
+    if family in ("decode", "guided"):
+        k = key[1] if family == "decode" else 1
+        one = _mla_trunk_terms(cfg, rows, mla_decode_attn_costs(
+            cfg, rows, max_blocks, block_size), rows)
+        return {n: k * v for n, v in one.items()}
+    if family == "prefill_padded":
+        R, T = key
+        attn = mla_prefill_attn_costs(cfg, T, max_blocks, block_size)
+        return _mla_trunk_terms(cfg, R * T,
+                                {k: R * v for k, v in attn.items()}, R,
+                                pools=R)
+    raise ValueError(f"no cost count for program family {family!r} of the "
+                     "MLA family (no packed prefill, verify or catch-up)")
 
 
 def program_costs(cfg, family: str, key, **shape) -> Dict[str, float]:

@@ -72,8 +72,10 @@ def unpack_kv(kv_cache):
 
 def kv_cache_bytes_per_block(family, model_cfg, block_size: int,
                              kv_cache_dtype: str) -> int:
-    """Device bytes ONE physical block costs across all layers (k + v and,
-    for int8, both fp32 scale planes), from the family's cache shapes."""
+    """Device bytes ONE physical block costs across all layers (both cache
+    members, each from its own shape: k and v, or MLA's latent and rope
+    key of widths R and dr; for int8 both fp32 scale planes too), from
+    the family's cache shapes."""
     k_shape, v_shape = family.kv_cache_shapes(model_cfg, 1, block_size)
     data_elems = math.prod(k_shape) + math.prod(v_shape)
     if kv_cache_dtype == "int8":

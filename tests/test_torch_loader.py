@@ -6,8 +6,8 @@ tokenizer files), with random weights from numpy and norms away from 1
 so a mapping mistake shows:
 
 * load_hf_config gives JAX's LlamaConfig field by field (Llama, Qwen3
-  with qk_norm, tied and untied, Mixtral with its experts); the DeepSeek
-  architectures raise NotImplementedError naming the ROADMAP item.
+  with qk_norm, tied and untied, Mixtral with its experts), and JAX's
+  DeepseekConfig for DeepSeek V2 and V3 checkpoints.
 * load_params equals JAX's load_params carried through models/convert.py
   bit for bit, in fp32 and in bf16 (bf16 files and fp32 files cast to
   bf16), with the tied and untied lm_head rules; an unmapped tensor and
@@ -15,7 +15,12 @@ so a mapping mistake shows:
   odd offsets loads equal to the aligned one, through one counted copy
   per tensor.  Mixtral's per-expert tensors, split across the shards,
   load as JAX's stacked [E, ...] arrays, bit-equal; a missing expert
-  raises JAX's error; the stacks go through the weight cache.
+  raises JAX's error; the stacks go through the weight cache.  DeepSeek
+  V2 and V3 checkpoints (interleaved rope rows, kv_b_proj split into
+  w_uk / w_uv, stacked and shared experts, V3's fp32
+  e_score_correction_bias, an MTP layer past num_hidden_layers) load
+  bit-equal to JAX's tree, in fp32 and bf16, and an incomplete one
+  raises JAX's error.
 * The weight cache: DYN_WEIGHT_CACHE / DYN_WEIGHT_CACHE_DIR resolve as
   in JAX, the fingerprint is JAX's, a second load reads the cache,
   a changed checkpoint misses, clear drops the entry, and the port's
@@ -232,16 +237,199 @@ def test_untied_config_without_lm_head_uses_the_embedding(tmp_path):
     assert torch.equal(got["lm_head"], got["embedding"].T)
 
 
-@pytest.mark.parametrize("arch", ["DeepseekV3ForCausalLM",
-                                  "DeepseekV2ForCausalLM"])
-def test_moe_and_mla_checkpoints_raise_not_implemented(arch, tmp_path):
-    path = tmp_path / "ck"
-    os.makedirs(path)
-    hf = {**HF, "architectures": [arch], "num_local_experts": 8}
-    with open(path / "config.json", "w") as f:
+# DeepSeek V2 (V2-Lite's layout: no query bottleneck, softmax routing)
+# and V3 (a q_lora_rank bottleneck, sigmoid routing with the choice
+# bias, group-limited top k), at test widths with R != dr
+DS_HF = dict(hidden_size=64, intermediate_size=128,
+             moe_intermediate_size=32, num_attention_heads=4,
+             num_hidden_layers=3, vocab_size=256, kv_lora_rank=32,
+             qk_nope_head_dim=16, qk_rope_head_dim=8, v_head_dim=16,
+             n_routed_experts=4, num_experts_per_tok=2, n_shared_experts=1,
+             first_k_dense_replace=1, rms_norm_eps=1e-6,
+             rope_theta=10000.0, max_position_embeddings=512,
+             eos_token_id=1, tie_word_embeddings=False)
+DS_VARIANTS = {
+    "v2": dict(architectures=["DeepseekV2ForCausalLM"], q_lora_rank=None,
+               scoring_func="softmax", routed_scaling_factor=1.0,
+               norm_topk_prob=False),
+    "v3": dict(architectures=["DeepseekV3ForCausalLM"], q_lora_rank=24,
+               n_group=2, topk_group=1, routed_scaling_factor=2.5),
+}
+
+
+def deepseek_tensors(hf: dict, dtype=torch.float32, seed=0, mtp=True):
+    """HF-named tensors of a DeepSeek checkpoint of config `hf`, random,
+    with a V3 router's e_score_correction_bias away from 0 and, with
+    `mtp`, a multi-token-prediction layer at num_hidden_layers."""
+    rng = np.random.default_rng(seed)
+    d, L, V = hf["hidden_size"], hf["num_hidden_layers"], hf["vocab_size"]
+    nh, R = hf["num_attention_heads"], hf["kv_lora_rank"]
+    dn, dr, dv = (hf["qk_nope_head_dim"], hf["qk_rope_head_dim"],
+                  hf["v_head_dim"])
+    qr, E = hf.get("q_lora_rank") or 0, hf["n_routed_experts"]
+    f, ffn = hf["moe_intermediate_size"], hf["intermediate_size"]
+    sf = hf["n_shared_experts"] * f
+    v3 = hf["architectures"][0] == "DeepseekV3ForCausalLM"
+
+    def w(*shape, norm=False):
+        a = (1 + 0.1 * rng.standard_normal(shape) if norm
+             else rng.standard_normal(shape) / np.sqrt(shape[-1]))
+        return torch.from_numpy(a.astype(np.float32)).to(dtype)
+
+    out = {"model.embed_tokens.weight": w(V, d)}
+    for i in range(L + (1 if mtp else 0)):
+        p = f"model.layers.{i}."
+        a = p + "self_attn."
+        if qr:
+            out.update({a + "q_a_proj.weight": w(qr, d),
+                        a + "q_a_layernorm.weight": w(qr, norm=True),
+                        a + "q_b_proj.weight": w(nh * (dn + dr), qr)})
+        else:
+            out[a + "q_proj.weight"] = w(nh * (dn + dr), d)
+        out.update({a + "kv_a_proj_with_mqa.weight": w(R + dr, d),
+                    a + "kv_a_layernorm.weight": w(R, norm=True),
+                    a + "kv_b_proj.weight": w(nh * (dn + dv), R),
+                    a + "o_proj.weight": w(d, nh * dv),
+                    p + "input_layernorm.weight": w(d, norm=True),
+                    p + "post_attention_layernorm.weight": w(d, norm=True)})
+        if i < hf["first_k_dense_replace"]:
+            out.update({p + "mlp.gate_proj.weight": w(ffn, d),
+                        p + "mlp.up_proj.weight": w(ffn, d),
+                        p + "mlp.down_proj.weight": w(d, ffn)})
+            continue
+        m = p + "mlp."
+        out[m + "gate.weight"] = w(E, d)
+        if v3:
+            out[m + "gate.e_score_correction_bias"] = torch.from_numpy(
+                rng.standard_normal(E).astype(np.float32) * 0.3)
+        for e in range(E):
+            out.update({m + f"experts.{e}.gate_proj.weight": w(f, d),
+                        m + f"experts.{e}.up_proj.weight": w(f, d),
+                        m + f"experts.{e}.down_proj.weight": w(d, f)})
+        out.update({m + "shared_experts.gate_proj.weight": w(sf, d),
+                    m + "shared_experts.up_proj.weight": w(sf, d),
+                    m + "shared_experts.down_proj.weight": w(d, sf)})
+        if i == L:
+            # the MTP module's own tensors
+            out[p + "eh_proj.weight"] = w(d, 2 * d)
+    out["model.norm.weight"] = w(d, norm=True)
+    out["lm_head.weight"] = w(V, d)
+    return out
+
+
+def write_deepseek_checkpoint(path, lineage="v2", tensors=None,
+                              dtype=torch.float32):
+    """A DeepSeek checkpoint of DS_HF and DS_VARIANTS[lineage]: its
+    config.json and two shards (a layer's tensors split across them)."""
+    os.makedirs(path, exist_ok=True)
+    hf = {**DS_HF, **DS_VARIANTS[lineage]}
+    if tensors is None:
+        tensors = deepseek_tensors(hf, dtype)
+    with open(os.path.join(path, "config.json"), "w") as f:
         json.dump(hf, f)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 9"):
-        loader.load_hf_config(str(path))
+    names = list(tensors)
+    half = len(names) // 2
+    for i, part in enumerate((names[:half], names[half:])):
+        write_safetensors(os.path.join(path, f"model-0000{i + 1}-of-00002"
+                                       ".safetensors"),
+                          {n: tensors[n] for n in part})
+    return str(path)
+
+
+@pytest.mark.parametrize("lineage", sorted(DS_VARIANTS))
+def test_deepseek_config_equals_jax(lineage, tmp_path):
+    """A DeepSeek V2 or V3 config.json maps to JAX's DeepseekConfig,
+    field by field (the dtype by name, the attention impl as each
+    package names its plain one)."""
+    import dataclasses
+
+    from dynamo_tpu.models.deepseek import DeepseekConfig as JaxDs
+    from dynamo_tpu_torch.models.deepseek import DeepseekConfig
+
+    path = write_deepseek_checkpoint(tmp_path / f"ds-{lineage}", lineage)
+    got = loader.load_hf_config(path, dtype=torch.float32)
+    want = jloader.load_hf_config(path, dtype=jnp.float32)
+    assert isinstance(got, DeepseekConfig) and isinstance(want, JaxDs)
+    g = {f.name: getattr(got, f.name) for f in dataclasses.fields(got)}
+    w = {f.name: getattr(want, f.name) for f in dataclasses.fields(want)}
+    assert (g.pop("dtype"), w.pop("dtype")) == (torch.float32, jnp.float32)
+    assert (g.pop("attn_impl"), w.pop("attn_impl")) == ("torch", "jnp")
+    assert g == w
+    assert got.moe_scoring == ("sigmoid" if lineage == "v3" else "softmax")
+    assert got.q_lora_rank == (24 if lineage == "v3" else 0)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("lineage", sorted(DS_VARIANTS))
+def test_deepseek_params_bit_equal_jax_load_params(lineage, dtype,
+                                                   tmp_path):
+    """A DeepSeek V2 or V3 checkpoint with interleaved rope rows (the
+    default), an MTP layer past num_hidden_layers and, for V3, a nonzero
+    e_score_correction_bias: the port's tree equals JAX's load_params
+    output carried through models/convert.py bit for bit, the norms and
+    the choice bias fp32, the rest in `dtype`."""
+    path = write_deepseek_checkpoint(tmp_path / f"ds-{lineage}", lineage)
+    tdt, jdt = getattr(torch, dtype), getattr(jnp, dtype)
+    tcfg = loader.load_hf_config(path, dtype=tdt)
+    jcfg = jloader.load_hf_config(path, dtype=jdt)
+    got = loader.load_params(path, tcfg, device="cpu", host_cache=False)
+    want = params_from_numpy(
+        _jax_tree(jloader.load_params(path, jcfg, host_cache=False)), tcfg,
+        device="cpu")
+    _assert_trees_equal(got, want)
+    assert len(got["layers"]) == 3          # the MTP layer is skipped
+    lay = got["layers"][1]
+    assert lay["moe_w_gate"].shape == (4, 64, 32)
+    assert lay["shared"]["w_down"].shape == (32, 64)
+    assert lay["w_uk"].shape == (4, 32, 16) and lay["w_uv"].dtype == tdt
+    assert lay["kv_a_norm"]["norm"].dtype == torch.float32
+    if lineage == "v3":
+        bias = lay["moe_gate_bias"]
+        assert bias.dtype == torch.float32 and bias.abs().min() > 0
+        assert "wq_b" in lay and "wq" not in lay
+    else:
+        assert "moe_gate_bias" not in lay and "wq" in lay
+    # the rope rows de-interleaved: kv_a's rows R + [0, 2, 4, 6, 1, 3, ...]
+    raw = {n: t for n, t in deepseek_tensors(
+        {**DS_HF, **DS_VARIANTS[lineage]}).items()}
+    kv_a = raw["model.layers.0.self_attn.kv_a_proj_with_mqa.weight"]
+    perm = [0, 2, 4, 6, 1, 3, 5, 7]
+    assert torch.equal(got["layers"][0]["wkv_a"][:, 32:],
+                       kv_a[32:][perm].T.to(tdt))
+
+
+@pytest.mark.parametrize("fault", ["missing-expert", "missing-kv-b",
+                                   "missing-bias", "unmapped"])
+def test_incomplete_deepseek_raises_the_jax_error(fault, tmp_path):
+    hf = {**DS_HF, **DS_VARIANTS["v3"]}
+    tensors = deepseek_tensors(hf)
+    p = "model.layers.2."
+    if fault == "missing-expert":
+        del tensors[p + "mlp.experts.3.down_proj.weight"]
+    elif fault == "missing-kv-b":
+        del tensors[p + "self_attn.kv_b_proj.weight"]
+    elif fault == "missing-bias":
+        del tensors[p + "mlp.gate.e_score_correction_bias"]
+    else:
+        tensors[p + "mlp.act.weight"] = torch.zeros(8)
+    path = write_deepseek_checkpoint(tmp_path / "ck", "v3", tensors)
+    with pytest.raises(ValueError) as want:
+        jloader.load_params(path, jloader.load_hf_config(path),
+                            host_cache=False)
+    with pytest.raises(ValueError) as got:
+        loader.load_params(path, device="cpu", host_cache=False)
+    assert str(got.value) == str(want.value)
+
+
+def test_deepseek_tree_goes_through_the_weight_cache(tmp_path, caplog):
+    path = write_deepseek_checkpoint(tmp_path / "ck", "v3")
+    cfg = loader.load_hf_config(path)
+    first = loader.load_params(path, cfg, device="cpu")
+    with caplog.at_level(logging.INFO):
+        second = loader.load_params(path, cfg, device="cpu")
+        assert "restored from host cache" in caplog.text
+    _assert_trees_equal(second, first)
+    assert second["layers"][2]["moe_gate_bias"].dtype == torch.float32
 
 
 def test_mixtral_params_are_stacked_experts(tmp_path):
