@@ -21,6 +21,9 @@
     python3 chip_smoke.py --status        # the worker's status plane
     python3 chip_smoke.py --moe           # the MoE family (Mixtral)
     python3 chip_smoke.py --mla           # the DeepSeek MLA family
+    python3 chip_smoke.py --discovery     # the int8 worker through etcd
+                                          # and kubernetes discovery
+    python3 chip_smoke.py --encoder       # the ViT encoder worker
 
 Builds the port's CUDA kernels from csrc/ (three nvcc processes started
 together), holds each entry point (K1 and K3, each in its bf16 and its
@@ -56,7 +59,11 @@ token gate and JAX keys, /debug/profile naming K1 during a decode run,
 the trace's span kinds, greedy streams equal with tracing off and on,
 and /health 503 after the drain); then the decode A/B, the fused A/B and the prefill A/B (below)
 run; after the int8 run, one request goes through a worker on the int8
-cache (its launches and the dtype it reports), then the disagg phase
+cache (its launches and the dtype it reports), then the same through a
+worker registered by etcd and by kubernetes discovery against this
+script's standard-library fakes of an etcd gateway and an API server
+(the discovery phase, below), then the encoder phase (below), then the
+disagg phase
 (below), then the pair across two processes (below), then the KVBM
 phase (below), then the spec phase (below), then the LoRA and guided
 phase (below).
@@ -84,7 +91,10 @@ the spec phase's first n-gram turn, bf16, or its int8 n-gram run;
 `spec_draft_launches`, K3's in the draft's catch-up programs during the
 draft == target turn;
 `lora_launches` in the LoRA phase's mixed batch and `guided_launches` in
-its guided run), error
+its guided run; `etcd_launches` and `kube_launches` in the discovery
+phase's requests; `embed_launches` and `encoder_launches`, counted
+around the embed requests and the encoder phase, whose paths are plain
+torch), error
 against its plain version (`max_abs_err`, and
 `max_rel_err`, the figure the tolerance holds), its device time (`ms`,
 by CUDA-graph replay for K1/K3; K3's with its tile plan computed
@@ -94,7 +104,8 @@ around calls for K4), the plain version's time, the one-call PyTorch
 yardstick's time (`library_ms`: scaled_dot_product_attention on the same
 context gathered into a dense tensor beforehand, dequantized to bf16 for
 the int8 modes; for K4 index_select of the table's blocks or a sum over
-the slab, once; the port never calls them), the least time the card
+the slab, once a pass over the kernel's REPS passes; the port never
+calls them), the least time the card
 could take (`bound_ms`) and, under `cases`, the time and bound of every
 case; the card's name and power limit; and, last, `{"ok": true,
 "device": {...}}`.
@@ -273,8 +284,9 @@ MoE phase.
 
 The MoE phase (last in the whole check; alone with --moe): mixtral-8x7b
 at full width (d 4096, 32/8 heads, ffn 14336, 8 experts, top 2, vocab
-32000) with its depth cut to MOE_LAYERS = 16 of 32 (the 32 layers hold
-93.4 GB of bf16 weights, more than the card's 80 GB; 16 hold 46.97 GB),
+32000) with its depth cut to MOE_LAYERS = 8 of 32 (the 32 layers hold
+93.4 GB of bf16 weights, more than the card's 80 GB; 8 keep the whole
+check inside its time limit),
 random bf16 weights made on the card from seed 0, a bf16 cache of 512
 blocks.  Dense dispatch on the default scheduler and graphs: the five
 requests (every program captured once by warm-up and never while
@@ -294,6 +306,23 @@ its FLOP bound, the device time by family under torch.profiler (expert
 GEMMs, the MoE dispatch/combine products, the router and its glue, K1,
 K3, the dense matmuls, other) and the phase's seconds.
 
+The embed phase rides the bf16 worker phase, before its drain: the
+worker's `embed` endpoint over the request plane at 37, 500 and 1800
+tokens, each vector held to an fp32 computation of embed_text on the
+card (cosine >= MIN_COSINE, a planted fault of one changed token below
+it), ms a request against its bound and max_memory_allocated, and a
+greedy stream with embeds sent while it decodes equal to one without.
+The discovery phase (alone with --discovery) serves one int8 request
+through a worker whose runtime registers by etcd, then by kubernetes,
+against the fakes in this script: a second client sees the instance and
+the MDC, the kernels are launched, the watcher sees the deletes after
+revoke_lease; registration-to-visible and lease round-trip times are
+logged.  The encoder phase (alone with --encoder) serves four .npy
+images, twice, through the port's EncoderWorker with a ViT at CLIP
+ViT-L/14-336 widths (bf16): 576 tokens an image, within ENCODER_TOL of
+an fp32 tower, the repeat all cache hits, ms an image against the FLOP
+bound (fp32 attention at 67 TFLOP/s).
+
 Bounds use the H100 SXM data sheet (3.35 TB/s HBM3, 989 TFLOP/s dense
 bf16); a card run below its 700 W limit is slower, so its limit is
 printed beside every number.
@@ -302,6 +331,7 @@ printed beside every number.
 from __future__ import annotations
 
 import asyncio
+import base64
 import contextlib
 import dataclasses
 import gc
@@ -948,11 +978,11 @@ def check_dma_kernels(device) -> list:
     after.  Then each mode is held against its plain version (per-row
     relative error <= DMA_REL_TOL) with a planted fault (a chunk-first
     table entry naming another block; K4b: the chunks' second blocks) that
-    must read above it, and the plain version and one PyTorch call are
-    timed (index_select of the table's blocks once, a sum over the slab
-    once: neither is like-for-like, the first writes its copy and the
-    second reduces every element, each in one pass where the kernel makes
-    REPS)."""
+    must read above it, and the plain version and the PyTorch calls are
+    timed (index_select of the table's blocks, a sum over the slab, each
+    once a pass over the kernel's REPS passes, so `library_ms` covers the
+    kernel's reads; the gathers also write their copy, logged as their
+    GB/s and `library_gb_per_s`)."""
     from dynamo_tpu_torch.bench import bench_dma_layouts as k4
 
     x = k4.inputs(device)
@@ -975,15 +1005,22 @@ def check_dma_kernels(device) -> list:
     faults = {"strided": plain["strided"](bad),
               "contig": plain["contig"](bad),
               "seq": k4.seq_ref(x["slab"][1:])}
+    # one PyTorch call a pass, REPS passes, as the kernel makes
     library = {
-        "strided": lambda: torch.index_select(x["layer"], 1,
-                                              x["tables"].long()),
-        "contig": lambda: torch.index_select(x["slab"], 0,
-                                             x["tables"].long()),
-        "seq": lambda: torch.sum(x["slab"], dim=(0, 1), dtype=torch.float32)}
-    lib_bytes = {"strided": 2 * k4.nbytes("strided") // k4.REPS,
-                 "contig": 2 * k4.nbytes("contig") // k4.REPS,
-                 "seq": k4.nbytes("seq") // k4.REPS}
+        "strided": lambda: [torch.index_select(x["layer"], 1,
+                                               x["tables"].long())
+                            for _ in range(k4.REPS)],
+        "contig": lambda: [torch.index_select(x["slab"], 0,
+                                              x["tables"].long())
+                           for _ in range(k4.REPS)],
+        "seq": lambda: [torch.sum(x["slab"], dim=(0, 1),
+                                  dtype=torch.float32)
+                        for _ in range(k4.REPS)]}
+    # the bytes the calls move: the gathers read the kernel's bytes and
+    # write their copy, the sum reads them
+    lib_bytes = {"strided": 2 * k4.nbytes("strided"),
+                 "contig": 2 * k4.nbytes("contig"),
+                 "seq": k4.nbytes("seq")}
     entries = []
     for mode, fn in k4.calls(x).items():
         name = wrappers[mode].__name__
@@ -1019,6 +1056,7 @@ def check_dma_kernels(device) -> list:
             "max_abs_err": err, "max_rel_err": rel, "ms": r["ms"],
             "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": "bytes",
             "library_ms": library_ms, "gb_per_s": r["gb_per_s"],
+            "library_gb_per_s": lib_bytes[mode] / library_ms / 1e6,
             "share_of_peak": r["share_of_peak"]})
     return entries
 
@@ -1601,7 +1639,9 @@ def _fmt_steps(steps: dict) -> str:
 
 @contextlib.asynccontextmanager
 async def _serving_worker(device, cfg, params, status: bool = False,
-                          warmup: bool = True):
+                          warmup: bool = True, runtime: Optional[dict] = None,
+                          cluster_id: Optional[str] = None,
+                          on_runtime=None):
     """A TorchEngineWorker (config `cfg` with `warmup`, a fresh cache of
     its kind, weights `params`) on a fresh runtime of the port: mem
     discovery, in-process event plane, the TCP request plane on
@@ -1611,7 +1651,10 @@ async def _serving_worker(device, cfg, params, status: bool = False,
     PEAK_HBM_GBPS) for the roofline gauges.  Yields (runtime, worker,
     generate client, seen), `seen` collecting every message on the
     worker's kv_events, load_metrics and fpm subjects under "kv", "load"
-    and "fpm".  On exit closes the worker and exits unless its MDC left
+    and "fpm".  `runtime` overrides RuntimeConfig fields (another
+    discovery backend), `cluster_id` names the runtime's cluster (a
+    fresh one by default) and `on_runtime(rt)` runs before the worker
+    starts.  On exit closes the worker and exits unless its MDC left
     discovery."""
     import uuid
 
@@ -1620,9 +1663,13 @@ async def _serving_worker(device, cfg, params, status: bool = False,
 
     extra = (dict(system_port=-1, admin_token=STATUS_TOKEN) if status
              else {})
+    extra.setdefault("discovery_backend", "mem")
+    extra.update(runtime or {})
     rt = await DistributedRuntime(config=RuntimeConfig(
-        discovery_backend="mem", event_plane="inproc",
-        tcp_host="127.0.0.1", **extra), cluster_id=uuid.uuid4().hex).start()
+        event_plane="inproc", tcp_host="127.0.0.1", **extra),
+        cluster_id=cluster_id or uuid.uuid4().hex).start()
+    if on_runtime is not None:
+        on_runtime(rt)
     if status:
         cfg = dataclasses.replace(cfg, peak_tflops=PEAK_TFLOPS,
                                   peak_hbm_gbps=PEAK_HBM_GBPS)
@@ -1888,11 +1935,15 @@ async def _status_gauges(rt, worker, seen, recs) -> dict:
             "table_kv_gb": table_kv / 1e9, "kv_tier_costs": costs}
 
 
-async def _status_debug(rt, worker, client, reqs) -> dict:
+async def _status_debug(rt, worker, client, reqs, seen) -> dict:
     """/debug/state with the token (the JAX keys), then /debug/profile for
     0.5 s while four long greedy streams decode: status "ok", a Chrome
     trace naming K1's kernel among its device events, and a device-memory
-    snapshot."""
+    snapshot.  Logs the longest decode dispatch-to-dispatch gap (FPM
+    gap_s, from the worker's fpm messages in `seen`) inside the capture
+    against the median outside it: the
+    profiler's stop holds device.PROFILER_GRAPH_LOCK, so the scheduler's
+    next replay waits for the stop and its event processing."""
     addr = rt.system_address
     st, body = await _http(addr, "/debug/state", token=STATUS_TOKEN)
     state = json.loads(body)
@@ -1919,11 +1970,18 @@ async def _status_debug(rt, worker, client, reqs) -> dict:
 
     runs = [asyncio.create_task(one(r)) for r in long]
     await asyncio.wait_for(first.wait(), 60.0)
-    t0 = time.perf_counter()
+    t0, m0 = time.perf_counter(), time.monotonic()
     st, body = await _http(addr, "/debug/profile?duration_s=0.5", "POST",
                            token=STATUS_TOKEN)
-    took = time.perf_counter() - t0
+    took, m1 = time.perf_counter() - t0, time.monotonic()
     await asyncio.gather(*runs)
+    await asyncio.sleep(0.6)  # the streams' last FPM records
+    gaps = [(m0 <= r["t"] <= m1, r["gap_s"] * 1e3)
+            for m in seen["fpm"] for r in m["steps"]
+            if r["kind"] == "decode" and r["gap_s"] > 0
+            and r["t"] >= m0 - 2.0]
+    inside = max((g for i, g in gaps if i), default=None)
+    outside = float(np.median([g for i, g in gaps if not i] or [0.0]))
     prof = json.loads(body)
     k1 = kernels = 0
     if prof.get("status") == "ok":
@@ -1940,12 +1998,16 @@ async def _status_debug(rt, worker, client, reqs) -> dict:
         f"{kernels} kernel events of which {k1} name {K1_SYMBOL}; memory "
         f"snapshot {mem}: {snap.get('mem_get_info')}, allocated "
         f"{snap.get('memory_stats', {}).get('allocated_bytes.all.current')}"
-        f"; error {prof.get('error') or prof.get('memory_profile_error')}")
+        f"; error {prof.get('error') or prof.get('memory_profile_error')}"
+        f"; longest decode dispatch gap inside the capture "
+        f"{'(no burst)' if inside is None else f'{inside:.1f} ms'} (median "
+        f"outside {outside:.2f} ms, {len(gaps)} bursts)")
     if st != 200 or prof.get("status") != "ok" or not k1 \
             or "mem_get_info" not in snap:
         raise SystemExit("/debug/profile did not capture K1 and a memory "
                          "snapshot")
-    return {"profile_kernels": kernels, "profile_k1": k1}
+    return {"profile_kernels": kernels, "profile_k1": k1,
+            "profile_gap_ms": inside}
 
 
 async def _tracing_ab(engine, reqs) -> dict:
@@ -2091,7 +2153,7 @@ def _check_worker_launches(counts: dict, steps: dict, L: int,
         raise SystemExit(f"the {what} did not run through both kernels")
 
 
-def check_worker(device, card: str, cfg, params, direct) -> dict:
+def check_worker(device, card: str, cfg, params, direct) -> tuple:
     """The five requests through a TorchEngineWorker (_serving_worker)
     with the engine run's config `cfg` and weights `params`, sent
     concurrently by a client of the same runtime.  `direct` is the
@@ -2107,7 +2169,9 @@ def check_worker(device, card: str, cfg, params, direct) -> dict:
     the tracer on, and its phase runs around the main run
     (_status_probes, _poll_live, _status_gauges, _status_debug,
     _tracing_ab, _status_trace, _status_drain); its own seconds are
-    printed.  Returns the worker run's launch counts by kernel name."""
+    printed.  Before the drain, the same worker serves the embed phase
+    (_embed_phase).  Returns (the worker run's launch counts by kernel
+    name, the embed phase's results)."""
     import tempfile
 
     from dynamo_tpu_torch import obs
@@ -2185,23 +2249,29 @@ def check_worker(device, card: str, cfg, params, direct) -> dict:
             stop_poll.set()
             await poller
             await _status_gauges(rt, worker, seen, recs)
-            await _status_debug(rt, worker, client, reqs)
+            await _status_debug(rt, worker, client, reqs, seen)
             await _tracing_ab(eng, reqs)
             await _status_trace(os.path.join(trace_dir, "trace.json"))
+            status_s[0] += time.perf_counter() - t_st
+            t_em = time.perf_counter()
+            embed = await _embed_phase(rt, worker, reqs)
+            embed["seconds"] = time.perf_counter() - t_em
+            t_st = time.perf_counter()
             await _status_drain(rt, worker, polled)
             status_s[0] += time.perf_counter() - t_st
             return (res, counts, steps, dict(seen), cleared, removed_after,
                     got, freed, (_step_medians(recs),
-                                 _prefill_dispatches(recs, w0)))
+                                 _prefill_dispatches(recs, w0)), embed)
 
     try:
         (res, counts, steps, seen, cleared, removed_after, got, freed,
-         (step_ms, dispatches)) = asyncio.run(run())
+         (step_ms, dispatches), embed) = asyncio.run(run())
     finally:
         if obs.tracer() is not None:
             obs.tracer().uninstall()
     log(f"status phase: {status_s[0]:.1f} s of its own (probes, gauges, "
-        f"debug and profile routes, tracing A/B, trace, drain)")
+        f"debug and profile routes, tracing A/B, trace, drain); embed "
+        f"phase {embed['seconds']:.1f} s")
     if direct is None:  # --status: no direct engine run to compare with
         direct = ([(r[0], r[1], float("nan"), r[3]) for r in res], {})
     direct, direct_step_ms = direct
@@ -2256,7 +2326,7 @@ def check_worker(device, card: str, cfg, params, direct) -> dict:
         f"{_fmt_steps(step_ms)}; direct warm run: "
         f"{_fmt_steps(direct_step_ms)}; the worker's prefill dispatches (ms "
         f"after the start, rows, tokens): {dispatches}")
-    return counts
+    return counts, embed
 
 
 def check_worker_short(device, cfg, params) -> dict:
@@ -5818,8 +5888,9 @@ def _device_breakdown(prof, wall: float,
 # ---------------------------------------------------------------------------
 
 # mixtral-8x7b's 32 layers hold 93.4 GB of bf16 weights, more than the
-# card's 80 GB; 16 layers hold 46.97 GB with the embedding and lm_head
-MOE_LAYERS = 16
+# card's 80 GB; 16 layers held 46.97 GB with the embedding and lm_head,
+# 8 keep the whole check inside its 1200 s
+MOE_LAYERS = 8
 # the one-layer check: its tokens, and the largest relative L2 error of
 # a row against the fp32 forward (bf16 operands and products, fp32
 # accumulation, as the adapters' check of the LoRA phase)
@@ -6989,6 +7060,832 @@ def _mla_check_served(what: str, res, card: str, cfg) -> None:
                          "tokens")
 
 
+# ---------------------------------------------------------------------------
+# discovery through etcd and the Kubernetes API (standard-library fakes)
+# ---------------------------------------------------------------------------
+
+
+class _FakeHttp:
+    """An HTTP/1.1 server on asyncio streams for the discovery fakes (the
+    card's machine has no aiohttp): one request per connection.
+    `route(method, path, params, body, headers)` returns (status, JSON
+    body), or an asyncio.Queue for a watch, whose items it writes as
+    newline-terminated JSON in chunked transfer coding until the client
+    goes, a None item arrives or the server closes."""
+
+    def __init__(self):
+        self._server = None
+        self._watches: set = set()
+        self.endpoint = ""
+
+    async def start(self):
+        self._server = await asyncio.start_server(self._handle, "127.0.0.1",
+                                                  0)
+        port = self._server.sockets[0].getsockname()[1]
+        self.endpoint = f"http://127.0.0.1:{port}"
+        return self
+
+    async def close(self) -> None:
+        for q in list(self._watches):
+            q.put_nowait(None)
+        self._server.close()
+        await self._server.wait_closed()
+
+    async def _handle(self, reader, writer) -> None:
+        from urllib.parse import parse_qsl
+
+        try:
+            head = (await reader.readuntil(b"\r\n\r\n")).decode("latin-1")
+            lines = head.split("\r\n")
+            method, target, _ = lines[0].split(" ", 2)
+            headers = {}
+            for line in lines[1:]:
+                name, sep, value = line.partition(":")
+                if sep:
+                    headers[name.strip().lower()] = value.strip()
+            n = int(headers.get("content-length", "0"))
+            body = json.loads(await reader.readexactly(n)) if n else None
+            path, _, query = target.partition("?")
+            out = self.route(method, path, dict(parse_qsl(query)), body,
+                             headers)
+            if isinstance(out, asyncio.Queue):
+                await self._stream(reader, writer, out)
+                return
+            status, obj = out
+            data = json.dumps(obj).encode()
+            writer.write(f"HTTP/1.1 {status} X\r\nContent-Type: "
+                         f"application/json\r\nContent-Length: {len(data)}"
+                         "\r\nConnection: close\r\n\r\n".encode() + data)
+            await writer.drain()
+        except (asyncio.IncompleteReadError, ConnectionError):
+            pass
+        finally:
+            writer.close()
+
+    async def _stream(self, reader, writer, q: asyncio.Queue) -> None:
+        self._watches.add(q)
+        gone = asyncio.ensure_future(reader.read(1))  # the client's EOF
+        try:
+            writer.write(b"HTTP/1.1 200 OK\r\nContent-Type: application/json"
+                         b"\r\nTransfer-Encoding: chunked\r\n\r\n")
+            while True:
+                get = asyncio.ensure_future(q.get())
+                await asyncio.wait({get, gone},
+                                   return_when=asyncio.FIRST_COMPLETED)
+                if not get.done():
+                    get.cancel()
+                    return
+                item = get.result()
+                if item is None:
+                    writer.write(b"0\r\n\r\n")
+                    await writer.drain()
+                    return
+                data = json.dumps(item).encode() + b"\n"
+                writer.write(b"%x\r\n%s\r\n" % (len(data), data))
+                await writer.drain()
+        finally:
+            gone.cancel()
+            self._watches.discard(q)
+            self.unwatch(q)
+
+    def route(self, method, path, params, body, headers):
+        raise NotImplementedError
+
+    def unwatch(self, q: asyncio.Queue) -> None:
+        pass
+
+
+class FakeEtcdGateway(_FakeHttp):
+    """The etcd v3 JSON gateway's subset the discovery backend speaks
+    (lease grant/keepalive/revoke with TTL expiry, kv put/range/
+    deleterange, streaming watch from a start revision), with etcd's
+    conventions: base64 keys and values, a revision counter, PUT events
+    without a type, DELETE events for deletes and for the keys of an
+    expired or revoked lease."""
+
+    def __init__(self):
+        super().__init__()
+        self.kv: dict = {}       # key bytes -> (value bytes, lease id)
+        self.leases: dict = {}   # lease id -> (ttl s, deadline)
+        self.revision = 1
+        # (revision, key, event): a watch from start_revision replays
+        # what it missed, as etcd does
+        self.history: list = []
+        self._next_lease = 1000
+        self._watchers: list = []  # (start, end, queue)
+        self._expiry = None
+
+    async def start(self):
+        await super().start()
+        self._expiry = asyncio.create_task(self._expiry_loop())
+        return self
+
+    async def close(self) -> None:
+        self._expiry.cancel()
+        await asyncio.gather(self._expiry, return_exceptions=True)
+        await super().close()
+
+    async def _expiry_loop(self) -> None:
+        while True:
+            await asyncio.sleep(0.1)
+            now = time.monotonic()
+            for lid, (_, deadline) in list(self.leases.items()):
+                if now > deadline:
+                    self._drop_lease(lid)
+
+    @staticmethod
+    def _b64(b: bytes) -> str:
+        return base64.b64encode(b).decode()
+
+    @staticmethod
+    def _unb64(s: str) -> bytes:
+        return base64.b64decode(s)
+
+    def _notify(self, kind: str, key: bytes, value: bytes = b"") -> None:
+        self.revision += 1
+        ev = {"kv": {"key": self._b64(key),
+                     "mod_revision": str(self.revision)}}
+        if kind == "DELETE":
+            ev["type"] = "DELETE"
+        else:
+            ev["kv"]["value"] = self._b64(value)
+        self.history.append((self.revision, key, ev))
+        for start, end, q in list(self._watchers):
+            if start <= key < end:
+                q.put_nowait({"result": {"events": [ev]}})
+
+    def _drop_lease(self, lid: int) -> None:
+        self.leases.pop(lid, None)
+        for key, (_, owner) in list(self.kv.items()):
+            if owner == lid:
+                del self.kv[key]
+                self._notify("DELETE", key)
+
+    def _select(self, body: dict) -> list:
+        key = self._unb64(body["key"])
+        if body.get("range_end"):
+            end = self._unb64(body["range_end"])
+            return sorted(k for k in self.kv if key <= k < end)
+        return [k for k in self.kv if k == key]
+
+    def route(self, method, path, params, body, headers):
+        body = body or {}
+        if path == "/v3/lease/grant":
+            ttl = float(body.get("TTL", 5))
+            self._next_lease += 1
+            self.leases[self._next_lease] = (ttl, time.monotonic() + ttl)
+            return 200, {"ID": str(self._next_lease), "TTL": str(int(ttl))}
+        if path == "/v3/lease/keepalive":
+            lid = int(body.get("ID") or 0)
+            if lid not in self.leases:
+                return 200, {"result": {"ID": str(lid), "TTL": "0"}}
+            ttl = self.leases[lid][0]
+            self.leases[lid] = (ttl, time.monotonic() + ttl)
+            return 200, {"result": {"ID": str(lid), "TTL": str(int(ttl))}}
+        if path == "/v3/lease/revoke":
+            self._drop_lease(int(body.get("ID") or 0))
+            return 200, {}
+        if path == "/v3/kv/put":
+            key = self._unb64(body["key"])
+            value = self._unb64(body.get("value", ""))
+            lid = int(body["lease"]) if body.get("lease") else None
+            if lid is not None and lid not in self.leases:
+                return 400, {"error": "lease not found", "code": 5}
+            self.kv[key] = (value, lid)
+            self._notify("PUT", key, value)
+            return 200, {"header": {"revision": str(self.revision)}}
+        if path == "/v3/kv/range":
+            keys = self._select(body)
+            return 200, {"header": {"revision": str(self.revision)},
+                         "kvs": [{"key": self._b64(k),
+                                  "value": self._b64(self.kv[k][0])}
+                                 for k in keys],
+                         "count": str(len(keys))}
+        if path == "/v3/kv/deleterange":
+            keys = self._select(body)
+            for k in keys:
+                del self.kv[k]
+                self._notify("DELETE", k)
+            return 200, {"header": {"revision": str(self.revision)},
+                         "deleted": str(len(keys))}
+        if path == "/v3/watch":
+            cr = body.get("create_request", {})
+            start = self._unb64(cr["key"])
+            end = (self._unb64(cr["range_end"]) if cr.get("range_end")
+                   else start + b"\0")
+            q: asyncio.Queue = asyncio.Queue()
+            q.put_nowait({"result": {"created": True}})
+            since = int(cr.get("start_revision") or 0)
+            for rev, key, ev in self.history:
+                if rev >= since and start <= key < end:
+                    q.put_nowait({"result": {"events": [ev]}})
+            self._watchers.append((start, end, q))
+            return q
+        return 404, {"error": f"no route {method} {path}"}
+
+    def unwatch(self, q: asyncio.Queue) -> None:
+        self._watchers = [w for w in self._watchers if w[2] is not q]
+
+
+K8S_TOKEN = "chip-smoke-k8s-token"
+K8S_NAMESPACE = "dynamo-smoke"
+
+
+class FakeKubeApi(_FakeHttp):
+    """The Kubernetes API server's Lease subset the discovery backend
+    speaks (list with a label selector, watch, create with 409 on a
+    duplicate, RFC 7386 merge patch, delete with 404), in one namespace,
+    behind a bearer token (401 without it)."""
+
+    PREFIX = f"/apis/coordination.k8s.io/v1/namespaces/{K8S_NAMESPACE}/leases"
+
+    def __init__(self, token: str = K8S_TOKEN):
+        super().__init__()
+        self.token = token
+        self.leases: dict = {}  # name -> object
+        self.rv = 0
+        # (resourceVersion, event): a watch from resourceVersion replays
+        # what it missed, as the API server does
+        self.history: list = []
+        self._watchers: list = []
+
+    def _bump(self) -> str:
+        self.rv += 1
+        return str(self.rv)
+
+    def _notify(self, kind: str, obj: dict) -> None:
+        ev = {"type": kind, "object": json.loads(json.dumps(obj))}
+        self.history.append((self.rv, ev))
+        for q in list(self._watchers):
+            q.put_nowait(ev)
+
+    @staticmethod
+    def _merge(dst: dict, src: dict) -> None:
+        for k, v in src.items():
+            if v is None:
+                dst.pop(k, None)
+            elif isinstance(v, dict) and isinstance(dst.get(k), dict):
+                FakeKubeApi._merge(dst[k], v)
+            else:
+                dst[k] = json.loads(json.dumps(v))
+
+    def route(self, method, path, params, body, headers):
+        if headers.get("authorization") != f"Bearer {self.token}":
+            return 401, {"kind": "Status", "code": 401}
+        if not path.startswith(self.PREFIX):
+            return 404, {"kind": "Status", "code": 404}
+        name = path[len(self.PREFIX):].strip("/")
+        if method == "GET" and not name:
+            if params.get("watch") == "true":
+                q: asyncio.Queue = asyncio.Queue()
+                since = int(params.get("resourceVersion") or 0)
+                for rv, ev in self.history:
+                    if rv > since:
+                        q.put_nowait(ev)
+                self._watchers.append(q)
+                return q
+            k, _, v = params.get("labelSelector", "").partition("=")
+            items = [json.loads(json.dumps(o)) for o in self.leases.values()
+                     if not k or (o["metadata"].get("labels") or {}).get(k)
+                     == v]
+            return 200, {"kind": "LeaseList", "items": items,
+                         "metadata": {"resourceVersion": str(self.rv)}}
+        if method == "POST" and not name:
+            name = body["metadata"]["name"]
+            if name in self.leases:
+                return 409, {"kind": "Status", "code": 409,
+                             "reason": "AlreadyExists"}
+            body["metadata"]["resourceVersion"] = self._bump()
+            self.leases[name] = body
+            self._notify("ADDED", body)
+            return 201, body
+        obj = self.leases.get(name)
+        if obj is None:
+            return 404, {"kind": "Status", "code": 404}
+        if method == "PATCH":
+            self._merge(obj, body)
+            obj["metadata"]["resourceVersion"] = self._bump()
+            self._notify("MODIFIED", obj)
+            return 200, obj
+        if method == "DELETE":
+            del self.leases[name]
+            self._bump()
+            self._notify("DELETED", obj)
+            return 200, {"kind": "Status", "status": "Success"}
+        return 405, {"kind": "Status", "code": 405}
+
+    def unwatch(self, q: asyncio.Queue) -> None:
+        self._watchers = [w for w in self._watchers if w is not q]
+
+
+DISCOVERY_BACKENDS = ("etcd", "kubernetes")
+# lease round trips timed per backend
+LEASE_RTTS = 20
+
+
+@contextlib.contextmanager
+def _environ(**kv):
+    """os.environ with `kv` set, restored on exit."""
+    old = {k: os.environ.get(k) for k in kv}
+    os.environ.update(kv)
+    try:
+        yield
+    finally:
+        for k, v in old.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def _discovery_env(backend: str, fake) -> tuple:
+    """(RuntimeConfig overrides, environment) of a runtime on `backend`
+    served by `fake`, as a deployment configures one: the etcd endpoint,
+    or the DYN_K8S_* variables make_discovery's KubeDiscovery reads."""
+    if backend == "etcd":
+        return {"discovery_backend": "etcd",
+                "etcd_endpoint": fake.endpoint}, {}
+    return ({"discovery_backend": "kubernetes"},
+            {"DYN_K8S_API": fake.endpoint, "DYN_K8S_NAMESPACE": K8S_NAMESPACE,
+             "DYN_K8S_TOKEN": K8S_TOKEN})
+
+
+async def _lease_rtt_ms(disc, backend: str, key: str) -> float:
+    """Median ms of LEASE_RTTS lease round trips: an etcd keepalive, or a
+    Lease's renewTime merge patch."""
+    times = []
+    for _ in range(LEASE_RTTS):
+        t0 = time.perf_counter()
+        if backend == "etcd":
+            await disc._call("/v3/lease/keepalive", {"ID": disc.lease_id})
+        else:
+            await disc._renew(key)
+        times.append((time.perf_counter() - t0) * 1e3)
+    return float(np.median(times))
+
+
+async def _wait_for(pred, what: str, timeout: float = 30.0) -> None:
+    t0 = time.monotonic()
+    while not pred():
+        if time.monotonic() - t0 > timeout:
+            raise SystemExit(f"timed out waiting for {what}")
+        await asyncio.sleep(0.01)
+
+
+def check_discovery(device, cfg, params, backend: str) -> dict:
+    """One request (the 500-token prompt) through a TorchEngineWorker with
+    `cfg` (the int8 run's) and weights `params`, registered through
+    `backend` ("etcd" or "kubernetes") against this script's fake of its
+    server, configured as a deployment does (RuntimeConfig for etcd, the
+    DYN_K8S_* environment for kubernetes), with the in-process event
+    plane.  Exits unless a second discovery client built by
+    make_discovery sees the worker's instance and MDC (put events of its
+    watch, and its get_prefix), the request finishes with 32 tokens with
+    the cache dtype's kernels launched at least layers x steps times, and
+    the watcher sees the instance's and the MDC's deletes after the
+    worker's revoke_lease.  Logs each key's registration-to-visible time
+    (its put's start to the watcher's event), the revoke-to-visible
+    time and the median lease round trip.  Returns the launch counts by
+    kernel name and those times."""
+    import uuid
+
+    from dynamo_tpu_torch.runtime import make_discovery
+
+    used = _kernels_of(cfg.kv_cache_dtype)
+    req = _requests(cfg.resolve_model().vocab_size)[1]
+    cid = uuid.uuid4().hex
+
+    async def run():
+        fake = await (FakeEtcdGateway() if backend == "etcd"
+                      else FakeKubeApi()).start()
+        overrides, env = _discovery_env(backend, fake)
+        put_t, seen = {}, {}
+        stop = asyncio.Event()
+
+        def timed_puts(rt):
+            inner = rt.discovery.put
+
+            async def put(key, value, lease=True):
+                put_t.setdefault(key, time.perf_counter())
+                await inner(key, value, lease)
+
+            rt.discovery.put = put
+
+        try:
+            with _environ(**env):
+                probe = make_discovery(backend, cluster_id=cid,
+                                       etcd_endpoint=fake.endpoint)
+
+                async def watch():
+                    async for ev in probe.watch("v1/", cancel=stop):
+                        seen.setdefault((ev.type, ev.key),
+                                        time.perf_counter())
+
+                watcher = asyncio.create_task(watch())
+                async with _serving_worker(
+                        device, cfg, params, runtime=overrides,
+                        cluster_id=cid, on_runtime=timed_puts) as (
+                        rt, worker, client, _):
+                    eng = worker.engine
+                    inst = worker.served.instance.key()
+                    mdc = worker.card.key(worker.served.instance_id)
+                    await _wait_for(lambda: ("put", inst) in seen
+                                    and ("put", mdc) in seen,
+                                    f"{backend}: the watcher's puts")
+                    got = await probe.get_prefix("v1/")
+                    m0 = dict(eng.metrics)
+                    for fn in used:
+                        fn.launches = 0
+                    res = await _serve_worker(client, [req])
+                    counts = {fn.__name__: fn.launches for fn in used}
+                    steps = {k: eng.metrics[k] - m0[k]
+                             for k in ("decode_steps", "prefill_steps")}
+                    rtt = await _lease_rtt_ms(rt.discovery, backend, inst)
+                    t_rev = time.perf_counter()
+                    await rt.discovery.revoke_lease()
+                    await _wait_for(lambda: ("delete", inst) in seen
+                                    and ("delete", mdc) in seen,
+                                    f"{backend}: the watcher's deletes")
+                stop.set()
+                await watcher
+                await probe.close()
+        finally:
+            stop.set()
+            await fake.close()
+        vis = [(seen[("put", k)] - put_t[k]) * 1e3 for k in (inst, mdc)]
+        gone = max(seen[("delete", k)] for k in (inst, mdc)) - t_rev
+        return (res[0], counts, steps, inst in got, got.get(mdc, {}), vis,
+                gone * 1e3, rtt)
+
+    ((toks, finish, ttft, _), counts, steps, inst_seen, card, vis, gone_ms,
+     rtt) = asyncio.run(run())
+    log(f"{backend} discovery worker ({cfg.kv_cache_dtype} cache): request "
+        f"1 alone {len(toks)} out, finish={finish}, ttft={ttft:.3f} s; a "
+        f"second client sees the instance: {inst_seen}, the MDC of "
+        f"{card.get('name')!r}; registration to visible, ms: instance "
+        f"{vis[0]:.2f}, MDC {vis[1]:.2f}; revoke_lease to both deletes "
+        f"seen {gone_ms:.2f} ms; median lease round trip {rtt:.3f} ms over "
+        f"{LEASE_RTTS}")
+    if finish != "length" or len(toks) != 32:
+        raise SystemExit(f"the {backend} worker's request did not finish "
+                         "with 32 tokens")
+    if not inst_seen or card.get("name") != cfg.served_name:
+        raise SystemExit(f"the {backend} probe does not see the worker")
+    _check_worker_launches(counts, steps, cfg.resolve_model().n_layers,
+                           f"{backend} worker")
+    return {"launches": counts, "visible_ms": vis, "revoke_ms": gone_ms,
+            "lease_rtt_ms": rtt}
+
+
+# ---------------------------------------------------------------------------
+# the embed endpoint (rides the bf16 worker phase) and the encoder worker
+# ---------------------------------------------------------------------------
+
+# prompt lengths of the embed requests (buckets 64, 512 and 2048)
+EMBED_LENGTHS = (37, 500, 1800)
+# the planted fault (one token id changed) is gated on the shortest: a
+# mean-pool over n positions moves by about 1/n when one changes
+EMBED_FAULT_LEN = 37
+
+
+def _tree_float(node):
+    if isinstance(node, dict):
+        return {k: _tree_float(v) for k, v in node.items()}
+    return node.float()
+
+
+class _Fp32Rows:
+    """An embedding table whose looked-up rows come back fp32."""
+
+    def __init__(self, table):
+        self.table = table
+
+    def __getitem__(self, idx):
+        return self.table[idx].float()
+
+
+class _Fp32Layers:
+    """A layer list upcast to fp32 one layer at a time (a full fp32 copy
+    of llama-8b is 32 GB)."""
+
+    def __init__(self, layers):
+        self.layers = layers
+
+    def __iter__(self):
+        for layer in self.layers:
+            yield _tree_float(layer)
+
+
+def _embed_fp32(params, mc, toks: list) -> torch.Tensor:
+    """embed_text in fp32 on the weights' device: the bf16 weights upcast
+    (exactly), fp32 activations."""
+    from dynamo_tpu_torch.models import llama
+
+    p32 = {"embedding": _Fp32Rows(params["embedding"]),
+           "final_norm": params["final_norm"],
+           "layers": _Fp32Layers(params["layers"])}
+    t = torch.tensor(toks, dtype=torch.int32,
+                     device=params["embedding"].device)
+    return llama.embed_text(p32, dataclasses.replace(mc, dtype=torch.float32),
+                            t, len(toks))
+
+
+def _embed_bound_ms(mc, T: int) -> tuple:
+    """(ms, what) the card needs at least for an embed call at bucket T:
+    the larger of its bytes over 3.35 TB/s and its FLOPs (products over
+    989 TFLOP/s bf16 plus the fp32 attention over 67 TFLOP/s)."""
+    from dynamo_tpu_torch.obs.costs import embed_terms
+
+    t = embed_terms(mc, T)
+    flops_ms = (t["matmul_flops"] / BF16_FLOPS_PER_S
+                + t["attn_flops"] / FP32_FLOPS_PER_S) * 1e3
+    nbytes = sum(t[k] for k in ("weight_bytes", "kv_read_bytes",
+                                "kv_write_bytes", "out_bytes"))
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    return ((flops_ms, "operations") if flops_ms >= bytes_ms
+            else (bytes_ms, "bytes"))
+
+
+async def _embed_phase(rt, worker, reqs) -> dict:
+    """The worker's `embed` endpoint over the request plane for
+    EMBED_LENGTHS-token prompts (the smoke's prompts, cut), each twice:
+    dim d_model, cosine with an fp32 computation of the same function on
+    the card at least MIN_COSINE, the repeat equal, and a planted fault
+    (the fp32 vector of the prompt with one token id changed) below the
+    gate at EMBED_FAULT_LEN.  Then one greedy request alone, twice:
+    without embeds, and with the embeds sent while it decodes; the
+    streams must be equal (an embed runs between scheduler steps, on the
+    engine's stream, so a burst's readback cannot be reordered).  K1/K3
+    launches during the embeds are counted (plain torch: 0 expected).
+    Logs ms per request (over the request plane, through engine.embed,
+    and the forward alone by CUDA events) against the bound
+    (_embed_bound_ms), and max_memory_allocated."""
+    eng = worker.engine
+    mc = eng.model_cfg
+    comp = rt.namespace("dynamo").component("backend")
+    client = await comp.endpoint("embed").client().start()
+    gen = await comp.endpoint("generate").client().start()
+    used = _kernels_of("bf16")
+    prompts = {n: next(r for r in reqs if len(r.token_ids) >= n)
+               .token_ids[:n] for n in EMBED_LENGTHS}
+    rows = {}
+    try:
+        await client.wait_for_instances()
+
+        async def embed(toks):
+            t0 = time.perf_counter()
+            frames = [f async for f in client.generate({"token_ids": toks})]
+            return frames[0], (time.perf_counter() - t0) * 1e3
+
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        for fn in used:
+            fn.launches = 0
+        out = {}
+        for n, toks in prompts.items():
+            (f1, ms1), (f2, ms2) = await embed(toks), await embed(toks)
+            out[n] = (f1, ms1, ms2, f2["embedding"] == f1["embedding"])
+        launches = {fn.__name__: fn.launches for fn in used}
+        peak = torch.cuda.max_memory_allocated()
+        # where a request's time goes: the engine's embed() (the hop to
+        # the scheduler thread and back, no request plane) and the forward
+        # alone by CUDA events, both warm, the engine idle
+        split = {}
+        for n, toks in prompts.items():
+            t0 = time.perf_counter()
+            await eng.embed(toks)
+            engine_ms = (time.perf_counter() - t0) * 1e3
+            pad = torch.zeros(eng._bucket_for(n), dtype=torch.int32,
+                              device=eng.device)
+            pad[:n] = torch.tensor(toks, dtype=torch.int32)
+            split[n] = (engine_ms, time_ms(
+                lambda: eng.family.embed_text(eng.params, mc, pad, n),
+                iters=3, warmup=1))
+        for n, (f, ms1, ms2, same) in out.items():
+            vec = torch.tensor(f["embedding"], device=eng.device)
+            ref = await asyncio.to_thread(_embed_fp32, eng.params, mc,
+                                          prompts[n])
+            cos = float(torch.dot(vec, ref))
+            fault = None
+            if n == EMBED_FAULT_LEN:
+                bad = list(prompts[n])
+                bad[n // 2] = (bad[n // 2] + 1) % mc.vocab_size
+                fault = float(torch.dot(vec, await asyncio.to_thread(
+                    _embed_fp32, eng.params, mc, bad)))
+            T = eng._bucket_for(n)
+            bms, what = _embed_bound_ms(mc, T)
+            engine_ms, device_ms = split[n]
+            rows[n] = {"dim": f["dim"], "cosine": cos, "fault_cosine": fault,
+                       "ms": [ms1, ms2], "engine_ms": engine_ms,
+                       "device_ms": device_ms, "bucket": T, "bound_ms": bms,
+                       "bound_by": what, "repeat_equal": same}
+            log(f"embed {n} tokens (bucket {T}): dim {f['dim']}, cosine "
+                f"with fp32 {cos:.6f} (gate {MIN_COSINE})"
+                + (f", planted fault (one token id changed) {fault:.6f}"
+                   if fault is not None else "")
+                + f"; {ms1:.2f} / {ms2:.2f} ms a request over the request "
+                f"plane (first, repeat), {engine_ms:.2f} ms through "
+                f"engine.embed, {device_ms:.3f} ms the forward alone (CUDA "
+                f"events), against its {bms:.3f} ms bound ({what}); repeat "
+                f"equal: {same}")
+        # an embed between decode bursts: one greedy request alone, then
+        # again with the embeds sent while it decodes
+        one = next(r for r in reqs if r.sampling.temperature <= 0)
+        alone = (await _serve_worker(gen, [dataclasses.replace(
+            one, request_id="smoke-embed-alone")]))[0][0]
+        await eng.clear_kv_blocks()
+        served, _ = await asyncio.gather(
+            _serve_worker(gen, [dataclasses.replace(
+                one, request_id="smoke-embed-busy")]),
+            asyncio.gather(*(embed(t) for t in prompts.values())))
+        interleaved = served[0][0] == alone
+        log(f"embed phase: K1/K3 launches during the embeds {launches}; "
+            f"max_memory_allocated {peak / 2**30:.2f} GiB (the worker's "
+            f"weights, KV cache and graph pools included); a greedy stream "
+            f"with embeds sent while it decodes equals the one without: "
+            f"{interleaved}")
+    finally:
+        await client.close()
+        await gen.close()
+    bad = [n for n, r in rows.items()
+           if r["dim"] != mc.d_model or not r["cosine"] >= MIN_COSINE
+           or not r["repeat_equal"]]
+    if bad:
+        raise SystemExit(f"embed requests {bad}: wrong dim, below cosine "
+                         f"{MIN_COSINE} against fp32, or unrepeatable")
+    if not rows[EMBED_FAULT_LEN]["fault_cosine"] < MIN_COSINE:
+        raise SystemExit("embed: the planted fault passes the gate")
+    if not interleaved:
+        raise SystemExit("embed: a greedy stream changed with embeds "
+                         "between its bursts")
+    return {"rows": rows, "launches": launches, "peak_gib": peak / 2**30}
+
+
+# CLIP ViT-L/14-336, LLaVA-1.5's tower (openai/clip-vit-large-patch14-336:
+# image 336, patch 14, width 1024, 24 layers, 16 heads), in the JAX
+# package's VisionConfig fields (its MLP is 4 x d_model), projected to
+# llama-8b's 4096
+VIT_L = dict(image_size=336, patch_size=14, d_model=1024, n_layers=24,
+             n_heads=16, out_dim=4096)
+ENCODER_TOL = 2e-2
+ENCODER_IMAGES = 4
+
+
+def vit_flops(cfg, B: int = 1) -> tuple:
+    """(bf16 product FLOPs, fp32 attention FLOPs) of the tower over B
+    images."""
+    n, d, L = cfg.n_patches, cfg.d_model, cfg.n_layers
+    mm = (2 * n * cfg.patch_dim * d
+          + L * (2 * n * d * 3 * d + 2 * n * d * d + 2 * 2 * n * d * 4 * d)
+          + 2 * n * d * cfg.out_dim)
+    return B * mm, B * L * 2 * 2 * n * n * d
+
+
+def _frame_tensor(frame: dict) -> torch.Tensor:
+    """An encode frame's embedding as a float32 CPU tensor (a bfloat16
+    frame carries the 16-bit patterns)."""
+    if frame["dtype"] == "bfloat16":
+        t = torch.frombuffer(bytearray(frame["embedding"]),
+                             dtype=torch.int16).view(torch.bfloat16)
+    else:
+        t = torch.from_numpy(np.frombuffer(frame["embedding"],
+                                           dtype=frame["dtype"]).copy())
+    return t.float().reshape(frame["shape"])
+
+
+def check_encoder(device, card: str, cfg=None) -> dict:
+    """The port's EncoderWorker with a VitEncoder at CLIP ViT-L/14-336
+    widths (VIT_L, bf16, random weights from a seeded generator; `cfg`
+    overrides the VisionConfig) on a fresh runtime (mem discovery,
+    in-process event plane, TCP request plane): ENCODER_IMAGES .npy
+    images (seeded, non-symmetric) through the request plane one request
+    each, then the same again.  Exits unless every frame has n_patches
+    (576) tokens of out_dim, each image is within ENCODER_TOL per-row
+    relative L2 of an fp32 tower with the same weights (and a planted
+    fault, the fp32 tower on the image with its height and width
+    swapped, above it), and the repeat is all cache hits with no tower
+    call.  Logs ms an image (through the request plane, and the tower
+    alone by CUDA events) against the FLOP bound (products over 989
+    TFLOP/s, the fp32 attention over 67), and the K1/K3 launches of the
+    phase (plain torch: 0 expected)."""
+    import io
+    import uuid
+
+    from dynamo_tpu_torch.multimodal import (
+        EncoderWorker,
+        VisionConfig,
+        VitEncoder,
+        media_hash,
+    )
+    from dynamo_tpu_torch.runtime import DistributedRuntime, RuntimeConfig
+
+    t_phase = time.perf_counter()
+    cfg = cfg or VisionConfig(dtype=torch.bfloat16, **VIT_L)
+    enc = VitEncoder(cfg, device=device,
+                     generator=torch.Generator(device=device).manual_seed(0))
+    rng = np.random.default_rng(11)
+    images = [rng.random((cfg.image_size, cfg.image_size, 3),
+                         dtype=np.float32) for _ in range(ENCODER_IMAGES)]
+    uris = []
+    for img in images:
+        buf = io.BytesIO()
+        np.save(buf, img)
+        uris.append("data:application/x-npy;base64,"
+                    + base64.b64encode(buf.getvalue()).decode())
+    hashes = [media_hash(u.partition(",")[2].encode()) for u in uris]
+    calls = [0]
+    inner = enc.encode
+
+    def counted(px):
+        calls[0] += 1
+        return inner(px)
+
+    enc.encode = counted
+    used = _kernels_of("bf16") + _kernels_of("int8")
+
+    async def run():
+        rt = await DistributedRuntime(config=RuntimeConfig(
+            discovery_backend="mem", event_plane="inproc",
+            tcp_host="127.0.0.1"), cluster_id=uuid.uuid4().hex).start()
+        worker = await EncoderWorker(rt, "llava-smoke", encoder=enc).start()
+        client = await rt.namespace("dynamo").component("encoder").endpoint(
+            "encode").client().start()
+        try:
+            await client.wait_for_instances()
+            passes = []
+            for _ in range(2):
+                c0 = calls[0]
+                frames, ms = [], []
+                for h, u in zip(hashes, uris):
+                    t0 = time.perf_counter()
+                    frames += [f async for f in client.generate(
+                        {"request_id": h,
+                         "items": [{"media_hash": h, "data_uri": u}]})]
+                    ms.append((time.perf_counter() - t0) * 1e3)
+                passes.append((frames, ms, calls[0] - c0))
+            return passes, dict(worker.metrics)
+        finally:
+            await client.close()
+            await worker.close()
+            await rt.shutdown()
+
+    for fn in used:
+        fn.launches = 0
+    passes, metrics = asyncio.run(run())
+    launches = {fn.__name__: fn.launches for fn in used}
+    (first, ms1, tower1), (second, ms2, tower2) = passes
+    enc32 = VitEncoder(dataclasses.replace(cfg, dtype=torch.float32),
+                       device=device, generator=torch.Generator(
+                           device=device).manual_seed(1))
+    enc32.load_state_dict({k: v.float() for k, v in
+                           enc.state_dict().items()})
+    errs, faults = [], []
+    frame_dtypes = {f["dtype"] for f in first + second}
+    want_dtype = str(cfg.dtype).removeprefix("torch.")
+    for f, img in zip(first, images):
+        got = _frame_tensor(f)
+        ref = enc32.encode(img[None])[0]
+        bad = enc32.encode(
+            np.ascontiguousarray(img.transpose(1, 0, 2))[None])[0]
+        errs.append(row_rel_err(got, ref))
+        faults.append(row_rel_err(bad, ref))
+    del enc32
+    px = torch.from_numpy(images[0][None]).to(device)
+    with torch.no_grad():
+        tower_ms = time_ms(lambda: enc(px), iters=5, warmup=2)
+    mm, attn = vit_flops(cfg)
+    bound_ms = (mm / BF16_FLOPS_PER_S + attn / FP32_FLOPS_PER_S) * 1e3
+    shapes = {tuple(f["shape"]) for f in first + second}
+    log(f"encoder phase ({card}): {cfg.n_layers} layers of width "
+        f"{cfg.d_model} on {cfg.image_size}px images, {cfg.dtype}; frames "
+        f"{len(first)} + {len(second)} of shape {sorted(shapes)}, dtype "
+        f"{sorted(frame_dtypes)} ({len(first[0]['embedding'])} bytes); per-row "
+        f"relative L2 against fp32 {[f'{e:.3e}' for e in errs]} (limit "
+        f"{ENCODER_TOL}), planted fault (height and width swapped) "
+        f"{[f'{e:.3e}' for e in faults]}; tower calls {tower1} then "
+        f"{tower2}, cached {[f['cached'] for f in second]}, metrics "
+        f"{metrics}; ms an image through the request plane, first pass "
+        f"{[round(m, 2) for m in ms1]}, repeat {[round(m, 2) for m in ms2]};"
+        f" the tower alone {tower_ms:.3f} ms an image against its "
+        f"{bound_ms:.3f} ms FLOP bound ({mm / 1e12:.3f} TFLOP bf16 at 989, "
+        f"{attn / 1e12:.3f} fp32 at 67); K1/K3 launches {launches}; "
+        f"{time.perf_counter() - t_phase:.1f} s")
+    if shapes != {(cfg.n_patches, cfg.out_dim)} or len(second) != \
+            ENCODER_IMAGES:
+        raise SystemExit(f"encoder frames of shapes {shapes}")
+    if frame_dtypes != {want_dtype}:
+        raise SystemExit(f"encoder frames of dtypes {frame_dtypes}, not "
+                         f"the tower's {want_dtype}")
+    if max(errs) > ENCODER_TOL or min(faults) <= ENCODER_TOL:
+        raise SystemExit("encoder: off fp32, or the planted fault passes")
+    if tower2 or not all(f["cached"] for f in second) \
+            or metrics["cache_hits"] != ENCODER_IMAGES:
+        raise SystemExit("encoder: the repeat was not all cache hits")
+    return {"err": max(errs), "fault": min(faults), "ms": ms1,
+            "repeat_ms": ms2, "tower_ms": tower_ms, "bound_ms": bound_ms,
+            "launches": launches}
+
+
 def load_checkout(path: str):
     """(_build, cuda_paged_attention, cuda_packed_prefill) of the port in
     another checkout at `path` (for instance the parent commit unpacked
@@ -7192,11 +8089,32 @@ def main() -> int:
         gen = torch.Generator(device=device).manual_seed(0)
         params = llama.init_params(cfg, gen, device)
         t0 = time.perf_counter()
-        launches = check_worker(device, card, _engine_config("bf16"),
-                                params, None)
+        launches, embed = check_worker(device, card, _engine_config("bf16"),
+                                       params, None)
         print(json.dumps({"status": {
-            "launches": launches,
+            "launches": launches, "embed": embed,
             "seconds": round(time.perf_counter() - t0, 1)}}), flush=True)
+        print(card, flush=True)
+        return 0
+    if sys.argv[1:] == ["--discovery"]:
+        # python3 chip_smoke.py --discovery: the int8 worker through etcd
+        # and kubernetes discovery
+        build_kernels()
+        from dynamo_tpu_torch.models import llama
+
+        gen = torch.Generator(device=device).manual_seed(0)
+        params = llama.init_params(cfg, gen, device)
+        t0 = time.perf_counter()
+        out = {b: check_discovery(device, _engine_config("int8"), params, b)
+               for b in DISCOVERY_BACKENDS}
+        print(json.dumps({"discovery": out, "seconds": round(
+            time.perf_counter() - t0, 1)}), flush=True)
+        print(card, flush=True)
+        return 0
+    if sys.argv[1:] == ["--encoder"]:
+        # python3 chip_smoke.py --encoder: the encoder worker phase
+        print(json.dumps({"encoder": check_encoder(device, card)}),
+              flush=True)
         print(card, flush=True)
         return 0
     if sys.argv[1:] == ["--moe"]:
@@ -7240,8 +8158,8 @@ def main() -> int:
     engine.kv = engine.graphs = engine.prefill_graphs = None
     engine.guided_graphs = None
     torch.cuda.empty_cache()
-    worker_launches = check_worker(device, card, engine.config, params,
-                                   direct)
+    worker_launches, embed = check_worker(device, card, engine.config,
+                                          params, direct)
     log(f"bf16 worker phase done at {time.perf_counter() - t_start:.1f} s")
     del engine
     torch.cuda.empty_cache()
@@ -7265,6 +8183,12 @@ def main() -> int:
     torch.cuda.empty_cache()
     worker_launches.update(check_worker_short(device, engine8.config, params))
     log(f"int8 worker phase done at {time.perf_counter() - t_start:.1f} s")
+    disc = {b: check_discovery(device, engine8.config, params, b)
+            for b in DISCOVERY_BACKENDS}
+    log(f"etcd and kubernetes discovery phase done at "
+        f"{time.perf_counter() - t_start:.1f} s")
+    encoder = check_encoder(device, card)
+    log(f"encoder phase done at {time.perf_counter() - t_start:.1f} s")
     log(f"device operations per decode step (one sequence): int8 cache "
         f"{ops_int8} against bf16 cache {ops_bf16} (the plain-torch "
         f"quantize-on-write adds {ops_int8 - ops_bf16})")
@@ -7311,12 +8235,17 @@ def main() -> int:
         k["guided_launches"] = lora["guided_launches"].get(k["name"], 0)
         k["moe_launches"] = moe["launches"].get(k["name"], 0)
         k["mla_launches"] = mla["launches"].get(k["name"], 0)
+        k["etcd_launches"] = disc["etcd"]["launches"].get(k["name"], 0)
+        k["kube_launches"] = disc["kubernetes"]["launches"].get(k["name"], 0)
+        k["embed_launches"] = embed["launches"].get(k["name"], 0)
+        k["encoder_launches"] = encoder["launches"].get(k["name"], 0)
     for k in dma:  # the microbench is on no serving path
         k["disagg_prefill_launches"] = k["disagg_decode_launches"] = 0
         k["disagg_ipc_prefill_launches"] = k["disagg_ipc_decode_launches"] = 0
         k["kvbm_launches"] = k["spec_launches"] = k["spec_draft_launches"] = 0
         k["lora_launches"] = k["guided_launches"] = k["moe_launches"] = 0
-        k["mla_launches"] = 0
+        k["mla_launches"] = k["etcd_launches"] = k["kube_launches"] = 0
+        k["embed_launches"] = k["encoder_launches"] = 0
     log(f"chip_smoke: every phase passed in "
         f"{time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels + dma}), flush=True)

@@ -9,11 +9,21 @@ numbers no user could get from it.
 
 from __future__ import annotations
 
+import threading
 from typing import Union
 
 import torch
 
 DeviceLike = Union[str, torch.device]
+
+# CUPTI, which torch.profiler's CUDA tracing drives, can deadlock when
+# the profiler starts or stops while another thread is inside a CUDA
+# graph launch: on the H100 a /debug/profile capture hung with the
+# profiler's stop and a decode program's graph.replay() both stuck.
+# Every graph replay (engine/graphs.py) and every start and stop of the
+# status server's profiler (runtime/system_status.py) hold this lock,
+# so neither runs inside the other.
+PROFILER_GRAPH_LOCK = threading.Lock()
 
 
 def resolve_device(device: DeviceLike = "cuda") -> torch.device:

@@ -125,6 +125,13 @@ prefill, decode and spec_verify FPM records carry the program's cost
 count (obs/costs.py) under the JAX names `xla_flops`/`xla_bytes`.  A
 drain abort and an engine crash dump the flight recorder.
 
+`embed(token_ids)` serves the worker's `embed` endpoint for a family
+with `embed_text` (the Llama family, dense and MoE; not MLA, as in
+JAX): the family's pooled embedding padded to a prefill bucket, run
+eagerly between steps on the scheduler's thread (an `embed_fetch`
+device_wait span; the first call at a bucket is the capture watch's
+"embed" record).
+
 Not here yet (ROADMAP.md): penalties (the JAX engine ignores them too).
 """
 
@@ -155,6 +162,7 @@ from ..lora.bank import clear_slot, empty_bank, write_adapter
 from ..lora.source import LocalLoraSource
 from ..models import get_family
 from ..obs.compile_watch import CaptureWatch
+from ..obs.costs import program_costs
 from ..ops.kv_transfer import (
     blocks_from_host,
     blocks_to_host,
@@ -568,6 +576,9 @@ class TorchEngine:
             serving=lambda: any(s is not None for s in self._slots))
         for progs in self._program_families():
             progs.watch = self.capture_watch
+        # the embed buckets run so far (embed(): the first call at a
+        # bucket is the watch's "embed" record)
+        self._embed_buckets: set = set()
         # slot indexes that speculated this scheduler step (they emitted
         # synchronously; the decode burst skips them)
         self._specced: frozenset = frozenset()
@@ -821,6 +832,53 @@ class TorchEngine:
                 return len(removed)
 
         return await asyncio.to_thread(clear)
+
+    @property
+    def supports_embedding(self) -> bool:
+        return hasattr(self.family, "embed_text")
+
+    async def embed(self, token_ids: List[int]) -> np.ndarray:
+        """Pooled text embedding (the family's embed_text), padded to a
+        prefill bucket as the JAX engine's, and run between scheduler
+        steps on the scheduler's thread, so its work queues on the
+        engine's stream behind the bursts already dispatched and no
+        burst's readback is reordered.  Returns the fp32 unit vector."""
+        if not self.supports_embedding:
+            raise RuntimeError(
+                f"model family {self.family.__name__} has no embed_text")
+        if len(token_ids) > self.config.prefill_buckets[-1]:
+            raise ValueError(
+                f"input is {len(token_ids)} tokens; embedding max is "
+                f"{self.config.prefill_buckets[-1]}")
+        bucket = self._bucket_for(len(token_ids))
+        toks = np.zeros(bucket, np.int32)
+        toks[: len(token_ids)] = token_ids
+        self.start()
+        return await self._call_on_scheduler(
+            partial(self._run_embed, toks, len(token_ids)))
+
+    def _run_embed(self, toks: np.ndarray, true_len: int) -> np.ndarray:
+        """One embed call, eager.  The first call at a bucket is
+        recorded by the capture watch as family "embed" with its cost
+        count (obs/costs.py), as the JAX watch records the jitted
+        program's compile."""
+        t0 = time.perf_counter()
+        vec = self.family.embed_text(
+            self.params, self.model_cfg,
+            torch.from_numpy(toks).to(self.device), true_len)
+        t_obs = obs.begin()
+        out = vec.float().cpu().numpy()
+        obs.end("device_wait", t_obs, track=self._obs_track,
+                what="embed_fetch")
+        T = len(toks)
+        if T not in self._embed_buckets:
+            self._embed_buckets.add(T)
+            self.capture_watch.on_capture(
+                "embed", T, time.perf_counter() - t0,
+                program_costs(self.model_cfg, "embed", T,
+                              max_blocks=self.config.max_blocks_per_seq,
+                              block_size=self.config.block_size))
+        return out
 
     def drain_abort(self) -> None:
         """Graceful-drain deadline: error every in-flight stream with the

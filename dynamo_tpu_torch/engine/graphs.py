@@ -127,6 +127,7 @@ from typing import Callable, Dict, Optional, Tuple
 import numpy as np
 import torch
 
+from ..device import PROFILER_GRAPH_LOCK
 from ..models import get_family
 from ..obs.costs import program_costs
 from ..ops import fused_sampling
@@ -376,7 +377,8 @@ class DecodePrograms(_LaneDescriptor, _Built):
         key = (greedy, k)
         graph = self._graphs.get(key)
         if graph is not None:
-            graph.replay()
+            with PROFILER_GRAPH_LOCK:
+                graph.replay()
             for fn, n in self._graph_launches[key]:
                 fn.launches += n
             return Readback(self.out[k])
@@ -598,7 +600,8 @@ class _BucketPrograms(_Built):
         them, in stream order)."""
         graph = self._graphs.get(T)
         if graph is not None:
-            graph.replay()
+            with PROFILER_GRAPH_LOCK:
+                graph.replay()
             for fn, n in self._graph_launches[T]:
                 fn.launches += n
             return self._outputs(T)
@@ -878,7 +881,8 @@ class GuidedPrograms(_LaneDescriptor, _Built):
         readback of its (ids, vals)."""
         graph = self._graphs.get(m)
         if graph is not None:
-            graph.replay()
+            with PROFILER_GRAPH_LOCK:
+                graph.replay()
             for fn, n in self._graph_launches[m]:
                 fn.launches += n
             return Readback(self.ids[m]), Readback(self.vals[m])

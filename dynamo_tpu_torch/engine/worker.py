@@ -53,8 +53,13 @@ the unchanged JAX frontend and its KV router serve it like any other:
     let in-flight requests finish until a deadline, abort the rest with
     the migratable "worker draining" marker.
 
-Not ported yet (ROADMAP.md): multi-host slices, the `embed` endpoint,
-and the KV ledger's /debug/kv source.
+  * the `embed` endpoint, when the engine's model family has
+    `embed_text` (TorchEngine.supports_embedding): `{"token_ids"}` in,
+    one `{"embedding", "dim"}` frame out, the pooled unit vector the JAX
+    frontend's /v1/embeddings returns.
+
+Not ported yet (ROADMAP.md): multi-host slices and the KV ledger's
+/debug/kv source.
 
 The `kvbm_pull` wire carries block hashes as 16-byte big-endian bytes
 (router/events.py hash_to_wire), as the KV events do, and accepts plain
@@ -348,6 +353,14 @@ class TorchEngineWorker:
             await comp.endpoint("kv_pull").serve_endpoint(
                 kv_pull_handler, instance_id=instance_id),
         ]
+        if self.engine.supports_embedding:
+            async def embed_handler(payload, ctx):
+                vec = await self.engine.embed(payload["token_ids"])
+                yield {"embedding": vec.tolist(), "dim": int(vec.shape[0])}
+
+            self._aux_served.append(
+                await comp.endpoint("embed").serve_endpoint(
+                    embed_handler, instance_id=instance_id))
         if self.engine.kvbm is not None and self.config.kvbm_remote:
             self._aux_served.append(
                 await comp.endpoint("kvbm_pull").serve_endpoint(

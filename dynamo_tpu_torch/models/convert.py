@@ -23,6 +23,11 @@ does not import, so a caller upcasts bf16 JAX arrays to float32 first
     both packages lay them out alike.
   * LoRA bank: the JAX bank's stacked A/B arrays map one to one onto the
     port's (lora/bank.py), in the model's dtype.
+  * ViT tower: a JAX `VitEncoder`'s params ({"patch_embed", "pos_embed",
+    "out_proj", "final_norm", "layers": [{"norm1", "norm2", "wqkv",
+    "wo", "w1", "w2"}, ...]}) become the port's VitEncoder module
+    (multimodal/encoder.py), whose parameters carry the same names and
+    [in, out] layouts; norms fp32, the rest the config's dtype.
 """
 
 from __future__ import annotations
@@ -121,3 +126,22 @@ def bank_from_numpy(bank: Dict[str, Any], dtype: torch.dtype,
     dev = resolve_device(device)
     return {k: _tensor(v, dtype, dev, k).contiguous()
             for k, v in bank.items()}
+
+
+def vit_from_numpy(tree: Dict[str, Any], cfg,
+                   device: DeviceLike = "cuda"):
+    """A JAX VitEncoder's `params`, as numpy float arrays, turned into
+    the port's VitEncoder for `cfg` (multimodal/encoder.py VisionConfig)
+    on `device`.  Raises on a missing or unexpected weight."""
+    from ..multimodal.encoder import VitEncoder
+
+    dev = resolve_device(device)
+    enc = VitEncoder(cfg, device=dev)
+    flat = {k: v for k, v in tree.items() if k != "layers"}
+    for i, layer in enumerate(tree["layers"]):
+        flat.update({f"layers.{i}.{k}": v for k, v in layer.items()})
+    state = {name: _tensor(a, torch.float32 if "norm" in name else cfg.dtype,
+                           dev, name)
+             for name, a in flat.items()}
+    enc.load_state_dict(state, strict=True)
+    return enc

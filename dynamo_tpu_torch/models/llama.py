@@ -531,6 +531,51 @@ def spec_verify_packed(
     return _logits(params, cfg, x), kv_cache
 
 
+def embed_text(
+    params: Params,
+    cfg: LlamaConfig,
+    token_ids: torch.Tensor,     # [T_pad] int32
+    true_len,                    # valid tokens (int or 0-d)
+) -> torch.Tensor:
+    """Pooled text embedding, the JAX package's `embed_text`: a dense
+    causal forward with no paging, the final norm, a mean-pool over the
+    valid positions and an L2 normalisation (any generative checkpoint
+    doubles as a pooled embedder, the /v1/embeddings route's engine
+    side).  The attention is plain torch, as JAX's is jnp, at JAX's
+    cast points: q and k in fp32, the scale an fp32 square root, masked
+    scores -1e30, the softmax and the values in fp32, the output back
+    in cfg.dtype before `wo`; the residual stream stays in cfg.dtype,
+    and the pool is fp32.  `_ffn` gets the valid rows, so padding
+    claims no MoE expert capacity.  Returns the [d_model] fp32 unit
+    vector."""
+    T = token_ids.shape[0]
+    dev = token_ids.device
+    positions = torch.arange(T, device=dev)
+    valid = positions < true_len
+    group = cfg.n_heads // cfg.n_kv_heads
+    scale = torch.sqrt(torch.tensor(float(cfg.head_dim), dtype=torch.float32,
+                                    device=dev))
+    causal = torch.tril(torch.ones(T, T, dtype=torch.bool, device=dev)) \
+        & valid[None, :]
+    masked = torch.tensor(-1e30, dtype=torch.float32, device=dev)
+    x = params["embedding"][token_ids.long()].to(cfg.dtype)  # [T, d]
+    for layer in params["layers"]:
+        h = rms_norm(x, layer["attn_norm"]["norm"], cfg.rms_eps)
+        q, k, v = _qkv(layer, cfg, h, positions)  # [T, nh|nkv, hd]
+        kr = k.repeat_interleave(group, dim=1)
+        vr = v.repeat_interleave(group, dim=1)
+        s = torch.einsum("ihd,jhd->hij", q.float(), kr.float()) / scale
+        p = torch.softmax(torch.where(causal[None], s, masked), dim=-1)
+        o = torch.einsum("hij,jhd->ihd", p, vr.float())
+        x = x + o.reshape(T, cfg.q_dim).to(cfg.dtype) @ layer["wo"]
+        h = rms_norm(x, layer["mlp_norm"]["norm"], cfg.rms_eps)
+        x = x + _ffn(layer, cfg, h, valid=valid)
+    x = _final_norm(params, cfg, x)
+    w = valid.float()[:, None]
+    pooled = (x.float() * w).sum(0) / torch.clamp(w.sum(), min=1.0)
+    return pooled / torch.clamp(torch.linalg.norm(pooled), min=1e-9)
+
+
 # ---------------------------------------------------------------------------
 # prefill: one sequence's chunk attends to its cached context + itself
 # ---------------------------------------------------------------------------

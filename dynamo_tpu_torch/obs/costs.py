@@ -41,7 +41,13 @@ What is counted, per trunk pass of n tokens through L layers:
   * the padded prefill programs of capacity-dispatch MoE (family
     prefill_padded, key (rows, T)) attend by the plain padded path:
     2·2·T·nh·hd·(S + T) FLOPs a row and layer over its S = max_blocks·bs
-    context positions, whose K/V it reads (2·nkv·S·pos_bytes a row).
+    context positions, whose K/V it reads (2·nkv·S·pos_bytes a row);
+  * the embed call (family embed, key the bucket T; models/llama.py
+    embed_text, eager, counted once per bucket like a capture): the
+    trunk's products over T tokens, its dense fp32 attention
+    2·2·T·T·nh·hd a layer (`attn_flops`, at the fp32 peak, not the
+    tensor cores'), the weights without the unembedding, no cache, and
+    the d fp32 output.
 
 The DeepSeek MLA family (models/deepseek.py) has its own terms, from
 the latent cache of R + dr elements a position (R = kv_lora_rank, dr =
@@ -230,10 +236,10 @@ def program_terms(cfg, family: str, key, *, rows: int = 0, max_blocks: int,
                   block_size: int, int8: bool = False, lora=(0, 0),
                   epilogue: bool = False) -> Dict[str, float]:
     """The cost terms of one program.  `family` is decode, prefill,
-    verify, catchup, guided or prefill_padded; `key` its build key:
-    (greedy, k) for decode, the stream bucket T for
-    prefill/verify/catchup, the window M for guided, (rows, T) for
-    prefill_padded.  `rows` is the lane count B (decode, guided) or the
+    verify, catchup, guided, prefill_padded or embed; `key` its build
+    key: (greedy, k) for decode, the stream bucket T for
+    prefill/verify/catchup/embed, the window M for guided, (rows, T)
+    for prefill_padded.  `rows` is the lane count B (decode, guided) or the
     row count of a bucket's descriptor (prefill: padded segments,
     catchup: 1; verify projects every stream position); prefill_padded
     takes its rows from the key.  Raises on a family it does not know:
@@ -265,7 +271,29 @@ def program_terms(cfg, family: str, key, *, rows: int = 0, max_blocks: int,
         attn = padded_attn_costs(cfg, T, max_blocks, block_size, int8)
         return _trunk_terms(cfg, R * T, {k: R * v for k, v in attn.items()},
                             int8, lora, R, True, pools=R)
+    if family == "embed":
+        return embed_terms(cfg, int(key))
     raise ValueError(f"no cost count for program family {family!r}")
+
+
+def embed_attn_flops(cfg, T: int) -> int:
+    """One layer of embed_text's dense causal attention over a T-token
+    bucket: the fp32 scores and values over the whole T x T square (the
+    mask is applied to the scores, not to the products)."""
+    return 2 * 2 * T * T * cfg.n_heads * cfg.head_dim
+
+
+def embed_terms(cfg, T: int) -> Dict[str, float]:
+    """The embed call over a T-token bucket (models/llama.py
+    embed_text): the trunk's products in cfg.dtype, the fp32 attention
+    as `attn_flops` (its own peak: it runs outside the bf16 tensor
+    cores), every weight but the unembedding read once, the embedding
+    rows looked up, no cache, and the fp32 vector written."""
+    t = _trunk_terms(cfg, T, {"flops": embed_attn_flops(cfg, T),
+                              "bytes": 0}, False, (0, 0), 0, False)
+    t["kv_write_bytes"] = 0
+    t["out_bytes"] = 4 * cfg.d_model
+    return t
 
 
 # -- the MLA family ----------------------------------------------------------

@@ -34,9 +34,10 @@ def env_truthy(name: str, default: bool = False) -> bool:
 
 @dataclass
 class RuntimeConfig:
-    # discovery plane: mem | file (etcd | kubernetes are not ported yet)
+    # discovery plane: mem | file | etcd | kubernetes
     discovery_backend: str = "mem"
     discovery_path: str = ""  # root dir for the file backend
+    etcd_endpoint: str = ""   # etcd v3 JSON-gateway URL (etcd backend)
     lease_ttl_s: float = 5.0
 
     # request plane (TCP)
@@ -61,6 +62,7 @@ class RuntimeConfig:
         cfg = cls(
             discovery_backend=os.environ.get("DYN_DISCOVERY_BACKEND", "mem"),
             discovery_path=os.environ.get("DYN_DISCOVERY_PATH", ""),
+            etcd_endpoint=os.environ.get("DYN_ETCD_ENDPOINT", ""),
             lease_ttl_s=float(os.environ.get("DYN_LEASE_TTL", "5.0")),
             tcp_host=os.environ.get("DYN_TCP_HOST", "127.0.0.1"),
             tcp_port=int(os.environ.get("DYN_TCP_PORT", "0")),

@@ -12,10 +12,11 @@ Backends:
   * MemDiscovery  — in-process, shared per cluster_id (module-global, so
     it never sees the JAX package's MemDiscovery);
   * FileDiscovery — a directory tree on local disk with mtime heartbeats,
-    for multi-process single-host clusters.
-The etcd and kubernetes backends are not ported yet (ROADMAP.md).  The
-chaos seams of the JAX module and the planner's quarantine actuation are
-left out; the heartbeat still honours quarantine markers a planner
+    for multi-process single-host clusters;
+  * EtcdDiscovery (runtime/etcd.py) and KubeDiscovery (runtime/kube.py),
+    over the port's standard-library HTTP client (runtime/http.py).
+The chaos seams of the JAX module and the planner's quarantine actuation
+are left out; the heartbeat still honours quarantine markers a planner
 writes.
 """
 
@@ -484,7 +485,8 @@ class FileDiscovery(DiscoveryBackend):
 
 
 def make_discovery(backend: str, *, path: str = "", ttl_s: float = 5.0,
-                   cluster_id: str = "default") -> DiscoveryBackend:
+                   cluster_id: str = "default",
+                   etcd_endpoint: str = "") -> DiscoveryBackend:
     if backend == "mem":
         return MemDiscovery(cluster_id=cluster_id)
     if backend == "file":
@@ -493,8 +495,15 @@ def make_discovery(backend: str, *, path: str = "", ttl_s: float = 5.0,
         if not path:
             raise ValueError("file discovery requires DYN_DISCOVERY_PATH")
         return FileDiscovery(path, ttl_s=ttl_s)
-    if backend in ("etcd", "kubernetes"):
-        raise NotImplementedError(
-            f"discovery backend {backend!r} is not ported to "
-            "dynamo_tpu_torch yet (ROADMAP.md, Queue 1): use mem or file")
+    if backend == "etcd":
+        from .etcd import EtcdDiscovery
+
+        return EtcdDiscovery(etcd_endpoint or "http://127.0.0.1:2379",
+                             ttl_s=ttl_s)
+    if backend == "kubernetes":
+        from .kube import KubeDiscovery
+
+        # api/namespace/token resolve from DYN_K8S_* or the in-cluster
+        # service account (runtime/kube.py)
+        return KubeDiscovery(cluster_id=cluster_id, ttl_s=ttl_s)
     raise ValueError(f"unknown discovery backend: {backend}")

@@ -43,10 +43,14 @@ class DistributedRuntime:
             path=self.config.discovery_path,
             ttl_s=self.config.lease_ttl_s,
             cluster_id=cluster_id,
+            etcd_endpoint=self.config.etcd_endpoint,
         )
         ep_kind = self.config.event_plane
         if ep_kind == "auto":
-            # multi-process discovery backends need a cross-process bus
+            # multi-process discovery backends need a cross-process bus;
+            # the JAX runtime's rule, kubernetes included: it gets the
+            # in-process plane, so under the repo's manifests (none sets
+            # DYN_EVENT_PLANE) KV events and load metrics stay in the pod
             ep_kind = ("zmq" if self.config.discovery_backend
                        in ("file", "etcd") else "inproc")
         self.event_plane: EventPlane = make_event_plane(

@@ -11,7 +11,8 @@ Two entry points:
   * :func:`call_with_retry` — wrap an async callable; retries on the
     given exception types until attempts/deadline run out (the disagg
     pull's chunk ops use it with PULL_POLICY, engine/core.py; the KVBM
-    pull with KVBM_POLICY, kvbm/remote.py).
+    pull with KVBM_POLICY, kvbm/remote.py; the etcd lease with
+    LEASE_POLICY, runtime/etcd.py).
   * :class:`Backoff` — an attempt pacer for call sites that cannot be
     expressed as a closure.
 
@@ -62,6 +63,11 @@ class RetryPolicy:
 PULL_POLICY = RetryPolicy(max_attempts=3, base_s=0.05, cap_s=0.5)
 # the cross-worker KVBM pull (kvbm/remote.py RemoteKvbmPuller.fetch_run)
 KVBM_POLICY = RetryPolicy(max_attempts=3, base_s=0.05, cap_s=0.5)
+# discovery lease grants and re-registration puts (runtime/etcd.py): a
+# transient gateway outage at startup must not kill a worker before it
+# ever registers
+LEASE_POLICY = RetryPolicy(max_attempts=5, base_s=0.1, cap_s=2.0,
+                           deadline_s=30.0)
 
 
 class Backoff:
@@ -136,6 +142,7 @@ async def call_with_retry(
 __all__ = [
     "Backoff",
     "KVBM_POLICY",
+    "LEASE_POLICY",
     "PULL_POLICY",
     "RetryPolicy",
     "call_with_retry",

@@ -393,9 +393,12 @@ async def _capture_trace(trace_dir: str,
     duration_s, then export a Chrome trace into trace_dir.  The profiler
     starts and stops on the event loop's thread (its CUPTI client
     registers with the thread that first starts it, which in a serving
-    process is the loop's); the wait and the export run off it.
-    Returns (backend, trace file)."""
+    process is the loop's), each under device.PROFILER_GRAPH_LOCK, so no
+    CUDA graph launch runs inside either (CUPTI deadlocks on that); the
+    wait and the export run off it.  Returns (backend, trace file)."""
     import torch
+
+    from ..device import PROFILER_GRAPH_LOCK
 
     cuda = torch.cuda.is_available()
     acts = [torch.profiler.ProfilerActivity.CPU]
@@ -403,14 +406,16 @@ async def _capture_trace(trace_dir: str,
         acts.append(torch.profiler.ProfilerActivity.CUDA)
     await asyncio.to_thread(os.makedirs, trace_dir, exist_ok=True)
     prof = torch.profiler.profile(activities=acts)
-    prof.start()
+    with PROFILER_GRAPH_LOCK:
+        prof.start()
     try:
         await asyncio.sleep(duration_s)
         if cuda:
             # the kernels queued inside the window land in the trace
             await asyncio.to_thread(torch.cuda.synchronize)
     finally:
-        prof.stop()
+        with PROFILER_GRAPH_LOCK:
+            prof.stop()
     path = os.path.join(trace_dir, "trace.json")
     await asyncio.to_thread(prof.export_chrome_trace, path)
     return ("cuda" if cuda else "cpu"), path

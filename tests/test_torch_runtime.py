@@ -252,10 +252,26 @@ async def test_file_discovery_shared_between_packages(tmp_path):
     assert list(tmp_path.rglob("*.json")) == []
 
 
-def test_unported_discovery_backends_raise():
-    for backend in ("etcd", "kubernetes"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            make_discovery(backend)
+def test_unported_discovery_backends_raise(monkeypatch):
+    """Every backend JAX's make_discovery builds, the port's builds too
+    (the etcd and kubernetes backends, runtime/etcd.py and kube.py, with
+    JAX's defaults); an unknown one raises JAX's ValueError.  The name
+    is from when etcd and kubernetes were not yet ported and raised."""
+    from dynamo_tpu_torch.runtime.etcd import EtcdDiscovery
+    from dynamo_tpu_torch.runtime.kube import KubeDiscovery
+
+    monkeypatch.setenv("DYN_K8S_API", "http://127.0.0.1:1")
+    etcd = make_discovery("etcd", ttl_s=2.0)
+    assert isinstance(etcd, EtcdDiscovery)
+    assert (etcd.endpoint, etcd.ttl_s) == ("http://127.0.0.1:2379", 2.0)
+    assert make_discovery("etcd", etcd_endpoint="http://e:1").endpoint == \
+        "http://e:1"
+    kube = make_discovery("kubernetes", cluster_id="c", ttl_s=3.0)
+    assert isinstance(kube, KubeDiscovery)
+    assert (kube.api, kube.cluster_id, kube.ttl_s) == (
+        "http://127.0.0.1:1", "c", 3.0)
+    with pytest.raises(ValueError, match="unknown discovery backend"):
+        make_discovery("zookeeper")
 
 
 # ---------------------------------------------------------------------------
