@@ -122,12 +122,25 @@ process directly by a `TorchEngine` and through a `TorchEngineWorker`
 direct; three rounds), each turn's TTFT, tokens/s, decode-step medians
 and prefill dispatches logged, and the port's codec is timed per frame.
 
-The decode A/B (part of the whole check; alone with --decode-ab) serves
-the five requests on a bf16 cache in one process by a lockstep engine
-with single eager decode steps and by a default engine on graphs (same
-weights, own caches), in turns (lockstep, default, default, lockstep;
+Every engine of the check serves with the KV ledger on (its default,
+dynamo_tpu_torch/obs/kv_ledger.py).  The engine, decode A/B, disagg,
+disagg IPC (its decode worker) and KVBM phases end each engine with an
+on-demand audit that must reconcile clean with no violation counted by
+any earlier sweep, and each KVBM turn holds the ledger's per-tier
+onboard counts to the engine's and the KVBM manager's; the worker phase
+checks the forensic stamp (`metrics["forensic"]`) on exactly each
+stream's first-token and finish frames, and the status phase /debug/kv
+(401 without the token; the schema, a clean fresh audit) and the
+ledger's gauges on /metrics.
+
+The decode A/B (part of the whole check with one round; alone with
+--decode-ab) serves the five requests on a bf16 cache in one process by
+a lockstep engine with single eager decode steps, a default engine on
+graphs and the same with the KV ledger off (same weights, own caches),
+in turns (lockstep, default, ledger_off, ledger_off, default, lockstep;
 two rounds): TTFT per request, decode tokens/s, the median dispatch gap
-per burst and per token, the device's busy share of a profiled turn and
+per burst and per token, the median scheduler step's host wall time and
+the ledger's sweeps, the device's busy share of a profiled turn and
 device operations per decode token.
 
 The fused A/B (part of the whole check; alone with --fused-ab) serves
@@ -142,13 +155,18 @@ token, and the epilogue's bound.  Greedy streams must be equal, except
 where they part at a near-tie: the off logits' top-2 gap at that token
 (recomputed) within the largest tile-vs-full logit difference measured.
 
-The prefill A/B (part of the whole check; alone with --prefill-ab)
-serves the five requests on a bf16 cache by two default engines with
-the same weights, packed prefill eager (TorchEngine(prefill_graphs=
-False)) and on graphs, in turns (eager, graph, graph, eager; two
-rounds): TTFT per request, the time from a warm run's start to its first
-prefill record, the host time to dispatch one prefill, decode tokens/s,
-and device operations per prefill token; streams must be equal.
+The prefill A/B (part of the whole check with one round; alone with
+--prefill-ab) serves the five requests on a bf16 cache by three default
+engines with the same weights, packed prefill eager
+(TorchEngine(prefill_graphs=False)), on graphs, and the padded programs
+(prefill_packed=False), in turns (eager, graph, padded, padded, graph,
+eager; two rounds): TTFT per request, the time from a warm run's start
+to its first prefill record, the host time to dispatch one prefill,
+decode tokens/s, and device operations per prefill token; the packed
+paths' streams must be equal, the padded path's equal across its turns,
+and each prompt's padded prompt-end logits within PADDED_LOGIT_TOL of
+the packed ones; where the padded greedy streams first part from the
+packed ones is logged with the packed top-2 gap there.
 
 The disagg phase (part of the whole check; alone with --disagg): a
 prefill and a decode TorchEngineWorker (role "prefill" and "decode") in
@@ -1105,6 +1123,34 @@ async def _serve(engine, reqs):
     return await asyncio.gather(*(one(r) for r in reqs))
 
 
+async def _audit_clean(engine, what: str) -> dict:
+    """An on-demand audit of `engine`'s KV ledger (the /debug/kv cadence:
+    between scheduler steps, under the step lock).  Exits unless the
+    ledger is on, this sweep reconciles clean, and no earlier sweep (the
+    finish and idle cadences) counted a violation.  Returns the audit's
+    host ms (the wait for the step lock included) and the ledger's G1
+    attribution."""
+    led = engine.kv_ledger
+    if led is None:
+        raise SystemExit(f"{what}: the KV ledger is off")
+    t0 = time.perf_counter()
+    report = await engine.audit_kv()
+    ms = (time.perf_counter() - t0) * 1e3
+    totals = led.violations_by_kind()
+    att = led.attribution()["g1"]
+    counts = led.dump(tail=0)["counts"]
+    log(f"{what}: KV ledger audit on demand "
+        f"{'clean' if report.get('clean') else 'FAILED'} in {ms:.2f} ms, "
+        f"{report.get('violation_count')} violation(s), totals {totals}; "
+        f"G1 active {att['active']}, prefix-cached {att['prefix_cached']}, "
+        f"pinned by transfer {att['pinned_by_transfer']}, tracked "
+        f"{att['tracked']}; ops {counts}")
+    if not report.get("clean") or totals:
+        raise SystemExit(f"{what}: KV ledger violations "
+                         f"{report.get('violations')}, totals {totals}")
+    return {"ms": ms, "g1": att}
+
+
 def _compare_logits(params, cfg, device, kv_dtype: str) -> int:
     """One 512-token prompt's last-token logits, and the next decode
     step's, through the kernel path and the plain path on the card, on a
@@ -1320,6 +1366,7 @@ def check_engine(device, card: str, kv_dtype: str = "bf16", params=None):
                 await _serve(engine, reqs)
                 torch.cuda.synchronize()
                 wall = time.perf_counter() - t0
+            await _audit_clean(engine, f"engine ({kv_dtype})")
             return (first, counts, stats, (second, steps), (dispatches, tail),
                     (prof, wall, used[0].launches - n0))
         finally:
@@ -1714,18 +1761,27 @@ async def _serving_worker(device, cfg, params, status: bool = False,
             raise SystemExit("the MDC outlived close()")
 
 
-async def _serve_worker(client, reqs):
+async def _serve_worker(client, reqs, stamps: Optional[dict] = None):
     """_serve through the request plane: every request sent at once as
-    PreprocessedRequest.to_dict() by `client`."""
+    PreprocessedRequest.to_dict() by `client`.  With `stamps` a dict,
+    stamps[request id] collects (frame index, metrics["forensic"]) for
+    every frame that carries the worker's forensic stamp, and
+    stamps[(request id, "frames")] the stream's frame count."""
     t0 = time.perf_counter()
 
     async def one(req):
-        toks, finish, first = [], None, None
+        toks, finish, first, i = [], None, None, 0
         async for out in client.generate(req.to_dict()):
             if out.get("token_ids") and first is None:
                 first = time.perf_counter() - t0
             toks.extend(out.get("token_ids", []))
             finish = out.get("finish_reason")
+            stamp = (out.get("metrics") or {}).get("forensic")
+            if stamps is not None and stamp is not None:
+                stamps.setdefault(req.request_id, []).append((i, stamp))
+            i += 1
+        if stamps is not None:
+            stamps[(req.request_id, "frames")] = i
         return toks, finish, first, time.perf_counter() - t0
 
     return await asyncio.gather(*(one(r) for r in reqs))
@@ -1824,6 +1880,69 @@ def _leaves(tree):
             yield from _leaves(v)
     elif isinstance(tree, torch.Tensor):
         yield tree
+
+
+def _check_stamps(what: str, reqs, stamps: dict, hits: int) -> None:
+    """The forensic stamp (the JAX engine's `_forensic`) on exactly each
+    stream's first-token and finish frames: the first says 1 token
+    generated, the finish the stream's 32, every one names a queue
+    position among the requests sent and at least one prefill chunk,
+    and the first stamps' realized prefix reuse sums to the engine's
+    `cache_hit_tokens` (`hits`)."""
+    bad, reused = [], 0
+    for r in reqs:
+        got = stamps.get(r.request_id, [])
+        last = stamps.get((r.request_id, "frames"), 0) - 1
+        ok = ([i for i, _ in got] == [0, last] and last > 0
+              and got[0][1]["generated"] == 1
+              and got[-1][1]["generated"] == r.stop.max_tokens
+              and all(0 <= st["queue_pos"] < len(reqs)
+                      and st["prefill_chunks"] >= 1 for _, st in got))
+        if not ok:
+            bad.append((r.request_id, got, last))
+        elif got:
+            reused += got[0][1]["cached_tokens"]
+    log(f"{what}: forensic stamps on the first-token and finish frames of "
+        f"{len(reqs) - len(bad)} of {len(reqs)} streams, e.g. "
+        f"{stamps.get(reqs[-1].request_id)}; realized prefix reuse "
+        f"{reused} tokens (engine {hits})")
+    if bad or reused != hits:
+        raise SystemExit(f"{what}: forensic stamps wrong or missing: {bad}")
+
+
+async def _status_kv(rt, worker) -> dict:
+    """/debug/kv without and with the token (401, then the worker's
+    `kv:{instance_id}` source: schema dynamo.kv_ledger.v1, enabled, a
+    fresh on-demand audit clean, no violation counted), and the ledger's
+    gauges on /metrics (dynamo_kv_ledger_blocks per G1 state, no nonzero
+    dynamo_kv_ledger_violations_total)."""
+    addr = rt.system_address
+    st_open, _ = await _http(addr, "/debug/kv")
+    t0 = time.perf_counter()
+    st, body = await _http(addr, "/debug/kv", token=STATUS_TOKEN)
+    ms = (time.perf_counter() - t0) * 1e3
+    src = json.loads(body)["sources"].get(
+        f"kv:{worker.served.instance_id}", {}) if st == 200 else {}
+    _, text = await _http(addr, "/metrics")
+    samples = _parse_metrics(text.decode())
+    blocks = {lab.get("state"): v for n, lab, v in samples
+              if n == "dynamo_kv_ledger_blocks" and lab.get("tier") == "g1"}
+    viol = [v for n, _, v in samples
+            if n == "dynamo_kv_ledger_violations_total"]
+    log(f"/debug/kv without the token {st_open}, with it {st} in "
+        f"{ms:.1f} ms: schema {src.get('schema')}, enabled "
+        f"{src.get('enabled')}, audit clean "
+        f"{(src.get('audit') or {}).get('clean')}, violations_total "
+        f"{src.get('violations_total')}, g1 {src.get('attribution', {}).get('g1')}"
+        f"; /metrics dynamo_kv_ledger_blocks{{tier=g1}} {blocks}, "
+        f"violation samples {viol}")
+    if st_open != 401 or st != 200 \
+            or src.get("schema") != "dynamo.kv_ledger.v1" \
+            or src.get("enabled") is not True \
+            or not (src.get("audit") or {}).get("clean") \
+            or src.get("violations_total") or not blocks or any(viol):
+        raise SystemExit("/debug/kv or the KV ledger gauges failed")
+    return {"debug_kv_ms": ms, "g1": blocks}
 
 
 async def _status_probes(rt, worker, seen) -> dict:
@@ -2207,11 +2326,13 @@ def check_worker(device, card: str, cfg, params, direct) -> tuple:
             for fn in used:
                 fn.launches = 0
             w0 = time.monotonic()
-            res = await _serve_worker(client, reqs)
+            stamps: dict = {}
+            res = await _serve_worker(client, reqs, stamps)
             w1 = time.monotonic()
             counts = {fn.__name__: fn.launches for fn in used}
             steps = {k: eng.metrics[k] - m0[k] for k in
                      ("decode_steps", "prefill_steps", "cache_hit_tokens")}
+            _check_stamps("worker", reqs, stamps, steps["cache_hit_tokens"])
             # load metrics and FPM records (published every 0.5 s)
             for _ in range(100):
                 if seen["load"] and seen["fpm"]:
@@ -2249,6 +2370,7 @@ def check_worker(device, card: str, cfg, params, direct) -> tuple:
             stop_poll.set()
             await poller
             await _status_gauges(rt, worker, seen, recs)
+            await _status_kv(rt, worker)
             await _status_debug(rt, worker, client, reqs, seen)
             await _tracing_ab(eng, reqs)
             await _status_trace(os.path.join(trace_dir, "trace.json"))
@@ -2452,17 +2574,43 @@ def _decode_ab_record(path: str, res, records) -> dict:
     }
 
 
+def _time_steps(engine, steps: list, audits: list) -> None:
+    """Wrap the engine's scheduler step so each appends its wall seconds
+    on the scheduler thread (host work and the device waits inside it)
+    to `steps`, and its KV-ledger sweeps so each appends its seconds to
+    `audits`."""
+    step, sweep = engine._sched_step, engine._audit_ledger_locked
+
+    def timed_step():
+        t0 = time.perf_counter()
+        step()
+        steps.append(time.perf_counter() - t0)
+
+    def timed_sweep(where="step"):
+        t0 = time.perf_counter()
+        out = sweep(where)
+        audits.append(time.perf_counter() - t0)
+        return out
+
+    engine._sched_step, engine._audit_ledger_locked = timed_step, timed_sweep
+
+
 def decode_ab(device, card: str, params, rounds: int = 2) -> dict:
     """The five requests at llama-8b width on a bf16 cache, served in one
-    process by two engines with the same weights and their own caches:
+    process by three engines with the same weights and their own caches:
     "lockstep", the lockstep scheduler with single eager decode steps
-    (overlap_scheduling=False, decode_fused_steps=1, no CUDA graphs), and
-    "default", the JAX engine's defaults on CUDA graphs; in turns
-    (lockstep, default, default, lockstep) `rounds` times after a warm-up
-    run of each, each turn from a cleared prefix cache after 1.1 s idle;
-    then one profiled turn of each for the device's busy share, and each
-    path's device operations per decode token (its decode program's
-    body).  Returns the turns and each path's medians."""
+    (overlap_scheduling=False, decode_fused_steps=1, no CUDA graphs),
+    "default", the JAX engine's defaults on CUDA graphs with the KV
+    ledger on (its default), and "ledger_off", the same with
+    kv_ledger=False; in turns (lockstep, default, ledger_off, ledger_off,
+    default, lockstep) `rounds` times after a warm-up run of each, each
+    turn from a cleared prefix cache after 1.1 s idle, logging each
+    turn's median scheduler step (host wall ms on its thread) and its
+    ledger sweeps; then one profiled turn of lockstep and default for
+    the device's busy share, and each path's device operations per
+    decode token (its decode program's body), and an on-demand audit of
+    the default engine (clean).  Returns the turns and each path's
+    medians."""
     from dynamo_tpu_torch.engine import TorchEngine
 
     cfg = _engine_config("bf16")
@@ -2471,12 +2619,23 @@ def decode_ab(device, card: str, params, rounds: int = 2) -> dict:
             cfg, overlap_scheduling=False, decode_fused_steps=1),
             params=params, device=device, cuda_graphs=False),
         "default": TorchEngine(dataclasses.replace(cfg), params=params,
-                               device=device)}
+                               device=device),
+        "ledger_off": TorchEngine(dataclasses.replace(cfg, kv_ledger=False),
+                                  params=params, device=device)}
+    if engines["default"].kv_ledger is None \
+            or engines["ledger_off"].kv_ledger is not None:
+        raise SystemExit("decode A/B: the KV ledger is not on by default "
+                         "or not off when asked")
     reqs = _requests(cfg.resolve_model().vocab_size)
     for eng in engines.values():
         eng.warmup_decode()
-    ks = {"lockstep": 1, "default": 8}
-    ops = {p: _body_ops(e, ks[p]) for p, e in engines.items()}
+    ks = {"lockstep": 1, "default": 8, "ledger_off": 8}
+    ops = {p: _body_ops(engines[p], ks[p]) for p in ("lockstep", "default")}
+    ops["ledger_off"] = ops["default"]  # the same programs: no host hook
+    step_s = {p: [] for p in engines}
+    audit_s = {p: [] for p in engines}
+    for path, eng in engines.items():
+        _time_steps(eng, step_s[path], audit_s[path])
     gc.collect()
 
     async def run():
@@ -2486,12 +2645,14 @@ def decode_ab(device, card: str, params, rounds: int = 2) -> dict:
                 await _serve(eng, reqs)
                 await eng.clear_kv_blocks()
             await asyncio.sleep(1.1)
-            for path in ["lockstep", "default", "default",
-                         "lockstep"] * rounds:
+            for path in ["lockstep", "default", "ledger_off", "ledger_off",
+                         "default", "lockstep"] * rounds:
                 eng = engines[path]
+                n0, a0 = len(step_s[path]), len(audit_s[path])
                 w0 = time.monotonic()
                 res = await _serve(eng, reqs)
                 w1 = time.monotonic()
+                mine, sweeps = step_s[path][n0:], audit_s[path][a0:]
                 await eng.clear_kv_blocks()
                 await asyncio.sleep(1.1)
                 bad = [i for i, r in enumerate(res)
@@ -2501,10 +2662,15 @@ def decode_ab(device, card: str, params, rounds: int = 2) -> dict:
                                      "did not finish with 32 tokens")
                 turns.append(_decode_ab_record(
                     path, res, [r for r in eng.fpm if w0 <= r["t"] <= w1]))
+                turns[-1].update(
+                    step_host_ms=round(float(np.median(mine)) * 1e3, 3),
+                    steps=len(mine), ledger_sweeps=len(sweeps),
+                    ledger_sweep_ms=round(sum(sweeps) * 1e3, 3))
                 turns[-1]["streams"] = [r[0] for r in res]
                 log(f"decode A/B turn {len(turns)}: "
                     f"{ {k: v for k, v in turns[-1].items() if k != 'streams'} }")
-            for path, eng in engines.items():
+            for path in ("lockstep", "default"):
+                eng = engines[path]
                 with torch.profiler.profile(activities=[
                         torch.profiler.ProfilerActivity.CPU,
                         torch.profiler.ProfilerActivity.CUDA]) as p:
@@ -2516,6 +2682,7 @@ def decode_ab(device, card: str, params, rounds: int = 2) -> dict:
                 log(f"decode A/B, {path}, profiled turn:")
                 prof[path] = (_device_breakdown(p, wall),
                               sum(len(r[0]) for r in res))
+            await _audit_clean(engines["default"], "decode A/B, default")
         finally:
             for eng in engines.values():
                 await eng.close()
@@ -2527,14 +2694,16 @@ def decode_ab(device, card: str, params, rounds: int = 2) -> dict:
     if any(t["streams"][i] != ref[i] for t in turns for i in greedy):
         raise SystemExit("decode A/B: greedy streams differ between paths")
     summary = {}
-    for path in ("lockstep", "default"):
+    for path in engines:
         mine = [t for t in turns if t["path"] == path]
         med = {key: float(np.median([t[key] for t in mine]))
                for key in ("decode_tok_s", "gap_ms_per_burst",
-                           "gap_ms_per_token")}
+                           "gap_ms_per_token", "step_host_ms")}
         med["ttft_s"] = [float(np.median([t["ttft_s"][i] for t in mine]))
                          for i in range(len(reqs))]
-        seen, tokens = prof[path]
+        med["ledger_sweep_ms_per_turn"] = float(np.median(
+            [t["ledger_sweep_ms"] for t in mine]))
+        seen, tokens = prof.get(path, (None, 0))
         med["busy_share"] = seen["busy_share"] if seen else None
         med["device_ops_per_token_served"] = (seen["device_ops"] / tokens
                                               if seen else None)
@@ -2543,9 +2712,16 @@ def decode_ab(device, card: str, params, rounds: int = 2) -> dict:
         summary[path] = med
         log(f"decode A/B, {path}, median of {len(mine)} turns ({card}): "
             f"{med}")
+    on, off = summary["default"], summary["ledger_off"]
     log(f"decode A/B: default over lockstep decode tokens/s "
-        f"{summary['default']['decode_tok_s'] / summary['lockstep']['decode_tok_s']:.2f}x; "
-        f"greedy streams equal across every turn of both paths")
+        f"{on['decode_tok_s'] / summary['lockstep']['decode_tok_s']:.2f}x; "
+        f"the KV ledger's cost ({card}): decode tokens/s with it "
+        f"{on['decode_tok_s']:.2f} against {off['decode_tok_s']:.2f} "
+        f"without ({on['decode_tok_s'] / off['decode_tok_s']:.4f}x), "
+        f"median scheduler step {on['step_host_ms']:.3f} against "
+        f"{off['step_host_ms']:.3f} ms host wall, its sweeps "
+        f"{on['ledger_sweep_ms_per_turn']:.3f} ms a turn; greedy streams "
+        f"equal across every turn of every path")
     for t in turns:
         del t["streams"]
     return {"turns": turns, "median": summary}
@@ -2805,7 +2981,19 @@ def fused_ab(device, card: str, params, rounds: int = 2) -> dict:
 def _time_prefill_dispatches(engine, into: list) -> None:
     """Wrap the engine's prefill programs so each dispatch appends its
     host seconds (descriptor upload through the program's launch, eager
-    or replayed) to `into`."""
+    or replayed; for the padded programs, the uploads and the eager
+    body's launches) to `into`."""
+    if engine.padded_prefill is not None:
+        padded = engine.padded_prefill.run
+
+        def timed_padded(a):
+            t0 = time.perf_counter()
+            out = padded(a)
+            into.append(time.perf_counter() - t0)
+            return out
+
+        engine.padded_prefill.run = timed_padded
+        return
     g = engine.prefill_graphs
     upload, run = g.upload, g.run
     t0 = []
@@ -2839,27 +3027,109 @@ def _prefill_ops_per_token(engine) -> float:
     return ops / sum(r[1] for r in rows)
 
 
+# the padded prefill's prompt-end logits against the packed one's, relative
+# L2: two bf16 attention routes (plain padded against K3) read 0.0197-0.0205
+# on an H100 for the five prompts, as K3 against the plain packed path does
+# in the engine phase (cosine 0.99979, relative L2 0.020); 1.5x that
+PADDED_LOGIT_TOL = 3e-2
+
+
+def _padded_logits(params, mc, device, reqs) -> dict:
+    """Each request's prompt-end logits through the packed program's
+    model function (`prefill_packed`, K3) and the padded one's
+    (`prefill`, one sequence padded to its bucket), each on a fresh
+    cache: {request id: (relative L2 of padded against packed, the
+    packed logits' top-2 gap, top tokens equal)}."""
+    from dynamo_tpu_torch.models import llama
+
+    out = {}
+    bs, nb = 128, 16
+
+    def i32(x):
+        return torch.tensor(x, dtype=torch.int32, device=device)
+
+    for r in reqs:
+        L = len(r.token_ids)
+        T = next(b for b in (32, 64, 128, 256, 512, 1024, 2048) if b >= L)
+        table = [1 + i for i in range(-(-L // bs))]
+        table += [0] * (nb - len(table))
+        toks = r.token_ids + [0] * (T - L)
+        res = []
+        for packed in (True, False):
+            kv = tuple(torch.zeros(s_, dtype=mc.dtype, device=device)
+                       for s_ in llama.kv_cache_shapes(mc, nb + 1, bs))
+            if packed:
+                lg, _ = llama.prefill_packed(
+                    params, mc, kv, i32(toks), i32(list(range(L))
+                                                   + [0] * (T - L)),
+                    i32([0] * T), i32([table]), i32([L - 1]),
+                    torch.arange(T, device=device) < L)
+                res.append(lg[0].float())
+            else:
+                lg, _ = llama.prefill(params, mc, kv, i32(toks),
+                                      i32(list(range(T))), i32(table), 0, L)
+                res.append(lg.reshape(-1).float())
+        a, b = res
+        top2 = torch.topk(a, 2).values
+        out[r.request_id] = (
+            ((b - a).norm() / a.norm()).item(),
+            (top2[0] - top2[1]).item(), int(a.argmax()) == int(b.argmax()))
+    return out
+
+
+def _first_parting(params, mc, device, reqs, packed, padded,
+                   logits: dict) -> dict:
+    """For each greedy request whose padded stream parts from the packed
+    one: (the first token index where they differ, the packed path's
+    top-2 logit gap there: the prompt-end logits' at index 0, else
+    recomputed teacher-forced by _replay_gap)."""
+    out = {}
+    for i, r in enumerate(reqs):
+        if r.sampling.temperature > 0 or packed[i] == padded[i]:
+            continue
+        j = next(k for k, (x, y) in enumerate(zip(packed[i], padded[i]))
+                 if x != y)
+        gap = (logits[r.request_id][1] if j == 0 else
+               _replay_gap(params, mc, device, r.token_ids, packed[i], j)[0])
+        out[r.request_id] = (j, gap)
+    return out
+
+
 def prefill_ab(device, card: str, params, rounds: int = 2) -> dict:
     """The five requests at llama-8b width on a bf16 cache, served in one
-    process by two default engines with the same weights and their own
+    process by three default engines with the same weights and their own
     caches: "eager" (packed prefill dispatched layer by layer from the
-    host, TorchEngine(prefill_graphs=False); decode on graphs) and
-    "graph" (one captured program per bucket), in turns (eager, graph,
-    graph, eager) `rounds` times after a warm-up run of each, each turn
-    from a cleared prefix cache after 1.1 s idle.  Logs per turn TTFT per
-    request, the time from the run's start to its first prefill record
-    (FPM), the median host time to dispatch one prefill and decode
-    tokens/s, and device operations per prefill token.  Exits unless
-    the graph engine's warm-up built every bucket once and serving none,
-    the eager engine captured nothing, and every stream is equal across
-    turns and paths (the replays are bit-equal to the eager bodies)."""
+    host, TorchEngine(prefill_graphs=False); decode on graphs), "graph"
+    (one captured program per bucket) and "padded" (prefill_packed=False:
+    the padded programs, `prefill` for one prompt and `prefill_batched`
+    for several, eager; decode on graphs), in turns (eager, graph,
+    padded, padded, graph, eager) `rounds` times after a warm-up run of
+    each, each turn from a cleared prefix cache after 1.1 s idle.  Logs
+    per turn TTFT per request, the time from the run's start to its
+    first prefill record (FPM), the median host time to dispatch one
+    prefill and decode tokens/s, and device operations per prefill
+    token.  Exits unless the graph engine's warm-up built every bucket
+    once and serving none, the eager engine captured nothing, the padded
+    engine's warm-up ran every padded shape and serving no other, every
+    stream of the packed paths is equal across turns and paths (the
+    replays are bit-equal to the eager bodies), the padded path's
+    streams are equal across its turns, and each prompt's padded
+    prompt-end logits are within PADDED_LOGIT_TOL of the packed ones;
+    logs where the padded path's greedy streams first part from the
+    packed ones, with the packed path's top-2 gap there."""
     from dynamo_tpu_torch.engine import TorchEngine
 
     cfg = _engine_config("bf16")
     engines = {"eager": TorchEngine(dataclasses.replace(cfg), params=params,
                                     device=device, prefill_graphs=False),
                "graph": TorchEngine(dataclasses.replace(cfg), params=params,
-                                    device=device)}
+                                    device=device),
+               "padded": TorchEngine(dataclasses.replace(
+                   cfg, prefill_packed=False), params=params,
+                   device=device)}
+    if engines["padded"].padded_prefill is None:
+        raise SystemExit("prefill A/B: prefill_packed=False kept the "
+                         "packed programs")
     for path, eng in engines.items():
         t0 = time.perf_counter()
         eng.warmup_decode()
@@ -2868,6 +3138,9 @@ def prefill_ab(device, card: str, params, rounds: int = 2) -> dict:
     built = _log_prefill_programs(engines["graph"], "prefill A/B, graph")
     if engines["eager"].prefill_graphs.capture_s:
         raise SystemExit("prefill A/B: the eager engine captured a program")
+    padded_built = dict(engines["padded"].padded_prefill.counts)
+    log(f"prefill A/B, padded: warm-up ran {len(padded_built)} padded "
+        f"shapes (rows, bucket) {sorted(padded_built)}")
     ops = _prefill_ops_per_token(engines["graph"])
     host = {p: [] for p in engines}
     for path, eng in engines.items():
@@ -2882,7 +3155,8 @@ def prefill_ab(device, card: str, params, rounds: int = 2) -> dict:
                 await _serve(eng, reqs)
                 await eng.clear_kv_blocks()
             await asyncio.sleep(1.1)
-            for path in ["eager", "graph", "graph", "eager"] * rounds:
+            for path in ["eager", "graph", "padded", "padded", "graph",
+                         "eager"] * rounds:
                 eng = engines[path]
                 n0 = len(host[path])
                 w0 = time.monotonic()
@@ -2919,22 +3193,50 @@ def prefill_ab(device, card: str, params, rounds: int = 2) -> dict:
     if engines["graph"].prefill_graphs.counts != built:
         raise SystemExit(f"prefill A/B: serving built prefill programs: "
                          f"{engines['graph'].prefill_graphs.counts}")
+    if engines["padded"].padded_prefill.counts != padded_built:
+        raise SystemExit(f"prefill A/B: serving ran new padded shapes: "
+                         f"{engines['padded'].padded_prefill.counts}")
     ref = turns[0]["streams"]
-    if any(t["streams"] != ref for t in turns):
+    if any(t["streams"] != ref for t in turns if t["path"] != "padded"):
         raise SystemExit("prefill A/B: streams differ between turns or "
-                         "paths")
+                         "packed paths")
+    pads = [t["streams"] for t in turns if t["path"] == "padded"]
+    if any(p != pads[0] for p in pads):
+        raise SystemExit("prefill A/B: the padded path's streams differ "
+                         "between its turns")
+    mc = engines["graph"].model_cfg
+    logits = _padded_logits(params, mc, device, reqs)
+    parted = _first_parting(params, mc, device, reqs, ref, pads[0], logits)
+    worst = max(v[0] for v in logits.values())
+    log(f"prefill A/B, padded against packed prompt-end logits ({card}): "
+        f"relative L2 by request {[round(v[0], 6) for v in logits.values()]}"
+        f" (max {worst:.6f}, tolerance {PADDED_LOGIT_TOL}), packed top-2 "
+        f"gaps {[round(v[1], 4) for v in logits.values()]}, top tokens "
+        f"equal {[v[2] for v in logits.values()]}; greedy streams part "
+        f"(request: first index, packed top-2 gap there) {parted or 'nowhere'}")
+    if worst > PADDED_LOGIT_TOL:
+        raise SystemExit("prefill A/B: the padded prefill's logits are off "
+                         "the packed ones")
     summary = {}
-    for path in ("eager", "graph"):
+    for path in engines:
         mine = [t for t in turns if t["path"] == path]
         med = {key: float(np.median([t[key] for t in mine]))
                for key in ("first_prefill_ms", "dispatch_host_ms",
                            "decode_tok_s")}
         med["ttft_s"] = [float(np.median([t["ttft_s"][i] for t in mine]))
                          for i in range(len(reqs))]
-        med["device_ops_per_prefill_token"] = ops
+        # the packed bucket program's body (the padded path's not counted)
+        med["device_ops_per_prefill_token"] = (ops if path != "padded"
+                                               else None)
         summary[path] = med
         log(f"prefill A/B, {path}, median of {len(mine)} turns ({card}): "
             f"{med}")
+    log(f"prefill A/B: padded against graph, first prefill record "
+        f"{summary['padded']['first_prefill_ms']:.2f} against "
+        f"{summary['graph']['first_prefill_ms']:.2f} ms, host time a "
+        f"dispatch {summary['padded']['dispatch_host_ms']:.3f} against "
+        f"{summary['graph']['dispatch_host_ms']:.3f} ms, ttft s "
+        f"{summary['padded']['ttft_s']} against {summary['graph']['ttft_s']}")
     log(f"prefill A/B: graph against eager, first prefill record "
         f"{summary['graph']['first_prefill_ms']:.2f} against "
         f"{summary['eager']['first_prefill_ms']:.2f} ms after a run's "
@@ -2945,7 +3247,8 @@ def prefill_ab(device, card: str, params, rounds: int = 2) -> dict:
         f"both paths")
     for t in turns:
         del t["streams"]
-    return {"turns": turns, "median": summary}
+    return {"turns": turns, "median": summary,
+            "padded_logits": logits, "padded_parted": parted}
 
 
 # ---------------------------------------------------------------------------
@@ -3328,6 +3631,10 @@ def check_disagg(device, card: str, params) -> dict:
                 if g.counts != built:
                     raise SystemExit(f"disagg: serving built programs: "
                                      f"{g.counts} after warm-up {built}")
+            # every park released, every pulled slot finished: both
+            # workers' books reconcile
+            for w, role in ((pw, "prefill"), (dw, "decode")):
+                await _audit_clean(w.engine, f"disagg {role} worker")
             result["recomputes"] = len(replays)
             result["layout"] = layout
             # a broker chunk (8 frames' worth), within half the pool
@@ -3708,6 +4015,7 @@ def check_disagg_ipc(device, card: str, params, ref_one=None,
                 out.append({"tier": tier, "one": one, "stats": stats,
                             "decode": dm, "differ": differ, "timed": timed})
             del dw.engine._inject_pulled_chunk
+            await _audit_clean(dw.engine, "disagg ipc decode worker")
             result["turns"] = out
             result["launches"] = launches
             result["built"] = (built, _program_counts(dw.engine))
@@ -3965,6 +4273,7 @@ def _kvbm_turn(device, card: str, cfg, params, prompts, what: str,
             kept = eng.allocator.lookup(hashes)
             again, trace = await _repeat(eng, _greedy(a, "kvbm-a2"))
             launches = {fn.__name__: fn.launches for fn in count}
+            await _audit_clean(eng, what)
             return first, churned, churn_s, kept, again, trace, launches
         finally:
             await eng.close()
@@ -3980,6 +4289,17 @@ def _kvbm_turn(device, card: str, cfg, params, prompts, what: str,
     n_dec = sum(len(r[0]) - 1 for r in churned)
     dec_s = sum(r[3] - r[2] for r in churned)
     g2 = eng.kvbm.g2 if eng.kvbm is not None else None
+    # the ledger's per-tier onboard marks against the engine's onboard
+    # counters and the KVBM manager's fetch hits
+    led = eng.kv_ledger.onboard_counts()
+    mine = {t: eng.metrics[f"kv_onboard_{t}"] for t in ("g2", "g3", "g4")
+            if eng.metrics.get(f"kv_onboard_{t}")}
+    hits = eng.kvbm.stats["onboarded"] if g2 is not None else 0
+    log(f"{what}: KV ledger onboards by tier {led}, engine counters "
+        f"{mine}, KVBM fetch hits {hits}")
+    if led != mine or sum(led.values()) != hits:
+        raise SystemExit(f"{what}: the ledger's onboard counts differ from "
+                         "the KVBM stats")
     res = {
         "first": first, "again": again, "churn_s": churn_s,
         "decode_tok_s": n_dec / dec_s,
@@ -4233,6 +4553,8 @@ def _kvbm_remote(device, card: str, params, prompts, ref: dict) -> dict:
             blocks = _prefix_blocks(w2.engine, hashes)
             same_built = [(w.engine.graphs.counts,
                            w.engine.prefill_graphs.counts) for w in workers]
+            for i, w in enumerate(workers):
+                await _audit_clean(w.engine, f"kvbm remote W{i + 1}")
             await client.close()
             return toks, ttft, m0, m1, blocks, pulls, built == same_built
         finally:
@@ -8171,7 +8493,9 @@ def main() -> int:
     fused_ab(device, card, params)
     torch.cuda.empty_cache()
     log(f"fused A/B phase done at {time.perf_counter() - t_start:.1f} s")
-    prefill_ab(device, card, params)
+    # one round in the whole check (two with --prefill-ab): the padded
+    # engine's turns take the second round's place
+    prefill_ab(device, card, params, rounds=1)
     torch.cuda.empty_cache()
     log(f"prefill A/B phase done at {time.perf_counter() - t_start:.1f} s")
     launches8, engine8, ops_int8, _ = check_engine(device, card, "int8",

@@ -77,6 +77,9 @@ def build_args() -> argparse.ArgumentParser:
     p.add_argument("--prefill-chunk-tokens", type=int, default=0,
                    help="packed-prefill token budget per scheduler step; "
                         "0 = max_batch_tokens")
+    p.add_argument("--no-packed-prefill", action="store_true",
+                   help="disable packed chunked prefill (use the padded "
+                        "per-row programs)")
     p.add_argument("--attn-impl", default="", choices=["", *DECODE_IMPLS],
                    help="decode attention: auto = kernel K1 on CUDA "
                         "tensors, torch = the plain version; default keeps "
@@ -108,6 +111,10 @@ def build_args() -> argparse.ArgumentParser:
                    help="fixed decode bursts: decode_fused_steps whenever "
                         "no prefill/admission work is pending, instead of "
                         "ramping the fusion ladder")
+    p.add_argument("--slo-yield-burn", type=float, default=1.0,
+                   help="SLA-aware admission: prefill chunks yield "
+                        "budget to decode while the frontend-published "
+                        "SLO burn rate exceeds this (0 disables)")
     p.add_argument("--host-cache-blocks", type=int, default=0,
                    help="G2 host-memory KV cache capacity (blocks); 0 off")
     p.add_argument("--offload-watermark-blocks", type=int, default=0,
@@ -139,6 +146,9 @@ def build_args() -> argparse.ArgumentParser:
                    help="disaggregation role: prefill workers park each "
                         "prompt's KV for a decode worker's pull; decode "
                         "workers pull it instead of prefilling")
+    p.add_argument("--reasoning-parser", default="",
+                   help="advertise a reasoning parser (e.g. deepseek_r1) "
+                        "so frontends split <think> spans")
     p.add_argument("--spec-decode", default="off", choices=list(SPEC_MODES),
                    help="speculative decoding proposer (spec/): ngram = "
                         "zero-weight prompt lookup; draft = a second "
@@ -181,6 +191,7 @@ def engine_config(args: argparse.Namespace) -> EngineConfig:
         kv_cache_dtype=args.kv_cache_dtype,
         kv_hbm_gb=args.kv_hbm_gb,
         prefill_chunk_tokens=args.prefill_chunk_tokens,
+        prefill_packed=not args.no_packed_prefill,
         attn_impl=args.attn_impl,
         packed_attn_impl=args.packed_attn_impl,
         sampling_epilogue=args.sampling_epilogue,
@@ -188,8 +199,10 @@ def engine_config(args: argparse.Namespace) -> EngineConfig:
         peak_hbm_gbps=args.peak_hbm_gbps,
         overlap_scheduling=not args.no_overlap_scheduling,
         decode_fuse_adaptive=not args.no_adaptive_fusion,
+        slo_yield_burn=args.slo_yield_burn,
         warmup=not args.no_warmup,
         role=args.role,
+        reasoning_parser=args.reasoning_parser,
         host_cache_blocks=args.host_cache_blocks,
         offload_watermark_blocks=args.offload_watermark_blocks,
         disk_cache_dir=args.disk_cache_dir or None,

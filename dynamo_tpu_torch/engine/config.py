@@ -52,6 +52,10 @@ class EngineConfig:
     # > 0: size the block pool from this budget in GB (1e9 bytes) of
     # cache; the engine overwrites num_blocks with what it holds
     kv_hbm_gb: float = 0.0
+    # KV block-lifecycle ledger and its auditor (obs/kv_ledger.py): None
+    # follows DYN_KV_LEDGER (on by default, "0" disables); True/False
+    # pins it per engine (the smoke's decode A/B takes both in turns)
+    kv_ledger: Optional[bool] = None
 
     # batching
     max_num_seqs: int = 8
@@ -99,6 +103,10 @@ class EngineConfig:
     max_prefill_seqs: int = 4
     # chunk budget for one packed prefill dispatch (0 = max_batch_tokens)
     prefill_chunk_tokens: int = 0
+    # packed chunked prefill (engine/prefill.py, kernel K3); False routes
+    # every family to the padded per-row programs (engine/graphs.py
+    # PaddedPrefillPrograms), as MLA and capacity-dispatch MoE always go
+    prefill_packed: bool = True
     # "off" | "fused": the decode programs end each step at the final-norm
     # hidden state and stream the projection in vocab tiles into the
     # sampler's statistics, so no [B, vocab] logits exist
@@ -198,6 +206,9 @@ class EngineConfig:
     # None = the model config's eos ids (the checkpoint's config.json with
     # model_path)
     eos_token_id: Optional[int] = None
+    # output parsing advertised in the MDC: frontends split <think> spans
+    # into reasoning_content when set (e.g. "deepseek_r1")
+    reasoning_parser: str = ""
     seed: int = 0
 
     # JAX-engine features not ported yet (see _UNPORTED)

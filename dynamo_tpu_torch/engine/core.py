@@ -125,6 +125,19 @@ prefill, decode and spec_verify FPM records carry the program's cost
 count (obs/costs.py) under the JAX names `xla_flops`/`xla_bytes`.  A
 drain abort and an engine crash dump the flight recorder.
 
+The KV ledger (obs/kv_ledger.py, on unless `kv_ledger=False` or
+DYN_KV_LEDGER=0) keeps a second set of block books: the allocator records
+every G1 transition into it, `_emit_events` every KVBM tier batch, the
+disagg park/unpark and the onboard marks land beside them, and the
+auditor reconciles them against the allocator, the live slots and the
+pool manifests on the step after a finish, on the idle tick and on
+demand (`audit_kv`, the worker's /debug/kv), always between steps under
+the step lock.  The G4 sweep reads its lineage books
+(kvbm/residency.py).  Every stream's first-token and finish frames carry
+`metrics["forensic"]` (`_forensic`: realized prefix reuse, queue
+position, prefill chunks, tokens generated), as the JAX engine's.
+`prefill_packed=False` routes every family to the padded programs.
+
 `embed(token_ids)` serves the worker's `embed` endpoint for a family
 with `embed_text` (the Llama family, dense and MoE; not MLA, as in
 JAX): the family's pooled embedding padded to a prefill bucket, run
@@ -163,6 +176,7 @@ from ..lora.source import LocalLoraSource
 from ..models import get_family
 from ..obs.compile_watch import CaptureWatch
 from ..obs.costs import program_costs
+from ..obs.kv_ledger import KvLedger, ledger_enabled
 from ..ops.kv_transfer import (
     blocks_from_host,
     blocks_to_host,
@@ -228,6 +242,10 @@ class _Slot:
     cancel_requested: bool = False
     cached_tokens: int = 0   # prefix-cache reuse (for metrics)
     enqueued_t: float = 0.0
+    # the forensic stamp's facts (_forensic): waiting-queue position at
+    # enqueue and prefill chunk count
+    queue_pos: int = 0
+    prefill_chunks: int = 0
     first_token_t: float = 0.0
     last_push_t: float = 0.0
     # decode pipelining: tokens the device has decoded for this slot that
@@ -417,8 +435,15 @@ class TorchEngine:
                 self.family, self.model_cfg, config.block_size,
                 self.kv_dtype, int(config.kv_hbm_gb * 1e9))
         self.kv = self._init_kv_cache()
+        # the KV block-lifecycle ledger (obs/kv_ledger.py): books recorded
+        # at the allocator's own mutation sites, reconciled by the auditor
+        # on the step after a finish, on the idle tick and on demand
+        # (/debug/kv); None when off, every hook then a pointer compare
+        self.kv_ledger: Optional[KvLedger] = (
+            KvLedger() if ledger_enabled(config.kv_ledger) else None)
         self.allocator = BlockAllocator(config.num_blocks,
-                                        config.enable_prefix_caching)
+                                        config.enable_prefix_caching,
+                                        ledger=self.kv_ledger)
         self.waiting: List[_Slot] = []
         self._qlock = threading.Lock()      # guards `waiting` across threads
         self._step_lock = threading.Lock()  # held for each _sched_step run
@@ -516,12 +541,13 @@ class TorchEngine:
                 self.device,
                 capture=cuda_graphs if prefill_graphs is None
                 else prefill_graphs, lora_bank=self.lora_bank)
-        # a family without packed prefill, and capacity-dispatch MoE,
-        # which is not packed-safe (a packed stream would merge the
-        # sequences' expert-capacity pools), take the padded programs,
-        # as the JAX engine's `_packed_prefill_ok` routes them
+        # prefill_packed=False, a family without packed prefill, and
+        # capacity-dispatch MoE, which is not packed-safe (a packed stream
+        # would merge the sequences' expert-capacity pools), take the
+        # padded programs, as the JAX engine's `_packed_prefill_ok` routes
+        # them
         mc = self.model_cfg
-        self._packed_prefill_ok = packed and not (
+        self._packed_prefill_ok = config.prefill_packed and packed and not (
             getattr(mc, "n_experts", 0) > 0
             and getattr(mc, "moe_dispatch", "dense") == "capacity")
         self.padded_prefill: Optional[PaddedPrefillPrograms] = None
@@ -758,15 +784,17 @@ class TorchEngine:
     async def sweep_kvbm_g4(self) -> int:
         """One GC pass over the shared G4 store (the worker's load loop
         calls it on a slow cadence; the sweep lists a shared directory, so
-        it runs in a thread, never on the scheduler).  With no KV ledger
-        every blob ages by TTL (kvbm/residency.py).  Reaped hashes are
+        it runs in a thread, never on the scheduler).  The KV ledger's
+        lineage books renew hot blobs and reap dead ones early; the rest,
+        and every blob with the ledger off, age by TTL
+        (kvbm/residency.py).  Reaped hashes are
         folded through the consolidator as a scheduler op, so a later
         re-spill of the same hash emits stored(g4) again."""
         if self.kvbm is None or self.kvbm.g4 is None:
             return 0
         if self.kvbm.breaker.state("g4") == "open":
             return 0  # the tier is dark: let the half-open probe decide
-        res = LineageResidency(None, pool=self.kvbm.g4)
+        res = LineageResidency(self.kv_ledger, pool=self.kvbm.g4)
         try:
             swept = await asyncio.to_thread(self.kvbm.g4.sweep, None, res)
         except OSError:
@@ -779,11 +807,53 @@ class TorchEngine:
 
     def _note_kv_corruption(self, tier: str, h: Optional[int]) -> None:
         """One checksum-failed consume anywhere in the fabric (G3 pool, G4
-        object store, remote pull): count it.  The caller already
-        quarantined the bytes and degraded to a miss (recompute), so this
-        hook is forensic and must never raise."""
-        key = (tier, "quarantine")
-        self.kv_integrity[key] = self.kv_integrity.get(key, 0) + 1
+        object store, remote pull): count it and attribute it in the KV
+        ledger (violation kind `corrupt`, a flight-recorder snapshot on
+        each tier's first).  The caller already quarantined the bytes and
+        degraded to a miss (recompute), so this hook is forensic and must
+        never raise."""
+        try:
+            key = (tier, "quarantine")
+            self.kv_integrity[key] = self.kv_integrity.get(key, 0) + 1
+            if self.kv_ledger is not None:
+                self.kv_ledger.corruption(tier, h)
+        except Exception:
+            logger.warning("kv corruption attribution failed",
+                           exc_info=True)
+
+    # -- KV ledger audit (obs/kv_ledger.py) --------------------------------
+    def _audit_ledger_locked(self, where: str = "step") -> dict:
+        """One reconciliation sweep: the ledger's books against the
+        allocator's free list and refcounts, the scheduler's live slots
+        (every admitted slot owns its blocks until it finishes, bursts
+        still in flight included: a finish frees at once and in-flight
+        lanes of a freed slot are discarded), the waiting queue, the
+        parked transfers and the KVBM pool manifests.  The caller holds
+        the step lock (or is the step)."""
+        led = self.kv_ledger
+        if led is None:
+            return {}
+        live = [self._seq_id(s) for s in self._slots if s is not None]
+        with self._qlock:
+            live += [self._seq_id(s) for s in self.waiting]
+        parked = [p.seq_id for p in self._parked.values()]
+        viol = led.audit_allocator(self.allocator, live, parked)
+        viol += led.audit_kvbm(self.kvbm)
+        return led.finish_audit(viol, where=where)
+
+    def _audit_ledger(self, where: str = "on_demand") -> dict:
+        with self._step_lock:
+            if self._closed:
+                return {}
+            return self._audit_ledger_locked(where)
+
+    async def audit_kv(self) -> dict:
+        """On-demand reconciliation (the /debug/kv handler's entry
+        point): takes the step lock off the event loop, so it runs
+        between steps and never inside a capture."""
+        if self.kv_ledger is None:
+            return {}
+        return await asyncio.to_thread(self._audit_ledger)
 
     @property
     def spec_enabled(self) -> bool:
@@ -988,6 +1058,8 @@ class TorchEngine:
         def release():
             parked = self._parked.pop(request_id, None)
             if parked is not None:
+                if self.kv_ledger is not None:
+                    self.kv_ledger.unpark(parked.seq_id)
                 self._emit_events(self.allocator.free(parked.seq_id))
 
         await self._call_on_scheduler(release)
@@ -1001,6 +1073,8 @@ class TorchEngine:
         for rid in self._expired_parks():
             logger.warning("parked KV for %s expired unpulled", rid)
             parked = self._parked.pop(rid)
+            if self.kv_ledger is not None:
+                self.kv_ledger.unpark(parked.seq_id)
             self._emit_events(self.allocator.free(parked.seq_id))
 
     def _park_prefilled(self, slot: _Slot, first_token: int) -> None:
@@ -1014,6 +1088,10 @@ class TorchEngine:
             prompt_len=slot.ctx_len,
             expires_t=time.monotonic() + self.parked_ttl_s,
         )
+        if self.kv_ledger is not None:
+            # attribution: the blocks are pinned by the transfer now,
+            # awaiting the decode side's pull
+            self.kv_ledger.park(seq_id)
         slot.finished = True
         if slot.index >= 0:
             self._slots[slot.index] = None
@@ -1031,7 +1109,10 @@ class TorchEngine:
         out = LLMEngineOutput(
             token_ids=[first_token], finish_reason="stop",
             kv_transfer_params=params,
-            metrics={"ttft_s": slot.first_token_t - slot.enqueued_t})
+            # the prefill hop's realized reuse and queue facts ride its
+            # one frame
+            metrics={"ttft_s": slot.first_token_t - slot.enqueued_t,
+                     "forensic": self._forensic(slot)})
         if self._loop_ref is not None:
             self._loop_ref.call_soon_threadsafe(slot.out_q.put_nowait, out)
         else:
@@ -1390,6 +1471,9 @@ class TorchEngine:
             blocks.append(blk)
             ids.append(block_ids[i])
             by_tier[src] = by_tier.get(src, 0) + 1
+            if self.kv_ledger is not None:
+                self.kv_ledger.onboard(hashes[i], src,
+                                       seq=self._seq_id(slot))
         if not ids:
             return 0
         blocks_from_host(self.kv, blocks, ids)
@@ -1475,6 +1559,10 @@ class TorchEngine:
         consolidator nets per tier."""
         if not (res.stored or res.removed):
             return
+        if tier != "g1" and self.kv_ledger is not None:
+            # KVBM tier membership for the ledger's auditor, before the
+            # netting (g1 transitions are recorded in the allocator)
+            self.kv_ledger.tier_batch(res.stored, res.removed, tier)
         stored, removed, tier = self._consolidator.apply(
             list(res.stored), list(res.removed), tier)
         sink = self.kv_event_sink
@@ -1579,7 +1667,14 @@ class TorchEngine:
         if want_pull:
             slot.pulling = True
             slot.admitted = asyncio.Event()
+        if self.kv_ledger is not None:
+            # the ledger's tape entries for this sequence join the
+            # request's distributed trace
+            self.kv_ledger.bind_seq(
+                request.request_id,
+                obs.trace_id_from_annotations(request.annotations))
         with self._qlock:
+            slot.queue_pos = len(self.waiting)
             self.waiting.append(slot)
         if lora_idx:
             # enqueued: the waiting/_slots scan now holds the reference
@@ -1712,6 +1807,11 @@ class TorchEngine:
                     self._wake.clear()
                     if self._sched_calls:
                         continue
+                    if self.kv_ledger is not None \
+                            and self.kv_ledger.audit_due(5.0):
+                        # the idle-tick reconciliation: an idle worker's
+                        # books are swept too
+                        await asyncio.to_thread(self._audit_ledger, "idle")
                     if self._parked:
                         # wake so the parked-KV TTL reaper runs even on an
                         # otherwise idle worker
@@ -1767,6 +1867,11 @@ class TorchEngine:
                 # no dispatchable decode work: flush the pipeline tail so
                 # trailing tokens and finishes are delivered promptly
                 self._drain_inflight()
+            led = self.kv_ledger
+            if led is not None and led.audit_due():
+                # the finish cadence: a request freed its blocks since
+                # the last sweep (host books only, no device sync)
+                self._audit_ledger_locked("step")
             if t_step:  # attrs are only worth computing when tracing
                 obs.end("step", t_step, track=self._obs_track,
                         active=sum(1 for s in self._slots
@@ -2088,6 +2193,7 @@ class TorchEngine:
         still being read back (the next step's flush emits it)."""
         self.metrics["prefill_tokens"] += chunk
         slot.prefill_pos += chunk
+        slot.prefill_chunks += 1
         slot.ctx_len = slot.prefill_pos
         # registration is deferred to materialization, so commit tracks
         # prefill progress chunk by chunk
@@ -2436,11 +2542,31 @@ class TorchEngine:
         obs.end("sample", t_obs, track=self._obs_track, what="guided",
                 lanes=len(gslots))
 
-    def _finish_metrics(self, slot: _Slot) -> Dict[str, Any]:
-        """A stream's last chunk's metrics."""
-        return {"kv_usage": self.kv_usage(),
-                "cached_tokens": slot.cached_tokens,
-                "ttft_s": slot.first_token_t - slot.enqueued_t}
+    def _forensic(self, slot: _Slot) -> Dict[str, Any]:
+        """Worker-side forensic facts for the stream's first-token and
+        finish frames (the JAX frontend's RequestTracker reads them as
+        the `worker_stamp` hop): the realized prefix-cache reuse, the
+        waiting-queue position at enqueue, and step counts."""
+        return {
+            "cached_tokens": slot.cached_tokens,
+            "queue_pos": slot.queue_pos,
+            "prefill_chunks": slot.prefill_chunks,
+            "generated": slot.generated,
+        }
+
+    def _stamp_metrics(self, slot: _Slot,
+                       finish: Optional[str]) -> Optional[Dict[str, Any]]:
+        """A token frame's metrics, as the JAX engine stamps them: the
+        finish frame's usage, reuse and TTFT with the forensic stamp, the
+        first token frame's stamp alone, none on the others."""
+        if finish:
+            return {"kv_usage": self.kv_usage(),
+                    "cached_tokens": slot.cached_tokens,
+                    "ttft_s": slot.first_token_t - slot.enqueued_t,
+                    "forensic": self._forensic(slot)}
+        if slot.generated == 1:
+            return {"forensic": self._forensic(slot)}
+        return None
 
     def _put(self, slot: _Slot, out: LLMEngineOutput) -> None:
         """Hand one chunk to the slot's stream (on the loop's thread)."""
@@ -2474,9 +2600,13 @@ class TorchEngine:
         slot.generated += 1
         self.metrics["decode_tokens"] += 1
         self._commit_full_blocks(slot)
+        # the forensic stamp on the first and the finish frame, as the
+        # JAX engine's guided path stamps them
         self._put(slot, LLMEngineOutput(
             token_ids=[tok], finish_reason=finish,
-            metrics=self._finish_metrics(slot) if finish else None))
+            metrics=({"forensic": self._forensic(slot)}
+                     if finish is not None or slot.generated == 1
+                     else None)))
         if finish is not None:
             self._release_finished(slot)
 
@@ -2494,7 +2624,7 @@ class TorchEngine:
             completion = ""
         toks = codec.encode(completion) if completion else []
         slot.guided_out.extend(toks)
-        metrics = self._finish_metrics(slot)
+        metrics = {"forensic": self._forensic(slot)}
         if toks or forced:
             self.metrics["guided_forced_closes"] = \
                 self.metrics.get("guided_forced_closes", 0) + 1
@@ -2806,7 +2936,7 @@ class TorchEngine:
         finish = self._finish_reason(slot, tok)
         self._put(slot, LLMEngineOutput(
             token_ids=[tok], finish_reason=finish,
-            metrics=self._finish_metrics(slot) if finish else None))
+            metrics=self._stamp_metrics(slot, finish)))
         if finish is not None:
             slot.finished = True
             if slot.index >= 0:

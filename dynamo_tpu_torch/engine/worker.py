@@ -47,6 +47,13 @@ the unchanged JAX frontend and its KV router serve it like any other:
   * guided decoding validates candidate text with the model's tokenizer,
     built from the MDC's tokenizer entry (frontend/tokenizer.py), or the
     byte mock where it cannot be built;
+  * the KV ledger's `/debug/kv` source (`kv:{instance_id}`, the JAX
+    worker's `kv_debug`): the ledger's dump (schema
+    dynamo.kv_ledger.v1) after a fresh on-demand audit, the tiers'
+    breaker states, KVBM stats and integrity counters, and the G4
+    residency verdicts over a bounded sample; the ledger's gauges
+    (`dynamo_kv_ledger_*`, `dynamo_engine_kv_onboard_total`) ride the
+    load loop's /metrics export;
   * the SLO feed: the frontends' burn rates on `slo_metrics.{ns}`
     (obs/slo.py), the worst window into TorchEngine.set_slo_burn;
   * drain on SIGTERM (engine/__main__.py): withdraw the routing identity,
@@ -58,8 +65,7 @@ the unchanged JAX frontend and its KV router serve it like any other:
     one `{"embedding", "dim"}` frame out, the pooled unit vector the JAX
     frontend's /v1/embeddings returns.
 
-Not ported yet (ROADMAP.md): multi-host slices and the KV ledger's
-/debug/kv source.
+Not ported yet (ROADMAP.md): multi-host slices.
 
 The `kvbm_pull` wire carries block hashes as 16-byte big-endian bytes
 (router/events.py hash_to_wire), as the KV events do, and accepts plain
@@ -100,6 +106,7 @@ from ..protocols import (
     register_model,
 )
 from ..kvbm.remote import RemoteBlockIndex, RemoteKvbmPuller, encode_block
+from ..kvbm.residency import LineageResidency
 from ..router.events import KvEventPublisher, hash_to_wire, wire_to_hash
 from ..router.tiered_index import compute_tier_costs, degraded_tier_costs
 from ..runtime import DistributedRuntime
@@ -168,6 +175,7 @@ class TorchEngineWorker:
         # and /debug/state read the engine numbers off it
         self._fpm_window = FpmWindow()
         self._debug_source_name: Optional[str] = None
+        self._kv_source_name: Optional[str] = None
         self.tier_costs: Optional[Dict[str, float]] = None
 
     @property
@@ -195,7 +203,7 @@ class TorchEngineWorker:
                 "kv_cache_dtype": (eng.kv_dtype if eng is not None
                                    else self.config.kv_cache_dtype),
                 "prefill_chunk_tokens": self.config.chunk_budget,
-                "prefill_packed": True,
+                "prefill_packed": self.config.prefill_packed,
                 # "auto" = the CUDA kernels on CUDA tensors, "torch" = the
                 # plain versions
                 "attn_impl": (eng.model_cfg.attn_impl if eng is not None
@@ -217,6 +225,10 @@ class TorchEngineWorker:
                 **({"speculative": {"proposer": self.config.spec_decode,
                                     "k": self.config.spec_k}}
                    if eng is not None and eng.spec_enabled else {}),
+                # frontends split <think> spans where the card names a
+                # parser
+                **({"reasoning_parser": self.config.reasoning_parser}
+                   if self.config.reasoning_parser else {}),
                 # the timeline-tracing capability (obs/)
                 **({"tracing": True} if obs.enabled() else {}),
             },
@@ -393,6 +405,10 @@ class TorchEngineWorker:
         # fleet introspection: this worker's live state on /debug/state
         self._debug_source_name = f"worker:{instance_id}"
         rt.register_debug_source(self._debug_source_name, self.debug_state)
+        # the KV-accounting plane: the ledger's attribution and an
+        # on-demand audit on /debug/kv
+        self._kv_source_name = f"kv:{instance_id}"
+        rt.register_kv_source(self._kv_source_name, self.kv_debug)
         # SLA-aware admission input: the frontends' published SLO burn
         # rate into the engine, where a sustained burn makes prefill
         # chunks yield budget to decode (stale signals decay engine-side,
@@ -401,6 +417,47 @@ class TorchEngineWorker:
         logger.info("torch engine worker %d serving %s on %s", instance_id,
                     self.config.served_name, self.engine.device)
         return self
+
+    async def kv_debug(self) -> dict:
+        """/debug/kv source, the JAX worker's: the ledger's dump after a
+        fresh reconciliation sweep (the on-demand cadence beside the
+        finish and idle ones), with the tiers' degraded-mode picture and
+        the G4 residency verdicts over a bounded sample."""
+        eng = self.engine
+        base = {
+            "kind": "engine",
+            "instance_id": (self.served.instance_id
+                            if self.served is not None else None),
+            "namespace": self.namespace,
+            "component": self.component,
+        }
+        if eng is None or eng.kv_ledger is None:
+            return {**base, "schema": "dynamo.kv_ledger.v1",
+                    "enabled": False}
+        audit = await eng.audit_kv()
+        out = {**base, **eng.kv_ledger.dump(), "audit": audit,
+               "kv": eng.kv_occupancy()}
+        if eng.kvbm is not None:
+            out["tier_state"] = eng.kvbm.tier_states()
+            out["kvbm_stats"] = dict(eng.kvbm.stats)
+            out["integrity"] = {
+                f"{tier}:{action}": n
+                for (tier, action), n in
+                eng.kv_integrity_counters().items()}
+        if (eng.kvbm is not None and eng.kvbm.g4 is not None
+                and eng.kvbm.breaker.state("g4") != "open"):
+            try:
+                keys = []
+                for h in eng.kvbm.g4.keys():
+                    keys.append(h)
+                    if len(keys) >= 2048:
+                        break
+                res = LineageResidency(eng.kv_ledger, pool=eng.kvbm.g4)
+                out["g4"] = {"blobs_sampled": len(keys),
+                             "residency": res.verdicts(keys)}
+            except OSError:
+                pass  # the shared dir raced a sweep; the next read has it
+        return out
 
     def debug_state(self) -> dict:
         """Live scheduler/KV/drain snapshot for /debug/state and the fleet
@@ -543,7 +600,7 @@ class TorchEngineWorker:
             export_engine_gauges(
                 m, fw, peak_tflops=self.config.peak_tflops,
                 peak_hbm_gbps=self.config.peak_hbm_gbps,
-                occupancy=eng.kv_occupancy())
+                occupancy=eng.kv_occupancy(), kv_ledger=eng.kv_ledger)
             # per-tier onboard costs for the router's tiered selector:
             # the measured prefill rate over the cache's per-block bytes,
             # recomputed each tick as the window fills (the selector
@@ -624,6 +681,9 @@ class TorchEngineWorker:
         if self._debug_source_name is not None:
             self.runtime.unregister_debug_source(self._debug_source_name)
             self._debug_source_name = None
+        if self._kv_source_name is not None:
+            self.runtime.unregister_kv_source(self._kv_source_name)
+            self._kv_source_name = None
         if self._broker_id is not None:
             broker.deregister_engine(self._broker_id)
             self._broker_id = None

@@ -173,6 +173,8 @@ class HostBlockPool:
         return blk
 
     def keys(self) -> List[int]:
+        """Resident hashes (the pool manifest the KV ledger's auditor
+        reconciles against, kvbm/manager.py manifest)."""
         return list(self._blocks)
 
     def nbytes(self) -> int:
@@ -327,6 +329,8 @@ class DiskBlockPool:
         return True
 
     def keys(self) -> List[int]:
+        """Resident hashes (the pool manifest the KV ledger's auditor
+        reconciles against, kvbm/manager.py manifest)."""
         return list(self._order)
 
     def _unlink(self, h: int) -> None:

@@ -11,11 +11,11 @@ ledger's books:
            (its own books AND the shared store): reap early
     None   unknown: the TTL clock decides, unchanged
 
-The port has no KV ledger yet, so its engine builds
-`LineageResidency(None, pool)`, which answers None for every hash: the
-TTL decides, as in the JAX engine with `kv_ledger` off.  The object
-store stays policy-free; this module is the `residency` callable its
-sweep accepts.
+The engine builds `LineageResidency(engine.kv_ledger, pool)` for each
+sweep (obs/kv_ledger.py); with the ledger off (`kv_ledger=False` or
+DYN_KV_LEDGER=0) it answers None for every hash and the TTL decides, as
+in the JAX engine.  The object store stays policy-free; this module is
+the `residency` callable its sweep accepts.
 """
 
 from __future__ import annotations

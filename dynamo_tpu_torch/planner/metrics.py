@@ -300,12 +300,12 @@ class FpmWindow:
 
 def export_engine_gauges(metrics, fw: FpmWindow, peak_tflops: float = 0.0,
                          peak_hbm_gbps: float = 0.0,
-                         occupancy: Optional[dict] = None) -> None:
+                         occupancy: Optional[dict] = None,
+                         kv_ledger=None) -> None:
     """The worker load loop's /metrics gauge surface, the JAX workers'
     (engine/worker.py): the headline FPM aggregates, the per-phase
-    roofline MFU/MBU and KV occupancy by tier, under the JAX names.  The
-    JAX function's KV-ledger gauges are left out with the ledger (not
-    ported)."""
+    roofline MFU/MBU, KV occupancy by tier and the KV ledger's onboard,
+    violation and attribution gauges, under the JAX names."""
     metrics.set("dynamo_engine_prefill_mfu", fw.prefill_mfu(peak_tflops))
     metrics.set("dynamo_engine_prefill_queue_depth",
                 fw.prefill_queue_depth())
@@ -338,3 +338,30 @@ def export_engine_gauges(metrics, fw: FpmWindow, peak_tflops: float = 0.0,
             if state in occ:
                 metrics.set(f"dynamo_engine_kv_blocks_{state}",
                             occ[state], tier=tier)
+    if kv_ledger is not None:
+        # blocks served back into G1 by source tier
+        for tier, n in kv_ledger.onboard_counts().items():
+            metrics.set("dynamo_engine_kv_onboard_total", float(n),
+                        "KV blocks onboarded into HBM by source tier "
+                        "(g2 host / g3 disk / g4 shared object store)",
+                        tier=tier)
+        # the auditor's monotonic totals per class and tier: any sample
+        # is a capacity-integrity signal
+        for kind, tiers in kv_ledger.violations_by_kind().items():
+            for tier, n in tiers.items():
+                metrics.set("dynamo_kv_ledger_violations_total",
+                            float(n),
+                            "kv-ledger audit violations by class "
+                            "(obs/kv_ledger.py): leak / double-free / "
+                            "orphan / refcount-drift",
+                            kind=kind, tier=tier)
+        # per-tier occupancy attributed by lifecycle state
+        for tier, states in kv_ledger.attribution().items():
+            for state in ("active", "prefix_cached",
+                          "pinned_by_transfer", "partial"):
+                if state in states:
+                    metrics.set("dynamo_kv_ledger_blocks",
+                                float(states[state]),
+                                "per-tier KV occupancy attributed by "
+                                "lifecycle state (obs/kv_ledger.py)",
+                                tier=tier, state=state)

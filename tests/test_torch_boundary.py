@@ -47,7 +47,7 @@ REQUIRED = ("models/loader.py", "models/weight_cache.py",
             "lora/source.py", "guided/__init__.py", "guided/json_prefix.py",
             "frontend/__init__.py", "frontend/tokenizer.py",
             "obs/__init__.py", "obs/slo.py", "obs/compile_watch.py",
-            "obs/costs.py", "runtime/metrics.py",
+            "obs/costs.py", "obs/kv_ledger.py", "runtime/metrics.py",
             "runtime/system_status.py", "planner/__init__.py",
             "planner/metrics.py", "router/tiered_index.py")
 # the KVBM tiers' fields (ported with kvbm/) and the knobs that came

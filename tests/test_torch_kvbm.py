@@ -453,7 +453,8 @@ async def test_engine_g4_sweep_publishes_removals(tmp_path):
     kv, churn = SCENARIOS["g4"]
     events = []
     eng = TorchEngine(EngineConfig(model_config=FP32, **eng_kwargs(
-        object_store_dir=str(tmp_path), object_store_ttl_s=0.0, **kv)),
+        object_store_dir=str(tmp_path), object_store_ttl_s=0.0,
+        kv_ledger=False, **kv)),
         params=_params()[1], device="cpu",
         kv_event_sink=lambda s, r, t: events.append((s, r, t)))
     try:
@@ -468,6 +469,38 @@ async def test_engine_g4_sweep_publishes_removals(tmp_path):
         assert await eng.sweep_kvbm_g4() == 0
     finally:
         await eng.close()
+
+
+async def test_engine_g4_sweep_keeps_hot_lineages_as_jax(tmp_path):
+    """With the KV ledger on (the default) the sweep reads its lineage
+    books (kvbm/residency.py): blobs staged within the hot window are
+    renewed, not reaped, past a 0 s TTL, on both engines alike; the
+    ledger's G4 tape and onboard counts equal JAX's."""
+    kv, churn = SCENARIOS["g4"]
+    got = {}
+    for side in ("jax", "torch"):
+        kw = eng_kwargs(object_store_dir=str(tmp_path / side),
+                        object_store_ttl_s=0.0, **kv)
+        eng = (JaxEngine(JaxEngineConfig(model_config=JAX_FP32, **kw),
+                         params=_params()[0]) if side == "jax" else
+               TorchEngine(EngineConfig(model_config=FP32, **kw),
+                           params=_params()[1], device="cpu"))
+        try:
+            assert eng.kv_ledger is not None
+            streams = await _scenario(eng, side == "jax", churn)
+            spilled = set(eng.kvbm.g4.keys())
+            await asyncio.sleep(0.01)  # every blob older than the TTL
+            swept = await eng.sweep_kvbm_g4()
+            counts = eng.kv_ledger.dump(tail=0)["counts"]
+            got[side] = (streams, len(spilled), swept,
+                         set(eng.kvbm.g4.keys()) == spilled,
+                         eng.kv_ledger.onboard_counts(),
+                         {k: counts.get(k, 0)
+                          for k in ("stage", "tier_evict", "onboard")})
+        finally:
+            await eng.close()
+    assert got["torch"] == got["jax"]
+    assert got["torch"][1] > 0 and got["torch"][2] == 0
 
 
 def test_engine_kvbm_config_errors_equal_jax(tmp_path):

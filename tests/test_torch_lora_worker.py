@@ -92,8 +92,9 @@ async def test_jax_frontend_serves_adapter_alias_and_response_format(
     watcher = service = None
     try:
         await tw.start()
-        # every user request the engine serves: (request, its token ids)
-        seen = []
+        # every user request the engine serves: (request, its token ids),
+        # and each request's frames' token ids
+        seen, frames = [], {}
         inner = tw.engine.generate
 
         async def generate(request, token=None):
@@ -102,6 +103,8 @@ async def test_jax_frontend_serves_adapter_alias_and_response_format(
                 seen.append((request, toks))
             async for out in inner(request, token=token):
                 toks.extend(out.token_ids)
+                frames.setdefault(request.request_id, []).append(
+                    list(out.token_ids))
                 yield out
 
         tw.engine.generate = generate
@@ -142,7 +145,17 @@ async def test_jax_frontend_serves_adapter_alias_and_response_format(
         content = fmt["choices"][0]["message"]["content"]
         assert JsonSchemaGuide(SCHEMA).done(content.strip()), content
         assert set(json.loads(content)) == {"city", "unit"}
-        assert MockTokenizer(300).decode(guided).strip() == content.strip()
+        # the content is the guided stream's frames as the JAX frontend
+        # renders them (frontend/pipeline.py: one incremental detokenizer
+        # pushed frame by frame; a byte run cut by a word token renders
+        # otherwise than a one-shot decode, on some sampled streams)
+        from dynamo_tpu.frontend.tokenizer import MockTokenizer as JaxMock
+
+        det = JaxMock(300).make_detokenizer()
+        rendered = "".join(det.push(f)
+                           for f in frames[seen[2][0].request_id])
+        assert sum(frames[seen[2][0].request_id], []) == guided
+        assert rendered.strip() == content.strip()
     finally:
         if service is not None:
             await service.close()

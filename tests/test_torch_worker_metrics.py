@@ -4,9 +4,10 @@ package's (CPU).
 * A TorchEngineWorker and a JaxEngineWorker with the same config (KVBM
   host tier, the roofline peaks), the same converted weights and the same
   requests publish load_metrics with the same keys and expose the same
-  /metrics gauge families (the KV ledger, which the port has not, off on
-  the JAX side); `kv_tier_costs` equals JAX's compute_tier_costs on the
-  worker's own measured rates, and its degraded form under an open
+  /metrics gauge families, the KV ledger's (on by default on both
+  sides) included; `kv_tier_costs` equals JAX's compute_tier_costs on
+  the worker's own measured rates, the tiers ordered as those rates
+  order them, and its degraded form under an open
   breaker equals JAX's degraded_tier_costs; the JAX KV router's selector
   prices a torch worker's G4 overlap with those costs.
 * The tier-cost functions equal JAX's on the same inputs.
@@ -75,7 +76,7 @@ async def _workers(monkeypatch):
     load_metrics collected from each event plane."""
     from dynamo_tpu.engine.worker import JaxEngineWorker
 
-    monkeypatch.setenv("DYN_KV_LEDGER", "0")
+    monkeypatch.delenv("DYN_KV_LEDGER", raising=False)
     je = JaxEngine(JaxEngineConfig(model_config=JAX_FP32, **WCOMMON))
     tree = jax.tree_util.tree_map(lambda a: np.asarray(a, np.float32),
                                   je.params)
@@ -121,6 +122,44 @@ async def _serve(worker, jax_side):
             pass
 
 
+async def _published(loads, key, timeout_s=60.0):
+    """Each side's last load_metrics message carrying `key`; fails naming
+    the side that never published one (a loaded host can take many load
+    ticks to measure a prefill rate)."""
+    t0 = time.monotonic()
+    while True:
+        missing = [side for side, v in loads.items()
+                   if not any(key in m for m in v)]
+        if not missing:
+            return {side: next(m for m in reversed(v) if key in m)
+                    for side, v in loads.items()}
+        if time.monotonic() - t0 > timeout_s:
+            raise AssertionError(
+                f"no load_metrics with {key!r} from the {missing} "
+                f"worker(s) in {timeout_s:.0f} s")
+        await asyncio.sleep(0.1)
+
+
+def _assert_tier_order(costs, unrounded):
+    """The published costs' tier order where the rates define it: each
+    tier costs at least the one above it (equal where both round to the
+    same 4 decimals), and a tier whose unrounded cost reaches half the
+    rounding unit is positive, else exactly 0.0."""
+    assert costs["g1"] == 0.0
+    assert costs["g1"] <= costs["g2"] <= costs["g3"] <= costs["g4"]
+    for tier in ("g2", "g3", "g4"):
+        if unrounded[tier] > 0.5e-4:
+            assert costs[tier] > 0.0, (tier, unrounded)
+        else:
+            assert costs[tier] == 0.0, (tier, unrounded)
+
+
+def _unrounded(flops_rate, per_tok, bytes_per_block, block_tokens):
+    recompute_s = block_tokens * per_tok / flops_rate
+    return {t: bytes_per_block / bw / recompute_s
+            for t, bw in jax_tiers.DEFAULT_TIER_BW.items()}
+
+
 async def _close(jrt, jw, prt, tw, tasks):
     for t in tasks:
         t.cancel()
@@ -135,13 +174,7 @@ async def test_load_metrics_keys_and_gauges_equal_jax(monkeypatch):
     try:
         await _serve(jw, True)
         await _serve(tw, False)
-        t0 = time.monotonic()
-        while time.monotonic() - t0 < 10.0 and not all(
-                any("kv_tier_costs" in m for m in v)
-                for v in loads.values()):
-            await asyncio.sleep(0.1)
-        last = {k: next(m for m in reversed(v) if "kv_tier_costs" in m)
-                for k, v in loads.items()}
+        last = await _published(loads, "kv_tier_costs")
         assert set(last["torch"]) == set(last["jax"])
         assert set(last["torch"]["kv_tier_costs"]) == {"g1", "g2", "g3",
                                                       "g4"}
@@ -151,20 +184,29 @@ async def test_load_metrics_keys_and_gauges_equal_jax(monkeypatch):
         assert {"dynamo_engine_mfu", "dynamo_engine_mbu",
                 "dynamo_engine_compile_seconds", "dynamo_kvbm_tier_state",
                 "dynamo_engine_active_seqs", "dynamo_engine_waiting_seqs",
-                "dynamo_engine_kv_usage",
-                "dynamo_engine_itl_ema_seconds"} <= tfam
+                "dynamo_engine_kv_usage", "dynamo_engine_itl_ema_seconds",
+                "dynamo_kv_ledger_blocks"} <= tfam
         # the costs are JAX's formula on the worker's own measured rates
         fw = tw._fpm_window
         flops_rate, _ = fw._phase_rates("prefill")
+        per_tok = flops_rate / fw.prefill_tokens_per_s()
+        bpb = tw.engine.kv_block_bytes()
         want = jax_tiers.compute_tier_costs(
-            prefill_flops_per_s=flops_rate,
-            flops_per_token=flops_rate / fw.prefill_tokens_per_s(),
-            bytes_per_block=tw.engine.kv_block_bytes(),
-            block_tokens=WCOMMON["block_size"])
+            prefill_flops_per_s=flops_rate, flops_per_token=per_tok,
+            bytes_per_block=bpb, block_tokens=WCOMMON["block_size"])
         assert tw.tier_costs == want
-        # (at this width a CPU recompute is slow, so the cheap tiers
-        # round to 0 at the formula's 4 decimals)
-        assert 0.0 == want["g1"] <= want["g2"] <= want["g3"] < want["g4"]
+        # the tiers' order where the measured rates define it: a CPU
+        # recompute at this width is slow, so the cheap tiers round to 0
+        # at the formula's 4 decimals, and G4 too on a slow enough host
+        _assert_tier_order(want, _unrounded(flops_rate, per_tok, bpb,
+                                            WCOMMON["block_size"]))
+        # and on rates the test sets, where every tier's cost is
+        # resolvable: the port's formula gives JAX's, strictly ordered
+        fast = (1e12, per_tok, bpb, WCOMMON["block_size"])
+        set_costs = tiered_index.compute_tier_costs(*fast)
+        assert set_costs == jax_tiers.compute_tier_costs(*fast)
+        _assert_tier_order(set_costs, _unrounded(*fast))
+        assert 0.0 < set_costs["g2"] < set_costs["g3"] < set_costs["g4"]
         assert tw.engine.kv_block_bytes() == jw.engine.kv_block_bytes()
 
         # an open breaker prices its tier at recompute, as JAX does
