@@ -24,6 +24,8 @@
     python3 chip_smoke.py --discovery     # the int8 worker through etcd
                                           # and kubernetes discovery
     python3 chip_smoke.py --encoder       # the ViT encoder worker
+    python3 chip_smoke.py --tp            # tensor parallelism, two ranks
+                                          # on one card, full depth
 
 Builds the port's CUDA kernels from csrc/ (three nvcc processes started
 together), holds each entry point (K1 and K3, each in its bf16 and its
@@ -37,8 +39,9 @@ concurrent requests through `TorchEngine` with the llama-8b preset at
 full width (random bf16 weights made on the card from a seed) and the
 JAX engine's default scheduler (overlapped, decode bursts fused up to 8
 steps and replayed from CUDA graphs that warm-up captures), first on a
-bf16 KV cache and then, with the same weights, on an int8 KV cache sized
-by a memory budget (`kv_cache_dtype="int8"`, `kv_hbm_gb`), and checks
+bf16 KV cache and then, with the first layers of the same weights
+(below), on an int8 KV cache sized by a memory budget
+(`kv_cache_dtype="int8"`, `kv_hbm_gb`), and checks
 the streams, that every decode program and every packed-prefill
 bucket's program was captured once and never again while serving, that
 a replayed burst equals the same burst run eagerly, and that a replayed
@@ -57,16 +60,22 @@ and none while serving, a decode step's counted bytes against the
 weights and a full table's KV, ordered kv_tier_costs, /debug/state's
 token gate and JAX keys, /debug/profile naming K1 during a decode run,
 the trace's span kinds, greedy streams equal with tracing off and on,
-and /health 503 after the drain); then the decode A/B, the fused A/B and the prefill A/B (below)
-run; after the int8 run, one request goes through a worker on the int8
-cache (its launches and the dtype it reports), then the same through a
-worker registered by etcd and by kubernetes discovery against this
-script's standard-library fakes of an etcd gateway and an API server
-(the discovery phase, below), then the encoder phase (below), then the
-disagg phase
-(below), then the pair across two processes (below), then the KVBM
-phase (below), then the spec phase (below), then the LoRA and guided
-phase (below).
+and /health 503 after the drain); then the encoder phase (below), the
+disagg phase (below), the pair across two processes (below) and the
+spec phase (below).  These llama-8b phases run all 32 layers (the
+pair's second process builds the preset, which has no depth flag; the
+spec phase's n-gram turns must propose, which depends on the model's
+streams).  The llama-8b phases after them serve the first
+SERVE_LAYERS = 8 layers of the same weights, so that the whole check
+stays well inside its time limit (each phase's flag alone runs all
+32): the int8 engine run, with the bf16 cache's operations a decode
+step counted again at that depth for its own; one request through a
+worker on the int8 cache (its launches and the dtype it reports); the
+same through a worker registered by etcd and by kubernetes discovery
+against this script's standard-library fakes of an etcd gateway and
+an API server (the discovery phase, below); the decode A/B, the fused
+A/B and the prefill A/B (below); the KVBM phase (below); the LoRA and
+guided phase (below).
 Last, a HF-format Llama
 checkpoint at
 llama-8b width, depth cut to 4 layers (about 3.9 GB of bf16), is written
@@ -273,13 +282,15 @@ through a TorchEngineWorker whose MDC must carry the inline tokenizer
 and the chat template.
 
 The MLA phase (after the checkpoint phase in the whole check; alone
-with --mla): deepseek-v2-lite at its published widths and full depth
-(d 2048, 27 layers, 16 heads, kv_lora_rank 512, qk_nope 128, qk_rope
-64, v_head 128, the first layer dense with ffn 10944, then 64 routed
-experts of ffn 1408, top 6, plus 2 shared; vocab 102400), 15.7 B
-random bf16 parameters made on the card from seed 0, a 512-block bf16
-latent cache (31,104 bytes a token against llama-8b's 131,072), the
-llama-8b runs' scheduler and the same five requests, dense dispatch.
+with --mla): deepseek-v2-lite at its published widths (d 2048, 16
+heads, kv_lora_rank 512, qk_nope 128, qk_rope 64, v_head 128, the first
+layer dense with ffn 10944, then 64 routed experts of ffn 1408, top 6,
+plus 2 shared; vocab 102400), at full depth (27 layers, 15.7 B random
+bf16 parameters) with --mla and cut to MLA_LAYERS = 8 in the whole
+check, weights made on the card from seed 0, a 512-block bf16
+latent cache (31,104 bytes a token at 27 layers against llama-8b's
+131,072 at 32), the llama-8b runs' scheduler and the same five
+requests, dense dispatch.
 The gates: every decode program and every padded (rows, bucket) shape
 built once by warm-up and never while serving, no packed, verify or
 catch-up program built, no GQA kernel launched; the greedy streams
@@ -300,10 +311,11 @@ shared experts, router and glue, dense matmuls, other), the phase's
 seconds and its max_memory_allocated; it frees its memory before the
 MoE phase.
 
-The MoE phase (last in the whole check; alone with --moe): mixtral-8x7b
+The MoE phase (after the MLA phase in the whole check; alone with
+--moe): mixtral-8x7b
 at full width (d 4096, 32/8 heads, ffn 14336, 8 experts, top 2, vocab
-32000) with its depth cut to MOE_LAYERS = 8 of 32 (the 32 layers hold
-93.4 GB of bf16 weights, more than the card's 80 GB; 8 keep the whole
+32000) with its depth cut to MOE_LAYERS = 4 of 32 (the 32 layers hold
+93.4 GB of bf16 weights, more than the card's 80 GB; 4 keep the whole
 check inside its time limit),
 random bf16 weights made on the card from seed 0, a bf16 cache of 512
 blocks.  Dense dispatch on the default scheduler and graphs: the five
@@ -340,6 +352,28 @@ images, twice, through the port's EncoderWorker with a ViT at CLIP
 ViT-L/14-336 widths (bf16): 576 tokens an image, within ENCODER_TOL of
 an fp32 tower, the repeat all cache hits, ms an image against the FLOP
 bound (fp32 attention at 67 TFLOP/s).
+
+The tp phase (last in the whole check, llama-8b cut to TP_LAYERS = 4
+layers; alone with --tp, all 32): two processes of an NCCL group on
+cuda:0 report what NCCL says of two ranks on one device (it must
+refuse), while a tp=1 engine (graphs, warmed up) and a tp=2 engine
+(parallel/: rank 0 here, rank 1 a spawned process, both on cuda:0, so
+the collectives go over gloo and the programs run eagerly) behind a
+TorchEngineWorker serve the same random weights (seed 0): the
+first-token logits of a 512-token prompt within TP_LOGIT_TOL of tp=1's
+standard deviation, four concurrent greedy streams whose leading
+tokens agree (a parting only where tp=1's top-2 gap is within the same
+tolerance), then the decode tokens/s and TTFT of both in turns (tp1,
+tp2, tp2, tp1; tp=2 through the worker's request plane, which keeps the
+worker's health canary quiet) on the bf16 cache; then the same pair on
+an int8 cache, its tp=1 engine eager (no timing).  K1 and K3 must be
+launched on both ranks while serving, equally (rank 0's counted over
+the worker's life less the tp=1 engine's runs, rank 1's reported by the
+rank at close); after close no rank process is left and the card's
+memory is back.  The kernel
+checks also hold K1 (B = 8) and K3 (T = 2048), each mode, at a tp=2
+rank's slab (nh 16 over nkv 4), the `tp2_slab` entry of each kernel;
+`tp_launches` is [rank 0, rank 1] of the phase's serving.
 
 Bounds use the H100 SXM data sheet (3.35 TB/s HBM3, 989 TFLOP/s dense
 bf16); a card run below its 700 W limit is slower, so its limit is
@@ -676,11 +710,12 @@ def decode_bound(cfg, c: dict):
     return bound(nbytes, 4 * nh * hd * total) + (nbytes,)
 
 
-def check_decode_kernel(cfg, device, int8: bool = False) -> dict:
+def check_decode_kernel(cfg, device, int8: bool = False,
+                        cases=DECODE_CASES) -> dict:
     """K1 in its bf16 mode, or (int8) in its int8 mode on the same
     shapes with the cache quantized by the port's quantizer, at every
-    case of DECODE_CASES; the first case is the one that carries the
-    plain and library times."""
+    case of `cases` (DECODE_CASES); the first case is the one that
+    carries the plain and library times."""
     from dynamo_tpu_torch.ops import cuda_paged_attention as k1
     from dynamo_tpu_torch.ops.paged_attention import (
         paged_attention_decode_ref,
@@ -692,7 +727,7 @@ def check_decode_kernel(cfg, device, int8: bool = False) -> dict:
              "source": "dynamo_tpu_torch/csrc/paged_decode.cu",
              "replaces": "dynamo_tpu/ops/pallas_paged_attention.py:300",
              "cases": {}}
-    for ci, (case, kv_lens) in enumerate(DECODE_CASES):
+    for ci, (case, kv_lens) in enumerate(cases):
         c = decode_case(cfg, device, kv_lens, int8)
         q, cache, tables, layer = c["q"], c["cache"], c["tables"], c["layer"]
         bs, mb, B = c["bs"], c["mb"], len(kv_lens)
@@ -864,11 +899,12 @@ def packed_bound(cfg, c: dict):
     return bound(nbytes, 4 * nh * hd * int(ctx.sum()))
 
 
-def check_prefill_kernel(cfg, device, int8: bool = False) -> dict:
+def check_prefill_kernel(cfg, device, int8: bool = False,
+                         cases=PACKED_CASES) -> dict:
     """K3 in its bf16 mode, or (int8) in its int8 mode on the same
     streams with the cache quantized by the port's quantizer, at every
-    case of PACKED_CASES; the first case carries the plain and library
-    times, and the verify case has its own under `cases`.  `ms` is the kernel alone, with the tile plan computed
+    case of `cases` (PACKED_CASES); the first case carries the plain and
+    library times, and the verify case has its own under `cases`.  `ms` is the kernel alone, with the tile plan computed
     beforehand as models/llama.py does once per dispatch; `plan_ms` is
     the plan alone and `with_plan_ms` a call that computes its own."""
     from dynamo_tpu_torch.ops import cuda_packed_prefill as k3
@@ -882,7 +918,7 @@ def check_prefill_kernel(cfg, device, int8: bool = False) -> dict:
              "source": "dynamo_tpu_torch/csrc/packed_prefill.cu",
              "replaces": "dynamo_tpu/ops/pallas_packed_prefill.py:195",
              "cases": {}}
-    for ci, (case, lens, ctx0, order, T) in enumerate(PACKED_CASES):
+    for ci, (case, lens, ctx0, order, T) in enumerate(cases):
         c = packed_case(cfg, device, lens, ctx0, order, T, int8)
         q, cache, args, layer = c["q"], c["cache"], c["args"], c["layer"]
         tables, bs, S = c["tables"], c["bs"], len(lens)
@@ -1217,16 +1253,26 @@ def _compare_logits(params, cfg, device, kv_dtype: str) -> int:
 
 # the int8 run's memory budget for its cache, in GB
 INT8_KV_HBM_GB = 4.5
+# llama-8b's depth in _engine_config: None is the preset's 32.  The whole
+# check sets it to SERVE_LAYERS once the phases at full depth are done
+# (module docstring), and those after them serve the first SERVE_LAYERS
+# layers of the same weights
+LLAMA_LAYERS: Optional[int] = None
+SERVE_LAYERS = 8
 
 
 def _engine_config(kv_dtype: str):
-    """The engine runs' config: llama-8b at full width, four slots, a
-    2048-token prefill budget; 512 blocks of bf16 cache, or an int8 cache
-    sized by INT8_KV_HBM_GB."""
+    """The engine runs' config: llama-8b at full width, LLAMA_LAYERS deep
+    (None: all 32), four slots, a 2048-token prefill budget; 512 blocks
+    of bf16 cache, or an int8 cache sized by INT8_KV_HBM_GB."""
     from dynamo_tpu_torch.engine import EngineConfig
+    from dynamo_tpu_torch.models.llama import PRESETS
 
     size = (dict(kv_cache_dtype="int8", kv_hbm_gb=INT8_KV_HBM_GB)
             if kv_dtype == "int8" else dict(num_blocks=512))
+    if LLAMA_LAYERS is not None:
+        size["model_config"] = dataclasses.replace(PRESETS["llama-8b"],
+                                                   n_layers=LLAMA_LAYERS)
     return EngineConfig(model="llama-8b", block_size=128,
                         max_blocks_per_seq=16, max_num_seqs=4,
                         max_batch_tokens=2048, max_prefill_seqs=4, seed=0,
@@ -1688,7 +1734,8 @@ def _fmt_steps(steps: dict) -> str:
 async def _serving_worker(device, cfg, params, status: bool = False,
                           warmup: bool = True, runtime: Optional[dict] = None,
                           cluster_id: Optional[str] = None,
-                          on_runtime=None):
+                          on_runtime=None, devices=None,
+                          cuda_graphs: bool = True):
     """A TorchEngineWorker (config `cfg` with `warmup`, a fresh cache of
     its kind, weights `params`) on a fresh runtime of the port: mem
     discovery, in-process event plane, the TCP request plane on
@@ -1701,8 +1748,9 @@ async def _serving_worker(device, cfg, params, status: bool = False,
     and "fpm".  `runtime` overrides RuntimeConfig fields (another
     discovery backend), `cluster_id` names the runtime's cluster (a
     fresh one by default) and `on_runtime(rt)` runs before the worker
-    starts.  On exit closes the worker and exits unless its MDC left
-    discovery."""
+    starts.  `devices` and `cuda_graphs` go to the worker's engine (a
+    mesh's devices; False on a gloo mesh).  On exit closes the worker
+    and exits unless its MDC left discovery."""
     import uuid
 
     from dynamo_tpu_torch.engine import TorchEngineWorker
@@ -1723,7 +1771,7 @@ async def _serving_worker(device, cfg, params, status: bool = False,
     t0 = time.perf_counter()
     worker = await TorchEngineWorker(
         rt, dataclasses.replace(cfg, warmup=warmup), params=params,
-        device=device).start()
+        device=device, devices=devices, cuda_graphs=cuda_graphs).start()
     log(f"worker ({cfg.kv_cache_dtype} KV cache): started "
         f"{'with' if warmup else 'without'} warm-up in "
         f"{time.perf_counter() - t0:.1f} s, {worker.config.num_blocks} KV "
@@ -2609,8 +2657,9 @@ def decode_ab(device, card: str, params, rounds: int = 2) -> dict:
     ledger sweeps; then one profiled turn of lockstep and default for
     the device's busy share, and each path's device operations per
     decode token (its decode program's body), and an on-demand audit of
-    the default engine (clean).  Returns the turns and each path's
-    medians."""
+    the default engine (clean).  Returns the turns, each path's medians
+    and the operations the default engine's k = 8 program dispatches
+    (_dispatched_ops)."""
     from dynamo_tpu_torch.engine import TorchEngine
 
     cfg = _engine_config("bf16")
@@ -2632,6 +2681,8 @@ def decode_ab(device, card: str, params, rounds: int = 2) -> dict:
     ks = {"lockstep": 1, "default": 8, "ledger_off": 8}
     ops = {p: _body_ops(engines[p], ks[p]) for p in ("lockstep", "default")}
     ops["ledger_off"] = ops["default"]  # the same programs: no host hook
+    # what the LoRA phase's bank-less engine must dispatch at this depth
+    dispatched = _dispatched_ops(engines["default"], 8)
     step_s = {p: [] for p in engines}
     audit_s = {p: [] for p in engines}
     for path, eng in engines.items():
@@ -2724,7 +2775,8 @@ def decode_ab(device, card: str, params, rounds: int = 2) -> dict:
         f"equal across every turn of every path")
     for t in turns:
         del t["streams"]
-    return {"turns": turns, "median": summary}
+    return {"turns": turns, "median": summary,
+            "dispatched_ops_k8": dispatched}
 
 
 # ---------------------------------------------------------------------------
@@ -6206,13 +6258,13 @@ def _device_breakdown(prof, wall: float,
 
 
 # ---------------------------------------------------------------------------
-# the MoE family at mixtral-8x7b width (--moe; last in the whole run)
+# the MoE family at mixtral-8x7b width (--moe; before the tp phase)
 # ---------------------------------------------------------------------------
 
 # mixtral-8x7b's 32 layers hold 93.4 GB of bf16 weights, more than the
-# card's 80 GB; 16 layers held 46.97 GB with the embedding and lm_head,
-# 8 keep the whole check inside its 1200 s
-MOE_LAYERS = 8
+# card's 80 GB; 16 layers held 46.97 GB with the embedding and lm_head;
+# 4 keep the whole check, with the tp phase after it, inside its 1200 s
+MOE_LAYERS = 4
 # the one-layer check: its tokens, and the largest relative L2 error of
 # a row against the fp32 forward (bf16 operands and products, fp32
 # accumulation, as the adapters' check of the LoRA phase)
@@ -6809,6 +6861,8 @@ def check_moe(device, card: str) -> dict:
 # the DeepSeek MLA family at deepseek-v2-lite width and depth (--mla)
 # ---------------------------------------------------------------------------
 
+# deepseek-v2-lite's depth in the whole check (--mla: all 27)
+MLA_LAYERS = 8
 # one layer's MLA attention in bf16 against fp32: a T-token chunk after
 # MLA_LAYER_CTX cached tokens, and a decode step over all of them; the
 # per-row relative L2 limit is the MoE layer check's
@@ -7227,8 +7281,9 @@ def _mla_padded_ms(eng, device) -> tuple:
     return start.elapsed_time(end) / 3, 1e3 * host, a
 
 
-def check_mla(device, card: str) -> dict:
-    """The MLA phase (module docstring).  Returns {"launches": K1/K3's
+def check_mla(device, card: str, n_layers: Optional[int] = None) -> dict:
+    """The MLA phase (module docstring), deepseek-v2-lite `n_layers` deep
+    (None: all 27).  Returns {"launches": K1/K3's
     counts in the graphed engine's run (0: MLA runs no kernel of the
     port), "seconds": ..., and the measured numbers}."""
     from dynamo_tpu_torch.engine import TorchEngine
@@ -7244,6 +7299,8 @@ def check_mla(device, card: str) -> dict:
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     mc = _mla_model()
+    if n_layers is not None:
+        mc = dataclasses.replace(mc, n_layers=n_layers)
     t0 = time.perf_counter()
     gen = torch.Generator(device=device).manual_seed(0)
     params = deepseek.init_params(mc, gen, device)
@@ -7255,8 +7312,8 @@ def check_mla(device, card: str) -> dict:
         cfg, 1, 1)) for name, fam, cfg in (
             ("deepseek-v2-lite", deepseek, mc),
             ("llama-8b", llama, llama.PRESETS["llama-8b"]))}
-    log(f"MLA: deepseek-v2-lite at its published widths and full depth "
-        f"(d={mc.d_model}, {mc.n_layers} layers, {mc.n_heads} heads, "
+    log(f"MLA: deepseek-v2-lite at its published widths, {mc.n_layers} of "
+        f"27 layers (d={mc.d_model}, {mc.n_heads} heads, "
         f"kv_lora_rank {mc.kv_lora_rank}, qk_nope {mc.qk_nope_head_dim}, "
         f"qk_rope {mc.qk_rope_head_dim}, v_head {mc.v_head_dim}, first "
         f"{mc.first_k_dense} dense (ffn {mc.ffn_dim}), {mc.n_experts} routed "
@@ -7265,7 +7322,8 @@ def check_mla(device, card: str) -> dict:
         f"{sum(t.numel() for t in leaves) / 1e9:.2f} B parameters, "
         f"{nbytes / 1e9:.2f} GB of random bf16 weights made on the card in "
         f"{time.perf_counter() - t0:.1f} s; bf16 cache bytes a token "
-        f"{per_tok['deepseek-v2-lite']} (llama-8b {per_tok['llama-8b']})")
+        f"{per_tok['deepseek-v2-lite']} at {mc.n_layers} layers (llama-8b "
+        f"{per_tok['llama-8b']} at 32)")
     used = _kernels_of("bf16")
     reqs = _requests(mc.vocab_size)
 
@@ -8208,6 +8266,355 @@ def check_encoder(device, card: str, cfg=None) -> dict:
             "launches": launches}
 
 
+# ---------------------------------------------------------------------------
+# the tensor-parallel phase: two ranks on one card
+# ---------------------------------------------------------------------------
+
+# the whole check's depth of the tp phase's llama-8b (--tp runs all 32):
+# at 8 layers the whole check took ~1140 s of its 1200 on an H100
+TP_LAYERS = 4
+# bf16 gate on the first-token logits of tp=2 against tp=1: the max
+# absolute difference over the tp=1 logits' standard deviation.  Each
+# rank rounds its row-parallel partial products (wo, w_down) to bf16
+# before the sum, where tp=1 rounds the whole product once, on each of
+# 2 x layers residual updates: on the CPU (bf16, d 1024, vocab 8192,
+# random weights) the gap read 0.039 / 0.059 / 0.063 std at 2 / 8 / 16
+# layers; a missing or doubled sum reads several std
+TP_LOGIT_TOL = 0.2
+TP_PROMPT = 512
+TP_NEW = 16
+# the ranks' join, collectives and the NCCL probe, seconds
+TP_TIMEOUT_S = 300.0
+
+
+def _nccl_probe_rank(rank: int, port: int) -> None:
+    """One of two ranks of an NCCL group on cuda:0 (parallel/mesh.py's
+    NCCL construction) and one all_reduce; what it raised, or its sum,
+    goes to the store under probe/<rank>."""
+    import torch.distributed as dist
+
+    from dynamo_tpu_torch.parallel import mesh
+
+    store = dist.TCPStore(mesh.STORE_HOST, port, 3, False,
+                          timeout=mesh._timeout(TP_TIMEOUT_S))
+    try:
+        torch.cuda.set_device(0)
+        pg = mesh._nccl(store, "probe", rank, [0, 1], 60.0)
+        x = torch.ones(1, device="cuda:0")
+        pg.allreduce([x]).wait()
+        torch.cuda.synchronize()
+        msg = f"no error: the sum is {x.item()}"
+    except Exception as e:  # the refusal is the point: report it
+        msg = f"{type(e).__name__}: {e}"
+    store.set(f"probe/{rank}", msg)
+    os._exit(0)  # no NCCL teardown of a refused communicator
+
+
+def _start_nccl_probe() -> tuple:
+    """Spawn the probe's two ranks (they run while the phase builds its
+    engines)."""
+    import multiprocessing as mp
+
+    import torch.distributed as dist
+
+    from dynamo_tpu_torch.parallel import mesh
+
+    store = dist.TCPStore(mesh.STORE_HOST, 0, 3, True,
+                          timeout=mesh._timeout(TP_TIMEOUT_S),
+                          wait_for_workers=False)
+    ctx = mp.get_context("spawn")
+    procs = [ctx.Process(target=_nccl_probe_rank, args=(r, store.port),
+                         name=f"nccl-probe{r}", daemon=True)
+             for r in range(2)]
+    for p in procs:
+        p.start()
+    return store, procs
+
+
+def _finish_nccl_probe(probe: tuple) -> dict:
+    """The probe's messages (what NCCL said of two ranks on one device);
+    each rank joined, or killed past the timeout."""
+    store, procs = probe
+    out = {}
+    for r, p in enumerate(procs):
+        p.join(TP_TIMEOUT_S)
+        if p.is_alive():
+            p.kill()
+            p.join(10)
+        key = f"probe/{r}"
+        out[r] = (store.get(key).decode() if store.check([key])
+                  else f"no message (exit code {p.exitcode})")
+    refused = all(not m.startswith("no error") for m in out.values())
+    for r, m in out.items():
+        log(f"tp: NCCL with two ranks on cuda:0, rank {r}: {m[:600]}")
+    if not refused:
+        raise SystemExit("tp: NCCL accepted two ranks on one device; the "
+                         "mesh's gloo choice for a shared device is wrong")
+    return {"refused": refused, "messages": out}
+
+
+def _tp_requests(vocab: int) -> list:
+    """Four concurrent greedy requests: a TP_PROMPT-token prompt and
+    three shorter ones, TP_NEW tokens each."""
+    from dynamo_tpu_torch.protocols import (
+        PreprocessedRequest,
+        SamplingOptions,
+        StopConditions,
+    )
+
+    rng = np.random.default_rng(17)
+    return [PreprocessedRequest(
+        token_ids=rng.integers(0, vocab, n).tolist(), request_id=f"tp-{i}",
+        sampling=SamplingOptions(temperature=0.0),
+        stop=StopConditions(max_tokens=TP_NEW, ignore_eos=True))
+        for i, n in enumerate((TP_PROMPT, 300, 100, 37))]
+
+
+def _tp_one(req) -> tuple:
+    """`req` cut to its first token, and the prefill bucket its prompt
+    takes (whose program keeps the first-token logits)."""
+    T = max(32, 1 << (len(req.token_ids) - 1).bit_length())
+    one = dataclasses.replace(req, request_id=req.request_id + "-one",
+                              stop=dataclasses.replace(req.stop,
+                                                       max_tokens=1))
+    return one, T
+
+
+def _tp_margin(params, mc, device, tokens: list) -> tuple:
+    """tp=1's logits after `tokens` (teacher-forced: one packed prefill
+    of them on a scratch cache): (its top-2 gap, its std)."""
+    from dynamo_tpu_torch.models import llama
+
+    bs, n = 128, len(tokens)
+    nb = -(-n // bs)
+    T = max(32, 1 << (n - 1).bit_length())
+    kv = tuple(torch.zeros(s, dtype=mc.dtype, device=device)
+               for s in llama.kv_cache_shapes(mc, nb + 1, bs))
+
+    def i32(x):
+        return torch.tensor(x, dtype=torch.int32, device=device)
+
+    logits, _ = llama.prefill_packed(
+        params, mc, kv, i32(tokens + [0] * (T - n)),
+        i32(list(range(n)) + [0] * (T - n)), i32([0] * T),
+        i32([list(range(1, nb + 1))]), i32([n - 1]),
+        torch.arange(T, device=device) < n)
+    top2 = torch.topk(logits[0], 2).values
+    return (top2[0] - top2[1]).item(), logits[0].std().item()
+
+
+def _tp_streams(what: str, got, ref, reqs, params, mc, device) -> list:
+    """Leading tokens of each tp=2 stream equal to tp=1's; a parting is
+    accepted only where tp=1's top-2 gap there is within TP_LOGIT_TOL of
+    its logits' std (a near-tie at the tolerance the logits are held
+    to)."""
+    lead = []
+    for (g, _, _, _), (r, _, _, _), req in zip(got, ref, reqs):
+        j = next((i for i, (a, b) in enumerate(zip(g, r)) if a != b),
+                 min(len(g), len(r)))
+        lead.append(j)
+        if j < len(r):
+            gap, std = _tp_margin(params, mc, device,
+                                  req.token_ids + list(r[:j]))
+            log(f"{what}: {req.request_id} parts at token {j} of {len(r)}, "
+                f"tp=1 top-2 gap {gap:.4f} = {gap / std:.4f} std")
+            if gap > TP_LOGIT_TOL * std:
+                raise SystemExit(f"{what}: {req.request_id} parts at token "
+                                 f"{j} where tp=1's top-2 gap is "
+                                 f"{gap / std:.4f} std (> {TP_LOGIT_TOL})")
+    return lead
+
+
+def _tp_ranks_left() -> list:
+    import multiprocessing as mp
+
+    return [p.name for p in mp.active_children()
+            if p.name.startswith("dynamo-rank")]
+
+
+@contextlib.contextmanager
+def _launches_into(into: dict):
+    """Add the kernel launches this process makes inside the block to
+    `into`."""
+    from dynamo_tpu_torch.ops import launch_counts
+
+    before = launch_counts()
+    try:
+        yield
+    finally:
+        for k, v in launch_counts().items():
+            into[k] = into.get(k, 0) + v - before[k]
+
+
+def _tp_serve(e1, tp1: dict, client):
+    """The turn runners: tp=1 served by its engine directly (its launches
+    counted into `tp1`), tp=2 through the worker's request plane."""
+
+    async def serve_tp1(reqs):
+        with _launches_into(tp1):
+            return await _serve(e1, reqs)
+
+    return {"tp1": serve_tp1,
+            "tp2": lambda reqs: _serve_worker(client, reqs)}
+
+
+def _tp_pair(device, card: str, mc, kv_dtype: str, timing: bool) -> dict:
+    """A tp=1 engine and a tp=2 engine (two ranks on `device` over gloo,
+    eager) behind a TorchEngineWorker, on the same random weights: the
+    first-token logits, the four streams (tp=2 through the worker's
+    request plane), and with `timing` decode tokens/s and TTFT in turns
+    (tp1, tp2, tp2, tp1; the tp=1 engine then has its graphs, captured
+    by warm-up; without `timing` it runs eagerly, the same bodies);
+    after the worker's close its ranks' launches (rank 0's counted over
+    the worker's life less the tp=1 engine's runs, rank 1's reported at
+    stop, its whole life serving; the two must be equal), no rank
+    process left and the card's memory back."""
+    from dynamo_tpu_torch.engine import TorchEngine
+    from dynamo_tpu_torch.ops import launch_counts
+
+    base = _engine_config(kv_dtype)
+    reqs = _tp_requests(mc.vocab_size)
+    kernels = {fn.__name__ for fn in _kernels_of(kv_dtype)}
+
+    async def run() -> dict:
+        e1 = TorchEngine(dataclasses.replace(base, model_config=mc),
+                         device=device, cuda_graphs=timing)
+        if timing:
+            e1.warmup_decode()
+        gc.collect()
+        torch.cuda.empty_cache()
+        free0 = torch.cuda.mem_get_info(device)[0]
+        out, tp1 = {}, {}
+        one, T = _tp_one(reqs[0])
+        t0 = time.perf_counter()
+        life = launch_counts()
+        async with _serving_worker(
+                device, dataclasses.replace(base, model_config=mc, tp=2),
+                None, warmup=False, devices=[device, device],
+                cuda_graphs=False) as (rt, w, client, _):
+            e2 = w.engine
+            out.update(backend=e2.mesh.backend,
+                       build_s=time.perf_counter() - t0,
+                       num_blocks=e2.config.num_blocks,
+                       mdc_tp_dp=(w.card.runtime_config["tp"],
+                                  w.card.runtime_config["dp"]))
+            log(f"tp {kv_dtype}: tp=2 worker on {[str(device)] * 2}, "
+                f"collectives over {e2.mesh.backend} (eager), up in "
+                f"{out['build_s']:.1f} s; {e2.config.num_blocks} blocks, "
+                f"a rank's kv heads {e2.kv[0].shape[1]} of "
+                f"{mc.n_kv_heads}; MDC tp/dp {out['mdc_tp_dp']}")
+            if e2.mesh.backend != "gloo" or out["mdc_tp_dp"] != (2, 1):
+                raise SystemExit(f"tp: backend {e2.mesh.backend}, MDC "
+                                 f"tp/dp {out['mdc_tp_dp']}")
+            serve = _tp_serve(e1, tp1, client)
+            await serve["tp1"]([one])
+            l1 = e1.prefill_graphs.logits[T][0].clone()
+            await serve["tp2"]([one])
+            l2 = e2.prefill_graphs.logits[T][0].clone()
+            std = l1.std().item()
+            diff = (l2 - l1).abs().max().item()
+            out["logit_diff_over_std"] = diff / std
+            log(f"tp {kv_dtype}: first-token logits of a {TP_PROMPT}-token "
+                f"prompt, tp=2 against tp=1: max |diff| {diff:.4f}, std "
+                f"{std:.4f}, {diff / std:.4f} std (tolerance "
+                f"{TP_LOGIT_TOL}); argmax {int(l2.argmax())} / "
+                f"{int(l1.argmax())}")
+            if not diff / std <= TP_LOGIT_TOL:
+                raise SystemExit(f"tp {kv_dtype}: logits {diff / std:.4f} "
+                                 f"std from tp=1's")
+            ref = await serve["tp1"](reqs)
+            got = await serve["tp2"](reqs)
+            with _launches_into(tp1):  # the replays run tp=1's model
+                out["leading"] = _tp_streams(f"tp {kv_dtype}", got, ref,
+                                             reqs, e1.params, mc, device)
+            log(f"tp {kv_dtype}: the four streams' leading tokens equal to "
+                f"tp=1's, of {TP_NEW}: {out['leading']}")
+            if timing:
+                turns = {"tp1": [], "tp2": []}
+                for name in ("tp1", "tp2", "tp2", "tp1"):
+                    res = await serve[name](reqs)
+                    n, secs = _decode_rate(res)
+                    turns[name].append({
+                        "decode_tok_s": n / secs,
+                        "ttft_s": sorted(r[2] for r in res)})
+                    log(f"tp turn {name}: decode {n / secs:.2f} tokens/s, "
+                        f"TTFT {min(r[2] for r in res):.3f}-"
+                        f"{max(r[2] for r in res):.3f} s ({card})")
+                out["turns"] = turns
+        leader = {k: v - life[k] - tp1.get(k, 0)
+                  for k, v in launch_counts().items()}
+        out["launches"] = {"rank0": leader, **{
+            f"rank{r}": c for r, c in e2.rank_launches.items()}}
+        log(f"tp {kv_dtype}: kernel launches while serving, by rank: "
+            f"{out['launches']}")
+        for rank, counts in out["launches"].items():
+            if not all(counts.get(k, 0) > 0 for k in kernels):
+                raise SystemExit(f"tp {kv_dtype}: {rank} launched "
+                                 f"{counts}, not every one of {kernels}")
+        if out["launches"].get("rank1") != leader:
+            raise SystemExit(f"tp {kv_dtype}: the ranks launched "
+                             f"different kernels {out['launches']}")
+        del e2, w
+        gc.collect()
+        torch.cuda.empty_cache()
+        left = _tp_ranks_left()
+        free1 = torch.cuda.mem_get_info(device)[0]
+        out["free_gib_before_after"] = (free0 / 2**30, free1 / 2**30)
+        log(f"tp {kv_dtype}: after close, rank processes left {left}; card "
+            f"memory free {free0 / 2**30:.2f} GiB before the tp=2 worker, "
+            f"{free1 / 2**30:.2f} GiB after")
+        if left or free1 < free0 - 2**30:
+            raise SystemExit(f"tp {kv_dtype}: ranks {left} left or the "
+                             "card's memory not back after close")
+        await e1.close()
+        return out
+
+    return asyncio.run(run())
+
+
+def check_tp(device, card: str, n_layers: int) -> dict:
+    """The tensor-parallel phase: NCCL's refusal of two ranks on one
+    device, then a tp=1 and a tp=2 engine at llama-8b width and
+    `n_layers` deep, random bf16 weights from seed 0, on a bf16 cache
+    (with the timing turns) and on an int8 cache."""
+    t0 = time.perf_counter()
+    probe = _start_nccl_probe()
+    from dynamo_tpu_torch.models.llama import PRESETS
+
+    mc = dataclasses.replace(PRESETS["llama-8b"], n_layers=n_layers)
+    out = {"layers": n_layers}
+    try:
+        out["bf16"] = _tp_pair(device, card, mc, "bf16", timing=True)
+        out["int8"] = _tp_pair(device, card, mc, "int8", timing=False)
+    finally:
+        out["nccl"] = _finish_nccl_probe(probe)
+    out["seconds"] = time.perf_counter() - t0
+    log(f"tp phase ({n_layers} layers) done in {out['seconds']:.1f} s")
+    return out
+
+
+def tp_slab_kernels(cfg, device) -> list:
+    """K1 (B = 8) and K3 (T = 2048), each mode, at a tp=2 rank's slab of
+    cfg (its heads and kv heads halved), held to the plain versions with
+    the planted faults and timed, as at the whole model's shapes."""
+    from dynamo_tpu_torch.parallel.mesh import shard_config
+
+    slab = shard_config(cfg, 2)
+    log(f"tp=2 slab shapes: nh {slab.n_heads}, nkv {slab.n_kv_heads}, "
+        f"group {slab.n_heads // slab.n_kv_heads}")
+    return [check_decode_kernel(slab, device, cases=DECODE_CASES[:1]),
+            check_prefill_kernel(slab, device, cases=PACKED_CASES[:1]),
+            check_decode_kernel(slab, device, int8=True,
+                                cases=DECODE_CASES[:1]),
+            check_prefill_kernel(slab, device, int8=True,
+                                 cases=PACKED_CASES[:1])]
+
+
+def _slab_entry(e: dict) -> dict:
+    return {k: e[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                              "library_ms", "max_abs_err", "max_rel_err")}
+
+
 def load_checkout(path: str):
     """(_build, cuda_paged_attention, cuda_packed_prefill) of the port in
     another checkout at `path` (for instance the parent commit unpacked
@@ -8293,6 +8700,7 @@ def ab_compare(cfg, device, path: str) -> list:
 
 
 def main() -> int:
+    global LLAMA_LAYERS
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda is not available; nothing to run",
               file=sys.stderr)
@@ -8456,6 +8864,17 @@ def main() -> int:
             "flop_bound_ms", "peak_gib", "seconds")}}), flush=True)
         print(card, flush=True)
         return 0
+    if sys.argv[1:] == ["--tp"]:
+        # python3 chip_smoke.py --tp: the tensor-parallel phase at full
+        # depth, and K1/K3 at a tp=2 rank's slab
+        build_kernels()
+        slab = tp_slab_kernels(cfg, device)
+        out = check_tp(device, card, cfg.n_layers)
+        print(json.dumps({"tp": out, "slab": [
+            {"name": e["name"], **_slab_entry(e)} for e in slab]},
+            default=str), flush=True)
+        print(card, flush=True)
+        return 0
     if sys.argv[1:] == ["--worker-ab"]:
         # python3 chip_smoke.py --worker-ab: the engine directly against
         # the engine behind the worker, in turns
@@ -8467,13 +8886,12 @@ def main() -> int:
                check_prefill_kernel(cfg, device),
                check_decode_kernel(cfg, device, int8=True),
                check_prefill_kernel(cfg, device, int8=True)]
+    for k, e in zip(kernels, tp_slab_kernels(cfg, device)):
+        k["tp2_slab"] = _slab_entry(e)
     dma = check_dma_kernels(device)
     torch.cuda.empty_cache()
     log(f"kernel phases done at {time.perf_counter() - t_start:.1f} s")
-    launches, engine, ops_bf16, direct = check_engine(device, card)
-    # the operations the default engine's k = 8 program dispatches, for
-    # the LoRA phase's bank-less engine to match
-    ops_default = _dispatched_ops(engine, 8)
+    launches, engine, _, direct = check_engine(device, card)
     log(f"bf16 engine phase done at {time.perf_counter() - t_start:.1f} s")
     # the later runs reuse the weights; each cache is freed first
     params = engine.params
@@ -8485,11 +8903,51 @@ def main() -> int:
     log(f"bf16 worker phase done at {time.perf_counter() - t_start:.1f} s")
     del engine
     torch.cuda.empty_cache()
-    # one round in the whole check (two with --decode-ab), so the
-    # prefill A/B and disagg phases fit in the script's time budget
-    decode_ab(device, card, params, rounds=1)
+    encoder = check_encoder(device, card)
+    log(f"encoder phase done at {time.perf_counter() - t_start:.1f} s")
+    # the pair's second process builds the preset's full depth
+    disagg = check_disagg(device, card, params)
+    log(f"disagg phase done at {time.perf_counter() - t_start:.1f} s")
+    ipc = check_disagg_ipc(device, card, params, disagg.pop("ref_one"),
+                           disagg["transfer_gb_s"]["broker"])
+    log(f"disagg ipc phase done at {time.perf_counter() - t_start:.1f} s")
+    # its n-gram turns must propose, which depends on the model's streams
+    spec = check_spec(device, card, params)
+    log(f"spec phase done at {time.perf_counter() - t_start:.1f} s")
+    # from here on the first SERVE_LAYERS layers of the same weights
+    LLAMA_LAYERS = SERVE_LAYERS
+    params = {**params, "layers": params["layers"][:SERVE_LAYERS]}
+    gc.collect()
     torch.cuda.empty_cache()
-    log(f"decode A/B phase done at {time.perf_counter() - t_start:.1f} s")
+    launches8, engine8, ops_int8, _ = check_engine(device, card, "int8",
+                                                   params)
+    launches.update(launches8)
+    log(f"int8 engine phase ({SERVE_LAYERS} layers) done at "
+        f"{time.perf_counter() - t_start:.1f} s")
+    engine8.kv = engine8.graphs = engine8.prefill_graphs = None
+    engine8.guided_graphs = None
+    torch.cuda.empty_cache()
+    # the bf16 cache's count at this depth, for the int8 one's
+    ops_bf16 = _compare_logits(params, engine8.model_cfg, device, "bf16")
+    log(f"device operations per decode step (one sequence, "
+        f"{SERVE_LAYERS} layers): int8 cache {ops_int8} against bf16 cache "
+        f"{ops_bf16} (the plain-torch quantize-on-write adds "
+        f"{ops_int8 - ops_bf16})")
+    worker_launches.update(check_worker_short(device, engine8.config, params))
+    log(f"int8 worker phase done at {time.perf_counter() - t_start:.1f} s")
+    disc = {b: check_discovery(device, engine8.config, params, b)
+            for b in DISCOVERY_BACKENDS}
+    log(f"etcd and kubernetes discovery phase done at "
+        f"{time.perf_counter() - t_start:.1f} s")
+    del engine8
+    torch.cuda.empty_cache()
+    # one round in the whole check (two with --decode-ab), so the
+    # later phases fit in the script's time budget
+    ops_default = decode_ab(device, card, params,
+                            rounds=1)["dispatched_ops_k8"]
+    torch.cuda.empty_cache()
+    log(f"decode A/B phase ({SERVE_LAYERS} layers) done at "
+        f"{time.perf_counter() - t_start:.1f} s")
     fused_ab(device, card, params)
     torch.cuda.empty_cache()
     log(f"fused A/B phase done at {time.perf_counter() - t_start:.1f} s")
@@ -8498,50 +8956,30 @@ def main() -> int:
     prefill_ab(device, card, params, rounds=1)
     torch.cuda.empty_cache()
     log(f"prefill A/B phase done at {time.perf_counter() - t_start:.1f} s")
-    launches8, engine8, ops_int8, _ = check_engine(device, card, "int8",
-                                                   params)
-    launches.update(launches8)
-    log(f"int8 engine phase done at {time.perf_counter() - t_start:.1f} s")
-    engine8.kv = engine8.graphs = engine8.prefill_graphs = None
-    engine8.guided_graphs = None
-    torch.cuda.empty_cache()
-    worker_launches.update(check_worker_short(device, engine8.config, params))
-    log(f"int8 worker phase done at {time.perf_counter() - t_start:.1f} s")
-    disc = {b: check_discovery(device, engine8.config, params, b)
-            for b in DISCOVERY_BACKENDS}
-    log(f"etcd and kubernetes discovery phase done at "
-        f"{time.perf_counter() - t_start:.1f} s")
-    encoder = check_encoder(device, card)
-    log(f"encoder phase done at {time.perf_counter() - t_start:.1f} s")
-    log(f"device operations per decode step (one sequence): int8 cache "
-        f"{ops_int8} against bf16 cache {ops_bf16} (the plain-torch "
-        f"quantize-on-write adds {ops_int8 - ops_bf16})")
-    del engine8
-    torch.cuda.empty_cache()
-    disagg = check_disagg(device, card, params)
-    log(f"disagg phase done at {time.perf_counter() - t_start:.1f} s")
-    ipc = check_disagg_ipc(device, card, params, disagg.pop("ref_one"),
-                           disagg["transfer_gb_s"]["broker"])
-    log(f"disagg ipc phase done at {time.perf_counter() - t_start:.1f} s")
     kvbm = check_kvbm(device, card, params)
     log(f"kvbm phase done at {time.perf_counter() - t_start:.1f} s")
-    spec = check_spec(device, card, params)
-    log(f"spec phase done at {time.perf_counter() - t_start:.1f} s")
     lora = check_lora_guided(device, card, params, ops_default)
     log(f"lora and guided phase done at {time.perf_counter() - t_start:.1f} "
         "s")
+    # the checkpoint phase's config takes its depth from the checkpoint
+    LLAMA_LAYERS = None
     del params
+    gc.collect()
     torch.cuda.empty_cache()
     ckpt = check_checkpoint(device, card)
     log(f"checkpoint phase done at {time.perf_counter() - t_start:.1f} s")
     gc.collect()
     torch.cuda.empty_cache()
-    mla = check_mla(device, card)
+    mla = check_mla(device, card, MLA_LAYERS)
     log(f"mla phase done at {time.perf_counter() - t_start:.1f} s")
     gc.collect()
     torch.cuda.empty_cache()
     moe = check_moe(device, card)
     log(f"moe phase done at {time.perf_counter() - t_start:.1f} s")
+    gc.collect()
+    torch.cuda.empty_cache()
+    tp = check_tp(device, card, TP_LAYERS)
+    log(f"tp phase done at {time.perf_counter() - t_start:.1f} s")
     for k in kernels:
         k["launches"] = launches[k["name"]]
         k["worker_launches"] = worker_launches[k["name"]]
@@ -8563,6 +9001,10 @@ def main() -> int:
         k["kube_launches"] = disc["kubernetes"]["launches"].get(k["name"], 0)
         k["embed_launches"] = embed["launches"].get(k["name"], 0)
         k["encoder_launches"] = encoder["launches"].get(k["name"], 0)
+        # rank 0 / rank 1 of the tp=2 engine of the cache it serves
+        mode = tp["int8" if k["name"].endswith("_int8") else "bf16"]
+        k["tp_launches"] = [mode["launches"][r].get(k["name"], 0)
+                            for r in ("rank0", "rank1")]
     for k in dma:  # the microbench is on no serving path
         k["disagg_prefill_launches"] = k["disagg_decode_launches"] = 0
         k["disagg_ipc_prefill_launches"] = k["disagg_ipc_decode_launches"] = 0
@@ -8570,6 +9012,7 @@ def main() -> int:
         k["lora_launches"] = k["guided_launches"] = k["moe_launches"] = 0
         k["mla_launches"] = k["etcd_launches"] = k["kube_launches"] = 0
         k["embed_launches"] = k["encoder_launches"] = 0
+        k["tp_launches"] = [0, 0]
     log(f"chip_smoke: every phase passed in "
         f"{time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels + dma}), flush=True)

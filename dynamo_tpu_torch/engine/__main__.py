@@ -15,6 +15,11 @@ records the timeline spans and dumps them as a Chrome trace at exit
 drains, deregisters and exits.  The kernels' launch counts (each CUDA
 wrapper's `launches`) are logged once ready and again at exit, so a
 driver of the process can tell what serving launched.
+
+`--tp N --dp M` serve one mesh of N * M ranks (parallel/): this process
+is rank 0 and spawns the others, one per device, the first N * M
+visible CUDA devices (or all on the CPU with `--device cpu`); with
+fewer devices the worker exits non-zero with JAX's make_mesh error.
 """
 
 import argparse
@@ -26,9 +31,11 @@ import sys
 
 from .. import obs
 from ..device import resolve_device
+from ..ops import launch_counts
 from ..ops.fused_sampling import EPILOGUE_MODES
 from ..ops.packed_prefill import PACKED_IMPLS
 from ..ops.paged_attention import DECODE_IMPLS
+from ..parallel.mesh import MeshConfig, default_devices, mesh_devices
 from ..runtime import DistributedRuntime
 from ..runtime.aio import install_drain_handler
 from ..runtime.logging import setup_logging
@@ -36,16 +43,6 @@ from .config import ROLES, SPEC_MODES, EngineConfig
 from .worker import TorchEngineWorker
 
 logger = logging.getLogger("dynamo_tpu_torch.engine")
-
-
-def launch_counts() -> dict:
-    """Each kernel wrapper's launches in this process."""
-    from ..ops import cuda_packed_prefill as k3
-    from ..ops import cuda_paged_attention as k1
-
-    return {fn.__name__: fn.launches
-            for fn in (k1.paged_decode, k1.paged_decode_int8,
-                       k3.packed_prefill, k3.packed_prefill_int8)}
 
 
 def build_args() -> argparse.ArgumentParser:
@@ -63,6 +60,8 @@ def build_args() -> argparse.ArgumentParser:
     p.add_argument("--num-blocks", type=int, default=128)
     p.add_argument("--max-blocks-per-seq", type=int, default=64)
     p.add_argument("--max-num-seqs", type=int, default=8)
+    p.add_argument("--tp", type=int, default=1)
+    p.add_argument("--dp", type=int, default=1)
     p.add_argument("--no-prefix-caching", action="store_true")
     p.add_argument("--kv-cache-dtype", default="bf16",
                    choices=["bf16", "int8"],
@@ -187,6 +186,8 @@ def engine_config(args: argparse.Namespace) -> EngineConfig:
         num_blocks=args.num_blocks,
         max_blocks_per_seq=args.max_blocks_per_seq,
         max_num_seqs=args.max_num_seqs,
+        tp=args.tp,
+        dp=args.dp,
         enable_prefix_caching=not args.no_prefix_caching,
         kv_cache_dtype=args.kv_cache_dtype,
         kv_hbm_gb=args.kv_hbm_gb,
@@ -235,6 +236,12 @@ async def main() -> int:
         print(f"dynamo_tpu_torch.engine: {e}", file=sys.stderr)
         return 2
     config = engine_config(args)
+    mcfg = MeshConfig(dp=config.dp, tp=config.tp, sp=config.sp)
+    try:
+        mesh_devices(mcfg, default_devices(mcfg, device))
+    except ValueError as e:
+        print(f"dynamo_tpu_torch.engine: {e}", file=sys.stderr)
+        return 2
     rt = await DistributedRuntime.detached().start()
     worker = await TorchEngineWorker(
         rt, config, namespace=args.namespace, component=args.component,

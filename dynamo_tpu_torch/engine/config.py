@@ -26,10 +26,32 @@ SPEC_MODES = ("off", "ngram", "draft")
 
 # field -> (default, the feature it belongs to)
 _UNPORTED = {
-    "dp": (1, "data parallelism"),
-    "tp": (1, "tensor parallelism"),
     "sp": (1, "sequence-parallel ring prefill"),
 }
+
+
+def _mesh_refusals(cfg: "EngineConfig") -> list:
+    """The features a dp * tp > 1 engine does not serve yet, each as
+    (set, its name): their programs are not on the step stream
+    (parallel/multihost.py) or their weights have no tensor-parallel
+    forward.  JAX serves every one under tp; ROADMAP.md lists them as the
+    next work."""
+    model = cfg.resolve_model()
+    return [
+        (cfg.role != "both", f"disaggregated serving (role={cfg.role!r})"),
+        (cfg.host_cache_blocks > 0,
+         "the KVBM tiers (host_cache_blocks > 0)"),
+        (cfg.spec_decode != "off",
+         f"speculative decoding (spec_decode={cfg.spec_decode!r})"),
+        (cfg.lora_max_adapters > 0, "LoRA serving (lora_max_adapters > 0)"),
+        (cfg.sampling_epilogue == "fused",
+         "the fused sampling epilogue (sampling_epilogue='fused')"),
+        (getattr(model, "n_experts", 0) > 0,
+         f"the MoE family (model {model.name!r}: expert sharding over tp)"),
+        (isinstance(model, DeepseekConfig),
+         f"the MLA family (model {model.name!r}: heads through "
+         "w_uk/w_uv/wq_b)"),
+    ]
 
 
 @dataclass
@@ -211,9 +233,11 @@ class EngineConfig:
     reasoning_parser: str = ""
     seed: int = 0
 
-    # JAX-engine features not ported yet (see _UNPORTED)
+    # the mesh (parallel/mesh.py): dp replicas of tp ranks, one process
+    # per rank driven by the leader's step stream (parallel/multihost.py)
     dp: int = 1
     tp: int = 1
+    # sequence parallelism: not ported yet (see _UNPORTED)
     sp: int = 1
 
     def __post_init__(self):
@@ -223,6 +247,9 @@ class EngineConfig:
                 raise NotImplementedError(
                     f"EngineConfig.{name}={value!r}: {feature} is not ported "
                     f"to dynamo_tpu_torch yet (default {default!r})")
+        if self.dp < 1 or self.tp < 1:
+            raise ValueError(f"dp and tp must be >= 1, got dp={self.dp} "
+                             f"tp={self.tp}")
         # imported here: ops/fused_sampling.py imports the engine package
         from ..ops.fused_sampling import EPILOGUE_MODES
 
@@ -249,6 +276,12 @@ class EngineConfig:
             raise ValueError(f"packed_attn_impl must be one of "
                              f"{' | '.join(PACKED_IMPLS)}, got "
                              f"{self.packed_attn_impl!r}")
+        if self.dp * self.tp > 1:
+            for refused, feature in _mesh_refusals(self):
+                if refused:
+                    raise NotImplementedError(
+                        f"{feature} is not ported to dynamo_tpu_torch under "
+                        f"dp={self.dp} tp={self.tp} yet")
 
     def resolve_model(self) -> Union[LlamaConfig, DeepseekConfig]:
         """The model config (model_config, else the checkpoint's at

@@ -145,6 +145,28 @@ eagerly between steps on the scheduler's thread (an `embed_fetch`
 device_wait span; the first call at a bucket is the capture watch's
 "embed" record).
 
+Tensor and data parallelism (parallel/): with dp * tp > 1 the engine the
+caller builds is rank 0 of a mesh.  It spawns the other ranks
+(parallel/multihost.py launch_ranks), each of which builds an engine on
+its own device with its shard of the weights (models/llama.py's tp
+forward, its config `shard_cfg`) and of the cache (its kv heads, from
+the same num_blocks: kv_hbm_gb budgets the whole cache, each rank holds
+1/tp of it), and replays the leader's step stream through `apply_step`.
+The leader alone schedules, allocates blocks and emits KV events; before
+it runs a program, warm-up's included, it publishes the step
+(`_publish`, the JAX engine's kind names and descriptor keys), so every
+rank runs the same programs, and so the same collectives, in the same
+order.  The step kinds are those of the dense path: prefill_packed,
+prefill and prefill_batch (prefill_packed=False), decode, decode_multi
+and decode_cont, plus warm-up's decode_snapshot/decode_restore of the
+decode descriptor.  What their programs do not cover is refused: the
+config refuses roles, KVBM, speculation, LoRA, the fused epilogue and
+the MoE and MLA families (engine/config.py), and `generate` refuses
+guided and disaggregated requests, `embed` raises.  On a gloo mesh
+(ranks sharing a device) the programs run eagerly: gloo's collectives
+cannot be captured, and cuda_graphs=True raises.  `close` stops and
+joins every rank.
+
 Not here yet (ROADMAP.md): penalties (the JAX engine ignores them too).
 """
 
@@ -183,6 +205,21 @@ from ..ops.kv_transfer import (
     gather_universal,
     inject_universal,
 )
+from ..parallel.mesh import (
+    DEFAULT_TIMEOUT_S,
+    Mesh,
+    MeshConfig,
+    default_devices,
+    group_backend,
+    mesh_devices,
+    shard_config,
+)
+from ..parallel.multihost import (
+    STOP,
+    GroupTransport,
+    StepBroadcaster,
+    launch_ranks,
+)
 from ..protocols import (
     DISAGG_ANNOTATION,
     DRAIN_ABORT,
@@ -207,6 +244,7 @@ from .graphs import (
     PrefillPrograms,
     Readback,
     VerifyPrograms,
+    check_capture,
 )
 from .prefill import _pow2, plan_packed_prefill
 from .sampler import spec_accept_tokens
@@ -361,7 +399,10 @@ class TorchEngine:
                  cuda_graphs: bool = True,
                  prefill_graphs: Optional[bool] = None,
                  kv_pull_fn: Optional[Callable] = None,
-                 draft_params=None):
+                 draft_params=None,
+                 devices: Optional[List[DeviceLike]] = None,
+                 mesh: Optional[Mesh] = None,
+                 mesh_timeout_s: float = DEFAULT_TIMEOUT_S):
         """`params`: the port's parameter tree on `device` (for example
         from models/convert.py params_from_numpy); None loads the
         checkpoint at config.model_path, or makes random weights from
@@ -376,9 +417,42 @@ class TorchEngine:
         the PullSource of a remote prefill's parked KV (set by the
         worker; the engine stays transport-agnostic).  `draft_params`:
         the draft model's weights under spec_decode="draft" (None: loaded
-        from spec_draft_model_path, or random from config.seed)."""
+        from spec_draft_model_path, or random from config.seed).
+
+        With config.dp * config.tp > 1 this engine is rank 0 of a mesh on
+        `devices` (default: `device` repeated when it is the CPU, else the
+        first dp * tp visible CUDA devices; raises as JAX's make_mesh when
+        there are fewer), and `device` is ignored.  `params` is then the
+        full parameter tree as numpy arrays (or None), and each rank cuts
+        its shard; on a gloo mesh (ranks sharing a device) pass
+        cuda_graphs=False.  A rank, hung or gone, surfaces as an error
+        within `mesh_timeout_s`.  `mesh`: a spawned rank's Mesh
+        (parallel/multihost.py follower_main), which makes this engine a
+        follower: it replays steps through `apply_step` and never
+        schedules."""
         self.config = config
+        world = config.dp * config.tp
+        devs, backend = None, None
+        if world > 1 and mesh is None:
+            mcfg = MeshConfig(dp=config.dp, tp=config.tp, sp=config.sp)
+            devs = mesh_devices(mcfg, devices if devices is not None
+                                else default_devices(mcfg,
+                                                     resolve_device(device)))
+            device, backend = devs[0], group_backend(devs[:config.tp])
+        elif mesh is not None:
+            device, backend = mesh.device, mesh.backend
         self.device = resolve_device(device)
+        check_capture(backend, self.device,
+                      cuda_graphs or bool(prefill_graphs))
+        # the mesh (parallel/mesh.py): None for a single-device engine; the
+        # leader launches the other ranks at the end of __init__
+        self.mesh: Optional[Mesh] = mesh
+        self._ranks = None  # the leader's spawned ranks
+        # rank -> its kernel launch counts, as reported at close
+        self.rank_launches: Dict[int, Dict[str, int]] = {}
+        self._steps: Optional[StepBroadcaster] = None
+        self._warm_snap = None  # a follower's copy of warm-up's snapshot
+        tp_rank = mesh.tp_rank if mesh is not None else 0
         self.model_cfg = config.resolve_model()
         # the model family's module (models/__init__.py get_family): every
         # forward, init and cache shape below goes through it, and what
@@ -405,16 +479,36 @@ class TorchEngine:
             raise ValueError(
                 f"model family {self.model_cfg.name!r} does not support "
                 "LoRA serving")
+        # a rank runs its shard's widths (parallel/mesh.py shard_config);
+        # model_cfg stays the whole model's (the MDC, the cache budget)
+        self.shard_cfg = shard_config(self.model_cfg, config.tp)
+        shard = (tp_rank, config.tp) if config.tp > 1 else None
+        mesh_params = None
+        if world > 1 and params is not None:
+            # every rank cuts its own shard of the whole numpy tree
+            if not isinstance(params.get("embedding"), np.ndarray):
+                raise TypeError(
+                    "under dp * tp > 1 the engine takes the whole parameter "
+                    "tree as numpy arrays (models/convert.py's input); each "
+                    "rank places its own shard")
+            mesh_params = params
         if params is None and config.model_path:
             from ..models.loader import load_params
 
             params = load_params(config.model_path, self.model_cfg,
-                                 device=self.device)
+                                 device=self.device, shard=shard)
         elif params is None:
             gen = torch.Generator(device=self.device)
             gen.manual_seed(config.seed)
-            params = self.family.init_params(self.model_cfg, gen,
-                                             self.device)
+            params = self.family.init_params(
+                self.model_cfg, gen, self.device,
+                **({"shard": shard} if shard is not None else {}))
+        elif mesh_params is not None:
+            from ..models.convert import params_from_numpy
+
+            params = params_from_numpy(mesh_params, self.model_cfg,
+                                       self.device, rank=tp_rank,
+                                       tp=config.tp)
         self.params = params
         # the EFFECTIVE cache dtype: a family without a quantized cache
         # (MLA: no kv_cache_scale_shapes) falls back to bf16 with JAX's
@@ -521,7 +615,7 @@ class TorchEngine:
         # each lane's device chain, the host mirror of the last full
         # descriptor (_is_continuation), deferred first-token readbacks
         # and the adaptive fusion ramp's clock
-        self.graphs = DecodePrograms(self.params, self.model_cfg, self.kv,
+        self.graphs = DecodePrograms(self.params, self.shard_cfg, self.kv,
                                      config.max_num_seqs,
                                      config.max_blocks_per_seq, self.device,
                                      capture=cuda_graphs,
@@ -535,7 +629,7 @@ class TorchEngine:
         self.prefill_graphs: Optional[PrefillPrograms] = None
         if packed:
             self.prefill_graphs = PrefillPrograms(
-                self.params, self.model_cfg, self.kv,
+                self.params, self.shard_cfg, self.kv,
                 config.max_prefill_seqs, config.max_blocks_per_seq,
                 _ladder(config.prefill_buckets[0], config.chunk_budget),
                 self.device,
@@ -546,7 +640,7 @@ class TorchEngine:
         # would merge the sequences' expert-capacity pools), take the
         # padded programs, as the JAX engine's `_packed_prefill_ok` routes
         # them
-        mc = self.model_cfg
+        mc = self.shard_cfg
         self._packed_prefill_ok = config.prefill_packed and packed and not (
             getattr(mc, "n_experts", 0) > 0
             and getattr(mc, "moe_dispatch", "dense") == "capacity")
@@ -560,7 +654,7 @@ class TorchEngine:
         # token<->text codec (the worker installs the model's tokenizer;
         # None falls back to the byte mock)
         self.guided_graphs = GuidedPrograms(
-            self.params, self.model_cfg, self.kv, config.max_num_seqs,
+            self.params, self.shard_cfg, self.kv, config.max_num_seqs,
             config.max_blocks_per_seq,
             (self.GUIDED_TOPM, self.GUIDED_TOPM_WIDE), self.device,
             capture=cuda_graphs)
@@ -669,6 +763,17 @@ class TorchEngine:
         n_params = sum(t.numel() for t in _tensors(params)
                        if id(t) not in skip)
         self._flops_per_token = 2.0 * max(n_params, 1)
+        if devs is not None:
+            # rank 0: spawn the other ranks (each builds its engine from
+            # this config on its device, with its shard) and join them
+            self._ranks = launch_ranks(config, devs, mesh_params,
+                                       cuda_graphs, mesh_timeout_s)
+            self.mesh = self._ranks.mesh
+            self._steps = StepBroadcaster(
+                GroupTransport(self.mesh.step).send)
+        if self.mesh is not None and self.mesh.tensor is not None:
+            # the forward's collectives ride the tree (models/llama.py)
+            self.params["tp"] = self.mesh.tensor
 
     def _program_families(self) -> list:
         """Every program family this engine builds (the capture watch's
@@ -683,6 +788,90 @@ class TorchEngine:
             if progs is not None:
                 fams.append(progs)
         return fams
+
+    # -- the step stream (parallel/multihost.py) -----------------------------
+    def _publish(self, kind: str,
+                 arrays: Optional[Dict[str, np.ndarray]] = None) -> None:
+        """The leader's step, published before it runs the program; a
+        no-op off a mesh and on a follower."""
+        if self._steps is not None:
+            self._steps.publish_step(kind, arrays)
+
+    def _dispatch_decode(self, a: Dict[str, np.ndarray], greedy: bool,
+                         k: int) -> Readback:
+        """A full decode dispatch: upload the descriptor `a` and run
+        program (greedy, k); the step is JAX's decode (k = 1) or
+        decode_multi with k in the descriptor."""
+        self._publish("decode_multi" if k > 1 else "decode",
+                      {**a, "k": np.int32(k)} if k > 1 else a)
+        self.graphs.upload(a)
+        return self.graphs.run(greedy, k)
+
+    def _dispatch_decode_cont(self, k: int, advance: int,
+                              greedy: bool) -> Readback:
+        """A continuation burst: the device descriptor advanced in the
+        program, nothing uploaded (JAX's decode_cont)."""
+        self._publish("decode_cont", {"k": np.int32(k),
+                                      "advance": np.int32(advance),
+                                      "greedy": np.int32(greedy)})
+        self.graphs.continuation(advance)
+        return self.graphs.run(greedy, k)
+
+    def _dispatch_packed(self, a: Dict[str, np.ndarray]) -> torch.Tensor:
+        """Bucket len(a["toks"])'s packed-prefill program on the padded
+        descriptor `a`; returns its sampled tokens."""
+        self._publish("prefill_packed", a)
+        return self.prefill_graphs.run(self.prefill_graphs.upload(a))
+
+    def _dispatch_padded(self, a: Dict[str, np.ndarray]) -> torch.Tensor:
+        """A padded prefill dispatch (PaddedPrefillPrograms.run's arrays);
+        one row is JAX's prefill step, with its keys, several its
+        prefill_batch."""
+        if a["toks"].shape[0] == 1:
+            self._publish("prefill", {
+                "toks": a["toks"][0], "positions": a["positions"][0],
+                "block_table": a["tables"][0],
+                "pos": np.int32(a["ctx_lens"][0]),
+                "chunk": np.int32(a["true_lens"][0]),
+                "seed": np.int32(a["seeds"][0]),
+                "temp": np.float32(a["temps"][0]),
+                "top_k": np.int32(a["top_ks"][0]),
+                "top_p": np.float32(a["top_ps"][0])})
+        else:
+            self._publish("prefill_batch", a)
+        return self.padded_prefill.run(a)
+
+    def apply_step(self, kind: str, a: Dict[str, np.ndarray]) -> None:
+        """A follower: run one of the leader's steps, the program the
+        leader ran, on this rank's shards (parallel/multihost.py).  What
+        it samples is discarded; the decode chain stays symmetric with
+        the leader's, since every burst runs here too."""
+        if kind == "prefill_packed":
+            self._dispatch_packed(a)
+        elif kind == "prefill":
+            self._dispatch_padded({
+                "toks": a["toks"][None], "positions": a["positions"][None],
+                "tables": a["block_table"][None],
+                "ctx_lens": a["pos"].reshape(1),
+                "true_lens": a["chunk"].reshape(1),
+                "seeds": a["seed"].reshape(1), "temps": a["temp"].reshape(1),
+                "top_ks": a["top_k"].reshape(1),
+                "top_ps": a["top_p"].reshape(1)})
+        elif kind == "prefill_batch":
+            self._dispatch_padded(a)
+        elif kind in ("decode", "decode_multi"):
+            k = int(a.pop("k", 1))
+            self._dispatch_decode(a, bool(np.all(a["temps"] <= 0.0)), k)
+        elif kind == "decode_cont":
+            self._dispatch_decode_cont(int(a["k"]), int(a["advance"]),
+                                       bool(int(a["greedy"])))
+        elif kind == "decode_snapshot":
+            self._warm_snap = self.graphs.snapshot()
+        elif kind == "decode_restore":
+            self.graphs.restore(self._warm_snap)
+            self._warm_snap = None
+        else:
+            raise ValueError(f"unknown step kind {kind!r}")
 
     # -- lifecycle ----------------------------------------------------------
     def start(self) -> None:
@@ -713,6 +902,13 @@ class TorchEngine:
             self._offloading.clear()
             self._offload_pending.clear()
             self.kvbm.close()
+        if self._ranks is not None:
+            # stop every rank, join it (killed past the timeout) and keep
+            # the kernel launches each reported
+            ranks, self._ranks = self._ranks, None
+            await asyncio.to_thread(ranks.close,
+                                    partial(self._publish, STOP))
+            self.rank_launches = ranks.launches
 
     def _fail_all_streams(
         self,
@@ -732,8 +928,9 @@ class TorchEngine:
 
     def _init_kv_cache(self) -> tuple:
         """(k, v) in the model's dtype, or for an int8 cache (k, v int8,
-        k_scale, v_scale fp32) (quant/kv.py); zeros."""
-        m, c = self.model_cfg, self.config
+        k_scale, v_scale fp32) (quant/kv.py); zeros.  A tensor-parallel
+        rank holds its kv heads only."""
+        m, c = self.shard_cfg, self.config
         int8 = self.kv_dtype == "int8"
         kv = [torch.zeros(shape, dtype=torch.int8 if int8 else m.dtype,
                           device=self.device)
@@ -905,7 +1102,8 @@ class TorchEngine:
 
     @property
     def supports_embedding(self) -> bool:
-        return hasattr(self.family, "embed_text")
+        # a mesh has no embed step on its stream yet
+        return hasattr(self.family, "embed_text") and self.mesh is None
 
     async def embed(self, token_ids: List[int]) -> np.ndarray:
         """Pooled text embedding (the family's embed_text), padded to a
@@ -913,6 +1111,10 @@ class TorchEngine:
         steps on the scheduler's thread, so its work queues on the
         engine's stream behind the bursts already dispatched and no
         burst's readback is reordered.  Returns the fp32 unit vector."""
+        if self.mesh is not None:
+            raise NotImplementedError(
+                "embed is not ported to dynamo_tpu_torch under dp * tp > 1 "
+                "yet (no embed step on the step stream)")
         if not self.supports_embedding:
             raise RuntimeError(
                 f"model family {self.family.__name__} has no embed_text")
@@ -1005,7 +1207,8 @@ class TorchEngine:
         k, v = self.kv[0], self.kv[1]
         return KvLayout(
             num_layers=k.shape[0], num_blocks=n_blocks,
-            block_size=self.config.block_size, kv_heads=k.shape[1],
+            block_size=self.config.block_size,
+            kv_heads=k.shape[1] * self.config.tp,  # the whole cache's
             head_dim=k.shape[4], dtype=dtype_name(k.dtype),
             tp=self.config.tp, dp=self.config.dp,
             head_dim_v=v.shape[4] if v.shape[4] != k.shape[4] else 0,
@@ -1505,7 +1708,10 @@ class TorchEngine:
         afterwards.  Runs on the caller's thread and holds the step lock
         throughout: the worker serves its generate endpoint (and arms the
         canary) before warm-up ends, and a step must not run between
-        warm-up dispatches."""
+        warm-up dispatches.  On a mesh every dispatch, and the descriptor's
+        snapshot and restore, go through the step stream, so every rank
+        builds the same programs (and, on NCCL, captures the same
+        collectives) in the same order."""
         dev = self.device
         a = self.graphs.host_descriptor()
         a["ctx_lens"][:] = a["steps"][:] = 1
@@ -1517,13 +1723,12 @@ class TorchEngine:
                                         cuda_packed_prefill.KERNEL])
             if self.padded_prefill is not None:
                 for rows, T in self._padded_shapes():
-                    self.padded_prefill.run(self._padded_warmup(rows, T))
+                    self._dispatch_padded(self._padded_warmup(rows, T))
             else:
                 for T in self.prefill_graphs.buckets:
                     p = self.prefill_graphs.host_descriptor(T)
                     p["valid"][0] = True  # one token, in block 0
-                    self.prefill_graphs.upload(p)
-                    self.prefill_graphs.run(T)
+                    self._dispatch_packed(p)
             if self.verify_graphs is not None:
                 for T in self.verify_graphs.buckets:
                     p = self.verify_graphs.host_descriptor(T)
@@ -1532,19 +1737,21 @@ class TorchEngine:
                     self.verify_graphs.run(T)
                 if hasattr(self.proposer, "warmup"):
                     self.proposer.warmup()
-            g = self.guided_graphs.host_descriptor()
-            g["ctx_lens"][:] = 1
-            for m in self.guided_graphs.ms:
-                self.guided_graphs.upload(g)
-                self.guided_graphs.run(m)[0].wait()
+            if self.mesh is None:
+                # guided decoding is refused on a mesh: no top-M program
+                g = self.guided_graphs.host_descriptor()
+                g["ctx_lens"][:] = 1
+                for m in self.guided_graphs.ms:
+                    self.guided_graphs.upload(g)
+                    self.guided_graphs.run(m)[0].wait()
+            self._publish("decode_snapshot")
             snap, last = self.graphs.snapshot(), self._last_desc
             for greedy in (True, False):
                 a["temps"][:] = 0.0 if greedy else 0.7
                 for k in self._fuse_ladder():
-                    self.graphs.upload(a)
-                    self.graphs.run(greedy, k).wait()
-                    self.graphs.continuation(k)
-                    self.graphs.run(greedy, k).wait()
+                    self._dispatch_decode(a, greedy, k).wait()
+                    self._dispatch_decode_cont(k, k, greedy).wait()
+            self._publish("decode_restore")
             self.graphs.restore(snap)
             self._last_desc = last
             if dev.type == "cuda":
@@ -1598,7 +1805,9 @@ class TorchEngine:
                 finish_reason="error",
                 error="worker engine error: engine loop crashed")
             return
-        unsupported = self._unsupported(request)
+        unsupported = self._unsupported(request) or (
+            self._mesh_unsupported(request) if self.mesh is not None
+            else None)
         if unsupported:
             yield LLMEngineOutput(finish_reason="error", error=unsupported)
             return
@@ -1781,6 +1990,22 @@ class TorchEngine:
         if request.multimodal:
             return "multimodal inputs are not ported to dynamo_tpu_torch yet"
         return None
+
+    def _mesh_unsupported(self, request: PreprocessedRequest
+                          ) -> Optional[str]:
+        """An error for request features a mesh does not serve yet: their
+        programs (the guided top-M step, the KV gather of a parked or
+        pulled prefill) are not on the step stream."""
+        feature = None
+        if request.sampling.guided_json is not None:
+            feature = "guided decoding"
+        elif DISAGG_ANNOTATION in (request.annotations or []) \
+                or request.disaggregated_params is not None:
+            feature = "disaggregated serving"
+        if feature is None:
+            return None
+        return (f"{feature} is not ported to dynamo_tpu_torch under "
+                f"dp={self.config.dp} tp={self.config.tp} yet")
 
     # -- scheduler ------------------------------------------------------------
     async def _loop(self) -> None:
@@ -2002,8 +2227,7 @@ class TorchEngine:
             return None
         # the bucket's program on the plan padded to max_prefill_seqs rows
         # (every row sampled: greedy rows take the argmax)
-        tok = self.prefill_graphs.run(
-            self.prefill_graphs.upload(self.prefill_graphs.pad(plan.arrays)))
+        tok = self._dispatch_packed(self.prefill_graphs.pad(plan.arrays))
         self.metrics["prefill_steps"] += 1
         # the first token is sampled (step 0 of the request's stream) only
         # for segments whose prompt completes in this chunk; intermediate
@@ -2121,7 +2345,7 @@ class TorchEngine:
                           s.prompt_len - s.prefill_pos) for s in pslots]
             rows = _pow2(n)
         bucket = self._bucket_for(max(chunks))
-        tok = self.padded_prefill.run(
+        tok = self._dispatch_padded(
             self._padded_arrays(pslots, chunks, bucket, rows))
         self.metrics["prefill_steps"] += 1
         need = {i: s for i, (s, ch) in enumerate(zip(pslots, chunks))
@@ -2767,17 +2991,16 @@ class TorchEngine:
             # descriptor in the program and upload nothing
             prev = self._last_desc
             adv = prev["k"]
-            self.graphs.continuation(adv)
+            back = self._dispatch_decode_cont(k, adv, greedy)
             for name in ("positions", "ctx_lens", "steps"):
                 prev[name] = prev[name] + adv
             prev["k"] = k
             self.metrics["cont_bursts"] += 1
         else:
-            self.graphs.upload(a)
+            back = self._dispatch_decode(a, greedy, k)
             self._last_desc = {n: v for n, v in a.items()
                                if n not in ("tokens", "use_chain")}
             self._last_desc["k"] = k
-        back = self.graphs.run(greedy, k)
         obs.end("enqueue_ahead", t_ea, track=self._obs_track, k=k)
         self.metrics["decode_steps"] += k
         self.metrics["decode_bursts"] += 1

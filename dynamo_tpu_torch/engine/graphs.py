@@ -111,6 +111,15 @@ shapes), computed once at the build, and a `watch` the engine installs
 (obs/compile_watch.py CaptureWatch) is told the family, the key, the
 build's seconds (first run plus capture) and the costs.
 
+Tensor parallelism (parallel/): every program body runs the rank's
+shard of the model, whose collectives (models/llama.py) sit inside it.
+On an NCCL mesh (a device per rank) each rank captures its programs with
+the collectives inside the graphs, as any other kernel launch.  On a
+gloo mesh (ranks sharing a device, or on the CPU) a collective stages
+through the host and cannot be captured: `check_capture` refuses
+cuda_graphs=True there, and the caller passes cuda_graphs=False (the
+engine never switches to eager on its own).
+
 Readback, the counterpart of `copy_to_host_async`: right after a run
 its output is copied on the same stream into a pinned host buffer owned
 by the returned `Readback`, and an event is recorded; `wait()` blocks on
@@ -141,6 +150,19 @@ _FLOAT_FIELDS = ("temps", "top_ps", "temps_t")
 # pinned staging buffers for descriptor uploads, reused round-robin; each
 # is rewritten only after the event of its last copy
 _STAGING = 4
+
+
+def check_capture(backend: Optional[str], device: torch.device,
+                  capture: bool) -> None:
+    """Raise when CUDA graphs are asked of a gloo mesh on CUDA: gloo
+    copies each collective's tensors through the host, which a graph
+    cannot capture.  `backend` is the tensor group's (None: no mesh)."""
+    if capture and backend == "gloo" and device.type == "cuda":
+        raise ValueError(
+            "cuda_graphs=True on a gloo mesh: ranks that share one device "
+            "(NCCL refuses two ranks on a device) talk through gloo, whose "
+            "collectives stage through the host and cannot be captured "
+            "in a CUDA graph; pass cuda_graphs=False")
 
 
 class Readback:

@@ -80,7 +80,7 @@ import logging
 import os
 import time
 from collections import OrderedDict
-from typing import Dict, Optional
+from typing import Dict, List, Optional
 
 from .. import obs
 from ..device import DeviceLike
@@ -129,10 +129,17 @@ class TorchEngineWorker:
                  namespace: str = "dynamo", component: str = "backend",
                  migration_limit: int = 3,
                  tokenizer_cfg: Optional[dict] = None,
-                 params=None, device: DeviceLike = "cuda"):
+                 params=None, device: DeviceLike = "cuda",
+                 devices: Optional[List[DeviceLike]] = None,
+                 cuda_graphs: bool = True):
         """`params`: the port's parameter tree on `device`, or None for
         the checkpoint at config.model_path, else random weights from
-        config.seed (TorchEngine)."""
+        config.seed (TorchEngine).  With config.dp * config.tp > 1 the
+        worker's engine is the mesh's rank 0 on `devices` (TorchEngine's
+        default without them), `params` the whole numpy tree or None; the
+        other ranks are its engine's processes and have no routing
+        identity, as the JAX worker's followers.  `cuda_graphs`:
+        TorchEngine's (False on a gloo mesh on CUDA)."""
         self.runtime = runtime
         self.config = config
         self.namespace = namespace
@@ -151,6 +158,8 @@ class TorchEngineWorker:
         self.tokenizer_cfg = tokenizer_cfg or {
             "type": "mock", "vocab_size": config.resolve_model().vocab_size}
         self.device = device
+        self.devices = devices
+        self.cuda_graphs = cuda_graphs
         self._params = params
         self.engine: Optional[TorchEngine] = None
         self.publisher: Optional[KvEventPublisher] = None
@@ -250,7 +259,9 @@ class TorchEngineWorker:
         self.engine = TorchEngine(self.config, params=self._params,
                                   device=self.device,
                                   kv_event_sink=kv_event_sink,
-                                  kv_pull_fn=self._kv_pull)
+                                  kv_pull_fn=self._kv_pull,
+                                  cuda_graphs=self.cuda_graphs,
+                                  devices=self.devices)
         self._params = None  # the engine holds them now
         self.engine.transfer_identity = {
             "instance_id": instance_id,

@@ -38,6 +38,7 @@ import numpy as np
 import torch
 
 from ..device import DeviceLike, resolve_device
+from ..parallel.mesh import shard_leaf
 from .deepseek import DeepseekConfig
 from .llama import LlamaConfig
 
@@ -60,25 +61,27 @@ def _tensor(a, dtype: torch.dtype, dev: torch.device, path: str,
 
 
 def params_from_numpy(tree: Any, cfg: Union[LlamaConfig, DeepseekConfig],
-                      device: DeviceLike = "cuda") -> Any:
+                      device: DeviceLike = "cuda", rank: int = 0,
+                      tp: int = 1) -> Any:
     """The JAX package's parameter tree, as numpy float arrays, turned into
     the port's parameters on `device`: tensors named under a "norm" key
     and `moe_gate_bias` are fp32 (as the JAX init makes them), the rest
-    cfg.dtype."""
+    cfg.dtype.  With tp > 1 only rank's tensor-parallel shard is placed
+    (each array cut on the host by parallel/mesh.py's rules first)."""
     dev = resolve_device(device)
 
-    def conv(node, path: str, in_norm: bool):
+    def conv(node, path: str, name: Optional[str], in_norm: bool):
         if isinstance(node, dict):
-            return {k: conv(v, f"{path}/{k}",
+            return {k: conv(v, f"{path}/{k}", k,
                             in_norm or "norm" in k or k in _FP32_KEYS)
                     for k, v in node.items()}
         if isinstance(node, (list, tuple)):
-            return [conv(v, f"{path}[{i}]", in_norm)
+            return [conv(v, f"{path}[{i}]", name, in_norm)
                     for i, v in enumerate(node)]
-        return _tensor(node, torch.float32 if in_norm else cfg.dtype, dev,
-                       path)
+        return _tensor(shard_leaf(name, np.asarray(node), rank, tp),
+                       torch.float32 if in_norm else cfg.dtype, dev, path)
 
-    return conv(tree, "", False)
+    return conv(tree, "", None, False)
 
 
 def kv_cache_from_numpy(k: np.ndarray, v: np.ndarray,

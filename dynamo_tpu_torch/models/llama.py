@@ -27,6 +27,18 @@ as CUDA graphs.  Every forward passes its `valid` rows, so padding
 claims no expert capacity.  Capacity dispatch is not packed-safe
 (segments would share one capacity pool): the engine serves it through
 the padded `prefill` and `prefill_batched` instead, as JAX does.
+
+Tensor parallelism (parallel/mesh.py, Megatron's layout as JAX's sharding
+rules state it): a rank holds its shard of every weight (the embedding's
+and lm_head's vocabulary, wq/wk/wv/w_gate/w_up's output features,
+wo/w_down's input features; norms whole) and runs the functions below
+with its shard's config (parallel/mesh.py shard_config: its heads, kv
+heads and MLP width), and its tensor group rides the tree as
+`params["tp"]`, as JAX's arrays carry their mesh.  The embedding is then
+a masked local lookup and a sum over the group, wo and w_down are each
+followed by one sum, and the logits are gathered over the vocabulary,
+so every rank samples the same full row.  Without `params["tp"]` (tp =
+1) no collective runs and nothing else changes.
 """
 
 from __future__ import annotations
@@ -49,6 +61,7 @@ from ..ops.paged_attention import (
     write_prompt_kv,
     write_token_kv,
 )
+from ..parallel.mesh import shard_leaf
 from ..quant.kv import unpack_kv
 
 Params = Dict[str, Any]
@@ -165,7 +178,8 @@ PRESETS: Dict[str, LlamaConfig] = {
 
 
 def init_params(cfg: LlamaConfig, generator: torch.Generator,
-                device: Optional[torch.device] = None) -> Params:
+                device: Optional[torch.device] = None,
+                shard: Optional[Tuple[int, int]] = None) -> Params:
     """Random-init parameters with the JAX package's shapes and scales
     (normal * 1/sqrt(fan_in), embedding * 0.02, norms 1; a MoE layer's
     router `moe_gate` [d, E] and expert stacks `moe_w_gate`/`moe_w_up`
@@ -173,43 +187,53 @@ def init_params(cfg: LlamaConfig, generator: torch.Generator,
     each scaled by its fan-in).  The draws come
     from `generator` (on `device`, default the generator's), so they are
     not the JAX package's values: tests that compare the two convert the
-    JAX parameters instead (models/convert.py)."""
-    dev = torch.device(device) if device is not None else generator.device
+    JAX parameters instead (models/convert.py).
 
-    def dense(shape, scale=None):
+    shard=(rank, tp): rank's tensor-parallel shard of the same tree (the
+    full one cut by parallel/mesh.py shard_params): every tensor is drawn
+    whole, in the same order, cut at once and the rest freed, so no rank
+    ever holds the whole model."""
+    dev = torch.device(device) if device is not None else generator.device
+    rank, tp = shard if shard is not None else (0, 1)
+
+    def dense(name, shape, scale=None):
         scale = scale if scale is not None else 1.0 / math.sqrt(shape[0])
         w = torch.randn(shape, generator=generator, device=dev,
                         dtype=torch.float32)
-        return (w * scale).to(cfg.dtype)
+        return (shard_leaf(name, w, rank, tp) * scale).to(cfg.dtype)
 
     def ones(n):
         return {"norm": torch.ones(n, dtype=torch.float32, device=dev)}
 
-    params: Params = {"embedding": dense((cfg.vocab_size, cfg.d_model),
+    params: Params = {"embedding": dense("embedding",
+                                         (cfg.vocab_size, cfg.d_model),
                                          scale=0.02),
                       "final_norm": ones(cfg.d_model)}
     if not cfg.tie_embeddings:
-        params["lm_head"] = dense((cfg.d_model, cfg.vocab_size))
+        params["lm_head"] = dense("lm_head", (cfg.d_model, cfg.vocab_size))
     layers = []
     for _ in range(cfg.n_layers):
         layer = {
             "attn_norm": ones(cfg.d_model),
             "mlp_norm": ones(cfg.d_model),
-            "wq": dense((cfg.d_model, cfg.q_dim)),
-            "wk": dense((cfg.d_model, cfg.kv_dim)),
-            "wv": dense((cfg.d_model, cfg.kv_dim)),
-            "wo": dense((cfg.q_dim, cfg.d_model)),
+            "wq": dense("wq", (cfg.d_model, cfg.q_dim)),
+            "wk": dense("wk", (cfg.d_model, cfg.kv_dim)),
+            "wv": dense("wv", (cfg.d_model, cfg.kv_dim)),
+            "wo": dense("wo", (cfg.q_dim, cfg.d_model)),
         }
         if cfg.n_experts > 0:
             E, d, f = cfg.n_experts, cfg.d_model, cfg.ffn_dim
-            layer["moe_gate"] = dense((d, E))
-            layer["moe_w_gate"] = dense((E, d, f), scale=1.0 / math.sqrt(d))
-            layer["moe_w_up"] = dense((E, d, f), scale=1.0 / math.sqrt(d))
-            layer["moe_w_down"] = dense((E, f, d), scale=1.0 / math.sqrt(f))
+            layer["moe_gate"] = dense("moe_gate", (d, E))
+            layer["moe_w_gate"] = dense("moe_w_gate", (E, d, f),
+                                        scale=1.0 / math.sqrt(d))
+            layer["moe_w_up"] = dense("moe_w_up", (E, d, f),
+                                      scale=1.0 / math.sqrt(d))
+            layer["moe_w_down"] = dense("moe_w_down", (E, f, d),
+                                        scale=1.0 / math.sqrt(f))
         else:
-            layer["w_gate"] = dense((cfg.d_model, cfg.ffn_dim))
-            layer["w_up"] = dense((cfg.d_model, cfg.ffn_dim))
-            layer["w_down"] = dense((cfg.ffn_dim, cfg.d_model))
+            layer["w_gate"] = dense("w_gate", (cfg.d_model, cfg.ffn_dim))
+            layer["w_up"] = dense("w_up", (cfg.d_model, cfg.ffn_dim))
+            layer["w_down"] = dense("w_down", (cfg.ffn_dim, cfg.d_model))
         if cfg.qk_norm:
             layer["q_norm"] = ones(cfg.head_dim)
             layer["k_norm"] = ones(cfg.head_dim)
@@ -242,6 +266,22 @@ def rope(x: torch.Tensor, positions: torch.Tensor,
     xf1, xf2 = x[..., :half].float(), x[..., half:].float()
     out = torch.cat([xf1 * cos - xf2 * sin, xf2 * cos + xf1 * sin], dim=-1)
     return out.to(x.dtype)
+
+
+def _embed(params, cfg: LlamaConfig, token_ids: torch.Tensor) -> torch.Tensor:
+    """The token embeddings [*ids, d] in cfg.dtype; under tensor
+    parallelism the vocab-parallel lookup and its sum over the group."""
+    tp = params.get("tp")
+    if tp is None:
+        return params["embedding"][token_ids.long()].to(cfg.dtype)
+    return tp.embed(params["embedding"], token_ids, cfg.dtype)
+
+
+def _reduce(params, x: torch.Tensor) -> torch.Tensor:
+    """A row-parallel product's output summed over the tensor group (in
+    place); x itself at tp = 1."""
+    tp = params.get("tp")
+    return x if tp is None else tp.all_reduce(x)
 
 
 def _qkv(layer, cfg: LlamaConfig, x: torch.Tensor,
@@ -434,7 +474,11 @@ def _final_norm(params, cfg: LlamaConfig, x: torch.Tensor) -> torch.Tensor:
 
 
 def _logits(params, cfg: LlamaConfig, x: torch.Tensor) -> torch.Tensor:
-    return (_final_norm(params, cfg, x) @ unembed_weight(params, cfg)).float()
+    """fp32 logits [..., vocab]; under tensor parallelism each rank's
+    vocab slice, gathered over the group."""
+    out = (_final_norm(params, cfg, x) @ unembed_weight(params, cfg)).float()
+    tp = params.get("tp")
+    return out if tp is None else tp.gather_vocab(out)
 
 
 # ---------------------------------------------------------------------------
@@ -493,7 +537,7 @@ def _packed_forward(params, cfg: LlamaConfig, kv_cache: KVCache,
                                  seg_ids, positions, valid,
                                  impl=cfg.packed_attn_impl)
     sel = _lora_sel(lora_bank, adapter_idx, cfg.dtype)
-    x = params["embedding"][token_ids.long()].to(cfg.dtype)  # [T, d]
+    x = _embed(params, cfg, token_ids)  # [T, d]
     for li, layer in enumerate(params["layers"]):
         lctx = _lora_ctx(lora_bank, sel, li)
         h = rms_norm(x, layer["attn_norm"]["norm"], cfg.rms_eps)
@@ -504,9 +548,10 @@ def _packed_forward(params, cfg: LlamaConfig, kv_cache: KVCache,
             q, k_cache, v_cache, li, block_tables, seg_ids, positions,
             valid, impl=cfg.packed_attn_impl, k_scale=k_scale,
             v_scale=v_scale, plan=plan)
-        x = x + _attn_out(layer, attn.reshape(T, cfg.q_dim), lora=lctx)
+        x = x + _reduce(params, _attn_out(
+            layer, attn.reshape(T, cfg.q_dim), lora=lctx))
         h = rms_norm(x, layer["mlp_norm"]["norm"], cfg.rms_eps)
-        x = x + _ffn(layer, cfg, h, valid=valid)
+        x = x + _reduce(params, _ffn(layer, cfg, h, valid=valid))
     return x
 
 
@@ -558,7 +603,7 @@ def embed_text(
     causal = torch.tril(torch.ones(T, T, dtype=torch.bool, device=dev)) \
         & valid[None, :]
     masked = torch.tensor(-1e30, dtype=torch.float32, device=dev)
-    x = params["embedding"][token_ids.long()].to(cfg.dtype)  # [T, d]
+    x = _embed(params, cfg, token_ids)  # [T, d]
     for layer in params["layers"]:
         h = rms_norm(x, layer["attn_norm"]["norm"], cfg.rms_eps)
         q, k, v = _qkv(layer, cfg, h, positions)  # [T, nh|nkv, hd]
@@ -567,9 +612,10 @@ def embed_text(
         s = torch.einsum("ihd,jhd->hij", q.float(), kr.float()) / scale
         p = torch.softmax(torch.where(causal[None], s, masked), dim=-1)
         o = torch.einsum("hij,jhd->ihd", p, vr.float())
-        x = x + o.reshape(T, cfg.q_dim).to(cfg.dtype) @ layer["wo"]
+        x = x + _reduce(params,
+                        o.reshape(T, cfg.q_dim).to(cfg.dtype) @ layer["wo"])
         h = rms_norm(x, layer["mlp_norm"]["norm"], cfg.rms_eps)
-        x = x + _ffn(layer, cfg, h, valid=valid)
+        x = x + _reduce(params, _ffn(layer, cfg, h, valid=valid))
     x = _final_norm(params, cfg, x)
     w = valid.float()[:, None]
     pooled = (x.float() * w).sum(0) / torch.clamp(w.sum(), min=1.0)
@@ -605,7 +651,7 @@ def prefill(
     # padding past true_len must not claim MoE expert capacity
     valid = (torch.arange(T, device=token_ids.device) < true_len
              if cfg.n_experts > 0 else None)
-    x = params["embedding"][token_ids.long()].to(cfg.dtype)  # [T, d]
+    x = _embed(params, cfg, token_ids)  # [T, d]
     for li, layer in enumerate(params["layers"]):
         lctx = _lora_ctx(lora_bank, sel, li)
         h = rms_norm(x, layer["attn_norm"]["norm"], cfg.rms_eps)
@@ -615,9 +661,10 @@ def prefill(
         attn = paged_prefill_attention(q, k, v, k_cache, v_cache, li,
                                        block_table, ctx_len, true_len,
                                        k_scale=k_scale, v_scale=v_scale)
-        x = x + _attn_out(layer, attn.reshape(T, cfg.q_dim), lora=lctx)
+        x = x + _reduce(params, _attn_out(
+            layer, attn.reshape(T, cfg.q_dim), lora=lctx))
         h = rms_norm(x, layer["mlp_norm"]["norm"], cfg.rms_eps)
-        x = x + _ffn(layer, cfg, h, valid=valid)
+        x = x + _reduce(params, _ffn(layer, cfg, h, valid=valid))
     last = max(int(true_len) - 1, 0)
     return _logits(params, cfg, x[last]), kv_cache
 
@@ -652,7 +699,7 @@ def prefill_batched(
     sel = _lora_sel(lora_bank, adapter_idx, cfg.dtype)
     span = torch.arange(T, device=token_ids.device)
     valid = torch.stack([span < n for n in lens])             # [Bp, T]
-    x = params["embedding"][token_ids.long()].to(cfg.dtype)  # [Bp, T, d]
+    x = _embed(params, cfg, token_ids)  # [Bp, T, d]
     for li, layer in enumerate(params["layers"]):
         lctx = _lora_ctx(lora_bank, sel, li)
         h = rms_norm(x, layer["attn_norm"]["norm"], cfg.rms_eps)
@@ -665,13 +712,14 @@ def prefill_batched(
                 q[b], k[b], v[b], k_cache, v_cache, li, block_tables[b],
                 ctx[b], lens[b], k_scale=k_scale, v_scale=v_scale))
         attn = torch.stack(attn)
-        x = x + _attn_out(layer, attn.reshape(Bp, T, cfg.q_dim), lora=lctx)
+        x = x + _reduce(params, _attn_out(
+            layer, attn.reshape(Bp, T, cfg.q_dim), lora=lctx))
         h = rms_norm(x, layer["mlp_norm"]["norm"], cfg.rms_eps)
         if cfg.n_experts > 0:
             x = x + torch.stack([_ffn(layer, cfg, h[b], valid=valid[b])
                                  for b in range(Bp)])
         else:
-            x = x + _ffn(layer, cfg, h)
+            x = x + _reduce(params, _ffn(layer, cfg, h))
     xl = torch.stack([x[b, max(n - 1, 0)] for b, n in enumerate(lens)])
     return _logits(params, cfg, xl), kv_cache
 
@@ -806,7 +854,7 @@ def _decode_trunk(params, cfg: LlamaConfig, kv_cache: KVCache, token_ids,
     the final norm."""
     k_cache, v_cache, k_scale, v_scale = unpack_kv(kv_cache)
     sel = _lora_sel(lora_bank, adapter_idx, cfg.dtype)
-    x = params["embedding"][token_ids.long()].to(cfg.dtype)  # [B, d]
+    x = _embed(params, cfg, token_ids)  # [B, d]
     pos1 = positions[:, None]  # [B, 1] for rope
     kv_lens = ctx_lens + 1
     for li, layer in enumerate(params["layers"]):
@@ -819,8 +867,8 @@ def _decode_trunk(params, cfg: LlamaConfig, kv_cache: KVCache, token_ids,
                                       block_tables, kv_lens,
                                       impl=cfg.attn_impl, k_scale=k_scale,
                                       v_scale=v_scale)  # [B, nh, hd]
-        x = x + _attn_out(layer, attn.reshape(x.shape[0], cfg.q_dim),
-                          lora=lctx)
+        x = x + _reduce(params, _attn_out(
+            layer, attn.reshape(x.shape[0], cfg.q_dim), lora=lctx))
         h = rms_norm(x, layer["mlp_norm"]["norm"], cfg.rms_eps)
-        x = x + _ffn(layer, cfg, h, valid=valid)
+        x = x + _reduce(params, _ffn(layer, cfg, h, valid=valid))
     return x

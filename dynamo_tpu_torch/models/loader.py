@@ -60,6 +60,7 @@ from typing import Any, Dict, Iterator, Optional, Tuple, Union
 import torch
 
 from ..device import DeviceLike, resolve_device
+from ..parallel.mesh import shard_leaf
 from .deepseek import DeepseekConfig
 from .llama import LlamaConfig
 
@@ -317,14 +318,21 @@ class Placer:
     On the CPU a fresh tensor (never a view of a file's map).  On CUDA the
     cast and transpose are written into one pinned staging buffer, copied
     to the device asynchronously, and the buffer is reused once that copy
-    has run: host memory holds one tensor at a time."""
+    has run: host memory holds one tensor at a time.  With
+    shard=(rank, tp) a tensor put under a parameter name is first cut to
+    rank's tensor-parallel shard on the host (parallel/mesh.py's rules),
+    so only that shard reaches the device."""
 
-    def __init__(self, device: torch.device):
+    def __init__(self, device: torch.device,
+                 shard: Optional[Tuple[int, int]] = None):
         self.device = device
+        self.rank, self.tp = shard if shard is not None else (0, 1)
         self._buf: Optional[torch.Tensor] = None
         self._copied: Optional[torch.cuda.Event] = None
 
-    def put(self, src: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    def put(self, src: torch.Tensor, dtype: torch.dtype,
+            name: Optional[str] = None) -> torch.Tensor:
+        src = shard_leaf(name, src, self.rank, self.tp)
         if self.device.type != "cuda":
             return torch.empty(src.shape, dtype=dtype).copy_(src)
         n = src.numel() * dtype.itemsize
@@ -351,25 +359,35 @@ class Placer:
 def load_params(model_path: str,
                 cfg: Optional[Union[LlamaConfig, DeepseekConfig]] = None,
                 device: DeviceLike = "cuda",
-                host_cache: bool = True) -> Dict[str, Any]:
+                host_cache: bool = True,
+                shard: Optional[Tuple[int, int]] = None) -> Dict[str, Any]:
     """Load a HF checkpoint into the port's parameter tree on `device`
     (CUDA unless the caller asks for the CPU).  `cfg` defaults to the
     checkpoint's (load_hf_config); its dtype is the weights'.
 
     host_cache: read and fill the host-RAM weight cache
     (models/weight_cache.py), so a restarted worker skips the disk read,
-    the parse and every transform.  DYN_WEIGHT_CACHE=0 disables it."""
+    the parse and every transform.  DYN_WEIGHT_CACHE=0 disables it.
+
+    shard=(rank, tp): only rank's tensor-parallel shard of each weight
+    reaches the device, each cut from the file's (or the cache's) whole
+    tensor on the host, as JAX's loader places each weight straight onto
+    its shards.  A rank fills no cache entry: it holds no whole tree (a
+    tp = 1 load fills it, and every rank's load then reads it)."""
     from .weight_cache import default_cache_dir, read_cache, write_cache
 
     dev = resolve_device(device)
+    cfg = cfg or load_hf_config(model_path)
+    if shard is not None and isinstance(cfg, DeepseekConfig):
+        raise NotImplementedError("tensor-parallel loading of the MLA "
+                                  "family is not ported yet")
     cache_dir = default_cache_dir() if host_cache else None
     if cache_dir is not None:
-        cached = read_cache(cache_dir, model_path, device=dev)
+        cached = read_cache(cache_dir, model_path, device=dev, shard=shard)
         if cached is not None:
             return cached
-    cfg = cfg or load_hf_config(model_path)
     t0 = time.perf_counter()
-    placer = Placer(dev)
+    placer = Placer(dev, shard)
     stats = {"tensors": 0, "bytes": 0, "copies": 0}
     load = (_load_deepseek_params if isinstance(cfg, DeepseekConfig)
             else _load_llama_params)
@@ -378,7 +396,7 @@ def load_params(model_path: str,
                 "%d unaligned tensors copied", model_path, dev,
                 stats["tensors"], stats["bytes"] / 1e9,
                 time.perf_counter() - t0, stats["copies"])
-    if cache_dir is not None:
+    if cache_dir is not None and shard is None:
         write_cache(cache_dir, model_path, params)
     return params
 
@@ -392,8 +410,9 @@ def _load_llama_params(model_path: str, cfg: LlamaConfig, placer: Placer,
 
     def place_stack(li: int, key: str, stack: torch.Tensor) -> None:
         # on the CPU the stack is already a fresh tensor of the dtype
-        params["layers"][li][key] = (stack if dev.type == "cpu"
-                                     else placer.put(stack, cfg.dtype))
+        params["layers"][li][key] = (
+            stack if dev.type == "cpu" and placer.tp == 1
+            else placer.put(stack, cfg.dtype, key))
 
     stage = _ExpertStage(cfg.n_experts, cfg.dtype, place_stack)
     for name, tensor in _iter_safetensors(model_path, stats):
@@ -406,8 +425,8 @@ def _load_llama_params(model_path: str, cfg: LlamaConfig, placer: Placer,
                            tensor.T)
                 continue
             if suffix == _MOE_GATE:
-                params["layers"][li]["moe_gate"] = placer.put(tensor.T,
-                                                              cfg.dtype)
+                params["layers"][li]["moe_gate"] = placer.put(
+                    tensor.T, cfg.dtype, "moe_gate")
                 continue
             if suffix not in _LAYER_MAP:
                 raise ValueError(f"unmapped layer tensor {name!r}")
@@ -417,11 +436,11 @@ def _load_llama_params(model_path: str, cfg: LlamaConfig, placer: Placer,
                 params["layers"][li][key] = {
                     "norm": placer.put(t, torch.float32)}
             else:
-                params["layers"][li][key] = placer.put(t, cfg.dtype)
+                params["layers"][li][key] = placer.put(t, cfg.dtype, key)
         elif name == "model.embed_tokens.weight":
-            params["embedding"] = placer.put(tensor, cfg.dtype)
+            params["embedding"] = placer.put(tensor, cfg.dtype, "embedding")
         elif name == "lm_head.weight":
-            params["lm_head"] = placer.put(tensor.T, cfg.dtype)
+            params["lm_head"] = placer.put(tensor.T, cfg.dtype, "lm_head")
         elif name == "model.norm.weight":
             params["final_norm"] = {"norm": placer.put(tensor, torch.float32)}
         else:
@@ -431,7 +450,8 @@ def _load_llama_params(model_path: str, cfg: LlamaConfig, placer: Placer,
     if cfg.tie_embeddings:
         params.pop("lm_head", None)
     elif "lm_head" not in params and "embedding" in params:
-        # some tied checkpoints omit lm_head but don't set the flag
+        # some tied checkpoints omit lm_head but don't set the flag (under
+        # tp the vocab slice of the embedding is that of lm_head)
         params["lm_head"] = params["embedding"].T.contiguous()
 
     missing = []
@@ -530,8 +550,9 @@ def _load_deepseek_params(model_path: str, cfg: DeepseekConfig,
         "layers": [dict() for _ in range(cfg.n_layers)]}
 
     def place_stack(li: int, key: str, stack: torch.Tensor) -> None:
-        params["layers"][li][key] = (stack if dev.type == "cpu"
-                                     else placer.put(stack, cfg.dtype))
+        params["layers"][li][key] = (
+            stack if dev.type == "cpu" and placer.tp == 1
+            else placer.put(stack, cfg.dtype, key))
 
     stage = _ExpertStage(cfg.n_experts, cfg.dtype, place_stack)
     for name, tensor in _iter_safetensors(model_path, stats):

@@ -155,10 +155,13 @@ def write_cache(cache_dir: str, model_path: str, params) -> bool:
 
 
 def read_cache(cache_dir: str, model_path: str,
-               device: DeviceLike = "cuda"):
+               device: DeviceLike = "cuda", shard=None):
     """The parameter tree from the cache on `device`, or None on a miss,
     a stale entry or a failed read (the caller then loads the
-    checkpoint)."""
+    checkpoint).  shard=(rank, tp): only rank's tensor-parallel shard of
+    each tensor is placed, cut on the host by the rule of its tree name
+    (parallel/mesh.py), as JAX's read re-derives each tensor's
+    sharding."""
     from .loader import Placer, map_file, tensor_view
 
     dev = resolve_device(device)
@@ -173,7 +176,7 @@ def read_cache(cache_dir: str, model_path: str,
                     model_path)
         return None
     t0 = time.perf_counter()
-    placer = Placer(dev)
+    placer = Placer(dev, shard)
     stats = {"copies": 0}
     root: Dict[str, Any] = {}
     nbytes = 0
@@ -187,7 +190,8 @@ def read_cache(cache_dir: str, model_path: str,
                 raise ValueError(f"{fname}: size does not match {shape}")
             src = (tensor_view(map_file(fname), dtype, shape, 0, stats)
                    if size else torch.empty(shape, dtype=dtype))
-            _insert_path(root, path, placer.put(src, dtype))
+            _insert_path(root, path,
+                         placer.put(src, dtype, path.rsplit(".", 1)[-1]))
             nbytes += size
         placer.finish()
     except Exception:

@@ -23,6 +23,12 @@ the plain version anywhere.  Cache layout and conventions, the int8
 cache's scale planes included, are those of ops/paged_attention.py: on
 an int8 cache the chunk's own K/V round-trip the quantizer before
 attention reads them back, as in the JAX package.
+
+Tensor parallelism: as for decode (ops/paged_attention.py), a rank runs
+this on its slab; `packed_prefill_attention_tp`, the counterpart of
+JAX's `_packed_pallas_tp` for one shard, runs it on rank r's slab of the
+whole tensors.  K3's grid is kv heads x query tiles, so a slab of nkv/tp
+heads launches 1/tp of the whole op's CTAs.
 """
 
 from __future__ import annotations
@@ -37,6 +43,7 @@ from .paged_attention import (
     _q_operand,
     _store_kv,
     check_kv_scales,
+    tp_slab,
 )
 
 # the packed-prefill dispatch's impl vocabulary
@@ -169,3 +176,24 @@ def packed_attention_plan(k_cache: torch.Tensor, n_heads: int,
 
     return packed_prefill_plan(seg_ids, positions, valid, block_tables,
                                n_heads, k_cache.shape[1], k_cache.shape[3])
+
+
+def packed_prefill_attention_tp(q: torch.Tensor, k_cache: torch.Tensor,
+                                v_cache: torch.Tensor, layer: int,
+                                block_tables: torch.Tensor,
+                                seg_ids: torch.Tensor,
+                                positions: torch.Tensor, valid: torch.Tensor,
+                                *, rank: int, tp: int, impl: str = "auto",
+                                k_scale: torch.Tensor = None,
+                                v_scale: torch.Tensor = None) -> torch.Tensor:
+    """Rank's share of tensor-parallel packed-prefill attention: K3 (or the
+    plain version, by `impl` and the device as `packed_prefill_attention`)
+    on rank's slab of the whole q [T, nh, hd] and cache, its tile plan
+    made for the slab's heads.  Returns [T, nh/tp, hd]."""
+    qs, ks, vs, kss, vss = tp_slab(q, k_cache, v_cache, k_scale, v_scale,
+                                   rank, tp)
+    plan = packed_attention_plan(ks, qs.shape[1], block_tables, seg_ids,
+                                 positions, valid, impl=impl)
+    return packed_prefill_attention(qs, ks, vs, layer, block_tables,
+                                    seg_ids, positions, valid, impl=impl,
+                                    k_scale=kss, v_scale=vss, plan=plan)

@@ -35,6 +35,14 @@ wrapper (ops/cuda_paged_attention.py), which launches the hand-written
 CUDA kernel for CUDA tensors (the bf16 or the int8 entry point) and uses
 `paged_attention_decode_ref` for CPU tensors; "torch" runs the plain
 version on any device (the yardstick the kernel is held to on the card).
+
+Tensor parallelism (parallel/mesh.py): a rank holds the kv heads of its
+slab, and the query heads of their groups, so its forward calls these
+functions on its local tensors and the kernels see the slab's shapes
+(llama-8b at tp = 2: nh 16 over nkv 4).  `paged_attention_decode_tp`,
+the counterpart of JAX's `kernel_tp_call`/`_decode_pallas_tp` for one
+shard, takes the whole q and cache and runs the op on rank r's slab
+(`tp_slab`): what holds a rank's result against the whole computation.
 """
 
 from __future__ import annotations
@@ -43,6 +51,7 @@ import math
 
 import torch
 
+from ..parallel.mesh import head_slabs
 from ..quant.kv import quantize_tokens
 
 NEG_INF = -1e30
@@ -286,3 +295,39 @@ def paged_attention_decode(
         return paged_decode_int8(q, k_cache, v_cache, k_scale, v_scale,
                                  layer, block_tables, kv_lens)
     return paged_decode(q, k_cache, v_cache, layer, block_tables, kv_lens)
+
+
+def tp_slab(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
+            k_scale: torch.Tensor, v_scale: torch.Tensor, rank: int,
+            tp: int) -> tuple:
+    """Rank's slab of the whole tensors, each contiguous (a copy): query
+    heads [r*nh/tp, (r+1)*nh/tp) of q [..., nh, hd] against kv heads
+    [r*nkv/tp, (r+1)*nkv/tp) of the caches [L, nkv, ...] and of an int8
+    cache's scale planes.  GQA groups are kv-major and contiguous, so
+    the slab holds every query head of its kv heads and needs nothing
+    from another rank (the row-parallel wo downstream sums the ranks).
+    Raises unless tp divides nh and nkv."""
+    qh, kh = head_slabs(q.shape[-2], k_cache.shape[1], rank, tp)
+
+    def cut(t):
+        return None if t is None else t[:, kh].contiguous()
+
+    return (q[..., qh, :].contiguous(), cut(k_cache), cut(v_cache),
+            cut(k_scale), cut(v_scale))
+
+
+def paged_attention_decode_tp(q: torch.Tensor, k_cache: torch.Tensor,
+                              v_cache: torch.Tensor, layer: int,
+                              block_tables: torch.Tensor,
+                              kv_lens: torch.Tensor, *, rank: int, tp: int,
+                              impl: str = "auto",
+                              k_scale: torch.Tensor = None,
+                              v_scale: torch.Tensor = None) -> torch.Tensor:
+    """Rank's share of tensor-parallel decode attention: K1 (or the plain
+    version, by `impl` and the device as `paged_attention_decode`) on
+    rank's slab of the whole q [B, nh, hd] and cache.  Returns
+    [B, nh/tp, hd], the rank's heads of the whole op's output."""
+    qs, ks, vs, kss, vss = tp_slab(q, k_cache, v_cache, k_scale, v_scale,
+                                   rank, tp)
+    return paged_attention_decode(qs, ks, vs, layer, block_tables, kv_lens,
+                                  impl=impl, k_scale=kss, v_scale=vss)

@@ -1,0 +1,359 @@
+"""The device mesh of a tensor- and data-parallel engine, and its
+sharding rules.
+
+The counterpart of dynamo_tpu/parallel/mesh.py.  Axes, as there:
+
+  dp  data parallel: replicas of the model, each with its own KV cache
+      (every replica runs the same step stream, so they compute alike);
+  tp  tensor parallel: attention heads, the MLP's hidden width and the
+      vocabulary split over the ranks of one replica, the KV cache over
+      its kv heads (Megatron's layout);
+  sp  sequence parallel (the ring prefill): not ported, EngineConfig
+      refuses sp > 1.
+
+JAX runs a mesh as ONE program: GSPMD places the shards and inserts the
+collectives.  PyTorch has neither, so here every rank is a process with
+its own device, its own shard of the weights and cache, and process
+groups (torch.distributed) for the collectives the forward needs
+(models/llama.py) and for the leader's step stream (multihost.py).
+Rank r sits at mesh coordinates (dp, tp, sp) in the order of JAX's
+`reshape(dp, tp, sp)`: r = (d * tp + t) * sp + s.
+
+Groups are made from the process-group classes themselves over one
+TCPStore (rank 0 hosts it; the others connect to its port), not through
+`init_process_group`: the default group is a process-wide singleton, and
+a process may hold one tensor-parallel engine after another, or a
+tensor-parallel engine beside a single-device one.  Each rank has
+
+  * a tensor group (`Mesh.tensor`), the tp ranks of its dp replica: NCCL
+    where every rank of the group has a CUDA device of its own, gloo
+    where ranks share a device or run on the CPU (NCCL refuses two ranks
+    on one device).  The backend follows from the devices alone;
+  * the step group (`Mesh.step`), every rank, gloo on the CPU: the step
+    stream's transport.
+
+Every group is made with a bounded timeout, so a rank that hangs
+surfaces as an error on the others; one that dies closes its sockets,
+and gloo raises at once.
+
+`parallel/compat.py` of the JAX package (a shim over JAX versions'
+shard_map spellings) has no counterpart: nothing here maps over shards.
+"""
+
+from __future__ import annotations
+
+import datetime
+from dataclasses import dataclass
+from typing import Any, Dict, List, Optional, Sequence, Tuple
+
+import torch
+import torch.distributed as dist
+
+# seconds a collective, a join or a group's rendezvous may wait for a peer
+DEFAULT_TIMEOUT_S = 300.0
+# the rendezvous host: every rank of a mesh runs on this machine (ranks
+# across hosts are ROADMAP.md's next step)
+STORE_HOST = "127.0.0.1"
+
+
+@dataclass
+class MeshConfig:
+    dp: int = 1
+    tp: int = 1
+    sp: int = 1  # sequence parallel: the ring axis (not ported)
+
+    @property
+    def num_devices(self) -> int:
+        return self.dp * self.tp * self.sp
+
+
+def mesh_devices(cfg: MeshConfig, devices: Sequence) -> List[torch.device]:
+    """The first cfg.num_devices of `devices` as torch.devices, one per
+    rank in rank order; raises JAX's ValueError when there are fewer.  A
+    device may repeat (["cuda:0", "cuda:0"], ["cpu", "cpu"]): the
+    counterpart of JAX's virtual CPU mesh."""
+    devices = list(devices)
+    if cfg.num_devices > len(devices):
+        raise ValueError(
+            f"mesh needs {cfg.num_devices} devices, have {len(devices)}")
+    return [torch.device(d) for d in devices[:cfg.num_devices]]
+
+
+def rank_coords(cfg: MeshConfig, rank: int) -> Tuple[int, int, int]:
+    """Rank -> its (dp, tp, sp) coordinates."""
+    if not 0 <= rank < cfg.num_devices:
+        raise ValueError(f"rank {rank} outside a mesh of "
+                         f"{cfg.num_devices} ranks")
+    return (rank // (cfg.tp * cfg.sp), (rank // cfg.sp) % cfg.tp,
+            rank % cfg.sp)
+
+
+def tensor_group_ranks(cfg: MeshConfig, dp_rank: int) -> List[int]:
+    """The ranks of dp replica `dp_rank`'s tensor group, in tp order
+    (sp = 1)."""
+    return [(dp_rank * cfg.tp + t) * cfg.sp for t in range(cfg.tp)]
+
+
+def group_backend(devices: Sequence[torch.device]) -> str:
+    """"nccl" when every rank of a group has a CUDA device of its own,
+    else "gloo" (ranks on the CPU, or ranks sharing a device)."""
+    cuda = all(d.type == "cuda" for d in devices)
+    return "nccl" if cuda and len(set(devices)) == len(devices) else "gloo"
+
+
+# ---------------------------------------------------------------------------
+# sharding rules
+# ---------------------------------------------------------------------------
+
+
+def param_sharding_rules() -> Dict[str, Optional[int]]:
+    """The axis each parameter splits over tp, by its innermost tree key:
+    JAX's PartitionSpec table (the "tp" entry's position; None =
+    replicated).  Column-parallel projections split their output
+    features, row-parallel ones their input features (one all-reduce
+    after each), the embedding and lm_head the vocabulary."""
+    return {
+        "embedding": 0,      # [vocab, d_model]
+        "wq": 1,             # [d_model, q_heads*hd]
+        "wk": 1,             # [d_model, kv_heads*hd]
+        "wv": 1,
+        "wo": 0,             # [q_heads*hd, d_model]
+        "w_gate": 1,         # [d_model, ffn]
+        "w_up": 1,
+        "w_down": 0,         # [ffn, d_model]
+        "norm": None,
+        "lm_head": 1,        # [d_model, vocab]
+        # MoE (expert-sharded over tp)
+        "moe_gate": None,
+        "moe_w_gate": 0,     # [experts, d_model, ffn]
+        "moe_w_up": 0,
+        "moe_w_down": 0,
+        # MLA (DeepSeek family): heads through the query up-projection and
+        # the latent up-projections; the shared latent path is replicated
+        "wq_a": None,        # [d_model, q_lora_rank]
+        "wq_b": 1,           # [q_lora_rank, nh*qk_head]
+        "wkv_a": None,       # [d_model, R+dr]
+        "w_uk": 0,           # [nh, R, dn]
+        "w_uv": 0,           # [nh, R, dv]
+    }
+
+
+def chunk_range(n: int, rank: int, tp: int, what: str = "axis"
+                ) -> Tuple[int, int]:
+    """[lo, hi) of rank's contiguous chunk of n; raises unless tp divides
+    n."""
+    if n % tp:
+        raise ValueError(f"{what} of {n} does not divide over tp={tp}")
+    step = n // tp
+    return rank * step, (rank + 1) * step
+
+
+def shard_leaf(name: Optional[str], leaf, rank: int, tp: int):
+    """Rank's shard of one parameter (a numpy array or a tensor) by the
+    rule of its innermost key `name`: a contiguous chunk along the rule's
+    axis, the whole leaf where the rule (or the name) has none.  A torch
+    shard is a fresh tensor, so the full one can be freed."""
+    axis = param_sharding_rules().get(name) if tp > 1 else None
+    if axis is None:
+        return leaf
+    lo, hi = chunk_range(leaf.shape[axis], rank, tp, f"{name} axis {axis}")
+    out = leaf[(slice(None),) * axis + (slice(lo, hi),)]
+    if isinstance(out, torch.Tensor):
+        return out.clone(memory_format=torch.contiguous_format)
+    return out
+
+
+def shard_params(params: Any, rank: int, tp: int) -> Any:
+    """Rank's shard of a full parameter tree (nested dicts and lists of
+    numpy arrays or tensors): each leaf cut by the rule of the innermost
+    dict key on its path, the tree's structure kept."""
+
+    def walk(node, name):
+        if isinstance(node, dict):
+            return {k: walk(v, k) for k, v in node.items()}
+        if isinstance(node, (list, tuple)):
+            return [walk(v, name) for v in node]
+        return shard_leaf(name, node, rank, tp)
+
+    return walk(params, None)
+
+
+def kv_cache_spec(rank: int, tp: int, n_kv_heads: int) -> slice:
+    """Rank's kv heads of the cache [L, nkv, blocks, bs, hd] (axis 1):
+    the same split as the attention heads, so a rank's slab is one
+    contiguous range of heads."""
+    return slice(*chunk_range(n_kv_heads, rank, tp, "n_kv_heads"))
+
+
+def kv_scale_spec(rank: int, tp: int, n_kv_heads: int) -> slice:
+    """Rank's kv heads of an int8 cache's scale planes [L, nkv, blocks,
+    bs] (axis 1): the cache's split, so a rank's scale planes sit beside
+    its slab."""
+    return kv_cache_spec(rank, tp, n_kv_heads)
+
+
+def head_slabs(n_heads: int, n_kv_heads: int, rank: int,
+               tp: int) -> Tuple[slice, slice]:
+    """(query heads, kv heads) of rank's attention slab: GQA groups are
+    kv-major and contiguous, so kv head j's whole query group, heads
+    [j*g, (j+1)*g), lives on the rank that holds j.  Raises unless tp
+    divides both counts."""
+    kv = kv_cache_spec(rank, tp, n_kv_heads)
+    q = slice(*chunk_range(n_heads, rank, tp, "n_heads"))
+    return q, kv
+
+
+def shard_config(cfg, tp: int):
+    """The model config a rank runs: heads, kv heads and the MLP width
+    divided by tp (the vocabulary stays whole: the logits are gathered).
+    tp = 1 returns cfg itself.  Raises unless tp divides each."""
+    if tp == 1:
+        return cfg
+    import dataclasses
+
+    for name in ("n_heads", "n_kv_heads", "ffn_dim", "vocab_size"):
+        chunk_range(getattr(cfg, name), 0, tp, name)
+    return dataclasses.replace(cfg, n_heads=cfg.n_heads // tp,
+                               n_kv_heads=cfg.n_kv_heads // tp,
+                               ffn_dim=cfg.ffn_dim // tp)
+
+
+# ---------------------------------------------------------------------------
+# process groups
+# ---------------------------------------------------------------------------
+
+
+def _timeout(seconds: float) -> datetime.timedelta:
+    return datetime.timedelta(seconds=seconds)
+
+
+def rendezvous(rank: int, world: int, port: int = 0,
+               timeout_s: float = DEFAULT_TIMEOUT_S) -> dist.TCPStore:
+    """The mesh's store: rank 0 hosts it (port 0 = any free port; read
+    the one it took from `.port`), the others connect to `port`."""
+    return dist.TCPStore(STORE_HOST, port, world, rank == 0,
+                         timeout=_timeout(timeout_s),
+                         wait_for_workers=False)
+
+
+class TensorGroup:
+    """The collectives of a rank's tensor-parallel forward, over its
+    tensor group: the sum after each row-parallel product, the
+    vocab-parallel embedding lookup and the gather of the vocab-parallel
+    logits."""
+
+    def __init__(self, backend: str, pg, rank: int, size: int):
+        self.backend, self.pg, self.rank, self.size = backend, pg, rank, size
+
+    def all_reduce(self, x: torch.Tensor) -> torch.Tensor:
+        """The sum over the group, in place (x contiguous); returns x."""
+        self.pg.allreduce([x]).wait()
+        return x
+
+    def embed(self, table: torch.Tensor, ids: torch.Tensor,
+              dtype: torch.dtype) -> torch.Tensor:
+        """The vocab-parallel lookup: each rank gathers the ids its rows
+        [rank*V/tp, (rank+1)*V/tp) hold, zeros elsewhere, and the sum
+        over the group is the full embedding.  ids any shape; returns
+        [*ids.shape, d] in dtype."""
+        n = table.shape[0]
+        local = ids.long() - self.rank * n
+        mine = (local >= 0) & (local < n)
+        x = table[torch.where(mine, local, 0)].to(dtype)
+        x = x * mine[..., None].to(dtype)
+        return self.all_reduce(x.contiguous())
+
+    def gather_vocab(self, logits: torch.Tensor) -> torch.Tensor:
+        """The full [..., V] logits from each rank's vocab slice [...,
+        V/tp] (rank order along the last axis).  NCCL gathers them; gloo,
+        whose all-gather of CUDA tensors varies between torch builds,
+        sums each slice into a zeroed [..., V] buffer instead."""
+        n = logits.shape[-1]
+        if self.backend == "nccl":
+            parts = torch.empty((self.size, *logits.shape),
+                                dtype=logits.dtype, device=logits.device)
+            self.pg._allgather_base(parts, logits.contiguous()).wait()
+            return torch.cat(list(parts.unbind(0)), dim=-1)
+        full = torch.zeros((*logits.shape[:-1], n * self.size),
+                           dtype=logits.dtype, device=logits.device)
+        full[..., self.rank * n:(self.rank + 1) * n] = logits
+        return self.all_reduce(full)
+
+
+def _gloo(store, name: str, rank: int, size: int, timeout_s: float):
+    return dist.ProcessGroupGloo(dist.PrefixStore(name, store), rank, size,
+                                 _timeout(timeout_s))
+
+
+def _nccl(store, name: str, rank: int, ranks: List[int], timeout_s: float):
+    opts = dist.ProcessGroupNCCL.Options()
+    opts.is_high_priority_stream = False
+    opts._timeout = _timeout(timeout_s)
+    opts.global_ranks_in_group = ranks
+    opts.group_name = name
+    return dist.ProcessGroupNCCL(dist.PrefixStore(name, store), rank,
+                                 len(ranks), opts)
+
+
+@dataclass
+class Mesh:
+    """One rank's place in the mesh: its coordinates, its device and its
+    groups (`tensor` is None at tp = 1)."""
+
+    cfg: MeshConfig
+    rank: int
+    device: torch.device
+    backend: str                      # the tensor groups' backend
+    store: Any                        # the TCPStore (rank 0 hosts it)
+    step: Any                         # every rank, gloo on the CPU
+    tensor: Optional[TensorGroup]
+    timeout_s: float = DEFAULT_TIMEOUT_S
+
+    @property
+    def world(self) -> int:
+        return self.cfg.num_devices
+
+    @property
+    def dp_rank(self) -> int:
+        return rank_coords(self.cfg, self.rank)[0]
+
+    @property
+    def tp_rank(self) -> int:
+        return rank_coords(self.cfg, self.rank)[1]
+
+    @property
+    def is_leader(self) -> bool:
+        return self.rank == 0
+
+
+def make_mesh(cfg: MeshConfig, devices: Sequence, rank: int, store,
+              timeout_s: float = DEFAULT_TIMEOUT_S) -> Mesh:
+    """Rank's Mesh over `store` (rendezvous): every rank of the mesh calls
+    this with the same cfg and devices and its own rank; each group's
+    construction waits for its members.  Raises as JAX's make_mesh when
+    there are fewer devices than ranks."""
+    if cfg.sp != 1:
+        raise NotImplementedError("sequence parallelism (sp > 1) is not "
+                                  "ported to dynamo_tpu_torch yet")
+    devs = mesh_devices(cfg, devices)
+    d, t, _ = rank_coords(cfg, rank)
+    ranks = tensor_group_ranks(cfg, d)
+    backend = group_backend([devs[r] for r in ranks])
+    step = _gloo(store, "step", rank, cfg.num_devices, timeout_s)
+    tensor = None
+    if cfg.tp > 1:
+        name = f"tp{d}"
+        pg = (_nccl(store, name, t, ranks, timeout_s) if backend == "nccl"
+              else _gloo(store, name, t, cfg.tp, timeout_s))
+        tensor = TensorGroup(backend, pg, t, cfg.tp)
+    return Mesh(cfg, rank, devs[rank], backend, store, step, tensor,
+                timeout_s)
+
+
+def default_devices(cfg: MeshConfig, device: torch.device) -> List[str]:
+    """The devices of a mesh whose caller lists none: every rank on the CPU
+    when `device` is the CPU, else the visible CUDA devices in order
+    (`mesh_devices` takes the first cfg.num_devices, or raises)."""
+    if device.type == "cpu":
+        return ["cpu"] * cfg.num_devices
+    return [f"cuda:{i}" for i in range(torch.cuda.device_count())]

@@ -157,7 +157,8 @@ def test_unported_config_field_raises(field):
 
 @pytest.mark.parametrize("field", ["model_path", "sampling_epilogue",
                                    "role", "spec_decode", "lora_max_adapters",
-                                   "peak_hbm_gbps", *KVBM_FIELDS])
+                                   "peak_hbm_gbps", "tp", "dp",
+                                   *KVBM_FIELDS])
 def test_ported_config_field_accepted(field, tmp_path):
     """Fields that left _UNPORTED when their features were ported take a
     valid value; sampling_epilogue rejects others with the JAX engine's
@@ -167,8 +168,19 @@ def test_ported_config_field_accepted(field, tmp_path):
     the JAX engine's ValueError; lora_max_adapters and its knobs (and
     the SLO input's) default as JAX's and take a bank size; peak_hbm_gbps
     (the roofline MBU gauges' peak) defaults as JAX's, takes a rate and
-    is the CLI's --peak-hbm-gbps, as in the JAX CLI."""
+    is the CLI's --peak-hbm-gbps, as in the JAX CLI; tp and dp (the
+    mesh, parallel/) default as JAX's and take a size, and a size below
+    1 raises."""
     assert field not in _UNPORTED
+    if field in ("tp", "dp"):
+        from dynamo_tpu.engine.config import EngineConfig as JaxEngineConfig
+
+        assert getattr(EngineConfig(), field) \
+            == getattr(JaxEngineConfig(), field) == 1
+        assert getattr(EngineConfig(**{field: 4}), field) == 4
+        with pytest.raises(ValueError, match=">= 1"):
+            EngineConfig(**{field: 0})
+        return
     if field == "peak_hbm_gbps":
         from dynamo_tpu.engine.__main__ import build_args as jax_args
         from dynamo_tpu.engine.config import EngineConfig as JaxEngineConfig

@@ -515,7 +515,7 @@ def test_engine_kvbm_config_errors_equal_jax(tmp_path):
             TorchEngine(EngineConfig(model_config=FP32, **eng_kwargs(**kw)),
                         params=_params()[1], device="cpu")
         assert str(terr.value) == str(jerr.value)
-    assert sorted(_UNPORTED) == sorted(["dp", "tp", "sp"])
+    assert sorted(_UNPORTED) == ["sp"]
 
 
 def test_engine_cli_kvbm_flags_equal_jax(monkeypatch):

@@ -1,0 +1,153 @@
+"""K1 and K3 at a tp=2 rank's slab on a card (ops/paged_attention.py
+paged_attention_decode_tp, ops/packed_prefill.py
+packed_prefill_attention_tp), and the gloo mesh's refusal of CUDA
+graphs.
+
+This file imports neither jax nor the JAX package, so it also runs on a
+GPU host without them:
+
+    python -m pytest --noconftest -m gpu tests/test_torch_tp_gpu.py
+
+A rank of llama-8b at tp=2 holds 16 query heads over 4 kv heads (group
+4): each rank's kernel launch on its slab of the whole q and cache is
+held to the plain version on the same slab (q * 1/sqrt(hd) rounded as
+the kernels round it) within 1e-2 per-row relative L2, the tolerance
+chip_smoke.py holds the kernels to, in both modes.
+"""
+
+import dataclasses
+
+import pytest
+import torch
+
+from dynamo_tpu_torch.engine import EngineConfig, TorchEngine
+from dynamo_tpu_torch.models.llama import PRESETS
+from dynamo_tpu_torch.ops.packed_prefill import (
+    packed_prefill_attention_ref,
+    packed_prefill_attention_tp,
+)
+from dynamo_tpu_torch.ops.paged_attention import (
+    paged_attention_decode_ref,
+    paged_attention_decode_tp,
+    tp_slab,
+)
+from dynamo_tpu_torch.quant.kv import quantize_tokens
+
+CFG = PRESETS["llama-8b"]
+TP = 2
+REL_TOL = 1e-2
+
+
+def _cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+
+
+def _rel(out, ref) -> float:
+    o, r = out.float().flatten(1), ref.float().flatten(1)
+    return ((o - r).norm(dim=1) / r.norm(dim=1).clamp_min(1e-6)).max().item()
+
+
+def _cache(gen, nb: int, bs: int, int8: bool):
+    """(k, v) bf16 caches [2, nkv, nb, bs, hd] of the whole model, or
+    their int8 codes and scale planes."""
+    shape = (2, CFG.n_kv_heads, nb, bs, CFG.head_dim)
+    kv = [torch.randn(shape, generator=gen, device="cuda")
+          .to(torch.bfloat16) for _ in "kv"]
+    if not int8:
+        return kv[0], kv[1], None, None
+    out = []
+    for t in kv:
+        codes, scale = quantize_tokens(t.reshape(-1, 1, CFG.head_dim))
+        out.append((codes.reshape(shape).contiguous(),
+                    scale.reshape(shape[:-1]).contiguous()))
+    return out[0][0], out[1][0], out[0][1], out[1][1]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("int8", [False, True], ids=["bf16", "int8"])
+def test_k1_on_each_rank_slab_equals_plain_on_gpu(int8):
+    from dynamo_tpu_torch.ops import cuda_paged_attention as k1
+
+    _cuda()
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    bs, mb = 128, 16
+    lens = [1, 127, 128, 129, 2048, 700, 1500, 2047]
+    B = len(lens)
+    nb = 1 + B * mb
+    kc, vc, ks, vs = _cache(gen, nb, bs, int8)
+    perm = torch.randperm(nb - 1, generator=torch.Generator().manual_seed(2))
+    tables = (perm[:B * mb] + 1).reshape(B, mb).to(torch.int32).cuda()
+    kv_lens = torch.tensor(lens, dtype=torch.int32, device="cuda")
+    q = torch.randn(B, CFG.n_heads, CFG.head_dim, generator=gen,
+                    device="cuda").to(torch.bfloat16)
+    fn = k1.paged_decode_int8 if int8 else k1.paged_decode
+    for r in range(TP):
+        before = fn.launches
+        out = paged_attention_decode_tp(q, kc, vc, 1, tables, kv_lens,
+                                        rank=r, tp=TP, k_scale=ks,
+                                        v_scale=vs)
+        torch.cuda.synchronize()
+        assert fn.launches == before + 1
+        qs, kcs, vcs, kss, vss = tp_slab(q, kc, vc, ks, vs, r, TP)
+        assert qs.shape[1] == 16 and kcs.shape[1] == 4
+        ref = paged_attention_decode_ref(qs, kcs, vcs, 1, tables, kv_lens,
+                                         round_scaled_q=True, k_scale=kss,
+                                         v_scale=vss)
+        assert out.shape == (B, 16, CFG.head_dim)
+        assert _rel(out, ref) < REL_TOL
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("int8", [False, True], ids=["bf16", "int8"])
+def test_k3_on_each_rank_slab_equals_plain_on_gpu(int8):
+    from dynamo_tpu_torch.ops import cuda_packed_prefill as k3
+
+    _cuda()
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    bs, mb = 128, 8
+    lens, ctx0 = [300, 100, 73, 37], [0, 128, 0, 5]
+    S, T = len(lens), 512
+    nb = 1 + S * mb
+    kc, vc, ks, vs = _cache(gen, nb, bs, int8)
+    tables = torch.arange(1, 1 + S * mb, dtype=torch.int32,
+                          device="cuda").reshape(S, mb)
+    seg, pos = [], []
+    for s, (n, c) in enumerate(zip(lens, ctx0)):
+        seg += [s] * n
+        pos += list(range(c, c + n))
+    n = len(seg)
+    seg_t = torch.tensor(seg + [0] * (T - n), dtype=torch.int32,
+                         device="cuda")
+    pos_t = torch.tensor(pos + [0] * (T - n), dtype=torch.int32,
+                         device="cuda")
+    valid = torch.arange(T, device="cuda") < n
+    q = torch.randn(T, CFG.n_heads, CFG.head_dim, generator=gen,
+                    device="cuda").to(torch.bfloat16)
+    fn = k3.packed_prefill_int8 if int8 else k3.packed_prefill
+    for r in range(TP):
+        before = fn.launches
+        out = packed_prefill_attention_tp(q, kc, vc, 0, tables, seg_t,
+                                          pos_t, valid, rank=r, tp=TP,
+                                          k_scale=ks, v_scale=vs)
+        torch.cuda.synchronize()
+        assert fn.launches == before + 1
+        qs, kcs, vcs, kss, vss = tp_slab(q, kc, vc, ks, vs, r, TP)
+        ref = packed_prefill_attention_ref(qs, kcs, vcs, 0, tables, seg_t,
+                                           pos_t, valid, round_scaled_q=True,
+                                           k_scale=kss, v_scale=vss)
+        assert bool((out[~valid] == 0).all())
+        assert _rel(out[valid], ref[valid]) < REL_TOL
+
+
+@pytest.mark.gpu
+def test_gloo_mesh_refuses_cuda_graphs_on_gpu():
+    """Two ranks on one card talk through gloo, which a CUDA graph cannot
+    capture: the engine raises before it spawns a rank."""
+    _cuda()
+    cfg = EngineConfig(model_config=dataclasses.replace(PRESETS["tiny"],
+                                                        n_layers=1),
+                       tp=2, block_size=128, num_blocks=8,
+                       max_blocks_per_seq=4, max_num_seqs=2)
+    with pytest.raises(ValueError, match="cuda_graphs=False"):
+        TorchEngine(cfg, devices=["cuda:0", "cuda:0"])
