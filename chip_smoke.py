@@ -26,6 +26,10 @@
     python3 chip_smoke.py --encoder       # the ViT encoder worker
     python3 chip_smoke.py --tp            # tensor parallelism, two ranks
                                           # on one card, full depth
+    python3 chip_smoke.py --tp-families   # the MoE and MLA families on
+                                          # two ranks on one card
+    python3 chip_smoke.py --tp-disagg     # disaggregation and KVBM on
+                                          # two ranks on one card
 
 Builds the port's CUDA kernels from csrc/ (three nvcc processes started
 together), holds each entry point (K1 and K3, each in its bf16 and its
@@ -375,6 +379,29 @@ checks also hold K1 (B = 8) and K3 (T = 2048), each mode, at a tp=2
 rank's slab (nh 16 over nkv 4), the `tp2_slab` entry of each kernel;
 `tp_launches` is [rank 0, rank 1] of the phase's serving.
 
+The tp families phase (after the tp phase in the whole check, both
+models at TP_LAYERS = 4; alone with --tp-families, mixtral-8x7b 4 of
+32 layers and deepseek-v2-lite 8 of 27): the same tp=1 against tp=2
+pair at full width for mixtral-8x7b in dense dispatch (K1 and K3 on
+both ranks, equally: `tp_families_launches`) and, under the flag alone,
+in capacity dispatch (K1 alone: the padded prefill programs), then
+deepseek-v2-lite (plain torch MLA attention, no kernel), each with its
+timing turns; a MoE
+stream may also part at a router near-tie (a tp=2 replay in this
+process, two ranks as threads, chose other experts for some token of
+the context, and with tp=1's routing held it agrees).  The tp disagg
+phase (then, llama-8b at TP_LAYERS; alone with --tp-disagg, all 32):
+a tp=1 worker prefilling for a tp=2 worker over host-staged frames and
+the reverse, and under the flag alone tp=1 -> tp=2 on the int8 cache,
+the four requests one at a time against the tp=1 worker's own
+aggregated streams (the same near-tie rule), the decode side
+prefilling no token, pull GB/s and the prefill side's gather share
+logged; then a tp=2 engine with a G2 tier offloads prompt A, and its
+repeat after the churn onboards every full block of A from G2,
+bit-equal on both ranks' kv heads to A's blocks gathered after a G1
+hit, and streams the G1 hit's tokens.  `tp_disagg_rank1_launches` sums
+rank 1's launches of those tp=2 sides.
+
 Bounds use the H100 SXM data sheet (3.35 TB/s HBM3, 989 TFLOP/s dense
 bf16); a card run below its 700 W limit is slower, so its limit is
 printed beside every number.
@@ -392,6 +419,7 @@ import os
 import struct
 import subprocess
 import sys
+import threading
 import time
 from typing import Optional
 
@@ -8382,23 +8410,33 @@ def _tp_one(req) -> tuple:
 
 def _tp_margin(params, mc, device, tokens: list) -> tuple:
     """tp=1's logits after `tokens` (teacher-forced: one packed prefill
-    of them on a scratch cache): (its top-2 gap, its std)."""
-    from dynamo_tpu_torch.models import llama
+    of them on a scratch cache, or the family's padded `prefill` where
+    the engine takes the padded programs: capacity MoE, MLA): (its top-2
+    gap, its std)."""
+    from dynamo_tpu_torch.models import get_family
 
+    fam = get_family(mc)
     bs, n = 128, len(tokens)
     nb = -(-n // bs)
     T = max(32, 1 << (n - 1).bit_length())
     kv = tuple(torch.zeros(s, dtype=mc.dtype, device=device)
-               for s in llama.kv_cache_shapes(mc, nb + 1, bs))
+               for s in fam.kv_cache_shapes(mc, nb + 1, bs))
 
     def i32(x):
         return torch.tensor(x, dtype=torch.int32, device=device)
 
-    logits, _ = llama.prefill_packed(
-        params, mc, kv, i32(tokens + [0] * (T - n)),
-        i32(list(range(n)) + [0] * (T - n)), i32([0] * T),
-        i32([list(range(1, nb + 1))]), i32([n - 1]),
-        torch.arange(T, device=device) < n)
+    toks, pos = i32(tokens + [0] * (T - n)), i32(list(range(n))
+                                                 + [0] * (T - n))
+    if hasattr(fam, "prefill_packed") \
+            and getattr(mc, "moe_dispatch", "dense") == "dense":
+        logits, _ = fam.prefill_packed(
+            params, mc, kv, toks, pos, i32([0] * T),
+            i32([list(range(1, nb + 1))]), i32([n - 1]),
+            torch.arange(T, device=device) < n)
+    else:
+        logits, _ = fam.prefill(params, mc, kv, toks, pos,
+                                i32(list(range(1, nb + 1))), 0, n)
+        logits = logits[None]
     top2 = torch.topk(logits[0], 2).values
     return (top2[0] - top2[1]).item(), logits[0].std().item()
 
@@ -8407,7 +8445,10 @@ def _tp_streams(what: str, got, ref, reqs, params, mc, device) -> list:
     """Leading tokens of each tp=2 stream equal to tp=1's; a parting is
     accepted only where tp=1's top-2 gap there is within TP_LOGIT_TOL of
     its logits' std (a near-tie at the tolerance the logits are held
-    to)."""
+    to), or, in a MoE model, at a router near-tie (_tp_router_tie: the
+    two paths' rounding chose other experts for some token of the
+    context and, with tp=2's routing held to tp=1's, tp=2 agrees at the
+    parting token, as the MoE phase's _near_tie rules)."""
     lead = []
     for (g, _, _, _), (r, _, _, _), req in zip(got, ref, reqs):
         j = next((i for i, (a, b) in enumerate(zip(g, r)) if a != b),
@@ -8418,11 +8459,176 @@ def _tp_streams(what: str, got, ref, reqs, params, mc, device) -> list:
                                   req.token_ids + list(r[:j]))
             log(f"{what}: {req.request_id} parts at token {j} of {len(r)}, "
                 f"tp=1 top-2 gap {gap:.4f} = {gap / std:.4f} std")
-            if gap > TP_LOGIT_TOL * std:
-                raise SystemExit(f"{what}: {req.request_id} parts at token "
-                                 f"{j} where tp=1's top-2 gap is "
-                                 f"{gap / std:.4f} std (> {TP_LOGIT_TOL})")
+            if gap <= TP_LOGIT_TOL * std:
+                continue
+            if getattr(mc, "n_experts", 0) > 0:
+                p = _tp_router_tie(params, mc, device, list(req.token_ids),
+                                   list(r), j)
+                held = p["held_cosine"] >= MIN_COSINE and (
+                    p["held_same"] or p["gap"] <= p["held_diff"])
+                log(f"{what}: {req.request_id} at token {j}: {p['flips']} "
+                    f"(token, layer) routings of its context chose other "
+                    f"experts at tp=2 than at tp=1; with tp=1's routing held "
+                    f"at tp=2: cosine {p['held_cosine']:.6f}, max "
+                    f"difference {p['held_diff']:.4f}, top tokens equal "
+                    f"{p['held_same']}; router near-tie: "
+                    f"{p['flips'] > 0 and held}")
+                if p["flips"] > 0 and held:
+                    continue
+            raise SystemExit(f"{what}: {req.request_id} parts at token "
+                             f"{j} where tp=1's top-2 gap is "
+                             f"{gap / std:.4f} std (> {TP_LOGIT_TOL}) and "
+                             "no router near-tie explains it")
     return lead
+
+
+# the rank of a thread that runs one rank of an in-process tp=2 replay
+_TP_RANK = threading.local()
+
+
+@contextlib.contextmanager
+def _rank_routes(fam, record: Optional[dict] = None,
+                 replay: Optional[list] = None):
+    """_routes (the Llama family's `_moe_router`) or _ds_routes
+    (DeepSeek's `_ds_router`) for ranks run as threads: a call belongs to
+    its thread's rank (`_TP_RANK.rank`, 0 on any other thread).  With
+    `record` each call appends its expert ids [T, k] to record[rank];
+    with `replay` (one rank's record) every rank selects the ids of its
+    own call at the same index instead of its choice, weighted as the
+    router weighs them."""
+    from dynamo_tpu_torch.models import deepseek, llama
+
+    mod, name = ((deepseek, "_ds_router") if fam is deepseek
+                 else (llama, "_moe_router"))
+    orig = getattr(mod, name)
+    pos: dict = {}
+
+    def weights(layer, cfg, x, ids):
+        logits = x.float() @ layer["moe_gate"].float()
+        if mod is llama:
+            return torch.softmax(torch.gather(logits, 1, ids), dim=-1)
+        scores = (torch.sigmoid(logits) if cfg.moe_scoring == "sigmoid"
+                  else torch.softmax(logits, dim=-1))
+        w = torch.gather(scores, 1, ids)
+        if cfg.norm_topk_prob:
+            w = w / (w.sum(-1, keepdim=True) + 1e-20)
+        return w * cfg.routed_scaling_factor
+
+    def spy(layer, cfg, x):
+        rank = getattr(_TP_RANK, "rank", 0)
+        if replay is not None:
+            i = pos.get(rank, 0)
+            pos[rank] = i + 1
+            return weights(layer, cfg, x, replay[i]), replay[i]
+        w, e = orig(layer, cfg, x)
+        if record is not None:
+            record.setdefault(rank, []).append(e)
+        return w, e
+
+    setattr(mod, name, spy)
+    try:
+        yield
+    finally:
+        setattr(mod, name, orig)
+
+
+def _tp_replay(params, cfg, device, prompt, stream, j: int) -> torch.Tensor:
+    """Token j's fp32 logits of `stream` teacher-forced through the
+    family's padded `prefill` (one row, the engine's bucket) and decode
+    steps at B = 4 (lane 0 live) fed stream[:j], on a scratch cache;
+    `params` may be a rank's shard with its group (`cfg` its shard
+    config)."""
+    from dynamo_tpu_torch.models import get_family
+
+    fam = get_family(cfg)
+    bs, L = 128, len(prompt)
+    nb = -(-(L + j + 1) // bs)
+    T = max(32, 1 << (L - 1).bit_length())
+    kv = tuple(torch.zeros(s, dtype=cfg.dtype, device=device)
+               for s in fam.kv_cache_shapes(cfg, nb + 1, bs))
+
+    def i32(x):
+        return torch.tensor(x, dtype=torch.int32, device=device)
+
+    table = list(range(1, nb + 1))
+    logits, _ = fam.prefill(params, cfg, kv, i32(prompt + [0] * (T - L)),
+                            i32(list(range(L)) + [0] * (T - L)), i32(table),
+                            0, L)
+    tables = i32([table] + [[0] * nb] * 3)
+    valid = torch.tensor([True, False, False, False], device=device)
+    for s in range(j):
+        at = [L + s, 0, 0, 0]
+        out, _ = fam.decode(params, cfg, kv, i32([stream[s], 0, 0, 0]),
+                            i32(at), tables, i32(at), valid=valid)
+        logits = out[0]
+    return logits.float()
+
+
+def _tp2_in_process(shards, fn):
+    """fn(params) on two threads, each a tp=2 rank (`_TP_RANK.rank`) with
+    its shard and a gloo group over an in-process store; returns rank
+    0's result."""
+    import datetime
+    import torch.distributed as dist
+
+    from dynamo_tpu_torch.parallel.mesh import TensorGroup
+
+    store = dist.HashStore()
+    out, errs = [None, None], []
+
+    def rank(r):
+        try:
+            _TP_RANK.rank = r
+            pg = dist.ProcessGroupGloo(dist.PrefixStore("replay", store), r,
+                                       2, datetime.timedelta(
+                                           seconds=TP_TIMEOUT_S))
+            out[r] = fn({**shards[r], "tp": TensorGroup("gloo", pg, r, 2)})
+        except BaseException as e:  # re-raised on the caller's thread
+            errs.append(e)
+
+    threads = [threading.Thread(target=rank, args=(r,)) for r in range(2)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(TP_TIMEOUT_S)
+    if errs or any(t.is_alive() for t in threads):
+        raise SystemExit(f"tp replay: a rank failed or hung: {errs}")
+    return out[0]
+
+
+def _tp_router_tie(params, mc, device, prompt, stream, j: int) -> dict:
+    """What a router near-tie reads at token j of tp=1's `stream`: tp=1's
+    top-2 gap there, the (token, layer) routings of the context that a
+    tp=2 replay (two ranks as threads on `device`, the shards of tp=1's
+    `params`) chose otherwise, and, with tp=2's routing held to tp=1's,
+    its logits' cosine with tp=1's, their largest difference and
+    whether the top tokens agree."""
+    from dynamo_tpu_torch.models import get_family
+    from dynamo_tpu_torch.parallel.mesh import shard_config, shard_params
+
+    fam = get_family(mc)
+    local = shard_config(mc, 2)
+    shards = [shard_params(params, r, 2) for r in range(2)]
+    ref, got = {}, {}
+
+    def tp2(p):
+        return _tp_replay(p, local, device, prompt, stream, j)
+
+    with _rank_routes(fam, record=ref):
+        lr = _tp_replay(params, mc, device, prompt, stream, j)
+    with _rank_routes(fam, record=got):
+        _tp2_in_process(shards, tp2)
+    with _rank_routes(fam, replay=ref[0]):
+        lh = _tp2_in_process(shards, tp2)
+    del shards
+    n_moe = sum(1 for layer in params["layers"] if "moe_gate" in layer)
+    top2 = torch.topk(lr, 2).values
+    return {"gap": (top2[0] - top2[1]).item(),
+            "flips": _route_flips(ref[0], got[0], len(prompt), n_moe),
+            "held_cosine": torch.nn.functional.cosine_similarity(
+                lh, lr, dim=0).item(),
+            "held_diff": (lh - lr).abs().max().item(),
+            "held_same": int(lh.argmax()) == int(lr.argmax())}
 
 
 def _tp_ranks_left() -> list:
@@ -8458,7 +8664,18 @@ def _tp_serve(e1, tp1: dict, client):
             "tp2": lambda reqs: _serve_worker(client, reqs)}
 
 
-def _tp_pair(device, card: str, mc, kv_dtype: str, timing: bool) -> dict:
+def _first_logits(eng, T: int) -> torch.Tensor:
+    """The first-token logits of the last prefill dispatch of `eng` (one
+    row of bucket T): the packed program's, or the padded one's where
+    the engine takes the padded programs."""
+    if eng._packed_prefill_ok:
+        return eng.prefill_graphs.logits[T][0].clone()
+    return eng.padded_prefill.logits[0].clone()
+
+
+def _tp_pair(device, card: str, mc, kv_dtype: str, timing: bool,
+             what: Optional[str] = None,
+             kernels: Optional[set] = None) -> dict:
     """A tp=1 engine and a tp=2 engine (two ranks on `device` over gloo,
     eager) behind a TorchEngineWorker, on the same random weights: the
     first-token logits, the four streams (tp=2 through the worker's
@@ -8467,14 +8684,17 @@ def _tp_pair(device, card: str, mc, kv_dtype: str, timing: bool) -> dict:
     by warm-up; without `timing` it runs eagerly, the same bodies);
     after the worker's close its ranks' launches (rank 0's counted over
     the worker's life less the tp=1 engine's runs, rank 1's reported at
-    stop, its whole life serving; the two must be equal), no rank
-    process left and the card's memory back."""
+    stop, its whole life serving; the two must be equal, and every one
+    of `kernels` launched, by default the cache's K1 and K3), no rank
+    process left and the card's memory back.  `what` labels the log."""
     from dynamo_tpu_torch.engine import TorchEngine
     from dynamo_tpu_torch.ops import launch_counts
 
     base = _engine_config(kv_dtype)
     reqs = _tp_requests(mc.vocab_size)
-    kernels = {fn.__name__ for fn in _kernels_of(kv_dtype)}
+    if kernels is None:
+        kernels = {fn.__name__ for fn in _kernels_of(kv_dtype)}
+    what = what or f"tp {kv_dtype}"
 
     async def run() -> dict:
         e1 = TorchEngine(dataclasses.replace(base, model_config=mc),
@@ -8498,36 +8718,37 @@ def _tp_pair(device, card: str, mc, kv_dtype: str, timing: bool) -> dict:
                        num_blocks=e2.config.num_blocks,
                        mdc_tp_dp=(w.card.runtime_config["tp"],
                                   w.card.runtime_config["dp"]))
-            log(f"tp {kv_dtype}: tp=2 worker on {[str(device)] * 2}, "
+            log(f"{what}: tp=2 worker on {[str(device)] * 2}, "
                 f"collectives over {e2.mesh.backend} (eager), up in "
                 f"{out['build_s']:.1f} s; {e2.config.num_blocks} blocks, "
                 f"a rank's kv heads {e2.kv[0].shape[1]} of "
-                f"{mc.n_kv_heads}; MDC tp/dp {out['mdc_tp_dp']}")
+                f"{getattr(mc, 'n_kv_heads', 1)}; MDC tp/dp "
+                f"{out['mdc_tp_dp']}")
             if e2.mesh.backend != "gloo" or out["mdc_tp_dp"] != (2, 1):
                 raise SystemExit(f"tp: backend {e2.mesh.backend}, MDC "
                                  f"tp/dp {out['mdc_tp_dp']}")
             serve = _tp_serve(e1, tp1, client)
             await serve["tp1"]([one])
-            l1 = e1.prefill_graphs.logits[T][0].clone()
+            l1 = _first_logits(e1, T)
             await serve["tp2"]([one])
-            l2 = e2.prefill_graphs.logits[T][0].clone()
-            std = l1.std().item()
-            diff = (l2 - l1).abs().max().item()
+            l2 = _first_logits(e2, T)
+            std = l1.float().std().item()
+            diff = (l2.float() - l1.float()).abs().max().item()
             out["logit_diff_over_std"] = diff / std
-            log(f"tp {kv_dtype}: first-token logits of a {TP_PROMPT}-token "
+            log(f"{what}: first-token logits of a {TP_PROMPT}-token "
                 f"prompt, tp=2 against tp=1: max |diff| {diff:.4f}, std "
                 f"{std:.4f}, {diff / std:.4f} std (tolerance "
                 f"{TP_LOGIT_TOL}); argmax {int(l2.argmax())} / "
                 f"{int(l1.argmax())}")
             if not diff / std <= TP_LOGIT_TOL:
-                raise SystemExit(f"tp {kv_dtype}: logits {diff / std:.4f} "
+                raise SystemExit(f"{what}: logits {diff / std:.4f} "
                                  f"std from tp=1's")
             ref = await serve["tp1"](reqs)
             got = await serve["tp2"](reqs)
             with _launches_into(tp1):  # the replays run tp=1's model
-                out["leading"] = _tp_streams(f"tp {kv_dtype}", got, ref,
+                out["leading"] = _tp_streams(what, got, ref,
                                              reqs, e1.params, mc, device)
-            log(f"tp {kv_dtype}: the four streams' leading tokens equal to "
+            log(f"{what}: the four streams' leading tokens equal to "
                 f"tp=1's, of {TP_NEW}: {out['leading']}")
             if timing:
                 turns = {"tp1": [], "tp2": []}
@@ -8537,22 +8758,22 @@ def _tp_pair(device, card: str, mc, kv_dtype: str, timing: bool) -> dict:
                     turns[name].append({
                         "decode_tok_s": n / secs,
                         "ttft_s": sorted(r[2] for r in res)})
-                    log(f"tp turn {name}: decode {n / secs:.2f} tokens/s, "
-                        f"TTFT {min(r[2] for r in res):.3f}-"
+                    log(f"{what} turn {name}: decode {n / secs:.2f} "
+                        f"tokens/s, TTFT {min(r[2] for r in res):.3f}-"
                         f"{max(r[2] for r in res):.3f} s ({card})")
                 out["turns"] = turns
         leader = {k: v - life[k] - tp1.get(k, 0)
                   for k, v in launch_counts().items()}
         out["launches"] = {"rank0": leader, **{
             f"rank{r}": c for r, c in e2.rank_launches.items()}}
-        log(f"tp {kv_dtype}: kernel launches while serving, by rank: "
+        log(f"{what}: kernel launches while serving, by rank: "
             f"{out['launches']}")
         for rank, counts in out["launches"].items():
             if not all(counts.get(k, 0) > 0 for k in kernels):
-                raise SystemExit(f"tp {kv_dtype}: {rank} launched "
+                raise SystemExit(f"{what}: {rank} launched "
                                  f"{counts}, not every one of {kernels}")
         if out["launches"].get("rank1") != leader:
-            raise SystemExit(f"tp {kv_dtype}: the ranks launched "
+            raise SystemExit(f"{what}: the ranks launched "
                              f"different kernels {out['launches']}")
         del e2, w
         gc.collect()
@@ -8560,13 +8781,14 @@ def _tp_pair(device, card: str, mc, kv_dtype: str, timing: bool) -> dict:
         left = _tp_ranks_left()
         free1 = torch.cuda.mem_get_info(device)[0]
         out["free_gib_before_after"] = (free0 / 2**30, free1 / 2**30)
-        log(f"tp {kv_dtype}: after close, rank processes left {left}; card "
+        log(f"{what}: after close, rank processes left {left}; card "
             f"memory free {free0 / 2**30:.2f} GiB before the tp=2 worker, "
             f"{free1 / 2**30:.2f} GiB after")
         if left or free1 < free0 - 2**30:
-            raise SystemExit(f"tp {kv_dtype}: ranks {left} left or the "
+            raise SystemExit(f"{what}: ranks {left} left or the "
                              "card's memory not back after close")
         await e1.close()
+        _free_engine(e1)
         return out
 
     return asyncio.run(run())
@@ -8590,6 +8812,314 @@ def check_tp(device, card: str, n_layers: int) -> dict:
         out["nccl"] = _finish_nccl_probe(probe)
     out["seconds"] = time.perf_counter() - t0
     log(f"tp phase ({n_layers} layers) done in {out['seconds']:.1f} s")
+    return out
+
+
+# ---------------------------------------------------------------------------
+# the MoE and MLA families, disaggregation and KVBM on two ranks of one card
+# ---------------------------------------------------------------------------
+
+# --tp-families alone: mixtral-8x7b 4 of 32 layers (its experts are 8 x 3
+# x 4096 x 14336 x 2 B = 2.8 GB a layer, 11.3 GB a side), deepseek-v2-lite
+# 8 of 27 (~9 GB a side); the whole check runs both at TP_LAYERS
+TP_MIXTRAL_LAYERS = 4
+TP_DEEPSEEK_LAYERS = 8
+# --tp-disagg's KVBM engine: prompt A of TP_KVBM_PROMPT tokens (7 full
+# blocks), TP_KVBM_CHURN distinct prompts of its length served one at a
+# time through a G1 of TP_KVBM_BLOCKS blocks (each request holds 8), so
+# A keeps no block in G1 before its repeat; TP_KVBM_NEW tokens each
+TP_KVBM_PROMPT = 1000
+TP_KVBM_CHURN = 3
+TP_KVBM_BLOCKS = 24
+TP_KVBM_NEW = 4
+
+
+def check_tp_families(device, card: str, mixtral_layers: int,
+                      deepseek_layers: int, capacity: bool = True) -> dict:
+    """The MoE and MLA families on a tp=2 mesh (two ranks on `device`
+    over gloo, eager) against a tp=1 engine (graphs, warmed up) from the
+    same seeded bf16 weights, through _tp_pair with its timing turns:
+    mixtral-8x7b at full width in dense dispatch (both ranks must launch
+    K1 and K3, and equally) and in capacity dispatch (the padded prefill
+    programs: K1 alone), then deepseek-v2-lite at full width (MLA
+    attention is plain torch: no kernel), each at its depth.  Each
+    holds the first-token logits of a 512-token prompt within
+    TP_LOGIT_TOL of tp=1's std and the four greedy streams' leading
+    tokens (a parting only at a tp=1 near-tie or, MoE, a router
+    near-tie).  The whole check runs it without the capacity pair
+    (`capacity` False)."""
+    from dynamo_tpu_torch.models.deepseek import PRESETS as DS
+    from dynamo_tpu_torch.models.llama import PRESETS
+
+    t0 = time.perf_counter()
+    mix = dataclasses.replace(PRESETS["mixtral-8x7b"],
+                              n_layers=mixtral_layers)
+    k1 = {fn.__name__ for fn in _kernels_of("bf16")[:1]}
+    out = {"mixtral_layers": mixtral_layers,
+           "deepseek_layers": deepseek_layers}
+    out["mixtral_dense"] = _tp_pair(device, card, mix, "bf16", timing=True,
+                                    what="tp mixtral dense")
+    gc.collect()
+    if capacity:
+        out["mixtral_capacity"] = _tp_pair(
+            device, card, dataclasses.replace(mix, moe_dispatch="capacity"),
+            "bf16", timing=True, what="tp mixtral capacity", kernels=k1)
+        gc.collect()
+    ds = dataclasses.replace(DS["deepseek-v2-lite"],
+                             n_layers=deepseek_layers)
+    out["deepseek"] = _tp_pair(device, card, ds, "bf16", timing=True,
+                               what="tp deepseek-v2-lite", kernels=set())
+    out["seconds"] = time.perf_counter() - t0
+    log(f"tp families phase (mixtral {mixtral_layers} layers, deepseek "
+        f"{deepseek_layers}) done in {out['seconds']:.1f} s ({card})")
+    return out
+
+
+def _tp_worker_kw(device, tp: int) -> dict:
+    """A TorchEngineWorker's placement at tp: two ranks on `device` over
+    gloo, eager and without warm-up (every warm-up dispatch would go
+    through the step stream); tp=1 with its graphs, warmed up."""
+    if tp == 1:
+        return dict(device=device, warmup=True)
+    return dict(device=device, devices=[device] * tp, cuda_graphs=False,
+                warmup=False)
+
+
+async def _tp_hop(what: str, card: str, prefill, decode, reqs, ref,
+                  params, mc, device) -> dict:
+    """The requests one at a time from the `prefill` worker (worker,
+    client) to the `decode` one over host-staged frames (the broker off):
+    the streams must equal the aggregated tp=1 `ref` (a parting only at
+    a near-tie, _tp_streams on `params`, tp=1's weights), and the decode
+    worker must prefill no token.  Logs pull GB/s (_pull_timer) and the
+    prefill side's gather share of it (its extract_parked_chunk calls,
+    a tp=2 side's slab gather over the ranks included)."""
+    (pw, pclient), (dw, dclient) = prefill, decode
+    gather_s = []
+    extract = pw.engine.extract_parked_chunk
+
+    async def timed_extract(request_id, start, count, **kw):
+        t = time.perf_counter()
+        arrs = await extract(request_id, start, count, **kw)
+        gather_s.append(time.perf_counter() - t)
+        return arrs
+
+    pw.engine.extract_parked_chunk = timed_extract
+    rec, restore = _pull_timer(dw.engine)
+    pre0 = dw.engine.metrics["prefill_tokens"]
+    blocks0 = dw.engine.metrics.get("pull_blocks", 0)
+    try:
+        with _broker_off(True):
+            t0 = time.perf_counter()
+            got = [await _disagg_one(pclient, dclient, r, t0) for r in reqs]
+    finally:
+        restore()
+        pw.engine.extract_parked_chunk = extract
+    block_bytes = dw.engine.kv_wire_layout(1).block_bytes()
+    gb_s, secs = _transfer_gb_s(rec, block_bytes)
+    pre = dw.engine.metrics["prefill_tokens"] - pre0
+    blocks = dw.engine.metrics.get("pull_blocks", 0) - blocks0
+    share = sum(gather_s) / secs if secs else 0.0
+    log(f"{what}: {blocks} blocks pulled over host-staged frames at "
+        f"{gb_s:.3f} GB/s ({secs:.3f} s), the prefill side's gathers "
+        f"{sum(gather_s):.3f} s of it ({100 * share:.1f}%); decode worker "
+        f"prefill tokens {pre} ({card})")
+    if pre or blocks != sum(-(-len(r.token_ids) // 128) for r in reqs):
+        raise SystemExit(f"{what}: the decode worker prefilled {pre} tokens "
+                         f"and pulled {blocks} blocks")
+    lead = _tp_streams(what, [g[:4] for g in got], ref, reqs, params, mc,
+                       device)
+    log(f"{what}: the streams' leading tokens equal to the aggregated tp=1 "
+        f"engine's, of {TP_NEW}: {lead}")
+    return {"leading": lead, "pull_gb_s": gb_s, "pull_s": secs,
+            "gather_s": sum(gather_s), "gather_share": share,
+            "blocks": blocks}
+
+
+def _tp_hops(device, card: str, mc, kv_dtype: str, reqs,
+             both: bool) -> dict:
+    """A tp=1 worker (graphs, warmed up) and a tp=2 worker (two ranks on
+    `device`) of cache `kv_dtype` on one runtime, random weights from seed
+    0 on every rank: the requests one at a time through the tp=1 worker
+    alone (the aggregated tp=1 reference), then, its prefix cache
+    cleared, the tp=1 worker prefilling for the tp=2 one (_tp_hop) and,
+    with `both`, the reverse.  The workers' role stays "both": each takes
+    the prefill and the decode side in turn, the hand routing picks the
+    side.  Returns each hop's numbers and the tp=2 side's rank 1
+    launches."""
+    import uuid
+
+    from dynamo_tpu_torch.engine import TorchEngineWorker
+    from dynamo_tpu_torch.runtime import DistributedRuntime, RuntimeConfig
+
+    cfg = dataclasses.replace(_engine_config(kv_dtype), model_config=mc)
+
+    async def run() -> dict:
+        rt = await DistributedRuntime(config=RuntimeConfig(
+            discovery_backend="mem", event_plane="inproc",
+            tcp_host="127.0.0.1"), cluster_id=uuid.uuid4().hex).start()
+        sides, clients = {}, []
+        out = {}
+        try:
+            for tp in (1, 2):
+                t0 = time.perf_counter()
+                kw = _tp_worker_kw(device, tp)
+                comp = f"tp{tp}"
+                w = await TorchEngineWorker(rt, dataclasses.replace(
+                    cfg, tp=tp, warmup=kw.pop("warmup")), component=comp,
+                    **kw).start()
+                c = await rt.namespace("dynamo").component(comp).endpoint(
+                    "generate").client().start()
+                clients.append(c)
+                await c.wait_for_instances()
+                sides[tp] = (w, c)
+                log(f"tp disagg {kv_dtype}: tp={tp} worker up in "
+                    f"{time.perf_counter() - t0:.1f} s, "
+                    f"{w.config.num_blocks} blocks, a rank's kv heads "
+                    f"{w.engine.kv[0].shape[1]}")
+            w1, c1 = sides[1]
+            ref = [(await _serve_worker(c1, [r]))[0] for r in reqs]
+            await w1.engine.clear_kv_blocks()
+            params = w1.engine.params
+            hops = [(1, 2), (2, 1)] if both else [(1, 2)]
+            for p, d in hops:
+                what = f"tp disagg {kv_dtype} tp{p}->tp{d}"
+                out[f"{kv_dtype}_tp{p}_tp{d}"] = await _tp_hop(
+                    what, card, sides[p], sides[d], reqs, ref, params, mc,
+                    device)
+                for w, _ in sides.values():
+                    await w.engine.clear_kv_blocks()
+        finally:
+            for c in clients:
+                await c.close()
+            for w, _ in sides.values():
+                await w.close()
+            await rt.shutdown()
+        out["rank1_launches"] = sides[2][0].engine.rank_launches.get(1, {})
+        for w, _ in sides.values():
+            _free_engine(w.engine)
+        return out
+
+    return asyncio.run(run())
+
+
+async def _gather_blocks(eng, hashes) -> tuple:
+    """The logical blocks `eng` holds in G1 under `hashes` (every rank's
+    slab gathered, `_gather_kv`), on the host, as a scheduler op."""
+
+    def gather():
+        ids = [eng.allocator._hash_to_block[h] for h in hashes]
+        return tuple(t.cpu() for t in eng._gather_kv(ids))
+
+    return await eng._call_on_scheduler(gather)
+
+
+def _tp_kvbm(device, card: str, mc) -> dict:
+    """A tp=2 engine (two ranks on `device`, eager) with a G2 of 64 host
+    blocks under a TP_KVBM_BLOCKS-block G1, the offload watermark at the
+    pool: prompt A, A again at once (a G1 prefix hit plus its tail's
+    prefill: the reference repeat), A's blocks gathered, the churn one at
+    a time until A keeps no block in G1, then A again, which must onboard
+    every full block of A from G2 (the ranks' slabs gathered on offload,
+    the payload injected on every rank on onboard), hold them bit-equal
+    to the gathered ones, prefill only the tail and stream the reference
+    repeat's tokens (the same prefix bits, the same tail chunk).  Logs
+    the repeat's TTFT against the cold one and the G1 hit's."""
+    from dynamo_tpu_torch.engine import TorchEngine
+
+    rng = np.random.default_rng(23)
+    a = rng.integers(0, mc.vocab_size, TP_KVBM_PROMPT).tolist()
+    churn = [rng.integers(0, mc.vocab_size, TP_KVBM_PROMPT).tolist()
+             for _ in range(TP_KVBM_CHURN)]
+    cfg = dataclasses.replace(
+        _engine_config("bf16"), model_config=mc, tp=2,
+        num_blocks=TP_KVBM_BLOCKS, offload_watermark_blocks=TP_KVBM_BLOCKS,
+        host_cache_blocks=64)
+    hashes = _a_hashes(a, cfg.block_size)
+
+    def req(toks, rid):
+        r = _greedy(toks, rid)
+        return dataclasses.replace(r, stop=dataclasses.replace(
+            r.stop, max_tokens=TP_KVBM_NEW))
+
+    eng = TorchEngine(cfg, device=device, devices=[device, device],
+                      cuda_graphs=False, mesh_timeout_s=TP_TIMEOUT_S)
+
+    async def run():
+        try:
+            first = (await _serve(eng, [req(a, "tpkv-a1")]))[0]
+            await _idle(eng)
+            hit = (await _serve(eng, [req(a, "tpkv-a1-hit")]))[0]
+            blocks = await _gather_blocks(eng, hashes)
+            for i, p in enumerate(churn):
+                await _serve(eng, [req(p, f"tpkv-c{i}")])
+            kept = eng.allocator.lookup(hashes)
+            await _idle(eng)
+            m0 = dict(eng.metrics)
+            again = (await _serve(eng, [req(a, "tpkv-a2")]))[0]
+            m1 = dict(eng.metrics)
+            back = await _gather_blocks(eng, hashes)
+            return first, hit, again, kept, m0, m1, blocks, back
+        finally:
+            await eng.close()
+
+    first, hit, again, kept, m0, m1, blocks, back = asyncio.run(run())
+    onboarded = m1.get("kv_onboard_g2", 0) - m0.get("kv_onboard_g2", 0)
+    prefilled = m1["prefill_tokens"] - m0["prefill_tokens"]
+    half = blocks[0].shape[3] // 2
+    same = [_same_payload(tuple(t[:, :, :, h] for t in blocks),
+                          tuple(t[:, :, :, h] for t in back))
+            for h in (slice(0, half), slice(half, None))]
+    out = {"cold_ttft_s": first[2], "hit_ttft_s": hit[2],
+           "repeat_ttft_s": again[2], "onboarded_blocks": onboarded,
+           "repeat_prefill": prefilled, "kept_in_g1": kept,
+           "offloaded_bytes": m1["offloaded_bytes"],
+           "bit_equal_by_rank": same,
+           "rank1_launches": eng.rank_launches.get(1, {})}
+    log(f"tp kvbm: tp=2 engine, A ({len(a)} tokens, {len(hashes)} full "
+        f"blocks) kept {kept} blocks in G1 before its repeat; the repeat "
+        f"onboarded {onboarded} blocks from G2, bit-equal to the offloaded "
+        f"ones on rank 0's / rank 1's kv heads: {same}, and prefilled "
+        f"{prefilled} tokens; TTFT cold {first[2]:.3f} s, G1 hit "
+        f"{hit[2]:.3f} s, G2 onboard {again[2]:.3f} s; "
+        f"{m1['offloaded_bytes'] / 2**20:.0f} MiB offloaded ({card})")
+    _free_engine(eng)
+    if kept or onboarded != len(hashes) or not all(same) \
+            or prefilled >= cfg.block_size or again[0] != hit[0]:
+        raise SystemExit(f"tp kvbm: repeat {again[0]} against the G1 hit's "
+                         f"{hit[0]}, {onboarded} of {len(hashes)} blocks "
+                         f"onboarded, {kept} kept in G1, bit-equal {same}, "
+                         f"{prefilled} tokens prefilled")
+    return out
+
+
+def check_tp_disagg(device, card: str, n_layers: int,
+                    int8: bool = True) -> dict:
+    """Disaggregation across tp at llama-8b width, `n_layers` deep (random
+    bf16 weights from seed 0 on every side): on the bf16 cache a tp=1
+    worker prefilling for a tp=2 worker and the reverse, and with `int8`
+    tp=1 -> tp=2 on the int8 cache (_tp_hops), each against the tp=1
+    worker's own aggregated streams; then a tp=2 engine's KVBM offload
+    and onboard (_tp_kvbm).  The whole check runs it without the int8
+    pair."""
+    from dynamo_tpu_torch.models.llama import PRESETS
+
+    t0 = time.perf_counter()
+    mc = dataclasses.replace(PRESETS["llama-8b"], n_layers=n_layers)
+    reqs = _tp_requests(mc.vocab_size)
+    out = {"layers": n_layers}
+    for kv_dtype in ("bf16", "int8") if int8 else ("bf16",):
+        out[kv_dtype] = _tp_hops(device, card, mc, kv_dtype, reqs,
+                                 both=kv_dtype == "bf16")
+        gc.collect()
+        torch.cuda.empty_cache()
+    out["kvbm"] = _tp_kvbm(device, card, mc)
+    left = _tp_ranks_left()
+    if left:
+        raise SystemExit(f"tp disagg: rank processes {left} left")
+    out["seconds"] = time.perf_counter() - t0
+    log(f"tp disagg phase ({n_layers} layers) done in {out['seconds']:.1f} "
+        f"s ({card})")
     return out
 
 
@@ -8875,6 +9405,23 @@ def main() -> int:
             default=str), flush=True)
         print(card, flush=True)
         return 0
+    if sys.argv[1:] == ["--tp-families"]:
+        # python3 chip_smoke.py --tp-families: the MoE and MLA families
+        # on two ranks of one card
+        build_kernels()
+        out = check_tp_families(device, card, TP_MIXTRAL_LAYERS,
+                                TP_DEEPSEEK_LAYERS)
+        print(json.dumps({"tp_families": out}, default=str), flush=True)
+        print(card, flush=True)
+        return 0
+    if sys.argv[1:] == ["--tp-disagg"]:
+        # python3 chip_smoke.py --tp-disagg: disaggregation and KVBM on
+        # two ranks of one card, llama-8b at full depth
+        build_kernels()
+        out = check_tp_disagg(device, card, cfg.n_layers)
+        print(json.dumps({"tp_disagg": out}, default=str), flush=True)
+        print(card, flush=True)
+        return 0
     if sys.argv[1:] == ["--worker-ab"]:
         # python3 chip_smoke.py --worker-ab: the engine directly against
         # the engine behind the worker, in turns
@@ -8980,6 +9527,22 @@ def main() -> int:
     torch.cuda.empty_cache()
     tp = check_tp(device, card, TP_LAYERS)
     log(f"tp phase done at {time.perf_counter() - t_start:.1f} s")
+    gc.collect()
+    torch.cuda.empty_cache()
+    tpf = check_tp_families(device, card, TP_LAYERS, TP_LAYERS,
+                            capacity=False)
+    log(f"tp families phase done at {time.perf_counter() - t_start:.1f} s")
+    gc.collect()
+    torch.cuda.empty_cache()
+    tpd = check_tp_disagg(device, card, TP_LAYERS, int8=False)
+    log(f"tp disagg phase done at {time.perf_counter() - t_start:.1f} s")
+    # rank 1's launches on the tp=2 side of every disagg hop and of the
+    # KVBM engine
+    tpd_rank1 = {}
+    for part in tpd.values():
+        if isinstance(part, dict):
+            for name, n in part.get("rank1_launches", {}).items():
+                tpd_rank1[name] = tpd_rank1.get(name, 0) + n
     for k in kernels:
         k["launches"] = launches[k["name"]]
         k["worker_launches"] = worker_launches[k["name"]]
@@ -9005,6 +9568,11 @@ def main() -> int:
         mode = tp["int8" if k["name"].endswith("_int8") else "bf16"]
         k["tp_launches"] = [mode["launches"][r].get(k["name"], 0)
                             for r in ("rank0", "rank1")]
+        # mixtral dense dispatch at tp=2, rank 0 / rank 1
+        k["tp_families_launches"] = [
+            tpf["mixtral_dense"]["launches"][r].get(k["name"], 0)
+            for r in ("rank0", "rank1")]
+        k["tp_disagg_rank1_launches"] = tpd_rank1.get(k["name"], 0)
     for k in dma:  # the microbench is on no serving path
         k["disagg_prefill_launches"] = k["disagg_decode_launches"] = 0
         k["disagg_ipc_prefill_launches"] = k["disagg_ipc_decode_launches"] = 0
@@ -9012,7 +9580,8 @@ def main() -> int:
         k["lora_launches"] = k["guided_launches"] = k["moe_launches"] = 0
         k["mla_launches"] = k["etcd_launches"] = k["kube_launches"] = 0
         k["embed_launches"] = k["encoder_launches"] = 0
-        k["tp_launches"] = [0, 0]
+        k["tp_launches"] = k["tp_families_launches"] = [0, 0]
+        k["tp_disagg_rank1_launches"] = 0
     log(f"chip_smoke: every phase passed in "
         f"{time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels + dma}), flush=True)

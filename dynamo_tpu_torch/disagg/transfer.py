@@ -92,8 +92,8 @@ class KvLayout:
     dtype: str
     tp: int = 1
     dp: int = 1
-    # MLA engines cache an asymmetric pair — 0 means "v matches k" (the
-    # GQA case, the only one the port serves)
+    # MLA engines cache an asymmetric pair (the latent and the rope
+    # key); 0 means "v matches k", the GQA case
     head_dim_v: int = 0
     # int8-quantized payload (quant/kv.py): chunks carry fp32 scale
     # planes [L, n, bs, nkv] alongside k/v, verbatim

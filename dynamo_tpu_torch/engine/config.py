@@ -33,24 +33,17 @@ _UNPORTED = {
 def _mesh_refusals(cfg: "EngineConfig") -> list:
     """The features a dp * tp > 1 engine does not serve yet, each as
     (set, its name): their programs are not on the step stream
-    (parallel/multihost.py) or their weights have no tensor-parallel
-    forward.  JAX serves every one under tp; ROADMAP.md lists them as the
-    next work."""
-    model = cfg.resolve_model()
+    (parallel/multihost.py: spec_verify, lora_write) or have no
+    vocab-parallel form (the fused epilogue).  A mesh serves the disagg
+    roles, the KVBM tiers (the stream's gather and inject steps) and the
+    MoE and MLA families (their tensor-parallel forwards).  JAX serves
+    every one under tp; ROADMAP.md lists them as the next work."""
     return [
-        (cfg.role != "both", f"disaggregated serving (role={cfg.role!r})"),
-        (cfg.host_cache_blocks > 0,
-         "the KVBM tiers (host_cache_blocks > 0)"),
         (cfg.spec_decode != "off",
          f"speculative decoding (spec_decode={cfg.spec_decode!r})"),
         (cfg.lora_max_adapters > 0, "LoRA serving (lora_max_adapters > 0)"),
         (cfg.sampling_epilogue == "fused",
          "the fused sampling epilogue (sampling_epilogue='fused')"),
-        (getattr(model, "n_experts", 0) > 0,
-         f"the MoE family (model {model.name!r}: expert sharding over tp)"),
-        (isinstance(model, DeepseekConfig),
-         f"the MLA family (model {model.name!r}: heads through "
-         "w_uk/w_uv/wq_b)"),
     ]
 
 

@@ -156,16 +156,24 @@ The leader alone schedules, allocates blocks and emits KV events; before
 it runs a program, warm-up's included, it publishes the step
 (`_publish`, the JAX engine's kind names and descriptor keys), so every
 rank runs the same programs, and so the same collectives, in the same
-order.  The step kinds are those of the dense path: prefill_packed,
-prefill and prefill_batch (prefill_packed=False), decode, decode_multi
-and decode_cont, plus warm-up's decode_snapshot/decode_restore of the
-decode descriptor.  What their programs do not cover is refused: the
-config refuses roles, KVBM, speculation, LoRA, the fused epilogue and
-the MoE and MLA families (engine/config.py), and `generate` refuses
-guided and disaggregated requests, `embed` raises.  On a gloo mesh
-(ranks sharing a device) the programs run eagerly: gloo's collectives
-cannot be captured, and cuda_graphs=True raises.  `close` stops and
-joins every rank.
+order.  The step kinds are prefill_packed, prefill and prefill_batch
+(prefill_packed=False and the padded programs of capacity MoE and MLA),
+decode, decode_multi and decode_cont, warm-up's
+decode_snapshot/decode_restore of the decode descriptor, and the KV
+moves `gather` and `inject` (JAX's descriptor keys): a disagg pull's
+chunk and a KVBM offload gather the ranks' kv-head slabs into the
+leader's logical blocks over the tensor group (`_gather_kv`), a pulled
+chunk and a KVBM onboard inject a logical payload that rides the
+stream, each rank writing its slab (`_inject_kv`; MLA's latent cache is
+whole on every rank).  So a mesh serves the disagg roles (a payload
+holds every kv head, whatever either side's tp) and the KVBM tiers,
+which the leader alone holds, and the MoE and MLA families through
+their tensor-parallel forwards.  What the stream does not cover is
+refused: the config refuses speculation, LoRA and the fused epilogue
+(engine/config.py), `generate` refuses guided requests and `embed`
+raises.  On a gloo mesh (ranks sharing a device) the programs run
+eagerly: gloo's collectives cannot be captured, and cuda_graphs=True
+raises.  `close` stops and joins every rank.
 
 Not here yet (ROADMAP.md): penalties (the JAX engine ignores them too).
 """
@@ -210,7 +218,10 @@ from ..parallel.mesh import (
     Mesh,
     MeshConfig,
     default_devices,
+    gather_slabs,
     group_backend,
+    kv_cache_spec,
+    kv_heads_replicated,
     mesh_devices,
     shard_config,
 )
@@ -218,7 +229,9 @@ from ..parallel.multihost import (
     STOP,
     GroupTransport,
     StepBroadcaster,
+    from_wire,
     launch_ranks,
+    to_wire,
 )
 from ..protocols import (
     DISAGG_ANNOTATION,
@@ -482,6 +495,13 @@ class TorchEngine:
         # a rank runs its shard's widths (parallel/mesh.py shard_config);
         # model_cfg stays the whole model's (the MDC, the cache budget)
         self.shard_cfg = shard_config(self.model_cfg, config.tp)
+        # the kv heads of a logical KV payload this rank's cache holds
+        # (ops/kv_transfer.py inject_universal's `heads`); None where the
+        # cache is whole (tp = 1, or MLA's replicated latent pair)
+        self._kv_heads = (
+            kv_cache_spec(tp_rank, config.tp, self.model_cfg.n_kv_heads)
+            if config.tp > 1 and not kv_heads_replicated(self.model_cfg)
+            else None)
         shard = (tp_rank, config.tp) if config.tp > 1 else None
         mesh_params = None
         if world > 1 and params is not None:
@@ -563,7 +583,9 @@ class TorchEngine:
             raise ValueError(
                 "object_store_dir (G4) requires host_cache_blocks > 0: the "
                 "object tier is fed by demotion down the tier ladder")
-        if config.host_cache_blocks > 0:
+        # a follower (`mesh` given) keeps no tiers: its cache evolves from
+        # the leader's gather and inject steps alone
+        if config.host_cache_blocks > 0 and mesh is None:
             self.kvbm = TieredKvManager(
                 config.host_cache_blocks,
                 disk_dir=config.disk_cache_dir,
@@ -870,8 +892,69 @@ class TorchEngine:
         elif kind == "decode_restore":
             self.graphs.restore(self._warm_snap)
             self._warm_snap = None
+        elif kind == "gather":
+            # read-only, but the slabs' gather is a collective of the
+            # leader's tensor group; the payload is the leader's
+            self._gather_slab(a["ids"])
+        elif kind == "inject":
+            # a KVBM onboard or a pulled disagg chunk: the whole logical
+            # payload rides the stream, so followers need no tiers and no
+            # transport of their own; each writes its slab
+            dt = self.kv[0].dtype
+            arrs = [from_wire(a["kb"], dt), from_wire(a["vb"], dt)]
+            if "ksb" in a:
+                arrs += [from_wire(a["ksb"], torch.float32),
+                         from_wire(a["vsb"], torch.float32)]
+            inject_universal(self.kv, arrs[0], arrs[1], a["ids"], *arrs[2:],
+                             heads=self._kv_heads)
         else:
             raise ValueError(f"unknown step kind {kind!r}")
+
+    # -- the cross-rank KV moves (parallel/mesh.py) --------------------------
+    def _gather_slab(self, ids) -> Optional[tuple]:
+        """This rank's part of a gather of blocks `ids`: its slab in the
+        universal layout, gathered over the tensor group of the leader's
+        dp replica when the cache is split over kv heads (the logical
+        payload on the leader, None on the other ranks).  A replicated
+        cache (tp = 1, MLA's latent pair) is the leader's own; the other
+        ranks then do nothing."""
+        sharded = self._kv_heads is not None
+        if self.mesh is not None and not self.mesh.is_leader and (
+                not sharded or self.mesh.dp_rank != 0):
+            return None
+        slab = gather_universal(self.kv, ids)
+        if not sharded:
+            return slab
+        return gather_slabs(self.mesh.tensor, slab)
+
+    def _gather_kv(self, ids) -> tuple:
+        """The leader's gather of blocks `ids` as the logical payload
+        (every kv head): published as JAX's `gather` step first, so every
+        rank takes part.  Off a mesh, the cache's own gather."""
+        self._publish("gather", {"ids": np.asarray(ids, np.int32)})
+        return self._gather_slab(ids)
+
+    def _gather_host_blocks(self, ids) -> List[tuple]:
+        """Blocks `ids` gathered (`_gather_kv`) as one host tensor tuple
+        each, in blocks_to_host's per-block layout; synchronous."""
+        arrs = [a.cpu() for a in self._gather_kv(ids)]
+        # a tensor of its own per block, never a view of the batch
+        return [tuple(a[:, i].clone(memory_format=torch.contiguous_format)
+                      for a in arrs) for i in range(len(ids))]
+
+    def _inject_kv(self, ids, arrs) -> None:
+        """Write the logical payload `arrs` ((kb, vb) or, int8, (kb, vb,
+        ksb, vsb), universal layout, host or device) into blocks `ids`:
+        published first as JAX's `inject` step with the whole payload
+        (followers write their slabs of it), then this rank's slab."""
+        if self._steps is not None:
+            desc = {"kb": to_wire(arrs[0]), "vb": to_wire(arrs[1]),
+                    "ids": np.asarray(ids, np.int32)}
+            if len(arrs) == 4:
+                desc["ksb"], desc["vsb"] = to_wire(arrs[2]), to_wire(arrs[3])
+            self._publish("inject", desc)
+        inject_universal(self.kv, arrs[0], arrs[1], ids, *arrs[2:],
+                         heads=self._kv_heads)
 
     # -- lifecycle ----------------------------------------------------------
     def start(self) -> None:
@@ -1203,12 +1286,15 @@ class TorchEngine:
     # -- disaggregation: parked prefills and KV extraction ------------------
     def kv_wire_layout(self, n_blocks: int = 0) -> KvLayout:
         """This engine's KvLayout for wire headers and validation, from
-        its own cache tensors ([L, nkv, NB, bs, hd])."""
+        its own cache tensors ([L, nkv, NB, bs, hd]); kv_heads is the
+        whole model's (a payload is logical, whatever the tp), tp and dp
+        the mesh's (advisory)."""
         k, v = self.kv[0], self.kv[1]
         return KvLayout(
             num_layers=k.shape[0], num_blocks=n_blocks,
             block_size=self.config.block_size,
-            kv_heads=k.shape[1] * self.config.tp,  # the whole cache's
+            kv_heads=self.family.kv_cache_shapes(
+                self.model_cfg, 1, self.config.block_size)[0][1],
             head_dim=k.shape[4], dtype=dtype_name(k.dtype),
             tp=self.config.tp, dp=self.config.dp,
             head_dim_v=v.shape[4] if v.shape[4] != k.shape[4] else 0,
@@ -1232,7 +1318,8 @@ class TorchEngine:
         per chunk, so decode bursts interleave with a long extraction.
         to_host=False leaves the chunk on the device (the broker tier);
         to_host=True returns CPU tensors, read back through pinned
-        memory."""
+        memory.  On a mesh the chunk is the ranks' slabs gathered into
+        the logical blocks (`_gather_kv`)."""
 
         def gather():
             parked = self._parked.get(request_id)
@@ -1243,8 +1330,10 @@ class TorchEngine:
                 raise ValueError(
                     f"chunk [{start},{start + count}) out of range for "
                     f"{len(parked.block_ids)} parked blocks")
-            arrs = gather_universal(self.kv, chunk_ids)
-            if not to_host or not arrs[0].is_cuda:
+            arrs = self._gather_kv(chunk_ids)
+            if not to_host:
+                return tuple(a.to(self.device) for a in arrs)
+            if not arrs[0].is_cuda:
                 return arrs
             host = [torch.empty(a.shape, dtype=a.dtype, pin_memory=True)
                     for a in arrs]
@@ -1282,7 +1371,9 @@ class TorchEngine:
 
     def _park_prefilled(self, slot: _Slot, first_token: int) -> None:
         """Disagg prefill done: keep the KV, hand back transfer metadata
-        in one frame."""
+        in one frame.  The park moves no KV, so on a mesh it publishes no
+        step: the leader's books hold the blocks, and every rank's
+        cache keeps its slab of them until the pull's gathers."""
         seq_id = self._seq_id(slot)
         rid = slot.request.request_id
         self._parked[rid] = _Parked(
@@ -1447,7 +1538,8 @@ class TorchEngine:
         """Scheduler op: write one pulled chunk into the slot's blocks.
         `arrs` is (kb, vb), plus (ksb, vsb) for an int8 cache: CPU tensors
         (host-staged tier) or device tensors (broker tier).  The write
-        goes on the stream after the bursts already dispatched."""
+        goes on the stream after the bursts already dispatched; on a
+        mesh every rank writes its slab (`_inject_kv`)."""
         if slot.finished or slot.cancel_requested:
             return  # blocks may already be freed; drop the chunk
         if len(arrs) != len(self.kv):
@@ -1458,7 +1550,7 @@ class TorchEngine:
             self._seq_id(slot))[b0:b0 + n]
         if len(block_ids) != n:
             raise ValueError(f"slot lost blocks [{b0},{b0 + n}) mid-pull")
-        inject_universal(self.kv, arrs[0], arrs[1], block_ids, *arrs[2:])
+        self._inject_kv(block_ids, arrs)
 
     def _finish_pull(self, slot: _Slot, first: Optional[int]) -> None:
         """Scheduler op: every chunk landed — commit the blocks and emit
@@ -1498,7 +1590,7 @@ class TorchEngine:
             a = self._padded_arrays([slot], [1],
                                     self.config.prefill_buckets[0], 1,
                                     pos=[slot.prompt_len - 1])
-            return int(Readback(self.padded_prefill.run(a)).wait()[0])
+            return int(Readback(self._dispatch_padded(a)).wait()[0])
         g = self.prefill_graphs
         T = g.buckets[0]
         a = g.host_descriptor(T)
@@ -1513,8 +1605,7 @@ class TorchEngine:
         a["top_ps"][0] = sp.top_p
         if "lidx" in a:
             a["lidx"][0] = slot.lora_idx
-        g.upload(a)
-        return int(Readback(g.run(T)).wait()[0])
+        return int(Readback(self._dispatch_packed(a)).wait()[0])
 
     # -- KVBM: the cross-worker pull (kvbm/remote.py) ----------------------
     async def _remote_prefetch(self, request: PreprocessedRequest) -> None:
@@ -1597,10 +1688,17 @@ class TorchEngine:
                 scan_limit=4 * self.config.offload_batch + 64)
             if cands:
                 t_obs = obs.begin()
-                blocks = blocks_to_host(self.kv, [bid for _, bid in cands],
-                                        stream=self._offload_stream)
                 done = None
-                if self._offload_stream is not None:
+                if self.mesh is not None:
+                    # the ranks' slabs gathered into the logical blocks,
+                    # read back now: the offload commits in this step
+                    blocks = self._gather_host_blocks(
+                        [bid for _, bid in cands])
+                else:
+                    blocks = blocks_to_host(self.kv,
+                                            [bid for _, bid in cands],
+                                            stream=self._offload_stream)
+                if self._offload_stream is not None and self.mesh is None:
                     done = torch.cuda.Event()
                     done.record(self._offload_stream)
                 self._offloading.append(
@@ -1679,7 +1777,13 @@ class TorchEngine:
                                        seq=self._seq_id(slot))
         if not ids:
             return 0
-        blocks_from_host(self.kv, blocks, ids)
+        if self.mesh is not None:
+            # one logical payload, stacked on the block axis: every rank
+            # writes its slab of it
+            self._inject_kv(ids, [torch.stack([b[c] for b in blocks], dim=1)
+                                  for c in range(len(self.kv))])
+        else:
+            blocks_from_host(self.kv, blocks, ids)
         for src, cnt in by_tier.items():
             key = f"kv_onboard_{src}"
             self.metrics[key] = self.metrics.get(key, 0) + cnt
@@ -1994,17 +2098,10 @@ class TorchEngine:
     def _mesh_unsupported(self, request: PreprocessedRequest
                           ) -> Optional[str]:
         """An error for request features a mesh does not serve yet: their
-        programs (the guided top-M step, the KV gather of a parked or
-        pulled prefill) are not on the step stream."""
-        feature = None
-        if request.sampling.guided_json is not None:
-            feature = "guided decoding"
-        elif DISAGG_ANNOTATION in (request.annotations or []) \
-                or request.disaggregated_params is not None:
-            feature = "disaggregated serving"
-        if feature is None:
+        program (the guided top-M step) is not on the step stream."""
+        if request.sampling.guided_json is None:
             return None
-        return (f"{feature} is not ported to dynamo_tpu_torch under "
+        return ("guided decoding is not ported to dynamo_tpu_torch under "
                 f"dp={self.config.dp} tp={self.config.tp} yet")
 
     # -- scheduler ------------------------------------------------------------

@@ -709,6 +709,7 @@ class PaddedPrefillPrograms(_Built):
         self.lora_bank = lora_bank
         self.counts: Dict[Tuple[int, int], int] = {}
         self.costs: Dict[Tuple[int, int], Dict[str, float]] = {}
+        self.logits: Optional[torch.Tensor] = None  # the last dispatch's
 
     def _cost_shape(self) -> dict:
         # the row count is the key's
@@ -736,7 +737,9 @@ class PaddedPrefillPrograms(_Built):
         [rows, T], tables [rows, max_blocks], and per row ctx_lens,
         true_lens, seeds, temps, top_ks, top_ps, with a LoRA bank lidx):
         rows 1 runs `prefill`, more `prefill_batched`.  Returns the
-        sampled tokens [rows] (greedy rows take the argmax)."""
+        sampled tokens [rows] (greedy rows take the argmax); the
+        dispatch's logits [rows, vocab] stay in `logits` until the next
+        one, as the packed programs keep theirs."""
         rows, T = a["toks"].shape
         key = (rows, T)
         t0 = time.perf_counter()
@@ -760,6 +763,7 @@ class PaddedPrefillPrograms(_Built):
                 t["tables"], a["ctx_lens"], a["true_lens"], **lora)
         tok = sample_tokens(logits, t["seeds"], torch.zeros_like(t["seeds"]),
                             t["temps"], t["top_ks"], t["top_ps"])
+        self.logits = logits
         if key not in self.counts:
             self._built(key, time.perf_counter() - t0)
         return tok

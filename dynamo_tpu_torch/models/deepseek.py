@@ -28,6 +28,18 @@ hidden-state decode surface, and no int8 cache (no
 padded programs and falls back to bf16 and the "off" epilogue, as the
 JAX engine does.  YaRN long-context scaling is not implemented, as in
 JAX.
+
+Tensor parallelism (parallel/mesh.py, JAX's sharding rules): a rank
+holds its heads through the query projection (wq or wq_b, columns), the
+latent up-projections w_uk/w_uv (axis 0) and wo (rows), its experts
+(the moe_w_* stacks on the expert axis), its columns of the shared
+experts and of the dense layers' MLP, and its slice of the vocabulary;
+wq_a, wkv_a, the router and the norms are whole, and so is the latent
+cache, which every rank writes alike.  It runs the functions below with
+its shard's config (shard_config: its heads and experts), the tensor
+group on the tree as `params["tp"]`, as models/llama.py does: the
+embedding and logits are vocab-parallel, wo is followed by one sum and
+each layer's MLP (routed, shared and dense parts together) by one.
 """
 
 from __future__ import annotations
@@ -44,10 +56,14 @@ from ..ops.mla_attention import (
     score_scale,
 )
 from ..ops.paged_attention import write_prompt_kv, write_token_kv
+from ..parallel.mesh import shard_leaf
 from .llama import (
     _burst,
+    _embed,
     _logits,
     _mlp,
+    _reduce,
+    _expert_shard,
     moe_dispatch_capacity,
     moe_dispatch_dense,
     rms_norm,
@@ -172,29 +188,36 @@ def kv_cache_shapes(cfg: DeepseekConfig, num_blocks: int,
 
 
 def init_params(cfg: DeepseekConfig, generator: torch.Generator,
-                device: Optional[torch.device] = None) -> Params:
+                device: Optional[torch.device] = None,
+                shard: Optional[Tuple[int, int]] = None) -> Params:
     """Random-init parameters with the JAX package's tree, shapes and
     scales (normal * 1/sqrt(fan_in), the embedding * 0.02, w_uk/w_uv *
     1/sqrt(R), norms 1, a V3 router's `moe_gate_bias` fp32 zeros).  The
     draws come from `generator` (on `device`, default the generator's),
-    so they are not the JAX package's values."""
-    dev = torch.device(device) if device is not None else generator.device
+    so they are not the JAX package's values.
 
-    def dense(shape, scale=None):
+    shard=(rank, tp): rank's tensor-parallel shard of the same tree (the
+    full one cut by parallel/mesh.py shard_params), each tensor drawn
+    whole in the same order and cut at once, as models/llama.py's."""
+    dev = torch.device(device) if device is not None else generator.device
+    rank, tp = shard if shard is not None else (0, 1)
+
+    def dense(shape, scale=None, name=None):
         scale = scale if scale is not None else 1.0 / math.sqrt(shape[0])
         w = torch.randn(shape, generator=generator, device=dev,
                         dtype=torch.float32)
-        return (w * scale).to(cfg.dtype)
+        return (shard_leaf(name, w, rank, tp) * scale).to(cfg.dtype)
 
     def ones(n):
         return {"norm": torch.ones(n, dtype=torch.float32, device=dev)}
 
     R, dr = cfg.kv_lora_rank, cfg.qk_rope_head_dim
     dn, dv, d = cfg.qk_nope_head_dim, cfg.v_head_dim, cfg.d_model
-    params: Params = {"embedding": dense((cfg.vocab_size, d), scale=0.02),
+    params: Params = {"embedding": dense((cfg.vocab_size, d), scale=0.02,
+                                         name="embedding"),
                       "final_norm": ones(d)}
     if not cfg.tie_embeddings:
-        params["lm_head"] = dense((d, cfg.vocab_size))
+        params["lm_head"] = dense((d, cfg.vocab_size), name="lm_head")
     layers = []
     for li in range(cfg.n_layers):
         layer: Params = {
@@ -202,16 +225,18 @@ def init_params(cfg: DeepseekConfig, generator: torch.Generator,
             "mlp_norm": ones(d),
             "wkv_a": dense((d, R + dr)),
             "kv_a_norm": ones(R),
-            "w_uk": dense((cfg.n_heads, R, dn), scale=1.0 / math.sqrt(R)),
-            "w_uv": dense((cfg.n_heads, R, dv), scale=1.0 / math.sqrt(R)),
-            "wo": dense((cfg.n_heads * dv, d)),
+            "w_uk": dense((cfg.n_heads, R, dn), scale=1.0 / math.sqrt(R),
+                          name="w_uk"),
+            "w_uv": dense((cfg.n_heads, R, dv), scale=1.0 / math.sqrt(R),
+                          name="w_uv"),
+            "wo": dense((cfg.n_heads * dv, d), name="wo"),
         }
         if cfg.q_lora_rank > 0:
             layer["wq_a"] = dense((d, cfg.q_lora_rank))
             layer["q_a_norm"] = ones(cfg.q_lora_rank)
-            layer["wq_b"] = dense((cfg.q_lora_rank, cfg.q_dim))
+            layer["wq_b"] = dense((cfg.q_lora_rank, cfg.q_dim), name="wq_b")
         else:
-            layer["wq"] = dense((d, cfg.q_dim))
+            layer["wq"] = dense((d, cfg.q_dim), name="wq")
         if cfg._moe_layer(li):
             E = cfg.n_experts
             f = cfg.moe_ffn_dim or cfg.ffn_dim
@@ -220,18 +245,21 @@ def init_params(cfg: DeepseekConfig, generator: torch.Generator,
                 # the V3 choice bias (loaded from checkpoints)
                 layer["moe_gate_bias"] = torch.zeros(E, dtype=torch.float32,
                                                      device=dev)
-            layer["moe_w_gate"] = dense((E, d, f), scale=1.0 / math.sqrt(d))
-            layer["moe_w_up"] = dense((E, d, f), scale=1.0 / math.sqrt(d))
-            layer["moe_w_down"] = dense((E, f, d), scale=1.0 / math.sqrt(f))
+            layer["moe_w_gate"] = dense((E, d, f), scale=1.0 / math.sqrt(d),
+                                        name="moe_w_gate")
+            layer["moe_w_up"] = dense((E, d, f), scale=1.0 / math.sqrt(d),
+                                      name="moe_w_up")
+            layer["moe_w_down"] = dense((E, f, d), scale=1.0 / math.sqrt(f),
+                                        name="moe_w_down")
             if cfg.n_shared_experts > 0:
                 sf = cfg.n_shared_experts * f
-                layer["shared"] = {"w_gate": dense((d, sf)),
-                                   "w_up": dense((d, sf)),
-                                   "w_down": dense((sf, d))}
+                layer["shared"] = {"w_gate": dense((d, sf), name="w_gate"),
+                                   "w_up": dense((d, sf), name="w_up"),
+                                   "w_down": dense((sf, d), name="w_down")}
         else:
-            layer["w_gate"] = dense((d, cfg.ffn_dim))
-            layer["w_up"] = dense((d, cfg.ffn_dim))
-            layer["w_down"] = dense((cfg.ffn_dim, d))
+            layer["w_gate"] = dense((d, cfg.ffn_dim), name="w_gate")
+            layer["w_up"] = dense((d, cfg.ffn_dim), name="w_up")
+            layer["w_down"] = dense((cfg.ffn_dim, d), name="w_down")
         layers.append(layer)
     params["layers"] = layers
     return params
@@ -286,7 +314,9 @@ def _ds_router(layer, cfg: DeepseekConfig, x: torch.Tensor):
     to 0.0, not -inf, as JAX does); the weights are the chosen experts'
     raw scores, optionally renormalized, times routed_scaling_factor."""
     T = x.shape[0]
-    E, k = cfg.n_experts, cfg.experts_per_token
+    # the router is whole on every tensor-parallel rank: E counts every
+    # expert, whatever the rank's config holds
+    E, k = layer["moe_gate"].shape[-1], cfg.experts_per_token
     logits = x.float() @ layer["moe_gate"].float()
     if cfg.moe_scoring == "sigmoid":
         scores = torch.sigmoid(logits)
@@ -314,17 +344,20 @@ def _ds_router(layer, cfg: DeepseekConfig, x: torch.Tensor):
 
 
 def _ds_ffn(layer, cfg: DeepseekConfig, x: torch.Tensor,
-            valid: Optional[torch.Tensor] = None) -> torch.Tensor:
+            valid: Optional[torch.Tensor] = None,
+            shard: Tuple[int, int] = (0, 1)) -> torch.Tensor:
     """A dense layer's MLP, or DeepSeekMoE over x [T, d]: the shared
     experts plus the routed ones (`_ds_router`, then models/llama.py's
     dispatch over the moe_* keys; `valid` [T] rows claim expert
-    capacity)."""
+    capacity).  Under tp (`shard`, llama.py `_expert_shard`) it is the
+    rank's partial sum (its routed experts, its columns of the shared
+    experts or of the dense MLP): the caller reduces it once."""
     if "moe_gate" not in layer:
         return _mlp(layer, x)
     top_w, top_e = _ds_router(layer, cfg, x)
     dispatch = (moe_dispatch_capacity if cfg.moe_dispatch == "capacity"
                 else moe_dispatch_dense)
-    out = dispatch(layer, cfg, x, top_w, top_e, valid)
+    out = dispatch(layer, cfg, x, top_w, top_e, valid, shard)
     if "shared" in layer:
         out = out + _mlp(layer["shared"], x)
     return out
@@ -373,14 +406,15 @@ def prefill(
     place)."""
     T = token_ids.shape[0]
     valid = torch.arange(T, device=token_ids.device) < true_len
-    x = params["embedding"][token_ids.long()].to(cfg.dtype)   # [T, d]
+    x = _embed(params, cfg, token_ids)                        # [T, d]
     for li, layer in enumerate(params["layers"]):
         h = rms_norm(x, layer["attn_norm"]["norm"], cfg.rms_eps)
-        x = x + _attn_layer_prefill(layer, cfg, kv_cache, li, h, positions,
-                                    block_table, ctx_len, true_len) \
-            @ layer["wo"]
+        x = x + _reduce(params, _attn_layer_prefill(
+            layer, cfg, kv_cache, li, h, positions, block_table, ctx_len,
+            true_len) @ layer["wo"])
         h = rms_norm(x, layer["mlp_norm"]["norm"], cfg.rms_eps)
-        x = x + _ds_ffn(layer, cfg, h, valid=valid)
+        x = x + _reduce(params, _ds_ffn(layer, cfg, h, valid=valid,
+                                        **_expert_shard(params)))
     last = max(int(true_len) - 1, 0)
     return _logits(params, cfg, x[last]), kv_cache
 
@@ -407,17 +441,18 @@ def prefill_batched(
     lens = [int(n) for n in true_lens]
     span = torch.arange(T, device=token_ids.device)
     valid = [span < n for n in lens]
-    x = params["embedding"][token_ids.long()].to(cfg.dtype)  # [Bp, T, d]
+    x = _embed(params, cfg, token_ids)                       # [Bp, T, d]
     for li, layer in enumerate(params["layers"]):
         h = rms_norm(x, layer["attn_norm"]["norm"], cfg.rms_eps)
         attn = torch.stack([
             _attn_layer_prefill(layer, cfg, kv_cache, li, h[b], positions[b],
                                 block_tables[b], ctx[b], lens[b])
             for b in range(Bp)])
-        x = x + attn @ layer["wo"]
+        x = x + _reduce(params, attn @ layer["wo"])
         h = rms_norm(x, layer["mlp_norm"]["norm"], cfg.rms_eps)
-        x = x + torch.stack([_ds_ffn(layer, cfg, h[b], valid=valid[b])
-                             for b in range(Bp)])
+        x = x + _reduce(params, torch.stack([
+            _ds_ffn(layer, cfg, h[b], valid=valid[b], **_expert_shard(params))
+            for b in range(Bp)]))
     xl = torch.stack([x[b, max(n - 1, 0)] for b, n in enumerate(lens)])
     return _logits(params, cfg, xl), kv_cache
 
@@ -444,7 +479,7 @@ def decode(
     over the latent cache.  `valid` reaches the MoE dispatch.  Returns
     (logits [B, vocab], kv_cache updated in place)."""
     c_cache, kr_cache = kv_cache
-    x = params["embedding"][token_ids.long()].to(cfg.dtype)  # [B, d]
+    x = _embed(params, cfg, token_ids)                       # [B, d]
     B = x.shape[0]
     pos1 = positions[:, None]
     scale = score_scale(cfg.qk_head_dim)
@@ -458,9 +493,10 @@ def decode(
         attn = mla_decode_attention(q_abs, q_rope[:, 0], c_cache, kr_cache,
                                     li, block_tables, kv_lens, layer["w_uv"],
                                     scale)                  # [B, nh, dv]
-        x = x + attn.reshape(B, -1) @ layer["wo"]
+        x = x + _reduce(params, attn.reshape(B, -1) @ layer["wo"])
         h = rms_norm(x, layer["mlp_norm"]["norm"], cfg.rms_eps)
-        x = x + _ds_ffn(layer, cfg, h, valid=valid)
+        x = x + _reduce(params, _ds_ffn(layer, cfg, h, valid=valid,
+                                        **_expert_shard(params)))
     return _logits(params, cfg, x), kv_cache
 
 

@@ -37,8 +37,13 @@ heads and MLP width), and its tensor group rides the tree as
 `params["tp"]`, as JAX's arrays carry their mesh.  The embedding is then
 a masked local lookup and a sum over the group, wo and w_down are each
 followed by one sum, and the logits are gathered over the vocabulary,
-so every rank samples the same full row.  Without `params["tp"]` (tp =
-1) no collective runs and nothing else changes.
+so every rank samples the same full row.  A MoE layer's expert stacks
+split on the expert axis (each rank holds cfg.n_experts contiguous
+experts of its shard config, each whole) and its router is whole, so
+every rank routes every token alike, evaluates its own experts only
+(capacity positions and drops from the whole assignment, as tp = 1's)
+and the routed MLP's sum is one reduce, as w_down's.  Without
+`params["tp"]` (tp = 1) no collective runs and nothing else changes.
 """
 
 from __future__ import annotations
@@ -368,17 +373,33 @@ def _moe_router(layer, cfg: LlamaConfig, x: torch.Tensor):
     return torch.softmax(vals[:, :k], dim=-1), ids[:, :k]
 
 
+def _expert_shard(params) -> Dict[str, Tuple[int, int]]:
+    """`_ffn`'s keyword for the expert shard a rank's MoE layers hold:
+    {"shard": (rank, tp)} of the tensor group on the tree, none at
+    tp = 1."""
+    tp = params.get("tp")
+    return {} if tp is None else {"shard": (tp.rank, tp.size)}
+
+
 def moe_dispatch_dense(layer, cfg: LlamaConfig, x: torch.Tensor,
                        top_w: torch.Tensor, top_e: torch.Tensor,
-                       valid: Optional[torch.Tensor] = None) -> torch.Tensor:
+                       valid: Optional[torch.Tensor] = None,
+                       shard: Tuple[int, int] = (0, 1)) -> torch.Tensor:
     """Dropless masked-dense dispatch for precomputed routing (top_w,
     top_e [T, k]): every expert computes every token ([E, T, ffn]
     batched products), and the [T, E] router weight matrix, zero off the
     selected experts and on invalid rows, masks the combine in
-    cfg.dtype.  Batch-invariant by construction."""
+    cfg.dtype.  Batch-invariant by construction.
+
+    shard=(rank, tp): the layer holds rank's contiguous cfg.n_experts of
+    the tp * cfg.n_experts experts (top_e indexes them all); only those
+    compute, and the sum over the ranks is the whole combine."""
     T = x.shape[0]
-    wmat = torch.zeros(T, cfg.n_experts, dtype=torch.float32,
+    rank, tp = shard
+    e0 = rank * cfg.n_experts
+    wmat = torch.zeros(T, cfg.n_experts * tp, dtype=torch.float32,
                        device=x.device).scatter_(1, top_e, top_w)
+    wmat = wmat[:, e0:e0 + cfg.n_experts]
     if valid is not None:
         wmat = wmat * valid.to(torch.float32)[:, None]
     h = torch.nn.functional.silu(torch.matmul(x, layer["moe_w_gate"])) \
@@ -388,21 +409,25 @@ def moe_dispatch_dense(layer, cfg: LlamaConfig, x: torch.Tensor,
 
 
 def _moe_mlp_dense(layer, cfg: LlamaConfig, x: torch.Tensor,
-                   valid: Optional[torch.Tensor] = None) -> torch.Tensor:
+                   valid: Optional[torch.Tensor] = None,
+                   shard: Tuple[int, int] = (0, 1)) -> torch.Tensor:
     top_w, top_e = _moe_router(layer, cfg, x)
-    return moe_dispatch_dense(layer, cfg, x, top_w, top_e, valid)
+    return moe_dispatch_dense(layer, cfg, x, top_w, top_e, valid, shard)
 
 
-def moe_capacity(cfg: LlamaConfig, T: int) -> int:
+def moe_capacity(cfg: LlamaConfig, T: int, tp: int = 1) -> int:
     """An expert's buffer slots for a T-token dispatch, with JAX's float
-    expression order: max(1, ceil(T * k / E * capacity_factor))."""
-    return max(1, math.ceil(T * cfg.experts_per_token / cfg.n_experts
+    expression order: max(1, ceil(T * k / E * capacity_factor)), E the
+    whole model's tp * cfg.n_experts."""
+    return max(1, math.ceil(T * cfg.experts_per_token
+                            / (cfg.n_experts * tp)
                             * cfg.moe_capacity_factor))
 
 
 def moe_dispatch_capacity(layer, cfg: LlamaConfig, x: torch.Tensor,
                           top_w: torch.Tensor, top_e: torch.Tensor,
-                          valid: Optional[torch.Tensor] = None
+                          valid: Optional[torch.Tensor] = None,
+                          shard: Tuple[int, int] = (0, 1)
                           ) -> torch.Tensor:
     """GShard capacity dispatch for precomputed routing, JAX's
     formulation: each (token, slot) in flattened order takes the next
@@ -411,10 +436,17 @@ def moe_dispatch_capacity(layer, cfg: LlamaConfig, x: torch.Tensor,
     nothing (the token's expert output is dropped; its residual passes
     through), and one-hot dispatch [T*k, E, C] and combine tensors move
     the tokens in and out with products.  Rows with valid False claim no
-    position.  Static shapes throughout."""
+    position.  Static shapes throughout.
+
+    shard=(rank, tp): the layer holds rank's contiguous cfg.n_experts of
+    the E = tp * cfg.n_experts experts.  C, the positions and the drops
+    come from the whole assignment, so they are tp = 1's; only the
+    rank's experts compute, and the sum over the ranks is the whole
+    combine."""
     T, d = x.shape
-    E, k = cfg.n_experts, cfg.experts_per_token
-    C = moe_capacity(cfg, T)
+    rank, tp = shard
+    E, k = cfg.n_experts * tp, cfg.experts_per_token
+    C = moe_capacity(cfg, T, tp)
     e_flat = top_e.reshape(-1)                           # [Tk]
     w_flat = top_w.reshape(-1)
     onehot = (e_flat[:, None] == torch.arange(
@@ -425,6 +457,8 @@ def moe_dispatch_capacity(layer, cfg: LlamaConfig, x: torch.Tensor,
                        e_flat[:, None])[:, 0]            # [Tk]
     # jax.nn.one_hot(pos, C): an all-zero row for pos >= C (the drop)
     slot = (pos[:, None] == torch.arange(C, device=x.device)).float()
+    e0 = rank * cfg.n_experts
+    onehot = onehot[:, e0:e0 + cfg.n_experts]            # the rank's
     disp = onehot.float()[:, :, None] * slot[:, None, :]  # [Tk, E, C]
     comb = disp * w_flat[:, None, None]
     x_rep = x.repeat_interleave(k, dim=0)                # [Tk, d]
@@ -438,16 +472,20 @@ def moe_dispatch_capacity(layer, cfg: LlamaConfig, x: torch.Tensor,
 
 
 def _moe_mlp(layer, cfg: LlamaConfig, x: torch.Tensor,
-             valid: Optional[torch.Tensor] = None) -> torch.Tensor:
+             valid: Optional[torch.Tensor] = None,
+             shard: Tuple[int, int] = (0, 1)) -> torch.Tensor:
     top_w, top_e = _moe_router(layer, cfg, x)
-    return moe_dispatch_capacity(layer, cfg, x, top_w, top_e, valid)
+    return moe_dispatch_capacity(layer, cfg, x, top_w, top_e, valid, shard)
 
 
 def _ffn(layer, cfg: LlamaConfig, x: torch.Tensor,
-         valid: Optional[torch.Tensor] = None) -> torch.Tensor:
+         valid: Optional[torch.Tensor] = None,
+         shard: Tuple[int, int] = (0, 1)) -> torch.Tensor:
     """The dense MLP, or the routed one over x [..., d] (leading dims
-    flattened into one dispatch, `valid` [...] with them).  Raises
-    JAX's ValueError on an unknown moe_dispatch."""
+    flattened into one dispatch, `valid` [...] with them; `shard` the
+    rank's experts, `_expert_shard`).  Under tp either is the rank's
+    partial sum: the caller reduces it.  Raises JAX's ValueError on an
+    unknown moe_dispatch."""
     if cfg.n_experts <= 0:
         return _mlp(layer, x)
     if cfg.moe_dispatch not in ("dense", "capacity"):
@@ -458,7 +496,7 @@ def _ffn(layer, cfg: LlamaConfig, x: torch.Tensor,
     if valid is not None:
         valid = valid.reshape(-1)
     moe = _moe_mlp if cfg.moe_dispatch == "capacity" else _moe_mlp_dense
-    out = moe(layer, cfg, x.reshape(-1, x.shape[-1]), valid)
+    out = moe(layer, cfg, x.reshape(-1, x.shape[-1]), valid, shard)
     return out.reshape(*lead, x.shape[-1])
 
 
@@ -551,7 +589,8 @@ def _packed_forward(params, cfg: LlamaConfig, kv_cache: KVCache,
         x = x + _reduce(params, _attn_out(
             layer, attn.reshape(T, cfg.q_dim), lora=lctx))
         h = rms_norm(x, layer["mlp_norm"]["norm"], cfg.rms_eps)
-        x = x + _reduce(params, _ffn(layer, cfg, h, valid=valid))
+        x = x + _reduce(params, _ffn(layer, cfg, h, valid=valid,
+                                         **_expert_shard(params)))
     return x
 
 
@@ -615,7 +654,8 @@ def embed_text(
         x = x + _reduce(params,
                         o.reshape(T, cfg.q_dim).to(cfg.dtype) @ layer["wo"])
         h = rms_norm(x, layer["mlp_norm"]["norm"], cfg.rms_eps)
-        x = x + _reduce(params, _ffn(layer, cfg, h, valid=valid))
+        x = x + _reduce(params, _ffn(layer, cfg, h, valid=valid,
+                                         **_expert_shard(params)))
     x = _final_norm(params, cfg, x)
     w = valid.float()[:, None]
     pooled = (x.float() * w).sum(0) / torch.clamp(w.sum(), min=1.0)
@@ -664,7 +704,8 @@ def prefill(
         x = x + _reduce(params, _attn_out(
             layer, attn.reshape(T, cfg.q_dim), lora=lctx))
         h = rms_norm(x, layer["mlp_norm"]["norm"], cfg.rms_eps)
-        x = x + _reduce(params, _ffn(layer, cfg, h, valid=valid))
+        x = x + _reduce(params, _ffn(layer, cfg, h, valid=valid,
+                                         **_expert_shard(params)))
     last = max(int(true_len) - 1, 0)
     return _logits(params, cfg, x[last]), kv_cache
 
@@ -716,8 +757,9 @@ def prefill_batched(
             layer, attn.reshape(Bp, T, cfg.q_dim), lora=lctx))
         h = rms_norm(x, layer["mlp_norm"]["norm"], cfg.rms_eps)
         if cfg.n_experts > 0:
-            x = x + torch.stack([_ffn(layer, cfg, h[b], valid=valid[b])
-                                 for b in range(Bp)])
+            x = x + _reduce(params, torch.stack([
+                _ffn(layer, cfg, h[b], valid=valid[b], **_expert_shard(params))
+                for b in range(Bp)]))
         else:
             x = x + _reduce(params, _ffn(layer, cfg, h))
     xl = torch.stack([x[b, max(n - 1, 0)] for b, n in enumerate(lens)])
@@ -870,5 +912,6 @@ def _decode_trunk(params, cfg: LlamaConfig, kv_cache: KVCache, token_ids,
         x = x + _reduce(params, _attn_out(
             layer, attn.reshape(x.shape[0], cfg.q_dim), lora=lctx))
         h = rms_norm(x, layer["mlp_norm"]["norm"], cfg.rms_eps)
-        x = x + _reduce(params, _ffn(layer, cfg, h, valid=valid))
+        x = x + _reduce(params, _ffn(layer, cfg, h, valid=valid,
+                                         **_expert_shard(params)))
     return x

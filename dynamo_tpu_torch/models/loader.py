@@ -60,7 +60,7 @@ from typing import Any, Dict, Iterator, Optional, Tuple, Union
 import torch
 
 from ..device import DeviceLike, resolve_device
-from ..parallel.mesh import shard_leaf
+from ..parallel.mesh import chunk_range, shard_leaf
 from .deepseek import DeepseekConfig
 from .llama import LlamaConfig
 
@@ -287,21 +287,28 @@ class _ExpertStage:
     """Streams per-expert tensors into ONE preallocated host stack
     [E, ...] in `dtype` per (layer, kind), handing it to
     `sink(li, key, stack)` when every expert has arrived: host memory
-    holds one stack per kind in flight, not E copies and a stack."""
+    holds one stack per kind in flight, not E copies and a stack.  With
+    shard=(rank, tp) the stack holds rank's contiguous E/tp experts only
+    (the cut on the expert axis, parallel/mesh.py's rule), the others'
+    tensors counted and dropped."""
 
-    def __init__(self, n_experts: int, dtype: torch.dtype, sink):
+    def __init__(self, n_experts: int, dtype: torch.dtype, sink,
+                 shard: Tuple[int, int] = (0, 1)):
         self.n_experts = n_experts
         self.dtype = dtype
         self.sink = sink
+        self.lo, self.hi = chunk_range(n_experts, shard[0], shard[1],
+                                       "n_experts")
         self._stage: Dict[int, Dict[str, Any]] = {}
 
     def feed(self, li: int, e: int, key: str, t: torch.Tensor) -> None:
         stage = self._stage.setdefault(li, {})
         if key not in stage:
-            stage[key] = (torch.empty((self.n_experts, *t.shape),
+            stage[key] = (torch.empty((self.hi - self.lo, *t.shape),
                                       dtype=self.dtype), set())
         buf, got = stage[key]
-        buf[e].copy_(t)
+        if self.lo <= e < self.hi:
+            buf[e - self.lo].copy_(t)
         got.add(e)
         if len(got) == self.n_experts:
             del stage[key]
@@ -378,9 +385,6 @@ def load_params(model_path: str,
 
     dev = resolve_device(device)
     cfg = cfg or load_hf_config(model_path)
-    if shard is not None and isinstance(cfg, DeepseekConfig):
-        raise NotImplementedError("tensor-parallel loading of the MLA "
-                                  "family is not ported yet")
     cache_dir = default_cache_dir() if host_cache else None
     if cache_dir is not None:
         cached = read_cache(cache_dir, model_path, device=dev, shard=shard)
@@ -409,12 +413,13 @@ def _load_llama_params(model_path: str, cfg: LlamaConfig, placer: Placer,
         "layers": [dict() for _ in range(cfg.n_layers)]}
 
     def place_stack(li: int, key: str, stack: torch.Tensor) -> None:
-        # on the CPU the stack is already a fresh tensor of the dtype
+        # on the CPU the stack is already a fresh tensor of the dtype;
+        # the stage holds the rank's experts only, so nothing is cut here
         params["layers"][li][key] = (
-            stack if dev.type == "cpu" and placer.tp == 1
-            else placer.put(stack, cfg.dtype, key))
+            stack if dev.type == "cpu" else placer.put(stack, cfg.dtype))
 
-    stage = _ExpertStage(cfg.n_experts, cfg.dtype, place_stack)
+    stage = _ExpertStage(cfg.n_experts, cfg.dtype, place_stack,
+                         (placer.rank, placer.tp))
     for name, tensor in _iter_safetensors(model_path, stats):
         m = _LAYER_RE.match(name)
         if m:
@@ -550,11 +555,13 @@ def _load_deepseek_params(model_path: str, cfg: DeepseekConfig,
         "layers": [dict() for _ in range(cfg.n_layers)]}
 
     def place_stack(li: int, key: str, stack: torch.Tensor) -> None:
+        # on the CPU the stack is already a fresh tensor of the dtype;
+        # the stage holds the rank's experts only, so nothing is cut here
         params["layers"][li][key] = (
-            stack if dev.type == "cpu" and placer.tp == 1
-            else placer.put(stack, cfg.dtype, key))
+            stack if dev.type == "cpu" else placer.put(stack, cfg.dtype))
 
-    stage = _ExpertStage(cfg.n_experts, cfg.dtype, place_stack)
+    stage = _ExpertStage(cfg.n_experts, cfg.dtype, place_stack,
+                         (placer.rank, placer.tp))
     for name, tensor in _iter_safetensors(model_path, stats):
         m = _LAYER_RE.match(name)
         if m:
@@ -570,37 +577,41 @@ def _load_deepseek_params(model_path: str, cfg: DeepseekConfig,
                 stage.feed(li, int(em.group(1)),
                            "moe_" + _DS_W_MAP[em.group(2)], tensor.T)
             elif sm:
-                layer.setdefault("shared", {})[_DS_W_MAP[sm.group(1)]] = \
-                    placer.put(tensor.T, cfg.dtype)
+                key = _DS_W_MAP[sm.group(1)]
+                layer.setdefault("shared", {})[key] = placer.put(
+                    tensor.T, cfg.dtype, key)
             elif suffix in _DS_NORMS:
                 layer[_DS_NORMS[suffix]] = {
                     "norm": placer.put(tensor, torch.float32)}
             elif suffix in _DS_LINEAR:
-                layer[_DS_LINEAR[suffix]] = placer.put(tensor.T, cfg.dtype)
+                key = _DS_LINEAR[suffix]
+                layer[key] = placer.put(tensor.T, cfg.dtype, key)
             elif suffix == "mlp.gate.e_score_correction_bias":
                 layer["moe_gate_bias"] = placer.put(tensor, torch.float32)
             elif suffix == "self_attn.q_proj.weight":
-                layer["wq"] = placer.put(perm_q(tensor).T, cfg.dtype)
+                layer["wq"] = placer.put(perm_q(tensor).T, cfg.dtype, "wq")
             elif suffix == "self_attn.q_b_proj.weight":
-                layer["wq_b"] = placer.put(perm_q(tensor).T, cfg.dtype)
+                layer["wq_b"] = placer.put(perm_q(tensor).T, cfg.dtype,
+                                           "wq_b")
             elif suffix == "self_attn.kv_a_proj_with_mqa.weight":
                 t = tensor
                 if interleaved:
                     t = torch.cat([t[:R], _deinterleave_rope_rows(t[R:], dr)])
                 layer["wkv_a"] = placer.put(t.T, cfg.dtype)
             elif suffix == "self_attn.kv_b_proj.weight":
-                # [nh * (dn + dv), R] -> per-head up-projections [nh, R, *]
+                # [nh * (dn + dv), R] -> per-head up-projections [nh, R, *],
+                # each then cut by head under tp
                 t = tensor.reshape(nh, dn + dv, R)
                 layer["w_uk"] = placer.put(t[:, :dn].transpose(1, 2),
-                                           cfg.dtype)
+                                           cfg.dtype, "w_uk")
                 layer["w_uv"] = placer.put(t[:, dn:].transpose(1, 2),
-                                           cfg.dtype)
+                                           cfg.dtype, "w_uv")
             else:
                 raise ValueError(f"unmapped deepseek tensor {name!r}")
         elif name == "model.embed_tokens.weight":
-            params["embedding"] = placer.put(tensor, cfg.dtype)
+            params["embedding"] = placer.put(tensor, cfg.dtype, "embedding")
         elif name == "lm_head.weight":
-            params["lm_head"] = placer.put(tensor.T, cfg.dtype)
+            params["lm_head"] = placer.put(tensor.T, cfg.dtype, "lm_head")
         elif name == "model.norm.weight":
             params["final_norm"] = {"norm": placer.put(tensor, torch.float32)}
         else:

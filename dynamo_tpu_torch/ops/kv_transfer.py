@@ -15,6 +15,14 @@ cache keeps its address and the captured CUDA graphs (engine/graphs.py)
 stay valid.  `ids` are the cache's block ids, in payload order, with no
 padding (eager torch has no shape buckets to fill).
 
+On a tensor-parallel rank (parallel/mesh.py) the cache holds the rank's
+kv heads only, so `gather_universal` returns the rank's slab of the
+payload (the leader gathers the slabs into the logical blocks over the
+tensor group, parallel/mesh.py gather_slabs), and `inject_universal`
+takes a logical payload and writes the rank's kv heads of it (`heads`).
+MLA's latent cache is whole on every rank: its gather is the leader's
+copy and its inject writes the whole payload (`heads=None`).
+
 KVBM moves single blocks between the cache and host memory
 (`blocks_to_host` / `blocks_from_host`), each block its own tensor tuple
 in the universal per-block layout [L, bs, nkv, hd] (scales [L, bs, nkv]):
@@ -26,9 +34,11 @@ block's pinned tensor straight into a device staging buffer.
 from __future__ import annotations
 
 import contextlib
-from typing import List, Sequence, Tuple, Union
+from typing import List, Optional, Sequence, Tuple, Union
 
 import torch
+
+from ..parallel.mesh import payload_slab
 
 Ids = Union[torch.Tensor, Sequence[int]]
 
@@ -54,7 +64,8 @@ def gather_universal(kv: Tuple[torch.Tensor, ...],
     """Blocks `ids` of the cache `kv` ((k, v) or (k, v, k_scale,
     v_scale)) as contiguous universal-layout tensors: (kb, vb)
     [L, nb, bs, nkv, hd], plus (ksb, vsb) [L, nb, bs, nkv] for an int8
-    cache."""
+    cache; nkv the kv heads the cache holds (a tensor-parallel rank's
+    slab)."""
     idx = _ids(ids, kv[0].device)
     out = [t.index_select(2, idx).permute(0, 2, 3, 1, 4).contiguous()
            for t in kv[:2]]
@@ -66,17 +77,24 @@ def gather_universal(kv: Tuple[torch.Tensor, ...],
 def inject_universal(kv: Tuple[torch.Tensor, ...], kb: torch.Tensor,
                      vb: torch.Tensor, ids: Ids,
                      ksb: torch.Tensor = None,
-                     vsb: torch.Tensor = None) -> Tuple[torch.Tensor, ...]:
+                     vsb: torch.Tensor = None,
+                     heads: Optional[slice] = None
+                     ) -> Tuple[torch.Tensor, ...]:
     """Write universal-layout blocks into blocks `ids` of the cache `kv`,
     in place, and return it.  The payload is moved to the cache's device
     (through pinned memory from the host) and cast to its dtype; an int8
-    cache needs the scale planes ksb/vsb."""
+    cache needs the scale planes ksb/vsb.  `heads`: the payload's kv
+    heads this cache holds (a tensor-parallel rank's slab of a logical
+    payload); None writes every head."""
     if (len(kv) == 4) != (ksb is not None and vsb is not None):
         raise ValueError(
             f"a cache of {len(kv)} arrays needs "
             f"{'the' if len(kv) == 4 else 'no'} scale planes")
     dev = kv[0].device
     idx = _ids(ids, dev)
+    kb, vb, *scales = payload_slab(
+        (kb, vb) + ((ksb, vsb) if ksb is not None else ()), heads)
+    ksb, vsb = scales if scales else (None, None)
     for t, b in zip(kv, (kb, vb)):
         t.index_copy_(2, idx, _to(b, dev).to(t.dtype).permute(0, 3, 1, 2, 4))
     for t, b in zip(kv[2:], (ksb, vsb)):

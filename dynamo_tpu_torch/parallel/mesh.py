@@ -5,9 +5,10 @@ The counterpart of dynamo_tpu/parallel/mesh.py.  Axes, as there:
 
   dp  data parallel: replicas of the model, each with its own KV cache
       (every replica runs the same step stream, so they compute alike);
-  tp  tensor parallel: attention heads, the MLP's hidden width and the
-      vocabulary split over the ranks of one replica, the KV cache over
-      its kv heads (Megatron's layout);
+  tp  tensor parallel: attention heads, the MLP's hidden width, the
+      experts of a MoE layer and the vocabulary split over the ranks of
+      one replica, the KV cache over its kv heads (Megatron's layout;
+      MLA's latent cache, one head, is whole on every rank);
   sp  sequence parallel (the ring prefill): not ported, EngineConfig
       refuses sp > 1.
 
@@ -15,7 +16,12 @@ JAX runs a mesh as ONE program: GSPMD places the shards and inserts the
 collectives.  PyTorch has neither, so here every rank is a process with
 its own device, its own shard of the weights and cache, and process
 groups (torch.distributed) for the collectives the forward needs
-(models/llama.py) and for the leader's step stream (multihost.py).
+(models/llama.py, models/deepseek.py) and for the leader's step
+stream (multihost.py).  The stream's gather and inject steps make the
+cross-rank KV moves of disaggregation and the KVBM tiers: the ranks'
+kv-head slabs gathered into the leader's logical blocks over the tensor
+group (`gather_slabs`), and a rank's slab cut out of a logical payload
+(`payload_slab`).
 Rank r sits at mesh coordinates (dp, tp, sp) in the order of JAX's
 `reshape(dp, tp, sp)`: r = (d * tp + t) * sp + s.
 
@@ -204,18 +210,75 @@ def head_slabs(n_heads: int, n_kv_heads: int, rank: int,
 
 
 def shard_config(cfg, tp: int):
-    """The model config a rank runs: heads, kv heads and the MLP width
-    divided by tp (the vocabulary stays whole: the logits are gathered).
-    tp = 1 returns cfg itself.  Raises unless tp divides each."""
+    """The model config a rank runs, its local counts (the vocabulary
+    stays whole: the logits are gathered).  tp = 1 returns cfg itself.
+
+      * Llama, dense: heads, kv heads and the MLP width divided by tp;
+      * Llama, MoE: heads, kv heads and the experts divided by tp, each
+        expert's width whole (the stacks split on the expert axis);
+      * MLA: the heads, the experts and ffn_dim (the dense layers' MLP
+        and the shared experts' columns) divided by tp, the latent ranks
+        and each routed expert's width whole.
+
+    Raises unless tp divides each count it divides."""
     if tp == 1:
         return cfg
     import dataclasses
 
-    for name in ("n_heads", "n_kv_heads", "ffn_dim", "vocab_size"):
+    moe = getattr(cfg, "n_experts", 0) > 0
+    names = ["n_heads", "vocab_size"]
+    if hasattr(cfg, "n_kv_heads"):
+        names.append("n_kv_heads")
+    if moe:
+        names.append("n_experts")
+    if not moe or hasattr(cfg, "kv_lora_rank"):
+        names.append("ffn_dim")
+    for name in names:
         chunk_range(getattr(cfg, name), 0, tp, name)
-    return dataclasses.replace(cfg, n_heads=cfg.n_heads // tp,
-                               n_kv_heads=cfg.n_kv_heads // tp,
-                               ffn_dim=cfg.ffn_dim // tp)
+    local = {n: getattr(cfg, n) // tp for n in names if n != "vocab_size"}
+    if hasattr(cfg, "kv_lora_rank") and moe:
+        # a routed expert keeps its width: moe_ffn_dim 0 reads ffn_dim
+        local["moe_ffn_dim"] = cfg.moe_ffn_dim or cfg.ffn_dim
+        sf = cfg.n_shared_experts * local["moe_ffn_dim"]
+        chunk_range(sf, 0, tp, "the shared experts' width")
+    return dataclasses.replace(cfg, **local)
+
+
+def kv_heads_replicated(cfg) -> bool:
+    """True where every rank holds the whole cache (MLA's latent pair:
+    one head, replicated), False where a rank holds its kv heads."""
+    return not hasattr(cfg, "n_kv_heads")
+
+
+# ---------------------------------------------------------------------------
+# the cross-rank KV moves (KV payloads in the universal transfer layout,
+# ops/kv_transfer.py: [L, nb, bs, nkv, hd], scale planes [L, nb, bs, nkv])
+# ---------------------------------------------------------------------------
+
+# the kv-head axis of every universal payload array
+KV_HEAD_AXIS = 3
+
+
+def payload_slab(arrays, heads: Optional[slice]) -> tuple:
+    """A rank's slab of a logical payload: each array's kv heads `heads`,
+    contiguous (None: the whole payload, as a replicated cache takes
+    it)."""
+    if heads is None:
+        return tuple(arrays)
+    return tuple(a[(slice(None),) * KV_HEAD_AXIS + (heads,)].contiguous()
+                 for a in arrays)
+
+
+def gather_slabs(group: "TensorGroup", slab) -> Optional[tuple]:
+    """The leader's logical payload from every rank's slab (`slab`: one
+    rank's arrays in the universal layout, in payload order): each array
+    gathered to group rank 0 and concatenated over the kv heads in rank
+    order.  Every rank of the group calls this with its own slab; rank 0
+    gets the payload, the others None."""
+    parts = [group.gather(a) for a in slab]
+    if group.rank != 0:
+        return None
+    return tuple(torch.cat(p, dim=KV_HEAD_AXIS) for p in parts)
 
 
 # ---------------------------------------------------------------------------
@@ -240,7 +303,8 @@ class TensorGroup:
     """The collectives of a rank's tensor-parallel forward, over its
     tensor group: the sum after each row-parallel product, the
     vocab-parallel embedding lookup and the gather of the vocab-parallel
-    logits."""
+    logits; and the gather of the ranks' KV slabs to the leader
+    (`gather_slabs`)."""
 
     def __init__(self, backend: str, pg, rank: int, size: int):
         self.backend, self.pg, self.rank, self.size = backend, pg, rank, size
@@ -262,6 +326,19 @@ class TensorGroup:
         x = table[torch.where(mine, local, 0)].to(dtype)
         x = x * mine[..., None].to(dtype)
         return self.all_reduce(x.contiguous())
+
+    def gather(self, x: torch.Tensor) -> Optional[List[torch.Tensor]]:
+        """Every rank's x (one shape and dtype on all ranks) on group rank
+        0, in rank order; None on the others.  NCCL gathers x where it
+        lies; gloo gathers host copies (its gather of CUDA tensors varies
+        between torch builds), so rank 0 gets CPU tensors there."""
+        x = (x if self.backend == "nccl" else x.cpu()).contiguous()
+        opts = dist.GatherOptions()
+        opts.rootRank = 0
+        outs = ([[torch.empty_like(x) for _ in range(self.size)]]
+                if self.rank == 0 else [])
+        self.pg.gather(outs, [x], opts).wait()
+        return outs[0] if self.rank == 0 else None
 
     def gather_vocab(self, logits: torch.Tensor) -> torch.Tensor:
         """The full [..., V] logits from each rank's vocab slice [...,

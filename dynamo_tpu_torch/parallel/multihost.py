@@ -33,10 +33,20 @@ rank with a timeout and kills one that does not exit, so no process keeps
 the device.  A rank that dies mid-stream closes its sockets: the
 leader's next collective raises, its engine loop fails every stream.
 
+The cross-rank KV moves ride the stream as JAX's `gather` (descriptor
+`ids`) and `inject` (`kb`, `vb`, `ids`, plus `ksb`, `vsb` for an int8
+cache) kinds: a gather is a collective every rank of the leader's tensor
+group runs, its kv-head slabs gathered into the logical blocks on the
+leader (parallel/mesh.py gather_slabs), which alone consumes them (a
+disagg pull's chunk, a KVBM offload); an inject carries the whole
+logical payload (a pulled disagg chunk, a KVBM onboard), so followers
+need no tiers and no transport of their own, and each writes its slab.
+A bf16 payload crosses as its raw bits (`to_wire`/`from_wire`).
+
 What is left to a later step (ROADMAP.md): ranks across hosts (a
 launcher per host, the leader's worker gating the followers' identity),
-and the stream's other kinds (gather/inject, spec_verify, lora_write,
-decode_topk, embed).
+and the stream's other kinds (spec_verify, lora_write, decode_topk,
+decode_topk_wide, embed).
 """
 
 from __future__ import annotations
@@ -112,6 +122,29 @@ def _unpack(wire: Dict[str, dict]) -> Dict[str, np.ndarray]:
     return {k: np.frombuffer(d["b"], dtype=np.dtype(d["dtype"]))
             .reshape(d["shape"]).copy()
             for k, d in wire.items()}
+
+
+def to_wire(t) -> np.ndarray:
+    """A KV payload tensor (or array) as a host numpy array for a step's
+    descriptor.  numpy has no bfloat16 (the port does not import
+    ml_dtypes), so a bf16 tensor crosses as its raw bits, int16;
+    `from_wire` reads them back into the receiving cache's dtype."""
+    if isinstance(t, np.ndarray):
+        return t
+    t = t.detach()
+    if t.dtype == torch.bfloat16:
+        t = t.view(torch.int16)
+    return t.cpu().numpy()
+
+
+def from_wire(a: np.ndarray, dtype: torch.dtype) -> torch.Tensor:
+    """`to_wire`'s array as a CPU tensor: int16 bits into a bf16 cache
+    are the bf16 values; any other array is its own dtype (the inject
+    casts it to the cache's)."""
+    t = torch.from_numpy(np.ascontiguousarray(a))
+    if dtype == torch.bfloat16 and a.dtype == np.int16:
+        return t.view(torch.bfloat16)
+    return t
 
 
 def encode_step(seq: int, kind: str, arrays: Dict[str, np.ndarray]) -> bytes:

@@ -214,18 +214,35 @@ async def test_preemption_byte_identical_and_equal_to_jax():
 async def test_drain_abort_mid_overlap():
     """drain_abort with unread bursts and deferred first tokens in
     flight: every stream ends with the migratable marker, and what was
-    emitted is a prefix of the fault-free stream."""
+    emitted is a prefix of the fault-free stream.  Every assertion and
+    bounded wait names what it expected, what it saw and the state that
+    never arrived (the slots, each stream's last frame and finish
+    reason)."""
     ref = await _staggered(torch_engine(), False, "ref", n_tokens=48,
                            stagger_s=0.02)
     eng = torch_engine()
     streams = {i: [] for i in range(len(PROMPTS))}
     errors = {}
+    last_frame = {i: None for i in streams}
     last = len(PROMPTS) - 1
+
+    def state() -> str:
+        slots = [None if s is None else
+                 (s.request.request_id, s.finished, s.cancel_requested)
+                 for s in eng._slots]
+        frames = {i: None if f is None else
+                  (f.token_ids, f.finish_reason, f.error)
+                  for i, f in last_frame.items()}
+        return (f"slots {slots}; in flight {len(eng._inflight)}; "
+                f"draining {eng.draining}; streams' tokens "
+                f"{ {i: len(t) for i, t in streams.items()} }; last "
+                f"frames (tokens, finish reason, error) {frames}")
 
     async def one(i):
         await asyncio.sleep(i * 0.02)
         async for out in eng.generate(_req(False, PROMPTS[i], f"d-r{i}",
                                            48)):
+            last_frame[i] = out
             if out.finish_reason == "error":
                 errors[i] = out.error
                 return
@@ -237,16 +254,31 @@ async def test_drain_abort_mid_overlap():
                 eng.drain_abort()
 
     try:
-        await asyncio.wait_for(asyncio.gather(*[one(i) for i in streams]),
-                               timeout=120)
-        assert errors and all(DRAIN_ABORT in e for e in errors.values())
+        try:
+            await asyncio.wait_for(
+                asyncio.gather(*[one(i) for i in streams]), timeout=120)
+        except asyncio.TimeoutError:
+            pytest.fail("the streams did not all end within 120 s of the "
+                        f"drain abort; {state()}")
+        assert errors, (f"expected a drain abort, every stream ended "
+                        f"without an error; {state()}")
+        assert all(DRAIN_ABORT in e for e in errors.values()), (
+            f"expected every error to carry {DRAIN_ABORT!r}, saw {errors}; "
+            f"{state()}")
         for i, toks in streams.items():
-            assert toks == ref[i][:len(toks)]
+            assert toks == ref[i][:len(toks)], (
+                f"stream {i} emitted {toks}, not a prefix of the fault-free "
+                f"{ref[i]}; {state()}")
         for _ in range(600):
             if all(s is None for s in eng._slots):
                 break
             await asyncio.sleep(0.02)
-        assert all(s is None for s in eng._slots) and not eng._inflight
+        assert all(s is None for s in eng._slots), (
+            f"slots not released within 12 s of the streams' end; "
+            f"{state()}")
+        assert not eng._inflight, (
+            f"bursts still unread after the slots were released; "
+            f"{state()}")
     finally:
         await eng.close()
 

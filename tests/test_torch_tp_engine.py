@@ -15,9 +15,10 @@ collective, so a rank that never joins or hangs fails its test by name.
   process outlives close.
 * A tp=2 TorchEngineWorker, warmed up through the step stream, serves
   over the port's runtime: its MDC's tp/dp equal the JAX worker's for
-  the same config, its stream equals tp=1's, and the request features a
-  mesh does not serve yet (guided decoding, a disaggregated hop, embed)
-  are refused by name.
+  the same config, its stream equals tp=1's, a disaggregated hop is
+  parked and its blocks gather into the logical payload, and the request
+  features a mesh does not serve yet (guided decoding, embed) are
+  refused by name.
 * A follower killed mid-service makes the leader's streams fail within
   the mesh timeout, and close still leaves no rank behind.
 """
@@ -177,10 +178,17 @@ async def test_tp_worker_serves_and_refuses_what_a_mesh_does_not():
         _, last = await _collect(w.engine, guided)
         assert last.finish_reason == "error"
         assert "guided decoding is not ported" in last.error
+        # a disaggregated hop is served: parked, one frame back, and its
+        # blocks gathered from both ranks into the logical payload
         hop = _req(False, PROMPT, "d", 3)
         hop.annotations = [DISAGG_ANNOTATION]
-        _, last = await _collect(w.engine, hop)
-        assert "disaggregated serving is not ported" in last.error
+        toks, last = await _collect(w.engine, hop)
+        assert last.finish_reason == "stop" and toks == one[0][:1]
+        assert last.kv_transfer_params["prompt_len"] == len(PROMPT)
+        nb = -(-len(PROMPT) // COMMON["block_size"])
+        arrs = await w.engine.extract_parked_chunk("d", 0, nb)
+        assert [a.shape[3] for a in arrs] == [TINY.n_kv_heads] * 2
+        await w.engine.release_parked("d")
         assert not w.engine.supports_embedding
         with pytest.raises(NotImplementedError, match="embed is not ported"):
             await w.engine.embed([1, 2, 3])

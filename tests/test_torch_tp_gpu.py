@@ -1,7 +1,13 @@
 """K1 and K3 at a tp=2 rank's slab on a card (ops/paged_attention.py
 paged_attention_decode_tp, ops/packed_prefill.py
-packed_prefill_attention_tp), and the gloo mesh's refusal of CUDA
-graphs.
+packed_prefill_attention_tp), the gloo mesh's refusal of CUDA graphs,
+and the cross-rank KV moves on cuda:0 (parallel/mesh.py gather_slabs,
+ops/kv_transfer.py inject_universal's `heads`): two ranks as threads
+over a gloo group, their slabs gathered into the logical blocks equal
+to the plain torch gather of the whole cache, and a logical payload
+injected per rank equal to the plain slice of it, for a bf16 cache, an
+int8 cache with its scale planes and MLA's latent pair (whole on every
+rank).
 
 This file imports neither jax nor the JAX package, so it also runs on a
 GPU host without them:
@@ -16,12 +22,20 @@ chip_smoke.py holds the kernels to, in both modes.
 """
 
 import dataclasses
+import datetime
+import threading
 
 import pytest
 import torch
+import torch.distributed as dist
 
 from dynamo_tpu_torch.engine import EngineConfig, TorchEngine
 from dynamo_tpu_torch.models.llama import PRESETS
+from dynamo_tpu_torch.ops.kv_transfer import (
+    gather_universal,
+    inject_universal,
+)
+from dynamo_tpu_torch.parallel import mesh
 from dynamo_tpu_torch.ops.packed_prefill import (
     packed_prefill_attention_ref,
     packed_prefill_attention_tp,
@@ -151,3 +165,63 @@ def test_gloo_mesh_refuses_cuda_graphs_on_gpu():
                        max_blocks_per_seq=4, max_num_seqs=2)
     with pytest.raises(ValueError, match="cuda_graphs=False"):
         TorchEngine(cfg, devices=["cuda:0", "cuda:0"])
+
+
+def _kv_case(kind: str, gen):
+    """A whole cache on cuda:0 at llama-8b's kv heads (or MLA's latent
+    pair at deepseek-v2-lite's widths), 2 layers, 9 blocks of 128."""
+    nb, bs = 9, 128
+    if kind == "mla":
+        return tuple(torch.randn((2, 1, nb, bs, d), generator=gen,
+                                 device="cuda").to(torch.bfloat16)
+                     for d in (512, 64))
+    kc, vc, ks, vs = _cache(gen, nb, bs, kind == "int8")
+    return (kc, vc) if ks is None else (kc, vc, ks, vs)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", ["bf16", "int8", "mla"])
+def test_rank_gather_and_inject_equal_the_plain_moves_on_gpu(kind):
+    _cuda()
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    whole = _kv_case(kind, gen)
+    ids = [7, 2, 5, 1]
+    want = gather_universal(whole, ids)
+    payload = [torch.randn(a.shape, generator=gen, device="cuda")
+               .to(a.dtype) if a.is_floating_point() else
+               torch.randint(-127, 128, a.shape, generator=gen,
+                             device="cuda").to(a.dtype) for a in want]
+    replicated = kind == "mla"
+    store = dist.HashStore()
+    out, errs = [None] * TP, []
+
+    def rank(r):
+        try:
+            pg = dist.ProcessGroupGloo(dist.PrefixStore("kv", store), r, TP,
+                                       datetime.timedelta(seconds=60))
+            group = mesh.TensorGroup("gloo", pg, r, TP)
+            heads = (None if replicated else
+                     mesh.kv_cache_spec(r, TP, whole[0].shape[1]))
+            kv = tuple((t if heads is None else t[:, heads]).clone()
+                       for t in whole)
+            slab = gather_universal(kv, ids)
+            got = slab if replicated else mesh.gather_slabs(group, slab)
+            inject_universal(kv, *payload[:2], ids, *payload[2:],
+                             heads=heads)
+            torch.cuda.synchronize()
+            out[r] = (got, kv, heads)
+        except BaseException as e:  # re-raised on the test's thread
+            errs.append(e)
+
+    threads = [threading.Thread(target=rank, args=(r,)) for r in range(TP)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(120)
+    assert not errs and not any(t.is_alive() for t in threads), errs
+    for got, w in zip(out[0][0], want):
+        assert got.shape == w.shape and torch.equal(got.cuda(), w)
+    for _, kv, heads in out:
+        for b, p in zip(gather_universal(kv, ids),
+                        mesh.payload_slab(payload, heads)):
+            assert torch.equal(b, p)
