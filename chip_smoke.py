@@ -30,6 +30,9 @@
                                           # two ranks on one card
     python3 chip_smoke.py --tp-disagg     # disaggregation and KVBM on
                                           # two ranks on one card
+    python3 chip_smoke.py --tp-features   # speculation, LoRA, the fused
+                                          # epilogue, guided and embed on
+                                          # two ranks on one card
 
 Builds the port's CUDA kernels from csrc/ (three nvcc processes started
 together), holds each entry point (K1 and K3, each in its bf16 and its
@@ -401,6 +404,23 @@ repeat after the churn onboards every full block of A from G2,
 bit-equal on both ranks' kv heads to A's blocks gathered after a G1
 hit, and streams the G1 hit's tokens.  `tp_disagg_rank1_launches` sums
 rank 1's launches of those tp=2 sides.
+
+The tp features phase (last, llama-8b at TP_LAYERS with one round of
+turns; alone with --tp-features, all 32 layers and two): a tp=2 engine
+with n-gram speculation, two synthesized rank-16 adapters
+(lora_max_adapters 2) and the fused sampling epilogue, beside a tp=2
+engine of the same config with the epilogue off, both two ranks on the
+card over gloo, eager.  The fused engine's greedy streams equal the off
+engine's prompt by prompt (a parting only at a near-tie of the off
+engine's own logits), in turns with decode tokens/s, TTFT and the n-gram
+acceptance; the adapters' streams differ from the base model's and a
+mixed batch equals its requests served alone; a guided request's output
+parses (the guided steps' host time); embed's latency, and its vector's
+cosine to a tp=1 engine's >= MIN_COSINE.  Every verify dispatch launches
+K3 once a layer on rank 0's slab, each engine's rank 1 launches K1 and
+K3, and rank 0's launches equal the ranks 1's: `tp_features_launches`
+is [rank 0, rank 1] of both engines.  The kernel checks also hold K3's
+32-token verify stream at the slab (`tp2_slab["verify"]`).
 
 Bounds use the H100 SXM data sheet (3.35 TB/s HBM3, 989 TFLOP/s dense
 bf16); a card run below its 700 W limit is slower, so its limit is
@@ -9123,26 +9143,441 @@ def check_tp_disagg(device, card: str, n_layers: int,
     return out
 
 
+# ---------------------------------------------------------------------------
+# speculation, LoRA, the fused epilogue, guided decoding and embed on two
+# ranks of one card
+# ---------------------------------------------------------------------------
+
+# greedy tokens a request of the tp features phase (the n-gram table
+# probes a request at its first token, then 8 and 24 tokens on after a
+# miss); the guided request's budget (the document is closed canonically
+# when it runs out)
+TPF_NEW = 24
+TPF_GUIDED_NEW = 16
+# the n-gram turn: two prompts that quote their own first token
+# (_tpf_quoting), this many tokens each; a prompt grows by at most
+# TPF_QUOTE_TRIES quotes
+TPF_SPEC_NEW = 64
+TPF_QUOTE_TRIES = 3
+# the adapters: (name, rank, dtype, seed), rank 16 each
+TPF_ADAPTERS = (("tpf-a", 16, "BF16", 11), ("tpf-b", 16, "F32", 12))
+# embed calls timed after a first one, on a TPF_EMBED_TOKENS-token input
+TPF_EMBED_CALLS = 3
+TPF_EMBED_TOKENS = 100
+
+
+def _tpf_requests(vocab: int, loras=(None,) * 4) -> list:
+    """Four greedy requests, TPF_NEW tokens each: two repetition prompts
+    (a 64-token pattern four times over) and two random ones (300 and
+    37 tokens); request i on adapter loras[i] (None: the base model).
+    The n-gram table proposes where a stream repeats itself, as these
+    random-weight streams do now and then."""
+    from dynamo_tpu_torch.protocols import (
+        PreprocessedRequest,
+        SamplingOptions,
+        StopConditions,
+    )
+
+    rng = np.random.default_rng(23)
+    prompts = [rng.integers(0, vocab, 64).tolist() * 4 for _ in range(2)]
+    prompts += [rng.integers(0, vocab, n).tolist() for n in (300, 37)]
+    return [PreprocessedRequest(
+        token_ids=p, request_id=f"tpf-{i}-{lo}", lora_name=lo,
+        sampling=SamplingOptions(temperature=0.0),
+        stop=StopConditions(max_tokens=TPF_NEW, ignore_eos=True))
+        for i, (p, lo) in enumerate(zip(prompts, loras))]
+
+
+async def _tpf_quoting(eng, req) -> list:
+    """A prompt on which the n-gram table proposes at its first probe:
+    req's prompt P, then while the engine's first token for the prompt
+    does not occur in it, that token and P again appended (the prompt
+    still ends as P does, so where the next token leans on the last
+    ones it stays the quoted one), at most TPF_QUOTE_TRIES times.  Each
+    try is a one-token request."""
+    toks = list(req.token_ids)
+    for i in range(TPF_QUOTE_TRIES + 1):
+        one = dataclasses.replace(
+            req, token_ids=toks, request_id=f"{req.request_id}-quote{i}",
+            stop=dataclasses.replace(req.stop, max_tokens=1))
+        first = (await _serve(eng, [one]))[0][0][0]
+        if first in toks or i == TPF_QUOTE_TRIES:
+            return toks
+        toks = toks + [first] + list(req.token_ids)
+
+
+async def _tpf_gap(eng, req, stream, j: int) -> tuple:
+    """The tp=2 engine's own logits for token j of `stream` (on req's
+    adapter): the prompt and stream[:j] prefilled as one request through
+    the engine (every rank), the first-token logits of its last prefill
+    dispatch, gathered.  Returns (their top-2 gap, one bf16 ulp of the
+    top logit)."""
+    one = dataclasses.replace(
+        req, token_ids=list(req.token_ids) + list(stream[:j]),
+        request_id=f"{req.request_id}-gap{j}",
+        stop=dataclasses.replace(req.stop, max_tokens=1))
+    await _serve(eng, [one])
+    T = next(r["bucket"] for r in reversed(eng.fpm)
+             if r["kind"] == "prefill")
+    top2 = torch.topk(eng.prefill_graphs.logits[T][0], 2).values
+    return (top2[0] - top2[1]).item(), _ulp_bf16(top2[0].item())
+
+
+async def _tpf_same(what: str, eng, got, ref, reqs) -> list:
+    """Exit unless each stream of `got` equals `ref`'s, except a parting
+    at a near-tie of the tp=2 engine's own logits there (_tpf_gap: the
+    top-2 gap within one bf16 ulp of the top logit, the rule the
+    single-device phases hold their streams to).  Returns the
+    partings."""
+    parted = []
+    for g, r, req in zip(got, ref, reqs):
+        if g[0] == r[0]:
+            continue
+        j = next((n for n, (a, b) in enumerate(zip(g[0], r[0])) if a != b),
+                 min(len(g[0]), len(r[0])))
+        if j == 0:
+            raise SystemExit(f"{what}: {req.request_id}'s first token "
+                             "differs")
+        gap, ulp = await _tpf_gap(eng, req, r[0], j)
+        parted.append((req.request_id, j, gap, ulp))
+        log(f"{what}: {req.request_id} parts at token {j}: top-2 gap "
+            f"{gap:.6f}, one bf16 ulp {ulp:.6f}")
+        if gap > ulp:
+            raise SystemExit(f"{what}: {req.request_id} parts at token {j} "
+                             f"where the top-2 gap {gap} exceeds a bf16 ulp")
+    return parted
+
+
+def check_tp_features(device, card: str, n_layers: int,
+                      rounds: int = 1) -> dict:
+    """Speculative decoding (n-gram), LoRA (two synthesized rank-16
+    adapters, lora_max_adapters 2), the fused sampling epilogue, guided
+    decoding and embed on one tp=2 engine at llama-8b width and
+    `n_layers` deep (random bf16 weights from seed 0, two ranks on
+    `device` over gloo, eager), with a tp=2 engine of the same config
+    but the epilogue off beside it.  Every program of either engine
+    rides the step stream; the draft-free n-gram proposer, acceptance,
+    the adapter registry and the guided choice are the leader's.
+
+    * The epilogue: the four greedy requests (_tpf_requests) on the off
+      and the fused engine in turns (off, fused, fused, off, `rounds`
+      times; one round of off, fused with rounds = 0): the fused streams
+      equal the off ones prompt by prompt (a parting only at a near-tie
+      of the off engine's own logits, _tpf_same), and each path repeats
+      its streams across its turns.  Decode tokens/s, TTFT and the
+      n-gram acceptance of each turn; then the n-gram turn on the fused
+      engine: the two repetition prompts made to quote their own first
+      token (_tpf_quoting), TPF_SPEC_NEW tokens each.
+    * LoRA on the fused engine: the requests on the base model and as a
+      mixed batch (base, tpf-a, tpf-b, tpf-a) in turns (base, mixed,
+      ...); each adapter stream differs from the base stream of its
+      prompt, and the mixed batch's streams equal the same requests
+      served apart: the base lane the base batch's, each adapter's
+      request alone (a near-tie aside).
+    * Guided: one greedy guided request (the LoRA phase's schema) on the
+      fused engine: the output parses as a schema-valid document; the
+      guided steps' host time (each _guided_step that dispatched).
+    * Embed: TPF_EMBED_CALLS timed calls after a first one; the vector's
+      cosine to a tp=1 engine's (the same weights) must be >= MIN_COSINE.
+    * Every verify dispatch on rank 0 launches K3 once a layer at its
+      verify stream on the rank's slab; each engine's rank 1 launches K1
+      and K3, and rank 0's launches (both engines) equal the sum of the
+      ranks 1's; after close no rank process is left.
+
+    Returns the measurements and `launches` {"rank0": ..., "rank1": ...}
+    (rank 1: both engines' followers)."""
+    import tempfile
+
+    from dynamo_tpu_torch.engine import TorchEngine
+    from dynamo_tpu_torch.frontend.tokenizer import MockTokenizer
+    from dynamo_tpu_torch.guided import JsonSchemaGuide
+    from dynamo_tpu_torch.models.llama import PRESETS
+    from dynamo_tpu_torch.ops import launch_counts
+
+    t_phase = time.perf_counter()
+    mc = dataclasses.replace(PRESETS["llama-8b"], n_layers=n_layers)
+    root = tempfile.mkdtemp(prefix="tp-lora-")
+    for name, rank, dtype, seed in TPF_ADAPTERS:
+        write_peft_adapter(root, name, mc, rank, dtype, seed)
+    base = dataclasses.replace(
+        _engine_config("bf16"), model_config=mc, tp=2, num_blocks=256,
+        spec_decode="ngram", lora_max_adapters=2, lora_rank=16,
+        lora_dir=root)
+    wrappers = _kernels_of("bf16")
+    kernels = {fn.__name__ for fn in wrappers}
+    k3_name = wrappers[1].__name__ if wrappers else None
+    names = [a[0] for a in TPF_ADAPTERS]
+    plain = _tpf_requests(mc.vocab_size)
+    mixed = _tpf_requests(mc.vocab_size, (None, names[0], names[1],
+                                          names[0]))
+    paths = (["off", "fused", "fused", "off"] * rounds if rounds
+             else ["off", "fused"])
+
+    async def run() -> dict:
+        out = {"layers": n_layers}
+        life = launch_counts()
+        t0 = time.perf_counter()
+
+        def build(path):
+            return TorchEngine(
+                dataclasses.replace(base, sampling_epilogue=path),
+                device=device, devices=[device, device], cuda_graphs=False,
+                mesh_timeout_s=TP_TIMEOUT_S)
+
+        # both meshes at once: each waits ~12 s for its rank to spawn
+        engines = dict(zip(("off", "fused"), await asyncio.gather(
+            asyncio.to_thread(build, "off"),
+            asyncio.to_thread(build, "fused"))))
+        feat, off = engines["fused"], engines["off"]
+        out["build_s"] = time.perf_counter() - t0
+        log(f"tp features: two tp=2 engines (epilogue off and fused; "
+            f"n-gram speculation, {len(names)} adapter slots of rank 16) "
+            f"on {[str(device)] * 2} over {feat.mesh.backend}, up in "
+            f"{out['build_s']:.1f} s; a rank's bank "
+            f"{sum(t.numel() * t.element_size() for t in feat.lora_bank.values()) / 2**20:.0f} MiB")
+        if not (feat.graphs.epilogue and feat.spec_enabled
+                and feat.lora_bank is not None
+                and feat.mesh.backend == "gloo"):
+            raise SystemExit("tp features: the engine does not run every "
+                             "feature on the mesh")
+        verify = {"dispatches": 0}
+        dispatch = feat._dispatch_verify
+
+        def counted(a):
+            verify["dispatches"] += 1
+            with _launches_into(verify):
+                return dispatch(a)
+
+        feat._dispatch_verify = counted
+        try:
+            # the epilogue, in turns
+            turns, streams = [], {"off": [], "fused": []}
+            for path in paths:
+                eng = engines[path]
+                m0 = dict(eng.metrics)
+                res = await _serve(eng, plain)
+                await eng.clear_kv_blocks()
+                bad = [r[1] for r in res if r[1] != "length"]
+                if bad or any(len(r[0]) != TPF_NEW for r in res):
+                    raise SystemExit(f"tp features {path}: finishes {bad}")
+                n, secs = _decode_rate(res)
+                prop = eng.metrics.get("spec_proposed", 0) - m0.get(
+                    "spec_proposed", 0)
+                acc = eng.metrics.get("spec_accepted", 0) - m0.get(
+                    "spec_accepted", 0)
+                turns.append({"path": path, "decode_tok_s": n / secs,
+                              "ttft_s": sorted(r[2] for r in res),
+                              "spec_proposed": prop, "spec_accepted": acc})
+                streams[path].append(res)
+                log(f"tp features turn {len(turns)} ({path}, {card}): "
+                    f"decode {n / secs:.3f} tokens/s, TTFT "
+                    f"{min(r[2] for r in res):.3f}-"
+                    f"{max(r[2] for r in res):.3f} s, n-gram accepted "
+                    f"{acc} of {prop}")
+            for path, runs in streams.items():
+                if any([r[0] for r in x] != [r[0] for r in runs[0]]
+                       for x in runs):
+                    raise SystemExit(f"tp features: the {path} streams "
+                                     "differ between turns")
+            out["turns"] = turns
+            # the n-gram turn on the fused engine
+            reps = [dataclasses.replace(
+                r, request_id=r.request_id + "-spec",
+                token_ids=await _tpf_quoting(feat, r),
+                stop=dataclasses.replace(r.stop, max_tokens=TPF_SPEC_NEW))
+                for r in plain[:2]]
+            await feat.clear_kv_blocks()
+            m0 = dict(feat.metrics)
+            res = await _serve(feat, reps)
+            await feat.clear_kv_blocks()
+            n, secs = _decode_rate(res)
+            spec = {k: feat.metrics.get(k, 0) - m0.get(k, 0)
+                    for k in ("spec_steps", "spec_proposed",
+                              "spec_accepted", "decode_tokens")}
+            out["spec_turn"] = {"decode_tok_s": n / secs, **spec}
+            log(f"tp features, n-gram turn ({card}): two prompts quoting "
+                f"their first token ({[len(r.token_ids) for r in reps]} "
+                f"tokens), {TPF_SPEC_NEW} tokens each: decode "
+                f"{n / secs:.3f} tokens/s, {spec}")
+            out["epilogue_parted"] = await _tpf_same(
+                "tp features, fused against off", off, streams["fused"][0],
+                streams["off"][0], plain)
+            log(f"tp features: fused greedy streams equal to off for "
+                f"{len(plain) - len(out['epilogue_parted'])} of "
+                f"{len(plain)} prompts; partings "
+                f"{out['epilogue_parted']}")
+            # LoRA on the fused engine
+            lturns, got = [], {}
+            for which in (["base", "mixed"] * max(rounds, 1)):
+                reqs = plain if which == "base" else mixed
+                res = await _serve(feat, reqs)
+                await feat.clear_kv_blocks()
+                n, secs = _decode_rate(res)
+                lturns.append({"batch": which, "decode_tok_s": n / secs})
+                got.setdefault(which, res)
+                log(f"tp features, lora turn {which} ({card}): decode "
+                    f"{n / secs:.3f} tokens/s")
+            out["lora_turns"] = lturns
+            base_res, mixed_res = got["base"], got["mixed"]
+            for i, req in enumerate(mixed):
+                if req.lora_name and mixed_res[i][0] == base_res[i][0]:
+                    raise SystemExit(f"tp features: {req.request_id}'s "
+                                     "stream equals the base model's")
+            # apart: the base lane in the base batch, each adapter alone
+            apart = [base_res[0]] + [(await _serve(feat, [r]))[0]
+                                     for r in mixed[1:3]]
+            out["lora_parted"] = await _tpf_same(
+                "tp features, mixed batch against apart", feat,
+                mixed_res[:3], apart, mixed[:3])
+            out["lora_slots"] = dict(feat._lora_slots)
+            log(f"tp features: adapter slots {out['lora_slots']}; the "
+                f"mixed batch equals the requests alone, partings "
+                f"{out['lora_parted']}")
+            # guided
+            codec = MockTokenizer(mc.vocab_size)
+            greq = dataclasses.replace(
+                plain[3], request_id="tpf-guided",
+                sampling=dataclasses.replace(plain[3].sampling,
+                                             guided_json=GUIDED_SCHEMA),
+                stop=dataclasses.replace(plain[3].stop,
+                                         max_tokens=TPF_GUIDED_NEW,
+                                         ignore_eos=False))
+            host_s, step = [], feat._guided_step
+            topm, dispatch_topm = [], feat._dispatch_guided
+
+            def counted_topm(a, m):
+                topm.append(m)
+                return dispatch_topm(a, m)
+
+            def timed_step():
+                # the steps that dispatched a top-M program
+                n, t = len(topm), time.perf_counter()
+                step()
+                if len(topm) > n:
+                    host_s.append(time.perf_counter() - t)
+
+            feat._guided_step = timed_step
+            feat._dispatch_guided = counted_topm
+            try:
+                t1 = time.perf_counter()
+                (gtoks, gfinish, _, _), = await _serve(feat, [greq])
+                gwall = time.perf_counter() - t1
+                # a scheduler op runs between steps: the step that ended
+                # the stream has returned (and been timed)
+                await feat._call_on_scheduler(lambda: None)
+            finally:
+                del feat._guided_step, feat._dispatch_guided
+            text = codec.decode(gtoks)
+            if gfinish != "stop" or not JsonSchemaGuide(
+                    GUIDED_SCHEMA).done(text.strip()):
+                raise SystemExit(f"tp features: guided output {text!r} "
+                                 f"({gfinish}) is not a schema-valid "
+                                 "document")
+            json.loads(text)
+            out["guided"] = {
+                "text": text, "tokens": len(gtoks), "wall_s": gwall,
+                "step_host_ms": float(np.median(host_s)) * 1e3,
+                "steps": len(host_s), "top_m": topm,
+                "forced_closes": feat.metrics.get("guided_forced_closes",
+                                                  0)}
+            log(f"tp features, guided ({card}): {out['guided']}")
+            # embed
+            etoks = plain[2].token_ids[:TPF_EMBED_TOKENS]
+            vec = await feat.embed(etoks)
+            ems = []
+            for _ in range(TPF_EMBED_CALLS):
+                t1 = time.perf_counter()
+                again = await feat.embed(etoks)
+                ems.append((time.perf_counter() - t1) * 1e3)
+            if not np.array_equal(again, vec):
+                raise SystemExit("tp features: two embed calls differ")
+            out["embed_ms"] = float(np.median(ems))
+            out["verify"] = dict(verify)
+        finally:
+            feat.__dict__.pop("_dispatch_verify", None)
+            for eng in engines.values():
+                await eng.close()
+        leader = {k: v - life[k] for k, v in launch_counts().items()}
+        follower = {k: sum(e.rank_launches.get(1, {}).get(k, 0)
+                           for e in engines.values()) for k in leader}
+        out["launches"] = {"rank0": leader, "rank1": follower}
+        log(f"tp features: kernel launches by rank (both engines): "
+            f"{out['launches']}; verify dispatches on rank 0 "
+            f"{verify['dispatches']}, K3 launches in them "
+            f"{verify.get(k3_name, 0)}")
+        for name, eng in engines.items():
+            r1 = eng.rank_launches.get(1, {})
+            if not all(r1.get(k, 0) > 0 for k in kernels):
+                raise SystemExit(f"tp features: the {name} engine's rank 1 "
+                                 f"launched {r1}, not every one of "
+                                 f"{kernels}")
+        if leader != follower:
+            raise SystemExit(f"tp features: the ranks launched different "
+                             f"kernels {out['launches']}")
+        if not verify["dispatches"] or k3_name is not None and verify.get(
+                k3_name, 0) != n_layers * verify["dispatches"]:
+            raise SystemExit(f"tp features: {verify['dispatches']} verify "
+                             f"dispatches launched K3 "
+                             f"{verify.get(k3_name, 0)} times")
+        del feat, off, engines
+        gc.collect()
+        torch.cuda.empty_cache()
+        left = _tp_ranks_left()
+        if left:
+            raise SystemExit(f"tp features: ranks {left} left after close")
+        # the embedding's reference: a tp=1 engine on the same weights
+        e1 = TorchEngine(dataclasses.replace(
+            _engine_config("bf16"), model_config=mc, num_blocks=8),
+            device=device)
+        try:
+            ref = await e1.embed(etoks)
+        finally:
+            await e1.close()
+            _free_engine(e1)
+        out["embed_cosine"] = float(np.dot(ref, vec) / (
+            np.linalg.norm(ref) * np.linalg.norm(vec)))
+        log(f"tp features, embed ({card}): {out['embed_ms']:.2f} ms a "
+            f"{len(etoks)}-token call at tp=2 (median of "
+            f"{TPF_EMBED_CALLS}); cosine to tp=1's "
+            f"{out['embed_cosine']:.6f}")
+        if not out["embed_cosine"] >= MIN_COSINE:
+            raise SystemExit(f"tp features: embed cosine "
+                             f"{out['embed_cosine']} < {MIN_COSINE}")
+        return out
+
+    out = asyncio.run(run())
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"tp features phase ({n_layers} layers) done in "
+        f"{out['seconds']:.1f} s ({card})")
+    return out
+
+
 def tp_slab_kernels(cfg, device) -> list:
-    """K1 (B = 8) and K3 (T = 2048), each mode, at a tp=2 rank's slab of
-    cfg (its heads and kv heads halved), held to the plain versions with
-    the planted faults and timed, as at the whole model's shapes."""
+    """K1 (B = 8) and K3 (T = 2048, and the 32-token verify stream of a
+    speculative round), each mode, at a tp=2 rank's slab of cfg (its
+    heads and kv heads halved), held to the plain versions with the
+    planted faults and timed, as at the whole model's shapes."""
     from dynamo_tpu_torch.parallel.mesh import shard_config
 
     slab = shard_config(cfg, 2)
     log(f"tp=2 slab shapes: nh {slab.n_heads}, nkv {slab.n_kv_heads}, "
         f"group {slab.n_heads // slab.n_kv_heads}")
+    packed = (PACKED_CASES[0], PACKED_CASES[-1])
     return [check_decode_kernel(slab, device, cases=DECODE_CASES[:1]),
-            check_prefill_kernel(slab, device, cases=PACKED_CASES[:1]),
+            check_prefill_kernel(slab, device, cases=packed),
             check_decode_kernel(slab, device, int8=True,
                                 cases=DECODE_CASES[:1]),
-            check_prefill_kernel(slab, device, int8=True,
-                                 cases=PACKED_CASES[:1])]
+            check_prefill_kernel(slab, device, int8=True, cases=packed)]
 
 
 def _slab_entry(e: dict) -> dict:
-    return {k: e[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
-                              "library_ms", "max_abs_err", "max_rel_err")}
+    """A slab check's entry: its first case's numbers, and K3's verify
+    stream's under "verify"."""
+    out = {k: e[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                             "library_ms", "max_abs_err", "max_rel_err")}
+    if VERIFY_CASE in e.get("cases", {}):
+        out["verify"] = e["cases"][VERIFY_CASE]
+    return out
 
 
 def load_checkout(path: str):
@@ -9422,6 +9857,18 @@ def main() -> int:
         print(json.dumps({"tp_disagg": out}, default=str), flush=True)
         print(card, flush=True)
         return 0
+    if sys.argv[1:] == ["--tp-features"]:
+        # python3 chip_smoke.py --tp-features: speculation, LoRA, the
+        # fused epilogue, guided decoding and embed on two ranks of one
+        # card, llama-8b at full depth, and K1/K3 at a rank's slab
+        build_kernels()
+        slab = tp_slab_kernels(cfg, device)
+        out = check_tp_features(device, card, cfg.n_layers, rounds=2)
+        print(json.dumps({"tp_features": out, "slab": [
+            {"name": e["name"], **_slab_entry(e)} for e in slab]},
+            default=str), flush=True)
+        print(card, flush=True)
+        return 0
     if sys.argv[1:] == ["--worker-ab"]:
         # python3 chip_smoke.py --worker-ab: the engine directly against
         # the engine behind the worker, in turns
@@ -9536,6 +9983,10 @@ def main() -> int:
     torch.cuda.empty_cache()
     tpd = check_tp_disagg(device, card, TP_LAYERS, int8=False)
     log(f"tp disagg phase done at {time.perf_counter() - t_start:.1f} s")
+    gc.collect()
+    torch.cuda.empty_cache()
+    tpx = check_tp_features(device, card, TP_LAYERS, rounds=0)
+    log(f"tp features phase done at {time.perf_counter() - t_start:.1f} s")
     # rank 1's launches on the tp=2 side of every disagg hop and of the
     # KVBM engine
     tpd_rank1 = {}
@@ -9573,6 +10024,10 @@ def main() -> int:
             tpf["mixtral_dense"]["launches"][r].get(k["name"], 0)
             for r in ("rank0", "rank1")]
         k["tp_disagg_rank1_launches"] = tpd_rank1.get(k["name"], 0)
+        # speculation, LoRA, fused, guided and embed at tp=2, rank 0 /
+        # rank 1 (both engines of the phase)
+        k["tp_features_launches"] = [
+            tpx["launches"][r].get(k["name"], 0) for r in ("rank0", "rank1")]
     for k in dma:  # the microbench is on no serving path
         k["disagg_prefill_launches"] = k["disagg_decode_launches"] = 0
         k["disagg_ipc_prefill_launches"] = k["disagg_ipc_decode_launches"] = 0
@@ -9581,6 +10036,7 @@ def main() -> int:
         k["mla_launches"] = k["etcd_launches"] = k["kube_launches"] = 0
         k["embed_launches"] = k["encoder_launches"] = 0
         k["tp_launches"] = k["tp_families_launches"] = [0, 0]
+        k["tp_features_launches"] = [0, 0]
         k["tp_disagg_rank1_launches"] = 0
     log(f"chip_smoke: every phase passed in "
         f"{time.perf_counter() - t_start:.1f} s")

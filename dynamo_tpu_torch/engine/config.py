@@ -30,23 +30,6 @@ _UNPORTED = {
 }
 
 
-def _mesh_refusals(cfg: "EngineConfig") -> list:
-    """The features a dp * tp > 1 engine does not serve yet, each as
-    (set, its name): their programs are not on the step stream
-    (parallel/multihost.py: spec_verify, lora_write) or have no
-    vocab-parallel form (the fused epilogue).  A mesh serves the disagg
-    roles, the KVBM tiers (the stream's gather and inject steps) and the
-    MoE and MLA families (their tensor-parallel forwards).  JAX serves
-    every one under tp; ROADMAP.md lists them as the next work."""
-    return [
-        (cfg.spec_decode != "off",
-         f"speculative decoding (spec_decode={cfg.spec_decode!r})"),
-        (cfg.lora_max_adapters > 0, "LoRA serving (lora_max_adapters > 0)"),
-        (cfg.sampling_epilogue == "fused",
-         "the fused sampling epilogue (sampling_epilogue='fused')"),
-    ]
-
-
 @dataclass
 class EngineConfig:
     model: str = "tiny"  # preset name (models.PRESETS, every family)
@@ -227,7 +210,8 @@ class EngineConfig:
     seed: int = 0
 
     # the mesh (parallel/mesh.py): dp replicas of tp ranks, one process
-    # per rank driven by the leader's step stream (parallel/multihost.py)
+    # per rank driven by the leader's step stream (parallel/multihost.py);
+    # it serves every feature above, as the JAX engine's mesh does
     dp: int = 1
     tp: int = 1
     # sequence parallelism: not ported yet (see _UNPORTED)
@@ -269,12 +253,6 @@ class EngineConfig:
             raise ValueError(f"packed_attn_impl must be one of "
                              f"{' | '.join(PACKED_IMPLS)}, got "
                              f"{self.packed_attn_impl!r}")
-        if self.dp * self.tp > 1:
-            for refused, feature in _mesh_refusals(self):
-                if refused:
-                    raise NotImplementedError(
-                        f"{feature} is not ported to dynamo_tpu_torch under "
-                        f"dp={self.dp} tp={self.tp} yet")
 
     def resolve_model(self) -> Union[LlamaConfig, DeepseekConfig]:
         """The model config (model_config, else the checkpoint's at

@@ -168,12 +168,20 @@ stream, each rank writing its slab (`_inject_kv`; MLA's latent cache is
 whole on every rank).  So a mesh serves the disagg roles (a payload
 holds every kv head, whatever either side's tp) and the KVBM tiers,
 which the leader alone holds, and the MoE and MLA families through
-their tensor-parallel forwards.  What the stream does not cover is
-refused: the config refuses speculation, LoRA and the fused epilogue
-(engine/config.py), `generate` refuses guided requests and `embed`
-raises.  On a gloo mesh (ranks sharing a device) the programs run
-eagerly: gloo's collectives cannot be captured, and cuda_graphs=True
-raises.  `close` stops and joins every rank.
+their tensor-parallel forwards.  The rest of the JAX engine's step kinds
+serve the other features on a mesh: speculation's `spec_verify` (the
+leader proposes, with the n-gram table or a draft model whole on its own
+device whose programs never ride the stream, then publishes the verify
+stream; acceptance, rollback and the adaptive collapse stay its own),
+`lora_write` (the adapter's whole tensors ride the stream; every rank
+clears the slot and writes its shard, lora/bank.py shard_adapter),
+guided decoding's `decode_topk` and `decode_topk_wide` (the leader alone
+tries the candidates), and `embed` (a collective whose vector the leader
+alone consumes).  The fused epilogue streams each rank's vocab slice and
+combines the ranks' statistics in one gather a step
+(ops/fused_sampling.py).  On a gloo mesh (ranks sharing a device) the
+programs run eagerly: gloo's collectives cannot be captured, and
+cuda_graphs=True raises.  `close` stops and joins every rank.
 
 Not here yet (ROADMAP.md): penalties (the JAX engine ignores them too).
 """
@@ -201,7 +209,7 @@ from ..disagg.transfer import KvLayout, dtype_name, make_transfer_params
 from ..kvbm.consolidator import KvEventConsolidator
 from ..kvbm.manager import TieredKvManager
 from ..kvbm.residency import LineageResidency
-from ..lora.bank import clear_slot, empty_bank, write_adapter
+from ..lora.bank import clear_slot, empty_bank, shard_adapter, write_adapter
 from ..lora.source import LocalLoraSource
 from ..models import get_family
 from ..obs.compile_watch import CaptureWatch
@@ -466,6 +474,7 @@ class TorchEngine:
         self._steps: Optional[StepBroadcaster] = None
         self._warm_snap = None  # a follower's copy of warm-up's snapshot
         tp_rank = mesh.tp_rank if mesh is not None else 0
+        self._tp_rank = tp_rank
         self.model_cfg = config.resolve_model()
         # the model family's module (models/__init__.py get_family): every
         # forward, init and cache shape below goes through it, and what
@@ -625,7 +634,9 @@ class TorchEngine:
         self._lora_pins: Dict[int, int] = {}    # slot -> pins
         self._lora_source: Optional[LocalLoraSource] = None
         if config.lora_max_adapters > 0:
-            mc = self.model_cfg
+            # a tensor-parallel rank holds its shard of every adapter, in a
+            # bank of its shard's widths (lora/bank.py shard_adapter)
+            mc = self.shard_cfg
             self.lora_bank = empty_bank(
                 mc.n_layers, config.lora_max_adapters + 1, config.lora_rank,
                 mc.d_model, mc.q_dim, mc.kv_dim, dtype=mc.dtype,
@@ -697,11 +708,15 @@ class TorchEngine:
         elif config.spec_decode != "off":
             from ..spec import make_proposer
 
-            self.proposer = make_proposer(config, self.device,
-                                          params=draft_params,
-                                          capture=cuda_graphs)
+            if mesh is None:
+                # the leader proposes; a follower replays the verify steps
+                # alone (a draft model runs whole on the leader's device,
+                # and its programs never ride the stream, as in JAX)
+                self.proposer = make_proposer(config, self.device,
+                                              params=draft_params,
+                                              capture=cuda_graphs)
             self.verify_graphs = VerifyPrograms(
-                self.params, self.model_cfg, self.kv,
+                self.params, self.shard_cfg, self.kv,
                 _pow2(config.max_num_seqs), config.max_blocks_per_seq,
                 _ladder(8, min(config.max_num_seqs * (config.spec_k + 1),
                                config.chunk_budget)),
@@ -858,16 +873,53 @@ class TorchEngine:
                 "seed": np.int32(a["seeds"][0]),
                 "temp": np.float32(a["temps"][0]),
                 "top_k": np.int32(a["top_ks"][0]),
-                "top_p": np.float32(a["top_ps"][0])})
+                "top_p": np.float32(a["top_ps"][0]),
+                **({"lidx": np.int32(a["lidx"][0])} if "lidx" in a
+                   else {})})
         else:
             self._publish("prefill_batch", a)
         return self.padded_prefill.run(a)
 
+    def _dispatch_verify(self, a: Dict[str, np.ndarray]) -> tuple:
+        """A verify dispatch: the planner's arrays `a` (JAX's spec_verify
+        descriptor) on their bucket's program; returns its static (ids,
+        vals, lse)."""
+        self._publish("spec_verify", a)
+        g = self.verify_graphs
+        return g.run(g.upload(g.pad(a)))
+
+    def _dispatch_guided(self, a: Dict[str, np.ndarray], m: int) -> tuple:
+        """A guided top-M step on the lane descriptor `a` (JAX's
+        decode_topk, or decode_topk_wide for the widened M); returns the
+        (ids, vals) readbacks."""
+        self._publish("decode_topk" if m == self.GUIDED_TOPM
+                      else "decode_topk_wide", a)
+        self.guided_graphs.upload(a)
+        return self.guided_graphs.run(m)
+
+    def _write_lora(self, slot: int, tensors: Dict[str, Any]) -> None:
+        """Adapter bank slot `slot` cleared, then written with this
+        rank's shard of `tensors` (the adapter's whole bank tensors), in
+        place: a reused slot keeps nothing of its last adapter, whose
+        untargeted projections an adapter of fewer targets would inherit.
+        Published first as JAX's lora_write with the whole tensors, so
+        every rank writes its shard."""
+        if self._steps is not None:
+            self._publish("lora_write", {
+                "slot": np.int32(slot),
+                **{k: to_wire(v) for k, v in tensors.items()}})
+        clear_slot(self.lora_bank, slot)
+        write_adapter(self.lora_bank, slot, shard_adapter(
+            tensors, self._tp_rank, self.config.tp,
+            kv_replicated=kv_heads_replicated(self.model_cfg)))
+
     def apply_step(self, kind: str, a: Dict[str, np.ndarray]) -> None:
         """A follower: run one of the leader's steps, the program the
         leader ran, on this rank's shards (parallel/multihost.py).  What
-        it samples is discarded; the decode chain stays symmetric with
-        the leader's, since every burst runs here too."""
+        it samples, the verify windows, the guided candidates and the
+        embedding included, is discarded: the decisions they feed are the
+        leader's, and the decode chain stays symmetric with the leader's,
+        since every burst runs here too."""
         if kind == "prefill_packed":
             self._dispatch_packed(a)
         elif kind == "prefill":
@@ -878,7 +930,8 @@ class TorchEngine:
                 "true_lens": a["chunk"].reshape(1),
                 "seeds": a["seed"].reshape(1), "temps": a["temp"].reshape(1),
                 "top_ks": a["top_k"].reshape(1),
-                "top_ps": a["top_p"].reshape(1)})
+                "top_ps": a["top_p"].reshape(1),
+                **({"lidx": a["lidx"].reshape(1)} if "lidx" in a else {})})
         elif kind == "prefill_batch":
             self._dispatch_padded(a)
         elif kind in ("decode", "decode_multi"):
@@ -892,6 +945,20 @@ class TorchEngine:
         elif kind == "decode_restore":
             self.graphs.restore(self._warm_snap)
             self._warm_snap = None
+        elif kind == "spec_verify":
+            # the KV evolution of the leader's verify; acceptance, rollback
+            # and the adaptive collapse are the leader's
+            self._dispatch_verify(a)
+        elif kind in ("decode_topk", "decode_topk_wide"):
+            self._dispatch_guided(a, self.GUIDED_TOPM if kind == "decode_topk"
+                                  else self.GUIDED_TOPM_WIDE)
+        elif kind == "lora_write":
+            dt = self.lora_bank["A_q"].dtype
+            self._write_lora(int(a.pop("slot")),
+                             {k: from_wire(v, dt) for k, v in a.items()})
+        elif kind == "embed":
+            # a collective of the tensor group; the vector is the leader's
+            self._run_embed(a["toks"], int(a["true_len"]))
         elif kind == "gather":
             # read-only, but the slabs' gather is a collective of the
             # leader's tensor group; the payload is the leader's
@@ -1185,19 +1252,16 @@ class TorchEngine:
 
     @property
     def supports_embedding(self) -> bool:
-        # a mesh has no embed step on its stream yet
-        return hasattr(self.family, "embed_text") and self.mesh is None
+        return hasattr(self.family, "embed_text")
 
     async def embed(self, token_ids: List[int]) -> np.ndarray:
         """Pooled text embedding (the family's embed_text), padded to a
         prefill bucket as the JAX engine's, and run between scheduler
         steps on the scheduler's thread, so its work queues on the
         engine's stream behind the bursts already dispatched and no
-        burst's readback is reordered.  Returns the fp32 unit vector."""
-        if self.mesh is not None:
-            raise NotImplementedError(
-                "embed is not ported to dynamo_tpu_torch under dp * tp > 1 "
-                "yet (no embed step on the step stream)")
+        burst's readback is reordered.  On a mesh it is JAX's `embed`
+        step: every rank of the tensor group runs the forward.  Returns
+        the fp32 unit vector."""
         if not self.supports_embedding:
             raise RuntimeError(
                 f"model family {self.family.__name__} has no embed_text")
@@ -1213,13 +1277,16 @@ class TorchEngine:
             partial(self._run_embed, toks, len(token_ids)))
 
     def _run_embed(self, toks: np.ndarray, true_len: int) -> np.ndarray:
-        """One embed call, eager.  The first call at a bucket is
-        recorded by the capture watch as family "embed" with its cost
-        count (obs/costs.py), as the JAX watch records the jitted
-        program's compile."""
+        """One embed call, eager, published first as JAX's embed step
+        (a rank runs its shard's forward, its sums over the group).  The
+        first call at a bucket is recorded by the capture watch as family
+        "embed" with its cost count (obs/costs.py), as the JAX watch
+        records the jitted program's compile."""
+        self._publish("embed", {"toks": toks,
+                                "true_len": np.int32(true_len)})
         t0 = time.perf_counter()
         vec = self.family.embed_text(
-            self.params, self.model_cfg,
+            self.params, self.shard_cfg,
             torch.from_numpy(toks).to(self.device), true_len)
         t_obs = obs.begin()
         out = vec.float().cpu().numpy()
@@ -1837,17 +1904,14 @@ class TorchEngine:
                 for T in self.verify_graphs.buckets:
                     p = self.verify_graphs.host_descriptor(T)
                     p["valid"][0] = True  # one token, in block 0
-                    self.verify_graphs.upload(p)
-                    self.verify_graphs.run(T)
+                    self._dispatch_verify(p)
+                # the draft's programs: the leader's device alone
                 if hasattr(self.proposer, "warmup"):
                     self.proposer.warmup()
-            if self.mesh is None:
-                # guided decoding is refused on a mesh: no top-M program
-                g = self.guided_graphs.host_descriptor()
-                g["ctx_lens"][:] = 1
-                for m in self.guided_graphs.ms:
-                    self.guided_graphs.upload(g)
-                    self.guided_graphs.run(m)[0].wait()
+            g = self.guided_graphs.host_descriptor()
+            g["ctx_lens"][:] = 1
+            for m in self.guided_graphs.ms:
+                self._dispatch_guided(g, m)[0].wait()
             self._publish("decode_snapshot")
             snap, last = self.graphs.snapshot(), self._last_desc
             for greedy in (True, False):
@@ -1909,9 +1973,7 @@ class TorchEngine:
                 finish_reason="error",
                 error="worker engine error: engine loop crashed")
             return
-        unsupported = self._unsupported(request) or (
-            self._mesh_unsupported(request) if self.mesh is not None
-            else None)
+        unsupported = self._unsupported(request)
         if unsupported:
             yield LLMEngineOutput(finish_reason="error", error=unsupported)
             return
@@ -2074,10 +2136,9 @@ class TorchEngine:
                         "sequences; raise lora_max_adapters")
                 slot = self._lora_slots.pop(victim)
                 self._lora_lru.remove(victim)
-            # a reused slot keeps nothing of its last adapter: one that
-            # targets fewer projections must not inherit the rest
-            clear_slot(self.lora_bank, slot)
-            write_adapter(self.lora_bank, slot, adapter.tensors)
+            # a reused slot keeps nothing of its last adapter (on every
+            # rank of a mesh: the write rides the step stream)
+            self._write_lora(slot, adapter.tensors)
             self._lora_slots[name] = slot
             self._lora_lru.append(name)
             self._lora_pins[slot] = self._lora_pins.get(slot, 0) + 1
@@ -2094,15 +2155,6 @@ class TorchEngine:
         if request.multimodal:
             return "multimodal inputs are not ported to dynamo_tpu_torch yet"
         return None
-
-    def _mesh_unsupported(self, request: PreprocessedRequest
-                          ) -> Optional[str]:
-        """An error for request features a mesh does not serve yet: their
-        program (the guided top-M step) is not on the step stream."""
-        if request.sampling.guided_json is None:
-            return None
-        return ("guided decoding is not ported to dynamo_tpu_torch under "
-                f"dp={self.config.dp} tp={self.config.tp} yet")
 
     # -- scheduler ------------------------------------------------------------
     async def _loop(self) -> None:
@@ -2622,8 +2674,8 @@ class TorchEngine:
         plan = plan_spec_verify(rows, block_size=c.block_size,
                                 max_blocks_per_seq=c.max_blocks_per_seq)
         g = self.verify_graphs
-        T = g.upload(g.pad(plan.arrays))
-        backs = [Readback(t) for t in g.run(T)]
+        T = len(plan.arrays["toks"])
+        backs = [Readback(t) for t in self._dispatch_verify(plan.arrays)]
         t_obs = obs.begin()
         ids, vals, lse = (b.wait() for b in backs)
         obs.end("device_wait", t_obs, track=self._obs_track,
@@ -2798,8 +2850,7 @@ class TorchEngine:
             a["ctx_lens"][i] = slot.ctx_len
             a["tables"][i] = slot.block_table
             a["valid"][i] = True
-            g.upload(a)
-            backs = g.run(self.GUIDED_TOPM)
+            backs = self._dispatch_guided(a, self.GUIDED_TOPM)
             t_d = obs.begin()
             ids, vals = (b.wait() for b in backs)
             obs.end("device_wait", t_d, track=self._obs_track,
@@ -2835,8 +2886,7 @@ class TorchEngine:
                 # its K/V with the same values)
                 self.metrics["guided_widened_retries"] = \
                     self.metrics.get("guided_widened_retries", 0) + 1
-                g.upload(a)
-                backs = g.run(self.GUIDED_TOPM_WIDE)
+                backs = self._dispatch_guided(a, self.GUIDED_TOPM_WIDE)
                 t_d = obs.begin()
                 wids, wvals = (b.wait() for b in backs)
                 obs.end("device_wait", t_d, track=self._obs_track,

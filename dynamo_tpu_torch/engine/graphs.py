@@ -112,7 +112,12 @@ shapes), computed once at the build, and a `watch` the engine installs
 build's seconds (first run plus capture) and the costs.
 
 Tensor parallelism (parallel/): every program body runs the rank's
-shard of the model, whose collectives (models/llama.py) sit inside it.
+shard of the model, whose collectives (models/llama.py) sit inside it:
+the decode bursts (with the fused epilogue, each step's statistics
+combined over the vocabulary's ranks, ops/fused_sampling.py), the
+packed prefill and verify streams (K3 on the rank's kv-head slab), the
+guided top-M steps (K1 on the slab, the logits gathered) and, with an
+adapter bank, the rank's shard of it (lora/bank.py shard_adapter).
 On an NCCL mesh (a device per rank) each rank captures its programs with
 the collectives inside the graphs, as any other kernel launch.  On a
 gloo mesh (ranks sharing a device, or on the CPU) a collective stages
@@ -366,15 +371,18 @@ class DecodePrograms(_LaneDescriptor, _Built):
         lora = ({"lora_bank": self.lora_bank, "adapter_idx": d.lidx}
                 if self.lora_bank is not None else {})
         if self.epilogue:
+            # under tp the rank's vocab slice, combined over its group
             uw = self.family.unembed_weight(self.params, self.cfg)
+            group = self.params.get("tp")
             if greedy:
                 def fused(h, step):
-                    return fused_sampling.fused_greedy_tokens(h, uw)
+                    return fused_sampling.fused_greedy_tokens(
+                        h, uw, group=group)
             else:
                 def fused(h, step):
                     return fused_sampling.fused_sample_tokens(
                         h, uw, d.seeds, d.steps + step, d.temps, d.top_ks,
-                        d.top_ps)
+                        d.top_ps, group=group)
             burst, _ = self.family.decode_multi_hidden(
                 *args, fused, valid=d.valid != 0, **lora)
         else:

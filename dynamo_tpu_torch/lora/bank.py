@@ -21,6 +21,17 @@ Two differences from the JAX bank:
     each row's own slot, and the masked [n, N*r] products contract with
     B viewed as [N*r, d_out] in one matmul.  The other slots' terms are
     exact zeros, so the sum is the row's own delta.
+
+Tensor parallelism (parallel/mesh.py): JAX's bank is replicated and
+GSPMD slices each product.  Here every rank holds its shard of the bank
+(`shard_adapter`, written into a bank of the rank's widths): for the
+column-parallel targets (q, k, v) B's output columns of the rank's
+heads (k and v those of its kv-head slab, whole where every rank holds
+every kv head), and for the row-parallel target (o) A's input rows of
+its heads.  A's of q, k, v and B of o stay whole.  The o delta is the
+rank's partial sum, added before the group's sum after `wo`, so the
+ranks' deltas sum to x @ A @ B; the k and v deltas of a replicated
+kv-head slab are whole on every rank and never summed.
 """
 
 from __future__ import annotations
@@ -29,6 +40,8 @@ from typing import Dict
 
 import numpy as np
 import torch
+
+from ..parallel.mesh import chunk_range
 
 # target projections (HF PEFT default attention set)
 TARGETS = ("q", "k", "v", "o")
@@ -95,14 +108,16 @@ def write_adapter(bank: Dict[str, torch.Tensor], slot: int,
                   tensors: Dict[str, np.ndarray]) -> Dict[str, torch.Tensor]:
     """Write one adapter's (already rank-padded, scaling-folded) tensors
     into bank slot `slot`, in place.  `tensors` keys: A_q/B_q/... each
-    [L, d_in, r] / [L, r, d_out]; missing targets keep what the slot
-    held (adapters may target a subset of the projections: the engine
-    clears a slot before it reuses one).  Returns the same bank."""
+    [L, d_in, r] / [L, r, d_out], numpy arrays or tensors; missing
+    targets keep what the slot held (adapters may target a subset of the
+    projections: the engine clears a slot before it reuses one).
+    Returns the same bank."""
     for key, arr in tensors.items():
         if key not in bank:
             raise KeyError(f"unknown bank tensor {key!r}")
         dst = bank[key][:, slot]
-        src = torch.as_tensor(np.asarray(arr))
+        src = (arr if isinstance(arr, torch.Tensor)
+               else torch.as_tensor(np.asarray(arr)))
         if tuple(src.shape) != tuple(dst.shape):
             raise ValueError(f"bank tensor {key!r}: adapter shape "
                              f"{tuple(src.shape)} != slot shape "
@@ -117,3 +132,26 @@ def clear_slot(bank: Dict[str, torch.Tensor],
     for v in bank.values():
         v[:, slot].zero_()
     return bank
+
+
+def shard_adapter(tensors: Dict[str, np.ndarray], rank: int, tp: int,
+                  kv_replicated: bool = False) -> Dict[str, np.ndarray]:
+    """Rank's shard of one adapter's bank tensors (write_adapter's input,
+    A_t [L, d_in, r], B_t [L, r, d_out]) under tensor parallelism: B_q's
+    (and, unless `kv_replicated`, B_k's and B_v's) output columns and
+    A_o's input rows cut to the rank's contiguous chunk, the rest whole.
+    tp = 1 returns `tensors` itself."""
+    if tp == 1:
+        return tensors
+    cut = {"B_q": 2, "A_o": 1}
+    if not kv_replicated:
+        cut.update(B_k=2, B_v=2)
+    out = {}
+    for key, arr in tensors.items():
+        axis = cut.get(key)
+        if axis is None:
+            out[key] = arr
+            continue
+        lo, hi = chunk_range(arr.shape[axis], rank, tp, f"{key} axis {axis}")
+        out[key] = arr[(slice(None),) * axis + (slice(lo, hi),)]
+    return out

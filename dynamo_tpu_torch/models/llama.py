@@ -42,8 +42,14 @@ split on the expert axis (each rank holds cfg.n_experts contiguous
 experts of its shard config, each whole) and its router is whole, so
 every rank routes every token alike, evaluates its own experts only
 (capacity positions and drops from the whole assignment, as tp = 1's)
-and the routed MLP's sum is one reduce, as w_down's.  Without
-`params["tp"]` (tp = 1) no collective runs and nothing else changes.
+and the routed MLP's sum is one reduce, as w_down's.  An adapter bank
+is the rank's shard (lora/bank.py shard_adapter, a bank of the shard
+config's widths): the q/k/v deltas give the rank's own heads, and o's
+is a partial sum added before wo's reduce, so `_qkv` and `_attn_out`
+read it as they read a whole bank.  The fused sampling epilogue takes
+the rank's vocab slice of `unembed_weight` and combines the ranks'
+statistics (ops/fused_sampling.py).  Without `params["tp"]` (tp = 1) no
+collective runs and nothing else changes.
 """
 
 from __future__ import annotations

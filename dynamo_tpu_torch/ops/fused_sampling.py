@@ -37,6 +37,30 @@ rounds as the same columns of the full product do (on the CPU, and on
 the card up to cuBLAS choosing another algorithm for the tile's shape),
 and sampled tokens equal them up to the logsumexp's summation order.
 
+Tensor parallelism (parallel/mesh.py): the unembedding splits over the
+vocabulary (`lm_head` on dim 1, a tied embedding on dim 0), so a rank's
+`w` is its slice [d, V/tp] of consecutive columns.  Given its tensor
+group (`group`, models/llama.py `params["tp"]`) each rank streams its
+slice alone, tiles planned over V/tp, and one gather of the ranks'
+statistics (TensorGroup.gather_stats: [B, 2] when greedy, else
+[B, 2 CAP + 3], never the [B, V/tp] logits) combines them
+(`_combine_ranks`) into the single-device contract:
+
+  * the maximum: the first rank holding the largest, so the first
+    maximum by GLOBAL vocab index wins (each rank's own first maximum is
+    its lowest column, and the ranks hold ascending column ranges);
+  * the window: the top-CAP of the ranks' windows, their ids made
+    global, under the same total order (value, then ascending id), so
+    candidates of an earlier rank come first among equals, as an
+    earlier tile's do;
+  * the logsumexp: m + log sum_r exp(lse_r - m) over the ranks'.
+
+Every rank then samples the same token (every statistic crossed the
+group), so the ranks' device chains stay alike.  Greedy tokens are the
+off path's argmax over the gathered logits wherever the slices' tiles
+round as its columns do; sampled tokens draw from the same window with
+a logsumexp that differs in its summation order only.
+
 The JAX package writes this in XLA, not Pallas: it is not a TPU kernel.
 The port writes it in plain torch (per-tile `torch.matmul` plus
 reductions), inside the decode programs that engine/graphs.py captures
@@ -121,24 +145,67 @@ def _stream(h: torch.Tensor, w: torch.Tensor, tile: int,
     return (bv, bi), (cand_v.gather(-1, pos), cand_i.gather(-1, pos), lse)
 
 
+def _combine_ranks(group, V: int, best, window):
+    """The tensor group's statistics from each rank's `_stream` over its
+    vocab slice of V columns (rank r holds [r V, (r + 1) V)): one
+    gather, then the single-device contract (module docstring).  Column
+    ids (below 2^24) cross as exact fp32.  Returns `_stream`'s tuple
+    with global ids."""
+    bv, bi = best
+    off = group.rank * V
+    cols = [bv[:, None], (bi + off).float()[:, None]]
+    if window is not None:
+        rv, ri, lse = window
+        cols += [lse[:, None], rv, (ri + off).float()]
+    stats = group.gather_stats(torch.cat(cols, dim=1))  # [tp, B, n]
+    # the first rank holding the largest maximum: torch.argmax returns
+    # the first of equal maxima, and rank order is column order
+    j = torch.argmax(stats[:, :, 0], dim=0)[None]
+    best = (stats[:, :, 0].gather(0, j)[0],
+            stats[:, :, 1].gather(0, j)[0].long())
+    if window is None:
+        return best, None
+    B = bv.shape[0]
+    cand_v = stats[:, :, 3:3 + CAP].transpose(0, 1).reshape(B, -1)
+    cand_i = stats[:, :, 3 + CAP:].transpose(0, 1).reshape(B, -1).long()
+    _, pos = torch.topk(order_keys(cand_v, cand_i), CAP, dim=-1)
+    lses = stats[:, :, 2]
+    m = lses.amax(dim=0)
+    lse = m + torch.log(torch.sum(torch.exp(lses - m[None]), dim=0))
+    return best, (cand_v.gather(-1, pos), cand_i.gather(-1, pos), lse)
+
+
+def _stats(h: torch.Tensor, w: torch.Tensor, tile: int,
+           denom: Optional[torch.Tensor], group):
+    """`_stream` over w, combined over the tensor group when there is
+    one (w then the rank's vocab slice)."""
+    best, window = _stream(h, w, tile, denom)
+    if group is None:
+        return best, window
+    return _combine_ranks(group, w.shape[1], best, window)
+
+
 def fused_greedy_tokens(h: torch.Tensor,  # [B, d] final-norm hidden
                         w: torch.Tensor,  # [d, vocab] unembedding matrix
-                        *, tile: int = DEFAULT_TILE) -> torch.Tensor:
+                        *, tile: int = DEFAULT_TILE,
+                        group=None) -> torch.Tensor:
     """Streaming argmax of the final projection: the token ids [B] int32
-    of sampler.greedy_tokens(_logits(...)), ties to the lowest id."""
-    (_, bi), _ = _stream(h, w, tile, None)
+    of sampler.greedy_tokens(_logits(...)), ties to the lowest id.  With
+    a tensor group, w is the rank's vocab slice."""
+    (_, bi), _ = _stats(h, w, tile, None, group)
     return bi.to(torch.int32)
 
 
 def fused_sample_stats(h: torch.Tensor, w: torch.Tensor,
                        temperature: torch.Tensor, *,
-                       tile: int = DEFAULT_TILE):
+                       tile: int = DEFAULT_TILE, group=None):
     """The statistics one streamed pass gathers, the JAX epilogue's final
     carries: (raw-logit maximum [B], its first column [B], window values
     [B, CAP], window ids [B, CAP], logsumexp [B] of the scaled logits).
-    Requires vocab >= CAP, as lax.top_k does of the reference."""
-    (bv, bi), (rv, ri, lse) = _stream(
-        h, w, tile, torch.clamp(temperature, min=1e-6))
+    Requires vocab >= CAP, as lax.top_k does of the reference (with a
+    tensor group, each rank's slice; the ids are global)."""
+    (bv, bi), (rv, ri, lse) = _stats(
+        h, w, tile, torch.clamp(temperature, min=1e-6), group)
     return bv, bi, rv, ri, lse
 
 
@@ -150,11 +217,13 @@ def fused_sample_tokens(
     temperature: torch.Tensor,  # [B] fp32; <= 0 means greedy
     top_k: torch.Tensor,        # [B] int; 0 disables
     top_p: torch.Tensor,        # [B] fp32; >= 1 disables
-    *, tile: int = DEFAULT_TILE,
+    *, tile: int = DEFAULT_TILE, group=None,
 ) -> torch.Tensor:
     """Streaming sample_tokens: one pass gathers (argmax, top-CAP window,
     logsumexp), then the sampler's masked-window draw runs on the window.
-    Token ids [B] int32."""
-    _, bi, rv, ri, lse = fused_sample_stats(h, w, temperature, tile=tile)
+    Token ids [B] int32.  With a tensor group, w is the rank's vocab
+    slice and every rank draws the same tokens."""
+    _, bi, rv, ri, lse = fused_sample_stats(h, w, temperature, tile=tile,
+                                            group=group)
     sampled = draw(ri, mask_window(rv, lse, top_k, top_p), seeds, steps)
     return torch.where(temperature <= 0.0, bi.to(torch.int32), sampled)

@@ -302,9 +302,9 @@ def rendezvous(rank: int, world: int, port: int = 0,
 class TensorGroup:
     """The collectives of a rank's tensor-parallel forward, over its
     tensor group: the sum after each row-parallel product, the
-    vocab-parallel embedding lookup and the gather of the vocab-parallel
-    logits; and the gather of the ranks' KV slabs to the leader
-    (`gather_slabs`)."""
+    vocab-parallel embedding lookup, the gather of the vocab-parallel
+    logits and of the fused epilogue's statistics; and the gather of the
+    ranks' KV slabs to the leader (`gather_slabs`)."""
 
     def __init__(self, backend: str, pg, rank: int, size: int):
         self.backend, self.pg, self.rank, self.size = backend, pg, rank, size
@@ -355,6 +355,22 @@ class TensorGroup:
                            dtype=logits.dtype, device=logits.device)
         full[..., self.rank * n:(self.rank + 1) * n] = logits
         return self.all_reduce(full)
+
+    def gather_stats(self, x: torch.Tensor) -> torch.Tensor:
+        """Every rank's x (one shape and dtype on all ranks) on every rank,
+        stacked in rank order: [size, *x.shape].  The vocab-parallel
+        sampling epilogue's one collective a step (ops/fused_sampling.py:
+        each rank's [B, 2 CAP + 3] statistics, not its [B, V/tp]
+        logits).  NCCL all-gathers; gloo sums each rank's row into a
+        zeroed buffer, as gather_vocab does (adding zeros is exact)."""
+        out_shape = (self.size, *x.shape)
+        if self.backend == "nccl":
+            out = torch.empty(out_shape, dtype=x.dtype, device=x.device)
+            self.pg._allgather_base(out, x.contiguous()).wait()
+            return out
+        out = torch.zeros(out_shape, dtype=x.dtype, device=x.device)
+        out[self.rank] = x
+        return self.all_reduce(out)
 
 
 def _gloo(store, name: str, rank: int, size: int, timeout_s: float):

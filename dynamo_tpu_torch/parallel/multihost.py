@@ -43,10 +43,21 @@ logical payload (a pulled disagg chunk, a KVBM onboard), so followers
 need no tiers and no transport of their own, and each writes its slab.
 A bf16 payload crosses as its raw bits (`to_wire`/`from_wire`).
 
+The features' kinds, JAX's names and keys: `spec_verify` (the verify
+stream: toks, positions, seg_ids, tables, valid, temps_t; followers
+keep the KV evolution, the acceptance is the leader's), `lora_write`
+(slot, and the adapter's whole bank tensors A_q .. B_o, a bf16 one as
+raw bits; each rank clears the slot and writes its shard),
+`decode_topk` and `decode_topk_wide` (guided decoding's lane
+descriptor: tokens, positions, tables, ctx_lens, valid) and `embed`
+(toks, true_len).  With an adapter bank, prefill, prefill_packed,
+prefill_batch and the decode kinds carry the `lidx` lane, as JAX's
+programs take their lora arguments.  A draft model's programs never
+ride the stream: the draft runs whole on the leader's device.
+
 What is left to a later step (ROADMAP.md): ranks across hosts (a
 launcher per host, the leader's worker gating the followers' identity),
-and the stream's other kinds (spec_verify, lora_write, decode_topk,
-decode_topk_wide, embed).
+and the ring prefill's `prefill_ring` (sp > 1).
 """
 
 from __future__ import annotations

@@ -19,6 +19,12 @@ stream is token-identical to plain decode).
 Rejection sampling lives in engine/sampler.py (spec_accept_tokens); the
 engine (engine/core.py _spec_step) owns the adaptive draft length and the
 KV rollback (block_allocator.trim_blocks).
+
+On a tensor-parallel mesh only the leader builds a proposer: a draft
+model runs whole on the leader's device (its params carry no tensor
+group, so its programs make no collective), its catch-up and propose
+programs never ride the step stream, as in JAX, and the followers
+replay the verify dispatches alone (the `spec_verify` step).
 """
 
 from .draft import DraftModelProposer

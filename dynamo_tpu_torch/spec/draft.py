@@ -32,6 +32,10 @@ Per speculation round for one slot:
 
 Greedy drafts only: the proposal is a point mass, which is what
 engine/sampler.py spec_accept_tokens assumes.
+
+Beside a tensor-parallel target the draft is whole on the leader's
+device, with its own whole cache addressed by the leader's block
+tables: its programs are the leader's alone (spec/__init__.py).
 """
 
 from __future__ import annotations

@@ -22,10 +22,10 @@
 * The step stream (parallel/multihost.py) over a queue: ordered, the
   codec round-trips every dtype, a gap is fatal on the follower, stop
   ends it.
-* EngineConfig: tp and dp build, every refused feature (speculation,
-  LoRA, the fused epilogue) raises by name under a mesh, and what a mesh
-  now serves (the disagg roles, KVBM, the MoE and MLA families) builds
-  there (one parametrised test each); the CLI's --tp/--dp.
+* EngineConfig: tp and dp build, and what a mesh serves (the disagg
+  roles, KVBM, the MoE and MLA families, speculation, LoRA, the fused
+  epilogue) builds there (one parametrised test); sp stays refused; the
+  CLI's --tp/--dp.
 
 The spawned-rank engines are tests/test_torch_tp_engine.py's.
 """
@@ -539,32 +539,27 @@ def test_config_builds_tp_and_dp():
         EngineConfig(tp=0)
 
 
-@pytest.mark.parametrize("kw,feature", [
-    (dict(spec_decode="ngram"), "speculative decoding"),
-    (dict(lora_max_adapters=2), "LoRA serving"),
-    (dict(sampling_epilogue="fused"), "the fused sampling epilogue"),
-], ids=["spec", "lora", "fused"])
-@pytest.mark.parametrize("mesh_kw", [dict(tp=2), dict(dp=2)],
-                         ids=["tp2", "dp2"])
-def test_refused_features_raise_by_name(kw, feature, mesh_kw):
-    with pytest.raises(NotImplementedError, match=feature):
-        EngineConfig(**mesh_kw, **kw)
-    EngineConfig(**kw)  # fine on one device
-
-
 @pytest.mark.parametrize("kw,holds", [
     (dict(role="prefill"), lambda c, m: c.role == "prefill"),
     (dict(role="decode"), lambda c, m: c.role == "decode"),
     (dict(host_cache_blocks=8), lambda c, m: c.host_cache_blocks == 8),
     (dict(model="tiny-moe"), lambda c, m: m.n_experts == 4),
     (dict(model="tiny-mla"), lambda c, m: m.kv_lora_rank == 64),
-], ids=["prefill", "decode", "kvbm", "moe", "mla"])
+    (dict(spec_decode="ngram"), lambda c, m: c.spec_decode == "ngram"),
+    (dict(spec_decode="draft", spec_draft_model="tiny"),
+     lambda c, m: c.spec_decode == "draft"),
+    (dict(lora_max_adapters=2), lambda c, m: c.lora_max_adapters == 2),
+    (dict(sampling_epilogue="fused"),
+     lambda c, m: c.sampling_epilogue == "fused"),
+], ids=["prefill", "decode", "kvbm", "moe", "mla", "spec-ngram",
+        "spec-draft", "lora", "fused"])
 @pytest.mark.parametrize("mesh_kw", [dict(tp=2), dict(dp=2)],
                          ids=["tp2", "dp2"])
 def test_mesh_features_build_and_shard(kw, holds, mesh_kw):
     """What a mesh refused before it served them (disagg roles, KVBM, the
-    MoE and MLA families): the config builds on the mesh, keeps the
-    feature, and its rank's shard config divides what tp splits."""
+    MoE and MLA families, speculation, LoRA, the fused epilogue): the
+    config builds on the mesh, keeps the feature, and its rank's shard
+    config divides what tp splits."""
     cfg = EngineConfig(**mesh_kw, **kw)
     model = cfg.resolve_model()
     assert holds(cfg, model) and (cfg.dp, cfg.tp) == (

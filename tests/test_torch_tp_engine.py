@@ -16,9 +16,8 @@ collective, so a rank that never joins or hangs fails its test by name.
 * A tp=2 TorchEngineWorker, warmed up through the step stream, serves
   over the port's runtime: its MDC's tp/dp equal the JAX worker's for
   the same config, its stream equals tp=1's, a disaggregated hop is
-  parked and its blocks gather into the logical payload, and the request
-  features a mesh does not serve yet (guided decoding, embed) are
-  refused by name.
+  parked and its blocks gather into the logical payload, and a guided
+  request and an embed call are served as tp=1's worker serves them.
 * A follower killed mid-service makes the leader's streams fail within
   the mesh timeout, and close still leaves no rank behind.
 """
@@ -148,6 +147,9 @@ async def test_tp_worker_serves_and_refuses_what_a_mesh_does_not():
                                  component="tp1").start()
     try:
         one = await _streams(w1.engine)
+        one_guided = (await _collect(w1.engine, _req(
+            False, PROMPT, "g", 8, guided_json={"type": "object"})))[0]
+        one_embed = await w1.engine.embed([1, 2, 3])
         params = w1.engine.params
         tree["params"] = {
             "embedding": params["embedding"].numpy(),
@@ -172,12 +174,12 @@ async def test_tp_worker_serves_and_refuses_what_a_mesh_does_not():
         assert [c["runtime_config"]["tp"] for c in published.values()] == [2]
         assert w.engine.kv_wire_layout().kv_heads == TINY.n_kv_heads
         assert await _streams(w.engine) == one
-        # what a mesh refuses, by name
-        guided = _req(False, PROMPT, "g", 3,
+        # guided decoding: the top-M steps ride the stream
+        guided = _req(False, PROMPT, "g", 8,
                       guided_json={"type": "object"})
-        _, last = await _collect(w.engine, guided)
-        assert last.finish_reason == "error"
-        assert "guided decoding is not ported" in last.error
+        toks, last = await _collect(w.engine, guided)
+        assert last.finish_reason == "stop", last.error
+        assert toks == one_guided
         # a disaggregated hop is served: parked, one frame back, and its
         # blocks gathered from both ranks into the logical payload
         hop = _req(False, PROMPT, "d", 3)
@@ -189,10 +191,11 @@ async def test_tp_worker_serves_and_refuses_what_a_mesh_does_not():
         arrs = await w.engine.extract_parked_chunk("d", 0, nb)
         assert [a.shape[3] for a in arrs] == [TINY.n_kv_heads] * 2
         await w.engine.release_parked("d")
-        assert not w.engine.supports_embedding
-        with pytest.raises(NotImplementedError, match="embed is not ported"):
-            await w.engine.embed([1, 2, 3])
-        # the mesh still serves after the refusals
+        # embed: every rank runs the forward, the leader reads the vector
+        assert w.engine.supports_embedding
+        np.testing.assert_allclose(await w.engine.embed([1, 2, 3]),
+                                   one_embed, atol=1e-5, rtol=0)
+        # the mesh still serves after the guided and embed steps
         assert (await _collect(w.engine, _req(False, PROMPT, "p2", 5)))[0] \
             == one[0]
     finally:

@@ -7,7 +7,14 @@ over a gloo group, their slabs gathered into the logical blocks equal
 to the plain torch gather of the whole cache, and a logical payload
 injected per rank equal to the plain slice of it, for a bf16 cache, an
 int8 cache with its scale planes and MLA's latent pair (whole on every
-rank).
+rank).  K3 also on the verify stream of a speculative round (four rows
+of five tokens after 1800, 500, 100 and 37 cached positions, T = 32)
+at a rank's slab; and the vocab-parallel sampling epilogue
+(ops/fused_sampling.py) on two ranks' CUDA tensors of llama-8b's
+vocabulary, its greedy tokens equal to the off path's argmax over the
+gathered logits (integer-valued inputs: every product is exact, so the
+two paths round the same values) and its statistics to the whole
+vocabulary's.
 
 This file imports neither jax nor the JAX package, so it also runs on a
 GPU host without them:
@@ -31,6 +38,7 @@ import torch.distributed as dist
 
 from dynamo_tpu_torch.engine import EngineConfig, TorchEngine
 from dynamo_tpu_torch.models.llama import PRESETS
+from dynamo_tpu_torch.ops import fused_sampling as fs
 from dynamo_tpu_torch.ops.kv_transfer import (
     gather_universal,
     inject_universal,
@@ -152,6 +160,103 @@ def test_k3_on_each_rank_slab_equals_plain_on_gpu(int8):
                                            k_scale=kss, v_scale=vss)
         assert bool((out[~valid] == 0).all())
         assert _rel(out[valid], ref[valid]) < REL_TOL
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("int8", [False, True], ids=["bf16", "int8"])
+def test_k3_verify_stream_on_each_rank_slab_equals_plain_on_gpu(int8):
+    from dynamo_tpu_torch.ops import cuda_packed_prefill as k3
+
+    _cuda()
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    bs, mb = 128, 16
+    ctx0, n_tok = [1800, 500, 100, 37], 5
+    S, T = len(ctx0), 32
+    nb = 1 + S * mb
+    kc, vc, ks, vs = _cache(gen, nb, bs, int8)
+    tables = torch.arange(1, 1 + S * mb, dtype=torch.int32,
+                          device="cuda").reshape(S, mb)
+    seg = [s for s in range(S) for _ in range(n_tok)]
+    pos = [c + i for c in ctx0 for i in range(n_tok)]
+    seg_t = torch.tensor(seg + [0] * (T - len(seg)), dtype=torch.int32,
+                         device="cuda")
+    pos_t = torch.tensor(pos + [0] * (T - len(pos)), dtype=torch.int32,
+                         device="cuda")
+    valid = torch.arange(T, device="cuda") < len(seg)
+    q = torch.randn(T, CFG.n_heads, CFG.head_dim, generator=gen,
+                    device="cuda").to(torch.bfloat16)
+    fn = k3.packed_prefill_int8 if int8 else k3.packed_prefill
+    for r in range(TP):
+        before = fn.launches
+        out = packed_prefill_attention_tp(q, kc, vc, 1, tables, seg_t,
+                                          pos_t, valid, rank=r, tp=TP,
+                                          k_scale=ks, v_scale=vs)
+        torch.cuda.synchronize()
+        assert fn.launches == before + 1
+        qs, kcs, vcs, kss, vss = tp_slab(q, kc, vc, ks, vs, r, TP)
+        assert qs.shape[1] == 16 and kcs.shape[1] == 4
+        ref = packed_prefill_attention_ref(qs, kcs, vcs, 1, tables, seg_t,
+                                           pos_t, valid, round_scaled_q=True,
+                                           k_scale=kss, v_scale=vss)
+        assert bool((out[~valid] == 0).all())
+        assert _rel(out[valid], ref[valid]) < REL_TOL
+
+
+@pytest.mark.gpu
+def test_vocab_parallel_epilogue_on_two_ranks_equals_the_off_argmax_on_gpu():
+    _cuda()
+    g = torch.Generator(device="cuda").manual_seed(6)
+    B, d, V = 4, CFG.d_model, CFG.vocab_size
+    h = torch.randint(-2, 3, (B, d), generator=g, device="cuda").to(
+        torch.bfloat16)
+    w = torch.randint(-3, 4, (d, V), generator=g, device="cuda").to(
+        torch.bfloat16)
+    temps = torch.tensor([0.0, 0.7, 1.0, 1.3], device="cuda")
+    # fp32 reductions throughout: the integer products then sum exactly
+    # whatever split of the reduction cuBLAS picks for a shape
+    reduced = torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+    try:
+        _epilogue_ranks(h, w, temps)
+    finally:
+        torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = \
+            reduced
+
+
+def _epilogue_ranks(h, w, temps):
+    V = w.shape[1]
+    whole = fs.fused_sample_stats(h, w, temps)
+    store = dist.HashStore()
+    out, errs = [None] * TP, []
+
+    def rank(r):
+        try:
+            pg = dist.ProcessGroupGloo(dist.PrefixStore("voc", store), r, TP,
+                                       datetime.timedelta(seconds=60))
+            group = mesh.TensorGroup("gloo", pg, r, TP)
+            n = V // TP
+            wl = w[:, r * n:(r + 1) * n].contiguous()
+            off = group.gather_vocab((h @ wl).float())
+            out[r] = (torch.argmax(off, dim=-1).to(torch.int32),
+                      fs.fused_greedy_tokens(h, wl, group=group),
+                      fs.fused_sample_stats(h, wl, temps, group=group))
+            torch.cuda.synchronize()
+        except BaseException as e:  # re-raised on the test's thread
+            errs.append(e)
+
+    threads = [threading.Thread(target=rank, args=(r,)) for r in range(TP)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(120)
+    assert not errs and not any(t.is_alive() for t in threads), errs
+    for want, greedy, stats in out:
+        assert torch.equal(greedy, want)
+        assert torch.equal(greedy.long(), whole[1])
+        for a, b in zip(stats[:4], whole[:4]):
+            assert torch.equal(a, b)
+        torch.testing.assert_close(stats[4], whole[4], rtol=1e-6,
+                                   atol=1e-6)
 
 
 @pytest.mark.gpu
