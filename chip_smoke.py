@@ -422,6 +422,25 @@ K3, and rank 0's launches equal the ranks 1's: `tp_features_launches`
 is [rank 0, rank 1] of both engines.  The kernel checks also hold K3's
 32-token verify stream at the slab (`tp2_slab["verify"]`).
 
+The sp phase (last, llama-8b at TP_LAYERS; alone with --sp, all 32
+layers, then a tp=2 x sp=2 engine of four ranks at TP_LAYERS): a tp=1
+engine (graphs, warmed up) and an sp=2 engine (rank 1 spawned, both
+ranks on the card over gloo, eager) on the same random weights, the
+context raised to 8192 tokens; a 5000-token prompt (past the largest
+prefill bucket, so it pads to T_pad 8192 and each rank holds 4096 query
+rows) and a 300-token one, one at a time.  The long prompt takes the
+ring prefill once and the short one stays packed (`ring_prefills`); the
+ring's first-token logits are within TP_LOGIT_TOL std of tp=1's chunked
+ones and the streams' leading tokens equal tp=1's (a parting only at a
+near-tie); K1 and K3 launch on both ranks alike (`sp_launches`, [rank
+0, rank 1]); the card's memory is back after close.  Logged: each
+rank's ring program ms (CUDA events) against its bound (products at
+989 TFLOP/s, the fp32 ring attention at 67 TFLOP/s), the bytes it sent
+round the ring, its peak memory, and TTFT against tp=1's chunked TTFT.
+Then the pipeline check: parallel/pipeline.py with two stages of
+llama-8b's MLP as threads on the card, against their sequential
+composition.
+
 Bounds use the H100 SXM data sheet (3.35 TB/s HBM3, 989 TFLOP/s dense
 bf16); a card run below its 700 W limit is slower, so its limit is
 printed beside every number.
@@ -9552,6 +9571,588 @@ def check_tp_features(device, card: str, n_layers: int,
     return out
 
 
+# ---------------------------------------------------------------------------
+# sequence parallelism: the ring prefill on ranks of one card, and the
+# pipeline primitive
+# ---------------------------------------------------------------------------
+
+# a prompt past the largest prefill bucket (2048): it pads to T_pad =
+# 8192 (a pow2 multiple of sp x the smallest bucket), 4096 query rows a
+# rank at sp = 2, and the short one stays on the packed path
+SP_PROMPT = 5000
+SP_SHORT = 300
+SP_NEW = 16
+# the sp engines' context (64 blocks of 128 tokens, 8192 positions) and
+# pool (the long prompt's 40 blocks and the short one's, with room)
+SP_BLOCKS_PER_SEQ = 64
+SP_NUM_BLOCKS = 160
+# the pipeline check: two stages of llama-8b's MLP, PP_MICRO
+# microbatches of PP_TOKENS tokens
+PP_MICRO = 4
+PP_TOKENS = 256
+PP_REL_TOL = 1e-3
+
+
+def _sp_config(mc, **kw):
+    """The sp phase's engine config: llama-8b's widths (`mc`), the
+    default prefill buckets (largest 2048), four slots, the context
+    raised to SP_BLOCKS_PER_SEQ blocks of 128, a bf16 cache of
+    SP_NUM_BLOCKS blocks."""
+    from dynamo_tpu_torch.engine import EngineConfig
+
+    return EngineConfig(model_config=mc, block_size=128,
+                        max_blocks_per_seq=SP_BLOCKS_PER_SEQ,
+                        num_blocks=SP_NUM_BLOCKS, max_num_seqs=4,
+                        max_batch_tokens=2048, max_prefill_seqs=4, seed=0,
+                        **kw)
+
+
+def _sp_requests(vocab: int) -> list:
+    """The long greedy request and the short one, SP_NEW tokens each."""
+    from dynamo_tpu_torch.protocols import (
+        PreprocessedRequest,
+        SamplingOptions,
+        StopConditions,
+    )
+
+    rng = np.random.default_rng(23)
+    return [PreprocessedRequest(
+        token_ids=rng.integers(0, vocab, n).tolist(), request_id=f"sp-{i}",
+        sampling=SamplingOptions(temperature=0.0),
+        stop=StopConditions(max_tokens=SP_NEW, ignore_eos=True))
+        for i, n in enumerate((SP_PROMPT, SP_SHORT))]
+
+
+def _ring_t_pad(cfg) -> int:
+    """The engine's T_pad of the long prompt (engine/core.py
+    _prefill_ring_one)."""
+    g = cfg.sp * cfg.prefill_buckets[0]
+    n = -(-SP_PROMPT // g)
+    return (1 << (n - 1).bit_length()) * g
+
+
+def _ring_bound(mc, T_pad: int, sp: int, rank: int) -> dict:
+    """Ring rank `rank`'s least time for its ring prefill program
+    (obs/costs.py ring_terms; `mc` the rank's shard config under tp):
+    the larger of its bytes over HBM and its
+    operations, the products over 989 TFLOP/s bf16 plus the fp32 ring
+    attention over 67 TFLOP/s."""
+    from dynamo_tpu_torch.obs.costs import ring_terms
+
+    t = ring_terms(mc, T_pad, sp, rank, False)
+    ops = (t["matmul_flops"] / BF16_FLOPS_PER_S
+           + t["attn_flops"] / FP32_FLOPS_PER_S) * 1e3
+    nbytes = (t["weight_bytes"] + t["kv_write_bytes"] + t["out_bytes"]) \
+        / HBM_BYTES_PER_S * 1e3
+    return {"bound_ms": max(ops, nbytes),
+            "bound_by": "operations" if ops >= nbytes else "bytes",
+            "attn_share": t["attn_flops"] / FP32_FLOPS_PER_S * 1e3
+            / max(ops, nbytes)}
+
+
+async def _serve_one_by_one(eng, reqs) -> list:
+    """Each request alone, in order (a ring prefill needs its prompt to
+    be the only one prefilling)."""
+    out = []
+    for r in reqs:
+        out += await _serve(eng, [r])
+    return out
+
+
+@contextlib.contextmanager
+def _ring_logits(into: list):
+    """Collect the logits the ring prefill returns in this process (ring
+    rank 0's) into `into`."""
+    from dynamo_tpu_torch.models import llama
+
+    orig = llama.prefill_ring
+
+    def spy(*a, **kw):
+        logits, kv = orig(*a, **kw)
+        if logits is not None:
+            into.append(logits.float().clone())
+        return logits, kv
+
+    llama.prefill_ring = spy
+    try:
+        yield
+    finally:
+        llama.prefill_ring = orig
+
+
+def _sp_mesh(device, card: str, mc, mesh: dict, ref: list,
+             ref_logits: torch.Tensor, kernels: set,
+             what: str, profile: bool = False) -> dict:
+    """An engine on the mesh `mesh` (every rank on `device`, gloo, eager)
+    serving the long and the short request one at a time, held to the
+    tp=1 engine's streams `ref` and first-token logits `ref_logits`:
+    ring_prefills 1 after the long prompt and after the short one; the
+    ring's logits within TP_LOGIT_TOL std of tp=1's chunked ones; the
+    streams' leading tokens equal (a parting only at a tp=1 near-tie);
+    every rank launching each of `kernels`, all ranks alike; the card's
+    memory back and no rank left after close; the long prompt served
+    again cold (the prefix cache cleared) streams the same, through a
+    second, warm ring call.  Logs each rank's ring program ms (CUDA
+    events; first and warm) against its bound, the bytes it sent round
+    the ring, its peak memory, and TTFT; with `profile`, rank 0's kernels
+    in a third, warm ring call split by family (_profile_split)."""
+    from dynamo_tpu_torch.engine import TorchEngine
+    from dynamo_tpu_torch.ops import launch_counts
+    from dynamo_tpu_torch.parallel.mesh import shard_config
+
+    reqs = _sp_requests(mc.vocab_size)
+    world = mesh.get("tp", 1) * mesh["sp"]
+
+    async def run() -> dict:
+        out = {}
+        gc.collect()
+        torch.cuda.empty_cache()
+        free0 = torch.cuda.mem_get_info(device)[0]
+        torch.cuda.reset_peak_memory_stats(device)
+        life, extra, logits = launch_counts(), {}, []
+        t0 = time.perf_counter()
+        eng = TorchEngine(_sp_config(mc, **mesh), devices=[device] * world,
+                          cuda_graphs=False, mesh_timeout_s=TP_TIMEOUT_S)
+        try:
+            out["build_s"] = time.perf_counter() - t0
+            log(f"{what}: {world} ranks on {[str(device)] * world}, ring "
+                f"over {eng.mesh.ring.backend}, tensor groups over "
+                f"{eng.mesh.backend if eng.mesh.tensor else 'none'} "
+                f"(eager), up in {out['build_s']:.1f} s; "
+                f"{eng.config.num_blocks} blocks, context "
+                f"{eng.config.max_context}")
+            with _ring_logits(logits):
+                got = [(await _serve(eng, [reqs[0]]))[0]]
+            out["ring_after_long"] = eng.metrics.get("ring_prefills", 0)
+            got += await _serve(eng, [reqs[1]])
+            out["ring_after_short"] = eng.metrics.get("ring_prefills", 0)
+            log(f"{what}: ring_prefills {out['ring_after_long']} after the "
+                f"{SP_PROMPT}-token prompt, {out['ring_after_short']} after "
+                f"the {SP_SHORT}-token one")
+            if (out["ring_after_long"], out["ring_after_short"]) != (1, 1) \
+                    or len(logits) != 1:
+                raise SystemExit(f"{what}: the long prompt did not take "
+                                 "the ring prefill once, or the short one "
+                                 "took it")
+            std = ref_logits.std().item()
+            diff = (logits[0] - ref_logits).abs().max().item()
+            out["logit_diff_over_std"] = diff / std
+            log(f"{what}: first-token logits of the {SP_PROMPT}-token "
+                f"prompt, ring against tp=1's chunked prefill: max |diff| "
+                f"{diff:.4f}, std {std:.4f}, {diff / std:.4f} std "
+                f"(tolerance {TP_LOGIT_TOL}); argmax "
+                f"{int(logits[0].argmax())} / {int(ref_logits.argmax())}")
+            if not diff / std <= TP_LOGIT_TOL:
+                raise SystemExit(f"{what}: logits {diff / std:.4f} std "
+                                 "from tp=1's")
+            with _launches_into(extra):  # replays on rank 0's weights
+                out["leading"] = _tp_streams(what, got, ref, reqs,
+                                             eng.params, mc, device)
+            log(f"{what}: the streams' leading tokens equal to tp=1's, "
+                f"of {SP_NEW}: {out['leading']}")
+            out["ttft_s"] = got[0][2]
+            # the long prompt again, cold (the prefix cache cleared): the
+            # ring program warm, the same stream
+            await eng.clear_kv_blocks()
+            again = (await _serve(eng, [reqs[0]]))[0]
+            if eng.metrics.get("ring_prefills", 0) != 2 \
+                    or again[0] != got[0][0]:
+                raise SystemExit(f"{what}: the repeated long prompt took "
+                                 "no ring or streamed otherwise")
+            out["warm_ttft_s"] = again[2]
+            if profile:
+                # once more, warm, under torch.profiler on this thread (the
+                # engine idle, its step lock held)
+                a = _ring_descriptor(eng, reqs[0])
+                with eng._step_lock:
+                    out["split"] = _profile_split(
+                        lambda: eng._dispatch_ring(a), _ring_ranges(),
+                        _ring_family, RING_FAMILIES,
+                        f"{what}: rank 0's kernels in a warm ring prefill, "
+                        f"under the profiler ({card})")
+            out["peak_gib"] = {"rank0": torch.cuda.max_memory_allocated(
+                device) / 2**30}
+        finally:
+            await eng.close()
+        # each rank's ring calls: the first, the warm one (and the
+        # profiled one)
+        calls = {"rank0": list(eng.ring_calls_ms), **{
+            f"rank{r}": m.get("ring_calls_ms", [])
+            for r, m in eng.rank_metrics.items()}}
+        out["ring_calls_ms"] = calls
+        out["ring_ms"] = {k: v[0] for k, v in calls.items()}
+        out["warm_ring_ms"] = {k: v[1] for k, v in calls.items()}
+        out["ring_bytes"] = {"rank0": eng.metrics["ring_bytes"]
+                             // len(calls["rank0"])}
+        for r, m in eng.rank_metrics.items():
+            out["ring_bytes"][f"rank{r}"] = \
+                m.get("ring_bytes", 0) // len(calls[f"rank{r}"])
+            out["peak_gib"][f"rank{r}"] = \
+                m.get("max_memory_allocated", 0) / 2**30
+        leader = {k: v - life[k] - extra.get(k, 0)
+                  for k, v in launch_counts().items()}
+        out["launches"] = {"rank0": leader, **{
+            f"rank{r}": c for r, c in eng.rank_launches.items()}}
+        log(f"{what}: kernel launches while serving, by rank: "
+            f"{out['launches']}")
+        for rank, counts in out["launches"].items():
+            if not all(counts.get(k, 0) > 0 for k in kernels):
+                raise SystemExit(f"{what}: {rank} launched {counts}, not "
+                                 f"every one of {kernels}")
+            if counts != leader:
+                raise SystemExit(f"{what}: the ranks launched different "
+                                 f"kernels {out['launches']}")
+        T_pad = _ring_t_pad(eng.config)
+        sp = mesh["sp"]
+        local = shard_config(mc, mesh.get("tp", 1))
+        for name, ms in out["ring_ms"].items():
+            r = int(name[4:])
+            b = _ring_bound(local, T_pad, sp, r % sp)
+            out.setdefault("bound", {})[name] = b
+            warm = out["warm_ring_ms"][name]
+            log(f"{what}: {name} (ring rank {r % sp}) ring prefill of "
+                f"T_pad {T_pad} ({T_pad // sp} rows) on the device's "
+                f"timeline: first {ms:.1f} ms, warm {warm:.1f} ms; bound "
+                f"{b['bound_ms']:.2f} ms ({b['bound_by']}; its fp32 ring "
+                f"attention {b['attn_share']:.0%} of it) = "
+                f"{b['bound_ms'] / warm:.1%} of the warm call; sent "
+                f"{out['ring_bytes'][name] / 1e6:.1f} MB round the ring a "
+                f"call; peak {out['peak_gib'][name]:.2f} GiB ({card})")
+        del eng
+        gc.collect()
+        torch.cuda.empty_cache()
+        left = _tp_ranks_left()
+        # an exited rank's CUDA context may take a moment to be freed
+        free1, t_free = torch.cuda.mem_get_info(device)[0], time.monotonic()
+        while free1 < free0 - 2**30 and time.monotonic() - t_free < 20:
+            time.sleep(0.5)
+            free1 = torch.cuda.mem_get_info(device)[0]
+        out["free_gib_before_after"] = (free0 / 2**30, free1 / 2**30)
+        log(f"{what}: after close, rank processes left {left}; card memory "
+            f"free {free0 / 2**30:.2f} GiB before the engine, "
+            f"{free1 / 2**30:.2f} GiB after "
+            f"{time.monotonic() - t_free:.1f} s")
+        if left or free1 < free0 - 2**30:
+            raise SystemExit(f"{what}: ranks {left} left or the card's "
+                             "memory not back after close")
+        return out
+
+    return asyncio.run(run())
+
+
+RING_FAMILIES = ("ring attention", "products", "other")
+
+
+def _ring_ranges() -> dict:
+    """_profile_split's ranges: ring_attention (models/llama.py imports
+    it at each call, so the module attribute is what it finds)."""
+    from dynamo_tpu_torch.ops import ring_attention as ring_mod
+
+    return {(ring_mod, "ring_attention"): "ring_attention"}
+
+
+def _ring_family(op, chain) -> Optional[str]:
+    """_profile_split's classifier of a ring prefill: every kernel under
+    ring_attention's range (its fp32 products, the online softmax's
+    elementwise passes, the shards' copies to and from the host), the
+    products outside it (projections, MLP, lm_head), and the rest
+    (norms, rope, the cache writes, the embedding, the sampler)."""
+    if op is None:
+        return None
+    if "ring_attention" in chain:
+        return "ring attention"
+    if op in ("aten::mm", "aten::addmm", "aten::bmm", "aten::matmul"):
+        return "products"
+    return "other"
+
+
+def _ring_descriptor(eng, req) -> dict:
+    """`req`'s prompt (the long one) as the engine's prefill_ring step, on a
+    table of zeros: every K/V write lands in the garbage block 0."""
+    c = eng.config
+    T_pad = _ring_t_pad(c)
+    toks = np.zeros(T_pad, np.int32)
+    toks[:len(req.token_ids)] = req.token_ids
+    return {"toks": toks, "positions": np.arange(T_pad, dtype=np.int32),
+            "block_table": np.zeros(c.max_blocks_per_seq, np.int32),
+            "true_len": np.int32(len(req.token_ids)),
+            "seed": np.int32(0), "temp": np.float32(0.0),
+            "top_k": np.int32(0), "top_p": np.float32(1.0)}
+
+
+# ring attention alone at the sp phase's shapes: llama-8b's heads, a
+# T_pad of RING_T over two ranks, causal; timed RING_ITERS times after a
+# warm call
+RING_T = 8192
+RING_ITERS = 3
+
+
+def check_ring_attention(device, card: str) -> dict:
+    """ops/ring_attention.py alone on the card: two ranks as threads of
+    this process over a gloo ring (their kernels share the card's one
+    stream, so the pair's wall is both ranks' work), bf16 q/k/v of
+    llama-8b's heads (32 over 8, hd 128) at T = RING_T, causal.  Holds the
+    ring's output to the plain version (`attention_reference`, fp32
+    scores over the whole square) and to SDPA within REL_TOL per row,
+    and logs the pair's ms (host clock, synchronized) against the bound
+    of both ranks' fp32 attention (ring rank 0 one shard, rank 1 two) at
+    67 TFLOP/s, beside the plain version's and one SDPA call's ms."""
+    import datetime
+
+    import torch.distributed as dist
+
+    from dynamo_tpu_torch.models.llama import PRESETS
+    from dynamo_tpu_torch.ops.ring_attention import (
+        attention_reference,
+        ring_attention,
+    )
+    from dynamo_tpu_torch.parallel.mesh import RingGroup
+
+    cfg = PRESETS["llama-8b"]
+    sp, T = 2, RING_T
+    tq = T // sp
+    gen = torch.Generator(device=device).manual_seed(11)
+    q, k, v = (torch.randn(1, T, h, cfg.head_dim, generator=gen,
+                           device=device).to(torch.bfloat16)
+               for h in (cfg.n_heads, cfg.n_kv_heads, cfg.n_kv_heads))
+    store = dist.HashStore()
+    groups = [None] * sp
+
+    def pair(out=None):
+        errs = []
+
+        def rank(r):
+            try:
+                torch.cuda.set_device(device)
+                if groups[r] is None:
+                    groups[r] = RingGroup("gloo", dist.ProcessGroupGloo(
+                        dist.PrefixStore("ring", store), r, sp,
+                        datetime.timedelta(seconds=TP_TIMEOUT_S)), r, sp)
+                o = ring_attention(q[:, r * tq:(r + 1) * tq],
+                                   k[:, r * tq:(r + 1) * tq],
+                                   v[:, r * tq:(r + 1) * tq], groups[r])
+                torch.cuda.synchronize(device)
+                if out is not None:
+                    out[r] = o
+            except BaseException as e:  # re-raised below
+                errs.append(e)
+
+        threads = [threading.Thread(target=rank, args=(r,))
+                   for r in range(sp)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(TP_TIMEOUT_S)
+        if errs or any(t.is_alive() for t in threads):
+            raise SystemExit(f"ring attention: a rank failed or hung: "
+                             f"{errs}")
+
+    outs = [None] * sp
+    pair(outs)  # warm, and the output checked
+    walls = []
+    for _ in range(RING_ITERS):
+        t0 = time.perf_counter()
+        pair()
+        walls.append((time.perf_counter() - t0) * 1e3)
+    got = torch.cat(outs, dim=1)
+    kh, vh = (x.repeat_interleave(cfg.n_heads // cfg.n_kv_heads, dim=2)
+              .transpose(1, 2) for x in (k, v))
+
+    def lib():
+        return torch.nn.functional.scaled_dot_product_attention(
+            q.transpose(1, 2), kh, vh, is_causal=True).transpose(1, 2)
+
+    def plain():
+        return attention_reference(q, k, v)
+
+    lib_out, ref = lib(), plain()
+    err = (got.float() - ref.float()).abs().max().item()
+    rel, rel_lib = row_rel_err(got, ref), row_rel_err(got, lib_out)
+    del ref, lib_out
+    lib_ms = time_ms(lib, iters=10, warmup=2)
+    plain_ms = time_ms(plain, iters=2, warmup=1)
+    torch.cuda.empty_cache()
+    chunk = 2 * 2 * tq * tq * cfg.n_heads * cfg.head_dim
+    flops = (1 + 2) * chunk  # ring rank 0 one shard, rank 1 two
+    bound_ms = flops / FP32_FLOPS_PER_S * 1e3
+    ms = float(np.median(walls))
+    out = {"T": T, "sp": sp, "ms": ms, "walls_ms": walls,
+           "bound_ms": bound_ms, "bound_by": "operations",
+           "plain_ms": plain_ms, "library_ms": lib_ms,
+           "max_abs_err": err, "rel_err": rel, "rel_err_sdpa": rel_lib}
+    log(f"ring attention alone (llama-8b heads 32 over 8, hd 128, T {T} "
+        f"over {sp} ranks as threads, causal, bf16 in, fp32 scores): "
+        f"median {ms:.2f} ms of {RING_ITERS} (host clock, both ranks), "
+        f"bound {bound_ms:.2f} ms ({flops / 1e12:.3f} TFLOP fp32 at 67 "
+        f"TFLOP/s) = {bound_ms / ms:.1%}; plain version {plain_ms:.2f} "
+        f"ms, SDPA {lib_ms:.3f} ms; against the plain version max |diff| "
+        f"{err:.3g}, per-row relative L2 {rel:.3g}, against SDPA {rel_lib:.3g}"
+        f" (tolerance {REL_TOL}) ({card})")
+    if not (rel <= REL_TOL and rel_lib <= REL_TOL):
+        raise SystemExit("ring attention disagrees with its plain version "
+                         "or SDPA")
+    return out
+
+
+def _sp_reference(device, card: str, mc, timing: bool) -> tuple:
+    """The tp=1 engine (graphs, warmed up, with `timing`; else eager) on
+    the same random weights: the two requests one at a time, chunked, and
+    the long prompt's first-token logits (its last chunk's packed
+    program).  Returns (results, logits, TTFT of the long prompt)."""
+    from dynamo_tpu_torch.engine import TorchEngine
+
+    reqs = _sp_requests(mc.vocab_size)
+
+    async def run():
+        e1 = TorchEngine(_sp_config(mc), device=device, cuda_graphs=timing)
+        try:
+            if timing:
+                e1.warmup_decode()
+            res = [(await _serve(e1, [reqs[0]]))[0]]
+            last = [r for r in e1.fpm if r.get("bucket")][-1]["bucket"]
+            logits = _first_logits(e1, last).float()
+            res += await _serve(e1, [reqs[1]])
+            log(f"sp reference: tp=1 {'graphs' if timing else 'eager'}, "
+                f"the {SP_PROMPT}-token prompt chunked (last chunk's bucket "
+                f"{last}), TTFT {res[0][2]:.3f} s ({card})")
+        finally:
+            await e1.close()
+            _free_engine(e1)
+        return res, logits
+
+    return asyncio.run(run())
+
+
+def _pp_stage(params, state, x, active):
+    """One stage of the pipeline check: llama-8b's SwiGLU MLP as a
+    residual block; its state counts the tokens it took."""
+    h = torch.nn.functional.silu(x @ params["w_gate"]) * (x @ params["w_up"])
+    return x + h @ params["w_down"], {
+        "count": state["count"] + (x.shape[0] if active else 0)}
+
+
+def check_pipeline(device, card: str) -> dict:
+    """parallel/pipeline.py pipeline_apply with two stages as threads on
+    `device` (a gloo ring of two, host-staged hops), at llama-8b's MLP
+    widths in bf16 with random weights, against the sequential
+    composition of the same stages: the outputs within PP_REL_TOL
+    relative L2 per row, every stage's count PP_MICRO x PP_TOKENS.  Logs
+    both times (CUDA events around each; one card does both stages, so
+    the schedule buys no overlap here)."""
+    import datetime
+
+    import torch.distributed as dist
+
+    from dynamo_tpu_torch.models.llama import PRESETS
+    from dynamo_tpu_torch.parallel.mesh import RingGroup
+    from dynamo_tpu_torch.parallel.pipeline import pipeline_apply
+
+    cfg = PRESETS["llama-8b"]
+    d, f, S = cfg.d_model, cfg.ffn_dim, 2
+    gen = torch.Generator(device=device).manual_seed(7)
+
+    def w(*shape, fan):
+        return (torch.randn(shape, generator=gen, device=device)
+                / fan ** 0.5).to(torch.bfloat16)
+
+    params = {"w_gate": w(S, d, f, fan=d), "w_up": w(S, d, f, fan=d),
+              "w_down": w(S, f, d, fan=f)}
+    xs = torch.randn(PP_MICRO, PP_TOKENS, d, generator=gen,
+                     device=device).to(torch.bfloat16)
+    state = {"count": torch.zeros(S, dtype=torch.int64, device=device)}
+
+    def sequential():
+        ys = []
+        for m in range(PP_MICRO):
+            x = xs[m]
+            for s in range(S):
+                x, _ = _pp_stage({k: v[s] for k, v in params.items()},
+                                 {"count": state["count"][s]}, x, True)
+            ys.append(x)
+        return torch.stack(ys)
+
+    store = dist.HashStore()
+    res, errs = [None] * S, []
+
+    def stage(r):
+        try:
+            torch.cuda.set_device(device)
+            pg = dist.ProcessGroupGloo(
+                dist.PrefixStore("pp", store), r, S,
+                datetime.timedelta(seconds=TP_TIMEOUT_S))
+            res[r] = pipeline_apply(_pp_stage, params, state, xs,
+                                    RingGroup("gloo", pg, r, S))
+            torch.cuda.synchronize(device)
+        except BaseException as e:  # re-raised below
+            errs.append(e)
+
+    ref = sequential()
+    t0 = time.perf_counter()
+    threads = [threading.Thread(target=stage, args=(r,)) for r in range(S)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(TP_TIMEOUT_S)
+    pp_ms = (time.perf_counter() - t0) * 1e3
+    if errs or any(t.is_alive() for t in threads):
+        raise SystemExit(f"pipeline: a stage failed or hung: {errs}")
+    seq_ms = time_ms(sequential, iters=3, warmup=1)
+    out = {"micro": PP_MICRO, "tokens": PP_TOKENS, "stages": S}
+    rel = max(row_rel_err(ys, ref) for ys, _ in res)
+    out["max_abs_err"] = max((ys.float() - ref.float()).abs().max().item()
+                             for ys, _ in res)
+    out["rel_err"] = rel
+    counts = [int(st["count"][0]) for _, st in res]
+    out.update(counts=counts, pipeline_ms=pp_ms, sequential_ms=seq_ms)
+    log(f"pipeline: {S} stages of llama-8b's MLP (d {d}, ffn {f}, bf16) "
+        f"as threads on {device}, {PP_MICRO} microbatches of {PP_TOKENS} "
+        f"tokens: outputs against the sequential composition max |diff| "
+        f"{out['max_abs_err']:.3g}, per-row relative L2 {rel:.3g} "
+        f"(tolerance {PP_REL_TOL}); stage counts {counts}; pipelined "
+        f"{pp_ms:.1f} ms (host clock, thread start to join, gloo hops "
+        f"through the host) against sequential {seq_ms:.2f} ms ({card})")
+    if not rel <= PP_REL_TOL or counts != [PP_MICRO * PP_TOKENS] * S:
+        raise SystemExit(f"pipeline: outputs {rel} from the sequential "
+                         f"composition or counts {counts}")
+    return out
+
+
+def check_sp(device, card: str, n_layers: int, tp_sp: bool = False) -> dict:
+    """The sequence-parallel phase: a tp=1 engine (graphs, warmed up) and
+    an sp=2 engine (rank 0 here, rank 1 spawned, both on `device` over
+    gloo, eager) at llama-8b width and `n_layers` deep, random bf16
+    weights from seed 0, the context raised to 8192 tokens; with `tp_sp`
+    also a tp=2 x sp=2 engine (four ranks) at TP_LAYERS against an eager
+    tp=1 one; ring attention alone; then the pipeline check."""
+    from dynamo_tpu_torch.models.llama import PRESETS
+
+    t0 = time.perf_counter()
+    kernels = {fn.__name__ for fn in _kernels_of("bf16")}
+    mc = dataclasses.replace(PRESETS["llama-8b"], n_layers=n_layers)
+    out = {"layers": n_layers}
+    ref, logits = _sp_reference(device, card, mc, timing=True)
+    out["sp2"] = _sp_mesh(device, card, mc, {"sp": 2}, ref, logits,
+                          kernels, "sp2", profile=True)
+    out["sp2"]["tp1_ttft_s"] = ref[0][2]
+    log(f"sp2: TTFT of the {SP_PROMPT}-token prompt {out['sp2']['ttft_s']:.3f}"
+        f" s through the ring against {ref[0][2]:.3f} s chunked at tp=1 "
+        f"({card})")
+    del logits
+    if tp_sp:
+        mc4 = dataclasses.replace(mc, n_layers=TP_LAYERS)
+        ref4, logits4 = _sp_reference(device, card, mc4, timing=False)
+        out["tp2_sp2"] = _sp_mesh(device, card, mc4, {"tp": 2, "sp": 2},
+                                  ref4, logits4, kernels, "tp2 x sp2")
+        del logits4
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["ring_attention"] = check_ring_attention(device, card)
+    out["pipeline"] = check_pipeline(device, card)
+    out["seconds"] = time.perf_counter() - t0
+    log(f"sp phase ({n_layers} layers) done in {out['seconds']:.1f} s")
+    return out
+
+
 def tp_slab_kernels(cfg, device) -> list:
     """K1 (B = 8) and K3 (T = 2048, and the 32-token verify stream of a
     speculative round), each mode, at a tp=2 rank's slab of cfg (its
@@ -9869,6 +10470,15 @@ def main() -> int:
             default=str), flush=True)
         print(card, flush=True)
         return 0
+    if sys.argv[1:] == ["--sp"]:
+        # python3 chip_smoke.py --sp: the ring prefill on two ranks of one
+        # card at full depth, a tp=2 x sp=2 engine at TP_LAYERS, and the
+        # pipeline check
+        build_kernels()
+        out = check_sp(device, card, cfg.n_layers, tp_sp=True)
+        print(json.dumps({"sp": out}, default=str), flush=True)
+        print(card, flush=True)
+        return 0
     if sys.argv[1:] == ["--worker-ab"]:
         # python3 chip_smoke.py --worker-ab: the engine directly against
         # the engine behind the worker, in turns
@@ -9987,6 +10597,10 @@ def main() -> int:
     torch.cuda.empty_cache()
     tpx = check_tp_features(device, card, TP_LAYERS, rounds=0)
     log(f"tp features phase done at {time.perf_counter() - t_start:.1f} s")
+    gc.collect()
+    torch.cuda.empty_cache()
+    spx = check_sp(device, card, TP_LAYERS)
+    log(f"sp phase done at {time.perf_counter() - t_start:.1f} s")
     # rank 1's launches on the tp=2 side of every disagg hop and of the
     # KVBM engine
     tpd_rank1 = {}
@@ -10028,6 +10642,9 @@ def main() -> int:
         # rank 1 (both engines of the phase)
         k["tp_features_launches"] = [
             tpx["launches"][r].get(k["name"], 0) for r in ("rank0", "rank1")]
+        # rank 0 / rank 1 of the sp=2 engine (bf16 cache)
+        k["sp_launches"] = [spx["sp2"]["launches"][r].get(k["name"], 0)
+                            for r in ("rank0", "rank1")]
     for k in dma:  # the microbench is on no serving path
         k["disagg_prefill_launches"] = k["disagg_decode_launches"] = 0
         k["disagg_ipc_prefill_launches"] = k["disagg_ipc_decode_launches"] = 0
@@ -10036,7 +10653,7 @@ def main() -> int:
         k["mla_launches"] = k["etcd_launches"] = k["kube_launches"] = 0
         k["embed_launches"] = k["encoder_launches"] = 0
         k["tp_launches"] = k["tp_families_launches"] = [0, 0]
-        k["tp_features_launches"] = [0, 0]
+        k["tp_features_launches"] = k["sp_launches"] = [0, 0]
         k["tp_disagg_rank1_launches"] = 0
     log(f"chip_smoke: every phase passed in "
         f"{time.perf_counter() - t_start:.1f} s")

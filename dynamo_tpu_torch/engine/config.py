@@ -1,11 +1,7 @@
 """Engine configuration.
 
 The counterpart of dynamo_tpu/engine/config.py, keeping the JAX field
-names and defaults of everything this slice of the port serves.  Fields
-of JAX-engine features the port does not have yet are kept with their
-JAX defaults so a shared launcher config reads the same, and setting one
-to anything else raises: a silently ignored knob would let a deployment
-believe it runs a feature it does not (ROADMAP.md lists what is left).
+names and defaults: the port serves every field the JAX config has.
 """
 
 from __future__ import annotations
@@ -23,12 +19,6 @@ from ..ops.paged_attention import DECODE_IMPLS
 ROLES = ("both", "prefill", "decode")
 # speculative decoding's proposers (the JAX CLI's --spec-decode choices)
 SPEC_MODES = ("off", "ngram", "draft")
-
-# field -> (default, the feature it belongs to)
-_UNPORTED = {
-    "sp": (1, "sequence-parallel ring prefill"),
-}
-
 
 @dataclass
 class EngineConfig:
@@ -209,24 +199,21 @@ class EngineConfig:
     reasoning_parser: str = ""
     seed: int = 0
 
-    # the mesh (parallel/mesh.py): dp replicas of tp ranks, one process
-    # per rank driven by the leader's step stream (parallel/multihost.py);
-    # it serves every feature above, as the JAX engine's mesh does
+    # the mesh (parallel/mesh.py): dp replicas of tp x sp ranks, one
+    # process per rank driven by the leader's step stream
+    # (parallel/multihost.py); it serves every feature above, as the JAX
+    # engine's mesh does.  sp > 1 adds the sequence-parallel ring prefill
+    # (models/llama.py prefill_ring): a cold prompt past the largest
+    # prefill bucket runs as one ring-attention program over the sp
+    # ranks, each holding the whole cache
     dp: int = 1
     tp: int = 1
-    # sequence parallelism: not ported yet (see _UNPORTED)
     sp: int = 1
 
     def __post_init__(self):
-        for name, (default, feature) in _UNPORTED.items():
-            value = getattr(self, name)
-            if value != default:
-                raise NotImplementedError(
-                    f"EngineConfig.{name}={value!r}: {feature} is not ported "
-                    f"to dynamo_tpu_torch yet (default {default!r})")
-        if self.dp < 1 or self.tp < 1:
-            raise ValueError(f"dp and tp must be >= 1, got dp={self.dp} "
-                             f"tp={self.tp}")
+        if self.dp < 1 or self.tp < 1 or self.sp < 1:
+            raise ValueError(f"dp, tp and sp must be >= 1, got dp={self.dp} "
+                             f"tp={self.tp} sp={self.sp}")
         # imported here: ops/fused_sampling.py imports the engine package
         from ..ops.fused_sampling import EPILOGUE_MODES
 

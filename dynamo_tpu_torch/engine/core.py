@@ -183,6 +183,20 @@ combines the ranks' statistics in one gather a step
 programs run eagerly: gloo's collectives cannot be captured, and
 cuda_graphs=True raises.  `close` stops and joins every rank.
 
+Sequence parallelism (sp > 1, the JAX engine's long-context path): the
+mesh's ranks at s != 0 hold replicas of their s = 0 peer's cache slab
+and run every step alike.  A cold, adapter-less prompt past the largest
+prefill bucket, alone in the step (`_ring_eligible`, JAX's predicate,
+tested before the packed and the padded paths, as JAX orders them),
+takes the ring program (`_prefill_ring_one`): padded to a pow2 multiple
+of sp x the smallest bucket, published as JAX's `prefill_ring` step,
+run eagerly on every rank (models/llama.py prefill_ring: each rank its
+rows, the whole prompt's K/V written into every rank's cache), its first
+token sampled on the leader; `metrics["ring_prefills"]`, the ring's ms
+and bytes, the capture watch's "prefill_ring" record at each new T_pad,
+no FPM record (as in JAX).  The DeepSeek family has no ring and runs
+replicated on an sp mesh, as in JAX.
+
 Not here yet (ROADMAP.md): penalties (the JAX engine ignores them too).
 """
 
@@ -232,6 +246,7 @@ from ..parallel.mesh import (
     kv_heads_replicated,
     mesh_devices,
     shard_config,
+    tensor_group_ranks,
 )
 from ..parallel.multihost import (
     STOP,
@@ -268,7 +283,7 @@ from .graphs import (
     check_capture,
 )
 from .prefill import _pow2, plan_packed_prefill
-from .sampler import spec_accept_tokens
+from .sampler import sample_tokens, spec_accept_tokens
 
 logger = logging.getLogger(__name__)
 
@@ -440,26 +455,28 @@ class TorchEngine:
         the draft model's weights under spec_decode="draft" (None: loaded
         from spec_draft_model_path, or random from config.seed).
 
-        With config.dp * config.tp > 1 this engine is rank 0 of a mesh on
-        `devices` (default: `device` repeated when it is the CPU, else the
-        first dp * tp visible CUDA devices; raises as JAX's make_mesh when
-        there are fewer), and `device` is ignored.  `params` is then the
-        full parameter tree as numpy arrays (or None), and each rank cuts
-        its shard; on a gloo mesh (ranks sharing a device) pass
-        cuda_graphs=False.  A rank, hung or gone, surfaces as an error
+        With config.dp * config.tp * config.sp > 1 this engine is rank 0 of
+        a mesh on `devices` (default: `device` repeated when it is the CPU,
+        else the first dp * tp * sp visible CUDA devices; raises as JAX's
+        make_mesh when there are fewer), and `device` is ignored.
+        `params` is then the full parameter tree as numpy arrays (or
+        None), and each rank cuts its shard; on a gloo mesh (ranks sharing
+        a device) pass cuda_graphs=False.  A rank, hung or gone, surfaces as an error
         within `mesh_timeout_s`.  `mesh`: a spawned rank's Mesh
         (parallel/multihost.py follower_main), which makes this engine a
         follower: it replays steps through `apply_step` and never
         schedules."""
         self.config = config
-        world = config.dp * config.tp
+        world = config.dp * config.tp * config.sp
         devs, backend = None, None
         if world > 1 and mesh is None:
             mcfg = MeshConfig(dp=config.dp, tp=config.tp, sp=config.sp)
             devs = mesh_devices(mcfg, devices if devices is not None
                                 else default_devices(mcfg,
                                                      resolve_device(device)))
-            device, backend = devs[0], group_backend(devs[:config.tp])
+            device = devs[0]
+            backend = group_backend([devs[r] for r in
+                                     tensor_group_ranks(mcfg, 0)])
         elif mesh is not None:
             device, backend = mesh.device, mesh.backend
         self.device = resolve_device(device)
@@ -469,8 +486,12 @@ class TorchEngine:
         # leader launches the other ranks at the end of __init__
         self.mesh: Optional[Mesh] = mesh
         self._ranks = None  # the leader's spawned ranks
-        # rank -> its kernel launch counts, as reported at close
+        # rank -> its kernel launch counts and its engine's numeric
+        # metrics (with the ring prefill's bytes, each ring call's ms
+        # under "ring_calls_ms" and a CUDA rank's peak memory), as
+        # reported at close
         self.rank_launches: Dict[int, Dict[str, int]] = {}
+        self.rank_metrics: Dict[int, Dict[str, float]] = {}
         self._steps: Optional[StepBroadcaster] = None
         self._warm_snap = None  # a follower's copy of warm-up's snapshot
         tp_rank = mesh.tp_rank if mesh is not None else 0
@@ -517,9 +538,9 @@ class TorchEngine:
             # every rank cuts its own shard of the whole numpy tree
             if not isinstance(params.get("embedding"), np.ndarray):
                 raise TypeError(
-                    "under dp * tp > 1 the engine takes the whole parameter "
-                    "tree as numpy arrays (models/convert.py's input); each "
-                    "rank places its own shard")
+                    "under dp * tp * sp > 1 the engine takes the whole "
+                    "parameter tree as numpy arrays (models/convert.py's "
+                    "input); each rank places its own shard")
             mesh_params = params
         if params is None and config.model_path:
             from ..models.loader import load_params
@@ -811,6 +832,15 @@ class TorchEngine:
         if self.mesh is not None and self.mesh.tensor is not None:
             # the forward's collectives ride the tree (models/llama.py)
             self.params["tp"] = self.mesh.tensor
+        # the sequence-parallel ring prefill: the long-context path for
+        # cold prompts past the largest bucket when the mesh has an sp
+        # axis and the family a prefill_ring (DeepSeek has none: on an sp
+        # mesh it runs replicated with no ring, as in JAX)
+        self._ring = self.mesh.ring if self.mesh is not None else None
+        self._ring_ok = config.sp > 1 and hasattr(self.family,
+                                                  "prefill_ring")
+        self._ring_lengths: set = set()  # T_pad of the ring calls so far
+        self.ring_calls_ms: List[float] = []  # each ring call's ms
 
     def _program_families(self) -> list:
         """Every program family this engine builds (the capture watch's
@@ -959,6 +989,10 @@ class TorchEngine:
         elif kind == "embed":
             # a collective of the tensor group; the vector is the leader's
             self._run_embed(a["toks"], int(a["true_len"]))
+        elif kind == "prefill_ring":
+            # every rank runs its rows of the ring; the token is the
+            # leader's
+            self._dispatch_ring(a)
         elif kind == "gather":
             # read-only, but the slabs' gather is a collective of the
             # leader's tensor group; the payload is the leader's
@@ -980,14 +1014,16 @@ class TorchEngine:
     # -- the cross-rank KV moves (parallel/mesh.py) --------------------------
     def _gather_slab(self, ids) -> Optional[tuple]:
         """This rank's part of a gather of blocks `ids`: its slab in the
-        universal layout, gathered over the tensor group of the leader's
-        dp replica when the cache is split over kv heads (the logical
-        payload on the leader, None on the other ranks).  A replicated
+        universal layout, gathered over the s = 0 tensor group of the
+        leader's dp replica when the cache is split over kv heads (the
+        logical payload on the leader, None on the other ranks; a rank at
+        s != 0 holds a replica of its s = 0 peer's slab).  A replicated
         cache (tp = 1, MLA's latent pair) is the leader's own; the other
         ranks then do nothing."""
         sharded = self._kv_heads is not None
         if self.mesh is not None and not self.mesh.is_leader and (
-                not sharded or self.mesh.dp_rank != 0):
+                not sharded or self.mesh.dp_rank != 0
+                or self.mesh.sp_rank != 0):
             return None
         slab = gather_universal(self.kv, ids)
         if not sharded:
@@ -1059,6 +1095,7 @@ class TorchEngine:
             await asyncio.to_thread(ranks.close,
                                     partial(self._publish, STOP))
             self.rank_launches = ranks.launches
+            self.rank_metrics = ranks.metrics
 
     def _fail_all_streams(
         self,
@@ -2365,6 +2402,11 @@ class TorchEngine:
                              c.prefill_buckets[0])
                 self.metrics["slo_yield_steps"] = \
                     self.metrics.get("slo_yield_steps", 0) + 1
+        # JAX's order: the ring (one prefilling slot, ring-eligible), then
+        # packed, then padded
+        if len(pslots) == 1 and self._ring_eligible(pslots[0]):
+            self._prefill_ring_one(pslots[0])
+            return None
         if not self._packed_prefill_ok:
             return self._prefill_padded(pslots, budget)
         plan = plan_packed_prefill(
@@ -2401,6 +2443,102 @@ class TorchEngine:
                 first = -1
             self._finish_prefill_chunk(slot, chunk, first)
         return rec
+
+    def _ring_eligible(self, slot: _Slot) -> bool:
+        """JAX's predicate: a cold (prefill_pos == 0), non-LoRA prompt
+        longer than the largest bucket takes the one-shot ring program
+        when the mesh has one; one predicate for the packed scheduler and
+        the padded path, so they never route a slot differently."""
+        return (self._ring_ok and slot.prefill_pos == 0
+                and slot.prompt_len > self.config.prefill_buckets[-1]
+                and slot.lora_idx == 0)
+
+    def _prefill_ring_one(self, slot: _Slot) -> None:
+        """The whole prompt through the ring program, JAX's
+        `_prefill_ring_one`: padded to a pow2 multiple of sp x the
+        smallest bucket (T_pad must divide over sp; pow2 rounding bounds
+        the distinct lengths), published as JAX's prefill_ring step, its
+        first token sampled on the leader.  No FPM record, as in JAX; the
+        first call at a T_pad is the capture watch's "prefill_ring"
+        record."""
+        c = self.config
+        T = slot.prompt_len
+        g = c.sp * c.prefill_buckets[0]
+        T_pad = _pow2(-(-T // g)) * g
+        toks = np.zeros(T_pad, np.int32)
+        toks[:T] = slot.seq.tokens[:T]
+        s = slot.request.sampling
+        tok = self._dispatch_ring({
+            "toks": toks, "positions": np.arange(T_pad, dtype=np.int32),
+            "block_table": slot.block_table.copy(),
+            "true_len": np.int32(T), "seed": np.int32(slot.sampling_seed),
+            "temp": np.float32(s.temperature), "top_k": np.int32(s.top_k),
+            "top_p": np.float32(s.top_p)})
+        self.metrics["ring_prefills"] = \
+            self.metrics.get("ring_prefills", 0) + 1
+        first = -1
+        if slot.guide is None or slot.disagg_prefill:
+            arr = self._prefill_samples(tok, {0: slot})
+            first = int(arr[0]) if arr is not None else None
+        self._finish_prefill_chunk(slot, T, first)
+
+    def _dispatch_ring(self, a: Dict[str, np.ndarray]
+                       ) -> Optional[torch.Tensor]:
+        """The ring program on the descriptor `a` (JAX's prefill_ring
+        keys), eager on every rank, published first: the family's
+        prefill_ring over this rank's ring group, then the sampler on
+        the leader's logits.  Returns the sampled token [1] on ring rank
+        0, None elsewhere."""
+        self._publish("prefill_ring", a)
+        t0 = time.perf_counter()
+        dev = self.device
+
+        def t(x, dtype=torch.int32):
+            return torch.as_tensor(np.asarray(x), dtype=dtype, device=dev)
+
+        T_pad = len(a["toks"])
+        sent0 = self._ring.sent_bytes if self._ring is not None else 0
+        if dev.type == "cuda":
+            ev = (torch.cuda.Event(enable_timing=True),
+                  torch.cuda.Event(enable_timing=True))
+            ev[0].record()
+        logits, _ = self.family.prefill_ring(
+            self.params, self.shard_cfg, self.kv, t(a["toks"]),
+            t(a["positions"]), t(a["block_table"]), int(a["true_len"]),
+            ring=self._ring)
+        # the program's ms (the device's timeline between the events on
+        # CUDA, the host's on the CPU) and the bytes this rank sent
+        # around the ring
+        if dev.type == "cuda":
+            ev[1].record()
+            ev[1].synchronize()
+            ms = ev[0].elapsed_time(ev[1])
+        else:
+            ms = (time.perf_counter() - t0) * 1e3
+        self.ring_calls_ms.append(ms)
+        self.metrics["ring_bytes"] = self.metrics.get("ring_bytes", 0) + (
+            self._ring.sent_bytes - sent0 if self._ring is not None else 0)
+        tok = None
+        if logits is not None:
+            tok = sample_tokens(
+                logits[None], t(a["seed"]).reshape(1),
+                torch.zeros(1, dtype=torch.int32, device=dev),
+                t(a["temp"], torch.float32).reshape(1),
+                t(a["top_k"]).reshape(1),
+                t(a["top_p"], torch.float32).reshape(1))
+        if T_pad not in self._ring_lengths:
+            self._ring_lengths.add(T_pad)
+            if dev.type == "cuda":
+                torch.cuda.synchronize(dev)
+            self.capture_watch.on_capture(
+                "prefill_ring", T_pad, time.perf_counter() - t0,
+                program_costs(self.model_cfg, "prefill_ring", T_pad,
+                              sp=self.config.sp,
+                              rank=self._ring.rank if self._ring else 0,
+                              max_blocks=self.config.max_blocks_per_seq,
+                              block_size=self.config.block_size,
+                              int8=self.kv_dtype == "int8"))
+        return tok
 
     def _bucket_for(self, n: int) -> int:
         """The smallest prefill bucket holding n tokens (the largest
@@ -2484,6 +2622,10 @@ class TorchEngine:
         c = self.config
         n = max(1, min(len(pslots), budget // c.prefill_buckets[0]))
         pslots = pslots[:n]
+        if n == 1 and self._ring_eligible(pslots[0]):
+            # JAX's _prefill_one routes a ring-eligible slot to the ring
+            self._prefill_ring_one(pslots[0])
+            return None
         if n == 1:
             chunks = [min(c.prefill_buckets[-1], budget,
                           pslots[0].prompt_len - pslots[0].prefill_pos)]

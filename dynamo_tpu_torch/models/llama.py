@@ -50,6 +50,12 @@ read it as they read a whole bank.  The fused sampling epilogue takes
 the rank's vocab slice of `unembed_weight` and combines the ranks'
 statistics (ops/fused_sampling.py).  Without `params["tp"]` (tp = 1) no
 collective runs and nothing else changes.
+
+Sequence parallelism (`prefill_ring`): the long-context cold prefill
+over a ring group (parallel/mesh.py RingGroup, passed as `ring=`, as
+JAX's takes `mesh=`), each rank its rows of the prompt and ring
+attention (ops/ring_attention.py) across them; under tp the ring runs
+on the rank's own heads and the sums stay its tensor group's.
 """
 
 from __future__ import annotations
@@ -770,6 +776,89 @@ def prefill_batched(
             x = x + _reduce(params, _ffn(layer, cfg, h))
     xl = torch.stack([x[b, max(n - 1, 0)] for b, n in enumerate(lens)])
     return _logits(params, cfg, xl), kv_cache
+
+
+def prefill_ring(
+    params: Params,
+    cfg: LlamaConfig,
+    kv_cache: KVCache,
+    token_ids: torch.Tensor,     # [T_pad] int32 (one sequence, padded)
+    positions: torch.Tensor,     # [T_pad] int32, absolute positions
+    block_table: torch.Tensor,   # [max_blocks] int32
+    true_len,                    # valid tokens (int or 0-d)
+    ring=None,                   # parallel/mesh.py RingGroup; None: sp = 1
+):
+    """Sequence-parallel COLD prefill, the JAX package's `prefill_ring`
+    per rank: ring attention (ops/ring_attention.py) shards the O(T^2)
+    attention over the sp ranks instead of running the whole prompt on
+    every device, the long-context path for prompts past the largest
+    prefill bucket.  Every rank of the ring calls this with the whole
+    descriptor; ring rank s takes rows [s * Tq, (s + 1) * Tq), Tq =
+    T_pad / sp, and embeds, normalises, projects and ropes those alone,
+    so its activations are O(T / sp).
+
+    One-shot (no cached context).  Causality alone isolates the padded
+    tail.  Every K/V shard the ring passes is written into this rank's
+    cache at its absolute positions (write_prompt_kv at ctx_len src * Tq,
+    true_len clipped to the shard, padded rows to block 0), so each rank
+    holds the whole prompt's K/V without a collective of its own; an
+    int8 cache quantizes on write while attention reads the fresh k/v,
+    as in JAX.  The MLP runs on the rank's rows, except under capacity
+    dispatch, where JAX's expert capacity and drop order span all T_pad
+    rows: there the ranks gather the normalised sequence and each
+    dispatches the whole of it, keeping its own rows.  Under tensor
+    parallelism the heads and the ring are the rank's own, the sums
+    over its tensor group as in every forward.
+
+    The last valid row lives on ring rank (true_len - 1) // Tq; it moves
+    to ring rank 0, whose tensor group projects the logits.  Returns
+    (logits [vocab] at the last valid position on ring rank 0, None on
+    the others; kv_cache, updated in place)."""
+    from ..ops.ring_attention import ring_attention
+
+    sp, me = (1, 0) if ring is None else (ring.size, ring.rank)
+    T = token_ids.shape[0]
+    if T % sp:
+        raise ValueError(f"prefill_ring: T_pad {T} does not divide over "
+                         f"sp={sp}")
+    tq, n = T // sp, int(true_len)
+    lo, dev = me * tq, token_ids.device
+    # capacity dispatch pools every row of the sequence (see above)
+    whole = cfg.n_experts > 0 and cfg.moe_dispatch == "capacity" \
+        and ring is not None
+    rows = (torch.arange(T, device=dev) if whole
+            else lo + torch.arange(tq, device=dev))
+    valid = rows < n
+    pos = positions[lo:lo + tq]
+    x = _embed(params, cfg, token_ids[lo:lo + tq])  # [Tq, d]
+    for li, layer in enumerate(params["layers"]):
+        h = rms_norm(x, layer["attn_norm"]["norm"], cfg.rms_eps)
+        q, k, v = _qkv(layer, cfg, h, pos)  # [Tq, nh|nkv, hd]
+
+        def write(src, ks, vs, li=li):
+            c0 = src * tq
+            _write_kv(write_prompt_kv, kv_cache, li, ks[0], vs[0],
+                      block_table, c0, min(max(n - c0, 0), tq))
+
+        attn = ring_attention(q[None], k[None], v[None], ring,
+                              on_shard=write)[0]
+        x = x + _reduce(params, _attn_out(layer, attn.reshape(tq,
+                                                               cfg.q_dim)))
+        h = rms_norm(x, layer["mlp_norm"]["norm"], cfg.rms_eps)
+        if whole:
+            f = _ffn(layer, cfg, ring.all_gather(h), valid=valid,
+                     **_expert_shard(params))[lo:lo + tq].contiguous()
+        else:
+            f = _ffn(layer, cfg, h, valid=valid, **_expert_shard(params))
+        x = x + _reduce(params, f)
+    last = max(n - 1, 0)
+    owner = last // tq
+    row = x[last - lo:last - lo + 1] if me == owner else x[:1]
+    if owner != 0:
+        row = ring.broadcast(row, owner)
+    if me != 0:
+        return None, kv_cache
+    return _logits(params, cfg, row[0]), kv_cache
 
 
 # ---------------------------------------------------------------------------

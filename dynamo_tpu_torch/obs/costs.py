@@ -42,6 +42,15 @@ What is counted, per trunk pass of n tokens through L layers:
     prefill_padded, key (rows, T)) attend by the plain padded path:
     2·2·T·nh·hd·(S + T) FLOPs a row and layer over its S = max_blocks·bs
     context positions, whose K/V it reads (2·nkv·S·pos_bytes a row);
+  * the ring prefill (family prefill_ring, key T_pad; models/llama.py
+    prefill_ring, eager, counted once per T_pad like a capture) is one
+    rank's program, ring rank `rank` of `sp`: the trunk over its T_pad /
+    sp rows (a capacity-dispatch MoE layer dispatches all T_pad, one
+    pool), its fp32 ring attention 2·2·Tq·Tq·nh·hd for each of the
+    rank + 1 shards at or before its own (the later ones are causally
+    empty and skipped, ops/ring_attention.py) as `attn_flops`, the
+    whole prompt's K/V written (every rank writes every shard), no
+    cache read, and the logits row on ring rank 0 alone;
   * the embed call (family embed, key the bucket T; models/llama.py
     embed_text, eager, counted once per bucket like a capture): the
     trunk's products over T tokens, its dense fp32 attention
@@ -234,12 +243,15 @@ def _trunk_terms(cfg, n: int, attn: Dict[str, int], int8: bool,
 
 def program_terms(cfg, family: str, key, *, rows: int = 0, max_blocks: int,
                   block_size: int, int8: bool = False, lora=(0, 0),
-                  epilogue: bool = False) -> Dict[str, float]:
+                  epilogue: bool = False, sp: int = 1,
+                  rank: int = 0) -> Dict[str, float]:
     """The cost terms of one program.  `family` is decode, prefill,
     verify, catchup, guided, prefill_padded or embed; `key` its build
     key: (greedy, k) for decode, the stream bucket T for
     prefill/verify/catchup/embed, the window M for guided, (rows, T)
-    for prefill_padded.  `rows` is the lane count B (decode, guided) or the
+    for prefill_padded, T_pad for prefill_ring (`sp` its ring size,
+    `rank` the ring rank whose program it is).  `rows` is the lane count
+    B (decode, guided) or the
     row count of a bucket's descriptor (prefill: padded segments,
     catchup: 1; verify projects every stream position); prefill_padded
     takes its rows from the key.  Raises on a family it does not know:
@@ -273,7 +285,33 @@ def program_terms(cfg, family: str, key, *, rows: int = 0, max_blocks: int,
                             int8, lora, R, True, pools=R)
     if family == "embed":
         return embed_terms(cfg, int(key))
+    if family == "prefill_ring":
+        return ring_terms(cfg, int(key), sp, rank, int8)
     raise ValueError(f"no cost count for program family {family!r}")
+
+
+def ring_attn_flops(cfg, T: int, sp: int, rank: int) -> int:
+    """One layer of ring rank `rank`'s causal ring attention over a
+    T-token prompt on `sp` ranks: the fp32 scores and values of its Tq
+    queries against each of the rank + 1 shards it attends."""
+    tq = T // sp
+    return (rank + 1) * 2 * 2 * tq * tq * cfg.n_heads * cfg.head_dim
+
+
+def ring_terms(cfg, T: int, sp: int, rank: int,
+               int8: bool) -> Dict[str, float]:
+    """Ring rank `rank`'s share of the ring prefill of a T-token
+    (padded) prompt (see the module docstring)."""
+    tq = T // sp
+    t = _trunk_terms(cfg, tq, {"flops": ring_attn_flops(cfg, T, sp, rank),
+                               "bytes": 0}, int8, (0, 0),
+                     1 if rank == 0 else 0, rank == 0)
+    if cfg.n_experts > 0 and cfg.moe_dispatch == "capacity":
+        t["matmul_flops"] += cfg.n_layers * (_mlp_flops(cfg, T)
+                                             - _mlp_flops(cfg, tq))
+    t["kv_write_bytes"] = cfg.n_layers * T * 2 * cfg.n_kv_heads \
+        * pos_bytes(cfg, int8)
+    return t
 
 
 def embed_attn_flops(cfg, T: int) -> int:

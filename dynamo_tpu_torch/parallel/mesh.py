@@ -1,5 +1,5 @@
-"""The device mesh of a tensor- and data-parallel engine, and its
-sharding rules.
+"""The device mesh of a tensor-, data- and sequence-parallel engine, and
+its sharding rules.
 
 The counterpart of dynamo_tpu/parallel/mesh.py.  Axes, as there:
 
@@ -9,8 +9,11 @@ The counterpart of dynamo_tpu/parallel/mesh.py.  Axes, as there:
       experts of a MoE layer and the vocabulary split over the ranks of
       one replica, the KV cache over its kv heads (Megatron's layout;
       MLA's latent cache, one head, is whole on every rank);
-  sp  sequence parallel (the ring prefill): not ported, EngineConfig
-      refuses sp > 1.
+  sp  sequence parallel: the ring prefill's axis (models/llama.py
+      prefill_ring over ops/ring_attention.py).  The cache stays whole
+      over sp (JAX's kv_cache_spec names no sp axis), so the ranks at
+      s != 0 hold replicas of their s = 0 peer's slab and run every
+      other program alike.
 
 JAX runs a mesh as ONE program: GSPMD places the shards and inserts the
 collectives.  PyTorch has neither, so here every rank is a process with
@@ -31,12 +34,20 @@ TCPStore (rank 0 hosts it; the others connect to its port), not through
 a process may hold one tensor-parallel engine after another, or a
 tensor-parallel engine beside a single-device one.  Each rank has
 
-  * a tensor group (`Mesh.tensor`), the tp ranks of its dp replica: NCCL
+  * a tensor group (`Mesh.tensor`), the tp ranks that share its (d, s): NCCL
     where every rank of the group has a CUDA device of its own, gloo
     where ranks share a device or run on the CPU (NCCL refuses two ranks
     on one device).  The backend follows from the devices alone;
+  * a ring group (`Mesh.ring`, None at sp = 1), the sp ranks that share
+    its (d, t), consecutive ranks in ring order: the ring prefill's
+    neighbour exchange, and the gather and broadcast around it
+    (`RingGroup`); its backend follows the same rule;
   * the step group (`Mesh.step`), every rank, gloo on the CPU: the step
     stream's transport.
+
+The s = 0 tensor group of the leader's dp replica is the one that
+gathers the logical KV blocks (`gather_slabs`); every other tensor
+group holds a replica of a slab that group already has.
 
 Every group is made with a bounded timeout, so a rank that hangs
 surfaces as an error on the others; one that dies closes its sockets,
@@ -50,7 +61,7 @@ from __future__ import annotations
 
 import datetime
 from dataclasses import dataclass
-from typing import Any, Dict, List, Optional, Sequence, Tuple
+from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import torch
 import torch.distributed as dist
@@ -66,7 +77,7 @@ STORE_HOST = "127.0.0.1"
 class MeshConfig:
     dp: int = 1
     tp: int = 1
-    sp: int = 1  # sequence parallel: the ring axis (not ported)
+    sp: int = 1  # sequence parallel: the ring axis
 
     @property
     def num_devices(self) -> int:
@@ -94,10 +105,19 @@ def rank_coords(cfg: MeshConfig, rank: int) -> Tuple[int, int, int]:
             rank % cfg.sp)
 
 
-def tensor_group_ranks(cfg: MeshConfig, dp_rank: int) -> List[int]:
-    """The ranks of dp replica `dp_rank`'s tensor group, in tp order
-    (sp = 1)."""
-    return [(dp_rank * cfg.tp + t) * cfg.sp for t in range(cfg.tp)]
+def tensor_group_ranks(cfg: MeshConfig, dp_rank: int,
+                       sp_rank: int = 0) -> List[int]:
+    """The ranks of the tensor group at (dp_rank, sp_rank), in tp
+    order."""
+    return [(dp_rank * cfg.tp + t) * cfg.sp + sp_rank for t in range(cfg.tp)]
+
+
+def ring_group_ranks(cfg: MeshConfig, dp_rank: int,
+                     tp_rank: int) -> List[int]:
+    """The ranks of the ring group at (dp_rank, tp_rank), in ring order:
+    consecutive ranks, since r = (d * tp + t) * sp + s."""
+    base = (dp_rank * cfg.tp + tp_rank) * cfg.sp
+    return list(range(base, base + cfg.sp))
 
 
 def group_backend(devices: Sequence[torch.device]) -> str:
@@ -373,6 +393,86 @@ class TensorGroup:
         return self.all_reduce(out)
 
 
+class RingGroup:
+    """The collectives of the sequence-parallel ring over a rank's ring
+    group (`rank` its position s, `size` the sp ranks): the neighbour
+    exchange that rotates K/V shards (ops/ring_attention.py) and
+    activations (parallel/pipeline.py), and the gather, broadcast and
+    sum around them.
+
+    gloo stages every tensor but a sum through a host copy, as
+    TensorGroup.gather does, and hands the result back on the input's
+    device.  NCCL moves tensors where they lie; its exchange is one
+    all-to-all whose only non-empty splits are the two neighbours, a
+    single collective, so no pair of sends can wait on each other."""
+
+    def __init__(self, backend: str, pg, rank: int, size: int):
+        self.backend, self.pg, self.rank, self.size = backend, pg, rank, size
+        self.next = (rank + 1) % size
+        self.prev = (rank - 1) % size
+        self.sent_bytes = 0  # bytes this rank has put on the ring
+
+    def _staged(self, x: torch.Tensor, sends: bool = True) -> torch.Tensor:
+        t = (x if self.backend == "nccl" else x.detach().cpu()).contiguous()
+        if sends:
+            self.sent_bytes += t.numel() * t.element_size()
+        return t
+
+    def exchange(self, x: torch.Tensor) -> Callable[[], torch.Tensor]:
+        """Send x to the next rank and receive the previous rank's tensor
+        of x's shape and dtype; returns a wait() that gives it, on x's
+        device.  Both transfers are posted before either is waited on,
+        so the caller computes while they run, and sp = 2, where both
+        neighbours are one rank, cannot deadlock."""
+        send = self._staged(x)
+        recv = torch.empty_like(send)
+        if self.backend == "nccl":
+            n = send.shape[0]
+            ins = [n if r == self.next else 0 for r in range(self.size)]
+            outs = [n if r == self.prev else 0 for r in range(self.size)]
+            works = [self.pg.alltoall_base(recv, send, outs, ins,
+                                           dist.AllToAllOptions())]
+        else:
+            works = [self.pg.recv([recv], self.prev, 0),
+                     self.pg.send([send], self.next, 0)]
+
+        def wait() -> torch.Tensor:
+            for w in works:
+                w.wait()
+            return recv.to(x.device)
+
+        return wait
+
+    def all_gather(self, x: torch.Tensor) -> torch.Tensor:
+        """Every rank's x (one shape and dtype on all ranks), concatenated
+        along dim 0 in ring order, on x's device."""
+        src = self._staged(x)
+        if self.backend == "nccl":
+            out = torch.empty((self.size * src.shape[0], *src.shape[1:]),
+                              dtype=src.dtype, device=src.device)
+            self.pg._allgather_base(out, src).wait()
+            return out
+        outs = [torch.empty_like(src) for _ in range(self.size)]
+        self.pg.allgather([outs], [src]).wait()
+        return torch.cat(outs).to(x.device)
+
+    def broadcast(self, x: torch.Tensor, root: int) -> torch.Tensor:
+        """Ring rank `root`'s x on every rank (x gives the shape and dtype
+        elsewhere), on x's device."""
+        t = self._staged(x, sends=self.rank == root)
+        if t is x:
+            t = t.clone()
+        opts = dist.BroadcastOptions()
+        opts.rootRank = root
+        self.pg.broadcast([t], opts).wait()
+        return t.to(x.device)
+
+    def all_reduce(self, x: torch.Tensor) -> torch.Tensor:
+        """The sum over the ring, in place (x contiguous); returns x."""
+        self.pg.allreduce([x]).wait()
+        return x
+
+
 def _gloo(store, name: str, rank: int, size: int, timeout_s: float):
     return dist.ProcessGroupGloo(dist.PrefixStore(name, store), rank, size,
                                  _timeout(timeout_s))
@@ -391,7 +491,7 @@ def _nccl(store, name: str, rank: int, ranks: List[int], timeout_s: float):
 @dataclass
 class Mesh:
     """One rank's place in the mesh: its coordinates, its device and its
-    groups (`tensor` is None at tp = 1)."""
+    groups (`tensor` is None at tp = 1, `ring` at sp = 1)."""
 
     cfg: MeshConfig
     rank: int
@@ -401,6 +501,7 @@ class Mesh:
     step: Any                         # every rank, gloo on the CPU
     tensor: Optional[TensorGroup]
     timeout_s: float = DEFAULT_TIMEOUT_S
+    ring: Optional[RingGroup] = None
 
     @property
     def world(self) -> int:
@@ -415,6 +516,10 @@ class Mesh:
         return rank_coords(self.cfg, self.rank)[1]
 
     @property
+    def sp_rank(self) -> int:
+        return rank_coords(self.cfg, self.rank)[2]
+
+    @property
     def is_leader(self) -> bool:
         return self.rank == 0
 
@@ -423,24 +528,32 @@ def make_mesh(cfg: MeshConfig, devices: Sequence, rank: int, store,
               timeout_s: float = DEFAULT_TIMEOUT_S) -> Mesh:
     """Rank's Mesh over `store` (rendezvous): every rank of the mesh calls
     this with the same cfg and devices and its own rank; each group's
-    construction waits for its members.  Raises as JAX's make_mesh when
-    there are fewer devices than ranks."""
-    if cfg.sp != 1:
-        raise NotImplementedError("sequence parallelism (sp > 1) is not "
-                                  "ported to dynamo_tpu_torch yet")
+    construction waits for its members.  Every rank builds its groups in
+    one order (step, tensor, ring) and the groups of each kind are
+    disjoint, so no two ranks wait on each other's next group.  Raises
+    as JAX's make_mesh when there are fewer devices than ranks."""
     devs = mesh_devices(cfg, devices)
-    d, t, _ = rank_coords(cfg, rank)
-    ranks = tensor_group_ranks(cfg, d)
+    d, t, s = rank_coords(cfg, rank)
+    ranks = tensor_group_ranks(cfg, d, s)
     backend = group_backend([devs[r] for r in ranks])
     step = _gloo(store, "step", rank, cfg.num_devices, timeout_s)
     tensor = None
     if cfg.tp > 1:
-        name = f"tp{d}"
+        name = f"tp{d}.{s}"
         pg = (_nccl(store, name, t, ranks, timeout_s) if backend == "nccl"
               else _gloo(store, name, t, cfg.tp, timeout_s))
         tensor = TensorGroup(backend, pg, t, cfg.tp)
+    ring = None
+    if cfg.sp > 1:
+        rranks = ring_group_ranks(cfg, d, t)
+        rbackend = group_backend([devs[r] for r in rranks])
+        name = f"sp{d}.{t}"
+        pg = (_nccl(store, name, s, rranks, timeout_s)
+              if rbackend == "nccl"
+              else _gloo(store, name, s, cfg.sp, timeout_s))
+        ring = RingGroup(rbackend, pg, s, cfg.sp)
     return Mesh(cfg, rank, devs[rank], backend, store, step, tensor,
-                timeout_s)
+                timeout_s, ring)
 
 
 def default_devices(cfg: MeshConfig, device: torch.device) -> List[str]:

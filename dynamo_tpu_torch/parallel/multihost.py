@@ -50,14 +50,16 @@ keep the KV evolution, the acceptance is the leader's), `lora_write`
 raw bits; each rank clears the slot and writes its shard),
 `decode_topk` and `decode_topk_wide` (guided decoding's lane
 descriptor: tokens, positions, tables, ctx_lens, valid) and `embed`
-(toks, true_len).  With an adapter bank, prefill, prefill_packed,
+(toks, true_len).  The ring prefill's `prefill_ring` (toks,
+positions, block_table, true_len, seed, temp, top_k, top_p): every rank
+runs its rows of the ring and writes the whole prompt's K/V, the
+leader samples.  With an adapter bank, prefill, prefill_packed,
 prefill_batch and the decode kinds carry the `lidx` lane, as JAX's
 programs take their lora arguments.  A draft model's programs never
 ride the stream: the draft runs whole on the leader's device.
 
 What is left to a later step (ROADMAP.md): ranks across hosts (a
-launcher per host, the leader's worker gating the followers' identity),
-and the ring prefill's `prefill_ring` (sp > 1).
+launcher per host, the leader's worker gating the followers' identity).
 """
 
 from __future__ import annotations
@@ -255,14 +257,17 @@ class RankProcesses:
 
     mesh: Mesh
     procs: List[mp.Process]
-    # per rank, its kernel launch counts as it reported them at stop
+    # per rank, its kernel launch counts and its engine's numeric metrics
+    # as it reported them at stop
     launches: Dict[int, Dict[str, int]] = field(default_factory=dict)
+    metrics: Dict[int, Dict[str, float]] = field(default_factory=dict)
 
     def close(self, publish_stop: Optional[Callable[[], None]] = None,
               timeout_s: float = JOIN_TIMEOUT_S) -> None:
         """Stop every rank: `publish_stop` (skipped when the stream is
         broken), join each with a timeout, kill one still alive, then
-        read the launch counts the ranks left in the store."""
+        read the launch counts and metrics the ranks left in the
+        store."""
         if publish_stop is not None:
             try:
                 publish_stop()
@@ -279,9 +284,10 @@ class RankProcesses:
                 p.join(5.0)
         store = self.mesh.store
         for r in range(1, self.mesh.world):
-            key = f"launches/{r}"
-            if store.check([key]):
-                self.launches[r] = json.loads(store.get(key))
+            for into, key in ((self.launches, f"launches/{r}"),
+                              (self.metrics, f"metrics/{r}")):
+                if store.check([key]):
+                    into[r] = json.loads(store.get(key))
 
 
 def _await_joins(store, procs: List[mp.Process], timeout_s: float) -> None:
@@ -304,10 +310,10 @@ def _await_joins(store, procs: List[mp.Process], timeout_s: float) -> None:
 
 def launch_ranks(config, devices, params, cuda_graphs: bool,
                  timeout_s: float = DEFAULT_TIMEOUT_S) -> RankProcesses:
-    """Rank 0's side of a mesh of config.dp * config.tp ranks on
-    `devices`: host the store, spawn ranks 1.. (each `follower_main` on
-    its device), wait for them to join, hand each `params` (the full
-    numpy tree or None) and make rank 0's Mesh.  The tree goes through a
+    """Rank 0's side of a mesh of config.dp * config.tp * config.sp
+    ranks on `devices`: host the store, spawn ranks 1.. (each
+    `follower_main` on its device), wait for them to join, hand each
+    `params` (the full numpy tree or None) and make rank 0's Mesh.  The tree goes through a
     pipe once every rank is up, not with the spawn's arguments: a start
     blocks until its child has read those, after its imports, so large
     arguments would start the ranks one after another.  Raises (the
@@ -349,7 +355,9 @@ def follower_main(config, rank: int, port: int, devices: List[str],
     of the params the leader sends down `params_pipe`, or, for None, of
     the weights the leader's engine loads or makes from config.seed) and
     replay the leader's steps until `stop`; then leave the kernel launch
-    counts in the store for the leader."""
+    counts and the engine's numeric metrics (with each ring prefill
+    call's ms and, on a CUDA rank, its peak allocated bytes) in the
+    store for the leader."""
     from ..engine.core import TorchEngine
     from ..ops import launch_counts
 
@@ -379,7 +387,13 @@ def follower_main(config, rank: int, port: int, devices: List[str],
     for kind, arrays in follower.steps():
         engine.apply_step(kind, arrays)
         n += 1
+    stats = {k: v for k, v in engine.metrics.items()
+             if isinstance(v, (int, float))}
+    stats["ring_calls_ms"] = engine.ring_calls_ms
     if mesh.device.type == "cuda":
         torch.cuda.synchronize(mesh.device)
+        stats["max_memory_allocated"] = \
+            torch.cuda.max_memory_allocated(mesh.device)
     store.set(f"launches/{rank}", json.dumps(launch_counts()))
+    store.set(f"metrics/{rank}", json.dumps(stats))
     logger.info("rank %d replayed %d steps", rank, n)

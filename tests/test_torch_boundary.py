@@ -14,6 +14,7 @@
 """
 
 import ast
+import dataclasses
 import os
 import shutil
 import subprocess
@@ -26,7 +27,6 @@ import torch
 
 from dynamo_tpu_torch import resolve_device
 from dynamo_tpu_torch.engine import EngineConfig, TorchEngine
-from dynamo_tpu_torch.engine.config import _UNPORTED
 from dynamo_tpu_torch.models.convert import params_from_numpy
 from dynamo_tpu_torch.models.llama import PRESETS
 
@@ -147,17 +147,25 @@ def _non_default(default):
     return "something-else"
 
 
-@pytest.mark.parametrize("field", sorted(_UNPORTED))
+@pytest.mark.parametrize("field", ["sp"])
 def test_unported_config_field_raises(field):
-    value = _non_default(_UNPORTED[field][0])
-    with pytest.raises(NotImplementedError, match=field):
-        EngineConfig(**{field: value})
-    EngineConfig(**{field: _UNPORTED[field][0]})  # the default is fine
+    """No field is left unported: `field`, the last one the port refused,
+    takes a value other than its default, and every field of JAX's
+    EngineConfig is one of the port's (the config module has no table of
+    refused fields any more)."""
+    from dynamo_tpu.engine.config import EngineConfig as JaxEngineConfig
+    from dynamo_tpu_torch.engine import config as config_module
+
+    assert not hasattr(config_module, "_UNPORTED")
+    value = _non_default(getattr(EngineConfig(), field))
+    assert getattr(EngineConfig(**{field: value}), field) == value
+    jax_fields = {f.name for f in dataclasses.fields(JaxEngineConfig)}
+    assert jax_fields <= {f.name for f in dataclasses.fields(EngineConfig)}
 
 
 @pytest.mark.parametrize("field", ["model_path", "sampling_epilogue",
                                    "role", "spec_decode", "lora_max_adapters",
-                                   "peak_hbm_gbps", "tp", "dp",
+                                   "peak_hbm_gbps", "tp", "dp", "sp",
                                    *KVBM_FIELDS])
 def test_ported_config_field_accepted(field, tmp_path):
     """Fields that left _UNPORTED when their features were ported take a
@@ -168,11 +176,10 @@ def test_ported_config_field_accepted(field, tmp_path):
     the JAX engine's ValueError; lora_max_adapters and its knobs (and
     the SLO input's) default as JAX's and take a bank size; peak_hbm_gbps
     (the roofline MBU gauges' peak) defaults as JAX's, takes a rate and
-    is the CLI's --peak-hbm-gbps, as in the JAX CLI; tp and dp (the
+    is the CLI's --peak-hbm-gbps, as in the JAX CLI; tp, dp and sp (the
     mesh, parallel/) default as JAX's and take a size, and a size below
     1 raises."""
-    assert field not in _UNPORTED
-    if field in ("tp", "dp"):
+    if field in ("tp", "dp", "sp"):
         from dynamo_tpu.engine.config import EngineConfig as JaxEngineConfig
 
         assert getattr(EngineConfig(), field) \

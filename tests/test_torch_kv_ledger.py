@@ -570,10 +570,10 @@ def test_mdc_fields_and_cli_flags_equal_jax():
     for f in ("kv_ledger", "prefill_packed", "reasoning_parser",
               "slo_yield_burn"):
         assert getattr(td, f) == getattr(jd, f)
-    with pytest.raises(NotImplementedError):
-        EngineConfig(sp=2)
-    for f in ("tp", "dp"):
+    for f in ("tp", "dp", "sp"):
         assert getattr(EngineConfig(**{f: 2}), f) == 2
+    with pytest.raises(ValueError, match=">= 1"):
+        EngineConfig(sp=0)
 
 
 async def test_jax_tracker_and_reasoning_parser_over_a_torch_worker(tmp_path):

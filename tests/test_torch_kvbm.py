@@ -41,7 +41,6 @@ from dynamo_tpu.protocols import SamplingOptions as JaxSampling
 from dynamo_tpu.protocols import StopConditions as JaxStop
 from dynamo_tpu_torch.engine import EngineConfig, TorchEngine
 from dynamo_tpu_torch.engine.block_allocator import BlockAllocator
-from dynamo_tpu_torch.engine.config import _UNPORTED
 from dynamo_tpu_torch.kvbm import KvEventConsolidator, TieredKvManager
 from dynamo_tpu_torch.kvbm import object_store, pools
 from dynamo_tpu_torch.models.convert import params_from_numpy
@@ -515,7 +514,8 @@ def test_engine_kvbm_config_errors_equal_jax(tmp_path):
             TorchEngine(EngineConfig(model_config=FP32, **eng_kwargs(**kw)),
                         params=_params()[1], device="cpu")
         assert str(terr.value) == str(jerr.value)
-    assert sorted(_UNPORTED) == ["sp"]
+    # no config field is refused any more (sp, the last, builds)
+    assert EngineConfig(sp=2).sp == 2
 
 
 def test_engine_cli_kvbm_flags_equal_jax(monkeypatch):

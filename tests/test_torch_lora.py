@@ -34,7 +34,6 @@ from dynamo_tpu.lora import bank as jbank
 from dynamo_tpu.lora.source import LocalLoraSource as JaxSource
 from dynamo_tpu.models import llama as jl
 from dynamo_tpu_torch.engine import EngineConfig, TorchEngine
-from dynamo_tpu_torch.engine.config import _UNPORTED
 from dynamo_tpu_torch.lora import bank as tbank
 from dynamo_tpu_torch.lora import LocalLoraSource
 from dynamo_tpu_torch.models import llama as tl
@@ -436,7 +435,7 @@ async def test_unknown_and_disabled_adapter_errors_match_jax(tmp_path):
         want = await first_error(je, True, "nope")
         got = await first_error(te, False, "nope")
         assert got == want and "nope" in got
-    assert "lora_max_adapters" not in _UNPORTED
+    assert EngineConfig(lora_max_adapters=2).lora_max_adapters == 2
 
 
 async def test_lru_slot_choice_and_eviction_match_jax(tmp_path):

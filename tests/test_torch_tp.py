@@ -24,8 +24,8 @@
   ends it.
 * EngineConfig: tp and dp build, and what a mesh serves (the disagg
   roles, KVBM, the MoE and MLA families, speculation, LoRA, the fused
-  epilogue) builds there (one parametrised test); sp stays refused; the
-  CLI's --tp/--dp.
+  epilogue) builds there (one parametrised test); sp builds and sp=0 is
+  refused; the CLI's --tp/--dp.
 
 The spawned-rank engines are tests/test_torch_tp_engine.py's.
 """
@@ -533,10 +533,13 @@ def test_config_builds_tp_and_dp():
     assert EngineConfig(tp=2).tp == 2
     c = EngineConfig(dp=2, tp=2)
     assert (c.dp, c.tp) == (2, 2)
-    with pytest.raises(NotImplementedError, match="sp"):
-        EngineConfig(sp=2)
-    with pytest.raises(ValueError, match="dp and tp must be >= 1"):
-        EngineConfig(tp=0)
+    # sequence parallelism builds, alone and beside tp
+    assert EngineConfig(sp=2).sp == 2
+    c = EngineConfig(tp=2, sp=2)
+    assert (c.tp, c.sp) == (2, 2)
+    for f in ("dp", "tp", "sp"):
+        with pytest.raises(ValueError, match="dp, tp and sp must be >= 1"):
+            EngineConfig(**{f: 0})
 
 
 @pytest.mark.parametrize("kw,holds", [
