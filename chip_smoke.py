@@ -33,6 +33,9 @@
     python3 chip_smoke.py --tp-features   # speculation, LoRA, the fused
                                           # epilogue, guided and embed on
                                           # two ranks on one card
+    python3 chip_smoke.py --sp            # sequence parallelism
+    python3 chip_smoke.py --multihost     # a tp=2 mesh over a leader and
+                                          # a follower launcher
 
 Builds the port's CUDA kernels from csrc/ (three nvcc processes started
 together), holds each entry point (K1 and K3, each in its bf16 and its
@@ -440,6 +443,22 @@ round the ring, its peak memory, and TTFT against tp=1's chunked TTFT.
 Then the pipeline check: parallel/pipeline.py with two stages of
 llama-8b's MLP as threads on the card, against their sequential
 composition.
+
+The multihost phase (last, llama-8b width at TP_LAYERS; alone with
+--multihost, all 32 layers): a checkpoint written from a seed, served
+by one tp=2 mesh over two launchers of `python -m
+dynamo_tpu_torch.engine` (DYN_MH_RANK 1 started first, then 0,
+DYN_MH_WORLD 2, JAX_COORDINATOR_ADDRESS on 127.0.0.1: two processes of
+this machine standing in for two hosts, both ranks on the card over
+gloo, eager).  Checked: the follower's `ready follower rank=1/2`, one
+discoverable instance (the leader's), the four tp requests' streams
+against a tp=1 engine on the same checkpoint (a parting only at a
+near-tie), the leader's sharded load filling the weight cache and the
+follower reading it, both launchers exiting 0 after the leader's
+drain, and the follower's K1/K3 launches, read by the leader from the
+mesh's store, non-zero and equal to its own log's and the leader's
+(`multihost_launches`, [rank 0, rank 1]), every published step
+replayed.
 
 Bounds use the H100 SXM data sheet (3.35 TB/s HBM3, 989 TFLOP/s dense
 bf16); a card run below its 700 W limit is slower, so its limit is
@@ -10153,6 +10172,277 @@ def check_sp(device, card: str, n_layers: int, tp_sp: bool = False) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# multihost: a leader and a follower launcher of one tp=2 mesh
+# ---------------------------------------------------------------------------
+
+# seconds a launcher may take to load its weights and join, and to exit
+# after the leader's drain
+MH_READY_S = 600.0
+MH_EXIT_S = 180.0
+MH_BLOCKS = 64
+
+
+def _mh_args(path: str, device) -> list:
+    """The launchers' CLI arguments (both launchers take the same): the
+    checkpoint at `path`, tp=2, eager (the ranks share a card: gloo), no
+    warm-up (the leader's first requests build what they run)."""
+    args = ["--model-path", path, "--tp", "2", "--no-cuda-graphs",
+            "--no-warmup", "--block-size", "128",
+            "--num-blocks", str(MH_BLOCKS), "--max-blocks-per-seq", "8",
+            "--max-num-seqs", "4"]
+    return args + (["--device", "cpu"] if device.type == "cpu" else [])
+
+
+def _start_launcher(rank: int, args: list, env: dict, log_path: str):
+    """`python -m dynamo_tpu_torch.engine` as launcher `rank` of 2, its
+    log in `log_path`."""
+    env = dict(env, DYN_MH_RANK=str(rank), DYN_MH_WORLD="2")
+    with open(log_path, "w") as err:
+        return subprocess.Popen(
+            [sys.executable, "-m", "dynamo_tpu_torch.engine", *args],
+            env=env, stdout=subprocess.PIPE, stderr=err, text=True,
+            cwd=os.path.dirname(os.path.abspath(__file__)))
+
+
+def _ready_line(proc, log_path: str, what: str, deadline: float) -> str:
+    """The launcher's ready line; SystemExit with its log's tail when it
+    exits or prints none before `deadline`."""
+    import select
+
+    while time.monotonic() < deadline:
+        ready, _, _ = select.select([proc.stdout], [], [], 1.0)
+        if ready:
+            line = proc.stdout.readline()
+            if line.startswith("ready "):
+                return line.strip()
+            if not line and proc.poll() is not None:
+                break
+    proc.kill()
+    proc.wait()
+    with open(log_path) as f:
+        tail = f.read()[-3000:]
+    raise SystemExit(f"multihost: the {what} printed no ready line (exit "
+                     f"{proc.returncode}):\n{tail}")
+
+
+def _launcher_log(path: str) -> dict:
+    """What a launcher's log says: its own launch counts at exit, and the
+    leader's steps published and the ranks' reports."""
+    import re
+
+    with open(path) as f:
+        text = f.read()
+    out = {"text": text}
+    for key, pat in (("launches", r"kernel launches at exit: (\{[^\n]*\})"),
+                     ("rank_launches", r"rank launches at exit: (\{[^\n]*\})"),
+                     ("rank_steps", r"rank steps replayed at exit: "
+                                    r"(\{[^\n]*\})")):
+        m = re.findall(pat, text)
+        out[key] = json.loads(m[-1]) if m else None
+    m = re.findall(r"steps published: (\d+)", text)
+    out["published"] = int(m[-1]) if m else None
+    m = re.findall(r"rank (\d+) replayed (\d+) steps", text)
+    out["replayed"] = {int(r): int(n) for r, n in m}
+    out["cache_written"] = "weight cache written" in text
+    out["cache_read"] = "weights restored from host cache" in text
+    m = re.findall(r"loaded \S+ from disk to \S+: \d+ tensors, ([\d.]+) GB "
+                   r"in ([\d.]+) s", text)
+    out["disk_load"] = [(float(a), float(b)) for a, b in m]
+    m = re.findall(r"weights restored from host cache for \S+ to \S+: \d+ "
+                   r"tensors, ([\d.]+) GB in ([\d.]+) s", text)
+    out["cache_load"] = [(float(a), float(b)) for a, b in m]
+    return out
+
+
+async def _mh_serve(disc: str, reqs) -> tuple:
+    """Through the launchers' file discovery: the instances a client
+    finds (and the instance files), and the streams of `reqs` sent at
+    once to the one instance."""
+    import uuid
+
+    from dynamo_tpu_torch.runtime import DistributedRuntime, RuntimeConfig
+
+    rt = await DistributedRuntime(config=RuntimeConfig(
+        discovery_backend="file", discovery_path=disc,
+        event_plane="inproc", tcp_host="127.0.0.1"),
+        cluster_id=uuid.uuid4().hex).start()
+    client = await rt.namespace("dynamo").component("backend").endpoint(
+        "generate").client().start()
+    try:
+        ids = [i.instance_id for i in await client.wait_for_instances(60.0)]
+        files = sorted({f[:-5] for _, _, fs in os.walk(
+            os.path.join(disc, "v1", "instances")) for f in fs
+            if f.endswith(".json")})
+        got = await _serve_worker(client, reqs)
+    finally:
+        await client.close()
+        await rt.shutdown()
+    return ids, files, got
+
+
+def check_multihost(device, card: str, n_layers: int) -> dict:
+    """The multihost phase: a llama-8b-width checkpoint of `n_layers`
+    layers (random bf16 weights from seed 0) served by one tp=2 mesh
+    spread over two launchers of `python -m dynamo_tpu_torch.engine`, two
+    processes of this machine standing in for two hosts (DYN_MH_RANK 0 /
+    1, DYN_MH_WORLD 2, JAX_COORDINATOR_ADDRESS on 127.0.0.1, the follower
+    started first), ranks on the one card over gloo.  Checks: the
+    follower's ready line; exactly one instance in discovery, the
+    leader's; the four tp requests' greedy streams against a tp=1 engine
+    on the same checkpoint (a parting only at a near-tie, _tp_streams);
+    the leader's sharded load filled the weight cache and the follower
+    read it; after the leader's drain both launchers exit 0, and the
+    follower's K1/K3 launches, as the leader read them from the mesh's
+    store, are non-zero and equal to the follower's own count and to the
+    leader's (the same programs), with every published step replayed."""
+    import signal
+    import socket
+    import tempfile
+
+    from dynamo_tpu_torch.engine import TorchEngine
+    from dynamo_tpu_torch.engine.__main__ import build_args, engine_config
+    from dynamo_tpu_torch.models.llama import PRESETS
+
+    t0 = time.perf_counter()
+    width = PRESETS["llama-8b"]
+    kernels = [fn.__name__ for fn in _kernels_of("bf16")]
+    out = {"layers": n_layers}
+    with tempfile.TemporaryDirectory(prefix="multihost-") as tmp:
+        path = os.path.join(tmp, f"llama-8b-width-{n_layers}-layers")
+        os.makedirs(path)
+        ref = write_checkpoint(path, width, n_layers, device)
+        out["checkpoint_gb"] = sum(t.numel() * 2 for t in ref.values()) / 1e9
+        del ref
+        torch.cuda.empty_cache()
+        log(f"multihost: checkpoint of {n_layers} layers at llama-8b width, "
+            f"{out['checkpoint_gb']:.3f} GB, written in "
+            f"{time.perf_counter() - t0:.1f} s")
+        with socket.socket() as sk:
+            sk.bind(("127.0.0.1", 0))
+            port = sk.getsockname()[1]
+        disc = os.path.join(tmp, "cluster")
+        cache_dir = os.path.join(tmp, "weight-cache")
+        env = dict(os.environ, DYN_DISCOVERY_BACKEND="file",
+                   DYN_DISCOVERY_PATH=disc, DYN_EVENT_PLANE="inproc",
+                   DYN_LOG_JSON="0", DYN_LOG_LEVEL="INFO",
+                   DYN_WEIGHT_CACHE_DIR=cache_dir,
+                   JAX_COORDINATOR_ADDRESS=f"127.0.0.1:{port}",
+                   DYN_MH_BARRIER_TIMEOUT_S=str(MH_READY_S))
+        args = _mh_args(path, device)
+        logs = {r: os.path.join(tmp, f"launcher{r}.log") for r in (0, 1)}
+        procs = {}
+        try:
+            t1 = time.perf_counter()
+            procs[1] = _start_launcher(1, args, env, logs[1])
+            procs[0] = _start_launcher(0, args, env, logs[0])
+            deadline = time.monotonic() + MH_READY_S
+            fline = _ready_line(procs[1], logs[1], "follower", deadline)
+            lline = _ready_line(procs[0], logs[0], "leader", deadline)
+            out["ready_s"] = time.perf_counter() - t1
+            log(f"multihost: {fline!r} and {lline!r} in "
+                f"{out['ready_s']:.1f} s")
+            if fline != "ready follower rank=1/2" \
+                    or not lline.startswith("ready instance_id="):
+                raise SystemExit(f"multihost: ready lines {fline!r}, "
+                                 f"{lline!r}")
+            lid = int(lline.split("=", 1)[1])
+            reqs = _tp_requests(width.vocab_size)
+            t1 = time.perf_counter()
+            ids, files, got = asyncio.run(_mh_serve(disc, reqs))
+            out["serve_s"] = time.perf_counter() - t1
+            out["instances"] = ids
+            log(f"multihost: discovery lists instances {ids} (instance "
+                f"files {files}); the four requests through the leader in "
+                f"{out['serve_s']:.1f} s ({card})")
+            if ids != [lid] or files != [str(lid)]:
+                raise SystemExit(f"multihost: discovery lists {ids} / "
+                                 f"{files}, not the leader's {lid} alone")
+            # the tp=1 reference on the same checkpoint (its load reads the
+            # weight cache the leader filled)
+            cfg1 = engine_config(build_args().parse_args(
+                [a for a in args if a not in ("--tp", "2",
+                                              "--no-cuda-graphs")]))
+
+            async def reference():
+                e1 = TorchEngine(cfg1, device=device, cuda_graphs=False)
+                try:
+                    res = await _serve(e1, reqs)
+                    lead = _tp_streams("multihost", got, res, reqs,
+                                       e1.params, e1.model_cfg, device)
+                finally:
+                    await e1.close()
+                    _free_engine(e1)
+                return lead
+
+            prior = os.environ.get("DYN_WEIGHT_CACHE_DIR")
+            os.environ["DYN_WEIGHT_CACHE_DIR"] = cache_dir
+            try:
+                out["leading"] = asyncio.run(reference())
+            finally:
+                if prior is None:
+                    os.environ.pop("DYN_WEIGHT_CACHE_DIR")
+                else:
+                    os.environ["DYN_WEIGHT_CACHE_DIR"] = prior
+            log(f"multihost: the four streams' leading tokens equal to "
+                f"tp=1's, of {TP_NEW}: {out['leading']}")
+            procs[0].send_signal(signal.SIGTERM)
+            rcs = {}
+            for r in (0, 1):
+                try:
+                    rcs[r] = procs[r].wait(timeout=MH_EXIT_S)
+                except subprocess.TimeoutExpired:
+                    raise SystemExit(f"multihost: launcher {r} did not exit "
+                                     f"{MH_EXIT_S:.0f} s after the leader's "
+                                     "drain") from None
+        finally:
+            for p in procs.values():
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+                p.stdout.close()
+        lead_log, fol_log = _launcher_log(logs[0]), _launcher_log(logs[1])
+    out["exit_codes"] = rcs
+    mine = fol_log["launches"] or {}
+    stored = (lead_log["rank_launches"] or {}).get("1", {})
+    leader = lead_log["launches"] or {}
+    out["launches"] = {"rank0": leader, "rank1": stored,
+                       "rank1_own_log": mine}
+    out["steps"] = {"published": lead_log["published"],
+                    "replayed": (lead_log["rank_steps"] or {}).get("1"),
+                    "replayed_own_log": fol_log["replayed"].get(1)}
+    out["weight_cache"] = {
+        "leader_wrote": lead_log["cache_written"],
+        "follower_read": fol_log["cache_read"],
+        "leader_disk_load_gb_s": lead_log["disk_load"],
+        "follower_cache_load_gb_s": fol_log["cache_load"]}
+    out["seconds"] = time.perf_counter() - t0
+    log(f"multihost: exit codes {rcs}; launches by rank (rank 1 as the "
+        f"leader read it from the store): {out['launches']}; steps "
+        f"{out['steps']}; weight cache {out['weight_cache']}")
+    if rcs != {0: 0, 1: 0}:
+        raise SystemExit(f"multihost: exit codes {rcs}; follower log tail:"
+                         f"\n{fol_log['text'][-3000:]}")
+    if not all(stored.get(k, 0) > 0 for k in kernels) \
+            or stored != mine or stored != leader:
+        raise SystemExit(f"multihost: the follower's launches {stored} "
+                         f"(its own log {mine}, the leader's {leader}); "
+                         f"every one of {kernels} must be non-zero and the "
+                         "three equal")
+    st = out["steps"]
+    if not (st["published"] and st["replayed"] == st["replayed_own_log"]
+            == st["published"] - 1):
+        raise SystemExit(f"multihost: steps {st}: the follower must replay "
+                         "every step the leader published before its stop")
+    if not (out["weight_cache"]["leader_wrote"]
+            and out["weight_cache"]["follower_read"]):
+        raise SystemExit(f"multihost: weight cache {out['weight_cache']}: "
+                         "the leader's sharded load must fill it and the "
+                         "follower's read it")
+    log(f"multihost phase ({n_layers} layers) done in {out['seconds']:.1f} s")
+    return out
+
+
 def tp_slab_kernels(cfg, device) -> list:
     """K1 (B = 8) and K3 (T = 2048, and the 32-token verify stream of a
     speculative round), each mode, at a tp=2 rank's slab of cfg (its
@@ -10479,6 +10769,14 @@ def main() -> int:
         print(json.dumps({"sp": out}, default=str), flush=True)
         print(card, flush=True)
         return 0
+    if sys.argv[1:] == ["--multihost"]:
+        # python3 chip_smoke.py --multihost: a tp=2 mesh over a leader
+        # and a follower launcher (two processes), llama-8b at full depth
+        build_kernels()
+        out = check_multihost(device, card, cfg.n_layers)
+        print(json.dumps({"multihost": out}, default=str), flush=True)
+        print(card, flush=True)
+        return 0
     if sys.argv[1:] == ["--worker-ab"]:
         # python3 chip_smoke.py --worker-ab: the engine directly against
         # the engine behind the worker, in turns
@@ -10601,6 +10899,10 @@ def main() -> int:
     torch.cuda.empty_cache()
     spx = check_sp(device, card, TP_LAYERS)
     log(f"sp phase done at {time.perf_counter() - t_start:.1f} s")
+    gc.collect()
+    torch.cuda.empty_cache()
+    mhx = check_multihost(device, card, TP_LAYERS)
+    log(f"multihost phase done at {time.perf_counter() - t_start:.1f} s")
     # rank 1's launches on the tp=2 side of every disagg hop and of the
     # KVBM engine
     tpd_rank1 = {}
@@ -10645,6 +10947,9 @@ def main() -> int:
         # rank 0 / rank 1 of the sp=2 engine (bf16 cache)
         k["sp_launches"] = [spx["sp2"]["launches"][r].get(k["name"], 0)
                             for r in ("rank0", "rank1")]
+        # the leader launcher's rank 0 / the follower launcher's rank 1
+        k["multihost_launches"] = [
+            mhx["launches"][r].get(k["name"], 0) for r in ("rank0", "rank1")]
     for k in dma:  # the microbench is on no serving path
         k["disagg_prefill_launches"] = k["disagg_decode_launches"] = 0
         k["disagg_ipc_prefill_launches"] = k["disagg_ipc_decode_launches"] = 0
@@ -10654,6 +10959,7 @@ def main() -> int:
         k["embed_launches"] = k["encoder_launches"] = 0
         k["tp_launches"] = k["tp_families_launches"] = [0, 0]
         k["tp_features_launches"] = k["sp_launches"] = [0, 0]
+        k["multihost_launches"] = [0, 0]
         k["tp_disagg_rank1_launches"] = 0
     log(f"chip_smoke: every phase passed in "
         f"{time.perf_counter() - t_start:.1f} s")

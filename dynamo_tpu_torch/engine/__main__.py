@@ -20,6 +20,23 @@ driver of the process can tell what serving launched.
 is rank 0 and spawns the others, one per device, the first N * M
 visible CUDA devices (or all on the CPU with `--device cpu`); with
 fewer devices the worker exits non-zero with JAX's make_mesh error.
+`--no-cuda-graphs` runs the programs eagerly on CUDA, as a mesh whose
+ranks share a card (gloo) needs.
+
+Multihost (parallel/multihost.py): with DYN_MH_WORLD = H > 1 this
+process is launcher DYN_MH_RANK of H, one per host, every launcher with
+the same flags and JAX_COORDINATOR_ADDRESS=host:port (the leader's
+store).  It owns N * M / H ranks (a mesh H does not divide exits 2) on
+its first N * M / H devices.  Launcher 0 is the leader: it serves, once
+every launcher's ranks have joined within DYN_MH_BARRIER_TIMEOUT_S (else
+it exits non-zero naming the ranks that never came), and prints `ready
+instance_id=<id>`.  Any other launcher joins it (waiting for its store
+as long), prints `ready follower rank=h/H`, replays the leader's steps
+and exits 0 when the leader's drain stops them, its spawned ranks with
+it; a replay that fails exits 1.  At exit the leader logs the steps it
+published and each other rank's launch counts and steps replayed, as
+the ranks reported them into the mesh's store.  With DYN_MH_WORLD unset or 1 the CLI
+is the single launcher it always was.
 """
 
 import argparse
@@ -36,6 +53,7 @@ from ..ops.fused_sampling import EPILOGUE_MODES
 from ..ops.packed_prefill import PACKED_IMPLS
 from ..ops.paged_attention import DECODE_IMPLS
 from ..parallel.mesh import MeshConfig, default_devices, mesh_devices
+from ..parallel.multihost import MultihostContext, initialize
 from ..runtime import DistributedRuntime
 from ..runtime.aio import install_drain_handler
 from ..runtime.logging import setup_logging
@@ -174,6 +192,10 @@ def build_args() -> argparse.ArgumentParser:
     p.add_argument("--device", default="cuda",
                    help="cuda (default; exits non-zero without CUDA), "
                         "cuda:N, or cpu (the plain attention versions)")
+    p.add_argument("--no-cuda-graphs", action="store_true",
+                   help="run the decode and prefill programs eagerly on "
+                        "CUDA (a mesh whose ranks share a card talks "
+                        "through gloo, which a graph cannot capture)")
     return p
 
 
@@ -238,7 +260,10 @@ async def main() -> int:
     config = engine_config(args)
     mcfg = MeshConfig(dp=config.dp, tp=config.tp, sp=config.sp)
     try:
-        mesh_devices(mcfg, default_devices(mcfg, device))
+        mh = MultihostContext.detect()
+        if mh.world > 1:
+            mh = initialize()  # the coordinator: JAX_COORDINATOR_ADDRESS
+        mesh_devices(mcfg, default_devices(mcfg, device), mh.world)
     except ValueError as e:
         print(f"dynamo_tpu_torch.engine: {e}", file=sys.stderr)
         return 2
@@ -246,6 +271,7 @@ async def main() -> int:
     worker = await TorchEngineWorker(
         rt, config, namespace=args.namespace, component=args.component,
         migration_limit=args.migration_limit, device=device,
+        cuda_graphs=not args.no_cuda_graphs, mh=mh,
     ).start()
 
     async def drain_worker() -> None:
@@ -258,15 +284,47 @@ async def main() -> int:
 
     install_drain_handler(drain_worker)
     logger.info("kernel launches at ready: %s", json.dumps(launch_counts()))
-    print(f"ready instance_id={worker.served.instance_id}", flush=True)
+    if worker.served is not None:
+        print(f"ready instance_id={worker.served.instance_id}", flush=True)
+    else:  # a follower launcher: no routing identity, replay only
+        print(f"ready follower rank={mh.rank}/{mh.world}", flush=True)
+    rc = 0
     try:
-        await rt.root_token.wait_killed()
+        if worker.replay_done is None:
+            await rt.root_token.wait_killed()
+        else:
+            # the leader's stop ends the replay; SIGTERM kills the token
+            killed = asyncio.ensure_future(rt.root_token.wait_killed())
+            await asyncio.wait({killed, worker.replay_done},
+                               return_when=asyncio.FIRST_COMPLETED)
+            killed.cancel()
+            await asyncio.gather(killed, return_exceptions=True)
+            if worker.replay_done.done() \
+                    and worker.replay_done.exception() is not None:
+                rc = 1
     except (KeyboardInterrupt, asyncio.CancelledError):
         pass
     await worker.close()
     await rt.shutdown()
     logger.info("kernel launches at exit: %s", json.dumps(launch_counts()))
-    return 0
+    eng = worker.engine
+    if worker.served is not None and eng is not None and eng.rank_launches:
+        # what the other ranks reported into the mesh's store at stop
+        logger.info("steps published: %d", eng.steps_published)
+        logger.info("rank launches at exit: %s", json.dumps(
+            {str(r): c for r, c in eng.rank_launches.items()}))
+        logger.info("rank steps replayed at exit: %s", json.dumps(
+            {str(r): m.get("steps_replayed")
+             for r, m in eng.rank_metrics.items()}))
+    if worker.replay_alive:
+        # a follower stopped before the leader's stop: its replay thread
+        # waits in gloo's receive, which neither an abort nor the
+        # interpreter's exit can end
+        logging.shutdown()
+        sys.stdout.flush()
+        sys.stderr.flush()
+        os._exit(rc)
+    return rc
 
 
 if __name__ == "__main__":

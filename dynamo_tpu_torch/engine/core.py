@@ -183,6 +183,15 @@ combines the ranks' statistics in one gather a step
 programs run eagerly: gloo's collectives cannot be captured, and
 cuda_graphs=True raises.  `close` stops and joins every rank.
 
+Multihost (`mh`, parallel/multihost.py): the mesh may be spread over
+mh.world launchers, one per host.  The leader (launcher 0) hosts the
+store at mh.coordinator, spawns only its own local ranks and waits up to
+DYN_MH_BARRIER_TIMEOUT_S for the other launchers' ranks, whose first
+rank's engine each launcher's worker builds with `mesh=`
+(engine/worker.py).  A leader whose tensor group reaches other hosts
+learns the group's backend only once the mesh is made; CUDA graphs on a
+gloo group then fail there, after the launch.
+
 Sequence parallelism (sp > 1, the JAX engine's long-context path): the
 mesh's ranks at s != 0 hold replicas of their s = 0 peer's cache slab
 and run every step alike.  A cold, adapter-less prompt past the largest
@@ -251,6 +260,7 @@ from ..parallel.mesh import (
 from ..parallel.multihost import (
     STOP,
     GroupTransport,
+    MultihostContext,
     StepBroadcaster,
     from_wire,
     launch_ranks,
@@ -438,7 +448,8 @@ class TorchEngine:
                  draft_params=None,
                  devices: Optional[List[DeviceLike]] = None,
                  mesh: Optional[Mesh] = None,
-                 mesh_timeout_s: float = DEFAULT_TIMEOUT_S):
+                 mesh_timeout_s: float = DEFAULT_TIMEOUT_S,
+                 mh: Optional[MultihostContext] = None):
         """`params`: the port's parameter tree on `device` (for example
         from models/convert.py params_from_numpy); None loads the
         checkpoint at config.model_path, or makes random weights from
@@ -465,18 +476,26 @@ class TorchEngine:
         within `mesh_timeout_s`.  `mesh`: a spawned rank's Mesh
         (parallel/multihost.py follower_main), which makes this engine a
         follower: it replays steps through `apply_step` and never
-        schedules."""
+        schedules.  `mh`: the leader's launcher context (None: one
+        launcher), whose mh.world launchers share the mesh; `devices` are
+        then this host's, the first world / mh.world of them its
+        ranks'."""
         self.config = config
         world = config.dp * config.tp * config.sp
         devs, backend = None, None
+        self._mh = mh or MultihostContext()
         if world > 1 and mesh is None:
             mcfg = MeshConfig(dp=config.dp, tp=config.tp, sp=config.sp)
             devs = mesh_devices(mcfg, devices if devices is not None
                                 else default_devices(mcfg,
-                                                     resolve_device(device)))
+                                                     resolve_device(device)),
+                                self._mh.world)
             device = devs[0]
-            backend = group_backend([devs[r] for r in
-                                     tensor_group_ranks(mcfg, 0)])
+            group = tensor_group_ranks(mcfg, 0)
+            # a group that reaches another launcher's ranks: its backend
+            # is known once the mesh is made (checked after the launch)
+            if max(group) < len(devs):
+                backend = group_backend([devs[r] for r in group])
         elif mesh is not None:
             device, backend = mesh.device, mesh.backend
         self.device = resolve_device(device)
@@ -545,8 +564,11 @@ class TorchEngine:
         if params is None and config.model_path:
             from ..models.loader import load_params
 
+            # the mesh's leader (or a single device) fills the host
+            # weight cache with the whole tree; followers only read it
             params = load_params(config.model_path, self.model_cfg,
-                                 device=self.device, shard=shard)
+                                 device=self.device, shard=shard,
+                                 fill_cache=mesh is None)
         elif params is None:
             gen = torch.Generator(device=self.device)
             gen.manual_seed(config.seed)
@@ -825,10 +847,18 @@ class TorchEngine:
             # rank 0: spawn the other ranks (each builds its engine from
             # this config on its device, with its shard) and join them
             self._ranks = launch_ranks(config, devs, mesh_params,
-                                       cuda_graphs, mesh_timeout_s)
+                                       cuda_graphs, mesh_timeout_s,
+                                       self._mh)
             self.mesh = self._ranks.mesh
             self._steps = StepBroadcaster(
                 GroupTransport(self.mesh.step).send)
+            if backend is None:
+                try:
+                    check_capture(self.mesh.backend, self.device,
+                                  cuda_graphs or bool(prefill_graphs))
+                except ValueError:
+                    self._ranks.close(partial(self._publish, STOP))
+                    raise
         if self.mesh is not None and self.mesh.tensor is not None:
             # the forward's collectives ride the tree (models/llama.py)
             self.params["tp"] = self.mesh.tensor
@@ -841,6 +871,12 @@ class TorchEngine:
                                                   "prefill_ring")
         self._ring_lengths: set = set()  # T_pad of the ring calls so far
         self.ring_calls_ms: List[float] = []  # each ring call's ms
+
+    @property
+    def steps_published(self) -> int:
+        """The leader's steps on the stream so far, `stop` included (0
+        off a mesh and on a follower)."""
+        return self._steps.published if self._steps is not None else 0
 
     def _program_families(self) -> list:
         """Every program family this engine builds (the capture watch's

@@ -65,7 +65,24 @@ the unchanged JAX frontend and its KV router serve it like any other:
     one `{"embedding", "dim"}` frame out, the pooled unit vector the JAX
     frontend's /v1/embeddings returns.
 
-Not ported yet (ROADMAP.md): multi-host slices.
+Multihost (`mh`, parallel/multihost.py MultihostContext, detected from
+DYN_MH_RANK / DYN_MH_WORLD and JAX_COORDINATOR_ADDRESS by default): a
+mesh spread over one launcher per host.  Only the leader (launcher 0)
+registers and serves, as the JAX worker's slice leader does; its engine
+hosts the mesh's store and starts serving once every launcher's ranks
+have joined (the barrier, DYN_MH_BARRIER_TIMEOUT_S).  A follower
+launcher (`_start_follower`) joins the leader's mesh, builds its first
+rank's engine on it with no KVBM tiers and replays the leader's step
+stream on a thread until the leader's `stop`: no routing identity, no
+KV events, no load metrics, no SLO feed, no broker registration;
+`drain` is a no-op there and `debug_state` names the follower role.  A
+replay that dies kills the runtime's root token, as JAX's `on_done`
+does.  On a multihost mesh the decode side pulls disagg KV only as
+host-staged frames over the request plane (no in-process broker, no
+CUDA IPC tier, as JAX's single-host-only tiers), and the pulled
+payload reaches the followers as inject steps.  Unlike the JAX worker,
+the leader warms up on a multihost mesh too: the port's warm-up
+dispatches ride the step stream, so followers replay them.
 
 The `kvbm_pull` wire carries block hashes as 16-byte big-endian bytes
 (router/events.py hash_to_wire), as the KV events do, and accepts plain
@@ -76,14 +93,16 @@ worker's int hashes cannot be encoded on the request plane at all.
 from __future__ import annotations
 
 import asyncio
+import dataclasses
 import logging
 import os
+import threading
 import time
 from collections import OrderedDict
 from typing import Dict, List, Optional
 
 from .. import obs
-from ..device import DeviceLike
+from ..device import DeviceLike, resolve_device
 from ..disagg import broker
 from ..disagg.device_transfer import (
     NegotiatedPullSource,
@@ -97,6 +116,13 @@ from ..models.loader import load_chat_template
 from ..kvbm import breaker as kvbm_breaker
 from ..obs.compile_watch import observe_compile_records
 from ..obs.slo import SLO_SUBJECT_PREFIX
+from ..parallel.mesh import MeshConfig, default_devices
+from ..parallel.multihost import (
+    JOIN_TIMEOUT_S,
+    MultihostContext,
+    join_ranks,
+    replay,
+)
 from ..planner.metrics import FpmWindow, export_engine_gauges
 from ..protocols import (
     CANARY_GENERATE_PAYLOAD,
@@ -122,6 +148,9 @@ FPM_SUBJECT_PREFIX = "fpm"
 G4_SWEEP_TICKS = 60
 # decode-side pulls whose tier stats the worker keeps (pull_stats)
 PULL_STATS_KEPT = 256
+# seconds a follower's close waits for its replay to end (the leader's
+# stop ends it; nothing else can)
+REPLAY_JOIN_S = 5.0
 
 
 class TorchEngineWorker:
@@ -131,7 +160,8 @@ class TorchEngineWorker:
                  tokenizer_cfg: Optional[dict] = None,
                  params=None, device: DeviceLike = "cuda",
                  devices: Optional[List[DeviceLike]] = None,
-                 cuda_graphs: bool = True):
+                 cuda_graphs: bool = True,
+                 mh: Optional[MultihostContext] = None):
         """`params`: the port's parameter tree on `device`, or None for
         the checkpoint at config.model_path, else random weights from
         config.seed (TorchEngine).  With config.dp * config.tp > 1 the
@@ -139,7 +169,10 @@ class TorchEngineWorker:
         default without them), `params` the whole numpy tree or None; the
         other ranks are its engine's processes and have no routing
         identity, as the JAX worker's followers.  `cuda_graphs`:
-        TorchEngine's (False on a gloo mesh on CUDA)."""
+        TorchEngine's (False on a gloo mesh on CUDA).  `mh`: this
+        launcher's place among the mesh's hosts (default
+        MultihostContext.detect()); a follower's `devices` are its own
+        host's."""
         self.runtime = runtime
         self.config = config
         self.namespace = namespace
@@ -160,6 +193,13 @@ class TorchEngineWorker:
         self.device = device
         self.devices = devices
         self.cuda_graphs = cuda_graphs
+        self.mh = mh or MultihostContext.detect()
+        # a follower launcher's local ranks, its replay thread and the
+        # future that resolves when the replay ends (its step count, or
+        # the error that ended it)
+        self._follower_ranks = None
+        self._replay_thread: Optional[threading.Thread] = None
+        self.replay_done: Optional[asyncio.Future] = None
         self._params = params
         self.engine: Optional[TorchEngine] = None
         self.publisher: Optional[KvEventPublisher] = None
@@ -245,6 +285,8 @@ class TorchEngineWorker:
 
     async def start(self) -> "TorchEngineWorker":
         rt = self.runtime
+        if not self.mh.is_leader:
+            return await self._start_follower()
         instance_id = new_instance_id()
         self.publisher = KvEventPublisher(
             rt, self.namespace, self.component, worker_id=instance_id)
@@ -256,12 +298,16 @@ class TorchEngineWorker:
             self.publisher.enqueue_batch(stored=stored, removed=removed,
                                          tier=tier)
 
-        self.engine = TorchEngine(self.config, params=self._params,
-                                  device=self.device,
-                                  kv_event_sink=kv_event_sink,
-                                  kv_pull_fn=self._kv_pull,
-                                  cuda_graphs=self.cuda_graphs,
-                                  devices=self.devices)
+        kw = dict(params=self._params, device=self.device,
+                  kv_event_sink=kv_event_sink, kv_pull_fn=self._kv_pull,
+                  cuda_graphs=self.cuda_graphs, devices=self.devices)
+        if self.mh.world == 1:
+            self.engine = TorchEngine(self.config, **kw)
+        else:
+            # the engine's launch waits for the other launchers' ranks
+            # (the barrier): off the event loop
+            self.engine = await asyncio.to_thread(
+                TorchEngine, self.config, **kw, mh=self.mh)
         self._params = None  # the engine holds them now
         self.engine.transfer_identity = {
             "instance_id": instance_id,
@@ -404,7 +450,7 @@ class TorchEngineWorker:
         # failed start leaks no half-built engine into the registry
         broker.register_engine(instance_id, self.engine)
         self._broker_id = instance_id
-        if self.engine.device.type == "cuda":
+        if self.engine.device.type == "cuda" and self.mh.world == 1:
             # the opt-in's probe (a child process) runs before any pull
             await asyncio.to_thread(get_transfer_server)
         if self.config.warmup:
@@ -428,6 +474,75 @@ class TorchEngineWorker:
         logger.info("torch engine worker %d serving %s on %s", instance_id,
                     self.config.served_name, self.engine.device)
         return self
+
+    async def _start_follower(self) -> "TorchEngineWorker":
+        """A follower launcher (mh.rank > 0): join the leader's mesh (its
+        store at the coordinator, waited for up to
+        DYN_MH_BARRIER_TIMEOUT_S), spawn this host's other ranks, build
+        the first local rank's engine on the joined mesh, with no KVBM
+        tiers (its cache evolves from the replayed stream alone, as JAX's
+        `dataclasses.replace` keeps the compute config), and replay the
+        leader's steps on a thread until `stop`.  No network identity:
+        nothing is registered, served or published.  A replay that fails
+        kills the runtime's root token (the process must restart to
+        rejoin); `replay_done` resolves when the replay ends."""
+        fcfg = dataclasses.replace(
+            self.config, host_cache_blocks=0, disk_cache_dir=None,
+            disk_cache_blocks=0, object_store_dir=None)
+        mcfg = MeshConfig(dp=fcfg.dp, tp=fcfg.tp, sp=fcfg.sp)
+        devices = (self.devices if self.devices is not None
+                   else default_devices(mcfg, resolve_device(self.device)))
+        ranks = await asyncio.to_thread(
+            join_ranks, fcfg, devices, self._params, self.cuda_graphs,
+            mh=self.mh)
+        self._follower_ranks = ranks
+        mesh = ranks.mesh
+        try:
+            self.engine = await asyncio.to_thread(
+                TorchEngine, fcfg, params=self._params, device=mesh.device,
+                cuda_graphs=self.cuda_graphs, mesh=mesh)
+        except BaseException:
+            ranks.close(timeout_s=0.0)
+            raise
+        self._params = None
+        loop = asyncio.get_running_loop()
+        done = self.replay_done = loop.create_future()
+
+        def finish(n: Optional[int], exc: Optional[BaseException]) -> None:
+            if done.done():
+                return
+            if exc is None:
+                done.set_result(n)
+                return
+            done.set_exception(exc)
+            logger.critical("follower rank %d replay died (%s); restarting "
+                            "is the only way to rejoin the mesh",
+                            mesh.rank, exc)
+            self.runtime.root_token.kill()
+
+        def run() -> None:
+            try:
+                n, exc = replay(self.engine, mesh), None
+            except BaseException as e:  # handed to the loop's future
+                n, exc = None, e
+            try:
+                loop.call_soon_threadsafe(finish, n, exc)
+            except RuntimeError:
+                pass  # the loop is gone: nobody waits for the replay
+
+        self._replay_thread = threading.Thread(
+            target=run, name=f"dynamo-replay-rank{mesh.rank}", daemon=True)
+        self._replay_thread.start()
+        logger.info("follower launcher %d/%d (rank %d) replaying %s/%s",
+                    self.mh.rank, self.mh.world, mesh.rank, self.namespace,
+                    self.component)
+        return self
+
+    @property
+    def replay_alive(self) -> bool:
+        """A follower whose replay still waits for the leader's steps."""
+        return (self._replay_thread is not None
+                and self._replay_thread.is_alive())
 
     async def kv_debug(self) -> dict:
         """/debug/kv source, the JAX worker's: the ledger's dump after a
@@ -474,8 +589,12 @@ class TorchEngineWorker:
         """Live scheduler/KV/drain snapshot for /debug/state and the fleet
         aggregator, with the JAX worker's keys.  Read-only over structures
         the scheduler thread mutates: copies first and tolerates a torn
-        read (a debug dump never takes the step lock)."""
+        read (a debug dump never takes the step lock).  A follower has no
+        scheduler of its own: its role and rank."""
         eng = self.engine
+        if not self.mh.is_leader:
+            return {"kind": "engine", "role": "follower",
+                    "rank": self.mh.rank}
         slots = []
         for s in list(eng._slots):
             if s is None:
@@ -516,7 +635,11 @@ class TorchEngineWorker:
 
     def _transfer_server(self):
         """The process's CUDA IPC server where the opt-in holds and it
-        lives on the engine's device; else None."""
+        lives on the engine's device; else None, and always on a
+        multihost mesh (a gathered chunk is the leader's; one process
+        serves it as host frames)."""
+        if self.mh.world > 1:
+            return None
         srv = get_transfer_server()
         if srv is None or self.engine is None \
                 or srv.device != self.engine.device:
@@ -528,11 +651,14 @@ class TorchEngineWorker:
         process (broker: chunks stay on the device), else the sender's
         `kv_pull` endpoint over the request plane, chunks copied over
         CUDA IPC when both ends have it (negotiated per pull), else
-        host-staged frames.  The engine validates the sender's layout."""
-        src_engine = broker.lookup_engine(params["instance_id"])
-        if src_engine is not None and src_engine is not self.engine:
-            return broker.LocalEnginePullSource(src_engine,
-                                                params["request_id"])
+        host-staged frames.  A multihost mesh takes host-staged frames
+        only: the payload then rides the step stream to the followers.
+        The engine validates the sender's layout."""
+        if self.mh.world == 1:
+            src_engine = broker.lookup_engine(params["instance_id"])
+            if src_engine is not None and src_engine is not self.engine:
+                return broker.LocalEnginePullSource(src_engine,
+                                                    params["request_id"])
         key = (params.get("namespace", self.namespace),
                params.get("component", self.component))
         client = self._pull_clients.get(key)
@@ -670,8 +796,10 @@ class TorchEngineWorker:
         migratable "worker draining" marker, let in-flight requests
         finish until the deadline, then drain_abort() the rest so the
         frontend's token-replay migration moves them to surviving
-        workers.  Only this worker's keys are deleted."""
-        if self.engine is None:
+        workers.  Only this worker's keys are deleted.  A follower has no
+        routing identity and nothing to drain: the leader's drain and
+        close end its replay with `stop`."""
+        if self.engine is None or not self.mh.is_leader:
             return
         self.engine.draining = True
         if self.served is not None:
@@ -689,6 +817,9 @@ class TorchEngineWorker:
                     self._chunk_refs.clear())
 
     async def close(self) -> None:
+        if not self.mh.is_leader:
+            await self._close_follower()
+            return
         if self._debug_source_name is not None:
             self.runtime.unregister_debug_source(self._debug_source_name)
             self._debug_source_name = None
@@ -730,3 +861,23 @@ class TorchEngineWorker:
         self._aux_served = []
         if self.served is not None:
             await self.served.shutdown()
+
+    async def _close_follower(self) -> None:
+        """Stop the replay: it ends with the leader's stop, so wait for it
+        (bounded); one still waiting for the leader cannot be interrupted
+        (gloo's receive is not), and `replay_alive` says so.  Then the
+        engine and this host's other ranks."""
+        if self._replay_thread is not None:
+            await asyncio.to_thread(self._replay_thread.join, REPLAY_JOIN_S)
+            if self._replay_thread.is_alive():
+                logger.warning("follower launcher %d closed before the "
+                               "leader's stop; its replay still waits",
+                               self.mh.rank)
+        if self.engine is not None:
+            await self.engine.close()
+        if self._follower_ranks is not None:
+            # the local ranks exit with the stop; without one, at once
+            ranks, self._follower_ranks = self._follower_ranks, None
+            await asyncio.to_thread(
+                ranks.close, timeout_s=0.0 if self.replay_alive
+                else JOIN_TIMEOUT_S)

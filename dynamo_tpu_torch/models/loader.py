@@ -367,7 +367,8 @@ def load_params(model_path: str,
                 cfg: Optional[Union[LlamaConfig, DeepseekConfig]] = None,
                 device: DeviceLike = "cuda",
                 host_cache: bool = True,
-                shard: Optional[Tuple[int, int]] = None) -> Dict[str, Any]:
+                shard: Optional[Tuple[int, int]] = None,
+                fill_cache: Optional[bool] = None) -> Dict[str, Any]:
     """Load a HF checkpoint into the port's parameter tree on `device`
     (CUDA unless the caller asks for the CPU).  `cfg` defaults to the
     checkpoint's (load_hf_config); its dtype is the weights'.
@@ -379,8 +380,16 @@ def load_params(model_path: str,
     shard=(rank, tp): only rank's tensor-parallel shard of each weight
     reaches the device, each cut from the file's (or the cache's) whole
     tensor on the host, as JAX's loader places each weight straight onto
-    its shards.  A rank fills no cache entry: it holds no whole tree (a
-    tp = 1 load fills it, and every rank's load then reads it)."""
+    its shards.
+
+    fill_cache: whether a load that misses the cache writes it (default:
+    a whole-tree load does, a sharded one does not).  A sharded load
+    asked to fill it (the mesh's leader, engine/core.py) reads the whole
+    tree into host memory once, writes it as a tp = 1 load does, and
+    places its shard from the entry, so a restarted tp worker's ranks all
+    skip the disk.  The whole tree then sits in host RAM until the entry
+    is written: 16.06 GB at llama-8b's bf16 widths, on top of the entry
+    itself in tmpfs."""
     from .weight_cache import default_cache_dir, read_cache, write_cache
 
     dev = resolve_device(device)
@@ -390,18 +399,38 @@ def load_params(model_path: str,
         cached = read_cache(cache_dir, model_path, device=dev, shard=shard)
         if cached is not None:
             return cached
-    t0 = time.perf_counter()
-    placer = Placer(dev, shard)
-    stats = {"tensors": 0, "bytes": 0, "copies": 0}
+    fill = cache_dir is not None and (
+        shard is None if fill_cache is None else fill_cache)
     load = (_load_deepseek_params if isinstance(cfg, DeepseekConfig)
             else _load_llama_params)
+    if fill and shard is not None:
+        # the whole tree on the host, written once; the shard is then
+        # placed from the entry as every later rank's read places it
+        host = torch.device("cpu")
+        whole = _load_from_disk(load, model_path, cfg, Placer(host), host)
+        written = write_cache(cache_dir, model_path, whole)
+        del whole
+        if written:
+            cached = read_cache(cache_dir, model_path, device=dev,
+                                shard=shard)
+            if cached is not None:
+                return cached
+        fill = False
+    params = _load_from_disk(load, model_path, cfg, Placer(dev, shard), dev)
+    if fill:
+        write_cache(cache_dir, model_path, params)
+    return params
+
+
+def _load_from_disk(load, model_path: str, cfg, placer: Placer,
+                    dev: torch.device) -> Dict[str, Any]:
+    t0 = time.perf_counter()
+    stats = {"tensors": 0, "bytes": 0, "copies": 0}
     params = load(model_path, cfg, placer, stats, dev)
     logger.info("loaded %s from disk to %s: %d tensors, %.3f GB in %.2f s; "
                 "%d unaligned tensors copied", model_path, dev,
                 stats["tensors"], stats["bytes"] / 1e9,
                 time.perf_counter() - t0, stats["copies"])
-    if cache_dir is not None and shard is None:
-        write_cache(cache_dir, model_path, params)
     return params
 
 

@@ -29,15 +29,27 @@ Rank r sits at mesh coordinates (dp, tp, sp) in the order of JAX's
 `reshape(dp, tp, sp)`: r = (d * tp + t) * sp + s.
 
 Groups are made from the process-group classes themselves over one
-TCPStore (rank 0 hosts it; the others connect to its port), not through
+TCPStore (rank 0 hosts it on the coordinator's port, parallel/
+multihost.py; the others connect to it), not through
 `init_process_group`: the default group is a process-wide singleton, and
 a process may hold one tensor-parallel engine after another, or a
-tensor-parallel engine beside a single-device one.  Each rank has
+tensor-parallel engine beside a single-device one.  The store's host is
+the coordinator's (`rendezvous(..., host=)`); a mesh built without one
+meets on 127.0.0.1 (`STORE_HOST`).  TCPStore's server listens on every
+interface, so ranks on other hosts reach it at the coordinator's
+address.
+
+Each rank announces itself at join (`join`): `joined/{rank}` holds its
+(host, card) identity, `{"node", "device"}` as disagg/device_transfer.py
+names a card: the host's boot id, and the card's UUID (or "cpu").  A
+group's backend follows from its members' identities (`group_backend`),
+so two hosts' cuda:0 are two cards, and two ranks of one card (on one
+host or two launchers of one machine) are one.  Each rank has
 
   * a tensor group (`Mesh.tensor`), the tp ranks that share its (d, s): NCCL
-    where every rank of the group has a CUDA device of its own, gloo
-    where ranks share a device or run on the CPU (NCCL refuses two ranks
-    on one device).  The backend follows from the devices alone;
+    where every rank of the group has a CUDA card of its own, gloo
+    where ranks share a card or run on the CPU (NCCL refuses two ranks
+    on one device);
   * a ring group (`Mesh.ring`, None at sp = 1), the sp ranks that share
     its (d, t), consecutive ranks in ring order: the ring prefill's
     neighbour exchange, and the gather and broadcast around it
@@ -53,6 +65,14 @@ Every group is made with a bounded timeout, so a rank that hangs
 surfaces as an error on the others; one that dies closes its sockets,
 and gloo raises at once.
 
+The gloo groups bind where torch's own ProcessGroupGloo constructor
+binds them: to the interfaces named in GLOO_SOCKET_IFNAME when it is
+set, else to the address this host's name resolves to (loopback only
+when the name resolves to no usable address).  A mesh across hosts
+therefore needs each host's name to resolve to an address the other
+hosts reach, or GLOO_SOCKET_IFNAME set on every launcher.  NCCL picks
+its own interfaces (NCCL_SOCKET_IFNAME).
+
 `parallel/compat.py` of the JAX package (a shim over JAX versions'
 shard_map spellings) has no counterpart: nothing here maps over shards.
 """
@@ -60,6 +80,8 @@ shard_map spellings) has no counterpart: nothing here maps over shards.
 from __future__ import annotations
 
 import datetime
+import json
+import socket
 from dataclasses import dataclass
 from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
@@ -68,8 +90,8 @@ import torch.distributed as dist
 
 # seconds a collective, a join or a group's rendezvous may wait for a peer
 DEFAULT_TIMEOUT_S = 300.0
-# the rendezvous host: every rank of a mesh runs on this machine (ranks
-# across hosts are ROADMAP.md's next step)
+# the rendezvous host of a mesh built without a coordinator (every rank
+# on this machine)
 STORE_HOST = "127.0.0.1"
 
 
@@ -84,16 +106,34 @@ class MeshConfig:
         return self.dp * self.tp * self.sp
 
 
-def mesh_devices(cfg: MeshConfig, devices: Sequence) -> List[torch.device]:
-    """The first cfg.num_devices of `devices` as torch.devices, one per
-    rank in rank order; raises JAX's ValueError when there are fewer.  A
-    device may repeat (["cuda:0", "cuda:0"], ["cpu", "cpu"]): the
-    counterpart of JAX's virtual CPU mesh."""
+def launcher_ranks(cfg: MeshConfig, hosts: int = 1,
+                   host: int = 0) -> range:
+    """The ranks launcher `host` of `hosts` owns: L = num_devices / hosts
+    consecutive ranks from host * L, as JAX's processes each hold their
+    local devices.  Raises ValueError when `hosts` does not divide the
+    mesh."""
+    world = cfg.num_devices
+    if hosts < 1 or world % hosts:
+        raise ValueError(f"a mesh of {world} ranks does not divide over "
+                         f"{hosts} launchers")
+    if not 0 <= host < hosts:
+        raise ValueError(f"launcher {host} outside {hosts} launchers")
+    n = world // hosts
+    return range(host * n, (host + 1) * n)
+
+
+def mesh_devices(cfg: MeshConfig, devices: Sequence,
+                 hosts: int = 1) -> List[torch.device]:
+    """The devices of one launcher's ranks: the first num_devices / hosts
+    of `devices` as torch.devices, in rank order; raises JAX's ValueError
+    when there are fewer (and launcher_ranks' when `hosts` does not
+    divide the mesh).  A device may repeat (["cuda:0", "cuda:0"], ["cpu",
+    "cpu"]): the counterpart of JAX's virtual CPU mesh."""
+    n = len(launcher_ranks(cfg, hosts))
     devices = list(devices)
-    if cfg.num_devices > len(devices):
-        raise ValueError(
-            f"mesh needs {cfg.num_devices} devices, have {len(devices)}")
-    return [torch.device(d) for d in devices[:cfg.num_devices]]
+    if n > len(devices):
+        raise ValueError(f"mesh needs {n} devices, have {len(devices)}")
+    return [torch.device(d) for d in devices[:n]]
 
 
 def rank_coords(cfg: MeshConfig, rank: int) -> Tuple[int, int, int]:
@@ -120,11 +160,41 @@ def ring_group_ranks(cfg: MeshConfig, dp_rank: int,
     return list(range(base, base + cfg.sp))
 
 
-def group_backend(devices: Sequence[torch.device]) -> str:
-    """"nccl" when every rank of a group has a CUDA device of its own,
-    else "gloo" (ranks on the CPU, or ranks sharing a device)."""
-    cuda = all(d.type == "cuda" for d in devices)
-    return "nccl" if cuda and len(set(devices)) == len(devices) else "gloo"
+def node_id() -> str:
+    """This host's identity: its boot id (two containers of one host share
+    it, as disagg/device_transfer.py's capability reads it), else its
+    name."""
+    try:
+        with open("/proc/sys/kernel/random/boot_id") as f:
+            return f.read().strip()
+    except OSError:
+        return socket.gethostname()
+
+
+def rank_identity(device: torch.device) -> Dict[str, str]:
+    """A rank's (host, card) identity, `{"node", "device"}`: the device
+    is "cpu", or "cuda:" and the card's UUID where torch reports one (two
+    processes that see one card under different indices name it alike),
+    else the device's name."""
+    device = torch.device(device)
+    card = str(device)
+    if device.type == "cuda":
+        uuid = getattr(torch.cuda.get_device_properties(device), "uuid",
+                       None)
+        if uuid is not None:
+            card = f"cuda:{uuid}"
+    return {"node": node_id(), "device": card}
+
+
+def group_backend(members: Sequence) -> str:
+    """"nccl" when every rank of a group has a CUDA card of its own, else
+    "gloo" (ranks on the CPU, or ranks sharing a card).  A member is a
+    rank's identity (`rank_identity`'s {"node", "device"}), or a
+    torch.device of this host."""
+    ids = [("", str(m)) if isinstance(m, torch.device)
+           else (m["node"], m["device"]) for m in members]
+    cuda = all(dev.startswith("cuda") for _, dev in ids)
+    return "nccl" if cuda and len(set(ids)) == len(ids) else "gloo"
 
 
 # ---------------------------------------------------------------------------
@@ -311,12 +381,26 @@ def _timeout(seconds: float) -> datetime.timedelta:
 
 
 def rendezvous(rank: int, world: int, port: int = 0,
-               timeout_s: float = DEFAULT_TIMEOUT_S) -> dist.TCPStore:
-    """The mesh's store: rank 0 hosts it (port 0 = any free port; read
-    the one it took from `.port`), the others connect to `port`."""
-    return dist.TCPStore(STORE_HOST, port, world, rank == 0,
+               timeout_s: float = DEFAULT_TIMEOUT_S,
+               host: str = STORE_HOST) -> dist.TCPStore:
+    """The mesh's store at host:port: rank 0 hosts it (port 0 = any free
+    port; read the one it took from `.port`), the others connect to it,
+    retrying until timeout_s."""
+    return dist.TCPStore(host, port, world, rank == 0,
                          timeout=_timeout(timeout_s),
                          wait_for_workers=False)
+
+
+def join(store, rank: int, device: torch.device) -> None:
+    """Announce `rank` in the store with its identity (`joined/{rank}`):
+    the key the leader waits on and each group's backend reads."""
+    store.set(f"joined/{rank}", json.dumps(rank_identity(device)))
+
+
+def _identities(store, ranks: Sequence[int]) -> List[Dict[str, str]]:
+    """The joined identities of `ranks` (a get waits for a key up to the
+    store's timeout)."""
+    return [json.loads(store.get(f"joined/{r}")) for r in ranks]
 
 
 class TensorGroup:
@@ -524,18 +608,18 @@ class Mesh:
         return self.rank == 0
 
 
-def make_mesh(cfg: MeshConfig, devices: Sequence, rank: int, store,
+def make_mesh(cfg: MeshConfig, device, rank: int, store,
               timeout_s: float = DEFAULT_TIMEOUT_S) -> Mesh:
-    """Rank's Mesh over `store` (rendezvous): every rank of the mesh calls
-    this with the same cfg and devices and its own rank; each group's
-    construction waits for its members.  Every rank builds its groups in
-    one order (step, tensor, ring) and the groups of each kind are
-    disjoint, so no two ranks wait on each other's next group.  Raises
-    as JAX's make_mesh when there are fewer devices than ranks."""
-    devs = mesh_devices(cfg, devices)
+    """Rank's Mesh over `store` (rendezvous), `device` its own: every rank
+    of the mesh calls this with the same cfg once it has joined (`join`);
+    each group's backend follows from its members' joined identities, and
+    each group's construction waits for its members.  Every rank builds
+    its groups in one order (step, tensor, ring) and the groups of each
+    kind are disjoint, so no two ranks wait on each other's next
+    group."""
     d, t, s = rank_coords(cfg, rank)
     ranks = tensor_group_ranks(cfg, d, s)
-    backend = group_backend([devs[r] for r in ranks])
+    backend = group_backend(_identities(store, ranks))
     step = _gloo(store, "step", rank, cfg.num_devices, timeout_s)
     tensor = None
     if cfg.tp > 1:
@@ -546,14 +630,14 @@ def make_mesh(cfg: MeshConfig, devices: Sequence, rank: int, store,
     ring = None
     if cfg.sp > 1:
         rranks = ring_group_ranks(cfg, d, t)
-        rbackend = group_backend([devs[r] for r in rranks])
+        rbackend = group_backend(_identities(store, rranks))
         name = f"sp{d}.{t}"
         pg = (_nccl(store, name, s, rranks, timeout_s)
               if rbackend == "nccl"
               else _gloo(store, name, s, cfg.sp, timeout_s))
         ring = RingGroup(rbackend, pg, s, cfg.sp)
-    return Mesh(cfg, rank, devs[rank], backend, store, step, tensor,
-                timeout_s, ring)
+    return Mesh(cfg, rank, torch.device(device), backend, store, step,
+                tensor, timeout_s, ring)
 
 
 def default_devices(cfg: MeshConfig, device: torch.device) -> List[str]:

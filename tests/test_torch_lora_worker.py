@@ -42,7 +42,7 @@ from dynamo_tpu_torch.protocols import (
 )
 from dynamo_tpu_torch.runtime import DistributedRuntime, RuntimeConfig
 from test_lora import write_peft_adapter
-from test_torch_worker import REPO, _env, _readline, _wait
+from test_torch_worker import REPO, _discover, _env, _ready_line, _wait
 
 pytestmark = pytest.mark.allow_slow_callbacks
 
@@ -268,8 +268,8 @@ def test_engine_cli_serves_an_adapter_request(tmp_path):
         cwd=REPO, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
         env=_env(DYN_DISCOVERY_BACKEND="file", DYN_DISCOVERY_PATH=str(disc)))
     try:
-        line = _readline(proc, timeout=60.0)
-        assert line.startswith("ready instance_id="), proc.stderr.read()
+        line = _ready_line(proc)
+        assert line.startswith("ready instance_id="), line
         res = asyncio.run(_adapter_requests(disc))
         (base, fb), (ad, fa), (err, fe) = res
         assert fb == fa == "length" and len(base) == len(ad) == 8
@@ -291,7 +291,7 @@ async def _adapter_requests(disc):
         "generate").client().start()
     out = []
     try:
-        await client.wait_for_instances()
+        await _discover(client)
         for lora in (None, "ad", "nope"):
             toks, finish, err = [], None, ""
             async for o in client.generate(PreprocessedRequest(

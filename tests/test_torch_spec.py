@@ -103,8 +103,9 @@ def engines(events=None, draft=False, **over):
 
 
 async def serve(je, te, prompts, n, sampling=(0.0, 0, 1.0, 0)):
-    """The prompts through both engines at once per engine; closes them.
-    Returns (jax streams, torch streams)."""
+    """The prompts through both engines at once per engine; closes them
+    and waits out each one's last step (`settled`).  Returns (jax
+    streams, torch streams)."""
     out = []
     for eng, jax_side in ((je, True), (te, False)):
         try:
@@ -114,7 +115,26 @@ async def serve(je, te, prompts, n, sampling=(0.0, 0, 1.0, 0)):
             await asyncio.sleep(0.05)  # the sinks run on the loop thread
         finally:
             await eng.close()
+            await settled(eng)
     return out
+
+
+# seconds a closed engine's last scheduler step may still run
+SETTLE_S = 60.0
+
+
+async def settled(eng) -> None:
+    """Wait out the scheduler step still running on a closed engine's
+    thread.  The step that pushes a stream's last token books the spec
+    counters and the spec_verify FPM record after the push, and JAX's
+    close waits that step out only with KVBM on (dynamo_tpu/engine/
+    core.py JaxEngine.close): read right after it, a busy host's JAX
+    counters miss the last round (ROADMAP.md Queue 3 item 18)."""
+    lock = eng._step_lock
+    if not await asyncio.to_thread(lock.acquire, True, SETTLE_S):
+        raise AssertionError(f"{type(eng).__name__}'s scheduler step was "
+                             f"still running {SETTLE_S:.0f} s after close")
+    lock.release()
 
 
 def spec_counts(eng) -> dict:

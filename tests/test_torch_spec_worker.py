@@ -26,7 +26,7 @@ from dynamo_tpu_torch.protocols import (
 )
 from dynamo_tpu_torch.runtime import DistributedRuntime, RuntimeConfig
 from test_torch_spec import COMMON, FP32, REPEAT_PROMPT, _torch_params
-from test_torch_worker import REPO, _env, _readline
+from test_torch_worker import REPO, _discover, _env, _ready_line
 
 pytestmark = pytest.mark.allow_slow_callbacks
 
@@ -131,8 +131,8 @@ def test_engine_cli_serves_with_ngram_speculation(tmp_path):
         cwd=REPO, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
         env=_env(DYN_DISCOVERY_BACKEND="file", DYN_DISCOVERY_PATH=str(disc)))
     try:
-        line = _readline(proc, timeout=60.0)
-        assert line.startswith("ready instance_id="), proc.stderr.read()
+        line = _ready_line(proc)
+        assert line.startswith("ready instance_id="), line
         iid = line.strip().split("=", 1)[1]
         mdc = disc / "v1" / "mdc" / "dynamo" / "tiny" / f"{iid}.json"
         card = json.loads(mdc.read_text())
@@ -156,7 +156,7 @@ async def _one_request(disc):
         "generate").client().start()
     toks, finish = [], None
     try:
-        await client.wait_for_instances()
+        await _discover(client)
         async for out in client.generate(_request("cli", 12).to_dict()):
             toks.extend(out.get("token_ids", []))
             finish = out.get("finish_reason")

@@ -460,6 +460,118 @@ def test_checkpoint_and_cache_load_by_shard(variant, tmp_path, monkeypatch):
                             shard_params(whole, r, 2))
 
 
+def _blank_checkpoint_data(path) -> None:
+    """Zero every tensor byte of the checkpoint's safetensors files in
+    place, keeping each file's size and mtime, so the weight cache's
+    fingerprint still matches: a load that reads the checkpoint now gets
+    zeros, one that reads the cache the original weights."""
+    import os
+    import struct
+
+    for f in sorted(os.listdir(path)):
+        if not f.endswith(".safetensors"):
+            continue
+        p = os.path.join(path, f)
+        st = os.stat(p)
+        with open(p, "r+b") as fh:
+            start = 8 + struct.unpack("<Q", fh.read(8))[0]
+            fh.seek(start)
+            fh.write(bytes(st.st_size - start))
+        os.utime(p, ns=(st.st_atime_ns, st.st_mtime_ns))
+
+
+@pytest.mark.parametrize("variant", ["llama", "mixtral"])
+def test_a_sharded_load_fills_the_weight_cache_once(variant, tmp_path,
+                                                    monkeypatch):
+    """The mesh leader's sharded load (fill_cache=True) writes the whole
+    tree once, as a tp = 1 load does; every rank's later load then reads
+    the cache, not the checkpoint.  A sharded load left to the default
+    writes nothing."""
+    from dynamo_tpu_torch.models.loader import load_params
+    from dynamo_tpu_torch.models.weight_cache import read_cache
+    from test_torch_loader import write_checkpoint
+
+    cache = str(tmp_path / "wcache")
+    monkeypatch.delenv("DYN_WEIGHT_CACHE", raising=False)
+    monkeypatch.setenv("DYN_WEIGHT_CACHE_DIR", cache)
+    path = write_checkpoint(tmp_path / "ck", variant)
+    whole = load_params(path, device="cpu", host_cache=False)
+    _assert_trees_equal(load_params(path, device="cpu", shard=(1, 2)),
+                        shard_params(whole, 1, 2))
+    assert read_cache(cache, path, device="cpu") is None
+    _assert_trees_equal(load_params(path, device="cpu", shard=(0, 2),
+                                    fill_cache=True),
+                        shard_params(whole, 0, 2))
+    _assert_trees_equal(read_cache(cache, path, device="cpu"), whole)
+    _blank_checkpoint_data(path)
+    assert not torch.equal(
+        load_params(path, device="cpu", host_cache=False)["embedding"],
+        whole["embedding"])
+    for r in range(2):
+        for fill in (None, True):
+            _assert_trees_equal(load_params(path, device="cpu",
+                                            shard=(r, 2), fill_cache=fill),
+                                shard_params(whole, r, 2))
+
+
+def test_a_tp_worker_restart_reads_the_weight_cache(tmp_path, monkeypatch):
+    """A tp = 2 engine on a checkpoint, its two ranks as two launchers in
+    this process (parallel/multihost.py; rank 1's engine built on the
+    joined mesh, as a follower launcher's worker builds it): the first
+    start fills the weight cache from the leader's load, so after the
+    checkpoint's bytes are blanked (its fingerprint kept) a second start
+    still holds the original weights on both ranks."""
+    import asyncio
+    import socket
+
+    from dynamo_tpu_torch.engine.core import TorchEngine
+    from dynamo_tpu_torch.models.loader import load_params
+    from dynamo_tpu_torch.parallel.multihost import (
+        MultihostContext,
+        join_ranks,
+        replay,
+    )
+    from test_torch_loader import write_checkpoint
+
+    monkeypatch.delenv("DYN_WEIGHT_CACHE", raising=False)
+    monkeypatch.setenv("DYN_WEIGHT_CACHE_DIR", str(tmp_path / "wcache"))
+    path = write_checkpoint(tmp_path / "ck", "llama")
+    whole = load_params(path, device="cpu", host_cache=False)
+    cfg = EngineConfig(model_path=path, tp=2, block_size=4, num_blocks=16,
+                       max_blocks_per_seq=8, max_num_seqs=2)
+
+    def start():
+        with socket.socket() as sk:
+            sk.bind(("127.0.0.1", 0))
+            coord = f"127.0.0.1:{sk.getsockname()[1]}"
+        out = {}
+
+        def follower():
+            ranks = join_ranks(cfg, ["cpu"], None, False, 60.0,
+                               MultihostContext(1, 2, coord))
+            out[1] = TorchEngine(cfg, device="cpu", cuda_graphs=False,
+                                 mesh=ranks.mesh)
+            replay(out[1], ranks.mesh)
+
+        t = threading.Thread(target=follower, daemon=True)
+        t.start()
+        out[0] = TorchEngine(cfg, device="cpu", cuda_graphs=False,
+                             mesh_timeout_s=60.0,
+                             mh=MultihostContext(0, 2, coord))
+        asyncio.run(out[0].close())  # publishes stop: rank 1 returns
+        t.join(60.0)
+        assert not t.is_alive(), "rank 1 did not replay the stop"
+        return [{k: v for k, v in out[r].params.items() if k != "tp"}
+                for r in (0, 1)]
+
+    for first in (True, False):
+        got = start()
+        for r in (0, 1):
+            _assert_trees_equal(got[r], shard_params(whole, r, 2))
+        if first:
+            _blank_checkpoint_data(path)
+
+
 # ---------------------------------------------------------------------------
 # the step stream
 # ---------------------------------------------------------------------------

@@ -47,7 +47,7 @@ from dynamo_tpu_torch.ops import fused_sampling as fs
 from dynamo_tpu_torch.parallel.mesh import shard_config
 from test_lora import random_adapter_arrays
 from test_torch_overlap import _collect, _req
-from test_torch_spec import spec_counts, spec_records
+from test_torch_spec import settled, spec_counts, spec_records
 from test_torch_tp import run_ranks
 
 pytestmark = pytest.mark.allow_slow_callbacks
@@ -281,9 +281,10 @@ async def test_spec_engine_streams_counters_records_equal_jax_and_tp1(case):
         **({"spec_draft_config": JAX_FP32} if draft else {})))
     try:
         want = await _serve_two(je, True, n)
-        jcounts, jrecs = spec_counts(je), spec_records(je)
     finally:
         await je.close()
+        await settled(je)
+    jcounts, jrecs = spec_counts(je), spec_records(je)
     tkw = {**kw, **({"spec_draft_config": FP32} if draft else {})}
 
     def draft_params():

@@ -548,6 +548,37 @@ def _readline(proc, timeout: float) -> str:
         sel.close()
 
 
+# seconds a CLI worker may take to print its ready line, and a client to
+# discover it, beside the suite's six busy workers (a loaded run saw a
+# ready line after ~50 s, then a client's 10 s default discovery wait
+# run out)
+CLI_READY_S = 120.0
+DISCOVERY_S = 60.0
+
+
+def _ready_line(proc, what: str = "the worker") -> str:
+    """The CLI's ready line; fails naming it (with the process's stderr,
+    the process killed first so the read ends) when none came within
+    CLI_READY_S."""
+    line = _readline(proc, timeout=CLI_READY_S)
+    if not line:
+        proc.kill()
+        raise AssertionError(f"no ready line from {what} within "
+                             f"{CLI_READY_S:.0f} s: "
+                             f"{proc.stderr.read()[-4000:]}")
+    return line
+
+
+async def _discover(client, what: str = "dynamo/backend/generate"):
+    """The client's instances, or a failure naming the endpoint that no
+    instance of appeared within DISCOVERY_S."""
+    try:
+        return await client.wait_for_instances(DISCOVERY_S)
+    except TimeoutError:
+        raise AssertionError(f"no instance of {what} discovered within "
+                             f"{DISCOVERY_S:.0f} s") from None
+
+
 def test_engine_cli_registers_and_sigterm_deregisters(tmp_path):
     disc = tmp_path / "cluster"
     proc = subprocess.Popen(
@@ -557,8 +588,8 @@ def test_engine_cli_registers_and_sigterm_deregisters(tmp_path):
         cwd=REPO, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
         env=_env(DYN_DISCOVERY_BACKEND="file", DYN_DISCOVERY_PATH=str(disc)))
     try:
-        line = _readline(proc, timeout=60.0)
-        assert line.startswith("ready instance_id="), proc.stderr.read()
+        line = _ready_line(proc)
+        assert line.startswith("ready instance_id="), line
         iid = line.strip().split("=", 1)[1]
         mdc = disc / "v1" / "mdc" / "dynamo" / "tiny" / f"{iid}.json"
         card = json.loads(mdc.read_text())
