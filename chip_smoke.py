@@ -6,6 +6,9 @@
                                           # another checkout's
     python3 chip_smoke.py --worker-ab     # the engine directly against
                                           # the engine behind the worker
+    python3 chip_smoke.py --frontend      # two full-depth workers behind
+                                          # the port's frontend and KV
+                                          # router
     python3 chip_smoke.py --decode-ab     # lockstep eager decode against
                                           # the default scheduler
     python3 chip_smoke.py --fused-ab      # the sampling epilogue off
@@ -70,7 +73,13 @@ and none while serving, a decode step's counted bytes against the
 weights and a full table's KV, ordered kv_tier_costs, /debug/state's
 token gate and JAX keys, /debug/profile naming K1 during a decode run,
 the trace's span kinds, greedy streams equal with tracing off and on,
-and /health 503 after the drain); then the encoder phase (below), the
+and /health 503 after the drain), and, before that drain, the port's
+OpenAI frontend and KV router on the same runtime (`_frontend_phase`:
+/v1/models, the five prompts as text streamed through /v1/completions
+against the same encodings over the request plane, a unary chat,
+/v1/embeddings, a dropped stream, /metrics, the fifth request routed
+with an 8-block overlap, K1/K3 launches counted around the HTTP
+requests as `frontend_launches`); then the encoder phase (below), the
 disagg phase (below), the pair across two processes (below) and the
 spec phase (below).  These llama-8b phases run all 32 layers (the
 pair's second process builds the preset, which has no depth flag; the
@@ -2423,8 +2432,9 @@ def check_worker(device, card: str, cfg, params, direct) -> tuple:
     (_status_probes, _poll_live, _status_gauges, _status_debug,
     _tracing_ab, _status_trace, _status_drain); its own seconds are
     printed.  Before the drain, the same worker serves the embed phase
-    (_embed_phase).  Returns (the worker run's launch counts by kernel
-    name, the embed phase's results)."""
+    (_embed_phase) and then the port's frontend and KV router
+    (_frontend_phase).  Returns (the worker run's launch counts by kernel
+    name, the embed phase's results, the frontend phase's)."""
     import tempfile
 
     from dynamo_tpu_torch import obs
@@ -2512,16 +2522,18 @@ def check_worker(device, card: str, cfg, params, direct) -> tuple:
             t_em = time.perf_counter()
             embed = await _embed_phase(rt, worker, reqs)
             embed["seconds"] = time.perf_counter() - t_em
+            frontend = await _frontend_phase(rt, worker, params, used)
             t_st = time.perf_counter()
             await _status_drain(rt, worker, polled)
             status_s[0] += time.perf_counter() - t_st
             return (res, counts, steps, dict(seen), cleared, removed_after,
                     got, freed, (_step_medians(recs),
-                                 _prefill_dispatches(recs, w0)), embed)
+                                 _prefill_dispatches(recs, w0)), embed,
+                    frontend)
 
     try:
         (res, counts, steps, seen, cleared, removed_after, got, freed,
-         (step_ms, dispatches), embed) = asyncio.run(run())
+         (step_ms, dispatches), embed, frontend) = asyncio.run(run())
     finally:
         if obs.tracer() is not None:
             obs.tracer().uninstall()
@@ -2582,7 +2594,7 @@ def check_worker(device, card: str, cfg, params, direct) -> tuple:
         f"{_fmt_steps(step_ms)}; direct warm run: "
         f"{_fmt_steps(direct_step_ms)}; the worker's prefill dispatches (ms "
         f"after the start, rows, tokens): {dispatches}")
-    return counts, embed
+    return counts, embed, frontend
 
 
 def check_worker_short(device, cfg, params) -> dict:
@@ -8187,6 +8199,554 @@ async def _embed_phase(rt, worker, reqs) -> dict:
     return {"rows": rows, "launches": launches, "peak_gib": peak / 2**30}
 
 
+# ---------------------------------------------------------------------------
+# the port's OpenAI frontend and KV router (rides the bf16 worker phase;
+# --frontend: two full-depth workers behind it)
+# ---------------------------------------------------------------------------
+
+# the five prompts as text: printable ASCII, one MockTokenizer token a
+# character, at the engine phase's lengths; the fifth shares its first
+# FRONTEND_SHARED characters (8 blocks of 128) with the first
+FRONTEND_LENGTHS = (1800, 500, 100, 37)
+FRONTEND_SHARED = 1024
+FRONTEND_TAIL = 200
+FRONTEND_WAIT_S = 60.0
+EMBED_HTTP_COSINE = 0.9999
+
+
+def _frontend_texts() -> list:
+    rng = np.random.default_rng(6)
+
+    def text(n: int) -> str:
+        return "".join(chr(c) for c in rng.integers(32, 127, n))
+
+    texts = [text(n) for n in FRONTEND_LENGTHS]
+    texts.append(texts[0][:FRONTEND_SHARED] + text(FRONTEND_TAIL))
+    return texts
+
+
+def _frontend_body(model: str, text: str, rid: str,
+                   sampled: bool = False) -> dict:
+    """A streamed /v1/completions body: 32 tokens, ignore_eos, greedy or
+    (`sampled`) seeded as the engine phase's third request, with the
+    usage chunk, and the request id the router's decision is keyed by."""
+    body = {"model": model, "prompt": text, "max_tokens": 32,
+            "ignore_eos": True, "stream": True, "request_id": rid,
+            "stream_options": {"include_usage": True}}
+    body.update(dict(temperature=0.8, top_p=0.9, seed=1234) if sampled
+                else dict(temperature=0.0))
+    return body
+
+
+# the code whose tasks the frontend's close() must leave none of: the
+# frontend, the KV router and its replica sync, the HTTP server and client
+FRONTEND_FILES = ("frontend" + os.sep, os.path.join("router", "kv_router.py"),
+                  os.path.join("router", "replica_sync.py"),
+                  os.path.join("runtime", "http_server.py"),
+                  os.path.join("runtime", "http.py"))
+
+
+class _Frontend:
+    """The port's ModelWatcher (kv mode, make_kv_route_factory) and
+    HttpService on port 0, attached to a worker's runtime `rt`, with an
+    HTTP client of the port (runtime/http.py) and the router's decisions
+    by request id and pick host times recorded.  While attached, a task
+    factory notes every task created from FRONTEND_FILES' code (request
+    plane connections excepted: the runtime pools them)."""
+
+    @classmethod
+    async def attach(cls, rt, n_instances: int = 1) -> "_Frontend":
+        from dynamo_tpu_torch.frontend.service import (
+            HttpService,
+            ModelManager,
+            ModelWatcher,
+        )
+        from dynamo_tpu_torch.router.kv_router import make_kv_route_factory
+        from dynamo_tpu_torch.runtime import RouterMode
+        from dynamo_tpu_torch.runtime.http import HttpClient
+
+        import traceback
+        import weakref
+
+        import dynamo_tpu_torch
+
+        self = cls()
+        pkg = os.path.dirname(os.path.abspath(dynamo_tpu_torch.__file__))
+        roots = tuple(os.path.join(pkg, f) for f in FRONTEND_FILES)
+        plane = os.path.join(pkg, "runtime", "request_plane.py")
+        self.owned = weakref.WeakSet()
+        loop = asyncio.get_running_loop()
+        self.prev_factory = loop.get_task_factory()
+
+        def factory(loop, coro, **kw):
+            task = asyncio.Task(coro, loop=loop, **kw)
+            code = getattr(coro, "cr_code", None)
+            if (code is None or code.co_filename != plane) and any(
+                    f.filename.startswith(roots)
+                    for f in traceback.extract_stack(limit=40)):
+                self.owned.add(task)
+            return task
+
+        loop.set_task_factory(factory)
+        self.manager = ModelManager()
+        self.watcher = await ModelWatcher(
+            rt, self.manager, router_mode=RouterMode.KV,
+            make_route=make_kv_route_factory(rt)).start()
+        self.service = await HttpService(rt, self.manager, host="127.0.0.1",
+                                         port=0).start()
+        self.http = HttpClient(f"http://127.0.0.1:{self.service.bound_port}")
+        end = time.monotonic() + FRONTEND_WAIT_S
+        while not (self.manager.models and len(next(iter(
+                self.manager.models.values())).client.instances)
+                >= n_instances):
+            if time.monotonic() > end:
+                raise SystemExit("frontend: the watcher never registered the "
+                                 f"model with {n_instances} instance(s)")
+            await asyncio.sleep(0.02)
+        (self.model, self.pipeline), = self.manager.models.items()
+        self.router = self.pipeline.migration.route
+        self.decisions, self.pick_s = {}, []
+        record, pick = self.router._record_decision, self.router.pick
+
+        def recorded(request_id, *a, **kw):
+            d = record(request_id, *a, **kw)
+            self.decisions[request_id] = d
+            return d
+
+        async def timed_pick(*a, **kw):
+            t = time.perf_counter()
+            try:
+                return await pick(*a, **kw)
+            finally:
+                self.pick_s.append(time.perf_counter() - t)
+
+        self.router._record_decision = recorded
+        self.router.pick = timed_pick
+        log(f"frontend: model {self.model!r} behind the port's HttpService "
+            f"on 127.0.0.1:{self.service.bound_port} (kv router, indexer "
+            f"{self.router.overlap_stats()['indexer_impl']})")
+        return self
+
+    async def sse(self, body: dict, first: Optional[asyncio.Event] = None,
+                  stop_after: Optional[int] = None) -> dict:
+        """One streamed completion: its text, events, usage, and seconds
+        from sending to the first event and to the last.  With
+        `stop_after` the client drops the connection after that many
+        events."""
+        parts, ttft, last, usage, n = [], None, None, None, 0
+        t0 = time.perf_counter()
+        async with self.http.stream("POST", "/v1/completions", json=body,
+                                    read_timeout=FRONTEND_WAIT_S) as lines:
+            async for line in lines:
+                line = line.strip()
+                if not line.startswith(b"data: ") or line == b"data: [DONE]":
+                    continue
+                ev = json.loads(line[len(b"data: "):])
+                if "error" in ev:
+                    raise SystemExit(f"frontend: {body['request_id']}: "
+                                     f"{ev['error']}")
+                usage = ev.get("usage") or usage
+                for ch in ev["choices"]:
+                    now = time.perf_counter() - t0
+                    if ttft is None:
+                        ttft = now
+                        if first is not None:
+                            first.set()
+                    last = now
+                    parts.append(ch["text"])
+                    n += 1
+                if stop_after is not None and n >= stop_after:
+                    break
+        return {"text": "".join(parts), "ttft": ttft, "last": last,
+                "usage": usage, "events": n}
+
+    async def wait_blocks(self, iid: int, n: int, what: str) -> None:
+        end = time.monotonic() + FRONTEND_WAIT_S
+        while not (self.router.indexer.worker_block_count(iid) >= n if n
+                   else self.router.indexer.worker_block_count(iid) == 0):
+            if time.monotonic() > end:
+                raise SystemExit(f"frontend: the router's index never held "
+                                 f"{what}")
+            await asyncio.sleep(0.01)
+
+    async def close(self) -> list:
+        """Close the service and the watcher; the frontend's tasks still
+        pending after a grace of 2 s."""
+        try:
+            await self.http.close()
+            await self.service.close()
+            await self.watcher.close()
+            end = time.monotonic() + 2.0
+            while True:
+                left = [t for t in self.owned if not t.done()]
+                if not left or time.monotonic() > end:
+                    return left
+                await asyncio.sleep(0.02)
+        finally:
+            asyncio.get_running_loop().set_task_factory(self.prev_factory)
+
+
+async def _rp_stream(client, req, first: Optional[asyncio.Event] = None,
+                     instance_id: Optional[int] = None) -> dict:
+    """One request over the request plane: its token ids and seconds from
+    sending to the first token and to the last."""
+    ids, ttft, last = [], None, None
+    t0 = time.perf_counter()
+    async for out in client.generate(req.to_dict(), instance_id=instance_id):
+        if out.get("token_ids"):
+            now = time.perf_counter() - t0
+            if ttft is None:
+                ttft = now
+                if first is not None:
+                    first.set()
+            last = now
+            ids.extend(out["token_ids"])
+    return {"ids": ids, "ttft": ttft, "last": last}
+
+
+async def _in_shape(run_one, gate) -> list:
+    """The five requests, each run by `run_one(i, first_event)`: the first
+    alone until its first token and `gate()` (its blocks in the router's
+    index), then the other four at once."""
+    first = asyncio.Event()
+    head = asyncio.create_task(run_one(0, first))
+    await asyncio.wait_for(first.wait(), FRONTEND_WAIT_S)
+    await gate()
+    rest = await asyncio.gather(*(run_one(i, None) for i in range(1, 5)))
+    return [await head] + list(rest)
+
+
+def _spy_streams(engine, into: dict) -> None:
+    """Record every request's token ids, by request id, as `engine`
+    emits them."""
+    gen = engine.generate
+
+    async def spied(request, *a, **kw):
+        ids = into.setdefault(request.request_id, [])
+        async for out in gen(request, *a, **kw):
+            ids.extend(out.token_ids)
+            yield out
+
+    engine.generate = spied
+
+
+def _render(tokenizer, ids) -> str:
+    """The frontend's incremental rendering of a token stream."""
+    return tokenizer.make_detokenizer().push(list(ids))
+
+
+async def _frontend_phase(rt, worker, params, used) -> dict:
+    """The port's frontend and KV router (_Frontend) on the bf16 worker's
+    runtime, after the worker phase's checks and before its drain.
+    /v1/models lists the worker's card.  The five prompts (as text whose
+    MockTokenizer encodings have the engine phase's lengths) run twice in
+    one shape (_in_shape), each time on a cleared cache: over the request
+    plane (the preprocessor's requests, the reference), then as streamed
+    /v1/completions with K1/K3 launches counted around them.  Exits
+    unless every stream's ids equal the reference's (a greedy one may
+    part only at a near-tie, _check_streams), every HTTP text equals the
+    frontend's rendering of the reference ids, usage counts 32 tokens,
+    the fifth request was routed with an 8-block predicted overlap and
+    realized 8, the launches cover layers x steps, a unary chat answers,
+    /v1/embeddings' vector has cosine >= EMBED_HTTP_COSINE with the
+    request plane's `embed`, a stream the client drops frees its slot,
+    /metrics carries the frontend's and the router's families, and
+    close() leaves no task.  Logs each request's TTFT through HTTP
+    beside the request plane's, the streamed decode tokens/s, the
+    router's pick host time and the phase's seconds."""
+    from dynamo_tpu_torch.frontend.preprocessor import OpenAIPreprocessor
+
+    t_phase = time.perf_counter()
+    eng, iid = worker.engine, worker.served.instance_id
+    mc = eng.model_cfg
+    bs = worker.config.block_size
+    pre = OpenAIPreprocessor(worker.card)
+    tok = pre.tokenizer
+    texts = _frontend_texts()
+    comp = rt.namespace("dynamo").component("backend")
+    gen = await comp.endpoint("generate").client().start()
+    emb = await comp.endpoint("embed").client().start()
+    fe = await _Frontend.attach(rt)
+    spied: dict = {}
+    _spy_streams(eng, spied)
+    try:
+        models = await fe.http.call("GET", "/v1/models")
+        if [m["id"] for m in models["data"]] != [worker.card.name]:
+            raise SystemExit(f"frontend: /v1/models lists {models}")
+        bodies = [_frontend_body(fe.model, t, f"fe-{i}", sampled=(i == 2))
+                  for i, t in enumerate(texts)]
+        refs = [pre.preprocess_completion(dict(b, request_id=f"rp-{i}"))
+                for i, b in enumerate(bodies)]
+        if [len(r.token_ids) for r in refs] != [*FRONTEND_LENGTHS, 1224]:
+            raise SystemExit("frontend: the texts do not encode to the "
+                             "phase's lengths")
+
+        async def index_gate():
+            await fe.wait_blocks(iid, FRONTEND_LENGTHS[0] // bs,
+                                 "the first prompt's blocks")
+
+        await eng.clear_kv_blocks()
+        ref = await _in_shape(
+            lambda i, first: _rp_stream(gen, refs[i], first), index_gate)
+        await eng.clear_kv_blocks()
+        await fe.wait_blocks(iid, 0, "a cleared worker")
+        m0 = dict(eng.metrics)
+        for fn in used:
+            fn.launches = 0
+        got = await _in_shape(lambda i, first: fe.sse(bodies[i], first),
+                              index_gate)
+        counts = {fn.__name__: fn.launches for fn in used}
+        steps = {k: eng.metrics[k] - m0[k] for k in
+                 ("decode_steps", "prefill_steps", "cache_hit_tokens")}
+        # one unary chat, one embedding, one dropped stream
+        chat = await fe.http.call("POST", "/v1/chat/completions", {
+            "model": fe.model, "max_tokens": 8, "temperature": 0.0,
+            "ignore_eos": True,
+            "messages": [{"role": "user", "content": texts[3]}]})
+        vec = (await fe.http.call("POST", "/v1/embeddings", {
+            "model": fe.model, "input": texts[3]}))["data"][0]["embedding"]
+        rp_vec = [f async for f in emb.generate(
+            {"token_ids": tok.encode(texts[3])})][0]["embedding"]
+        a = torch.tensor(vec, dtype=torch.float64)
+        b = torch.tensor(rp_vec, dtype=torch.float64)
+        cos = float(a @ b / (a.norm() * b.norm()))
+        drop = dict(bodies[3], request_id="fe-drop", max_tokens=1000)
+        dropped = await fe.sse(drop, stop_after=4)
+        end = time.monotonic() + 10.0
+        while (eng.num_active_seqs or fe.service.inflight) \
+                and time.monotonic() < end:
+            await asyncio.sleep(0.02)
+        freed = eng.num_active_seqs == 0 and fe.service.inflight == 0
+        metrics = (await fe.http.request("GET", "/metrics")).body.decode()
+        stats = fe.router.overlap_stats()
+        pred_real = list(fe.router._pred_real)
+    finally:
+        eng.__dict__.pop("generate", None)
+        left = await fe.close()
+        await gen.close()
+        await emb.close()
+    secs = time.perf_counter() - t_phase
+    # the streams against the reference
+    for i, (g, r) in enumerate(zip(got, ref)):
+        ids = spied.get(f"fe-{i}", [])
+        if g["text"] != _render(tok, ids):
+            raise SystemExit(f"frontend: request {i}'s HTTP text is not the "
+                             "rendering of its own token ids")
+        if (g["usage"] or {}).get("completion_tokens") != 32 \
+                or len(r["ids"]) != 32:
+            raise SystemExit(f"frontend: request {i}: usage {g['usage']}, "
+                             f"{len(r['ids'])} reference tokens")
+    greedy = [i for i in range(5) if i != 2]
+    parted = _check_streams(
+        "frontend", [(spied[f"fe-{i}"],) for i in greedy],
+        [(ref[i]["ids"],) for i in greedy], [refs[i] for i in greedy],
+        params, mc, eng.device)
+    same_text = [got[i]["text"] == _render(tok, ref[i]["ids"])
+                 for i in range(5)]
+    if spied["fe-2"] != ref[2]["ids"]:
+        raise SystemExit("frontend: the seeded sampled request's stream "
+                         "differs from its request-plane reference")
+    if not all(same_text[i] for i in range(5)
+               if i not in {greedy[p[0]] for p in parted}):
+        raise SystemExit(f"frontend: HTTP texts equal to the reference's "
+                         f"rendering: {same_text}")
+    fifth = fe.decisions.get("fe-4") or {}
+    shared = FRONTEND_SHARED // bs
+    log(f"frontend: the fifth request's decision {fifth}; predicted and "
+        f"realized overlap blocks of every routed request {pred_real}")
+    if fifth.get("predicted_overlap_blocks") != shared \
+            or (shared, shared) not in pred_real:
+        raise SystemExit(f"frontend: the fifth request was not routed with "
+                         f"an overlap of {shared} blocks realized")
+    _check_worker_launches(counts, steps, mc.n_layers, "frontend")
+    if not (isinstance(chat["choices"][0]["message"]["content"], str)
+            and chat["usage"]["completion_tokens"] == 8):
+        raise SystemExit(f"frontend: unary chat answered {chat}")
+    if len(vec) != mc.d_model or not cos >= EMBED_HTTP_COSINE:
+        raise SystemExit(f"frontend: /v1/embeddings dim {len(vec)}, cosine "
+                         f"{cos} with the request plane's embed")
+    if dropped["events"] < 4 or not freed:
+        raise SystemExit("frontend: a stream the client dropped did not "
+                         "free its slot")
+    names = ("dynamo_frontend_requests_total", "dynamo_frontend_itl_seconds",
+             "dynamo_frontend_request_duration_seconds",
+             "dynamo_router_overlap_blocks",
+             "dynamo_router_overlap_realized_blocks")
+    missing = [n for n in names if f"\n{n}" not in metrics]
+    if missing:
+        raise SystemExit(f"frontend: /metrics lacks {missing}")
+    if left:
+        raise SystemExit(f"frontend: close() left tasks {left}")
+    # the four concurrent requests' decode tokens after their first
+    n_dec = 31 * len(got[1:])
+    rate = n_dec / (max(g["last"] for g in got[1:])
+                    - min(g["ttft"] for g in got[1:]))
+    ttft = [(round(g["ttft"], 4), round(r["ttft"], 4),
+             round(g["ttft"] - r["ttft"], 4)) for g, r in zip(got, ref)]
+    pick_ms = [round(s * 1e3, 3) for s in fe.pick_s]
+    # the frontend's own host time a request: received to its dispatch
+    # to the worker (preprocessing, routing), the SLO plane's histogram
+    samples = _parse_metrics(metrics)
+    n_q = sum(v for n, _, v in samples
+              if n == "dynamo_frontend_queue_seconds_count")
+    queue_ms = 1e3 * sum(v for n, _, v in samples
+                         if n == "dynamo_frontend_queue_seconds_sum") / n_q
+    log(f"frontend ({len(parted)} greedy parting(s) at a near-tie): TTFT s "
+        f"through HTTP / through the request plane / difference, per "
+        f"request: {ttft}; streamed decode {rate:.1f} tokens/s over the "
+        f"four concurrent requests ({n_dec} decode tokens in all); router "
+        f"pick host ms per decision {pick_ms}; received to dispatch "
+        f"{queue_ms:.3f} ms a request on average over {n_q:.0f} "
+        f"(dynamo_frontend_queue_seconds); /v1/embeddings cosine "
+        f"{cos:.6f}; a dropped stream freed its slot; phase {secs:.1f} s")
+    log(f"frontend launches around the HTTP requests: {counts}; steps "
+        f"{steps}; router stats {stats}")
+    return {"launches": counts, "ttft": ttft, "decode_tokens_s": rate,
+            "pick_ms": pick_ms, "queue_ms": queue_ms,
+            "embed_cosine": cos, "parted": parted,
+            "seconds": secs, "steps": steps}
+
+
+def check_frontend(device, card: str, params) -> dict:
+    """--frontend: two TorchEngineWorkers at llama-8b full depth sharing
+    one copy of the weights `params`, each with its own 512-block bf16
+    cache, on one runtime behind the port's frontend and KV router
+    (_Frontend).  Each worker serves the first prompt, the fifth and a
+    cold one (the fourth's text) alone over the request plane first, as
+    the references; then both caches are cleared and the same go through
+    HTTP: the first (placed by the tie-break), the fifth (exits unless it
+    goes to the first's worker with an 8-block overlap against 0), and,
+    while the fifth decodes, the cold one (exits unless it goes to the
+    other worker, by load).  Exits unless every HTTP stream's ids equal
+    its worker's reference (a greedy parting only at a near-tie) and its
+    text their rendering, and K1 and K3 ran at least layers x steps
+    times around the HTTP requests."""
+    import uuid
+
+    from dynamo_tpu_torch.engine import TorchEngineWorker
+    from dynamo_tpu_torch.frontend.preprocessor import OpenAIPreprocessor
+    from dynamo_tpu_torch.runtime import DistributedRuntime, RuntimeConfig
+
+    cfg = dataclasses.replace(_engine_config("bf16"), warmup=True)
+    used = _kernels_of("bf16")
+    texts = _frontend_texts()
+
+    async def run():
+        rt = await DistributedRuntime(config=RuntimeConfig(
+            discovery_backend="mem", event_plane="inproc",
+            tcp_host="127.0.0.1"), cluster_id=uuid.uuid4().hex).start()
+        workers = []
+        fe = None
+        try:
+            for _ in range(2):
+                t0 = time.perf_counter()
+                workers.append(await TorchEngineWorker(
+                    rt, cfg, params=params, device=device).start())
+                log(f"frontend pair: worker {workers[-1].served.instance_id} "
+                    f"started with warm-up in {time.perf_counter() - t0:.1f} "
+                    f"s, {workers[-1].config.num_blocks} KV blocks")
+            iids = [w.served.instance_id for w in workers]
+            bs = cfg.block_size
+            pre = OpenAIPreprocessor(workers[0].card)
+            tok = pre.tokenizer
+            gen = await rt.namespace("dynamo").component("backend").endpoint(
+                "generate").client().start()
+            fe = await _Frontend.attach(rt, n_instances=2)
+            names = {0: "first", 4: "fifth", 3: "cold"}
+            bodies = {i: _frontend_body(fe.model, texts[i], f"fe-{names[i]}")
+                      for i in names}
+            refs = {}
+            for w in workers:
+                await w.engine.clear_kv_blocks()
+                for i in (0, 4, 3):
+                    req = pre.preprocess_completion(dict(
+                        bodies[i], request_id=f"rp-{w.served.instance_id}-{i}"))
+                    refs[(w.served.instance_id, i)] = (await _rp_stream(
+                        gen, req, instance_id=w.served.instance_id))["ids"]
+            for w in workers:
+                await w.engine.clear_kv_blocks()
+                await fe.wait_blocks(w.served.instance_id, 0,
+                                     "a cleared worker")
+            spied: dict = {}
+            for w in workers:
+                _spy_streams(w.engine, spied)
+            m0 = [dict(w.engine.metrics) for w in workers]
+            for fn in used:
+                fn.launches = 0
+            got = {0: await fe.sse(bodies[0])}
+            warm = fe.decisions["fe-first"]["target"]
+            await fe.wait_blocks(warm, FRONTEND_LENGTHS[0] // bs,
+                                 "the first prompt's blocks")
+            first = asyncio.Event()
+            fifth = asyncio.create_task(fe.sse(bodies[4], first))
+            await asyncio.wait_for(first.wait(), FRONTEND_WAIT_S)
+            got[3] = await fe.sse(bodies[3])
+            got[4] = await fifth
+            counts = {fn.__name__: fn.launches for fn in used}
+            steps = {k: sum(w.engine.metrics[k] - m[k]
+                            for w, m in zip(workers, m0))
+                     for k in ("decode_steps", "prefill_steps")}
+            for w in workers:
+                w.engine.__dict__.pop("generate", None)
+            await gen.close()
+            reqs = [pre.preprocess_completion(bodies[i]) for i in (0, 4, 3)]
+            return (iids, warm, refs, got, spied, counts, steps,
+                    dict(fe.decisions), list(fe.pick_s), tok, reqs,
+                    workers[0].engine.model_cfg)
+        finally:
+            if fe is not None:
+                left = await fe.close()
+                if left:
+                    raise SystemExit(f"frontend: close() left tasks {left}")
+            for w in workers:
+                await w.close()
+                w.engine.kv = w.engine.graphs = None
+                w.engine.prefill_graphs = w.engine.guided_graphs = None
+            await rt.shutdown()
+
+    t0 = time.perf_counter()
+    (iids, warm, refs, got, spied, counts, steps, decisions, pick_s,
+     tok, reqs, mc) = asyncio.run(run())
+    secs = time.perf_counter() - t0
+    other = next(i for i in iids if i != warm)
+    d5, dc = decisions["fe-fifth"], decisions["fe-cold"]
+    shared = FRONTEND_SHARED // cfg.block_size
+    rejected = d5.get("best_rejected", {})
+    log(f"frontend pair: the first request went to {warm} (tie-break); "
+        f"the fifth's decision {d5}; the cold one's {dc}")
+    if d5["target"] != warm or d5["predicted_overlap_blocks"] != shared \
+            or rejected.get("overlap_blocks") != 0:
+        raise SystemExit(f"frontend pair: the fifth request was not routed "
+                         f"to the warm worker with {shared} blocks of "
+                         f"overlap against 0")
+    if dc["target"] != other:
+        raise SystemExit("frontend pair: the cold request did not go by "
+                         "load to the idle worker")
+    served_by = {0: warm, 4: warm, 3: other}
+    names = {0: "first", 4: "fifth", 3: "cold"}
+    order = [0, 4, 3]
+    parted = _check_streams(
+        "frontend pair", [(spied[f"fe-{names[i]}"],) for i in order],
+        [(refs[(served_by[i], i)],) for i in order], reqs, params, mc,
+        device)
+    for j, i in enumerate(order):
+        if got[i]["text"] != _render(tok, spied[f"fe-{names[i]}"]):
+            raise SystemExit(f"frontend pair: the {names[i]} request's text "
+                             "is not the rendering of its token ids")
+        if j not in {p[0] for p in parted} and got[i]["text"] != _render(
+                tok, refs[(served_by[i], i)]):
+            raise SystemExit(f"frontend pair: the {names[i]} request's text "
+                             "differs from its worker's reference")
+    _check_worker_launches(counts, steps, mc.n_layers, "frontend pair")
+    ttft = {names[i]: round(got[i]["ttft"], 4) for i in order}
+    log(f"frontend pair ({card}): TTFT s through HTTP {ttft}; router pick "
+        f"host ms {[round(s * 1e3, 3) for s in pick_s]}; {len(parted)} "
+        f"greedy parting(s) at a near-tie; phase {secs:.1f} s")
+    return {"warm": warm, "fifth": d5, "cold": dc, "launches": counts,
+            "steps": steps, "ttft": ttft, "parted": parted,
+            "seconds": round(secs, 1)}
+
+
 # CLIP ViT-L/14-336, LLaVA-1.5's tower (openai/clip-vit-large-patch14-336:
 # image 336, patch 14, width 1024, 24 layers, 16 heads), in the JAX
 # package's VisionConfig fields (its MLP is 4 x d_model), projected to
@@ -10562,6 +11122,11 @@ def main() -> int:
               file=sys.stderr)
         return 1
     t_start = time.perf_counter()
+    # the port's frontend renders chat templates with jinja2, a declared
+    # dependency of torch's wheel: a card machine without it fails here
+    import jinja2
+
+    log(f"jinja2 {jinja2.__version__} (the frontend's chat templates)")
     from dynamo_tpu_torch.models.llama import PRESETS
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -10675,10 +11240,10 @@ def main() -> int:
         gen = torch.Generator(device=device).manual_seed(0)
         params = llama.init_params(cfg, gen, device)
         t0 = time.perf_counter()
-        launches, embed = check_worker(device, card, _engine_config("bf16"),
-                                       params, None)
+        launches, embed, frontend = check_worker(
+            device, card, _engine_config("bf16"), params, None)
         print(json.dumps({"status": {
-            "launches": launches, "embed": embed,
+            "launches": launches, "embed": embed, "frontend": frontend,
             "seconds": round(time.perf_counter() - t0, 1)}}), flush=True)
         print(card, flush=True)
         return 0
@@ -10777,6 +11342,18 @@ def main() -> int:
         print(json.dumps({"multihost": out}, default=str), flush=True)
         print(card, flush=True)
         return 0
+    if sys.argv[1:] == ["--frontend"]:
+        # python3 chip_smoke.py --frontend: two full-depth workers sharing
+        # one copy of the weights behind the port's frontend and KV router
+        build_kernels()
+        from dynamo_tpu_torch.models import llama
+
+        gen = torch.Generator(device=device).manual_seed(0)
+        params = llama.init_params(cfg, gen, device)
+        print(json.dumps({"frontend": check_frontend(device, card, params)},
+                         default=str), flush=True)
+        print(card, flush=True)
+        return 0
     if sys.argv[1:] == ["--worker-ab"]:
         # python3 chip_smoke.py --worker-ab: the engine directly against
         # the engine behind the worker, in turns
@@ -10800,8 +11377,8 @@ def main() -> int:
     engine.kv = engine.graphs = engine.prefill_graphs = None
     engine.guided_graphs = None
     torch.cuda.empty_cache()
-    worker_launches, embed = check_worker(device, card, engine.config,
-                                          params, direct)
+    worker_launches, embed, frontend = check_worker(
+        device, card, engine.config, params, direct)
     log(f"bf16 worker phase done at {time.perf_counter() - t_start:.1f} s")
     del engine
     torch.cuda.empty_cache()
@@ -10930,6 +11507,7 @@ def main() -> int:
         k["etcd_launches"] = disc["etcd"]["launches"].get(k["name"], 0)
         k["kube_launches"] = disc["kubernetes"]["launches"].get(k["name"], 0)
         k["embed_launches"] = embed["launches"].get(k["name"], 0)
+        k["frontend_launches"] = frontend["launches"].get(k["name"], 0)
         k["encoder_launches"] = encoder["launches"].get(k["name"], 0)
         # rank 0 / rank 1 of the tp=2 engine of the cache it serves
         mode = tp["int8" if k["name"].endswith("_int8") else "bf16"]
@@ -10957,6 +11535,7 @@ def main() -> int:
         k["lora_launches"] = k["guided_launches"] = k["moe_launches"] = 0
         k["mla_launches"] = k["etcd_launches"] = k["kube_launches"] = 0
         k["embed_launches"] = k["encoder_launches"] = 0
+        k["frontend_launches"] = 0
         k["tp_launches"] = k["tp_families_launches"] = [0, 0]
         k["tp_features_launches"] = k["sp_launches"] = [0, 0]
         k["multihost_launches"] = [0, 0]

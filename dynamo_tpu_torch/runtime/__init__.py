@@ -20,7 +20,7 @@ from .discovery import (
 from .distributed import DistributedRuntime
 from .event_plane import EventPlane, InProcEventPlane, ZmqEventPlane
 from .metrics import MetricsHierarchy
-from .push_router import PushRouter
+from .push_router import PushRouter, RouterMode
 from .request_plane import (
     EngineError,
     RequestContext,
@@ -44,6 +44,7 @@ __all__ = [
     "MetricsHierarchy",
     "Namespace",
     "PushRouter",
+    "RouterMode",
     "RequestContext",
     "RequestPlaneClient",
     "RequestPlaneServer",

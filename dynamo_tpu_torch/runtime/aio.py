@@ -1,5 +1,4 @@
-"""Small asyncio helpers, copied from dynamo_tpu/runtime/aio.py (the
-frontend's idle-timeout iterator is left out: the port has no frontend)."""
+"""Small asyncio helpers, copied from dynamo_tpu/runtime/aio.py."""
 
 from __future__ import annotations
 
@@ -78,6 +77,71 @@ async def next_or_cancel(q: asyncio.Queue, cancel: Optional[asyncio.Event]) -> A
     if get in done:
         return get.result()
     return CANCELLED
+
+
+class StreamIdleTimeout(Exception):
+    """No item arrived within the idle window (wedged producer)."""
+
+
+async def iter_with_idle_timeout(
+    ait: AsyncIterator[Any], idle_s: float
+) -> AsyncIterator[Any]:
+    """Re-yield `ait`, raising StreamIdleTimeout if the gap between
+    items (or before the first item) exceeds `idle_s`.  This is the
+    frontend's wedged-worker detector: a stream from an alive-but-stuck
+    worker produces no error on its own — lease withdrawal stops NEW
+    routing, but only an idle bound can fail the in-flight stream so
+    migration replays it elsewhere."""
+    it = ait.__aiter__()
+    try:
+        while True:
+            nxt = asyncio.ensure_future(it.__anext__())
+            try:
+                item = await asyncio.wait_for(asyncio.shield(nxt), idle_s)
+            except asyncio.TimeoutError:
+                if nxt.done() and not nxt.cancelled():
+                    # not an idle gap: the future resolved in the same
+                    # cycle the deadline fired (wait_for reports timeout
+                    # even when the shielded future already holds an
+                    # outcome) — use the stream's REAL outcome, whether
+                    # that is a frame that must not be dropped, a clean
+                    # end, or the stream's own error (surfaced as-is,
+                    # not misreported as a stall that never elapsed)
+                    exc = nxt.exception()
+                    if exc is None:
+                                        item = nxt.result()
+                    elif isinstance(exc, StopAsyncIteration):
+                        return
+                    else:
+                        raise exc
+                else:
+                    nxt.cancel()
+                    try:
+                        await nxt
+                    except (asyncio.CancelledError, StopAsyncIteration,
+                            Exception):
+                        pass
+                    raise StreamIdleTimeout(
+                        f"worker stalled: no stream frame for "
+                        f"{idle_s:.1f}s") from None
+            except StopAsyncIteration:
+                return
+            except asyncio.CancelledError:
+                nxt.cancel()
+                raise
+            yield item
+    finally:
+        # propagate closure to the inner stream promptly: a consumer that
+        # abandons this wrapper (migration raising past the async-for)
+        # must release the underlying client stream NOW — its finally is
+        # what tells the worker to stop generating for a dead consumer —
+        # not whenever the GC finalizes an orphaned async generator
+        aclose = getattr(it, "aclose", None)
+        if aclose is not None:
+            try:
+                await aclose()
+            except Exception:
+                pass
 
 
 async def iter_queue(

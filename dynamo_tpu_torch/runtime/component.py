@@ -1,12 +1,11 @@
 """Namespace → Component → Endpoint hierarchy + endpoint clients.
 
-A copy of dynamo_tpu/runtime/component.py (its chaos seam, router
-modes and migration `avoid` set left out).  `Endpoint.serve_endpoint(handler)`
+A copy of dynamo_tpu/runtime/component.py (its chaos seam left out).  `Endpoint.serve_endpoint(handler)`
 registers a streaming handler on the process's request-plane server and
 writes a lease-bound discovery entry (advertising the process's
 system-status address as `system_addr` when it serves one);
 `Endpoint.client()` watches discovery and routes requests to live
-instances via a PushRouter.
+instances via a PushRouter in one of its modes.
 """
 
 from __future__ import annotations
@@ -17,7 +16,7 @@ from typing import Any, AsyncIterator, Dict, Optional
 
 from .cancellation import CancellationToken
 from .discovery import INSTANCE_PREFIX, Instance, WatchEvent, new_instance_id
-from .push_router import PushRouter
+from .push_router import PushRouter, RouterMode
 from .request_plane import Handler
 
 logger = logging.getLogger(__name__)
@@ -120,17 +119,17 @@ class Endpoint:
                     self.path, iid, address)
         return ServedEndpoint(self, instance)
 
-    def client(self) -> "Client":
-        return Client(self)
+    def client(self, router_mode: RouterMode | str = RouterMode.ROUND_ROBIN) -> "Client":
+        return Client(self, router_mode)
 
 
 class Client:
-    """Watches discovery for instances of one endpoint and routes to them
-    round robin (or to the instance a caller names)."""
+    """Watches discovery for instances of one endpoint and routes to them."""
 
-    def __init__(self, endpoint: Endpoint):
+    def __init__(self, endpoint: Endpoint,
+                 router_mode: RouterMode | str = RouterMode.ROUND_ROBIN):
         self.endpoint = endpoint
-        self.router = PushRouter()
+        self.router = PushRouter(RouterMode(router_mode))
         self._instances: Dict[int, Instance] = {}
         self._have_instances = asyncio.Event()
         self._cancel = asyncio.Event()
@@ -143,6 +142,10 @@ class Client:
     @property
     def instances(self) -> list[Instance]:
         return list(self._instances.values())
+
+    @property
+    def instance_ids(self) -> list[int]:
+        return list(self._instances.keys())
 
     async def start(self) -> "Client":
         if self._watch_task is None:
@@ -184,8 +187,16 @@ class Client:
         instance_id: Optional[int] = None,
         token: Optional[CancellationToken] = None,
         ctx: Optional[Dict[str, Any]] = None,
+        on_pick=None,
+        avoid=(),
     ) -> AsyncIterator[Any]:
-        """Route a request and yield the response stream."""
+        """Route a request and yield the response stream.  `on_pick` is
+        told the chosen instance id (request tracing needs the placement
+        even when this client's own router decides it).  `avoid` holds
+        instance ids that already failed this request (migration): the
+        built-in router skips them while any alternative exists — a
+        replay must not land back on the worker that just died while the
+        discovery watch is still converging."""
         if not self._instances:
             await self.wait_for_instances()
         if instance_id is not None:
@@ -193,11 +204,31 @@ class Client:
             if inst is None:
                 raise RuntimeError(f"instance {instance_id} not found for {self.endpoint.path}")
         else:
-            inst = self.router.pick(self.instances)
-        async for item in self.runtime.request_client.stream(
-            inst.address, self.endpoint.path, payload, ctx=ctx,
-            token=token, instance_id=inst.instance_id,
-        ):
+            candidates = self.instances
+            if avoid:
+                filtered = [i for i in candidates
+                            if i.instance_id not in avoid]
+                if filtered:
+                    candidates = filtered
+            inst = self.router.pick(candidates)
+        if on_pick is not None:
+            on_pick(inst.instance_id)
+        self.router.on_dispatch(inst.instance_id)
+        try:
+            async for item in self.runtime.request_client.stream(
+                inst.address, self.endpoint.path, payload, ctx=ctx,
+                token=token, instance_id=inst.instance_id,
+            ):
+                yield item
+        finally:
+            self.router.on_complete(inst.instance_id)
+
+    async def round_robin(self, payload: Any, **kw) -> AsyncIterator[Any]:
+        async for item in self.generate(payload, **kw):
+            yield item
+
+    async def direct(self, payload: Any, instance_id: int, **kw) -> AsyncIterator[Any]:
+        async for item in self.generate(payload, instance_id=instance_id, **kw):
             yield item
 
     async def close(self) -> None:

@@ -299,11 +299,17 @@ class RequestPlaneClient:
                 elif token is not None:
                     get = asyncio.ensure_future(q.get())
                     stop = asyncio.ensure_future(token.wait_stopped())
-                    done, pending = await asyncio.wait(
-                        {get, stop}, return_when=asyncio.FIRST_COMPLETED
-                    )
-                    for p in pending:
-                        p.cancel()
+                    try:
+                        done, _ = await asyncio.wait(
+                            {get, stop}, return_when=asyncio.FIRST_COMPLETED
+                        )
+                    finally:
+                        # also when the consumer itself is cancelled (a
+                        # frontend whose HTTP client went away): neither
+                        # waiter may outlive the stream
+                        for p in (get, stop):
+                            if not p.done():
+                                p.cancel()
                     if get not in done:
                         continue
                     frame = get.result()

@@ -59,6 +59,10 @@ class RetryPolicy:
         return (rng or random).uniform(0.0, raw)
 
 
+# the frontend's migration replays (frontend/pipeline.py MigrationOperator)
+MIGRATION_POLICY = RetryPolicy(max_attempts=1 << 30, base_s=0.05,
+                               cap_s=1.0)      # attempts bounded by
+#                                                migration_limit, not here
 # the disagg pull's chunk ops (engine/core.py _stream_pull)
 PULL_POLICY = RetryPolicy(max_attempts=3, base_s=0.05, cap_s=0.5)
 # the cross-worker KVBM pull (kvbm/remote.py RemoteKvbmPuller.fetch_run)
@@ -143,6 +147,7 @@ __all__ = [
     "Backoff",
     "KVBM_POLICY",
     "LEASE_POLICY",
+    "MIGRATION_POLICY",
     "PULL_POLICY",
     "RetryPolicy",
     "call_with_retry",

@@ -49,7 +49,17 @@ REQUIRED = ("models/loader.py", "models/weight_cache.py",
             "obs/__init__.py", "obs/slo.py", "obs/compile_watch.py",
             "obs/costs.py", "obs/kv_ledger.py", "runtime/metrics.py",
             "runtime/system_status.py", "planner/__init__.py",
-            "planner/metrics.py", "router/tiered_index.py")
+            "planner/metrics.py", "router/tiered_index.py",
+            "runtime/aio.py", "runtime/push_router.py",
+            "runtime/component.py", "runtime/http_server.py",
+            "router/__init__.py", "router/indexer.py",
+            "router/selector.py", "router/sequences.py",
+            "router/targets.py", "router/replica_sync.py",
+            "router/kv_router.py", "lora/routing.py", "obs/forensics.py",
+            "frontend/parsers.py", "frontend/preprocessor.py",
+            "frontend/request_trace.py", "frontend/affinity.py",
+            "frontend/pipeline.py", "frontend/service.py",
+            "frontend/__main__.py")
 # the KVBM tiers' fields (ported with kvbm/) and the knobs that came
 # with them, at the JAX engine's defaults
 KVBM_FIELDS = ("host_cache_blocks", "disk_cache_dir", "disk_cache_blocks",
