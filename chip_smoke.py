@@ -79,7 +79,12 @@ OpenAI frontend and KV router on the same runtime (`_frontend_phase`:
 against the same encodings over the request plane, a unary chat,
 /v1/embeddings, a dropped stream, /metrics, the fifth request routed
 with an 8-block overlap, K1/K3 launches counted around the HTTP
-requests as `frontend_launches`); then the encoder phase (below), the
+requests as `frontend_launches`; then /v1/messages unary and streamed
+against /v1/chat/completions, count_tokens, a chained /v1/responses, a
+multipart /v1/files upload run as a /v1/batches batch against the same
+requests sent directly, /debug/requests, and, on a second frontend
+with a session-affinity TTL, a session's three turns bound, reused and
+released); then the encoder phase (below), the
 disagg phase (below), the pair across two processes (below) and the
 spec phase (below).  These llama-8b phases run all 32 layers (the
 pair's second process builds the preset, which has no depth flag; the
@@ -118,6 +123,8 @@ the KVBM phase's first G2 run, bf16, or its int8 run; `spec_launches` in
 the spec phase's first n-gram turn, bf16, or its int8 n-gram run;
 `spec_draft_launches`, K3's in the draft's catch-up programs during the
 draft == target turn;
+`frontend_disagg_launches`, [prefill worker's, decode worker's] of
+the same pair behind the port's frontend, always-disagg (run (a));
 `lora_launches` in the LoRA phase's mixed batch and `guided_launches` in
 its guided run; `etcd_launches` and `kube_launches` in the discovery
 phase's requests; `embed_launches` and `encoder_launches`, counted
@@ -207,8 +214,16 @@ with no prefill on the decode worker, exactly the expected blocks
 pulled, no parked KV left and one request's injected blocks bit-equal
 to the sender's; then the five at once (TTFT through the pair against
 the aggregated engine's), pull GB/s per tier, the host chunk bound, and
-gather/inject GB/s against their byte bound; then one request through
-an int8 pair against an aggregated int8 engine.
+gather/inject GB/s against their byte bound; then the same pair behind
+the port's frontend (kv router, DYN_INDEXER=auto: the native indexer
+this script builds): the five prompts as text by hand, then through
+HTTP always-disagg (streams equal, K3 launches equal the by-hand
+pass's, no prefill on the decode worker) and conditionally (min isl
+1024, ratio 0.7: request 1 remote, the rest local, request 5 on its
+8-block overlap from the router's index; streams equal a by-hand run
+in the same packed prefill dispatches, greedy ones the aggregated
+engine's at a near-tie); then one request through an int8 pair
+against an aggregated int8 engine.
 
 The pair across two processes (part of the whole check after the disagg
 phase; alone with --disagg-ipc): a prefill worker process started with
@@ -370,7 +385,14 @@ logged.  The encoder phase (alone with --encoder) serves four .npy
 images, twice, through the port's EncoderWorker with a ViT at CLIP
 ViT-L/14-336 widths (bf16): 576 tokens an image, within ENCODER_TOL of
 an fp32 tower, the repeat all cache hits, ms an image against the FLOP
-bound (fp32 attention at 67 TFLOP/s).
+bound (fp32 attention at 67 TFLOP/s); then two chats with a fifth
+image through the port's frontend, in front of a one-layer LLM worker
+of the encoder's model name: the EncoderHop encodes it (a tower call),
+then finds it in the encoder's cache, and each request ends in the
+worker's named refusal of the spliced embeddings (ROADMAP, Queue 3
+item 9).  The script logs whether `grpc` and `google.protobuf` import
+(the KServe service waits on it) and builds the router's native KV
+indexer (host C++) after the kernels.
 
 The tp phase (last in the whole check, llama-8b cut to TP_LAYERS = 4
 layers; alone with --tp, all 32): two processes of an NCCL group on
@@ -623,7 +645,8 @@ def sdpa(q, k, v, mask):
 def build_kernels() -> None:
     """The three sources, one nvcc each, started together: K1's and K3's
     libraries hold their kernel's bf16 and int8 entry points, K4's its
-    gather and sequential walks.  Logs each instantiation's registers and
+    gather and sequential walks; then the router's native KV indexer with
+    the host C++ compiler.  Logs each instantiation's registers and
     spills (ptxas) and, for K1/K3, the shared memory a CTA asks for."""
     import re
 
@@ -631,10 +654,17 @@ def build_kernels() -> None:
     from dynamo_tpu_torch.ops import _build
     from dynamo_tpu_torch.ops import cuda_packed_prefill as k3
     from dynamo_tpu_torch.ops import cuda_paged_attention as k1
+    from dynamo_tpu_torch.router import native_indexer
 
     t0 = time.perf_counter()
     logs = _build.compile_sources([k1.KERNEL, k3.KERNEL, k4.KERNEL])
     dt = time.perf_counter() - t0
+    # the router's native KV indexer (host C++), so DYN_INDEXER=auto
+    # serves it in every frontend phase
+    t1 = time.perf_counter()
+    path = native_indexer.build()
+    log(f"native KV indexer {path.name} built with "
+        f"{native_indexer.compiler()} in {time.perf_counter() - t1:.1f} s")
     _build.load_library(k4.KERNEL, k4._SIGNATURES)
     fn = None
     for line in logs[k4.KERNEL].splitlines():
@@ -3616,11 +3646,13 @@ async def _disagg_pair(device, cfg, params, warmup: bool):
         torch.cuda.empty_cache()
 
 
-def _aggregated_reference(device, cfg, params, reqs, warmup: bool) -> tuple:
+def _aggregated_reference(device, cfg, params, reqs, warmup: bool,
+                          extra=()) -> tuple:
     """The requests through an aggregated TorchEngine (`cfg`, weights
-    `params`): one at a time (the reference streams), then, after a
-    cleared prefix cache, all at once (the TTFT yardstick).  Frees its
-    cache before returning."""
+    `params`): one at a time (the reference streams; the `extra` requests
+    after them, their results appended), then, after a cleared prefix
+    cache, `reqs` all at once (the TTFT yardstick).  Frees its cache
+    before returning."""
     from dynamo_tpu_torch.engine import TorchEngine
 
     eng = TorchEngine(dataclasses.replace(cfg), params=params, device=device)
@@ -3629,7 +3661,7 @@ def _aggregated_reference(device, cfg, params, reqs, warmup: bool) -> tuple:
 
     async def run():
         try:
-            one = [(await _serve(eng, [r]))[0] for r in reqs]
+            one = [(await _serve(eng, [r]))[0] for r in [*reqs, *extra]]
             await eng.clear_kv_blocks()
             await asyncio.sleep(1.1)
             return one, await _serve(eng, reqs)
@@ -3679,8 +3711,8 @@ def check_disagg(device, card: str, params) -> dict:
     prefill and a decode TorchEngineWorker in one process (_disagg_pair,
     one set of weight tensors, two bf16 caches of 512 blocks, warm-up
     capturing every program), routed by hand as tests/test_disagg.py's
-    _engine_disagg_roundtrip does (the frontend's PrefillOrchestrator is
-    JAX code).  For each tier, the broker (device-resident chunks) and
+    _engine_disagg_roundtrip does, then behind the port's frontend
+    (_disagg_frontend).  For each tier, the broker (device-resident chunks) and
     host-staged frames (broker lookup off), from cleared prefix caches:
     the five requests one at a time, whose streams must equal an
     aggregated TorchEngine's served one at a time with the same weights
@@ -3696,14 +3728,18 @@ def check_disagg(device, card: str, params) -> dict:
     chunk bound, and gather/inject GB/s against their byte bound.  Then
     one request (request 1) through an int8 pair, both tiers, against an
     aggregated int8 engine.  Returns {"launches": {kernel: (prefill
-    worker's, decode worker's)}, ...}."""
+    worker's, decode worker's)}, "frontend_launches": the same of the
+    frontend's always-disagg run, ...}."""
     cfg = _engine_config("bf16")
     mc = cfg.resolve_model()
     reqs = _requests(mc.vocab_size)
     bs = cfg.block_size
+    # the five prompts as text, as the frontend preprocesses them
+    text_reqs = _text_requests(cfg)
     t0 = time.perf_counter()
     ref_one, ref_conc = _aggregated_reference(device, cfg, params, reqs,
-                                              warmup=True)
+                                              warmup=True, extra=text_reqs)
+    ref_one, ref_text = ref_one[:len(reqs)], ref_one[len(reqs):]
     log(f"disagg: aggregated reference (one at a time, then concurrent) in "
         f"{time.perf_counter() - t0:.1f} s; ttft s concurrent "
         f"{[round(r[2], 4) for r in ref_conc]}")
@@ -3776,6 +3812,12 @@ def check_disagg(device, card: str, params) -> dict:
                 if tier == "broker":
                     entry["launches"] = launches
                 result["tiers"][tier] = entry
+            # first tokens the decode worker recomputed in the tiers' runs
+            # (the frontend's conditional run prefills there on purpose)
+            result["recomputes"] = len(replays)
+            # the same pair behind the port's frontend (runs a and b)
+            result["frontend"] = await _disagg_frontend(
+                pw, dw, pclient, dclient, text_reqs, k1, k3)
             for w, built, g in ((pw, pbuilt, pw.engine.prefill_graphs),
                                 (dw, dbuilt, dw.engine.graphs)):
                 if g.counts != built:
@@ -3785,7 +3827,6 @@ def check_disagg(device, card: str, params) -> dict:
             # workers' books reconcile
             for w, role in ((pw, "prefill"), (dw, "decode")):
                 await _audit_clean(w.engine, f"disagg {role} worker")
-            result["recomputes"] = len(replays)
             result["layout"] = layout
             # a broker chunk (8 frames' worth), within half the pool
             result["bandwidth"] = _transfer_bandwidth(
@@ -3879,8 +3920,317 @@ def check_disagg(device, card: str, params) -> dict:
            # the aggregated engine's streams, one at a time: the
            # --disagg-ipc phase's reference too
            "ref_one": ref_one}
+    out["frontend_launches"] = _check_disagg_frontend(
+        result["frontend"], text_reqs, ref_text, params, mc, device, card)
     out["launches"].update(check_disagg_int8(device, card, params))
     return out
+
+
+def _text_requests(cfg, name: str = "smoke") -> list:
+    """The five frontend prompts (_frontend_texts) as the port's
+    preprocessor makes them from _frontend_body's completions, with the
+    card a worker of config `cfg` publishes (its mock tokenizer):
+    request ids fd-0 .. fd-4."""
+    from dynamo_tpu_torch.frontend.preprocessor import OpenAIPreprocessor
+    from dynamo_tpu_torch.protocols import ModelDeploymentCard
+
+    mc = cfg.resolve_model()
+    pre = OpenAIPreprocessor(ModelDeploymentCard(
+        name=name, tokenizer={"type": "mock", "vocab_size": mc.vocab_size},
+        context_length=min(mc.max_context, cfg.max_context)))
+    return [pre.preprocess_completion(_frontend_body(
+        name, t, f"fd-{i}", sampled=(i == 2)))
+        for i, t in enumerate(_frontend_texts())]
+
+
+DISAGG_MIN_ISL = 1024
+DISAGG_RATIO = 0.7
+
+
+async def _disagg_frontend(pw, dw, pclient, dclient, text_reqs, k1,
+                           k3) -> dict:
+    """The disagg pair behind the port's frontend on its runtime (kv
+    router), after a by-hand pass of the five text requests one at a time
+    (_disagg_one) from cleared caches, K1/K3 counted around it.  Run (a),
+    always-disagg: the five as streamed /v1/completions one at a time
+    from cleared caches, counted the same way.  Run (b), conditional
+    (DISAGG_MIN_ISL, DISAGG_RATIO, as `--disagg-min-isl 1024
+    --disagg-ratio 0.7`): from cleared caches, request 1 alone until its
+    pulled blocks are in the router's index, then the other four at once,
+    each orchestrator decision recorded as (isl, overlap, remote).
+    Returns the raw readings for _check_disagg_frontend."""
+    from dynamo_tpu_torch.disagg.prefill_router import ConditionalDisaggConfig
+
+    def metric_deltas(m0, p0):
+        return ({k: dw.engine.metrics.get(k, 0) - m0.get(k, 0)
+                 for k in ("prefill_tokens", "prefill_steps",
+                           "decode_steps", "pull_blocks")},
+                {k: pw.engine.metrics.get(k, 0) - p0.get(k, 0)
+                 for k in ("prefill_tokens", "prefill_steps",
+                           "decode_steps")})
+
+    async def cleared(fe=None):
+        for w in (pw, dw):
+            await w.engine.clear_kv_blocks()
+        if fe is not None:
+            await fe.wait_blocks(dw.served.instance_id, 0,
+                                 "a cleared decode worker")
+        await asyncio.sleep(1.1)
+
+    out = {"k1": k1.__name__, "k3": k3.__name__}
+    await cleared()
+    m0, p0 = dict(dw.engine.metrics), dict(pw.engine.metrics)
+    for fn in (k1, k3):
+        fn.launches = 0
+    hand = []
+    for r in text_reqs:
+        hand.append(await _disagg_one(pclient, dclient, r,
+                                      time.perf_counter()))
+    out["hand_launches"] = {fn.__name__: fn.launches for fn in (k1, k3)}
+    out["hand"], out["hand_steps"] = hand, metric_deltas(m0, p0)
+    fe = await _Frontend.attach(pw.runtime, prefill=True,
+                                disagg_config=ConditionalDisaggConfig(
+                                    always_remote=True))
+    spied: dict = {}
+    _spy_streams(dw.engine, spied)
+    orch = fe.pipeline.prefill
+    decisions = {}
+    decide = orch.should_disagg
+
+    def recorded(req, overlap):
+        d = decide(req, overlap)
+        decisions[req.request_id] = (len(req.token_ids), overlap, d)
+        return d
+
+    orch.should_disagg = recorded
+    bodies = {run: [_frontend_body(fe.model, t, f"f{run}-{i}",
+                                   sampled=(i == 2))
+                    for i, t in enumerate(_frontend_texts())]
+              for run in ("a", "b")}
+    try:
+        # run (a): always remote, one at a time
+        await cleared(fe)
+        m0, p0 = dict(dw.engine.metrics), dict(pw.engine.metrics)
+        for fn in (k1, k3):
+            fn.launches = 0
+        got_a = []
+        for b in bodies["a"]:
+            got_a.append(await fe.sse(b))
+        out["a_launches"] = {fn.__name__: fn.launches for fn in (k1, k3)}
+        out["a_steps"] = metric_deltas(m0, p0)
+        out["a"] = got_a
+        # run (b): conditional, request 1 alone first
+        orch.config = ConditionalDisaggConfig(
+            min_effective_isl=DISAGG_MIN_ISL,
+            min_effective_ratio=DISAGG_RATIO)
+        gate = len(text_reqs[0].token_ids) // dw.config.block_size
+        dispatches: list = []
+        dispatch = dw.engine._prefill_dispatch
+
+        def recorded_dispatch(pslots):
+            dispatches.append([(int(s.request.request_id.rsplit("-", 1)[1]),
+                                s.prefill_pos) for s in pslots])
+            return dispatch(pslots)
+
+        dw.engine._prefill_dispatch = recorded_dispatch
+        await cleared(fe)
+        m0, p0 = dict(dw.engine.metrics), dict(pw.engine.metrics)
+        got_b = [await fe.sse(bodies["b"][0])]
+        await fe.wait_blocks(dw.served.instance_id, gate,
+                             "request 1's pulled blocks")
+        got_b += await asyncio.gather(*(fe.sse(b)
+                                        for b in bodies["b"][1:]))
+        out["b_steps"] = metric_deltas(m0, p0)
+        out["b"] = got_b
+        out["b_dispatches"] = [list(d) for d in dispatches]
+        out["b_hand"], out["b_hand_dispatches"], out["b_hand_tries"] = \
+            await _disagg_in_shape(pclient, dclient, fe, dw, text_reqs,
+                                   gate, dispatches, cleared)
+        out["decisions"] = decisions
+        out["spied"] = spied
+        out["pick_ms"] = [round(s * 1e3, 3) for s in fe.pick_s]
+        out["indexer_impl"] = fe.router.overlap_stats()["indexer_impl"]
+    finally:
+        orch.should_disagg = decide
+        dw.engine.__dict__.pop("generate", None)
+        dw.engine.__dict__.pop("_prefill_dispatch", None)
+        left = await fe.close()
+    if left:
+        raise SystemExit(f"disagg frontend: close() left tasks {left}")
+    return out
+
+
+DISAGG_SHAPE_TRIES = 3
+
+
+async def _disagg_in_shape(pclient, dclient, fe, dw, text_reqs, gate: int,
+                           dispatches: list, cleared) -> tuple:
+    """Run (b)'s shape by hand over the request plane, the reference of its
+    streams: from cleared caches, request 1 through the pair
+    (_disagg_one), then, once its `gate` blocks are in the router's
+    index, the other four to the decode worker alone (local prefill), in
+    the groups run (b)'s packed prefill dispatches took them (recorded
+    into `dispatches` as [(request index, prefill position)] a dispatch):
+    each group sent once the dispatch before it has started.  Tried up
+    to DISAGG_SHAPE_TRIES times, until the dispatches equal run (b)'s.
+    Returns (the five token streams, the dispatches, tries)."""
+    want = [list(d) for d in dispatches]
+    groups, seen = [], set()
+    for d in want:
+        new = [i for i, _ in d if i not in seen]
+        seen.update(new)
+        groups.append(new)
+    for attempt in range(1, DISAGG_SHAPE_TRIES + 1):
+        await cleared(fe)
+        dispatches.clear()
+        tag = f"fh{attempt}"
+        head = await _disagg_one(pclient, dclient, dataclasses.replace(
+            text_reqs[0], request_id=f"{tag}-0"), time.perf_counter())
+        await fe.wait_blocks(dw.served.instance_id, gate,
+                             "request 1's pulled blocks (by hand)")
+        tasks = {}
+        for d, group in enumerate(groups):
+            for i in group:
+                tasks[i] = asyncio.create_task(_rp_stream(
+                    dclient, dataclasses.replace(
+                        text_reqs[i], request_id=f"{tag}-{i}")))
+            end = time.monotonic() + FRONTEND_WAIT_S
+            while len(dispatches) <= d and time.monotonic() < end:
+                await asyncio.sleep(0.001)
+        rest = {i: (await t)["ids"] for i, t in tasks.items()}
+        got = [list(d) for d in dispatches]
+        if got == want:
+            break
+        log(f"disagg frontend run (b) by hand, try {attempt}: prefill "
+            f"dispatches {got} against run (b)'s {want}")
+    ids = [head[0]] + [rest.get(i, []) for i in range(1, 5)]
+    return ids, got, attempt
+
+
+def _check_disagg_frontend(res: dict, text_reqs, ref_text, params, mc,
+                           device, card: str) -> dict:
+    """Exit unless run (a)'s streams equal the by-hand pass's and the
+    aggregated engine's for the same requests (a greedy parting only at
+    a near-tie), its K3 launches equal the by-hand pass's, the decode
+    worker prefilled no token in either and the prefill worker decoded
+    none; and unless run (b)'s decisions equal should_disagg's on the
+    recorded (isl, overlap): request 1 remote, 2-4 local, 5 local on its
+    8-block overlap, and its streams equal the by-hand run in its shape
+    (_disagg_in_shape: the same packed prefill dispatches on the decode
+    worker; a greedy parting only at a near-tie) and, greedy ones, the
+    aggregated engine's one at a time (a parting only at a near-tie).
+    Logs where the seeded sampled stream of each parts from the one at a
+    time reference, TTFT through HTTP beside the by-hand pass's.  Returns
+    {kernel: (prefill worker's launches, decode worker's)} of run (a)."""
+    from dynamo_tpu_torch.disagg.prefill_router import (
+        ConditionalDisaggConfig,
+        PrefillOrchestrator,
+    )
+
+    hand = res["hand"]
+    spied = res["spied"]
+    greedy = [i for i in range(5) if i != 2]
+    for run, got in (("a", res["a"]), ("b", res["b"])):
+        ids = [spied.get(f"f{run}-{i}", []) for i in range(5)]
+        if any(len(x) != 32 for x in ids) or any(
+                (g["usage"] or {}).get("completion_tokens") != 32
+                for g in got):
+            raise SystemExit(f"disagg frontend run ({run}): streams of "
+                             f"{[len(x) for x in ids]} tokens")
+    a_ids = [spied[f"fa-{i}"] for i in range(5)]
+    if a_ids[2] != ref_text[2][0] or a_ids[2] != hand[2][0]:
+        raise SystemExit("disagg frontend run (a): the seeded sampled "
+                         "stream differs from the aggregated engine's or "
+                         "the by-hand pass's")
+    res["a_parted"] = _check_streams(
+        "disagg frontend run (a)", [(a_ids[i],) for i in greedy],
+        [ref_text[i] for i in greedy], [text_reqs[i] for i in greedy],
+        params, mc, device)
+    hand_parted = _check_streams(
+        "disagg frontend run (a) against the by-hand pass",
+        [(a_ids[i],) for i in greedy], [hand[i] for i in greedy],
+        [text_reqs[i] for i in greedy], params, mc, device)
+    (dm, pm), (hdm, hpm) = res["a_steps"], res["hand_steps"]
+    k1name, k3name = res["k1"], res["k3"]
+    log(f"disagg frontend run (a), always-disagg ({card}): launches "
+        f"{res['a_launches']} against the by-hand pass's "
+        f"{res['hand_launches']}; decode worker steps {dm}, prefill worker "
+        f"{pm} (by hand {hdm}, {hpm}); {len(hand_parted)} parting(s) from "
+        f"the by-hand streams, {len(res['a_parted'])} from the aggregated "
+        f"engine's; indexer {res['indexer_impl']}")
+    if dm["prefill_tokens"] or dm["prefill_steps"] or hdm["prefill_tokens"]:
+        raise SystemExit("disagg frontend run (a): the decode worker "
+                         "prefilled")
+    if pm["decode_steps"] or not pm["prefill_steps"]:
+        raise SystemExit("disagg frontend run (a): the prefill worker "
+                         "decoded, or prefilled nothing")
+    if res["a_launches"][k3name] != res["hand_launches"][k3name] \
+            or not res["a_launches"][k3name]:
+        raise SystemExit(f"disagg frontend run (a): {k3name} launched "
+                         f"{res['a_launches'][k3name]} times against the "
+                         f"by-hand pass's {res['hand_launches'][k3name]}")
+    if res["a_launches"][k1name] < mc.n_layers * dm["decode_steps"] \
+            or not dm["decode_steps"]:
+        raise SystemExit("disagg frontend run (a): the decode worker did "
+                         "not run K1 on every decode step")
+    ttft = [(round(g["ttft"], 4), round(h[2], 4), round(g["ttft"] - h[2], 4))
+            for g, h in zip(res["a"], hand)]
+    log(f"disagg frontend run (a) ({card}): TTFT s through HTTP / by hand "
+        f"over the request plane / difference, per request: {ttft}; router "
+        f"pick host ms {res['pick_ms']}")
+    want = PrefillOrchestrator(None, ConditionalDisaggConfig(
+        min_effective_isl=DISAGG_MIN_ISL, min_effective_ratio=DISAGG_RATIO))
+    got = [res["decisions"].get(f"fb-{i}") for i in range(5)]
+    expect = [want.should_disagg(text_reqs[i], g[1]) if g else None
+              for i, g in enumerate(got)]
+    shared = FRONTEND_SHARED
+    log(f"disagg frontend run (b), conditional (min isl {DISAGG_MIN_ISL}, "
+        f"ratio {DISAGG_RATIO}) ({card}): (isl, overlap from the router's "
+        f"index, remote) per request {got}; should_disagg gives {expect}; "
+        f"decode worker steps {res['b_steps'][0]}, prefill worker "
+        f"{res['b_steps'][1]}")
+    if None in got or [g[2] for g in got] != expect \
+            or expect != [True, False, False, False, False] \
+            or got[4][1] != shared:
+        raise SystemExit("disagg frontend run (b): the decisions differ "
+                         "from should_disagg's, or request 5 was not kept "
+                         f"local on its {shared}-token overlap")
+    # run (b)'s streams: against the by-hand run in its shape, and the
+    # greedy ones against the aggregated engine one at a time
+    b_ids, b_hand = [spied[f"fb-{i}"] for i in range(5)], res["b_hand"]
+    log(f"disagg frontend run (b) ({card}): decode worker prefill "
+        f"dispatches [(request, prefill position)] {res['b_dispatches']}; "
+        f"by hand in its shape {res['b_hand_dispatches']} (try "
+        f"{res['b_hand_tries']})")
+    if res["b_hand_dispatches"] != res["b_dispatches"]:
+        raise SystemExit("disagg frontend run (b): the by-hand run did not "
+                         "take run (b)'s prefill dispatches")
+
+    def parts_at(x, ref) -> Optional[int]:
+        return None if x == ref else next(
+            (n for n, (a, b) in enumerate(zip(x, ref)) if a != b),
+            min(len(x), len(ref)))
+
+    one = ref_text[2][0]
+    log(f"disagg frontend run (b) ({card}): the seeded sampled stream parts "
+        f"from the aggregated engine's one at a time at token "
+        f"{parts_at(b_ids[2], one)} (None: equal); the by-hand run in its "
+        f"shape at {parts_at(b_hand[2], one)}; run (b) from the by-hand "
+        f"run at {parts_at(b_ids[2], b_hand[2])}")
+    if b_ids[2] != b_hand[2]:
+        raise SystemExit("disagg frontend run (b): the seeded sampled "
+                         "stream differs from the by-hand run's in its "
+                         "shape")
+    res["b_parted_hand"] = _check_streams(
+        "disagg frontend run (b) against the by-hand run in its shape",
+        [(b_ids[i],) for i in greedy], [(b_hand[i],) for i in greedy],
+        [text_reqs[i] for i in greedy], params, mc, device)
+    res["b_parted"] = _check_streams(
+        "disagg frontend run (b)", [(b_ids[i],) for i in greedy],
+        [ref_text[i] for i in greedy], [text_reqs[i] for i in greedy],
+        params, mc, device)
+    return {k1name: (0, res["a_launches"][k1name]),
+            k3name: (res["a_launches"][k3name], 0)}
 
 
 def check_disagg_int8(device, card: str, params) -> dict:
@@ -8247,15 +8597,20 @@ FRONTEND_FILES = ("frontend" + os.sep, os.path.join("router", "kv_router.py"),
 
 
 class _Frontend:
-    """The port's ModelWatcher (kv mode, make_kv_route_factory) and
+    """The port's ModelWatcher (kv mode, make_kv_route_factory, and the
+    watcher options `watch`: a disagg config, a session-affinity TTL) and
     HttpService on port 0, attached to a worker's runtime `rt`, with an
-    HTTP client of the port (runtime/http.py) and the router's decisions
-    by request id and pick host times recorded.  While attached, a task
-    factory notes every task created from FRONTEND_FILES' code (request
-    plane connections excepted: the runtime pools them)."""
+    HTTP client of the port (runtime/http.py) and the KV router's
+    decisions by request id and pick host times recorded (`route` is the
+    pipeline's route, `router` the KV router, the route itself or the one
+    a SessionAffinityRouter wraps).  With `prefill` / `encoder` it waits
+    for the prefill fleet's orchestrator / the encoder fleet's hop too.  While attached, a task factory
+    notes every task created from FRONTEND_FILES' code (request plane
+    connections excepted: the runtime pools them)."""
 
     @classmethod
-    async def attach(cls, rt, n_instances: int = 1) -> "_Frontend":
+    async def attach(cls, rt, n_instances: int = 1, prefill: bool = False,
+                     encoder: bool = False, **watch) -> "_Frontend":
         from dynamo_tpu_torch.frontend.service import (
             HttpService,
             ModelManager,
@@ -8291,20 +8646,27 @@ class _Frontend:
         self.manager = ModelManager()
         self.watcher = await ModelWatcher(
             rt, self.manager, router_mode=RouterMode.KV,
-            make_route=make_kv_route_factory(rt)).start()
+            make_route=make_kv_route_factory(rt), **watch).start()
         self.service = await HttpService(rt, self.manager, host="127.0.0.1",
                                          port=0).start()
         self.http = HttpClient(f"http://127.0.0.1:{self.service.bound_port}")
         end = time.monotonic() + FRONTEND_WAIT_S
-        while not (self.manager.models and len(next(iter(
-                self.manager.models.values())).client.instances)
-                >= n_instances):
+        def ready(p) -> bool:
+            return len(p.client.instances) >= n_instances and (
+                not prefill or (p.prefill is not None
+                                and p.prefill.client.instance_ids)) and (
+                not encoder or (p.encoder is not None
+                                and p.encoder.client.instance_ids))
+
+        while not (self.manager.models and ready(next(iter(
+                self.manager.models.values())))):
             if time.monotonic() > end:
                 raise SystemExit("frontend: the watcher never registered the "
                                  f"model with {n_instances} instance(s)")
             await asyncio.sleep(0.02)
         (self.model, self.pipeline), = self.manager.models.items()
-        self.router = self.pipeline.migration.route
+        self.route = self.pipeline.migration.route
+        self.router = getattr(self.route, "inner", None) or self.route
         self.decisions, self.pick_s = {}, []
         record, pick = self.router._record_decision, self.router.pick
 
@@ -8435,6 +8797,221 @@ def _render(tokenizer, ids) -> str:
     return tokenizer.make_detokenizer().push(list(ids))
 
 
+async def _sse_lines(fe, path: str, body: dict) -> list:
+    """One streamed POST through the frontend: its SSE events as
+    [(event name or None, data as JSON)]."""
+    events, name = [], None
+    async with fe.http.stream("POST", path, json=body,
+                              read_timeout=FRONTEND_WAIT_S) as lines:
+        async for line in lines:
+            line = line.strip()
+            if line.startswith(b"event: "):
+                name = line[len(b"event: "):].decode()
+            elif line.startswith(b"data: "):
+                data = line[len(b"data: "):]
+                events.append((name, data.decode() if data == b"[DONE]"
+                               else json.loads(data)))
+                name = None
+    return events
+
+
+async def _post_multipart(port: int, path: str, fields: list) -> tuple:
+    """A multipart/form-data POST to 127.0.0.1:`port` (fields: (name,
+    bytes, filename or None)), on a connection of its own: (status, the
+    JSON body)."""
+    boundary = b"smokeformboundary"
+    body = b"".join(
+        b"--" + boundary + b"\r\nContent-Disposition: form-data; name=\""
+        + name.encode() + b"\""
+        + (b"; filename=\"" + fn.encode() + b"\"" if fn else b"")
+        + b"\r\n\r\n" + value + b"\r\n" for name, value, fn in fields)
+    body += b"--" + boundary + b"--\r\n"
+    reader, writer = await asyncio.open_connection("127.0.0.1", port)
+    try:
+        writer.write(b"POST " + path.encode() + b" HTTP/1.1\r\nHost: x\r\n"
+                     b"Connection: close\r\nContent-Type: multipart/"
+                     b"form-data; boundary=" + boundary
+                     + b"\r\nContent-Length: %d\r\n\r\n" % len(body)
+                     + body)
+        await writer.drain()
+        raw = await asyncio.wait_for(reader.read(), FRONTEND_WAIT_S)
+    finally:
+        writer.close()
+    head, _, data = raw.partition(b"\r\n\r\n")
+    return int(head.split(b" ", 2)[1]), json.loads(data)
+
+
+def _scrubbed(obj):
+    """A response body with its ids and clocks taken out."""
+    if isinstance(obj, dict):
+        return {k: _scrubbed(v) for k, v in obj.items()
+                if k not in ("id", "created", "created_at")}
+    if isinstance(obj, list):
+        return [_scrubbed(v) for v in obj]
+    return obj
+
+
+async def _extra_routes(fe, rt, pre, spied: dict, texts) -> dict:
+    """The Anthropic, Responses, Files and Batches routes and
+    /debug/requests through the phase's frontend: one unary and one
+    streamed /v1/messages and a /v1/chat/completions of the same prompt
+    (their token ids by request id from `spied`), count_tokens, a
+    /v1/responses chained by previous_response_id, a multipart /v1/files
+    upload of a two-line JSONL batch run through /v1/batches to
+    `completed` beside the same two requests sent directly at once, and
+    the frontend's forensics dump.  Returns the readings."""
+    out = {}
+    msg = {"model": fe.model, "max_tokens": 8, "temperature": 0.0,
+           "ignore_eos": True,
+           "messages": [{"role": "user", "content": texts[3]}]}
+
+    def served_since(before) -> list:
+        return [spied[k] for k in spied if k not in before]
+
+    b = set(spied)
+    out["chat"] = await fe.http.call("POST", "/v1/chat/completions", msg)
+    out["chat_ids"] = served_since(b)
+    b = set(spied)
+    out["message"] = await fe.http.call("POST", "/v1/messages", msg)
+    out["message_ids"] = served_since(b)
+    b = set(spied)
+    out["message_events"] = await _sse_lines(fe, "/v1/messages",
+                                             dict(msg, stream=True))
+    out["message_stream_ids"] = served_since(b)
+    out["count_tokens"] = (await fe.http.call(
+        "POST", "/v1/messages/count_tokens", msg))["input_tokens"]
+    out["chat_tokens"] = len(pre.preprocess_chat(msg).token_ids)
+    first = await fe.http.call("POST", "/v1/responses", {
+        "model": fe.model, "input": texts[3], "max_output_tokens": 8,
+        "temperature": 0.0})
+    second = await fe.http.call("POST", "/v1/responses", {
+        "model": fe.model, "input": "and then?", "max_output_tokens": 8,
+        "temperature": 0.0, "previous_response_id": first["id"]})
+    got = await fe.http.call("GET", f"/v1/responses/{second['id']}")
+    out["responses"] = (first, second, got)
+    lines = [{"custom_id": f"line-{i}", "method": "POST",
+              "url": "/v1/chat/completions",
+              "body": dict(msg, request_id=f"fe-batch-{i}", messages=[
+                  {"role": "user", "content": t}])}
+             for i, t in enumerate((texts[3], texts[2][:60]))]
+    status, meta = await _post_multipart(
+        fe.service.bound_port, "/v1/files",
+        [("purpose", b"batch", None),
+         ("file", ("\n".join(json.dumps(ln) for ln in lines)
+                   + "\n").encode(), "smoke-batch.jsonl")])
+    if status != 200:
+        raise SystemExit(f"frontend: the multipart upload answered {status} "
+                         f"{meta}")
+    out["file"] = meta
+    batch = await fe.http.call("POST", "/v1/batches", {
+        "input_file_id": meta["id"], "endpoint": "/v1/chat/completions"})
+    end = time.monotonic() + FRONTEND_WAIT_S
+    while batch["status"] != "completed":
+        if time.monotonic() > end:
+            raise SystemExit(f"frontend: the batch stayed {batch['status']}")
+        await asyncio.sleep(0.05)
+        batch = await fe.http.call("GET", f"/v1/batches/{batch['id']}")
+    out["batch"] = batch
+    content = (await fe.http.request(
+        "GET", f"/v1/files/{batch['output_file_id']}/content")).body
+    out["batch_lines"] = {r["custom_id"]: r for r in
+                          map(json.loads, content.decode().splitlines())}
+    out["direct"] = await asyncio.gather(*(fe.http.call(
+        "POST", "/v1/chat/completions",
+        dict(ln["body"], request_id=f"fe-direct-{i}"))
+        for i, ln in enumerate(lines)))
+    out["batch_reqs"] = [pre.preprocess_chat(ln["body"]) for ln in lines]
+    name = f"frontend:{fe.service._fleet_instance_id}"
+    if rt.system_address:
+        from dynamo_tpu_torch.runtime.http import HttpClient
+
+        status_http = HttpClient(f"http://{rt.system_address}",
+                                 token=rt.config.admin_token or "")
+        try:
+            dump = (await status_http.call(
+                "GET", "/debug/requests"))["sources"][name]
+        finally:
+            await status_http.close()
+        out["debug_requests"] = "http"
+    else:
+        dump = rt.forensics_sources[name]()
+        out["debug_requests"] = "source"
+    out["exemplars"] = {e["request_id"] for windows in dump["models"].values()
+                        for w in windows for e in w["ttft"] + w["itl"]}
+    out["dump_count"] = dump["exemplars"]
+    return out
+
+
+def _check_extra_routes(res: dict, spied: dict, params, mc, device) -> None:
+    """Exit unless the extra routes' readings (_extra_routes) hold."""
+    chat, msg = res["chat"], res["message"]
+    text = msg["content"][0]["text"] if msg["content"] else None
+    streamed = "".join(d["delta"].get("text", "") for n, d in
+                       res["message_events"]
+                       if n == "content_block_delta")
+    names = [n for n, _ in res["message_events"]]
+    if not (res["chat_ids"] and res["chat_ids"] == res["message_ids"]
+            == res["message_stream_ids"]) or len(res["chat_ids"][0]) != 8:
+        raise SystemExit("frontend: /v1/messages token ids differ from "
+                         "/v1/chat/completions' for the same prompt")
+    if text != chat["choices"][0]["message"]["content"] or streamed != text \
+            or msg["stop_reason"] != "max_tokens" \
+            or names[0] != "message_start" or names[-1] != "message_stop":
+        raise SystemExit(f"frontend: /v1/messages answered {msg}, streamed "
+                         f"{names}")
+    if res["count_tokens"] != res["chat_tokens"]:
+        raise SystemExit(f"frontend: count_tokens {res['count_tokens']} "
+                         f"against {res['chat_tokens']}")
+    first, second, got = res["responses"]
+    if not (second["usage"]["input_tokens"] > first["usage"]["input_tokens"]
+            and got == second and second["status"] == "completed"):
+        raise SystemExit(f"frontend: /v1/responses chain {first} {second}")
+    batch = res["batch"]
+    if batch["request_counts"] != {"total": 2, "completed": 2, "failed": 0}:
+        raise SystemExit(f"frontend: the batch ended {batch}")
+    ids_b = [spied.get(f"fe-batch-{i}", []) for i in range(2)]
+    ids_d = [spied.get(f"fe-direct-{i}", []) for i in range(2)]
+    parted = _check_streams("frontend batch", [(x,) for x in ids_b],
+                            [(x,) for x in ids_d], res["batch_reqs"], params,
+                            mc, device)
+    for i, direct in enumerate(res["direct"]):
+        line = res["batch_lines"][f"line-{i}"]["response"]
+        if line["status_code"] != 200 or (
+                ids_b[i] == ids_d[i]
+                and _scrubbed(line["body"]) != _scrubbed(direct)):
+            raise SystemExit(f"frontend: batch line {i}'s body differs from "
+                             f"the same request sent directly")
+    res["batch_parted"] = parted
+    if not res["exemplars"] & {f"fe-{i}" for i in range(5)}:
+        raise SystemExit(f"frontend: /debug/requests holds none of the "
+                         f"phase's requests: {sorted(res['exemplars'])}")
+
+
+async def _affinity_short_form(fe, iid: int) -> dict:
+    """Three chat turns of one session (x-dynamo-session-id) through a
+    frontend with a session-affinity TTL: the first binds the session to
+    the worker, the second reuses the binding, the third
+    (x-dynamo-session-final) releases it."""
+    coord = fe.route.coordinator
+    sid = "smoke-session"
+    body = {"model": fe.model, "max_tokens": 4, "temperature": 0.0,
+            "ignore_eos": True,
+            "messages": [{"role": "user", "content": "turn"}]}
+    seen = []
+    for turn in range(3):
+        hdrs = {"x-dynamo-session-id": sid}
+        if turn == 2:
+            hdrs["x-dynamo-session-final"] = "1"
+        await fe.http.call("POST", "/v1/chat/completions", body,
+                           headers=hdrs)
+        e = coord.entries.get(sid)
+        seen.append(None if e is None else e.worker_id)
+    if seen != [iid, iid, None]:
+        raise SystemExit(f"frontend: session affinity bound {seen}, not "
+                         f"[{iid}, {iid}, released]")
+    return {"bound": seen}
+
+
 async def _frontend_phase(rt, worker, params, used) -> dict:
     """The port's frontend and KV router (_Frontend) on the bf16 worker's
     runtime, after the worker phase's checks and before its drain.
@@ -8448,6 +9025,9 @@ async def _frontend_phase(rt, worker, params, used) -> dict:
     frontend's rendering of the reference ids, usage counts 32 tokens,
     the fifth request was routed with an 8-block predicted overlap and
     realized 8, the launches cover layers x steps, a unary chat answers,
+    the extra routes hold (_extra_routes, _check_extra_routes), a
+    session binds, reuses and releases on a second frontend with a
+    session-affinity TTL once the first is closed (_affinity_short_form),
     /v1/embeddings' vector has cosine >= EMBED_HTTP_COSINE with the
     request plane's `embed`, a stream the client drops frees its slot,
     /metrics carries the frontend's and the router's families, and
@@ -8520,12 +9100,25 @@ async def _frontend_phase(rt, worker, params, used) -> dict:
         metrics = (await fe.http.request("GET", "/metrics")).body.decode()
         stats = fe.router.overlap_stats()
         pred_real = list(fe.router._pred_real)
+        t_extra = time.perf_counter()
+        extra = await _extra_routes(fe, rt, pre, spied, texts)
+        extra["seconds"] = time.perf_counter() - t_extra
     finally:
         eng.__dict__.pop("generate", None)
         left = await fe.close()
         await gen.close()
         await emb.close()
+    # the session's short form on a second frontend with a TTL, so the
+    # checks above run through the default deployment (no TTL)
+    t_aff = time.perf_counter()
+    aff = await _Frontend.attach(rt, session_affinity_ttl=30.0)
+    try:
+        extra["affinity"] = await _affinity_short_form(aff, iid)
+    finally:
+        left += await aff.close()
+    extra["affinity_seconds"] = time.perf_counter() - t_aff
     secs = time.perf_counter() - t_phase
+    base_secs = t_extra - t_phase
     # the streams against the reference
     for i, (g, r) in enumerate(zip(got, ref)):
         ids = spied.get(f"fe-{i}", [])
@@ -8577,6 +9170,21 @@ async def _frontend_phase(rt, worker, params, used) -> dict:
         raise SystemExit(f"frontend: /metrics lacks {missing}")
     if left:
         raise SystemExit(f"frontend: close() left tasks {left}")
+    _check_extra_routes(extra, spied, params, mc, eng.device)
+    log(f"frontend extra routes: /v1/messages unary and streamed equal to "
+        f"/v1/chat/completions ({extra['chat_ids'][0]}), count_tokens "
+        f"{extra['count_tokens']}, /v1/responses chained (input tokens "
+        f"{extra['responses'][0]['usage']['input_tokens']} then "
+        f"{extra['responses'][1]['usage']['input_tokens']}), a multipart "
+        f"upload of {extra['file']['bytes']} bytes run as a batch to "
+        f"{extra['batch']['status']} {extra['batch']['request_counts']} "
+        f"({len(extra['batch_parted'])} parting(s) from the direct "
+        f"requests), /debug/requests ({extra['debug_requests']}) with "
+        f"{extra['dump_count']} exemplars, the phase's among them; session "
+        f"affinity bound, reused, released {extra['affinity']['bound']} "
+        f"on a second frontend with a 30 s TTL; extra routes "
+        f"{extra['seconds']:.1f} s, session {extra['affinity_seconds']:.1f} "
+        f"s")
     # the four concurrent requests' decode tokens after their first
     n_dec = 31 * len(got[1:])
     rate = n_dec / (max(g["last"] for g in got[1:])
@@ -8598,13 +9206,16 @@ async def _frontend_phase(rt, worker, params, used) -> dict:
         f"pick host ms per decision {pick_ms}; received to dispatch "
         f"{queue_ms:.3f} ms a request on average over {n_q:.0f} "
         f"(dynamo_frontend_queue_seconds); /v1/embeddings cosine "
-        f"{cos:.6f}; a dropped stream freed its slot; phase {secs:.1f} s")
+        f"{cos:.6f}; a dropped stream freed its slot; phase {secs:.1f} s, "
+        f"{base_secs:.1f} s of it before the extra routes")
     log(f"frontend launches around the HTTP requests: {counts}; steps "
         f"{steps}; router stats {stats}")
     return {"launches": counts, "ttft": ttft, "decode_tokens_s": rate,
             "pick_ms": pick_ms, "queue_ms": queue_ms,
             "embed_cosine": cos, "parted": parted,
-            "seconds": secs, "steps": steps}
+            "seconds": secs, "base_seconds": base_secs, "steps": steps,
+            "extra_seconds": extra["seconds"],
+            "affinity_seconds": extra["affinity_seconds"]}
 
 
 def check_frontend(device, card: str, params) -> dict:
@@ -8620,7 +9231,10 @@ def check_frontend(device, card: str, params) -> dict:
     other worker, by load).  Exits unless every HTTP stream's ids equal
     its worker's reference (a greedy parting only at a near-tie) and its
     text their rendering, and K1 and K3 ran at least layers x steps
-    times around the HTTP requests."""
+    times around the HTTP requests.  Then a second frontend, with a
+    session-affinity TTL of 30 s, holds a session's turns on one worker
+    while its KV router alone moves a cold request away
+    (_affinity_pair)."""
     import uuid
 
     from dynamo_tpu_torch.engine import TorchEngineWorker
@@ -8686,13 +9300,20 @@ def check_frontend(device, card: str, params) -> dict:
             steps = {k: sum(w.engine.metrics[k] - m[k]
                             for w, m in zip(workers, m0))
                      for k in ("decode_steps", "prefill_steps")}
+            decisions, pick_s = dict(fe.decisions), list(fe.pick_s)
+            left, fe = await fe.close(), None
+            if left:
+                raise SystemExit(f"frontend: close() left tasks {left}")
+            # the session on a second frontend, with a TTL
+            fe = await _Frontend.attach(rt, n_instances=2,
+                                        session_affinity_ttl=30.0)
+            session = await _affinity_pair(fe, workers, texts)
             for w in workers:
                 w.engine.__dict__.pop("generate", None)
             await gen.close()
             reqs = [pre.preprocess_completion(bodies[i]) for i in (0, 4, 3)]
-            return (iids, warm, refs, got, spied, counts, steps,
-                    dict(fe.decisions), list(fe.pick_s), tok, reqs,
-                    workers[0].engine.model_cfg)
+            return (iids, warm, refs, got, spied, counts, steps, decisions,
+                    pick_s, tok, reqs, workers[0].engine.model_cfg, session)
         finally:
             if fe is not None:
                 left = await fe.close()
@@ -8706,7 +9327,7 @@ def check_frontend(device, card: str, params) -> dict:
 
     t0 = time.perf_counter()
     (iids, warm, refs, got, spied, counts, steps, decisions, pick_s,
-     tok, reqs, mc) = asyncio.run(run())
+     tok, reqs, mc, session) = asyncio.run(run())
     secs = time.perf_counter() - t0
     other = next(i for i in iids if i != warm)
     d5, dc = decisions["fe-fifth"], decisions["fe-cold"]
@@ -8744,7 +9365,71 @@ def check_frontend(device, card: str, params) -> dict:
         f"greedy parting(s) at a near-tie; phase {secs:.1f} s")
     return {"warm": warm, "fifth": d5, "cold": dc, "launches": counts,
             "steps": steps, "ttft": ttft, "parted": parted,
-            "seconds": round(secs, 1)}
+            "session": session, "seconds": round(secs, 1)}
+
+
+AFFINITY_PHANTOMS = 4
+AFFINITY_PHANTOM_BLOCKS = 400
+
+
+async def _affinity_pair(fe, workers, texts) -> dict:
+    """Session affinity over two workers (the frontend's TTL 30 s): turn
+    1 of a session binds it where the KV router places it; then the
+    bound worker carries AFFINITY_PHANTOMS phantom requests in the
+    router's books, so the KV router alone sends a cold request (no
+    session) to the other worker, while turns 2 and 3 (the last with
+    x-dynamo-session-final) stay on the bound one; the final turn
+    releases the binding.  Exits unless all of that holds."""
+    served = {w.served.instance_id: [] for w in workers}
+    for w in workers:
+        gen = w.engine.generate
+
+        async def recorded(request, *a, _gen=gen, _iid=w.served.instance_id,
+                           **kw):
+            served[_iid].append(request.request_id)
+            async for out in _gen(request, *a, **kw):
+                yield out
+
+        w.engine.generate = recorded
+    coord, sid = fe.route.coordinator, "pair-session"
+    body = {"model": fe.model, "max_tokens": 8, "temperature": 0.0,
+            "ignore_eos": True}
+
+    async def turn(i: int, text: str, session: bool, final: bool = False):
+        hdrs = {"x-dynamo-session-id": sid} if session else {}
+        if final:
+            hdrs["x-dynamo-session-final"] = "1"
+        rid = f"fe-turn-{i}" if session else "fe-control"
+        await fe.http.call("POST", "/v1/chat/completions", dict(
+            body, request_id=rid,
+            messages=[{"role": "user", "content": text}]), headers=hdrs)
+        return rid
+
+    await turn(1, texts[1][:300], True)
+    bound = coord.entries[sid].worker_id
+    for i in range(AFFINITY_PHANTOMS):
+        fe.router.sequences.add_request(f"phantom-{i}", bound,
+                                        AFFINITY_PHANTOM_BLOCKS, 0)
+    try:
+        await turn(2, texts[2], True)
+        control = await turn(0, texts[1][300:], False)
+        await turn(3, texts[3], True, final=True)
+    finally:
+        for i in range(AFFINITY_PHANTOMS):
+            fe.router.sequences.free(f"phantom-{i}")
+    where = {rid: iid for iid, rids in served.items() for rid in rids}
+    turns = [where.get(f"fe-turn-{i}") for i in (1, 2, 3)]
+    moved = fe.decisions.get(control, {}).get("target")
+    log(f"frontend pair session affinity: turns on {turns} (bound to "
+        f"{bound}); the KV router alone sent the control request to "
+        f"{moved}; binding after the final turn "
+        f"{coord.entries.get(sid)}")
+    if turns != [bound] * 3 or where.get(control) == bound \
+            or moved == bound or sid in coord.entries:
+        raise SystemExit("frontend pair: the session's turns did not stay "
+                         "on the bound worker, the control request was not "
+                         "moved, or the final turn kept the binding")
+    return {"bound": bound, "turns": turns, "control": moved}
 
 
 # CLIP ViT-L/14-336, LLaVA-1.5's tower (openai/clip-vit-large-patch14-336:
@@ -8790,7 +9475,9 @@ def check_encoder(device, card: str, cfg=None) -> dict:
     relative L2 of an fp32 tower with the same weights (and a planted
     fault, the fp32 tower on the image with its height and width
     swapped, above it), and the repeat is all cache hits with no tower
-    call.  Logs ms an image (through the request plane, and the tower
+    call; then _encoder_hop_http (two image chats through the port's
+    frontend: a tower call, then a cache hit, n_patches placeholders
+    spliced, each ending in the worker's named refusal).  Logs ms an image (through the request plane, and the tower
     alone by CUDA events) against the FLOP bound (products over 989
     TFLOP/s, the fp32 attention over 67), and the K1/K3 launches of the
     phase (plain torch: 0 expected)."""
@@ -8812,12 +9499,18 @@ def check_encoder(device, card: str, cfg=None) -> dict:
     rng = np.random.default_rng(11)
     images = [rng.random((cfg.image_size, cfg.image_size, 3),
                          dtype=np.float32) for _ in range(ENCODER_IMAGES)]
+    # one more goes through the frontend only (a tower call, then a cache
+    # hit), at half the side: a chat body stays under the server's 1 MiB
+    # (aiohttp's client_max_size), and the encoder resizes it
+    hop_image = rng.random((cfg.image_size // 2, cfg.image_size // 2, 3),
+                           dtype=np.float32)
     uris = []
-    for img in images:
+    for img in [*images, hop_image]:
         buf = io.BytesIO()
         np.save(buf, img)
         uris.append("data:application/x-npy;base64,"
                     + base64.b64encode(buf.getvalue()).decode())
+    uris, hop_uri = uris[:-1], uris[-1]
     hashes = [media_hash(u.partition(",")[2].encode()) for u in uris]
     calls = [0]
     inner = enc.encode
@@ -8849,7 +9542,11 @@ def check_encoder(device, card: str, cfg=None) -> dict:
                          "items": [{"media_hash": h, "data_uri": u}]})]
                     ms.append((time.perf_counter() - t0) * 1e3)
                 passes.append((frames, ms, calls[0] - c0))
-            return passes, dict(worker.metrics)
+            m0 = dict(worker.metrics)
+            hop = await _encoder_hop_http(rt, device, hop_uri, calls)
+            hop["cache_hits"] = worker.metrics["cache_hits"] \
+                - m0["cache_hits"]
+            return passes, m0, hop
         finally:
             await client.close()
             await worker.close()
@@ -8857,7 +9554,7 @@ def check_encoder(device, card: str, cfg=None) -> dict:
 
     for fn in used:
         fn.launches = 0
-    passes, metrics = asyncio.run(run())
+    passes, metrics, hop = asyncio.run(run())
     launches = {fn.__name__: fn.launches for fn in used}
     (first, ms1, tower1), (second, ms2, tower2) = passes
     enc32 = VitEncoder(dataclasses.replace(cfg, dtype=torch.float32),
@@ -8907,9 +9604,85 @@ def check_encoder(device, card: str, cfg=None) -> dict:
     if tower2 or not all(f["cached"] for f in second) \
             or metrics["cache_hits"] != ENCODER_IMAGES:
         raise SystemExit("encoder: the repeat was not all cache hits")
+    log(f"encoder hop through the port's frontend ({card}): two image chats "
+        f"answered {hop['status']} ({hop['error']!r}); tower calls "
+        f"{hop['tower_calls']}, encoder cache hits {hop['cache_hits']}; "
+        f"placeholder tokens spliced {hop['spliced']}; hop ms "
+        f"{[round(m, 2) for m in hop['hop_ms']]} against the request "
+        f"plane's {round(ms1[0], 2)} (first pass) and {round(ms2[0], 2)} "
+        f"(repeat)")
+    if hop["status"] != [500, 500] or any(
+            "multimodal inputs" not in e for e in hop["error"]) \
+            or hop["tower_calls"] != [1, 0] or hop["cache_hits"] != 1 \
+            or hop["spliced"] != [cfg.n_patches] * 2:
+        raise SystemExit("encoder: the image chats through the frontend did "
+                         "not reach the encoder, hit its cache, splice "
+                         "n_patches placeholders and end in the worker's "
+                         "named refusal")
     return {"err": max(errs), "fault": min(faults), "ms": ms1,
             "repeat_ms": ms2, "tower_ms": tower_ms, "bound_ms": bound_ms,
-            "launches": launches}
+            "launches": launches, "hop_ms": hop["hop_ms"]}
+
+
+# the LLM worker behind the encoder hop: a one-layer model of the llava
+# name on the card (its engine refuses the spliced embeddings before any
+# forward, ROADMAP Queue 3 item 9, so its size does not matter)
+HOP_LLM = dict(name="llava-smoke-llm", vocab_size=4096, d_model=256,
+               n_layers=1, n_heads=4, n_kv_heads=1, head_dim=64, ffn_dim=512)
+
+
+async def _encoder_hop_http(rt, device, uri: str, calls: list) -> dict:
+    """Two chats with the same image (`uri`) through the port's frontend
+    on the encoder phase's runtime, in front of a HOP_LLM worker named as
+    the encoder's model: the EncoderHop encodes (a tower call), then
+    finds the image in the encoder's cache; each request ends in the
+    worker's refusal.  Returns the statuses, errors, tower calls, the
+    spliced placeholder counts and each hop's ms."""
+    from dynamo_tpu_torch.engine import EngineConfig, TorchEngineWorker
+    from dynamo_tpu_torch.models.llama import LlamaConfig
+
+    llm = await TorchEngineWorker(rt, EngineConfig(
+        model_config=LlamaConfig(dtype=torch.bfloat16, **HOP_LLM),
+        model_name="llava-smoke", block_size=16, num_blocks=256,
+        max_blocks_per_seq=128, max_num_seqs=2, warmup=False),
+        device=device).start()
+    fe = None
+    out = {"status": [], "error": [], "tower_calls": [], "hop_ms": [],
+           "spliced": []}
+    try:
+        fe = await _Frontend.attach(rt, encoder=True)
+        hop = fe.pipeline.encoder
+        inner = hop.encode_and_attach
+
+        async def timed(req, token=None):
+            t = time.perf_counter()
+            try:
+                got = await inner(req, token=token)
+            finally:
+                out["hop_ms"].append((time.perf_counter() - t) * 1e3)
+            out["spliced"].append(len(got.token_ids) - len(req.token_ids))
+            return got
+
+        hop.encode_and_attach = timed
+        body = {"model": fe.model, "max_tokens": 4, "messages": [
+            {"role": "user", "content": [
+                {"type": "text", "text": "what is in "},
+                {"type": "image_url", "image_url": {"url": uri}}]}]}
+        for _ in range(2):
+            c0 = calls[0]
+            r = await fe.http.request("POST", "/v1/chat/completions",
+                                      json=body)
+            out["status"].append(r.status)
+            out["error"].append(r.json().get("error", {}).get("message", ""))
+            out["tower_calls"].append(calls[0] - c0)
+    finally:
+        if fe is not None:
+            left = await fe.close()
+            if left:
+                raise SystemExit(f"encoder hop: close() left tasks {left}")
+        await llm.close()
+        llm.engine.kv = None
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -11127,6 +11900,14 @@ def main() -> int:
     import jinja2
 
     log(f"jinja2 {jinja2.__version__} (the frontend's chat templates)")
+    # the KServe gRPC service (frontend/kserve.py, not ported) needs both
+    for name in ("grpc", "google.protobuf"):
+        try:
+            mod = __import__(name, fromlist=["__version__"])
+            log(f"{name} imports: version "
+                f"{getattr(mod, '__version__', 'unknown')}")
+        except ImportError as e:
+            log(f"{name} does not import: {e}")
     from dynamo_tpu_torch.models.llama import PRESETS
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -11493,6 +12274,10 @@ def main() -> int:
         k["checkpoint_launches"] = ckpt["launches"].get(k["name"], 0)
         (k["disagg_prefill_launches"],
          k["disagg_decode_launches"]) = disagg["launches"][k["name"]]
+        # the same pair behind the port's frontend, always-disagg:
+        # [prefill worker's, decode worker's]
+        k["frontend_disagg_launches"] = list(
+            disagg["frontend_launches"].get(k["name"], (0, 0)))
         (k["disagg_ipc_prefill_launches"],
          k["disagg_ipc_decode_launches"]) = ipc["launches"].get(k["name"],
                                                                 (0, 0))
@@ -11530,6 +12315,7 @@ def main() -> int:
             mhx["launches"][r].get(k["name"], 0) for r in ("rank0", "rank1")]
     for k in dma:  # the microbench is on no serving path
         k["disagg_prefill_launches"] = k["disagg_decode_launches"] = 0
+        k["frontend_disagg_launches"] = [0, 0]
         k["disagg_ipc_prefill_launches"] = k["disagg_ipc_decode_launches"] = 0
         k["kvbm_launches"] = k["spec_launches"] = k["spec_draft_launches"] = 0
         k["lora_launches"] = k["guided_launches"] = k["moe_launches"] = 0

@@ -1,6 +1,6 @@
-"""Disaggregated prefill/decode: the KV transfer protocol (transfer.py)
-and the in-process broker (broker.py), copies of dynamo_tpu/disagg/.
-The frontend's PrefillOrchestrator stays the JAX package's."""
+"""Disaggregated prefill/decode: the KV transfer protocol (transfer.py),
+the in-process broker (broker.py) and the frontend's
+PrefillOrchestrator (prefill_router.py), copies of dynamo_tpu/disagg/."""
 
 from .transfer import (
     DEFAULT_CHUNK_BYTES,

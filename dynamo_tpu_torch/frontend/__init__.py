@@ -1,9 +1,13 @@
-"""The port's OpenAI frontend, copied from dynamo_tpu/frontend/ for the
-aggregated path: `service.py` (HttpService on runtime/http_server.py,
-ModelManager, ModelWatcher), `pipeline.py` (migration, detokenization,
-stop strings), `preprocessor.py` (chat templates on jinja2),
-`parsers.py`, `request_trace.py`, `affinity.py` (session headers) and
-`tokenizer.py`, which the worker's guided decoding also uses.  Run it
+"""The port's OpenAI frontend, copied from dynamo_tpu/frontend/:
+`service.py` (HttpService on runtime/http_server.py, ModelManager,
+ModelWatcher with the prefill, encoder and decode roles),
+`pipeline.py` (the encoder and prefill hops, migration,
+detokenization, stop strings), `preprocessor.py` (chat templates on
+jinja2), `parsers.py`, `request_trace.py`, `affinity.py` (session
+headers, the AffinityCoordinator and SessionAffinityRouter),
+`anthropic.py` (/v1/messages), `openai_extra.py` (Responses, Files,
+Batches) and `tokenizer.py`, which the worker's guided decoding also
+uses.  The KServe gRPC service (`--grpc-port`) is not ported.  Run it
 with `python -m dynamo_tpu_torch.frontend`.  The modules are imported
 where they are used, so a worker that needs only the tokenizer loads
 no HTTP code."""

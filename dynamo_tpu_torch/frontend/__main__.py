@@ -2,13 +2,14 @@
 preprocessor and router in one process, with no device.
 
 A copy of dynamo_tpu/frontend/__main__.py: it takes every flag of the
-JAX frontend's CLI.  The flags of what is not ported yet exit 2 with a
-message naming ROADMAP: `--grpc-port` non-zero (the KServe gRPC
-service), `--always-disagg` (the prefill orchestrator), a
-`--session-affinity-ttl` of a second or more (the affinity
-coordinator) and `--pool-scoped` (pool scoping).  Once serving it
-prints `ready port=<bound port>`; SIGTERM or SIGINT closes the service,
-the watcher and the runtime, and the process exits 0.
+JAX frontend's CLI.  Conditional disaggregation (`--disagg-min-isl`,
+`--disagg-ratio`, `--always-disagg`), sticky sessions
+(`--session-affinity-ttl`) and pool scoping (`--pool-scoped`) configure
+the ModelWatcher as JAX's CLI does.  Only `--grpc-port` non-zero (the
+KServe gRPC service) is not ported: it exits 2 with a message naming
+ROADMAP.  Once serving it prints `ready port=<bound port>`; SIGTERM or
+SIGINT closes the service, the watcher and the runtime, and the process
+exits 0.
 """
 
 import argparse
@@ -34,8 +35,7 @@ def build_args() -> argparse.ArgumentParser:
     p.add_argument("--busy-threshold", type=int, default=None)
     p.add_argument("--kv-overlap-score-weight", type=float, default=1.0)
     p.add_argument("--router-temperature", type=float, default=0.0)
-    # conditional disagg thresholds: taken, and unused until the prefill
-    # orchestrator is ported
+    # conditional disagg thresholds (ref: conditional_disagg.rs:11-18)
     p.add_argument("--disagg-min-isl", type=int, default=2048)
     p.add_argument("--disagg-ratio", type=float, default=0.7)
     p.add_argument("--always-disagg", action="store_true")
@@ -46,7 +46,7 @@ def build_args() -> argparse.ArgumentParser:
         "--session-affinity-ttl", type=float,
         default=float(os.environ.get("DYN_SESSION_AFFINITY_TTL", 0)) or None,
         help="seconds an idle agent session stays pinned to its worker "
-             "(0/unset disables sticky sessions; not ported yet)")
+             "(0/unset disables sticky sessions)")
     p.add_argument("--slo-ttft-ms", type=float, default=None,
                    help="TTFT target in ms: a request is 'good' only if "
                         "its first token beat this (goodput/burn-rate "
@@ -59,7 +59,7 @@ def build_args() -> argparse.ArgumentParser:
                         "burn-rate error budget derives from")
     p.add_argument("--pool-scoped", action="store_true",
                    help="serve only models in this process's namespace "
-                        "(DYN_NAMESPACE; not ported yet)")
+                        "(DYN_NAMESPACE) — the pool-frontend contract")
     p.add_argument("--advertise", action="store_true",
                    help="register this frontend in discovery even "
                         "without a system-status port, so the global "
@@ -72,15 +72,6 @@ def unported(args) -> list:
     out = []
     if args.grpc_port:
         out.append("--grpc-port (frontend/kserve.py)")
-    if args.always_disagg:
-        out.append("--always-disagg (disagg/prefill_router.py)")
-    # "0 disables", and a sub-second TTL is normalized to off as in JAX
-    if args.session_affinity_ttl is not None \
-            and args.session_affinity_ttl >= 1.0:
-        out.append("--session-affinity-ttl (frontend/affinity.py's "
-                   "coordinator)")
-    if args.pool_scoped:
-        out.append("--pool-scoped (global_router/)")
     return out
 
 
@@ -105,8 +96,24 @@ async def main(args) -> None:
             overlap_score_weight=args.kv_overlap_score_weight,
             temperature=args.router_temperature,
         )
+    from ..disagg.prefill_router import ConditionalDisaggConfig
+
+    disagg_config = ConditionalDisaggConfig(
+        min_effective_isl=args.disagg_min_isl,
+        min_effective_ratio=args.disagg_ratio,
+        always_remote=args.always_disagg,
+    )
+    # "0 disables": normalize sub-second/zero TTLs to off here, where the
+    # error is visible, instead of raising per-MDC inside the watcher loop
+    affinity_ttl = args.session_affinity_ttl
+    if affinity_ttl is not None and affinity_ttl < 1.0:
+        affinity_ttl = None
     watcher = await ModelWatcher(
-        rt, manager, router_mode=mode, make_route=make_route).start()
+        rt, manager, router_mode=mode, make_route=make_route,
+        disagg_config=disagg_config,
+        session_affinity_ttl=affinity_ttl,
+        namespaces={rt.config.namespace} if args.pool_scoped else None,
+    ).start()
     from ..obs.slo import SloConfig
 
     service = await HttpService(

@@ -1,9 +1,9 @@
 """Per-model request pipeline: routing + migration + detokenization.
 
-A copy of dynamo_tpu/frontend/pipeline.py for the aggregated path: the
-prefill orchestrator and the encoder hop a JAX pipeline may hold are not
-ported yet (ROADMAP, Queue 1), so a multimodal request that still
-carries its media raises instead of reaching a worker.
+A copy of dynamo_tpu/frontend/pipeline.py: a pipeline may hold the
+model's encoder hop (multimodal/hop.py) and prefill orchestrator
+(disagg/prefill_router.py), which the ModelWatcher attaches as the
+fleets' cards appear.
 
 Ref: lib/llm/src/entrypoint/input/common.rs:499-522 — the assembled chain
 SegmentSource → OpenAIPreprocessor → Migration → Backend(detok) → router →
@@ -16,6 +16,7 @@ from __future__ import annotations
 import asyncio
 import logging
 import os
+import time
 from dataclasses import dataclass, replace
 from typing import AsyncIterator, Optional
 
@@ -221,17 +222,20 @@ class ChatDelta:
 
 
 class ModelPipeline:
-    """Everything the HTTP layer needs to serve one model (aggregated:
-    no prefill orchestrator, no encoder hop)."""
+    """Everything the HTTP layer needs to serve one model."""
 
     def __init__(self, mdc: ModelDeploymentCard, client: Client,
-                 route=None):
+                 route=None, prefill=None, encoder=None):
         self.mdc = mdc
         self.preprocessor = OpenAIPreprocessor(mdc)
         self.client = client
         self.migration = MigrationOperator(
             client, migration_limit=mdc.migration_limit, route=route
         )
+        # disaggregation: PrefillOrchestrator when a prefill fleet exists
+        self.prefill = prefill
+        # multimodal: EncoderHop when an encoder fleet exists
+        self.encoder = encoder
         # /v1/embeddings: lazily-created client on the fleet's `embed`
         # endpoint (HttpService.h_embeddings); the lock serializes the
         # first-call creation so racers don't leak clients
@@ -244,10 +248,49 @@ class ModelPipeline:
         tracker=None,
     ) -> AsyncIterator[ChatDelta]:
         """Engine stream → detokenized text deltas with stop-string handling."""
-        if any("data_uri" in m for m in request.multimodal or []):
-            raise EngineError(
-                "request has unencoded multimodal items: the encoder hop "
-                "is not ported yet (ROADMAP, Queue 1)")
+        unencoded = any("data_uri" in m for m in request.multimodal or [])
+        if unencoded:
+            # (already-resolved items pass through: the HTTP layer encodes
+            # before usage accounting; this hop covers direct callers)
+            if self.encoder is None:
+                raise EngineError(
+                    "request has unencoded multimodal items but no encoder "
+                    "fleet is attached for this model")
+            # encode BEFORE the prefill hop: placeholder tokens must be in
+            # token_ids when conditional disagg measures prompt length
+            request = await self.encoder.encode_and_attach(request,
+                                                           token=token)
+        if self.prefill is not None:
+            t_hop = time.monotonic()
+            request = await self.prefill.maybe_prefill(request, token=token)
+            if request.disaggregated_params:
+                # the prefill worker's forensic stamp rode the transfer
+                # params (prefill_router.py); popped HERE so it lands on
+                # the prefill_done hop instead of riding the wire to the
+                # decode worker, which has its own stamp
+                prefill_stamp = request.disaggregated_params.pop(
+                    "prefill_forensic", None)
+            if tracker is not None and request.disaggregated_params:
+                # a remote prefill actually ran: IT was the first
+                # worker dispatch, so queue time ends where the hop
+                # began (backdated — stamping after would absorb the
+                # whole prefill as phantom admission wait).  A request
+                # conditional disagg kept local stamps via on_dispatch,
+                # keeping the decode routing wait in queue_ms.  The
+                # forensics hops bracket the hop itself: open backdated
+                # to the dispatch, done now — the partition's `prefill`
+                # phase is exactly this interval, and first_token after
+                # the decode dispatch reads as `transfer`.
+                tracker.hop("prefill_open", at=t_hop,
+                            **({"worker": request.disaggregated_params
+                                .get("instance_id")}
+                               if request.disaggregated_params
+                               .get("instance_id") else {}))
+                tracker.hop("prefill_done", **(prefill_stamp or {}))
+                tracker.mark_dispatching(at=t_hop)
+                if request.disaggregated_params.get("instance_id"):
+                    tracker.on_prefill_worker(
+                        request.disaggregated_params["instance_id"])
         detok = self.preprocessor.tokenizer.make_detokenizer()
         stops = request.stop.stop or []
         pending = ""  # holdback buffer for partial stop-string matches

@@ -2,8 +2,7 @@
 
 A copy of dynamo_tpu/frontend/preprocessor.py.  Its multimodal branch
 hashes media with the port's multimodal/encoder.py `media_hash`; the
-encoder hop that consumes the descriptors is not ported yet (ROADMAP,
-Queue 1), and the frontend refuses such requests before routing.
+frontend's encoder hop (multimodal/hop.py) consumes the descriptors.
 
 Ref: lib/llm/src/preprocessor.rs:286 (OpenAIPreprocessor) — minijinja chat
 templating + HF tokenization producing a PreprocessedRequest.  jinja2 is the

@@ -1,8 +1,8 @@
 """Per-request trace records: who served it, how fast, and why it ended.
 
 A copy of dynamo_tpu/frontend/request_trace.py: the same
-`dynamo.request.trace.v1` records and hop timelines (obs/forensics.py);
-the tail-exemplar reservoir a JAX frontend also feeds is not ported.
+`dynamo.request.trace.v1` records and hop timelines, and the same feed
+of the tail-exemplar reservoir (obs/forensics.py ForensicsPlane).
 
 Ref: lib/llm/src/request_trace/{types.rs,record.rs,sink.rs,config.rs} —
 one `request_end` record per request in a stable JSONL schema

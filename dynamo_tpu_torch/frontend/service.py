@@ -3,18 +3,18 @@
 A copy of dynamo_tpu/frontend/service.py on the port's own HTTP server
 (runtime/http_server.py) instead of aiohttp: the same routes
 (/v1/models, /v1/completions and /v1/chat/completions, streamed and
-unary, /v1/embeddings, /health, /metrics), status codes, JSON bodies,
-SSE events and `dynamo_frontend_*` metric families.
+unary, /v1/embeddings, /health, /metrics, the Anthropic family
+/v1/messages in frontend/anthropic.py, Responses, Files and Batches in
+frontend/openai_extra.py), status codes, JSON bodies, SSE events and
+`dynamo_frontend_*` metric families.
 
-This is the aggregated serving path.  Not ported yet (ROADMAP, Queue 1),
-and refused when asked for rather than skipped: a prefill orchestrator
-(`disagg_config`), session affinity's coordinator
-(`session_affinity_ttl`), pool scoping (`namespaces`), the Anthropic and
-Responses/Files/Batches routes (`/v1/messages`, `/v1/responses`, ...:
-404 here), and the tail-exemplar reservoir (`DYN_FORENSICS=1` raises).
-A worker card with `role: prefill` or `role: encoder` is logged and
-ignored, as a frontend without disaggregation would serve it: requests
-go to the model's aggregated (`both`/`decode`) workers.
+The ModelWatcher serves the three card roles as JAX's does: decode
+(`both`/`decode`) workers behind the model's route, a prefill fleet
+behind a PrefillOrchestrator (disagg/prefill_router.py) and an encoder
+fleet behind an EncoderHop (multimodal/hop.py); with a session-affinity
+TTL it wraps the route in a SessionAffinityRouter (frontend/affinity.py),
+and with `namespaces` it serves only those pools' cards.  The service
+keeps the forensics plane (obs/forensics.py) unless DYN_FORENSICS=0.
 """
 
 from __future__ import annotations
@@ -71,27 +71,28 @@ class ModelWatcher:
                  make_route=None, disagg_config=None,
                  session_affinity_ttl: Optional[float] = None,
                  namespaces: Optional[set] = None):
-        for what, value, item in (
-                ("disagg_config (the prefill orchestrator)", disagg_config,
-                 "disagg/prefill_router.py"),
-                ("session_affinity_ttl (the affinity coordinator)",
-                 session_affinity_ttl, "frontend/affinity.py's coordinator"),
-                ("namespaces (pool scoping)", namespaces,
-                 "global_router/")):
-            if value is not None:
-                raise NotImplementedError(
-                    f"ModelWatcher {what} is not ported yet (ROADMAP, "
-                    f"Queue 1: {item})")
         self.runtime = runtime
         self.manager = manager
         self.router_mode = router_mode
         # make_route(mdc) -> optional coroutine route(req, avoid) -> instance_id
         self.make_route = make_route
+        self.disagg_config = disagg_config
+        # sticky agent-session routing (ref session_affinity/): None = off
+        self.session_affinity_ttl = session_affinity_ttl
+        # pool scoping (global_router/): a pool frontend serves ONLY its
+        # own namespace's models; None = watch every namespace (the
+        # single-frontend deployments that predate pools)
+        self.namespaces = namespaces
         self._cancel = asyncio.Event()
         self._task: Optional[asyncio.Task] = None
         self._clients: Dict[str, Any] = {}        # model name -> client
         self._key_to_name: Dict[str, str] = {}    # discovery key -> model name
+        self._key_role: Dict[str, str] = {}       # discovery key -> role
         self._model_keys: Dict[str, set] = {}     # model name -> decode keys
+        self._prefill_keys: Dict[str, set] = {}   # model name -> prefill keys
+        self._prefill_orchs: Dict[str, Any] = {}  # model name -> orchestrator
+        self._encoder_keys: Dict[str, set] = {}   # model name -> encoder keys
+        self._encoder_hops: Dict[str, Any] = {}   # model name -> EncoderHop
 
     async def start(self) -> "ModelWatcher":
         if self._task is None:
@@ -106,6 +107,9 @@ class ModelWatcher:
                 try:
                     if ev.type == "put" and ev.value:
                         mdc = ModelDeploymentCard.from_dict(ev.value)
+                        if (self.namespaces is not None
+                                and mdc.namespace not in self.namespaces):
+                            continue
                         await self._add(ev.key, mdc)
                     elif ev.type == "delete":
                         await self._remove_by_key(ev.key)
@@ -115,24 +119,31 @@ class ModelWatcher:
             pass
 
     async def _add(self, key: str, mdc: ModelDeploymentCard) -> None:
-        role = mdc.runtime_config.get("role", "both")
-        if role in ("prefill", "encoder"):
-            logger.warning(
-                "ignoring %s card %s for model %s: this frontend serves "
-                "aggregated workers only (the prefill orchestrator and the "
-                "encoder hop are not ported yet; ROADMAP, Queue 1)",
-                role, key, mdc.name)
-            return
         self._key_to_name[key] = mdc.name
+        role = mdc.runtime_config.get("role", "both")
+        if role == "prefill":
+            self._key_role[key] = "prefill"
+            await self._add_prefill(key, mdc)
+            return
+        if role == "encoder":
+            self._key_role[key] = "encoder"
+            await self._add_encoder(key, mdc)
+            return
+        self._key_role[key] = "decode"
         self._model_keys.setdefault(mdc.name, set()).add(key)
         existing = self.manager.models.get(mdc.name)
         if existing is not None:
             if existing.mdc.to_dict() == mdc.to_dict():
                 return
             # MDC update (new template/tokenizer/limits): rebuild the
-            # pipeline but keep the existing endpoint client and route hook
+            # pipeline but keep the existing endpoint client, route hook,
+            # and prefill orchestrator (dropping prefill here would silently
+            # disable disaggregated serving until the prefill card republishes)
             self.manager.models[mdc.name] = ModelPipeline(
-                mdc, existing.client, route=existing.migration.route)
+                mdc, existing.client, route=existing.migration.route,
+                prefill=existing.prefill or self._prefill_orchs.get(mdc.name),
+                encoder=existing.encoder or self._encoder_hops.get(mdc.name),
+            )
             logger.info("model %s updated", mdc.name)
             return
         ep = (
@@ -144,11 +155,76 @@ class ModelWatcher:
         route = None
         if self.make_route is not None:
             route = await self.make_route(mdc, client)
-        self.manager.models[mdc.name] = ModelPipeline(mdc, client,
-                                                      route=route)
+        if self.session_affinity_ttl is not None:
+            from .affinity import AffinityCoordinator, SessionAffinityRouter
+
+            coord = AffinityCoordinator(
+                self.session_affinity_ttl,
+                metrics=self.runtime.metrics.scoped(component="frontend"),
+            ).start()
+            await coord.enable_replica_sync(self.runtime, mdc.namespace,
+                                            mdc.component)
+            route = SessionAffinityRouter(coord, client, inner=route)
+        self.manager.models[mdc.name] = ModelPipeline(
+            mdc, client, route=route,
+            prefill=self._prefill_orchs.get(mdc.name),
+            encoder=self._encoder_hops.get(mdc.name),
+        )
         self._clients[mdc.name] = client
         logger.info("model %s registered (endpoint %s/%s/%s)",
                     mdc.name, mdc.namespace, mdc.component, mdc.endpoint)
+
+    async def _add_prefill(self, key: str, mdc: ModelDeploymentCard) -> None:
+        """A prefill-fleet card: attach a PrefillOrchestrator to the model's
+        pipeline instead of serving it directly (ref: PrefillRouter)."""
+        from ..disagg.prefill_router import PrefillOrchestrator
+
+        self._prefill_keys.setdefault(mdc.name, set()).add(key)
+        if mdc.name in self._prefill_orchs:
+            return
+        ep = (
+            self.runtime.namespace(mdc.namespace)
+            .component(mdc.component)
+            .endpoint(mdc.endpoint)
+        )
+        pclient = await ep.client(RouterMode.ROUND_ROBIN).start()
+        orch = PrefillOrchestrator(
+            pclient, config=self.disagg_config,
+            decode_overlap_fn=self._make_overlap_fn(mdc.name),
+        )
+        self._prefill_orchs[mdc.name] = orch
+        pipeline = self.manager.models.get(mdc.name)
+        if pipeline is not None:
+            pipeline.prefill = orch
+        logger.info("prefill fleet attached for model %s (%s/%s)",
+                    mdc.name, mdc.namespace, mdc.component)
+
+    async def _add_encoder(self, key: str, mdc: ModelDeploymentCard) -> None:
+        """An encoder-fleet card: attach an EncoderHop to the model's
+        pipeline (ref: encoder_router.rs — the encode hop of
+        encode/prefill/decode disaggregation)."""
+        from ..multimodal.hop import EncoderHop
+
+        self._encoder_keys.setdefault(mdc.name, set()).add(key)
+        if mdc.name in self._encoder_hops:
+            return
+        ep = (
+            self.runtime.namespace(mdc.namespace)
+            .component(mdc.component)
+            .endpoint(mdc.endpoint)
+        )
+        eclient = await ep.client(RouterMode.ROUND_ROBIN).start()
+        hop = EncoderHop(
+            eclient,
+            image_token_id=int(
+                mdc.runtime_config.get("image_token_id", 0)),
+        )
+        self._encoder_hops[mdc.name] = hop
+        pipeline = self.manager.models.get(mdc.name)
+        if pipeline is not None:
+            pipeline.encoder = hop
+        logger.info("encoder fleet attached for model %s (%s/%s)",
+                    mdc.name, mdc.namespace, mdc.component)
 
     def _make_overlap_fn(self, name: str):
         """Effective-ISL input for conditional disagg: best decode-fleet
@@ -177,6 +253,37 @@ class ModelWatcher:
     async def _remove_by_key(self, key: str) -> None:
         name = self._key_to_name.pop(key, None)
         if name is None:
+            return
+        role = self._key_role.pop(key, "decode")
+        if role == "prefill":
+            pkeys = self._prefill_keys.get(name)
+            if pkeys is not None:
+                pkeys.discard(key)
+                if pkeys:
+                    return
+            self._prefill_keys.pop(name, None)
+            orch = self._prefill_orchs.pop(name, None)
+            pipeline = self.manager.models.get(name)
+            if pipeline is not None:
+                pipeline.prefill = None  # fall back to aggregated serving
+            if orch is not None:
+                await orch.close()
+            logger.info("prefill fleet for %s gone; serving aggregated", name)
+            return
+        if role == "encoder":
+            ekeys = self._encoder_keys.get(name)
+            if ekeys is not None:
+                ekeys.discard(key)
+                if ekeys:
+                    return
+            self._encoder_keys.pop(name, None)
+            hop = self._encoder_hops.pop(name, None)
+            pipeline = self.manager.models.get(name)
+            if pipeline is not None:
+                pipeline.encoder = None  # multimodal requests now fail fast
+            if hop is not None:
+                await hop.client.close()
+            logger.info("encoder fleet for %s gone", name)
             return
         keys = self._model_keys.get(name)
         if keys is not None:
@@ -209,6 +316,10 @@ class ModelWatcher:
             except asyncio.CancelledError:
                 pass
             self._task = None
+        for orch in self._prefill_orchs.values():
+            await orch.close()
+        for hop in self._encoder_hops.values():
+            await hop.client.close()
         for pipeline in self.manager.models.values():
             await self._close_route(pipeline)
         for client in self._clients.values():
@@ -281,18 +392,16 @@ class HttpService:
         from ..obs.slo import SloConfig, SloPlane
 
         self.slo_plane = SloPlane(m, slo or SloConfig())
-        # the hop timeline rides every request_end record as under JAX
-        # (DYN_FORENSICS=0 turns it off); the tail-exemplar reservoir
-        # that a JAX frontend also keeps is not ported
-        from ..obs.forensics import forensics_enabled, reservoir_requested
+        # forensics plane (obs/forensics.py): always-on tail-exemplar
+        # reservoir fed from RequestTracker.finish, served on the
+        # token-gated /debug/requests route (runtime/system_status.py).
+        # DYN_FORENSICS=0 disables BOTH the reservoir and per-request
+        # hop recording (timeline_on below).
+        from ..obs.forensics import ForensicsPlane, forensics_enabled
 
-        if reservoir_requested():
-            raise NotImplementedError(
-                "DYN_FORENSICS=1: the tail-exemplar reservoir "
-                "(obs/forensics.py ForensicsPlane, /debug/requests) is not "
-                "ported yet (ROADMAP, Queue 1); unset it or set it to 0")
-        self.forensics = None
-        self._timeline_on = forensics_enabled()
+        self.forensics = (ForensicsPlane(m,
+                                         slo_config=self.slo_plane.config)
+                          if forensics_enabled() else None)
         self.server = HttpServer(host, port)
         self.server.add_get("/v1/models", self.h_models)
         self.server.add_post("/v1/chat/completions", self.h_chat)
@@ -300,6 +409,16 @@ class HttpService:
         self.server.add_post("/v1/embeddings", self.h_embeddings)
         self.server.add_get("/health", self.h_health)
         self.server.add_get("/metrics", self.h_metrics)
+        # Anthropic Messages API (ref anthropic.rs): same pipelines,
+        # Anthropic request/SSE shapes
+        from .anthropic import AnthropicRoutes
+
+        AnthropicRoutes(self).mount(self.server)
+        # Responses + Files + Batches (ref openai.rs:2297,3112)
+        from .openai_extra import ExtraRoutes
+
+        self.extra = ExtraRoutes(self)
+        self.extra.mount(self.server)
 
     @property
     def bound_port(self) -> Optional[int]:
@@ -509,7 +628,7 @@ class HttpService:
         tracker = RequestTracker.from_headers(
             request.headers, req.request_id, model, self.trace_sink,
             slo=self.slo_plane, forensics=self.forensics,
-            timeline_on=self._timeline_on,
+            timeline_on=self.forensics is not None,
             session_id=req.session_id,
             endpoint="chat" if chat else "completions",
             input_tokens=len(req.token_ids))
@@ -525,12 +644,25 @@ class HttpService:
         # request's logs.  Bound just before the try whose finally
         # unbinds it — the encoder block below has early returns that
         # would otherwise leak the binding.
-        if req.multimodal:
-            # the JAX frontend encodes media here through its EncoderHop
-            tracker.finish(error="media encoding failed: no encoder hop")
-            return self._error(
-                502, "media encoding failed: the encoder hop is not ported "
-                     "yet (ROADMAP, Queue 1)", "server_error")
+        if req.multimodal and pipeline.encoder is not None:
+            # encode here (not inside the pipeline) so usage accounting
+            # and conditional disagg see the spliced placeholder tokens
+            try:
+                req = await pipeline.encoder.encode_and_attach(req)
+            except Exception as e:
+                logger.exception("encoder hop failed")
+                tracker.finish(error=f"media encoding failed: {e}")
+                return self._error(502, f"media encoding failed: {e}",
+                                   "server_error")
+            if len(req.token_ids) >= pipeline.mdc.context_length:
+                # re-validate: the splice can push a prompt that passed
+                # preprocessing past the context window
+                tracker.finish(error="context length exceeded after "
+                                     "multimodal splice")
+                return self._error(
+                    400, f"prompt is {len(req.token_ids)} tokens with "
+                         f"image placeholders, exceeding the model's "
+                         f"context length of {pipeline.mdc.context_length}")
 
         # output parsers (ref preprocessor.rs stream parsers): tool-call
         # extraction when the request advertises tools; reasoning spans
@@ -852,6 +984,12 @@ class HttpService:
                 routers[name] = fn()
         if routers:
             state["router"] = routers
+        if self.forensics is not None:
+            state["tail"] = {
+                **self.forensics.counts(),
+                "realized_overlap":
+                    self.forensics.realized_overlap()["ratio"],
+            }
         return state
 
     # -- lifecycle --------------------------------------------------------
@@ -870,6 +1008,11 @@ class HttpService:
         self._fleet_instance_id = new_instance_id()
         rt.register_debug_source(f"frontend:{self._fleet_instance_id}",
                                  self.debug_state)
+        if self.forensics is not None:
+            # tail-exemplar dump on the token-gated /debug/requests
+            # route (runtime/system_status.py)
+            rt.register_forensics_source(
+                f"frontend:{self._fleet_instance_id}", self.forensics.dump)
         self._fleet_instance = None
         advertise = (self.advertise if self.advertise is not None
                      else bool(rt.system_address))
@@ -910,6 +1053,8 @@ class HttpService:
         if getattr(self, "_fleet_instance_id", None) is not None:
             self.runtime.unregister_debug_source(
                 f"frontend:{self._fleet_instance_id}")
+            self.runtime.unregister_forensics_source(
+                f"frontend:{self._fleet_instance_id}")
         if getattr(self, "_fleet_instance", None) is not None:
             try:
                 await self.runtime.discovery.delete(
@@ -918,6 +1063,9 @@ class HttpService:
                 logger.warning("fleet instance deregistration failed",
                                exc_info=True)
             self._fleet_instance = None
+        # cancel in-flight batch jobs BEFORE tearing the pipelines down
+        # (a running batch would keep calling handlers on a dead service)
+        await self.extra.close()
         if self._slo_task is not None:
             self._slo_task.cancel()
             try:

@@ -3,10 +3,10 @@
 The port of dynamo_tpu/multimodal/'s worker side: EncoderWorker serves
 an `encode` endpoint on the request plane (media in, embeddings out,
 LRU-cached by media hash; multimodal/worker.py) with the ViT tower or a
-mock (multimodal/encoder.py).  The JAX frontend's EncoderHop routes
-encode requests to it by media hash and splices the placeholder tokens;
-the port has no frontend, so the hop stays in the JAX package, and the
-port's engine still refuses multimodal requests (ROADMAP.md).
+mock (multimodal/encoder.py).  The frontend's EncoderHop
+(multimodal/hop.py) routes encode requests to it by media hash and
+splices the placeholder tokens; the port's engine still refuses
+requests that carry resolved embeddings (ROADMAP.md, Queue 3 item 9).
 `python -m dynamo_tpu_torch.multimodal` runs one worker.
 """
 
@@ -17,10 +17,12 @@ from .encoder import (
     VitEncoder,
     media_hash,
 )
+from .hop import EncoderHop
 from .worker import EncoderWorker
 
 __all__ = [
     "EmbeddingCache",
+    "EncoderHop",
     "EncoderWorker",
     "MockVisionEncoder",
     "VisionConfig",

@@ -1,15 +1,17 @@
 """KV indexer: which worker has which blocks, and prefix-overlap queries.
 
-A copy of dynamo_tpu/router/indexer.py without its native engine: the
-C++ indexer (native/indexer.cc) is not built by the port yet, so `auto`
-resolves to the Python indexer and `native` raises (ROADMAP, Queue 1).
+A copy of dynamo_tpu/router/indexer.py.  Its native engine is the port's
+own copy of the C++ indexer (csrc/kv_indexer.cc, built and bound by
+router/native_indexer.py).
 
 Ref: lib/kv-router/src/indexer/ (RadixTree :49, ConcurrentRadixTree :118,
 KvIndexer kv_indexer.rs:228).  Because PositionalLineageHashes chain their
 whole prefix, a radix-tree prefix walk is equivalent to a front-to-back
 membership walk over a flat hash→owners map — so the index is a hash map and
 per-worker ownership is a bitmask, giving O(prefix_len) matches with tiny
-constants.
+constants.  A C++ implementation with the same semantics
+(csrc/kv_indexer.cc, loaded via ctypes) replaces this pure-Python one
+when built; both are cross-checked by tests/test_torch_native_indexer.py.
 
 Event-stream integrity mirrors the reference (router-design.md:186-195):
 per-worker monotonically increasing event ids; on a gap the caller replays
@@ -112,21 +114,21 @@ def indexer_impl(ix) -> str:
     return "py" if isinstance(base, PyKvIndexer) else "native"
 
 
-# what `auto` resolves to until the port builds the native indexer
-AUTO_IMPL = "py"
-
-
 def make_indexer(impl: Optional[str] = None):
-    """The indexer `impl` (or env DYN_INDEXER) names.
+    """C++ indexer when built (the default), Python fallback otherwise.
 
-    "py" and "auto" give the Python indexer ("auto" prefers the native
-    one, which the port does not build yet); "native" raises instead of
-    silently degrading."""
+    `impl` (or env DYN_INDEXER) pins the choice: "native" builds the
+    port's library when it is missing and raises with the compiler's
+    output if that fails instead of silently degrading, "py" forces the
+    reference implementation (parity tests, perf A/B), "auto" takes the
+    native indexer when its library is already built."""
     impl = impl or os.environ.get("DYN_INDEXER", "auto")
     if impl not in ("auto", "py", "native"):
         raise ValueError(f"DYN_INDEXER={impl!r}: expected auto|py|native")
-    if impl == "native":
-        raise NotImplementedError(
-            "DYN_INDEXER=native: the C++ indexer is not ported yet "
-            "(ROADMAP, Queue 1: the native indexer); use py or auto")
+    if impl == "py":
+        return PyKvIndexer()
+    from . import native_indexer
+
+    if impl == "native" or native_indexer.is_built():
+        return native_indexer.NativeKvIndexer()
     return PyKvIndexer()

@@ -10,6 +10,15 @@ uses of aiohttp, under the same names, and nothing more:
     the query string, and bodies framed by `Content-Length` or chunked
     transfer coding, up to aiohttp's default `client_max_size` of 1 MiB
     (413 past it); `Expect: 100-continue` is answered;
+  * routes by method (GET, POST, DELETE) and path, where a path may hold
+    `{name}` segments matched as aiohttp's resource routes match them
+    (one segment, no `/`) and read back from `request.match_info`;
+  * streamed request bodies for routes added with `stream=True`: the
+    handler reads the body as it arrives (`request.content.read`,
+    `request.multipart()`, a multipart/form-data reader whose parts
+    yield bounded chunks, as aiohttp's `BodyPartReader.read_chunk`), so
+    an upload is never held whole in memory; `request.json()` there
+    still reads at most 1 MiB;
   * `Response` / `json_response` (`application/json; charset=utf-8`),
     and aiohttp's plain-text 404, 405, 413 and 500 for unknown routes,
     wrong methods, oversized bodies and handlers that raise;
@@ -31,7 +40,7 @@ uses of aiohttp, under the same names, and nothing more:
     the streams still open.
 
 A handler is `async def handler(request) -> Response | StreamResponse`,
-registered with `add_get` / `add_post`.
+registered with `add_get` / `add_post` / `add_delete`.
 """
 
 from __future__ import annotations
@@ -39,10 +48,21 @@ from __future__ import annotations
 import asyncio
 import json as _json
 import logging
+import re
 from collections.abc import Mapping
 from http import HTTPStatus
-from typing import Awaitable, Callable, Dict, Iterator, Optional, Tuple, Union
-from urllib.parse import parse_qs, urlsplit
+from typing import (
+    AsyncIterator,
+    Awaitable,
+    Callable,
+    Dict,
+    Iterator,
+    List,
+    Optional,
+    Tuple,
+    Union,
+)
+from urllib.parse import parse_qs, unquote, urlsplit
 
 logger = logging.getLogger(__name__)
 
@@ -78,9 +98,20 @@ class Headers(Mapping):
         return len(self._d)
 
 
+class HttpError(Exception):
+    """Raised inside a handler to answer with aiohttp's plain-text error
+    for `status` (a streamed body past the size cap: 413)."""
+
+    def __init__(self, status: int):
+        super().__init__(status)
+        self.status = status
+
+
 class Request:
-    """One request: method, path, query (first value per key), headers
-    and the whole body."""
+    """One request: method, path, query (first value per key), headers,
+    the route's path parameters (`match_info`) and the body: whole in
+    `body`, or, on a route added with `stream=True`, read from `content`
+    as it arrives."""
 
     def __init__(self, method: str, target: str, headers: Headers,
                  body: bytes, conn: "_Conn"):
@@ -91,14 +122,46 @@ class Request:
                       parse_qs(parts.query, keep_blank_values=True).items()}
         self.headers = headers
         self.body = body
+        self.match_info: Dict[str, str] = {}
+        self.content: Optional[_BodyReader] = None
         self._conn = conn
+        self._path_known = False  # some route has this path (405, not 404)
+
+    @property
+    def content_type(self) -> str:
+        """The media type of the body, parameters aside (aiohttp's)."""
+        return self.headers.get("content-type", "").split(";", 1)[0] \
+            .strip().lower()
+
+    async def read(self) -> bytes:
+        """The whole body (a streamed one up to MAX_BODY_BYTES: HttpError
+        413 past it)."""
+        if self.content is not None:
+            data = bytearray()
+            while True:
+                chunk = await self.content.read(_READ_SIZE)
+                if not chunk:
+                    break
+                data += chunk
+                if len(data) > MAX_BODY_BYTES:
+                    raise HttpError(413)
+            self.body, self.content = bytes(data), None
+        return self.body
 
     async def text(self) -> str:
-        return self.body.decode("utf-8")
+        return (await self.read()).decode("utf-8")
 
     async def json(self):
         """The body as JSON; json.JSONDecodeError when it is not."""
         return _json.loads(await self.text())
+
+    async def multipart(self) -> "MultipartReader":
+        """A multipart/form-data reader over the streamed body."""
+        m = re.search(r'boundary="?([^";]+)"?',
+                      self.headers.get("content-type", ""))
+        if m is None or self.content is None:
+            raise HttpError(400)
+        return MultipartReader(self.content, m.group(1).encode("latin-1"))
 
 
 class Response:
@@ -174,6 +237,194 @@ class StreamResponse:
 
 
 Handler = Callable[[Request], Awaitable[Union[Response, StreamResponse]]]
+
+
+class _BodyReader:
+    """A request body read from its connection as it arrives, framed by
+    Content-Length or chunked transfer coding; `read` gives b"" at its
+    end and raises ConnectionError when the client goes away first."""
+
+    def __init__(self, conn: "_Conn", length: int, chunked: bool):
+        self._conn = conn
+        self._left = length       # bytes of the body (or of the chunk)
+        self._chunked = chunked
+        self.done = not chunked and length == 0
+
+    async def _fill(self) -> None:
+        await asyncio.wait_for(self._conn._fill(), BODY_TIMEOUT_S)
+
+    async def read(self, n: int = _READ_SIZE) -> bytes:
+        conn = self._conn
+        if self.done:
+            return b""
+        if self._chunked and self._left == 0:
+            line = await asyncio.wait_for(conn.read_line(), BODY_TIMEOUT_S)
+            try:
+                size = int(line.split(b";", 1)[0].strip(), 16)
+            except ValueError:
+                raise ConnectionError("malformed chunked body") from None
+            if size == 0:
+                while await asyncio.wait_for(conn.read_line(),
+                                             BODY_TIMEOUT_S):
+                    pass  # trailer fields
+                self.done = True
+                return b""
+            self._left = size
+        if not conn.buf:
+            await self._fill()
+        k = min(n, self._left, len(conn.buf))
+        data = bytes(conn.buf[:k])
+        del conn.buf[:k]
+        self._left -= k
+        if self._left == 0:
+            if self._chunked:
+                await asyncio.wait_for(conn.read_line(), BODY_TIMEOUT_S)
+            else:
+                self.done = True
+        return data
+
+
+class BodyPart:
+    """One part of a multipart/form-data body: `name` and `filename`
+    from its Content-Disposition, `headers`, and `read_chunk`, which
+    gives the part's bytes in chunks of at most `size` and b"" at its
+    end."""
+
+    def __init__(self, reader: "MultipartReader", headers: Headers):
+        self._reader = reader
+        self.headers = headers
+        disp = headers.get("content-disposition", "")
+        params = dict(
+            (k.lower(), v) for k, v in re.findall(
+                r';\s*([\w*-]+)="?((?<=")[^"]*|[^";]*)"?', disp))
+        self.name: Optional[str] = params.get("name")
+        self.filename: Optional[str] = params.get("filename")
+        self.at_eof = False
+
+    async def read_chunk(self, size: int = 8192) -> bytes:
+        if self.at_eof:
+            return b""
+        data = await self._reader._part_bytes(size)
+        if not data:
+            self.at_eof = True
+        return data
+
+
+class MultipartReader:
+    """multipart/form-data over a streamed body (RFC 7578): `async for
+    part in reader` yields each BodyPart in order; a part not read to its
+    end is skipped when the next is asked for.  Only a delimiter's length
+    of bytes is held back while a part streams.  A body that ends before
+    its closing delimiter raises ValueError."""
+
+    def __init__(self, content: _BodyReader, boundary: bytes):
+        self._content = content
+        self._dash = b"--" + boundary
+        self._delim = b"\r\n" + self._dash
+        self._buf = bytearray()
+        self._part: Optional[BodyPart] = None
+        self._started = False
+        self._closed = False
+
+    async def _more(self) -> None:
+        data = await self._content.read(_READ_SIZE)
+        if not data:
+            raise ValueError("multipart body ended before its closing "
+                             "delimiter")
+        self._buf += data
+
+    async def _part_bytes(self, size: int) -> bytes:
+        """Up to `size` bytes of the open part; b"" at its delimiter,
+        which is consumed."""
+        while True:
+            i = self._buf.find(self._delim)
+            if i == 0:
+                del self._buf[:len(self._delim)]
+                return b""
+            safe = i if i > 0 else len(self._buf) - len(self._delim) + 1
+            if safe > 0:
+                k = min(size, safe)
+                data = bytes(self._buf[:k])
+                del self._buf[:k]
+                return data
+            await self._more()
+
+    async def _line(self) -> bytes:
+        while True:
+            i = self._buf.find(b"\r\n")
+            if i >= 0:
+                line = bytes(self._buf[:i])
+                del self._buf[:i + 2]
+                return line
+            if len(self._buf) > MAX_HEAD_BYTES:
+                raise ValueError("multipart part head too long")
+            await self._more()
+
+    def __aiter__(self) -> AsyncIterator[BodyPart]:
+        return self
+
+    async def __anext__(self) -> BodyPart:
+        if self._closed:
+            raise StopAsyncIteration
+        if not self._started:
+            # the preamble up to the first delimiter line
+            self._started = True
+            while True:
+                line = await self._line()
+                if line.rstrip() == self._dash:
+                    break
+                if line.rstrip() == self._dash + b"--":
+                    self._closed = True
+                    raise StopAsyncIteration
+        else:
+            part = self._part
+            while part is not None and await part.read_chunk(_READ_SIZE):
+                pass
+            # after a delimiter: "--" closes the body, CRLF opens a part
+            while len(self._buf) < 2:
+                await self._more()
+            if self._buf[:2] == b"--":
+                self._closed = True
+                raise StopAsyncIteration
+            await self._line()
+        items: List[Tuple[str, str]] = []
+        while True:
+            line = await self._line()
+            if not line:
+                break
+            k, _, v = line.decode("latin-1").partition(":")
+            items.append((k.strip(), v.strip()))
+        self._part = BodyPart(self, Headers(items))
+        return self._part
+
+
+_PARAM_RE = re.compile(r"\{(\w+)\}")
+
+
+class _Route:
+    """A path, exact or with `{name}` segments (each one path segment,
+    as aiohttp's dynamic resources match them)."""
+
+    def __init__(self, method: str, path: str, handler: Handler,
+                 stream: bool):
+        self.method = method
+        self.path = path
+        self.handler = handler
+        self.stream = stream
+        self.dynamic = bool(_PARAM_RE.search(path))
+        parts = _PARAM_RE.split(path)
+        rx = ""
+        for i, piece in enumerate(parts):
+            rx += (f"(?P<{piece}>[^{{}}/]+)" if i % 2 else re.escape(piece))
+        self._rx = re.compile(rx + r"\Z")
+
+    def match(self, path: str) -> Optional[Dict[str, str]]:
+        if not self.dynamic:
+            return {} if path == self.path else None
+        m = self._rx.match(path)
+        if m is None:
+            return None
+        return {k: unquote(v) for k, v in m.groupdict().items()}
 
 
 class _BadRequest(Exception):
@@ -264,26 +515,56 @@ class _Conn:
 
 
 class HttpServer:
-    """Routes (method, path) to handlers; `start` binds `host:port` (port
-    0 picks a free one, read back from `bound_port`)."""
+    """Routes (method, path) to handlers, exact paths first, then paths
+    with `{name}` segments in the order added; `start` binds `host:port`
+    (port 0 picks a free one, read back from `bound_port`)."""
 
     def __init__(self, host: str = "0.0.0.0", port: int = 0):
         self.host = host
         self.port = port
         self.bound_port: Optional[int] = None
-        self._routes: Dict[Tuple[str, str], Handler] = {}
+        self._routes: Dict[Tuple[str, str], _Route] = {}
+        self._dynamic: List[_Route] = []
         self._server: Optional[asyncio.AbstractServer] = None
         self._conn_tasks: set = set()
         self._closing = False
 
-    def add_route(self, method: str, path: str, handler: Handler) -> None:
-        self._routes[(method.upper(), path)] = handler
+    def add_route(self, method: str, path: str, handler: Handler,
+                  stream: bool = False) -> None:
+        """`stream`: the handler reads the body itself, as it arrives
+        (`request.content`, `request.multipart()`)."""
+        route = _Route(method.upper(), path, handler, stream)
+        if route.dynamic:
+            self._dynamic.append(route)
+        else:
+            self._routes[(route.method, path)] = route
 
     def add_get(self, path: str, handler: Handler) -> None:
         self.add_route("GET", path, handler)
 
-    def add_post(self, path: str, handler: Handler) -> None:
-        self.add_route("POST", path, handler)
+    def add_post(self, path: str, handler: Handler,
+                 stream: bool = False) -> None:
+        self.add_route("POST", path, handler, stream)
+
+    def add_delete(self, path: str, handler: Handler) -> None:
+        self.add_route("DELETE", path, handler)
+
+    def _resolve(self, method: str, path: str
+                 ) -> Tuple[Optional[_Route], Dict[str, str], bool]:
+        """(the route, its path parameters, whether any route has the
+        path under another method)."""
+        route = self._routes.get((method, path))
+        if route is not None:
+            return route, {}, True
+        known = any(p == path for _, p in self._routes)
+        for r in self._dynamic:
+            params = r.match(path)
+            if params is None:
+                continue
+            if r.method == method:
+                return r, params, True
+            known = True
+        return None, {}, known
 
     async def start(self) -> "HttpServer":
         self._server = await asyncio.start_server(
@@ -329,7 +610,7 @@ class HttpServer:
                 if head is None:
                     return
                 try:
-                    request = await asyncio.wait_for(
+                    request, route = await asyncio.wait_for(
                         self._parse(conn, head), BODY_TIMEOUT_S)
                 except _BadRequest as e:
                     await self._send_whole(conn, _plain_error(e.status),
@@ -338,7 +619,7 @@ class HttpServer:
                 except (asyncio.TimeoutError, ConnectionError, OSError,
                         asyncio.IncompleteReadError):
                     return
-                if not await self._respond(conn, request):
+                if not await self._respond(conn, request, route):
                     return
         except (ConnectionError, OSError):
             pass
@@ -352,7 +633,10 @@ class HttpServer:
             except (ConnectionError, OSError, asyncio.CancelledError):
                 pass
 
-    async def _parse(self, conn: _Conn, head: bytes) -> Request:
+    async def _parse(self, conn: _Conn, head: bytes
+                     ) -> Tuple[Request, Optional[_Route]]:
+        """The request and its route.  The body is read whole here
+        (413 past MAX_BODY_BYTES), unless the route streams it."""
         lines = head.decode("latin-1").split("\r\n")
         parts = lines[0].split(" ")
         if len(parts) != 3 or not parts[2].startswith("HTTP/1."):
@@ -378,11 +662,20 @@ class HttpServer:
             raise _BadRequest(400) from None
         if length < 0:
             raise _BadRequest(400)
-        if length > MAX_BODY_BYTES:
+        request = Request(method.upper(), target, headers, b"", conn)
+        route, params, known = self._resolve(request.method, request.path)
+        request.match_info = params
+        request._path_known = known
+        stream = route is not None and route.stream
+        if length > MAX_BODY_BYTES and not stream:
             raise _BadRequest(413)
         if (chunked or length) and headers.get(
                 "expect", "").lower() == "100-continue":
             await conn.send(b"HTTP/1.1 100 Continue\r\n\r\n")
+        if stream:
+            request.content = _BodyReader(conn, 0 if chunked else length,
+                                          chunked)
+            return request, route
         if chunked:
             body = bytearray()
             while True:
@@ -402,19 +695,22 @@ class HttpServer:
             data = bytes(body)
         else:
             data = await conn.read_exactly(length) if length else b""
-        return Request(method.upper(), target, headers, data, conn)
+        request.body = data
+        return request, route
 
-    async def _respond(self, conn: _Conn, request: Request) -> bool:
+    async def _respond(self, conn: _Conn, request: Request,
+                       route: Optional[_Route]) -> bool:
         """Run the request's handler and send its response; True when
         the connection stays open for another request."""
-        handler = self._routes.get((request.method, request.path))
-        if handler is None:
-            status = (405 if any(p == request.path for _, p in self._routes)
-                      else 404)
+        if route is None:
+            status = 405 if request._path_known else 404
             return await self._send_whole(conn, _plain_error(status),
                                           conn.keep_alive)
-        task = asyncio.ensure_future(handler(request))
-        watcher = asyncio.ensure_future(conn.watch(task))
+        task = asyncio.ensure_future(route.handler(request))
+        # a streamed body is read by the handler itself, which sees the
+        # client's going away as a failed read: no read-ahead watcher
+        watcher = (asyncio.ensure_future(conn.watch(task))
+                   if request.content is None else None)
         try:
             resp = await task
         except asyncio.CancelledError:
@@ -422,15 +718,28 @@ class HttpServer:
                     and asyncio.current_task().cancelling() == 0:
                 return False  # the client went away
             raise
+        except HttpError as e:
+            resp = _plain_error(e.status)
+            conn.keep_alive = False
+        except (ConnectionError, OSError, asyncio.TimeoutError):
+            if request.content is not None:
+                return False  # the client went away mid-body
+            logger.exception("%s %s failed", request.method, request.path)
+            resp = _plain_error(500)
         except Exception:
             logger.exception("%s %s failed", request.method, request.path)
             resp = _plain_error(500)
         finally:
-            watcher.cancel()
-            try:
-                await watcher
-            except asyncio.CancelledError:
-                pass
+            if watcher is not None:
+                watcher.cancel()
+                try:
+                    await watcher
+                except asyncio.CancelledError:
+                    pass
+        if request.content is not None and not request.content.done:
+            # the handler answered before the body's end: the rest of it
+            # would be read as the next request, so the connection ends
+            conn.keep_alive = False
         if isinstance(resp, StreamResponse):
             if not resp.prepared:
                 return await self._send_whole(conn, _plain_error(500),
@@ -458,8 +767,11 @@ class HttpServer:
 
 
 __all__ = [
+    "BodyPart",
     "Headers",
+    "HttpError",
     "HttpServer",
+    "MultipartReader",
     "Request",
     "Response",
     "StreamResponse",

@@ -240,8 +240,8 @@ class SystemStatusServer:
         return 200, JSON_TYPE, body.encode()
 
     async def _debug_requests(self, request: Request) -> Response:
-        """Tail-latency forensics dump: per registered source (none in
-        the port yet), token-gated like /debug/state."""
+        """Tail-latency forensics dump: per registered source (a
+        frontend's ForensicsPlane), token-gated like /debug/state."""
         return await self._merged(request, self.runtime.forensics_sources,
                                   "forensics")
 

@@ -59,7 +59,9 @@ REQUIRED = ("models/loader.py", "models/weight_cache.py",
             "frontend/parsers.py", "frontend/preprocessor.py",
             "frontend/request_trace.py", "frontend/affinity.py",
             "frontend/pipeline.py", "frontend/service.py",
-            "frontend/__main__.py")
+            "frontend/__main__.py", "disagg/prefill_router.py",
+            "multimodal/hop.py", "frontend/anthropic.py",
+            "frontend/openai_extra.py", "router/native_indexer.py")
 # the KVBM tiers' fields (ported with kvbm/) and the knobs that came
 # with them, at the JAX engine's defaults
 KVBM_FIELDS = ("host_cache_blocks", "disk_cache_dir", "disk_cache_blocks",

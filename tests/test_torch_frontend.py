@@ -19,7 +19,7 @@
   that drops a stream cancels it at the worker, through either frontend.
 * The CLI: `python -m dynamo_tpu_torch.frontend --router-mode kv` prints
   its ready line, serves a torch CLI worker over file discovery, exits 0
-  on SIGTERM, and refuses the flags of what is not ported with exit 2.
+  on SIGTERM, and refuses `--grpc-port` (not ported) with exit 2.
 """
 
 import asyncio
@@ -29,7 +29,6 @@ import selectors
 import signal
 import subprocess
 import sys
-import uuid
 
 import aiohttp
 import pytest
@@ -684,21 +683,6 @@ def test_slo_plane_matches_jax():
     assert samples(ours.m.render()) == samples(theirs.m.render())
 
 
-def test_unported_options_raise_naming_roadmap(monkeypatch):
-    rt = DistributedRuntime(config=RuntimeConfig(
-        discovery_backend="mem", event_plane="inproc"),
-        cluster_id=uuid.uuid4().hex)
-    for kw in ({"disagg_config": object()}, {"session_affinity_ttl": 30.0},
-               {"namespaces": {"ns"}}):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            ModelWatcher(rt, ModelManager(), **kw)
-    monkeypatch.setenv("DYN_FORENSICS", "1")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        HttpService(rt, ModelManager(), port=0)
-    monkeypatch.setenv("DYN_FORENSICS", "0")
-    assert HttpService(rt, ModelManager(), port=0)._timeline_on is False
-
-
 # ---------------------------------------------------------------------------
 # python -m dynamo_tpu_torch.frontend
 # ---------------------------------------------------------------------------
@@ -731,10 +715,7 @@ def _ready_line(proc, what: str) -> str:
     return line
 
 
-@pytest.mark.parametrize("flags", [["--grpc-port", "9000"],
-                                   ["--always-disagg"],
-                                   ["--session-affinity-ttl", "30"],
-                                   ["--pool-scoped"]])
+@pytest.mark.parametrize("flags", [["--grpc-port", "9000"]])
 def test_cli_refuses_unported_flags(flags, capsys):
     from dynamo_tpu_torch.frontend.__main__ import run
 

@@ -44,7 +44,11 @@ from dynamo_tpu_torch.protocols import (
     StopConditions,
 )
 from dynamo_tpu_torch.router.events import KvEventPublisher
-from dynamo_tpu_torch.router.indexer import PyKvIndexer, make_indexer
+from dynamo_tpu_torch.router.indexer import (
+    PyKvIndexer,
+    indexer_impl,
+    make_indexer,
+)
 from dynamo_tpu_torch.router.kv_router import KvRouter
 from dynamo_tpu_torch.router.selector import (
     DefaultWorkerSelector,
@@ -152,13 +156,22 @@ def test_indexers_match_jax_on_event_sequences(events, queries):
 
 
 def test_make_indexer_auto_is_py_and_native_raises(monkeypatch):
-    assert isinstance(make_indexer(), PyKvIndexer)
+    """`auto` is the Python indexer until the port's native library is
+    built, and the native one after; `native` builds it (its failures
+    raise: tests/test_torch_native_indexer.py); `py` pins the Python
+    one; an unknown name raises."""
+    from dynamo_tpu_torch.router import native_indexer
+
     assert isinstance(make_indexer("py"), PyKvIndexer)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        make_indexer("native")
+    monkeypatch.setattr(native_indexer, "is_built", lambda: False)
+    assert isinstance(make_indexer(), PyKvIndexer)
+    monkeypatch.undo()
+    assert indexer_impl(make_indexer("native")) == "native"
+    assert indexer_impl(make_indexer()) == "native"
     monkeypatch.setenv("DYN_INDEXER", "native")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        make_indexer()
+    assert indexer_impl(make_indexer()) == "native"
+    monkeypatch.setenv("DYN_INDEXER", "py")
+    assert isinstance(make_indexer(), PyKvIndexer)
     with pytest.raises(ValueError):
         make_indexer("cuda")
 
@@ -561,18 +574,23 @@ WORKER = dict(block_size=4, num_blocks=128, max_blocks_per_seq=16,
               max_num_seqs=4, prefill_buckets=(8, 16, 32, 64), seed=7)
 
 
-async def test_port_frontend_routes_to_the_warm_worker():
+async def test_port_frontend_routes_to_the_warm_worker(monkeypatch):
     """Two tiny CPU workers (one set of weights) behind the port's
     frontend in kv mode: a prompt warmed on one worker sends a request
     sharing its prefix there through HTTP, with the predicted overlap on
     the decision and the realized reuse on the histogram; a cold prompt
-    goes by load."""
+    goes by load.  The native indexer's library is built first, so the
+    default DYN_INDEXER (auto) gives the router the native indexer."""
     from dynamo_tpu_torch.frontend.service import (
         HttpService,
         ModelManager,
         ModelWatcher,
     )
+    from dynamo_tpu_torch.router import native_indexer
     from dynamo_tpu_torch.router.kv_router import make_kv_route_factory
+
+    monkeypatch.delenv("DYN_INDEXER", raising=False)
+    native_indexer.build()
 
     rt = await _runtime().start()
     tok = {"type": "mock", "vocab_size": SHAPES["vocab_size"]}
@@ -637,7 +655,8 @@ async def test_port_frontend_routes_to_the_warm_worker():
         await http.call("POST", "/v1/completions", cold)
         assert len(served[i2]) == 1, served
         stats = router.overlap_stats()
-        assert stats["decisions"] == 4 and stats["indexer_impl"] == "py"
+        assert stats["decisions"] == 4
+        assert stats["indexer_impl"] == "native"
     finally:
         await http.close()
         await service.close()
