@@ -491,6 +491,21 @@ mesh's store, non-zero and equal to its own log's and the leader's
 (`multihost_launches`, [rank 0, rank 1]), every published step
 replayed.
 
+KServe, the profiler and the planner: before the bf16 worker phase's
+frontend closes, the KServe gRPC service on its ModelManager
+(`_kserve_phase`: the five prompts through ModelInfer and
+ModelStreamInfer against /v1/completions' texts, `kserve_launches`);
+then the profiler sweeps the same worker's engine (`_profiler_phase`:
+ISL 128 and 1024 x concurrency 1 and 4, `profiler_launches`, the
+profile's SLA inversion); and last the planner phase (`check_planner`,
+the multihost phase's checkpoint, TP_LAYERS layers; alone with
+--planner, all 32 with the profiler's CLI, SLA mode, the fleet scrape
+and a Kubernetes scale): the planner spawns `python -m
+dynamo_tpu_torch.engine --model-path` workers behind the port's
+frontend, grows the fleet from 1 to 2 under a closed loop of requests
+and drains it back while streams run, which must equal their
+references (`planner_launches`, [first worker, second worker]).
+
 Bounds use the H100 SXM data sheet (3.35 TB/s HBM3, 989 TFLOP/s dense
 bf16); a card run below its 700 W limit is slower, so its limit is
 printed beside every number.
@@ -2462,9 +2477,12 @@ def check_worker(device, card: str, cfg, params, direct) -> tuple:
     (_status_probes, _poll_live, _status_gauges, _status_debug,
     _tracing_ab, _status_trace, _status_drain); its own seconds are
     printed.  Before the drain, the same worker serves the embed phase
-    (_embed_phase) and then the port's frontend and KV router
-    (_frontend_phase).  Returns (the worker run's launch counts by kernel
-    name, the embed phase's results, the frontend phase's)."""
+    (_embed_phase), then the port's frontend and KV router with its
+    KServe service (_frontend_phase), then the profiler's sweep of the
+    worker's engine (_profiler_phase).  Returns (the worker run's launch
+    counts by kernel name, the embed phase's results, the frontend
+    phase's, with the KServe run's under "kserve" and the profiler's
+    under "profiler")."""
     import tempfile
 
     from dynamo_tpu_torch import obs
@@ -2553,6 +2571,8 @@ def check_worker(device, card: str, cfg, params, direct) -> tuple:
             embed = await _embed_phase(rt, worker, reqs)
             embed["seconds"] = time.perf_counter() - t_em
             frontend = await _frontend_phase(rt, worker, params, used)
+            frontend["profiler"] = await _profiler_phase(worker.engine,
+                                                         used)
             t_st = time.perf_counter()
             await _status_drain(rt, worker, polled)
             status_s[0] += time.perf_counter() - t_st
@@ -8122,8 +8142,10 @@ K8S_NAMESPACE = "dynamo-smoke"
 class FakeKubeApi(_FakeHttp):
     """The Kubernetes API server's Lease subset the discovery backend
     speaks (list with a label selector, watch, create with 409 on a
-    duplicate, RFC 7386 merge patch, delete with 404), in one namespace,
-    behind a bearer token (401 without it)."""
+    duplicate, RFC 7386 merge patch, delete with 404), and the
+    deployments/{name}/scale subresource the planner's
+    KubernetesConnector reads and merge-patches, in one namespace, behind
+    a bearer token (401 without it)."""
 
     PREFIX = f"/apis/coordination.k8s.io/v1/namespaces/{K8S_NAMESPACE}/leases"
 
@@ -8131,6 +8153,11 @@ class FakeKubeApi(_FakeHttp):
         super().__init__()
         self.token = token
         self.leases: dict = {}  # name -> object
+        # Deployments' scale subresource (the planner's
+        # KubernetesConnector): name -> replicas, and each call's (method,
+        # replicas patched)
+        self.deployments: dict = {}
+        self.scale_calls: list = []
         self.rv = 0
         # (resourceVersion, event): a watch from resourceVersion replays
         # what it missed, as the API server does
@@ -8157,9 +8184,29 @@ class FakeKubeApi(_FakeHttp):
             else:
                 dst[k] = json.loads(json.dumps(v))
 
+    APPS = f"/apis/apps/v1/namespaces/{K8S_NAMESPACE}/deployments/"
+
+    def _scale(self, method, name, body, headers):
+        if name not in self.deployments:
+            return 404, {"kind": "Status", "code": 404}
+        if method == "PATCH":
+            if headers.get("content-type") != "application/merge-patch+json":
+                return 415, {"kind": "Status", "code": 415}
+            self.deployments[name] = int(body["spec"]["replicas"])
+            self.scale_calls.append(("PATCH", self.deployments[name]))
+        elif method == "GET":
+            self.scale_calls.append(("GET", None))
+        else:
+            return 405, {"kind": "Status", "code": 405}
+        return 200, {"kind": "Scale", "metadata": {"name": name},
+                     "spec": {"replicas": self.deployments[name]}}
+
     def route(self, method, path, params, body, headers):
         if headers.get("authorization") != f"Bearer {self.token}":
             return 401, {"kind": "Status", "code": 401}
+        if path.startswith(self.APPS) and path.endswith("/scale"):
+            return self._scale(method, path[len(self.APPS):-len("/scale")],
+                               body, headers)
         if not path.startswith(self.PREFIX):
             return 404, {"kind": "Status", "code": 404}
         name = path[len(self.PREFIX):].strip("/")
@@ -9030,7 +9077,8 @@ async def _frontend_phase(rt, worker, params, used) -> dict:
     session-affinity TTL once the first is closed (_affinity_short_form),
     /v1/embeddings' vector has cosine >= EMBED_HTTP_COSINE with the
     request plane's `embed`, a stream the client drops frees its slot,
-    /metrics carries the frontend's and the router's families, and
+    /metrics carries the frontend's and the router's families, the KServe
+    gRPC service on the same ModelManager holds (_kserve_phase), and
     close() leaves no task.  Logs each request's TTFT through HTTP
     beside the request plane's, the streamed decode tokens/s, the
     router's pick host time and the phase's seconds."""
@@ -9103,6 +9151,8 @@ async def _frontend_phase(rt, worker, params, used) -> dict:
         t_extra = time.perf_counter()
         extra = await _extra_routes(fe, rt, pre, spied, texts)
         extra["seconds"] = time.perf_counter() - t_extra
+        kserve = await _kserve_phase(fe, rt, eng, iid, texts, refs, spied,
+                                     used, params, mc)
     finally:
         eng.__dict__.pop("generate", None)
         left = await fe.close()
@@ -9215,7 +9265,8 @@ async def _frontend_phase(rt, worker, params, used) -> dict:
             "embed_cosine": cos, "parted": parted,
             "seconds": secs, "base_seconds": base_secs, "steps": steps,
             "extra_seconds": extra["seconds"],
-            "affinity_seconds": extra["affinity_seconds"]}
+            "affinity_seconds": extra["affinity_seconds"],
+            "kserve": kserve}
 
 
 def check_frontend(device, card: str, params) -> dict:
@@ -11614,7 +11665,8 @@ async def _mh_serve(disc: str, reqs) -> tuple:
     return ids, files, got
 
 
-def check_multihost(device, card: str, n_layers: int) -> dict:
+def check_multihost(device, card: str, n_layers: int,
+                    ckpt: Optional[str] = None) -> dict:
     """The multihost phase: a llama-8b-width checkpoint of `n_layers`
     layers (random bf16 weights from seed 0) served by one tp=2 mesh
     spread over two launchers of `python -m dynamo_tpu_torch.engine`, two
@@ -11628,7 +11680,9 @@ def check_multihost(device, card: str, n_layers: int) -> dict:
     read it; after the leader's drain both launchers exit 0, and the
     follower's K1/K3 launches, as the leader read them from the mesh's
     store, are non-zero and equal to the follower's own count and to the
-    leader's (the same programs), with every published step replayed."""
+    leader's (the same programs), with every published step replayed.
+    `ckpt`: a checkpoint of `n_layers` layers written by the caller
+    (write_checkpoint, seed 0), served in place of one written here."""
     import signal
     import socket
     import tempfile
@@ -11642,15 +11696,18 @@ def check_multihost(device, card: str, n_layers: int) -> dict:
     kernels = [fn.__name__ for fn in _kernels_of("bf16")]
     out = {"layers": n_layers}
     with tempfile.TemporaryDirectory(prefix="multihost-") as tmp:
-        path = os.path.join(tmp, f"llama-8b-width-{n_layers}-layers")
-        os.makedirs(path)
-        ref = write_checkpoint(path, width, n_layers, device)
-        out["checkpoint_gb"] = sum(t.numel() * 2 for t in ref.values()) / 1e9
-        del ref
+        path = ckpt or os.path.join(tmp, f"llama-8b-width-{n_layers}-layers")
+        if ckpt is None:
+            os.makedirs(path)
+            write_checkpoint(path, width, n_layers, device)
+        out["checkpoint_gb"] = sum(
+            os.path.getsize(os.path.join(path, f)) for f in os.listdir(path)
+            if f.endswith(".safetensors")) / 1e9
         torch.cuda.empty_cache()
         log(f"multihost: checkpoint of {n_layers} layers at llama-8b width, "
-            f"{out['checkpoint_gb']:.3f} GB, written in "
-            f"{time.perf_counter() - t0:.1f} s")
+            f"{out['checkpoint_gb']:.3f} GB, "
+            + (f"written in {time.perf_counter() - t0:.1f} s" if ckpt is None
+               else "the caller's"))
         with socket.socket() as sk:
             sk.bind(("127.0.0.1", 0))
             port = sk.getsockname()[1]
@@ -11776,6 +11833,840 @@ def check_multihost(device, card: str, n_layers: int) -> dict:
     return out
 
 
+# -- KServe, the profiler and the planner ------------------------------------
+
+# the profiler's sweep of the bf16 worker's engine in the whole run
+PROFILE_ISLS = (128, 1024)
+PROFILE_CONCS = (1, 4)
+PROFILE_OSL = 16
+# the SLA inversion asked of the profile: targets at this multiple of
+# the profile's own concurrency-1 ITL and TTFT, for this fleet load
+PROFILE_TARGET_X = 2.0
+PROFILE_ACTIVE = 8
+PROFILE_RPS = 10.0
+
+
+def _grpc_call(ch, name: str, resp_cls, stream: bool = False):
+    from dynamo_tpu_torch.frontend.kserve import SERVICE
+
+    make = ch.stream_stream if stream else ch.unary_unary
+    return make(f"/{SERVICE}/{name}",
+                request_serializer=lambda m: m.SerializeToString(),
+                response_deserializer=resp_cls.FromString)
+
+
+def _infer_request(pb, model: str, text: str, rid: str, max_tokens: int):
+    """A KServe text request with the HTTP greedy body's settings: its
+    max_tokens, ignore_eos, temperature 0 (KServe's default)."""
+    req = pb.ModelInferRequest(model_name=model, id=rid)
+    t = req.inputs.add()
+    t.name, t.datatype = "text_input", "BYTES"
+    t.shape.append(1)
+    t.contents.bytes_contents.append(text.encode())
+    req.parameters["max_tokens"].int64_param = max_tokens
+    req.parameters["ignore_eos"].bool_param = True
+    return req
+
+
+async def _first_token(spied: dict, rid: str, first) -> None:
+    """Set `first` once the engine has emitted `rid`'s first token (the
+    shape's gate for a unary RPC, whose answer comes whole)."""
+    end = time.monotonic() + FRONTEND_WAIT_S
+    while not spied.get(rid):
+        if time.monotonic() > end:
+            raise SystemExit(f"kserve: {rid} emitted no token within "
+                             f"{FRONTEND_WAIT_S:.0f} s")
+        await asyncio.sleep(0.005)
+    first.set()
+
+
+async def _kserve_phase(fe, rt, eng, iid: int, texts, refs, spied: dict,
+                        used, params, mc) -> dict:
+    """The KServe v2 gRPC service (frontend/kserve.py) on the frontend's
+    ModelManager, with its HTTP service's resolver, as the CLI wires it.
+    Liveness, readiness and metadata answer; an unknown model gets
+    NOT_FOUND.  Then the five prompts, greedy with the settings KServe
+    carries (32 tokens, ignore_eos, temperature 0), three times in the
+    frontend phase's shape (_in_shape) on a cleared cache: streamed
+    /v1/completions (the reference), ModelInfer and ModelStreamInfer,
+    with K1/K3 launches counted around the two gRPC runs
+    (`kserve_launches`).  Exits unless each gRPC text is the rendering of
+    its own token ids and equals the HTTP text of the same prompt (a
+    greedy stream may part only at a near-tie, _check_streams), exactly
+    the stream's last response is final with finish reason "length", and
+    both kernels launched at least layers x steps times.  Logs the gRPC
+    first-response time beside the HTTP TTFT of the same request."""
+    import grpc
+    import grpc.aio
+
+    from dynamo_tpu_torch.frontend import kserve_pb2 as pb
+    from dynamo_tpu_torch.frontend.kserve import PLATFORM, KserveGrpcService
+
+    t_phase = time.perf_counter()
+    bs = eng.config.block_size
+    tok = fe.pipeline.preprocessor.tokenizer
+    svc = await KserveGrpcService(rt, fe.manager, host="127.0.0.1", port=0,
+                                  resolver=fe.service._resolve_pipeline
+                                  ).start()
+    ch = grpc.aio.insecure_channel(f"127.0.0.1:{svc.bound_port}")
+
+    async def gate():
+        await fe.wait_blocks(iid, FRONTEND_LENGTHS[0] // bs,
+                             "the first prompt's blocks")
+
+    async def cleared():
+        await eng.clear_kv_blocks()
+        await fe.wait_blocks(iid, 0, "a cleared worker")
+
+    async def unary(i, first):
+        rid = f"ksu-{i}"
+        waiter = (asyncio.create_task(_first_token(spied, rid, first))
+                  if first is not None else None)
+        t0 = time.perf_counter()
+        resp = await _grpc_call(ch, "ModelInfer", pb.ModelInferResponse)(
+            _infer_request(pb, fe.model, texts[i], rid, 32))
+        if waiter is not None:
+            await waiter
+        return {"text": resp.outputs[0].contents.bytes_contents[0].decode(),
+                "finish": resp.parameters["finish_reason"].string_param,
+                "seconds": time.perf_counter() - t0}
+
+    async def streamed(i, first):
+        rid = f"kss-{i}"
+        call = _grpc_call(ch, "ModelStreamInfer",
+                          pb.ModelStreamInferResponse, stream=True)()
+        t0 = time.perf_counter()
+        await call.write(_infer_request(pb, fe.model, texts[i], rid, 32))
+        await call.done_writing()
+        parts, finals, ttft = [], [], None
+        async for r in call:
+            if r.error_message:
+                raise SystemExit(f"kserve: {rid}: {r.error_message}")
+            ir = r.infer_response
+            if ttft is None:
+                ttft = time.perf_counter() - t0
+                if first is not None:
+                    first.set()
+            parts.append(ir.outputs[0].contents.bytes_contents[0].decode())
+            finals.append(
+                (ir.parameters["triton_final_response"].bool_param,
+                 ir.parameters["finish_reason"].string_param))
+        return {"text": "".join(parts), "finals": finals, "ttft": ttft}
+
+    try:
+        live = await _grpc_call(ch, "ServerLive", pb.ServerLiveResponse)(
+            pb.ServerLiveRequest())
+        ready = await _grpc_call(ch, "ServerReady", pb.ServerReadyResponse)(
+            pb.ServerReadyRequest())
+        mready = await _grpc_call(ch, "ModelReady", pb.ModelReadyResponse)(
+            pb.ModelReadyRequest(name=fe.model))
+        meta = await _grpc_call(ch, "ModelMetadata",
+                                pb.ModelMetadataResponse)(
+            pb.ModelMetadataRequest(name=fe.model))
+        try:
+            await _grpc_call(ch, "ModelInfer", pb.ModelInferResponse)(
+                _infer_request(pb, "no-such-model", "x", "ks-nf", 4))
+            missing = "OK"
+        except grpc.aio.AioRpcError as e:
+            missing = e.code().name
+        if not (live.live and ready.ready and mready.ready
+                and meta.platform == PLATFORM
+                and [(t.name, t.datatype) for t in meta.inputs]
+                == [("text_input", "BYTES")]
+                and [(t.name, t.datatype) for t in meta.outputs]
+                == [("text_output", "BYTES")] and missing == "NOT_FOUND"):
+            raise SystemExit(f"kserve: live {live.live}, ready {ready.ready}"
+                             f", model ready {mready.ready}, metadata "
+                             f"{meta}, an unknown model {missing}")
+        bodies = [_frontend_body(fe.model, t, f"ksh-{i}")
+                  for i, t in enumerate(texts)]
+        await cleared()
+        http = await _in_shape(lambda i, first: fe.sse(bodies[i], first),
+                               gate)
+        m0 = dict(eng.metrics)
+        for fn in used:
+            fn.launches = 0
+        await cleared()
+        got_u = await _in_shape(unary, gate)
+        await cleared()
+        got_s = await _in_shape(streamed, gate)
+        counts = {fn.__name__: fn.launches for fn in used}
+        steps = {k: eng.metrics[k] - m0[k] for k in
+                 ("decode_steps", "prefill_steps")}
+    finally:
+        await ch.close()
+        await svc.close()
+    for i in range(5):
+        u, s = got_u[i], got_s[i]
+        if u["text"] != _render(tok, spied[f"ksu-{i}"]) \
+                or s["text"] != _render(tok, spied[f"kss-{i}"]):
+            raise SystemExit(f"kserve: request {i}'s text is not the "
+                             "rendering of its own token ids")
+        if u["finish"] != "length" or s["finals"][-1] != (True, "length") \
+                or any(f for f, _ in s["finals"][:-1]) \
+                or len(spied[f"ksu-{i}"]) != 32:
+            raise SystemExit(f"kserve: request {i}: unary finish "
+                             f"{u['finish']}, stream finals {s['finals']}")
+    parted = _check_streams(
+        "kserve", [(spied[f"ksu-{i}"],) for i in range(5)]
+        + [(spied[f"kss-{i}"],) for i in range(5)],
+        [(spied[f"ksh-{i}"],) for i in range(5)] * 2, list(refs) * 2,
+        params, mc, eng.device)
+    off = {p[0] % 5 for p in parted}
+    same = [got_u[i]["text"] == http[i]["text"] == got_s[i]["text"]
+            for i in range(5)]
+    if not all(same[i] for i in range(5) if i not in off):
+        raise SystemExit(f"kserve: ModelInfer, ModelStreamInfer and "
+                         f"/v1/completions texts equal per request: {same}")
+    _check_worker_launches(counts, steps, mc.n_layers, "kserve")
+    ttft = [(round(http[i]["ttft"], 4), round(got_s[i]["ttft"], 4),
+             round(got_u[i]["seconds"], 4)) for i in range(5)]
+    secs = time.perf_counter() - t_phase
+    log(f"kserve ({len(parted)} greedy parting(s) at a near-tie): per "
+        f"request, HTTP TTFT s / ModelStreamInfer first response s / "
+        f"ModelInfer whole answer s: {ttft}; stream responses "
+        f"{[len(s['finals']) for s in got_s]}; metadata platform "
+        f"{meta.platform!r}; an unknown model {missing}; kserve_launches "
+        f"{counts} over steps {steps}; phase {secs:.1f} s")
+    return {"launches": counts, "ttft": ttft, "parted": parted,
+            "steps": steps, "seconds": secs}
+
+
+class _Recorded:
+    """An engine wrapper for the profiler's sweep: every request's id,
+    prompt length, max_tokens and the tokens it got."""
+
+    def __init__(self, engine):
+        self.engine = engine
+        self.kv_dtype = engine.kv_dtype
+        self.seen = []
+
+    async def generate(self, req):
+        rec = [req.request_id, len(req.token_ids), req.stop.max_tokens, 0]
+        self.seen.append(rec)
+        async for out in self.engine.generate(req):
+            rec[3] += len(out.token_ids)
+            yield out
+
+
+async def _profiler_phase(eng, used) -> dict:
+    """The profiler (profiler/profile.py profile_engine) sweeping the
+    worker's engine: ISL PROFILE_ISLS x concurrency PROFILE_CONCS, OSL
+    PROFILE_OSL, one round, its warm-up point first, with K1/K3 launches
+    counted around the sweep (`profiler_launches`).  Gates on structure,
+    not speed: every request gets its max_tokens, both kernels launch,
+    the profile is tagged bf16 with the grid asked for, its JSON
+    round-trips through a file byte for byte, and the PerfModel built
+    from it answers the SLA inversion (targets PROFILE_TARGET_X times its
+    own concurrency-1 ITL and TTFT) with a finite replica count for
+    PROFILE_ACTIVE active sequences and PROFILE_RPS requests/s.  Logs
+    every grid point."""
+    import math
+    import tempfile
+
+    from dynamo_tpu_torch.planner import PerfModel
+    from dynamo_tpu_torch.profiler import PerfProfile, profile_engine
+
+    t0 = time.perf_counter()
+    rec = _Recorded(eng)
+    for fn in used:
+        fn.launches = 0
+    prof = await profile_engine(rec, model_name="llama-8b",
+                                isls=PROFILE_ISLS, osl=PROFILE_OSL,
+                                concurrencies=PROFILE_CONCS, rounds=1)
+    counts = {fn.__name__: fn.launches for fn in used}
+    sweep_s = time.perf_counter() - t0
+    short = [r for r in rec.seen if r[3] != r[2]]
+    want = 1 + len(PROFILE_ISLS) * sum(PROFILE_CONCS)
+    with tempfile.TemporaryDirectory(prefix="profile-") as tmp:
+        path = os.path.join(tmp, "profile.json")
+        prof.save(path)
+        with open(path, "rb") as f:
+            written = f.read()
+        PerfProfile.load(path).save(path)
+        with open(path, "rb") as f:
+            again = f.read()
+    pm = PerfModel(PerfProfile.from_json(written.decode()))
+    c1 = {p.isl: p for p in prof.points if p.concurrency == 1}
+    itl_t = PROFILE_TARGET_X * c1[PROFILE_ISLS[0]].itl_mean_s
+    ttft_t = PROFILE_TARGET_X * c1[PROFILE_ISLS[-1]].ttft_p95_s
+    cap = pm.max_active_for_itl(itl_t, PROFILE_ISLS[0])
+    rps = pm.max_rps_for_ttft(PROFILE_ISLS[-1], ttft_t)
+    n_itl = math.ceil(PROFILE_ACTIVE / cap)
+    n_ttft = math.ceil(PROFILE_RPS / rps)
+    for p in prof.points:
+        log(f"profiler: isl {p.isl} c {p.concurrency}: TTFT p50/p95 "
+            f"{p.ttft_p50_s * 1e3:.1f}/{p.ttft_p95_s * 1e3:.1f} ms, ITL "
+            f"mean/p95 {p.itl_mean_s * 1e3:.2f}/{p.itl_p95_s * 1e3:.2f} ms, "
+            f"{p.req_per_s:.2f} req/s, {p.output_tok_per_s:.1f} tokens/s")
+    log(f"profiler: {len(rec.seen)} requests in {sweep_s:.1f} s, "
+        f"profiler_launches {counts}; SLA inversion: ITL target "
+        f"{itl_t * 1e3:.2f} ms -> {cap:.2f} active a replica -> {n_itl} "
+        f"replicas for {PROFILE_ACTIVE}; TTFT target {ttft_t * 1e3:.1f} ms "
+        f"at ISL {PROFILE_ISLS[-1]} -> {rps:.2f} req/s a replica -> "
+        f"{n_ttft} replicas for {PROFILE_RPS} req/s")
+    if short or len(rec.seen) != want:
+        raise SystemExit(f"profiler: {len(rec.seen)} requests (want {want});"
+                         f" short of their max_tokens: {short}")
+    if not all(n > 0 for n in counts.values()):
+        raise SystemExit(f"profiler: launches {counts}: the sweep did not "
+                         "run through both kernels")
+    if written != again or prof.meta.get("kv_cache_dtype") != "bf16" \
+            or [(p.isl, p.concurrency) for p in prof.points] != [
+                (i, c) for i in PROFILE_ISLS for c in PROFILE_CONCS]:
+        raise SystemExit(f"profiler: the profile's JSON did not round-trip "
+                         f"or its grid/tag is off: {prof.meta}")
+    if not (0 < cap < math.inf and 0 < rps < math.inf
+            and 0 < n_itl < 10**6 and 0 < n_ttft < 10**6):
+        raise SystemExit(f"profiler: the SLA inversion answered capacity "
+                         f"{cap}, rate {rps}")
+    return {"launches": counts, "points": [p.to_dict() for p in prof.points],
+            "replicas": (n_itl, n_ttft), "seconds": sweep_s}
+
+
+# the planner phase: the multihost phase's llama-8b-width checkpoint of
+# TP_LAYERS layers in the whole run (its own of 32 under --planner),
+# workers of 64 blocks of 128 tokens
+PLANNER_BLOCKS = 64
+PLANNER_CLIENTS = 4        # the closed loop's concurrent requests
+PLANNER_PROMPT = 200
+PLANNER_NEW = 32
+PLANNER_TAIL_NEW = 256     # the streams in flight at the scale-down
+PLANNER_DRAIN_S = 0.1      # the workers' --drain-deadline-s
+PLANNER_READY_S = 300.0
+PLANNER_EXIT_S = 120.0
+PLANNER_TOKEN = "chip-smoke-admin"
+PLANNER_PROFILE_S = 900.0
+
+
+def _planner_args(path: str, device) -> list:
+    """The spawned workers' CLI arguments: the checkpoint, a 64-block
+    bf16 cache, no warm-up (each program is captured at its first use),
+    a PLANNER_DRAIN_S drain grace."""
+    args = ["--model-path", path, "--block-size", "128",
+            "--num-blocks", str(PLANNER_BLOCKS), "--max-blocks-per-seq", "16",
+            "--max-num-seqs", "4", "--no-warmup",
+            "--drain-deadline-s", str(PLANNER_DRAIN_S)]
+    return args + (["--device", "cpu"] if device.type == "cpu" else [])
+
+
+def _byte_tokenizer_json() -> dict:
+    """A byte-level BPE tokenizer.json with no merges, each of the 256
+    bytes one token (its id the byte's value), that `tokenizers` loads:
+    write_checkpoint's minimal one is for the loader, not the frontend."""
+    bs = [*range(ord("!"), ord("~") + 1), *range(ord("\xa1"), ord("\xac") + 1),
+          *range(ord("\xae"), ord("\xff") + 1)]
+    cs, n = bs[:], 0
+    for b in range(256):
+        if b not in bs:
+            bs.append(b)
+            cs.append(256 + n)
+            n += 1
+    level = {"type": "ByteLevel", "add_prefix_space": False,
+             "trim_offsets": True, "use_regex": True}
+    return {"version": "1.0", "truncation": None, "padding": None,
+            "added_tokens": [], "normalizer": None, "pre_tokenizer": level,
+            "post_processor": None, "decoder": dict(level,
+                                                   add_prefix_space=True),
+            "model": {"type": "BPE", "dropout": None, "unk_token": None,
+                      "continuing_subword_prefix": None,
+                      "end_of_word_suffix": None, "fuse_unk": False,
+                      "byte_fallback": False, "ignore_merges": False,
+                      "vocab": {chr(c): b for b, c in zip(bs, cs)},
+                      "merges": []}}
+
+
+def _planner_request(rid: str, gen, vocab: int, n_new: int):
+    from dynamo_tpu_torch.protocols import (
+        PreprocessedRequest,
+        SamplingOptions,
+        StopConditions,
+    )
+
+    ids = torch.randint(3, vocab, (PLANNER_PROMPT,), generator=gen)
+    return PreprocessedRequest(
+        token_ids=ids.tolist(), request_id=rid,
+        sampling=SamplingOptions(temperature=0.0),
+        stop=StopConditions(max_tokens=n_new, ignore_eos=True))
+
+
+async def _pipeline_stream(pipeline, req, into: list) -> list:
+    """`req` through the frontend's pipeline (its KV router, migration by
+    token replay), each token appended to `into` as it arrives."""
+    async for out in pipeline.migration.generate(req):
+        if out.finish_reason == "error":
+            raise SystemExit(f"planner: {req.request_id}: {out.error}")
+        into.extend(out.token_ids)
+    return into
+
+
+class _Proposals:
+    """A connector that reports the live fleet's size and records what
+    it is asked to scale to, applying nothing (the SLA planner's dry
+    run beside the load planner that owns the fleet)."""
+
+    def __init__(self, fleet_conn):
+        self.fleet_conn = fleet_conn
+        self.asked: list = []
+
+    async def current_replicas(self) -> int:
+        return await self.fleet_conn.current_replicas()
+
+    async def scale(self, replicas: int) -> int:
+        self.asked.append(replicas)
+        return replicas
+
+    drain = scale
+
+
+async def _await_until(pred, what: str, timeout: float) -> None:
+    end = time.monotonic() + timeout
+    while not pred():
+        if time.monotonic() > end:
+            raise SystemExit(f"planner: {what} never came within "
+                             f"{timeout:.0f} s")
+        await asyncio.sleep(0.02)
+
+
+async def _kube_scale() -> dict:
+    """The planner's KubernetesConnector against FakeKubeApi's
+    deployments/{name}/scale route: read, scale up, drain down."""
+    from dynamo_tpu_torch.planner.connectors import KubernetesConnector
+
+    fake = await FakeKubeApi().start()
+    fake.deployments["worker"] = 1
+    conn = KubernetesConnector("worker", namespace=K8S_NAMESPACE,
+                               api_url=fake.endpoint, token=K8S_TOKEN)
+    try:
+        seen = [await conn.current_replicas(), await conn.scale(2),
+                await conn.current_replicas(), await conn.drain(1)]
+    finally:
+        await conn.close()
+        await fake.close()
+    if seen != [1, 2, 2, 1] or fake.scale_calls != [
+            ("GET", None), ("PATCH", 2), ("GET", None), ("PATCH", 1)]:
+        raise SystemExit(f"planner: KubernetesConnector read/scaled "
+                         f"{seen}, the API server saw {fake.scale_calls}")
+    return {"replicas": seen, "calls": fake.scale_calls}
+
+
+class _BasePlus:
+    """The planner's fleet: a first replica that runs in this process
+    (the base, its weights the near-tie replays' too) and the replicas a
+    SubprocessConnector spawns past it.  The planner sees one fleet: a
+    scale to n keeps the base and asks the subprocess connector for
+    n - 1; its drain-gated scale-down is the subprocess connector's
+    (SIGTERM: the worker's own drain)."""
+
+    def __init__(self, sub):
+        self.sub = sub
+        self.governor = sub.governor
+
+    @property
+    def drain_escalations(self) -> int:
+        return self.sub.drain_escalations
+
+    async def current_replicas(self) -> int:
+        return 1 + await self.sub.current_replicas()
+
+    async def scale(self, replicas: int) -> int:
+        return 1 + await self.sub.scale(max(replicas - 1, 0))
+
+    async def drain(self, replicas: int) -> int:
+        return 1 + await self.sub.drain(max(replicas - 1, 0))
+
+    async def close(self) -> None:
+        await self.sub.close()
+
+
+def write_planner_checkpoint(path: str, n_layers: int, device) -> None:
+    """write_checkpoint's llama-8b-width checkpoint of `n_layers` layers
+    (seed 0) in `path`, with a byte-level tokenizer.json the frontend
+    can build."""
+    from dynamo_tpu_torch.models.llama import PRESETS
+
+    os.makedirs(path)
+    write_checkpoint(path, PRESETS["llama-8b"], n_layers, device)
+    torch.cuda.empty_cache()
+    with open(os.path.join(path, "tokenizer.json"), "w") as f:
+        json.dump(_byte_tokenizer_json(), f)
+
+
+def check_planner(device, card: str, n_layers: int, full: bool = False,
+                  ckpt: Optional[str] = None) -> dict:
+    """The planner phase: a llama-8b-width checkpoint of `n_layers` layers
+    (write_planner_checkpoint; `ckpt`: one the caller wrote) behind
+    the port's frontend in kv mode (_Frontend) over file discovery and
+    the zmq event plane.  The fleet's first replica is a TorchEngineWorker
+    of this process on the checkpoint (the engine CLI's config); the
+    planner's SubprocessConnector spawns `python -m
+    dynamo_tpu_torch.engine --model-path` past it (_BasePlus).  Manual
+    ticks of the load-mode planner (min 1, max 2, two active sequences a
+    replica): a closed loop of PLANNER_CLIENTS requests through the
+    frontend's pipeline must grow the fleet from 1 to 2, and the spawned
+    worker must register and take requests (a routed decision naming
+    it).  Then the load ends: both workers' caches are cleared, two long
+    streams are sent (the router balances them over the two workers)
+    and, once the spawned worker's has emitted tokens and the load
+    samples show only the tails, a tick must drain it (SIGTERM: the
+    worker withdraws, waits PLANNER_DRAIN_S, ends the rest with the
+    migratable marker) back to 1, and it exits 0.  Every tail equals
+    its reference, served one at a time before the scale-up; a stream
+    that migrated by token replay after j tokens equals it up to j, and
+    past j a fresh request of its prompt and those j tokens served
+    alone (each a parting only at a near-tie).  Both workers launch K1
+    and K3 (`planner_launches`: the base's counters, the spawned
+    worker's log at exit).  With `full` (--planner alone): the
+    profiler's CLI first sweeps JAX's default grid on the same
+    checkpoint, an SLA-mode planner fed by that profile and a fleet
+    observer (`--fleet-scrape`: the workers' status servers) ticks
+    beside the load planner, which carries the fleet summary in its
+    diag, and a KubernetesConnector scales a Deployment on FakeKubeApi.
+    Logs the time to scale up, from spawn to registration and to the
+    first routed request, and the drain."""
+    import re
+    import tempfile
+
+    from dynamo_tpu_torch.models.llama import PRESETS
+
+    t0 = time.perf_counter()
+    kernels = [fn.__name__ for fn in _kernels_of("bf16")]
+    out = {"layers": n_layers}
+    gen = torch.Generator().manual_seed(24)
+    refs = [_planner_request(f"tail-{i}", gen, PRESETS["llama-8b"].vocab_size,
+                             PLANNER_TAIL_NEW) for i in range(2)]
+    with tempfile.TemporaryDirectory(prefix="planner-") as tmp:
+        path = ckpt or os.path.join(tmp, f"llama-8b-width-{n_layers}-layers")
+        if ckpt is None:
+            write_planner_checkpoint(path, n_layers, device)
+        out["checkpoint_s"] = time.perf_counter() - t0
+        disc = os.path.join(tmp, "cluster")
+        env = dict(DYN_DISCOVERY_BACKEND="file", DYN_DISCOVERY_PATH=disc,
+                   DYN_EVENT_PLANE="zmq", DYN_LOG_JSON="0",
+                   DYN_LOG_LEVEL="INFO", DYN_SYSTEM_PORT="-1",
+                   DYN_ADMIN_TOKEN=PLANNER_TOKEN,
+                   DYN_WEIGHT_CACHE_DIR=os.path.join(tmp, "weight-cache"))
+        profile = None
+        if full:
+            profile = os.path.join(tmp, "profile.json")
+            t1 = time.perf_counter()
+            with _environ(**env):
+                prof = subprocess.run(
+                    [sys.executable, "-m", "dynamo_tpu_torch.profiler",
+                     "--engine", "torch", "--model-path", path, "--out",
+                     profile] + (["--device", "cpu"] if device.type == "cpu"
+                                 else []),
+                    capture_output=True, text=True,
+                    timeout=PLANNER_PROFILE_S,
+                    cwd=os.path.dirname(os.path.abspath(__file__)))
+            out["profile_cli_s"] = time.perf_counter() - t1
+            if prof.returncode != 0:
+                raise SystemExit(f"planner: the profiler CLI exited "
+                                 f"{prof.returncode}:\n{prof.stderr[-3000:]}")
+            log(f"planner: the profiler CLI on the {n_layers}-layer "
+                f"checkpoint, JAX's default grid, in "
+                f"{out['profile_cli_s']:.1f} s ({card}):\n"
+                + prof.stdout.strip())
+            from dynamo_tpu_torch.profiler import PerfProfile
+
+            pts = PerfProfile.load(profile).points
+            if len(pts) != 15 or not all(
+                    p.ttft_p95_s > 0 and p.itl_mean_s > 0 for p in pts):
+                raise SystemExit(f"planner: the profiler CLI's profile has "
+                                 f"{len(pts)} points, some without "
+                                 "latencies (failed requests)")
+        with _environ(**env):
+            res = asyncio.run(_planner_cycle(
+                device, disc, path, refs, profile, tmp, full))
+        logs = res.pop("logs")
+        out.update(res)
+        with open(logs[res["victim_pid"]]) as f:
+            text = f.read()
+        m = re.findall(r"kernel launches at exit: (\{[^\n]*\})", text)
+        if not m:
+            raise SystemExit(f"planner: the spawned worker logged no "
+                             f"launches at exit:\n{text[-3000:]}")
+        out["launches"] = [res["base_launches"], json.loads(m[-1])]
+    out["seconds"] = time.perf_counter() - t0
+    log(f"planner ({n_layers} layers, {card}): checkpoint "
+        f"{out['checkpoint_s']:.1f} s; the base worker ready in "
+        f"{out['base_ready_s']:.1f} s; scale-up {out['scale_up_s']:.2f} s "
+        f"after the load began (decision {out['up_decision']}); spawn to "
+        f"registered {out['spawn_to_registered_s']:.2f} s, to its first "
+        f"routed request {out['spawn_to_routed_s']:.2f} s; drain "
+        f"{out['drain_s']:.2f} s (victim exit {out['victim_exit']}; "
+        f"migrated after {out['migrated']} tokens by tail); "
+        f"{len(out['parted'])} parting(s) at a near-tie; planner_launches "
+        f"{out['launches']}; phase {out['seconds']:.1f} s")
+    if out["victim_exit"] != 0:
+        raise SystemExit(f"planner: the drained worker exited "
+                         f"{out['victim_exit']}")
+    if not all(w.get(k, 0) > 0 for w in out["launches"] for k in kernels):
+        raise SystemExit(f"planner: launches {out['launches']}: both "
+                         f"workers must launch each of {kernels}")
+    return out
+
+
+async def _planner_cycle(device, disc: str, path: str, refs, profile,
+                         tmp: str, full: bool) -> dict:
+    """check_planner's fleet, from the base worker's start to the close."""
+    import math
+    import uuid
+
+    from dynamo_tpu_torch.engine import TorchEngineWorker
+    from dynamo_tpu_torch.engine.__main__ import build_args, engine_config
+    from dynamo_tpu_torch.obs.fleet import FleetObserver
+    from dynamo_tpu_torch.planner import (
+        PerfModel,
+        Planner,
+        PlannerConfig,
+        SubprocessConnector,
+    )
+    from dynamo_tpu_torch.runtime import DistributedRuntime, RuntimeConfig
+
+    res = {}
+    used = _kernels_of("bf16")
+    args = _planner_args(path, device)
+    rt = await DistributedRuntime(config=RuntimeConfig(
+        discovery_backend="file", discovery_path=disc, event_plane="zmq",
+        tcp_host="127.0.0.1", system_port=-1, admin_token=PLANNER_TOKEN),
+        cluster_id=uuid.uuid4().hex).start()
+    sub = SubprocessConnector("dynamo_tpu_torch.engine", args,
+                              term_grace_s=PLANNER_EXIT_S, log_dir=tmp)
+    conn = _BasePlus(sub)
+    fleet = (await FleetObserver(runtime=rt, interval_s=0.5,
+                                 token=PLANNER_TOKEN).start()
+             if full else None)
+    planner = Planner(rt, "dynamo", "backend", conn, fleet=fleet,
+                      config=PlannerConfig(
+                          min_replicas=1, max_replicas=2, cooldown_s=0.0,
+                          target_active_per_replica=2.0,
+                          down_stable_ticks=1, predictor="constant",
+                          quarantine=False))
+    base = fe = sla = None
+    prefix = "v1/instances/dynamo/backend/generate"
+    try:
+        for fn in used:
+            fn.launches = 0
+        t_base = time.perf_counter()
+        base = await TorchEngineWorker(
+            rt, engine_config(build_args().parse_args(args)),
+            device=device).start()
+        first_iid = base.served.instance_id
+        res["base_ready_s"] = time.perf_counter() - t_base
+        fe = await _Frontend.attach(rt)
+        pipeline = fe.pipeline
+        routed: list = []
+        split: dict = {}
+        tails: list = []
+        record = fe.router._record_decision
+
+        def note(request_id, *a, **kw):
+            d = record(request_id, *a, **kw)
+            routed.append((request_id, d["target"], time.perf_counter()))
+            if request_id.startswith("tail-") and tails:
+                i = int(request_id.split("-")[1])
+                if i < len(tails) and tails[i]:
+                    # a re-route mid-stream: the migration's replay point
+                    split.setdefault(i, len(tails[i]))
+            return d
+
+        fe.router._record_decision = note
+        # the tails' references, one at a time on the base worker
+        tail_refs = [await _pipeline_stream(pipeline, r, []) for r in refs]
+
+        async def instances() -> list:
+            return sorted(v["instance_id"] for v in
+                          (await rt.discovery.get_prefix(prefix)).values())
+
+        await planner.observer.start()
+        if full:
+            pm = PerfModel.load(profile)
+            c1 = {p.isl: p for p in pm.profile.points if p.concurrency == 1}
+            sla = Planner(rt, "dynamo", "backend", _Proposals(conn),
+                          fleet=fleet, perf_model=pm, config=PlannerConfig(
+                              mode="sla", max_replicas=8, cooldown_s=0.0,
+                              predictor="constant", quarantine=False,
+                              itl_target_s=2 * c1[min(c1)].itl_mean_s,
+                              ttft_target_s=2 * c1[max(c1)].ttft_p95_s))
+            await sla.observer.start()
+            await sla.fpm.start()
+        # the closed loop, until the planner grows the fleet
+        grown = asyncio.Event()
+        gen = torch.Generator().manual_seed(25)
+        vocab = base.engine.model_cfg.vocab_size
+        served: list = []
+
+        async def client(c: int) -> None:
+            j = 0
+            while not grown.is_set():
+                req = _planner_request(f"load-{c}-{j}", gen, vocab,
+                                       PLANNER_NEW)
+                toks = await _pipeline_stream(pipeline, req, [])
+                served.append((req.request_id, len(toks)))
+                j += 1
+
+        t_load = time.perf_counter()
+        load = [asyncio.create_task(client(c))
+                for c in range(PLANNER_CLIENTS)]
+        end = time.monotonic() + PLANNER_READY_S
+        while True:
+            applied = await planner.tick()
+            if applied == 2:
+                break
+            if time.monotonic() > end:
+                raise SystemExit(f"planner: no scale-up within "
+                                 f"{PLANNER_READY_S:.0f} s: "
+                                 f"{planner.last_diag}")
+            await asyncio.sleep(0.2)
+        t_up = time.perf_counter()
+        res["scale_up_s"] = t_up - t_load
+        res["up_decision"] = {k: v for k, v in planner.decisions[-1].items()
+                              if k in ("observed_active", "predicted",
+                                       "current", "proposed", "applied")}
+        victim = sub.procs[-1]
+        end = time.monotonic() + PLANNER_READY_S
+        while len(await instances()) < 2:
+            if victim.returncode is not None or time.monotonic() > end:
+                raise SystemExit(f"planner: the spawned worker never "
+                                 f"registered (exit {victim.returncode})")
+            await asyncio.sleep(0.05)
+        res["spawn_to_registered_s"] = time.perf_counter() - t_up
+        (new_iid,) = [i for i in await instances() if i != first_iid]
+        await _await_until(
+            lambda: any(t == new_iid and rid in dict(served)
+                        for rid, t, _ in routed),
+            "a request routed to the spawned worker and served",
+            PLANNER_READY_S)
+        res["spawn_to_routed_s"] = next(
+            t for _, iid, t in routed if iid == new_iid) - t_up
+        log(f"planner: the base worker ready in {res['base_ready_s']:.1f} "
+            f"s; scaled up {res['scale_up_s']:.2f} s after the load began; "
+            f"the spawned worker registered "
+            f"{res['spawn_to_registered_s']:.1f} s after its spawn, first "
+            f"routed {res['spawn_to_routed_s']:.1f} s after it")
+        if full:
+            await _await_until(lambda: sla.observer.aggregate().workers == 2
+                               and sla.observer.aggregate().req_per_s > 0,
+                               "both workers' load and a request rate in "
+                               "the SLA planner", 60.0)
+            await _await_until(lambda: fleet.summary() is not None
+                               and fleet.summary()["live"] == 2,
+                               "both workers live in the fleet scrape", 60.0)
+            await sla.tick()
+            res["sla"] = {"proposed": sla.connector.asked or None,
+                          "diag": {k: sla.last_diag.get(k) for k in (
+                              "itl_capacity", "ttft_rps_capacity", "n_itl",
+                              "n_ttft", "pred_req_rate", "mean_isl",
+                              "itl_correction", "fleet_imbalance",
+                              "fleet_kv_headroom")}}
+            log(f"planner: the SLA planner on the profile: {res['sla']}")
+            n = res["sla"]["diag"]
+            if n["n_itl"] is None or not (
+                    math.isfinite(n["itl_capacity"] or math.nan)
+                    and n["pred_req_rate"] > 0
+                    and 0 <= n["n_itl"] < 10**6 and 0 < n["n_ttft"] < 10**6
+                    and n["fleet_imbalance"] is not None):
+                raise SystemExit(f"planner: SLA proposal {res['sla']}")
+            # the load planner's own tick under the same load: the fleet
+            # summary in its diag, and no action (two workers carry it)
+            await planner.tick()
+            fs = {k: planner.last_diag.get(k) for k in (
+                "fleet_imbalance", "fleet_straggler", "fleet_kv_headroom")}
+            res["fleet_diag"] = fs
+            log(f"planner: the load planner's fleet diag {fs}; fleet "
+                f"summary {fleet.summary()}")
+            if fs["fleet_imbalance"] is None or len(planner.decisions) != 1:
+                raise SystemExit(f"planner: fleet diag {fs}, decisions "
+                                 f"{list(planner.decisions)}")
+        grown.set()
+        await asyncio.gather(*load)
+        if full:
+            res["kube"] = await _kube_scale()
+            log(f"planner: KubernetesConnector on FakeKubeApi {res['kube']}")
+        # the load ends: both workers' caches cleared (so no prefix pulls
+        # a tail to one worker), then two long streams, the second sent
+        # once the first is routed (the router balances them)
+        clear = await rt.namespace("dynamo").component("backend").endpoint(
+            "clear_kv_blocks").client().start()
+        try:
+            for iid in (first_iid, new_iid):
+                [x async for x in clear.generate({}, instance_id=iid)]
+        finally:
+            await clear.close()
+        for iid in (first_iid, new_iid):
+            await fe.wait_blocks(iid, 0, "a cleared worker")
+        mark = len(routed)
+        tasks = []
+        for i in range(2):
+            tails.append([])
+            tasks.append(asyncio.create_task(
+                _pipeline_stream(pipeline, refs[i], tails[i])))
+            await _await_until(
+                lambda: any(rid == refs[i].request_id
+                            for rid, _, _ in routed[mark:]),
+                f"tail {i}'s routing", 60.0)
+        on_victim = [i for i in range(2) if (refs[i].request_id, new_iid)
+                     in {(rid, t) for rid, t, _ in routed[mark:]}]
+        if on_victim:
+            await _await_until(lambda: len(tails[on_victim[0]]) >= 8,
+                               "eight tokens of the spawned worker's stream",
+                               60.0)
+        # the observer's latest samples must be the tails' (the closed
+        # loop's last ones read two active a worker)
+        await _await_until(
+            lambda: planner.observer.aggregate().active_seqs <= len(tails),
+            "load samples with only the tails active", 30.0)
+        t_down = time.perf_counter()
+        applied = await planner.tick()
+        res["drain_s"] = time.perf_counter() - t_down
+        if applied != 1:
+            raise SystemExit(f"planner: the scale-down tick applied "
+                             f"{applied}: {planner.last_diag}")
+        res["victim_exit"] = victim.returncode
+        res["victim_pid"] = victim.pid
+        await asyncio.gather(*tasks)
+        res["decisions"] = [d["applied"] for d in planner.decisions]
+        if res["decisions"] != [2, 1]:
+            raise SystemExit(f"planner: decisions {res['decisions']}")
+        # each tail against its references: a migrated one's continuation
+        # against its prompt and replayed tokens served fresh, alone
+        res["migrated"] = {i: split.get(i) for i in on_victim}
+        got, want, reqs = [], [], []
+        for i in range(2):
+            j = split.get(i, len(tails[i]))
+            got.append((tails[i][:j],))
+            want.append((tail_refs[i][:j],))
+            reqs.append(refs[i])
+            if j < len(tails[i]):
+                await base.engine.clear_kv_blocks()
+                cont = dataclasses.replace(
+                    refs[i], request_id=f"cont-{i}",
+                    token_ids=list(refs[i].token_ids) + tails[i][:j],
+                    stop=dataclasses.replace(
+                        refs[i].stop, max_tokens=len(tails[i]) - j))
+                got.append((tails[i][j:],))
+                want.append((await _pipeline_stream(pipeline, cont, []),))
+                reqs.append(cont)
+        res["parted"] = _check_streams("planner", got, want, reqs,
+                                       base.engine.params,
+                                       base.engine.model_cfg, device)
+        res["base_launches"] = {fn.__name__: fn.launches for fn in used}
+    finally:
+        await planner.close()
+        if sla is not None:
+            await sla.close()
+        if fe is not None:
+            await fe.close()
+        await conn.close()
+        if base is not None:
+            await base.close()
+        if fleet is not None:
+            await fleet.close()
+        await rt.shutdown()
+    res["logs"] = dict(sub.logs)
+    return res
+
 def tp_slab_kernels(cfg, device) -> list:
     """K1 (B = 8) and K3 (T = 2048, and the 32-token verify stream of a
     speculative round), each mode, at a tp=2 rank's slab of cfg (its
@@ -11900,8 +12791,10 @@ def main() -> int:
     import jinja2
 
     log(f"jinja2 {jinja2.__version__} (the frontend's chat templates)")
-    # the KServe gRPC service (frontend/kserve.py, not ported) needs both
-    for name in ("grpc", "google.protobuf"):
+    # the KServe gRPC service (frontend/kserve.py) needs the first two;
+    # the planner phase's workers publish over zmq, and its frontend
+    # builds their checkpoint's tokenizer with `tokenizers`
+    for name in ("grpc", "google.protobuf", "zmq", "tokenizers"):
         try:
             mod = __import__(name, fromlist=["__version__"])
             log(f"{name} imports: version "
@@ -12135,6 +13028,15 @@ def main() -> int:
                          default=str), flush=True)
         print(card, flush=True)
         return 0
+    if sys.argv[1:] == ["--planner"]:
+        # python3 chip_smoke.py --planner: the planner phase at full
+        # depth, with the profiler's CLI, SLA mode, the fleet scrape and
+        # the Kubernetes connector
+        build_kernels()
+        out = check_planner(device, card, cfg.n_layers, full=True)
+        print(json.dumps({"planner": out}, default=str), flush=True)
+        print(card, flush=True)
+        return 0
     if sys.argv[1:] == ["--worker-ab"]:
         # python3 chip_smoke.py --worker-ab: the engine directly against
         # the engine behind the worker, in turns
@@ -12208,7 +13110,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     log(f"decode A/B phase ({SERVE_LAYERS} layers) done at "
         f"{time.perf_counter() - t_start:.1f} s")
-    fused_ab(device, card, params)
+    # one round in the whole check (two with --fused-ab)
+    fused_ab(device, card, params, rounds=1)
     torch.cuda.empty_cache()
     log(f"fused A/B phase done at {time.perf_counter() - t_start:.1f} s")
     # one round in the whole check (two with --prefill-ab): the padded
@@ -12259,8 +13162,26 @@ def main() -> int:
     log(f"sp phase done at {time.perf_counter() - t_start:.1f} s")
     gc.collect()
     torch.cuda.empty_cache()
-    mhx = check_multihost(device, card, TP_LAYERS)
-    log(f"multihost phase done at {time.perf_counter() - t_start:.1f} s")
+    # the multihost and planner phases serve one checkpoint
+    import shutil
+    import tempfile
+
+    shared = tempfile.mkdtemp(prefix="chip-smoke-ckpt-")
+    try:
+        path = os.path.join(shared, f"llama-8b-width-{TP_LAYERS}-layers")
+        t0 = time.perf_counter()
+        write_planner_checkpoint(path, TP_LAYERS, device)
+        log(f"checkpoint of {TP_LAYERS} layers at llama-8b width for the "
+            f"multihost and planner phases written in "
+            f"{time.perf_counter() - t0:.1f} s")
+        mhx = check_multihost(device, card, TP_LAYERS, ckpt=path)
+        log(f"multihost phase done at {time.perf_counter() - t_start:.1f} s")
+        gc.collect()
+        torch.cuda.empty_cache()
+        plx = check_planner(device, card, TP_LAYERS, ckpt=path)
+        log(f"planner phase done at {time.perf_counter() - t_start:.1f} s")
+    finally:
+        shutil.rmtree(shared, ignore_errors=True)
     # rank 1's launches on the tp=2 side of every disagg hop and of the
     # KVBM engine
     tpd_rank1 = {}
@@ -12313,6 +13234,14 @@ def main() -> int:
         # the leader launcher's rank 0 / the follower launcher's rank 1
         k["multihost_launches"] = [
             mhx["launches"][r].get(k["name"], 0) for r in ("rank0", "rank1")]
+        # the gRPC requests of the frontend phase, the profiler's sweep of
+        # the bf16 worker's engine, and the planner's two workers
+        k["kserve_launches"] = frontend["kserve"]["launches"].get(
+            k["name"], 0)
+        k["profiler_launches"] = frontend["profiler"]["launches"].get(
+            k["name"], 0)
+        k["planner_launches"] = [w.get(k["name"], 0)
+                                 for w in plx["launches"]]
     for k in dma:  # the microbench is on no serving path
         k["disagg_prefill_launches"] = k["disagg_decode_launches"] = 0
         k["frontend_disagg_launches"] = [0, 0]
@@ -12326,6 +13255,8 @@ def main() -> int:
         k["tp_features_launches"] = k["sp_launches"] = [0, 0]
         k["multihost_launches"] = [0, 0]
         k["tp_disagg_rank1_launches"] = 0
+        k["kserve_launches"] = k["profiler_launches"] = 0
+        k["planner_launches"] = [0, 0]
     log(f"chip_smoke: every phase passed in "
         f"{time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels + dma}), flush=True)

@@ -5,11 +5,11 @@ A copy of dynamo_tpu/frontend/__main__.py: it takes every flag of the
 JAX frontend's CLI.  Conditional disaggregation (`--disagg-min-isl`,
 `--disagg-ratio`, `--always-disagg`), sticky sessions
 (`--session-affinity-ttl`) and pool scoping (`--pool-scoped`) configure
-the ModelWatcher as JAX's CLI does.  Only `--grpc-port` non-zero (the
-KServe gRPC service) is not ported: it exits 2 with a message naming
-ROADMAP.  Once serving it prints `ready port=<bound port>`; SIGTERM or
-SIGINT closes the service, the watcher and the runtime, and the process
-exits 0.
+the ModelWatcher as JAX's CLI does; `--grpc-port N` (non-zero) also
+serves the KServe v2 gRPC protocol on port N (frontend/kserve.py, which
+alone imports grpc).  Once serving it prints `ready port=<bound port>`;
+SIGTERM or SIGINT closes the services, the watcher and the runtime, and
+the process exits 0.
 """
 
 import argparse
@@ -41,7 +41,7 @@ def build_args() -> argparse.ArgumentParser:
     p.add_argument("--always-disagg", action="store_true")
     p.add_argument("--grpc-port", type=int, default=0,
                    help="serve the KServe v2 gRPC inference protocol on "
-                        "this port (0 = disabled; not ported yet)")
+                        "this port (0 = disabled)")
     p.add_argument(
         "--session-affinity-ttl", type=float,
         default=float(os.environ.get("DYN_SESSION_AFFINITY_TTL", 0)) or None,
@@ -68,11 +68,9 @@ def build_args() -> argparse.ArgumentParser:
 
 
 def unported(args) -> list:
-    """The flags given whose features the port has not yet."""
-    out = []
-    if args.grpc_port:
-        out.append("--grpc-port (frontend/kserve.py)")
-    return out
+    """The flags given whose features the port has not yet: none, every
+    flag of the JAX frontend's CLI is served."""
+    return []
 
 
 async def main(args) -> None:
@@ -123,26 +121,28 @@ async def main(args) -> None:
                       objective=args.slo_objective),
         advertise=True if args.advertise else None,
     ).start()
+    grpc_service = None
+    if args.grpc_port:
+        from .kserve import KserveGrpcService
+
+        grpc_service = await KserveGrpcService(
+            rt, manager, host=args.host, port=args.grpc_port,
+            resolver=service._resolve_pipeline).start()
     print(f"ready port={service.bound_port}", flush=True)
     try:
         await rt.root_token.wait_killed()
     except asyncio.CancelledError:
         pass
+    if grpc_service is not None:
+        await grpc_service.close()
     await service.close()
     await watcher.close()
     await rt.shutdown()
 
 
 def run(argv=None) -> int:
-    """Parse `argv`, refuse what is not ported (2) or serve until a
-    signal (0)."""
-    args = build_args().parse_args(argv)
-    missing = unported(args)
-    if missing:
-        print("not ported yet (ROADMAP, Queue 1): " + ", ".join(missing),
-              file=sys.stderr)
-        return 2
-    asyncio.run(main(args))
+    """Parse `argv` and serve until a signal (0)."""
+    asyncio.run(main(build_args().parse_args(argv)))
     return 0
 
 

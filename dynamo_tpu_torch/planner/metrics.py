@@ -1,21 +1,168 @@
-"""The worker's windowed forward-pass-metrics aggregation.
+"""OBSERVE: the planner's observers, and the worker's windowed
+forward-pass-metrics aggregation.
 
-Copies of dynamo_tpu/planner/metrics.py `FpmWindow` and
-`export_engine_gauges`, the two pieces a worker runs on its own FPM ring
-so a bare `/metrics` scrape sees the headline engine numbers (prefill
-MFU, per-phase roofline MFU/MBU, spec acceptance, queue depth, decode
-tokens/s) without a planner in the deployment.  The roofline reads the
-records' `xla_flops`/`xla_bytes`, which the port's engine fills from its
-per-program cost counts (obs/costs.py) under the JAX wire names.  The
-planner itself (observers, the SLA loop) is not ported: the JAX planner
-reads a torch worker's records over the event plane unchanged.
+A copy of dynamo_tpu/planner/metrics.py.  The planner is a pure consumer
+of what serving already publishes on the event plane:
+
+  * `LoadObserver` reads `load_metrics.{ns}.{component}` (the worker's
+    load loop, engine/worker.py, twice a second): the latest sample per
+    worker, workers that stop publishing expired, aggregated per
+    component; the cumulative counters (requests_total,
+    prompt_tokens_total) differentiated over a sliding window into
+    request rate and mean ISL for SLA planning;
+  * `FpmObserver` reads `fpm.{ns}.{component}` (one record per
+    dispatched program) through `FpmWindow`;
+  * `SloObserver` reads `slo_metrics.{ns}` (obs/slo.py, the frontends'
+    goodput and burn rates).
+
+`FpmWindow` and `export_engine_gauges` are also what a worker runs on
+its own FPM ring, so a bare `/metrics` scrape sees the headline engine
+numbers (prefill MFU, per-phase roofline MFU/MBU, spec acceptance,
+queue depth, decode tokens/s) without a planner in the deployment.  The
+roofline reads the records' `xla_flops`/`xla_bytes`, which the port's
+engine fills from its per-program cost counts (obs/costs.py) under the
+JAX wire names.
 """
 
 from __future__ import annotations
 
+import asyncio
+import logging
 import time
 from collections import deque
+from dataclasses import dataclass, field
 from typing import Deque, Dict, Optional, Tuple
+
+logger = logging.getLogger(__name__)
+
+@dataclass
+class WorkerSample:
+    active_seqs: int = 0
+    kv_usage: float = 0.0
+    itl_ema_s: float = 0.0
+    kv_cache_dtype: str = ""     # "" = worker predates the advertisement
+    seen_t: float = field(default_factory=time.monotonic)
+
+
+@dataclass
+class AggregateLoad:
+    workers: int = 0
+    active_seqs: int = 0
+    mean_kv_usage: float = 0.0
+    req_per_s: float = 0.0       # fleet-wide arrival rate (windowed)
+    mean_isl: float = 0.0        # mean prompt tokens per request (windowed)
+    mean_itl_s: float = 0.0      # mean decode inter-token latency (EMA)
+    # distinct KV storage dtypes live workers report (perf-model
+    # fidelity input: PerfModel.check_kv_dtype)
+    kv_dtypes: tuple = ()
+
+    @property
+    def active_per_worker(self) -> float:
+        return self.active_seqs / self.workers if self.workers else 0.0
+
+
+class LoadObserver:
+    def __init__(self, runtime, namespace: str, component: str,
+                 stale_after_s: float = 3.0, rate_window_s: float = 10.0):
+        self.runtime = runtime
+        self.subject = f"load_metrics.{namespace}.{component}"
+        self.stale_after_s = stale_after_s
+        self.rate_window_s = rate_window_s
+        self.samples: Dict[int, WorkerSample] = {}
+        # per-worker cumulative-counter history: (t, requests, prompt_toks)
+        self._cum: Dict[int, Deque[Tuple[float, int, int]]] = {}
+        self._cancel = asyncio.Event()
+        self._task: Optional[asyncio.Task] = None
+
+    async def start(self) -> "LoadObserver":
+        self._task = asyncio.create_task(self._loop())
+        return self
+
+    async def close(self) -> None:
+        self._cancel.set()
+        if self._task is not None:
+            self._task.cancel()
+            try:
+                await self._task
+            except asyncio.CancelledError:
+                pass
+            self._task = None
+
+    async def _loop(self) -> None:
+        try:
+            async for subj, payload in self.runtime.event_plane.subscribe(
+                self.subject, cancel=self._cancel
+            ):
+                if subj != self.subject:
+                    # subscription is prefix-matched on both planes: a
+                    # sibling component ("backend2" vs "backend") must not
+                    # leak into this fleet's aggregate
+                    continue
+                w = payload.get("worker_id")
+                if w is None:
+                    continue
+                self.samples[w] = WorkerSample(
+                    active_seqs=int(payload.get("active_seqs", 0)),
+                    kv_usage=float(payload.get("kv_usage", 0.0)),
+                    itl_ema_s=float(payload.get("itl_ema_s", 0.0)),
+                    kv_cache_dtype=str(payload.get("kv_cache_dtype", "")),
+                )
+                if "requests_total" in payload:
+                    hist = self._cum.setdefault(w, deque(maxlen=64))
+                    req = int(payload.get("requests_total", 0))
+                    ptok = int(payload.get("prompt_tokens_total", 0))
+                    if hist and (req < hist[-1][1] or ptok < hist[-1][2]):
+                        # restart detected at insertion: endpoints-only
+                        # checks miss a restart whose new counters overtake
+                        # the old window start
+                        hist.clear()
+                    hist.append((time.monotonic(), req, ptok))
+        except asyncio.CancelledError:
+            pass
+
+    def _rates(self, now: float) -> Tuple[float, float]:
+        """(fleet req/s, mean ISL) differentiated over the rate window.
+        Counter resets (worker restart) discard that worker's window."""
+        req_rate = 0.0
+        d_req_total = 0
+        d_tok_total = 0
+        for w, hist in list(self._cum.items()):
+            if w not in self.samples:
+                del self._cum[w]
+                continue
+            while len(hist) > 1 and now - hist[0][0] > self.rate_window_s:
+                hist.popleft()
+            if len(hist) < 2:
+                continue
+            t0, r0, p0 = hist[0]
+            t1, r1, p1 = hist[-1]
+            dt = max(t1 - t0, 1e-6)
+            req_rate += (r1 - r0) / dt
+            d_req_total += r1 - r0
+            d_tok_total += p1 - p0
+        mean_isl = d_tok_total / d_req_total if d_req_total else 0.0
+        return req_rate, mean_isl
+
+    def aggregate(self) -> AggregateLoad:
+        now = time.monotonic()
+        for w in [w for w, s in self.samples.items()
+                  if now - s.seen_t > self.stale_after_s]:
+            del self.samples[w]  # dead or scaled-away worker
+        live = list(self.samples.values())
+        if not live:
+            return AggregateLoad()
+        req_rate, mean_isl = self._rates(now)
+        itls = [s.itl_ema_s for s in live if s.itl_ema_s > 0]
+        return AggregateLoad(
+            workers=len(live),
+            active_seqs=sum(s.active_seqs for s in live),
+            mean_kv_usage=sum(s.kv_usage for s in live) / len(live),
+            req_per_s=req_rate,
+            mean_isl=mean_isl,
+            mean_itl_s=sum(itls) / len(itls) if itls else 0.0,
+            kv_dtypes=tuple(sorted({s.kv_cache_dtype for s in live
+                                    if s.kv_cache_dtype})),
+        )
 
 
 class FpmWindow:
@@ -365,3 +512,146 @@ def export_engine_gauges(metrics, fw: FpmWindow, peak_tflops: float = 0.0,
                                 "per-tier KV occupancy attributed by "
                                 "lifecycle state (obs/kv_ledger.py)",
                                 tier=tier, state=state)
+
+
+class FpmObserver(FpmWindow):
+    """Forward-pass-metrics consumer (ref fpm_publisher.rs + the
+    reference's instrumented_scheduler.py): workers stream one record per
+    dispatched program on `fpm.{ns}.{component}`; this observer keeps a
+    sliding window per worker and derives the measured decode ITL
+    (Σ dispatch gaps / Σ tokens-per-lane) and prefill throughput —
+    finer-grained and fresher than the 0.5s EMA in load_metrics, and the
+    input the SLA planner's perf model regresses on online."""
+
+    def __init__(self, runtime, namespace: str, component: str,
+                 window_s: float = 20.0):
+        super().__init__(window_s=window_s)
+        self.runtime = runtime
+        self.subject = f"fpm.{namespace}.{component}"
+        self._cancel = asyncio.Event()
+        self._task: Optional[asyncio.Task] = None
+
+    async def start(self) -> "FpmObserver":
+        self._task = asyncio.create_task(self._loop())
+        return self
+
+    async def close(self) -> None:
+        self._cancel.set()
+        if self._task is not None:
+            self._task.cancel()
+            try:
+                await self._task
+            except asyncio.CancelledError:
+                pass
+            self._task = None
+
+    async def _loop(self) -> None:
+        try:
+            async for subj, payload in self.runtime.event_plane.subscribe(
+                self.subject, cancel=self._cancel
+            ):
+                if subj != self.subject:
+                    continue
+                w = payload.get("worker_id")
+                steps = payload.get("steps")
+                if w is None or not isinstance(steps, list):
+                    continue
+                for rec in steps:
+                    self.add(w, rec)
+        except asyncio.CancelledError:
+            pass
+
+
+@dataclass
+class SloSample:
+    goodput: float = 1.0
+    max_burn: float = 0.0
+    # phase-attributed burn (obs/slo.py burn_by_phase): TTFT burn says
+    # the prefill side is behind, ITL burn the decode side — the
+    # planner's burn actuation scales the matching pool
+    burn_by_phase: dict = field(default_factory=dict)
+    requests: int = 0
+    seen_t: float = field(default_factory=time.monotonic)
+
+
+class SloObserver:
+    """Frontend SLO telemetry consumer: frontends publish their rolling
+    goodput / burn-rate summary on ``slo_metrics.{namespace}``
+    (obs/slo.py SloPlane.publish) and the planner reads the aggregate
+    into its tick diag — the SLA controller's breach signal, observed at
+    the only place TTFT/ITL are really measured (the client-facing
+    edge), not inferred from worker-side proxies."""
+
+    def __init__(self, runtime, namespace: str, stale_after_s: float = 10.0):
+        self.runtime = runtime
+        self.subject = f"slo_metrics.{namespace}"
+        self.stale_after_s = stale_after_s
+        self.samples: Dict[int, SloSample] = {}
+        self._cancel = asyncio.Event()
+        self._task: Optional[asyncio.Task] = None
+
+    async def start(self) -> "SloObserver":
+        self._task = asyncio.create_task(self._loop())
+        return self
+
+    async def close(self) -> None:
+        self._cancel.set()
+        if self._task is not None:
+            self._task.cancel()
+            try:
+                await self._task
+            except asyncio.CancelledError:
+                pass
+            self._task = None
+
+    async def _loop(self) -> None:
+        try:
+            async for subj, payload in self.runtime.event_plane.subscribe(
+                self.subject, cancel=self._cancel
+            ):
+                if subj != self.subject:
+                    continue
+                fid = payload.get("frontend_id")
+                if fid is None:
+                    continue
+                burns = payload.get("burn") or {}
+                phases = payload.get("burn_by_phase") or {}
+                self.samples[fid] = SloSample(
+                    goodput=float(payload.get("goodput", 1.0)),
+                    max_burn=max((float(v) for v in burns.values()),
+                                 default=0.0),
+                    burn_by_phase={str(k): float(v)
+                                   for k, v in phases.items()},
+                    requests=int(payload.get("requests", 0)),
+                )
+        except asyncio.CancelledError:
+            pass
+
+    def aggregate(self) -> Optional[dict]:
+        """Request-weighted goodput and worst burn rate across live
+        frontends; None when no frontend reported recently (an SLO
+        plane that is off must not read as 'all requests good')."""
+        now = time.monotonic()
+        for fid in [f for f, s in self.samples.items()
+                    if now - s.seen_t > self.stale_after_s]:
+            del self.samples[fid]
+        live = list(self.samples.values())
+        if not live:
+            return None
+        total = sum(s.requests for s in live)
+        if total:
+            goodput = sum(s.goodput * s.requests for s in live) / total
+        else:
+            goodput = min(s.goodput for s in live)
+        phases: Dict[str, float] = {}
+        for s in live:
+            for k, v in s.burn_by_phase.items():
+                if v > phases.get(k, 0.0):
+                    phases[k] = v
+        return {
+            "goodput": round(goodput, 4),
+            "max_burn": round(max(s.max_burn for s in live), 4),
+            "burn_by_phase": {k: round(v, 4) for k, v in phases.items()},
+            "requests": total,
+            "frontends": len(live),
+        }

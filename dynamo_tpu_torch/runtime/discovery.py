@@ -15,9 +15,12 @@ Backends:
     for multi-process single-host clusters;
   * EtcdDiscovery (runtime/etcd.py) and KubeDiscovery (runtime/kube.py),
     over the port's standard-library HTTP client (runtime/http.py).
-The chaos seams of the JAX module and the planner's quarantine actuation
-are left out; the heartbeat still honours quarantine markers a planner
-writes.
+The JAX module's chaos seams are left out.  The planner's straggler
+quarantine withdraws a worker on its behalf (`withdraw_instance`,
+`restore_instance`, `mark_quarantined`, `unmark_quarantined`), and the
+heartbeat honours the markers it writes; a `read_only` FileDiscovery
+(an observer such as `python -m dynamo_tpu_torch.obs.fleet`) never
+reaps an expired lease.
 """
 
 from __future__ import annotations
@@ -219,6 +222,89 @@ class DiscoveryBackend:
 
 
 # ---------------------------------------------------------------------------
+# Third-party instance withdrawal (planner straggler quarantine)
+# ---------------------------------------------------------------------------
+
+
+async def withdraw_instance(discovery: "DiscoveryBackend",
+                            instance_id: int) -> Dict[str, Dict[str, Any]]:
+    """Withdraw ONE worker's routing identity from discovery ON ITS
+    BEHALF — the planner's straggler-quarantine actuation
+    (planner/planner.py): a lease-withdrawal MARK, not a process kill.
+    The quarantined worker keeps running (its load loop, canary and
+    debug surface stay up); routers just stop seeing it.
+
+    Deletes every key under the instance and MDC prefixes whose last
+    path segment is the instance id, and returns the stashed
+    key→value map :func:`restore_instance` re-registers on readmission.
+    Durable against the worker's own heartbeat because the heartbeat is
+    marker-gated: it refreshes existing keys, and re-registers a
+    missing owned key ONLY when no ``v1/quarantine/{id}`` marker covers
+    it (FileDiscovery._reclaim) — so the hold survives worker beats for
+    exactly as long as the holder's leased marker survives, and a
+    holder that dies without readmitting releases the worker instead of
+    orphaning it.  An empty stash means the instance was already gone
+    (raced a drain/crash) — nothing to hold."""
+    stash: Dict[str, Dict[str, Any]] = {}
+    suffix = f"/{int(instance_id)}"
+    for prefix in (INSTANCE_PREFIX, MDC_PREFIX):
+        snap = await discovery.get_prefix(prefix)
+        for k, v in snap.items():
+            if k.endswith(suffix):
+                stash[k] = v
+    for k in stash:
+        await discovery.delete(k)
+    return stash
+
+
+async def restore_instance(discovery: "DiscoveryBackend",
+                           stash: Dict[str, Dict[str, Any]]) -> None:
+    """Re-register a withdrawn instance's stashed keys (quarantine
+    readmission).  UNLEASED on the restorer's side: the worker still
+    owns the keys (its heartbeat kept them in `_owned` through the
+    hold), so it resumes refreshing the recreated paths immediately —
+    and the restorer's own clean exit must not revoke a healthy
+    worker's just-readmitted identity along with the restorer's lease."""
+    for k, v in stash.items():
+        await discovery.put(k, v, lease=False)
+
+
+async def mark_quarantined(discovery: "DiscoveryBackend", instance_id: int,
+                           stash: Dict[str, Dict[str, Any]],
+                           info: Optional[Dict[str, Any]] = None) -> None:
+    """Publish the quarantine breadcrumb for a withdrawn worker: a
+    leased ``v1/quarantine/{id}`` key carrying enough of the stashed
+    identity (namespace/component/system_addr) for the fleet aggregator
+    to keep the worker on the board — and keep SCRAPING it, since the
+    quarantined process is alive by design.  Leased under the holder's
+    lease ON PURPOSE: the marker IS the hold's liveness.  A clean
+    shutdown readmits via release_all; a holder that CRASHES mid-hold
+    lets the marker expire with its lease, and the worker's own
+    marker-gated heartbeat (FileDiscovery._reclaim) then restores the
+    withdrawn identity — a dead planner releases its holds instead of
+    orphaning workers."""
+    rec: Dict[str, Any] = {"instance_id": int(instance_id),
+                           "since_unix": time.time()}
+    for v in stash.values():
+        if not isinstance(v, dict):
+            continue
+        meta = v.get("metadata") or {}
+        if v.get("namespace") and "namespace" not in rec:
+            rec["namespace"] = v["namespace"]
+            rec["component"] = v.get("component", "")
+        if meta.get("system_addr") and "system_addr" not in rec:
+            rec["system_addr"] = meta["system_addr"]
+    rec.update(info or {})
+    await discovery.put(f"{QUARANTINE_PREFIX}/{int(instance_id)}", rec,
+                        lease=True)
+
+
+async def unmark_quarantined(discovery: "DiscoveryBackend",
+                             instance_id: int) -> None:
+    await discovery.delete(f"{QUARANTINE_PREFIX}/{int(instance_id)}")
+
+
+# ---------------------------------------------------------------------------
 # In-memory backend (per-process clusters, the unit/integration test default)
 # ---------------------------------------------------------------------------
 
@@ -307,10 +393,17 @@ class FileDiscovery(DiscoveryBackend):
     (interval default 100ms) — fine for control-plane rates.
     """
 
-    def __init__(self, root: str, ttl_s: float = 5.0, poll_s: float = 0.1):
+    def __init__(self, root: str, ttl_s: float = 5.0, poll_s: float = 0.1,
+                 read_only: bool = False):
         self.root = root
         self.ttl_s = ttl_s
         self.poll_s = poll_s
+        # read_only: an observer (fleet CLI, dashboards) that must never
+        # reap expired files — reaping is a participant's job, and an
+        # observer launched with a mismatched DYN_LEASE_TTL would
+        # otherwise unlink LIVE leases (heartbeats only utime existing
+        # paths, so a reaped key never comes back)
+        self.read_only = read_only
         self._owned: set[str] = set()
         self._owned_values: Dict[str, Dict[str, Any]] = {}
         self._hb_task: Optional[asyncio.Task] = None
@@ -428,11 +521,12 @@ class FileDiscovery(DiscoveryBackend):
                 try:
                     st = os.stat(full)
                     if now - st.st_mtime > self.ttl_s:
-                        # expired lease — reap so watchers converge
-                        try:
-                            os.unlink(full)
-                        except OSError:
-                            pass
+                        if not self.read_only:
+                            # expired lease — reap so watchers converge
+                            try:
+                                os.unlink(full)
+                            except OSError:
+                                pass
                         continue
                     with open(full) as f:
                         out[key] = json.load(f)
@@ -486,7 +580,11 @@ class FileDiscovery(DiscoveryBackend):
 
 def make_discovery(backend: str, *, path: str = "", ttl_s: float = 5.0,
                    cluster_id: str = "default",
-                   etcd_endpoint: str = "") -> DiscoveryBackend:
+                   etcd_endpoint: str = "",
+                   read_only: bool = False) -> DiscoveryBackend:
+    """read_only: observer processes (fleet CLI, dashboards) that must
+    not mutate cluster state — only the file backend's expired-lease
+    reaping is affected."""
     if backend == "mem":
         return MemDiscovery(cluster_id=cluster_id)
     if backend == "file":
@@ -494,7 +592,7 @@ def make_discovery(backend: str, *, path: str = "", ttl_s: float = 5.0,
         # etcd backend for anything resembling production
         if not path:
             raise ValueError("file discovery requires DYN_DISCOVERY_PATH")
-        return FileDiscovery(path, ttl_s=ttl_s)
+        return FileDiscovery(path, ttl_s=ttl_s, read_only=read_only)
     if backend == "etcd":
         from .etcd import EtcdDiscovery
 

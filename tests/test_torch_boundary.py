@@ -61,7 +61,12 @@ REQUIRED = ("models/loader.py", "models/weight_cache.py",
             "frontend/pipeline.py", "frontend/service.py",
             "frontend/__main__.py", "disagg/prefill_router.py",
             "multimodal/hop.py", "frontend/anthropic.py",
-            "frontend/openai_extra.py", "router/native_indexer.py")
+            "frontend/openai_extra.py", "router/native_indexer.py",
+            "frontend/kserve.py", "frontend/kserve_pb2.py",
+            "profiler/__init__.py", "profiler/profile.py",
+            "profiler/__main__.py", "planner/predictor.py",
+            "planner/perf_model.py", "planner/connectors.py",
+            "planner/planner.py", "planner/__main__.py", "obs/fleet.py")
 # the KVBM tiers' fields (ported with kvbm/) and the knobs that came
 # with them, at the JAX engine's defaults
 KVBM_FIELDS = ("host_cache_blocks", "disk_cache_dir", "disk_cache_blocks",

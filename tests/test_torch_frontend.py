@@ -18,8 +18,9 @@
   alike to both frontends, migrates and completes as under JAX; a client
   that drops a stream cancels it at the worker, through either frontend.
 * The CLI: `python -m dynamo_tpu_torch.frontend --router-mode kv` prints
-  its ready line, serves a torch CLI worker over file discovery, exits 0
-  on SIGTERM, and refuses `--grpc-port` (not ported) with exit 2.
+  its ready line, serves a torch CLI worker over file discovery (HTTP,
+  and KServe on `--grpc-port` with the same text), exits 0 on SIGTERM,
+  and serves KServe alone with no worker.
 """
 
 import asyncio
@@ -715,13 +716,66 @@ def _ready_line(proc, what: str) -> str:
     return line
 
 
-@pytest.mark.parametrize("flags", [["--grpc-port", "9000"]])
-def test_cli_refuses_unported_flags(flags, capsys):
-    from dynamo_tpu_torch.frontend.__main__ import run
+def _free_port() -> int:
+    import socket
 
-    assert run(["--port", "0", *flags]) == 2
-    out = capsys.readouterr()
-    assert "not ported yet (ROADMAP" in out.err and "ready" not in out.out
+    with socket.socket() as sk:
+        sk.bind(("127.0.0.1", 0))
+        return sk.getsockname()[1]
+
+
+async def _kserve(port: int, name: str, req, resp_cls):
+    """One unary KServe RPC to 127.0.0.1:`port`."""
+    import grpc.aio
+
+    from dynamo_tpu_torch.frontend.kserve import SERVICE
+
+    async with grpc.aio.insecure_channel(f"127.0.0.1:{port}") as ch:
+        call = ch.unary_unary(
+            f"/{SERVICE}/{name}",
+            request_serializer=lambda m: m.SerializeToString(),
+            response_deserializer=resp_cls.FromString)
+        return await asyncio.wait_for(call(req), WAIT_S)
+
+
+@pytest.mark.parametrize("flags", [["--grpc-port"]])
+def test_cli_refuses_unported_flags(flags, tmp_path):
+    """No flag of the JAX frontend's CLI is refused any more: with
+    `--grpc-port` on a free port the CLI serves KServe beside HTTP (live,
+    not ready with no model, the model unknown) and exits 0 on SIGTERM."""
+    from dynamo_tpu_torch.frontend import kserve_pb2 as pb
+
+    port = _free_port()
+    env = _env(DYN_DISCOVERY_BACKEND="file",
+               DYN_DISCOVERY_PATH=str(tmp_path / "cluster"))
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "dynamo_tpu_torch.frontend", "--host",
+         "127.0.0.1", "--port", "0", *flags, str(port)],
+        cwd=REPO, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+        env=env)
+    try:
+        assert _ready_line(proc, "the frontend").startswith("ready port=")
+
+        async def ask():
+            return (
+                await _kserve(port, "ServerLive", pb.ServerLiveRequest(),
+                              pb.ServerLiveResponse),
+                await _kserve(port, "ServerReady", pb.ServerReadyRequest(),
+                              pb.ServerReadyResponse),
+                await _kserve(port, "ModelReady",
+                              pb.ModelReadyRequest(name="tiny"),
+                              pb.ModelReadyResponse))
+
+        live, ready, model = asyncio.run(ask())
+        assert live.live and not ready.ready and not model.ready
+        proc.send_signal(signal.SIGTERM)
+        assert proc.wait(timeout=60) == 0, proc.stderr.read()
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait(timeout=10)
+        proc.stdout.close()
+        proc.stderr.close()
 
 
 def test_cli_takes_every_jax_flag():
@@ -737,12 +791,9 @@ def test_cli_takes_every_jax_flag():
 
 
 def test_cli_serves_a_torch_cli_worker_and_exits_on_sigterm(tmp_path):
-    refused = subprocess.run(
-        [sys.executable, "-m", "dynamo_tpu_torch.frontend", "--port", "0",
-         "--grpc-port", "9000"], cwd=REPO, env=_env(), capture_output=True,
-        text=True, timeout=120)
-    assert refused.returncode == 2, refused.stderr
-    assert "not ported yet (ROADMAP" in refused.stderr
+    from dynamo_tpu_torch.frontend import kserve_pb2 as pb
+
+    grpc_port = _free_port()
     env = _env(DYN_DISCOVERY_BACKEND="file",
                DYN_DISCOVERY_PATH=str(tmp_path / "cluster"))
     worker = subprocess.Popen(
@@ -753,7 +804,8 @@ def test_cli_serves_a_torch_cli_worker_and_exits_on_sigterm(tmp_path):
         env=env)
     frontend = subprocess.Popen(
         [sys.executable, "-m", "dynamo_tpu_torch.frontend", "--host",
-         "127.0.0.1", "--port", "0", "--router-mode", "kv"],
+         "127.0.0.1", "--port", "0", "--router-mode", "kv",
+         "--grpc-port", str(grpc_port)],
         cwd=REPO, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
         env=env)
     try:
@@ -782,6 +834,18 @@ def test_cli_serves_a_torch_cli_worker_and_exits_on_sigterm(tmp_path):
                     assert r.status == 200, await r.text()
                     data = await r.json()
             assert data["usage"]["completion_tokens"] == 4
+            # the same request through the CLI's KServe service
+            req = pb.ModelInferRequest(model_name="tiny", id="cli-grpc")
+            t = req.inputs.add()
+            t.name, t.datatype = "text_input", "BYTES"
+            t.contents.bytes_contents.append(b"hello")
+            req.parameters["max_tokens"].int64_param = 4
+            req.parameters["ignore_eos"].bool_param = True
+            resp = await _kserve(grpc_port, "ModelInfer", req,
+                                 pb.ModelInferResponse)
+            assert resp.outputs[0].contents.bytes_contents[0].decode() \
+                == data["choices"][0]["text"]
+            assert resp.parameters["finish_reason"].string_param == "length"
 
         asyncio.run(drive())
         frontend.send_signal(signal.SIGTERM)
