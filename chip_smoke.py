@@ -39,6 +39,11 @@
     python3 chip_smoke.py --sp            # sequence parallelism
     python3 chip_smoke.py --multihost     # a tp=2 mesh over a leader and
                                           # a follower launcher
+    python3 chip_smoke.py --grouter       # an agg and a disagg pool on
+                                          # the card behind the global
+                                          # router, full depth
+    python3 chip_smoke.py --loadgen       # loadgen's replay of 128 rows
+                                          # through a full-depth worker
 
 Builds the port's CUDA kernels from csrc/ (three nvcc processes started
 together), holds each entry point (K1 and K3, each in its bf16 and its
@@ -84,8 +89,13 @@ against /v1/chat/completions, count_tokens, a chained /v1/responses, a
 multipart /v1/files upload run as a /v1/batches batch against the same
 requests sent directly, /debug/requests, and, on a second frontend
 with a session-affinity TTL, a session's three turns bound, reused and
-released); then the encoder phase (below), the
-disagg phase (below), the pair across two processes (below) and the
+released), KServe, the profiler's sweep and loadgen's replay of a
+16-row synthesized trace through the worker and then through a port
+MockerWorker on the same runtime (`_loadgen_phase`,
+`loadgen_launches`); then the encoder phase (below), the
+disagg phase (below, which ends with the pair as the disagg pool behind
+the port's global router beside a mocker agg pool, `_grouter_short`,
+`grouter_launches`), the pair across two processes (below) and the
 spec phase (below).  These llama-8b phases run all 32 layers (the
 pair's second process builds the preset, which has no depth flag; the
 spec phase's n-gram turns must propose, which depends on the model's
@@ -2573,6 +2583,8 @@ def check_worker(device, card: str, cfg, params, direct) -> tuple:
             frontend = await _frontend_phase(rt, worker, params, used)
             frontend["profiler"] = await _profiler_phase(worker.engine,
                                                          used)
+            frontend["loadgen"] = await _loadgen_phase(rt, worker, client,
+                                                       used, LOADGEN_N)
             t_st = time.perf_counter()
             await _status_drain(rt, worker, polled)
             status_s[0] += time.perf_counter() - t_st
@@ -3838,6 +3850,8 @@ def check_disagg(device, card: str, params) -> dict:
             # the same pair behind the port's frontend (runs a and b)
             result["frontend"] = await _disagg_frontend(
                 pw, dw, pclient, dclient, text_reqs, k1, k3)
+            # the pair as the disagg pool behind the global router
+            result["grouter"] = await _grouter_short(pw, dw, (k1, k3))
             for w, built, g in ((pw, pbuilt, pw.engine.prefill_graphs),
                                 (dw, dbuilt, dw.engine.graphs)):
                 if g.counts != built:
@@ -3942,6 +3956,7 @@ def check_disagg(device, card: str, params) -> dict:
            "ref_one": ref_one}
     out["frontend_launches"] = _check_disagg_frontend(
         result["frontend"], text_reqs, ref_text, params, mc, device, card)
+    out["grouter"] = result["grouter"]
     out["launches"].update(check_disagg_int8(device, card, params))
     return out
 
@@ -8738,36 +8753,7 @@ class _Frontend:
 
     async def sse(self, body: dict, first: Optional[asyncio.Event] = None,
                   stop_after: Optional[int] = None) -> dict:
-        """One streamed completion: its text, events, usage, and seconds
-        from sending to the first event and to the last.  With
-        `stop_after` the client drops the connection after that many
-        events."""
-        parts, ttft, last, usage, n = [], None, None, None, 0
-        t0 = time.perf_counter()
-        async with self.http.stream("POST", "/v1/completions", json=body,
-                                    read_timeout=FRONTEND_WAIT_S) as lines:
-            async for line in lines:
-                line = line.strip()
-                if not line.startswith(b"data: ") or line == b"data: [DONE]":
-                    continue
-                ev = json.loads(line[len(b"data: "):])
-                if "error" in ev:
-                    raise SystemExit(f"frontend: {body['request_id']}: "
-                                     f"{ev['error']}")
-                usage = ev.get("usage") or usage
-                for ch in ev["choices"]:
-                    now = time.perf_counter() - t0
-                    if ttft is None:
-                        ttft = now
-                        if first is not None:
-                            first.set()
-                    last = now
-                    parts.append(ch["text"])
-                    n += 1
-                if stop_after is not None and n >= stop_after:
-                    break
-        return {"text": "".join(parts), "ttft": ttft, "last": last,
-                "usage": usage, "events": n}
+        return await _sse(self.http, body, first, stop_after)
 
     async def wait_blocks(self, iid: int, n: int, what: str) -> None:
         end = time.monotonic() + FRONTEND_WAIT_S
@@ -8793,6 +8779,40 @@ class _Frontend:
                 await asyncio.sleep(0.02)
         finally:
             asyncio.get_running_loop().set_task_factory(self.prev_factory)
+
+
+async def _sse(http, body: dict, first: Optional[asyncio.Event] = None,
+               stop_after: Optional[int] = None) -> dict:
+    """One streamed completion through the port's HTTP client `http`:
+    its text, events, usage, and seconds from sending to the first event
+    and to the last.  With `stop_after` the client drops the connection
+    after that many events."""
+    parts, ttft, last, usage, n = [], None, None, None, 0
+    t0 = time.perf_counter()
+    async with http.stream("POST", "/v1/completions", json=body,
+                           read_timeout=FRONTEND_WAIT_S) as lines:
+        async for line in lines:
+            line = line.strip()
+            if not line.startswith(b"data: ") or line == b"data: [DONE]":
+                continue
+            ev = json.loads(line[len(b"data: "):])
+            if "error" in ev:
+                raise SystemExit(f"frontend: {body['request_id']}: "
+                                 f"{ev['error']}")
+            usage = ev.get("usage") or usage
+            for ch in ev["choices"]:
+                now = time.perf_counter() - t0
+                if ttft is None:
+                    ttft = now
+                    if first is not None:
+                        first.set()
+                last = now
+                parts.append(ch["text"])
+                n += 1
+            if stop_after is not None and n >= stop_after:
+                break
+    return {"text": "".join(parts), "ttft": ttft, "last": last,
+            "usage": usage, "events": n}
 
 
 async def _rp_stream(client, req, first: Optional[asyncio.Event] = None,
@@ -12667,6 +12687,428 @@ async def _planner_cycle(device, disc: str, path: str, refs, profile,
     res["logs"] = dict(sub.logs)
     return res
 
+# ---------------------------------------------------------------------------
+# the global router and loadgen (with the mocker beside them)
+# ---------------------------------------------------------------------------
+
+# the global router estimates ~4 characters a token (a real tokenizer's
+# rate) while the mock tokenizer counts one a character, so a threshold
+# of N prompt tokens is N // 4 to the router: the whole run's short form
+# routes at the pair frontend's own DISAGG_MIN_ISL (1024 tokens: the
+# 1800- and 1224-character prompts go disagg, the 500-, 100- and
+# 37-character ones agg), --grouter at the CLI's --disagg-min-isl 2048
+# (prompts of 2100 and 4000 characters go disagg)
+GROUTER_SHORT_MIN_ISL = DISAGG_MIN_ISL // 4
+GROUTER_FULL_MIN_ISL = 2048 // 4
+GROUTER_LONG_CHARS = (2100, 4000)
+GROUTER_SHORT_CHARS = (500, 100, 37)
+GROUTER_BLOCKS_PER_SEQ = 32  # --grouter's engines: 4096 tokens of context
+GROUTER_AGG_NS, GROUTER_DISAGG_NS = "agg", "dynamo"
+GROUTER_ADDED_ROUNDS = 8
+LOADGEN_N, LOADGEN_FULL_N = 16, 128
+LOADGEN_SEED = 25
+LOADGEN_SLO_TTFT_S, LOADGEN_SLO_ITL_S = 2.0, 0.025
+
+
+class _PoolFrontend:
+    """A pool's frontend: the port's ModelWatcher (kv mode) over the
+    pool's namespace alone, with `disagg_config` for a disagg pool, and
+    an HttpService on port 0 that advertises itself in discovery (a
+    frontend instance is what makes a namespace a pool to the global
+    router), with an HTTP client of the port."""
+
+    @classmethod
+    async def start(cls, rt, ns: str, model: str,
+                    disagg_config=None) -> "_PoolFrontend":
+        from dynamo_tpu_torch.frontend.service import (
+            HttpService,
+            ModelManager,
+            ModelWatcher,
+        )
+        from dynamo_tpu_torch.router.kv_router import make_kv_route_factory
+        from dynamo_tpu_torch.runtime import RouterMode
+        from dynamo_tpu_torch.runtime.http import HttpClient
+
+        self = cls()
+        self.ns = ns
+        self.manager = ModelManager()
+        self.watcher = await ModelWatcher(
+            rt, self.manager, router_mode=RouterMode.KV,
+            make_route=make_kv_route_factory(rt), namespaces={ns},
+            disagg_config=disagg_config).start()
+        self.service = await HttpService(rt, self.manager, host="127.0.0.1",
+                                         port=0, advertise=True).start()
+        self.http = HttpClient(f"http://127.0.0.1:{self.service.bound_port}")
+        end = time.monotonic() + FRONTEND_WAIT_S
+        while not (self.manager.get(model) is not None
+                   and self.manager.get(model).client.instances
+                   and (disagg_config is None
+                        or (self.manager.get(model).prefill is not None
+                            and self.manager.get(
+                                model).prefill.client.instance_ids))):
+            if time.monotonic() > end:
+                raise SystemExit(f"grouter: pool {ns}'s frontend never "
+                                 f"registered {model}")
+            await asyncio.sleep(0.02)
+        route = self.manager.get(model).migration.route
+        self.router = getattr(route, "inner", None) or route
+        return self
+
+    async def queue_ms(self) -> float:
+        """The frontend's received-to-dispatch mean (ms) so far, from its
+        dynamo_frontend_queue_seconds histogram."""
+        samples = _parse_metrics(
+            (await self.http.request("GET", "/metrics")).body.decode())
+        n = sum(v for name, _, v in samples
+                if name == "dynamo_frontend_queue_seconds_count")
+        tot = sum(v for name, _, v in samples
+                  if name == "dynamo_frontend_queue_seconds_sum")
+        return 1e3 * tot / n if n else float("nan")
+
+    async def close(self) -> None:
+        await self.http.close()
+        await self.service.close()
+        await self.watcher.close()
+
+
+def _grouter_texts(full: bool) -> list:
+    """The global router's prompts: the frontend phase's five in the whole
+    run's short form, two long and three short ones with --grouter."""
+    if not full:
+        return _frontend_texts()
+    rng = np.random.default_rng(7)
+    lengths = (GROUTER_LONG_CHARS[0], GROUTER_SHORT_CHARS[0],
+               GROUTER_LONG_CHARS[1], *GROUTER_SHORT_CHARS[1:])
+    return ["".join(chr(c) for c in rng.integers(32, 127, n))
+            for n in lengths]
+
+
+async def _grouter_phase(cluster: str, pools: dict, model: str, texts: list,
+                         used, config_kw: dict) -> dict:
+    """The port's global router (global_router/service.py) over two pools
+    of one discovery cluster: `pools` maps "agg" and "disagg" to {"rt":
+    the pool's runtime (its namespace is the pool's), "engines": the
+    TorchEngines to clear between requests ([] for a mocker pool),
+    "decode": the decode worker's instance id in a disagg pool}.  Each
+    pool gets its own advertised frontend (_PoolFrontend; the disagg one
+    with the conditional-disagg thresholds DISAGG_MIN_ISL / DISAGG_RATIO).
+    Each prompt, one at a time as a greedy streamed completion of 32
+    tokens: from cleared caches through the global router (the main
+    path: the K1/K3 counts set to 0 just before, read just after, by the
+    pool it went to), then from cleared caches the same body sent to
+    that pool's frontend directly.  Exits unless every request went to
+    the pool its (estimated ISL, ratio) asks for (GlobalRouterConfig
+    `config_kw`), every text through the router equals the direct one,
+    the route counts on the router's /metrics agree, and a card pool
+    launched both kernels.  Then GROUTER_ADDED_ROUNDS turns of the
+    shortest prompt to the agg pool through the router and directly.
+    Returns the launches by pool, the route counts,
+    route_latency_quantiles, the router's added time a request (TTFT
+    through it less TTFT direct, ms; each request's and the turns'
+    median) beside each frontend's received-to-dispatch, and the phase's
+    seconds."""
+    from dynamo_tpu_torch.disagg.prefill_router import ConditionalDisaggConfig
+    from dynamo_tpu_torch.global_router import (
+        GlobalRouterConfig,
+        GlobalRouterService,
+    )
+    from dynamo_tpu_torch.global_router.policy import estimate_isl
+    from dynamo_tpu_torch.runtime import DistributedRuntime, RuntimeConfig
+    from dynamo_tpu_torch.runtime.http import HttpClient
+
+    t_phase = time.perf_counter()
+    config = GlobalRouterConfig(**config_kw)
+    fes = {}
+    for kind, pool in pools.items():
+        fes[kind] = await _PoolFrontend.start(
+            pool["rt"], pool["rt"].config.namespace, model,
+            ConditionalDisaggConfig(min_effective_isl=DISAGG_MIN_ISL,
+                                    min_effective_ratio=DISAGG_RATIO)
+            if kind == "disagg" else None)
+    grt = await DistributedRuntime(config=RuntimeConfig(
+        discovery_backend="mem", event_plane="inproc", tcp_host="127.0.0.1",
+        namespace="global"), cluster_id=cluster).start()
+    grouter = await GlobalRouterService(
+        grt, host="127.0.0.1", port=0, config=config,
+        staleness_scrape_s=0.5).start()
+    http = HttpClient(f"http://127.0.0.1:{grouter.port}")
+
+    async def cleared(kind: str) -> None:
+        pool = pools[kind]
+        if not pool["engines"]:
+            return
+        for eng in pool["engines"]:
+            await eng.clear_kv_blocks()
+        iid = pool["decode"]
+        end = time.monotonic() + FRONTEND_WAIT_S
+        while fes[kind].router.indexer.worker_block_count(iid):
+            if time.monotonic() > end:
+                raise SystemExit(f"grouter: pool {kind}'s index never "
+                                 "emptied")
+            await asyncio.sleep(0.01)
+        await asyncio.sleep(1.1)
+
+    launches = {kind: {fn.__name__: 0 for fn in used} for kind in pools}
+    runs = []
+    try:
+        end = time.monotonic() + FRONTEND_WAIT_S
+        while not (len(grouter.directory.pools_for_model(model)) == 2
+                   and any(p.is_disagg for p in
+                           grouter.directory.pools_for_model(model))):
+            if time.monotonic() > end:
+                raise SystemExit("grouter: the pools never came up")
+            await asyncio.sleep(0.02)
+        for i, text in enumerate(texts):
+            body = dict(_frontend_body(model, text, f"gr-{i}"),
+                        seed=100 + i)
+            isl = estimate_isl(body)
+            kind = ("disagg" if isl >= config.disagg_min_isl
+                    and isl / (isl + 32) >= config.disagg_ratio else "agg")
+            await cleared(kind)
+            for fn in used:
+                fn.launches = 0
+            via = await _sse(http, body)
+            for fn in used:
+                launches[kind][fn.__name__] += fn.launches
+            await cleared(kind)
+            direct = await _sse(fes[kind].http, body)
+            runs.append({"kind": kind, "chars": len(text), "isl": isl,
+                         "equal": via["text"] == direct["text"]
+                         and via["usage"] == direct["usage"],
+                         "added_ms": 1e3 * (via["ttft"] - direct["ttft"])})
+        # the route counts of the requests above
+        metrics = (await http.request("GET", "/metrics")).body.decode()
+        # the router's added time: the shortest prompt to the agg pool
+        # through the router and directly, in turns (ABBA), warm caches
+        short = min(texts, key=len)
+        added = []
+        for j in range(GROUTER_ADDED_ROUNDS):
+            ttft = {}
+            for way in (("via", "direct") if j % 2 == 0
+                        else ("direct", "via")):
+                body = dict(_frontend_body(model, short, f"gr-add-{j}-{way}"),
+                            seed=7)
+                ttft[way] = (await _sse(http if way == "via"
+                                        else fes["agg"].http, body))["ttft"]
+            added.append(1e3 * (ttft["via"] - ttft["direct"]))
+        await asyncio.sleep(0.6)  # one staleness scrape of each pool
+        state = grouter.debug_state()
+        queue_ms = {kind: await fe.queue_ms() for kind, fe in fes.items()}
+    finally:
+        await http.close()
+        await grouter.close()
+        await grt.shutdown()
+        for fe in fes.values():
+            await fe.close()
+    samples = _parse_metrics(metrics)
+    routed = {f"{lab['pool']}/{lab['reason']}": v for name, lab, v in samples
+              if name == "dynamo_grouter_routed_total"}
+    want = {}
+    for r in runs:
+        ns = pools[r["kind"]]["rt"].config.namespace
+        key = f"{ns}/{r['kind']}"
+        want[key] = want.get(key, 0) + 1
+    out = {"launches": launches, "routed": routed,
+           "route_latency": state["route_latency"],
+           "added_ms": [round(r["added_ms"], 3) for r in runs],
+           "added_ms_median": float(np.median(added)),
+           "queue_ms": queue_ms, "staleness": state["staleness"],
+           "runs": [(r["kind"], r["chars"], r["isl"]) for r in runs],
+           "seconds": time.perf_counter() - t_phase}
+    log(f"grouter: requests (pool, characters, estimated ISL) {out['runs']}; "
+        f"route counts on /metrics {routed}; route latency (received to "
+        f"forward started) {out['route_latency']}; added time a request "
+        f"(TTFT through the router less TTFT direct) ms {out['added_ms']}, "
+        f"median of {GROUTER_ADDED_ROUNDS} warm turns of the shortest prompt "
+        f"to the agg pool {out['added_ms_median']:.3f} ms; "
+        f"the pool frontends' own received-to-dispatch ms {queue_ms}; "
+        f"staleness scrape {out['staleness']}; texts equal to the direct "
+        f"hits {[r['equal'] for r in runs]}; phase {out['seconds']:.1f} s")
+    log(f"grouter_launches by pool: {launches}")
+    if routed != {k: float(v) for k, v in want.items()}:
+        raise SystemExit(f"grouter: routed {routed}, expected {want}")
+    if len({r["kind"] for r in runs}) != 2:
+        raise SystemExit("grouter: the prompts did not cover both classes")
+    if not all(r["equal"] for r in runs):
+        raise SystemExit("grouter: a stream through the router differs from "
+                         "the direct hit")
+    for kind, pool in pools.items():
+        if pool["engines"] and not all(launches[kind].values()):
+            raise SystemExit(f"grouter: pool {kind} did not run through both "
+                             "kernels")
+    return out
+
+
+async def _grouter_short(pw, dw, used) -> dict:
+    """The whole run's short form: the disagg pair (check_disagg's, on its
+    runtime, namespace GROUTER_DISAGG_NS) as the disagg pool and a port
+    MockerWorker serving the same model name in namespace GROUTER_AGG_NS
+    of the same cluster as the agg pool (no card worker can share the
+    phase), at GROUTER_SHORT_MIN_ISL."""
+    from dynamo_tpu_torch.mocker import MockEngineArgs, MockerWorker
+    from dynamo_tpu_torch.runtime import DistributedRuntime, RuntimeConfig
+
+    rt = pw.runtime
+    mrt = await DistributedRuntime(config=RuntimeConfig(
+        discovery_backend="mem", event_plane="inproc", tcp_host="127.0.0.1",
+        namespace=GROUTER_AGG_NS), cluster_id=rt.cluster_id).start()
+    mock = await MockerWorker(mrt, MockEngineArgs(
+        model_name=dw.card.name, block_size=dw.config.block_size),
+        namespace=GROUTER_AGG_NS, component="backend").start()
+    try:
+        return await _grouter_phase(
+            rt.cluster_id,
+            {"agg": {"rt": mrt, "engines": []},
+             "disagg": {"rt": rt, "engines": [pw.engine, dw.engine],
+                        "decode": dw.served.instance_id}},
+            dw.card.name, _grouter_texts(False), used,
+            dict(disagg_min_isl=GROUTER_SHORT_MIN_ISL, disagg_ratio=0.7))
+    finally:
+        await mock.close()
+        await mrt.shutdown()
+
+
+def check_grouter(device, card: str, params) -> dict:
+    """--grouter: both pools on the card at llama-8b full depth, one copy
+    of the weight tensors `params` shared by three TorchEngineWorkers
+    (warm, bf16 caches of 512 blocks, GROUTER_BLOCKS_PER_SEQ blocks of
+    context): an agg pool of one worker (namespace GROUTER_AGG_NS) and a
+    disagg pool of a prefill and a decode worker (GROUTER_DISAGG_NS), in
+    one discovery cluster, behind the port's global router at the CLI's
+    thresholds (--disagg-min-isl 2048 tokens, GROUTER_FULL_MIN_ISL to the
+    router's estimate; --disagg-ratio 0.7), prompts from
+    _grouter_texts(True) (_grouter_phase)."""
+    import uuid
+
+    from dynamo_tpu_torch.engine import TorchEngineWorker
+    from dynamo_tpu_torch.runtime import DistributedRuntime, RuntimeConfig
+
+    cfg = dataclasses.replace(_engine_config("bf16"), warmup=True,
+                              max_blocks_per_seq=GROUTER_BLOCKS_PER_SEQ)
+    cluster = uuid.uuid4().hex
+    used = _kernels_of("bf16")
+
+    async def run():
+        rts, workers = [], []
+        try:
+            for ns in (GROUTER_AGG_NS, GROUTER_DISAGG_NS):
+                rts.append(await DistributedRuntime(config=RuntimeConfig(
+                    discovery_backend="mem", event_plane="inproc",
+                    tcp_host="127.0.0.1", namespace=ns),
+                    cluster_id=cluster).start())
+            for rt, role, comp in ((rts[0], "both", "backend"),
+                                   (rts[1], "prefill", "prefill"),
+                                   (rts[1], "decode", "backend")):
+                t0 = time.perf_counter()
+                workers.append(await TorchEngineWorker(
+                    rt, dataclasses.replace(cfg, role=role),
+                    namespace=rt.config.namespace, component=comp,
+                    params=params, device=device).start())
+                log(f"grouter: {rt.config.namespace} {role} worker started "
+                    f"in {time.perf_counter() - t0:.1f} s, "
+                    f"{torch.cuda.memory_allocated() / 2**30:.1f} GiB "
+                    f"allocated")
+            agg, pw, dw = workers
+            return await _grouter_phase(
+                cluster,
+                {"agg": {"rt": rts[0], "engines": [agg.engine],
+                         "decode": agg.served.instance_id},
+                 "disagg": {"rt": rts[1], "engines": [pw.engine, dw.engine],
+                            "decode": dw.served.instance_id}},
+                dw.card.name, _grouter_texts(True), used,
+                dict(disagg_min_isl=GROUTER_FULL_MIN_ISL, disagg_ratio=0.7))
+        finally:
+            for w in workers:
+                await w.close()
+                w.engine.kv = w.engine.graphs = w.engine.prefill_graphs = None
+                w.engine.guided_graphs = None
+            for rt in rts:
+                await rt.shutdown()
+
+    out = asyncio.run(run())
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"grouter ({card}): {cfg.resolve_model().n_layers} layers, phase "
+        f"{out['seconds']:.1f} s")
+    return out
+
+
+async def _loadgen_phase(rt, worker, client, used, n: int) -> dict:
+    """Loadgen's replay (loadgen/replay.py) of a synthesized trace
+    (`synthesize`: n requests, input 512, output 32, 2 prefix groups of
+    4 blocks, 8 requests/s, seed LOADGEN_SEED) through `client` over the
+    request plane to the bf16 worker, from a cleared cache, the K1/K3
+    counts set to 0 just before and read just after; then the same rows
+    against a port MockerWorker on the same runtime (component
+    "mocker").  Exits unless every row of both completed with no error
+    and nothing dropped, and the worker's launches cover layers x its
+    decode steps and prefill dispatches.  Returns the launches, both
+    summaries (TTFT/ITL p50/p90/p99, output tokens/s, goodput at
+    LOADGEN_SLO_TTFT_S / LOADGEN_SLO_ITL_S) and the seconds."""
+    from dynamo_tpu_torch.loadgen import replay, synthesize
+    from dynamo_tpu_torch.mocker import MockEngineArgs, MockerWorker
+
+    t0 = time.perf_counter()
+    eng = worker.engine
+    bs, vocab = worker.config.block_size, eng.model_cfg.vocab_size
+    rows = synthesize(n, rate_rps=8.0, input_len=512, output_len=32,
+                      block_size=bs, prefix_groups=2, prefix_blocks=4,
+                      seed=LOADGEN_SEED)
+    slo = dict(slo_ttft_s=LOADGEN_SLO_TTFT_S, slo_itl_s=LOADGEN_SLO_ITL_S)
+    await eng.clear_kv_blocks()
+    m0 = dict(eng.metrics)
+    for fn in used:
+        fn.launches = 0
+    report = await replay(client.generate, rows, block_size=bs,
+                          vocab_size=vocab, max_concurrency=n)
+    counts = {fn.__name__: fn.launches for fn in used}
+    steps = {k: eng.metrics[k] - m0[k] for k in
+             ("decode_steps", "prefill_steps", "cache_hit_tokens")}
+    summary = report.summary(**slo)
+    mock = await MockerWorker(rt, MockEngineArgs(
+        model_name="loadgen-mock", block_size=bs, vocab_size=vocab),
+        component="mocker").start()
+    mclient = await rt.namespace("dynamo").component("mocker").endpoint(
+        "generate").client().start()
+    try:
+        await mclient.wait_for_instances()
+        msummary = (await replay(mclient.generate, rows, block_size=bs,
+                                 vocab_size=vocab,
+                                 max_concurrency=n)).summary(**slo)
+    finally:
+        await mclient.close()
+        await mock.close()
+    out = {"launches": counts, "steps": steps, "summary": summary,
+           "mocker": msummary, "seconds": time.perf_counter() - t0}
+    log(f"loadgen: {n} rows replayed through the worker: {summary}")
+    log(f"loadgen: the same rows against the port's MockerWorker: "
+        f"{msummary}")
+    log(f"loadgen_launches: {counts}; steps {steps}; phase "
+        f"{out['seconds']:.1f} s")
+    for what, s in (("worker", summary), ("mocker", msummary)):
+        if (s["requests"], s["completed"], s["errors"], s["dropped"]) \
+                != (n, n, 0, 0):
+            raise SystemExit(f"loadgen: the {what}'s replay {s}")
+    _check_worker_launches(counts, steps, eng.model_cfg.n_layers, "loadgen")
+    return out
+
+
+def check_loadgen(device, card: str, params, n: int) -> dict:
+    """--loadgen: _loadgen_phase's replay of `n` rows through a warm bf16
+    TorchEngineWorker (_serving_worker) at llama-8b full depth."""
+    async def run():
+        async with _serving_worker(device, _engine_config("bf16"),
+                                   params) as (rt, worker, client, _):
+            return await _loadgen_phase(rt, worker, client,
+                                        _kernels_of("bf16"), n)
+
+    out = asyncio.run(run())
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"loadgen ({card}): {n} rows in {out['seconds']:.1f} s")
+    return out
+
+
 def tp_slab_kernels(cfg, device) -> list:
     """K1 (B = 8) and K3 (T = 2048, and the 32-token verify stream of a
     speculative round), each mode, at a tp=2 rank's slab of cfg (its
@@ -13037,6 +13479,23 @@ def main() -> int:
         print(json.dumps({"planner": out}, default=str), flush=True)
         print(card, flush=True)
         return 0
+    if sys.argv[1:] in (["--grouter"], ["--loadgen"]):
+        # python3 chip_smoke.py --grouter: an agg and a disagg pool on the
+        # card at full depth behind the global router; --loadgen: the
+        # loadgen replay of LOADGEN_FULL_N rows at full depth
+        build_kernels()
+        from dynamo_tpu_torch.models import llama
+
+        gen = torch.Generator(device=device).manual_seed(0)
+        params = llama.init_params(cfg, gen, device)
+        if sys.argv[1] == "--grouter":
+            out = {"grouter": check_grouter(device, card, params)}
+        else:
+            out = {"loadgen": check_loadgen(device, card, params,
+                                            LOADGEN_FULL_N)}
+        print(json.dumps(out, default=str), flush=True)
+        print(card, flush=True)
+        return 0
     if sys.argv[1:] == ["--worker-ab"]:
         # python3 chip_smoke.py --worker-ab: the engine directly against
         # the engine behind the worker, in turns
@@ -13242,6 +13701,13 @@ def main() -> int:
             k["name"], 0)
         k["planner_launches"] = [w.get(k["name"], 0)
                                  for w in plx["launches"]]
+        # the global router's short form: [agg pool (a mocker), disagg
+        # pool (the pair)]; the loadgen replay through the bf16 worker
+        k["grouter_launches"] = [
+            disagg["grouter"]["launches"][p].get(k["name"], 0)
+            for p in ("agg", "disagg")]
+        k["loadgen_launches"] = frontend["loadgen"]["launches"].get(
+            k["name"], 0)
     for k in dma:  # the microbench is on no serving path
         k["disagg_prefill_launches"] = k["disagg_decode_launches"] = 0
         k["frontend_disagg_launches"] = [0, 0]
@@ -13256,7 +13722,8 @@ def main() -> int:
         k["multihost_launches"] = [0, 0]
         k["tp_disagg_rank1_launches"] = 0
         k["kserve_launches"] = k["profiler_launches"] = 0
-        k["planner_launches"] = [0, 0]
+        k["planner_launches"] = k["grouter_launches"] = [0, 0]
+        k["loadgen_launches"] = 0
     log(f"chip_smoke: every phase passed in "
         f"{time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels + dma}), flush=True)

@@ -78,7 +78,7 @@ from ..ops.paged_attention import (
     write_prompt_kv,
     write_token_kv,
 )
-from ..parallel.mesh import shard_leaf
+from ..parallel.mesh import clamp_ids, shard_leaf
 from ..quant.kv import unpack_kv
 
 Params = Dict[str, Any]
@@ -286,11 +286,14 @@ def rope(x: torch.Tensor, positions: torch.Tensor,
 
 
 def _embed(params, cfg: LlamaConfig, token_ids: torch.Tensor) -> torch.Tensor:
-    """The token embeddings [*ids, d] in cfg.dtype; under tensor
-    parallelism the vocab-parallel lookup and its sum over the group."""
+    """The token embeddings [*ids, d] in cfg.dtype, ids clamped as JAX's
+    gather clamps them (`clamp_ids`); under tensor parallelism the
+    vocab-parallel lookup (which clamps against the whole vocabulary)
+    and its sum over the group."""
     tp = params.get("tp")
     if tp is None:
-        return params["embedding"][token_ids.long()].to(cfg.dtype)
+        return params["embedding"][clamp_ids(token_ids, cfg.vocab_size)] \
+            .to(cfg.dtype)
     return tp.embed(params["embedding"], token_ids, cfg.dtype)
 
 

@@ -3,10 +3,10 @@
 A copy of dynamo_tpu/obs/kv_ledger.py (standard library only), so a
 torch worker's ledger, its audits and its `/debug/kv` dump are the JAX
 worker's and the JAX fleet tools (obs/report.py `kv_ledger_docs`,
-obs/fleet.py `reduce_kv_ledgers`) read them unchanged.  Left out: the
-mocker's capacity-sim audit (`audit_sim`) and its anonymous-block count
-(`partial`), as the mocker is not ported; attribution reports
-`partial: 0`, as JAX's does off the mocker.
+obs/fleet.py `reduce_kv_ledgers`) read them unchanged.  The mocker's
+capacity sim (mocker/kv_cache_sim.py) feeds the same ledger, hash-keyed,
+with its anonymous (unhashed) blocks as per-sequence counts (`partial`),
+and `audit_sim` reconciles the books against it.
 
 This module is a second, independent set of books beside the block
 allocator's (engine/block_allocator.py):
@@ -76,7 +76,6 @@ logger = logging.getLogger(__name__)
 #               awaiting pull)
 #   unpark      the parked handoff completed/expired
 #   partial     the mocker's anonymous (unhashed) block count delta
-#               (kept in the taxonomy for JAX parity; never taped here)
 #   stage       a block stored into a KVBM tier (g2/g3/g4)
 #   tier_evict  a block dropped from a KVBM tier
 #   onboard     a block's payload served back INTO G1 from a lower tier
@@ -131,9 +130,11 @@ class _Entry:
 class KvLedger:
     """Independent block-lifecycle books + the reconciliation auditor.
 
-    Keys are physical block ids.  Thread-safe: the engine records from
-    the scheduler thread while ``/debug/kv`` reads from the event
-    loop."""
+    Keys are physical block ids for the torch engine and PLHs for the
+    mocker sim (whose blocks have no physical identity): the audit entry
+    points differ, everything else is shared.  Thread-safe: the engine
+    records from the scheduler thread while ``/debug/kv`` reads from the
+    event loop."""
 
     def __init__(self, ring: Optional[int] = None):
         if ring is None:
@@ -145,6 +146,7 @@ class KvLedger:
         self._lock = threading.Lock()
         self._blk: Dict[int, _Entry] = {}
         self._tiers: Dict[str, Set[int]] = {}
+        self._partials: Dict[str, int] = {}      # mocker: seq -> count
         self._parked_seqs: Set[str] = set()
         self._seq_trace: Dict[str, str] = {}
         # lineage + liveness surfaces for the G4 residency policy
@@ -271,6 +273,7 @@ class KvLedger:
         finish-cadence audit and drops the trace binding."""
         with self._lock:
             self._seq_trace.pop(seq, None)
+            self._partials.pop(seq, None)
             self._finish_dirty = True
 
     def park(self, seq: str) -> None:
@@ -282,6 +285,17 @@ class KvLedger:
         with self._lock:
             self._parked_seqs.discard(seq)
             self._note("unpark", "g1", None, None, seq)
+
+    def partial(self, seq: str, delta: int) -> None:
+        """The mocker's unhashed (partial) blocks have no identity: they
+        are tracked as per-sequence counts."""
+        with self._lock:
+            n = self._partials.get(seq, 0) + delta
+            if n > 0:
+                self._partials[seq] = n
+            else:
+                self._partials.pop(seq, None)
+            self._note("partial", "g1", None, None, seq)
 
     def tier_batch(self, stored: Sequence[int], removed: Sequence[int],
                    tier: str) -> None:
@@ -349,6 +363,7 @@ class KvLedger:
         with self._lock:
             self._blk.clear()
             self._tiers.clear()
+            self._partials.clear()
             self._note("clear", "g1", None, None, None)
 
     # -- residency surfaces (kvbm/residency.py reads these) ---------------
@@ -503,6 +518,52 @@ class KvLedger:
                     "it", h=h))
         return viol
 
+    def audit_sim(self, sim, live_seqs: Iterable[str]) -> List[dict]:
+        """Reconcile against the mocker's KvCacheSim (hash-keyed; the
+        free-block COUNTER stands in for a free list, so double-free
+        surfaces as the counter running ahead of the books)."""
+        live = set(live_seqs)
+        viol: List[dict] = []
+        ref = dict(sim._ref)
+        with self._lock:
+            mirror = {k: (e.rc, dict(e.owners)) for k, e in
+                      self._blk.items()}
+            partial_total = sum(self._partials.values())
+        for h in set(ref) - set(mirror):
+            viol.append(self._v(
+                "leak", "g1",
+                "sim caches a block the ledger never saw", h=h))
+        for h in set(mirror) - set(ref):
+            rc, owners = mirror[h]
+            viol.append(self._v(
+                "orphan", "g1",
+                "ledger references a block the sim dropped", h=h,
+                seq=next(iter(owners), None)))
+        for h in set(ref) & set(mirror):
+            rc, owners = mirror[h]
+            if rc != ref[h]:
+                viol.append(self._v(
+                    "refcount-drift", "g1",
+                    f"ledger rc={rc} but sim rc={ref[h]}", h=h))
+            for seq in owners:
+                if seq not in live:
+                    viol.append(self._v(
+                        "leak", "g1",
+                        "owner sequence no longer exists", h=h,
+                        seq=seq))
+        expected_used = len(mirror) + partial_total
+        if sim.used_blocks < expected_used:
+            viol.append(self._v(
+                "double-free", "g1",
+                f"sim counts {sim.used_blocks} used but the books hold "
+                f"{expected_used} (free counter ran ahead)"))
+        elif sim.used_blocks > expected_used:
+            viol.append(self._v(
+                "leak", "g1",
+                f"sim counts {sim.used_blocks} used but the books hold "
+                f"only {expected_used}"))
+        return viol
+
     def finish_audit(self, violations: List[dict],
                      where: str = "") -> dict:
         """Fold one sweep's findings into the monotonic counters, the
@@ -567,12 +628,13 @@ class KvLedger:
                     if ent.parent is not None \
                             and ent.parent not in resident_hashes:
                         dead_cached += 1
+            partial = sum(self._partials.values())
             out = {"g1": {
                 "active": active,
                 "prefix_cached": cached,
                 "pinned_by_transfer": parked,
-                "partial": 0,
-                "tracked": len(self._blk),
+                "partial": partial,
+                "tracked": len(self._blk) + partial,
                 "orphaned": sum(
                     1 for v in (self.last_audit or {}).get(
                         "violations", ())

@@ -403,6 +403,16 @@ def _identities(store, ranks: Sequence[int]) -> List[Dict[str, str]]:
     return [json.loads(store.get(f"joined/{r}")) for r in ranks]
 
 
+def clamp_ids(ids: torch.Tensor, vocab: int) -> torch.Tensor:
+    """Token ids as JAX's gather reads them: a negative id wraps once
+    (id + vocab), then every id is clamped to [0, vocab - 1], so an id
+    past the vocabulary reads the last row and the lookup never faults.
+    Block hashes, KV events and the n-gram proposer keep the raw ids;
+    only the embedding gather sees these."""
+    ids = ids.long()
+    return torch.where(ids < 0, ids + vocab, ids).clamp(0, vocab - 1)
+
+
 class TensorGroup:
     """The collectives of a rank's tensor-parallel forward, over its
     tensor group: the sum after each row-parallel product, the
@@ -422,10 +432,13 @@ class TensorGroup:
               dtype: torch.dtype) -> torch.Tensor:
         """The vocab-parallel lookup: each rank gathers the ids its rows
         [rank*V/tp, (rank+1)*V/tp) hold, zeros elsewhere, and the sum
-        over the group is the full embedding.  ids any shape; returns
+        over the group is the full embedding.  The ids are first clamped
+        to the whole vocabulary V as JAX's gather clamps them (a negative
+        id wraps once, then [0, V-1]), so an id past V reads the last
+        rank's last row instead of zeros.  ids any shape; returns
         [*ids.shape, d] in dtype."""
         n = table.shape[0]
-        local = ids.long() - self.rank * n
+        local = clamp_ids(ids, n * self.size) - self.rank * n
         mine = (local >= 0) & (local < n)
         x = table[torch.where(mine, local, 0)].to(dtype)
         x = x * mine[..., None].to(dtype)

@@ -5,11 +5,13 @@ The JAX profiler CLI's flags.  `--engine torch` (the default) sweeps a
 TorchEngine built from the engine flags, warmed up first (every program
 serving reaches is built before the sweep), on `--device` (CUDA unless
 `--device cpu` asks for the plain attention versions); `--engine mock`
-needs the simulator, which is not ported yet: it exits 2.
+sweeps the simulator (mocker/, host only, real-time steps), as JAX's
+`--engine mock` does.
 
     python -m dynamo_tpu_torch.profiler --model-path DIR \\
         --out profile.json --isls 128,512 --concurrencies 1,2,4,8
     python -m dynamo_tpu_torch.profiler --device cpu --model tiny
+    python -m dynamo_tpu_torch.profiler --engine mock --isls 128,512
 """
 
 import argparse
@@ -42,29 +44,43 @@ def build_args() -> argparse.ArgumentParser:
     return p
 
 
-async def main(args) -> int:
-    from ..device import resolve_device
+def _torch_engine(args, device):
+    """The TorchEngine the engine flags describe, on `device`."""
     from ..engine.config import EngineConfig
     from ..engine.core import TorchEngine
-    from . import profile_engine
 
-    isls = [int(x) for x in args.isls.split(",") if x]
-    concs = [int(x) for x in args.concurrencies.split(",") if x]
-    try:
-        device = resolve_device(args.device)
-    except (RuntimeError, ValueError) as e:
-        print(f"dynamo_tpu_torch.profiler: {e}", file=sys.stderr)
-        return 2
     config = EngineConfig(
         model=args.model, model_path=args.model_path,
         block_size=args.block_size, num_blocks=args.num_blocks,
         max_blocks_per_seq=args.max_blocks_per_seq,
         max_num_seqs=args.max_num_seqs, tp=args.tp,
     )
-    engine = TorchEngine(config, device=device)
-    name = args.model_path or args.model
+    return TorchEngine(config, device=device)
+
+
+async def main(args) -> int:
+    from . import profile_engine
+
+    isls = [int(x) for x in args.isls.split(",") if x]
+    concs = [int(x) for x in args.concurrencies.split(",") if x]
+    if args.engine == "mock":
+        from ..mocker import MockEngine, MockEngineArgs
+
+        engine = MockEngine(MockEngineArgs(speedup_ratio=1.0))
+        name = "mock"
+    else:
+        from ..device import resolve_device
+
+        try:
+            device = resolve_device(args.device)
+        except (RuntimeError, ValueError) as e:
+            print(f"dynamo_tpu_torch.profiler: {e}", file=sys.stderr)
+            return 2
+        engine = _torch_engine(args, device)
+        name = args.model_path or args.model
     try:
-        await asyncio.to_thread(engine.warmup_decode)
+        if args.engine == "torch":
+            await asyncio.to_thread(engine.warmup_decode)
         prof = await profile_engine(
             engine, model_name=name, isls=isls, osl=args.osl,
             concurrencies=concs, rounds=args.rounds,
@@ -83,12 +99,7 @@ async def main(args) -> int:
 
 def run(argv=None) -> int:
     setup_logging()
-    args = build_args().parse_args(argv)
-    if args.engine == "mock":
-        print("dynamo_tpu_torch.profiler: --engine mock: not ported yet "
-              "(ROADMAP, Queue 1: mocker/)", file=sys.stderr)
-        return 2
-    return asyncio.run(main(args))
+    return asyncio.run(main(build_args().parse_args(argv)))
 
 
 if __name__ == "__main__":

@@ -18,7 +18,12 @@ they use of aiohttp, and nothing more:
   * streams (`stream`) for the watch endpoints: no timeout once the
     response head is in, unless the caller gives a `read_timeout` for
     each read, and lines yielded whole, whether the server split one
-    line across several chunks or packed several into one.
+    line across several chunks or packed several into one;
+  * raw responses (`open_raw`) for a proxy (the port's global router):
+    a bytes body and the caller's headers sent as they are, the status
+    and headers whatever the status, and the body's bytes chunk by
+    chunk as they arrive (aiohttp's `iter_any`), with a bound on the
+    connect alone.
 
 One request per connection (`Connection: close`): discovery calls are
 control-plane traffic, a few a second.  `close()` closes the sockets of
@@ -176,19 +181,24 @@ class HttpClient:
 
     async def _send(self, method: str, path: str, body: Any,
                     params: Optional[Dict[str, str]],
-                    headers: Optional[Dict[str, str]]):
-        """Open a connection, send one request, read the response head.
+                    headers: Optional[Dict[str, str]],
+                    data: Optional[bytes] = None,
+                    connect_timeout: Optional[float] = None):
+        """Open a connection (within `connect_timeout`), send one request
+        (`data` as it is, else `body` as JSON), read the response head.
         Returns (reader, writer, status, reason, headers)."""
         if self.closed:
             raise RuntimeError("HttpClient is closed")
         ssl = None
         if self.https:
             ssl = self.ssl_context or _ssl.create_default_context()
-        reader, writer = await asyncio.open_connection(
+        reader, writer = await _within(asyncio.open_connection(
             self.host, self.port, ssl=ssl,
-            server_hostname=self.host if ssl is not None else None)
+            server_hostname=self.host if ssl is not None else None),
+            connect_timeout)
         try:
-            data = b"" if body is None else _json.dumps(body).encode()
+            if data is None:
+                data = b"" if body is None else _json.dumps(body).encode()
             target = self.prefix + path
             if params:
                 target += "?" + urlencode(params)
@@ -199,7 +209,11 @@ class HttpClient:
                 hdrs["Content-Type"] = "application/json"
             if self.token:
                 hdrs["Authorization"] = f"Bearer {self.token}"
-            hdrs.update(headers or {})
+            for k, v in (headers or {}).items():
+                # the caller's value replaces ours whatever its case
+                for mine in [m for m in hdrs if m.lower() == k.lower()]:
+                    del hdrs[mine]
+                hdrs[k] = v
             head = f"{method} {target} HTTP/1.1\r\n" + "".join(
                 f"{k}: {v}\r\n" for k, v in hdrs.items()) + "\r\n"
             writer.write(head.encode("latin-1") + data)
@@ -257,6 +271,26 @@ class HttpClient:
                     reader, rhdrs, DEFAULT_TIMEOUT_S)])
                 raise HttpError(status, reason, body)
             yield iter_lines(_body_chunks(reader, rhdrs, read_timeout))
+        finally:
+            self._streams.discard(writer)
+            writer.close()
+
+    @contextlib.asynccontextmanager
+    async def open_raw(self, method: str, path: str, *, data: bytes,
+                       headers: Dict[str, str],
+                       connect_timeout: Optional[float] = None):
+        """One request whose response is read as it arrives, whatever its
+        status: yields (status, headers, chunks), `chunks` an async
+        iterator of the body's bytes (chunked transfer coding decoded)
+        in the pieces they arrived in.  `data` and `headers` are sent as
+        given (Host, Content-Length and Connection are the client's);
+        only the connect is bounded (`connect_timeout`)."""
+        reader, writer, status, _reason, rhdrs = await self._send(
+            method, path, None, None, headers, data=data,
+            connect_timeout=connect_timeout)
+        self._streams.add(writer)
+        try:
+            yield status, rhdrs, _body_chunks(reader, rhdrs)
         finally:
             self._streams.discard(writer)
             writer.close()

@@ -25,7 +25,9 @@ requests to a loopback fake API server; the CLI takes JAX's flags.
 """
 
 import asyncio
+import importlib
 import json
+import time
 import uuid
 
 import pytest
@@ -266,8 +268,30 @@ async def _run_scenario(mods, name):
     return out, decisions, (pm.itl_correction if pm else None)
 
 
+class _LongUptimeClock:
+    """`time` as the planner and connector modules read it, on a host up
+    for a million seconds: both planners start with `_last_action_t =
+    0.0` and the governor scenario records its failures at 0.0, so on a
+    host up for less than `cooldown_s` (or the breaker's reset) the real
+    `time.monotonic()` would decide the scenario.  Everything else is
+    the real `time`."""
+
+    def __getattr__(self, name):
+        return getattr(time, name)
+
+    @staticmethod
+    def monotonic():
+        return time.monotonic() + 1e6
+
+
 @pytest.mark.parametrize("name", sorted(SCENARIOS))
-async def test_tick_decisions_equal_jax(name):
+async def test_tick_decisions_equal_jax(name, monkeypatch):
+    # only the two modules' own `time` (the asyncio loop keeps the real
+    # monotonic clock)
+    for mods in SIDES.values():
+        for sub in ("planner", "connectors"):
+            monkeypatch.setattr(importlib.import_module(
+                f"{mods[0].__name__}.{sub}"), "time", _LongUptimeClock())
     jax_out = await _run_scenario(SIDES["jax"], name)
     port_out = await _run_scenario(SIDES["port"], name)
     assert port_out == jax_out

@@ -8,10 +8,12 @@
   request ids, prompt token ids, stop conditions and sampling, every
   request gets OSL tokens (the two engines' greedy streams equal), and
   the profiles have the same grid and tags.
-* The CLI: `--engine mock` exits 2 (the simulator is not ported);
-  `--device cpu --model tiny` writes a profile the JAX package loads.
+* The CLI: `--engine mock` sweeps the port's simulator with the grid of
+  JAX's mock profile; `--device cpu --model tiny` writes a profile the
+  JAX package loads.
 """
 
+import asyncio
 import json
 import os
 import subprocess
@@ -167,10 +169,41 @@ async def test_sweep_requests_equal_jax():
         .max_active_for_itl(1e3) > 0
 
 
-@pytest.mark.parametrize("argv,rc", [(["--engine", "mock"], 2)])
-def test_cli_refuses_the_mock_engine(argv, rc, capsys):
-    assert run(argv) == rc
-    assert "not ported yet (ROADMAP" in capsys.readouterr().err
+MOCK_ARGV = ["--engine", "mock", "--isls", "16,64", "--concurrencies", "1,2",
+             "--osl", "3", "--rounds", "1"]
+
+
+@pytest.mark.parametrize("argv,rc", [(MOCK_ARGV, 0)])
+def test_cli_refuses_the_mock_engine(argv, rc, tmp_path, capsys):
+    """(Named when the CLI refused `--engine mock`; the simulator is
+    ported now.)  `--engine mock` sweeps the port's MockEngine: the
+    profile has the grid JAX's mock profile has from the same flags, and
+    finite, positive latencies and rates at every point."""
+    out = tmp_path / "mock.json"
+    assert run([*argv, "--out", str(out)]) == rc
+    assert "wrote 4 grid points" in capsys.readouterr().out
+    prof = PerfProfile.load(str(out))
+
+    async def jax_mock():
+        from dynamo_tpu.mocker import MockEngine, MockEngineArgs
+
+        eng = MockEngine(MockEngineArgs(speedup_ratio=1.0))
+        try:
+            return await jax_profile_engine(
+                eng, model_name="mock", isls=[16, 64], osl=3,
+                concurrencies=[1, 2], rounds=1)
+        finally:
+            await eng.close()
+
+    jprof = asyncio.run(jax_mock())
+    grid = [(p.isl, p.osl, p.concurrency) for p in prof.points]
+    assert grid == [(p.isl, p.osl, p.concurrency) for p in jprof.points]
+    assert grid == [(16, 3, 1), (16, 3, 2), (64, 3, 1), (64, 3, 2)]
+    assert prof.model_name == jprof.model_name == "mock"
+    for p in prof.points:
+        vals = [p.ttft_p50_s, p.ttft_p95_s, p.itl_mean_s, p.itl_p95_s,
+                p.req_per_s, p.output_tok_per_s]
+        assert all(np.isfinite(v) and v > 0 for v in vals), p
 
 
 def test_cli_writes_a_profile_jax_loads(tmp_path):
