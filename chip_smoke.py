@@ -44,6 +44,11 @@
                                           # router, full depth
     python3 chip_smoke.py --loadgen       # loadgen's replay of 128 rows
                                           # through a full-depth worker
+    python3 chip_smoke.py --chaos         # the chaos plane on two full-
+                                          # depth workers behind the
+                                          # frontend
+    python3 chip_smoke.py --operator      # the graph operator and two
+                                          # standalone router processes
 
 Builds the port's CUDA kernels from csrc/ (three nvcc processes started
 together), holds each entry point (K1 and K3, each in its bf16 and its
@@ -515,6 +520,31 @@ dynamo_tpu_torch.engine --model-path` workers behind the port's
 frontend, grows the fleet from 1 to 2 under a closed loop of requests
 and drains it back while streams run, which must equal their
 references (`planner_launches`, [first worker, second worker]).
+
+The trace report, the operator, the standalone router and the chaos
+plane: the bf16 worker phase reduces its tracer's dump and the main
+run's window of it with `dynamo_tpu_torch.obs.report` (`_report_phase`:
+the partition of the engine's wall time, whose named phases must
+explain 95% of the main run's, and the roofline rows of its prefill and
+decode dispatches at this card's peaks).  After the prefill A/B,
+`check_fleet` (SERVE_LAYERS): the port's graph operator reconciles a
+graph spec into Deployments on FakeKubeApi (create, a converged pass, a
+planner scale write kept across an unrelated pass, a spec edit, a
+removed component deleted); the rendered router Deployment's command
+runs as a process on the discovery of two bf16 workers (file discovery,
+zmq events) and must name an embedded KvRouter's pick for the five
+prompts; behind the port's frontend, a truncated frame and an
+engine-step crash mid-decode must migrate with the fault-free greedy
+stream (a parting only at a near-tie), the crashed engine fail fast,
+and the KV ledger's audit name each accounting fault the
+`engine.kv_account` seam seeds (`chaos_launches`).  The disagg phase
+fails its pair's KV pull once (the retry absorbs it) and then for good
+(the decode worker prefills locally), both streams against the
+aggregated engine's.  Alone: `--chaos` adds a failed dispatch, delayed
+frames and a discovery outage; `--operator` a second router instance
+(affinity: frees go to the instance that answered) and the operator's
+`--once` CLI; `--decode-ab` times the seams with no plane against a
+stub (`seam_ab`).
 
 Bounds use the H100 SXM data sheet (3.35 TB/s HBM3, 989 TFLOP/s dense
 bf16); a card run below its 700 W limit is slower, so its limit is
@@ -2428,7 +2458,81 @@ async def _status_trace(out_path: str) -> dict:
         f"{max(waits, key=lambda w: w['ms']) if waits else None}")
     if missing:
         raise SystemExit(f"the trace lacks span kinds {missing}")
-    return {"spans": len(rows), "step_ms": med, "arrival_waits": waits}
+    return {"spans": len(rows), "step_ms": med, "arrival_waits": waits,
+            "path": path}
+
+
+# the report's bar (dynamo_tpu_torch/obs/report.py, as JAX's): the named
+# phases of an engine track explain at least this share of its wall time
+REPORT_NAMED_MIN = 0.95
+
+
+def _report_phase(trace_path: str, run_doc: dict, card: str) -> dict:
+    """The port's trace report (`dynamo_tpu_torch.obs.report`) on the bf16
+    worker phase's recording, with this card's peaks: the whole dump
+    the tracer wrote (warm-up, the main run, the status plane's turns,
+    the tracing A/B's off turns as idle), and the main run's window of
+    the same recording (`run_doc`: its spans, as Chrome trace JSON).
+    Logs each partition (engine wall time by phase, innermost-span self
+    time) and the main run's roofline rows (prefill and decode dispatch:
+    FLOP/s and bytes/s from the port's cost count, MFU and MBU at
+    PEAK_TFLOPS / PEAK_HBM_GBPS, the engine's own est_mfu) and the
+    captured programs by family.  Exits unless the main run's named
+    phases explain REPORT_NAMED_MIN of its engine wall time and both
+    dispatch rows are there (a prefill row's rates count only the
+    dispatches whose gap took a device sync, as the report's gate
+    does)."""
+    import tempfile
+
+    from dynamo_tpu_torch.obs.report import report_paths
+
+    t0 = time.perf_counter()
+    fd, run_path = tempfile.mkstemp(prefix="chip-smoke-run-",
+                                    suffix=".json")
+    with os.fdopen(fd, "w") as f:
+        json.dump(run_doc, f)
+    try:
+        whole = report_paths([trace_path], PEAK_TFLOPS, PEAK_HBM_GBPS)
+        run = report_paths([run_path], PEAK_TFLOPS, PEAK_HBM_GBPS)
+    finally:
+        os.unlink(run_path)
+    secs = time.perf_counter() - t0
+    out = {"seconds": round(secs, 3)}
+    for what, rep in (("whole trace", whole), ("main run", run)):
+        gap = rep["gap"]
+        fr = gap.get("wall_fractions", {})
+        named = sum(v for k, v in fr.items() if k != "idle")
+        out[what] = {"engine_wall_s": gap.get("engine_wall_s"),
+                     "named": round(named, 4), "fractions": fr,
+                     "spans": rep["spans"]}
+        log(f"report ({what}, {rep['spans']} spans, {card}): engine wall "
+            f"{gap.get('engine_wall_s')} s, named phases {named:.4f} of it "
+            f"(bar {REPORT_NAMED_MIN}); partition {fr}; sched overhead "
+            f"{gap.get('sched_overhead_frac')}, enqueue ahead "
+            f"{gap.get('enqueue_ahead_frac')}, device wait "
+            f"{gap.get('device_wait_frac')}, idle {gap.get('idle_frac')}")
+    phases = run["roofline"]["phases"]
+    for phase in ("prefill", "decode"):
+        log(f"report roofline, main run, {phase} dispatches ({card}; peaks "
+            f"{PEAK_TFLOPS:.0f} TFLOP/s bf16, {PEAK_HBM_GBPS:.0f} GB/s): "
+            f"{phases.get(phase)}")
+    compiles = whole["roofline"]["compiles"]
+    log(f"report, captured programs by family (whole trace): "
+        + "; ".join(f"{fam} x{c['count']} {c['seconds']:.3f} s, "
+                    f"{c['serving']} while serving, intensity "
+                    f"{c.get('intensity')}" for fam, c in compiles.items()))
+    out["roofline"] = phases
+    out["compile_families"] = len(compiles)
+    log(f"report phase: {secs:.2f} s of host work")
+    if out["main run"]["named"] < REPORT_NAMED_MIN:
+        raise SystemExit(f"report: the main run's named phases explain "
+                         f"{out['main run']['named']} of its engine wall "
+                         f"time, under {REPORT_NAMED_MIN}")
+    if any(not (phases.get(p) or {}).get("dispatches")
+           for p in ("prefill", "decode")):
+        raise SystemExit(f"report: the roofline lacks the prefill or the "
+                         f"decode dispatches: {phases}")
+    return out
 
 
 async def _status_drain(rt, worker, polled: list) -> dict:
@@ -2532,6 +2636,10 @@ def check_worker(device, card: str, cfg, params, direct) -> tuple:
             res = await _serve_worker(client, reqs, stamps)
             w1 = time.monotonic()
             counts = {fn.__name__: fn.launches for fn in used}
+            # the main run's window of the recording, for the report
+            tr = obs.tracer()
+            run_doc = tr.chrome_trace(spans=[
+                s for s in list(tr.spans) if w0 <= s[1] and s[2] <= w1])
             steps = {k: eng.metrics[k] - m0[k] for k in
                      ("decode_steps", "prefill_steps", "cache_hit_tokens")}
             _check_stamps("worker", reqs, stamps, steps["cache_hit_tokens"])
@@ -2575,8 +2683,10 @@ def check_worker(device, card: str, cfg, params, direct) -> tuple:
             await _status_kv(rt, worker)
             await _status_debug(rt, worker, client, reqs, seen)
             await _tracing_ab(eng, reqs)
-            await _status_trace(os.path.join(trace_dir, "trace.json"))
+            trace = await _status_trace(os.path.join(trace_dir,
+                                                     "trace.json"))
             status_s[0] += time.perf_counter() - t_st
+            report = _report_phase(trace["path"], run_doc, card)
             t_em = time.perf_counter()
             embed = await _embed_phase(rt, worker, reqs)
             embed["seconds"] = time.perf_counter() - t_em
@@ -2585,6 +2695,7 @@ def check_worker(device, card: str, cfg, params, direct) -> tuple:
                                                          used)
             frontend["loadgen"] = await _loadgen_phase(rt, worker, client,
                                                        used, LOADGEN_N)
+            frontend["report"] = report
             t_st = time.perf_counter()
             await _status_drain(rt, worker, polled)
             status_s[0] += time.perf_counter() - t_st
@@ -2937,6 +3048,77 @@ def decode_ab(device, card: str, params, rounds: int = 2) -> dict:
         del t["streams"]
     return {"turns": turns, "median": summary,
             "dispatched_ops_k8": dispatched}
+
+
+def seam_ab(device, card: str, params, rounds: int = 3) -> dict:
+    """What the chaos seams cost with no plane installed: the five
+    requests through one default engine (bf16 cache, graphs captured by
+    warm-up) in turns of "seam", the engine as it is (each scheduler
+    step calls chaos.hit, whose body is one module-global None check;
+    the allocator's seams are `chaos.active() is not None` checks), and
+    "stub", the same engine with engine/core.py's and
+    engine/block_allocator.py's `chaos` swapped for a stand-in whose
+    `hit` and `active` return None at once (what the step loop cost
+    before the seams, up to one call each); in turns (stub, seam, seam,
+    stub) `rounds` times after a warm-up run, each turn from a cleared
+    prefix cache after 1.1 s idle.  Logs each arm's decode tokens/s
+    (median, min and max) and exits unless the greedy streams are equal
+    in every turn."""
+    import types
+
+    from dynamo_tpu_torch import chaos
+    from dynamo_tpu_torch.engine import TorchEngine
+    from dynamo_tpu_torch.engine import block_allocator, core
+
+    if chaos.active() is not None:
+        raise SystemExit("seam A/B: a chaos plane is installed")
+    stub = types.SimpleNamespace(hit=lambda *a, **k: None,
+                                 active=lambda: None)
+    cfg = _engine_config("bf16")
+    eng = TorchEngine(dataclasses.replace(cfg), params=params, device=device)
+    eng.warmup_decode()
+    reqs = _requests(cfg.resolve_model().vocab_size)
+    greedy = [i for i, r in enumerate(reqs) if r.sampling.temperature <= 0]
+
+    async def run():
+        rates, streams = {"stub": [], "seam": []}, []
+        try:
+            await _serve(eng, reqs)
+            for arm in ["stub", "seam", "seam", "stub"] * rounds:
+                mods = (core, block_allocator)
+                for m in mods:
+                    m.chaos = stub if arm == "stub" else chaos
+                await eng.clear_kv_blocks()
+                await asyncio.sleep(1.1)
+                try:
+                    res = await _serve(eng, [dataclasses.replace(
+                        r, request_id=f"{r.request_id}-{arm}-{len(streams)}")
+                        for r in reqs])
+                finally:
+                    for m in mods:
+                        m.chaos = chaos
+                n, secs = _decode_rate(res)
+                rates[arm].append(n / secs)
+                streams.append([res[i][0] for i in greedy])
+        finally:
+            await eng.close()
+        return rates, streams
+
+    rates, streams = asyncio.run(run())
+    eng.kv = eng.graphs = eng.prefill_graphs = eng.guided_graphs = None
+    gc.collect()
+    torch.cuda.empty_cache()
+    out = {arm: {"median": float(np.median(v)), "min": float(min(v)),
+                 "max": float(max(v)), "turns": [round(x, 2) for x in v]}
+           for arm, v in rates.items()}
+    log(f"seam A/B ({card}), decode tokens/s with no chaos plane: "
+        + "; ".join(f"{arm} median {o['median']:.2f} (min {o['min']:.2f}, "
+                    f"max {o['max']:.2f}) over {len(o['turns'])} turns"
+                    for arm, o in out.items())
+        + f"; seam over stub {out['seam']['median'] / out['stub']['median']:.4f}x")
+    if any(s != streams[0] for s in streams):
+        raise SystemExit("seam A/B: greedy streams differ between turns")
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -3852,6 +4034,9 @@ def check_disagg(device, card: str, params) -> dict:
                 pw, dw, pclient, dclient, text_reqs, k1, k3)
             # the pair as the disagg pool behind the global router
             result["grouter"] = await _grouter_short(pw, dw, (k1, k3))
+            # disagg.pull.chunk: a retried pull, then the local fallback
+            result["pull_chaos"] = await _disagg_pull_chaos(
+                pw, dw, pclient, dclient, reqs[1])
             for w, built, g in ((pw, pbuilt, pw.engine.prefill_graphs),
                                 (dw, dbuilt, dw.engine.graphs)):
                 if g.counts != built:
@@ -3954,6 +4139,31 @@ def check_disagg(device, card: str, params) -> dict:
            # the aggregated engine's streams, one at a time: the
            # --disagg-ipc phase's reference too
            "ref_one": ref_one}
+    pc = result["pull_chaos"]
+    for what in ("retry", "fallback"):
+        e = pc[what]
+        if e["finish"] != "length" or len(e["tokens"]) != 32:
+            raise SystemExit(f"disagg pull chaos ({what}): {e}")
+        e["parted"] = _check_streams(f"disagg pull chaos ({what})",
+                                     [(e["tokens"],)], [ref_one[1]],
+                                     [reqs[1]], params, mc, device)
+    log(f"disagg pull chaos ({card}): one failed chunk op absorbed by the "
+        f"retry ({pc['retry']['fired']} injection, decode worker prefill "
+        f"tokens {pc['retry']['prefill_tokens']}); a persistent failure "
+        f"({pc['fallback']['fired']} injections) fell back to local "
+        f"prefill ({pc['fallback']['prefill_tokens']} tokens); both "
+        f"streams equal the aggregated engine's (partings "
+        f"{pc['retry']['parted'] + pc['fallback']['parted']}); "
+        f"{pc['seconds']:.2f} s")
+    if pc["retry"]["fired"] != 1 or pc["retry"]["prefill_tokens"] \
+            or pc["fallback"]["fired"] < 3 \
+            or pc["fallback"]["prefill_tokens"] <= 0:
+        raise SystemExit("disagg pull chaos: the retry prefilled, or the "
+                         "persistent failure did not fall back to local "
+                         "prefill")
+    out["pull_chaos"] = {w: {k: pc[w][k] for k in ("fired",
+                                                   "prefill_tokens")}
+                         for w in ("retry", "fallback")}
     out["frontend_launches"] = _check_disagg_frontend(
         result["frontend"], text_reqs, ref_text, params, mc, device, card)
     out["grouter"] = result["grouter"]
@@ -8157,10 +8367,15 @@ K8S_NAMESPACE = "dynamo-smoke"
 class FakeKubeApi(_FakeHttp):
     """The Kubernetes API server's Lease subset the discovery backend
     speaks (list with a label selector, watch, create with 409 on a
-    duplicate, RFC 7386 merge patch, delete with 404), and the
+    duplicate, RFC 7386 merge patch, delete with 404), the
     deployments/{name}/scale subresource the planner's
-    KubernetesConnector reads and merge-patches, in one namespace, behind
-    a bearer token (401 without it)."""
+    KubernetesConnector reads and merge-patches, and the graph
+    operator's ConfigMap list and apps/v1 Deployment list, create (409 on
+    a duplicate), get, merge patch and delete (404 on a missing one), in
+    one namespace, behind a bearer token (401 without it).  The model is
+    tests/fake_kube.py's FakeKubeApiServer; `calls` records the
+    operator's requests as (method, path, query), and a scale write on a
+    Deployment the operator created lands on its spec.replicas."""
 
     PREFIX = f"/apis/coordination.k8s.io/v1/namespaces/{K8S_NAMESPACE}/leases"
 
@@ -8178,6 +8393,10 @@ class FakeKubeApi(_FakeHttp):
         # what it missed, as the API server does
         self.history: list = []
         self._watchers: list = []
+        # the graph operator's objects: name -> ConfigMap / Deployment
+        self.configmaps: dict = {}
+        self.apps: dict = {}
+        self.calls: list = []
 
     def _bump(self) -> str:
         self.rv += 1
@@ -8202,19 +8421,82 @@ class FakeKubeApi(_FakeHttp):
     APPS = f"/apis/apps/v1/namespaces/{K8S_NAMESPACE}/deployments/"
 
     def _scale(self, method, name, body, headers):
-        if name not in self.deployments:
+        if name in self.apps:  # a Deployment the operator created
+            spec = self.apps[name]["spec"]
+            get = lambda: spec["replicas"]  # noqa: E731
+
+            def put(n):
+                spec["replicas"] = n
+        elif name in self.deployments:
+            get = lambda: self.deployments[name]  # noqa: E731
+
+            def put(n):
+                self.deployments[name] = n
+        else:
             return 404, {"kind": "Status", "code": 404}
         if method == "PATCH":
             if headers.get("content-type") != "application/merge-patch+json":
                 return 415, {"kind": "Status", "code": 415}
-            self.deployments[name] = int(body["spec"]["replicas"])
-            self.scale_calls.append(("PATCH", self.deployments[name]))
+            put(int(body["spec"]["replicas"]))
+            self.scale_calls.append(("PATCH", get()))
         elif method == "GET":
             self.scale_calls.append(("GET", None))
         else:
             return 405, {"kind": "Status", "code": 405}
         return 200, {"kind": "Scale", "metadata": {"name": name},
-                     "spec": {"replicas": self.deployments[name]}}
+                     "spec": {"replicas": get()}}
+
+    @staticmethod
+    def _selected(obj: dict, sel: str) -> bool:
+        """k=v and bare-key terms of a label selector, comma-joined."""
+        labels = (obj.get("metadata") or {}).get("labels") or {}
+        for term in filter(None, (t.strip() for t in sel.split(","))):
+            k, eq, v = term.partition("=")
+            if (labels.get(k) != v) if eq else (k not in labels):
+                return False
+        return True
+
+    CONFIGMAPS = f"/api/v1/namespaces/{K8S_NAMESPACE}/configmaps"
+
+    def _operator_route(self, method, path, params, body, headers):
+        """The operator's ConfigMaps and Deployments."""
+        self.calls.append((method, path, dict(params)))
+        sel = params.get("labelSelector", "")
+        if path == self.CONFIGMAPS and method == "GET":
+            return 200, {"kind": "ConfigMapList", "items": [
+                json.loads(json.dumps(o)) for o in self.configmaps.values()
+                if self._selected(o, sel)]}
+        name = path[len(self.APPS):].strip("/") if path.startswith(
+            self.APPS) else ""
+        if method == "GET" and not name:
+            return 200, {"kind": "DeploymentList", "items": [
+                json.loads(json.dumps(o)) for o in self.apps.values()
+                if self._selected(o, sel)],
+                "metadata": {"resourceVersion": str(self.rv)}}
+        if method == "POST" and not name:
+            name = body["metadata"]["name"]
+            if name in self.apps:
+                return 409, {"kind": "Status", "code": 409,
+                             "reason": "AlreadyExists"}
+            body["metadata"]["resourceVersion"] = self._bump()
+            self.apps[name] = body
+            return 201, body
+        obj = self.apps.get(name)
+        if obj is None:
+            return 404, {"kind": "Status", "code": 404}
+        if method == "GET":
+            return 200, obj
+        if method == "PATCH":
+            if headers.get("content-type") != "application/merge-patch+json":
+                return 415, {"kind": "Status", "code": 415}
+            self._merge(obj, body)
+            obj["metadata"]["resourceVersion"] = self._bump()
+            return 200, obj
+        if method == "DELETE":
+            del self.apps[name]
+            self._bump()
+            return 200, {"kind": "Status", "status": "Success"}
+        return 405, {"kind": "Status", "code": 405}
 
     def route(self, method, path, params, body, headers):
         if headers.get("authorization") != f"Bearer {self.token}":
@@ -8222,6 +8504,9 @@ class FakeKubeApi(_FakeHttp):
         if path.startswith(self.APPS) and path.endswith("/scale"):
             return self._scale(method, path[len(self.APPS):-len("/scale")],
                                body, headers)
+        if path == self.CONFIGMAPS or path.startswith(self.APPS) \
+                or path == self.APPS.rstrip("/"):
+            return self._operator_route(method, path, params, body, headers)
         if not path.startswith(self.PREFIX):
             return 404, {"kind": "Status", "code": 404}
         name = path[len(self.PREFIX):].strip("/")
@@ -13221,6 +13506,620 @@ def ab_compare(cfg, device, path: str) -> list:
     return rows
 
 
+
+# ---------------------------------------------------------------------------
+# the graph operator, the standalone router and the chaos plane, on a
+# fleet of two workers (check_fleet; --operator, --chaos)
+# ---------------------------------------------------------------------------
+
+FLEET_WAIT_S = 60.0
+ROUTER_READY_S = 180.0
+OPERATOR_IMAGE = "reg/dynamo-tpu-torch:smoke"
+OPERATOR_GRAPH = "smoke"
+# the greedy 500-token prompt of _requests: the chaos phase's stream
+CHAOS_PROMPT = 1
+# the faulted stream's engine.step crash: the third step of the worker
+# serving it (a prefill, a decode burst, then the crash mid-decode)
+CHAOS_STEP_AFTER = 2
+
+
+def _graph_spec(model: str, bs: int, image: str = OPERATOR_IMAGE) -> dict:
+    """A graph spec for the port's operator: the fleet's frontend, two
+    GPU workers, the standalone KV router over them and a planner."""
+    return {"name": OPERATOR_GRAPH, "image": image,
+            "model": {"name": model, "path": "/models/llama-8b"},
+            "components": {
+                "frontend": {"kind": "frontend", "replicas": 1,
+                             "port": 8000},
+                "worker": {"kind": "worker", "replicas": 2, "gpu": 1},
+                "router": {"kind": "router", "replicas": 1, "args": [
+                    "--block-size", str(bs), "--router-component",
+                    "kv-router"]},
+                "planner": {"kind": "planner", "replicas": 1, "args": [
+                    "--worker-module", "dynamo_tpu_torch.engine"]}}}
+
+
+def _set_graph(fake, spec: dict) -> None:
+    from dynamo_tpu_torch.operator.spec import GRAPH_LABEL
+
+    fake.configmaps[spec["name"]] = {
+        "metadata": {"name": spec["name"], "labels": {GRAPH_LABEL: "1"}},
+        "data": {"spec": json.dumps(spec)}}
+
+
+def _container(fake, name: str) -> dict:
+    return fake.apps[name]["spec"]["template"]["spec"]["containers"][0]
+
+
+async def _operator_phase(fake, model: str, bs: int, full: bool) -> dict:
+    """The port's GraphOperator against FakeKubeApi: a graph spec
+    (_graph_spec) reconciled into four Deployments; a pass with nothing
+    to do; a planner scale write on the workers' Deployment through the
+    port's KubernetesConnector, kept across a reconcile that only edits
+    the frontend's args; a spec edit (the image, the workers' replicas)
+    converged, the spec's replica count overriding the planner's; the
+    planner removed from the spec and its Deployment deleted.  With
+    `full`, `python -m dynamo_tpu_torch.operator --once` reconciles a
+    second graph as a process of its own.  Exits unless each step holds;
+    returns the calls by method and the router Deployment's container."""
+    from dynamo_tpu_torch.operator import GraphOperator
+    from dynamo_tpu_torch.planner.connectors import KubernetesConnector
+
+    name = lambda c: f"{OPERATOR_GRAPH}-{c}"  # noqa: E731
+    spec = _graph_spec(model, bs)
+    op = GraphOperator(api_url=fake.endpoint, namespace=K8S_NAMESPACE,
+                       token=K8S_TOKEN)
+    conn = KubernetesConnector(name("worker"), namespace=K8S_NAMESPACE,
+                               api_url=fake.endpoint, token=K8S_TOKEN)
+    t0 = time.perf_counter()
+    try:
+        _set_graph(fake, spec)
+        await op.reconcile_once()
+        created = sorted(fake.apps)
+        worker = _container(fake, name("worker"))
+        if created != sorted(name(c) for c in spec["components"]) \
+                or op.stats["created"] != 4 \
+                or worker["resources"]["limits"] != {"nvidia.com/gpu": "1"} \
+                or worker["command"][:3] != ["python", "-m",
+                                             "dynamo_tpu_torch.engine"]:
+            raise SystemExit(f"operator: the first pass created {created} "
+                             f"({op.stats}), worker container {worker}")
+        await op.reconcile_once()
+        if op.stats["patched"]:
+            raise SystemExit("operator: a converged pass patched")
+        # the planner's scale write, then a reconcile unrelated to it
+        if await conn.scale(5) != 5:
+            raise SystemExit("operator: the connector's scale write failed")
+        spec["components"]["frontend"]["args"] = ["--router-mode", "kv"]
+        _set_graph(fake, spec)
+        await op.reconcile_once()
+        kept = fake.apps[name("worker")]["spec"]["replicas"]
+        fe_cmd = _container(fake, name("frontend"))["command"]
+        if kept != 5 or fe_cmd[-2:] != ["--router-mode", "kv"]:
+            raise SystemExit(f"operator: the unrelated pass left the "
+                             f"workers at {kept} replicas (the planner "
+                             f"wrote 5) or the frontend at {fe_cmd}")
+        # a spec edit: the image rolls everything, its replicas win
+        spec["image"] = OPERATOR_IMAGE + "-v2"
+        spec["components"]["worker"]["replicas"] = 3
+        _set_graph(fake, spec)
+        await op.reconcile_once()
+        images = {n: _container(fake, n)["image"] for n in fake.apps}
+        replicas = fake.apps[name("worker")]["spec"]["replicas"]
+        if replicas != 3 or set(images.values()) != {spec["image"]}:
+            raise SystemExit(f"operator: the spec edit converged to "
+                             f"{replicas} worker replicas, images {images}")
+        del spec["components"]["planner"]
+        _set_graph(fake, spec)
+        await op.reconcile_once()
+        if name("planner") in fake.apps or op.stats["deleted"] != 1:
+            raise SystemExit(f"operator: the removed planner's Deployment "
+                             f"is still there ({op.stats})")
+        if op.stats["errors"]:
+            raise SystemExit(f"operator: reconcile errors {op.stats}")
+    finally:
+        await op.close()
+        await conn.close()
+    methods = {}
+    for m, _, _ in fake.calls:
+        methods[m] = methods.get(m, 0) + 1
+    out = {"stats": dict(op.stats), "calls": methods,
+           "router": _container(fake, name("router")),
+           "seconds": round(time.perf_counter() - t0, 3)}
+    log(f"operator: {len(fake.calls)} API calls {methods}, stats "
+        f"{op.stats}; the planner's scale write (5) kept across the "
+        f"unrelated pass, the spec's 3 replicas won, the planner deleted; "
+        f"the router Deployment runs {out['router']['command']} "
+        f"({out['seconds']:.2f} s)")
+    if full:
+        other = dict(_graph_spec(model, bs), name="smoke-cli")
+        _set_graph(fake, other)
+        env = dict(os.environ, DYN_K8S_TOKEN=K8S_TOKEN)
+        t1 = time.perf_counter()
+        proc = await asyncio.create_subprocess_exec(
+            sys.executable, "-m", "dynamo_tpu_torch.operator", "--once",
+            "--api-url", fake.endpoint, "--namespace", K8S_NAMESPACE,
+            env=env, stdout=asyncio.subprocess.DEVNULL,
+            stderr=asyncio.subprocess.PIPE)
+        _, err = await asyncio.wait_for(proc.communicate(), FLEET_WAIT_S)
+        made = sorted(n for n in fake.apps if n.startswith("smoke-cli-"))
+        log(f"operator CLI --once: exit {proc.returncode}, created {made} "
+            f"in {time.perf_counter() - t1:.1f} s")
+        if proc.returncode != 0 or len(made) != 4:
+            raise SystemExit(f"operator CLI: exit {proc.returncode}, "
+                             f"created {made}: {err.decode()[-2000:]}")
+        out["cli"] = made
+    return out
+
+
+async def _start_rendered_router(container: dict, disco_dir: str,
+                                 log_path: str, component: str = ""):
+    """The router Deployment's rendered command as a process of its own:
+    `python` is this interpreter, the container's environment is kept,
+    and discovery points at the fleet's (file discovery under
+    `disco_dir`, the zmq event plane) where a cluster's pod would find
+    the Kubernetes API.  `component` renames the router's component (a
+    second instance).  Returns the process (its stdout the ready line's
+    pipe, its stderr `log_path`)."""
+    cmd = [sys.executable, *container["command"][1:]]
+    if component:
+        i = cmd.index("--router-component")
+        cmd[i + 1] = component
+    env = dict(os.environ)
+    env.update({e["name"]: e["value"] for e in container["env"]})
+    env.update(DYN_DISCOVERY_BACKEND="file", DYN_DISCOVERY_PATH=disco_dir,
+               DYN_EVENT_PLANE="zmq")
+    with open(log_path, "ab") as errf:
+        return await asyncio.create_subprocess_exec(
+            *cmd, env=env, stdout=asyncio.subprocess.PIPE, stderr=errf)
+
+
+async def _router_ready(proc, log_path: str) -> int:
+    try:
+        line = await asyncio.wait_for(proc.stdout.readline(),
+                                      ROUTER_READY_S)
+    except asyncio.TimeoutError:
+        line = b""
+    if not line.startswith(b"ready instance_id="):
+        proc.kill()
+        await proc.wait()
+        with open(log_path) as f:
+            tail = f.read()[-3000:]
+        raise SystemExit(f"standalone router: no ready line within "
+                         f"{ROUTER_READY_S:.0f} s: {tail}")
+    return int(line.split(b"=", 1)[1])
+
+
+async def _stop_process(proc) -> int:
+    if proc.returncode is None:
+        proc.terminate()
+        try:
+            await asyncio.wait_for(proc.wait(), 30)
+        except asyncio.TimeoutError:
+            proc.kill()
+            await proc.wait()
+    return proc.returncode
+
+
+async def _router_phase(rt, client, workers, reqs, bs: int, comps: list,
+                        router_ids: list) -> dict:
+    """The standalone router (component comps[0], from the operator's
+    rendered command) against a KvRouter embedded in this process over
+    the same workers: worker 0 and worker 1 hold the first and second
+    prompts' blocks (served there directly), and for each of the five
+    prompts the standalone's find_best_worker must name the embedded
+    router's pick (any of its tied best picks where its costs tie), with
+    the same request and overlap blocks; mark_prefill_completed and free
+    answer ok.  With a second instance (comps[1]), the affinity check of
+    tests/test_torch_router_main.py: a request held at the first
+    instance steers its probes, a free sent to the second leaves it
+    held, a free sent to the first releases it."""
+    from dynamo_tpu_torch.router.kv_router import KvRouter
+
+    t0 = time.perf_counter()
+    iids = [w.served.instance_id for w in workers]
+    for i, w in ((0, 0), (1, 1)):
+        async for _ in client.generate(dataclasses.replace(
+                reqs[i], request_id=f"warm-{i}").to_dict(),
+                instance_id=iids[w]):
+            pass
+    full = [len(r.token_ids) // bs for r in reqs]
+    emb = await KvRouter(rt, "dynamo", "backend", client, block_size=bs,
+                         replica_sync=False).start()
+    eps = {}
+    try:
+        end = time.monotonic() + FLEET_WAIT_S
+        while not (emb.indexer.worker_block_count(iids[0]) >= full[0]
+                   and emb.indexer.worker_block_count(iids[1]) >= full[1]):
+            if time.monotonic() > end:
+                raise SystemExit("router phase: the embedded router never "
+                                 "saw the warm blocks")
+            await asyncio.sleep(0.02)
+        for comp in comps:
+            ns = rt.namespace("dynamo").component(comp)
+            eps[comp] = {ep: await ns.endpoint(ep).client().start()
+                         for ep in ("find_best_worker",
+                                    "mark_prefill_completed", "free")}
+            await eps[comp]["find_best_worker"].wait_for_instances(
+                timeout=FLEET_WAIT_S)
+
+        async def one(c, ep, payload):
+            out = [x async for x in c[ep].generate(payload)]
+            if len(out) != 1:
+                raise SystemExit(f"standalone router {ep}: {out}")
+            return out[0]
+
+        async def pick(c, req):
+            return await one(c, "find_best_worker", req.to_dict())
+
+        r1 = eps[comps[0]]
+        # the standalone has seen the warm-ups once it names them
+        end = time.monotonic() + FLEET_WAIT_S
+        while True:
+            probe = dataclasses.replace(reqs[0], request_id="probe")
+            ans = await pick(r1, probe)
+            await one(r1, "free", {"request_id": "probe"})
+            if ans.get("overlap_blocks") == full[0]:
+                break
+            if time.monotonic() > end:
+                raise SystemExit(f"standalone router: never saw the warm "
+                                 f"blocks ({ans})")
+            await asyncio.sleep(0.1)
+        rows = []
+        for r in reqs:
+            want = await emb.pick(r)
+            dec = emb.pop_decision(r.request_id) or {}
+            emb.complete(r.request_id)
+            scores = dec.get("scores", {})
+            best = min(scores.values()) if scores else None
+            tied = sorted(int(t) for t, s in scores.items() if s == best)
+            got = await pick(r1, r)
+            ok = await one(r1, "mark_prefill_completed",
+                           {"request_id": r.request_id})
+            freed = await one(r1, "free", {"request_id": r.request_id})
+            rows.append({"request": r.request_id, "embedded": want,
+                         "tied": tied, "standalone": got.get("instance_id"),
+                         "request_blocks": (got.get("request_blocks"),
+                                            dec.get("request_blocks")),
+                         "overlap_blocks": (
+                             got.get("overlap_blocks"),
+                             dec.get("predicted_overlap_blocks"))})
+            if got.get("router_instance_id") != router_ids[0] \
+                    or ok != {"ok": True} or freed != {"ok": True}:
+                raise SystemExit(f"standalone router: {got}, {ok}, {freed}")
+            same = (got.get("instance_id") == want if len(tied) <= 1
+                    else got.get("instance_id") in tied)
+            if not same or rows[-1]["request_blocks"][0] \
+                    != rows[-1]["request_blocks"][1] or (
+                    got.get("instance_id") == want
+                    and rows[-1]["overlap_blocks"][0]
+                    != rows[-1]["overlap_blocks"][1]):
+                raise SystemExit(f"standalone router: {r.request_id}'s "
+                                 f"answer differs from the embedded "
+                                 f"router's: {rows[-1]}")
+        log(f"standalone router against the embedded KvRouter: "
+            + "; ".join(f"{x['request']} -> {x['standalone']} (embedded "
+                        f"{x['embedded']}, tied {x['tied']}), blocks "
+                        f"{x['request_blocks'][0]}, overlap "
+                        f"{x['overlap_blocks'][0]}" for x in rows))
+        out = {"rows": rows}
+        if len(comps) > 1:
+            out["affinity"] = await _router_affinity(eps, comps, reqs, pick,
+                                                     one)
+        out["seconds"] = round(time.perf_counter() - t0, 3)
+        return out
+    finally:
+        for c in eps.values():
+            for cl in c.values():
+                await cl.close()
+        await emb.close()
+
+
+async def _router_affinity(eps, comps, reqs, pick, one) -> dict:
+    """tests/test_torch_router_main.py's affinity check on the card's
+    fleet: r1 holds a 3-block and a 2-block request on different
+    workers; a 1-block probe's pick says whether the first is held."""
+    r1, r2 = eps[comps[0]], eps[comps[1]]
+    base = reqs[3]
+
+    def req(rid, n):
+        # never served, so no worker holds its blocks: cold picks
+        toks = (list(base.token_ids) * 20)[:n]
+        return dataclasses.replace(base, request_id=rid, token_ids=toks,
+                                   stop=dataclasses.replace(base.stop,
+                                                            max_tokens=4))
+
+    async def free(c, rid):
+        return await one(c, "free", {"request_id": rid})
+
+    hold1 = await pick(r1, req("hold-1", 330))
+    w_h = hold1["instance_id"]
+    probe1 = await pick(r1, req("probe-1", 100))
+    await free(r1, "probe-1")
+    hold2 = await pick(r1, req("hold-2", 200))
+    wrong = await free(r2, "hold-1")
+    probe2 = await pick(r1, req("probe-2", 100))
+    await free(r1, "probe-2")
+    right = await free(r1, "hold-1")
+    probe3 = await pick(r1, req("probe-3", 100))
+    await free(r1, "probe-3")
+    await free(r1, "hold-2")
+    out = {"steered": probe1["instance_id"] != w_h,
+           "split": hold2["instance_id"] != w_h, "wrong": wrong,
+           "still_held": probe2["instance_id"] != w_h, "right": right,
+           "released": probe3["instance_id"] == w_h}
+    log(f"standalone router affinity: {out}")
+    if out != {"steered": True, "split": True, "wrong": {"ok": True},
+               "still_held": True, "right": {"ok": True}, "released": True}:
+        raise SystemExit(f"standalone router: affinity broken: {out}")
+    return out
+
+
+async def _through(mig, req, rid: str, workers) -> list:
+    """`req` as `rid` through the frontend's migration operator from
+    cleared prefix caches (a stream that hits a cached prefix may part
+    from a cold one at a near-tie): the token ids its client receives."""
+    for w in workers:
+        if w.engine._task is None or not w.engine._task.done():
+            await w.engine.clear_kv_blocks()
+    ids = []
+    async for out in mig.generate(dataclasses.replace(req, request_id=rid)):
+        ids.extend(out.token_ids)
+    return ids
+
+
+async def _chaos_phase(fe, workers, reqs, full: bool) -> dict:
+    """The chaos plane on the fleet behind the frontend's migration
+    operator, every stream from cleared prefix caches: the fault-free
+    greedy stream of CHAOS_PROMPT, then (b) one
+    `request_plane.frame` truncate (the stream cut after its third
+    frame, as a worker dying mid-stream looks), (with `full`: one
+    `request_plane.dispatch` failure, two delayed frames, a window of
+    `discovery.op` failures), then (a) `engine.step` fail after
+    CHAOS_STEP_AFTER steps on the worker that took the request, which
+    kills its engine loop mid-decode; each faulted stream is migrated by
+    token replay and returned for the comparison with the fault-free one.
+    The crashed engine must fail a new request fast with a migratable
+    error.  Then (c) on the survivor's engine, the four `engine.kv_account`
+    classes each seeded by one request and named by the ledger's
+    on-demand audit, in an order where no fault feeds the next: a
+    refcount drift and a leak keep their blocks off the free list, an
+    orphan puts a block the ledger still owns back on it, and a double
+    free breaks the free list for whatever follows."""
+    from dynamo_tpu_torch import chaos
+    from dynamo_tpu_torch.frontend.pipeline import is_migratable
+
+    mig = fe.pipeline.migration
+    req = reqs[CHAOS_PROMPT]
+    t0 = time.perf_counter()
+    streams = {"base": await _through(mig, req, "chaos-base", workers)}
+    rules = [("truncate", ("request_plane.frame", "truncate"),
+              dict(after=3, times=1, match="generate"))]
+    if full:
+        rules += [("dispatch", ("request_plane.dispatch", "fail"),
+                   dict(times=1, error="connection lost (chaos: "
+                        "dispatch)")),
+                  ("delay", ("request_plane.frame", "delay"),
+                   dict(delay_s=0.05, after=2, times=2,
+                        match="generate")),
+                  ("discovery", ("discovery.op", "fail"),
+                   dict(error="injected discovery outage"))]
+    rules.append(("crash", ("engine.step", "fail"),
+                  dict(after=CHAOS_STEP_AFTER, times=1,
+                       error="worker engine error: chaos crash on step N")))
+    fired = {}
+    for i, (what, (seam, action), kw) in enumerate(rules):
+        plane = chaos.ChaosPlane(seed=i).rule(seam, action, **kw)
+        with plane:
+            streams[what] = await _through(mig, req, f"chaos-{what}",
+                                           workers)
+        fired[what] = plane.fired()
+        # the discovery window fails the watches' polls, as many as land
+        # in it: the request path itself never touches discovery
+        want = {"delay": 2, "discovery": fired[what]}.get(what, 1)
+        if fired[what] != want:
+            raise SystemExit(f"chaos {what}: {fired[what]} injections, "
+                             f"expected {want}")
+    dead = [w for w in workers
+            if w.engine._task is not None and w.engine._task.done()]
+    live = [w for w in workers if w not in dead]
+    if len(dead) != 1:
+        raise SystemExit(f"chaos crash: {len(dead)} engines died")
+    outs = [o async for o in dead[0].engine.generate(
+        dataclasses.replace(req, request_id="post-crash"))]
+    if outs[0].finish_reason != "error" \
+            or not is_migratable(RuntimeError(outs[0].error)):
+        raise SystemExit(f"chaos crash: the dead engine answered {outs}")
+    # (c): each accounting fault class named by the audit
+    eng = live[0].engine
+    named = {}
+    for i, kind in enumerate(("refcount_drift", "leak", "orphan",
+                              "double_free")):
+        plane = chaos.ChaosPlane(seed=i).rule(
+            "engine.kv_account", "drop", match=f"{kind}:", times=1)
+        with plane:
+            await _serve(eng, [dataclasses.replace(
+                reqs[3], request_id=f"kv-{kind}",
+                stop=dataclasses.replace(reqs[3].stop, max_tokens=8))])
+            end = time.monotonic() + FLEET_WAIT_S
+            while eng.num_active_seqs:  # freed a step after its frame
+                if time.monotonic() > end:
+                    raise SystemExit(f"chaos kv_account: kv-{kind} never "
+                                     "freed")
+                await asyncio.sleep(0.01)
+        report = await eng.audit_kv()
+        kinds = sorted({v["kind"] for v in report.get("violations", ())})
+        named[kind] = {"fired": plane.fired(), "audit": kinds}
+        if plane.fired() != 1 or kind.replace("_", "-") not in kinds:
+            raise SystemExit(f"chaos kv_account {kind}: fired "
+                             f"{plane.fired()}, the audit named {kinds}")
+    log(f"chaos kv_account on the survivor's engine: {named}")
+    return {"streams": streams, "fired": fired, "kv_account": named,
+            "crashed": dead[0].served.instance_id,
+            "seconds": round(time.perf_counter() - t0, 3)}
+
+
+def check_fleet(device, card: str, params, chaos_form: Optional[str],
+                operator_form: Optional[str]) -> dict:
+    """Two bf16 TorchEngineWorkers (LLAMA_LAYERS deep, sharing the weight
+    tensors `params`, warm-up on) on one runtime over file discovery and
+    the zmq event plane, behind the port's frontend in kv mode
+    (_Frontend).  `operator_form` ("short", "full" or None): the port's
+    graph operator against FakeKubeApi (_operator_phase, before the
+    workers start), the router Deployment's rendered command launched as
+    a process on the fleet's discovery (two instances with "full") and
+    held to an embedded KvRouter (_router_phase).  `chaos_form`
+    ("short", "full" or None): _chaos_phase, whose migrated streams must
+    equal the fault-free one (a parting only at a near-tie), with the
+    launches of K1/K3 counted around its streams (the phase's main path).
+    Returns the phases' results and the launches."""
+    import shutil
+    import tempfile
+    import uuid
+
+    from dynamo_tpu_torch.engine import TorchEngineWorker
+    from dynamo_tpu_torch.runtime import DistributedRuntime, RuntimeConfig
+
+    cfg = dataclasses.replace(_engine_config("bf16"), warmup=True)
+    mc = cfg.resolve_model()
+    bs = cfg.block_size
+    reqs = _requests(mc.vocab_size)
+    used = _kernels_of("bf16")
+    root = tempfile.mkdtemp(prefix="chip-smoke-fleet-")
+    disco = os.path.join(root, "discovery")
+    router_log = os.path.join(root, "router.log")
+    result: dict = {}
+
+    async def run():
+        fake, fe, client, rt = None, None, None, None
+        workers, procs = [], []
+        try:
+            if operator_form:
+                fake = await FakeKubeApi().start()
+                result["operator"] = await _operator_phase(
+                    fake, "llama-8b", bs, operator_form == "full")
+                # the routers start while the workers warm up
+                comps = ["kv-router"] + (["kv-router-2"]
+                                         if operator_form == "full" else [])
+                for comp in comps:
+                    procs.append(await _start_rendered_router(
+                        result["operator"]["router"], disco, router_log,
+                        comp))
+            rt = await DistributedRuntime(config=RuntimeConfig(
+                discovery_backend="file", discovery_path=disco,
+                event_plane="zmq", tcp_host="127.0.0.1"),
+                cluster_id=uuid.uuid4().hex).start()
+            for _ in range(2):
+                t0 = time.perf_counter()
+                workers.append(await TorchEngineWorker(
+                    rt, cfg, params=params, device=device).start())
+                log(f"fleet: worker {workers[-1].served.instance_id} "
+                    f"started with warm-up in {time.perf_counter() - t0:.1f} "
+                    f"s, {workers[-1].config.num_blocks} KV blocks")
+            client = await rt.namespace("dynamo").component(
+                "backend").endpoint("generate").client().start()
+            await client.wait_for_instances()
+            if operator_form:
+                ids = [await _router_ready(p, router_log) for p in procs]
+                log(f"fleet: {len(procs)} standalone router process(es) "
+                    f"ready, instances {ids}")
+                result["router"] = await _router_phase(
+                    rt, client, workers, reqs, bs, comps, ids)
+            if chaos_form:
+                fe = await _Frontend.attach(rt, n_instances=2)
+                for fn in used:
+                    fn.launches = 0
+                m0 = [dict(w.engine.metrics) for w in workers]
+                result["chaos"] = await _chaos_phase(
+                    fe, workers, reqs, chaos_form == "full")
+                result["launches"] = {fn.__name__: fn.launches
+                                      for fn in used}
+                result["steps"] = {k: sum(w.engine.metrics[k] - m[k]
+                                          for w, m in zip(workers, m0))
+                                   for k in ("decode_steps",
+                                             "prefill_steps")}
+        finally:
+            for p in procs:
+                code = await _stop_process(p)
+                log(f"fleet: standalone router exited {code}")
+            if fe is not None:
+                left = await fe.close()
+                if left:
+                    raise SystemExit(f"fleet: the frontend left tasks "
+                                     f"{left}")
+            if client is not None:
+                await client.close()
+            for w in workers:
+                await w.close()
+                w.engine.kv = w.engine.graphs = None
+                w.engine.prefill_graphs = w.engine.guided_graphs = None
+            if rt is not None:
+                await rt.shutdown()
+            if fake is not None:
+                await fake.close()
+
+    t0 = time.perf_counter()
+    try:
+        asyncio.run(run())
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+        gc.collect()
+        torch.cuda.empty_cache()
+    if chaos_form:
+        ch = result["chaos"]
+        base = ch["streams"]["base"]
+        names = [k for k in ch["streams"] if k != "base"]
+        if len(base) != 32:
+            raise SystemExit(f"chaos: the fault-free stream has "
+                             f"{len(base)} tokens")
+        parted = _check_streams(
+            "chaos", [(ch["streams"][k],) for k in names],
+            [(base,)] * len(names), [reqs[CHAOS_PROMPT]] * len(names),
+            params, mc, device)
+        _check_worker_launches(result["launches"], result["steps"],
+                               mc.n_layers, "chaos fleet")
+        log(f"chaos ({card}): the migrated streams of {names} equal the "
+            f"fault-free one for {len(names) - len(parted)} of "
+            f"{len(names)} ({len(parted)} parting(s) at a near-tie); "
+            f"injections {ch['fired']}; the crash killed worker "
+            f"{ch['crashed']}'s engine; phase {ch['seconds']:.1f} s")
+        result["parted"] = parted
+        del ch["streams"]
+    result["seconds"] = round(time.perf_counter() - t0, 1)
+    log(f"fleet phase (operator {operator_form}, chaos {chaos_form}): "
+        f"{result['seconds']:.1f} s")
+    return result
+
+
+async def _disagg_pull_chaos(pw, dw, pclient, dclient, req) -> dict:
+    """`disagg.pull.chunk` on the disagg pair: a pull failing once is
+    absorbed by the pull's retry (the decode worker prefills nothing), a
+    pull that keeps failing falls back to local prefill.  Returns each
+    run's tokens, injections and decode-side prefill tokens."""
+    from dynamo_tpu_torch import chaos
+
+    out = {}
+    t0 = time.perf_counter()
+    for i, (what, kw) in enumerate((("retry", dict(times=1)),
+                                    ("fallback", {}))):
+        for w in (pw, dw):
+            await w.engine.clear_kv_blocks()
+        m0 = dict(dw.engine.metrics)
+        plane = chaos.ChaosPlane(seed=17 + i).rule(
+            "disagg.pull.chunk", "fail",
+            error="injected pull chunk failure", **kw)
+        with plane:
+            r = await _disagg_one(pclient, dclient, dataclasses.replace(
+                req, request_id=f"{req.request_id}-pull-{what}"),
+                time.perf_counter())
+        out[what] = {"tokens": r[0], "finish": r[1],
+                     "fired": plane.fired(),
+                     "prefill_tokens": dw.engine.metrics["prefill_tokens"]
+                     - m0["prefill_tokens"]}
+    out["seconds"] = round(time.perf_counter() - t0, 3)
+    return out
+
+
 def main() -> int:
     global LLAMA_LAYERS
     if not torch.cuda.is_available():
@@ -13272,8 +14171,10 @@ def main() -> int:
 
         gen = torch.Generator(device=device).manual_seed(0)
         params = llama.init_params(cfg, gen, device)
-        print(json.dumps({"decode_ab": decode_ab(device, card, params)}),
-              flush=True)
+        out = {"decode_ab": decode_ab(device, card, params)}
+        # what the chaos seams cost with no plane installed
+        out["seam_ab"] = seam_ab(device, card, params)
+        print(json.dumps(out), flush=True)
         print(card, flush=True)
         return 0
     if sys.argv[1:] == ["--fused-ab"]:
@@ -13496,6 +14397,22 @@ def main() -> int:
         print(json.dumps(out, default=str), flush=True)
         print(card, flush=True)
         return 0
+    if sys.argv[1:] in (["--chaos"], ["--operator"]):
+        # python3 chip_smoke.py --chaos: the chaos phase's full form on
+        # two full-depth workers behind the frontend; --operator: the
+        # graph operator and two standalone router instances over them
+        build_kernels()
+        from dynamo_tpu_torch.models import llama
+
+        gen = torch.Generator(device=device).manual_seed(0)
+        params = llama.init_params(cfg, gen, device)
+        chaos_full = sys.argv[1] == "--chaos"
+        out = check_fleet(device, card, params,
+                          "full" if chaos_full else None,
+                          None if chaos_full else "full")
+        print(json.dumps({sys.argv[1][2:]: out}, default=str), flush=True)
+        print(card, flush=True)
+        return 0
     if sys.argv[1:] == ["--worker-ab"]:
         # python3 chip_smoke.py --worker-ab: the engine directly against
         # the engine behind the worker, in turns
@@ -13578,6 +14495,11 @@ def main() -> int:
     prefill_ab(device, card, params, rounds=1)
     torch.cuda.empty_cache()
     log(f"prefill A/B phase done at {time.perf_counter() - t_start:.1f} s")
+    # the graph operator, the standalone router and the chaos plane on
+    # two workers behind the frontend, short forms
+    fleet = check_fleet(device, card, params, "short", "short")
+    log(f"fleet phase (operator, router, chaos) done at "
+        f"{time.perf_counter() - t_start:.1f} s")
     kvbm = check_kvbm(device, card, params)
     log(f"kvbm phase done at {time.perf_counter() - t_start:.1f} s")
     lora = check_lora_guided(device, card, params, ops_default)
@@ -13708,6 +14630,8 @@ def main() -> int:
             for p in ("agg", "disagg")]
         k["loadgen_launches"] = frontend["loadgen"]["launches"].get(
             k["name"], 0)
+        # the chaos phase's streams over the two-worker fleet
+        k["chaos_launches"] = fleet["launches"].get(k["name"], 0)
     for k in dma:  # the microbench is on no serving path
         k["disagg_prefill_launches"] = k["disagg_decode_launches"] = 0
         k["frontend_disagg_launches"] = [0, 0]
@@ -13723,7 +14647,7 @@ def main() -> int:
         k["tp_disagg_rank1_launches"] = 0
         k["kserve_launches"] = k["profiler_launches"] = 0
         k["planner_launches"] = k["grouter_launches"] = [0, 0]
-        k["loadgen_launches"] = 0
+        k["loadgen_launches"] = k["chaos_launches"] = 0
     log(f"chip_smoke: every phase passed in "
         f"{time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels + dma}), flush=True)

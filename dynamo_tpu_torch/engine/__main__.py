@@ -6,8 +6,8 @@ offered) and `--device`, CUDA by default: without CUDA the worker exits
 non-zero unless `--device cpu` asks for the plain attention versions on
 the CPU.  The runtime is configured from the `DYN_*` environment
 (runtime/config.py), e.g. DYN_DISCOVERY_BACKEND=file and
-DYN_DISCOVERY_PATH=<dir> to sit behind `python -m dynamo_tpu.frontend`
-on one host; DYN_SYSTEM_PORT (negative: an ephemeral port) serves
+DYN_DISCOVERY_PATH=<dir> to sit behind `python -m
+dynamo_tpu_torch.frontend` on one host; DYN_SYSTEM_PORT (negative: an ephemeral port) serves
 /health, /live, /metrics and, with DYN_ADMIN_TOKEN, the /debug routes
 (runtime/system_status.py), and DYN_TRACE=1 with DYN_TRACE_OUT=<file>
 records the timeline spans and dumps them as a Chrome trace at exit

@@ -1,10 +1,8 @@
 """Host-side physical block allocator with PLH prefix caching.
 
-A copy of dynamo_tpu/engine/block_allocator.py without its fault-injection
-seam (not ported; tests seed the same faults by mutating the books
-directly, as the seam does).  Full blocks are registered under their
-PositionalLineageHash for dedup/reuse; refcount-0 registered blocks stay
-cached in LRU order until evicted.  Block id 0 is the garbage block
+A copy of dynamo_tpu/engine/block_allocator.py.  Full blocks are
+registered under their PositionalLineageHash for dedup/reuse; refcount-0
+registered blocks stay cached in LRU order until evicted.  Block id 0 is the garbage block
 (never allocated): inactive rows' KV writes land there and are never
 read.
 
@@ -17,7 +15,10 @@ transition is also recorded onto the engine's KV ledger at its
 definition site here, one ``if led is None`` pointer compare per
 mutation when the ledger is off.  This module is the only place that
 mutates the allocator's books: a mutation elsewhere is the silent
-leak/double-free class the ledger's auditor exists to catch.
+leak/double-free class the ledger's auditor exists to catch.  The
+``engine.kv_account`` chaos seam deliberately seeds each violation
+class (leak / double-free / orphan / refcount-drift) so the auditor's
+detection is regression-provable.
 """
 
 from __future__ import annotations
@@ -26,6 +27,7 @@ from collections import OrderedDict
 from dataclasses import dataclass, field
 from typing import Dict, List, Optional, Sequence, Tuple
 
+from .. import chaos
 
 
 @dataclass
@@ -141,7 +143,8 @@ class BlockAllocator:
             self._lru[h] = None
             self._lru.move_to_end(h)
 
-    def _release_one(self, bid: int, seq_id: Optional[str]) -> Optional[int]:
+    def _release_one(self, bid: int, seq_id: Optional[str],
+                     released: Optional[List[int]] = None) -> Optional[int]:
         """Shared free()/trim_blocks() tail: drop one block whose rc hit
         0 — back to the prefix cache when registered, else to the free
         list — with the matching ledger records.  Returns the hash whose
@@ -160,6 +163,8 @@ class BlockAllocator:
         self._block_ref.pop(bid, None)
         self._block_hash.pop(bid, None)
         self._free.append(bid)
+        if released is not None:
+            released.append(bid)
         if led is not None:
             led.release(bid, seq_id)
         if h is not None and self._hash_to_block.get(h) == bid:
@@ -201,6 +206,13 @@ class BlockAllocator:
             res.block_ids.append(bid)
             if led is not None:
                 led.alloc(bid, seq_id)
+        # chaos seam (engine.kv_account): an extra, unledgered refcount —
+        # the precursor drift state the auditor must flag before it grows
+        # into a leak
+        if chaos.active() is not None and res.block_ids \
+                and chaos.hit("engine.kv_account",
+                              key=f"refcount_drift:{seq_id}") == "drop":
+            self._block_ref[res.block_ids[-1]] += 1
         # Registration of the non-hit full blocks is DEFERRED to
         # commit_block, once prefill has materialized their K/V: registering
         # here would let a concurrent same-prefix request prefix-match
@@ -275,6 +287,9 @@ class BlockAllocator:
         res = GrowResult()
         blocks = self._seq_blocks.pop(seq_id, [])
         led = self.ledger
+        if chaos.active() is not None and blocks:
+            blocks = self._chaos_corrupt(seq_id, blocks)
+        released: List[int] = []
         for bid in blocks:
             rc = self._block_ref.get(bid, 1) - 1
             if rc > 0:
@@ -282,12 +297,41 @@ class BlockAllocator:
                 if led is not None:
                     led.unpin(bid, seq_id)
                 continue
-            gone = self._release_one(bid, seq_id)
+            gone = self._release_one(bid, seq_id, released)
             if gone is not None:
                 res.removed.append(gone)
+        # chaos seam: return an already-freed id to the free list a
+        # second time — the classic double-free the auditor must flag
+        if chaos.active() is not None and released \
+                and chaos.hit("engine.kv_account",
+                              key=f"double_free:{seq_id}") == "drop":
+            self._free.append(released[0])
         if led is not None:
             led.seq_freed(seq_id)
         return res
+
+    def _chaos_corrupt(self, seq_id: str, blocks: List[int]) -> List[int]:
+        """engine.kv_account seam, "drop" action: seed the accounting
+        faults the ledger auditor exists to catch.  Each key names the
+        violation class a rule's ``match=`` selects."""
+        blocks = list(blocks)
+        if blocks and chaos.hit("engine.kv_account",
+                                key=f"leak:{seq_id}") == "drop":
+            # "forget" the trailing block: free() never releases it and
+            # the ledger keeps a dead owner — capacity silently lost
+            blocks.pop()
+        if blocks and chaos.hit("engine.kv_account",
+                                key=f"orphan:{seq_id}") == "drop":
+            # release a block behind the ledger's back (the rogue-code
+            # path this module alone may take): the books now point at
+            # a ghost
+            bid = blocks.pop()
+            self._block_ref.pop(bid, None)
+            h = self._block_hash.pop(bid, None)
+            if h is not None and self._hash_to_block.get(h) == bid:
+                del self._hash_to_block[h]
+            self._free.append(bid)
+        return blocks
 
     def clear_cached(self) -> List[int]:
         """Drop every *unreferenced* cached block (active sequences keep

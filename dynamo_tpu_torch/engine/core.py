@@ -226,7 +226,7 @@ from typing import Any, AsyncIterator, Callable, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
-from .. import obs
+from .. import chaos, obs
 from ..device import DeviceLike, resolve_device
 from ..disagg.transfer import KvLayout, dtype_name, make_transfer_params
 from ..kvbm.consolidator import KvEventConsolidator
@@ -1568,10 +1568,17 @@ class TorchEngine:
                    if t_obs else None)
 
         async def pull_chunk(b0: int, n: int):
-            # a transiently failing chunk op is retried with jittered
-            # backoff before the whole pull gives up
+            # a transiently failing chunk op (peer hiccup, injected
+            # fault) is retried with jittered backoff before the whole
+            # pull gives up and falls back to local prefill.  The chaos
+            # seam sits INSIDE the retried call so `times=1` rules are
+            # absorbed by a retry while unlimited rules exhaust it.
+            async def once():
+                await chaos.ahit("disagg.pull.chunk", key=f"{rid}:{b0}")
+                return await src.chunk(b0, n)
+
             return await call_with_retry(
-                lambda: src.chunk(b0, n), PULL_POLICY,
+                once, PULL_POLICY,
                 on_retry=lambda a, e: logger.warning(
                     "kv pull chunk [%d,%d) for %s failed (attempt %d): "
                     "%s", b0, b0 + n, rid, a, e))
@@ -2288,6 +2295,11 @@ class TorchEngine:
         with self._step_lock:
             if self._closed:
                 return
+            # chaos seam: crash ("fail") or wedge the scheduler on step
+            # N — the loop's crash handler fails all streams with the
+            # migratable worker-engine-error marker; a wedge is caught
+            # by the canary (health_check.py)
+            chaos.hit("engine.step", key=self.config.served_name)
             # timeline spans: one `step` over the iteration, `sched` over
             # the host-only scheduling work (`enqueue_ahead` when unread
             # bursts keep the device busy meanwhile: overlapped, not

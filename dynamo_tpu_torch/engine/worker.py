@@ -101,7 +101,7 @@ import time
 from collections import OrderedDict
 from typing import Dict, List, Optional
 
-from .. import obs
+from .. import chaos, obs
 from ..device import DeviceLike, resolve_device
 from ..disagg import broker
 from ..disagg.device_transfer import (
@@ -801,6 +801,11 @@ class TorchEngineWorker:
         close end its replay with `stop`."""
         if self.engine is None or not self.mh.is_leader:
             return
+        # chaos: a worker that ignores drain (wedge) — the planner
+        # connector's bounded wait escalates to stop, and migration
+        # completes the in-flight streams on survivors
+        await chaos.ahit("worker.drain", key=str(
+            self.served.instance_id if self.served is not None else ""))
         self.engine.draining = True
         if self.served is not None:
             logger.warning("draining torch engine worker %d (deadline "

@@ -2,12 +2,11 @@
 
 A copy of dynamo_tpu/global_router/service.py on the port's HTTP server
 (runtime/http_server.py) and client (runtime/http.py `open_raw`) in
-place of aiohttp, which the machines the port serves on do not have, and
-without its chaos seam (`grouter.classify`).  It exposes the same OpenAI
-surface the frontends do.  Per request it estimates ISL from the body,
-classifies against the live pool set (policy.py), picks a frontend
-inside the chosen pool by power-of-two-choices on local in-flight
-counts, and proxies the request byte for byte: the status, the content
+place of aiohttp, which the machines the port serves on do not have.  It
+exposes the same OpenAI surface the frontends do.  Per request it
+estimates ISL from the body, classifies against the live pool set
+(policy.py), picks a frontend inside the chosen pool by power-of-two
+choices on local in-flight counts, and proxies the request byte for byte: the status, the content
 type and every body chunk pass through untouched as they arrive, so
 token streams are identical to hitting the pool frontend directly.  The
 forward stamps `x-dyn-pool` so the frontend's request tracker (and
@@ -15,9 +14,9 @@ therefore the `routed` hop + request_end record) names the pool.
 
 Failure posture: a frontend that refuses the connection goes on a short
 cooldown (`FRONTEND_COOLDOWN_S`) and the request retries the pool's
-other frontends before a 502; a classifier fault degrades to
-round-robin over the model's pools: a policy bug must never drop
-traffic.
+other frontends before a 502; a classifier fault (chaos seam
+`grouter.classify`) degrades to round-robin over the model's pools: a
+policy bug must never drop traffic.
 
 Observability: `dynamo_grouter_*` metrics (per-pool route counts by
 reason, classification latency, pool/frontend gauges) plus a background
@@ -36,6 +35,7 @@ import time
 from collections import Counter, deque
 from typing import Dict, Optional
 
+from .. import chaos
 from ..runtime.http import HttpClient
 from ..runtime.http_server import (
     HttpServer,
@@ -176,6 +176,7 @@ class GlobalRouterService:
         max_tokens = int(body.get("max_tokens") or 0)
         tc = time.monotonic()
         try:
+            await chaos.ahit("grouter.classify", key=model)
             decision = self.classifier.classify(pools, isl, max_tokens)
         except Exception:
             # a policy fault must degrade, not drop: round-robin over

@@ -1,6 +1,6 @@
 """G4 object-store KV tier: cluster-shared, content-addressed block blobs.
 
-A copy of dynamo_tpu/kvbm/object_store.py (its chaos seam left out).
+A copy of dynamo_tpu/kvbm/object_store.py.
 Unlike G2/G3, which are instance-owned caches with capacity eviction, G4
 is a shared namespace: blocks are immutable blobs keyed by content (a
 PLH commits to the full token prefix, so two engines writing the same
@@ -24,6 +24,7 @@ from typing import Iterable, List, Optional
 
 import torch
 
+from .. import chaos
 from .pools import (
     Block,
     BlockIntegrityError,
@@ -34,9 +35,24 @@ from .pools import (
 
 logger = logging.getLogger(__name__)
 
+# how long an injected "stall" action wedges the calling thread — long
+# enough to blow any sane ObjectIO deadline (the point: prove the
+# scheduler never waits this out), short enough that the daemon I/O
+# thread unwedges within a test run.  Tests monkeypatch it down.
+_STALL_S = 30.0
+
 # orphaned-tmp grace when the pool has no TTL: a *.tmp blob older than
 # this was abandoned mid-put (a crashed writer) and is reaped by sweep()
 _TMP_TTL_S = 3600.0
+
+
+def _tamper(blk: Block) -> Block:
+    """Flip one byte of the first member (chaos "corrupt" action): the
+    crc32 verification — not the injector — must catch it."""
+    a = blk[0].contiguous().clone()
+    flat = a.view(-1).view(torch.uint8)
+    flat[0] = flat[0] ^ 0xFF
+    return (a,) + tuple(blk[1:])
 
 
 class ObjectStorePool:
@@ -66,6 +82,9 @@ class ObjectStorePool:
     def put(self, h: int, *arrays: torch.Tensor) -> bool:
         """Atomic write; returns False if the blob already existed (same
         content by construction: PLH keys commit to the payload)."""
+        act = chaos.hit("kvbm.object_io", key=f"put:{int(h):032x}")
+        if act == "stall":
+            time.sleep(_STALL_S)
         p = self._path(h)
         if os.path.isfile(p):
             return False
@@ -100,12 +119,17 @@ class ObjectStorePool:
         caller attributes the event and degrades to a miss.  A legacy
         blob without a footer is read once and re-stamped in place, or
         reaped when the re-stamp cannot land."""
+        act = chaos.hit("kvbm.object_io", key=f"get:{int(h):032x}")
+        if act == "stall":
+            time.sleep(_STALL_S)
         p = self._path(h)
         try:
             blk, crc = read_block_file(p)
         except (OSError, KeyError, ValueError, TypeError, AttributeError,
                 zipfile.BadZipFile):
             return None  # concurrent GC or a torn write: a miss
+        if act == "corrupt" and blk:
+            blk = _tamper(blk)
         try:
             verify_block(blk, crc)
         except BlockIntegrityError:

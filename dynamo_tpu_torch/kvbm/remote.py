@@ -1,6 +1,6 @@
 """Cross-worker G2 pull: onboard KV blocks from a peer's host tiers.
 
-A copy of dynamo_tpu/kvbm/remote.py (its chaos seams left out).  Every
+A copy of dynamo_tpu/kvbm/remote.py.  Every
 worker publishes tiered KV events (router/events.py), so a
 `RemoteBlockIndex` built from the same event stream the router consumes
 tells any worker which peers hold a block's G2/G3/G4 copy.  The pull
@@ -29,6 +29,7 @@ from typing import Dict, List, Optional, Sequence, Set, Tuple
 
 import torch
 
+from .. import chaos
 from ..disagg.transfer import dtype_name, torch_dtype
 from ..router.events import (
     KvCacheEvent,
@@ -202,6 +203,20 @@ def decode_block(d: Dict) -> Tuple:
     return (h, *arrays)
 
 
+def _tamper_frame(frame: Dict) -> Dict:
+    """Chaos "corrupt" action: flip one byte of the frame's first
+    payload member before decode — the wire checksum, not the injector,
+    must catch it."""
+    out = dict(frame)
+    for name in _WIRE_MEMBERS:
+        if isinstance(out.get(name), (bytes, bytearray)) and out[name]:
+            b = bytearray(out[name])
+            b[0] ^= 0xFF
+            out[name] = bytes(b)
+            break
+    return out
+
+
 class RemoteKvbmPuller:
     """Client side: pull a run of blocks from the best-placed peer."""
 
@@ -232,8 +247,15 @@ class RemoteKvbmPuller:
             async for frame in self.client.generate(
                     {"hashes": [hash_to_wire(h) for h in want]},
                     instance_id=worker):
+                # chaos seam: peer pull fails partway through the run /
+                # slow peer / corrupt frame (key carries the frame
+                # ordinal for after=N)
+                act = await chaos.ahit("kvbm.remote_pull",
+                                       key=f"{worker}:{len(out)}")
                 if frame.get("h") is None:
                     break  # the peer's end-of-run marker (evicted mid-walk)
+                if act == "corrupt":
+                    frame = _tamper_frame(frame)
                 try:
                     out.append(decode_block(frame))
                 except BlockIntegrityError:

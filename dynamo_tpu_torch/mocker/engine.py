@@ -1,6 +1,6 @@
 """The mock engine: a vLLM-style continuous-batching scheduler, simulated,
-a copy of dynamo_tpu/mocker/engine.py without its chaos seam
-(`engine.step`, which crashed or wedged the scheduler on a rule).
+a copy of dynamo_tpu/mocker/engine.py, with the same chaos seam
+(`engine.step`, which crashes or wedges the scheduler on a rule).
 
 No accelerator: token generation is deterministic pseudo-random, step
 latency comes from a polynomial timing model, but the scheduling
@@ -22,7 +22,7 @@ import zlib
 from dataclasses import dataclass, field
 from typing import AsyncIterator, Dict, List, Optional
 
-from .. import obs
+from .. import chaos, obs
 from ..protocols import (
     DRAIN_ABORT,
     DRAIN_REJECT,
@@ -115,11 +115,9 @@ class MockEngineArgs:
     g2_onboard_s_per_block: float = 0.0005
     g4_onboard_s_per_block: float = 0.002
     # KV-integrity parity (engine/config.py kv_io_deadline_s /
-    # kv_breaker_*): the per-lookup G4 deadline JAX's sim charges when
-    # its chaos seam stalls a lookup (kept for the arguments' parity;
-    # the port's sim has no seam), and the tier circuit breaker that
-    # prices a failing G4 at recompute after `threshold` consecutive
-    # failures
+    # kv_breaker_*): simulated per-lookup G4 deadline charged when a
+    # chaos "stall" fires, and the tier circuit breaker that prices a
+    # failing G4 at recompute after `threshold` consecutive failures
     g4_deadline_s: float = 0.05
     kv_breaker_threshold: int = 3
     kv_breaker_cooldown_s: float = 5.0
@@ -205,12 +203,17 @@ class MockEngine:
                 cooldown_s=args.kv_breaker_cooldown_s)
         else:
             self.kv_breaker = None
+        # per-(tier, action) integrity failure counts — the mocker
+        # analogue of TorchEngine.kv_integrity_counters()
+        self.kv_integrity: Dict = {}
         self.cache = KvCacheSim(args.num_blocks, args.enable_prefix_caching,
                                 kv_cache_dtype=args.kv_cache_dtype,
                                 ledger=self.kv_ledger,
                                 host_blocks=args.host_blocks,
                                 object_store=args.object_store,
-                                breaker=self.kv_breaker)
+                                breaker=self.kv_breaker,
+                                g4_deadline_s=args.g4_deadline_s,
+                                on_corruption=self._note_kv_corruption)
         # onboard latency debt: seconds the NEXT step pays for blocks
         # admission served back into G1 from G2/G4 this step
         self._onboard_debt_s = 0.0
@@ -539,6 +542,17 @@ class MockEngine:
             # stream-idle rescue are what must save the requests
             await asyncio.sleep(3600.0)
             return
+        # chaos seam: crash ("fail") or wedge the scheduler on step N —
+        # same seam name as TorchEngine._sched_step, so one chaos rule
+        # drives either engine.  The key carries the worker id when one
+        # is known so a rule can `match` a SINGLE worker of a fleet
+        # (straggler injection: delay one worker's steps, leave its
+        # siblings fast); substring matches on the model name keep
+        # working.
+        await chaos.ahit(
+            "engine.step",
+            key=(f"{self.args.model_name}:{self.publisher.worker_id}"
+                 if self.publisher is not None else self.args.model_name))
         # timeline spans: same kinds (and zero-cost-off None check) as
         # JaxEngine._sched_step, so obs.report decomposes a mocker run
         # with the same phase taxonomy.  Overlap sim: mid decode-only
@@ -619,6 +633,12 @@ class MockEngine:
         # cheaper than the prefill recompute they displaced, which is
         # exactly the gap the cold-start bench measures
         onboard_s, self._onboard_debt_s = self._onboard_debt_s, 0.0
+        # deadline-bounded G4 I/O: stalled lookups charged their
+        # deadline by the capacity sim (no real sleep) pay it here as
+        # simulated step time — the mocker analogue of the real
+        # engine's bounded ObjectIO waits
+        onboard_s += self.cache.io_penalty_s
+        self.cache.io_penalty_s = 0.0
         step_s = (
             self.args.base_step_s
             + prefill_tokens * self.args.prefill_s_per_token
@@ -784,12 +804,22 @@ class MockEngine:
         obs.end("step", t_step, track=self._obs_track,
                 active=len(self.running), waiting=len(self.waiting))
 
+    def _note_kv_corruption(self, tier: str, h: int) -> None:
+        """Attribute a quarantined block (TorchEngine._note_kv_corruption
+        parity).  The capacity sim already recorded the ledger violation
+        + quarantine op; this keeps the engine-level counter the worker
+        exports as dynamo_kv_integrity_failures_total."""
+        key = (tier, "quarantine")
+        self.kv_integrity[key] = self.kv_integrity.get(key, 0) + 1
+
     def kv_integrity_counters(self) -> dict:
-        """(tier, action) -> count, the row shape
-        JaxEngine.kv_integrity_counters() returns: always empty here, as
-        only JAX's chaos seam fails a simulated lookup or corrupts a
-        blob."""
-        return {}
+        """(tier, action) -> count, merging the sim's G4 I/O failures —
+        the same row shape TorchEngine.kv_integrity_counters() returns."""
+        out = dict(self.kv_integrity)
+        for action, n in self.cache.io_failures.items():
+            if n:
+                out[("g4", action)] = out.get(("g4", action), 0) + n
+        return out
 
     def tier_states(self) -> dict:
         """tier -> breaker state (TieredKvManager.tier_states parity)."""

@@ -1,5 +1,5 @@
 """Simulated paged KV cache with prefix caching and LRU eviction, a copy
-of dynamo_tpu/mocker/kv_cache_sim.py without its chaos seam.
+of dynamo_tpu/mocker/kv_cache_sim.py.
 
 Block-granular cache keyed by PositionalLineageHash: an admitted
 sequence reuses cached full blocks (prefix cache hit), allocates fresh
@@ -14,10 +14,9 @@ admission onboards tier-resident blocks back into G1 instead of
 recomputing prefill, emitting the same per-tier event batches and
 ledger ops (stage/tier_evict/onboard/commit-with-parent) as
 engine/core.py, so the router's tiered index and the G4 residency
-policy run on the CPU.  The JAX module's G4 lookup runs through its
-chaos seam (`kvbm.object_io`: stalls charged as simulated I/O time,
-corrupt blobs quarantined); here a lookup asks the tier breaker and
-reads the store.
+policy run on the CPU.  A G4 lookup runs through the chaos seam
+(`kvbm.object_io`: stalls charged as simulated I/O time, corrupt blobs
+quarantined) and the tier breaker.
 """
 
 from __future__ import annotations
@@ -26,6 +25,8 @@ import time
 from collections import OrderedDict
 from dataclasses import dataclass, field
 from typing import Dict, List, Optional, Sequence, Tuple
+
+from .. import chaos
 
 
 class SimObjectStore:
@@ -111,7 +112,8 @@ class KvCacheSim:
     def __init__(self, num_blocks: int, enable_prefix_caching: bool = True,
                  kv_cache_dtype: str = "bf16", ledger=None,
                  host_blocks: int = 0, object_store=None,
-                 breaker=None):
+                 breaker=None, g4_deadline_s: float = 0.0,
+                 on_corruption=None):
         num_blocks = kv_dtype_capacity_blocks(num_blocks, kv_cache_dtype)
         self.kv_cache_dtype = kv_cache_dtype
         self.num_blocks = num_blocks
@@ -123,8 +125,19 @@ class KvCacheSim:
         self.host_blocks = max(0, host_blocks)
         self._g2: "OrderedDict[int, None]" = OrderedDict()
         self.g4 = object_store
-        # the tier breaker (kvbm/breaker.py) every G4 lookup asks
+        # KV-integrity parity (kvbm/breaker.py, chaos kvbm.object_io):
+        # every G4 lookup runs through the chaos seam + the tier
+        # breaker; a "stall" charges g4_deadline_s of simulated time to
+        # io_penalty_s (deadline-bounded give-up, no real sleep — the
+        # sim runs on the event loop) and the engine drains it into the
+        # step's onboard debt
         self.breaker = breaker
+        self.g4_deadline_s = float(g4_deadline_s)
+        self.on_corruption = on_corruption
+        self.io_penalty_s = 0.0
+        # G4 I/O failure counts by action, the sim analogue of
+        # TieredKvManager.io_failure_counters() rows
+        self.io_failures: Dict[str, int] = {}
         # block-lifecycle ledger (obs/kv_ledger.py), hash-keyed — sim
         # blocks have no physical identity; partial blocks record as
         # anonymous per-seq counts.  Same accounting contract as
@@ -201,17 +214,49 @@ class KvCacheSim:
         self._tier_event(out, [h], [], "g4")
 
     def _g4_lookup(self, h: int, out: CacheStepResult) -> bool:
-        """Probe the shared store through the tier breaker (an open
-        breaker prices G4 at recompute); the mount answered, so the
-        breaker records OK."""
+        """Probe the shared store with the real manager's integrity
+        semantics (kvbm/manager.py fetch, G4 branch): the lookup runs
+        through the kvbm.object_io chaos seam and the tier breaker.  An
+        injected "stall" models a hung shared mount — the sim charges
+        the I/O deadline to ``io_penalty_s`` (drained into the engine's
+        onboard debt) and gives up, feeding the breaker; "corrupt"
+        quarantines the blob fleet-wide, publishes removed(g4), and
+        attributes the corruption in the ledger — a data fault, so the
+        breaker records OK (the mount answered)."""
         if self.g4 is None:
             return False
         br = self.breaker
         if br is not None and not br.allow("g4"):
             return False
+        try:
+            act = chaos.hit("kvbm.object_io", key=f"get:{int(h):x}")
+        except chaos.ChaosError:
+            self.io_failures["error"] = self.io_failures.get("error", 0) + 1
+            if br is not None:
+                br.record_failure("g4")
+            return False
+        if act == "stall":
+            self.io_penalty_s += self.g4_deadline_s
+            self.io_failures["timeout"] = \
+                self.io_failures.get("timeout", 0) + 1
+            if br is not None:
+                br.record_failure("g4")
+            return False
+        present = h in self.g4
+        if act == "corrupt":
+            if present:
+                self.g4.quarantine(h)
+                self._tier_event(out, [], [h], "g4")
+                if self.ledger is not None:
+                    self.ledger.corruption("g4", h)
+                if self.on_corruption is not None:
+                    self.on_corruption("g4", h)
+            if br is not None:
+                br.record_ok("g4")
+            return False
         if br is not None:
             br.record_ok("g4")
-        return h in self.g4
+        return present
 
     @property
     def g2_blocks(self) -> int:

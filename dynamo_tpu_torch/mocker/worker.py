@@ -1,6 +1,6 @@
 """Mocker worker: registers a simulated engine as a Dynamo-style worker,
-a copy of dynamo_tpu/mocker/worker.py without its chaos seam
-(`worker.drain`, which wedged or failed a drain on a rule).
+a copy of dynamo_tpu/mocker/worker.py, with the same chaos seam
+(`worker.drain`, which wedges or fails a drain on a rule).
 
 The worker contract every backend implements: serve `generate` (+
 `clear_kv_blocks`, `kv_events_replay`, `embed`), publish the
@@ -495,8 +495,14 @@ class MockerWorker:
         co-resident workers on the same runtime keep serving."""
         import time
 
+        from .. import chaos
         from ..protocols.model_card import deregister_model
 
+        # chaos: a worker that ignores drain (wedge) or whose drain
+        # raises (fail) — the connector's bounded wait must escalate to
+        # stop and the in-flight streams migrate via token replay
+        await chaos.ahit("worker.drain", key=str(
+            self.served.instance_id if self.served is not None else ""))
         for eng in getattr(self, "engines", []):
             eng.draining = True
         if self.served is not None:

@@ -4,11 +4,11 @@ The counterpart of `python -m dynamo_tpu.multimodal`, with its flags and
 defaults and `--device`, CUDA by default (without CUDA it exits
 non-zero unless `--device cpu` asks for the CPU).  The encode fleet of
 encoder/decoder disaggregation; pair it with an LLM fleet serving the
-same --model-name behind the JAX frontend:
+same --model-name behind the port's frontend:
 
     python -m dynamo_tpu_torch.multimodal --model-name llava-x --encoder vit
     python -m dynamo_tpu_torch.engine --model-name llava-x
-    python -m dynamo_tpu.frontend
+    python -m dynamo_tpu_torch.frontend
 
 The runtime is configured from the `DYN_*` environment (runtime/config.py).
 Prints `ready instance_id=<id>` once registered; SIGTERM deregisters

@@ -1,9 +1,9 @@
 """Timeline tracing plane: span-attributed engine steps + flight recorder.
 
 A copy of dynamo_tpu/obs/__init__.py, so a torch worker's spans, Chrome
-trace dumps and flight-recorder files are the JAX worker's and the JAX
-report (`python -m dynamo_tpu.obs.report <dump...>`) reduces them
-unchanged.  Named spans on every engine phase, exported as a Chrome
+trace dumps and flight-recorder files are the JAX worker's, and the
+port's report (`python -m dynamo_tpu_torch.obs.report <dump...>`, a copy
+of JAX's) reduces them as JAX's does.  Named spans on every engine phase, exported as a Chrome
 trace, as per-kind duration histograms on /metrics (`bind_metrics`) and
 as the flight-recorder tail of /debug/state.
 

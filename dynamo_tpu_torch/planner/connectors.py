@@ -1,6 +1,6 @@
 """EXECUTE: connectors that change the fleet.
 
-A copy of dynamo_tpu/planner/connectors.py without its chaos seams.  The
+A copy of dynamo_tpu/planner/connectors.py.  The
 planner core never spawns anything itself; it hands a desired replica
 count to a connector.  CallbackConnector adapts any async spawn/stop
 pair (tests use it with in-process TorchEngineWorkers);
@@ -16,7 +16,8 @@ Robust actuation:
     get a bounded grace to finish or migrate via the frontend's
     token-replay path, and only then does the hard stop land
     (TERM→KILL for subprocesses, the ``stop`` callback for in-process
-    workers).  A worker that ignores drain is escalated past after the
+    workers).  A worker that ignores drain — chaos seam
+    ``worker.drain`` action ``wedge`` — is escalated past after the
     deadline; its streams migrate exactly like a crash, so scale-down
     during live traffic stays token-identical to a fault-free run.
 
@@ -26,6 +27,8 @@ Robust actuation:
     breaker that refuses spawns for a cool-off window (half-open after:
     one probe spawn, success closes it).  Without this a worker that
     dies at boot is silently respawned every planner tick, forever.
+    The chaos seam ``connector.spawn`` (action ``fail``) seeds exactly
+    that fault.
 """
 
 from __future__ import annotations
@@ -37,6 +40,8 @@ import signal
 import sys
 import time
 from typing import Awaitable, Callable, Dict, List, Optional, Sequence
+
+from .. import chaos
 
 logger = logging.getLogger(__name__)
 
@@ -154,8 +159,8 @@ class CallbackConnector(Connector):
     ``drain(replicas)`` scale-down drain-gated: the callback is awaited
     under ``drain_deadline_s + drain_escalate_margin_s`` (the worker's
     own drain bounds itself at deadline_s and then drain-aborts; the
-    margin only matters for a worker that IGNORES drain, which is
-    escalated straight to stop, counted in ``drain_escalations``)."""
+    margin only matters for a worker that IGNORES drain — chaos
+    ``worker.drain`` wedge — which is escalated straight to stop, counted in ``drain_escalations``)."""
 
     def __init__(self, spawn: Callable[[], Awaitable],
                  stop: Callable[[object], Awaitable[None]],
@@ -185,6 +190,8 @@ class CallbackConnector(Connector):
                     replicas)
                 break
             try:
+                await chaos.ahit("connector.spawn",
+                                 key=f"callback:{len(self.handles)}")
                 handle = await self._spawn()
             except Exception:
                 self.governor.record_failure()
@@ -207,8 +214,8 @@ class CallbackConnector(Connector):
                         self.drain_deadline_s
                         + self.drain_escalate_margin_s)
                 except Exception:
-                    # a drain that wedges or raises must not hold
-                    # RECONCILE hostage: escalate to the
+                    # a drain that wedges (chaos worker.drain) or raises
+                    # must not hold RECONCILE hostage: escalate to the
                     # hard stop — in-flight streams migrate via token
                     # replay exactly like a crash
                     self.drain_escalations += 1
@@ -300,6 +307,7 @@ class SubprocessConnector(Connector):
                                len(self.procs), replicas)
                 break
             try:
+                await chaos.ahit("connector.spawn", key=self.module)
                 proc = await self._spawn()
             except Exception:
                 self.governor.record_failure()

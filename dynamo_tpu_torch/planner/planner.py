@@ -1,7 +1,6 @@
 """The planner control loop: PROPOSE + RECONCILE around observe/predict.
 
-A copy of dynamo_tpu/planner/planner.py without its chaos seam.  Per
-tick:
+A copy of dynamo_tpu/planner/planner.py.  Per tick:
 
   1. OBSERVE   aggregate fleet load (planner/metrics.py) + the fleet
                introspection summary (obs/fleet.py) + the frontend SLO
@@ -26,8 +25,11 @@ tick:
 
 Actuation kinds (the `dynamo_planner_*` vocabulary): ``scale_up``,
 ``scale_down``, ``burn_up`` (a scale_up forced by burn), ``quarantine``,
-``requarantine``, ``readmit``, ``breaker_open``.  The tick's view is on
-the runtime's /debug/state under ``planner:{component}``.
+``requarantine``, ``readmit``, ``breaker_open``.  Chaos seams:
+``planner.scale`` wraps EXECUTE, ``connector.spawn`` / ``worker.drain``
+live in the connectors/workers (chaos/__init__.py registry).  The
+tick's view is on the runtime's /debug/state under
+``planner:{component}``.
 """
 
 from __future__ import annotations
@@ -40,7 +42,7 @@ from collections import deque
 from dataclasses import dataclass, field as dc_field
 from typing import Dict, List, Optional
 
-from .. import obs
+from .. import chaos, obs
 from .connectors import Connector
 from .metrics import FpmObserver, LoadObserver, SloObserver
 from .predictor import make_predictor
@@ -599,9 +601,12 @@ class Planner:
         step = max(-c.max_step, min(c.max_step, proposed - current))
         target = current + step
 
-        # EXECUTE (an actuation that raises fails this tick; the loop
-        # retries next tick since _last_action_t only advances after the
-        # connector call returns)
+        # EXECUTE — chaos seam first (fail = an actuation failure this
+        # tick; the loop retries next tick since _last_action_t only
+        # advances after the connector call returns)
+        await chaos.ahit(
+            "planner.scale",
+            key=f"{getattr(self, 'component', '')}:{current}->{target}")
         drain = (getattr(self.connector, "drain", None)
                  if c.drain_on_scale_down else None)
         if target < current and drain is not None:

@@ -1,7 +1,6 @@
 """Router replica synchronization.
 
-A copy of dynamo_tpu/router/replica_sync.py without its chaos seams
-(the port has no fault-injection plane).
+A copy of dynamo_tpu/router/replica_sync.py.
 
 Ref: lib/kv-router/src/sequences/replica_sync.rs and
 docs/design-docs/router-design.md:166-180.  Every frontend replica runs its
@@ -42,6 +41,8 @@ import os
 import time
 import uuid
 from typing import Dict, Optional, Set
+
+from .. import chaos
 
 logger = logging.getLogger(__name__)
 
@@ -211,6 +212,7 @@ class RouterReplicaSync:
             # the outbox's single-writer ordering keeps it consistent:
             # a free already queued ahead of this snapshot has already
             # popped its entry from _own
+            chaos.hit("router_sync.snapshot", key=peer)
             entries = [{"request_id": rid, **ent}
                        for rid, ent in self._own.items()]
             self._publish({"op": "snapshot", "to": peer,

@@ -1,6 +1,6 @@
 """Namespace → Component → Endpoint hierarchy + endpoint clients.
 
-A copy of dynamo_tpu/runtime/component.py (its chaos seam left out).  `Endpoint.serve_endpoint(handler)`
+A copy of dynamo_tpu/runtime/component.py.  `Endpoint.serve_endpoint(handler)`
 registers a streaming handler on the process's request-plane server and
 writes a lease-bound discovery entry (advertising the process's
 system-status address as `system_addr` when it serves one);
@@ -14,6 +14,7 @@ import asyncio
 import logging
 from typing import Any, AsyncIterator, Dict, Optional
 
+from .. import chaos
 from .cancellation import CancellationToken
 from .discovery import INSTANCE_PREFIX, Instance, WatchEvent, new_instance_id
 from .push_router import PushRouter, RouterMode
@@ -215,6 +216,10 @@ class Client:
             on_pick(inst.instance_id)
         self.router.on_dispatch(inst.instance_id)
         try:
+            # chaos seam: dispatch failure (instance picked but the
+            # stream never opens — the pick-vs-death race, injectable)
+            await chaos.ahit("request_plane.dispatch",
+                             key=f"{self.endpoint.path}:{inst.instance_id}")
             async for item in self.runtime.request_client.stream(
                 inst.address, self.endpoint.path, payload, ctx=ctx,
                 token=token, instance_id=inst.instance_id,

@@ -15,7 +15,7 @@ Backends:
     for multi-process single-host clusters;
   * EtcdDiscovery (runtime/etcd.py) and KubeDiscovery (runtime/kube.py),
     over the port's standard-library HTTP client (runtime/http.py).
-The JAX module's chaos seams are left out.  The planner's straggler
+The planner's straggler
 quarantine withdraws a worker on its behalf (`withdraw_instance`,
 `restore_instance`, `mark_quarantined`, `unmark_quarantined`), and the
 heartbeat honours the markers it writes; a `read_only` FileDiscovery
@@ -33,6 +33,8 @@ import secrets
 import time
 from dataclasses import dataclass, field
 from typing import Any, AsyncIterator, Callable, Dict, List, Optional, Tuple
+
+from .. import chaos
 
 logger = logging.getLogger(__name__)
 
@@ -159,7 +161,7 @@ class DiscoveryBackend:
     async def withdraw_lease(self) -> None:
         """Temporarily remove every leased key (unhealthy process);
         `restore_lease` re-registers them.  Failure-partway semantics
-        matter (a discovery outage causes them): keys stashed by an earlier
+        matter (the chaos suite injects them): keys stashed by an earlier
         partial attempt must survive a retry — they are no longer in
         `_owned_values` (delete() popped them), so resetting the stash
         here would lose their values forever."""
@@ -331,6 +333,7 @@ class MemDiscovery(DiscoveryBackend):
         self._owned_values: Dict[str, Dict[str, Any]] = {}
 
     async def put(self, key: str, value: Dict[str, Any], lease: bool = True) -> None:
+        await chaos.ahit("discovery.op", key=f"put:{key}")
         self._cluster.store[key] = value
         if lease:
             self._owned.add(key)
@@ -338,6 +341,7 @@ class MemDiscovery(DiscoveryBackend):
         self._cluster.notify(WatchEvent("put", key, value))
 
     async def delete(self, key: str) -> None:
+        await chaos.ahit("discovery.op", key=f"delete:{key}")
         self._cluster.store.pop(key, None)
         self._owned.discard(key)
         self._owned_values.pop(key, None)
@@ -345,6 +349,7 @@ class MemDiscovery(DiscoveryBackend):
         self._cluster.notify(WatchEvent("delete", key))
 
     async def get_prefix(self, prefix: str) -> Dict[str, Dict[str, Any]]:
+        await chaos.ahit("discovery.op", key=f"get:{prefix}")
         return {k: v for k, v in self._cluster.store.items() if k.startswith(prefix)}
 
     async def watch(
@@ -419,6 +424,17 @@ class FileDiscovery(DiscoveryBackend):
 
     async def _heartbeat_loop(self) -> None:
         while not self._closed.is_set():
+            try:
+                # chaos seam: a missed heartbeat beat — owned keys age
+                # toward TTL expiry exactly like a partitioned process
+                await chaos.ahit("discovery.lease", key=self.root)
+            except chaos.ChaosError:
+                try:
+                    await asyncio.wait_for(self._closed.wait(),
+                                           timeout=self.ttl_s / 3)
+                except asyncio.TimeoutError:
+                    pass
+                continue
             missing: List[str] = []
             for key in list(self._owned):
                 p = self._path(key)
@@ -478,6 +494,7 @@ class FileDiscovery(DiscoveryBackend):
                                exc_info=True)
 
     async def put(self, key: str, value: Dict[str, Any], lease: bool = True) -> None:
+        await chaos.ahit("discovery.op", key=f"put:{key}")
         await self.start()
         p = self._path(key)
 
@@ -497,6 +514,7 @@ class FileDiscovery(DiscoveryBackend):
             self._owned_values[key] = value
 
     async def delete(self, key: str) -> None:
+        await chaos.ahit("discovery.op", key=f"delete:{key}")
         self._owned.discard(key)
         self._owned_values.pop(key, None)
         self._forget_withdrawn(key)
@@ -535,6 +553,7 @@ class FileDiscovery(DiscoveryBackend):
         return out
 
     async def get_prefix(self, prefix: str) -> Dict[str, Dict[str, Any]]:
+        await chaos.ahit("discovery.op", key=f"get:{prefix}")
         return await asyncio.get_event_loop().run_in_executor(None, self._scan, prefix)
 
     async def watch(

@@ -17,8 +17,7 @@ uses aiohttp:
     revision; reconnects diff against the last known state so consumers
     never miss a delete across a gap
 
-The JAX module's chaos seams are left out.  Select with
-DYN_DISCOVERY_BACKEND=etcd DYN_ETCD_ENDPOINT=http://host:2379.
+Select with DYN_DISCOVERY_BACKEND=etcd DYN_ETCD_ENDPOINT=http://host:2379.
 """
 
 from __future__ import annotations
@@ -29,6 +28,7 @@ import json
 import logging
 from typing import Any, AsyncIterator, Dict, Optional
 
+from .. import chaos
 from .discovery import DiscoveryBackend, WatchEvent, diff_snapshot
 from .http import HttpClient
 from .retry import LEASE_POLICY, call_with_retry
@@ -115,6 +115,10 @@ class EtcdDiscovery(DiscoveryBackend):
             except asyncio.TimeoutError:
                 pass
             try:
+                # chaos seam: fail = a missed keepalive (transient
+                # outage); the loop's own retry-next-tick then covers
+                # recovery, and a long enough outage expires the lease
+                await chaos.ahit("discovery.lease", key=self.endpoint)
                 body = await self._call("/v3/lease/keepalive",
                                         {"ID": self.lease_id})
                 expired = int((body.get("result") or {}).get("TTL", 0)) <= 0
@@ -155,6 +159,7 @@ class EtcdDiscovery(DiscoveryBackend):
 
     async def put(self, key: str, value: Dict[str, Any],
                   lease: bool = True) -> None:
+        await chaos.ahit("discovery.op", key=f"put:{key}")
         await self.start()
         body = {
             "key": _b64(key.encode()),
@@ -166,6 +171,7 @@ class EtcdDiscovery(DiscoveryBackend):
         await self._call("/v3/kv/put", body)
 
     async def delete(self, key: str) -> None:
+        await chaos.ahit("discovery.op", key=f"delete:{key}")
         self._owned.pop(key, None)
         self._forget_withdrawn(key)
         await self._call("/v3/kv/deleterange", {"key": _b64(key.encode())})
@@ -186,6 +192,7 @@ class EtcdDiscovery(DiscoveryBackend):
         return kvs, revision
 
     async def get_prefix(self, prefix: str) -> Dict[str, Dict[str, Any]]:
+        await chaos.ahit("discovery.op", key=f"get:{prefix}")
         kvs, _ = await self._range(prefix)
         return kvs
 

@@ -1,7 +1,6 @@
 """TCP request plane: streaming RPC between frontend and workers.
 
-A copy of dynamo_tpu/runtime/request_plane.py (its chaos seams left
-out), with the same frames (`req`, `cancel`, `data`, `err`, `end`, codec.py)
+A copy of dynamo_tpu/runtime/request_plane.py, with the same frames (`req`, `cancel`, `data`, `err`, `end`, codec.py)
 and the same cancel/kill semantics, so a JAX frontend's client streams
 from a torch worker's server and back.  Server side: one shared TCP
 endpoint per process; registered handlers are async generators keyed by
@@ -19,6 +18,8 @@ import asyncio
 import logging
 import secrets
 from typing import Any, AsyncIterator, Callable, Dict, Optional, Tuple
+
+from .. import chaos
 
 from . import aio
 from .cancellation import CancellationToken
@@ -172,6 +173,16 @@ class RequestPlaneServer:
         ctx = RequestContext(rid, token, frame.get("ctx"))
         try:
             async for item in handler(frame.get("payload"), ctx):
+                if chaos.active() is not None:
+                    # chaos seam: per-frame fate — "drop" loses this
+                    # frame, "delay" stalls the stream, "truncate"/
+                    # "fail" raise (the client sees the same err frame
+                    # a dying worker would produce)
+                    fate = await chaos.ahit(
+                        "request_plane.frame",
+                        key=f"{path}:{frame.get('iid')}")
+                    if fate == "drop":
+                        continue
                 await send({"t": "data", "id": rid, "data": item})
                 if self.on_activity is not None:
                     self.on_activity(path, frame.get("iid"))

@@ -66,7 +66,10 @@ REQUIRED = ("models/loader.py", "models/weight_cache.py",
             "profiler/__init__.py", "profiler/profile.py",
             "profiler/__main__.py", "planner/predictor.py",
             "planner/perf_model.py", "planner/connectors.py",
-            "planner/planner.py", "planner/__main__.py", "obs/fleet.py")
+            "planner/planner.py", "planner/__main__.py", "obs/fleet.py",
+            "obs/report.py", "router/__main__.py", "chaos/__init__.py",
+            "operator/__init__.py", "operator/spec.py",
+            "operator/reconciler.py", "operator/__main__.py")
 # the KVBM tiers' fields (ported with kvbm/) and the knobs that came
 # with them, at the JAX engine's defaults
 KVBM_FIELDS = ("host_cache_blocks", "disk_cache_dir", "disk_cache_blocks",

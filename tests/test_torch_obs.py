@@ -26,6 +26,7 @@ import pytest
 from dynamo_tpu import obs as jax_obs
 from dynamo_tpu.obs.report import report_paths
 from dynamo_tpu_torch import obs
+from dynamo_tpu_torch.obs import report as port_report
 from dynamo_tpu_torch.runtime.logging import TraceIdFilter
 from dynamo_tpu_torch.runtime.metrics import MetricsHierarchy
 from test_torch_overlap import (
@@ -204,7 +205,10 @@ async def test_jax_report_partitions_a_torch_trace(tmp_path):
     finally:
         tr.uninstall()
     path = tr.dump()
-    gap = report_paths([path])["gap"]
+    rep = report_paths([path])
+    # the port's own report (a copy of JAX's) reduces it to the same
+    assert port_report.report_paths([path]) == rep
+    gap = rep["gap"]
     fr = gap["wall_fractions"]
     assert abs(sum(fr.values()) - 1.0) < 0.01
     named = sum(v for k, v in fr.items() if k != "idle")
